@@ -1,0 +1,123 @@
+"""sparse_dot_tpu_torch — the PyTorch/CUDA port of ``sparse_dot_tpu``.
+
+The same public surface as the JAX package, for one NVIDIA H100 (or the
+CPU): ``dot_product`` over scipy CSR/CSC/BSR and numpy dense operands in
+float32/float64/complex64/complex128, with the reference's ``cast``,
+``out``/``out_scalar`` and memory-order semantics.  SpMM and SpMV run on
+hand-written CUDA kernels for Hopper (``csrc/``): K1 BSR SpMM, K2 CSR
+SpMM and K3 CSR SpMV; dense GEMM runs on ``torch.matmul``.
+
+Tensors live on ``config.device`` ("cpu" by default, or "cuda")::
+
+    from sparse_dot_tpu_torch.config import config
+    config.device = "cuda"
+
+The drop-in aliases with the reference's ``*_mkl`` names are exported.
+SpGEMM, ``gram_matrix``, ``sparse_qr_solve``, ``sypr`` and the solvers
+are not ported yet (ROADMAP.md).  This package never imports JAX.
+"""
+
+from .config import (
+    __version__,
+    interface_integer_dtype,
+    set_interface_layer,
+)
+from . import backend
+from .backend import (
+    get_version,
+    get_version_string,
+    get_max_threads,
+    get_device_count,
+    set_num_threads,
+    set_num_threads_local,
+    free_buffers,
+)
+from .utils.debug import set_debug_mode, debug_print, debug_timer
+from .formats import (
+    CSR,
+    CSC,
+    BSR,
+    is_csr,
+    is_csc,
+    is_bsr,
+    issparse,
+    to_device,
+    from_arrays,
+)
+from .dispatch import dot_product
+
+dot_product_mkl = dot_product
+
+
+def mkl_get_version():
+    """7-tuple version info shaped like the reference's
+    ``mkl_get_version`` (major, minor, update, product status, build,
+    processor, platform)."""
+    import torch
+
+    parts = (torch.__version__.split("+")[0].split(".") + ["0", "0"])[:3]
+    v = get_version()
+    return (
+        int(parts[0]),
+        int(parts[1]),
+        int("".join(c for c in parts[2] if c.isdigit()) or 0),
+        "sparse_dot_tpu_torch",
+        v["framework_version"],
+        v["device_kind"],
+        v["platform"],
+    )
+
+
+def mkl_set_interface_layer(layer_code):
+    """Accepts the reference's interface-layer codes (ints) or the
+    LP64/ILP64 strings; raises ValueError otherwise."""
+    if isinstance(layer_code, int):
+        # MKL codes: 0/2 -> LP64 variants, 1/3 -> ILP64 variants.
+        return set_interface_layer("ILP64" if layer_code % 2 else "LP64")
+    return set_interface_layer(layer_code)
+
+
+mkl_get_version_string = get_version_string
+mkl_get_max_threads = get_max_threads
+mkl_set_num_threads = set_num_threads
+mkl_set_num_threads_local = set_num_threads_local
+mkl_interface_integer_dtype = interface_integer_dtype
+mkl_free_buffers = free_buffers
+
+__all__ = [
+    "__version__",
+    # canonical API
+    "dot_product",
+    "set_debug_mode",
+    "debug_print",
+    "debug_timer",
+    "set_interface_layer",
+    "interface_integer_dtype",
+    "get_version",
+    "get_version_string",
+    "get_max_threads",
+    "get_device_count",
+    "set_num_threads",
+    "set_num_threads_local",
+    "free_buffers",
+    # containers
+    "CSR",
+    "CSC",
+    "BSR",
+    "is_csr",
+    "is_csc",
+    "is_bsr",
+    "issparse",
+    "to_device",
+    "from_arrays",
+    # reference-compatible aliases
+    "dot_product_mkl",
+    "mkl_get_version",
+    "mkl_get_version_string",
+    "mkl_get_max_threads",
+    "mkl_set_num_threads",
+    "mkl_set_num_threads_local",
+    "mkl_set_interface_layer",
+    "mkl_interface_integer_dtype",
+    "mkl_free_buffers",
+]

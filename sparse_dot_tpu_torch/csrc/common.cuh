@@ -1,0 +1,111 @@
+// Shared pieces of the hand-written Hopper kernels: element arithmetic for
+// the four value types, the fused alpha/beta epilogue, and the switch from
+// the (dtype, index type) codes of the C interface to template instances.
+//
+// Every kernel here is built by ops/_build.py with
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+// into one shared library with a plain C interface, loaded through ctypes.
+// Each C entry point launches on the stream it is given, allocates nothing
+// and returns cudaGetLastError().
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+#include <cuda/std/complex>
+
+namespace sdt {
+
+using c64 = cuda::std::complex<float>;
+using c128 = cuda::std::complex<double>;
+
+// Codes shared with ops/_build.py (DTYPE_CODES, ITYPE_CODES).
+enum DTypeCode : int { kF32 = 0, kF64 = 1, kC64 = 2, kC128 = 3 };
+enum ITypeCode : int { kI32 = 0, kI64 = 1 };
+
+constexpr unsigned kFullMask = 0xffffffffu;
+
+__device__ __forceinline__ float fma_r(float a, float b, float c) {
+  return fmaf(a, b, c);
+}
+__device__ __forceinline__ double fma_r(double a, double b, double c) {
+  return ::fma(a, b, c);
+}
+
+// Element arithmetic.  Complex products use numpy's component formula
+// (no C99 Annex G inf/nan recovery), so results match the plain version.
+template <typename T>
+struct Arith {
+  __host__ __device__ static T make(double re, double) { return T(re); }
+  __device__ static T zero() { return T(0); }
+  __device__ static T fma(T a, T b, T c) { return fma_r(a, b, c); }  // c + a*b
+  __device__ static T mul(T a, T b) { return a * b; }
+  __device__ static T add(T a, T b) { return a + b; }
+  __device__ static T shfl(T v, int src, int width = 32) {
+    return __shfl_sync(kFullMask, v, src, width);
+  }
+  __device__ static T shfl_down(T v, unsigned delta, int width = 32) {
+    return __shfl_down_sync(kFullMask, v, delta, width);
+  }
+};
+
+template <typename R>
+struct Arith<cuda::std::complex<R>> {
+  using T = cuda::std::complex<R>;
+  __host__ __device__ static T make(double re, double im) {
+    return T(static_cast<R>(re), static_cast<R>(im));
+  }
+  __device__ static T zero() { return T(R(0), R(0)); }
+  __device__ static T fma(T a, T b, T c) {
+    const R re = fma_r(a.real(), b.real(), fma_r(-a.imag(), b.imag(), c.real()));
+    const R im = fma_r(a.real(), b.imag(), fma_r(a.imag(), b.real(), c.imag()));
+    return T(re, im);
+  }
+  __device__ static T mul(T a, T b) {
+    return T(a.real() * b.real() - a.imag() * b.imag(),
+             a.real() * b.imag() + a.imag() * b.real());
+  }
+  __device__ static T add(T a, T b) {
+    return T(a.real() + b.real(), a.imag() + b.imag());
+  }
+  __device__ static T shfl(T v, int src, int width = 32) {
+    return T(__shfl_sync(kFullMask, v.real(), src, width),
+             __shfl_sync(kFullMask, v.imag(), src, width));
+  }
+  __device__ static T shfl_down(T v, unsigned delta, int width = 32) {
+    return T(__shfl_down_sync(kFullMask, v.real(), delta, width),
+             __shfl_down_sync(kFullMask, v.imag(), delta, width));
+  }
+};
+
+// alpha * acc + beta * c0[idx]: the out/out_scalar accumulate of
+// dot_product, fused into the store.  c0 == nullptr drops the beta term;
+// scale == false skips the multiply by alpha == 1 (so inf/nan in acc do
+// not meet a zero imaginary part).
+template <typename T>
+__device__ __forceinline__ T epilogue(T acc, const T* __restrict__ c0,
+                                      int64_t idx, T alpha, T beta,
+                                      bool scale) {
+  T v = scale ? Arith<T>::mul(alpha, acc) : acc;
+  if (c0 != nullptr) v = Arith<T>::fma(beta, c0[idx], v);
+  return v;
+}
+
+inline bool is_one(double re, double im) { return re == 1.0 && im == 0.0; }
+
+}  // namespace sdt
+
+// Expands to a switch that calls FN<T, I>(args...) for the element type
+// code DT and the index type code IT, and returns cudaErrorInvalidValue for
+// codes it does not know.
+#define SDT_DISPATCH(DT, IT, FN, ...)                                      \
+  switch ((DT) * 2 + (IT)) {                                               \
+    case sdt::kF32 * 2 + sdt::kI32: return FN<float, int32_t>(__VA_ARGS__); \
+    case sdt::kF32 * 2 + sdt::kI64: return FN<float, int64_t>(__VA_ARGS__); \
+    case sdt::kF64 * 2 + sdt::kI32: return FN<double, int32_t>(__VA_ARGS__); \
+    case sdt::kF64 * 2 + sdt::kI64: return FN<double, int64_t>(__VA_ARGS__); \
+    case sdt::kC64 * 2 + sdt::kI32: return FN<sdt::c64, int32_t>(__VA_ARGS__); \
+    case sdt::kC64 * 2 + sdt::kI64: return FN<sdt::c64, int64_t>(__VA_ARGS__); \
+    case sdt::kC128 * 2 + sdt::kI32: return FN<sdt::c128, int32_t>(__VA_ARGS__); \
+    case sdt::kC128 * 2 + sdt::kI64: return FN<sdt::c128, int64_t>(__VA_ARGS__); \
+    default: return cudaErrorInvalidValue;                                 \
+  }

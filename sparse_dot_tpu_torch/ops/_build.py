@@ -1,0 +1,167 @@
+"""Build and load the hand-written CUDA kernels of ``csrc/``.
+
+The JAX package compiled its device code through XLA; the port's kernels
+are CUDA C++ for Hopper (``sm_90a``), compiled at first use with
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -o libsdt_kernels_<hash>.so csrc/*.cu
+
+into one shared library with a plain C interface, loaded with ``ctypes``
+(no PyTorch headers, so the build takes seconds).  The library's name
+carries a hash of the sources and flags, so a changed source rebuilds.
+It goes to ``build/sparse_dot_tpu_torch/`` at the root of the checkout,
+or to ``$SPARSE_DOT_BUILD_DIR``.  Nothing is built when the module is
+imported; ``library()`` builds on its first call.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+# Element / index type codes of the C interface (csrc/common.cuh).
+DTYPE_CODES = {
+    torch.float32: 0,
+    torch.float64: 1,
+    torch.complex64: 2,
+    torch.complex128: 3,
+}
+ITYPE_CODES = {torch.int32: 0, torch.int64: 1}
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_D = ctypes.c_double
+_INT = ctypes.c_int
+# Every pointer and the stream are c_void_p: ctypes would cut a Python
+# int passed as a plain int to 32 bits.
+_PROTOTYPES = {
+    # dtype, itype, indptr, indices, data, b, c0, c, m, n,
+    # alpha_re, alpha_im, beta_re, beta_im, stream
+    "sdt_csr_spmm": (_INT, _INT, _P, _P, _P, _P, _P, _P, _I64, _I64,
+                     _D, _D, _D, _D, _P),
+    # dtype, itype, indptr, indices, data, x, y0, y, m, lanes,
+    # alpha_re, alpha_im, beta_re, beta_im, stream
+    "sdt_csr_spmv": (_INT, _INT, _P, _P, _P, _P, _P, _P, _I64, _INT,
+                     _D, _D, _D, _D, _P),
+    # dtype, itype, indptr, indices, data, b, c0, c, nbrows, bs, n,
+    # alpha_re, alpha_im, beta_re, beta_im, stream
+    "sdt_bsr_spmm": (_INT, _INT, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
+                     _D, _D, _D, _D, _P),
+}
+
+_lib = None
+build_seconds = None  # wall time of the nvcc run, None when none ran
+
+
+def sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def source_hash():
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources():
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build_dir():
+    env = os.environ.get("SPARSE_DOT_BUILD_DIR")
+    if env:
+        return Path(env)
+    return CSRC.parent.parent / "build" / "sparse_dot_tpu_torch"
+
+
+def _nvcc():
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    candidates = [Path(home) / "bin" / "nvcc"] if home else []
+    found = shutil.which("nvcc")
+    if found:
+        candidates.append(Path(found))
+    candidates.append(Path("/usr/local/cuda/bin/nvcc"))
+    for path in candidates:
+        if path.is_file():
+            return str(path)
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin, PATH and "
+        "/usr/local/cuda/bin); the CUDA kernels cannot be built"
+    )
+
+
+def _compile(target):
+    global build_seconds
+    target.parent.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(p) for p in sources() if p.suffix == ".cu"]]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}"
+        )
+    build_seconds = time.perf_counter() - t0
+    os.replace(tmp, target)  # atomic: a concurrent build cannot tear it
+
+
+def library():
+    """The loaded kernel library, built from ``csrc/`` on first use."""
+    global _lib
+    if _lib is None:
+        target = build_dir() / f"libsdt_kernels_{source_hash()}.so"
+        if not target.exists():
+            _compile(target)
+        lib = ctypes.CDLL(str(target))
+        for name, argtypes in _PROTOTYPES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.sdt_error_string.argtypes = (ctypes.c_int,)
+        lib.sdt_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def launch(name, *args):
+    """Call the C entry point ``name``; raise if the launch failed."""
+    err = getattr(library(), name)(*args)
+    if err != 0:
+        msg = library().sdt_error_string(err).decode()
+        raise RuntimeError(f"{name} failed: CUDA error {err} ({msg})")
+
+
+def stream_of(tensor):
+    return torch.cuda.current_stream(tensor.device).cuda_stream
+
+
+def type_codes(data, index):
+    """(dtype code, index code) of the C interface; raises for types the
+    kernels do not take."""
+    if data.dtype not in DTYPE_CODES:
+        raise TypeError(f"kernels take float32/float64/complex64/"
+                        f"complex128 values, not {data.dtype}")
+    if index.dtype not in ITYPE_CODES:
+        raise TypeError(f"kernels take int32/int64 indices, not "
+                        f"{index.dtype}")
+    return DTYPE_CODES[data.dtype], ITYPE_CODES[index.dtype]
+
+
+def scalar_parts(x):
+    """(re, im) doubles of a Python or numpy scalar (None -> (1, 0))."""
+    if x is None:
+        return 1.0, 0.0
+    z = complex(x)
+    return z.real, z.imag

@@ -1,0 +1,152 @@
+"""CSR SpMM (kernel K2) and CSR SpMV (kernel K3).
+
+Each wrapper takes the CSR arrays of op(A) and a dense operand.  On a
+CUDA tensor it launches the hand-written kernel (``csrc/csr_spmm.cu``,
+``csrc/csr_spmv.cu``) or raises; on a CPU tensor it runs the plain
+PyTorch version beside it, which is also what the kernel is checked
+against on the card.  ``<wrapper>.launches`` counts kernel launches.
+
+K2 replaces the TPU's CSR SpMM family in ``sparse_dot_tpu/ops/_xla.py``
+(``ell_spmm_binned``, ``ell_spmm``, ``coo_spmm``) and the Pallas probes
+in ``experiments/exp_pallas_gather.py`` and
+``experiments/exp_pallas_ell_small.py``; K3 replaces ``_xla.ell_spmv``
+and ``_xla.coo_spmv``.  Both kernels are bound by the bytes they gather
+(B's rows, x's elements) at the main path's densities; the notes at the
+top of each ``.cu`` file say how their designs meet that.
+"""
+
+import torch
+
+from ..config import config
+from ..formats import expand_indptr
+from . import _build
+from .dense import axpby
+
+
+def _check(name, index_tensors, value_tensors, optional=()):
+    """Same CUDA device, contiguous, one index dtype and one value dtype."""
+    tensors = [*index_tensors, *value_tensors,
+               *(t for t in optional if t is not None)]
+    device = value_tensors[0].device
+    for t in tensors:
+        if t.device != device:
+            raise ValueError(f"{name}: tensors on {t.device} and {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous")
+    if any(t.dtype != index_tensors[0].dtype for t in index_tensors):
+        raise TypeError(f"{name}: indptr and indices dtypes differ")
+    values = [*value_tensors, *(t for t in optional if t is not None)]
+    if any(t.dtype != values[0].dtype for t in values):
+        raise TypeError(f"{name}: value dtypes differ")
+
+
+# ---------------------------------------------------------------------------
+# K2: CSR SpMM
+# ---------------------------------------------------------------------------
+
+
+def csr_spmm_plain(indptr, indices, data, b, alpha=None, beta=None, c0=None):
+    """``alpha * A @ b + beta * c0`` in plain PyTorch: gather the B rows
+    of each nonzero, scale, ``index_add_`` into the rows of C (the
+    ``_xla.coo_spmm`` scatter), chunked over nnz so the gathered
+    intermediate stays under ``config.spmm_chunk_elements`` elements."""
+    m, n = indptr.numel() - 1, b.shape[1]
+    nnz = indices.numel()
+    c = torch.zeros((m, n), dtype=b.dtype, device=b.device)
+    if nnz and n:
+        rows = expand_indptr(indptr, nnz)
+        nchunks = max(1, (nnz * n) // config.spmm_chunk_elements)
+        chunk = -(-nnz // nchunks)
+        for s in range(0, nnz, chunk):
+            e = min(s + chunk, nnz)
+            gathered = data[s:e, None] * b[indices[s:e].long()]
+            c.index_add_(0, rows[s:e], gathered)
+    return axpby(c, alpha, beta, c0)
+
+
+def csr_spmm(indptr, indices, data, b, alpha=None, beta=None, c0=None):
+    """``alpha * A @ b + beta * c0`` for CSR A (``indptr`` of m + 1,
+    ``indices``, ``data``) and row-major ``b`` of (k, n); ``c0`` is (m, n)
+    or None.  Returns a new (m, n) tensor."""
+    if b.device.type == "cpu":
+        return csr_spmm_plain(indptr, indices, data, b, alpha, beta, c0)
+    if not b.is_cuda:
+        raise ValueError(f"csr_spmm: no kernel for device {b.device}")
+    _check("csr_spmm", (indptr, indices), (data, b), (c0,))
+    m, n = indptr.numel() - 1, b.shape[1]
+    if c0 is not None and tuple(c0.shape) != (m, n):
+        raise ValueError(f"csr_spmm: c0 is {tuple(c0.shape)}, need {(m, n)}")
+    c = torch.empty((m, n), dtype=b.dtype, device=b.device)
+    if m == 0 or n == 0:
+        return c
+    dt, it = _build.type_codes(data, indptr)
+    _build.launch(
+        "sdt_csr_spmm", dt, it, indptr.data_ptr(), indices.data_ptr(),
+        data.data_ptr(), b.data_ptr(),
+        None if c0 is None else c0.data_ptr(), c.data_ptr(), m, n,
+        *_build.scalar_parts(alpha),
+        *_build.scalar_parts(0.0 if c0 is None else beta),
+        _build.stream_of(b),
+    )
+    csr_spmm.launches += 1
+    return c
+
+
+csr_spmm.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K3: CSR SpMV
+# ---------------------------------------------------------------------------
+
+
+def csr_spmv_plain(indptr, indices, data, x, alpha=None, beta=None, y0=None):
+    """``alpha * A @ x + beta * y0`` in plain PyTorch: gather, scale and
+    ``index_add_`` by row (the ``_xla.coo_spmv`` scatter)."""
+    m = indptr.numel() - 1
+    y = torch.zeros((m,), dtype=x.dtype, device=x.device)
+    nnz = indices.numel()
+    if nnz:
+        y.index_add_(0, expand_indptr(indptr, nnz), data * x[indices.long()])
+    return axpby(y, alpha, beta, y0)
+
+
+def spmv_lanes(m, nnz):
+    """Lanes per row for K3: the power of two in [4, 32] nearest above
+    the mean row length."""
+    mean = nnz / max(m, 1)
+    lanes = 4
+    while lanes < 32 and lanes < mean:
+        lanes *= 2
+    return lanes
+
+
+def csr_spmv(indptr, indices, data, x, alpha=None, beta=None, y0=None):
+    """``alpha * A @ x + beta * y0`` for CSR A and 1-d ``x`` of (k,);
+    ``y0`` is (m,) or None.  Returns a new (m,) tensor."""
+    if x.device.type == "cpu":
+        return csr_spmv_plain(indptr, indices, data, x, alpha, beta, y0)
+    if not x.is_cuda:
+        raise ValueError(f"csr_spmv: no kernel for device {x.device}")
+    _check("csr_spmv", (indptr, indices), (data, x), (y0,))
+    m = indptr.numel() - 1
+    if x.dim() != 1 or (y0 is not None and tuple(y0.shape) != (m,)):
+        raise ValueError("csr_spmv: x and y0 must be 1-d, y0 of length m")
+    y = torch.empty((m,), dtype=x.dtype, device=x.device)
+    if m == 0:
+        return y
+    dt, it = _build.type_codes(data, indptr)
+    _build.launch(
+        "sdt_csr_spmv", dt, it, indptr.data_ptr(), indices.data_ptr(),
+        data.data_ptr(), x.data_ptr(),
+        None if y0 is None else y0.data_ptr(), y.data_ptr(), m,
+        spmv_lanes(m, indices.numel()),
+        *_build.scalar_parts(alpha),
+        *_build.scalar_parts(0.0 if y0 is None else beta),
+        _build.stream_of(x),
+    )
+    csr_spmv.launches += 1
+    return y
+
+
+csr_spmv.launches = 0

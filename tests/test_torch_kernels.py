@@ -1,0 +1,349 @@
+"""The port's kernel modules against the JAX package's functions.
+
+Each module of ``sparse_dot_tpu_torch.ops`` that holds a kernel (K1 BSR
+SpMM in ``bsr``, K2 CSR SpMM and K3 CSR SpMV in ``csr``) and the dense
+GEMM are run on the CPU, where the wrappers take their plain PyTorch
+versions, on inputs made from a seed with numpy and given to both
+packages.  The JAX side is the Pallas kernel in interpret mode, or the
+XLA function it falls back to.  The CUDA kernels themselves are checked
+against these plain versions on the card by ``chip_smoke.py``.
+
+Tolerances: rtol = atol = 1e-12 for float64/complex128 and 1e-5 for
+float32/complex64, on values of order 1; the two sides sum in different
+orders.
+"""
+
+import numpy as np
+import numpy.testing as npt
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import sparse_dot_tpu  # noqa: F401  (enables x64 before any JAX array)
+from sparse_dot_tpu.ops import _xla
+from sparse_dot_tpu.ops.pallas_bsr import bsr_spmm_pallas
+
+from sparse_dot_tpu_torch.config import config
+from sparse_dot_tpu_torch.ops import _build, bsr, csr, dense
+
+DTYPES = [np.float32, np.float64, np.complex64, np.complex128]
+TOL = {
+    np.dtype(np.float32): 1e-5,
+    np.dtype(np.complex64): 1e-5,
+    np.dtype(np.float64): 1e-12,
+    np.dtype(np.complex128): 1e-12,
+}
+
+
+def assert_close(port, ref, dtype):
+    tol = TOL[np.dtype(dtype)]
+    port = port.numpy() if isinstance(port, torch.Tensor) else port
+    npt.assert_allclose(port, np.asarray(ref), rtol=tol, atol=tol)
+
+
+def values(rng, size, dtype, scale=1.0):
+    v = rng.standard_normal(size)
+    if np.dtype(dtype).kind == "c":
+        v = v + 1j * rng.standard_normal(size)
+    return (v * scale).astype(dtype)
+
+
+def random_csr(rng, m, k, mean_row, dtype, empty_every=4):
+    """indptr, indices, data: Poisson rows, every ``empty_every``-th row
+    empty, unsorted and possibly repeated columns."""
+    lengths = rng.poisson(mean_row, m)
+    if empty_every:
+        lengths[::empty_every] = 0
+    indptr = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int32)
+    nnz = int(indptr[-1])
+    indices = rng.integers(0, k, nnz).astype(np.int32)
+    data = values(rng, nnz, dtype, 1.0 / np.sqrt(max(mean_row, 1)))
+    return indptr, indices, data
+
+
+def row_ids(indptr):
+    return np.repeat(np.arange(len(indptr) - 1), np.diff(indptr)).astype(
+        np.int32
+    )
+
+
+def ell_arrays(indptr, indices, data):
+    """Per-row padded (ELL) layout, padding with column 0 and value 0."""
+    m = len(indptr) - 1
+    rmax = max(int(np.diff(indptr).max()) if m else 0, 1)
+    cols = np.zeros((m, rmax), np.int32)
+    vals = np.zeros((m, rmax), data.dtype)
+    for r in range(m):
+        s, e = indptr[r], indptr[r + 1]
+        cols[r, : e - s] = indices[s:e]
+        vals[r, : e - s] = data[s:e]
+    return cols, vals
+
+
+def t(arr):
+    return torch.from_numpy(np.ascontiguousarray(arr))
+
+
+# ---------------------------------------------------------------------------
+# K1: BSR SpMM
+# ---------------------------------------------------------------------------
+
+
+def random_bsr(rng, nbrows, nbcols, bs, dtype, per_row=2):
+    lengths = rng.poisson(per_row, nbrows)
+    lengths[1] = 0  # one empty block row at least
+    indptr = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int32)
+    nblocks = int(indptr[-1])
+    indices = rng.integers(0, nbcols, nblocks).astype(np.int32)
+    data = values(rng, (nblocks, bs, bs), dtype, 1.0 / np.sqrt(bs))
+    return indptr, indices, data
+
+
+@pytest.mark.parametrize("accumulate", [False, True])
+def test_bsr_plain_matches_pallas_kernel(accumulate):
+    rng = np.random.default_rng(11)
+    bs, nbrows, nbcols, n = 8, 8, 10, 128
+    indptr, indices, data = random_bsr(rng, nbrows, nbcols, bs, np.float32)
+    b = values(rng, (nbcols * bs, n), np.float32)
+    c0 = values(rng, (nbrows * bs, n), np.float32)
+    alpha, beta = (0.5, 2.0) if accumulate else (None, None)
+    cc = c0 if accumulate else None
+    ref = bsr_spmm_pallas(
+        jnp.asarray(row_ids(indptr)), jnp.asarray(indices),
+        jnp.asarray(data), jnp.asarray(b), m=nbrows * bs, bs=bs,
+        interpret=True, alpha=alpha, beta=beta,
+        c0=None if cc is None else jnp.asarray(cc),
+    )
+    port = bsr.bsr_spmm(t(indptr), t(indices), t(data), t(b), alpha, beta,
+                        None if cc is None else t(cc))
+    assert_close(port, ref, np.float32)
+    npt.assert_array_equal(port.numpy()[bs:2 * bs],
+                           (beta * c0[bs:2 * bs]) if accumulate else 0.0)
+
+
+@pytest.mark.parametrize("bs", [1, 3, 16])
+@pytest.mark.parametrize("dtype", [np.float64, np.complex128])
+@pytest.mark.parametrize("accumulate", [False, True])
+def test_bsr_plain_matches_xla_bsr_spmm(bs, dtype, accumulate):
+    rng = np.random.default_rng(12)
+    nbrows, nbcols, n = 7, 5, 9
+    indptr, indices, data = random_bsr(rng, nbrows, nbcols, bs, dtype)
+    b = values(rng, (nbcols * bs, n), dtype)
+    c0 = values(rng, (nbrows * bs, n), dtype)
+    alpha, beta, cc = (2.0, -0.5, c0) if accumulate else (None, None, None)
+    ref = _xla.bsr_spmm(
+        jnp.asarray(data), jnp.asarray(row_ids(indptr)), jnp.asarray(indices),
+        jnp.asarray(b), m=nbrows * bs, alpha=alpha, beta=beta,
+        c0=None if cc is None else jnp.asarray(cc),
+    )
+    port = bsr.bsr_spmm(t(indptr), t(indices), t(data), t(b), alpha, beta,
+                        None if cc is None else t(cc))
+    assert_close(port, ref, dtype)
+
+
+def test_bsr_plain_no_blocks():
+    indptr = np.zeros(4, np.int32)
+    data = np.zeros((0, 4, 4))
+    b = np.ones((8, 5))
+    c0 = np.full((12, 5), 3.0)
+    out = bsr.bsr_spmm(t(indptr), t(np.zeros(0, np.int32)), t(data), t(b),
+                       None, 2.0, t(c0))
+    npt.assert_array_equal(out.numpy(), 6.0)
+
+
+# ---------------------------------------------------------------------------
+# K2: CSR SpMM
+# ---------------------------------------------------------------------------
+
+
+CSR_CASES = [
+    # m, k, n, mean row length
+    (40, 30, 7, 5),
+    (33, 50, 64, 12),
+    (20, 20, 3, 0),  # nnz == 0
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", CSR_CASES)
+@pytest.mark.parametrize("accumulate", [False, True])
+def test_csr_spmm_plain_matches_coo_spmm(dtype, case, accumulate):
+    m, k, n, mean_row = case
+    rng = np.random.default_rng(21)
+    indptr, indices, data = random_csr(rng, m, k, mean_row, dtype)
+    b = values(rng, (k, n), dtype)
+    c0 = values(rng, (m, n), dtype)
+    alpha, beta = (0.5, 2.0) if accumulate else (1.0, 0.0)
+    cc = c0 if accumulate else None
+    ref = _xla.coo_spmm(
+        jnp.asarray(row_ids(indptr)), jnp.asarray(indices),
+        jnp.asarray(data), jnp.asarray(b), m, k, alpha=alpha, beta=beta,
+        c0=None if cc is None else jnp.asarray(cc), densify_ok=False,
+    )
+    port = csr.csr_spmm(t(indptr), t(indices), t(data), t(b),
+                        alpha if accumulate else None,
+                        beta if accumulate else None,
+                        None if cc is None else t(cc))
+    assert_close(port, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("accumulate", [False, True])
+def test_csr_spmm_plain_matches_ell_spmm(dtype, accumulate):
+    rng = np.random.default_rng(22)
+    m, k, n = 37, 45, 20
+    indptr, indices, data = random_csr(rng, m, k, 6, dtype)
+    cols, vals = ell_arrays(indptr, indices, data)
+    b = values(rng, (k, n), dtype)
+    c0 = values(rng, (m, n), dtype)
+    alpha, beta, cc = (-1.5, 0.25, c0) if accumulate else (None, None, None)
+    ref = _xla.ell_spmm(
+        jnp.asarray(cols), jnp.asarray(vals), jnp.asarray(b), alpha=alpha,
+        beta=beta, c0=None if cc is None else jnp.asarray(cc),
+    )
+    port = csr.csr_spmm(t(indptr), t(indices), t(data), t(b), alpha, beta,
+                        None if cc is None else t(cc))
+    assert_close(port, ref, dtype)
+
+
+def test_csr_spmm_plain_chunking(monkeypatch):
+    """The plain SpMM chunks over nnz like ``_xla.coo_spmm``; chunked and
+    one-shot agree."""
+    rng = np.random.default_rng(23)
+    indptr, indices, data = random_csr(rng, 50, 40, 8, np.float64)
+    b = values(rng, (40, 16), np.float64)
+    whole = csr.csr_spmm(t(indptr), t(indices), t(data), t(b))
+    monkeypatch.setattr(config, "spmm_chunk_elements", 100)
+    chunked = csr.csr_spmm(t(indptr), t(indices), t(data), t(b))
+    assert_close(chunked, whole.numpy(), np.float64)
+
+
+# ---------------------------------------------------------------------------
+# K3: CSR SpMV
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("mean_row", [0, 3, 20])
+@pytest.mark.parametrize("accumulate", [False, True])
+def test_csr_spmv_plain_matches_coo_spmv(dtype, mean_row, accumulate):
+    rng = np.random.default_rng(31)
+    m, k = 45, 38
+    indptr, indices, data = random_csr(rng, m, k, mean_row, dtype)
+    x = values(rng, k, dtype)
+    y0 = values(rng, m, dtype)
+    alpha, beta = (2.0, -1.0) if accumulate else (1.0, 0.0)
+    yy = y0 if accumulate else None
+    ref = _xla.coo_spmv(
+        jnp.asarray(row_ids(indptr)), jnp.asarray(indices),
+        jnp.asarray(data), jnp.asarray(x), m=m, alpha=alpha, beta=beta,
+        y0=None if yy is None else jnp.asarray(yy),
+    )
+    port = csr.csr_spmv(t(indptr), t(indices), t(data), t(x),
+                        alpha if accumulate else None,
+                        beta if accumulate else None,
+                        None if yy is None else t(yy))
+    assert_close(port, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_csr_spmv_plain_matches_ell_spmv(dtype):
+    rng = np.random.default_rng(32)
+    m, k = 29, 41
+    indptr, indices, data = random_csr(rng, m, k, 5, dtype)
+    cols, vals = ell_arrays(indptr, indices, data)
+    x = values(rng, k, dtype)
+    y0 = values(rng, m, dtype)
+    ref = _xla.ell_spmv(jnp.asarray(cols), jnp.asarray(vals), jnp.asarray(x),
+                        alpha=0.5, beta=3.0, y0=jnp.asarray(y0))
+    port = csr.csr_spmv(t(indptr), t(indices), t(data), t(x), 0.5, 3.0,
+                        t(y0))
+    assert_close(port, ref, dtype)
+
+
+@pytest.mark.parametrize("m, nnz, lanes", [
+    (100, 0, 4), (100, 300, 4), (100, 500, 8), (100, 1000, 16),
+    (100, 1600, 16), (100, 1601, 32), (100, 10**5, 32), (0, 0, 4),
+])
+def test_spmv_lanes(m, nnz, lanes):
+    assert csr.spmv_lanes(m, nnz) == lanes
+
+
+# ---------------------------------------------------------------------------
+# Dense GEMM
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("accumulate", [False, True])
+def test_gemm_matches_xla_gemm(dtype, accumulate):
+    rng = np.random.default_rng(41)
+    a = values(rng, (13, 17), dtype)
+    b = values(rng, (17, 6), dtype)
+    c0 = values(rng, (13, 6), dtype)
+    alpha, beta, cc = (3.0, 0.5, c0) if accumulate else (1.0, 0.0, None)
+    ref = _xla.gemm(jnp.asarray(a), jnp.asarray(b), alpha=alpha, beta=beta,
+                    c0=None if cc is None else jnp.asarray(cc),
+                    allow_hilo=False)
+    port = dense.gemm(t(a), t(b), alpha=alpha, beta=beta,
+                      c0=None if cc is None else t(cc))
+    assert_close(port, ref, dtype)
+
+
+# ---------------------------------------------------------------------------
+# Wrapper dispatch and the build's bookkeeping
+# ---------------------------------------------------------------------------
+
+
+def test_cpu_tensors_take_plain_version_without_counting():
+    rng = np.random.default_rng(51)
+    indptr, indices, data = random_csr(rng, 10, 8, 3, np.float64)
+    b = values(rng, (8, 4), np.float64)
+    before = (csr.csr_spmm.launches, csr.csr_spmv.launches,
+              bsr.bsr_spmm.launches)
+    out = csr.csr_spmm(t(indptr), t(indices), t(data), t(b))
+    assert_close(out, csr.csr_spmm_plain(t(indptr), t(indices), t(data),
+                                         t(b)).numpy(), np.float64)
+    csr.csr_spmv(t(indptr), t(indices), t(data), t(b[:, 0]))
+    bsr.bsr_spmm(t(indptr), t(indices), t(data.reshape(-1, 1, 1)), t(b))
+    assert (csr.csr_spmm.launches, csr.csr_spmv.launches,
+            bsr.bsr_spmm.launches) == before
+
+
+@pytest.mark.parametrize("wrapper, nargs", [
+    (csr.csr_spmm, 4), (csr.csr_spmv, 4), (bsr.bsr_spmm, 4),
+])
+def test_wrappers_refuse_other_devices(wrapper, nargs):
+    """Neither CPU nor CUDA: no plain fallback."""
+    meta = torch.empty(4, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        wrapper(*([meta] * nargs))
+
+
+def test_type_codes_reject_other_types():
+    with pytest.raises(TypeError):
+        _build.type_codes(torch.zeros(2, dtype=torch.float16),
+                          torch.zeros(2, dtype=torch.int32))
+    with pytest.raises(TypeError):
+        _build.type_codes(torch.zeros(2), torch.zeros(2, dtype=torch.int16))
+    assert _build.type_codes(torch.zeros(2, dtype=torch.complex128),
+                             torch.zeros(2, dtype=torch.int64)) == (3, 1)
+
+
+def test_source_hash_follows_sources(tmp_path, monkeypatch):
+    for path in _build.sources():
+        (tmp_path / path.name).write_bytes(path.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    h0 = _build.source_hash()
+    assert h0 == _build.source_hash()
+    with open(tmp_path / "csr_spmv.cu", "a") as f:
+        f.write("\n// changed\n")
+    assert _build.source_hash() != h0
+
+
+def test_build_dir_in_checkout_or_env(monkeypatch, tmp_path):
+    monkeypatch.delenv("SPARSE_DOT_BUILD_DIR", raising=False)
+    assert _build.build_dir().parts[-2:] == ("build", "sparse_dot_tpu_torch")
+    monkeypatch.setenv("SPARSE_DOT_BUILD_DIR", str(tmp_path))
+    assert _build.build_dir() == tmp_path
