@@ -9,18 +9,28 @@ Phases, each printing one JSON line:
 
 1. card and build: the card's name and power limit, torch and CUDA
    versions; the hand kernels (``sparse_dot_tpu_torch/csrc``) built with
-   nvcc for sm_90a, with the build's seconds;
-2. each kernel (K1 BSR SpMM, K2 CSR SpMM, K3 CSR SpMV) against its plain
-   PyTorch version on the card, for every value type and the edge cases
-   (empty rows and block rows, nnz == 0, bs in {1, 3, 64, 128}, n not a
-   multiple of 32), at rtol 1e-12 (f64, c128) and 1e-5 (f32, c64) with
-   atol = rtol * max|plain|: the two sum in different orders, neither
-   uses TF32;
+   one nvcc per source for sm_90a, all started together, with the
+   build's seconds;
+2. each kernel against its plain PyTorch version on the card, for every
+   value type and both index widths, at rtol 1e-12 (f64, c128) and 1e-5
+   (f32, c64) with atol = rtol * max|plain|: the two sum in different
+   orders, neither uses plain TF32.  K2 CSR SpMM and K3 CSR SpMV at empty
+   rows, nnz == 0 and n not a multiple of 32.  K1 BSR SpMM in both
+   variants: the tensor-core one (real values, bs in {8, 16, 24, 64,
+   128, 256}) and the CUDA-core one (complex values, and bs in {1, 3}),
+   at n in {1, 37, 64, 256}, with empty block rows, no stored block, a
+   block row at least 3x the chunk length (split and summed; run twice,
+   same bits), f32 values log-uniform over 1e-3..1e3 (plain TF32 would
+   fail) and inf in A and B; each call's variant is checked by the
+   per-variant launch counts;
 3. the main path, ``dot_product`` with scipy/numpy operands at real
    sizes, against the scipy oracle at the reference's decimal=6 (f64)
-   and decimal=5 (f32), with each kernel's launch count checked;
-4. kernel and plain-version times at the phase-3 shapes: median of 25
-   launches timed with CUDA events, L2 evicted by a read before each.
+   and decimal=5 (f32), with each kernel's launch count checked (the
+   config-3 and dense x BSR calls on K1's tensor-core variant, a complex
+   BSR on its CUDA-core one);
+4. kernel and plain-version times at the phase-3 shapes: median, p10 and
+   p90 of 25 launches timed with CUDA events, L2 evicted by a 1 GiB read
+   before each; for K1 also TFLOP/s and the stored blocks per block row.
 
 Then the card line, a JSON line of per-kernel results and, last,
 ``{"ok": true, "device": {...}}``.  Any failure is an uncaught exception
@@ -55,8 +65,12 @@ NP_DTYPES = {
     torch.complex128: np.complex128,
 }
 KERNELS = {
-    "K1_bsr_spmm": {
+    "K1_bsr_spmm_tc": {
         "source": "sparse_dot_tpu_torch/csrc/bsr_spmm.cu",
+        "replaces": "sparse_dot_tpu/ops/pallas_bsr.py:57",
+    },
+    "K1_bsr_spmm_simt": {
+        "source": "sparse_dot_tpu_torch/csrc/bsr_spmm_simt.cu",
         "replaces": "sparse_dot_tpu/ops/pallas_bsr.py:57",
     },
     "K2_csr_spmm": {
@@ -130,16 +144,37 @@ def random_csr(rng, m, k, mean_row, dtype, index_dtype=np.int32,
     return indptr, indices, data
 
 
+def log_uniform(rng, size, dtype):
+    """Random signs times magnitudes spread log-uniformly over 1e-3..1e3:
+    f32 products that plain TF32 (11 bits) would round by up to ~1e-4 of
+    the largest, past the f32 tolerance."""
+    mag = 10.0 ** rng.uniform(-3.0, 3.0, size)
+    return (mag * rng.choice([-1.0, 1.0], size)).astype(dtype)
+
+
 def random_bsr(rng, nbrows, nbcols, bs, blocks_per_row, dtype,
-               index_dtype=np.int32, empty_every=0):
+               index_dtype=np.int32, empty_every=0, split=False):
+    """BSR arrays with Poisson block rows (every empty_every-th empty).
+    split=True makes block row 1 at least 3x the chunk length S (the mean
+    number of stored blocks per block row, rounded up), so K1's
+    tensor-core variant splits it and sums the partial tiles; f32 values
+    are log-uniform there (``log_uniform``)."""
     lengths = rng.poisson(blocks_per_row, nbrows)
     if empty_every:
         lengths[::empty_every] = 0
+    if split:
+        rest = int(lengths.sum() - lengths[1])
+        lengths[1] = 1
+        while lengths[1] < 3 * -(-(rest + lengths[1]) // nbrows):
+            lengths[1] += 1
     indptr = np.concatenate([[0], np.cumsum(lengths)]).astype(index_dtype)
     nblocks = int(indptr[-1])
     indices = rng.integers(0, nbcols, nblocks).astype(index_dtype)
-    scale = 1.0 / np.sqrt(max(bs * blocks_per_row, 1))
-    data = values(rng, (nblocks, bs, bs), dtype, scale)
+    if split and np.dtype(dtype) == np.float32:
+        data = log_uniform(rng, (nblocks, bs, bs), dtype)
+    else:
+        scale = 1.0 / np.sqrt(max(bs * blocks_per_row, 1))
+        data = values(rng, (nblocks, bs, bs), dtype, scale)
     return indptr, indices, data
 
 
@@ -183,29 +218,100 @@ def check_kernels():
                     out = csr.csr_spmv(ip, ix, dv, x, alpha, beta, yy)
                     ref = csr.csr_spmv_plain(ip, ix, dv, x, alpha, beta, yy)
                     record("K3_csr_spmv", compare(out, ref, tdt))
-            # K1: block sizes 1, 3, 64, 128; empty block rows; no blocks.
-            for bs, nbrows, nbcols, per_row, empty_every in (
-                (1, 40, 30, 4, 3),
-                (3, 30, 20, 3, 4),
-                (64, 6, 5, 2, 3),
-                (128, 3, 4, 2, 2),
-                (8, 5, 5, 0, 0),
-            ):
-                indptr, indices, data = random_bsr(
-                    rng, nbrows, nbcols, bs, per_row, npdt, itype,
-                    empty_every)
-                ip, ix, dv = cuda(indptr), cuda(indices), cuda(data)
-                for n in (1, 37, 256):
-                    b = cuda(values(rng, (nbcols * bs, n), npdt))
-                    c0 = cuda(values(rng, (nbrows * bs, n), npdt))
-                    for alpha, beta, cc in ((None, None, None),
-                                            (2.0, -1.0, c0)):
-                        out = bsr.bsr_spmm(ip, ix, dv, b, alpha, beta, cc)
-                        ref = bsr.bsr_spmm_plain(ip, ix, dv, b, alpha, beta,
-                                                 cc)
-                        record("K1_bsr_spmm", compare(out, ref, tdt))
+            check_k1(rng, tdt, npdt, itype, record)
+    check_k1_special(rng, record)
     emit(2, kernels=results)
     return results
+
+
+# K1 cases: (bs, nbrows, nbcols, blocks per row, every k-th block row
+# empty, one block row split).  bs % 8 == 0 runs the tensor-core variant
+# for real values, the rest (and complex values) the CUDA-core one.
+K1_CASES = (
+    (1, 40, 30, 4, 3, False),
+    (3, 30, 20, 3, 4, False),
+    (8, 24, 20, 3, 5, True),
+    (16, 16, 12, 2, 4, True),
+    (24, 12, 10, 2, 3, True),
+    (64, 8, 6, 1, 3, True),
+    (128, 6, 5, 1, 3, True),
+    (256, 6, 4, 1, 3, True),
+    (8, 5, 5, 0, 0, False),  # no stored block
+)
+K1_NS = (1, 37, 64, 256)
+
+
+def k1_call(*args):
+    """(variant, bsr_spmm(*args)): the K1 variant that the value type and
+    block size select, checked to be the one the launch counts show."""
+    from sparse_dot_tpu_torch.ops import bsr
+
+    data = args[2]
+    tc = bsr.uses_tensor_cores(data.dtype, data.shape[1])
+    before = (bsr.bsr_spmm.launches_tc, bsr.bsr_spmm.launches_simt)
+    out = bsr.bsr_spmm(*args)
+    variant = "K1_bsr_spmm_tc" if tc else "K1_bsr_spmm_simt"
+    if (bsr.bsr_spmm.launches_tc - before[0],
+            bsr.bsr_spmm.launches_simt - before[1]) != (tc, not tc):
+        raise AssertionError(f"bsr_spmm did not launch {variant} once")
+    return variant, out
+
+
+def check_k1(rng, tdt, npdt, itype, record):
+    """K1 against bsr_spmm_plain at every case of K1_CASES and n of K1_NS,
+    with and without the alpha/beta/C0 epilogue; a split case is run
+    twice and must give the same bits."""
+    from sparse_dot_tpu_torch.formats import bsr_chunk_length
+    from sparse_dot_tpu_torch.ops import bsr
+
+    for bs, nbrows, nbcols, per_row, empty_every, split in K1_CASES:
+        indptr, indices, data = random_bsr(
+            rng, nbrows, nbcols, bs, per_row, npdt, itype, empty_every,
+            split)
+        ip, ix, dv = cuda(indptr), cuda(indices), cuda(data)
+        lengths = np.diff(indptr)
+        if split and (lengths.max() < 3 * bsr_chunk_length(nbrows,
+                                                           len(indices))
+                      or lengths.min() > 0):
+            raise AssertionError(f"K1 case bs={bs}: no split or empty row")
+        log_b = split and npdt == np.float32
+        for n in K1_NS:
+            b = cuda((log_uniform if log_b else values)(
+                rng, (nbcols * bs, n), npdt))
+            c0 = cuda(values(rng, (nbrows * bs, n), npdt))
+            for alpha, beta, cc in ((None, None, None), (2.0, -1.0, c0)):
+                args = (ip, ix, dv, b, alpha, beta, cc)
+                variant, out = k1_call(*args)
+                record(variant, compare(out, bsr.bsr_spmm_plain(*args), tdt))
+                if split and n == 37:
+                    if not torch.equal(out, k1_call(*args)[1]):
+                        raise AssertionError(f"K1 bs={bs}: runs differ")
+
+
+def check_k1_special(rng, record):
+    """inf in A and in B on the tensor-core variant: the same inf/nan
+    pattern as the plain version (3xTF32 must not make inf * 0), finite
+    values within tolerance."""
+    from sparse_dot_tpu_torch.ops import bsr
+
+    for tdt in (torch.float32, torch.float64):
+        npdt = NP_DTYPES[tdt]
+        indptr, indices, data = random_bsr(rng, 8, 6, 64, 1, npdt,
+                                           split=True)
+        data[0, 5, 7] = np.inf
+        b = values(rng, (6 * 64, 64), npdt)
+        b[100, 3] = -np.inf
+        args = (cuda(indptr), cuda(indices), cuda(data), cuda(b))
+        variant, out = k1_call(*args)
+        ref = bsr.bsr_spmm_plain(*args)
+        torch.cuda.synchronize()
+        for what in (torch.isnan, torch.isposinf, torch.isneginf):
+            if not torch.equal(what(out), what(ref)):
+                raise AssertionError(f"K1 {tdt}: {what.__name__} differs")
+        fin = torch.isfinite(ref)
+        if not bool(torch.isinf(ref).any()):
+            raise AssertionError("K1 inf case: no inf reached the output")
+        record(variant, compare(out[fin], ref[fin], tdt))
 
 
 # ---------------------------------------------------------------------------
@@ -273,6 +379,8 @@ def main_path():
     xt = values(rng, av.shape[0], np.float64)
     ac = config1_csr(rng, nc, np.complex128)
     bc = values(rng, (nc, 64), np.complex128)
+    # Complex BSR: K1's CUDA-core variant.
+    abc = config3_bsr(rng, nc, np.complex128, 16)
     # The other layouts of the path: CSC (K2 on its CSR), dense x BSR (K1
     # on transposed blocks), BSR x vector (K3 on its element CSR).
     a1c = a1.tocsc()
@@ -283,6 +391,8 @@ def main_path():
     csr.csr_spmm.launches = 0
     csr.csr_spmv.launches = 0
     bsr.bsr_spmm.launches = 0
+    bsr.bsr_spmm.launches_tc = 0
+    bsr.bsr_spmm.launches_simt = 0
     t0 = time.perf_counter()
     r1 = sdt.dot_product(a1, b1)
     r1t = sdt.dot_product(d1, a1)
@@ -298,15 +408,20 @@ def main_path():
     r1c = sdt.dot_product(a1c, b1)
     r3t = sdt.dot_product(d3, a3)
     r3v = sdt.dot_product(a3, x3)
+    rbc = sdt.dot_product(abc, bc)
     seconds = time.perf_counter() - t0
     launches = {
-        "K1_bsr_spmm": bsr.bsr_spmm.launches,
+        "K1_bsr_spmm_tc": bsr.bsr_spmm.launches_tc,
+        "K1_bsr_spmm_simt": bsr.bsr_spmm.launches_simt,
         "K2_csr_spmm": csr.csr_spmm.launches,
         "K3_csr_spmv": csr.csr_spmv.launches,
     }
-    expected = {"K1_bsr_spmm": len(bsrs) + 1, "K2_csr_spmm": 4,
-                "K3_csr_spmv": 3}
-    if launches != expected:
+    # The four config-3 calls and dense x BSR on the tensor cores, the
+    # complex BSR on the CUDA cores.
+    expected = {"K1_bsr_spmm_tc": len(bsrs) + 1, "K1_bsr_spmm_simt": 1,
+                "K2_csr_spmm": 4, "K3_csr_spmv": 3}
+    if (launches != expected or bsr.bsr_spmm.launches
+            != launches["K1_bsr_spmm_tc"] + launches["K1_bsr_spmm_simt"]):
         raise AssertionError(f"launch counts {launches}, expected {expected}")
 
     check("config1_csr_f64_spmm", r1, a1 @ b1, 6)
@@ -322,9 +437,11 @@ def main_path():
     check("config1_csc_f64_spmm", r1c, a1 @ b1, 6)
     check("config3_dense_x_bsr64_f64", r3t, (a3.T @ d3.T).T, 6)
     check("config3_bsr64_f64_x_vector", r3v, a3 @ x3, 6)
+    check("bsr16_c128_spmm", rbc, abc @ bc, 6)
     emit(3, seconds=seconds, launches=launches, cases=cases)
     return launches, {"a1": a1, "b1": b1, "d1": d1, "bsrs": bsrs, "b3": b3,
-                      "out3": out3, "av": av, "xv": xv, "ac": ac, "bc": bc}
+                      "out3": out3, "av": av, "xv": xv, "ac": ac, "bc": bc,
+                      "abc": abc}
 
 
 # ---------------------------------------------------------------------------
@@ -333,12 +450,14 @@ def main_path():
 
 
 def time_pair(kernel_fn, plain_fn):
-    """Median ms of each over REPS launches, taken in turns, and the
-    largest |kernel - plain|.  Before each launch a 256 MB read evicts L2
-    with clean lines (a write would leave dirty lines to drain inside the
-    timed launch) and keeps the card busy while the host enqueues the
-    launch, so the events time the device, not the Python call."""
-    flush = torch.ones(64 << 20, dtype=torch.float32, device="cuda")
+    """The REPS times in ms of each, taken in turns, and the largest
+    |kernel - plain|.  Before each launch a 1 GiB read evicts L2 with
+    clean lines (a write would leave dirty lines to drain inside the timed
+    launch) and keeps the card busy for ~0.3 ms while the host enqueues
+    the call, so the events time the device, not the Python call (a
+    256 MB read covered ~85 us, less than the plain versions' host side
+    of up to 0.36 ms)."""
+    flush = torch.ones(256 << 20, dtype=torch.float32, device="cuda")
     out_k, out_p = kernel_fn(), plain_fn()
     err = compare(out_k, out_p, out_k.dtype)
     times = {"kernel": [], "plain": []}
@@ -352,8 +471,13 @@ def time_pair(kernel_fn, plain_fn):
             end.record()
             end.synchronize()
             times[name].append(start.elapsed_time(end))
-    return (float(np.median(times["kernel"])),
-            float(np.median(times["plain"])), err)
+    return times["kernel"], times["plain"], err
+
+
+def spread(times):
+    """Median, p10 and p90 of a list of ms."""
+    p10, p50, p90 = np.percentile(times, [10, 50, 90])
+    return float(p50), float(p10), float(p90)
 
 
 def timings(inputs):
@@ -362,11 +486,17 @@ def timings(inputs):
 
     rows = []
 
-    def add(kernel, shape, wrapper, plain, *args):
-        ms, plain_ms, err = time_pair(lambda: wrapper(*args),
-                                      lambda: plain(*args))
+    def add(kernel, shape, wrapper, plain, *args, flop=None, **extra):
+        kt, pt, err = time_pair(lambda: wrapper(*args), lambda: plain(*args))
+        (ms, p10, p90), (plain_ms, plain_p10, plain_p90) = (spread(kt),
+                                                            spread(pt))
+        if flop:
+            extra.update(gflop=flop / 1e9, tflops=flop / ms / 1e9,
+                         plain_tflops=flop / plain_ms / 1e9)
         rows.append({"kernel": kernel, "shape": shape, "ms": ms,
-                     "plain_ms": plain_ms, "max_abs_err": err})
+                     "p10": p10, "p90": p90, "plain_ms": plain_ms,
+                     "plain_p10": plain_p10, "plain_p90": plain_p90,
+                     "max_abs_err": err, **extra})
 
     n1, n3, nc = SIZES["config1"], SIZES["config3"], SIZES["complex"]
     A1 = formats.to_device(inputs["a1"])
@@ -382,18 +512,27 @@ def timings(inputs):
         cuda(inputs["bc"]))
     for (bs, dt), a3 in inputs["bsrs"].items():
         A3 = formats.to_device(a3)
-        add("K1_bsr_spmm",
+        lengths = np.diff(a3.indptr)
+        plan = A3.bsr_plan()  # as dot_product passes it, built once
+        add("K1_bsr_spmm_tc",
             f"config3 BSR bs={bs} {np.dtype(dt).name} {n3}x{n3} 5% blocks "
             f"@ ({n3},256), out_scalar=2",
-            bsr.bsr_spmm, bsr.bsr_spmm_plain, *A3.bsr_arrays(),
-            cuda(inputs["b3"][dt]), None, 2.0, cuda(inputs["out3"][(bs, dt)]))
+            lambda *a: bsr.bsr_spmm(*a, plan=plan), bsr.bsr_spmm_plain,
+            *A3.bsr_arrays(), cuda(inputs["b3"][dt]), None, 2.0,
+            cuda(inputs["out3"][(bs, dt)]), flop=2.0 * a3.nnz * 256,
+            blocks_per_row_mean=float(lengths.mean()),
+            blocks_per_row_max=int(lengths.max()), chunk=plan.chunk)
+    Abc = formats.to_device(inputs["abc"])
+    add("K1_bsr_spmm_simt", f"BSR c128 bs=16 {nc}x{nc} 5% blocks @ ({nc},64)",
+        bsr.bsr_spmm, bsr.bsr_spmm_plain, *Abc.bsr_arrays(),
+        cuda(inputs["bc"]))
     Av = formats.to_device(inputs["av"])
     nv = SIZES["spmv"]
     add("K3_csr_spmv", f"CSR f64 {nv}x{nv}, 10 per row @ ({nv},)",
         csr.csr_spmv, csr.csr_spmv_plain, *Av.csr_arrays(),
         cuda(inputs["xv"]))
-    emit(4, reps=REPS, timer="cuda events, median, L2 evicted by a read",
-         rows=rows)
+    emit(4, reps=REPS, rows=rows,
+         timer="cuda events, median (p10, p90), 1 GiB read before each")
     return rows
 
 

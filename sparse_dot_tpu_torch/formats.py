@@ -15,8 +15,11 @@ duplicates summed on a copy.
 The kernels read CSR (K2, K3) or BSR (K1) in the orientation of the
 product.  ``csr_arrays(transpose)`` and ``BSR.bsr_arrays(transpose)``
 give those arrays, building the converted layout once on the device (a
-stable sort of the other axis' ids) and caching it on the container.
+stable sort of the other axis' ids) and caching it on the container, as
+``BSR.bsr_plan(transpose)`` caches K1's chunk plan (``bsr_chunk_plan``).
 """
+
+from typing import NamedTuple
 
 import numpy as np
 import scipy.sparse as _sps
@@ -86,6 +89,81 @@ def expand_indptr(indptr, count):
     return torch.repeat_interleave(
         ids, (indptr[1:] - indptr[:-1]).long(), output_size=count
     )
+
+
+class BsrChunkPlan(NamedTuple):
+    """How K1's tensor-core variant cuts a BSR's block rows into work.
+
+    ``items`` (n_items, 4) int64 rows of (block row, first stored block,
+    end stored block, workspace slot or -1): one per chunk of at most
+    ``chunk`` stored blocks, one for each empty block row; block rows of
+    one chunk write C directly (slot -1).  ``splits`` (n_splits, 3) int64
+    rows of (block row, first slot, number of chunks) for the block rows
+    of more than one chunk, whose chunks take consecutive slots.  Both are
+    padded with rows whose block row is -1 to sizes known on the host, so
+    building a plan never waits for the device; ``slots`` bounds the
+    workspace slots used."""
+
+    items: torch.Tensor
+    splits: torch.Tensor
+    chunk: int
+    slots: int
+    nbrows: int
+    nblocks: int
+
+
+def bsr_chunk_length(nbrows, nblocks):
+    """S: the mean number of stored blocks per block row, rounded up."""
+    return max(1, -(-nblocks // max(nbrows, 1)))
+
+
+def bsr_chunk_plan(indptr, nblocks):
+    """The chunk plan of the block ``indptr`` of a BSR with ``nblocks``
+    stored blocks (device ops, no host sync).
+
+    The chunk length S is the mean number of stored blocks per block row,
+    rounded up, so a block row longer than the mean is spread over
+    several thread blocks.  With L_r blocks in row r, row r has
+    max(1, ceil(L_r / S)) chunks; there are at most nbrows + nblocks // S
+    of them, at most nblocks // (S + 1) rows of more than one, and those
+    rows take at most nblocks // S + nblocks // (S + 1) slots."""
+    nbrows = indptr.numel() - 1
+    dev = indptr.device
+    if nbrows == 0:
+        empty = torch.zeros((0, 4), dtype=torch.long, device=dev)
+        return BsrChunkPlan(empty, empty[:, :3], 1, 0, 0, nblocks)
+    S = bsr_chunk_length(nbrows, nblocks)
+    n_splits = nblocks // (S + 1)
+    ip = indptr.long()
+    nchunks = torch.clamp((ip[1:] - ip[:-1] + S - 1) // S, min=1)
+    split = nchunks > 1
+    cum = torch.cumsum(nchunks, 0)
+    slot_count = torch.where(split, nchunks, 0)
+    first_slot = torch.cumsum(slot_count, 0) - slot_count
+
+    # Item t is chunk j of the row r whose chunks cover t.
+    t = torch.arange(nbrows + nblocks // S, device=dev)
+    row = torch.searchsorted(cum, t, right=True)
+    r = row.clamp(max=nbrows - 1)
+    j = t - (cum[r] - nchunks[r])
+    p0 = ip[r] + j * S
+    items = torch.stack([
+        r, p0, torch.minimum(p0 + S, ip[r + 1]),
+        torch.where(split[r], first_slot[r] + j, -1),
+    ], 1)
+    items = torch.where((row < nbrows)[:, None], items,
+                        torch.tensor([-1, 0, 0, -1], device=dev))
+
+    # Split row k is the row where the running count of split rows
+    # passes k.
+    k = torch.arange(n_splits, device=dev)
+    srow = torch.searchsorted(torch.cumsum(split.long(), 0), k, right=True)
+    s = srow.clamp(max=nbrows - 1)
+    splits = torch.stack([s, first_slot[s], nchunks[s]], 1)
+    splits = torch.where((srow < nbrows)[:, None], splits,
+                         torch.tensor([-1, 0, 0], device=dev))
+    return BsrChunkPlan(items, splits, S, nblocks // S + n_splits, nbrows,
+                        nblocks)
 
 
 def coo_to_csr(rows, cols, vals, nrows):
@@ -359,6 +437,15 @@ class BSR(SparseDeviceMatrix):
             return indptr, indices, blocks
 
         return self._cached("bsr_T", build)
+
+    def bsr_plan(self, transpose=False):
+        """K1's chunk plan (``bsr_chunk_plan``) of ``bsr_arrays(transpose)``,
+        built once on the device and cached."""
+        def build():
+            indptr, _, data = self.bsr_arrays(transpose)
+            return bsr_chunk_plan(indptr, int(data.shape[0]))
+
+        return self._cached(("bsr_plan", bool(transpose)), build)
 
     def csr_arrays(self, transpose=False):
         """(indptr, indices, data) of the element CSR of op(A), for SpMV."""

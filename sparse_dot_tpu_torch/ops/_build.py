@@ -1,11 +1,12 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
 The JAX package compiled its device code through XLA; the port's kernels
-are CUDA C++ for Hopper (``sm_90a``), compiled at first use with
+are CUDA C++ for Hopper (``sm_90a``), compiled at first use by one
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o libsdt_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -c -o <name>.o csrc/<name>.cu
 
+for each source, all started together, and linked with ``nvcc -shared``
 into one shared library with a plain C interface, loaded with ``ctypes``
 (no PyTorch headers, so the build takes seconds).  The library's name
 carries a hash of the sources and flags, so a changed source rebuilds.
@@ -27,7 +28,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 # Element / index type codes of the C interface (csrc/common.cuh).
@@ -56,8 +57,12 @@ _PROTOTYPES = {
                      _D, _D, _D, _D, _P),
     # dtype, itype, indptr, indices, data, b, c0, c, nbrows, bs, n,
     # alpha_re, alpha_im, beta_re, beta_im, stream
-    "sdt_bsr_spmm": (_INT, _INT, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
-                     _D, _D, _D, _D, _P),
+    "sdt_bsr_spmm_simt": (_INT, _INT, _P, _P, _P, _P, _P, _P, _I64, _I64,
+                          _I64, _D, _D, _D, _D, _P),
+    # dtype, itype, items, n_items, splits, n_splits, indices, data, b, c0,
+    # c, work, bs, n, alpha_re, alpha_im, beta_re, beta_im, stream
+    "sdt_bsr_spmm_tc": (_INT, _INT, _P, _I64, _P, _I64, _P, _P, _P, _P, _P,
+                        _P, _I64, _I64, _D, _D, _D, _D, _P),
 }
 
 _lib = None
@@ -99,22 +104,44 @@ def _nvcc():
     )
 
 
+def _run(procs):
+    """Wait for every (command, process); raise on the first failure."""
+    failed = None
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0 and failed is None:
+            failed = (cmd, proc.returncode, out, err)
+    if failed:
+        cmd, rc, out, err = failed
+        raise RuntimeError(
+            f"nvcc failed ({rc}): {' '.join(cmd)}\n{out}\n{err}"
+        )
+
+
 def _compile(target):
     global build_seconds
     target.parent.mkdir(parents=True, exist_ok=True)
     tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in sources() if p.suffix == ".cu"]]
+    units = [p for p in sources() if p.suffix == ".cu"]
+    objects = [tmp.with_name(f"{tmp.name}.{p.stem}.o") for p in units]
+    nvcc = _nvcc()
+
+    def start(*args):
+        cmd = [nvcc, *NVCC_FLAGS, *args]
+        return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True)
+
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    try:
+        _run([start("-c", "-o", str(obj), str(src))
+              for src, obj in zip(units, objects)])
+        _run([start("-shared", "-o", str(tmp), *map(str, objects))])
+        build_seconds = time.perf_counter() - t0
+        os.replace(tmp, target)  # atomic: a concurrent build cannot tear it
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    build_seconds = time.perf_counter() - t0
-    os.replace(tmp, target)  # atomic: a concurrent build cannot tear it
+        for obj in objects:
+            obj.unlink(missing_ok=True)
 
 
 def library():

@@ -22,7 +22,8 @@ def _spmm_pass(A, b, transpose, alpha=None, beta=None, c0=None):
     """``alpha * op(A) @ b + beta * c0`` on the device (the port of
     ``host._real_spmm``)."""
     if isinstance(A, formats.BSR):
-        return bsr.bsr_spmm(*A.bsr_arrays(transpose), b, alpha, beta, c0)
+        return bsr.bsr_spmm(*A.bsr_arrays(transpose), b, alpha, beta, c0,
+                            plan=A.bsr_plan(transpose))
     return csr.csr_spmm(*A.csr_arrays(transpose), b, alpha, beta, c0)
 
 
