@@ -22,15 +22,27 @@ Phases, each printing one JSON line:
    block row at least 3x the chunk length (split and summed; run twice,
    same bits), f32 values log-uniform over 1e-3..1e3 (plain TF32 would
    fail) and inf in A and B; each call's variant is checked by the
-   per-variant launch counts;
+   per-variant launch counts.  K4 + K5 (sparse x sparse, count then
+   fill) against the plain expand-sort-compress with equal counts,
+   indptr and indices, and K6 (dense output) against its plain version,
+   with and without ``triangular``, each run twice for the same bits, in
+   shapes that put rows in every accumulator bin (hash tables of a warp
+   and of a block, a dense row in shared memory, and in the device
+   workspace);
 3. the main path, ``dot_product`` with scipy/numpy operands at real
    sizes, against the scipy oracle at the reference's decimal=6 (f64)
    and decimal=5 (f32), with each kernel's launch count checked (the
    config-3 and dense x BSR calls on K1's tensor-core variant, a complex
-   BSR on its CUDA-core one);
+   BSR on its CUDA-core one); then, with the counts set to 0 again, the
+   sparse x sparse path: the reference demo's X @ X.T (f64, f32, dense
+   with ``out``) and its gram, BASELINE config 4's complex gram, a
+   1M x 1M A @ A, config 3's BSR x BSR and a 50k-row ``sypr``, with the
+   plain versions of K4-K6 made to raise;
 4. kernel and plain-version times at the phase-3 shapes: median, p10 and
    p90 of 25 launches timed with CUDA events, L2 evicted by a 1 GiB read
-   before each; for K1 also TFLOP/s and the stored blocks per block row.
+   before each; for K1 also TFLOP/s and the stored blocks per block row;
+   for K4, K5, K4 + K5 as one product and K6 also products per second;
+   and the wall time of ``dot_product(X, X.T)`` beside scipy's.
 
 Then the card line, a JSON line of per-kernel results and, last,
 ``{"ok": true, "device": {...}}``.  Any failure is an uncaught exception
@@ -81,6 +93,18 @@ KERNELS = {
         "source": "sparse_dot_tpu_torch/csrc/csr_spmv.cu",
         "replaces": "sparse_dot_tpu/ops/_xla.py:769",
     },
+    "K4_csr_spgemm_count": {
+        "source": "sparse_dot_tpu_torch/csrc/csr_spgemm.cu",
+        "replaces": "sparse_dot_tpu/ops/_xla.py:918",
+    },
+    "K5_csr_spgemm_fill": {
+        "source": "sparse_dot_tpu_torch/csrc/csr_spgemm.cu",
+        "replaces": "sparse_dot_tpu/ops/_xla.py:1916",
+    },
+    "K6_csr_spgemm_dense": {
+        "source": "sparse_dot_tpu_torch/csrc/csr_spgemm_dense.cu",
+        "replaces": "sparse_dot_tpu/ops/_xla.py:326",
+    },
 }
 
 
@@ -112,6 +136,10 @@ def cuda(arr):
 def compare(kernel_out, plain_out, dtype):
     """Largest |kernel - plain|; raises past rtol * (|plain| + max|plain|)."""
     torch.cuda.synchronize()
+    if not (dtype.is_floating_point or dtype.is_complex):
+        if not torch.equal(kernel_out, plain_out):
+            raise AssertionError("integer outputs differ")
+        return 0.0
     rtol = RTOL[dtype]
     scale = float(plain_out.abs().max()) if plain_out.numel() else 0.0
     torch.testing.assert_close(
@@ -183,6 +211,7 @@ def check_kernels():
 
     rng = np.random.default_rng(SEED)
     results = {name: {"cases": 0, "max_abs_err": 0.0} for name in KERNELS}
+    bins_seen = set()
 
     def record(name, err):
         results[name]["cases"] += 1
@@ -219,8 +248,15 @@ def check_kernels():
                     ref = csr.csr_spmv_plain(ip, ix, dv, x, alpha, beta, yy)
                     record("K3_csr_spmv", compare(out, ref, tdt))
             check_k1(rng, tdt, npdt, itype, record)
+            check_spgemm(rng, tdt, npdt, itype, record, bins_seen)
     check_k1_special(rng, record)
-    emit(2, kernels=results)
+    from sparse_dot_tpu_torch.ops import spgemm
+    wanted = {spgemm.HASH_WARP, spgemm.HASH_BLOCK, spgemm.DENSE_SHARED,
+              spgemm.DENSE_GLOBAL}
+    if bins_seen != wanted:
+        raise AssertionError(f"K4/K5 bins exercised {bins_seen}, want "
+                             f"{wanted}")
+    emit(2, kernels=results, spgemm_bins=sorted(bins_seen))
     return results
 
 
@@ -314,6 +350,123 @@ def check_k1_special(rng, record):
         record(variant, compare(out[fin], ref[fin], tdt))
 
 
+# K4/K5/K6 cases: (m rows of op(A), k, n, entries per row of op(B)).  The
+# rows of op(A) take 0, 1, 3, 10, 40, 150 and 600 entries in turn, so with
+# 20 per row of op(B) their products are 0, 20, 60, 200, 800, 3000 and
+# 12000: at n = 100,000 that puts rows in every hash bin and, past the
+# largest table, in the device workspace; at n = 5000 in the warp hash
+# bins and the dense row in shared memory; at n = 300 in the dense row
+# alone (ops/spgemm.py, spgemm_bins).
+SPGEMM_CASES = ((42, 2000, 100_000, 20), (42, 2000, 5000, 20),
+                (42, 2000, 300, 20), (30, 50, 60, 0))
+SPGEMM_A_ROWS = (0, 1, 3, 10, 40, 150, 600)
+
+
+def distinct_rows(rng, lengths, width, dtype, index_dtype, zeros=0.0):
+    """CSR arrays whose rows hold ``lengths`` distinct, shuffled columns
+    below ``width``; a share ``zeros`` of the values are explicit 0."""
+    cols = [rng.choice(width, size=min(int(n), width), replace=False)
+            for n in lengths]
+    indptr = np.concatenate([[0], np.cumsum([len(c) for c in cols])])
+    indices = (np.concatenate(cols) if cols else np.zeros(0)).astype(
+        index_dtype)
+    data = values(rng, len(indices), dtype, 0.3)
+    data[rng.random(len(data)) < zeros] = 0
+    return indptr.astype(index_dtype), indices, data
+
+
+class no_host_sync:
+    """Inside the block, an operation that waits for the card raises
+    (``torch.cuda.set_sync_debug_mode("error")``)."""
+
+    def __enter__(self):
+        torch.cuda.set_sync_debug_mode("error")
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode("default")
+        return False
+
+
+def spgemm_call(plan_fn, *args):
+    """The plan, K4, the running sum and K5 through their wrappers, each
+    kernel checked to launch once and all but the nnz read checked not to
+    wait for the card: (counts, indptr, indices, data)."""
+    from sparse_dot_tpu_torch.ops import spgemm
+
+    a_ip, a_ix, a_dv, b_ip, b_ix, b_dv, n, tri = args
+    before = (spgemm.csr_spgemm_count.launches,
+              spgemm.csr_spgemm_fill.launches)
+    with no_host_sync():
+        plan = plan_fn()
+        counts = spgemm.csr_spgemm_count(a_ip, a_ix, b_ip, b_ix, n, plan,
+                                         tri)
+        indptr = torch.zeros(len(counts) + 1, dtype=torch.long,
+                             device="cuda")
+        torch.cumsum(counts, 0, out=indptr[1:])
+    nnz = int(indptr[-1])
+    indptr = indptr.to(a_ip.dtype)
+    indices, data = spgemm.csr_spgemm_fill(a_ip, a_ix, a_dv, b_ip, b_ix, b_dv,
+                                           n, plan, indptr, nnz, tri)
+    launched = (spgemm.csr_spgemm_count.launches - before[0],
+                spgemm.csr_spgemm_fill.launches - before[1])
+    if launched != (1, int(nnz > 0)):
+        raise AssertionError(f"K4/K5 launched {launched} times")
+    return counts, indptr, indices, data
+
+
+def check_spgemm(rng, tdt, npdt, itype, record, bins_seen):
+    """K4 + K5 against the plain ESC (``spgemm_plain``): counts, indptr and
+    indices equal, values within tolerance, the same bits on a second
+    run; K6 against its plain version, with and without the epilogue and
+    ``triangular``, twice.  ``bins_seen`` collects the bin kinds that held
+    rows."""
+    from sparse_dot_tpu_torch.ops import spgemm
+
+    for m, k, n, b_len in SPGEMM_CASES:
+        a_len = [SPGEMM_A_ROWS[i % len(SPGEMM_A_ROWS)] for i in range(m)]
+        if b_len == 0:  # no stored entry in op(B): nnz == 0
+            a_len = [min(x, k) for x in a_len]
+        a = distinct_rows(rng, a_len, k, npdt, itype, zeros=0.05)
+        b = distinct_rows(rng, [b_len] * k, n, npdt, itype, zeros=0.05)
+        a_ip, a_ix, a_dv = map(cuda, a)
+        b_ip, b_ix, b_dv = map(cuda, b)
+
+        def plan():
+            return spgemm.spgemm_plan(a_ip, a_ix, b_ip, n, tdt, a_ip.dtype)
+
+        p = plan()
+        sizes = p.offsets.diff().cpu().numpy()
+        bins_seen.update(int(kind) for kind, size in zip(p.bins[:, 0], sizes)
+                         if size and kind != spgemm.SKIP)
+        for tri in (False, True):
+            args = (a_ip, a_ix, a_dv, b_ip, b_ix, b_dv, n, tri)
+            counts, indptr, indices, data = spgemm_call(plan, *args)
+            ref = spgemm.spgemm_plain(*args)
+            torch.cuda.synchronize()
+            if not (torch.equal(counts, ref[0].long().diff())
+                    and torch.equal(indptr, ref[0])
+                    and torch.equal(indices, ref[1])):
+                raise AssertionError(f"K4/K5 {tdt} n={n}: pattern differs")
+            err = compare(data, ref[2], tdt)
+            record("K4_csr_spgemm_count", 0.0)
+            record("K5_csr_spgemm_fill", err)
+            again = spgemm_call(plan, *args)
+            if not all(torch.equal(x, y) for x, y in
+                       zip(again, (counts, indptr, indices, data))):
+                raise AssertionError(f"K4/K5 {tdt} n={n}: runs differ")
+            c0 = cuda(values(rng, (m, n), npdt))
+            for alpha, beta, cc in ((None, None, None), (2.0, -0.5, c0)):
+                kargs = (*args[:7], alpha, beta, cc, tri)
+                before = spgemm.csr_spgemm_dense.launches
+                out = spgemm.csr_spgemm_dense(*kargs)
+                if spgemm.csr_spgemm_dense.launches != before + 1:
+                    raise AssertionError("K6 did not launch once")
+                record("K6_csr_spgemm_dense", compare(
+                    out, spgemm.csr_spgemm_dense_plain(*kargs), tdt))
+                if not torch.equal(out, spgemm.csr_spgemm_dense(*kargs)):
+                    raise AssertionError(f"K6 {tdt} n={n}: runs differ")
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: the main path through dot_product at real sizes
 # ---------------------------------------------------------------------------
@@ -388,11 +541,7 @@ def main_path():
     d3 = values(rng, (256, n3), np.float64)
     x3 = values(rng, n3, np.float64)
 
-    csr.csr_spmm.launches = 0
-    csr.csr_spmv.launches = 0
-    bsr.bsr_spmm.launches = 0
-    bsr.bsr_spmm.launches_tc = 0
-    bsr.bsr_spmm.launches_simt = 0
+    reset_launches()
     t0 = time.perf_counter()
     r1 = sdt.dot_product(a1, b1)
     r1t = sdt.dot_product(d1, a1)
@@ -410,16 +559,12 @@ def main_path():
     r3v = sdt.dot_product(a3, x3)
     rbc = sdt.dot_product(abc, bc)
     seconds = time.perf_counter() - t0
-    launches = {
-        "K1_bsr_spmm_tc": bsr.bsr_spmm.launches_tc,
-        "K1_bsr_spmm_simt": bsr.bsr_spmm.launches_simt,
-        "K2_csr_spmm": csr.csr_spmm.launches,
-        "K3_csr_spmv": csr.csr_spmv.launches,
-    }
+    launches = read_launches()
     # The four config-3 calls and dense x BSR on the tensor cores, the
     # complex BSR on the CUDA cores.
     expected = {"K1_bsr_spmm_tc": len(bsrs) + 1, "K1_bsr_spmm_simt": 1,
-                "K2_csr_spmm": 4, "K3_csr_spmv": 3}
+                "K2_csr_spmm": 4, "K3_csr_spmv": 3, "K4_csr_spgemm_count": 0,
+                "K5_csr_spgemm_fill": 0, "K6_csr_spgemm_dense": 0}
     if (launches != expected or bsr.bsr_spmm.launches
             != launches["K1_bsr_spmm_tc"] + launches["K1_bsr_spmm_simt"]):
         raise AssertionError(f"launch counts {launches}, expected {expected}")
@@ -445,11 +590,194 @@ def main_path():
 
 
 # ---------------------------------------------------------------------------
+# Phase 3, sparse x sparse: dot_product, gram_matrix and sypr
+# ---------------------------------------------------------------------------
+
+SPGEMM_PLAIN = ("spgemm_plain", "csr_spgemm_count_plain",
+                "csr_spgemm_fill_plain", "csr_spgemm_dense_plain")
+
+
+def demo_x():
+    """The reference demo's X: 500 x 5000 CSR at 21.2%, f64 (``bench.py``,
+    ``random_state=100``)."""
+    return sps.random(500, 5000, density=0.212, format="csr",
+                      dtype=np.float64, random_state=100)
+
+
+def random_coo_csr(rng, m, nnz):
+    """m x m CSR from nnz random (row, col, N(0, 1)) triples, duplicates
+    summed (as ``tests/test_spgemm_esc.py`` and ``test_gram_matrix.py``
+    build their 1M and 50k matrices)."""
+    a = sps.csr_matrix((rng.standard_normal(nnz),
+                        (rng.integers(0, m, nnz), rng.integers(0, m, nnz))),
+                       shape=(m, m))
+    a.sum_duplicates()
+    a.sort_indices()
+    return a
+
+
+def spgemm_inputs():
+    """Operands of cases a-e: the demo X, BASELINE config 4's complex
+    gram, a 1M x 1M A @ A, config 3's BSR x BSR, a 50k-row sypr."""
+    rng = np.random.default_rng(SEED + 2)
+    x = demo_x()
+    sypr_a = random_coo_csr(rng, 50_000, 60_000)
+    sypr_b = random_coo_csr(rng, 50_000, 50_000)
+    return {
+        "x": x,
+        # f32 values scaled by 1/16, so X @ X.T is of order 1 and decimal=5
+        # measures f32's own rounding.
+        "x32": (x / 16).astype(np.float32),
+        "xc": (x + 0.5j * x).astype(np.complex128).tocsr(),
+        "a1m": random_coo_csr(rng, 1_000_000, 2_000_000),
+        "bsr_a": config3_bsr(rng, SIZES["config3"], np.float64, 64),
+        "bsr_b": config3_bsr(rng, SIZES["config3"], np.float64, 64),
+        "sypr_a": sypr_a,
+        "sypr_b": (sypr_b + sypr_b.T).tocsr(),
+    }
+
+
+class plain_versions_refused:
+    """Inside the block, the plain versions of K4-K6 raise: the main path
+    must run the kernels, never their plain versions on the card."""
+
+    def __enter__(self):
+        from sparse_dot_tpu_torch.ops import spgemm
+
+        self.saved = {name: getattr(spgemm, name) for name in SPGEMM_PLAIN}
+
+        def refuse(*args, **kwargs):
+            raise AssertionError("a plain SpGEMM version ran on the main path")
+
+        for name in SPGEMM_PLAIN:
+            setattr(spgemm, name, refuse)
+        return self
+
+    def __exit__(self, *exc):
+        from sparse_dot_tpu_torch.ops import spgemm
+
+        for name, fn in self.saved.items():
+            setattr(spgemm, name, fn)
+        return False
+
+
+def reset_launches():
+    from sparse_dot_tpu_torch.ops import bsr, csr, spgemm
+
+    for fn in (csr.csr_spmm, csr.csr_spmv, bsr.bsr_spmm,
+               spgemm.csr_spgemm_count, spgemm.csr_spgemm_fill,
+               spgemm.csr_spgemm_dense):
+        fn.launches = 0
+    bsr.bsr_spmm.launches_tc = bsr.bsr_spmm.launches_simt = 0
+
+
+def read_launches():
+    from sparse_dot_tpu_torch.ops import bsr, csr, spgemm
+
+    return {
+        "K1_bsr_spmm_tc": bsr.bsr_spmm.launches_tc,
+        "K1_bsr_spmm_simt": bsr.bsr_spmm.launches_simt,
+        "K2_csr_spmm": csr.csr_spmm.launches,
+        "K3_csr_spmv": csr.csr_spmv.launches,
+        "K4_csr_spgemm_count": spgemm.csr_spgemm_count.launches,
+        "K5_csr_spgemm_fill": spgemm.csr_spgemm_fill.launches,
+        "K6_csr_spgemm_dense": spgemm.csr_spgemm_dense.launches,
+    }
+
+
+def check_sparse(cases, name, res, ref, decimal, fmt="csr", pattern=False):
+    """A sparse result against scipy: format, dtype, shape, finite values,
+    max |res - ref| within decimal; with ``pattern`` also equal indptr and
+    indices (both sorted)."""
+    if (res.format != fmt or res.dtype != ref.dtype
+            or res.shape != ref.shape or not np.isfinite(res.data).all()):
+        raise AssertionError(f"{name}: {res.format} {res.dtype} {res.shape}")
+    err = float(abs(res - ref).max()) if res.nnz + ref.nnz else 0.0
+    if not err < 1.5 * 10.0 ** -decimal:
+        raise AssertionError(f"{name}: max |res - ref| = {err}")
+    if pattern:
+        r, o = res.tocsr(), ref.tocsr()
+        r.sort_indices()
+        o.sort_indices()
+        if not (np.array_equal(r.indptr, o.indptr)
+                and np.array_equal(r.indices, o.indices)):
+            raise AssertionError(f"{name}: pattern differs from scipy")
+    cases[name] = {"shape": list(res.shape), "dtype": str(res.dtype),
+                   "nnz": int(res.nnz), "max_abs_err": err}
+
+
+def spgemm_path():
+    """Cases a-e through the public API, K4/K5/K6 launches counted."""
+    import sparse_dot_tpu_torch as sdt
+
+    inp = spgemm_inputs()
+    x, x32, xc = inp["x"], inp["x32"], inp["xc"]
+    out = np.full((x.shape[0], x.shape[0]), np.nan)
+
+    reset_launches()
+    with plain_versions_refused():
+        t0 = time.perf_counter()
+        r = {
+            "a_x_xT_f64": sdt.dot_product(x, x.T),
+            "a_x_xT_f32": sdt.dot_product(x32, x32.T),
+            "a_x_xT_dense_out": sdt.dot_product(x, x.T, dense=True, out=out),
+            "a_gram_xxT": sdt.gram_matrix(x, transpose=True),
+            "a_gram_xxT_dense": sdt.gram_matrix(x, transpose=True,
+                                                dense=True),
+            "b_gram_c128_xTx": sdt.gram_matrix(xc, allow_complex=True),
+            "b_gram_c128_xxT": sdt.gram_matrix(xc, transpose=True,
+                                               allow_complex=True),
+            "c_1M_a_x_a": sdt.dot_product(inp["a1m"], inp["a1m"]),
+            "d_config3_bsr_x_bsr": sdt.dot_product(inp["bsr_a"],
+                                                   inp["bsr_b"]),
+            "e_sypr_50k": sdt.sypr(inp["sypr_a"], inp["sypr_b"]),
+        }
+        seconds = time.perf_counter() - t0
+    launches = read_launches()
+    expected = {name: 0 for name in launches}
+    expected.update(K4_csr_spgemm_count=9, K5_csr_spgemm_fill=9,
+                    K6_csr_spgemm_dense=2)
+    if launches != expected:
+        raise AssertionError(f"launch counts {launches}, expected {expected}")
+    if r["a_x_xT_dense_out"] is not out:
+        raise AssertionError("dot_product(dense=True, out=...) did not "
+                             "return out")
+
+    cases = {}
+    xxt = x @ x.T
+    check_sparse(cases, "a_x_xT_f64", r["a_x_xT_f64"], xxt, 6, pattern=True)
+    x32d = x32.astype(np.float64)
+    check_sparse(cases, "a_x_xT_f32", r["a_x_xT_f32"],
+                 (x32d @ x32d.T).astype(np.float32), 5, pattern=True)
+    np.testing.assert_array_almost_equal(out, xxt.toarray(), decimal=6)
+    check_sparse(cases, "a_gram_xxT", r["a_gram_xxT"], sps.triu(xxt), 6,
+                 pattern=True)
+    np.testing.assert_array_almost_equal(
+        r["a_gram_xxT_dense"], np.triu(xxt.toarray()), decimal=6)
+    check_sparse(cases, "b_gram_c128_xTx", r["b_gram_c128_xTx"],
+                 sps.triu(xc.T @ xc, format="csr"), 6)
+    check_sparse(cases, "b_gram_c128_xxT", r["b_gram_c128_xxT"],
+                 sps.triu(xc @ xc.T, format="csr"), 6)
+    check_sparse(cases, "c_1M_a_x_a", r["c_1M_a_x_a"],
+                 inp["a1m"] @ inp["a1m"], 6, pattern=True)
+    d = r["d_config3_bsr_x_bsr"]
+    if d.blocksize != (64, 64):
+        raise AssertionError(f"BSR x BSR blocksize {d.blocksize}")
+    check_sparse(cases, "d_config3_bsr_x_bsr", d,
+                 inp["bsr_a"] @ inp["bsr_b"], 6, fmt="bsr")
+    sa, sb = inp["sypr_a"], inp["sypr_b"]
+    check_sparse(cases, "e_sypr_50k", r["e_sypr_50k"],
+                 sps.triu(sa.T @ sb @ sa, format="csr"), 6)
+    emit("3-spgemm", seconds=seconds, launches=launches, cases=cases)
+    return launches, inp
+
+
+# ---------------------------------------------------------------------------
 # Phase 4: times
 # ---------------------------------------------------------------------------
 
 
-def time_pair(kernel_fn, plain_fn):
+def time_pair(kernel_fn, plain_fn, reps=REPS):
     """The REPS times in ms of each, taken in turns, and the largest
     |kernel - plain|.  Before each launch a 1 GiB read evicts L2 with
     clean lines (a write would leave dirty lines to drain inside the timed
@@ -461,7 +789,7 @@ def time_pair(kernel_fn, plain_fn):
     out_k, out_p = kernel_fn(), plain_fn()
     err = compare(out_k, out_p, out_k.dtype)
     times = {"kernel": [], "plain": []}
-    for _ in range(REPS):
+    for _ in range(reps):
         for name, fn in (("plain", plain_fn), ("kernel", kernel_fn)):
             flush.sum()
             start = torch.cuda.Event(enable_timing=True)
@@ -536,6 +864,85 @@ def timings(inputs):
     return rows
 
 
+# Case d's plain versions expand 1.4 G products in chunks; fewer turns.
+REPS_CONFIG3 = 5
+
+
+def spgemm_timings(inp):
+    """K4 (count), K5 (fill) and K4 + K5 as one product (plan, count,
+    running sum, the nnz read, fill) against their plain versions, at
+    cases a, c and d; K6 at cases a and d (case c's dense output, 1M x 1M,
+    would take 8 TB).  Products/s beside each; then the wall time of
+    ``dot_product(X, X.T)`` host in to host out, next to scipy's."""
+    import sparse_dot_tpu_torch as sdt
+    from sparse_dot_tpu_torch import formats
+    from sparse_dot_tpu_torch.ops import spgemm
+
+    rows = []
+    x = inp["x"]
+    shapes = {
+        "a": ("demo X @ X.T, X 500x5000 CSR 21.2% f64", x, x.T, REPS),
+        "c": ("1M x 1M CSR, 2M random nnz, A @ A, f64", inp["a1m"],
+              inp["a1m"], REPS),
+        "d": ("config3 BSR bs=64 8192^2 5% blocks f64, A @ B", inp["bsr_a"],
+              inp["bsr_b"], REPS_CONFIG3),
+    }
+    for case, (shape, a, b, reps) in shapes.items():
+        A, B = formats.to_device(a), formats.to_device(b)
+        args = (*A.csr_arrays(), *B.csr_arrays(), b.shape[1])
+        ip, ix, dv, bip, bix, bdv, n = args
+        plan = spgemm.spgemm_plan(ip, ix, bip, n, dv.dtype, ip.dtype)
+        products = int(plan.ub.sum())
+        whole = spgemm.csr_spgemm(*args)
+        ref = spgemm.spgemm_plain(*args)
+        torch.cuda.synchronize()
+        if not (torch.equal(whole[0], ref[0])
+                and torch.equal(whole[1], ref[1])):
+            raise AssertionError(f"case {case}: K4/K5 pattern differs")
+        nnz = int(whole[0][-1])
+        timed = [
+            ("K4_csr_spgemm_count",
+             lambda: spgemm.csr_spgemm_count(ip, ix, bip, bix, n, plan),
+             lambda: spgemm.csr_spgemm_count_plain(ip, ix, bip, bix, n)),
+            ("K5_csr_spgemm_fill",
+             lambda: spgemm.csr_spgemm_fill(*args, plan, whole[0], nnz)[1],
+             lambda: spgemm.csr_spgemm_fill_plain(*args)[1]),
+            ("K4+K5 product",
+             lambda: spgemm.csr_spgemm(*args)[2],
+             lambda: spgemm.spgemm_plain(*args)[2]),
+        ]
+        if case != "c":
+            timed.append(("K6_csr_spgemm_dense",
+                          lambda: spgemm.csr_spgemm_dense(*args),
+                          lambda: spgemm.csr_spgemm_dense_plain(*args)))
+        for kernel, kernel_fn, plain_fn in timed:
+            kt, pt, err = time_pair(kernel_fn, plain_fn, reps)
+            (ms, p10, p90), (plain_ms, pp10, pp90) = spread(kt), spread(pt)
+            rows.append({
+                "kernel": kernel, "case": case, "shape": shape, "ms": ms,
+                "p10": p10, "p90": p90, "plain_ms": plain_ms,
+                "plain_p10": pp10, "plain_p90": pp90, "max_abs_err": err,
+                "reps": reps, "products": products, "nnz": nnz,
+                "gproducts_per_s": products / ms / 1e6,
+                "plain_gproducts_per_s": products / plain_ms / 1e6,
+            })
+        del A, B, args, plan, whole, ref
+        torch.cuda.empty_cache()
+
+    wall = {"dot_product": [], "scipy": []}
+    for _ in range(5):
+        for name, fn in (("dot_product", lambda: sdt.dot_product(x, x.T)),
+                         ("scipy", lambda: x @ x.T)):
+            t0 = time.perf_counter()
+            fn()
+            wall[name].append((time.perf_counter() - t0) * 1e3)
+    emit("4-spgemm", rows=rows, wall_ms_x_xT={
+        name: spread(t) for name, t in wall.items()},
+        timer="cuda events, median (p10, p90), 1 GiB read before each; "
+              "wall: host clock, median (p10, p90) of 5")
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -558,7 +965,10 @@ def main():
 
     check_kernels()
     launches, inputs = main_path()
-    rows = timings(inputs)
+    spgemm_launches, spgemm_inp = spgemm_path()
+    launches.update({name: n for name, n in spgemm_launches.items()
+                     if name.startswith(("K4", "K5", "K6"))})
+    rows = timings(inputs) + spgemm_timings(spgemm_inp)
 
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")

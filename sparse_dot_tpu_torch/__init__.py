@@ -1,11 +1,14 @@
 """sparse_dot_tpu_torch — the PyTorch/CUDA port of ``sparse_dot_tpu``.
 
 The same public surface as the JAX package, for one NVIDIA H100 (or the
-CPU): ``dot_product`` over scipy CSR/CSC/BSR and numpy dense operands in
-float32/float64/complex64/complex128, with the reference's ``cast``,
-``out``/``out_scalar`` and memory-order semantics.  SpMM and SpMV run on
+CPU): ``dot_product``, ``gram_matrix`` and ``sypr`` over scipy
+CSR/CSC/BSR and numpy dense operands in float32/float64/complex64/
+complex128, with the reference's ``cast``, ``dense``, ``out``/
+``out_scalar`` and memory-order semantics.  The sparse products run on
 hand-written CUDA kernels for Hopper (``csrc/``): K1 BSR SpMM, K2 CSR
-SpMM and K3 CSR SpMV; dense GEMM runs on ``torch.matmul``.
+SpMM, K3 CSR SpMV, K4 + K5 sparse x sparse with sparse output (count,
+then fill) and K6 sparse x sparse with dense output; dense GEMM and the
+dense gram run on ``torch.matmul``.
 
 Tensors live on ``config.device`` ("cpu" by default, or "cuda")::
 
@@ -13,8 +16,11 @@ Tensors live on ``config.device`` ("cpu" by default, or "cuda")::
     config.device = "cuda"
 
 The drop-in aliases with the reference's ``*_mkl`` names are exported.
-SpGEMM, ``gram_matrix``, ``sparse_qr_solve``, ``sypr`` and the solvers
-are not ported yet (ROADMAP.md).  This package never imports JAX.
+Not ported yet (ROADMAP.md): the sparse handle protocol
+(``create_sparse_handle`` and the rest of ``interface``),
+``sparse_qr_solve``, the iterative solvers (``cg``, ``cg_mrhs``,
+``fgmres`` and their classes), ``pardiso``/``pardisoinit``, and the
+sharded (multi-device) layer.  This package never imports JAX.
 """
 
 from .config import (
@@ -44,9 +50,12 @@ from .formats import (
     to_device,
     from_arrays,
 )
-from .dispatch import dot_product
+from .dispatch import dot_product, gram_matrix
+from .ops.sypr import sypr
 
 dot_product_mkl = dot_product
+gram_matrix_mkl = gram_matrix
+dot_product_transpose_mkl = gram_matrix
 
 
 def mkl_get_version():
@@ -88,6 +97,8 @@ __all__ = [
     "__version__",
     # canonical API
     "dot_product",
+    "gram_matrix",
+    "sypr",
     "set_debug_mode",
     "debug_print",
     "debug_timer",
@@ -112,6 +123,8 @@ __all__ = [
     "from_arrays",
     # reference-compatible aliases
     "dot_product_mkl",
+    "gram_matrix_mkl",
+    "dot_product_transpose_mkl",
     "mkl_get_version",
     "mkl_get_version_string",
     "mkl_get_max_threads",

@@ -2,7 +2,7 @@
 
 Port of ``sparse_dot_tpu/config.py``: the index integer width ("LP64"
 int32 or "ILP64" int64, the reference's ``MKL_INTERFACE_LAYER``), the
-debug flag and the SpMM chunk budget of the plain path, plus the device
+debug flag and the chunk budget of the plain paths, plus the device
 every tensor is created on.  The TPU switches of the JAX package (planar
 complex, Pallas/ELL/Ozaki routes and their caches) have no counterpart.
 
@@ -47,8 +47,10 @@ class _Config:
     def __init__(self):
         self.interface = _interface_from_env()
         self.debug = bool(os.environ.get("SPARSE_DOT_DEBUG", ""))
-        # Max number of gathered elements the plain SpMM materializes at
-        # once (bounds the (nnz, n) intermediate; the CUDA kernel has none).
+        # Max number of gathered elements the plain SpMM, and of expanded
+        # products the plain SpGEMM, materialize at once (bounds the (nnz,
+        # n) intermediate and the product sort; the CUDA kernels have
+        # neither).
         self.spmm_chunk_elements = 1 << 24
         self._device = "cpu"
 

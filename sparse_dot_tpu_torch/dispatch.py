@@ -1,21 +1,20 @@
 """Public polymorphic multiply API.
 
 Port of ``sparse_dot_tpu/dispatch.py`` ``dot_product`` (the reference's
-``sparse_dot.py:79-152``): routes by operand sparsity and shape to SpMM,
-SpMV or GEMM, with the reference's keyword semantics — ``cast``,
-``out``/``out_scalar`` accumulate into the caller's array, the
-empty-output dtype rules, the memory-order rules (SpMM output follows B's
-order, GEMM follows A's) and the error messages.  Inputs may be scipy
-sparse matrices or arrays, numpy dense arrays, or this package's
+``sparse_dot.py:79-152``) and ``gram_matrix`` (``sparse_dot.py:155-242``):
+routes by operand sparsity and shape to SpGEMM, SpMM, SpMV or GEMM, with
+the reference's keyword semantics — ``cast``, ``dense``,
+``reorder_output``, ``out``/``out_scalar`` accumulate into the caller's
+array, the empty-output dtype rules, the memory-order rules (SpMM output
+follows B's order, GEMM follows A's) and the error messages.  Inputs may
+be scipy sparse matrices or arrays, numpy dense arrays, or this package's
 containers.
-
-Sparse x sparse (SpGEMM) is not ported yet (ROADMAP.md, Queue 1 item 5)
-and raises ``NotImplementedError``.
 """
 
 import warnings
 
 import numpy as np
+import scipy.sparse as _sps
 
 from . import formats
 from . import policy
@@ -23,7 +22,7 @@ from .backend import torch_device
 from .ops import host as _ops
 from .utils.debug import debug_print, print_backend_debug, trace_phase
 
-__all__ = ["dot_product"]
+__all__ = ["dot_product", "gram_matrix"]
 
 
 def _deprecated_debug(debug):
@@ -32,6 +31,93 @@ def _deprecated_debug(debug):
             "Set debug mode with sparse_dot_tpu_torch.set_debug_mode(True)",
             DeprecationWarning,
         )
+
+
+def _scipy_blocksize(mat):
+    if formats.is_bsr(mat):
+        return tuple(mat.blocksize)
+    return None
+
+
+# ---------------------------------------------------------------------------
+# sparse @ sparse
+# ---------------------------------------------------------------------------
+
+
+def _sparse_dot_sparse(matrix_a, matrix_b, cast=False, reorder_output=False,
+                       dense=False, out=None):
+    if not policy.allowed_sparse_format(matrix_a) or not (
+        policy.allowed_sparse_format(matrix_b)
+    ):
+        raise ValueError(
+            "Input matrices to dot_product must be CSR, CSC, or BSR; "
+            "COO is not supported"
+        )
+
+    if out is not None and not dense:
+        raise ValueError(
+            "out argument cannot be used with sparse (dot) sparse "
+            "matrix multiplication unless dense=True"
+        )
+
+    default_output, output_type = formats.sparse_output_type(matrix_a)
+    blocksize = _scipy_blocksize(matrix_a)
+
+    policy.sanity_check(matrix_a, matrix_b)
+
+    output_shape = (matrix_a.shape[0], matrix_b.shape[1])
+
+    if policy.empty_output_check(matrix_a, matrix_b):
+        if dense:
+            return policy.out_matrix(
+                output_shape, matrix_a.dtype, out_arr=out
+            )
+        return _empty_sparse(
+            default_output, output_type, output_shape, matrix_a.dtype,
+            blocksize,
+        )
+
+    matrix_a, matrix_b = policy.type_check(matrix_a, matrix_b, cast=cast)
+    out_dtype = policy.output_dtype(matrix_a, matrix_b)
+
+    A = formats.to_device(matrix_a)
+    B = formats.to_device(matrix_b)
+
+    if dense:
+        # spmmd semantics: the product overwrites out (no accumulation).
+        out_validated = policy.out_matrix(
+            output_shape, out_dtype, "C", out_arr=out
+        )
+        with trace_phase("spgemm_dense"):
+            res = _ops.spgemm_dense(A, B, out_dtype)
+        out_validated[...] = res
+        return out_validated
+
+    with trace_phase("spgemm"):
+        data, indices, indptr = _ops.spgemm_sparse_arrays(A, B, out_dtype)
+    # reorder_output is satisfied: K5 writes each row's columns sorted.
+    return _build_sparse_output(
+        default_output, output_type, output_shape, data, indices, indptr,
+        blocksize,
+    )
+
+
+def _empty_sparse(constructor, output_type, shape, dtype, blocksize):
+    if output_type.startswith("bsr"):
+        return constructor(shape, dtype=dtype, blocksize=blocksize)
+    return constructor(shape, dtype=dtype)
+
+
+def _build_sparse_output(constructor, output_type, shape, data, indices,
+                         indptr, blocksize):
+    csr = _sps.csr_matrix((data, indices, indptr), shape=shape)
+    if output_type.startswith("csr"):
+        return constructor(csr) if constructor is not _sps.csr_matrix else csr
+    if output_type.startswith("csc"):
+        return constructor(csr.tocsc())
+    if output_type.startswith("bsr"):
+        return constructor(csr.tobsr(blocksize=blocksize))
+    raise ValueError(f"Unknown output type {output_type}")
 
 
 # ---------------------------------------------------------------------------
@@ -265,11 +351,12 @@ def dot_product(matrix_a, matrix_b, cast=False, copy=True,
     inputs may be scipy sparse (CSR/CSC/BSR), numpy dense, or containers,
     in float32/float64/complex64/complex128.  Routing:
 
+    * sparse @ sparse -> SpGEMM: sparse output in A's format (K4 + K5),
+      or dense with ``dense=True`` (K6)
     * sparse @ vector / vector @ sparse -> SpMV (kernel K3)
     * sparse @ dense / dense @ sparse -> SpMM (K2 for CSR/CSC, K1 for BSR)
     * vector @ vector -> np.dot special case
     * dense @ dense -> GEMM
-    * sparse @ sparse -> not ported yet (``NotImplementedError``)
 
     With ``config.device == "cuda"`` and no visible card this raises
     before any work.
@@ -281,9 +368,9 @@ def dot_product(matrix_a, matrix_b, cast=False, copy=True,
     num_sparse = sum((formats.issparse(matrix_a), formats.issparse(matrix_b)))
 
     if num_sparse == 2:
-        raise NotImplementedError(
-            "sparse @ sparse (SpGEMM) is not ported to sparse_dot_tpu_torch "
-            "yet; see ROADMAP.md, Queue 1 item 5"
+        return _sparse_dot_sparse(
+            matrix_a, matrix_b, cast=cast, reorder_output=reorder_output,
+            dense=dense, out=out,
         )
 
     if (
@@ -323,3 +410,113 @@ def dot_product(matrix_a, matrix_b, cast=False, copy=True,
     return _dense_dot_dense(
         matrix_a, matrix_b, cast=cast, out=out, out_scalar=out_scalar
     )
+
+
+def gram_matrix(matrix, transpose=False, cast=False, dense=False,
+                debug=False, reorder_output=False, out=None,
+                out_scalar=None, allow_complex=False):
+    """Gram matrix AᵀA (or AAᵀ with ``transpose=True``), upper-triangular.
+
+    Port of ``sparse_dot_tpu.gram_matrix`` (the reference's
+    ``gram_matrix_mkl``, ``sparse_dot.py:155-242`` and
+    ``_gram_matrix.py:252-335``), including: CSC requires ``cast=True``;
+    complex inputs are rejected by default; a dense-input product leaves
+    the strict lower triangle as out_scalar * out; the empty-input shape
+    rule.  ``allow_complex=True`` (the JAX package's extension) computes
+    the unconjugated AᵀA / AAᵀ of complex input.  Sparse output runs on
+    K4 + K5, dense output from sparse input on K6, dense input on
+    ``torch.matmul``.
+    """
+    _deprecated_debug(debug)
+    torch_device()
+    print_backend_debug()
+
+    if policy.empty_output_check(matrix, matrix):
+        debug_print(
+            "Skipping multiplication because AT (dot) A must yield an "
+            "empty matrix"
+        )
+        # Reference quirk preserved: the empty-path shape uses the
+        # transposed selector (``_gram_matrix.py:269-274``).
+        output_shape = (
+            (matrix.shape[1], matrix.shape[1])
+            if transpose
+            else (matrix.shape[0], matrix.shape[0])
+        )
+        output_func = (
+            _sps.csr_matrix if formats.issparse(matrix) else np.zeros
+        )
+        return output_func(output_shape, dtype=matrix.dtype)
+
+    if np.iscomplexobj(matrix) and not allow_complex:
+        raise ValueError("gram_matrix does not support complex datatypes")
+
+    matrix = policy.type_check(matrix, cast=cast)
+
+    is_sparse = formats.issparse(matrix)
+
+    if is_sparse and not (formats.is_csr(matrix) or formats.is_csc(matrix)):
+        raise ValueError(
+            "gram_matrix requires sparse matrix to be CSR or CSC format"
+        )
+    if formats.is_csc(matrix) and not cast:
+        raise ValueError(
+            "gram_matrix cannot use a CSC matrix unless cast=True"
+        )
+
+    dbl, cplx = policy.precision_flags(matrix)
+    out_dtype = np.dtype(policy.OUTPUT_DTYPES[(dbl, cplx)])
+
+    if not is_sparse:
+        layout_a, _ = policy.get_dense_layout(matrix)
+        out_order = "C" if layout_a == policy.LAYOUT_C else "F"
+        n = matrix.shape[0] if transpose else matrix.shape[1]
+        out_validated = policy.out_matrix(
+            (n, n), out_dtype, order=out_order, out_arr=out
+        )
+        with trace_phase("syrk_dense"):
+            res = _ops.gram_dense_from_dense(
+                matrix, out_dtype, aat=transpose,
+                out=out, out_scalar=out_scalar,
+            )
+        if out is not None:
+            out_validated[...] = res
+            return out_validated
+        return (
+            np.asfortranarray(res) if out_order == "F"
+            else np.ascontiguousarray(res)
+        )
+
+    A = formats.to_device(matrix)
+
+    if dense:
+        n = matrix.shape[0] if transpose else matrix.shape[1]
+        out_validated = policy.out_matrix(
+            (n, n), out_dtype, order="C", out_arr=out
+        )
+        # Reference emulation: syrkd produces a FULL matrix for the
+        # ATA/out=None/real case and the wrapper zeroes the lower triangle
+        # afterwards (``_gram_matrix.py:164-169``); with out provided the
+        # full product is accumulated.
+        full = not transpose and out is not None
+        with trace_phase("syrkd"):
+            res = _ops.gram_dense_from_sparse(
+                A, out_dtype, aat=transpose,
+                out=out, out_scalar=out_scalar,
+                full=full,
+            )
+        if out is not None:
+            out_validated[...] = res
+            return out_validated
+        return res
+
+    if out is not None:
+        raise ValueError(
+            "out argument cannot be used with sparse (dot) sparse "
+            "matrix multiplication"
+        )
+
+    with trace_phase("syrk_sparse"):
+        data, indices, indptr = _ops.gram_sparse(A, out_dtype, aat=transpose)
+    n = matrix.shape[0] if transpose else matrix.shape[1]
+    return _sps.csr_matrix((data, indices, indptr), shape=(n, n))

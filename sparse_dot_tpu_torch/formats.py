@@ -9,8 +9,9 @@ Validation follows the JAX package and the reference's
 ``_create_mkl_sparse``: float32/float64/complex64/complex128 data only,
 BSR blocks square and dividing the matrix dims, and index widths following
 the LP64/ILP64 policy with an overflow error carrying the ILP64 hint.
-The caller's arrays are never modified: a non-canonical CSR/CSC has its
-duplicates summed on a copy.
+The caller's arrays are never modified: a non-canonical CSR/CSC/BSR has
+its duplicates summed on a copy, so every container holds each entry
+(or block) once, as the sparse x sparse kernels need of op(B).
 
 The kernels read CSR (K2, K3) or BSR (K1) in the orientation of the
 product.  ``csr_arrays(transpose)`` and ``BSR.bsr_arrays(transpose)``
@@ -50,12 +51,21 @@ def _validate_dtype(dtype):
         )
 
 
-def _check_index_bounds(nnz, shape):
-    int_max = np.iinfo(config.index_dtype).max
-    if nnz > int_max or max(shape) > int_max:
+def _check_index_bounds(nnz, shape, index_dtype=None):
+    """Raise (with the ILP64 hint) when indices of ``index_dtype`` (a
+    numpy or torch dtype; default the interface's) cannot hold a matrix
+    of ``shape`` with ``nnz`` entries: an input, or a product's output."""
+    if index_dtype is None:
+        index_dtype = config.index_dtype
+    if isinstance(index_dtype, torch.dtype):
+        info = torch.iinfo(index_dtype)
+        name = str(index_dtype).removeprefix("torch.")
+    else:
+        info, name = np.iinfo(index_dtype), np.dtype(index_dtype)
+    if nnz > info.max or max(shape, default=0) > info.max:
         raise ValueError(
-            f"Index interface is {np.dtype(config.index_dtype)} and cannot "
-            f"hold a matrix with shape {shape} / nnz {nnz}; {ILP64_HINT}"
+            f"Index interface is {name} and cannot hold a matrix with "
+            f"shape {tuple(shape)} / nnz {nnz}; {ILP64_HINT}"
         )
 
 
@@ -377,6 +387,9 @@ class BSR(SparseDeviceMatrix):
             raise ValueError(f"Expected scipy BSR matrix, got {type(mat)}")
         _check_blocksize(mat.blocksize, mat.shape)
         _check_index_bounds(mat.nnz, mat.shape)
+        if not mat.has_canonical_format:
+            mat = mat.copy()
+            mat.sum_duplicates()
         device = torch_device()
         return cls(
             _values_to_device(mat.data, device),
@@ -481,7 +494,9 @@ def from_arrays(fmt, data, indices, indptr, shape, blocksize=None):
     """Container from host arrays: ``data``/``indices``/``indptr`` of a
     CSR, CSC or BSR (any array-likes that ``np.asarray`` reads, e.g. the
     arrays of a ``sparse_dot_tpu`` container).  The arrays are copied to
-    ``config.device``; BSR ``blocksize`` defaults to ``data.shape[1:]``."""
+    ``config.device``, repeated entries summed on the copy as
+    ``from_scipy`` does; BSR ``blocksize`` defaults to
+    ``data.shape[1:]``."""
     fmt = str(fmt).lower()
     if fmt not in _DEVICE_CLASSES:
         raise ValueError(
@@ -492,18 +507,14 @@ def from_arrays(fmt, data, indices, indptr, shape, blocksize=None):
     _validate_dtype(data.dtype)
     shape = tuple(int(s) for s in shape)
     _check_index_bounds(data.size, shape)
-    device = torch_device()
-    parts = (
-        _values_to_device(data, device),
-        _indices_to_device(indices, device),
-        _indices_to_device(indptr, device),
-        shape,
-    )
+    arrays = (data, np.asarray(indices), np.asarray(indptr))
     if fmt != "bsr":
-        return _DEVICE_CLASSES[fmt](*parts)
+        return _DEVICE_CLASSES[fmt].from_scipy(
+            _scipy_format_classes[fmt][0](arrays, shape=shape))
     blocksize = tuple(data.shape[1:]) if blocksize is None else blocksize
     _check_blocksize(blocksize, shape)
-    return BSR(*parts, blocksize)
+    return BSR.from_scipy(
+        _sps.bsr_matrix(arrays, shape=shape, blocksize=blocksize))
 
 
 # ---------------------------------------------------------------------------

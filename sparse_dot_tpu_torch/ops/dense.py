@@ -1,7 +1,7 @@
 """Dense GEMM and the alpha/beta epilogue.
 
-Port of ``sparse_dot_tpu/ops/_xla.py`` ``gemm`` (``cblas_?gemm``) and
-``axpby``.  The JAX package computed the dense product with ``jnp.dot``
+Port of ``sparse_dot_tpu/ops/_xla.py`` ``gemm`` (``cblas_?gemm``),
+``syrk_dense`` (``cblas_?syrk``) and ``axpby``.  The JAX package computed the dense product with ``jnp.dot``
 outside any Pallas kernel, so it stays a library product here
 (``torch.matmul``).  The Ozaki f64 route of the TPU has no counterpart:
 the card has IEEE f64.
@@ -43,4 +43,14 @@ def gemm(a, b, alpha=1.0, beta=0.0, c0=None):
     if a.is_cuda:
         ieee_matmul()
     c = torch.matmul(a, b)
+    return axpby(c, None if alpha == 1.0 else alpha, beta, c0)
+
+
+def syrk(a, aat=False, alpha=1.0, beta=0.0, c0=None):
+    """``triu(alpha * op(a)) + beta * c0`` with op(a) = a @ a.T (``aat``)
+    or a.T @ a, unconjugated for complex ``a``: the strict lower triangle
+    is ``beta * c0`` (or 0), as ``cblas_?syrk`` leaves it."""
+    if a.is_cuda:
+        ieee_matmul()
+    c = torch.triu(torch.matmul(a, a.T) if aat else torch.matmul(a.T, a))
     return axpby(c, None if alpha == 1.0 else alpha, beta, c0)

@@ -1,9 +1,12 @@
 """Host-boundary wrappers around the kernels.
 
 Port of ``sparse_dot_tpu/ops/host.py`` ``spmm``/``spmv``/``gemm`` and
-``_bilinear_host``: numpy -> device tensors, one product on the device
-with the alpha/beta(out_scalar) accumulate fused into the kernel's
-epilogue, and one device -> host copy of the result.
+``_bilinear_host``, the sparse x sparse products (``spgemm_device``,
+``spgemm_sparse_arrays``, ``spgemm_dense``) and the gram products
+(``gram_dense_from_dense``, ``gram_dense_from_sparse``, ``gram_sparse``):
+numpy -> device tensors, one product on the device with the
+alpha/beta(out_scalar) accumulate fused into the kernel's epilogue, and
+one device -> host copy of the result.
 
 There is one path per operation.  Complex values run natively (no planar
 decomposition), f64 runs as IEEE f64 (no hi|lo range gates), and each
@@ -11,11 +14,17 @@ format has one route: CSR and CSC go to K2 (``ops.csr.csr_spmm``), BSR to
 K1 (``ops.bsr.bsr_spmm``), SpMV of any format to K3
 (``ops.csr.csr_spmv``), each on the layout of op(A) that the container
 builds once (``formats``).  The TPU's measured crossovers between ELL,
-densify+matmul and scatter routes are not carried over.
+densify+matmul and scatter routes are not carried over.  Sparse x sparse
+has one route per output kind: sparse output on K4 + K5, dense output on
+K6 (``ops.spgemm``), both on the CSR arrays of op(A) and op(B); the JAX
+package's routing ladder, planar complex and speculative size caches
+have no counterpart.
 """
 
-from .. import formats
-from . import bsr, csr, dense
+import numpy as np
+
+from .. import formats, policy
+from . import bsr, csr, dense, spgemm
 
 
 def _spmm_pass(A, b, transpose, alpha=None, beta=None, c0=None):
@@ -74,3 +83,94 @@ def gemm(a_np, b_np, out_dtype, alpha=1.0, out=None, out_scalar=None):
     c0 = formats.dense_to_device(out) if out is not None else None
     res = dense.gemm(a, b, alpha=alpha, beta=beta, c0=c0)
     return res.cpu().numpy().astype(out_dtype, copy=False)
+
+
+# ---------------------------------------------------------------------------
+# sparse x sparse
+# ---------------------------------------------------------------------------
+
+
+def _product_arrays(A, B, out_dtype):
+    """CSR arrays of op(A) and op(B) with ``out_dtype`` values and A's
+    index dtype."""
+    dtype = formats.torch_dtype(out_dtype)
+    a_ip, a_ix, a_dv = A.csr_arrays()
+    b_ip, b_ix, b_dv = B.csr_arrays()
+    itype = a_ip.dtype
+    return (a_ip, a_ix, a_dv.to(dtype), b_ip.to(itype), b_ix.to(itype),
+            b_dv.to(dtype))
+
+
+def spgemm_device(A, B, out_dtype=None, triangular=False):
+    """A @ B -> ``formats.CSR`` on the device (no host copy), with the
+    structural output pattern and sorted columns; only j >= i with
+    ``triangular``.  Reading the output's nnz is the one host sync."""
+    if out_dtype is None:
+        out_dtype = policy.output_dtype(A, B)
+    m, n = A.shape[0], B.shape[1]
+    indptr, indices, data = spgemm.csr_spgemm(
+        *_product_arrays(A, B, out_dtype), n, triangular)
+    return formats.CSR(data, indices, indptr, (m, n))
+
+
+def spgemm_sparse_arrays(A, B, out_dtype, triangular=False):
+    """A @ B -> (data, indices, indptr) host CSR arrays with the
+    structural output pattern (exactly cancelled entries kept as explicit
+    zeros)."""
+    C = spgemm_device(A, B, out_dtype, triangular)
+    return (C.data.cpu().numpy(), C.indices.cpu().numpy(),
+            C.indptr.cpu().numpy())
+
+
+def _spgemm_dense_host(A, B, out_dtype, out, out_scalar, triangular):
+    beta = 1.0 if out_scalar is None else out_scalar
+    c0 = formats.dense_to_device(out) if out is not None else None
+    res = spgemm.csr_spgemm_dense(
+        *_product_arrays(A, B, out_dtype), B.shape[1],
+        beta=beta if c0 is not None else None, c0=c0,
+        triangular=triangular,
+    )
+    return res.cpu().numpy().astype(out_dtype, copy=False)
+
+
+def spgemm_dense(A, B, out_dtype, out=None, out_scalar=None):
+    """A @ B (+ out_scalar * out) -> dense host numpy (spmmd analog)."""
+    return _spgemm_dense_host(A, B, out_dtype, out, out_scalar, False)
+
+
+# ---------------------------------------------------------------------------
+# Gram (syrk)
+# ---------------------------------------------------------------------------
+
+
+def gram_dense_from_dense(a_np, out_dtype, aat=False, out=None,
+                          out_scalar=None):
+    """triu(op(a)) from a dense operand (cblas_?syrk analog), unconjugated
+    for complex input: the strict lower triangle of the result is
+    out_scalar * out (or zero)."""
+    beta = 1.0 if out_scalar is None else out_scalar
+    a = formats.dense_to_device(np.asarray(a_np))
+    c0 = formats.dense_to_device(out) if out is not None else None
+    res = dense.syrk(a, aat=aat, beta=beta, c0=c0)
+    return res.cpu().numpy().astype(out_dtype, copy=False)
+
+
+def _gram_operands(A, aat):
+    return (A, A.T) if aat else (A.T, A)
+
+
+def gram_dense_from_sparse(A, out_dtype, aat=False, out=None,
+                           out_scalar=None, full=False):
+    """Gram of a sparse operand with dense output (syrkd analog):
+    triu(op(A)) + out_scalar * out; ``full=True`` keeps the lower triangle
+    of the product too, as the reference's syrkd does before its
+    lower-triangle cleanup (``_gram_matrix.py:164-169``)."""
+    first, second = _gram_operands(A, aat)
+    return _spgemm_dense_host(first, second, out_dtype, out, out_scalar,
+                              not full)
+
+
+def gram_sparse(A, out_dtype, aat=False):
+    """Gram of a sparse operand with sparse (upper-triangular) output."""
+    first, second = _gram_operands(A, aat)
+    return spgemm_sparse_arrays(first, second, out_dtype, triangular=True)

@@ -249,9 +249,15 @@ def test_scipy_array_classes(cls):
 
 
 def test_sparse_times_sparse_not_ported():
+    """Sparse x sparse used to raise NotImplementedError here; it is
+    ported now and gives the JAX package's CSR (tests/test_torch_spgemm.py
+    holds the cases)."""
     a = sparse("csr", np.float64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sdtt.dot_product(a, a.T.tocsr())
+    port, ref = both(a, a.T.tocsr())
+    assert type(port) is type(ref) and port.dtype == ref.dtype
+    npt.assert_array_equal(port.indptr, ref.indptr)
+    npt.assert_array_equal(port.indices, ref.indices)
+    npt.assert_allclose(port.data, ref.data, rtol=1e-12, atol=1e-12)
 
 
 def test_non_canonical_csr_summed_on_a_copy():

@@ -1,0 +1,494 @@
+"""The port's sparse x sparse products against the JAX package's.
+
+The same scipy inputs, made from a seed, go through
+``sparse_dot_tpu.ops.host`` (JAX on the CPU) and the port's
+``ops.host`` (torch on the CPU, where the K4/K5/K6 wrappers take their
+plain versions).  Sparse results must have equal ``indptr`` and
+``indices``, structural patterns included (explicit zeros and exactly
+cancelled sums stay stored); values agree within rtol 1e-12 (float64,
+complex128) or 1e-5 (float32, complex64), with atol = rtol * max|ref|:
+the two sum in different orders.
+
+Also here: the row bounds and row bins that choose K4/K5's accumulators
+(``ops.spgemm.spgemm_plan``), the plain versions' chunking, the output
+nnz overflow check, and the slice as a whole (``dot_product``,
+``gram_matrix``, ``sypr``) against the JAX package.
+"""
+
+import contextlib
+
+import numpy as np
+import numpy.testing as npt
+import pytest
+import scipy.sparse as sps
+import torch
+
+import sparse_dot_tpu as sdt
+import sparse_dot_tpu_torch as sdtt
+from sparse_dot_tpu.ops import host as jax_host
+from sparse_dot_tpu_torch import formats
+from sparse_dot_tpu_torch.config import config
+from sparse_dot_tpu_torch.ops import host, spgemm
+
+TOL = {
+    np.dtype(np.float32): 1e-5,
+    np.dtype(np.complex64): 1e-5,
+    np.dtype(np.float64): 1e-12,
+    np.dtype(np.complex128): 1e-12,
+}
+
+
+def random_sparse(shape, density, dtype=np.float64, seed=0, fmt="csr"):
+    rng = np.random.default_rng(seed)
+    a = sps.random(*shape, density=density, format="csr", random_state=rng)
+    if np.dtype(dtype).kind == "c":
+        a = a + 0.5j * sps.random(*shape, density=density, format="csr",
+                                  random_state=rng)
+    a = a.astype(dtype).tocsr()
+    a.data -= 0.5 * a.data.real.mean()
+    return a.asformat(fmt)
+
+
+def rows_of(lengths, width, dtype=np.float64, seed=0):
+    """CSR whose row i holds lengths[i] distinct random columns."""
+    rng = np.random.default_rng(seed)
+    cols = [np.sort(rng.choice(width, n, replace=False)) for n in lengths]
+    indptr = np.concatenate([[0], np.cumsum(lengths)])
+    data = rng.standard_normal(int(indptr[-1])).astype(dtype)
+    return sps.csr_matrix((data, np.concatenate(cols), indptr),
+                          shape=(len(lengths), width))
+
+
+def with_explicit_zeros(a):
+    a = a.copy()
+    a.data[::3] = 0
+    return a
+
+
+def cancelling():
+    """A @ B with exactly cancelled entries: row 0 of the product sums
+    1 * 1 + 1 * (-1) in every column."""
+    a = sps.csr_matrix(np.array([[1.0, 1.0, 0.0], [0.0, 2.0, 3.0]]))
+    b = sps.csr_matrix(np.array([[1.0, 2.0, 0.0, 1.0],
+                                 [-1.0, -2.0, 0.0, 0.0],
+                                 [0.0, 1.0, 1.0, 0.0]]))
+    return a, b
+
+
+def empty_rows():
+    a = random_sparse((30, 40), 0.15, seed=1).tolil()
+    a[::4] = 0
+    b = random_sparse((40, 25), 0.15, seed=2).tolil()
+    b[::3] = 0
+    return a.tocsr(), b.tocsr()
+
+
+WIDE_N = 40_000  # > 32768, and a dense f64 row of it exceeds 200 KB
+LONG_ROW = 300   # x 30 per row of B: ub = 9000, past the largest table
+
+
+def wide():
+    a = rows_of([0, 1, 5, 40, LONG_ROW, 2], 600, seed=3)
+    b = rows_of([30] * 600, WIDE_N, seed=4)
+    return a, b
+
+
+CASES = {
+    "csr_f64": lambda: (random_sparse((30, 40), 0.15, seed=5),
+                        random_sparse((40, 50), 0.15, seed=6)),
+    "csr_f32": lambda: (random_sparse((30, 40), 0.15, np.float32, 5),
+                        random_sparse((40, 50), 0.15, np.float32, 6)),
+    "csr_c64": lambda: (random_sparse((30, 40), 0.15, np.complex64, 5),
+                        random_sparse((40, 50), 0.15, np.complex64, 6)),
+    "csr_c128": lambda: (random_sparse((30, 40), 0.15, np.complex128, 5),
+                         random_sparse((40, 50), 0.15, np.complex128, 6)),
+    "csc_x_csr": lambda: (random_sparse((30, 40), 0.15, seed=7, fmt="csc"),
+                          random_sparse((40, 50), 0.15, seed=8)),
+    "csr_x_csc": lambda: (random_sparse((30, 40), 0.15, seed=9),
+                          random_sparse((40, 50), 0.15, seed=10, fmt="csc")),
+    "bsr_x_bsr": lambda: (random_sparse((30, 40), 0.1, seed=11)
+                          .tobsr(blocksize=(5, 5)),
+                          random_sparse((40, 50), 0.1, seed=12)
+                          .tobsr(blocksize=(5, 5))),
+    "bsr_x_csr": lambda: (random_sparse((30, 40), 0.1, seed=13)
+                          .tobsr(blocksize=(2, 2)),
+                          random_sparse((40, 50), 0.15, seed=14)),
+    "explicit_zeros": lambda: (
+        with_explicit_zeros(random_sparse((30, 40), 0.2, seed=15)),
+        with_explicit_zeros(random_sparse((40, 50), 0.2, seed=16))),
+    "cancellation": cancelling,
+    "empty_rows": empty_rows,
+    "nnz_0": lambda: (sps.csr_matrix((20, 30)),
+                      random_sparse((30, 40), 0.2, seed=17)),
+    "wide_n_long_row": wide,
+}
+TRIANGULAR_CASES = ("csr_f64", "csr_c128", "bsr_x_bsr", "cancellation",
+                    "wide_n_long_row")
+
+
+def out_dtype(a, b):
+    return np.result_type(a.dtype, b.dtype)
+
+
+@contextlib.contextmanager
+def interface(name):
+    """Both packages' index interface set to ``name`` for the block."""
+    old_p, old_j = config.interface, sdt.interface_integer_dtype()
+    sdtt.set_interface_layer(name)
+    sdt.set_interface_layer(name)
+    try:
+        yield
+    finally:
+        sdtt.set_interface_layer(old_p)
+        sdt.set_interface_layer("ILP64" if old_j == np.int64 else "LP64")
+
+
+def assert_values(port, ref):
+    port, ref = np.asarray(port), np.asarray(ref)
+    assert port.dtype == ref.dtype and port.shape == ref.shape
+    tol = TOL[port.dtype]
+    scale = float(np.abs(ref).max()) if ref.size else 0.0
+    npt.assert_allclose(port, ref, rtol=tol, atol=tol * scale)
+
+
+def assert_same_csr(port, ref):
+    """(data, indices, indptr) triples: equal pattern, close values."""
+    npt.assert_array_equal(np.asarray(port[2]), np.asarray(ref[2]))
+    npt.assert_array_equal(np.asarray(port[1]), np.asarray(ref[1]))
+    assert_values(port[0], ref[0])
+
+
+def both_arrays(a, b, triangular=False):
+    dt = out_dtype(a, b)
+    port = host.spgemm_sparse_arrays(formats.to_device(a),
+                                     formats.to_device(b), dt, triangular)
+    ref = jax_host.spgemm_sparse_arrays(sdt.to_device(a), sdt.to_device(b),
+                                        dt, triangular=triangular)
+    return port, ref
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_spgemm_arrays_match_jax(case):
+    port, ref = both_arrays(*CASES[case]())
+    assert port[1].dtype == np.dtype(config.index_dtype)
+    assert_same_csr(port, ref)
+
+
+@pytest.mark.parametrize("case", TRIANGULAR_CASES)
+def test_spgemm_triangular_matches_jax(case):
+    assert_same_csr(*both_arrays(*CASES[case](), triangular=True))
+
+
+@pytest.mark.parametrize("case", ["csr_f64", "bsr_x_csr", "wide_n_long_row"])
+def test_spgemm_int64_indices_match_jax(case):
+    with interface("ILP64"):
+        a, b = CASES[case]()
+        port, ref = both_arrays(a, b)
+        assert port[1].dtype == port[2].dtype == np.int64
+    assert_same_csr(port, ref)
+
+
+def test_cancelled_entries_stay_stored():
+    a, b = cancelling()
+    data, indices, indptr = host.spgemm_sparse_arrays(
+        formats.to_device(a), formats.to_device(b), np.float64)
+    npt.assert_array_equal(indptr, [0, 3, 6])
+    npt.assert_array_equal(indices, [0, 1, 3, 0, 1, 2])
+    npt.assert_array_equal(data[:2], [0.0, 0.0])
+
+
+@pytest.mark.parametrize("case", ["csr_f64", "csr_c128", "csr_x_csc",
+                                  "bsr_x_bsr", "empty_rows"])
+@pytest.mark.parametrize("accumulate", [False, True], ids=["new", "out"])
+def test_spgemm_dense_matches_jax(case, accumulate):
+    a, b = CASES[case]()
+    dt = out_dtype(a, b)
+    kwargs = {}
+    if accumulate:
+        rng = np.random.default_rng(1)
+        kwargs = {"out": rng.standard_normal((a.shape[0], b.shape[1]))
+                  .astype(dt), "out_scalar": -0.5}
+    port = host.spgemm_dense(formats.to_device(a), formats.to_device(b), dt,
+                             **kwargs)
+    ref = jax_host.spgemm_dense(sdt.to_device(a), sdt.to_device(b), dt,
+                                **kwargs)
+    assert_values(port, ref)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32, np.complex128])
+@pytest.mark.parametrize("aat", [False, True], ids=["ata", "aat"])
+def test_gram_matches_jax(dtype, aat):
+    a = random_sparse((30, 45), 0.12, dtype, seed=18)
+    port_a, ref_a = formats.to_device(a), sdt.to_device(a)
+    assert_same_csr(host.gram_sparse(port_a, dtype, aat=aat),
+                    jax_host.gram_sparse(ref_a, dtype, aat=aat))
+    out = np.random.default_rng(2).standard_normal(
+        (30, 30) if aat else (45, 45)).astype(dtype)
+    for kwargs in ({}, {"out": out, "out_scalar": 2.0, "full": True},
+                   {"out": out, "out_scalar": 2.0}):
+        assert_values(
+            host.gram_dense_from_sparse(port_a, dtype, aat=aat, **kwargs),
+            jax_host.gram_dense_from_sparse(ref_a, dtype, aat=aat, **kwargs))
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.complex128])
+def test_gram_dense_input_matches_jax(dtype):
+    d = random_sparse((20, 15), 0.5, dtype, seed=19).toarray()
+    out = np.ones((15, 15), dtype)
+    for aat, kwargs in ((False, {}), (True, {}),
+                        (False, {"out": out, "out_scalar": 3.0})):
+        assert_values(
+            host.gram_dense_from_dense(d, dtype, aat=aat, **kwargs),
+            jax_host.gram_dense_from_dense(d, dtype, aat=aat, **kwargs))
+
+
+def test_product_of_a_jax_result_carried_into_the_port():
+    """A JAX device result, carried over by ``formats.from_arrays``, is a
+    port operand whose product matches the JAX package's."""
+    a, b = CASES["explicit_zeros"]()
+    c = random_sparse((50, 20), 0.2, seed=20)
+    mid = jax_host.spgemm_device(sdt.to_device(a), sdt.to_device(b))
+    mid_port = formats.from_arrays("csr", mid.data, mid.indices,
+                                   mid.indptr, mid.shape)
+    port = host.spgemm_sparse_arrays(mid_port, formats.to_device(c),
+                                     np.float64)
+    ref = jax_host.spgemm_sparse_arrays(mid, sdt.to_device(c), np.float64)
+    assert_same_csr(port, ref)
+
+
+def test_repeated_entries_are_summed_before_a_product():
+    """Containers hold each entry once (K4/K5 let one thread own each
+    column of a row of op(B)): ``from_arrays`` and a non-canonical scipy
+    BSR have their repeats summed, on a copy."""
+    data, indices = np.array([1.0, 2.0, 3.0, 4.0]), np.array([1, 1, 0, 1])
+    indptr = np.array([0, 3, 4])
+    b = formats.from_arrays("csr", data, indices, indptr, (2, 3))
+    npt.assert_array_equal(b.indices.numpy(), [0, 1, 1])
+    npt.assert_array_equal(b.data.numpy(), [3.0, 3.0, 4.0])
+    npt.assert_array_equal(indices, [1, 1, 0, 1])
+    a = formats.to_device(sps.csr_matrix(np.ones((2, 2))))
+    ref = np.ones((2, 2)) @ np.array([[3.0, 3.0, 0.0], [0.0, 4.0, 0.0]])
+    got = host.spgemm_dense(a, b, np.float64)
+    npt.assert_array_equal(got, ref)
+    blocks = np.arange(12.0).reshape(3, 2, 2)
+    bsr = sps.bsr_matrix((blocks, np.array([0, 0, 1]), np.array([0, 2, 3])),
+                         shape=(4, 4))
+    assert not bsr.has_canonical_format
+    port = formats.to_device(bsr)
+    assert port.nblocks == 2
+    npt.assert_array_equal(port.to_scipy().toarray(), bsr.toarray())
+
+
+def test_spgemm_device_stays_on_the_device():
+    a, b = CASES["csr_f64"]()
+    C = host.spgemm_device(formats.to_device(a), formats.to_device(b))
+    assert isinstance(C, formats.CSR) and C.shape == (30, 50)
+    assert C.indptr.dtype == C.indices.dtype == torch.int32
+    npt.assert_allclose(C.to_scipy().toarray(), (a @ b).toarray(),
+                        rtol=1e-12, atol=1e-12)
+
+
+# ---------------------------------------------------------------------------
+# row bounds and row bins (ops.spgemm.spgemm_plan)
+# ---------------------------------------------------------------------------
+
+
+def t(arr):
+    return torch.from_numpy(np.ascontiguousarray(arr))
+
+
+INDEX_TYPES = [torch.int32, torch.int64]
+VALUE_TYPES = [torch.float32, torch.float64, torch.complex64,
+               torch.complex128]
+
+
+@pytest.mark.parametrize("case", ["csr_f64", "empty_rows", "nnz_0",
+                                  "wide_n_long_row"])
+def test_row_bounds_count_products(case):
+    a, b = CASES[case]()
+    pattern = a.copy()
+    pattern.data = np.ones_like(a.data, dtype=np.int64)  # stored zeros too
+    ref = pattern @ np.diff(b.indptr).astype(np.int64)
+    ub = spgemm.row_bounds(t(a.indptr), t(a.indices), t(b.indptr))
+    assert ub.dtype == torch.int64
+    npt.assert_array_equal(ub.numpy(), ref)
+
+
+@pytest.mark.parametrize("dtype", VALUE_TYPES)
+@pytest.mark.parametrize("itype", INDEX_TYPES)
+@pytest.mark.parametrize("n", [300, 5000, WIDE_N, 10**6])
+def test_bins_table(dtype, itype, n):
+    bins = spgemm.spgemm_bins(dtype, itype, n)
+    kinds, slots, u_max = bins.T
+    assert kinds[0] == spgemm.SKIP and u_max[0] == 0
+    assert (np.diff(u_max) > 0).all() and u_max[-1] == np.iinfo(np.int64).max
+    entry = dtype.itemsize + itype.itemsize
+    for kind, s, u in bins[1:-1]:
+        assert kind in (spgemm.HASH_WARP, spgemm.HASH_BLOCK)
+        assert s & (s - 1) == 0 and u == s // 2
+        tables = 8 if kind == spgemm.HASH_WARP else 1
+        assert tables * s * entry <= spgemm.SHARED_BUDGET
+    dense_fits = n * (dtype.itemsize + 1) <= spgemm.SHARED_BUDGET
+    assert kinds[-1] == (spgemm.DENSE_SHARED if dense_fits
+                         else spgemm.DENSE_GLOBAL)
+    assert slots[-1] == n
+    if dense_fits:
+        assert (n > spgemm.DENSE_RATIO * slots[1:-1]).all()
+    else:
+        assert slots[-2] == spgemm.max_hash_slots(dtype, itype)
+
+
+@pytest.mark.parametrize("itype", INDEX_TYPES)
+def test_plan_groups_rows_by_bin(itype):
+    rng = np.random.default_rng(21)
+    a = rows_of(rng.integers(0, 400, 400), 500, seed=22)
+    b = rows_of(rng.integers(0, 60, 500), WIDE_N, seed=23)
+    np_itype = np.int32 if itype == torch.int32 else np.int64
+    ip, ix = t(a.indptr.astype(np_itype)), t(a.indices.astype(np_itype))
+    plan = spgemm.spgemm_plan(ip, ix, t(b.indptr.astype(np_itype)), WIDE_N,
+                              torch.float64, itype)
+    assert plan.ub.dtype == torch.int64
+    assert sorted(plan.rows.tolist()) == list(range(400))
+    assert plan.offsets[0] == 0 and plan.offsets[-1] == 400
+    u = torch.clamp(plan.ub, max=WIDE_N)
+    u_max = torch.from_numpy(plan.bins[:, 2])
+    for b_id in range(len(plan.bins)):
+        rows = plan.rows[plan.offsets[b_id]:plan.offsets[b_id + 1]]
+        assert (u[rows] <= u_max[b_id]).all()
+        if b_id:
+            assert (u[rows] > u_max[b_id - 1]).all()
+    assert set(plan.bins[plan.offsets.diff().numpy() > 0, 0]) == {
+        spgemm.SKIP, spgemm.HASH_WARP, spgemm.HASH_BLOCK,
+        spgemm.DENSE_GLOBAL}
+
+
+def test_long_row_goes_to_the_device_workspace():
+    """The row whose products exceed the largest shared-memory table, at
+    an n too wide for a dense row in shared memory, takes the workspace."""
+    a, b = wide()
+    plan = spgemm.spgemm_plan(t(a.indptr), t(a.indices), t(b.indptr),
+                              WIDE_N, torch.float64, torch.int32)
+    last = plan.rows[plan.offsets[-2]:plan.offsets[-1]].tolist()
+    assert plan.bins[-1, 0] == spgemm.DENSE_GLOBAL
+    assert last == [list(np.diff(a.indptr)).index(LONG_ROW)]
+    assert int(plan.ub[last[0]]) == LONG_ROW * 30
+
+
+# ---------------------------------------------------------------------------
+# the wrappers on the CPU, chunking, overflow
+# ---------------------------------------------------------------------------
+
+
+def csr_args(a, b):
+    return (t(a.indptr), t(a.indices), t(a.data), t(b.indptr), t(b.indices),
+            t(b.data), b.shape[1])
+
+
+@pytest.mark.parametrize("triangular", [False, True])
+def test_wrappers_on_cpu_take_the_plain_versions(triangular):
+    a, b = CASES["explicit_zeros"]()
+    args = csr_args(a, b)
+    indptr, indices, data = spgemm.csr_spgemm(*args, triangular=triangular)
+    plan = spgemm.spgemm_plan(args[0], args[1], args[3], args[6],
+                              args[2].dtype, args[0].dtype)
+    counts = spgemm.csr_spgemm_count(args[0], args[1], args[3], args[4],
+                                     args[6], plan, triangular)
+    assert torch.equal(counts, indptr.long().diff())
+    fill = spgemm.csr_spgemm_fill(*args, plan, indptr, len(indices),
+                                  triangular)
+    assert torch.equal(fill[0], indices) and torch.equal(fill[1], data)
+    dense = spgemm.csr_spgemm_dense(*args, triangular=triangular)
+    ref = (a @ b).toarray()
+    npt.assert_allclose(dense.numpy(), np.triu(ref) if triangular else ref,
+                        rtol=1e-12, atol=1e-12)
+    assert (spgemm.csr_spgemm_count.launches, spgemm.csr_spgemm_fill.launches,
+            spgemm.csr_spgemm_dense.launches) == (0, 0, 0)
+
+
+def test_plain_chunks_give_the_same_bits(monkeypatch):
+    a, b = CASES["wide_n_long_row"]()
+    args = csr_args(a, b)
+    whole = spgemm.spgemm_plain(*args)
+    whole_dense = spgemm.csr_spgemm_dense_plain(*args)
+    monkeypatch.setattr(config, "spmm_chunk_elements", 7)
+    chunked = spgemm.spgemm_plain(*args)
+    for x, y in zip(whole, chunked):
+        assert torch.equal(x, y)
+    assert torch.equal(spgemm.csr_spgemm_dense_plain(*args), whole_dense)
+
+
+def test_output_nnz_overflow_raises_with_ilp64_hint():
+    with pytest.raises(ValueError, match="int32 .*SPARSE_DOT_INTERFACE=ILP64"):
+        formats._check_index_bounds(2**31, (10, 10), torch.int32)
+    with pytest.raises(ValueError, match="ILP64"):
+        formats._check_index_bounds(5, (2**31, 10), torch.int32)
+    formats._check_index_bounds(2**31, (10, 10), torch.int64)
+
+
+# ---------------------------------------------------------------------------
+# the slice as a whole: dot_product, gram_matrix, sypr
+# ---------------------------------------------------------------------------
+
+
+def assert_same_result(port, ref):
+    """Same class, dtype, shape; sparse: same stored arrays."""
+    assert type(port) is type(ref)
+    assert port.dtype == ref.dtype and port.shape == ref.shape
+    if sps.issparse(ref):
+        assert port.format == ref.format
+        npt.assert_array_equal(port.indptr, ref.indptr)
+        npt.assert_array_equal(port.indices, ref.indices)
+        assert_values(port.data, ref.data)
+    else:
+        assert_values(port, ref)
+
+
+@pytest.mark.parametrize("case", ["csr_f64", "csr_c64", "csc_x_csr",
+                                  "bsr_x_bsr", "explicit_zeros",
+                                  "cancellation", "nnz_0"])
+@pytest.mark.parametrize("dense", [False, True], ids=["sparse", "dense"])
+def test_dot_product_matches_jax(case, dense):
+    a, b = CASES[case]()
+    assert_same_result(sdtt.dot_product(a, b, dense=dense),
+                       sdt.dot_product(a, b, dense=dense))
+
+
+def test_dot_product_array_classes_and_cast_match_jax():
+    a, b = CASES["csr_f64"]()
+    assert_same_result(sdtt.dot_product(sps.csr_array(a), b),
+                       sdt.dot_product(sps.csr_array(a), b))
+    a32 = a.astype(np.float32)
+    assert_same_result(sdtt.dot_product(a32, b, cast=True),
+                       sdt.dot_product(a32, b, cast=True))
+    out_p, out_j = (np.full((30, 50), 7.0) for _ in range(2))
+    assert sdtt.dot_product(a, b, dense=True, out=out_p) is out_p
+    assert sdt.dot_product(a, b, dense=True, out=out_j) is out_j
+    assert_values(out_p, out_j)
+
+
+@pytest.mark.parametrize("transpose", [False, True], ids=["ata", "aat"])
+@pytest.mark.parametrize("dense", [False, True], ids=["sparse", "dense"])
+def test_gram_matrix_matches_jax(transpose, dense):
+    a = random_sparse((30, 45), 0.12, seed=24)
+    assert_same_result(sdtt.gram_matrix(a, transpose=transpose, dense=dense),
+                       sdt.gram_matrix(a, transpose=transpose, dense=dense))
+    c = (a + 0.5j * a).astype(np.complex128)
+    assert_same_result(
+        sdtt.gram_matrix(c, transpose=transpose, dense=dense,
+                         allow_complex=True),
+        sdt.gram_matrix(c, transpose=transpose, dense=dense,
+                        allow_complex=True))
+
+
+@pytest.mark.parametrize("transpose", [False, True], ids=["atba", "abat"])
+def test_sypr_matches_jax(transpose):
+    a = random_sparse((40, 25), 0.1, seed=25)
+    k = a.shape[1] if transpose else a.shape[0]
+    b = random_sparse((k, k), 0.1, seed=26)
+    b = (b + b.T).tocsr()
+    assert_same_result(sdtt.sypr(a, b, transpose=transpose),
+                       sdt.sypr(a, b, transpose=transpose))
+    assert_same_result(sdtt.sypr(a.tobsr(blocksize=(5, 5)), b,
+                                 transpose=transpose, dense=True),
+                       sdt.sypr(a.tobsr(blocksize=(5, 5)), b,
+                                transpose=transpose, dense=True))
