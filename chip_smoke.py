@@ -36,23 +36,47 @@ Phases, each printing one JSON line:
    BSR on its CUDA-core one); then, with the counts set to 0 again, the
    sparse x sparse path: the reference demo's X @ X.T (f64, f32, dense
    with ``out``) and its gram, BASELINE config 4's complex gram, a
-   1M x 1M A @ A, config 3's BSR x BSR and a 50k-row ``sypr``, with the
-   plain versions of K4-K6 made to raise;
+   1M x 1M A @ A, config 3's BSR x BSR and a 50k-row ``sypr``; in both,
+   the plain versions of K1-K6 are made to raise;
 4. kernel and plain-version times at the phase-3 shapes: median, p10 and
    p90 of 25 launches timed with CUDA events, L2 evicted by a 1 GiB read
    before each; for K1 also TFLOP/s and the stored blocks per block row;
    for K4, K5, K4 + K5 as one product and K6 also products per second;
-   and the wall time of ``dot_product(X, X.T)`` beside scipy's.
+   and the wall time of ``dot_product(X, X.T)`` beside scipy's;
+5. the solver path, with the counts set to 0 again and the plain versions
+   of K1-K6 made to raise, each result checked against scipy/numpy on the
+   host: the handle protocol on the demo X (create, convert from CSC,
+   order a row-shuffled copy, ``matmul_handles(X, X.T)`` on K4 + K5,
+   export); CG (K3) on a 1M-row 5-point Laplacian + 0.01 I, full and as
+   its upper triangle under the symmetric descriptor, and its first 20
+   steps stepwise against the fused loop (same bits); ``cg_mrhs`` (K2)
+   with 16 right-hand sides; FGMRES(20) (K3) on a 1M-row upwind
+   convection-diffusion matrix; ``sparse_qr_solve`` by Householder QR
+   (20000 x 500) and by CGLS (BASELINE config 5's 1.2M x 50k: K3 for
+   one right-hand side, K2 for four);
+   ``pardiso`` by dense LU (n = 12000 f64, phases 13 then 33 with new
+   right-hand sides; c128 n = 4000 with iparm[11] = 2; mtype 2 stored as
+   its upper triangle) and by its Krylov route (the 1M SPD system at mtype
+   2).  Per solve: wall ms host in to host out (median, min and max of 5
+   after a checked first call), iterations, ms per iteration beside one
+   K3 (K2) call's time on the same matrix (CUDA events, as in phase 4),
+   the device's busy ms in a ``torch.profiler`` trace of one more solve
+   and its idle share against the median wall, the host syncs counted in
+   ``torch.cuda.set_sync_debug_mode("warn")`` and the launches.
 
 Then the card line, a JSON line of per-kernel results and, last,
-``{"ok": true, "device": {...}}``.  Any failure is an uncaught exception
+``{"ok": true, "device": {...}}``.  With ``CHIP_SMOKE_LOG`` set to a path,
+every JSON line also goes to that file.  Any failure is an uncaught exception
 and a non-zero exit; without a CUDA device it exits 2 before any work.
 """
 
+import importlib
 import json
+import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import scipy.sparse as sps
@@ -60,10 +84,12 @@ import torch
 
 SEED = 20261016
 REPS = 25
+# Timed repeats of each phase-5 solve after its checked first call.
+SOLVE_REPS = 5
 # Phase-3 sizes: BASELINE config 1 (CSR side), config 3 (BSR side), the
 # SpMV rows and the complex SpMM side.
 SIZES = {"config1": 10_000, "config3": 8192, "spmv": 1_000_000,
-         "complex": 4000}
+         "complex": 4000, "grid": 1000}
 RTOL = {
     torch.float32: 1e-5,
     torch.complex64: 1e-5,
@@ -108,8 +134,17 @@ KERNELS = {
 }
 
 
+# A path to which every JSON line is also written (the file is started
+# anew), for output too long to read from the end of the standard output.
+LOG = os.environ.get("CHIP_SMOKE_LOG")
+
+
 def emit(phase, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    line = json.dumps({"phase": phase, **fields})
+    print(line, flush=True)
+    if LOG:
+        with open(LOG, "a") as f:
+            f.write(line + "\n")
 
 
 def card_line():
@@ -542,23 +577,26 @@ def main_path():
     x3 = values(rng, n3, np.float64)
 
     reset_launches()
-    t0 = time.perf_counter()
-    r1 = sdt.dot_product(a1, b1)
-    r1t = sdt.dot_product(d1, a1)
-    r3 = {}
-    for (bs, dt), a3 in bsrs.items():
-        out = out3[(bs, dt)].copy()
-        r3[(bs, dt)] = sdt.dot_product(a3, b3[dt], out=out, out_scalar=2.0)
-        if r3[(bs, dt)] is not out:
-            raise AssertionError("dot_product(out=...) did not return out")
-    rv = sdt.dot_product(av, xv)
-    rvt = sdt.dot_product(xt, av)
-    rc = sdt.dot_product(ac, bc)
-    r1c = sdt.dot_product(a1c, b1)
-    r3t = sdt.dot_product(d3, a3)
-    r3v = sdt.dot_product(a3, x3)
-    rbc = sdt.dot_product(abc, bc)
-    seconds = time.perf_counter() - t0
+    with plain_versions_refused():
+        t0 = time.perf_counter()
+        r1 = sdt.dot_product(a1, b1)
+        r1t = sdt.dot_product(d1, a1)
+        r3 = {}
+        for (bs, dt), a3 in bsrs.items():
+            out = out3[(bs, dt)].copy()
+            r3[(bs, dt)] = sdt.dot_product(a3, b3[dt], out=out,
+                                           out_scalar=2.0)
+            if r3[(bs, dt)] is not out:
+                raise AssertionError("dot_product(out=...) did not return "
+                                     "out")
+        rv = sdt.dot_product(av, xv)
+        rvt = sdt.dot_product(xt, av)
+        rc = sdt.dot_product(ac, bc)
+        r1c = sdt.dot_product(a1c, b1)
+        r3t = sdt.dot_product(d3, a3)
+        r3v = sdt.dot_product(a3, x3)
+        rbc = sdt.dot_product(abc, bc)
+        seconds = time.perf_counter() - t0
     launches = read_launches()
     # The four config-3 calls and dense x BSR on the tensor cores, the
     # complex BSR on the CUDA cores.
@@ -637,27 +675,32 @@ def spgemm_inputs():
     }
 
 
+ALL_PLAIN = {"spgemm": SPGEMM_PLAIN,
+             "csr": ("csr_spmm_plain", "csr_spmv_plain"),
+             "bsr": ("bsr_spmm_plain",)}
+
+
 class plain_versions_refused:
-    """Inside the block, the plain versions of K4-K6 raise: the main path
-    must run the kernels, never their plain versions on the card."""
+    """Inside the block, the plain versions of every kernel (K1-K6) raise:
+    the main path must run the kernels, never their plain versions on the
+    card."""
 
     def __enter__(self):
-        from sparse_dot_tpu_torch.ops import spgemm
-
-        self.saved = {name: getattr(spgemm, name) for name in SPGEMM_PLAIN}
+        self.saved = []
 
         def refuse(*args, **kwargs):
-            raise AssertionError("a plain SpGEMM version ran on the main path")
+            raise AssertionError("a plain kernel version ran on the main path")
 
-        for name in SPGEMM_PLAIN:
-            setattr(spgemm, name, refuse)
+        for module, names in ALL_PLAIN.items():
+            mod = importlib.import_module(f"sparse_dot_tpu_torch.ops.{module}")
+            for name in names:
+                self.saved.append((mod, name, getattr(mod, name)))
+                setattr(mod, name, refuse)
         return self
 
     def __exit__(self, *exc):
-        from sparse_dot_tpu_torch.ops import spgemm
-
-        for name, fn in self.saved.items():
-            setattr(spgemm, name, fn)
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
         return False
 
 
@@ -943,6 +986,386 @@ def spgemm_timings(inp):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: the solver path
+# ---------------------------------------------------------------------------
+
+
+def grid_matrix(side, shift, convection=0.0):
+    """The 5-point Laplacian of a side x side grid (Dirichlet) plus
+    shift * I, f64 CSR; with ``convection`` c, first-order upwind
+    convection along the grid's x axis (+c on the diagonal, -c on the west
+    neighbour), which makes it nonsymmetric."""
+    t = sps.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(side, side))
+    eye = sps.eye(side)
+    a = sps.kron(eye, t) + sps.kron(t, eye) + shift * sps.eye(side * side)
+    if convection:
+        a = a + convection * sps.kron(
+            eye, sps.diags([-1.0, 1.0], [-1, 0], shape=(side, side)))
+    return a.tocsr()
+
+
+def with_identity_tail(a):
+    """``a`` (m x k) plus the identity in its last k rows: full column
+    rank."""
+    m, k = a.shape
+    tail = sps.csr_matrix((np.ones(k), (np.arange(m - k, m), np.arange(k))),
+                          shape=(m, k))
+    return (a + tail).tocsr()
+
+
+def solver_inputs():
+    rng = np.random.default_rng(SEED + 3)
+    side = SIZES["grid"]
+    n = side * side
+    x = demo_x()
+    # The demo X with the entries of each row in a random order.
+    rows = np.repeat(np.arange(x.shape[0]), np.diff(x.indptr))
+    order = np.lexsort((rng.random(x.nnz), rows))
+    x_shuffled = sps.csr_matrix((x.data[order], x.indices[order], x.indptr),
+                                shape=x.shape)
+    # BASELINE config 5 ("1M+-row" least squares), on one chip.
+    cgls_nnz = 4_650_000
+    cgls_a = with_identity_tail(sps.csr_matrix(
+        (rng.standard_normal(cgls_nnz),
+         (rng.integers(0, 1_200_000, cgls_nnz),
+          rng.integers(0, 50_000, cgls_nnz))), shape=(1_200_000, 50_000)))
+    lap = grid_matrix(side, 0.01)
+    lu_spd = grid_matrix(63, 0.01)
+    return {
+        "x": x, "x_shuffled": x_shuffled,
+        "lap": lap, "lap_upper": sps.triu(lap, format="csr"),
+        "cd": grid_matrix(side, 0.05, convection=0.5),
+        "b": rng.standard_normal(n),
+        "b16": rng.standard_normal((n, 16)),
+        "qr_a": with_identity_tail(sps.random(
+            20_000, 500, density=0.01, format="csr", random_state=rng)),
+        "qr_b": rng.standard_normal(20_000),
+        "cgls_a": cgls_a, "cgls_b": rng.standard_normal(cgls_a.shape[0]),
+        "lu_a": random_coo_csr(rng, 12_000, 120_000) + 10.0 * sps.eye(12_000),
+        "lu_b": rng.standard_normal(12_000),
+        "lu_b4": rng.standard_normal((12_000, 4)),
+        "lu_c": (random_coo_csr(rng, 4000, 40_000)
+                 + 1j * random_coo_csr(rng, 4000, 40_000)
+                 + 10.0 * sps.eye(4000)).tocsr(),
+        "lu_cb": rng.standard_normal(4000) + 1j * rng.standard_normal(4000),
+        "lu_spd": lu_spd, "lu_spd_upper": sps.triu(lu_spd, format="csr"),
+        "lu_spd_b": rng.standard_normal(63 * 63),
+        "cgls_b4": rng.standard_normal((cgls_a.shape[0], 4)),
+    }
+
+
+class count_syncs:
+    """Counts the host syncs inside the block: the warnings that
+    ``torch.cuda.set_sync_debug_mode("warn")`` raises.  Other warnings are
+    kept in ``other``."""
+
+    def __enter__(self):
+        self.catcher = warnings.catch_warnings(record=True)
+        self.records = self.catcher.__enter__()
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode("default")
+        self.catcher.__exit__(*exc)
+        sync = [r for r in self.records
+                if "called a synchronizing" in str(r.message)]
+        self.count = len(sync)
+        self.other = [r for r in self.records if r not in sync]
+        return False
+
+
+def device_busy_ms(fn):
+    """The device time of what fn() runs on the card (kernels, copies and
+    fills), summed from a ``torch.profiler`` trace, in ms; None when the
+    trace holds no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                 ) as prof:
+        fn()
+    busy = sum(getattr(e, "self_device_time_total", 0)
+               for e in prof.key_averages()
+               if e.device_type != DeviceType.CPU)
+    return busy / 1e3 or None
+
+
+def rel_residual(a, x, b):
+    """max over columns of ||b - a x|| / ||b||."""
+    r = b - a @ x
+    return float(np.max(np.linalg.norm(r, axis=0) / np.linalg.norm(b, axis=0)))
+
+
+def solver_path():
+    """The handle protocol and the solvers through the public API, each
+    call's launches, syncs and wall time recorded, each result checked."""
+    import sparse_dot_tpu_torch as sdt
+    from sparse_dot_tpu_torch import interface
+    from sparse_dot_tpu_torch.solvers import qr
+
+    inp = solver_inputs()
+    lap, cd, b = inp["lap"], inp["cd"], inp["b"]
+    records = {}
+
+    def run(name, kernels, fn, warns=None):
+        """fn() with syncs counted, checking that exactly the kernels in
+        ``kernels`` launched; then SOLVE_REPS more calls for the wall times
+        (median, min, max) and one under the profiler for the device's
+        busy time and idle share.  Returns the first call's result."""
+        before = read_launches()
+        with count_syncs() as syncs:
+            t0 = time.perf_counter()
+            out = fn()
+            first = (time.perf_counter() - t0) * 1e3
+        launched = {k: v - before[k] for k, v in read_launches().items()
+                    if v != before[k]}
+        if set(launched) != set(kernels):
+            raise AssertionError(f"{name}: launched {launched}, expected "
+                                 f"{kernels}")
+        for r in syncs.other:
+            if not (warns and issubclass(r.category, warns)):
+                raise AssertionError(f"{name}: warned {r.message}")
+        walls = []
+        with warnings.catch_warnings():
+            if warns:
+                warnings.simplefilter("ignore", warns)
+            for _ in range(SOLVE_REPS):
+                t0 = time.perf_counter()
+                fn()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            busy = device_busy_ms(fn)
+        wall = float(np.median(walls))
+        records[name] = {
+            "wall_ms": wall, "wall_min_ms": min(walls),
+            "wall_max_ms": max(walls), "first_wall_ms": first,
+            "device_busy_ms": busy,
+            "device_idle_share": None if busy is None else 1 - busy / wall,
+            "syncs": syncs.count, "launches": launched}
+        return out
+
+    def cg(a, descr=None, max_iter=1000, stepwise=False):
+        with sdt.CGIterativeSparseSolver(a, b, r_tol=1e-5,
+                                         max_iter=max_iter) as s:
+            if descr:
+                s.set_sparse_matrix_descr(*descr)
+            if stepwise:
+                for _ in s:
+                    pass
+                return s.x, s.current_iter, s.final_code
+            return s.solve(), s.current_iter, s.final_code
+
+    def fgmres():
+        with sdt.FGMRESIterativeSparseSolver(cd, b, r_tol=1e-5) as s:
+            s.restart = 20
+            return (s.solve(), s.current_iter, s.total_inner_iterations,
+                    s.final_code)
+
+    def handles():
+        h = interface.convert_to_csr(
+            interface.create_sparse_handle(inp["x"].tocsc())[0])
+        ordered = interface.order_sparse_handle(
+            interface.create_sparse_handle(inp["x_shuffled"])[0])
+        product = interface.matmul_handles(
+            h, interface.create_sparse_handle(inp["x"].T)[0])
+        return [interface.export_sparse_handle(hh)
+                for hh in (h, ordered, product)]
+
+    def pardiso(a, rhs, mtype, tmode=0, then=None):
+        pt, iparm = sdt.pardisoinit(mtype)
+        iparm[11] = tmode
+        X, pt, _, err = sdt.pardiso(a, rhs, pt, mtype, iparm, 13)
+        out = [X, err]
+        if then is not None:
+            X2, pt, _, err2 = sdt.pardiso(a, then, pt, mtype, iparm, 33)
+            out += [X2, err2]
+        sdt.pardiso(a, rhs, pt, mtype, iparm, -1)
+        return out
+
+    sym = (interface.SPARSE_MATRIX_TYPE_SYMMETRIC,
+           interface.SPARSE_FILL_MODE_UPPER, interface.SPARSE_DIAG_NON_UNIT)
+    reset_launches()
+    with plain_versions_refused():
+        conv, ordered, product = run(
+            "handles", ("K4_csr_spgemm_count", "K5_csr_spgemm_fill"), handles)
+        x_cg, it_cg, code_cg = run("cg", ("K3_csr_spmv",), lambda: cg(lap))
+        x_sym, it_sym, code_sym = run("cg_symmetric_triangle",
+                                      ("K3_csr_spmv",),
+                                      lambda: cg(inp["lap_upper"], sym))
+        x20f, it20f, _ = run("cg_fused_20", ("K3_csr_spmv",),
+                             lambda: cg(lap, max_iter=20),
+                             warns=sdt.ConvergenceWarning)
+        x20s, it20s, _ = run("cg_stepwise_20", ("K3_csr_spmv",),
+                             lambda: cg(lap, max_iter=20, stepwise=True))
+        X16, codes16 = run("cg_mrhs_16", ("K2_csr_spmm",),
+                           lambda: sdt.cg_mrhs(lap, inp["b16"]))
+        x_fg, cycles, inner, code_fg = run("fgmres_20", ("K3_csr_spmv",),
+                                           fgmres)
+        x_qr = run("qr_householder_20000x500", (),
+                   lambda: sdt.sparse_qr_solve(inp["qr_a"], inp["qr_b"]))
+        x_cgls = run("qr_cgls_1.2Mx50k", ("K3_csr_spmv",),
+                     lambda: sdt.sparse_qr_solve(inp["cgls_a"],
+                                                 inp["cgls_b"]))
+        cgls_iters = qr._last_cgls_iters
+        x_cgls4 = run("qr_cgls_1.2Mx50k_4rhs", ("K2_csr_spmm",),
+                      lambda: sdt.sparse_qr_solve(inp["cgls_a"],
+                                                  inp["cgls_b4"]))
+        cgls4_iters = qr._last_cgls_iters
+        lu = run("pardiso_lu_12000_f64", (),
+                 lambda: pardiso(inp["lu_a"], inp["lu_b"], 11,
+                                 then=inp["lu_b4"]))
+        lu_c = run("pardiso_lu_4000_c128_transpose", (),
+                   lambda: pardiso(inp["lu_c"], inp["lu_cb"], 13, tmode=2))
+        lu_spd = run("pardiso_lu_3969_spd_triangle", (),
+                     lambda: pardiso(inp["lu_spd_upper"], inp["lu_spd_b"], 2))
+        kry = run("pardiso_krylov_1M_spd", ("K3_csr_spmv",),
+                  lambda: pardiso(lap, b, 2), warns=RuntimeWarning)
+    launches = read_launches()
+
+    # Checks against scipy/numpy on the host.
+    x = inp["x"]
+    for name, got in (("convert_csc", conv), ("order", ordered)):
+        if not (np.array_equal(got.indptr, x.indptr)
+                and np.array_equal(got.indices, x.indices)
+                and np.array_equal(got.data, x.data)):
+            raise AssertionError(f"handles {name}: arrays differ from X")
+    cases = {}
+    check_sparse(cases, "handles_x_xT", product, x @ x.T, 6, pattern=True)
+    oracle = {"handles_x_xT": cases["handles_x_xT"]["max_abs_err"]}
+    for name, got, it, code in (("cg", x_cg, it_cg, code_cg),
+                                ("cg_symmetric_triangle", x_sym, it_sym,
+                                 code_sym)):
+        oracle[name] = rel_residual(lap, got, b)
+        if code != 0 or not oracle[name] <= 1e-5:
+            raise AssertionError(f"{name}: code {code}, {oracle[name]}")
+        records[name]["iterations"] = it
+    if not (it20f == it20s == 20 and np.array_equal(x20f, x20s)):
+        raise AssertionError(f"CG fused and stepwise differ: {it20f} "
+                             f"{it20s} {np.abs(x20f - x20s).max()}")
+    oracle["cg_fused_vs_stepwise_20"] = float(np.abs(x20f - x20s).max())
+    records["cg_fused_20"]["iterations"] = it20f
+    records["cg_stepwise_20"]["iterations"] = it20s
+    # Steps issued: the fused loops run up to CHECK_EVERY - 1 frozen steps
+    # past convergence, and one matvec (K3) or product (K2) for r0.
+    for name, kernel in (("cg", "K3_csr_spmv"),
+                         ("cg_symmetric_triangle", "K3_csr_spmv"),
+                         ("cg_mrhs_16", "K2_csr_spmm"),
+                         ("pardiso_krylov_1M_spd", "K3_csr_spmv")):
+        records[name]["issued_steps"] = records[name]["launches"][kernel] - 1
+    records["cg_mrhs_16"]["iterations"] = records["cg_mrhs_16"][
+        "issued_steps"]
+    records["pardiso_krylov_1M_spd"]["iterations"] = records[
+        "pardiso_krylov_1M_spd"]["issued_steps"]
+    oracle["cg_mrhs_16"] = rel_residual(lap, X16, inp["b16"])
+    if codes16.any() or not oracle["cg_mrhs_16"] <= 1e-5:
+        raise AssertionError(f"cg_mrhs: codes {codes16}")
+    oracle["fgmres_20"] = rel_residual(cd, x_fg, b)
+    if code_fg != 0 or not oracle["fgmres_20"] <= 1e-5:
+        raise AssertionError(f"fgmres: code {code_fg}, {oracle['fgmres_20']}")
+    records["fgmres_20"].update(iterations=inner, cycles=cycles,
+                                matvecs=cycles * 21 + 1)
+    ref = np.linalg.lstsq(inp["qr_a"].toarray(), inp["qr_b"], rcond=None)[0]
+    np.testing.assert_array_almost_equal(x_qr, ref, decimal=6)
+    oracle["qr_householder_20000x500"] = float(np.abs(x_qr - ref).max())
+    a = inp["cgls_a"]
+    for name, got, bb, iters in (
+            ("qr_cgls_1.2Mx50k", x_cgls, inp["cgls_b"], cgls_iters),
+            ("qr_cgls_1.2Mx50k_4rhs", x_cgls4, inp["cgls_b4"], cgls4_iters)):
+        grad = np.abs(a.T @ (a @ got - bb)).max(axis=0)
+        oracle[name] = float(np.max(grad / np.abs(a.T @ bb).max(axis=0)))
+        if not oracle[name] <= 1e-6:
+            raise AssertionError(f"{name}: normal-equation residual {grad}")
+        records[name]["iterations"] = iters
+    lu_full = sps.triu(inp["lu_spd"]) + sps.triu(inp["lu_spd"], k=1).T
+    for name, got, a, rhs, limit in (
+            ("pardiso_lu_12000_f64", lu[0], inp["lu_a"], inp["lu_b"], 1e-10),
+            ("pardiso_lu_12000_f64_phase33", lu[2], inp["lu_a"],
+             inp["lu_b4"], 1e-10),
+            ("pardiso_lu_4000_c128_transpose", lu_c[0], inp["lu_c"].T,
+             inp["lu_cb"], 1e-10),
+            ("pardiso_lu_3969_spd_triangle", lu_spd[0], lu_full,
+             inp["lu_spd_b"], 1e-10),
+            ("pardiso_krylov_1M_spd", kry[0], lap, b, 1e-9)):
+        oracle[name] = rel_residual(a, got, rhs)
+        if not oracle[name] <= limit:
+            raise AssertionError(f"{name}: relative residual {oracle[name]}")
+    if any(err for err in (lu[1], lu[3], lu_c[1], lu_spd[1], kry[1])):
+        raise AssertionError("a pardiso phase returned an error")
+    emit(5, launches=launches, solves=records, oracle=oracle,
+         limits={"cg, cg_mrhs, fgmres": "||b - A x|| <= 1e-5 ||b||",
+                 "qr_cgls": "||A^T(Ax - b)||_inf <= 1e-6 ||A^T b||_inf",
+                 "qr_householder": "np.linalg.lstsq, decimal=6",
+                 "pardiso_lu": "||b - op(A) x|| <= 1e-10 ||b||",
+                 "pardiso_krylov": "||b - A x|| <= 1e-9 ||b||"})
+    return launches, records, inp
+
+
+def solver_timings(records, inp):
+    """One K3 (K2) call on each solve's matrix, timed as in phase 4, and
+    each solve's ms per iteration beside it."""
+    from sparse_dot_tpu_torch import formats
+    from sparse_dot_tpu_torch.ops import csr
+
+    rng = np.random.default_rng(SEED + 4)
+    rows = []
+    ops = {}
+    for key in ("lap", "cd", "cgls_a"):
+        ops[key] = formats.to_device(inp[key])
+    n = inp["lap"].shape[0]
+    timed = [
+        ("K3_csr_spmv", "1M Laplacian, 5.0 M nnz", ops["lap"].csr_arrays(),
+         (n,), ("cg", "cg_symmetric_triangle", "pardiso_krylov_1M_spd")),
+        ("K3_csr_spmv", "1M convection-diffusion", ops["cd"].csr_arrays(),
+         (n,), ("fgmres_20",)),
+        ("K2_csr_spmm", "1M Laplacian @ (1M, 16)", ops["lap"].csr_arrays(),
+         (n, 16), ("cg_mrhs_16",)),
+        ("K3_csr_spmv", "CGLS A 1.2Mx50k @ (50k,)",
+         ops["cgls_a"].csr_arrays(), (50_000,), ("qr_cgls_1.2Mx50k",)),
+        ("K3_csr_spmv", "CGLS A^T 50kx1.2M @ (1.2M,)",
+         ops["cgls_a"].csr_arrays(transpose=True), (1_200_000,),
+         ("qr_cgls_1.2Mx50k",)),
+        ("K2_csr_spmm", "CGLS A 1.2Mx50k @ (50k, 1)",
+         ops["cgls_a"].csr_arrays(), (50_000, 1), ()),
+        ("K2_csr_spmm", "CGLS A^T 50kx1.2M @ (1.2M, 1)",
+         ops["cgls_a"].csr_arrays(transpose=True), (1_200_000, 1), ()),
+        ("K2_csr_spmm", "CGLS A 1.2Mx50k @ (50k, 4)",
+         ops["cgls_a"].csr_arrays(), (50_000, 4), ("qr_cgls_1.2Mx50k_4rhs",)),
+        ("K2_csr_spmm", "CGLS A^T 50kx1.2M @ (1.2M, 4)",
+         ops["cgls_a"].csr_arrays(transpose=True), (1_200_000, 4),
+         ("qr_cgls_1.2Mx50k_4rhs",)),
+    ]
+    for kernel, shape, arrays, vshape, solves in timed:
+        arrays = tuple(a.to(torch.float64) if a.is_floating_point() else a
+                       for a in arrays)
+        v = cuda(rng.standard_normal(vshape))
+        wrapper, plain = ((csr.csr_spmv, csr.csr_spmv_plain)
+                          if kernel == "K3_csr_spmv"
+                          else (csr.csr_spmm, csr.csr_spmm_plain))
+        kt, pt, err = time_pair(lambda: wrapper(*arrays, v),
+                                lambda: plain(*arrays, v))
+        (ms, p10, p90), (plain_ms, _, _) = spread(kt), spread(pt)
+        rows.append({"kernel": kernel, "shape": shape, "ms": ms, "p10": p10,
+                     "p90": p90, "plain_ms": plain_ms, "max_abs_err": err})
+        for name in solves:
+            # CGLS: one step's two products, A and A^T.
+            records[name]["matvec_ms"] = records[name].get("matvec_ms",
+                                                           0.0) + ms
+    for rec in records.values():
+        if "iterations" in rec:
+            rec["ms_per_iteration"] = rec["wall_ms"] / rec["iterations"]
+        if "matvecs" in rec:
+            rec["ms_per_matvec"] = rec["wall_ms"] / rec["matvecs"]
+    emit("5-times", rows=rows, solves=records,
+         timer="cuda events, median (p10, p90), 1 GiB read before each; "
+               f"solves: host clock, host in to host out, median (min, max) "
+               f"of {SOLVE_REPS} after a first call; device busy: "
+               "torch.profiler, one more solve; idle share: 1 - busy / "
+               "median wall")
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -953,6 +1376,9 @@ def main():
 
     config.device = "cuda"
     dense.ieee_matmul()
+    if LOG:
+        os.makedirs(os.path.dirname(os.path.abspath(LOG)), exist_ok=True)
+        open(LOG, "w").close()
     card = card_line()
     print(card, flush=True)
     t0 = time.perf_counter()
@@ -964,11 +1390,14 @@ def main():
          library_hash=_build.source_hash())
 
     check_kernels()
-    launches, inputs = main_path()
-    spgemm_launches, spgemm_inp = spgemm_path()
-    launches.update({name: n for name, n in spgemm_launches.items()
-                     if name.startswith(("K4", "K5", "K6"))})
+    by_path = {}
+    by_path["dot_product"], inputs = main_path()
+    by_path["spgemm"], spgemm_inp = spgemm_path()
     rows = timings(inputs) + spgemm_timings(spgemm_inp)
+    by_path["solvers"], records, solver_inp = solver_path()
+    rows += solver_timings(records, solver_inp)
+    launches = {name: sum(path[name] for path in by_path.values())
+                for name in KERNELS}
 
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
@@ -978,6 +1407,7 @@ def main():
         summary.append({
             "name": name, "route": "cuda", **meta,
             "launches": launches[name],
+            "launches_by_path": {path: n[name] for path, n in by_path.items()},
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": mine[0]["ms"], "plain_ms": mine[0]["plain_ms"],
         })

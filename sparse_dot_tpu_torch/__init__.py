@@ -4,11 +4,16 @@ The same public surface as the JAX package, for one NVIDIA H100 (or the
 CPU): ``dot_product``, ``gram_matrix`` and ``sypr`` over scipy
 CSR/CSC/BSR and numpy dense operands in float32/float64/complex64/
 complex128, with the reference's ``cast``, ``dense``, ``out``/
-``out_scalar`` and memory-order semantics.  The sparse products run on
-hand-written CUDA kernels for Hopper (``csrc/``): K1 BSR SpMM, K2 CSR
-SpMM, K3 CSR SpMV, K4 + K5 sparse x sparse with sparse output (count,
-then fill) and K6 sparse x sparse with dense output; dense GEMM and the
-dense gram run on ``torch.matmul``.
+``out_scalar`` and memory-order semantics; the solvers ``cg``,
+``cg_mrhs``, ``fgmres`` (and their classes), ``sparse_qr_solve`` and
+``pardiso``/``pardisoinit``; and the sparse handle protocol
+(``interface``).  The sparse products run on hand-written CUDA kernels
+for Hopper (``csrc/``): K1 BSR SpMM, K2 CSR SpMM, K3 CSR SpMV, K4 + K5
+sparse x sparse with sparse output (count, then fill) and K6 sparse x
+sparse with dense output; dense GEMM and the dense gram run on
+``torch.matmul``.  The solvers' matvecs run on K3 (one right-hand side)
+and K2 (several, and CGLS); the dense QR and LU routes on
+``torch.linalg``.
 
 Tensors live on ``config.device`` ("cpu" by default, or "cuda")::
 
@@ -16,10 +21,7 @@ Tensors live on ``config.device`` ("cpu" by default, or "cuda")::
     config.device = "cuda"
 
 The drop-in aliases with the reference's ``*_mkl`` names are exported.
-Not ported yet (ROADMAP.md): the sparse handle protocol
-(``create_sparse_handle`` and the rest of ``interface``),
-``sparse_qr_solve``, the iterative solvers (``cg``, ``cg_mrhs``,
-``fgmres`` and their classes), ``pardiso``/``pardisoinit``, and the
+Not ported yet (ROADMAP.md): the device API with autograd and the
 sharded (multi-device) layer.  This package never imports JAX.
 """
 
@@ -50,12 +52,24 @@ from .formats import (
     to_device,
     from_arrays,
 )
-from .dispatch import dot_product, gram_matrix
+from . import interface
+from .dispatch import dot_product, gram_matrix, sparse_qr_solve
 from .ops.sypr import sypr
+from .solvers import (
+    cg,
+    cg_mrhs,
+    fgmres,
+    pardiso,
+    pardisoinit,
+    CGIterativeSparseSolver,
+    FGMRESIterativeSparseSolver,
+    ConvergenceWarning,
+)
 
 dot_product_mkl = dot_product
 gram_matrix_mkl = gram_matrix
 dot_product_transpose_mkl = gram_matrix
+sparse_qr_solve_mkl = sparse_qr_solve
 
 
 def mkl_get_version():
@@ -98,7 +112,18 @@ __all__ = [
     # canonical API
     "dot_product",
     "gram_matrix",
+    "sparse_qr_solve",
     "sypr",
+    "interface",
+    # solvers
+    "cg",
+    "cg_mrhs",
+    "fgmres",
+    "pardiso",
+    "pardisoinit",
+    "CGIterativeSparseSolver",
+    "FGMRESIterativeSparseSolver",
+    "ConvergenceWarning",
     "set_debug_mode",
     "debug_print",
     "debug_timer",
@@ -125,6 +150,7 @@ __all__ = [
     "dot_product_mkl",
     "gram_matrix_mkl",
     "dot_product_transpose_mkl",
+    "sparse_qr_solve_mkl",
     "mkl_get_version",
     "mkl_get_version_string",
     "mkl_get_max_threads",

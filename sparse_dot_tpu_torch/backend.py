@@ -52,8 +52,9 @@ def get_version_string():
 
 
 def get_device_count():
-    """Number of visible CUDA devices (0 without a card)."""
-    return torch.cuda.device_count()
+    """Number of devices of ``config.device``: the visible CUDA devices for
+    "cuda", 1 for "cpu" (the JAX package counts its CPU device too)."""
+    return torch.cuda.device_count() if config.device == "cuda" else 1
 
 
 def get_max_threads():

@@ -2,7 +2,8 @@
 
 Port of ``sparse_dot_tpu/config.py``: the index integer width ("LP64"
 int32 or "ILP64" int64, the reference's ``MKL_INTERFACE_LAYER``), the
-debug flag and the chunk budget of the plain paths, plus the device
+debug flag, the chunk budget of the plain paths and PARDISO's dense
+budget, plus the device
 every tensor is created on.  The TPU switches of the JAX package (planar
 complex, Pallas/ELL/Ozaki routes and their caches) have no counterpart.
 
@@ -52,6 +53,10 @@ class _Config:
         # n) intermediate and the product sort; the CUDA kernels have
         # neither).
         self.spmm_chunk_elements = 1 << 24
+        # PARDISO factors densely while n * n * 12 bytes stay under this
+        # budget and solves matrix-free (CG / FGMRES) beyond it: the JAX
+        # package's rule and default, so both packages take the same route.
+        self.pardiso_dense_budget_bytes = 2 << 30
         self._device = "cpu"
 
     @property

@@ -20,9 +20,10 @@ from . import formats
 from . import policy
 from .backend import torch_device
 from .ops import host as _ops
+from .solvers.qr import sparse_qr_solver
 from .utils.debug import debug_print, print_backend_debug, trace_phase
 
-__all__ = ["dot_product", "gram_matrix"]
+__all__ = ["dot_product", "gram_matrix", "sparse_qr_solve"]
 
 
 def _deprecated_debug(debug):
@@ -520,3 +521,12 @@ def gram_matrix(matrix, transpose=False, cast=False, dense=False,
         data, indices, indptr = _ops.gram_sparse(A, out_dtype, aat=transpose)
     n = matrix.shape[0] if transpose else matrix.shape[1]
     return _sps.csr_matrix((data, indices, indptr), shape=(n, n))
+
+
+def sparse_qr_solve(matrix_a, matrix_b, cast=False, debug=False):
+    """Least-squares solve of AX = B for sparse A (CSR; CSC with
+    ``cast=True``) and dense B.  See :mod:`sparse_dot_tpu_torch.solvers.qr`."""
+    _deprecated_debug(debug)
+    torch_device()
+    print_backend_debug()
+    return sparse_qr_solver(matrix_a, matrix_b, cast=cast)

@@ -9,9 +9,11 @@ Validation follows the JAX package and the reference's
 ``_create_mkl_sparse``: float32/float64/complex64/complex128 data only,
 BSR blocks square and dividing the matrix dims, and index widths following
 the LP64/ILP64 policy with an overflow error carrying the ILP64 hint.
-The caller's arrays are never modified: a non-canonical CSR/CSC/BSR has
-its duplicates summed on a copy, so every container holds each entry
-(or block) once, as the sparse x sparse kernels need of op(B).
+The caller's arrays are never modified: a non-canonical CSR/CSC has its
+duplicates summed (and sorted) on a copy, and a BSR with repeated blocks
+has them summed on a copy, so every container holds each entry (or block)
+once, as the sparse x sparse kernels need of op(B); a BSR without repeats
+keeps the caller's block order, as the JAX package's does.
 
 The kernels read CSR (K2, K3) or BSR (K1) in the orientation of the
 product.  ``csr_arrays(transpose)`` and ``BSR.bsr_arrays(transpose)``
@@ -176,17 +178,35 @@ def bsr_chunk_plan(indptr, nblocks):
                         nblocks)
 
 
+def _indptr_of_rows(rows, nrows):
+    indptr = torch.zeros(nrows + 1, dtype=rows.dtype, device=rows.device)
+    indptr[1:] = torch.cumsum(torch.bincount(rows, minlength=nrows), 0)
+    return indptr
+
+
 def coo_to_csr(rows, cols, vals, nrows):
     """Expanded COO -> (indptr, indices, vals) of CSR with ``nrows`` rows.
 
     A stable sort by row keeps the entries of each row in their input
-    order, so COO that is sorted by column within equal rows stays so.
-    Plain torch: the counterpart of ``_xla.coo_to_csr_arrays``."""
+    order, so COO that is sorted by column within equal rows stays so."""
     order = torch.argsort(rows, stable=True)
-    counts = torch.bincount(rows, minlength=nrows)
-    indptr = torch.zeros(nrows + 1, dtype=rows.dtype, device=rows.device)
-    indptr[1:] = torch.cumsum(counts, 0)
-    return indptr, cols[order], vals[order]
+    return _indptr_of_rows(rows, nrows), cols[order], vals[order]
+
+
+def sort_csr_indices(rows, cols, vals, ncols):
+    """Entries of expanded COO in (row, col) order: one stable sort of the
+    key ``row * ncols + col``.  Returns (cols, vals) in that order.  Plain
+    torch: the counterpart of ``_xla.sort_csr_indices``."""
+    order = torch.argsort(rows.long() * ncols + cols.long(), stable=True)
+    return cols[order], vals[order]
+
+
+def coo_to_sorted_csr(rows, cols, vals, shape):
+    """Expanded COO -> (indptr, indices, vals) of CSR of ``shape`` with the
+    columns of each row sorted (``coo_to_csr`` then ``sort_csr_indices``):
+    the counterpart of ``_xla.coo_to_csr_arrays``."""
+    cols, vals = sort_csr_indices(rows, cols, vals, shape[1])
+    return _indptr_of_rows(rows, shape[0]), cols, vals
 
 
 class SparseDeviceMatrix:
@@ -265,6 +285,16 @@ class SparseDeviceMatrix:
             self.indptr.to(device),
         )
 
+    def to_dense(self):
+        """The matrix as a dense tensor on its device: the entries of
+        ``csr_arrays()`` scattered into zeros (the counterpart of
+        ``_xla.densify``)."""
+        indptr, indices, data = self.csr_arrays()
+        rows = expand_indptr(indptr, indices.numel())
+        dense = torch.zeros(self.shape, dtype=data.dtype, device=data.device)
+        return dense.index_put_((rows.long(), indices.long()), data,
+                                accumulate=True)
+
     def _cached(self, key, build):
         cache = self.__dict__.setdefault("_layout_cache", {})
         if key not in cache:
@@ -276,6 +306,17 @@ class SparseDeviceMatrix:
             f"<{type(self).__name__} shape={self.shape} nnz={self.nnz} "
             f"dtype={self.dtype} device={self.device}>"
         )
+
+
+def _summed(mat):
+    """``mat``, or a copy with its repeated blocks summed when it has any.
+    Without repeats the caller's block order is kept, sorted or not, as the
+    JAX package's ``BSR.from_scipy`` keeps it."""
+    if mat.has_canonical_format:
+        return mat
+    summed = mat.copy()
+    summed.sum_duplicates()
+    return mat if summed.nnz == mat.nnz else summed
 
 
 def _compressed_from_scipy(cls, mat, fmt):
@@ -387,9 +428,7 @@ class BSR(SparseDeviceMatrix):
             raise ValueError(f"Expected scipy BSR matrix, got {type(mat)}")
         _check_blocksize(mat.blocksize, mat.shape)
         _check_index_bounds(mat.nnz, mat.shape)
-        if not mat.has_canonical_format:
-            mat = mat.copy()
-            mat.sum_duplicates()
+        mat = _summed(mat)
         device = torch_device()
         return cls(
             _values_to_device(mat.data, device),
