@@ -14,8 +14,12 @@ Phases, each printing one JSON line:
 2. each kernel against its plain PyTorch version on the card, for every
    value type and both index widths, at rtol 1e-12 (f64, c128) and 1e-5
    (f32, c64) with atol = rtol * max|plain|: the two sum in different
-   orders, neither uses plain TF32.  K2 CSR SpMM and K3 CSR SpMV at empty
-   rows, nnz == 0 and n not a multiple of 32.  K1 BSR SpMM in both
+   orders, neither uses plain TF32.  K2 CSR SpMM at n in {1, 2, 3, 4, 8,
+   16, 17, 32, 64, 128, 200} (16-byte loads and scalar ones, odd n on the
+   scalar path), on B views one row and one element into a buffer (the
+   latter misaligned, so scalar), and K3 CSR SpMV, both with empty rows,
+   nnz == 0 and a row at least 3x K2's chunk and K3's tile (split, summed
+   in chunk order; run twice, same bits).  K1 BSR SpMM in both
    variants: the tensor-core one (real values, bs in {8, 16, 24, 64,
    128, 256}) and the CUDA-core one (complex values, and bs in {1, 3}),
    at n in {1, 37, 64, 256}, with empty block rows, no stored block, a
@@ -38,11 +42,21 @@ Phases, each printing one JSON line:
    with ``out``) and its gram, BASELINE config 4's complex gram, a
    1M x 1M A @ A, config 3's BSR x BSR and a 50k-row ``sypr``; in both,
    the plain versions of K1-K6 are made to raise;
-4. kernel and plain-version times at the phase-3 shapes: median, p10 and
-   p90 of 25 launches timed with CUDA events, L2 evicted by a 1 GiB read
-   before each; for K1 also TFLOP/s and the stored blocks per block row;
-   for K4, K5, K4 + K5 as one product and K6 also products per second;
-   and the wall time of ``dot_product(X, X.T)`` beside scipy's;
+4. kernel and plain-version times at the phase-3 shapes and, for K2 and
+   K3, at the solvers' matrices (the 1M Laplacian at n = 1, 4, 16, CGLS's
+   A and A^T at n = 1, 4; K3 on the Laplacian, the convection-diffusion
+   matrix and CGLS's A and A^T): median, p10 and p90 of 25 launches timed
+   with CUDA events, L2 evicted by a 1 GiB read before each.  Each row
+   also has ``bound_ms`` (the larger of the bytes the call must move over
+   3.35 TB/s and its FLOPs over the peak of the units it runs on, from
+   this run's inputs), ``bound_by``, ``share`` (bound_ms / ms) and
+   ``library_ms``, the time of the one torch call that computes the same
+   function (cuSPARSE through ``torch.sparse.mm``, ``torch.addmm`` or
+   ``A_csr @ x``; ``library`` names it, or the error with which torch
+   refused it), timed the same way and never called by the port; for K1
+   also TFLOP/s and the stored blocks per block row; for K4, K5, K4 + K5
+   as one product and K6 also products per second; and the wall time of
+   ``dot_product(X, X.T)`` beside scipy's;
 5. the solver path, with the counts set to 0 again and the plain versions
    of K1-K6 made to raise, each result checked against scipy/numpy on the
    host: the handle protocol on the demo X (create, convert from CSC,
@@ -59,13 +73,14 @@ Phases, each printing one JSON line:
    its upper triangle) and by its Krylov route (the 1M SPD system at mtype
    2).  Per solve: wall ms host in to host out (median, min and max of 5
    after a checked first call), iterations, ms per iteration beside one
-   K3 (K2) call's time on the same matrix (CUDA events, as in phase 4),
+   K3 (K2) call's time on the same matrix (phase 4's),
    the device's busy ms in a ``torch.profiler`` trace of one more solve
    and its idle share against the median wall, the host syncs counted in
    ``torch.cuda.set_sync_debug_mode("warn")`` and the launches.
 
-Then the card line, a JSON line of per-kernel results and, last,
-``{"ok": true, "device": {...}}``.  With ``CHIP_SMOKE_LOG`` set to a path,
+Then the card line, a JSON line of per-kernel results (its first phase-4
+row's times, bound and library time, and the launches of each path) and,
+last, ``{"ok": true, "device": {...}}``.  With ``CHIP_SMOKE_LOG`` set to a path,
 every JSON line also goes to that file.  Any failure is an uncaught exception
 and a non-zero exit; without a CUDA device it exits 2 before any work.
 """
@@ -242,8 +257,6 @@ def random_bsr(rng, nbrows, nbcols, bs, blocks_per_row, dtype,
 
 
 def check_kernels():
-    from sparse_dot_tpu_torch.ops import bsr, csr
-
     rng = np.random.default_rng(SEED)
     results = {name: {"cases": 0, "max_abs_err": 0.0} for name in KERNELS}
     bins_seen = set()
@@ -252,36 +265,10 @@ def check_kernels():
         results[name]["cases"] += 1
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
 
+    schedules = set()
     for tdt, npdt in NP_DTYPES.items():
         for itype in (np.int32, np.int64):
-            # K2 / K3: mean row 3 (4 lanes), 12 (16 lanes), 40 (32 lanes,
-            # and rows longer than a warp's batch of 32), empty rows, one
-            # long row, nnz == 0, an empty matrix.
-            for m, k, mean_row, empty_every, long_row in (
-                (300, 200, 3, 5, 0),
-                (257, 190, 12, 0, 500),
-                (128, 300, 40, 3, 0),
-                (50, 40, 0, 0, 0),
-                (0, 40, 2, 0, 0),
-            ):
-                indptr, indices, data = random_csr(
-                    rng, m, k, mean_row, npdt, itype, empty_every, long_row)
-                ip, ix, dv = cuda(indptr), cuda(indices), cuda(data)
-                for n in (1, 37, 128, 200):
-                    b = cuda(values(rng, (k, n), npdt))
-                    c0 = cuda(values(rng, (m, n), npdt))
-                    for alpha, beta, cc in ((None, None, None),
-                                            (0.5, 2.0, c0)):
-                        out = csr.csr_spmm(ip, ix, dv, b, alpha, beta, cc)
-                        ref = csr.csr_spmm_plain(ip, ix, dv, b, alpha, beta,
-                                                 cc)
-                        record("K2_csr_spmm", compare(out, ref, tdt))
-                x = cuda(values(rng, k, npdt))
-                y0 = cuda(values(rng, m, npdt))
-                for alpha, beta, yy in ((None, None, None), (-1.5, 3.0, y0)):
-                    out = csr.csr_spmv(ip, ix, dv, x, alpha, beta, yy)
-                    ref = csr.csr_spmv_plain(ip, ix, dv, x, alpha, beta, yy)
-                    record("K3_csr_spmv", compare(out, ref, tdt))
+            check_csr(rng, tdt, npdt, itype, record, schedules)
             check_k1(rng, tdt, npdt, itype, record)
             check_spgemm(rng, tdt, npdt, itype, record, bins_seen)
     check_k1_special(rng, record)
@@ -291,8 +278,80 @@ def check_kernels():
     if bins_seen != wanted:
         raise AssertionError(f"K4/K5 bins exercised {bins_seen}, want "
                              f"{wanted}")
-    emit(2, kernels=results, spgemm_bins=sorted(bins_seen))
+    if {vec > 1 for vec, _ in schedules} != {True, False}:
+        raise AssertionError(f"K2 ran only {schedules} (vec, lanes)")
+    emit(2, kernels=results, spgemm_bins=sorted(bins_seen),
+         k2_schedules=sorted(schedules))
     return results
+
+
+# K2 / K3 cases: (m, k, mean row, every k-th row empty, one long row).
+# The long row is at least 3x K2's chunk S and 3x K3's tile, so both split
+# it; mean rows of 3 and 40 take few and many lanes per row; then nnz == 0
+# and an empty matrix.
+CSR_CASES = ((300, 200, 3, 5, 0), (257, 190, 12, 0, 3500),
+             (128, 300, 40, 3, 0), (50, 40, 0, 0, 0), (0, 40, 2, 0, 0))
+CSR_NS = (1, 2, 3, 4, 8, 16, 17, 32, 64, 128, 200)
+
+
+def misaligned(b, shift):
+    """A copy of b (k, n) as a view ``shift`` elements into a larger
+    buffer: one row in keeps 16-byte rows aligned, one element in does
+    not (except for c128)."""
+    k, n = b.shape
+    buf = torch.zeros(k * n + shift, dtype=b.dtype, device=b.device)
+    view = buf[shift:].view(k, n)
+    view.copy_(b)
+    return view
+
+
+def check_csr(rng, tdt, npdt, itype, record, schedules):
+    """K2 and K3 against their plain versions at every case of CSR_CASES,
+    K2 at every n of CSR_NS, with and without the epilogue; K2 on B views
+    misaligned by a row and by an element; the case with a long row run
+    twice for the same bits; each row plan built with no host sync.
+    ``schedules`` collects K2's (vec, lanes)."""
+    from sparse_dot_tpu_torch import formats
+    from sparse_dot_tpu_torch.ops import csr
+
+    for m, k, mean_row, empty_every, long_row in CSR_CASES:
+        indptr, indices, data = random_csr(
+            rng, m, k, mean_row, npdt, itype, empty_every, long_row)
+        ip, ix, dv = cuda(indptr), cuda(indices), cuda(data)
+        nnz = len(indices)
+        with no_host_sync():  # building a row plan never waits
+            formats.csr_plan(ip, nnz)
+            formats.csr_plan(ip, nnz, spmv=True)
+        if long_row and long_row < 3 * max(formats.SPMV_TILE,
+                                           formats.spmm_chunk_length(m, nnz)):
+            raise AssertionError("K2/K3 case: the long row is too short")
+        for n in CSR_NS:
+            b = cuda(values(rng, (k, n), npdt))
+            c0 = cuda(values(rng, (m, n), npdt))
+            views = [b]
+            if long_row and n in (4, 16, 64):
+                views += [misaligned(b, n), misaligned(b, 1)]
+            for bb in views:
+                aligned = bb.data_ptr() % 16 == 0
+                schedules.add(tuple(csr.spmm_schedule(
+                    n, tdt, nnz / max(m, 1), aligned)[:2]))
+                for alpha, beta, cc in ((None, None, None),
+                                        (0.5, 2.0, c0)):
+                    args = (ip, ix, dv, bb, alpha, beta, cc)
+                    out = csr.csr_spmm(*args)
+                    record("K2_csr_spmm",
+                           compare(out, csr.csr_spmm_plain(*args), tdt))
+                    if long_row and n in (1, 17, 64) and cc is not None:
+                        if not torch.equal(out, csr.csr_spmm(*args)):
+                            raise AssertionError(f"K2 n={n}: runs differ")
+        x = cuda(values(rng, k, npdt))
+        y0 = cuda(values(rng, m, npdt))
+        for alpha, beta, yy in ((None, None, None), (-1.5, 3.0, y0)):
+            args = (ip, ix, dv, x, alpha, beta, yy)
+            out = csr.csr_spmv(*args)
+            record("K3_csr_spmv", compare(out, csr.csr_spmv_plain(*args), tdt))
+            if long_row and not torch.equal(out, csr.csr_spmv(*args)):
+                raise AssertionError("K3: runs differ")
 
 
 # K1 cases: (bs, nbrows, nbcols, blocks per row, every k-th block row
@@ -820,20 +879,26 @@ def spgemm_path():
 # ---------------------------------------------------------------------------
 
 
-def time_pair(kernel_fn, plain_fn, reps=REPS):
-    """The REPS times in ms of each, taken in turns, and the largest
-    |kernel - plain|.  Before each launch a 1 GiB read evicts L2 with
-    clean lines (a write would leave dirty lines to drain inside the timed
-    launch) and keeps the card busy for ~0.3 ms while the host enqueues
-    the call, so the events time the device, not the Python call (a
-    256 MB read covered ~85 us, less than the plain versions' host side
-    of up to 0.36 ms)."""
+def time_set(kernel_fn, plain_fn, library_fn=None, reps=REPS):
+    """The REPS times in ms of the kernel, its plain version and, when
+    given, the one PyTorch call that computes the same function (its
+    yardstick, which the port never calls), taken in turns, and the
+    largest |kernel - plain|.  Before each launch a 1 GiB read evicts L2
+    with clean lines (a write would leave dirty lines to drain inside the
+    timed launch) and keeps the card busy for ~0.3 ms while the host
+    enqueues the call, so the events time the device, not the Python call
+    (a 256 MB read covered ~85 us, less than the plain versions' host side
+    of up to 0.36 ms).  Returns (kernel, plain, library or None, error)."""
     flush = torch.ones(256 << 20, dtype=torch.float32, device="cuda")
     out_k, out_p = kernel_fn(), plain_fn()
     err = compare(out_k, out_p, out_k.dtype)
-    times = {"kernel": [], "plain": []}
+    fns = {"plain": plain_fn, "kernel": kernel_fn}
+    if library_fn is not None:
+        library_fn()  # warm-up (cuSPARSE handles and buffers)
+        fns["library"] = library_fn
+    times = {name: [] for name in fns}
     for _ in range(reps):
-        for name, fn in (("plain", plain_fn), ("kernel", kernel_fn)):
+        for name, fn in fns.items():
             flush.sum()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -842,7 +907,7 @@ def time_pair(kernel_fn, plain_fn, reps=REPS):
             end.record()
             end.synchronize()
             times[name].append(start.elapsed_time(end))
-    return times["kernel"], times["plain"], err
+    return times["kernel"], times["plain"], times.get("library"), err
 
 
 def spread(times):
@@ -851,59 +916,217 @@ def spread(times):
     return float(p50), float(p10), float(p90)
 
 
-def timings(inputs):
+# The H100 SXM's published peaks (NVIDIA's data sheet): HBM bytes/s, the
+# CUDA cores' FLOP/s by value type, and the tensor cores' as K1 uses them
+# (f64 MMA; f32 as 3xTF32, three TF32 MMAs per product).
+HBM_BYTES_PER_S = 3.35e12
+CUDA_CORE_FLOPS = {torch.float32: 67e12, torch.complex64: 67e12,
+                   torch.float64: 34e12, torch.complex128: 34e12}
+TENSOR_CORE_FLOPS = {torch.float64: 67e12, torch.float32: 495e12 / 3}
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def flops_per_product(dtype):
+    """FLOPs of one multiply-add: 2 real, 8 complex."""
+    return 8 if dtype.is_complex else 2
+
+
+def bound(moved, flop, peak):
+    """(bound_ms, bound_by): the larger of bytes over the HBM rate and
+    FLOPs over ``peak``, and which of the two it is."""
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flop / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def csr_bound(indptr, indices, data, b, c0=None):
+    """K2/K3's bound: A's arrays, the rows of b that A names (each once),
+    C0 and C; one multiply-add per nonzero and column."""
+    n = 1 if b.dim() == 1 else b.shape[1]
+    rows = int(torch.unique(indices).numel())
+    out = (indptr.numel() - 1) * n * b.element_size()
+    moved = (nbytes(indptr, indices, data, c0) + rows * n * b.element_size()
+             + out)
+    flop = flops_per_product(b.dtype) * indices.numel() * n
+    return bound(moved, flop, CUDA_CORE_FLOPS[b.dtype])
+
+
+def bsr_bound(indptr, indices, data, b, c0=None):
+    """K1's bound: the BSR's arrays, the block rows of b it names, C0 and
+    C; bs * bs multiply-adds per stored block and column, on the tensor
+    cores for real values and on the CUDA cores for complex ones."""
+    nblocks, bs, _ = data.shape
+    n = b.shape[1]
+    panels = int(torch.unique(indices).numel())
+    out = (indptr.numel() - 1) * bs * n * b.element_size()
+    moved = (nbytes(indptr, indices, data, c0)
+             + panels * bs * n * b.element_size() + out)
+    flop = flops_per_product(b.dtype) * nblocks * bs * bs * n
+    peak = TENSOR_CORE_FLOPS.get(b.dtype) or CUDA_CORE_FLOPS[b.dtype]
+    return bound(moved, flop, peak)
+
+
+def library_call(make):
+    """(fn, note): ``make()`` builds the yardstick's operands as a user
+    would and returns the call; note names the call, or the error with
+    which torch refused it (then fn is None)."""
+    try:
+        fn, note = make()
+        fn()
+        torch.cuda.synchronize()
+        return fn, note
+    except Exception as exc:  # noqa: BLE001  (a refusal is a result here)
+        return None, f"none: {type(exc).__name__}: {str(exc)[:200]}"
+
+
+def csr_library(indptr, indices, data, b, shape, c0=None, beta=None):
+    """cuSPARSE through torch: SpMM (``torch.sparse.mm``, or
+    ``torch.addmm`` with C0) or, for 1-d b, SpMV (``A @ x``)."""
+    def make():
+        a = torch.sparse_csr_tensor(indptr, indices, data, size=shape)
+        if b.dim() == 1:
+            return (lambda: a @ b), "A_csr @ x (cuSPARSE SpMV)"
+        if c0 is not None:
+            return ((lambda: torch.addmm(c0, a, b, beta=beta)),
+                    "torch.addmm(c0, A_csr, B, beta) (cuSPARSE SpMM)")
+        return (lambda: torch.sparse.mm(a, b)), \
+            "torch.sparse.mm(A_csr, B) (cuSPARSE SpMM)"
+    return library_call(make)
+
+
+def bsr_library(indptr, indices, data, b, shape, c0=None, beta=None):
+    """The same on ``torch.sparse_bsr_tensor``."""
+    def make():
+        a = torch.sparse_bsr_tensor(indptr, indices, data, size=shape)
+        if c0 is not None:
+            return ((lambda: torch.addmm(c0, a, b, beta=beta)),
+                    "torch.addmm(c0, A_bsr, B, beta)")
+        return (lambda: torch.sparse.mm(a, b)), "torch.sparse.mm(A_bsr, B)"
+    return library_call(make)
+
+
+def timed_row(kernel, shape, kernel_fn, plain_fn, bound_of, library=(None,
+              "none: no single PyTorch call computes this"), reps=REPS,
+              **extra):
+    """One phase-4 row: times of kernel, plain version and library call,
+    the bound and the share of it that the kernel reaches."""
+    lib_fn, lib_note = library
+    kt, pt, lt, err = time_set(kernel_fn, plain_fn, lib_fn, reps)
+    (ms, p10, p90), (plain_ms, pp10, pp90) = spread(kt), spread(pt)
+    bound_ms, bound_by = bound_of
+    row = {"kernel": kernel, "shape": shape, "ms": ms, "p10": p10,
+           "p90": p90, "plain_ms": plain_ms, "plain_p10": pp10,
+           "plain_p90": pp90, "max_abs_err": err, "bound_ms": bound_ms,
+           "bound_by": bound_by, "share": bound_ms / ms,
+           "library_ms": None if lt is None else spread(lt)[0],
+           "library": lib_note, "reps": reps, **extra}
+    if lt is not None:
+        row["library_p10"], row["library_p90"] = spread(lt)[1:]
+    return row
+
+
+def timings(inputs, solver_inp):
+    """Phase 4: K1, K2 and K3 at the phase-3 shapes and at the solvers'
+    matrices (the 1M Laplacian, the convection-diffusion matrix and CGLS's
+    A and A^T), each with its plan as the main path passes it (built once,
+    cached on the container)."""
     from sparse_dot_tpu_torch import formats
     from sparse_dot_tpu_torch.ops import bsr, csr
 
     rows = []
 
-    def add(kernel, shape, wrapper, plain, *args, flop=None, **extra):
-        kt, pt, err = time_pair(lambda: wrapper(*args), lambda: plain(*args))
-        (ms, p10, p90), (plain_ms, plain_p10, plain_p90) = (spread(kt),
-                                                            spread(pt))
-        if flop:
-            extra.update(gflop=flop / 1e9, tflops=flop / ms / 1e9,
-                         plain_tflops=flop / plain_ms / 1e9)
-        rows.append({"kernel": kernel, "shape": shape, "ms": ms,
-                     "p10": p10, "p90": p90, "plain_ms": plain_ms,
-                     "plain_p10": plain_p10, "plain_p90": plain_p90,
-                     "max_abs_err": err, **extra})
+    def k2(shape, A, b, transpose=False, **extra):
+        ip, ix, dv = A.csr_arrays(transpose)
+        dv = dv.to(b.dtype)
+        plan = A.csr_plan(transpose)
+        m = ip.numel() - 1
+        rows.append(timed_row(
+            "K2_csr_spmm", shape,
+            lambda: csr.csr_spmm(ip, ix, dv, b, plan=plan),
+            lambda: csr.csr_spmm_plain(ip, ix, dv, b),
+            csr_bound(ip, ix, dv, b),
+            csr_library(ip, ix, dv, b, (m, b.shape[0])),
+            schedule=list(csr.spmm_schedule(
+                b.shape[1], b.dtype, ix.numel() / m)), **extra))
 
+    def k3(shape, A, x, transpose=False):
+        ip, ix, dv = A.csr_arrays(transpose)
+        dv = dv.to(x.dtype)
+        plan = A.csr_plan(transpose, spmv=True)
+        rows.append(timed_row(
+            "K3_csr_spmv", shape,
+            lambda: csr.csr_spmv(ip, ix, dv, x, plan=plan),
+            lambda: csr.csr_spmv_plain(ip, ix, dv, x),
+            csr_bound(ip, ix, dv, x),
+            csr_library(ip, ix, dv, x, (ip.numel() - 1, x.shape[0]))))
+
+    rng = np.random.default_rng(SEED + 4)
     n1, n3, nc = SIZES["config1"], SIZES["config3"], SIZES["complex"]
+    nv = SIZES["spmv"]
     A1 = formats.to_device(inputs["a1"])
-    add("K2_csr_spmm", f"config1 CSR f64 {n1}x{n1} 1% @ ({n1},128)",
-        csr.csr_spmm, csr.csr_spmm_plain, *A1.csr_arrays(),
-        cuda(inputs["b1"]))
-    add("K2_csr_spmm", f"config1 (128,{n1}) @ CSR f64 (transposed CSR)",
-        csr.csr_spmm, csr.csr_spmm_plain, *A1.csr_arrays(transpose=True),
-        cuda(inputs["d1"].T))
-    Ac = formats.to_device(inputs["ac"])
-    add("K2_csr_spmm", f"CSR c128 {nc}x{nc} 1% @ ({nc},64)",
-        csr.csr_spmm, csr.csr_spmm_plain, *Ac.csr_arrays(),
-        cuda(inputs["bc"]))
+    k2(f"config1 CSR f64 {n1}x{n1} 1% @ ({n1},128)", A1, cuda(inputs["b1"]))
+    k2(f"config1 (128,{n1}) @ CSR f64 (transposed CSR)", A1,
+       cuda(inputs["d1"].T), transpose=True)
+    k2(f"CSR c128 {nc}x{nc} 1% @ ({nc},64)", formats.to_device(inputs["ac"]),
+       cuda(inputs["bc"]))
+    lap = formats.to_device(solver_inp["lap"])
+    cgls = formats.to_device(solver_inp["cgls_a"])
+    nl, (mc, kc) = lap.shape[0], cgls.shape
+    for n in (1, 4, 16):
+        k2(f"1M Laplacian, 5.0 M nnz @ ({nl}, {n})", lap,
+           cuda(rng.standard_normal((nl, n))))
+    for n in (1, 4):
+        k2(f"CGLS A 1.2Mx50k @ (50k, {n})", cgls,
+           cuda(rng.standard_normal((kc, n))))
+        k2(f"CGLS A^T 50kx1.2M @ (1.2M, {n})", cgls,
+           cuda(rng.standard_normal((mc, n))), transpose=True)
+    k3(f"CSR f64 {nv}x{nv}, 10 per row @ ({nv},)",
+       formats.to_device(inputs["av"]), cuda(inputs["xv"]))
+    k3("1M Laplacian, 5.0 M nnz", lap, cuda(rng.standard_normal(nl)))
+    k3("1M convection-diffusion", formats.to_device(solver_inp["cd"]),
+       cuda(rng.standard_normal(nl)))
+    k3("CGLS A 1.2Mx50k @ (50k,)", cgls, cuda(rng.standard_normal(kc)))
+    k3("CGLS A^T 50kx1.2M @ (1.2M,)", cgls, cuda(rng.standard_normal(mc)),
+       transpose=True)
+    del lap, cgls
+
     for (bs, dt), a3 in inputs["bsrs"].items():
         A3 = formats.to_device(a3)
         lengths = np.diff(a3.indptr)
         plan = A3.bsr_plan()  # as dot_product passes it, built once
-        add("K1_bsr_spmm_tc",
+        args = (*A3.bsr_arrays(), cuda(inputs["b3"][dt]), None, 2.0,
+                cuda(inputs["out3"][(bs, dt)]))
+        flop = 2.0 * a3.nnz * 256
+        row = timed_row(
+            "K1_bsr_spmm_tc",
             f"config3 BSR bs={bs} {np.dtype(dt).name} {n3}x{n3} 5% blocks "
             f"@ ({n3},256), out_scalar=2",
-            lambda *a: bsr.bsr_spmm(*a, plan=plan), bsr.bsr_spmm_plain,
-            *A3.bsr_arrays(), cuda(inputs["b3"][dt]), None, 2.0,
-            cuda(inputs["out3"][(bs, dt)]), flop=2.0 * a3.nnz * 256,
-            blocks_per_row_mean=float(lengths.mean()),
+            lambda: bsr.bsr_spmm(*args, plan=plan),
+            lambda: bsr.bsr_spmm_plain(*args),
+            bsr_bound(*args[:4], c0=args[6]),
+            bsr_library(*args[:4], a3.shape, c0=args[6], beta=2.0),
+            gflop=flop / 1e9, blocks_per_row_mean=float(lengths.mean()),
             blocks_per_row_max=int(lengths.max()), chunk=plan.chunk)
+        row.update(tflops=flop / row["ms"] / 1e9,
+                   plain_tflops=flop / row["plain_ms"] / 1e9)
+        rows.append(row)
     Abc = formats.to_device(inputs["abc"])
-    add("K1_bsr_spmm_simt", f"BSR c128 bs=16 {nc}x{nc} 5% blocks @ ({nc},64)",
-        bsr.bsr_spmm, bsr.bsr_spmm_plain, *Abc.bsr_arrays(),
-        cuda(inputs["bc"]))
-    Av = formats.to_device(inputs["av"])
-    nv = SIZES["spmv"]
-    add("K3_csr_spmv", f"CSR f64 {nv}x{nv}, 10 per row @ ({nv},)",
-        csr.csr_spmv, csr.csr_spmv_plain, *Av.csr_arrays(),
-        cuda(inputs["xv"]))
+    args = (*Abc.bsr_arrays(), cuda(inputs["bc"]))
+    rows.append(timed_row(
+        "K1_bsr_spmm_simt", f"BSR c128 bs=16 {nc}x{nc} 5% blocks @ ({nc},64)",
+        lambda: bsr.bsr_spmm(*args), lambda: bsr.bsr_spmm_plain(*args),
+        bsr_bound(*args), bsr_library(*args, Abc.shape)))
     emit(4, reps=REPS, rows=rows,
-         timer="cuda events, median (p10, p90), 1 GiB read before each")
+         timer="cuda events, median (p10, p90), 1 GiB read before each; "
+               "library: the one torch call, warmed up, timed the same way",
+         peaks={"hbm_bytes_per_s": HBM_BYTES_PER_S,
+                "cuda_core_flops": {str(k): v for k, v in
+                                    CUDA_CORE_FLOPS.items()},
+                "tensor_core_flops": {str(k): v for k, v in
+                                      TENSOR_CORE_FLOPS.items()}})
     return rows
 
 
@@ -943,6 +1166,38 @@ def spgemm_timings(inp):
                 and torch.equal(whole[1], ref[1])):
             raise AssertionError(f"case {case}: K4/K5 pattern differs")
         nnz = int(whole[0][-1])
+        # Bytes: A's arrays, the rows of B that A names (each once), and
+        # the output; FLOPs: one multiply-add per product.  K4 counts with
+        # integer work only, so bytes bound it.
+        named = torch.unique(ix.long())
+        b_len = (bip[1:] - bip[:-1]).long()[named]
+        b_moved = int(b_len.sum()) * (bix.element_size()
+                                      + bdv.element_size()) \
+            + 2 * named.numel() * bip.element_size()
+        b_index = int(b_len.sum()) * bix.element_size() \
+            + 2 * named.numel() * bip.element_size()
+        flop = flops_per_product(dv.dtype) * products
+        peak = CUDA_CORE_FLOPS[dv.dtype]
+        out_sparse = (len(whole[0]) * ip.element_size()
+                      + nnz * (ix.element_size() + dv.element_size()))
+        bounds = {
+            "K4_csr_spgemm_count": bound(
+                nbytes(ip, ix) + b_index + ip.numel() * 8, 0, peak),
+            "K5_csr_spgemm_fill": bound(
+                nbytes(ip, ix, dv) + b_moved + out_sparse, flop, peak),
+            "K4+K5 product": bound(
+                nbytes(ip, ix, dv) + b_moved + out_sparse, flop, peak),
+            "K6_csr_spgemm_dense": bound(
+                nbytes(ip, ix, dv) + b_moved
+                + ip.numel() * n * dv.element_size(), flop, peak),
+        }
+
+        def spgemm_library():
+            a_t = torch.sparse_csr_tensor(ip, ix, dv, size=a.shape)
+            b_t = torch.sparse_csr_tensor(bip, bix, bdv, size=b.shape)
+            return ((lambda: torch.sparse.mm(a_t, b_t)),
+                    "torch.sparse.mm(A_csr, B_csr) (cuSPARSE SpGEMM)")
+
         timed = [
             ("K4_csr_spgemm_count",
              lambda: spgemm.csr_spgemm_count(ip, ix, bip, bix, n, plan),
@@ -959,16 +1214,15 @@ def spgemm_timings(inp):
                           lambda: spgemm.csr_spgemm_dense(*args),
                           lambda: spgemm.csr_spgemm_dense_plain(*args)))
         for kernel, kernel_fn, plain_fn in timed:
-            kt, pt, err = time_pair(kernel_fn, plain_fn, reps)
-            (ms, p10, p90), (plain_ms, pp10, pp90) = spread(kt), spread(pt)
-            rows.append({
-                "kernel": kernel, "case": case, "shape": shape, "ms": ms,
-                "p10": p10, "p90": p90, "plain_ms": plain_ms,
-                "plain_p10": pp10, "plain_p90": pp90, "max_abs_err": err,
-                "reps": reps, "products": products, "nnz": nnz,
-                "gproducts_per_s": products / ms / 1e6,
-                "plain_gproducts_per_s": products / plain_ms / 1e6,
-            })
+            library = (library_call(spgemm_library)
+                       if kernel == "K4+K5 product" else
+                       (None, "none: no single PyTorch call computes this"))
+            row = timed_row(kernel, shape, kernel_fn, plain_fn,
+                            bounds[kernel], library, reps, case=case,
+                            products=products, nnz=nnz)
+            row.update(gproducts_per_s=products / row["ms"] / 1e6,
+                       plain_gproducts_per_s=products / row["plain_ms"] / 1e6)
+            rows.append(row)
         del A, B, args, plan, whole, ref
         torch.cuda.empty_cache()
 
@@ -1099,14 +1353,13 @@ def rel_residual(a, x, b):
     return float(np.max(np.linalg.norm(r, axis=0) / np.linalg.norm(b, axis=0)))
 
 
-def solver_path():
+def solver_path(inp):
     """The handle protocol and the solvers through the public API, each
     call's launches, syncs and wall time recorded, each result checked."""
     import sparse_dot_tpu_torch as sdt
     from sparse_dot_tpu_torch import interface
     from sparse_dot_tpu_torch.solvers import qr
 
-    inp = solver_inputs()
     lap, cd, b = inp["lap"], inp["cd"], inp["b"]
     records = {}
 
@@ -1299,71 +1552,41 @@ def solver_path():
                  "qr_householder": "np.linalg.lstsq, decimal=6",
                  "pardiso_lu": "||b - op(A) x|| <= 1e-10 ||b||",
                  "pardiso_krylov": "||b - A x|| <= 1e-9 ||b||"})
-    return launches, records, inp
+    return launches, records
 
 
-def solver_timings(records, inp):
-    """One K3 (K2) call on each solve's matrix, timed as in phase 4, and
-    each solve's ms per iteration beside it."""
-    from sparse_dot_tpu_torch import formats
-    from sparse_dot_tpu_torch.ops import csr
+# Each solve's matrix in phase 4: the K3 (K2) rows whose times make one
+# step's matvecs (CGLS: A and A^T).
+SOLVE_MATVECS = {
+    "cg": ("1M Laplacian, 5.0 M nnz",),
+    "cg_symmetric_triangle": ("1M Laplacian, 5.0 M nnz",),
+    "pardiso_krylov_1M_spd": ("1M Laplacian, 5.0 M nnz",),
+    "fgmres_20": ("1M convection-diffusion",),
+    "cg_mrhs_16": ("1M Laplacian, 5.0 M nnz @ (1000000, 16)",),
+    "qr_cgls_1.2Mx50k": ("CGLS A 1.2Mx50k @ (50k,)",
+                         "CGLS A^T 50kx1.2M @ (1.2M,)"),
+    "qr_cgls_1.2Mx50k_4rhs": ("CGLS A 1.2Mx50k @ (50k, 4)",
+                              "CGLS A^T 50kx1.2M @ (1.2M, 4)"),
+}
 
-    rng = np.random.default_rng(SEED + 4)
-    rows = []
-    ops = {}
-    for key in ("lap", "cd", "cgls_a"):
-        ops[key] = formats.to_device(inp[key])
-    n = inp["lap"].shape[0]
-    timed = [
-        ("K3_csr_spmv", "1M Laplacian, 5.0 M nnz", ops["lap"].csr_arrays(),
-         (n,), ("cg", "cg_symmetric_triangle", "pardiso_krylov_1M_spd")),
-        ("K3_csr_spmv", "1M convection-diffusion", ops["cd"].csr_arrays(),
-         (n,), ("fgmres_20",)),
-        ("K2_csr_spmm", "1M Laplacian @ (1M, 16)", ops["lap"].csr_arrays(),
-         (n, 16), ("cg_mrhs_16",)),
-        ("K3_csr_spmv", "CGLS A 1.2Mx50k @ (50k,)",
-         ops["cgls_a"].csr_arrays(), (50_000,), ("qr_cgls_1.2Mx50k",)),
-        ("K3_csr_spmv", "CGLS A^T 50kx1.2M @ (1.2M,)",
-         ops["cgls_a"].csr_arrays(transpose=True), (1_200_000,),
-         ("qr_cgls_1.2Mx50k",)),
-        ("K2_csr_spmm", "CGLS A 1.2Mx50k @ (50k, 1)",
-         ops["cgls_a"].csr_arrays(), (50_000, 1), ()),
-        ("K2_csr_spmm", "CGLS A^T 50kx1.2M @ (1.2M, 1)",
-         ops["cgls_a"].csr_arrays(transpose=True), (1_200_000, 1), ()),
-        ("K2_csr_spmm", "CGLS A 1.2Mx50k @ (50k, 4)",
-         ops["cgls_a"].csr_arrays(), (50_000, 4), ("qr_cgls_1.2Mx50k_4rhs",)),
-        ("K2_csr_spmm", "CGLS A^T 50kx1.2M @ (1.2M, 4)",
-         ops["cgls_a"].csr_arrays(transpose=True), (1_200_000, 4),
-         ("qr_cgls_1.2Mx50k_4rhs",)),
-    ]
-    for kernel, shape, arrays, vshape, solves in timed:
-        arrays = tuple(a.to(torch.float64) if a.is_floating_point() else a
-                       for a in arrays)
-        v = cuda(rng.standard_normal(vshape))
-        wrapper, plain = ((csr.csr_spmv, csr.csr_spmv_plain)
-                          if kernel == "K3_csr_spmv"
-                          else (csr.csr_spmm, csr.csr_spmm_plain))
-        kt, pt, err = time_pair(lambda: wrapper(*arrays, v),
-                                lambda: plain(*arrays, v))
-        (ms, p10, p90), (plain_ms, _, _) = spread(kt), spread(pt)
-        rows.append({"kernel": kernel, "shape": shape, "ms": ms, "p10": p10,
-                     "p90": p90, "plain_ms": plain_ms, "max_abs_err": err})
-        for name in solves:
-            # CGLS: one step's two products, A and A^T.
-            records[name]["matvec_ms"] = records[name].get("matvec_ms",
-                                                           0.0) + ms
+
+def solver_timings(records, rows):
+    """Each solve's ms per iteration beside its matvecs' kernel time from
+    phase 4 (the same matrices, the same timer)."""
+    ms = {row["shape"]: row["ms"] for row in rows}
+    for name, shapes in SOLVE_MATVECS.items():
+        records[name]["matvec_ms"] = sum(ms[shape] for shape in shapes)
+        records[name]["matvec_shapes"] = list(shapes)
     for rec in records.values():
         if "iterations" in rec:
             rec["ms_per_iteration"] = rec["wall_ms"] / rec["iterations"]
         if "matvecs" in rec:
             rec["ms_per_matvec"] = rec["wall_ms"] / rec["matvecs"]
-    emit("5-times", rows=rows, solves=records,
-         timer="cuda events, median (p10, p90), 1 GiB read before each; "
-               f"solves: host clock, host in to host out, median (min, max) "
-               f"of {SOLVE_REPS} after a first call; device busy: "
-               "torch.profiler, one more solve; idle share: 1 - busy / "
-               "median wall")
-    return rows
+    emit("5-times", solves=records,
+         timer="matvec: phase 4's kernel times; solves: host clock, host in "
+               f"to host out, median (min, max) of {SOLVE_REPS} after a "
+               "first call; device busy: torch.profiler, one more solve; "
+               "idle share: 1 - busy / median wall")
 
 
 def main():
@@ -1393,9 +1616,10 @@ def main():
     by_path = {}
     by_path["dot_product"], inputs = main_path()
     by_path["spgemm"], spgemm_inp = spgemm_path()
-    rows = timings(inputs) + spgemm_timings(spgemm_inp)
-    by_path["solvers"], records, solver_inp = solver_path()
-    rows += solver_timings(records, solver_inp)
+    solver_inp = solver_inputs()
+    rows = timings(inputs, solver_inp) + spgemm_timings(spgemm_inp)
+    by_path["solvers"], records = solver_path(solver_inp)
+    solver_timings(records, rows)
     launches = {name: sum(path[name] for path in by_path.values())
                 for name in KERNELS}
 
@@ -1410,6 +1634,8 @@ def main():
             "launches_by_path": {path: n[name] for path, n in by_path.items()},
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": mine[0]["ms"], "plain_ms": mine[0]["plain_ms"],
+            "bound_ms": mine[0]["bound_ms"], "bound_by": mine[0]["bound_by"],
+            "library_ms": mine[0]["library_ms"], "shape": mine[0]["shape"],
         })
     print(card, flush=True)
     print(json.dumps({"kernels": summary}), flush=True)

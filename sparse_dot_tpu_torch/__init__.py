@@ -15,10 +15,12 @@ sparse with dense output; dense GEMM and the dense gram run on
 and K2 (several, and CGLS); the dense QR and LU routes on
 ``torch.linalg``.
 
-Tensors live on ``config.device`` ("cpu" by default, or "cuda")::
+Tensors live on ``config.device``: "cuda" by default, where an operation
+raises when no card is visible (it never falls back to the CPU), or
+"cpu" when the caller asks for it::
 
     from sparse_dot_tpu_torch.config import config
-    config.device = "cuda"
+    config.device = "cpu"
 
 The drop-in aliases with the reference's ``*_mkl`` names are exported.
 Not ported yet (ROADMAP.md): the device API with autograd and the

@@ -3,8 +3,8 @@
 Port of ``sparse_dot_tpu/config.py``: the index integer width ("LP64"
 int32 or "ILP64" int64, the reference's ``MKL_INTERFACE_LAYER``), the
 debug flag, the chunk budget of the plain paths and PARDISO's dense
-budget, plus the device
-every tensor is created on.  The TPU switches of the JAX package (planar
+budget, plus the device every tensor is created on: the card unless the
+caller sets ``config.device = "cpu"``.  The TPU switches of the JAX package (planar
 complex, Pallas/ELL/Ozaki routes and their caches) have no counterpart.
 
 Environment variables
@@ -57,13 +57,14 @@ class _Config:
         # budget and solves matrix-free (CG / FGMRES) beyond it: the JAX
         # package's rule and default, so both packages take the same route.
         self.pardiso_dense_budget_bytes = 2 << 30
-        self._device = "cpu"
+        self._device = "cuda"
 
     @property
     def device(self):
-        """Where every tensor is created: "cpu" (default) or "cuda".  With
+        """Where every tensor is created: "cuda" (default) or "cpu".  With
         "cuda" and no visible card, operations raise instead of running on
-        the CPU (``backend.torch_device``)."""
+        the CPU (``backend.torch_device``); importing the package needs no
+        card."""
         return self._device
 
     @device.setter

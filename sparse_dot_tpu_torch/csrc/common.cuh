@@ -46,6 +46,10 @@ struct Arith {
   __device__ static T shfl_down(T v, unsigned delta, int width = 32) {
     return __shfl_down_sync(kFullMask, v, delta, width);
   }
+  __device__ static T shfl_xor(T v, int lane_mask,
+                               unsigned members = kFullMask) {
+    return __shfl_xor_sync(members, v, lane_mask);
+  }
 };
 
 template <typename R>
@@ -75,6 +79,11 @@ struct Arith<cuda::std::complex<R>> {
     return T(__shfl_down_sync(kFullMask, v.real(), delta, width),
              __shfl_down_sync(kFullMask, v.imag(), delta, width));
   }
+  __device__ static T shfl_xor(T v, int lane_mask,
+                               unsigned members = kFullMask) {
+    return T(__shfl_xor_sync(members, v.real(), lane_mask),
+             __shfl_xor_sync(members, v.imag(), lane_mask));
+  }
 };
 
 // alpha * acc + beta * c0[idx]: the out/out_scalar accumulate of
@@ -91,6 +100,22 @@ __device__ __forceinline__ T epilogue(T acc, const T* __restrict__ c0,
 }
 
 inline bool is_one(double re, double im) { return re == 1.0 && im == 0.0; }
+
+// A load that bypasses L1, for partial sums that other warps wrote.
+template <typename T>
+__device__ __forceinline__ T load_cg(const T* p) {
+  return __ldcg(p);
+}
+template <>
+__device__ __forceinline__ c64 load_cg<c64>(const c64* p) {
+  const float2 v = __ldcg(reinterpret_cast<const float2*>(p));
+  return c64(v.x, v.y);
+}
+template <>
+__device__ __forceinline__ c128 load_cg<c128>(const c128* p) {
+  const double2 v = __ldcg(reinterpret_cast<const double2*>(p));
+  return c128(v.x, v.y);
+}
 
 }  // namespace sdt
 

@@ -359,8 +359,8 @@ def dot_product(matrix_a, matrix_b, cast=False, copy=True,
     * vector @ vector -> np.dot special case
     * dense @ dense -> GEMM
 
-    With ``config.device == "cuda"`` and no visible card this raises
-    before any work.
+    With ``config.device == "cuda"`` (the default) and no visible card
+    this raises before any work.
     """
     _deprecated_debug(debug)
     torch_device()

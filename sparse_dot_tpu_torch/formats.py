@@ -19,7 +19,8 @@ The kernels read CSR (K2, K3) or BSR (K1) in the orientation of the
 product.  ``csr_arrays(transpose)`` and ``BSR.bsr_arrays(transpose)``
 give those arrays, building the converted layout once on the device (a
 stable sort of the other axis' ids) and caching it on the container, as
-``BSR.bsr_plan(transpose)`` caches K1's chunk plan (``bsr_chunk_plan``).
+``BSR.bsr_plan(transpose)`` caches K1's chunk plan (``bsr_chunk_plan``)
+and ``csr_plan(transpose, spmv)`` K2's and K3's row plans (``csr_plan``).
 """
 
 from typing import NamedTuple
@@ -129,22 +130,34 @@ def bsr_chunk_length(nbrows, nblocks):
     return max(1, -(-nblocks // max(nbrows, 1)))
 
 
-def bsr_chunk_plan(indptr, nblocks):
-    """The chunk plan of the block ``indptr`` of a BSR with ``nblocks``
-    stored blocks (device ops, no host sync).
+def _padding_row(values, dev):
+    """An int64 row of ``values`` on ``dev``, filled there: a tensor made
+    from a host list, or an item set from a Python number, is a copy that
+    waits for the device."""
+    row = torch.empty(len(values), dtype=torch.long, device=dev)
+    for i, v in enumerate(values):
+        row.narrow(0, i, 1).fill_(v)
+    return row
 
-    The chunk length S is the mean number of stored blocks per block row,
-    rounded up, so a block row longer than the mean is spread over
-    several thread blocks.  With L_r blocks in row r, row r has
-    max(1, ceil(L_r / S)) chunks; there are at most nbrows + nblocks // S
-    of them, at most nblocks // (S + 1) rows of more than one, and those
-    rows take at most nblocks // S + nblocks // (S + 1) slots."""
+
+def bsr_chunk_plan(indptr, nblocks, chunk=None):
+    """The chunk plan of the block ``indptr`` of a BSR with ``nblocks``
+    stored blocks (device ops, no host sync).  Any CSR ``indptr`` with its
+    nnz works the same way (``csr_plan``).
+
+    The chunk length S is ``chunk``, by default the mean number of stored
+    blocks per block row, rounded up, so a block row longer than the mean
+    is spread over several thread blocks.  With L_r blocks in row r, row r
+    has max(1, ceil(L_r / S)) chunks; there are at most
+    nbrows + nblocks // S of them, at most nblocks // (S + 1) rows of more
+    than one, and those rows take at most nblocks // S + nblocks // (S + 1)
+    slots."""
     nbrows = indptr.numel() - 1
     dev = indptr.device
+    S = chunk or bsr_chunk_length(nbrows, nblocks)
     if nbrows == 0:
         empty = torch.zeros((0, 4), dtype=torch.long, device=dev)
-        return BsrChunkPlan(empty, empty[:, :3], 1, 0, 0, nblocks)
-    S = bsr_chunk_length(nbrows, nblocks)
+        return BsrChunkPlan(empty, empty[:, :3], S, 0, 0, nblocks)
     n_splits = nblocks // (S + 1)
     ip = indptr.long()
     nchunks = torch.clamp((ip[1:] - ip[:-1] + S - 1) // S, min=1)
@@ -164,7 +177,7 @@ def bsr_chunk_plan(indptr, nblocks):
         torch.where(split[r], first_slot[r] + j, -1),
     ], 1)
     items = torch.where((row < nbrows)[:, None], items,
-                        torch.tensor([-1, 0, 0, -1], device=dev))
+                        _padding_row((-1, 0, 0, -1), dev))
 
     # Split row k is the row where the running count of split rows
     # passes k.
@@ -173,9 +186,92 @@ def bsr_chunk_plan(indptr, nblocks):
     s = srow.clamp(max=nbrows - 1)
     splits = torch.stack([s, first_slot[s], nchunks[s]], 1)
     splits = torch.where((srow < nbrows)[:, None], splits,
-                         torch.tensor([-1, 0, 0], device=dev))
+                         _padding_row((-1, 0, 0), dev))
     return BsrChunkPlan(items, splits, S, nblocks // S + n_splits, nbrows,
                         nblocks)
+
+
+# Nonzeros per tile of K3 (``SPMV_TILE`` equals ``kTile`` of
+# ``csrc/csr_spmv.cu``, which checks it): a tile holds the rows whose first
+# nonzero lies in [t * T, (t + 1) * T), and rows longer than T are split.
+SPMV_TILE = 128
+
+
+class CsrPlan(NamedTuple):
+    """How K2 or K3 cuts a CSR's rows into work (``csr_plan``).
+
+    Rows of at most ``chunk`` nonzeros are done whole.  Longer rows are
+    cut into chunks of ``chunk`` (``bsr_chunk_plan`` on the CSR's indptr):
+    ``chunks`` (slots, 4) int64 rows of (row, first nonzero, end nonzero,
+    workspace slot), the split rows' chunks in row and slot order, then
+    padding rows (-1, 0, 0, -1).  ``counts``: (slots,) int32 zeros, where
+    the kernel counts the finished chunks of a split row (at its first
+    slot), so that the last to finish adds the partial results in chunk
+    order, and sets the count back to 0: a run gives the same bits twice.
+    ``tiles`` (K3 only, else empty): (n_tiles, 4) int64 rows of (first
+    row, end row, first nonzero, end nonzero) of each tile of
+    ``SPMV_TILE`` nonzeros, a long last row (more than ``SPMV_TILE``
+    nonzeros, done by its chunks) left out.  Sizes are known on the host,
+    so building a plan never waits for the device."""
+
+    chunks: torch.Tensor
+    tiles: torch.Tensor
+    counts: torch.Tensor
+    chunk: int
+    nrows: int
+    nnz: int
+
+    @property
+    def slots(self):
+        return self.chunks.shape[0]
+
+
+def spmm_chunk_length(nrows, nnz):
+    """K2's S: four times the mean row length, and at least 128 nonzeros
+    and 1/8192 of the nnz, so only rows far past the mean are split and
+    the padded chunk list stays short."""
+    mean = -(-nnz // max(nrows, 1))
+    return max(4 * mean, 128, -(-nnz // 8192))
+
+
+def csr_plan(indptr, nnz, spmv=False):
+    """The ``CsrPlan`` of a CSR's ``indptr`` with ``nnz`` entries, for K3
+    when ``spmv`` (tiles and chunks of ``SPMV_TILE``) or else for K2
+    (chunks of ``spmm_chunk_length``).  Device ops, no host sync."""
+    nrows = indptr.numel() - 1
+    dev = indptr.device
+    S = SPMV_TILE if spmv else spmm_chunk_length(nrows, nnz)
+    plan = bsr_chunk_plan(indptr, nnz, S)
+    # Slot u is chunk j of the split row k whose slots cover u (the split
+    # rows' first slots rise; padding rows' are moved past every slot).
+    ip = indptr.long()
+    if plan.splits.shape[0] == 0:  # no row can be longer than S
+        plan = plan._replace(splits=_padding_row((-1, 0, 0), dev)[None])
+    rows, firsts, nchunks = plan.splits.unbind(1)
+    firsts = torch.where(rows >= 0, firsts, plan.slots)
+    u = torch.arange(plan.slots, device=dev)
+    k = (torch.searchsorted(firsts, u, right=True) - 1).clamp(min=0)
+    r = rows[k].clamp(min=0)
+    j = u - firsts[k]
+    p0 = ip[r] + j * S
+    chunks = torch.stack([r, p0, torch.minimum(p0 + S, ip[r + 1]), u], 1)
+    chunks = torch.where(((u >= firsts[k]) & (j < nchunks[k]))[:, None],
+                         chunks, _padding_row((-1, 0, 0, -1), dev))
+    tiles = torch.zeros((0, 4), dtype=torch.long, device=dev)
+    if spmv:
+        n_tiles = nnz // S + 1
+        # Tile t: the rows whose first nonzero lies in [t S, (t + 1) S);
+        # the last bound, past every row's start, is nrows.
+        bounds = torch.searchsorted(
+            ip[:-1], torch.arange(n_tiles + 1, device=dev) * S)
+        first, end = bounds[:-1], bounds[1:]
+        # A row longer than S can only be its tile's last row.
+        last = (end - 1).clamp(min=0)
+        long_last = (end > first) & (ip[end] - ip[last] > S)
+        end = end - long_last.long()
+        tiles = torch.stack([first, end, ip[first], ip[end]], 1)
+    counts = torch.zeros(plan.slots, dtype=torch.int32, device=dev)
+    return CsrPlan(chunks, tiles, counts, S, nrows, nnz)
 
 
 def _indptr_of_rows(rows, nrows):
@@ -294,6 +390,15 @@ class SparseDeviceMatrix:
         dense = torch.zeros(self.shape, dtype=data.dtype, device=data.device)
         return dense.index_put_((rows.long(), indices.long()), data,
                                 accumulate=True)
+
+    def csr_plan(self, transpose=False, spmv=False):
+        """K2's ``CsrPlan`` (K3's with ``spmv``) of
+        ``csr_arrays(transpose)``, built once on the device and cached."""
+        def build():
+            indptr, indices, _ = self.csr_arrays(transpose)
+            return csr_plan(indptr, indices.numel(), spmv)
+
+        return self._cached(("csr_plan", bool(transpose), bool(spmv)), build)
 
     def _cached(self, key, build):
         cache = self.__dict__.setdefault("_layout_cache", {})

@@ -47,14 +47,17 @@ _INT = ctypes.c_int
 # Every pointer and the stream are c_void_p: ctypes would cut a Python
 # int passed as a plain int to 32 bits.
 _PROTOTYPES = {
-    # dtype, itype, indptr, indices, data, b, c0, c, m, n,
-    # alpha_re, alpha_im, beta_re, beta_im, stream
-    "sdt_csr_spmm": (_INT, _INT, _P, _P, _P, _P, _P, _P, _I64, _I64,
+    # dtype, itype, indptr, indices, data, b, c0, c, work, counts, chunks,
+    # n_chunks, m, n, chunk, vec, lanes, split, per_lane, alpha_re,
+    # alpha_im, beta_re, beta_im, stream
+    "sdt_csr_spmm": (_INT, _INT, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64,
+                     _I64, _I64, _I64, _INT, _INT, _INT, _INT,
                      _D, _D, _D, _D, _P),
-    # dtype, itype, indptr, indices, data, x, y0, y, m, lanes,
-    # alpha_re, alpha_im, beta_re, beta_im, stream
-    "sdt_csr_spmv": (_INT, _INT, _P, _P, _P, _P, _P, _P, _I64, _INT,
-                     _D, _D, _D, _D, _P),
+    # dtype, itype, indptr, indices, data, x, y0, y, work, counts, tiles,
+    # n_tiles, chunks, n_chunks, m, tile, alpha_re, alpha_im, beta_re,
+    # beta_im, stream
+    "sdt_csr_spmv": (_INT, _INT, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64,
+                     _P, _I64, _I64, _INT, _D, _D, _D, _D, _P),
     # dtype, itype, indptr, indices, data, b, c0, c, nbrows, bs, n,
     # alpha_re, alpha_im, beta_re, beta_im, stream
     "sdt_bsr_spmm_simt": (_INT, _INT, _P, _P, _P, _P, _P, _P, _I64, _I64,

@@ -1,24 +1,32 @@
 """CSR SpMM (kernel K2) and CSR SpMV (kernel K3).
 
-Each wrapper takes the CSR arrays of op(A) and a dense operand.  On a
-CUDA tensor it launches the hand-written kernel (``csrc/csr_spmm.cu``,
-``csrc/csr_spmv.cu``) or raises; on a CPU tensor it runs the plain
-PyTorch version beside it, which is also what the kernel is checked
-against on the card.  ``<wrapper>.launches`` counts kernel launches.
+Each wrapper takes the CSR arrays of op(A), a dense operand and,
+optionally, the row plan of those arrays (``formats.csr_plan``; the
+containers cache it as ``csr_plan(transpose, spmv)``, and a direct call
+builds one).  On a CUDA tensor it launches the hand-written kernel
+(``csrc/csr_spmm.cu``, ``csrc/csr_spmv.cu``) or raises; on a CPU tensor it
+runs the plain PyTorch version beside it, which is also what the kernel is
+checked against on the card.  ``<wrapper>.launches`` counts calls that
+launched the kernel.
 
 K2 replaces the TPU's CSR SpMM family in ``sparse_dot_tpu/ops/_xla.py``
 (``ell_spmm_binned``, ``ell_spmm``, ``coo_spmm``) and the Pallas probes
 in ``experiments/exp_pallas_gather.py`` and
 ``experiments/exp_pallas_ell_small.py``; K3 replaces ``_xla.ell_spmv``
-and ``_xla.coo_spmv``.  Both kernels are bound by the bytes they gather
-(B's rows, x's elements) at the main path's densities; the notes at the
-top of each ``.cu`` file say how their designs meet that.
+and ``_xla.coo_spmv``.  Both kernels are bound by the bytes they move
+(A's arrays, the gathered rows of B or elements of x, the output) at the
+main path's densities; the notes at the top of each ``.cu`` file say how
+their designs meet that.  K2's lane mapping is chosen on the host from n,
+the value type, the alignment of the pointers and the mean row length
+(``spmm_schedule``), with no device read.
 """
+
+from typing import NamedTuple
 
 import torch
 
 from ..config import config
-from ..formats import expand_indptr
+from ..formats import SPMV_TILE, csr_plan, expand_indptr
 from . import _build
 from .dense import axpby
 
@@ -38,6 +46,23 @@ def _check(name, index_tensors, value_tensors, optional=()):
     values = [*value_tensors, *(t for t in optional if t is not None)]
     if any(t.dtype != values[0].dtype for t in values):
         raise TypeError(f"{name}: value dtypes differ")
+
+
+def _row_plan(name, plan, indptr, nnz, spmv):
+    """``plan``, or the plan of these arrays when None; raises when it was
+    built for other arrays or for the other kernel."""
+    if plan is None:
+        return csr_plan(indptr, nnz, spmv)
+    m = indptr.numel() - 1
+    if ((plan.nrows, plan.nnz) != (m, nnz) or bool(plan.tiles.numel()) != spmv
+            or plan.chunks.device != indptr.device):
+        raise ValueError(f"{name}: the row plan is for other arrays")
+    return plan
+
+
+def _chunk_args(plan):
+    """(counts, chunks, n_chunks) of the plan for the C interface."""
+    return plan.counts.data_ptr(), plan.chunks.data_ptr(), plan.slots
 
 
 # ---------------------------------------------------------------------------
@@ -64,10 +89,50 @@ def csr_spmm_plain(indptr, indices, data, b, alpha=None, beta=None, c0=None):
     return axpby(c, alpha, beta, c0)
 
 
-def csr_spmm(indptr, indices, data, b, alpha=None, beta=None, c0=None):
+class SpmmSchedule(NamedTuple):
+    """K2's lane mapping.  A lane reads ``vec`` adjacent columns of a B
+    row in one 16-byte load (1 column, a scalar load, off the vector
+    path); ``lanes`` lanes cover ``per_lane`` such loads each of a row's
+    strip of ``lanes * per_lane * vec`` columns, and ``strips`` strips
+    cover n; ``split`` groups of ``lanes`` lanes share a row, each taking
+    every ``split``-th nonzero, and add their sums with shuffles at the
+    end.  A warp holds 32 // (lanes * split) rows."""
+
+    vec: int
+    lanes: int
+    split: int
+    per_lane: int
+    strips: int
+
+
+def spmm_schedule(n, dtype, mean_row, aligned=True):
+    """The ``SpmmSchedule`` for n columns of ``dtype`` and rows of
+    ``mean_row`` nonzeros on average.  The 16-byte path needs rows of B,
+    C0 and C that are whole 16-byte units (n * itemsize % 16 == 0) and
+    ``aligned`` pointers; a row takes the power of two of lanes at or
+    above the loads it needs, at most 32, and a lane up to two loads; the
+    lanes left in the warp split the nonzeros of long rows (about 4 or
+    more per lane) or else hold more rows."""
+    itemsize = dtype.itemsize
+    vec = 16 // itemsize if aligned and (n * itemsize) % 16 == 0 else 1
+    loads = -(-n // vec)
+    lanes = 1
+    while lanes < min(loads, 32):
+        lanes *= 2
+    per_lane = 2 if loads > lanes else 1
+    strips = -(-n // (lanes * per_lane * vec))
+    split = 1
+    while split * 2 <= min(32 // lanes, mean_row / 4):
+        split *= 2
+    return SpmmSchedule(vec, lanes, split, per_lane, strips)
+
+
+def csr_spmm(indptr, indices, data, b, alpha=None, beta=None, c0=None,
+             plan=None):
     """``alpha * A @ b + beta * c0`` for CSR A (``indptr`` of m + 1,
     ``indices``, ``data``) and row-major ``b`` of (k, n); ``c0`` is (m, n)
-    or None.  Returns a new (m, n) tensor."""
+    or None.  ``plan`` is ``formats.csr_plan`` of these arrays (K2's);
+    built here when None.  Returns a new (m, n) tensor."""
     if b.device.type == "cpu":
         return csr_spmm_plain(indptr, indices, data, b, alpha, beta, c0)
     if not b.is_cuda:
@@ -79,11 +144,22 @@ def csr_spmm(indptr, indices, data, b, alpha=None, beta=None, c0=None):
     c = torch.empty((m, n), dtype=b.dtype, device=b.device)
     if m == 0 or n == 0:
         return c
+    nnz = indices.numel()
+    plan = _row_plan("csr_spmm", plan, indptr, nnz, spmv=False)
+    aligned = all(t.data_ptr() % 16 == 0
+                  for t in (b, c, c0) if t is not None)
+    s = spmm_schedule(n, b.dtype, nnz / m, aligned)
+    counts, chunks, n_chunks = _chunk_args(plan)
+    # Partial rows of the chunks of split rows; untouched when none is.
+    work = (torch.empty((plan.slots, n), dtype=b.dtype, device=b.device)
+            if n_chunks else None)
     dt, it = _build.type_codes(data, indptr)
     _build.launch(
         "sdt_csr_spmm", dt, it, indptr.data_ptr(), indices.data_ptr(),
         data.data_ptr(), b.data_ptr(),
-        None if c0 is None else c0.data_ptr(), c.data_ptr(), m, n,
+        None if c0 is None else c0.data_ptr(), c.data_ptr(),
+        None if work is None else work.data_ptr(), counts, chunks, n_chunks,
+        m, n, plan.chunk, s.vec, s.lanes, s.split, s.per_lane,
         *_build.scalar_parts(alpha),
         *_build.scalar_parts(0.0 if c0 is None else beta),
         _build.stream_of(b),
@@ -111,19 +187,12 @@ def csr_spmv_plain(indptr, indices, data, x, alpha=None, beta=None, y0=None):
     return axpby(y, alpha, beta, y0)
 
 
-def spmv_lanes(m, nnz):
-    """Lanes per row for K3: the power of two in [4, 32] nearest above
-    the mean row length."""
-    mean = nnz / max(m, 1)
-    lanes = 4
-    while lanes < 32 and lanes < mean:
-        lanes *= 2
-    return lanes
-
-
-def csr_spmv(indptr, indices, data, x, alpha=None, beta=None, y0=None):
+def csr_spmv(indptr, indices, data, x, alpha=None, beta=None, y0=None,
+             plan=None):
     """``alpha * A @ x + beta * y0`` for CSR A and 1-d ``x`` of (k,);
-    ``y0`` is (m,) or None.  Returns a new (m,) tensor."""
+    ``y0`` is (m,) or None.  ``plan`` is ``formats.csr_plan(..., spmv=True)``
+    of these arrays (K3's tiles); built here when None.  Returns a new
+    (m,) tensor."""
     if x.device.type == "cpu":
         return csr_spmv_plain(indptr, indices, data, x, alpha, beta, y0)
     if not x.is_cuda:
@@ -135,12 +204,19 @@ def csr_spmv(indptr, indices, data, x, alpha=None, beta=None, y0=None):
     y = torch.empty((m,), dtype=x.dtype, device=x.device)
     if m == 0:
         return y
+    plan = _row_plan("csr_spmv", plan, indptr, indices.numel(), spmv=True)
+    counts, chunks, n_chunks = _chunk_args(plan)
+    # One partial sum per chunk of a split row.
+    work = (torch.empty(plan.slots, dtype=x.dtype, device=x.device)
+            if n_chunks else None)
     dt, it = _build.type_codes(data, indptr)
     _build.launch(
         "sdt_csr_spmv", dt, it, indptr.data_ptr(), indices.data_ptr(),
         data.data_ptr(), x.data_ptr(),
-        None if y0 is None else y0.data_ptr(), y.data_ptr(), m,
-        spmv_lanes(m, indices.numel()),
+        None if y0 is None else y0.data_ptr(), y.data_ptr(),
+        None if work is None else work.data_ptr(), counts,
+        plan.tiles.data_ptr(), plan.tiles.shape[0], chunks, n_chunks, m,
+        SPMV_TILE,
         *_build.scalar_parts(alpha),
         *_build.scalar_parts(0.0 if y0 is None else beta),
         _build.stream_of(x),

@@ -12,8 +12,8 @@ There is one path per operation.  Complex values run natively (no planar
 decomposition), f64 runs as IEEE f64 (no hi|lo range gates), and each
 format has one route: CSR and CSC go to K2 (``ops.csr.csr_spmm``), BSR to
 K1 (``ops.bsr.bsr_spmm``), SpMV of any format to K3
-(``ops.csr.csr_spmv``), each on the layout of op(A) that the container
-builds once (``formats``).  The TPU's measured crossovers between ELL,
+(``ops.csr.csr_spmv``), each on the layout of op(A) and the kernel's
+row plan that the container builds once and caches (``formats``).  The TPU's measured crossovers between ELL,
 densify+matmul and scatter routes are not carried over.  Sparse x sparse
 has one route per output kind: sparse output on K4 + K5, dense output on
 K6 (``ops.spgemm``), both on the CSR arrays of op(A) and op(B); the JAX
@@ -33,13 +33,15 @@ def _spmm_pass(A, b, transpose, alpha=None, beta=None, c0=None):
     if isinstance(A, formats.BSR):
         return bsr.bsr_spmm(*A.bsr_arrays(transpose), b, alpha, beta, c0,
                             plan=A.bsr_plan(transpose))
-    return csr.csr_spmm(*A.csr_arrays(transpose), b, alpha, beta, c0)
+    return csr.csr_spmm(*A.csr_arrays(transpose), b, alpha, beta, c0,
+                        plan=A.csr_plan(transpose))
 
 
 def _spmv_pass(A, x, transpose, alpha=None, beta=None, c0=None):
     """``alpha * op(A) @ x + beta * c0`` on the device (the port of
     ``host._real_spmv``)."""
-    return csr.csr_spmv(*A.csr_arrays(transpose), x, alpha, beta, c0)
+    return csr.csr_spmv(*A.csr_arrays(transpose), x, alpha, beta, c0,
+                        plan=A.csr_plan(transpose, spmv=True))
 
 
 def _bilinear_host(A, b_np, one_pass, out_dtype, alpha=1.0, out=None,

@@ -55,21 +55,32 @@ class ConvergenceWarning(UserWarning):
 class CsrOperator:
     """An operator as CSR arrays on the device, float64 values:
     ``op(v)`` runs K3, ``op.mm(V)`` K2, and ``op.residual(b, x)`` is
-    ``b - op(x)`` in the kernel's epilogue (alpha = -1, beta = 1)."""
+    ``b - op(x)`` in the kernel's epilogue (alpha = -1, beta = 1).  Each
+    kernel's row plan (``formats.csr_plan``) is built on its first use and
+    kept for the solve."""
 
     def __init__(self, indptr, indices, data):
         self.arrays = (indptr, indices, data.to(torch.float64))
+        self._plans = {}
+
+    def plan(self, spmv):
+        if spmv not in self._plans:
+            self._plans[spmv] = formats.csr_plan(
+                self.arrays[0], self.arrays[1].numel(), spmv)
+        return self._plans[spmv]
 
     def __call__(self, v):
-        return csr.csr_spmv(*self.arrays, v)
+        return csr.csr_spmv(*self.arrays, v, plan=self.plan(True))
 
     def mm(self, v):
-        return csr.csr_spmm(*self.arrays, v)
+        return csr.csr_spmm(*self.arrays, v, plan=self.plan(False))
 
     def residual(self, b, x):
         if x.dim() == 1:
-            return csr.csr_spmv(*self.arrays, x, -1.0, 1.0, b)
-        return csr.csr_spmm(*self.arrays, x, -1.0, 1.0, b)
+            return csr.csr_spmv(*self.arrays, x, -1.0, 1.0, b,
+                                plan=self.plan(True))
+        return csr.csr_spmm(*self.arrays, x, -1.0, 1.0, b,
+                            plan=self.plan(False))
 
 
 def container_operator(A, n, symmetric=False):

@@ -26,8 +26,20 @@ from sparse_dot_tpu.ops import _xla
 from sparse_dot_tpu.ops.pallas_bsr import bsr_spmm_pallas
 
 from sparse_dot_tpu_torch import formats
+from sparse_dot_tpu_torch.config import config
 from sparse_dot_tpu_torch.formats import bsr_chunk_plan
 from sparse_dot_tpu_torch.ops import bsr
+
+
+@pytest.fixture(autouse=True)
+def on_the_cpu():
+    """The port runs on the card unless asked otherwise; these tests ask
+    for the CPU, where its wrappers take their plain versions."""
+    saved = config.device
+    config.device = "cpu"
+    yield
+    config.device = saved
+
 
 TOL = {np.dtype(np.float32): 1e-5, np.dtype(np.float64): 1e-12}
 

@@ -26,6 +26,17 @@ from sparse_dot_tpu_torch import formats
 from sparse_dot_tpu_torch.config import config
 from sparse_dot_tpu_torch.ops import bsr, csr
 
+
+@pytest.fixture(autouse=True)
+def on_the_cpu():
+    """The port runs on the card unless asked otherwise; these tests ask
+    for the CPU, where its wrappers take their plain versions."""
+    saved = config.device
+    config.device = "cpu"
+    yield
+    config.device = saved
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DTYPES = [np.float32, np.float64, np.complex64, np.complex128]
 FORMATS = ["csr", "csc", "bsr"]
@@ -365,6 +376,41 @@ def test_cuda_without_card_raises(monkeypatch, a, b):
         sdtt.dot_product(a(), b())
     assert launches == (csr.csr_spmm.launches, csr.csr_spmv.launches,
                         bsr.bsr_spmm.launches)
+
+
+def _without_card(code):
+    """Run ``code`` in a fresh interpreter that sees no CUDA device."""
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                   check=True, timeout=120)
+
+
+def test_default_device_is_the_card():
+    """Importing needs no card, and the default device is "cuda"."""
+    _without_card(
+        "import torch, sparse_dot_tpu_torch; "
+        "from sparse_dot_tpu_torch.config import config; "
+        "assert not torch.cuda.is_available(); "
+        "assert config.device == 'cuda', config.device"
+    )
+
+
+def test_default_device_without_card_raises_before_launching():
+    """With the default device and no card, ``dot_product`` on scipy
+    operands raises and launches nothing: no fallback to the CPU."""
+    _without_card(
+        "import numpy as np, scipy.sparse as sps, sparse_dot_tpu_torch as s\n"
+        "from sparse_dot_tpu_torch.ops import bsr, csr\n"
+        "a = sps.random(30, 20, density=0.2, format='csr', random_state=1)\n"
+        "try:\n"
+        "    s.dot_product(a, np.ones((20, 3)))\n"
+        "except RuntimeError as e:\n"
+        "    assert 'no CUDA device' in str(e), e\n"
+        "else:\n"
+        "    raise AssertionError('dot_product ran without a card')\n"
+        "assert (csr.csr_spmm.launches, csr.csr_spmv.launches,\n"
+        "        bsr.bsr_spmm.launches) == (0, 0, 0)\n"
+    )
 
 
 def test_config_device_validated():

@@ -27,6 +27,17 @@ from sparse_dot_tpu.ops.pallas_bsr import bsr_spmm_pallas
 from sparse_dot_tpu_torch.config import config
 from sparse_dot_tpu_torch.ops import _build, bsr, csr, dense
 
+
+@pytest.fixture(autouse=True)
+def on_the_cpu():
+    """The port runs on the card unless asked otherwise; these tests ask
+    for the CPU, where its wrappers take their plain versions."""
+    saved = config.device
+    config.device = "cpu"
+    yield
+    config.device = saved
+
+
 DTYPES = [np.float32, np.float64, np.complex64, np.complex128]
 TOL = {
     np.dtype(np.float32): 1e-5,
@@ -260,14 +271,6 @@ def test_csr_spmv_plain_matches_ell_spmv(dtype):
     port = csr.csr_spmv(t(indptr), t(indices), t(data), t(x), 0.5, 3.0,
                         t(y0))
     assert_close(port, ref, dtype)
-
-
-@pytest.mark.parametrize("m, nnz, lanes", [
-    (100, 0, 4), (100, 300, 4), (100, 500, 8), (100, 1000, 16),
-    (100, 1600, 16), (100, 1601, 32), (100, 10**5, 32), (0, 0, 4),
-])
-def test_spmv_lanes(m, nnz, lanes):
-    assert csr.spmv_lanes(m, nnz) == lanes
 
 
 # ---------------------------------------------------------------------------

@@ -31,6 +31,7 @@ import pytest
 import sparse_dot_tpu
 import sparse_dot_tpu_torch
 from sparse_dot_tpu_torch import formats as port_formats
+from sparse_dot_tpu_torch.config import config as port_config
 
 from . import (
     test_dense_dense,
@@ -39,6 +40,16 @@ from . import (
     test_sparse_sparse,
     test_sparse_vector,
 )
+
+
+@pytest.fixture(autouse=True)
+def on_the_cpu():
+    """The port runs on the card unless asked otherwise; these tests ask
+    for the CPU, where its wrappers take their plain versions."""
+    saved = port_config.device
+    port_config.device = "cpu"
+    yield
+    port_config.device = saved
 
 
 def on_port(module, name):

@@ -72,6 +72,16 @@ from . import (  # noqa: E402
 )
 
 
+@pytest.fixture(autouse=True)
+def on_the_cpu():
+    """The port runs on the card unless asked otherwise; these tests ask
+    for the CPU, where its wrappers take their plain versions."""
+    saved = port_config.device
+    port_config.device = "cpu"
+    yield
+    port_config.device = saved
+
+
 @contextlib.contextmanager
 def _item(mapping, key, value):
     """``mapping[key]`` set to ``value`` for the block, and only that key

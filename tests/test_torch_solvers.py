@@ -30,6 +30,17 @@ from sparse_dot_tpu_torch.solvers import export_factorization as pt_export
 from sparse_dot_tpu_torch.solvers import import_factorization as pt_import
 from sparse_dot_tpu_torch.solvers import qr as pt_qr
 
+
+@pytest.fixture(autouse=True)
+def on_the_cpu():
+    """The port runs on the card unless asked otherwise; these tests ask
+    for the CPU, where its wrappers take their plain versions."""
+    saved = pt_config.device
+    pt_config.device = "cpu"
+    yield
+    pt_config.device = saved
+
+
 RTOL = 1e-9
 PACKAGES = {"jax": jx, "port": pt}
 
