@@ -26,13 +26,19 @@ Phases, each printing one JSON line:
    block row at least 3x the chunk length (split and summed; run twice,
    same bits), f32 values log-uniform over 1e-3..1e3 (plain TF32 would
    fail) and inf in A and B; each call's variant is checked by the
-   per-variant launch counts.  K4 + K5 (sparse x sparse, count then
-   fill) against the plain expand-sort-compress with equal counts,
-   indptr and indices, and K6 (dense output) against its plain version,
-   with and without ``triangular``, each run twice for the same bits, in
-   shapes that put rows in every accumulator bin (hash tables of a warp
-   and of a block, a dense row in shared memory, and in the device
-   workspace);
+   per-variant launch counts.  K2 and K3 on complex values with inf in A
+   and in B against scipy (the same inf/nan parts).  K4 + K5 (sparse x
+   sparse, count then fill) against the plain expand-sort-compress with
+   equal counts, indptr and indices, and K6 (dense output) against its
+   plain version, with and without ``triangular``, each run twice for the
+   same bits (K4 + K5's second run with the plan built in K4's launch,
+   equal to ``spgemm_plan``'s), in shapes that put rows in every
+   accumulator bin (the register bins of 4, 8, 16 and 32 lanes, hash
+   tables of a warp and of a block, a dense row in shared memory, and in
+   the device workspace): narrow n, runs of one column, exactly cancelled
+   sums, op(A) rows longer than a group over empty op(B) rows, and n on
+   either side of 2^27, where the register bins' sort keys widen to 64
+   bits;
 3. the main path, ``dot_product`` with scipy/numpy operands at real
    sizes, against the scipy oracle at the reference's decimal=6 (f64)
    and decimal=5 (f32), with each kernel's launch count checked (the
@@ -54,9 +60,11 @@ Phases, each printing one JSON line:
    function (cuSPARSE through ``torch.sparse.mm``, ``torch.addmm`` or
    ``A_csr @ x``; ``library`` names it, or the error with which torch
    refused it), timed the same way and never called by the port; for K1
-   also TFLOP/s and the stored blocks per block row; for K4, K5, K4 + K5
-   as one product and K6 also products per second; and the wall time of
-   ``dot_product(X, X.T)`` beside scipy's;
+   also TFLOP/s and the stored blocks per block row; for K4 (with the
+   plan given, and building it in its launch), K5, K4 + K5 as one
+   product and K6 also products per second; the product's steps at cases
+   a and c (``csr_spgemm``'s marks: device and host ms of each); and the
+   wall time of ``dot_product(X, X.T)`` beside scipy's;
 5. the solver path, with the counts set to 0 again and the plain versions
    of K1-K6 made to raise, each result checked against scipy/numpy on the
    host: the handle protocol on the demo X (create, convert from CSC,
@@ -83,8 +91,11 @@ row's times, bound and library time, and the launches of each path) and,
 last, ``{"ok": true, "device": {...}}``.  With ``CHIP_SMOKE_LOG`` set to a path,
 every JSON line also goes to that file.  Any failure is an uncaught exception
 and a non-zero exit; without a CUDA device it exits 2 before any work.
+``--only spgemm`` runs the sparse x sparse parts of phases 1-4 and prints
+no result lines.
 """
 
+import argparse
 import importlib
 import json
 import os
@@ -256,7 +267,9 @@ def random_bsr(rng, nbrows, nbcols, bs, blocks_per_row, dtype,
     return indptr, indices, data
 
 
-def check_kernels():
+def check_kernels(spgemm_only=False):
+    """Phase 2; with ``spgemm_only`` K4-K6 and the complex inf case of K2
+    and K3 alone."""
     rng = np.random.default_rng(SEED)
     results = {name: {"cases": 0, "max_abs_err": 0.0} for name in KERNELS}
     bins_seen = set()
@@ -268,16 +281,17 @@ def check_kernels():
     schedules = set()
     for tdt, npdt in NP_DTYPES.items():
         for itype in (np.int32, np.int64):
-            check_csr(rng, tdt, npdt, itype, record, schedules)
-            check_k1(rng, tdt, npdt, itype, record)
+            if not spgemm_only:
+                check_csr(rng, tdt, npdt, itype, record, schedules)
+                check_k1(rng, tdt, npdt, itype, record)
             check_spgemm(rng, tdt, npdt, itype, record, bins_seen)
-    check_k1_special(rng, record)
-    from sparse_dot_tpu_torch.ops import spgemm
-    wanted = {spgemm.HASH_WARP, spgemm.HASH_BLOCK, spgemm.DENSE_SHARED,
-              spgemm.DENSE_GLOBAL}
-    if bins_seen != wanted:
-        raise AssertionError(f"K4/K5 bins exercised {bins_seen}, want "
-                             f"{wanted}")
+    if not spgemm_only:
+        check_k1_special(rng, record)
+    check_csr_special(rng, record)
+    check_bins_seen(bins_seen)
+    if spgemm_only:
+        emit(2, kernels=results, spgemm_bins=sorted(bins_seen))
+        return results
     if {vec > 1 for vec, _ in schedules} != {True, False}:
         raise AssertionError(f"K2 ran only {schedules} (vec, lanes)")
     emit(2, kernels=results, spgemm_bins=sorted(bins_seen),
@@ -444,27 +458,107 @@ def check_k1_special(rng, record):
         record(variant, compare(out[fin], ref[fin], tdt))
 
 
-# K4/K5/K6 cases: (m rows of op(A), k, n, entries per row of op(B)).  The
-# rows of op(A) take 0, 1, 3, 10, 40, 150 and 600 entries in turn, so with
-# 20 per row of op(B) their products are 0, 20, 60, 200, 800, 3000 and
-# 12000: at n = 100,000 that puts rows in every hash bin and, past the
-# largest table, in the device workspace; at n = 5000 in the warp hash
-# bins and the dense row in shared memory; at n = 300 in the dense row
-# alone (ops/spgemm.py, spgemm_bins).
-SPGEMM_CASES = ((42, 2000, 100_000, 20), (42, 2000, 5000, 20),
-                (42, 2000, 300, 20), (30, 50, 60, 0))
+def same_nonfinite(name, out, ref):
+    """``out`` (a tensor on the card) against scipy's ``ref``: the same
+    nan, +inf and -inf in every real and imaginary part; returns the mask
+    of the finite entries."""
+    got = torch.view_as_real(out).cpu().numpy()
+    want = ref.view(ref.real.dtype).reshape(got.shape)
+    for what in (np.isnan, np.isposinf, np.isneginf):
+        if not np.array_equal(what(got), what(want)):
+            raise AssertionError(f"{name}: {what.__name__} differs from "
+                                 f"scipy")
+    if not np.isinf(want).any():
+        raise AssertionError(f"{name}: no inf reached the output")
+    return np.isfinite(ref)
+
+
+def check_csr_special(rng, record):
+    """Complex K2 and K3 with inf in B (x) and in A, against scipy: the
+    same inf/nan parts (a product (2+0j)(inf+0j) is inf+nanj, and stays so
+    through the sum and the alpha = 1 epilogue), finite values within
+    tolerance.  First ROADMAP's 2 x 2 input, then a random matrix."""
+    from sparse_dot_tpu_torch.ops import csr
+
+    for tdt in (torch.complex64, torch.complex128):
+        npdt = NP_DTYPES[tdt]
+        small = (np.array([0, 1, 2]), np.array([0, 1]),
+                 np.array([2, 1], dtype=npdt))
+        b_small = np.array([[np.inf, 1], [1, 1]], dtype=npdt)
+        indptr, indices, data = random_csr(rng, 64, 48, 4, npdt)
+        data[7] = np.inf
+        b = values(rng, (48, 24), npdt)
+        b[5, 3] = np.inf
+        b[20, 7] = complex(0.0, -np.inf)
+        for (ip, ix, dv), bb in ((small, b_small), ((indptr, indices, data),
+                                                    b)):
+            a = sps.csr_matrix((dv, ix, ip), shape=(len(ip) - 1, bb.shape[0]))
+            args = (cuda(ip.astype(np.int32)), cuda(ix.astype(np.int32)),
+                    cuda(dv))
+            for name, out, ref in (
+                    ("K2_csr_spmm", csr.csr_spmm(*args, cuda(bb)), a @ bb),
+                    ("K3_csr_spmv", csr.csr_spmv(*args, cuda(bb[:, 0])),
+                     a @ bb[:, 0])):
+                fin = same_nonfinite(f"{name} {tdt} inf", out, ref)
+                record(name, compare(out[cuda(fin)], cuda(ref[fin]), tdt))
+
+
+# K4/K5/K6 cases: (m rows of op(A), k, n, entries of the rows of op(A) in
+# turn, entries of the rows of op(B) in turn, small integer values).  In
+# the first four, rows of op(A) take 0, 1, 3, 10, 40, 150 and 600 entries,
+# so with 20 per row of op(B) their products are 0, 20, 60, 200, 800, 3000
+# and 12000: at n = 100,000 that puts rows in the register bin of 32
+# lanes, every hash bin and, past the largest table, the device
+# workspace; at n = 5000 in the register bin, the warp hash bin and the
+# dense row in shared memory; at n = 300 in the register bin and the
+# dense row.  The next three put rows of 1..32 products in every register
+# bin (ops/spgemm.py, spgemm_bins) at n = 1, 8 and 16: long runs of one
+# column, rows with more products than n, and (n = 1) values in
+# {-1, 0, 1, 2}, whose sums are exact and often cancel to a stored 0.  The
+# eighth has op(A) rows of up to 100 entries, longer than any group, over
+# mostly empty op(B) rows, so the groups walk them in chunks.  The last two
+# hold op(B)'s columns in the top 64 below n = 2^27 and 2^27 - 1 (the
+# seventh field: the lowest column of op(B)), with rows of 1..32 products:
+# the register bins sort 64-bit keys at the first n and 32-bit keys, whose
+# column bits are then full, at the second (csrc/csr_spgemm.cu,
+# kNarrowKeyColumns).  K6 runs where its dense output holds at most
+# K6_MAX_ENTRIES.
 SPGEMM_A_ROWS = (0, 1, 3, 10, 40, 150, 600)
+WIDE_KEY_N = 1 << 27
+K6_MAX_ENTRIES = 1 << 24
+SPGEMM_CASES = (
+    (42, 2000, 100_000, SPGEMM_A_ROWS, (20,), False, 0),
+    (42, 2000, 5000, SPGEMM_A_ROWS, (20,), False, 0),
+    (42, 2000, 300, SPGEMM_A_ROWS, (20,), False, 0),
+    (30, 50, 60, SPGEMM_A_ROWS, (0,), False, 0),
+    (70, 200, 1, (1, 2, 3, 4, 5, 7, 8, 9, 13, 16, 17, 25, 31, 32), (1,),
+     True, 0),
+    (70, 300, 8, (1, 2, 3, 5, 8, 0, 12), (0, 1, 2, 3, 4, 6, 8), False, 0),
+    (70, 300, 16, (1, 2, 4, 6, 9), (1, 2, 3, 5, 8), False, 0),
+    (48, 3000, 100_000, (100, 40, 64, 3, 97), (0,) * 29 + (1, 2), False,
+     0),
+    (48, 300, WIDE_KEY_N, (1, 2, 3, 5, 8, 0), (0, 1, 2, 4), False,
+     WIDE_KEY_N - 64),
+    (48, 300, WIDE_KEY_N - 1, (1, 2, 3, 5, 8, 0), (0, 1, 2, 4), False,
+     WIDE_KEY_N - 65),
+)
 
 
-def distinct_rows(rng, lengths, width, dtype, index_dtype, zeros=0.0):
+def distinct_rows(rng, lengths, width, dtype, index_dtype, zeros=0.0,
+                  exact=False, low=0):
     """CSR arrays whose rows hold ``lengths`` distinct, shuffled columns
-    below ``width``; a share ``zeros`` of the values are explicit 0."""
-    cols = [rng.choice(width, size=min(int(n), width), replace=False)
+    in [low, width); a share ``zeros`` of the values are explicit 0; with
+    ``exact`` the values are drawn from {-1, 0, 1, 2}."""
+    cols = [low + rng.choice(width - low, size=min(int(n), width - low),
+                             replace=False)
             for n in lengths]
     indptr = np.concatenate([[0], np.cumsum([len(c) for c in cols])])
     indices = (np.concatenate(cols) if cols else np.zeros(0)).astype(
         index_dtype)
-    data = values(rng, len(indices), dtype, 0.3)
+    if exact:
+        data = rng.choice([-1.0, 0.0, 1.0, 2.0], len(indices)).astype(dtype)
+    else:
+        data = values(rng, len(indices), dtype, 0.3)
     data[rng.random(len(data)) < zeros] = 0
     return indptr.astype(index_dtype), indices, data
 
@@ -481,31 +575,50 @@ class no_host_sync:
         return False
 
 
-def spgemm_call(plan_fn, *args):
+def spgemm_call(plan_fn, *args, on_card=False):
     """The plan, K4, the running sum and K5 through their wrappers, each
     kernel checked to launch once and all but the nnz read checked not to
-    wait for the card: (counts, indptr, indices, data)."""
+    wait for the card: (plan, counts, indptr, indices, data).  With
+    ``on_card`` K4 builds the plan in its launch (``plan_and_count``, as
+    ``csr_spgemm`` runs it) and K5 is given the bin sizes, read with nnz;
+    else the plan is ``plan_fn()``'s and K5 reads the bin sizes itself."""
     from sparse_dot_tpu_torch.ops import spgemm
 
     a_ip, a_ix, a_dv, b_ip, b_ix, b_dv, n, tri = args
     before = (spgemm.csr_spgemm_count.launches,
               spgemm.csr_spgemm_fill.launches)
     with no_host_sync():
-        plan = plan_fn()
-        counts = spgemm.csr_spgemm_count(a_ip, a_ix, b_ip, b_ix, n, plan,
-                                         tri)
+        if on_card:
+            plan, counts = spgemm.plan_and_count(a_ip, a_ix, b_ip, b_ix, n,
+                                                 a_dv.dtype, tri)
+        else:
+            plan = plan_fn()
+            counts = spgemm.csr_spgemm_count(a_ip, a_ix, b_ip, b_ix, n,
+                                             plan, tri)
         indptr = torch.zeros(len(counts) + 1, dtype=torch.long,
                              device="cuda")
         torch.cumsum(counts, 0, out=indptr[1:])
     nnz = int(indptr[-1])
     indptr = indptr.to(a_ip.dtype)
+    sizes = plan.offsets.diff().tolist() if on_card else None
     indices, data = spgemm.csr_spgemm_fill(a_ip, a_ix, a_dv, b_ip, b_ix, b_dv,
-                                           n, plan, indptr, nnz, tri)
+                                           n, plan, indptr, nnz, tri, sizes)
     launched = (spgemm.csr_spgemm_count.launches - before[0],
                 spgemm.csr_spgemm_fill.launches - before[1])
     if launched != (1, int(nnz > 0)):
         raise AssertionError(f"K4/K5 launched {launched} times")
-    return counts, indptr, indices, data
+    return plan, counts, indptr, indices, data
+
+
+def check_bins_seen(bins_seen):
+    """Every kind of K4/K5 row bin held rows in some phase-2 case."""
+    from sparse_dot_tpu_torch.ops import spgemm
+
+    wanted = {*spgemm.TINY_KINDS.values(), spgemm.HASH_WARP,
+              spgemm.HASH_BLOCK, spgemm.DENSE_SHARED, spgemm.DENSE_GLOBAL}
+    if bins_seen != wanted:
+        raise AssertionError(f"K4/K5 bins exercised {bins_seen}, want "
+                             f"{wanted}")
 
 
 def check_spgemm(rng, tdt, npdt, itype, record, bins_seen):
@@ -516,12 +629,11 @@ def check_spgemm(rng, tdt, npdt, itype, record, bins_seen):
     rows."""
     from sparse_dot_tpu_torch.ops import spgemm
 
-    for m, k, n, b_len in SPGEMM_CASES:
-        a_len = [SPGEMM_A_ROWS[i % len(SPGEMM_A_ROWS)] for i in range(m)]
-        if b_len == 0:  # no stored entry in op(B): nnz == 0
-            a_len = [min(x, k) for x in a_len]
-        a = distinct_rows(rng, a_len, k, npdt, itype, zeros=0.05)
-        b = distinct_rows(rng, [b_len] * k, n, npdt, itype, zeros=0.05)
+    for m, k, n, a_rows, b_rows, exact, b_low in SPGEMM_CASES:
+        a_len = [a_rows[i % len(a_rows)] for i in range(m)]
+        b_len = [b_rows[i % len(b_rows)] for i in range(k)]
+        a = distinct_rows(rng, a_len, k, npdt, itype, 0.05, exact)
+        b = distinct_rows(rng, b_len, n, npdt, itype, 0.05, exact, b_low)
         a_ip, a_ix, a_dv = map(cuda, a)
         b_ip, b_ix, b_dv = map(cuda, b)
 
@@ -530,11 +642,14 @@ def check_spgemm(rng, tdt, npdt, itype, record, bins_seen):
 
         p = plan()
         sizes = p.offsets.diff().cpu().numpy()
-        bins_seen.update(int(kind) for kind, size in zip(p.bins[:, 0], sizes)
-                         if size and kind != spgemm.SKIP)
+        held = {int(kind) for kind, size in zip(p.bins[:, 0], sizes)
+                if size and kind != spgemm.SKIP}
+        if b_low and not held <= set(spgemm.TINY_KINDS.values()):
+            raise AssertionError(f"K4/K5 n={n}: rows past the register bins")
+        bins_seen.update(held)
         for tri in (False, True):
             args = (a_ip, a_ix, a_dv, b_ip, b_ix, b_dv, n, tri)
-            counts, indptr, indices, data = spgemm_call(plan, *args)
+            _, counts, indptr, indices, data = spgemm_call(plan, *args)
             ref = spgemm.spgemm_plain(*args)
             torch.cuda.synchronize()
             if not (torch.equal(counts, ref[0].long().diff())
@@ -544,10 +659,16 @@ def check_spgemm(rng, tdt, npdt, itype, record, bins_seen):
             err = compare(data, ref[2], tdt)
             record("K4_csr_spgemm_count", 0.0)
             record("K5_csr_spgemm_fill", err)
-            again = spgemm_call(plan, *args)
+            again = spgemm_call(plan, *args, on_card=True)
             if not all(torch.equal(x, y) for x, y in
-                       zip(again, (counts, indptr, indices, data))):
+                       zip(again[0][:3], p[:3])):
+                raise AssertionError(f"K4 {tdt} n={n}: the plan built on "
+                                     f"the card differs from spgemm_plan's")
+            if not all(torch.equal(x, y) for x, y in
+                       zip(again[1:], (counts, indptr, indices, data))):
                 raise AssertionError(f"K4/K5 {tdt} n={n}: runs differ")
+            if m * n > K6_MAX_ENTRIES:
+                continue
             c0 = cuda(values(rng, (m, n), npdt))
             for alpha, beta, cc in ((None, None, None), (2.0, -0.5, c0)):
                 kargs = (*args[:7], alpha, beta, cc, tri)
@@ -1134,6 +1255,51 @@ def timings(inputs, solver_inp):
 REPS_CONFIG3 = 5
 
 
+def product_steps(args, reps=REPS):
+    """The steps of ``csr_spgemm`` at one case (``spgemm.PRODUCT_STEPS``:
+    the plan and K4 in one launch, the counts' running sum, the nnz read,
+    which is the one host sync, and K5 with its wrapper), marked by its
+    ``marks`` hook: per
+    step the device span between CUDA events recorded as each step ends
+    (K5's includes its wrapper's host time, for the card is idle after the
+    sync) and the host clock; median (p10, p90) of ``reps``, each after a
+    1 GiB read (L2 evicted; the card busy while the plan is issued).  The
+    result is checked against a call without marks."""
+    from sparse_dot_tpu_torch.ops import spgemm
+
+    names = spgemm.PRODUCT_STEPS
+    flush = torch.ones(256 << 20, dtype=torch.float32, device="cuda")
+    device = {name: [] for name in names + ("total",)}
+    host = {name: [] for name in names + ("total",)}
+    for _ in range(reps + 1):  # the first is a warm-up
+        flush.sum()
+        events, clock, seen = [], [], []
+
+        def mark(step):
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+            clock.append(time.perf_counter())
+            seen.append(step)
+
+        mark("start")
+        out = spgemm.csr_spgemm(*args, marks=mark)
+        events[-1].synchronize()
+        if tuple(seen[1:]) != names:
+            raise AssertionError(f"csr_spgemm marked {seen[1:]}")
+        for s, name in enumerate(names):
+            device[name].append(events[s].elapsed_time(events[s + 1]))
+            host[name].append((clock[s + 1] - clock[s]) * 1e3)
+        device["total"].append(events[0].elapsed_time(events[-1]))
+        host["total"].append((clock[-1] - clock[0]) * 1e3)
+    whole = spgemm.csr_spgemm(*args)
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(whole, out)):
+        raise AssertionError("the marked product differs")
+    return {"device_ms": {k: spread(v[1:]) for k, v in device.items()},
+            "host_ms": {k: spread(v[1:]) for k, v in host.items()},
+            "reps": reps}
+
+
 def spgemm_timings(inp):
     """K4 (count), K5 (fill) and K4 + K5 as one product (plan, count,
     running sum, the nnz read, fill) against their plain versions, at
@@ -1144,7 +1310,7 @@ def spgemm_timings(inp):
     from sparse_dot_tpu_torch import formats
     from sparse_dot_tpu_torch.ops import spgemm
 
-    rows = []
+    rows, steps = [], {}
     x = inp["x"]
     shapes = {
         "a": ("demo X @ X.T, X 500x5000 CSR 21.2% f64", x, x.T, REPS),
@@ -1166,6 +1332,8 @@ def spgemm_timings(inp):
                 and torch.equal(whole[1], ref[1])):
             raise AssertionError(f"case {case}: K4/K5 pattern differs")
         nnz = int(whole[0][-1])
+        # K5 as csr_spgemm launches it: the bin sizes read with nnz.
+        sizes = plan.offsets.diff().tolist()
         # Bytes: A's arrays, the rows of B that A names (each once), and
         # the output; FLOPs: one multiply-add per product.  K4 counts with
         # integer work only, so bytes bound it.
@@ -1182,6 +1350,8 @@ def spgemm_timings(inp):
                       + nnz * (ix.element_size() + dv.element_size()))
         bounds = {
             "K4_csr_spgemm_count": bound(
+                nbytes(ip, ix) + b_index + ip.numel() * 8, 0, peak),
+            "K4 with its plan": bound(
                 nbytes(ip, ix) + b_index + ip.numel() * 8, 0, peak),
             "K5_csr_spgemm_fill": bound(
                 nbytes(ip, ix, dv) + b_moved + out_sparse, flop, peak),
@@ -1202,8 +1372,15 @@ def spgemm_timings(inp):
             ("K4_csr_spgemm_count",
              lambda: spgemm.csr_spgemm_count(ip, ix, bip, bix, n, plan),
              lambda: spgemm.csr_spgemm_count_plain(ip, ix, bip, bix, n)),
+            # K4 as csr_spgemm launches it: the plan built in its launch;
+            # beside it, the torch plan and K4's plain version.
+            ("K4 with its plan",
+             lambda: spgemm.plan_and_count(ip, ix, bip, bix, n, dv.dtype)[1],
+             lambda: (spgemm.spgemm_plan(ip, ix, bip, n, dv.dtype, ip.dtype),
+                      spgemm.csr_spgemm_count_plain(ip, ix, bip, bix, n))[1]),
             ("K5_csr_spgemm_fill",
-             lambda: spgemm.csr_spgemm_fill(*args, plan, whole[0], nnz)[1],
+             lambda: spgemm.csr_spgemm_fill(*args, plan, whole[0], nnz,
+                                            bin_sizes=sizes)[1],
              lambda: spgemm.csr_spgemm_fill_plain(*args)[1]),
             ("K4+K5 product",
              lambda: spgemm.csr_spgemm(*args)[2],
@@ -1223,6 +1400,8 @@ def spgemm_timings(inp):
             row.update(gproducts_per_s=products / row["ms"] / 1e6,
                        plain_gproducts_per_s=products / row["plain_ms"] / 1e6)
             rows.append(row)
+        if case in ("a", "c"):
+            steps[case] = {"shape": shape, "steps": product_steps(args)}
         del A, B, args, plan, whole, ref
         torch.cuda.empty_cache()
 
@@ -1237,6 +1416,10 @@ def spgemm_timings(inp):
         name: spread(t) for name, t in wall.items()},
         timer="cuda events, median (p10, p90), 1 GiB read before each; "
               "wall: host clock, median (p10, p90) of 5")
+    emit("4-spgemm-steps", cases=steps,
+         timer="device: cuda events after each step; host: host clock "
+               "around each step; median (p10, p90), 1 GiB read before "
+               "each product")
     return rows
 
 
@@ -1590,6 +1773,12 @@ def solver_timings(records, rows):
 
 
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument(
+        "--only", choices=("spgemm",),
+        help="a short run that ends with no result line: phases 1, 2 (K4-K6 "
+             "and K2/K3's complex inf case), 3 and 4 of sparse x sparse")
+    only = parser.parse_args().only
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         sys.exit(2)
@@ -1612,6 +1801,10 @@ def main():
          build_and_load_seconds=time.perf_counter() - t0,
          library_hash=_build.source_hash())
 
+    if only == "spgemm":
+        check_kernels(spgemm_only=True)
+        spgemm_timings(spgemm_path()[1])
+        return
     check_kernels()
     by_path = {}
     by_path["dot_product"], inputs = main_path()

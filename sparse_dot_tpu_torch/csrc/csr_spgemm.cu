@@ -15,13 +15,24 @@
 // m x n or (number of products) is ever written to device memory.
 //
 // Bound: each product costs one read of op(B)'s (column, value) and one
-// accumulator update in shared memory, and every entry of op(A) ends in a
-// synchronisation of the threads that share the row; rows are bound by
-// that latency, not by bytes.  The row bins of ops/spgemm.py
-// (spgemm_bins) choose, per row, by min(ub, n) with ub the row's number
-// of products:
-//   - kHashWarp: one warp per row, 8 per block, a hash table of 64, 256
-//     or 1024 slots in shared memory (load at most 1/2);
+// accumulator update, and every entry of op(A) ends in a synchronisation
+// of the threads that share the row; rows are bound by that latency, not
+// by bytes.  The row bins of ops/spgemm.py (spgemm_bins) choose, per row,
+// by ub, the row's number of products:
+//   - kTiny4, kTiny8, kTiny16, kTiny32 (1 <= ub <= G for the group width
+//     G): a group of G lanes of a warp, 32 / G rows a warp, each lane one
+//     product, in registers (no shared memory, no atomics).  The lanes
+//     scan the op(B) row lengths of the row's op(A) entries (G entries at
+//     a time, carrying the prefix), find their product by a binary search
+//     over shuffles, sort (column, product index) keys with a bitonic
+//     network of __shfl_xor_sync, and let the first lane of each column
+//     count it (K4) or fold its run in order and write it (K5).  The four
+//     widths run in one launch.  Rows of few products, as in a random
+//     1M x 1M A @ A, are bound by the chain of about five dependent loads
+//     (row id, op(A)'s indptr and entry, op(B)'s indptr and column), so
+//     this path keeps many rows in flight and does nothing else;
+//   - kHashWarp: one warp per row, 8 per block, a hash table of 256 or
+//     1024 slots in shared memory (load at most 1/2);
 //   - kHashBlock: one 256-thread block per row, a table of 4096 slots or
 //     the largest that 200 KB hold (8192 or 16384);
 //   - kDenseShared: one block per row, a dense row of width n (values and
@@ -32,14 +43,19 @@
 //     for rows too long for a hash table when n is too wide for shared
 //     memory.
 // Each bin is one launch of a persistent grid that walks the bin's rows
-// (read from the device), so the host never waits for the bin sizes.
+// (read from the device), so K4 never waits for the bin sizes; K5 runs
+// after the output's size was read, and its wrapper, which reads the bin
+// sizes with it, marks the empty bins kSkip and bounds each grid by its
+// bin's rows.
 //
 // Determinism: a row's entries of op(A) are walked one after another;
 // the threads of the row split op(B)'s row k, whose columns are distinct,
 // so no two threads touch one accumulator slot within a step, and a sync
 // ends each step.  Only a hash table's key insertion needs atomicCAS.
-// Every value is thus summed in op(A)'s stored order with no float
-// atomics: the same bits on every run.
+// The register path sorts on (column, product index), so a column's
+// products stay in op(A)'s stored order, and folds them with the same
+// fma from zero.  Every value is thus summed in op(A)'s stored order with
+// no float atomics: the same bits on every run, and on either path.
 #include <type_traits>
 
 #include "common.cuh"
@@ -54,6 +70,10 @@ enum BinKind : int64_t {
   kHashBlock = 2,
   kDenseShared = 3,
   kDenseGlobal = 4,
+  kTiny4 = 5,
+  kTiny8 = 6,
+  kTiny16 = 7,
+  kTiny32 = 8,
 };
 enum Mode : int { kHash = 0, kDense = 1 };
 constexpr int kThreads = 256;
@@ -283,41 +303,449 @@ spgemm_rows_kernel(Args<T, I> args, int bin, int64_t slots,
   }
 }
 
+// A store that L2 may evict first: the output streams past the inputs,
+// whose random gathers want L2 to keep them.
+template <typename T>
+__device__ __forceinline__ void store_streaming(T* p, T v) {
+  if constexpr (std::is_same_v<T, c64>) {
+    __stcs(reinterpret_cast<float2*>(p), make_float2(v.real(), v.imag()));
+  } else if constexpr (std::is_same_v<T, c128>) {
+    __stcs(reinterpret_cast<double2*>(p), make_double2(v.real(), v.imag()));
+  } else if constexpr (std::is_integral_v<T> && sizeof(T) == 8) {
+    __stcs(reinterpret_cast<long long*>(p), static_cast<long long>(v));
+  } else {
+    __stcs(p, v);
+  }
+}
+
+// The register path.  A key is (column << 5) | product index, of 32 bits
+// when n < 2^27 (fewer shuffles), else of 64; an empty lane (no product,
+// or a column below the diagonal with `triangular`) holds all ones, which
+// sorts last.
+constexpr int64_t kNarrowKeyColumns = int64_t(1) << 27;
+
+// The bits of a warp's ballot that belong to the group of lane wl.
+template <int G>
+__device__ __forceinline__ unsigned group_bits(int wl) {
+  if constexpr (G == 32) {
+    return kFullMask;
+  } else {
+    return ((1u << G) - 1u) << (wl & ~(G - 1));
+  }
+}
+
+// The rows of bin `bin` (at most G products each), 32 / G a warp at a
+// time.  Every lane of the warp runs every loop to the same count (rows
+// past the bin's end take part with no product), as the shuffles need.
+template <typename T, typename I, typename K, int G, bool FILL>
+__device__ __forceinline__ void tiny_bin(const Args<T, I>& args, int bin,
+                                         int64_t warp, int64_t nwarps) {
+  constexpr int kRows = 32 / G;
+  constexpr K kNoKey = ~K(0);
+  const int wl = threadIdx.x & 31;
+  const int lane = wl & (G - 1);
+  const int64_t r_end = args.offsets[bin + 1];
+  const int64_t step_rows = nwarps * kRows;
+  int64_t base = args.offsets[bin] + warp * kRows;
+  // The next row id is loaded one round ahead.
+  int64_t i_next = base + wl / G < r_end ? args.rows[base + wl / G] : 0;
+  for (; base < r_end; base += step_rows) {
+    const int64_t r = base + wl / G;
+    const bool valid = r < r_end;
+    const int64_t i = i_next;
+    if (r + step_rows < r_end) i_next = args.rows[r + step_rows];
+    const int64_t p0 = valid ? static_cast<int64_t>(args.a_indptr[i]) : 0;
+    const int64_t p1 = valid ? static_cast<int64_t>(args.a_indptr[i + 1])
+                             : 0;
+    int64_t c0 = 0;
+    if constexpr (FILL) c0 = valid ? static_cast<int64_t>(args.c_indptr[i]) : 0;
+
+    // Lane t takes the row's product t (t < ub <= G): the op(A) entries
+    // are read G at a time (a row may hold many entries over empty op(B)
+    // rows), their op(B) row lengths scanned, and the lane's entry found
+    // by a binary search of the exclusive scan through shuffles.
+    int64_t q = -1;  // the op(B) entry of the lane's product
+    int64_t pa = 0;  // and its op(A) entry
+    int carry = 0;   // products of the entries before this chunk
+    for (int64_t c = p0; __any_sync(kFullMask, c < p1); c += G) {
+      const int64_t p = c + lane;
+      I start = 0;
+      int len = 0;
+      if (p < p1) {
+        const int64_t k = args.a_indices[p];
+        start = args.b_indptr[k];
+        len = static_cast<int>(args.b_indptr[k + 1] - start);
+      }
+      int incl = len;
+#pragma unroll
+      for (int d = 1; d < G; d <<= 1) {
+        const int y = __shfl_up_sync(kFullMask, incl, d, G);
+        if (lane >= d) incl += y;
+      }
+      const int excl = incl - len;
+      const int total = __shfl_sync(kFullMask, incl, G - 1, G);
+      const int t = lane - carry;
+      // The last entry whose products start at or before t holds it.
+      int s = 0;
+#pragma unroll
+      for (int step = G / 2; step > 0; step >>= 1) {
+        if (__shfl_sync(kFullMask, excl, s + step, G) <= t) s += step;
+      }
+      const int64_t qs =
+          static_cast<int64_t>(__shfl_sync(kFullMask, start, s, G)) + t -
+          __shfl_sync(kFullMask, excl, s, G);
+      if (t >= 0 && t < total) {
+        q = qs;
+        pa = c + s;
+      }
+      carry += total;
+    }
+
+    K key = kNoKey;
+    T av = Arith<T>::zero(), bv = Arith<T>::zero();
+    if (q >= 0) {
+      const int64_t j = args.b_indices[q];
+      if (!args.triangular || j >= i) {
+        key = (static_cast<K>(j) << 5) | static_cast<K>(lane);
+      }
+      if constexpr (FILL) {
+        av = args.a_data[pa];
+        bv = args.b_data[q];
+      }
+    }
+
+    // Bitonic sort of the group's keys, ascending.
+#pragma unroll
+    for (int size = 2; size <= G; size <<= 1) {
+#pragma unroll
+      for (int stride = size >> 1; stride > 0; stride >>= 1) {
+        const K other = __shfl_xor_sync(kFullMask, key, stride, G);
+        const bool keep_min = ((lane & stride) == 0) == ((lane & size) == 0);
+        key = keep_min ? (other < key ? other : key)
+                       : (other > key ? other : key);
+      }
+    }
+    const bool live = key != kNoKey;
+    const K prev = __shfl_up_sync(kFullMask, key, 1, G);
+    const bool head = live && (lane == 0 || (prev >> 5) != (key >> 5));
+    const unsigned group = group_bits<G>(wl);
+    const unsigned heads = __ballot_sync(kFullMask, head) & group;
+    if constexpr (!FILL) {
+      if (valid && lane == 0) {
+        store_streaming(args.counts + i, static_cast<int64_t>(__popc(heads)));
+      }
+    } else {
+      // Each lane takes the pair of the product its key names; a head
+      // folds its column's run (up to the next head, or the last live
+      // lane: empty keys sort last) in product order, from zero.
+      const int src = static_cast<int>(key & 31);
+      const T a = Arith<T>::shfl(av, src, G);
+      const T b = Arith<T>::shfl(bv, src, G);
+      const unsigned lives = __ballot_sync(kFullMask, live) & group;
+      const unsigned above = heads & ~((2u << wl) - 1u);
+      const int end = above ? __ffs(above) - 1
+                            : (wl & ~(G - 1)) + __popc(lives);
+      const int run = head ? end - wl : 0;
+      T acc = Arith<T>::fma(a, b, Arith<T>::zero());
+      for (int d = 1; __any_sync(kFullMask, d < run); ++d) {
+        const T an = Arith<T>::shfl(a, lane + d, G);
+        const T bn = Arith<T>::shfl(b, lane + d, G);
+        if (d < run) acc = Arith<T>::fma(an, bn, acc);
+      }
+      if (head) {
+        const int64_t pos = c0 + __popc(heads & ((1u << wl) - 1u));
+        store_streaming(args.c_indices + pos, static_cast<I>(key >> 5));
+        store_streaming(args.c_data + pos, acc);
+      }
+    }
+  }
+}
+
+// The four register bins, bin .. bin + 3 (G = 4, 8, 16, 32), in one
+// persistent launch: every warp walks its share of each bin in turn.
+// Latency bounds it, so registers are capped for many warps an SM: 6
+// blocks of 8 for K4, 5 for K5 (at 6 it spills), 4 for complex double's
+// wider values.
+template <typename T, typename I, typename K, bool FILL>
+__global__ void __launch_bounds__(kThreads,
+                                  FILL ? (sizeof(T) > 8 ? 4 : 5) : 6)
+spgemm_tiny_kernel(Args<T, I> args, int bin) {
+  const int64_t warp =
+      (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
+  const int64_t nwarps = static_cast<int64_t>(gridDim.x) * (kThreads / 32);
+  tiny_bin<T, I, K, 4, FILL>(args, bin, warp, nwarps);
+  tiny_bin<T, I, K, 8, FILL>(args, bin + 1, warp, nwarps);
+  tiny_bin<T, I, K, 16, FILL>(args, bin + 2, warp, nwarps);
+  tiny_bin<T, I, K, 32, FILL>(args, bin + 3, warp, nwarps);
+}
+
+// Resident blocks an SM of `device` holds of `kernel` with `shared` bytes
+// of dynamic shared memory, remembered per (kernel, device, size), so the
+// runtime is asked once.  The kernel's dynamic shared memory limit is
+// only ever raised (to `shared`): it is a ceiling, and lowered to a small
+// row's size it would refuse a size asked for before.
+template <typename Kernel>
+cudaError_t blocks_per_sm(Kernel kernel, size_t shared, int device,
+                          int* per_sm) {
+  struct Seen {
+    const void* kernel;
+    int device;
+    size_t shared;
+    int blocks;
+  };
+  constexpr int kSeen = 32;
+  thread_local Seen seen[kSeen] = {};
+  thread_local int next = 0;
+  const void* key = reinterpret_cast<const void*>(kernel);
+  for (const Seen& e : seen) {
+    if (e.kernel == key && e.device == device && e.shared == shared) {
+      *per_sm = e.blocks;
+      return cudaSuccess;
+    }
+  }
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  if (shared > static_cast<size_t>(attr.maxDynamicSharedSizeBytes)) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(shared));
+    if (err != cudaSuccess) return err;
+  }
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel,
+                                                      kThreads, shared);
+  if (err != cudaSuccess) return err;
+  if (*per_sm < 1) return cudaErrorInvalidConfiguration;
+  seen[next] = Seen{key, device, shared, *per_sm};
+  next = (next + 1) % kSeen;
+  return cudaSuccess;
+}
+
+// A persistent grid for `rows` rows, `per_block` a block at once.
+inline int64_t grid_for(int64_t rows, int64_t per_block, int per_sm,
+                        int sms) {
+  const int64_t wanted = (rows + per_block - 1) / per_block;
+  const int64_t resident = static_cast<int64_t>(per_sm) * sms;
+  const int64_t grid = wanted < resident ? wanted : resident;
+  return grid < 1 ? 1 : grid;
+}
+
+template <typename T, typename I, typename K, bool FILL>
+cudaError_t launch_tiny(const Args<T, I>& args, int bin, int64_t rows,
+                        int device, int sms, cudaStream_t stream) {
+  auto kernel = spgemm_tiny_kernel<T, I, K, FILL>;
+  int per_sm = 0;
+  cudaError_t err = blocks_per_sm(kernel, 0, device, &per_sm);
+  if (err != cudaSuccess) return err;
+  // A block holds at least 8 rows at once (G = 32).
+  const int64_t grid = grid_for(rows, kThreads / 32, per_sm, sms);
+  kernel<<<static_cast<unsigned>(grid), kThreads, 0, stream>>>(args, bin);
+  return cudaGetLastError();
+}
+
 template <typename T, typename I, int MODE, int G, bool FILL>
 cudaError_t launch_bin(const Args<T, I>& args, int bin, int64_t slots,
-                       int64_t m, unsigned char* work, int64_t work_groups,
-                       int sms, cudaStream_t stream) {
+                       int64_t rows, unsigned char* work, int64_t work_groups,
+                       int device, int sms, cudaStream_t stream) {
   auto kernel = spgemm_rows_kernel<T, I, MODE, G, FILL>;
   constexpr int kGroups = kThreads / G;
-  int64_t grid = work_groups;
+  int64_t grid = work_groups < 1 ? 1 : work_groups;
   size_t shared = 0;
   if (work == nullptr) {
     shared = static_cast<size_t>(region_bytes<T, I, MODE, FILL>(slots)) *
              kGroups;
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(shared));
-    if (err != cudaSuccess) return err;
     int per_sm = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kThreads, shared);
+    const cudaError_t err = blocks_per_sm(kernel, shared, device, &per_sm);
     if (err != cudaSuccess) return err;
-    if (per_sm < 1) return cudaErrorInvalidConfiguration;
-    const int64_t wanted = (m + kGroups - 1) / kGroups;
-    const int64_t resident = static_cast<int64_t>(per_sm) * sms;
-    grid = wanted < resident ? wanted : resident;
+    grid = grid_for(rows, kGroups, per_sm, sms);
   }
-  if (grid < 1) grid = 1;
   kernel<<<static_cast<unsigned>(grid), kThreads, shared, stream>>>(
       args, bin, slots, work);
   return cudaGetLastError();
 }
 
-// Launches every bin of `bins` ((kind, slots, u_max) rows, host memory).
+// The plan on the card (ops/spgemm.spgemm_plan's, built in K4's launch):
+// ub per row, each row's bin (the first whose u_max >= ub), and the row
+// ids grouped by bin, ascending within a bin (a stable partition), with
+// the bins' offsets.  Three kernels over tiles of `tile_rows` rows, L
+// lanes a row (the host picks L and the tile from the mean op(A) row, so
+// a tile holds about 2048 entries whatever the rows): ub and the rows per
+// bin of each tile, one block's scan of those, and the scatter.  No
+// atomics but integer adds in shared memory: the same plan on every run.
+constexpr int kMaxBins = 16;
+
+struct Thresholds {
+  int64_t u_max[kMaxBins];  // of every bin but the last
+  int nbins;
+};
+
+__device__ __forceinline__ int bin_of(const Thresholds& th, int64_t u) {
+  int b = 0;
+  while (b < th.nbins - 1 && u > th.u_max[b]) ++b;
+  return b;
+}
+
+// ub of each row of a tile (its L lanes add the op(B) row lengths of its
+// op(A) entries, then shuffle-add; a group of L lanes takes every
+// (256 / L)-th row of the tile), and the tile's rows per bin, stored
+// bin-major: tile_bins[b * tiles + tile].
+template <typename I>
+__global__ void __launch_bounds__(kThreads)
+plan_count_kernel(const I* a_indptr, const I* a_indices, const I* b_indptr,
+                  int64_t m, int lanes, int tile_rows, Thresholds th,
+                  int64_t* ub, int64_t* tile_bins) {
+  __shared__ int s_bins[kMaxBins];
+  const int t = threadIdx.x;
+  if (t < kMaxBins) s_bins[t] = 0;
+  __syncthreads();
+  const int groups = kThreads / lanes;
+  const int lane = t & (lanes - 1);
+  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * tile_rows;
+  // tile_rows is a multiple of groups: every warp loops alike.
+  for (int x = t / lanes; x < tile_rows; x += groups) {
+    const int64_t r = r0 + x;
+    int64_t sum = 0;
+    if (r < m) {
+      const int64_t p1 = a_indptr[r + 1];
+      for (int64_t p = a_indptr[r] + lane; p < p1; p += lanes) {
+        const int64_t k = a_indices[p];
+        sum += static_cast<int64_t>(b_indptr[k + 1] - b_indptr[k]);
+      }
+    }
+    for (int d = lanes >> 1; d > 0; d >>= 1) {
+      sum += __shfl_xor_sync(kFullMask, sum, d, lanes);
+    }
+    if (r < m && lane == 0) {
+      ub[r] = sum;
+      atomicAdd(&s_bins[bin_of(th, sum)], 1);
+    }
+  }
+  __syncthreads();
+  if (t < th.nbins) tile_bins[t * gridDim.x + blockIdx.x] = s_bins[t];
+}
+
+// One block: each bin's rows per tile become the tile's first position
+// in `rows` (in place), bin by bin, tile by tile; offsets[b] is bin b's
+// first position and offsets[nbins] = m.  A thread takes a run of tiles,
+// so a bin is one scan over the block.
+__global__ void __launch_bounds__(1024)
+plan_scan_kernel(int64_t* tile_bins, int64_t tiles, int nbins,
+                 int64_t* offsets) {
+  __shared__ int64_t s_warp[32];
+  const int t = threadIdx.x, wl = t & 31, w = t >> 5;
+  const int64_t per = (tiles + 1023) / 1024;
+  const int64_t j0 = t * per < tiles ? t * per : tiles;
+  const int64_t j1 = j0 + per < tiles ? j0 + per : tiles;
+  int64_t start = 0;  // rows in the bins before b
+  for (int b = 0; b < nbins; ++b) {
+    int64_t* bin = tile_bins + b * tiles;
+    int64_t mine = 0;
+    for (int64_t j = j0; j < j1; ++j) mine += bin[j];
+    int64_t x = mine;  // inclusive scan over the block
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int64_t y = __shfl_up_sync(kFullMask, x, d);
+      if (wl >= d) x += y;
+    }
+    if (wl == 31) s_warp[w] = x;
+    __syncthreads();
+    if (w == 0) {
+      int64_t v = s_warp[wl];
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int64_t y = __shfl_up_sync(kFullMask, v, d);
+        if (wl >= d) v += y;
+      }
+      s_warp[wl] = v;
+    }
+    __syncthreads();
+    int64_t pos = start + (w > 0 ? s_warp[w - 1] : 0) + x - mine;
+    for (int64_t j = j0; j < j1; ++j) {
+      const int64_t c = bin[j];
+      bin[j] = pos;
+      pos += c;
+    }
+    if (t == 0) offsets[b] = start;
+    start += s_warp[31];
+    __syncthreads();  // s_warp is reused by the next bin
+  }
+  if (t == 0) offsets[nbins] = start;
+}
+
+// Each row's id at its tile's first position in its bin, plus the rows of
+// the same bin before it in the tile (rows in order): a block a tile, a
+// thread a row, 256 rows a round.
+__global__ void __launch_bounds__(kThreads)
+plan_scatter_kernel(const int64_t* ub, int64_t m, int tile_rows,
+                    Thresholds th, const int64_t* tile_bins, int64_t* rows) {
+  __shared__ int s_warp[kThreads / 32][kMaxBins + 1];
+  __shared__ int64_t s_done[kMaxBins];  // rows of the bin in past rounds
+  const int t = threadIdx.x, wl = t & 31, w = t >> 5;
+  if (t < kMaxBins) s_done[t] = 0;
+  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * tile_rows;
+  for (int x0 = 0; x0 < tile_rows; x0 += kThreads) {
+    const int64_t r = r0 + x0 + t;
+    const bool valid = x0 + t < tile_rows && r < m;
+    const int bin = valid ? bin_of(th, ub[r]) : kMaxBins;
+    const unsigned same = __match_any_sync(kFullMask, bin);
+    const int rank = __popc(same & ((1u << wl) - 1u));
+    for (int x = wl; x <= kMaxBins; x += 32) s_warp[w][x] = 0;
+    __syncwarp();
+    if (rank == 0) s_warp[w][bin] = __popc(same);
+    __syncthreads();
+    if (valid) {
+      int64_t pos = tile_bins[bin * static_cast<int64_t>(gridDim.x) +
+                              blockIdx.x] + s_done[bin] + rank;
+      for (int v = 0; v < w; ++v) pos += s_warp[v][bin];
+      rows[pos] = r;
+    }
+    __syncthreads();
+    if (t < th.nbins) {
+      int round = 0;
+      for (int v = 0; v < kThreads / 32; ++v) round += s_warp[v][t];
+      s_done[t] += round;
+    }
+    __syncthreads();
+  }
+}
+
+// `lanes`: a power of two from 1 to 32; `tile_rows`: a multiple of
+// 256 / lanes; tile_bins holds nbins * ceil(m / tile_rows) int64.
+template <typename I>
+cudaError_t build_plan(const I* a_indptr, const I* a_indices,
+                       const I* b_indptr, int64_t m, int lanes,
+                       int tile_rows, const int64_t* u_max, int nbins,
+                       int64_t* ub, int64_t* rows, int64_t* offsets,
+                       int64_t* tile_bins, cudaStream_t stream) {
+  if (nbins < 1 || nbins > kMaxBins || lanes < 1 || lanes > 32 ||
+      (lanes & (lanes - 1)) != 0 || tile_rows < 1 ||
+      tile_rows % (kThreads / lanes) != 0) {
+    return cudaErrorInvalidValue;
+  }
+  Thresholds th{};
+  th.nbins = nbins;
+  for (int b = 0; b + 1 < nbins; ++b) th.u_max[b] = u_max[b];
+  const int64_t tiles = (m + tile_rows - 1) / tile_rows;
+  if (tiles > 0) {
+    plan_count_kernel<I><<<static_cast<unsigned>(tiles), kThreads, 0,
+                           stream>>>(a_indptr, a_indices, b_indptr, m, lanes,
+                                     tile_rows, th, ub, tile_bins);
+  }
+  plan_scan_kernel<<<1, 1024, 0, stream>>>(tile_bins, tiles, nbins, offsets);
+  if (tiles > 0) {
+    plan_scatter_kernel<<<static_cast<unsigned>(tiles), kThreads, 0,
+                          stream>>>(ub, m, tile_rows, th, tile_bins, rows);
+  }
+  return cudaGetLastError();
+}
+
+// Launches every bin of `bins` ((kind, slots, rows) rows in host memory;
+// rows bounds the bin's rows, to size its grid: m where it is not known).
+// A bin whose kind is kSkip launches nothing.
 template <typename T, typename I, bool FILL>
 cudaError_t launch_bins(const Args<T, I>& args, const int64_t* bins,
-                        int nbins, int64_t m, unsigned char* work,
-                        int64_t work_groups, cudaStream_t stream) {
+                        int nbins, unsigned char* work, int64_t work_groups,
+                        cudaStream_t stream) {
   int device = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
@@ -326,26 +754,53 @@ cudaError_t launch_bins(const Args<T, I>& args, const int64_t* bins,
   for (int b = 0; b < nbins; ++b) {
     const int64_t kind = bins[3 * b];
     const int64_t slots = bins[3 * b + 1];
+    const int64_t rows = bins[3 * b + 2];
     switch (kind) {
       case kSkip:
         err = cudaSuccess;
         break;
+      case kTiny4: {  // launches kTiny4 .. kTiny32, which must follow it
+        int64_t most = rows;
+        for (int t = 1; t < 4; ++t) {
+          if (b + t >= nbins || bins[3 * (b + t)] != kTiny4 + t) {
+            return cudaErrorInvalidValue;
+          }
+          const int64_t r = bins[3 * (b + t) + 2];
+          most = r > most ? r : most;
+        }
+        if (args.n < kNarrowKeyColumns) {
+          err = launch_tiny<T, I, uint32_t, FILL>(args, b, most, device, sms,
+                                                  stream);
+        } else {
+          err = launch_tiny<T, I, uint64_t, FILL>(args, b, most, device, sms,
+                                                  stream);
+        }
+        break;
+      }
+      case kTiny8:
+      case kTiny16:
+      case kTiny32:  // in kTiny4's launch
+        if (b < 1 || bins[3 * (b - 1)] != kind - 1) {
+          return cudaErrorInvalidValue;
+        }
+        err = cudaSuccess;
+        break;
       case kHashWarp:
-        err = launch_bin<T, I, kHash, 32, FILL>(args, b, slots, m, nullptr,
-                                                0, sms, stream);
+        err = launch_bin<T, I, kHash, 32, FILL>(args, b, slots, rows, nullptr,
+                                                0, device, sms, stream);
         break;
       case kHashBlock:
-        err = launch_bin<T, I, kHash, kThreads, FILL>(args, b, slots, m,
-                                                      nullptr, 0, sms, stream);
+        err = launch_bin<T, I, kHash, kThreads, FILL>(
+            args, b, slots, rows, nullptr, 0, device, sms, stream);
         break;
       case kDenseShared:
         err = launch_bin<T, I, kDense, kThreads, FILL>(
-            args, b, slots, m, nullptr, 0, sms, stream);
+            args, b, slots, rows, nullptr, 0, device, sms, stream);
         break;
       case kDenseGlobal:
         if (work == nullptr || work_groups < 1) return cudaErrorInvalidValue;
         err = launch_bin<T, I, kDense, kThreads, FILL>(
-            args, b, slots, m, work, work_groups, sms, stream);
+            args, b, slots, rows, work, work_groups, device, sms, stream);
         break;
       default:
         return cudaErrorInvalidValue;
@@ -359,9 +814,20 @@ template <typename I>
 cudaError_t count(const void* a_indptr, const void* a_indices,
                   const void* b_indptr, const void* b_indices,
                   const void* rows, const void* offsets, const int64_t* bins,
-                  int nbins, int64_t m, int64_t n, int triangular,
-                  void* counts, void* work, int64_t work_groups,
-                  cudaStream_t stream) {
+                  int nbins, int64_t n, int triangular, void* counts,
+                  void* work, int64_t work_groups, const int64_t* u_max,
+                  int64_t m, int lanes, int tile_rows, void* ub,
+                  void* tile_bins, cudaStream_t stream) {
+  if (u_max != nullptr) {
+    const cudaError_t err = build_plan<I>(
+        static_cast<const I*>(a_indptr), static_cast<const I*>(a_indices),
+        static_cast<const I*>(b_indptr), m, lanes, tile_rows, u_max, nbins,
+        static_cast<int64_t*>(ub),
+        static_cast<int64_t*>(const_cast<void*>(rows)),
+        static_cast<int64_t*>(const_cast<void*>(offsets)),
+        static_cast<int64_t*>(tile_bins), stream);
+    if (err != cudaSuccess) return err;
+  }
   // The count pass reads no values; float stands in for the value type.
   Args<float, I> args{};
   args.a_indptr = static_cast<const I*>(a_indptr);
@@ -373,7 +839,7 @@ cudaError_t count(const void* a_indptr, const void* a_indices,
   args.n = n;
   args.triangular = triangular != 0;
   args.counts = static_cast<int64_t*>(counts);
-  return launch_bins<float, I, false>(args, bins, nbins, m,
+  return launch_bins<float, I, false>(args, bins, nbins,
                                       static_cast<unsigned char*>(work),
                                       work_groups, stream);
 }
@@ -383,7 +849,7 @@ cudaError_t fill(const void* a_indptr, const void* a_indices,
                  const void* a_data, const void* b_indptr,
                  const void* b_indices, const void* b_data, const void* rows,
                  const void* offsets, const int64_t* bins, int nbins,
-                 int64_t m, int64_t n, int triangular, const void* c_indptr,
+                 int64_t n, int triangular, const void* c_indptr,
                  void* c_indices, void* c_data, void* work,
                  int64_t work_groups, cudaStream_t stream) {
   Args<T, I> args{};
@@ -400,7 +866,7 @@ cudaError_t fill(const void* a_indptr, const void* a_indices,
   args.c_indptr = static_cast<const I*>(c_indptr);
   args.c_indices = static_cast<I*>(c_indices);
   args.c_data = static_cast<T*>(c_data);
-  return launch_bins<T, I, true>(args, bins, nbins, m,
+  return launch_bins<T, I, true>(args, bins, nbins,
                                  static_cast<unsigned char*>(work),
                                  work_groups, stream);
 }
@@ -408,25 +874,35 @@ cudaError_t fill(const void* a_indptr, const void* a_indices,
 }  // namespace
 }  // namespace sdt
 
+// With `u_max` (host, the u_max of every bin but the last) K4 first
+// builds the plan: ub (m), rows (m), offsets (nbins + 1), `lanes` lanes a
+// row in tiles of `tile_rows` rows, with `tile_bins` (nbins *
+// ceil(m / tile_rows) int64) as scratch.
 extern "C" int sdt_csr_spgemm_count(int itype, const void* a_indptr,
                                     const void* a_indices,
                                     const void* b_indptr,
                                     const void* b_indices, const void* rows,
                                     const void* offsets, const void* bins,
-                                    int nbins, int64_t m, int64_t n,
-                                    int triangular, void* counts, void* work,
-                                    int64_t work_groups, void* stream) {
+                                    int nbins, int64_t n, int triangular,
+                                    void* counts, void* work,
+                                    int64_t work_groups, const void* u_max,
+                                    int64_t m, int lanes, int tile_rows,
+                                    void* ub, void* tile_bins,
+                                    void* stream) {
   const auto* b = static_cast<const int64_t*>(bins);
+  const auto* u = static_cast<const int64_t*>(u_max);
   const auto s = static_cast<cudaStream_t>(stream);
   switch (itype) {
     case sdt::kI32:
       return sdt::count<int32_t>(a_indptr, a_indices, b_indptr, b_indices,
-                                 rows, offsets, b, nbins, m, n, triangular,
-                                 counts, work, work_groups, s);
+                                 rows, offsets, b, nbins, n, triangular,
+                                 counts, work, work_groups, u, m, lanes,
+                                 tile_rows, ub, tile_bins, s);
     case sdt::kI64:
       return sdt::count<int64_t>(a_indptr, a_indices, b_indptr, b_indices,
-                                 rows, offsets, b, nbins, m, n, triangular,
-                                 counts, work, work_groups, s);
+                                 rows, offsets, b, nbins, n, triangular,
+                                 counts, work, work_groups, u, m, lanes,
+                                 tile_rows, ub, tile_bins, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -436,12 +912,12 @@ extern "C" int sdt_csr_spgemm_fill(
     int dtype, int itype, const void* a_indptr, const void* a_indices,
     const void* a_data, const void* b_indptr, const void* b_indices,
     const void* b_data, const void* rows, const void* offsets,
-    const void* bins, int nbins, int64_t m, int64_t n, int triangular,
+    const void* bins, int nbins, int64_t n, int triangular,
     const void* c_indptr, void* c_indices, void* c_data, void* work,
     int64_t work_groups, void* stream) {
   SDT_DISPATCH(dtype, itype, sdt::fill, a_indptr, a_indices, a_data,
                b_indptr, b_indices, b_data, rows, offsets,
-               static_cast<const int64_t*>(bins), nbins, m, n, triangular,
+               static_cast<const int64_t*>(bins), nbins, n, triangular,
                c_indptr, c_indices, c_data, work, work_groups,
                static_cast<cudaStream_t>(stream))
 }

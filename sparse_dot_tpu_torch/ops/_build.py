@@ -67,16 +67,16 @@ _PROTOTYPES = {
     "sdt_bsr_spmm_tc": (_INT, _INT, _P, _I64, _P, _I64, _P, _P, _P, _P, _P,
                         _P, _I64, _I64, _D, _D, _D, _D, _P),
     # itype, a_indptr, a_indices, b_indptr, b_indices, rows, offsets,
-    # bins (host), nbins, m, n, triangular, counts, work, work_groups,
-    # stream
+    # bins (host), nbins, n, triangular, counts, work, work_groups,
+    # u_max (host, or None), m, lanes, tile_rows, ub, tile_bins, stream
     "sdt_csr_spgemm_count": (_INT, _P, _P, _P, _P, _P, _P, _P, _INT, _I64,
-                             _I64, _INT, _P, _P, _I64, _P),
+                             _INT, _P, _P, _I64, _P, _I64, _INT, _INT, _P,
+                             _P, _P),
     # dtype, itype, a_indptr, a_indices, a_data, b_indptr, b_indices,
-    # b_data, rows, offsets, bins (host), nbins, m, n, triangular,
-    # c_indptr, c_indices, c_data, work, work_groups, stream
+    # b_data, rows, offsets, bins (host), nbins, n, triangular, c_indptr,
+    # c_indices, c_data, work, work_groups, stream
     "sdt_csr_spgemm_fill": (_INT, _INT, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                            _INT, _I64, _I64, _INT, _P, _P, _P, _P, _I64,
-                            _P),
+                            _INT, _I64, _INT, _P, _P, _P, _P, _I64, _P),
     # dtype, itype, a_indptr, a_indices, a_data, b_indptr, b_indices,
     # b_data, c0, c, m, n, alpha_re, alpha_im, beta_re, beta_im,
     # triangular, stream

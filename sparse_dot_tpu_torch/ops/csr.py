@@ -65,6 +65,17 @@ def _chunk_args(plan):
     return plan.counts.data_ptr(), plan.chunks.data_ptr(), plan.slots
 
 
+def _add_rows(out, rows, src):
+    """``out[rows] += src`` row by row.  Complex values are added on their
+    real view: ``index_add_`` on a complex tensor multiplies src by
+    alpha = 1+0j, and (1+0j)(inf+nanj) has a nan real part where scipy
+    keeps inf+nanj."""
+    if out.is_complex():
+        torch.view_as_real(out).index_add_(0, rows, torch.view_as_real(src))
+    else:
+        out.index_add_(0, rows, src)
+
+
 # ---------------------------------------------------------------------------
 # K2: CSR SpMM
 # ---------------------------------------------------------------------------
@@ -85,7 +96,7 @@ def csr_spmm_plain(indptr, indices, data, b, alpha=None, beta=None, c0=None):
         for s in range(0, nnz, chunk):
             e = min(s + chunk, nnz)
             gathered = data[s:e, None] * b[indices[s:e].long()]
-            c.index_add_(0, rows[s:e], gathered)
+            _add_rows(c, rows[s:e], gathered)
     return axpby(c, alpha, beta, c0)
 
 
@@ -183,7 +194,7 @@ def csr_spmv_plain(indptr, indices, data, x, alpha=None, beta=None, y0=None):
     y = torch.zeros((m,), dtype=x.dtype, device=x.device)
     nnz = indices.numel()
     if nnz:
-        y.index_add_(0, expand_indptr(indptr, nnz), data * x[indices.long()])
+        _add_rows(y, expand_indptr(indptr, nnz), data * x[indices.long()])
     return axpby(y, alpha, beta, y0)
 
 

@@ -23,12 +23,14 @@ out in ascending order.  ``triangular=True`` keeps only j >= i.
 
 How a sparse-output product runs on the card:
 
-1. ``spgemm_plan`` (plain torch on the device, no host sync): each row's
-   bound ``ub[i] = sum of nnz(op(B)[k, :]) over op(A)[i, k]``, and a bin
-   for each row by ``min(ub[i], n)`` from the table ``spgemm_bins``,
-   which picks the row's accumulator: a hash table in shared memory for a
-   warp or a block, a dense row of width n in shared memory, or a dense
-   row in a bounded device workspace;
+1. the plan (``spgemm_plan`` in plain torch defines it; on the card K4's
+   launch builds the same arrays, with no host sync): each row's bound
+   ``ub[i] = sum of nnz(op(B)[k, :]) over op(A)[i, k]``, and a bin for
+   each row from the table ``spgemm_bins``, which picks the row's
+   accumulator: for ub <= 32 the registers of a group of 4, 8, 16 or 32
+   lanes (one product a lane), past that by ``min(ub[i], n)`` a hash
+   table in shared memory for a warp or a block, a dense row of width n
+   in shared memory, or a dense row in a bounded device workspace;
 2. K4 writes each row's number of distinct columns;
 3. ``indptr`` is their running sum; reading ``nnz = indptr[-1]`` to size
    the output is the one host sync (the JAX package pays the same one);
@@ -38,6 +40,7 @@ op(B) must not repeat a column within a row (containers hold canonical
 CSR): the kernels let one thread own each column of a B row at a time.
 """
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -46,16 +49,22 @@ import torch
 from ..config import config
 from ..formats import _check_index_bounds, expand_indptr
 from . import _build
-from .csr import _check
+from .csr import _add_rows, _check
 from .dense import axpby
 
 # Kinds of row bins (the codes of csrc/csr_spgemm.cu's BinKind).
-SKIP, HASH_WARP, HASH_BLOCK, DENSE_SHARED, DENSE_GLOBAL = range(5)
+(SKIP, HASH_WARP, HASH_BLOCK, DENSE_SHARED, DENSE_GLOBAL,
+ TINY4, TINY8, TINY16, TINY32) = range(9)
+# The register bins by group width G: rows of 1..G products, one a lane.
+TINY_KINDS = {4: TINY4, 8: TINY8, 16: TINY16, 32: TINY32}
+TINY_MAX = max(TINY_KINDS)
 # Shared memory one thread block of K4/K5 may ask for.
 SHARED_BUDGET = 200 * 1024
 # Hash table sizes (slots): 8 tables per block, one per warp, then one per
-# block up to the largest that SHARED_BUDGET holds.
-WARP_SLOTS = (64, 256, 1024)
+# block up to the largest that SHARED_BUDGET holds.  No table of 64 slots
+# (rows of u <= 32): a row of more than 32 products with u <= 32 has
+# n <= 32, and there the dense row takes it.
+WARP_SLOTS = (256, 1024)
 BLOCK_SLOTS = 4096
 # A row of width n takes the dense accumulator once its hash table would
 # need n / DENSE_RATIO slots or more.
@@ -85,12 +94,21 @@ def max_hash_slots(dtype, index_dtype):
 def spgemm_bins(dtype, index_dtype, n):
     """Row bins of K4/K5 for values of ``dtype``, indices of
     ``index_dtype`` and n output columns: an (nbins, 3) int64 numpy array
-    of (kind, slots, u_max) rows.  A row with u = min(ub, n) goes to the
-    first bin with u <= u_max: u == 0 to SKIP; a hash bin holds rows of up
-    to slots / 2 distinct columns (load at most one half); the last bin
-    (dense, in shared memory when a row of width n fits SHARED_BUDGET,
-    else in the device workspace) takes the rest."""
-    bins = [(SKIP, 0, 0)]
+    of (kind, slots, u_max) rows, u_max ascending.  A row of ub products
+    goes to the first bin with ub <= u_max: ub == 0 to SKIP, 1 <= ub <= 32
+    to the register bin of the smallest width G >= ub (slots = G),
+    whatever n; a hash bin holds rows of up to slots / 2 products (so of
+    distinct columns: load at most one half); the last bin (dense, in
+    shared memory when a row of width n fits SHARED_BUDGET, else in the
+    device workspace) takes the rest.  Past 32 products ub picks the same
+    bin as u = min(ub, n) would: a hash bin is in the table only where n
+    is above its u_max."""
+    return _bins_table(dtype, index_dtype, n).copy()
+
+
+@functools.lru_cache(maxsize=256)
+def _bins_table(dtype, index_dtype, n):
+    bins = [(SKIP, 0, 0)] + [(kind, g, g) for g, kind in TINY_KINDS.items()]
     dense_fits = dense_row_bytes(n, dtype) <= SHARED_BUDGET
     hash_slots = [(HASH_WARP, s) for s in WARP_SLOTS]
     hash_slots += [(HASH_BLOCK, s) for s in
@@ -120,29 +138,42 @@ class SpgemmPlan(NamedTuple):
 
 def row_bounds(a_indptr, a_indices, b_indptr):
     """ub[i] = sum over op(A)[i, k] of nnz(op(B)[k, :]), in int64: a
-    gather of B's row lengths and a segment sum by ``a_indptr``."""
-    b_len = (b_indptr[1:] - b_indptr[:-1]).long()
-    prefix = torch.zeros(a_indices.numel() + 1, dtype=torch.long,
-                         device=a_indices.device)
-    torch.cumsum(b_len[a_indices.long()], 0, out=prefix[1:])
-    ip = a_indptr.long()
-    return prefix[ip[1:]] - prefix[ip[:-1]]
+    gather of B's row lengths, their running sum (int64) and its
+    difference at ``a_indptr``."""
+    prefix = a_indices.new_zeros(a_indices.numel() + 1, dtype=torch.long)
+    torch.cumsum(b_indptr.diff().index_select(0, a_indices), 0,
+                 out=prefix[1:])
+    return prefix.index_select(0, a_indptr).diff()
+
+
+def _thresholds(bins, device):
+    """The bins' u_max but the last (int64) on ``device``; on the card
+    copied from pinned memory, so that ``spgemm_plan`` does not wait for
+    the card: ``chip_smoke.py`` builds it there under the sync-debug mode
+    "error", as the reference for the plan K4 builds in its launch."""
+    u_max = torch.from_numpy(np.ascontiguousarray(bins[:-1, 2]))
+    if device.type == "cuda":
+        return u_max.pin_memory().to(device, non_blocking=True)
+    return u_max
 
 
 def spgemm_plan(a_indptr, a_indices, b_indptr, n, dtype, index_dtype):
-    """The plan of K4/K5 (``SpgemmPlan``), built with device ops only: the
-    bin thresholds are Python ints, so nothing waits for the device."""
+    """The plan of K4/K5 (``SpgemmPlan``), built with device ops only:
+    nothing waits for the device.  Each row's bin id comes from one
+    ``bucketize`` of its ub against the bins' thresholds; a stable sort of
+    the ids groups the rows by bin, in row order within a bin.  About ten
+    ops: at 1M rows the card runs them faster than the host issues them,
+    so on the card ``plan_and_count`` builds the same plan in K4's
+    launch."""
     ub = row_bounds(a_indptr, a_indices, b_indptr)
     bins = spgemm_bins(dtype, index_dtype, n)
-    u = torch.clamp(ub, max=n)
-    bin_of = torch.zeros_like(u)
-    for u_max in bins[:-1, 2]:
-        bin_of += u > int(u_max)
-    rows = torch.argsort(bin_of, stable=True)
-    # Bin b's rows start where the sorted bins first reach b (searchsorted;
+    bin_of = torch.bucketize(ub, _thresholds(bins, ub.device),
+                             out_int32=True)
+    sorted_bins, rows = torch.sort(bin_of, stable=True)
+    # Bin b's rows start where the sorted ids first reach b (searchsorted;
     # bincount would read the largest bin back to the host).
-    offsets = torch.searchsorted(
-        bin_of[rows], torch.arange(len(bins) + 1, device=u.device))
+    ids = torch.arange(len(bins) + 1, dtype=torch.int32, device=ub.device)
+    offsets = torch.searchsorted(sorted_bins, ids)
     return SpgemmPlan(ub, rows, offsets, bins)
 
 
@@ -205,8 +236,9 @@ def spgemm_plain(a_indptr, a_indices, a_data, b_indptr, b_indices, b_data,
                                  triangular)
         key, order = torch.sort(rows * n + col, stable=True)
         key, inverse = torch.unique_consecutive(key, return_inverse=True)
-        vals.append(torch.zeros(key.numel(), dtype=a_data.dtype, device=dev)
-                    .index_add_(0, inverse, val[order]))
+        summed = torch.zeros(key.numel(), dtype=a_data.dtype, device=dev)
+        _add_rows(summed, inverse, val[order])
+        vals.append(summed)
         cols.append(key % n)
         counts[r0:r1] = torch.bincount(key // n - r0, minlength=r1 - r0)
     indptr = torch.zeros(m + 1, dtype=torch.long, device=dev)
@@ -253,7 +285,7 @@ def csr_spgemm_dense_plain(a_indptr, a_indices, a_data, b_indptr, b_indices,
         rows, cols, vals = _expand(a_indptr, a_indices, a_data, b_indptr,
                                    b_indices, b_data, a_rows, r0, r1,
                                    triangular)
-        c.index_add_(0, rows * n + cols, vals)
+        _add_rows(c, rows * n + cols, vals)
     return axpby(c.reshape(m, n), alpha, beta, c0)
 
 
@@ -262,11 +294,11 @@ def csr_spgemm_dense_plain(a_indptr, a_indices, a_data, b_indptr, b_indices,
 # ---------------------------------------------------------------------------
 
 
-def _workspace(plan, per_group, device):
+def _workspace(table, per_group, device):
     """(workspace, groups): dense rows of ``per_group`` bytes for the
-    DENSE_GLOBAL bin, as many as GLOBAL_WORKSPACE holds (at least one, at
-    most two per SM)."""
-    if plan.bins[-1, 0] != DENSE_GLOBAL:
+    DENSE_GLOBAL bin of ``table`` (``_launch_table``'s), as many as
+    GLOBAL_WORKSPACE holds (at least one, at most two per SM)."""
+    if table[-1, 0] != DENSE_GLOBAL:
         return None, 0
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     groups = max(1, min(2 * sms, GLOBAL_WORKSPACE // per_group))
@@ -274,36 +306,130 @@ def _workspace(plan, per_group, device):
     return work, groups
 
 
-def _plan_args(plan, m, n):
+def _launch_table(plan, m, sizes=None):
+    """The kernels' bin table: (kind, slots, rows) a bin, rows bounding
+    the bin's rows to size its grid: m for K4, which runs before the sizes
+    are known, or for K5 the bin's size from ``sizes`` (host ints).  With
+    ``sizes`` an empty bin becomes SKIP; the register bins, which run in
+    one launch, only when all four are empty."""
+    table = plan.bins.copy()
+    if sizes is None:
+        table[:, 2] = m
+        return table
+    table[:, 2] = sizes
+    empty = table[:, 2] == 0
+    tiny = slice(1, 1 + len(TINY_KINDS))  # spgemm_bins puts them there
+    empty[tiny] = empty[tiny].all()
+    table[empty, 0] = SKIP
+    return table
+
+
+def _plan_args(plan, table, n):
     return (plan.rows.data_ptr(), plan.offsets.data_ptr(),
-            plan.bins.ctypes.data, len(plan.bins), m, n)
+            table.ctypes.data, len(table), n)
 
 
 def csr_spgemm_count(a_indptr, a_indices, b_indptr, b_indices, n, plan,
-                     triangular=False):
+                     triangular=False, out=None):
     """K4: the number of distinct columns of each row of op(A) @ op(B)
-    (j >= i only with ``triangular``), as an (m,) int64 tensor.  ``plan``
-    is ``spgemm_plan``'s for the same operands."""
+    (j >= i only with ``triangular``), as an (m,) int64 tensor: ``out``
+    when given (zeros, which rows of no product keep), else a new one.
+    ``plan`` is ``spgemm_plan``'s for the same operands."""
     if a_indptr.device.type == "cpu":
         return csr_spgemm_count_plain(a_indptr, a_indices, b_indptr,
                                       b_indices, n, triangular)
+    return _count(a_indptr, a_indices, b_indptr, b_indices, n, plan,
+                  triangular, out)
+
+
+def plan_and_count(a_indptr, a_indices, b_indptr, b_indices, n, dtype,
+                   triangular=False, out=None):
+    """(plan, counts): ``spgemm_plan(..., n, dtype, index dtype)`` and K4.
+    On the card K4 builds the plan itself, in the same launch (three
+    kernels before the count: ub and the rows per bin of each tile of
+    rows, one block's scan of those, a stable scatter of the row ids), to
+    the same arrays as ``spgemm_plan``: its nine torch ops take the host
+    longer to issue than these kernels take to run.  On the CPU: the
+    torch plan and K4's plain version."""
+    m = a_indptr.numel() - 1
+    if a_indptr.device.type == "cpu":
+        plan = spgemm_plan(a_indptr, a_indices, b_indptr, n, dtype,
+                           a_indptr.dtype)
+        return plan, csr_spgemm_count(a_indptr, a_indices, b_indptr,
+                                      b_indices, n, plan, triangular, out)
+    bins = spgemm_bins(dtype, a_indptr.dtype, n)
+    nb = len(bins)
+    if m == 0 or n == 0:  # no product: every row in SKIP, no launch
+        plan = _empty_plan(m, bins, a_indptr.device)
+        return plan, _count(a_indptr, a_indices, b_indptr, b_indices, n,
+                            plan, triangular, out)
+    lanes, tile_rows = _plan_tiles(a_indices.numel() / m)
+    tiles = -(-m // tile_rows)
+    # ub, rows, offsets and the per-tile scratch in one allocation.
+    buf = torch.empty(2 * m + nb + 1 + tiles * nb, dtype=torch.long,
+                      device=a_indptr.device)
+    plan = SpgemmPlan(buf[:m], buf[m:2 * m], buf[2 * m:2 * m + nb + 1], bins)
+    counts = _count(a_indptr, a_indices, b_indptr, b_indices, n, plan,
+                    triangular, out,
+                    build=(lanes, tile_rows, buf[2 * m + nb + 1:]))
+    return plan, counts
+
+
+def _empty_plan(m, bins, device):
+    """``spgemm_plan``'s arrays where no row has a product (m == 0 or
+    n == 0): ub 0, the rows in order, all of them in the first bin."""
+    offsets = torch.full((len(bins) + 1,), m, dtype=torch.long,
+                         device=device)
+    offsets[0] = 0
+    return SpgemmPlan(torch.zeros(m, dtype=torch.long, device=device),
+                      torch.arange(m, device=device), offsets, bins)
+
+
+def _plan_tiles(mean_row):
+    """(lanes a row, rows a tile) of the plan built on the card, for op(A)
+    rows of ``mean_row`` entries: the power of two of lanes at or above
+    the mean, at most 32, and tiles of about 2048 entries, in whole rounds
+    of the 256 / lanes groups of a block (and at most 32 rounds)."""
+    lanes = 1
+    while lanes < min(32, mean_row):
+        lanes *= 2
+    groups = 256 // lanes
+    rounds = int(max(1, min(32, 2048 // (groups * max(mean_row, 1)))))
+    return lanes, groups * rounds
+
+
+def _count(a_indptr, a_indices, b_indptr, b_indices, n, plan, triangular,
+           out, build=None):
+    """K4's launch on the card; with ``build`` = (lanes a row, rows a
+    tile, scratch) it first fills ``plan``'s ub, rows and offsets from its
+    ``bins``."""
     if not a_indptr.is_cuda:
         raise ValueError(f"csr_spgemm_count: no kernel for device "
                          f"{a_indptr.device}")
     _check("csr_spgemm_count", (a_indptr, a_indices, b_indptr, b_indices),
            (plan.ub,))
     m = a_indptr.numel() - 1
-    counts = torch.zeros(m, dtype=torch.long, device=a_indptr.device)
+    counts = (torch.zeros(m, dtype=torch.long, device=a_indptr.device)
+              if out is None else out)
+    if counts.shape != (m,) or counts.dtype != torch.long:
+        raise ValueError(f"csr_spgemm_count: out must be ({m},) int64")
     if m == 0 or n == 0:
         return counts
+    table = _launch_table(plan, m)
+    lanes, tile_rows, tile_bins = build or (1, 256, None)
+    u_max = (None if build is None
+             else np.ascontiguousarray(plan.bins[:-1, 2]))
     # K4's dense rows hold one flag byte per column.
-    work, groups = _workspace(plan, _round16(n), a_indptr.device)
+    work, groups = _workspace(table, _round16(n), a_indptr.device)
     _build.launch(
         "sdt_csr_spgemm_count", _build.ITYPE_CODES[a_indptr.dtype],
         a_indptr.data_ptr(), a_indices.data_ptr(), b_indptr.data_ptr(),
-        b_indices.data_ptr(), *_plan_args(plan, m, n), int(triangular),
+        b_indices.data_ptr(), *_plan_args(plan, table, n), int(triangular),
         counts.data_ptr(), None if work is None else work.data_ptr(),
-        groups, _build.stream_of(a_indptr),
+        groups, None if u_max is None else u_max.ctypes.data, m, lanes,
+        tile_rows, plan.ub.data_ptr(),
+        None if tile_bins is None else tile_bins.data_ptr(),
+        _build.stream_of(a_indptr),
     )
     csr_spgemm_count.launches += 1
     return counts
@@ -313,13 +439,29 @@ csr_spgemm_count.launches = 0
 
 
 def csr_spgemm_fill(a_indptr, a_indices, a_data, b_indptr, b_indices,
-                    b_data, n, plan, c_indptr, nnz, triangular=False):
+                    b_data, n, plan, c_indptr, nnz, triangular=False,
+                    bin_sizes=None):
     """K5: (indices, data) of op(A) @ op(B) in the CSR layout of
     ``c_indptr`` (K4's counts summed, ``nnz`` entries), each row's columns
-    ascending; values summed in op(A)'s stored order."""
+    ascending; values summed in op(A)'s stored order.  K5 skips the empty
+    bins and sizes each grid to its bin: ``bin_sizes`` are the plan's rows
+    per bin as host ints, read from ``plan.offsets`` when not given (a
+    host read, as that of ``nnz``; ``csr_spgemm`` reads both at once)."""
     if a_data.device.type == "cpu":
         return csr_spgemm_fill_plain(a_indptr, a_indices, a_data, b_indptr,
                                      b_indices, b_data, n, triangular)
+    return _fill_launcher(a_indptr, a_indices, a_data, b_indptr, b_indices,
+                          b_data, n, plan, c_indptr,
+                          triangular)(nnz, bin_sizes)
+
+
+def _fill_launcher(a_indptr, a_indices, a_data, b_indptr, b_indices,
+                   b_data, n, plan, c_indptr, triangular):
+    """K5's launch on the card, made ready up to what the output's size
+    decides: ``launch(nnz, bin_sizes)`` then allocates the output and
+    launches (``bin_sizes`` None: read from ``plan.offsets``).
+    ``csr_spgemm`` makes it before its one host sync, so only ``launch``
+    stands between the sync and K5."""
     if not a_data.is_cuda:
         raise ValueError(f"csr_spgemm_fill: no kernel for device "
                          f"{a_data.device}")
@@ -327,50 +469,70 @@ def csr_spgemm_fill(a_indptr, a_indices, a_data, b_indptr, b_indices,
            (a_indptr, a_indices, b_indptr, b_indices, c_indptr),
            (a_data, b_data))
     m = a_indptr.numel() - 1
-    indices = torch.empty(nnz, dtype=a_indptr.dtype, device=a_data.device)
-    data = torch.empty(nnz, dtype=a_data.dtype, device=a_data.device)
-    if nnz == 0:
+    device = a_data.device
+    head = (*_build.type_codes(a_data, a_indptr), a_indptr.data_ptr(),
+            a_indices.data_ptr(), a_data.data_ptr(), b_indptr.data_ptr(),
+            b_indices.data_ptr(), b_data.data_ptr(), plan.rows.data_ptr(),
+            plan.offsets.data_ptr())
+    tail = (n, int(triangular), c_indptr.data_ptr())
+    stream = _build.stream_of(a_data)
+    row_bytes = dense_row_bytes(n, a_data.dtype)
+
+    def launch(nnz, bin_sizes=None):
+        indices = torch.empty(nnz, dtype=a_indptr.dtype, device=device)
+        data = torch.empty(nnz, dtype=a_data.dtype, device=device)
+        if nnz == 0:
+            return indices, data
+        if bin_sizes is None:
+            bin_sizes = np.diff(plan.offsets.tolist())
+        table = _launch_table(plan, m, bin_sizes)
+        work, groups = _workspace(table, row_bytes, device)
+        _build.launch(
+            "sdt_csr_spgemm_fill", *head, table.ctypes.data, len(table),
+            *tail, indices.data_ptr(), data.data_ptr(),
+            None if work is None else work.data_ptr(), groups, stream)
+        csr_spgemm_fill.launches += 1
         return indices, data
-    dt, it = _build.type_codes(a_data, a_indptr)
-    work, groups = _workspace(plan, dense_row_bytes(n, a_data.dtype),
-                              a_data.device)
-    _build.launch(
-        "sdt_csr_spgemm_fill", dt, it, a_indptr.data_ptr(),
-        a_indices.data_ptr(), a_data.data_ptr(), b_indptr.data_ptr(),
-        b_indices.data_ptr(), b_data.data_ptr(), *_plan_args(plan, m, n),
-        int(triangular), c_indptr.data_ptr(), indices.data_ptr(),
-        data.data_ptr(), None if work is None else work.data_ptr(), groups,
-        _build.stream_of(a_data),
-    )
-    csr_spgemm_fill.launches += 1
-    return indices, data
+
+    return launch
 
 
 csr_spgemm_fill.launches = 0
 
 
+# The steps of ``csr_spgemm`` on the card, as its ``marks`` names them.
+PRODUCT_STEPS = ("plan_and_K4", "running_sum", "nnz_read", "K5")
+
+
 def csr_spgemm(a_indptr, a_indices, a_data, b_indptr, b_indices, b_data, n,
-               triangular=False):
+               triangular=False, marks=None):
     """op(A) @ op(B) -> CSR (indptr, indices, data) with op(A)'s index
-    dtype: K4, the running sum, the nnz read, K5 on the card; the plain
-    ESC on the CPU.  Raises (with the ILP64 hint) when int32 indices
-    cannot hold the output's nnz."""
+    dtype: the plan and K4 (one launch), the running sum, the nnz read, K5
+    on the card (``PRODUCT_STEPS``; ``marks``, when given, is called with
+    each step's name as it ends, to time them); the plain ESC on the CPU.  Raises
+    (with the ILP64 hint) when int32 indices cannot hold the output's
+    nnz."""
     if a_data.device.type == "cpu":
         return spgemm_plain(a_indptr, a_indices, a_data, b_indptr,
                             b_indices, b_data, n, triangular)
+    mark = marks or (lambda step: None)
     m = a_indptr.numel() - 1
-    plan = spgemm_plan(a_indptr, a_indices, b_indptr, n, a_data.dtype,
-                       a_indptr.dtype)
-    counts = csr_spgemm_count(a_indptr, a_indices, b_indptr, b_indices, n,
-                              plan, triangular)
-    indptr = torch.zeros(m + 1, dtype=torch.long, device=a_data.device)
-    torch.cumsum(counts, 0, out=indptr[1:])
-    nnz = int(indptr[-1])  # the one host sync: the output's size
+    total = torch.zeros(m + 1, dtype=torch.long, device=a_data.device)
+    plan, _ = plan_and_count(a_indptr, a_indices, b_indptr, b_indices, n,
+                             a_data.dtype, triangular, out=total[1:])
+    mark("plan_and_K4")
+    total[1:].cumsum_(0)
+    indptr = total.to(a_indptr.dtype)
+    fill = _fill_launcher(a_indptr, a_indices, a_data, b_indptr, b_indices,
+                          b_data, n, plan, indptr, triangular)
+    mark("running_sum")
+    # The one host sync: the output's size, read with the bin sizes.
+    head = torch.cat((total[-1:], plan.offsets)).tolist()
+    nnz = head[0]
     _check_index_bounds(nnz, (m, n), a_indptr.dtype)
-    indptr = indptr.to(a_indptr.dtype)
-    indices, data = csr_spgemm_fill(a_indptr, a_indices, a_data, b_indptr,
-                                    b_indices, b_data, n, plan, indptr, nnz,
-                                    triangular)
+    mark("nnz_read")
+    indices, data = fill(nnz, np.diff(head[1:]))
+    mark("K5")
     return indptr, indices, data
 
 

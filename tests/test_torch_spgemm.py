@@ -104,6 +104,24 @@ def wide():
     return a, b
 
 
+def random_coo_csr(m, nnz, seed):
+    """m x m CSR from nnz random (row, col, N(0, 1)) triples, duplicates
+    summed: the recipe of the 1M x 1M A @ A, whose rows have few products
+    (about 2 here, none over 32)."""
+    rng = np.random.default_rng(seed)
+    a = sps.csr_matrix((rng.standard_normal(nnz),
+                        (rng.integers(0, m, nnz), rng.integers(0, m, nnz))),
+                       shape=(m, m))
+    a.sum_duplicates()
+    a.sort_indices()
+    return a
+
+
+def few_products():
+    a = random_coo_csr(20_000, 40_000, seed=27)
+    return a, a
+
+
 CASES = {
     "csr_f64": lambda: (random_sparse((30, 40), 0.15, seed=5),
                         random_sparse((40, 50), 0.15, seed=6)),
@@ -132,9 +150,10 @@ CASES = {
     "nnz_0": lambda: (sps.csr_matrix((20, 30)),
                       random_sparse((30, 40), 0.2, seed=17)),
     "wide_n_long_row": wide,
+    "few_products_20k": few_products,
 }
 TRIANGULAR_CASES = ("csr_f64", "csr_c128", "bsr_x_bsr", "cancellation",
-                    "wide_n_long_row")
+                    "wide_n_long_row", "few_products_20k")
 
 
 def out_dtype(a, b):
@@ -333,20 +352,37 @@ def test_bins_table(dtype, itype, n):
     kinds, slots, u_max = bins.T
     assert kinds[0] == spgemm.SKIP and u_max[0] == 0
     assert (np.diff(u_max) > 0).all() and u_max[-1] == np.iinfo(np.int64).max
+    # The register bins, in the order the kernel launches them, whatever n.
+    tiny = len(spgemm.TINY_KINDS)
+    assert list(kinds[1:1 + tiny]) == [spgemm.TINY4, spgemm.TINY8,
+                                       spgemm.TINY16, spgemm.TINY32]
+    assert list(slots[1:1 + tiny]) == list(u_max[1:1 + tiny]) == [4, 8, 16,
+                                                                  32]
     entry = dtype.itemsize + itype.itemsize
-    for kind, s, u in bins[1:-1]:
+    hashed = bins[1 + tiny:-1]
+    for kind, s, u in hashed:
         assert kind in (spgemm.HASH_WARP, spgemm.HASH_BLOCK)
-        assert s & (s - 1) == 0 and u == s // 2
+        assert s & (s - 1) == 0 and u == s // 2 and u > spgemm.TINY_MAX
         tables = 8 if kind == spgemm.HASH_WARP else 1
         assert tables * s * entry <= spgemm.SHARED_BUDGET
+    assert 64 not in slots  # the warp table of 64 slots is gone
     dense_fits = n * (dtype.itemsize + 1) <= spgemm.SHARED_BUDGET
     assert kinds[-1] == (spgemm.DENSE_SHARED if dense_fits
                          else spgemm.DENSE_GLOBAL)
     assert slots[-1] == n
     if dense_fits:
-        assert (n > spgemm.DENSE_RATIO * slots[1:-1]).all()
+        assert (n > spgemm.DENSE_RATIO * hashed[:, 1]).all()
     else:
         assert slots[-2] == spgemm.max_hash_slots(dtype, itype)
+    # Routing on ub picks, past 32 products, the bin that u = min(ub, n)
+    # would: the accumulators are sized by a row's distinct columns.
+    ubs = np.unique(np.concatenate([
+        np.arange(70), u_max[:-1], u_max[:-1] + 1,
+        [n - 1, n, n + 1, 2 * n, 10 * n]]))
+    u = np.where(ubs <= spgemm.TINY_MAX, ubs,
+                 np.maximum(np.minimum(ubs, n), spgemm.TINY_MAX + 1))
+    npt.assert_array_equal(np.searchsorted(u_max[:-1], ubs),
+                           np.searchsorted(u_max[:-1], u))
 
 
 @pytest.mark.parametrize("itype", INDEX_TYPES)
@@ -361,16 +397,247 @@ def test_plan_groups_rows_by_bin(itype):
     assert plan.ub.dtype == torch.int64
     assert sorted(plan.rows.tolist()) == list(range(400))
     assert plan.offsets[0] == 0 and plan.offsets[-1] == 400
-    u = torch.clamp(plan.ub, max=WIDE_N)
+    key = plan.ub
     u_max = torch.from_numpy(plan.bins[:, 2])
     for b_id in range(len(plan.bins)):
         rows = plan.rows[plan.offsets[b_id]:plan.offsets[b_id + 1]]
-        assert (u[rows] <= u_max[b_id]).all()
+        assert (key[rows] <= u_max[b_id]).all()
+        assert (rows.diff() > 0).all()  # row order within a bin
         if b_id:
-            assert (u[rows] > u_max[b_id - 1]).all()
-    assert set(plan.bins[plan.offsets.diff().numpy() > 0, 0]) == {
+            assert (key[rows] > u_max[b_id - 1]).all()
+    assert set(plan.bins[plan.offsets.diff().numpy() > 0, 0]) >= {
         spgemm.SKIP, spgemm.HASH_WARP, spgemm.HASH_BLOCK,
         spgemm.DENSE_GLOBAL}
+
+
+@pytest.mark.parametrize("m, n", [(0, 50), (0, 0), (7, 0)])
+def test_empty_plan_equals_spgemm_plan(m, n):
+    """Where no row has a product, the plan ``plan_and_count`` makes on the
+    card without a launch equals ``spgemm_plan``'s."""
+    a = sps.csr_matrix((m, 5))
+    b = sps.csr_matrix((5, n))
+    plan = spgemm.spgemm_plan(t(a.indptr), t(a.indices), t(b.indptr), n,
+                              torch.float64, torch.int32)
+    empty = spgemm._empty_plan(m, plan.bins, torch.device("cpu"))
+    for got, want in zip(empty[:3], plan[:3]):
+        assert got.dtype == want.dtype and torch.equal(got, want)
+    npt.assert_array_equal(empty.bins, plan.bins)
+
+
+def routed(a, b, n):
+    """{row: bin kind} of spgemm_plan for a @ b with n columns."""
+    plan = spgemm.spgemm_plan(t(a.indptr), t(a.indices), t(b.indptr), n,
+                              torch.float64, torch.int32)
+    kind = {}
+    for b_id, (k, _, _) in enumerate(plan.bins):
+        for r in plan.rows[plan.offsets[b_id]:plan.offsets[b_id + 1]]:
+            kind[int(r)] = int(k)
+    return kind, plan.ub.numpy()
+
+
+@pytest.mark.parametrize("n", [8, 300, WIDE_N])
+def test_rows_route_by_products(n):
+    """Rows of 1..32 products go to the register bin of the smallest width
+    at or above their products, whatever n (also where n < ub); ub = 0 to
+    SKIP; a row of 33 products past the register bins (the dense row at
+    n = 8 and 300, the warp hash table at WIDE_N); a row of 100 op(A)
+    entries over mostly empty op(B) rows by its products alone."""
+    b_len = [3, 0, 1, 4, 0, 0, 2, 5]  # op(B) rows k, read modulo 8
+    ubs = [0, 1, 4, 5, 8, 9, 16, 17, 31, 32, 33, 40]
+    k = 800
+    a_rows = []
+    for ub in ubs:  # entries over op(B) rows 0 (3 each) and 2 (1) reach ub
+        a_rows.append([8 * s for s in range(ub // 3)]
+                      + [8 * s + 2 for s in range(ub % 3)])
+    a_rows.append([8 * s + 1 for s in range(99)] + [2])  # 100 entries, ub 1
+    a_rows.append([8 * s + 4 for s in range(90)]
+                  + [8 * s + 3 for s in range(7)])  # 97 entries, ub 28
+    indptr = np.concatenate([[0], np.cumsum([len(r) for r in a_rows])])
+    a = sps.csr_matrix((np.ones(indptr[-1]), np.concatenate(a_rows), indptr),
+                       shape=(len(a_rows), k))
+    b = rows_of([b_len[i % 8] if b_len[i % 8] <= n else n for i in range(k)],
+                n, seed=28)
+    kind, ub = routed(a, b, n)
+    assert list(ub) == ubs + [1, 28]
+    assert len(a_rows[-2]) == 100 and len(a_rows[-1]) == 97
+    for row, products in enumerate(ub):
+        if products == 0:
+            want = spgemm.SKIP
+        elif products <= spgemm.TINY_MAX:
+            g = min(w for w in spgemm.TINY_KINDS if w >= products)
+            want = spgemm.TINY_KINDS[g]
+        elif n == WIDE_N:
+            want = spgemm.HASH_WARP
+        else:
+            want = spgemm.DENSE_SHARED
+        assert kind[row] == want, (row, products)
+    if n == 8:  # more products than columns, still one a lane
+        assert {kind[r] for r in range(len(ubs)) if 8 < ub[r] <= 32} == {
+            spgemm.TINY16, spgemm.TINY32}
+
+
+@pytest.mark.parametrize("sizes", [None, [5, 3, 0, 0, 0, 0, 0, 0, 0, 2],
+                                   [5, 0, 0, 0, 0, 0, 1, 0, 0, 0]])
+def test_launch_table_skips_empty_bins(sizes):
+    """K4's table bounds every bin's grid by m; K5's, given the bin sizes
+    read with nnz, by the bin's rows, with the empty bins SKIP, and the
+    four register bins (one launch) SKIP only when all four are empty."""
+    a, b = wide()
+    plan = spgemm.spgemm_plan(t(a.indptr), t(a.indices), t(b.indptr),
+                              WIDE_N, torch.float64, torch.int32)
+    assert len(plan.bins) == 10
+    table = spgemm._launch_table(plan, 6, sizes)
+    npt.assert_array_equal(table[:, 1], plan.bins[:, 1])
+    if sizes is None:
+        npt.assert_array_equal(table[:, 0], plan.bins[:, 0])
+        assert (table[:, 2] == 6).all()
+        return
+    npt.assert_array_equal(table[:, 2], sizes)
+    tiny = slice(1, 1 + len(spgemm.TINY_KINDS))
+    tiny_rows = any(sizes[tiny])
+    for kind, was, size in zip(table[:, 0], plan.bins[:, 0], sizes):
+        if was in spgemm.TINY_KINDS.values():
+            assert kind == (was if tiny_rows else spgemm.SKIP)
+        else:
+            assert kind == (was if size else spgemm.SKIP)
+
+
+@pytest.mark.parametrize("mean_row", [0, 0.5, 1, 2, 2.7, 8, 60, 400, 5000])
+def test_plan_tiles_hold_about_2048_entries(mean_row):
+    """The plan built on the card takes lanes a row (a power of two from 1
+    to 32, at or above the mean row) and tiles of whole rounds of the 256
+    / lanes groups of a block, about 2048 op(A) entries a tile."""
+    lanes, tile_rows = spgemm._plan_tiles(mean_row)
+    assert lanes in (1, 2, 4, 8, 16, 32)
+    assert lanes >= min(32, mean_row) and (lanes == 1 or lanes / 2 < mean_row)
+    groups = 256 // lanes
+    assert tile_rows % groups == 0 and 1 <= tile_rows // groups <= 32
+    if groups * max(mean_row, 1) <= 2048:
+        assert tile_rows * max(mean_row, 1) <= 2048
+
+
+NO_KEY = (1 << 64) - 1
+
+
+def register_row(a, b, i, g, triangular):
+    """K4/K5's register path (csrc/csr_spgemm.cu, tiny_bin) for row i of
+    a @ b, lane by lane as a group of g lanes runs it: the chunked scan of
+    op(B) row lengths, the binary search for each lane's product, the
+    bitonic network on (column << 5 | product) keys, the heads and each
+    head's fold in product order.  Returns (count, columns, values)."""
+    p0, p1 = a.indptr[i], a.indptr[i + 1]
+    q, av, carry = [-1] * g, [0] * g, 0
+    for c in range(p0, p1, g):
+        p = [c + lane for lane in range(g)]
+        start = [b.indptr[a.indices[x]] if x < p1 else 0 for x in p]
+        length = [b.indptr[a.indices[x] + 1] - b.indptr[a.indices[x]]
+                  if x < p1 else 0 for x in p]
+        vals = [a.data[x] if x < p1 else 0 for x in p]
+        incl = np.cumsum(length)
+        excl = incl - length
+        total = int(incl[-1])
+        for lane in range(g):
+            t_ = lane - carry
+            s, step = 0, g // 2
+            while step:
+                if excl[s + step] <= t_:
+                    s += step
+                step //= 2
+            if 0 <= t_ < total:
+                q[lane] = start[s] + t_ - excl[s]
+                av[lane] = vals[s]
+        carry += total
+    keys, bv = [], []
+    for lane in range(g):
+        j = b.indices[q[lane]] if q[lane] >= 0 else -1
+        live = q[lane] >= 0 and (not triangular or j >= i)
+        keys.append((int(j) << 5 | lane) if live else NO_KEY)
+        bv.append(b.data[q[lane]] if q[lane] >= 0 else 0)
+    size = 2
+    while size <= g:
+        stride = size // 2
+        while stride:
+            other = [keys[lane ^ stride] for lane in range(g)]
+            keys = [min(k, o) if ((lane & stride) == 0) == ((lane & size) == 0)
+                    else max(k, o)
+                    for lane, (k, o) in enumerate(zip(keys, other))]
+            stride //= 2
+        size *= 2
+    assert keys == sorted(keys)
+    heads = [keys[lane] != NO_KEY and (lane == 0 or keys[lane - 1] >> 5
+                                       != keys[lane] >> 5)
+             for lane in range(g)]
+    cols, sums = [], []
+    for lane in range(g):
+        if heads[lane]:
+            run = [keys[lane]]
+            while (lane + len(run) < g and keys[lane + len(run)] != NO_KEY
+                   and keys[lane + len(run)] >> 5 == keys[lane] >> 5):
+                run.append(keys[lane + len(run)])
+            acc = 0
+            for key in run:  # product order: op(A)'s stored order
+                acc = acc + av[key & 31] * bv[key & 31]
+            cols.append(keys[lane] >> 5)
+            sums.append(acc)
+    return sum(heads), cols, sums
+
+
+@pytest.mark.parametrize("triangular", [False, True])
+@pytest.mark.parametrize("case", ["few_products_20k", "cancellation",
+                                  "sparse_explicit_zeros", "sparse_c128",
+                                  "narrow_runs", "long_rows_over_empty"])
+def test_register_path_matches_plain(case, triangular):
+    """Every row that the plan sends to a register bin, run as its group
+    runs it, gives the plain ESC's count, columns and values."""
+    a, b = CASES[case]() if case in CASES else EMULATED[case]()
+    a, b = a.tocsr(), b.tocsr()
+    args = csr_args(a, b)
+    indptr, indices, data = spgemm.spgemm_plain(*args, triangular=triangular)
+    kind, ub = routed(a, b, b.shape[1])
+    width = {v: g for g, v in spgemm.TINY_KINDS.items()}
+    seen = set()
+    for i in range(min(a.shape[0], 4000)):
+        if kind[i] not in width:
+            continue
+        g = width[kind[i]]
+        seen.add(g)
+        count, cols, sums = register_row(a, b, i, g, triangular)
+        lo, hi = int(indptr[i]), int(indptr[i + 1])
+        assert count == hi - lo
+        assert cols == indices[lo:hi].tolist()
+        assert_values(np.array(sums, dtype=a.dtype), data[lo:hi].numpy())
+    assert seen
+
+
+def narrow_runs():
+    """n = 1 and 16: runs of one column as long as 32 lanes, and rows with
+    more products than n; values in {-1, 0, 1}, so sums cancel exactly."""
+    rng = np.random.default_rng(29)
+    a = rows_of([1, 2, 3, 5, 8, 13, 17, 30, 32, 0] * 3, 40, seed=30)
+    a.data = rng.choice([-1.0, 0.0, 1.0], a.nnz)
+    b = sps.csr_matrix((rng.choice([-1.0, 1.0], 40), np.zeros(40, int),
+                        np.arange(41)), shape=(40, 1))
+    return a, b
+
+
+def long_rows_over_empty():
+    """op(A) rows of 40-120 entries (more than any group) over op(B) rows
+    that are mostly empty: few products, found chunk by chunk."""
+    a = rows_of([120, 40, 64, 3, 97, 33], 3000, seed=31)
+    b = rows_of(([0] * 29 + [1, 2]) * 96 + [0] * 24, 500, seed=32)
+    return a, b
+
+
+EMULATED = {
+    "narrow_runs": narrow_runs,
+    "long_rows_over_empty": long_rows_over_empty,
+    "sparse_explicit_zeros": lambda: (
+        with_explicit_zeros(random_sparse((30, 40), 0.05, seed=33)),
+        with_explicit_zeros(random_sparse((40, 50), 0.1, seed=34))),
+    "sparse_c128": lambda: (
+        random_sparse((30, 40), 0.05, np.complex128, seed=35),
+        random_sparse((40, 50), 0.1, np.complex128, seed=36)),
+}
 
 
 def test_long_row_goes_to_the_device_workspace():
