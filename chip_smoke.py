@@ -30,15 +30,20 @@ Phases, each printing one JSON line:
    and in B against scipy (the same inf/nan parts).  K4 + K5 (sparse x
    sparse, count then fill) against the plain expand-sort-compress with
    equal counts, indptr and indices, and K6 (dense output) against its
-   plain version, with and without ``triangular``, each run twice for the
-   same bits (K4 + K5's second run with the plan built in K4's launch,
-   equal to ``spgemm_plan``'s), in shapes that put rows in every
-   accumulator bin (the register bins of 4, 8, 16 and 32 lanes, hash
-   tables of a warp and of a block, a dense row in shared memory, and in
-   the device workspace): narrow n, runs of one column, exactly cancelled
-   sums, op(A) rows longer than a group over empty op(B) rows, and n on
-   either side of 2^27, where the register bins' sort keys widen to 64
-   bits;
+   plain version, with and without ``triangular`` and the epilogue, over
+   op(B) with its rows sorted (entered by search) and shuffled (sorted by
+   the wrapper first), each run twice for the same bits, and over
+   shuffled rows that the caller wrongly calls sorted (no write may leave
+   the work item's columns) (K4 + K5's second run with the plan built in
+   K4's launch, equal to ``spgemm_plan``'s), in shapes that put rows in
+   every accumulator bin (the register bins of 4, 8, 16 and 32 lanes,
+   hash tables of a warp and of a block, a dense row in shared memory,
+   and in the device workspace) and K6 on every kind of launch plan (a row
+   split across warps or a warp's own, whole or cut into column windows):
+   narrow n, runs of one column, exactly cancelled sums, op(A) rows longer
+   than a group over empty op(B) rows, rows of 2000 entries, 6000 short
+   rows, and n on either side of 2^27, where the register bins' sort keys
+   widen to 64 bits;
 3. the main path, ``dot_product`` with scipy/numpy operands at real
    sizes, against the scipy oracle at the reference's decimal=6 (f64)
    and decimal=5 (f32), with each kernel's launch count checked (the
@@ -63,8 +68,14 @@ Phases, each printing one JSON line:
    also TFLOP/s and the stored blocks per block row; for K4 (with the
    plan given, and building it in its launch), K5, K4 + K5 as one
    product and K6 also products per second; the product's steps at cases
-   a and c (``csr_spgemm``'s marks: device and host ms of each); and the
-   wall time of ``dot_product(X, X.T)`` beside scipy's;
+   a and c (``csr_spgemm``'s marks: device and host ms of each); K6 at
+   cases a, a with ``triangular`` (the gram's launch) and d, each beside
+   ``yardstick_ms``, the JAX package's algorithm for it (both operands
+   densified, one ``torch.matmul``), at case a in f32 and with int64
+   indices, at d and at n = 16,384 over shuffled op(B), and at two widths
+   past shared memory (n = 100,000 and 40,000) over sorted and shuffled
+   op(B); and the wall
+   time of ``dot_product(X, X.T)`` beside scipy's;
 5. the solver path, with the counts set to 0 again and the plain versions
    of K1-K6 made to raise, each result checked against scipy/numpy on the
    host: the handle protocol on the demo X (create, convert from CSC,
@@ -92,7 +103,7 @@ last, ``{"ok": true, "device": {...}}``.  With ``CHIP_SMOKE_LOG`` set to a path,
 every JSON line also goes to that file.  Any failure is an uncaught exception
 and a non-zero exit; without a CUDA device it exits 2 before any work.
 ``--only spgemm`` runs the sparse x sparse parts of phases 1-4 and prints
-no result lines.
+no result lines; ``--only k6`` runs phase 1 and K6's phase-4 rows.
 """
 
 import argparse
@@ -278,24 +289,27 @@ def check_kernels(spgemm_only=False):
         results[name]["cases"] += 1
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
 
-    schedules = set()
+    schedules, k6_seen = set(), set()
     for tdt, npdt in NP_DTYPES.items():
         for itype in (np.int32, np.int64):
             if not spgemm_only:
                 check_csr(rng, tdt, npdt, itype, record, schedules)
                 check_k1(rng, tdt, npdt, itype, record)
-            check_spgemm(rng, tdt, npdt, itype, record, bins_seen)
+            check_spgemm(rng, tdt, npdt, itype, record, bins_seen, k6_seen)
     if not spgemm_only:
         check_k1_special(rng, record)
     check_csr_special(rng, record)
     check_bins_seen(bins_seen)
+    check_k6_seen(k6_seen)
+    k6_plans = [dict(zip(K6_PLAN_KEYS, seen)) for seen in sorted(k6_seen)]
     if spgemm_only:
-        emit(2, kernels=results, spgemm_bins=sorted(bins_seen))
+        emit(2, kernels=results, spgemm_bins=sorted(bins_seen),
+             k6_plans=k6_plans)
         return results
     if {vec > 1 for vec, _ in schedules} != {True, False}:
         raise AssertionError(f"K2 ran only {schedules} (vec, lanes)")
     emit(2, kernels=results, spgemm_bins=sorted(bins_seen),
-         k2_schedules=sorted(schedules))
+         k2_schedules=sorted(schedules), k6_plans=k6_plans)
     return results
 
 
@@ -521,8 +535,12 @@ def check_csr_special(rng, record):
 # seventh field: the lowest column of op(B)), with rows of 1..32 products:
 # the register bins sort 64-bit keys at the first n and 32-bit keys, whose
 # column bits are then full, at the second (csrc/csr_spgemm.cu,
-# kNarrowKeyColumns).  K6 runs where its dense output holds at most
-# K6_MAX_ENTRIES.
+# kNarrowKeyColumns).  The last three give K6 (ops/spgemm.py, dense_plan)
+# rows split across warps (one row of 2000 entries; three of 1200-2000
+# over n = 5000, so in windows too) and 6000 short rows, a warp each.  K6
+# runs where its dense output holds at most K6_MAX_ENTRIES, over op(B)
+# with its rows sorted and shuffled (which the wrapper sorts first where
+# the plan searches them).
 SPGEMM_A_ROWS = (0, 1, 3, 10, 40, 150, 600)
 WIDE_KEY_N = 1 << 27
 K6_MAX_ENTRIES = 1 << 24
@@ -541,7 +559,16 @@ SPGEMM_CASES = (
      WIDE_KEY_N - 64),
     (48, 300, WIDE_KEY_N - 1, (1, 2, 3, 5, 8, 0), (0, 1, 2, 4), False,
      WIDE_KEY_N - 65),
+    (1, 3000, 300, (2000,), (20,), False, 0),
+    (3, 3000, 5000, (1200, 2000, 1500), (20,), False, 0),
+    (6000, 400, 48, (2, 3, 5, 0), (3, 6), False, 0),
 )
+# What each K6 launch of phase 2 is known by: its row split across warps,
+# cut into windows, op(B) sorted, triangular, op(B)'s window starts
+# tabulated.  Every combination of the first three must run, triangular
+# over sorted and shuffled op(B), and sorted windows with and without the
+# table.
+K6_PLAN_KEYS = ("split", "windows", "sorted", "triangular", "table")
 
 
 def distinct_rows(rng, lengths, width, dtype, index_dtype, zeros=0.0,
@@ -621,12 +648,31 @@ def check_bins_seen(bins_seen):
                              f"{wanted}")
 
 
-def check_spgemm(rng, tdt, npdt, itype, record, bins_seen):
+def check_k6_seen(k6_seen):
+    """K6 ran every launch plan of phase 2's kind (``K6_PLAN_KEYS``)."""
+    plans = {seen[:3] for seen in k6_seen}
+    tri = {seen[2] for seen in k6_seen if seen[3]}
+    table = {seen[4] for seen in k6_seen if seen[1] and seen[2]}
+    wanted = {(a, b, c) for a in (False, True) for b in (False, True)
+              for c in (False, True)}
+    if plans != wanted or tri != {False, True} or table != {False, True}:
+        raise AssertionError(f"K6 ran {sorted(k6_seen)} {K6_PLAN_KEYS}")
+
+
+def sorted_rows(indptr, indices, data):
+    """The CSR arrays with each row's columns in ascending order."""
+    rows = np.repeat(np.arange(len(indptr) - 1), np.diff(indptr))
+    order = np.lexsort((indices, rows))
+    return indptr, indices[order], data[order]
+
+
+def check_spgemm(rng, tdt, npdt, itype, record, bins_seen, k6_seen):
     """K4 + K5 against the plain ESC (``spgemm_plain``): counts, indptr and
     indices equal, values within tolerance, the same bits on a second
     run; K6 against its plain version, with and without the epilogue and
-    ``triangular``, twice.  ``bins_seen`` collects the bin kinds that held
-    rows."""
+    ``triangular``, over op(B) sorted and shuffled, twice each.
+    ``bins_seen`` collects the bin kinds that held rows, ``k6_seen`` K6's
+    plans (``K6_PLAN_KEYS``)."""
     from sparse_dot_tpu_torch.ops import spgemm
 
     for m, k, n, a_rows, b_rows, exact, b_low in SPGEMM_CASES:
@@ -670,16 +716,52 @@ def check_spgemm(rng, tdt, npdt, itype, record, bins_seen):
             if m * n > K6_MAX_ENTRIES:
                 continue
             c0 = cuda(values(rng, (m, n), npdt))
-            for alpha, beta, cc in ((None, None, None), (2.0, -0.5, c0)):
-                kargs = (*args[:7], alpha, beta, cc, tri)
-                before = spgemm.csr_spgemm_dense.launches
-                out = spgemm.csr_spgemm_dense(*kargs)
-                if spgemm.csr_spgemm_dense.launches != before + 1:
-                    raise AssertionError("K6 did not launch once")
-                record("K6_csr_spgemm_dense", compare(
-                    out, spgemm.csr_spgemm_dense_plain(*kargs), tdt))
-                if not torch.equal(out, spgemm.csr_spgemm_dense(*kargs)):
-                    raise AssertionError(f"K6 {tdt} n={n}: runs differ")
+            b_sorted = tuple(map(cuda, sorted_rows(*b)))
+            for srt, (bip, bix, bdv) in ((False, (b_ip, b_ix, b_dv)),
+                                         (True, b_sorted)):
+                for alpha, beta, cc in ((None, None, None),
+                                        (2.0, -0.5, c0)):
+                    kargs = (a_ip, a_ix, a_dv, bip, bix, bdv, n, alpha,
+                             beta, cc, tri)
+                    before = spgemm.csr_spgemm_dense.launches
+                    out = spgemm.csr_spgemm_dense(*kargs, b_sorted=srt)
+                    if spgemm.csr_spgemm_dense.launches != before + 1:
+                        raise AssertionError("K6 did not launch once")
+                    used = spgemm.csr_spgemm_dense.last_plan
+                    k6_seen.add((used.splits > 1, used.windows > 1, srt,
+                                 tri, spgemm.csr_spgemm_dense.last_table))
+                    record("K6_csr_spgemm_dense", compare(
+                        out, spgemm.csr_spgemm_dense_plain(*kargs), tdt))
+                    if not torch.equal(out, spgemm.csr_spgemm_dense(
+                            *kargs, b_sorted=srt)):
+                        raise AssertionError(f"K6 {tdt} n={n} {used}: runs "
+                                             f"differ")
+            if tdt == torch.float64 and (used.windows > 1 or tri):
+                check_k6_wrong_flag(a_ip, a_ix, b_ip, b_ix, n, tri)
+
+
+def check_k6_wrong_flag(a_ip, a_ix, b_ip, b_ix, n, triangular):
+    """K6 told that op(B)'s shuffled rows are sorted: each row is then
+    searched as if it were, so products go missing, but each product's
+    column is still tested against the work item's, so none may land
+    elsewhere.  With every value 1 an entry of C counts its products:
+    the kernel's count may fall short of the plain version's, never pass
+    it (a write outside the warp's partial row would land in another
+    column's count, or fault)."""
+    from sparse_dot_tpu_torch.ops import spgemm
+
+    ones_a = torch.ones(a_ix.numel(), dtype=torch.float64,
+                        device=a_ix.device)
+    ones_b = torch.ones(b_ix.numel(), dtype=torch.float64,
+                        device=b_ix.device)
+    args = (a_ip, a_ix, ones_a, b_ip, b_ix, ones_b, n)
+    got = spgemm.csr_spgemm_dense(*args, triangular=triangular,
+                                  b_sorted=True)
+    want = spgemm.csr_spgemm_dense_plain(*args, triangular=triangular)
+    if not bool((got <= want).all()):
+        raise AssertionError(f"K6 n={n} triangular={triangular}: told "
+                             f"shuffled rows were sorted, it wrote outside "
+                             f"the work item's columns")
 
 
 # ---------------------------------------------------------------------------
@@ -1000,23 +1082,39 @@ def spgemm_path():
 # ---------------------------------------------------------------------------
 
 
-def time_set(kernel_fn, plain_fn, library_fn=None, reps=REPS):
-    """The REPS times in ms of the kernel, its plain version and, when
-    given, the one PyTorch call that computes the same function (its
-    yardstick, which the port never calls), taken in turns, and the
-    largest |kernel - plain|.  Before each launch a 1 GiB read evicts L2
+def time_set(kernel_fn, plain_fn, library_fn=None, reps=REPS,
+             yardstick_fn=None):
+    """The REPS times in ms of the kernel, its plain version, when given
+    the one PyTorch call that computes the same function (``library_fn``)
+    and another way to compute it (``yardstick_fn``; both are yardsticks,
+    which the port never calls), taken in turns, and the largest
+    |kernel - plain|.  Before each launch a 1 GiB read evicts L2
     with clean lines (a write would leave dirty lines to drain inside the
     timed launch) and keeps the card busy for ~0.3 ms while the host
     enqueues the call, so the events time the device, not the Python call
     (a 256 MB read covered ~85 us, less than the plain versions' host side
-    of up to 0.36 ms).  Returns (kernel, plain, library or None, error)."""
-    flush = torch.ones(256 << 20, dtype=torch.float32, device="cuda")
+    of up to 0.36 ms).  The yardstick's result is held against the plain
+    version's too.  Returns (kernel, plain, library or None, yardstick or
+    None, error)."""
     out_k, out_p = kernel_fn(), plain_fn()
     err = compare(out_k, out_p, out_k.dtype)
     fns = {"plain": plain_fn, "kernel": kernel_fn}
     if library_fn is not None:
         library_fn()  # warm-up (cuSPARSE handles and buffers)
         fns["library"] = library_fn
+    if yardstick_fn is not None:
+        compare(yardstick_fn(), out_p, out_k.dtype)
+        fns["yardstick"] = yardstick_fn
+    del out_k, out_p
+    times = time_turns(fns, reps)
+    return (times["kernel"], times["plain"], times.get("library"),
+            times.get("yardstick"), err)
+
+
+def time_turns(fns, reps):
+    """{name: the ``reps`` times in ms of ``fns[name]()``}, the calls taken
+    in turns, each after a 1 GiB read (``time_set``)."""
+    flush = torch.ones(256 << 20, dtype=torch.float32, device="cuda")
     times = {name: [] for name in fns}
     for _ in range(reps):
         for name, fn in fns.items():
@@ -1028,7 +1126,7 @@ def time_set(kernel_fn, plain_fn, library_fn=None, reps=REPS):
             end.record()
             end.synchronize()
             times[name].append(start.elapsed_time(end))
-    return times["kernel"], times["plain"], times.get("library"), err
+    return times
 
 
 def spread(times):
@@ -1131,11 +1229,14 @@ def bsr_library(indptr, indices, data, b, shape, c0=None, beta=None):
 
 def timed_row(kernel, shape, kernel_fn, plain_fn, bound_of, library=(None,
               "none: no single PyTorch call computes this"), reps=REPS,
-              **extra):
-    """One phase-4 row: times of kernel, plain version and library call,
-    the bound and the share of it that the kernel reaches."""
+              yardstick=None, **extra):
+    """One phase-4 row: times of kernel, plain version, library call and
+    (``yardstick``: (fn, note)) another way to compute the same, the
+    bound and the share of it that the kernel reaches."""
     lib_fn, lib_note = library
-    kt, pt, lt, err = time_set(kernel_fn, plain_fn, lib_fn, reps)
+    yard_fn, yard_note = yardstick or (None, None)
+    kt, pt, lt, yt, err = time_set(kernel_fn, plain_fn, lib_fn, reps,
+                                   yard_fn)
     (ms, p10, p90), (plain_ms, pp10, pp90) = spread(kt), spread(pt)
     bound_ms, bound_by = bound_of
     row = {"kernel": kernel, "shape": shape, "ms": ms, "p10": p10,
@@ -1146,6 +1247,10 @@ def timed_row(kernel, shape, kernel_fn, plain_fn, bound_of, library=(None,
            "library": lib_note, "reps": reps, **extra}
     if lt is not None:
         row["library_p10"], row["library_p90"] = spread(lt)[1:]
+    if yt is not None:
+        row["yardstick_ms"], row["yardstick_p10"], row["yardstick_p90"] = \
+            spread(yt)
+        row["yardstick"] = yard_note
     return row
 
 
@@ -1303,9 +1408,9 @@ def product_steps(args, reps=REPS):
 def spgemm_timings(inp):
     """K4 (count), K5 (fill) and K4 + K5 as one product (plan, count,
     running sum, the nnz read, fill) against their plain versions, at
-    cases a, c and d; K6 at cases a and d (case c's dense output, 1M x 1M,
-    would take 8 TB).  Products/s beside each; then the wall time of
-    ``dot_product(X, X.T)`` host in to host out, next to scipy's."""
+    cases a, c and d, products/s beside each; K6 as ``k6_timings`` times
+    it; then the wall time of ``dot_product(X, X.T)`` host in to host out,
+    next to scipy's."""
     import sparse_dot_tpu_torch as sdt
     from sparse_dot_tpu_torch import formats
     from sparse_dot_tpu_torch.ops import spgemm
@@ -1357,9 +1462,6 @@ def spgemm_timings(inp):
                 nbytes(ip, ix, dv) + b_moved + out_sparse, flop, peak),
             "K4+K5 product": bound(
                 nbytes(ip, ix, dv) + b_moved + out_sparse, flop, peak),
-            "K6_csr_spgemm_dense": bound(
-                nbytes(ip, ix, dv) + b_moved
-                + ip.numel() * n * dv.element_size(), flop, peak),
         }
 
         def spgemm_library():
@@ -1386,10 +1488,6 @@ def spgemm_timings(inp):
              lambda: spgemm.csr_spgemm(*args)[2],
              lambda: spgemm.spgemm_plain(*args)[2]),
         ]
-        if case != "c":
-            timed.append(("K6_csr_spgemm_dense",
-                          lambda: spgemm.csr_spgemm_dense(*args),
-                          lambda: spgemm.csr_spgemm_dense_plain(*args)))
         for kernel, kernel_fn, plain_fn in timed:
             library = (library_call(spgemm_library)
                        if kernel == "K4+K5 product" else
@@ -1404,6 +1502,7 @@ def spgemm_timings(inp):
             steps[case] = {"shape": shape, "steps": product_steps(args)}
         del A, B, args, plan, whole, ref
         torch.cuda.empty_cache()
+    rows += k6_timings(inp)
 
     wall = {"dot_product": [], "scipy": []}
     for _ in range(5):
@@ -1420,6 +1519,174 @@ def spgemm_timings(inp):
          timer="device: cuda events after each step; host: host clock "
                "around each step; median (p10, p90), 1 GiB read before "
                "each product")
+    return rows
+
+
+def k6_work(ip, ix, bip, bix, n, triangular):
+    """(products, entries of op(B) read, rows of op(B) read) of K6 for
+    op(A) = (ip, ix), op(B) = (bip, bix) and n columns: every product and
+    each entry of op(B) that op(A) names, once; with ``triangular`` only
+    the products of columns j >= i, and of op(B)'s row k only the entries
+    of columns j >= the least row i that names it (op(B)'s rows must be
+    sorted)."""
+    m, k = ip.numel() - 1, bip.numel() - 1
+    kk = ix.long()
+    b_start, b_end = bip[:-1].long(), bip[1:].long()
+    if not triangular:
+        named = torch.unique(kk)
+        return (int((b_end - b_start)[kk].sum()),
+                int((b_end - b_start)[named].sum()), int(named.numel()))
+    dev = ip.device
+    rows = torch.repeat_interleave(torch.arange(m, device=dev),
+                                   ip.long().diff()).clamp(max=n)
+    bkey = (torch.repeat_interleave(torch.arange(k, device=dev),
+                                    b_end - b_start) * n + bix.long())
+    if not bool((bkey[1:] >= bkey[:-1]).all()):
+        raise AssertionError("K6 triangular bound: op(B)'s rows not sorted")
+    first = torch.searchsorted(bkey, kk * n + rows)
+    least = torch.full((k,), n, dtype=torch.long, device=dev).scatter_reduce(
+        0, kk, rows, "amin")
+    read = b_end - torch.searchsorted(
+        bkey, torch.arange(k, device=dev) * n + least)
+    return (int((b_end[kk] - first).sum()), int(read.sum()),
+            int((read > 0).sum()))
+
+
+def k6_bound(args, triangular):
+    """K6's bound (``bound``) and products: op(A)'s arrays and the entries
+    of op(B) it needs, read once (``k6_work``), the m x n output written
+    once; one multiply-add a product, on the CUDA cores."""
+    ip, ix, dv, bip, bix, bdv, n = args
+    products, read, named = k6_work(ip, ix, bip, bix, n, triangular)
+    moved = (nbytes(ip, ix, dv) + read * (bix.element_size()
+                                          + bdv.element_size())
+             + 2 * named * bip.element_size()
+             + (ip.numel() - 1) * n * dv.element_size())
+    flop = flops_per_product(dv.dtype) * products
+    return bound(moved, flop, CUDA_CORE_FLOPS[dv.dtype]), products
+
+
+def densify_matmul(args, shape_a, triangular):
+    """K6's function the JAX package's way (``_xla.py``,
+    ``spgemm_numeric_sorted``): both CSR operands densified
+    (``to_dense``), one ``torch.matmul`` (TF32 off), ``triu`` for the
+    gram.  A yardstick: the port never calls it."""
+    ip, ix, dv, bip, bix, bdv, n = args
+    a = torch.sparse_csr_tensor(ip, ix, dv, size=shape_a)
+    b = torch.sparse_csr_tensor(bip, bix, bdv, size=(shape_a[1], n))
+
+    def run():
+        c = torch.matmul(a.to_dense(), b.to_dense())
+        return torch.triu(c) if triangular else c
+
+    return run, ("to_dense() of both CSR operands + torch.matmul, TF32 "
+                 "off" + (", triu" if triangular else ""))
+
+
+def rows_of(lengths, width, seed):
+    """CSR f64 whose row i holds lengths[i] distinct random columns,
+    sorted (the recipe of ``tests/test_torch_spgemm.py``'s ``rows_of``)."""
+    rng = np.random.default_rng(seed)
+    cols = [np.sort(rng.choice(width, n, replace=False)) for n in lengths]
+    indptr = np.concatenate([[0], np.cumsum(lengths)])
+    data = rng.standard_normal(int(indptr[-1]))
+    return sps.csr_matrix((data, np.concatenate(cols), indptr),
+                          shape=(len(lengths), width))
+
+
+def shuffled_rows(mat, rng):
+    """A copy of CSR ``mat`` with each row's entries in random order."""
+    out = mat.copy()
+    for r in range(out.shape[0]):
+        lo, hi = out.indptr[r], out.indptr[r + 1]
+        perm = lo + rng.permutation(hi - lo)
+        out.indices[lo:hi] = out.indices[perm]
+        out.data[lo:hi] = out.data[perm]
+    return out
+
+
+# K6's shapes in phase 4: (case, description, op(A), op(B), triangular,
+# reps, yardstick).  a and d as ``spgemm_timings``; a-tri is the gram's
+# launch; a-f32 and a-i64 the other value width and index width at case
+# a; d and mid-16k (n = 16,384, a row of f64 within the parent design's
+# 200 KB of shared memory) over op(B) shuffled, which the wrapper sorts
+# on every call; the wide cases are phase 2's n = 100,000 shape and the
+# tests' WIDE_N = 40,000 (a dense f64 row of either exceeds shared
+# memory) over op(B) sorted and shuffled.
+def k6_cases(inp):
+    rng = np.random.default_rng(SEED + 3)
+    x = inp["x"]
+    wide_a = rows_of([SPGEMM_A_ROWS[i % len(SPGEMM_A_ROWS)]
+                      for i in range(42)], 2000, SEED + 5)
+    wide_b = rows_of([20] * 2000, 100_000, SEED + 4)
+    narrow_a = rows_of([0, 1, 5, 40, 300, 2], 600, 3)
+    narrow_b = rows_of([30] * 600, 40_000, 4)
+    mid_a = rows_of([64] * 1000, 2000, SEED + 6)
+    mid_b = rows_of([200] * 2000, 16_384, SEED + 7)
+    return (
+        ("a", "demo X @ X.T, X 500x5000 CSR 21.2% f64", x, x.T, False,
+         REPS, True),
+        ("a-tri", "gram_matrix(X, transpose=True, dense=True): X @ X.T, "
+         "j >= i", x, x.T, True, REPS, True),
+        ("a-f32", "demo X @ X.T in f32", x.astype(np.float32),
+         x.T.astype(np.float32), False, REPS, False),
+        ("a-i64", "demo X @ X.T, int64 indices", x, x.T, False, REPS,
+         False),
+        ("d", "config3 BSR bs=64 8192^2 5% blocks f64, A @ B", inp["bsr_a"],
+         inp["bsr_b"], False, REPS_CONFIG3, True),
+        ("d-shuffled", "the same, op(B) as CSR with its rows shuffled",
+         inp["bsr_a"], shuffled_rows(inp["bsr_b"].tocsr(), rng), False,
+         REPS_CONFIG3, False),
+        ("mid-16k", "1000x2000 (64 a row) @ 2000x16384 (200 a row) f64, "
+         "sorted", mid_a, mid_b, False, 10, False),
+        ("mid-16k-shuffled", "the same, op(B)'s rows shuffled", mid_a,
+         shuffled_rows(mid_b, rng), False, 10, False),
+        ("wide-100k", "42x2000 (rows of 0-600) @ 2000x100000 (20 a row) "
+         "f64, sorted", wide_a, wide_b, False, 10, False),
+        ("wide-100k-shuffled", "the same, op(B)'s rows shuffled", wide_a,
+         shuffled_rows(wide_b, rng), False, 10, False),
+        ("wide-40k", "6x600 (rows of 0-300) @ 600x40000 (30 a row) f64, "
+         "sorted", narrow_a, narrow_b, False, 10, False),
+        ("wide-40k-shuffled", "the same, op(B)'s rows shuffled", narrow_a,
+         shuffled_rows(narrow_b, rng), False, 10, False),
+    )
+
+
+def k6_timings(inp):
+    """Phase 4's K6 rows (``k6_cases``): kernel, plain version and, at a,
+    a-tri and d, the densify + matmul yardstick (``densify_matmul``), with
+    the bound (``k6_bound``) and the launch plan."""
+    from sparse_dot_tpu_torch import formats
+    from sparse_dot_tpu_torch.ops import spgemm
+
+    wrapper = spgemm.csr_spgemm_dense
+    rows = []
+    for case, shape, a, b, tri, reps, yard in k6_cases(inp):
+        A = formats.to_device(a)
+        # The shuffled operands are built from their arrays, as a caller
+        # with unsorted rows would: their order is found out on the card.
+        B = (formats.CSR(*(cuda(arr) for arr in (b.data, b.indices,
+                                                 b.indptr)), b.shape)
+             if "shuffled" in case else formats.to_device(b))
+        args = (*A.csr_arrays(), *B.csr_arrays(), b.shape[1])
+        if case.endswith("-i64"):
+            args = tuple(arr.long() if i in (0, 1, 3, 4) else arr
+                         for i, arr in enumerate(args))
+        kw = {"triangular": tri, "b_sorted": B.csr_sorted()}
+        (bound_ms, bound_by), products = k6_bound(
+            args, tri and "shuffled" not in case)
+        row = timed_row(
+            "K6_csr_spgemm_dense", shape, lambda: wrapper(*args, **kw),
+            lambda: spgemm.csr_spgemm_dense_plain(*args, triangular=tri),
+            (bound_ms, bound_by), reps=reps,
+            yardstick=densify_matmul(args, a.shape, tri) if yard else None,
+            case=case, products=products, b_sorted=kw["b_sorted"])
+        row["plan"] = wrapper.last_plan._asdict()
+        row["window_starts_table"] = wrapper.last_table
+        row["gproducts_per_s"] = products / row["ms"] / 1e6
+        rows.append(row)
+        del A, B, args
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -1775,9 +2042,11 @@ def solver_timings(records, rows):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
-        "--only", choices=("spgemm",),
-        help="a short run that ends with no result line: phases 1, 2 (K4-K6 "
-             "and K2/K3's complex inf case), 3 and 4 of sparse x sparse")
+        "--only", choices=("spgemm", "k6"),
+        help="a short run that ends with no result line: spgemm runs "
+             "phases 1, 2 (K4-K6 and K2/K3's complex inf case), 3 and 4 of "
+             "sparse x sparse; k6 runs phase 1 and K6's phase-4 rows "
+             "(k6_timings)")
     only = parser.parse_args().only
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -1804,6 +2073,11 @@ def main():
     if only == "spgemm":
         check_kernels(spgemm_only=True)
         spgemm_timings(spgemm_path()[1])
+        return
+    if only == "k6":
+        emit("4-k6", rows=k6_timings(spgemm_inputs()),
+             timer="cuda events, median (p10, p90), 1 GiB read before "
+                   "each")
         return
     check_kernels()
     by_path = {}

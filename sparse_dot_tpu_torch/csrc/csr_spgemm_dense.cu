@@ -9,57 +9,297 @@
 // spgemm_numeric_sorted, reached through host.spgemm_dense).  Nothing is
 // densified here: op(B) as k x n can be far larger than the m x n output.
 //
-// Bound: one read of op(B)'s (column, value) and one accumulator update
-// per product, plus m * n stores of C; small outputs are bound by the
-// latency of the per-entry synchronisation, large ones by C's bytes.
-// Design: one 256-thread block owns one row of C.  Its accumulator is a
-// row of n values in shared memory when n * sizeof(T) fits 200 KB, else
-// C's own row in device memory.  The block walks the row's entries of
-// op(A) in order; its threads split op(B)'s row k, whose columns are
-// distinct, so no two threads add to one column within a step, and a
-// __syncthreads ends each step: no atomics, and the same bits every run.
-// The alpha/beta epilogue is fused into the store.
+// Bound: the bytes of op(A), of the entries of op(B) it needs, each once,
+// and of C.  What the design meets instead: each product reads its entry
+// of op(B) again (12 bytes from L2 for f64 and int32 indices), each entry
+// of op(A) names its row of op(B) through a chain of dependent loads
+// (op(A)'s column, op(B)'s row start and end, its columns), and random
+// columns of a row update shared memory with bank conflicts.
+//
+// Design.  The unit of work is a warp, and a warp only ever writes its own
+// partial row, in shared memory: no block-wide barrier per entry of op(A),
+// no atomics.  A work item is one row i of C over one window of `width`
+// columns [j0, j0 + width); `splits` warps share an item, each taking one
+// contiguous chunk of the row's entries of op(A) (a block of 8 warps
+// holds 8 / splits items).  ops/spgemm.py (dense_plan) picks splits and
+// width from m, n, the value size and op(A)'s mean row length: few rows
+// are split across warps, many rows take a warp each, and a row whose n
+// values do not fit a warp's share of shared memory is cut into windows.
+//
+// A warp walks its entries 32 at a time: each lane loads one entry's
+// column k, value and op(B)'s row start and end (so the chain
+// a_indices -> b_indptr runs in 32 lanes at once, not once per step), and
+// the entries reach the warp by __shfl_sync.  A round then adds up to
+// 32 * U products of one op(B) row (U = 4 a lane, 2 for complex128),
+// each lane its own columns; the next round's columns and values are
+// loaded before this round's updates.  The columns of an op(B) row are
+// distinct, so no two lanes of a round update one column, and a
+// __syncwarp orders one round's updates before the next.  Registers set
+// the warps an SM holds, so a round's lanes are predicated rather than
+// cut short, and no more rounds are loaded ahead: on the H100 both cost
+// more than they saved.
+//
+// Where an item covers less than the whole row (windows, or the
+// diagonal under `triangular`), op(B)'s rows must list their columns in
+// ascending order: the wrapper sorts them once when the caller cannot say
+// they are (ops/spgemm.py; the public path caches the sorted copy on the
+// container, formats.sorted_csr_arrays).  A row of op(B) is then entered
+// at the item's first column (max(j0, i) under `triangular`) and left at
+// its last, so columns outside the item are never read.  Each product's
+// column is still tested against the item's columns: rows that are not in
+// fact sorted give a wrong sum, never a write outside the warp's partial
+// row.  Where a row is cut into windows, a first kernel writes where each
+// row of op(B) enters every window (`starts`, scratch from the wrapper),
+// so an entry of op(A) finds its span with one load instead of two binary
+// searches (a search is a chain of dependent loads, each lane of a warp
+// on another cache line); the diagonal under `triangular` is still found
+// by search.
+//
+// The same bits on every run: each warp sums its chunk in op(A)'s stored
+// order, and the chunks' partial rows are added in chunk order.  The
+// alpha/beta epilogue is fused into the store.
 #include "common.cuh"
 
 namespace sdt {
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int64_t kSharedBudget = 200 * 1024;
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
 
-template <typename T, typename I, bool SHARED>
-__global__ void __launch_bounds__(kThreads)
-spgemm_dense_kernel(const I* __restrict__ a_indptr,
-                    const I* __restrict__ a_indices,
-                    const T* __restrict__ a_data,
-                    const I* __restrict__ b_indptr,
-                    const I* __restrict__ b_indices,
-                    const T* __restrict__ b_data, const T* __restrict__ c0,
-                    T* __restrict__ c, int64_t m, int64_t n, T alpha, T beta,
-                    bool scale, bool triangular) {
+template <typename T, typename I>
+struct Args {
+  const I* a_indptr;
+  const I* a_indices;
+  const T* a_data;
+  const I* b_indptr;
+  const I* b_indices;
+  const T* b_data;
+  const T* c0;
+  T* c;
+  // starts[k * (windows + 1) + w]: the first position of op(B)'s row k
+  // at or past column w * width (the row's end for w = windows); null
+  // when the table is not built.
+  I* starts;
+  int64_t n, k;
+  int64_t width;    // columns of a window
+  int64_t windows;  // ceil(n / width)
+  int64_t items;    // m * windows
+  T alpha, beta;
+  int splits;       // warps an item: 1, 2, 4 or 8
+  bool scale, triangular;
+};
+
+// The first q in [lo, hi) with idx[q] >= key (hi when there is none), for
+// idx ascending over [lo, hi).
+template <typename I>
+__device__ __forceinline__ int64_t lower_bound(const I* __restrict__ idx,
+                                               int64_t lo, int64_t hi,
+                                               int64_t key) {
+  while (lo < hi) {
+    const int64_t mid = (lo + hi) >> 1;
+    if (static_cast<int64_t>(idx[mid]) < key) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
+// Loads a round of op(B)'s row: a lane's positions t = lane + 32 u below
+// cnt of the row from (bj, bv); the slots of u with 32 u >= cnt are left.
+template <int U, typename T, typename I>
+__device__ __forceinline__ void load_round(const I* __restrict__ bj,
+                                           const T* __restrict__ bv, int cnt,
+                                           int lane, I (&j)[U], T (&b)[U]) {
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int t = lane + 32 * u;
+    if (t < cnt) {
+      j[u] = bj[t];
+      b[u] = bv[t];
+    }
+  }
+}
+
+// The window-start table (Args::starts), one thread an entry: the
+// searches that the walk would otherwise repeat for every entry of op(A)
+// that names the row.
+template <typename T, typename I>
+__global__ void __launch_bounds__(256)
+window_starts_kernel(const Args<T, I> g) {
+  const int64_t per_row = g.windows + 1;
+  const int64_t total = g.k * per_row;
+  for (int64_t t = blockIdx.x * static_cast<int64_t>(blockDim.x) +
+                   threadIdx.x;
+       t < total; t += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const int64_t row = t / per_row, w = t % per_row;
+    const int64_t end = g.b_indptr[row + 1];
+    g.starts[t] = static_cast<I>(
+        w == g.windows ? end
+                       : lower_bound(g.b_indices, g.b_indptr[row], end,
+                                     w * g.width));
+  }
+}
+
+// One warp adds op(A)[i, pa:pb] @ op(B), restricted to the columns
+// [lo, hi) of window w (columns from j0), into acc.  SEARCH: op(B)'s rows
+// are sorted and each is cut to [lo, hi), at the window's ends from the
+// table when there is one, else (and at a lo inside the window, the
+// diagonal) by binary search, and each product's column is tested
+// against [lo, hi) all the same; else [lo, hi) is all of op(B)'s columns.
+template <bool SEARCH, typename T, typename I>
+__device__ __forceinline__ void walk(const Args<T, I>& g, T* acc, int64_t pa,
+                                     int64_t pb, int64_t w, int64_t j0,
+                                     int64_t lo, int64_t hi, int lane) {
+  using A = Arith<T>;
+  // Positions of one op(B) row a lane takes in a round, all loaded before
+  // any is added.
+  constexpr int U = sizeof(T) <= 8 ? 4 : 2;
+  constexpr int kSpan = 32 * U;
+  const I first = static_cast<I>(j0);
+  for (int64_t base = pa; base < pb; base += 32) {
+    // Each lane loads one entry of op(A) and the span of op(B)'s row it
+    // names.
+    const int64_t p = base + lane;
+    int64_t qs = 0, qe = 0;
+    T av = A::zero();
+    if (p < pb) {
+      const int64_t k = g.a_indices[p];
+      av = g.a_data[p];
+      if (SEARCH && g.starts != nullptr) {
+        const I* at = g.starts + k * (g.windows + 1) + w;
+        qs = at[0];
+        qe = at[1];
+        if (lo > j0) qs = lower_bound(g.b_indices, qs, qe, lo);
+      } else {
+        qs = g.b_indptr[k];
+        qe = g.b_indptr[k + 1];
+        if (SEARCH) {
+          if (hi < g.n) qe = lower_bound(g.b_indices, qs, qe, hi);
+          if (lo > 0) qs = lower_bound(g.b_indices, qs, qe, lo);
+        }
+      }
+    }
+    unsigned live = __ballot_sync(kFullMask, qs < qe);
+    if (!live) continue;
+    // A round: up to kSpan products of one entry from q0, a lane's at
+    // q0 + lane + 32 u.  The first round is the first live entry's.
+    int e = __ffs(static_cast<int>(live)) - 1;
+    live &= live - 1;
+    int64_t q0 = __shfl_sync(kFullMask, qs, e);
+    int64_t q1 = __shfl_sync(kFullMask, qe, e);
+    T a = A::shfl(av, e);
+    int cnt = static_cast<int>(q1 - q0 < kSpan ? q1 - q0 : kSpan);
+    I j[U];
+    T b[U];
+    load_round<U>(g.b_indices + q0, g.b_data + q0, cnt, lane, j, b);
+    while (true) {
+      // The next round (warp-uniform): the rest of this op(B) row, else
+      // the next live entry; its loads go out before this round's updates.
+      int64_t n0 = q0 + kSpan, n1 = q1;
+      T na = a;
+      if (n0 >= q1 && live) {
+        e = __ffs(static_cast<int>(live)) - 1;
+        live &= live - 1;
+        n0 = __shfl_sync(kFullMask, qs, e);
+        n1 = __shfl_sync(kFullMask, qe, e);
+        na = A::shfl(av, e);
+      }
+      const int ncnt = static_cast<int>(
+          n0 >= n1 ? 0 : (n1 - n0 < kSpan ? n1 - n0 : kSpan));
+      I nj[U];
+      T nb[U];
+      load_round<U>(g.b_indices + n0, g.b_data + n0, ncnt, lane, nj, nb);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (lane + 32 * u < cnt &&
+            (!SEARCH || (j[u] >= static_cast<I>(lo) &&
+                         j[u] < static_cast<I>(hi)))) {
+          T* slot = acc + static_cast<int>(j[u] - first);
+          *slot = A::fma(a, b[u], *slot);
+        }
+      }
+      __syncwarp();
+      if (ncnt == 0) break;
+      q0 = n0;
+      q1 = n1;
+      a = na;
+      cnt = ncnt;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        j[u] = nj[u];
+        b[u] = nb[u];
+      }
+    }
+  }
+}
+
+// At most 64 registers a thread for values of up to 8 bytes, so 4 blocks
+// (32 warps) fit an SM; 128 for complex128.
+template <typename T, typename I>
+__global__ void __launch_bounds__(kThreads, sizeof(T) <= 8 ? 4 : 2)
+spgemm_dense_kernel(const Args<T, I> g) {
   using A = Arith<T>;
   extern __shared__ __align__(16) unsigned char smem[];
-  for (int64_t i = blockIdx.x; i < m; i += gridDim.x) {
-    T* acc = SHARED ? reinterpret_cast<T*>(smem) : c + i * n;
-    for (int64_t j = threadIdx.x; j < n; j += kThreads) acc[j] = A::zero();
-    __syncthreads();
-    const int64_t p_end = a_indptr[i + 1];
-    for (int64_t p = a_indptr[i]; p < p_end; ++p) {
-      const int64_t k = a_indices[p];
-      const T av = a_data[p];
-      const int64_t q_end = b_indptr[k + 1];
-      for (int64_t q = b_indptr[k] + threadIdx.x; q < q_end; q += kThreads) {
-        const int64_t j = b_indices[q];
-        if (triangular && j < i) continue;
-        acc[j] = A::fma(av, b_data[q], acc[j]);
+  T* const rows = reinterpret_cast<T*>(smem);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int groups = kWarps / g.splits;
+  const int group = warp / g.splits, part = warp % g.splits;
+  T* const acc = rows + warp * g.width;
+  // The loop's trip count is the block's, so the barriers below (splits
+  // > 1 only) are reached by every thread.
+  for (int64_t first = static_cast<int64_t>(blockIdx.x) * groups;
+       first < g.items; first += static_cast<int64_t>(gridDim.x) * groups) {
+    const int64_t item = first + group;
+    const bool has = item < g.items;
+    int64_t i = 0, win = 0, j0 = 0, w = 0;
+    if (has) {
+      i = item / g.windows;
+      win = item % g.windows;
+      j0 = win * g.width;
+      w = g.n - j0 < g.width ? g.n - j0 : g.width;
+      for (int64_t j = lane; j < w; j += 32) acc[j] = A::zero();
+      __syncwarp();
+      const int64_t lo = g.triangular && i > j0 ? i : j0;
+      const int64_t hi = j0 + w;
+      if (lo < hi) {
+        const int64_t r0 = g.a_indptr[i];
+        const int64_t len = g.a_indptr[i + 1] - r0;
+        const int64_t pa = r0 + len * part / g.splits;
+        const int64_t pb = r0 + len * (part + 1) / g.splits;
+        if (lo == 0 && hi == g.n) {
+          walk<false>(g, acc, pa, pb, win, j0, lo, hi, lane);
+        } else {
+          walk<true>(g, acc, pa, pb, win, j0, lo, hi, lane);
+        }
+      }
+    }
+    if (g.splits == 1) {
+      if (has) {
+        T* out = g.c + i * g.n + j0;
+        for (int64_t j = lane; j < w; j += 32) {
+          out[j] = epilogue(acc[j], g.c0, i * g.n + j0 + j, g.alpha, g.beta,
+                            g.scale);
+        }
+      }
+      __syncwarp();
+    } else {
+      __syncthreads();
+      if (has) {
+        // The item's warps add its partial rows in chunk order.
+        const T* parts = rows + group * g.splits * g.width;
+        for (int64_t j = part * 32 + lane; j < w; j += g.splits * 32) {
+          T v = parts[j];
+          for (int s = 1; s < g.splits; ++s) {
+            v = A::add(v, parts[s * g.width + j]);
+          }
+          const int64_t idx = i * g.n + j0 + j;
+          g.c[idx] = epilogue(v, g.c0, idx, g.alpha, g.beta, g.scale);
+        }
       }
       __syncthreads();
     }
-    for (int64_t j = threadIdx.x; j < n; j += kThreads) {
-      const int64_t idx = i * n + j;
-      c[idx] = epilogue(acc[j], c0, idx, alpha, beta, scale);
-    }
-    __syncthreads();
   }
 }
 
@@ -69,26 +309,49 @@ cudaError_t launch(const void* a_indptr, const void* a_indices,
                    const void* b_indices, const void* b_data, const void* c0,
                    void* c, int64_t m, int64_t n, double alpha_re,
                    double alpha_im, double beta_re, double beta_im,
-                   int triangular, cudaStream_t stream) {
-  const int64_t shared = n * static_cast<int64_t>(sizeof(T));
-  const bool in_shared = shared <= kSharedBudget;
-  auto kernel = in_shared ? spgemm_dense_kernel<T, I, true>
-                          : spgemm_dense_kernel<T, I, false>;
-  const size_t bytes = in_shared ? static_cast<size_t>(shared) : 0;
-  if (in_shared) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(bytes));
-    if (err != cudaSuccess) return err;
+                   int triangular, int splits, int64_t width, int64_t k,
+                   void* starts, cudaStream_t stream) {
+  if ((splits != 1 && splits != 2 && splits != 4 && splits != 8) ||
+      width < 1 || m < 1 || n < 1) {
+    return cudaErrorInvalidValue;
   }
-  const int64_t grid = m < 0x7fffffff ? m : 0x7fffffff;
-  kernel<<<static_cast<unsigned>(grid), kThreads, bytes, stream>>>(
-      static_cast<const I*>(a_indptr), static_cast<const I*>(a_indices),
-      static_cast<const T*>(a_data), static_cast<const I*>(b_indptr),
-      static_cast<const I*>(b_indices), static_cast<const T*>(b_data),
-      static_cast<const T*>(c0), static_cast<T*>(c), m, n,
-      Arith<T>::make(alpha_re, alpha_im), Arith<T>::make(beta_re, beta_im),
-      !is_one(alpha_re, alpha_im), triangular != 0);
+  Args<T, I> g;
+  g.a_indptr = static_cast<const I*>(a_indptr);
+  g.a_indices = static_cast<const I*>(a_indices);
+  g.a_data = static_cast<const T*>(a_data);
+  g.b_indptr = static_cast<const I*>(b_indptr);
+  g.b_indices = static_cast<const I*>(b_indices);
+  g.b_data = static_cast<const T*>(b_data);
+  g.c0 = static_cast<const T*>(c0);
+  g.c = static_cast<T*>(c);
+  g.starts = static_cast<I*>(starts);
+  g.n = n;
+  g.k = k;
+  g.width = width < n ? width : n;
+  g.windows = (n + g.width - 1) / g.width;
+  g.items = m * g.windows;
+  g.alpha = Arith<T>::make(alpha_re, alpha_im);
+  g.beta = Arith<T>::make(beta_re, beta_im);
+  g.splits = splits;
+  g.scale = !is_one(alpha_re, alpha_im);
+  g.triangular = triangular != 0;
+  if (g.windows == 1) g.starts = nullptr;
+  if (g.starts != nullptr && k > 0) {
+    const int64_t total = k * (g.windows + 1);
+    const int64_t blocks = (total + 255) / 256;
+    window_starts_kernel<T, I><<<static_cast<unsigned>(
+        blocks < 65535 * 16 ? blocks : 65535 * 16), 256, 0, stream>>>(g);
+  }
+  const size_t bytes = kWarps * static_cast<size_t>(g.width) * sizeof(T);
+  auto kernel = spgemm_dense_kernel<T, I>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  const int groups = kWarps / splits;
+  const int64_t blocks = (g.items + groups - 1) / groups;
+  const int64_t grid = blocks < 0x7fffffff ? blocks : 0x7fffffff;
+  kernel<<<static_cast<unsigned>(grid), kThreads, bytes, stream>>>(g);
   return cudaGetLastError();
 }
 
@@ -100,9 +363,10 @@ extern "C" int sdt_csr_spgemm_dense(
     const void* a_data, const void* b_indptr, const void* b_indices,
     const void* b_data, const void* c0, void* c, int64_t m, int64_t n,
     double alpha_re, double alpha_im, double beta_re, double beta_im,
-    int triangular, void* stream) {
+    int triangular, int splits, int64_t width, int64_t k, void* starts,
+    void* stream) {
   SDT_DISPATCH(dtype, itype, sdt::launch, a_indptr, a_indices, a_data,
                b_indptr, b_indices, b_data, c0, c, m, n, alpha_re, alpha_im,
-               beta_re, beta_im, triangular,
+               beta_re, beta_im, triangular, splits, width, k, starts,
                static_cast<cudaStream_t>(stream))
 }

@@ -21,6 +21,12 @@ give those arrays, building the converted layout once on the device (a
 stable sort of the other axis' ids) and caching it on the container, as
 ``BSR.bsr_plan(transpose)`` caches K1's chunk plan (``bsr_chunk_plan``)
 and ``csr_plan(transpose, spmv)`` K2's and K3's row plans (``csr_plan``).
+``csr_sorted(transpose)`` tells whether each row of ``csr_arrays(
+transpose)`` lists its columns in ascending order, as K6 needs before it
+searches them: from scipy's ``has_sorted_indices`` when the container is
+built from scipy, true by construction for the converted layouts, else
+computed once on the device; ``sorted_csr_arrays(transpose)`` gives those
+arrays sorted, sorting them once (cached) where they are not.
 """
 
 from typing import NamedTuple
@@ -280,6 +286,21 @@ def _indptr_of_rows(rows, nrows):
     return indptr
 
 
+def rows_ascend(indptr, indices):
+    """Whether the indices of each compressed row ascend (ties allowed),
+    as scipy's ``has_sorted_indices`` tells: device ops and one host
+    read."""
+    nnz = indices.numel()
+    if nnz < 2:
+        return True
+    ascends = indices[1:] >= indices[:-1]
+    # A step from one row's last entry to the next row's first counts as
+    # ascending.
+    starts = indptr[1:-1].long()
+    ascends[starts[(starts > 0) & (starts < nnz)] - 1] = True
+    return bool(ascends.all())
+
+
 def coo_to_csr(rows, cols, vals, nrows):
     """Expanded COO -> (indptr, indices, vals) of CSR with ``nrows`` rows.
 
@@ -315,15 +336,19 @@ class SparseDeviceMatrix:
     indices, indptr : torch.Tensor
         Compressed-sparse index arrays in the active index dtype.
     shape : tuple of int
+    sorted_indices : bool or None
+        Whether the indices of each compressed row (block row for BSR)
+        ascend; None when not known, then ``csr_sorted`` finds out.
     """
 
     format = None  # "csr" | "csc" | "bsr"
 
-    def __init__(self, data, indices, indptr, shape):
+    def __init__(self, data, indices, indptr, shape, sorted_indices=None):
         self.data = data
         self.indices = indices
         self.indptr = indptr
         self.shape = tuple(int(s) for s in shape)
+        self.sorted_indices = sorted_indices
 
     @property
     def dtype(self):
@@ -346,14 +371,17 @@ class SparseDeviceMatrix:
     def iscomplex(self):
         return self.data.is_complex()
 
-    def _with(self, data, indices=None, indptr=None):
-        """Same structure (and class) with other tensors; caches dropped."""
+    def _with(self, data, indices=None, indptr=None, sorted_indices=None):
+        """Same structure (and class) with other tensors; caches dropped.
+        The order of the indices carries over when they do, else it is
+        ``sorted_indices``."""
         out = type(self).__new__(type(self))
         SparseDeviceMatrix.__init__(
             out, data,
             self.indices if indices is None else indices,
             self.indptr if indptr is None else indptr,
             self.shape,
+            self.sorted_indices if indices is None else sorted_indices,
         )
         if isinstance(self, BSR):
             out.blocksize = self.blocksize
@@ -378,7 +406,7 @@ class SparseDeviceMatrix:
         device = torch.device(device)
         return self._with(
             self.data.to(device), self.indices.to(device),
-            self.indptr.to(device),
+            self.indptr.to(device), self.sorted_indices,
         )
 
     def to_dense(self):
@@ -399,6 +427,39 @@ class SparseDeviceMatrix:
             return csr_plan(indptr, indices.numel(), spmv)
 
         return self._cached(("csr_plan", bool(transpose), bool(spmv)), build)
+
+    def csr_sorted(self, transpose=False):
+        """Whether each row of ``csr_arrays(transpose)`` lists its columns
+        in ascending order.  The layouts that ``csr_arrays`` converts are
+        (a stable sort by the other axis of entries stored in order); the
+        container's own arrays are when ``sorted_indices`` says so, which
+        is found out once (one host read) where it was not known."""
+        if bool(transpose) != self._own_csr_transpose:
+            return True
+        if self.sorted_indices is None:
+            self.sorted_indices = rows_ascend(self.indptr, self.indices)
+        return self.sorted_indices
+
+    def sorted_csr_arrays(self, transpose=False):
+        """``csr_arrays(transpose)`` with each row's columns in ascending
+        order: those arrays where ``csr_sorted`` says so, else a copy
+        sorted once on the device (one stable sort) and cached."""
+        arrays = self.csr_arrays(transpose)
+        if self.csr_sorted(transpose):
+            return arrays
+
+        def build():
+            indptr, indices, data = arrays
+            cols, vals = sort_csr_indices(
+                expand_indptr(indptr, indices.numel()), indices, data,
+                self.shape[0] if transpose else self.shape[1])
+            return indptr, cols, vals
+
+        return self._cached(("sorted_csr", bool(transpose)), build)
+
+    # ``csr_arrays(transpose)`` is built on the container's own arrays (for
+    # a BSR: its element CSR, in block order) for this ``transpose``.
+    _own_csr_transpose = False
 
     def _cached(self, key, build):
         cache = self.__dict__.setdefault("_layout_cache", {})
@@ -439,6 +500,7 @@ def _compressed_from_scipy(cls, mat, fmt):
         _indices_to_device(mat.indices, device),
         _indices_to_device(mat.indptr, device),
         mat.shape,
+        bool(mat.has_sorted_indices),
     )
 
 
@@ -478,12 +540,14 @@ class CSR(SparseDeviceMatrix):
     def T(self):
         """Zero-cost transpose: the same buffers read as CSC (memoized)."""
         return self._cached("T", lambda: CSC(
-            self.data, self.indices, self.indptr, self.shape[::-1]
+            self.data, self.indices, self.indptr, self.shape[::-1],
+            self.sorted_indices,
         ))
 
 
 class CSC(SparseDeviceMatrix):
     format = "csc"
+    _own_csr_transpose = True
 
     @classmethod
     def from_scipy(cls, mat):
@@ -510,7 +574,8 @@ class CSC(SparseDeviceMatrix):
     @property
     def T(self):
         return self._cached("T", lambda: CSR(
-            self.data, self.indices, self.indptr, self.shape[::-1]
+            self.data, self.indices, self.indptr, self.shape[::-1],
+            self.sorted_indices,
         ))
 
 
@@ -523,8 +588,9 @@ class BSR(SparseDeviceMatrix):
 
     format = "bsr"
 
-    def __init__(self, data, indices, indptr, shape, blocksize):
-        super().__init__(data, indices, indptr, shape)
+    def __init__(self, data, indices, indptr, shape, blocksize,
+                 sorted_indices=None):
+        super().__init__(data, indices, indptr, shape, sorted_indices)
         self.blocksize = (int(blocksize[0]), int(blocksize[1]))
 
     @classmethod
@@ -541,6 +607,7 @@ class BSR(SparseDeviceMatrix):
             _indices_to_device(mat.indptr, device),
             mat.shape,
             mat.blocksize,
+            bool(mat.has_sorted_indices),
         )
 
     def to_scipy(self, container=_sps.bsr_matrix):

@@ -113,7 +113,8 @@ def convert_container_to_csr(container):
     rows = formats.expand_indptr(indptr, indices.numel())
     indptr, indices, data = formats.coo_to_sorted_csr(
         rows, indices, data, container.shape)
-    return formats.CSR(data, indices, indptr, container.shape)
+    return formats.CSR(data, indices, indptr, container.shape,
+                       sorted_indices=True)
 
 
 def order_sparse_handle(handle):
@@ -126,7 +127,8 @@ def order_sparse_handle(handle):
         container.row_indices(), container.indices, container.data,
         container.shape[1],
     )
-    handle.container = container._with(vals, indices=cols)
+    handle.container = container._with(vals, indices=cols,
+                                       sorted_indices=True)
     return handle
 
 

@@ -79,9 +79,10 @@ _PROTOTYPES = {
                             _INT, _I64, _INT, _P, _P, _P, _P, _I64, _P),
     # dtype, itype, a_indptr, a_indices, a_data, b_indptr, b_indices,
     # b_data, c0, c, m, n, alpha_re, alpha_im, beta_re, beta_im,
-    # triangular, stream
+    # triangular, splits, width, k, starts (scratch), stream
     "sdt_csr_spgemm_dense": (_INT, _INT, _P, _P, _P, _P, _P, _P, _P, _P,
-                             _I64, _I64, _D, _D, _D, _D, _INT, _P),
+                             _I64, _I64, _D, _D, _D, _D, _INT, _INT, _I64,
+                             _I64, _P, _P),
 }
 
 _lib = None

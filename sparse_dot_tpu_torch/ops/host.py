@@ -92,12 +92,13 @@ def gemm(a_np, b_np, out_dtype, alpha=1.0, out=None, out_scalar=None):
 # ---------------------------------------------------------------------------
 
 
-def _product_arrays(A, B, out_dtype):
+def _product_arrays(A, B, out_dtype, sort_b=False):
     """CSR arrays of op(A) and op(B) with ``out_dtype`` values and A's
-    index dtype."""
+    index dtype; with ``sort_b`` op(B)'s rows in ascending column order
+    (``sorted_csr_arrays``)."""
     dtype = formats.torch_dtype(out_dtype)
     a_ip, a_ix, a_dv = A.csr_arrays()
-    b_ip, b_ix, b_dv = B.csr_arrays()
+    b_ip, b_ix, b_dv = B.sorted_csr_arrays() if sort_b else B.csr_arrays()
     itype = a_ip.dtype
     return (a_ip, a_ix, a_dv.to(dtype), b_ip.to(itype), b_ix.to(itype),
             b_dv.to(dtype))
@@ -112,7 +113,7 @@ def spgemm_device(A, B, out_dtype=None, triangular=False):
     m, n = A.shape[0], B.shape[1]
     indptr, indices, data = spgemm.csr_spgemm(
         *_product_arrays(A, B, out_dtype), n, triangular)
-    return formats.CSR(data, indices, indptr, (m, n))
+    return formats.CSR(data, indices, indptr, (m, n), sorted_indices=True)
 
 
 def spgemm_sparse_arrays(A, B, out_dtype, triangular=False):
@@ -128,9 +129,9 @@ def _spgemm_dense_host(A, B, out_dtype, out, out_scalar, triangular):
     beta = 1.0 if out_scalar is None else out_scalar
     c0 = formats.dense_to_device(out) if out is not None else None
     res = spgemm.csr_spgemm_dense(
-        *_product_arrays(A, B, out_dtype), B.shape[1],
+        *_product_arrays(A, B, out_dtype, sort_b=True), B.shape[1],
         beta=beta if c0 is not None else None, c0=c0,
-        triangular=triangular,
+        triangular=triangular, b_sorted=True,
     )
     return res.cpu().numpy().astype(out_dtype, copy=False)
 

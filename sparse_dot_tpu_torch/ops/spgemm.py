@@ -38,6 +38,16 @@ How a sparse-output product runs on the card:
 
 op(B) must not repeat a column within a row (containers hold canonical
 CSR): the kernels let one thread own each column of a B row at a time.
+
+A dense-output product is one launch of K6 on the plan ``dense_plan``
+picks: warps, each with a partial row of C in shared memory, share out
+the rows (a row split across warps when rows are few, cut into column
+windows when it is wide).  Where a work item covers less than a whole
+row (windows, or the gram's diagonal), K6 enters each row of op(B) where
+the item's columns start: at a window from a table of window starts that
+the launch builds first (``window_starts_pay``), at the diagonal by
+binary search.  That needs op(B)'s rows sorted: the caller says so
+(``b_sorted``), else the wrapper sorts them first.
 """
 
 import functools
@@ -47,7 +57,7 @@ import numpy as np
 import torch
 
 from ..config import config
-from ..formats import _check_index_bounds, expand_indptr
+from ..formats import _check_index_bounds, expand_indptr, sort_csr_indices
 from . import _build
 from .csr import _add_rows, _check
 from .dense import axpby
@@ -71,6 +81,16 @@ BLOCK_SLOTS = 4096
 DENSE_RATIO = 8
 # Bytes of device memory for the dense rows of the DENSE_GLOBAL bin.
 GLOBAL_WORKSPACE = 256 << 20
+# K6 (csrc/csr_spgemm_dense.cu): a block of DENSE_WARPS warps, each with a
+# partial row of C of at most DENSE_ROW_BYTES in shared memory (so 56 KB a
+# block and 4 blocks an SM); work enough for DENSE_WARPS_PER_SM warps on
+# every SM before a row is split; a split chunk of op(A) entries no
+# shorter than DENSE_MIN_CHUNK (two batches of the 32 entries that a
+# warp's lanes load at once).
+DENSE_WARPS = 8
+DENSE_ROW_BYTES = 7 * 1024
+DENSE_WARPS_PER_SM = 32
+DENSE_MIN_CHUNK = 64
 
 
 def _round16(nbytes):
@@ -536,12 +556,57 @@ def csr_spgemm(a_indptr, a_indices, a_data, b_indptr, b_indices, b_data, n,
     return indptr, indices, data
 
 
+class DensePlan(NamedTuple):
+    """K6's launch: ``splits`` warps an item (one row of C over one window
+    of ``width`` columns; ``windows`` of them a row)."""
+
+    splits: int
+    width: int
+    windows: int
+
+
+def dense_plan(m, n, itemsize, a_nnz, sms=132):
+    """K6's plan for m rows of op(A) holding ``a_nnz`` entries, n columns
+    and values of ``itemsize`` bytes, on a card of ``sms`` SMs.  A window
+    is the widest multiple of 32 columns that fits DENSE_ROW_BYTES (the
+    whole row when it fits), the windows of a row of equal width; rows
+    are split in 2, 4 or 8 chunks while the items leave the card short of
+    DENSE_WARPS_PER_SM warps an SM and each chunk keeps DENSE_MIN_CHUNK
+    entries of op(A) on average."""
+    cap = max(32, DENSE_ROW_BYTES // itemsize // 32 * 32)
+    windows = max(1, -(-n // cap))
+    width = max(1, min(n, -(-n // windows // 32) * 32 if windows > 1 else n))
+    windows = max(1, -(-n // width))
+    mean_row = a_nnz / max(m, 1)
+    splits = 1
+    while (splits < DENSE_WARPS
+           and m * windows * splits < DENSE_WARPS_PER_SM * sms
+           and mean_row >= DENSE_MIN_CHUNK * 2 * splits):
+        splits *= 2
+    return DensePlan(splits, width, windows)
+
+
+def window_starts_pay(plan, m, n, k, a_nnz, itemsize, index_size):
+    """Whether K6 first tabulates where each of op(B)'s k sorted rows
+    enters each window (one search a row and window, in place of two an
+    entry of op(A) and window): with windows, when op(A) has at least k
+    entries and the table is no larger than the output."""
+    return (plan.windows > 1 and k <= a_nnz
+            and k * (plan.windows + 1) * index_size <= m * n * itemsize)
+
+
 def csr_spgemm_dense(a_indptr, a_indices, a_data, b_indptr, b_indices,
                      b_data, n, alpha=None, beta=None, c0=None,
-                     triangular=False):
+                     triangular=False, b_sorted=False):
     """K6: ``alpha * op(A) @ op(B) + beta * c0`` as a new row-major (m, n)
     tensor (only j >= i of the product with ``triangular``; ``c0`` is
-    added everywhere).  One thread block per output row, no atomics."""
+    added everywhere).  ``b_sorted``: each row of op(B) lists its columns
+    in ascending order, as the container's ``csr_sorted`` tells; when it
+    is not known and the plan enters op(B)'s rows inside (windows, or
+    ``triangular``), the rows are sorted here first, on the card.  The
+    launch's plan is kept in ``csr_spgemm_dense.last_plan``, and whether
+    it tabulated op(B)'s window starts (``window_starts_pay``) in
+    ``last_table``.  No atomics; the same bits on every run."""
     if a_data.device.type == "cpu":
         return csr_spgemm_dense_plain(a_indptr, a_indices, a_data, b_indptr,
                                       b_indices, b_data, n, alpha, beta, c0,
@@ -558,6 +623,17 @@ def csr_spgemm_dense(a_indptr, a_indices, a_data, b_indptr, b_indices,
     c = torch.empty((m, n), dtype=a_data.dtype, device=a_data.device)
     if m == 0 or n == 0:
         return c
+    sms = torch.cuda.get_device_properties(a_data.device).multi_processor_count
+    plan = dense_plan(m, n, a_data.element_size(), a_indices.numel(), sms)
+    if not b_sorted and (plan.windows > 1 or triangular):
+        b_indices, b_data = sort_csr_indices(
+            expand_indptr(b_indptr, b_indices.numel()), b_indices, b_data, n)
+    k = b_indptr.numel() - 1
+    starts = None
+    if window_starts_pay(plan, m, n, k, a_indices.numel(),
+                         a_data.element_size(), b_indptr.element_size()):
+        starts = torch.empty(k * (plan.windows + 1), dtype=b_indptr.dtype,
+                             device=a_data.device)
     dt, it = _build.type_codes(a_data, a_indptr)
     _build.launch(
         "sdt_csr_spgemm_dense", dt, it, a_indptr.data_ptr(),
@@ -566,10 +642,16 @@ def csr_spgemm_dense(a_indptr, a_indices, a_data, b_indptr, b_indices,
         None if c0 is None else c0.data_ptr(), c.data_ptr(), m, n,
         *_build.scalar_parts(alpha),
         *_build.scalar_parts(0.0 if c0 is None else beta),
-        int(triangular), _build.stream_of(a_data),
+        int(triangular), plan.splits, plan.width, k,
+        None if starts is None else starts.data_ptr(),
+        _build.stream_of(a_data),
     )
     csr_spgemm_dense.launches += 1
+    csr_spgemm_dense.last_plan = plan
+    csr_spgemm_dense.last_table = starts is not None
     return c
 
 
 csr_spgemm_dense.launches = 0
+csr_spgemm_dense.last_plan = None
+csr_spgemm_dense.last_table = False

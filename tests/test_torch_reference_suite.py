@@ -165,9 +165,11 @@ def test_port_classes_call_the_port():
 
     with mock.patch.object(sparse_dot_tpu_torch, "dot_product_mkl",
                            counted):
+        # A suite runs the class's setUpClass and tearDownClass around the
+        # test, as a whole run of the class does.
         result = unittest.TestResult()
-        TestPortSparseDenseBSR(  # noqa: F821  (made by on_port above)
-            "test_sparse_dense_out").run(result)
+        unittest.TestSuite([TestPortSparseDenseBSR(  # noqa: F821  (on_port)
+            "test_sparse_dense_out")]).run(result)
     assert result.wasSuccessful() and calls
 
 
