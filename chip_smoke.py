@@ -43,7 +43,15 @@ Phases, each printing one JSON line:
    narrow n, runs of one column, exactly cancelled sums, op(A) rows longer
    than a group over empty op(B) rows, rows of 2000 entries, 6000 short
    rows, and n on either side of 2^27, where the register bins' sort keys
-   widen to 64 bits;
+   widen to 64 bits.  K7 CSR SDDMM (the value gradient) against its plain
+   version at n in {1, 2, 3, 4, 8, 17, 32, 64, 128, 200}, with and without
+   alpha, on G and B views one row and one element into a buffer, with
+   empty rows, nnz == 0 and a row of 100,000 entries (run twice, same
+   bits), and with inf in G and B (the same inf/nan parts), each path (a
+   thread an entry, groups of lanes; 16-byte and scalar loads) seen; then
+   ``torch.autograd.gradcheck`` (reverse and forward mode) of
+   ``ops.coo_spmm_raw``, ``coo_spmv`` and ``csr_spmm`` on the card in f64
+   and c128, with the plain versions refused and K2, K3 and K7 launched;
 3. the main path, ``dot_product`` with scipy/numpy operands at real
    sizes, against the scipy oracle at the reference's decimal=6 (f64)
    and decimal=5 (f32), with each kernel's launch count checked (the
@@ -52,7 +60,7 @@ Phases, each printing one JSON line:
    sparse x sparse path: the reference demo's X @ X.T (f64, f32, dense
    with ``out``) and its gram, BASELINE config 4's complex gram, a
    1M x 1M A @ A, config 3's BSR x BSR and a 50k-row ``sypr``; in both,
-   the plain versions of K1-K6 are made to raise;
+   the plain versions of K1-K7 are made to raise;
 4. kernel and plain-version times at the phase-3 shapes and, for K2 and
    K3, at the solvers' matrices (the 1M Laplacian at n = 1, 4, 16, CGLS's
    A and A^T at n = 1, 4; K3 on the Laplacian, the convection-diffusion
@@ -74,10 +82,11 @@ Phases, each printing one JSON line:
    densified, one ``torch.matmul``), at case a in f32 and with int64
    indices, at d and at n = 16,384 over shuffled op(B), and at two widths
    past shared memory (n = 100,000 and 40,000) over sorted and shuffled
-   op(B); and the wall
+   op(B); K7 at config 1 (n = 128) and at the 1M^2 matrix (n = 1), beside
+   ``torch.sparse.sampled_addmm``; and the wall
    time of ``dot_product(X, X.T)`` beside scipy's;
 5. the solver path, with the counts set to 0 again and the plain versions
-   of K1-K6 made to raise, each result checked against scipy/numpy on the
+   of K1-K7 made to raise, each result checked against scipy/numpy on the
    host: the handle protocol on the demo X (create, convert from CSC,
    order a row-shuffled copy, ``matmul_handles(X, X.T)`` on K4 + K5,
    export); CG (K3) on a 1M-row 5-point Laplacian + 0.01 I, full and as
@@ -95,7 +104,18 @@ Phases, each printing one JSON line:
    K3 (K2) call's time on the same matrix (phase 4's),
    the device's busy ms in a ``torch.profiler`` trace of one more solve
    and its idle share against the median wall, the host syncs counted in
-   ``torch.cuda.set_sync_debug_mode("warn")`` and the launches.
+   ``torch.cuda.set_sync_debug_mode("warn")`` and the launches;
+6. the training path, with the counts set to 0 again and the plain
+   versions of K1-K7 made to raise: SGD through ``ops.coo_spmm_raw`` from
+   zero values toward T = A B on BASELINE config 1's pattern and phase 3's
+   B (20 steps in f64 on the values; 20 in f32 with B trained too), 10
+   steps of ``ops.coo_spmv`` on the 1M^2 matrix with x trained too, and
+   one step through ``torch.func.vmap`` over 4 right-hand sides (one K2
+   launch); every loss finite and at or below the one before up to
+   rounding, every result with a grad_fn, the gradients at each run's
+   first and last step equal to the plain versions' on the same tensors;
+   per run the wall ms of a step (median of steps 2..N), and the device's
+   busy ms of an f64 step in a ``torch.profiler`` trace.
 
 Then the card line, a JSON line of per-kernel results (its first phase-4
 row's times, bound and library time, and the launches of each path) and,
@@ -167,6 +187,10 @@ KERNELS = {
     "K6_csr_spgemm_dense": {
         "source": "sparse_dot_tpu_torch/csrc/csr_spgemm_dense.cu",
         "replaces": "sparse_dot_tpu/ops/_xla.py:326",
+    },
+    "K7_csr_sddmm": {
+        "source": "sparse_dot_tpu_torch/csrc/csr_sddmm.cu",
+        "replaces": "sparse_dot_tpu/ops/_xla.py:178",
     },
 }
 
@@ -282,6 +306,7 @@ def check_kernels(spgemm_only=False):
     """Phase 2; with ``spgemm_only`` K4-K6 and the complex inf case of K2
     and K3 alone."""
     rng = np.random.default_rng(SEED)
+    rng7 = np.random.default_rng(SEED + 9)
     results = {name: {"cases": 0, "max_abs_err": 0.0} for name in KERNELS}
     bins_seen = set()
 
@@ -289,15 +314,17 @@ def check_kernels(spgemm_only=False):
         results[name]["cases"] += 1
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
 
-    schedules, k6_seen = set(), set()
+    schedules, k6_seen, k7_schedules = set(), set(), set()
     for tdt, npdt in NP_DTYPES.items():
         for itype in (np.int32, np.int64):
             if not spgemm_only:
                 check_csr(rng, tdt, npdt, itype, record, schedules)
                 check_k1(rng, tdt, npdt, itype, record)
+                check_sddmm(rng7, tdt, npdt, itype, record, k7_schedules)
             check_spgemm(rng, tdt, npdt, itype, record, bins_seen, k6_seen)
     if not spgemm_only:
         check_k1_special(rng, record)
+        check_sddmm_special(rng7, record)
     check_csr_special(rng, record)
     check_bins_seen(bins_seen)
     check_k6_seen(k6_seen)
@@ -308,9 +335,20 @@ def check_kernels(spgemm_only=False):
         return results
     if {vec > 1 for vec, _ in schedules} != {True, False}:
         raise AssertionError(f"K2 ran only {schedules} (vec, lanes)")
+    check_k7_schedules(k7_schedules)
     emit(2, kernels=results, spgemm_bins=sorted(bins_seen),
-         k2_schedules=sorted(schedules), k6_plans=k6_plans)
+         k2_schedules=sorted(schedules), k6_plans=k6_plans,
+         k7_schedules=sorted(k7_schedules),
+         gradcheck_launches=check_gradcheck())
     return results
+
+
+def check_k7_schedules(seen):
+    """K7 ran a thread an entry and groups of lanes, each with 16-byte
+    and scalar loads."""
+    kinds = {(vec > 1, lanes > 1) for vec, lanes in seen}
+    if kinds != {(True, True), (True, False), (False, True), (False, False)}:
+        raise AssertionError(f"K7 ran only {sorted(seen)} (vec, lanes)")
 
 
 # K2 / K3 cases: (m, k, mean row, every k-th row empty, one long row).
@@ -515,6 +553,124 @@ def check_csr_special(rng, record):
                      a @ bb[:, 0])):
                 fin = same_nonfinite(f"{name} {tdt} inf", out, ref)
                 record(name, compare(out[cuda(fin)], cuda(ref[fin]), tdt))
+
+
+# K7 cases: (m, k, mean row, every k-th row empty, one long row): empty
+# rows, a row of 100,000 entries (spans inside one row, run twice for the
+# same bits), nnz == 0 and an empty matrix.
+SDDMM_CASES = ((300, 200, 3, 5, 0), (64, 190, 12, 4, 100_000),
+               (50, 40, 0, 0, 0), (0, 40, 2, 0, 0))
+SDDMM_NS = (1, 2, 3, 4, 8, 17, 32, 64, 128, 200)
+
+
+def check_sddmm(rng, tdt, npdt, itype, record, schedules):
+    """K7 against ``csr_sddmm_plain`` at every case of SDDMM_CASES and n of
+    SDDMM_NS, with and without alpha; G and B as views one row and one
+    element into a buffer (the second misaligned: scalar loads) at n = 4
+    and 64; the long row's case run twice for the same bits.
+    ``schedules`` collects K7's (vec, lanes)."""
+    from sparse_dot_tpu_torch.ops import sddmm
+
+    alpha = 0.5 - 0.25j if np.dtype(npdt).kind == "c" else -1.5
+    for m, k, mean_row, empty_every, long_row in SDDMM_CASES:
+        indptr, indices, _ = random_csr(
+            rng, m, k, mean_row, npdt, itype, empty_every, long_row)
+        ip, ix = cuda(indptr), cuda(indices)
+        for n in SDDMM_NS:
+            g = cuda(values(rng, (m, n), npdt))
+            b = cuda(values(rng, (k, n), npdt))
+            views = [(g, b)]
+            if n in (4, 64) and m:
+                views += [(misaligned(g, n), misaligned(b, n)),
+                          (misaligned(g, 1), misaligned(b, 1))]
+            for gg, bb in views:
+                aligned = gg.data_ptr() % 16 == 0 and bb.data_ptr() % 16 == 0
+                schedules.add(tuple(sddmm.sddmm_schedule(
+                    n, tdt, len(indices), aligned)[:2]))
+                for al in (None, alpha):
+                    out = sddmm.csr_sddmm(ip, ix, gg, bb, al)
+                    record("K7_csr_sddmm", compare(
+                        out, sddmm.csr_sddmm_plain(ip, ix, gg, bb, al), tdt))
+                    if long_row and n in (1, 17, 200) and al is None:
+                        if not torch.equal(out, sddmm.csr_sddmm(ip, ix, gg,
+                                                                bb)):
+                            raise AssertionError(f"K7 n={n}: runs differ")
+
+
+def check_sddmm_special(rng, record):
+    """K7 with inf in G and in B (+inf, -inf and an imaginary inf): the
+    same nan, +inf and -inf parts as the plain version, finite entries
+    within tolerance; in every value type, at n = 1 (a thread an entry)
+    and n = 24 (groups of lanes)."""
+    from sparse_dot_tpu_torch.ops import sddmm
+
+    for tdt, npdt in NP_DTYPES.items():
+        indptr, indices, _ = random_csr(rng, 64, 48, 4, npdt)
+        for n in (1, 24):
+            g = values(rng, (64, n), npdt)
+            b = values(rng, (48, n), npdt)
+            g[7, 0] = np.inf
+            b[indices[3], n - 1] = -np.inf
+            if np.dtype(npdt).kind == "c":
+                b[indices[20], 0] = complex(0.0, -np.inf)
+            args = (cuda(indptr), cuda(indices), cuda(g), cuda(b))
+            out, ref = sddmm.csr_sddmm(*args), sddmm.csr_sddmm_plain(*args)
+            torch.cuda.synchronize()
+            got, want = (torch.view_as_real(t) if t.is_complex() else t
+                         for t in (out, ref))
+            for what in (torch.isnan, torch.isposinf, torch.isneginf):
+                if not torch.equal(what(got), what(want)):
+                    raise AssertionError(f"K7 {tdt} n={n}: {what.__name__} "
+                                         "differs from the plain version")
+            if not bool(torch.isinf(want).any()):
+                raise AssertionError("K7 inf case: no inf reached the output")
+            fin = torch.isfinite(ref) if not ref.is_complex() else (
+                torch.isfinite(ref.real) & torch.isfinite(ref.imag))
+            record("K7_csr_sddmm", compare(out[fin], ref[fin], tdt))
+
+
+def check_gradcheck():
+    """``torch.autograd.gradcheck`` of ``coo_spmm_raw`` (values and b),
+    ``coo_spmv`` (values, x and y0, with alpha and beta) and ``csr_spmm``
+    (values, b and c0) on the card in f64 and c128, 60 x 50 at n = 5,
+    reverse and forward mode (``check_forward_ad``), with the plain
+    versions refused: K2, K3 and K7 must each launch.  Returns the
+    launches."""
+    from sparse_dot_tpu_torch.ops import autograd, csr
+
+    rng = np.random.default_rng(SEED + 7)
+    m, k, n = 60, 50, 5
+    indptr, indices, _ = random_csr(rng, m, k, 4, np.float64, np.int32, 7)
+    rows = cuda(np.repeat(np.arange(m), np.diff(indptr)).astype(np.int32))
+    ip, ix = cuda(indptr), cuda(indices)
+    before = read_launches()
+    with plain_versions_refused():
+        for tdt, npdt in ((torch.float64, np.float64),
+                          (torch.complex128, np.complex128)):
+            def leaf(shape):
+                return cuda(values(rng, shape, npdt)).requires_grad_()
+
+            v, b, x, y0, c0 = (leaf(len(indices)), leaf((k, n)), leaf(k),
+                               leaf(m), leaf((m, n)))
+            checks = (
+                (lambda vv, bb: autograd.coo_spmm_raw(rows, ix, vv, bb, m),
+                 (v, b)),
+                (lambda vv, xx, yy: autograd.coo_spmv(rows, ix, vv, xx, m,
+                                                      -1.5, 0.5, yy),
+                 (v, x, y0)),
+                (lambda vv, bb, cc: csr.csr_spmm(ip, ix, vv, bb, 2.0, -1.0,
+                                                 cc), (v, b, c0)),
+            )
+            for fn, inputs in checks:
+                if not torch.autograd.gradcheck(fn, inputs,
+                                                check_forward_ad=True):
+                    raise AssertionError(f"gradcheck failed in {tdt}")
+    launched = {name: count - before[name]
+                for name, count in read_launches().items()}
+    if not all(launched[name] > 0 for name in
+               ("K2_csr_spmm", "K3_csr_spmv", "K7_csr_sddmm")):
+        raise AssertionError(f"gradcheck launched {launched}")
+    return {name: count for name, count in launched.items() if count}
 
 
 # K4/K5/K6 cases: (m rows of op(A), k, n, entries of the rows of op(A) in
@@ -864,7 +1020,8 @@ def main_path():
     # complex BSR on the CUDA cores.
     expected = {"K1_bsr_spmm_tc": len(bsrs) + 1, "K1_bsr_spmm_simt": 1,
                 "K2_csr_spmm": 4, "K3_csr_spmv": 3, "K4_csr_spgemm_count": 0,
-                "K5_csr_spgemm_fill": 0, "K6_csr_spgemm_dense": 0}
+                "K5_csr_spgemm_fill": 0, "K6_csr_spgemm_dense": 0,
+                "K7_csr_sddmm": 0}
     if (launches != expected or bsr.bsr_spmm.launches
             != launches["K1_bsr_spmm_tc"] + launches["K1_bsr_spmm_simt"]):
         raise AssertionError(f"launch counts {launches}, expected {expected}")
@@ -939,11 +1096,12 @@ def spgemm_inputs():
 
 ALL_PLAIN = {"spgemm": SPGEMM_PLAIN,
              "csr": ("csr_spmm_plain", "csr_spmv_plain"),
-             "bsr": ("bsr_spmm_plain",)}
+             "bsr": ("bsr_spmm_plain",),
+             "sddmm": ("csr_sddmm_plain",)}
 
 
 class plain_versions_refused:
-    """Inside the block, the plain versions of every kernel (K1-K6) raise:
+    """Inside the block, the plain versions of every kernel (K1-K7) raise:
     the main path must run the kernels, never their plain versions on the
     card."""
 
@@ -967,17 +1125,17 @@ class plain_versions_refused:
 
 
 def reset_launches():
-    from sparse_dot_tpu_torch.ops import bsr, csr, spgemm
+    from sparse_dot_tpu_torch.ops import bsr, csr, sddmm, spgemm
 
     for fn in (csr.csr_spmm, csr.csr_spmv, bsr.bsr_spmm,
                spgemm.csr_spgemm_count, spgemm.csr_spgemm_fill,
-               spgemm.csr_spgemm_dense):
+               spgemm.csr_spgemm_dense, sddmm.csr_sddmm):
         fn.launches = 0
     bsr.bsr_spmm.launches_tc = bsr.bsr_spmm.launches_simt = 0
 
 
 def read_launches():
-    from sparse_dot_tpu_torch.ops import bsr, csr, spgemm
+    from sparse_dot_tpu_torch.ops import bsr, csr, sddmm, spgemm
 
     return {
         "K1_bsr_spmm_tc": bsr.bsr_spmm.launches_tc,
@@ -987,6 +1145,7 @@ def read_launches():
         "K4_csr_spgemm_count": spgemm.csr_spgemm_count.launches,
         "K5_csr_spgemm_fill": spgemm.csr_spgemm_fill.launches,
         "K6_csr_spgemm_dense": spgemm.csr_spgemm_dense.launches,
+        "K7_csr_sddmm": sddmm.csr_sddmm.launches,
     }
 
 
@@ -1173,6 +1332,32 @@ def csr_bound(indptr, indices, data, b, c0=None):
     return bound(moved, flop, CUDA_CORE_FLOPS[b.dtype])
 
 
+def sddmm_bound(indptr, indices, g, b):
+    """K7's bound: A's indices, G, the rows of B that A names (each once)
+    and the output; one multiply-add per entry and column."""
+    n = g.shape[1]
+    rows = int(torch.unique(indices).numel())
+    moved = (nbytes(indptr, indices, g) + rows * n * b.element_size()
+             + indices.numel() * g.element_size())
+    flop = flops_per_product(g.dtype) * indices.numel() * n
+    return bound(moved, flop, CUDA_CORE_FLOPS[g.dtype])
+
+
+def sddmm_library(indptr, indices, g, b, shape):
+    """cuSPARSE SDDMM through torch: ``torch.sparse.sampled_addmm`` of G
+    and B^T (conj(B)^T for complex values, conjugated before the call) at
+    A's pattern, beta = 0."""
+    def make():
+        a = torch.sparse_csr_tensor(
+            indptr, indices, torch.zeros(indices.numel(), dtype=g.dtype,
+                                         device=g.device), size=shape)
+        bt = b.conj_physical().mT if b.is_complex() else b.mT
+        return ((lambda: torch.sparse.sampled_addmm(a, g, bt, beta=0.0)),
+                "torch.sparse.sampled_addmm(A_csr, G, B^T, beta=0) "
+                "(cuSPARSE SDDMM)")
+    return library_call(make)
+
+
 def bsr_bound(indptr, indices, data, b, c0=None):
     """K1's bound: the BSR's arrays, the block rows of b it names, C0 and
     C; bs * bs multiply-adds per stored block and column, on the tensor
@@ -1318,6 +1503,7 @@ def timings(inputs, solver_inp):
     k3("CGLS A^T 50kx1.2M @ (1.2M,)", cgls, cuda(rng.standard_normal(mc)),
        transpose=True)
     del lap, cgls
+    k7_rows(rows, inputs, rng)
 
     for (bs, dt), a3 in inputs["bsrs"].items():
         A3 = formats.to_device(a3)
@@ -1354,6 +1540,34 @@ def timings(inputs, solver_inp):
                 "tensor_core_flops": {str(k): v for k, v in
                                       TENSOR_CORE_FLOPS.items()}})
     return rows
+
+
+def k7_rows(rows, inputs, rng):
+    """K7's phase-4 rows: config 1 at n = 128 (f64; G of config 1's C,
+    B phase 3's b1) and the 1M^2 SpMV matrix at n = 1 (the SpMV's value
+    gradient; B its x), each beside ``torch.sparse.sampled_addmm``."""
+    from sparse_dot_tpu_torch import formats
+    from sparse_dot_tpu_torch.ops import sddmm
+
+    n1, nv = SIZES["config1"], SIZES["spmv"]
+    cases = (
+        (f"config1 CSR f64 {n1}x{n1} 1%, G ({n1},128), B ({n1},128)",
+         inputs["a1"], cuda(rng.standard_normal((n1, 128))),
+         cuda(inputs["b1"])),
+        (f"CSR f64 {nv}x{nv}, 10 per row, G ({nv},1), B = x ({nv},1)",
+         inputs["av"], cuda(rng.standard_normal((nv, 1))),
+         cuda(inputs["xv"][:, None])),
+    )
+    for shape, a, g, b in cases:
+        A = formats.to_device(a)
+        ip, ix, _ = A.csr_arrays()
+        rows.append(timed_row(
+            "K7_csr_sddmm", shape,
+            lambda: sddmm.csr_sddmm(ip, ix, g, b),
+            lambda: sddmm.csr_sddmm_plain(ip, ix, g, b),
+            sddmm_bound(ip, ix, g, b), sddmm_library(ip, ix, g, b, A.shape),
+            schedule=list(sddmm.sddmm_schedule(g.shape[1], g.dtype,
+                                               ix.numel()))))
 
 
 # Case d's plain versions expand 1.4 G products in chunks; fewer turns.
@@ -2005,6 +2219,200 @@ def solver_path(inp):
     return launches, records
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the training path (the device API under autograd)
+# ---------------------------------------------------------------------------
+
+# Loss tolerance of "at or below the previous one, up to rounding".
+LOSS_RTOL = {torch.float64: 1e-12, torch.float32: 1e-5}
+
+
+def power_norm_sq(b, iters=30):
+    """||b||_2^2 from ``iters`` power iterations on b^H b, on the card."""
+    v = torch.ones(b.shape[1], dtype=b.dtype, device=b.device)
+    for _ in range(iters):
+        w = b.mH @ (b @ v)
+        v = w / torch.linalg.vector_norm(w)
+    return float(torch.linalg.vector_norm(b @ v)) ** 2
+
+
+def coo_of(a):
+    """(rows, cols) of a scipy CSR on the card, int32, in its stored
+    order."""
+    rows = np.repeat(np.arange(a.shape[0]), np.diff(a.indptr))
+    return cuda(rows.astype(np.int32)), cuda(a.indices.astype(np.int32))
+
+
+class TrainingRun:
+    """SGD on the values (and optionally the dense operand) of a sparse
+    product through ``ops.coo_spmm_raw`` / ``coo_spmv``, from zero values
+    toward a target made by the true values: loss = ||A(v) B - T||^2.
+    Each step is timed on the host clock to a synchronize; at the first
+    and the last step the inputs and gradients are kept, to be held
+    against the plain versions after the run (``check``)."""
+
+    def __init__(self, name, rows, cols, m, b, target, dtype, lr,
+                 train_b=False, spmv=False):
+        from sparse_dot_tpu_torch.ops import autograd
+
+        self.name, self.m, self.spmv = name, m, spmv
+        self.rows, self.cols = rows, cols
+        self.vals = torch.zeros(rows.numel(), dtype=dtype,
+                                device=rows.device, requires_grad=True)
+        self.b = b.to(dtype, copy=True).requires_grad_(train_b)
+        self.target = target.to(dtype)
+        params = [self.vals] + ([self.b] if train_b else [])
+        self.opt = torch.optim.SGD(params, lr=lr)
+        self.fn = autograd.coo_spmv if spmv else autograd.coo_spmm_raw
+        self.losses, self.walls, self.kept = [], [], []
+
+    def forward(self):
+        out = self.fn(self.rows, self.cols, self.vals, self.b, self.m)
+        if out.grad_fn is None:
+            raise AssertionError(f"{self.name}: no grad_fn on the card")
+        return out, ((out - self.target) ** 2).sum()
+
+    def step(self, keep=False):
+        t0 = time.perf_counter()
+        self.opt.zero_grad(set_to_none=True)
+        out, loss = self.forward()
+        loss.backward()
+        if keep:
+            self.kept.append({
+                "out": out.detach().clone(),
+                "vals": self.vals.detach().clone(),
+                "b": self.b.detach().clone(),
+                "g_vals": self.vals.grad.clone(),
+                "g_b": None if self.b.grad is None else self.b.grad.clone()})
+        self.opt.step()
+        torch.cuda.synchronize()
+        self.walls.append((time.perf_counter() - t0) * 1e3)
+        self.losses.append(loss.detach())
+
+    def run(self, steps):
+        for i in range(steps):
+            self.step(keep=i in (0, steps - 1))
+
+    def check(self):
+        """Finite losses, each at or below the one before up to rounding;
+        the kept gradients against the plain versions on the same
+        tensors.  Returns the run's record."""
+        from sparse_dot_tpu_torch.ops import autograd, csr, sddmm
+
+        losses = torch.stack(self.losses).cpu().tolist()
+        rtol = LOSS_RTOL[self.vals.dtype]
+        if not all(np.isfinite(losses)) or any(
+                b > a * (1 + rtol) for a, b in zip(losses, losses[1:])):
+            raise AssertionError(f"{self.name}: losses {losses}")
+        s = autograd.structures.get(self.rows, self.cols, self.m,
+                                    self.b.shape[0])
+        ip, ix = s.pattern.indptr, s.pattern.indices
+        t, order_t = s.pattern.transpose()
+        err = {"vals": 0.0, "b": 0.0}
+        for kept in self.kept:
+            g = 2 * (kept["out"] - self.target)
+            b = kept["b"]
+            if self.spmv:
+                g, b = g[:, None], b[:, None]
+            ref = sddmm.csr_sddmm_plain(ip, ix, g, b)
+            err["vals"] = max(err["vals"], compare(
+                kept["g_vals"][s.order], ref, ref.dtype))
+            if kept["g_b"] is not None:
+                data_t = kept["vals"][s.order][order_t].conj_physical()
+                ref = csr.csr_spmm_plain(t.indptr, t.indices, data_t, g)
+                err["b"] = max(err["b"], compare(
+                    kept["g_b"], ref[:, 0] if self.spmv else ref, ref.dtype))
+        return {"steps": len(losses), "first_loss": losses[0],
+                "last_loss": losses[-1], "losses": losses,
+                "step_wall_ms": float(np.median(self.walls[1:])),
+                "step_wall_min_ms": min(self.walls[1:]),
+                "step_wall_max_ms": max(self.walls[1:]),
+                "first_step_wall_ms": self.walls[0],
+                "max_abs_err_vs_plain": err}
+
+
+def training_path(inputs):
+    """Phase 6: SGD through the device API at full width with the plain
+    versions refused.  Config 1's pattern (10,000^2, 1%) and phase 3's B
+    (10,000 x 128): 20 steps in f64 on the values (K2, K7), with step 1/L,
+    L = 2 ||B||_2^2 from power iterations; 20 in f32 with B trained too
+    (K2 over A^H as well); 10 steps of the SpMV form on the 1M^2 matrix
+    with x trained too (K3, K7 at n = 1, K3 over A^H; L = 2 max over rows
+    of ||x at the row's columns||^2); one step through ``torch.func.vmap``
+    over 4 right-hand sides of 32 columns (K2 once, K7 once); one more f64
+    step under ``torch.profiler`` for the device's busy time.  Checks the
+    losses, the grad_fn of every result and, at the first and last step of
+    each run, the gradients against the plain versions."""
+    from sparse_dot_tpu_torch.ops import autograd, sddmm
+
+    a1, av = inputs["a1"], inputs["av"]
+    m1, mv = a1.shape[0], av.shape[0]
+    b1, xv = cuda(inputs["b1"]), cuda(inputs["xv"])
+    t1 = cuda(a1 @ inputs["b1"])
+    tv = cuda(av @ inputs["xv"])
+    r1, c1 = coo_of(a1)
+    rv, cv = coo_of(av)
+    lr1 = 1.0 / (2.0 * power_norm_sq(b1))
+    row_sq = torch.zeros(mv, dtype=torch.float64, device=xv.device).index_add_(
+        0, rv, xv[cv.long()] ** 2)
+    lrv = 1.0 / (2.0 * float(row_sq.max()))
+    runs = {
+        "f64_values": TrainingRun("f64_values", r1, c1, m1, b1, t1,
+                                  torch.float64, lr1),
+        "f32_values_and_b": TrainingRun("f32_values_and_b", r1, c1, m1, b1,
+                                        t1, torch.float32, lr1, train_b=True),
+        "spmv_f64_values_and_x": TrainingRun(
+            "spmv_f64_values_and_x", rv, cv, mv, xv, tv, torch.float64, lrv,
+            train_b=True, spmv=True),
+    }
+    steps = {"f64_values": 20, "f32_values_and_b": 20,
+             "spmv_f64_values_and_x": 10}
+    bs = b1.view(m1, 4, 32).permute(1, 0, 2)
+    ts = t1.view(m1, 4, 32).permute(1, 0, 2)
+
+    reset_launches()
+    with plain_versions_refused():
+        t0 = time.perf_counter()
+        for name, run in runs.items():
+            run.run(steps[name])
+        seconds = time.perf_counter() - t0
+        # One step through vmap over 4 right-hand sides.
+        v = runs["f64_values"].vals.detach().clone().requires_grad_()
+        k2_before = read_launches()["K2_csr_spmm"]
+        cv4 = torch.func.vmap(
+            lambda b: autograd.coo_spmm_raw(r1, c1, v, b, m1))(bs)
+        vmap_k2 = read_launches()["K2_csr_spmm"] - k2_before
+        if cv4.grad_fn is None or vmap_k2 != 1:
+            raise AssertionError(f"vmap step: K2 launched {vmap_k2} times")
+        ((cv4 - ts) ** 2).sum().backward()
+        torch.cuda.synchronize()
+        busy = device_busy_ms(runs["f64_values"].step)
+        # That step ran under the profiler: not one of the run's.
+        runs["f64_values"].walls.pop()
+        runs["f64_values"].losses.pop()
+    launches = read_launches()
+    expected = {name: 0 for name in launches}
+    expected.update(K2_csr_spmm=20 + 40 + 1 + 1, K3_csr_spmv=20,
+                    K7_csr_sddmm=20 + 20 + 10 + 1 + 1)
+    if launches != expected:
+        raise AssertionError(f"launch counts {launches}, expected {expected}")
+
+    records = {name: run.check() for name, run in runs.items()}
+    s = autograd.structures.get(r1, c1, m1, b1.shape[0])
+    g = 2 * (cv4.detach().permute(1, 0, 2).reshape(m1, 128) - t1)
+    ref = sddmm.csr_sddmm_plain(s.pattern.indptr, s.pattern.indices, g, b1)
+    vmap_err = compare(v.grad[s.order], ref, ref.dtype)
+    wall = records["f64_values"]["step_wall_ms"]
+    emit(6, seconds=seconds, launches=launches, runs=records,
+         lr={"config1": lr1, "spmv": lrv},
+         vmap_step={"k2_launches": vmap_k2, "max_abs_err_vs_plain": vmap_err},
+         f64_step_device_busy_ms=busy,
+         f64_step_device_idle_share=None if busy is None else 1 - busy / wall,
+         timer="host clock per step to a synchronize, median of steps "
+               "2..N; device busy: torch.profiler, one more f64 step")
+    return launches
+
+
 # Each solve's matrix in phase 4: the K3 (K2) rows whose times make one
 # step's matvecs (CGLS: A and A^T).
 SOLVE_MATVECS = {
@@ -2087,6 +2495,7 @@ def main():
     rows = timings(inputs, solver_inp) + spgemm_timings(spgemm_inp)
     by_path["solvers"], records = solver_path(solver_inp)
     solver_timings(records, rows)
+    by_path["training"] = training_path(inputs)
     launches = {name: sum(path[name] for path in by_path.values())
                 for name in KERNELS}
 

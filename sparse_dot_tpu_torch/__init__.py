@@ -9,8 +9,9 @@ complex128, with the reference's ``cast``, ``dense``, ``out``/
 ``pardiso``/``pardisoinit``; and the sparse handle protocol
 (``interface``).  The sparse products run on hand-written CUDA kernels
 for Hopper (``csrc/``): K1 BSR SpMM, K2 CSR SpMM, K3 CSR SpMV, K4 + K5
-sparse x sparse with sparse output (count, then fill) and K6 sparse x
-sparse with dense output; dense GEMM and the dense gram run on
+sparse x sparse with sparse output (count, then fill), K6 sparse x
+sparse with dense output and K7 CSR SDDMM (the gradient of a sparse
+product with respect to its values); dense GEMM and the dense gram run on
 ``torch.matmul``.  The solvers' matvecs run on K3 (one right-hand side)
 and K2 (several, and CGLS); the dense QR and LU routes on
 ``torch.linalg``.
@@ -22,9 +23,17 @@ raises when no card is visible (it never falls back to the CPU), or
     from sparse_dot_tpu_torch.config import config
     config.device = "cpu"
 
+The device API, ``ops.coo_spmm_raw`` and ``ops.coo_spmv`` (the JAX
+package's ``_xla`` functions of those names), takes torch tensors and is
+open to PyTorch's transforms: reverse mode with respect to the values and
+the dense operand (K7 CSR SDDMM and K2/K3 over A^H), forward mode, and
+``torch.func.vmap`` over dense operands (one K2 launch for the batch).
+``ops.csr.csr_spmm`` and ``csr_spmv`` carry gradients the same way when
+an operand requires grad.
+
 The drop-in aliases with the reference's ``*_mkl`` names are exported.
-Not ported yet (ROADMAP.md): the device API with autograd and the
-sharded (multi-device) layer.  This package never imports JAX.
+Not ported yet (ROADMAP.md): the sharded (multi-device) layer.  This
+package never imports JAX.
 """
 
 from .config import (

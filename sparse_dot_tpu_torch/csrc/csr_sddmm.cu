@@ -1,0 +1,410 @@
+// K7: CSR SDDMM, out[p] = alpha * sum_n G[r_p, n] * conj(B[c_p, n]) for each
+// stored entry p = (r_p, c_p) of a CSR A, with row-major G (m, n) and B
+// (k, n); conj only for complex values.  It is the gradient of C = A @ B
+// with respect to A's values (G = dL/dC), and at n = 1 that of y = A @ x.
+//
+// Replaces XLA's transpose of the scatter in sparse_dot_tpu/ops/_xla.py
+// (coo_spmm_raw :178, coo_spmv :138): jax.grad of those functions with
+// respect to the values is two gathers, a product and a sum over n per
+// nonzero, which XLA runs as separate passes through an nnz x n
+// intermediate (1 GB at BASELINE config 1 in f64).  Here it is one fused
+// gather, multiply and reduce, with nothing but the output written.
+//
+// Bound: each entry reads a row of G and a row of B, n multiply-adds, so
+// the kernel is bound by bytes (A's indices, G and B read once each, the
+// output), far below the card's FMA rate.  It gathers the same rows of B
+// as K2 (csr_spmm.cu) does for the same A, and meets the same latency:
+// a gather depends on an index load.  The design mirrors K2's:
+//
+// - Lane mapping from n and the value type (ops/sddmm.py,
+//   sddmm_schedule, which takes K2's spmm_schedule): a lane reads V
+//   adjacent columns in one 16-byte load when every row of G and B is
+//   whole 16-byte units and both pointers are aligned, else one column;
+//   an entry takes L lanes, the power of two at or above its loads, at
+//   most 32, each lane up to two loads (PER); wider n is walked in strips
+//   of PER * L * V columns by the same group.
+// - Work: a group of L lanes owns a span of S consecutive entries (S from
+//   the schedule, so every SM gets groups), finds the row of its first by
+//   a binary search of indptr, and keeps its strip of that row of G in
+//   registers while it walks the span, loading a new strip only where the
+//   span enters the next row.  Spans balance long rows by themselves: an
+//   entry's output depends on no other entry, so a row needs no chunks and
+//   no second pass, unlike K2's.
+// - Rounds of E entries (4, or 2 where a lane loads 32 bytes of an
+//   entry's B row, and at most L; round_entries): the group issues
+//   the E B loads together and loads the next round's indices before it
+//   sums this round, so no gather waits on an index load.  Each lane sums
+//   its products of each entry; one reduce-scatter across the group adds
+//   the E sums in E - 1 + log2(L / E) shuffles (not E log2 L), leaving
+//   entry e's total with the lanes whose bits spell e, one of which writes
+//   out[p + e]; a later strip adds to what the earlier wrote.
+// - An entry whose G and B rows are one load (n == V, or n == 1; L == 1)
+//   takes a thread of its own: a warp a tile of 32 * 8 consecutive
+//   entries, a thread every 32nd, its first row found by binary search and
+//   each next from the last (forward steps of 1, 2, 4, ..., then a binary
+//   search), so the search is paid once for 8 entries.  Spans enter rows
+//   the same way, so runs of empty rows cost their logarithm.
+//
+// Every output is written by one lane, with no atomics: a run gives the
+// same bits twice.
+#include <cstring>
+
+#include "common.cuh"
+
+namespace sdt {
+namespace {
+
+constexpr int kThreads = 128;
+
+template <typename T, int V>
+struct alignas(sizeof(T) * V) Vec {
+  T v[V];
+};
+
+template <typename T, int V>
+__device__ __forceinline__ Vec<T, V> load_vec(const T* __restrict__ p) {
+  Vec<T, V> out;
+  if constexpr (V > 1) {  // 16 bytes
+    const int4 raw = __ldg(reinterpret_cast<const int4*>(p));
+    memcpy(&out, &raw, 16);
+  } else {
+    out.v[0] = p[0];
+  }
+  return out;
+}
+
+__device__ __forceinline__ float conj_of(float v) { return v; }
+__device__ __forceinline__ double conj_of(double v) { return v; }
+template <typename R>
+__device__ __forceinline__ cuda::std::complex<R> conj_of(
+    cuda::std::complex<R> v) {
+  return cuda::std::complex<R>(v.real(), -v.imag());
+}
+
+// The row r of entry p: the last r with indptr[r] <= p, so that
+// indptr[r] <= p < indptr[r + 1] even across empty rows.
+template <typename I>
+__device__ __forceinline__ int64_t row_of(const I* __restrict__ indptr,
+                                          int64_t m, int64_t p) {
+  int64_t lo = 0, hi = m;  // indptr[lo] <= p < indptr[hi]
+  while (hi - lo > 1) {
+    const int64_t mid = (lo + hi) >> 1;
+    if (static_cast<int64_t>(indptr[mid]) <= p) {
+      lo = mid;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
+// The row of entry p >= indptr[lo], searching forward from row lo: steps
+// of 1, 2, 4, ... past rows that end at or before p, then a binary search
+// of the last step, so a row reached across many empty rows costs their
+// logarithm, not their number.
+template <typename I>
+__device__ __forceinline__ int64_t row_from(const I* __restrict__ indptr,
+                                            int64_t m, int64_t p,
+                                            int64_t lo) {
+  int64_t hi = lo + 1;
+  for (int64_t step = 1; hi < m && static_cast<int64_t>(indptr[hi]) <= p;
+       step <<= 1) {
+    lo = hi;
+    hi = lo + step;
+  }
+  if (hi > m) hi = m;
+  while (hi - lo > 1) {  // indptr[lo] <= p < indptr[hi]
+    const int64_t mid = (lo + hi) >> 1;
+    if (static_cast<int64_t>(indptr[mid]) <= p) {
+      lo = mid;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
+// Entries a thread of the entry kernel takes, 32 apart: a warp covers
+// 32 * kPerThread consecutive entries.
+constexpr int kPerThread = 8;
+
+// A thread an entry at a time: G's and B's rows are one load (n == V, or
+// n == 1).  A thread takes the entries p, p + 32, ... of its warp's tile;
+// the first's row by binary search, each next one's from the last
+// (row_from), so the search is paid once a thread, not once an entry.
+template <typename T, typename I, int V>
+__global__ void __launch_bounds__(kThreads)
+csr_sddmm_entry_kernel(const I* __restrict__ indptr,
+                       const I* __restrict__ indices,
+                       const T* __restrict__ g, const T* __restrict__ b,
+                       T* __restrict__ out, int64_t m, int64_t n,
+                       int64_t nnz, T alpha, bool scale) {
+  using A = Arith<T>;
+  const int64_t tile = (static_cast<int64_t>(blockIdx.x) * kThreads +
+                        (threadIdx.x & ~31)) * kPerThread;
+  const int64_t first = tile + (threadIdx.x & 31);
+  if (first >= nnz) return;
+  int64_t row = row_of(indptr, m, first);
+#pragma unroll
+  for (int j = 0; j < kPerThread; ++j) {
+    const int64_t p = first + 32 * j;
+    if (p >= nnz) break;
+    const int64_t col = static_cast<int64_t>(indices[p]);
+    if (j > 0) row = row_from(indptr, m, p, row);
+    T acc = A::zero();
+    if constexpr (V > 1) {
+      const Vec<T, V> gv = load_vec<T, V>(g + row * V);
+      const Vec<T, V> bv = load_vec<T, V>(b + col * V);
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        acc = A::fma(gv.v[e], conj_of(bv.v[e]), acc);
+      }
+    } else {
+      acc = A::fma(g[row], conj_of(b[col]), acc);
+    }
+    out[p] = scale ? A::mul(alpha, acc) : acc;
+  }
+}
+
+// Adds each of the E sums v[] across a group of L lanes (E <= L, both
+// powers of two) in log2(L) shuffle stages, E - 1 + log2(L / E) shuffles
+// in all: each of the first log2(E) stages halves the values a lane holds
+// (the lanes with bit `off` set keep the upper half, the others the lower,
+// and each adds what its partner kept of the other half); the rest add
+// the one value left.  Returns the total of entry entry_of<L, E>(gl),
+// which every lane with the same high bits holds; a fixed order, so the
+// same bits every run.
+template <typename T, int L, int E>
+__device__ __forceinline__ T reduce_scatter(T (&v)[E], int gl,
+                                            unsigned members) {
+  using A = Arith<T>;
+#pragma unroll
+  for (int half = E / 2, off = L / 2; half > 0; half >>= 1, off >>= 1) {
+    const bool upper = gl & off;
+#pragma unroll
+    for (int i = 0; i < half; ++i) {
+      const T send = upper ? v[i] : v[i + half];
+      const T keep = upper ? v[i + half] : v[i];
+      v[i] = A::add(keep, A::shfl_xor(send, off, members));
+    }
+  }
+#pragma unroll
+  for (int off = L / (2 * E); off > 0; off >>= 1) {
+    v[0] = A::add(v[0], A::shfl_xor(v[0], off, members));
+  }
+  return v[0];
+}
+
+// The entry of a round whose total lane gl holds after reduce_scatter:
+// its bits L / 2, L / 4, ... read as a number.
+template <int L, int E>
+__device__ __forceinline__ int entry_of(int gl) {
+  int e = 0;
+#pragma unroll
+  for (int half = E / 2, off = L / 2; half > 0; half >>= 1, off >>= 1) {
+    if (gl & off) e += half;
+  }
+  return e;
+}
+
+// Entries a round for groups of L lanes that load `bytes` of an entry's B
+// row a lane: 4, fewer for narrow groups, and 2 where four rounds' loads
+// would pass 64 bytes a lane (they took registers, and so warps).
+constexpr int round_entries(int lanes, int bytes) {
+  int e = 4;
+  while (e > 2 && e * bytes > 64) e >>= 1;
+  return e < lanes ? e : lanes;
+}
+
+// Blocks an SM must hold of the span kernel: 8 of 128 threads (32 warps)
+// cap its registers at 64 a thread.  Warps in flight set the rate of its
+// gathers; at config 1's width the cap measured faster than the
+// compiler's own choice (96 registers), at other widths about even.
+constexpr int kSpanBlocks = 8;
+
+// A group of L lanes a span of `span` entries (see the top), E entries a
+// round: their B rows loaded together, the next round's indices loaded
+// before this round's sums, the E sums added by one reduce-scatter.  L, V,
+// PER and E are compile-time, so shuffles, masks and offsets are too: a
+// form with the lane count known only at run time held more registers and
+// measured about 2x slower at config 1.
+template <typename T, typename I, int L, int V, int PER, int E>
+__global__ void __launch_bounds__(kThreads, kSpanBlocks)
+csr_sddmm_span_kernel(const I* __restrict__ indptr,
+                      const I* __restrict__ indices,
+                      const T* __restrict__ g, const T* __restrict__ b,
+                      T* out, int64_t m, int64_t n, int64_t nnz,
+                      int64_t span, T alpha, bool scale) {
+  using A = Arith<T>;
+  constexpr int kPerBlock = kThreads / L;
+  constexpr int kStrip = PER * L * V;
+  const int gl = static_cast<int>(threadIdx.x) % L;
+  const unsigned members =
+      L == 32 ? kFullMask
+              : ((1u << L) - 1u) << ((threadIdx.x & 31) & ~(L - 1));
+  const int64_t p0 =
+      (static_cast<int64_t>(blockIdx.x) * kPerBlock + threadIdx.x / L) *
+      span;
+  if (p0 >= nnz) return;  // the whole group
+  const int64_t p1 = p0 + span < nnz ? p0 + span : nnz;
+  const int64_t first_row = row_of(indptr, m, p0);
+  const int mine = entry_of<L, E>(gl);
+  const bool writer = (gl & (L / E - 1)) == 0;
+
+  for (int64_t s0 = 0; s0 < n; s0 += kStrip) {
+    // This lane's columns: c + s * L * V for s < PER, those below n.
+    const int64_t c = s0 + gl * V;
+    int64_t row = first_row;
+    int64_t row_end = static_cast<int64_t>(indptr[row + 1]);
+    Vec<T, V> gv[PER];
+#pragma unroll
+    for (int s = 0; s < PER; ++s) {
+      if (c + s * L * V < n) {
+        gv[s] = load_vec<T, V>(g + row * n + c + s * L * V);
+      }
+    }
+    I next[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) next[e] = p0 + e < p1 ? indices[p0 + e] : I(0);
+    for (int64_t p = p0; p < p1; p += E) {
+      Vec<T, V> bv[E][PER];
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const T* __restrict__ brow = b + static_cast<int64_t>(next[e]) * n + c;
+#pragma unroll
+        for (int s = 0; s < PER; ++s) {
+          if (c + s * L * V < n) bv[e][s] = load_vec<T, V>(brow + s * L * V);
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        next[e] = p + E + e < p1 ? indices[p + E + e] : I(0);
+      }
+      T sum[E];
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        sum[e] = A::zero();
+        const int64_t q = p + e;
+        if (q >= p1) continue;  // the whole group
+        if (q >= row_end) {     // the span enters a later row
+          row = row_from(indptr, m, q, row);
+          row_end = static_cast<int64_t>(indptr[row + 1]);
+#pragma unroll
+          for (int s = 0; s < PER; ++s) {
+            if (c + s * L * V < n) {
+              gv[s] = load_vec<T, V>(g + row * n + c + s * L * V);
+            }
+          }
+        }
+#pragma unroll
+        for (int s = 0; s < PER; ++s) {
+          if (c + s * L * V >= n) continue;
+#pragma unroll
+          for (int k = 0; k < V; ++k) {
+            sum[e] = A::fma(gv[s].v[k], conj_of(bv[e][s].v[k]), sum[e]);
+          }
+        }
+      }
+      const T total = reduce_scatter<T, L, E>(sum, gl, members);
+      const int64_t q = p + mine;
+      if (writer && q < p1) {
+        T v = s0 == 0 ? total : A::add(out[q], total);
+        if (s0 + kStrip >= n && scale) v = A::mul(alpha, v);
+        out[q] = v;
+      }
+    }
+  }
+}
+
+template <typename T, typename I, int V>
+cudaError_t launch_entries(const void* indptr, const void* indices,
+                           const void* g, const void* b, void* out,
+                           int64_t m, int64_t n, int64_t nnz, T alpha,
+                           bool scale, cudaStream_t stream) {
+  const int64_t per_block = static_cast<int64_t>(kThreads) * kPerThread;
+  const int64_t blocks = (nnz + per_block - 1) / per_block;
+  csr_sddmm_entry_kernel<T, I, V>
+      <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+          static_cast<const I*>(indptr), static_cast<const I*>(indices),
+          static_cast<const T*>(g), static_cast<const T*>(b),
+          static_cast<T*>(out), m, n, nnz, alpha, scale);
+  return cudaGetLastError();
+}
+
+template <typename T, typename I, int L, int V, int PER>
+cudaError_t launch_spans(const void* indptr, const void* indices,
+                         const void* g, const void* b, void* out, int64_t m,
+                         int64_t n, int64_t nnz, int64_t span, T alpha,
+                         bool scale, cudaStream_t stream) {
+  constexpr int E = round_entries(L, PER * V * static_cast<int>(sizeof(T)));
+  const int64_t groups = (nnz + span - 1) / span;
+  const int64_t blocks = (groups + kThreads / L - 1) / (kThreads / L);
+  csr_sddmm_span_kernel<T, I, L, V, PER, E>
+      <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+          static_cast<const I*>(indptr), static_cast<const I*>(indices),
+          static_cast<const T*>(g), static_cast<const T*>(b),
+          static_cast<T*>(out), m, n, nnz, span, alpha, scale);
+  return cudaGetLastError();
+}
+
+template <typename T, typename I>
+cudaError_t launch(const void* indptr, const void* indices, const void* g,
+                   const void* b, void* out, int64_t m, int64_t n,
+                   int64_t nnz, int vec, int lanes, int per_lane,
+                   int64_t span, double alpha_re, double alpha_im,
+                   cudaStream_t stream) {
+  constexpr int kVec = static_cast<int>(16 / sizeof(T));
+  if (m <= 0 || n <= 0 || nnz <= 0 || span <= 0) {
+    return cudaErrorInvalidValue;
+  }
+  const T alpha = Arith<T>::make(alpha_re, alpha_im);
+  const bool scale = !is_one(alpha_re, alpha_im);
+  if (lanes == 1) {
+    if (vec == kVec && n == kVec) {
+      return launch_entries<T, I, kVec>(indptr, indices, g, b, out, m, n,
+                                        nnz, alpha, scale, stream);
+    }
+    if (vec == 1 && n == 1) {
+      return launch_entries<T, I, 1>(indptr, indices, g, b, out, m, n, nnz,
+                                     alpha, scale, stream);
+    }
+    return cudaErrorInvalidValue;
+  }
+  // Two loads a lane only where 32 lanes do not cover n in one
+  // (ops/csr.spmm_schedule).
+#define SDT_K7_ARGS \
+  indptr, indices, g, b, out, m, n, nnz, span, alpha, scale, stream
+#define SDT_K7_LANES(V)                                                    \
+  switch (lanes) {                                                         \
+    case 2: return launch_spans<T, I, 2, V, 1>(SDT_K7_ARGS);               \
+    case 4: return launch_spans<T, I, 4, V, 1>(SDT_K7_ARGS);               \
+    case 8: return launch_spans<T, I, 8, V, 1>(SDT_K7_ARGS);               \
+    case 16: return launch_spans<T, I, 16, V, 1>(SDT_K7_ARGS);             \
+    case 32:                                                               \
+      return per_lane == 2 ? launch_spans<T, I, 32, V, 2>(SDT_K7_ARGS)     \
+                           : launch_spans<T, I, 32, V, 1>(SDT_K7_ARGS);    \
+    default: return cudaErrorInvalidValue;                                 \
+  }
+  if (per_lane != 1 && (per_lane != 2 || lanes != 32)) {
+    return cudaErrorInvalidValue;
+  }
+  if (vec == kVec) SDT_K7_LANES(kVec)
+  if (vec == 1) SDT_K7_LANES(1)
+#undef SDT_K7_LANES
+#undef SDT_K7_ARGS
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+}  // namespace sdt
+
+extern "C" int sdt_csr_sddmm(int dtype, int itype, const void* indptr,
+                             const void* indices, const void* g,
+                             const void* b, void* out, int64_t m, int64_t n,
+                             int64_t nnz, int vec, int lanes, int per_lane,
+                             int64_t span, double alpha_re, double alpha_im,
+                             void* stream) {
+  SDT_DISPATCH(dtype, itype, sdt::launch, indptr, indices, g, b, out, m, n,
+               nnz, vec, lanes, per_lane, span, alpha_re, alpha_im,
+               static_cast<cudaStream_t>(stream))
+}

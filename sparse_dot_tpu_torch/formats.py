@@ -18,7 +18,9 @@ keeps the caller's block order, as the JAX package's does.
 The kernels read CSR (K2, K3) or BSR (K1) in the orientation of the
 product.  ``csr_arrays(transpose)`` and ``BSR.bsr_arrays(transpose)``
 give those arrays, building the converted layout once on the device (a
-stable sort of the other axis' ids) and caching it on the container, as
+stable sort of the other axis' ids) and caching it on the container (for
+CSR and CSC as structure and permutation, ``CsrPattern.transpose``, the
+values gathered anew on every call, so they follow ``data``), as
 ``BSR.bsr_plan(transpose)`` caches K1's chunk plan (``bsr_chunk_plan``)
 and ``csr_plan(transpose, spmv)`` K2's and K3's row plans (``csr_plan``).
 ``csr_sorted(transpose)`` tells whether each row of ``csr_arrays(
@@ -29,6 +31,7 @@ computed once on the device; ``sorted_csr_arrays(transpose)`` gives those
 arrays sorted, sorting them once (cached) where they are not.
 """
 
+import contextlib
 from typing import NamedTuple
 
 import numpy as np
@@ -301,6 +304,70 @@ def rows_ascend(indptr, indices):
     return bool(ascends.all())
 
 
+class CsrPattern:
+    """The structure of a CSR matrix, without its values: ``indptr``,
+    ``indices`` and the number of columns ``ncols``, with what the kernels
+    need of it built once on the device and cached.  ``plan(spmv)`` is K2's
+    (K3's) row plan (``csr_plan``); ``transpose()`` the pattern of the
+    transpose and the permutation that carries values to it.  It holds no
+    values, so what it caches stays right while the values change, as
+    they do at every step of a training loop: values reach the transpose
+    as ``data[order]``, gathered anew by each caller.  ``plans`` seeds the
+    plan cache ({spmv: CsrPlan}) with plans already built for these
+    arrays.  What it builds, it builds outside any ``torch.func``
+    transform that is active (``structure_only``), so a pattern first used
+    inside ``torch.func.grad`` or ``vmap`` caches plain tensors."""
+
+    def __init__(self, indptr, indices, ncols, plans=None):
+        self.indptr = indptr
+        self.indices = indices
+        self.ncols = int(ncols)
+        self._plans = dict(plans or {})
+        self._transpose = None
+
+    @property
+    def shape(self):
+        return (self.indptr.numel() - 1, self.ncols)
+
+    @property
+    def nnz(self):
+        return self.indices.numel()
+
+    def plan(self, spmv=False):
+        """K2's ``CsrPlan`` of these arrays (K3's with ``spmv``), built on
+        the device once (no host sync) and cached."""
+        spmv = bool(spmv)
+        if spmv not in self._plans:
+            with structure_only():
+                self._plans[spmv] = csr_plan(self.indptr, self.nnz, spmv)
+        return self._plans[spmv]
+
+    def transpose(self):
+        """(pattern of the transpose, order): entry q of the transpose's
+        CSR is entry ``order[q]`` of this one, its rows listed in
+        ascending order (one stable sort of the column ids, once)."""
+        if self._transpose is None:
+            with structure_only():
+                self._transpose = self._build_transpose()
+        return self._transpose
+
+    def _build_transpose(self):
+        order = torch.argsort(self.indices, stable=True)
+        rows = expand_indptr(self.indptr, self.nnz)
+        return (CsrPattern(_indptr_of_rows(self.indices, self.ncols),
+                           rows[order], self.shape[0]), order)
+
+
+def structure_only():
+    """A block whose tensors no autograd or ``torch.func`` transform
+    follows: index structure built there is plain, whatever transform
+    the caller runs under."""
+    stack = contextlib.ExitStack()
+    stack.enter_context(torch.no_grad())
+    stack.enter_context(torch._C._DisableFuncTorch())
+    return stack
+
+
 def coo_to_csr(rows, cols, vals, nrows):
     """Expanded COO -> (indptr, indices, vals) of CSR with ``nrows`` rows.
 
@@ -529,12 +596,14 @@ class CSR(SparseDeviceMatrix):
         )
 
     def csr_arrays(self, transpose=False):
-        """(indptr, indices, data) of the CSR of op(A)."""
+        """(indptr, indices, data) of the CSR of op(A).  The transpose's
+        structure and the permutation of the values are cached, the values
+        gathered through it on every call, so they follow ``data``."""
         if not transpose:
             return self.indptr, self.indices, self.data
-        return self._cached("csr_T", lambda: coo_to_csr(
-            self.indices, self.row_indices(), self.data, self.shape[1]
-        ))
+        pattern, order = self._cached("csr_T", lambda: CsrPattern(
+            self.indptr, self.indices, self.shape[1]).transpose())
+        return pattern.indptr, pattern.indices, self.data[order]
 
     @property
     def T(self):
@@ -564,12 +633,13 @@ class CSC(SparseDeviceMatrix):
 
     def csr_arrays(self, transpose=False):
         """(indptr, indices, data) of the CSR of op(A).  A CSC's own
-        arrays are the CSR of its transpose."""
+        arrays are the CSR of its transpose; its CSR form is cached as
+        structure and permutation, the values gathered on every call."""
         if transpose:
             return self.indptr, self.indices, self.data
-        return self._cached("csr", lambda: coo_to_csr(
-            self.indices, self.col_indices(), self.data, self.shape[0]
-        ))
+        pattern, order = self._cached("csr", lambda: CsrPattern(
+            self.indptr, self.indices, self.shape[0]).transpose())
+        return pattern.indptr, pattern.indices, self.data[order]
 
     @property
     def T(self):

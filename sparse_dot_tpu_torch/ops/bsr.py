@@ -30,7 +30,7 @@ import torch
 
 from ..formats import bsr_chunk_plan, expand_indptr
 from . import _build
-from .csr import _check
+from .csr import _check, refuse_views
 from .dense import axpby, ieee_matmul
 
 
@@ -66,6 +66,7 @@ def bsr_spmm(indptr, indices, data, b, alpha=None, beta=None, c0=None,
     arrays (for example ``BSR.bsr_plan``, cached); it is built here when
     None and the tensor-core variant needs it.  Returns a new
     (nbrows * bs, n) tensor."""
+    refuse_views("bsr_spmm", indptr, indices, data, b, c0)
     if b.device.type == "cpu":
         return bsr_spmm_plain(indptr, indices, data, b, alpha, beta, c0)
     if not b.is_cuda:

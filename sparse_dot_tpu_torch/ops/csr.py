@@ -24,17 +24,56 @@ the value type, the alignment of the pointers and the mean row length
 from typing import NamedTuple
 
 import torch
+from torch._C import _functorch
+from torch.autograd import forward_ad
 
 from ..config import config
-from ..formats import SPMV_TILE, csr_plan, expand_indptr
+from ..formats import SPMV_TILE, CsrPattern, csr_plan, expand_indptr
 from . import _build
 from .dense import axpby
 
 
+def refuse_views(name, *tensors):
+    """Raise on an operand that a kernel would read wrongly through its
+    ``data_ptr()``: a lazy conjugate or negative view (``b.conj()``, whose
+    bit the kernels cannot see; ``conj_physical()`` is the form they
+    take), or a tensor wrapped by a ``torch.func`` transform, which only
+    the ``torch.autograd.Function``s of ``ops/autograd`` may unwrap.
+    Checked on both devices, so the CPU's plain versions refuse what the
+    card would."""
+    for t in tensors:
+        if t is None:
+            continue
+        if t.is_conj() or t.is_neg():
+            raise ValueError(
+                f"{name}: an operand is a lazy conjugate or negative view; "
+                "pass .conj_physical() or .resolve_conj().resolve_neg()")
+        if _functorch.is_functorch_wrapped_tensor(t):
+            raise ValueError(f"{name}: an operand is wrapped by a "
+                             "torch.func transform")
+
+
+def tracked(*tensors):
+    """Whether autograd or a ``torch.func`` transform follows any of
+    ``tensors``: one requires grad under grad mode, carries a forward-mode
+    tangent, or is wrapped by a transform."""
+    grad = torch.is_grad_enabled()
+    for t in tensors:
+        if t is None:
+            continue
+        if ((grad and t.requires_grad)
+                or _functorch.is_functorch_wrapped_tensor(t)
+                or forward_ad.unpack_dual(t).tangent is not None):
+            return True
+    return False
+
+
 def _check(name, index_tensors, value_tensors, optional=()):
-    """Same CUDA device, contiguous, one index dtype and one value dtype."""
+    """Same CUDA device, contiguous, one index dtype and one value dtype,
+    no lazy view (``refuse_views``)."""
     tensors = [*index_tensors, *value_tensors,
                *(t for t in optional if t is not None)]
+    refuse_views(name, *tensors)
     device = value_tensors[0].device
     for t in tensors:
         if t.device != device:
@@ -143,7 +182,27 @@ def csr_spmm(indptr, indices, data, b, alpha=None, beta=None, c0=None,
     """``alpha * A @ b + beta * c0`` for CSR A (``indptr`` of m + 1,
     ``indices``, ``data``) and row-major ``b`` of (k, n); ``c0`` is (m, n)
     or None.  ``plan`` is ``formats.csr_plan`` of these arrays (K2's);
-    built here when None.  Returns a new (m, n) tensor."""
+    built here when None.  Returns a new (m, n) tensor.
+
+    When autograd or a ``torch.func`` transform follows ``data``, ``b`` or
+    ``c0`` (``tracked``), the call goes through ``ops.autograd.CsrSpmm``
+    on either device, so the result carries its gradient (K7 and K2 over
+    A^H on the card); otherwise it is the kernel (the plain version on
+    the CPU) alone."""
+    if tracked(data, b, c0):
+        from .autograd import CsrSpmm
+
+        pattern = CsrPattern(indptr, indices, b.shape[0],
+                             None if plan is None else {False: plan})
+        return CsrSpmm.apply(pattern, data, b, alpha, beta, c0)
+    return spmm(indptr, indices, data, b, alpha, beta, c0, plan)
+
+
+def spmm(indptr, indices, data, b, alpha=None, beta=None, c0=None,
+         plan=None):
+    """``csr_spmm`` without autograd: K2 on the card, the plain version on
+    the CPU; counted in ``csr_spmm.launches``."""
+    refuse_views("csr_spmm", indptr, indices, data, b, c0)
     if b.device.type == "cpu":
         return csr_spmm_plain(indptr, indices, data, b, alpha, beta, c0)
     if not b.is_cuda:
@@ -203,7 +262,22 @@ def csr_spmv(indptr, indices, data, x, alpha=None, beta=None, y0=None,
     """``alpha * A @ x + beta * y0`` for CSR A and 1-d ``x`` of (k,);
     ``y0`` is (m,) or None.  ``plan`` is ``formats.csr_plan(..., spmv=True)``
     of these arrays (K3's tiles); built here when None.  Returns a new
-    (m,) tensor."""
+    (m,) tensor.  Tracked operands go through ``ops.autograd.CsrSpmv``,
+    as in ``csr_spmm``."""
+    if tracked(data, x, y0):
+        from .autograd import CsrSpmv
+
+        pattern = CsrPattern(indptr, indices, x.shape[0],
+                             None if plan is None else {True: plan})
+        return CsrSpmv.apply(pattern, data, x, alpha, beta, y0)
+    return spmv(indptr, indices, data, x, alpha, beta, y0, plan)
+
+
+def spmv(indptr, indices, data, x, alpha=None, beta=None, y0=None,
+         plan=None):
+    """``csr_spmv`` without autograd: K3 on the card, the plain version on
+    the CPU; counted in ``csr_spmv.launches``."""
+    refuse_views("csr_spmv", indptr, indices, data, x, y0)
     if x.device.type == "cpu":
         return csr_spmv_plain(indptr, indices, data, x, alpha, beta, y0)
     if not x.is_cuda:

@@ -1,0 +1,117 @@
+"""CSR SDDMM (kernel K7): the gradient of a sparse product with respect to
+its values.
+
+``csr_sddmm(indptr, indices, g, b, alpha)`` gives, for each stored entry
+p = (r_p, c_p) of a CSR A in its stored order,
+
+    out[p] = alpha * sum_n g[r_p, n] * conj(b[c_p, n])
+
+(conj only for complex values): G B^H sampled at A's pattern.  With
+G = dL/dC of C = A @ B it is dL/d(A's values), as PyTorch's convention
+for complex gradients has it; at n = 1 it is the gradient of y = A @ x.
+On a CUDA tensor the wrapper launches the hand-written kernel
+(``csrc/csr_sddmm.cu``) or raises; on a CPU tensor it runs the plain
+version beside it, which is also what the kernel is checked against on
+the card.  ``csr_sddmm.launches`` counts calls that launched the kernel.
+
+K7 replaces XLA's transpose of the scatter in ``_xla.coo_spmm_raw`` and
+``_xla.coo_spmv`` (``sparse_dot_tpu/ops/_xla.py``), which ``jax.grad``
+runs through an nnz x n intermediate.  It is bound by the bytes it moves
+(A's indices, G, the rows of B it gathers, the output); its lane mapping
+is K2's (``csr.spmm_schedule``), chosen on the host with no device read.
+"""
+
+from typing import NamedTuple
+
+import torch
+
+from ..config import config
+from ..formats import expand_indptr
+from . import _build
+from .csr import _check, refuse_views, spmm_schedule
+
+# Groups of 32 lanes that fill the card twice over: the H100's 132 SMs,
+# 32 warps on each (``csrc/csr_sddmm.cu``, kSpanBlocks), two rounds.
+_GROUP_TARGET = 132 * 64
+
+
+class SddmmSchedule(NamedTuple):
+    """K7's lane mapping: ``vec``, ``lanes`` and ``per_lane`` as in K2's
+    ``SpmmSchedule`` (a strip of ``lanes * per_lane * vec`` columns), and
+    ``span``, the entries a group of ``lanes`` lanes walks, min(4, lanes)
+    entries a round.  ``lanes`` == 1 (n at most one 16-byte load) takes a
+    thread an entry."""
+
+    vec: int
+    lanes: int
+    per_lane: int
+    span: int
+
+
+def sddmm_schedule(n, dtype, nnz, aligned=True):
+    """The ``SddmmSchedule`` for n columns of ``dtype`` and ``nnz``
+    entries: K2's lanes for n (``spmm_schedule``), and spans of 32 to 512
+    entries, as long as gives about ``_GROUP_TARGET`` groups of 32 lanes
+    (more for narrower groups)."""
+    s = spmm_schedule(n, dtype, 0, aligned)
+    target = _GROUP_TARGET * (32 // s.lanes)
+    span = min(512, max(32, -(-nnz // target)))
+    return SddmmSchedule(s.vec, s.lanes, s.per_lane, span)
+
+
+def csr_sddmm_plain(indptr, indices, g, b, alpha=None):
+    """``alpha * sum_n g[r_p, n] * conj(b[c_p, n])`` for each entry p of
+    the CSR (``indptr``, ``indices``) in plain PyTorch: gather both rows,
+    multiply, sum over n, chunked over nnz so the gathered intermediate
+    stays under ``config.spmm_chunk_elements`` elements."""
+    nnz, n = indices.numel(), g.shape[1]
+    out = torch.zeros(nnz, dtype=g.dtype, device=g.device)
+    if nnz and n:
+        rows = expand_indptr(indptr, nnz).long()
+        nchunks = max(1, (nnz * n) // config.spmm_chunk_elements)
+        chunk = -(-nnz // nchunks)
+        for s in range(0, nnz, chunk):
+            e = min(s + chunk, nnz)
+            prods = g[rows[s:e]] * b[indices[s:e].long()].conj()
+            out[s:e] = prods.sum(1)
+    if alpha is not None and complex(alpha) != 1:
+        out = out * alpha
+    return out
+
+
+def csr_sddmm(indptr, indices, g, b, alpha=None):
+    """``alpha * (g @ b^H)`` at the entries of the CSR (``indptr`` of
+    m + 1, ``indices`` into k columns), for row-major ``g`` of (m, n) and
+    ``b`` of (k, n), as a new (nnz,) tensor in the entries' stored order.
+    Not differentiable itself (``ops.autograd.CsrSddmm`` is)."""
+    refuse_views("csr_sddmm", indptr, indices, g, b)
+    if g.device.type == "cpu":
+        return csr_sddmm_plain(indptr, indices, g, b, alpha)
+    if not g.is_cuda:
+        raise ValueError(f"csr_sddmm: no kernel for device {g.device}")
+    _check("csr_sddmm", (indptr, indices), (g, b))
+    m, nnz = indptr.numel() - 1, indices.numel()
+    if g.dim() != 2 or b.dim() != 2 or g.shape[0] != m or (
+            g.shape[1] != b.shape[1]):
+        raise ValueError(f"csr_sddmm: g {tuple(g.shape)} and b "
+                         f"{tuple(b.shape)} do not fit {m} rows")
+    n = g.shape[1]
+    out = torch.empty(nnz, dtype=g.dtype, device=g.device)
+    if nnz == 0:
+        return out
+    if n == 0:
+        return out.zero_()
+    aligned = g.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
+    s = sddmm_schedule(n, g.dtype, nnz, aligned)
+    dt, it = _build.type_codes(g, indptr)
+    _build.launch(
+        "sdt_csr_sddmm", dt, it, indptr.data_ptr(), indices.data_ptr(),
+        g.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, nnz, s.vec,
+        s.lanes, s.per_lane, s.span, *_build.scalar_parts(alpha),
+        _build.stream_of(g),
+    )
+    csr_sddmm.launches += 1
+    return out
+
+
+csr_sddmm.launches = 0

@@ -59,7 +59,7 @@ import torch
 from ..config import config
 from ..formats import _check_index_bounds, expand_indptr, sort_csr_indices
 from . import _build
-from .csr import _add_rows, _check
+from .csr import _add_rows, _check, refuse_views
 from .dense import axpby
 
 # Kinds of row bins (the codes of csrc/csr_spgemm.cu's BinKind).
@@ -355,6 +355,8 @@ def csr_spgemm_count(a_indptr, a_indices, b_indptr, b_indices, n, plan,
     (j >= i only with ``triangular``), as an (m,) int64 tensor: ``out``
     when given (zeros, which rows of no product keep), else a new one.
     ``plan`` is ``spgemm_plan``'s for the same operands."""
+    refuse_views("csr_spgemm_count", a_indptr, a_indices, b_indptr,
+                 b_indices)
     if a_indptr.device.type == "cpu":
         return csr_spgemm_count_plain(a_indptr, a_indices, b_indptr,
                                       b_indices, n, triangular)
@@ -467,6 +469,8 @@ def csr_spgemm_fill(a_indptr, a_indices, a_data, b_indptr, b_indices,
     bins and sizes each grid to its bin: ``bin_sizes`` are the plan's rows
     per bin as host ints, read from ``plan.offsets`` when not given (a
     host read, as that of ``nnz``; ``csr_spgemm`` reads both at once)."""
+    refuse_views("csr_spgemm_fill", a_indptr, a_indices, a_data, b_indptr,
+                 b_indices, b_data)
     if a_data.device.type == "cpu":
         return csr_spgemm_fill_plain(a_indptr, a_indices, a_data, b_indptr,
                                      b_indices, b_data, n, triangular)
@@ -532,6 +536,8 @@ def csr_spgemm(a_indptr, a_indices, a_data, b_indptr, b_indices, b_data, n,
     each step's name as it ends, to time them); the plain ESC on the CPU.  Raises
     (with the ILP64 hint) when int32 indices cannot hold the output's
     nnz."""
+    refuse_views("csr_spgemm", a_indptr, a_indices, a_data, b_indptr,
+                 b_indices, b_data)
     if a_data.device.type == "cpu":
         return spgemm_plain(a_indptr, a_indices, a_data, b_indptr,
                             b_indices, b_data, n, triangular)
@@ -607,6 +613,8 @@ def csr_spgemm_dense(a_indptr, a_indices, a_data, b_indptr, b_indices,
     launch's plan is kept in ``csr_spgemm_dense.last_plan``, and whether
     it tabulated op(B)'s window starts (``window_starts_pay``) in
     ``last_table``.  No atomics; the same bits on every run."""
+    refuse_views("csr_spgemm_dense", a_indptr, a_indices, a_data, b_indptr,
+                 b_indices, b_data, c0)
     if a_data.device.type == "cpu":
         return csr_spgemm_dense_plain(a_indptr, a_indices, a_data, b_indptr,
                                       b_indices, b_data, n, alpha, beta, c0,

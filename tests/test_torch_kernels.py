@@ -1,12 +1,14 @@
 """The port's kernel modules against the JAX package's functions.
 
 Each module of ``sparse_dot_tpu_torch.ops`` that holds a kernel (K1 BSR
-SpMM in ``bsr``, K2 CSR SpMM and K3 CSR SpMV in ``csr``) and the dense
-GEMM are run on the CPU, where the wrappers take their plain PyTorch
-versions, on inputs made from a seed with numpy and given to both
-packages.  The JAX side is the Pallas kernel in interpret mode, or the
-XLA function it falls back to.  The CUDA kernels themselves are checked
-against these plain versions on the card by ``chip_smoke.py``.
+SpMM in ``bsr``, K2 CSR SpMM and K3 CSR SpMV in ``csr``, K7 CSR SDDMM in
+``sddmm``) and the dense GEMM are run on the CPU, where the wrappers
+take their plain PyTorch versions, on inputs made from a seed with numpy
+and given to both packages.  The JAX side is the Pallas kernel in
+interpret mode, or the XLA function it falls back to (for K7: ``jax.vjp``
+of ``_xla.coo_spmm_raw`` in the values, and a dense numpy oracle).  The
+CUDA kernels themselves are checked against these plain versions on the
+card by ``chip_smoke.py``.
 
 Tolerances: rtol = atol = 1e-12 for float64/complex128 and 1e-5 for
 float32/complex64, on values of order 1; the two sides sum in different
@@ -18,6 +20,7 @@ import numpy.testing as npt
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 import sparse_dot_tpu  # noqa: F401  (enables x64 before any JAX array)
@@ -25,7 +28,7 @@ from sparse_dot_tpu.ops import _xla
 from sparse_dot_tpu.ops.pallas_bsr import bsr_spmm_pallas
 
 from sparse_dot_tpu_torch.config import config
-from sparse_dot_tpu_torch.ops import _build, bsr, csr, dense
+from sparse_dot_tpu_torch.ops import _build, bsr, csr, dense, sddmm, spgemm
 
 
 @pytest.fixture(autouse=True)
@@ -295,27 +298,150 @@ def test_gemm_matches_xla_gemm(dtype, accumulate):
 
 
 # ---------------------------------------------------------------------------
+# K7: CSR SDDMM
+# ---------------------------------------------------------------------------
+
+
+SDDMM_CASES = [
+    # m, k, n, mean row length
+    (40, 30, 7, 5),
+    (33, 50, 64, 12),
+    (25, 20, 1, 3),   # n == 1: the SpMV gradient
+    (30, 25, 4, 0),   # nnz == 0
+]
+
+
+def sddmm_oracle(indptr, indices, g, b):
+    """``(G @ B^H)[rows, cols]`` densely, in numpy."""
+    return (g @ b.conj().T)[row_ids(indptr), indices]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("itype", [np.int32, np.int64])
+@pytest.mark.parametrize("case", SDDMM_CASES)
+def test_csr_sddmm_plain_matches_dense_oracle(dtype, itype, case):
+    """Every value type and index width, with empty rows (every fourth),
+    nnz == 0 and n == 1, with and without alpha."""
+    m, k, n, mean_row = case
+    rng = np.random.default_rng(61)
+    indptr, indices, _ = random_csr(rng, m, k, mean_row, dtype)
+    indptr, indices = indptr.astype(itype), indices.astype(itype)
+    g, b = values(rng, (m, n), dtype), values(rng, (k, n), dtype)
+    ref = sddmm_oracle(indptr, indices, g, b)
+    out = sddmm.csr_sddmm(t(indptr), t(indices), t(g), t(b))
+    assert out.shape == (len(indices),) and out.dtype == t(g).dtype
+    assert_close(out, ref, dtype)
+    alpha = 0.5 - 2j if np.dtype(dtype).kind == "c" else -1.5
+    assert_close(sddmm.csr_sddmm(t(indptr), t(indices), t(g), t(b), alpha),
+                 alpha * ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.complex128])
+def test_csr_sddmm_plain_is_jax_value_gradient(dtype):
+    """K7 is the gradient of A @ B in A's values: the conjugate of JAX's
+    ``vjp`` of ``_xla.coo_spmm_raw`` in the values for the cotangent
+    conj(G) (JAX's vjp is linear, PyTorch's gradient conjugates)."""
+    rng = np.random.default_rng(62)
+    m, k, n = 35, 28, 9
+    indptr, indices, data = random_csr(rng, m, k, 4, dtype)
+    g, b = values(rng, (m, n), dtype), values(rng, (k, n), dtype)
+    _, vjp = jax.vjp(lambda v: _xla.coo_spmm_raw(
+        jnp.asarray(row_ids(indptr)), jnp.asarray(indices), v,
+        jnp.asarray(b), m), jnp.asarray(data))
+    (ref,) = vjp(jnp.asarray(np.conj(g)))
+    out = sddmm.csr_sddmm(t(indptr), t(indices), t(g), t(b))
+    assert_close(out, np.conj(np.asarray(ref)), dtype)
+
+
+def test_csr_sddmm_plain_chunking(monkeypatch):
+    """The plain SDDMM chunks over nnz; chunked and one-shot agree."""
+    rng = np.random.default_rng(63)
+    indptr, indices, _ = random_csr(rng, 50, 40, 8, np.complex128)
+    g = values(rng, (50, 16), np.complex128)
+    b = values(rng, (40, 16), np.complex128)
+    whole = sddmm.csr_sddmm(t(indptr), t(indices), t(g), t(b))
+    monkeypatch.setattr(config, "spmm_chunk_elements", 100)
+    chunked = sddmm.csr_sddmm(t(indptr), t(indices), t(g), t(b))
+    assert_close(chunked, whole.numpy(), np.complex128)
+
+
+@pytest.mark.parametrize("n, dtype, lanes, vec", [
+    (1, torch.float64, 1, 1),       # a thread an entry, scalar
+    (2, torch.float64, 1, 2),       # a thread an entry, one 16-byte load
+    (3, torch.float64, 4, 1),       # odd n: scalar loads, 4 lanes
+    (128, torch.float64, 32, 2),    # config 1's width: a warp an entry
+    (200, torch.complex128, 32, 1),  # two strips of 64 columns
+])
+def test_sddmm_schedule(n, dtype, lanes, vec):
+    """K7's lanes are K2's for the same n; spans stay in [32, 512] and
+    give about one group per 32 lanes of the card (``_GROUP_TARGET``)."""
+    s = sddmm.sddmm_schedule(n, dtype, 1_000_000)
+    assert (s.lanes, s.vec) == (lanes, vec)
+    assert s.lanes * s.per_lane * s.vec >= min(n, 128 if vec == 2 else 64)
+    assert sddmm.sddmm_schedule(n, dtype, 10).span == 32
+    assert sddmm.sddmm_schedule(n, dtype, 10**9).span == 512
+    groups = -(-1_000_000 // s.span)
+    assert groups <= sddmm._GROUP_TARGET * (32 // lanes) or s.span == 512
+
+
+# ---------------------------------------------------------------------------
 # Wrapper dispatch and the build's bookkeeping
 # ---------------------------------------------------------------------------
 
 
-def test_cpu_tensors_take_plain_version_without_counting():
-    rng = np.random.default_rng(51)
-    indptr, indices, data = random_csr(rng, 10, 8, 3, np.float64)
-    b = values(rng, (8, 4), np.float64)
-    before = (csr.csr_spmm.launches, csr.csr_spmv.launches,
-              bsr.bsr_spmm.launches)
-    out = csr.csr_spmm(t(indptr), t(indices), t(data), t(b))
-    assert_close(out, csr.csr_spmm_plain(t(indptr), t(indices), t(data),
-                                         t(b)).numpy(), np.float64)
-    csr.csr_spmv(t(indptr), t(indices), t(data), t(b[:, 0]))
-    bsr.bsr_spmm(t(indptr), t(indices), t(data.reshape(-1, 1, 1)), t(b))
-    assert (csr.csr_spmm.launches, csr.csr_spmv.launches,
-            bsr.bsr_spmm.launches) == before
+def lazy_view(x, kind):
+    """x (values of ``kind``'s type) as a lazy view whose bit a kernel
+    would not see: the conjugate of complex values, or the negative of
+    real ones (the imaginary part of a conjugate view)."""
+    if kind == "conj":
+        return x.conj_physical().conj()
+    return torch.complex(torch.zeros_like(x), -x).conj().imag
+
+
+@pytest.mark.parametrize("kind", ["conj", "neg"])
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3", "K5", "K6", "K7"])
+def test_wrappers_refuse_lazy_views(kernel, kind):
+    """An operand that is a lazy conjugate or negative view would reach a
+    kernel through ``data_ptr()`` with its bit unseen: each wrapper raises
+    on one, on the CPU as on the card, and takes the materialized copy.
+    (K4 reads indices only.)"""
+    rng = np.random.default_rng(64)
+    dtype = np.complex128 if kind == "conj" else np.float64
+    indptr, indices, data = random_csr(rng, 6, 6, 2, dtype)
+    ip, ix, dv = t(indptr), t(indices), t(data)
+    b = t(values(rng, (6, 3), dtype))
+    lazy = lazy_view(b, kind)
+    assert lazy.is_conj() or lazy.is_neg()
+    torch.testing.assert_close(lazy.resolve_conj().resolve_neg(), b)
+    lazy_dv = lazy_view(dv, kind)
+
+    def call(b_op, dv_op):
+        if kernel == "K1":
+            return bsr.bsr_spmm(ip, ix, dv_op.reshape(-1, 1, 1), b_op)
+        if kernel == "K2":
+            return csr.csr_spmm(ip, ix, dv_op, b_op)
+        if kernel == "K3":
+            return csr.csr_spmv(ip, ix, dv_op, b_op[:, 0])
+        if kernel == "K5":
+            return spgemm.csr_spgemm_fill(ip, ix, dv_op, ip, ix, dv, 6,
+                                          None, ip, 0)
+        if kernel == "K6":
+            return spgemm.csr_spgemm_dense(ip, ix, dv, ip, ix, dv_op, 6)
+        return sddmm.csr_sddmm(ip, ix, b if dv_op is dv else lazy, b_op)
+
+    if kernel not in ("K5", "K6"):  # these take no dense operand
+        with pytest.raises(ValueError, match="lazy"):
+            call(lazy, dv)
+    with pytest.raises(ValueError, match="lazy"):
+        call(b, lazy_dv)
+    if kernel in ("K2", "K3", "K7"):
+        out = call(lazy.resolve_conj().resolve_neg(), dv)
+        assert_close(out, call(b, dv).numpy(), dtype)
 
 
 @pytest.mark.parametrize("wrapper, nargs", [
     (csr.csr_spmm, 4), (csr.csr_spmv, 4), (bsr.bsr_spmm, 4),
+    (sddmm.csr_sddmm, 4),
 ])
 def test_wrappers_refuse_other_devices(wrapper, nargs):
     """Neither CPU nor CUDA: no plain fallback."""
