@@ -2339,11 +2339,14 @@ def training_path(inputs):
     (K2 over A^H as well); 10 steps of the SpMV form on the 1M^2 matrix
     with x trained too (K3, K7 at n = 1, K3 over A^H; L = 2 max over rows
     of ||x at the row's columns||^2); one step through ``torch.func.vmap``
-    over 4 right-hand sides of 32 columns (K2 once, K7 once); one more f64
+    over 4 right-hand sides of 32 columns (K2 once, K7 once); the
+    per-member path of ``vmap``, one launch a member: ``vmap`` of ``grad``
+    over 3 right-hand sides (K7 3 times) and over 3 sets of values (K2 3
+    times), against the plain versions; one more f64
     step under ``torch.profiler`` for the device's busy time.  Checks the
     losses, the grad_fn of every result and, at the first and last step of
     each run, the gradients against the plain versions."""
-    from sparse_dot_tpu_torch.ops import autograd, sddmm
+    from sparse_dot_tpu_torch.ops import autograd, csr, sddmm
 
     a1, av = inputs["a1"], inputs["av"]
     m1, mv = a1.shape[0], av.shape[0]
@@ -2385,6 +2388,25 @@ def training_path(inputs):
         if cv4.grad_fn is None or vmap_k2 != 1:
             raise AssertionError(f"vmap step: K2 launched {vmap_k2} times")
         ((cv4 - ts) ** 2).sum().backward()
+        # The per-member path (``autograd._batched``), one launch a member
+        # one after another: gradients of 3 members' losses through
+        # ``vmap`` of ``grad`` over b (K2 once, folded; K7 3 times), and a
+        # batch of 3 values (K2 3 times).
+        before = read_launches()
+        v0 = v.detach()
+        member_grads = torch.func.vmap(
+            torch.func.grad(lambda vv, b, t: ((autograd.coo_spmm_raw(
+                r1, c1, vv, b, m1) - t) ** 2).sum()),
+            in_dims=(None, 0, 0))(v0, bs[:3], ts[:3])
+        vs = torch.stack([v0, 0.5 * v0, -v0])
+        member_out = torch.func.vmap(
+            lambda vv: autograd.coo_spmm_raw(r1, c1, vv, bs[0], m1))(vs)
+        after = read_launches()
+        member_launches = {
+            name: after[name] - before[name]
+            for name in ("K2_csr_spmm", "K7_csr_sddmm")}
+        if member_launches != {"K2_csr_spmm": 4, "K7_csr_sddmm": 3}:
+            raise AssertionError(f"per-member vmap: {member_launches}")
         torch.cuda.synchronize()
         busy = device_busy_ms(runs["f64_values"].step)
         # That step ran under the profiler: not one of the run's.
@@ -2392,8 +2414,8 @@ def training_path(inputs):
         runs["f64_values"].losses.pop()
     launches = read_launches()
     expected = {name: 0 for name in launches}
-    expected.update(K2_csr_spmm=20 + 40 + 1 + 1, K3_csr_spmv=20,
-                    K7_csr_sddmm=20 + 20 + 10 + 1 + 1)
+    expected.update(K2_csr_spmm=20 + 40 + 1 + 4 + 1, K3_csr_spmv=20,
+                    K7_csr_sddmm=20 + 20 + 10 + 1 + 3 + 1)
     if launches != expected:
         raise AssertionError(f"launch counts {launches}, expected {expected}")
 
@@ -2402,10 +2424,26 @@ def training_path(inputs):
     g = 2 * (cv4.detach().permute(1, 0, 2).reshape(m1, 128) - t1)
     ref = sddmm.csr_sddmm_plain(s.pattern.indptr, s.pattern.indices, g, b1)
     vmap_err = compare(v.grad[s.order], ref, ref.dtype)
+    member_err = {"grad": 0.0, "values": 0.0}
+    b_cols = bs[0].contiguous()
+    for i in range(3):
+        b_i = bs[i].contiguous()
+        g_i = 2 * (csr.csr_spmm_plain(s.pattern.indptr, s.pattern.indices,
+                                      v0[s.order], b_i) - ts[i])
+        ref = sddmm.csr_sddmm_plain(s.pattern.indptr, s.pattern.indices,
+                                    g_i, b_i)
+        member_err["grad"] = max(member_err["grad"], compare(
+            member_grads[i][s.order], ref, ref.dtype))
+        ref = csr.csr_spmm_plain(s.pattern.indptr, s.pattern.indices,
+                                 vs[i][s.order], b_cols)
+        member_err["values"] = max(member_err["values"], compare(
+            member_out[i], ref, ref.dtype))
     wall = records["f64_values"]["step_wall_ms"]
     emit(6, seconds=seconds, launches=launches, runs=records,
          lr={"config1": lr1, "spmv": lrv},
          vmap_step={"k2_launches": vmap_k2, "max_abs_err_vs_plain": vmap_err},
+         per_member_vmap={"launches": member_launches,
+                          "max_abs_err_vs_plain": member_err},
          f64_step_device_busy_ms=busy,
          f64_step_device_idle_share=None if busy is None else 1 - busy / wall,
          timer="host clock per step to a synchronize, median of steps "

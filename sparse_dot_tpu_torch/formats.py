@@ -18,9 +18,9 @@ keeps the caller's block order, as the JAX package's does.
 The kernels read CSR (K2, K3) or BSR (K1) in the orientation of the
 product.  ``csr_arrays(transpose)`` and ``BSR.bsr_arrays(transpose)``
 give those arrays, building the converted layout once on the device (a
-stable sort of the other axis' ids) and caching it on the container (for
-CSR and CSC as structure and permutation, ``CsrPattern.transpose``, the
-values gathered anew on every call, so they follow ``data``), as
+stable sort of the other axis' ids) and caching it on the container as
+structure and permutation, the values gathered anew on every call, so
+they follow ``data`` (one rule for every cached layout), as
 ``BSR.bsr_plan(transpose)`` caches K1's chunk plan (``bsr_chunk_plan``)
 and ``csr_plan(transpose, spmv)`` K2's and K3's row plans (``csr_plan``).
 ``csr_sorted(transpose)`` tells whether each row of ``csr_arrays(
@@ -28,7 +28,7 @@ transpose)`` lists its columns in ascending order, as K6 needs before it
 searches them: from scipy's ``has_sorted_indices`` when the container is
 built from scipy, true by construction for the converted layouts, else
 computed once on the device; ``sorted_csr_arrays(transpose)`` gives those
-arrays sorted, sorting them once (cached) where they are not.
+arrays sorted, sorting them once (the order cached) where they are not.
 """
 
 import contextlib
@@ -312,17 +312,18 @@ class CsrPattern:
     transpose and the permutation that carries values to it.  It holds no
     values, so what it caches stays right while the values change, as
     they do at every step of a training loop: values reach the transpose
-    as ``data[order]``, gathered anew by each caller.  ``plans`` seeds the
-    plan cache ({spmv: CsrPlan}) with plans already built for these
-    arrays.  What it builds, it builds outside any ``torch.func``
-    transform that is active (``structure_only``), so a pattern first used
-    inside ``torch.func.grad`` or ``vmap`` caches plain tensors."""
+    as ``data[order]``, gathered anew by each caller.  ``plans`` is the
+    plan cache ({spmv: CsrPlan}), which a caller may seed with a plan
+    already built for these arrays.  What it builds, it builds outside
+    any ``torch.func`` transform that is active (``structure_only``), so a
+    pattern first used inside ``torch.func.grad`` or ``vmap`` caches plain
+    tensors."""
 
-    def __init__(self, indptr, indices, ncols, plans=None):
+    def __init__(self, indptr, indices, ncols):
         self.indptr = indptr
         self.indices = indices
         self.ncols = int(ncols)
-        self._plans = dict(plans or {})
+        self.plans = {}
         self._transpose = None
 
     @property
@@ -337,10 +338,10 @@ class CsrPattern:
         """K2's ``CsrPlan`` of these arrays (K3's with ``spmv``), built on
         the device once (no host sync) and cached."""
         spmv = bool(spmv)
-        if spmv not in self._plans:
+        if spmv not in self.plans:
             with structure_only():
-                self._plans[spmv] = csr_plan(self.indptr, self.nnz, spmv)
-        return self._plans[spmv]
+                self.plans[spmv] = csr_plan(self.indptr, self.nnz, spmv)
+        return self.plans[spmv]
 
     def transpose(self):
         """(pattern of the transpose, order): entry q of the transpose's
@@ -510,25 +511,32 @@ class SparseDeviceMatrix:
     def sorted_csr_arrays(self, transpose=False):
         """``csr_arrays(transpose)`` with each row's columns in ascending
         order: those arrays where ``csr_sorted`` says so, else a copy
-        sorted once on the device (one stable sort) and cached."""
-        arrays = self.csr_arrays(transpose)
+        sorted once on the device (one stable sort).  As for every cached
+        layout, the structure and the permutation are cached and the
+        values gathered through it on every call, so they follow
+        ``data``."""
+        indptr, indices, data = self.csr_arrays(transpose)
         if self.csr_sorted(transpose):
-            return arrays
+            return indptr, indices, data
 
         def build():
-            indptr, indices, data = arrays
-            cols, vals = sort_csr_indices(
-                expand_indptr(indptr, indices.numel()), indices, data,
+            nnz = indices.numel()
+            return sort_csr_indices(
+                expand_indptr(indptr, nnz), indices,
+                torch.arange(nnz, device=indices.device),
                 self.shape[0] if transpose else self.shape[1])
-            return indptr, cols, vals
 
-        return self._cached(("sorted_csr", bool(transpose)), build)
+        cols, order = self._cached(("sorted_csr", bool(transpose)), build)
+        return indptr, cols, data[order]
 
     # ``csr_arrays(transpose)`` is built on the container's own arrays (for
     # a BSR: its element CSR, in block order) for this ``transpose``.
     _own_csr_transpose = False
 
     def _cached(self, key, build):
+        """``build()``, once per key.  Layouts cache structure (index
+        arrays, plans, permutations), never values: ``data`` may be
+        updated in place, and each call gathers it anew."""
         cache = self.__dict__.setdefault("_layout_cache", {})
         if key not in cache:
             cache[key] = build()
@@ -716,21 +724,20 @@ class BSR(SparseDeviceMatrix):
     def bsr_arrays(self, transpose=False):
         """(indptr, indices, data) of the BSR of op(A).  The transpose
         swaps block coordinates, transposes each block and re-sorts the
-        blocks by block row."""
+        blocks by block row: the structure and the blocks' order are
+        cached, the blocks gathered on every call."""
         if not transpose:
             return self.indptr, self.indices, self.data
 
         def build():
-            bs = self.blocksize[0]
-            indptr, indices, order = coo_to_csr(
+            return coo_to_csr(
                 self.indices, self.block_row_indices(),
                 torch.arange(self.nblocks, device=self.data.device),
-                self.shape[1] // bs,
+                self.shape[1] // self.blocksize[0],
             )
-            blocks = self.data[order].transpose(1, 2).contiguous()
-            return indptr, indices, blocks
 
-        return self._cached("bsr_T", build)
+        indptr, indices, order = self._cached("bsr_T", build)
+        return indptr, indices, self.data[order].transpose(1, 2).contiguous()
 
     def bsr_plan(self, transpose=False):
         """K1's chunk plan (``bsr_chunk_plan``) of ``bsr_arrays(transpose)``,
@@ -742,16 +749,20 @@ class BSR(SparseDeviceMatrix):
         return self._cached(("bsr_plan", bool(transpose)), build)
 
     def csr_arrays(self, transpose=False):
-        """(indptr, indices, data) of the element CSR of op(A), for SpMV."""
+        """(indptr, indices, data) of the element CSR of op(A), for SpMV:
+        the structure and the elements' order cached, the values gathered
+        on every call."""
         def build():
-            rows, cols, vals = self.element_coo()
+            rows, cols, _ = self.element_coo()
             if transpose:
                 rows, cols = cols, rows
             return coo_to_csr(
-                rows, cols, vals, self.shape[1 if transpose else 0]
+                rows, cols, torch.arange(rows.numel(), device=rows.device),
+                self.shape[1 if transpose else 0]
             )
 
-        return self._cached(("csr", bool(transpose)), build)
+        indptr, indices, order = self._cached(("csr", bool(transpose)), build)
+        return indptr, indices, self.data.reshape(-1)[order]
 
 
 def _check_blocksize(blocksize, shape):

@@ -13,6 +13,9 @@ the JAX ones are to JAX's.  Each runs one ``torch.autograd.Function``
   structure, dL/dc0 = conj(beta) G; ``jvp`` alpha (A(dvals) b + A db) on
   K2 (two launches, the second adding the first in its epilogue); ``vmap``
   folds a batch of b (and c0) into the columns, one K2 launch for all.
+  A batch of values cannot be folded so: it takes one launch per member,
+  one after another (``_batched``), as does K7 under ``vmap`` of
+  ``grad`` (per-member gradients), which batches G and b.
 - ``CsrSpmv``: the same with K3 for y = alpha A x + beta y0, K7 at n = 1
   and K3 over A^H; its ``vmap`` makes the batch the columns of one K2.
 - ``CsrSddmm``: K7 itself, so that the backward's launches are open to
@@ -91,8 +94,9 @@ def _fold(t, dim, size, at):
 
 
 def _batched(info, in_dims, args, apply):
-    """A batch of calls whose values are batched too: one call per member
-    (``apply`` on the members' arguments), stacked along dimension 0."""
+    """A batch of calls whose values are batched too (or, for K7, whose G
+    and b are): one call per member (``apply`` on the members'
+    arguments), launched one after another, stacked along dimension 0."""
     size = info.batch_size
     members = [
         a if d is None else a.movedim(d, 0)
@@ -255,7 +259,6 @@ class _CooStructure:
     count and of the columns' range) and cached per structure."""
 
     def __init__(self, rows, cols, m, k):
-        self.key = (rows, cols, rows._version, cols._version, m, k)
         with structure_only():
             self._build(rows, cols, m, k)
 
@@ -272,37 +275,40 @@ class _CooStructure:
         self.pattern = CsrPattern(_indptr_of_rows(kept_rows, m),
                                   cols[self.order].to(rows.dtype), k)
 
-    def matches(self, rows, cols, m, k):
-        r, c, rv, cv, mm, kk = self.key
-        return (r is rows and c is cols and (rv, cv, mm, kk)
-                == (rows._version, cols._version, m, k))
-
 
 class _StructureCache:
-    """The last few ``_CooStructure``s, most recent first: a training loop
-    calls with the same ``rows`` and ``cols`` tensors at every step, and
-    sorts them once.  A structure is found again only for the same
-    tensors, unchanged since (their version counters), and the same m and
-    k; it holds them, so their storage is not reused meanwhile."""
+    """The last few structures ``build(first, second, *sizes)`` made of two
+    index tensors, most recent first: a training loop calls with the same
+    index tensors at every step, and their structure is built once.  One
+    is found again only for the same tensors, unchanged since (their
+    version counters), and the same sizes; it holds them, so their
+    storage is not reused meanwhile."""
 
-    def __init__(self, size=8):
-        self.size = size
+    def __init__(self, build, size=8):
+        self.build, self.size = build, size
         self.entries = []
 
-    def get(self, rows, cols, m, k):
-        for i, entry in enumerate(self.entries):
-            if entry.matches(rows, cols, m, k):
+    def get(self, first, second, *sizes):
+        key = (first._version, second._version, *sizes)
+        for i, (f, s, k, value) in enumerate(self.entries):
+            if f is first and s is second and k == key:
                 self.entries.insert(0, self.entries.pop(i))
-                return entry
-        entry = _CooStructure(rows, cols, m, k)
-        self.entries = [entry, *self.entries[:self.size - 1]]
-        return entry
+                return value
+        value = self.build(first, second, *sizes)
+        self.entries = [(first, second, key, value),
+                        *self.entries[:self.size - 1]]
+        return value
 
     def clear(self):
         self.entries = []
 
 
-structures = _StructureCache()
+# The COO structures of ``coo_spmm_raw`` and ``coo_spmv``, per (rows,
+# cols, m, k), and the ``CsrPattern``s of ``csr.csr_spmm`` and
+# ``csr.csr_spmv``'s tracked calls, per (indptr, indices, k): the
+# transpose's sort and the row plans are made once per structure.
+structures = _StructureCache(_CooStructure)
+patterns = _StructureCache(CsrPattern)
 
 
 def _common(vals, dense):

@@ -28,7 +28,7 @@ from torch._C import _functorch
 from torch.autograd import forward_ad
 
 from ..config import config
-from ..formats import SPMV_TILE, CsrPattern, csr_plan, expand_indptr
+from ..formats import SPMV_TILE, csr_plan, expand_indptr
 from . import _build
 from .dense import axpby
 
@@ -97,6 +97,19 @@ def _row_plan(name, plan, indptr, nnz, spmv):
             or plan.chunks.device != indptr.device):
         raise ValueError(f"{name}: the row plan is for other arrays")
     return plan
+
+
+def _pattern(indptr, indices, ncols, plan, spmv):
+    """The ``CsrPattern`` of these arrays for a tracked call, cached per
+    (indptr, indices, ncols) (``ops.autograd.patterns``), so that a
+    training loop sorts A's transpose and builds its plans once; ``plan``,
+    when given, is taken as its K2 (K3 with ``spmv``) plan."""
+    from .autograd import patterns
+
+    pattern = patterns.get(indptr, indices, ncols)
+    if plan is not None:
+        pattern.plans.setdefault(spmv, plan)
+    return pattern
 
 
 def _chunk_args(plan):
@@ -192,8 +205,7 @@ def csr_spmm(indptr, indices, data, b, alpha=None, beta=None, c0=None,
     if tracked(data, b, c0):
         from .autograd import CsrSpmm
 
-        pattern = CsrPattern(indptr, indices, b.shape[0],
-                             None if plan is None else {False: plan})
+        pattern = _pattern(indptr, indices, b.shape[0], plan, spmv=False)
         return CsrSpmm.apply(pattern, data, b, alpha, beta, c0)
     return spmm(indptr, indices, data, b, alpha, beta, c0, plan)
 
@@ -267,8 +279,7 @@ def csr_spmv(indptr, indices, data, x, alpha=None, beta=None, y0=None,
     if tracked(data, x, y0):
         from .autograd import CsrSpmv
 
-        pattern = CsrPattern(indptr, indices, x.shape[0],
-                             None if plan is None else {True: plan})
+        pattern = _pattern(indptr, indices, x.shape[0], plan, spmv=True)
         return CsrSpmv.apply(pattern, data, x, alpha, beta, y0)
     return spmv(indptr, indices, data, x, alpha, beta, y0, plan)
 

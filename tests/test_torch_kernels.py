@@ -389,6 +389,49 @@ def test_sddmm_schedule(n, dtype, lanes, vec):
 # ---------------------------------------------------------------------------
 
 
+def launch_counts():
+    return (csr.csr_spmm.launches, csr.csr_spmv.launches,
+            bsr.bsr_spmm.launches, sddmm.csr_sddmm.launches)
+
+
+@pytest.mark.parametrize("tracked", [False, True])
+def test_cpu_tensors_take_plain_version_without_counting(tracked):
+    """On CPU tensors K1, K2, K3 and K7's wrappers give their plain
+    versions' results and count no launch; with ``tracked`` the SpMM and
+    SpMV take the autograd Functions (operands requiring grad), whose
+    forward and backward count none either."""
+    rng = np.random.default_rng(51)
+    indptr, indices, data = random_csr(rng, 10, 8, 3, np.float64)
+    b = values(rng, (8, 4), np.float64)
+    g = values(rng, (10, 4), np.float64)
+    ip, ix = t(indptr), t(indices)
+    dv = t(data).clone().requires_grad_(tracked)
+    tb = t(b).clone().requires_grad_(tracked)
+    before = launch_counts()
+    out = csr.csr_spmm(ip, ix, dv, tb)
+    assert_close(out.detach(), csr.csr_spmm_plain(ip, ix, t(data),
+                                                  t(b)).numpy(), np.float64)
+    y = csr.csr_spmv(ip, ix, dv, tb[:, 0])
+    assert_close(y.detach(), csr.csr_spmv_plain(ip, ix, t(data),
+                                                t(b[:, 0])).numpy(),
+                 np.float64)
+    blocks = t(data.reshape(-1, 1, 1))
+    assert_close(bsr.bsr_spmm(ip, ix, blocks, t(b)),
+                 bsr.bsr_spmm_plain(ip, ix, blocks, t(b)).numpy(), np.float64)
+    assert_close(sddmm.csr_sddmm(ip, ix, t(g), t(b)),
+                 sddmm.csr_sddmm_plain(ip, ix, t(g), t(b)).numpy(),
+                 np.float64)
+    assert (out.grad_fn is not None) == tracked
+    assert (y.grad_fn is not None) == tracked
+    if tracked:
+        ((out * t(g)).sum() + y.sum()).backward()
+        ones = t(np.ones((10, 1)))
+        ref = (sddmm.csr_sddmm_plain(ip, ix, t(g), t(b))
+               + sddmm.csr_sddmm_plain(ip, ix, ones, t(b[:, :1])))
+        assert_close(dv.grad, ref.numpy(), np.float64)
+    assert launch_counts() == before
+
+
 def lazy_view(x, kind):
     """x (values of ``kind``'s type) as a lazy view whose bit a kernel
     would not see: the conjugate of complex values, or the negative of

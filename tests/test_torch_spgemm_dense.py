@@ -243,8 +243,12 @@ def test_host_passes_the_flag_of_op_b(monkeypatch):
     host.gram_dense_from_sparse(raw(shuffled(a, 16)), np.float64, aat=True)
     host.gram_dense_from_sparse(raw(shuffled(a, 16)), np.float64)
     assert seen == [(True, True)] * 5
-    # the unsorted op(B) was sorted once, on its first call
-    assert unsorted_b.sorted_csr_arrays() is unsorted_b.sorted_csr_arrays()
+    # the unsorted op(B) was sorted once, on its first call: its sorted
+    # structure is cached (the values are gathered on every call)
+    first, again = unsorted_b.sorted_csr_arrays(), \
+        unsorted_b.sorted_csr_arrays()
+    assert first[0] is again[0] and first[1] is again[1]
+    assert torch.equal(first[2], again[2])
     assert not unsorted_b.csr_sorted()
 
 
@@ -254,7 +258,8 @@ def test_sorted_csr_arrays_match_scipy(fmt, transpose):
     """``sorted_csr_arrays`` against scipy's ``sorted_indices()`` of the
     same op(A): a container's own arrays as they are where sorted (a
     converted layout's cached structure, with its values gathered anew
-    from ``data``), else a sorted copy, cached."""
+    from ``data``), else a sorted copy whose structure is cached and
+    whose values are gathered anew, so they follow ``data``."""
     a = random_csr((40, 30), 0.2, seed=40).asformat(fmt)
     for mat in (formats.to_device(a), raw(a), raw(shuffled(a, 41))):
         ip, ix, dv = mat.csr_arrays(transpose)
@@ -269,7 +274,11 @@ def test_sorted_csr_arrays_match_scipy(fmt, transpose):
             own = (mat.format == "csc") == bool(transpose)
             assert got[2] is dv if own else torch.equal(got[2], dv)
         else:
-            assert got is mat.sorted_csr_arrays(transpose)
+            again = mat.sorted_csr_arrays(transpose)
+            assert again[0] is got[0] and again[1] is got[1]
+            mat.data.mul_(2.0)
+            npt.assert_array_equal(
+                mat.sorted_csr_arrays(transpose)[2].numpy(), 2.0 * ref.data)
 
 
 UNSORTED = {

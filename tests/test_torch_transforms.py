@@ -401,7 +401,8 @@ def test_structure_sorted_once_per_structure(coo, monkeypatch):
     rows, cols, vals = coo
     tr, tc, tv = torch.tensor(rows), torch.tensor(cols), torch.tensor(vals)
     b = torch.ones(K, 2, dtype=torch.float64)
-    monkeypatch.setattr(autograd, "structures", autograd._StructureCache())
+    monkeypatch.setattr(autograd, "structures",
+                        autograd._StructureCache(autograd._CooStructure))
     first = autograd.structures.get(tr, tc, M, K)
     coo_spmm_raw(tr, tc, tv, b, M)
     assert autograd.structures.get(tr, tc, M, K) is first
@@ -443,6 +444,81 @@ def test_container_transpose_follows_data():
         ip2, ix2, dv2 = mat.csr_arrays(transpose)
         assert ip2 is ip and ix2 is ix
         close(dv2, 3.0 * dv)
+
+
+def bsr_layout(mat, layout):
+    """(arrays, dense op(A) they hold) of the BSR ``mat``'s cached
+    ``layout``."""
+    dense = mat.to_scipy().toarray()
+    if layout == "bsr_transpose":
+        ip, ix, blocks = mat.bsr_arrays(transpose=True)
+        return (ip, ix, blocks), sps.bsr_matrix(
+            (blocks.numpy(), ix.numpy(), ip.numpy()),
+            shape=dense.T.shape).toarray(), dense.T
+    transpose = layout == "element_csr_transpose"
+    ip, ix, dv = mat.csr_arrays(transpose)
+    ref = dense.T if transpose else dense
+    return (ip, ix, dv), sps.csr_matrix(
+        (dv.numpy(), ix.numpy(), ip.numpy()), shape=ref.shape).toarray(), ref
+
+
+@pytest.mark.parametrize("layout", ["bsr_transpose", "element_csr",
+                                    "element_csr_transpose", "sorted_csr"])
+def test_cached_layouts_follow_data(layout):
+    """Every layout a container caches holds structure only: after its
+    ``data`` is updated in place, the next call gathers the new values
+    (BSR's transposed blocks and element CSR, the sorted copy of rows
+    not known sorted), on the same cached index arrays."""
+    if layout == "sorted_csr":
+        # rows [1, 0] and [2]: columns not ascending in row 0
+        mat = formats.CSR(torch.tensor([1.0, 2.0, 3.0]),
+                          torch.tensor([1, 0, 2]), torch.tensor([0, 2, 3]),
+                          (2, 3))
+
+        def arrays():
+            ip, ix, dv = mat.sorted_csr_arrays()
+            assert formats.rows_ascend(ip, ix)
+            return (ip, ix, dv), sps.csr_matrix(
+                (dv.numpy(), ix.numpy(), ip.numpy()), shape=(2, 3)
+            ).toarray(), mat.to_dense().numpy()
+    else:
+        a = sps.random(8, 12, density=0.4, format="csr",
+                       random_state=15).tobsr(blocksize=(2, 2))
+        mat = formats.to_device(a)
+
+        def arrays():
+            return bsr_layout(mat, layout)
+
+    (ip, ix, _), got, ref = arrays()
+    close(got, ref)
+    mat.data.mul_(3.0)
+    (ip2, ix2, _), got, ref2 = arrays()
+    assert ip2 is ip and ix2 is ix
+    close(got, 3.0 * ref)
+    close(ref2, 3.0 * ref)
+
+
+def test_tracked_calls_reuse_the_pattern(monkeypatch):
+    """``csr_spmm`` with an operand that requires grad finds A's
+    ``CsrPattern`` again for the same index tensors: three backward passes
+    sort A's transpose once, and a plan the caller gives is the
+    pattern's."""
+    monkeypatch.setattr(autograd, "patterns",
+                        autograd._StructureCache(formats.CsrPattern))
+    sorts = []
+    build = formats.CsrPattern._build_transpose
+    monkeypatch.setattr(formats.CsrPattern, "_build_transpose",
+                        lambda self: sorts.append(1) or build(self))
+    a = sps.random(12, 9, density=0.3, format="csr", random_state=14)
+    ip, ix = torch.tensor(a.indptr), torch.tensor(a.indices)
+    data = torch.tensor(a.data)
+    b = torch.ones(9, 4, dtype=torch.float64, requires_grad=True)
+    plan = formats.csr_plan(ip, a.nnz)
+    for _ in range(3):
+        csr.csr_spmm(ip, ix, data, b, plan=plan).sum().backward()
+    assert len(sorts) == 1
+    assert autograd.patterns.get(ip, ix, 9).plans[False] is plan
+    close(b.grad, 3 * (a.T @ np.ones((12, 4))))
 
 
 def test_sgd_steps_match_jax(coo):
