@@ -44,11 +44,16 @@ Phases, each printing one JSON line:
    than a group over empty op(B) rows, rows of 2000 entries, 6000 short
    rows, and n on either side of 2^27, where the register bins' sort keys
    widen to 64 bits.  K7 CSR SDDMM (the value gradient) against its plain
-   version at n in {1, 2, 3, 4, 8, 17, 32, 64, 128, 200}, with and without
-   alpha, on G and B views one row and one element into a buffer, with
-   empty rows, nnz == 0 and a row of 100,000 entries (run twice, same
-   bits), and with inf in G and B (the same inf/nan parts), each path (a
-   thread an entry, groups of lanes; 16-byte and scalar loads) seen; then
+   version at n in {1, 2, 3, 4, 8, 17, 32, 64, 128, 130, 200, 300}, with
+   and without alpha, on G and B views one row and one element into a
+   buffer, with empty rows, nnz == 0, a row of 100,000 entries, rows of
+   0.05 entries on average and a run of 6000 empty rows (every call run
+   twice, same bits), and with inf in G and B (the same inf/nan parts),
+   each path (the entry kernel and the span kernel with rounds of 2 and
+   4 entries; 16-byte and scalar loads; 32- and 64-bit indices) and each
+   edge of its work split (K7_EDGES: nnz past a whole round or span, a
+   span across 1000 empty rows, a row longer than a span, a strip ending
+   mid-row, misaligned views on scalar loads) seen; then
    ``torch.autograd.gradcheck`` (reverse and forward mode) of
    ``ops.coo_spmm_raw``, ``coo_spmv`` and ``csr_spmm`` on the card in f64
    and c128, with the plain versions refused and K2, K3 and K7 launched;
@@ -83,7 +88,9 @@ Phases, each printing one JSON line:
    indices, at d and at n = 16,384 over shuffled op(B), and at two widths
    past shared memory (n = 100,000 and 40,000) over sorted and shuffled
    op(B); K7 at config 1 (n = 128) and at the 1M^2 matrix (n = 1), beside
-   ``torch.sparse.sampled_addmm``; and the wall
+   ``torch.sparse.sampled_addmm`` and, in the same turns, K2 (K3) on the
+   same pattern, with the gathered bytes (nnz * n * itemsize) and the
+   rate each reaches over them; and the wall
    time of ``dot_product(X, X.T)`` beside scipy's;
 5. the solver path, with the counts set to 0 again and the plain versions
    of K1-K7 made to raise, each result checked against scipy/numpy on the
@@ -123,7 +130,9 @@ last, ``{"ok": true, "device": {...}}``.  With ``CHIP_SMOKE_LOG`` set to a path,
 every JSON line also goes to that file.  Any failure is an uncaught exception
 and a non-zero exit; without a CUDA device it exits 2 before any work.
 ``--only spgemm`` runs the sparse x sparse parts of phases 1-4 and prints
-no result lines; ``--only k6`` runs phase 1 and K6's phase-4 rows.
+no result lines; ``--only k6`` runs phase 1 and K6's phase-4 rows;
+``--only k7`` runs phase 1, K7's phase-2 checks (without gradcheck), its
+phase-4 rows and phase 6's config-1 f64 steps, and prints no result line.
 """
 
 import argparse
@@ -253,14 +262,17 @@ def compare(kernel_out, plain_out, dtype):
 
 
 def random_csr(rng, m, k, mean_row, dtype, index_dtype=np.int32,
-               empty_every=0, long_row=0):
+               empty_every=0, long_row=0, empty_run=0):
     """CSR arrays with Poisson row lengths (some rows empty, one long row
-    optional) and unsorted, possibly repeated column indices."""
+    and a run of ``empty_run`` empty rows from m // 4 optional) and
+    unsorted, possibly repeated column indices."""
     lengths = rng.poisson(mean_row, m) if m else np.zeros(0, np.int64)
     if empty_every:
         lengths[::empty_every] = 0
     if long_row and m:
         lengths[m // 2] = long_row
+    if empty_run:
+        lengths[m // 4:m // 4 + empty_run] = 0
     indptr = np.concatenate([[0], np.cumsum(lengths)]).astype(index_dtype)
     nnz = int(indptr[-1])
     indices = rng.integers(0, k, nnz).astype(index_dtype)
@@ -314,13 +326,14 @@ def check_kernels(spgemm_only=False):
         results[name]["cases"] += 1
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
 
-    schedules, k6_seen, k7_schedules = set(), set(), set()
+    schedules, k6_seen, k7_schedules, k7_seen = set(), set(), set(), set()
     for tdt, npdt in NP_DTYPES.items():
         for itype in (np.int32, np.int64):
             if not spgemm_only:
                 check_csr(rng, tdt, npdt, itype, record, schedules)
                 check_k1(rng, tdt, npdt, itype, record)
-                check_sddmm(rng7, tdt, npdt, itype, record, k7_schedules)
+                check_sddmm(rng7, tdt, npdt, itype, record, k7_schedules,
+                            k7_seen)
             check_spgemm(rng, tdt, npdt, itype, record, bins_seen, k6_seen)
     if not spgemm_only:
         check_k1_special(rng, record)
@@ -335,20 +348,48 @@ def check_kernels(spgemm_only=False):
         return results
     if {vec > 1 for vec, _ in schedules} != {True, False}:
         raise AssertionError(f"K2 ran only {schedules} (vec, lanes)")
-    check_k7_schedules(k7_schedules)
+    check_k7_schedules(k7_schedules, k7_seen)
     emit(2, kernels=results, spgemm_bins=sorted(bins_seen),
          k2_schedules=sorted(schedules), k6_plans=k6_plans,
-         k7_schedules=sorted(k7_schedules),
+         k7_schedules=sorted(k7_schedules), k7_edges=sorted(k7_seen),
          gradcheck_launches=check_gradcheck())
     return results
 
 
-def check_k7_schedules(seen):
-    """K7 ran a thread an entry and groups of lanes, each with 16-byte
-    and scalar loads."""
-    kinds = {(vec > 1, lanes > 1) for vec, lanes in seen}
-    if kinds != {(True, True), (True, False), (False, True), (False, False)}:
-        raise AssertionError(f"K7 ran only {sorted(seen)} (vec, lanes)")
+def check_k7():
+    """Phase 2 for K7 alone (``--only k7``): check_sddmm in every value
+    type and index width and check_sddmm_special, with every path and
+    edge reached."""
+    rng7 = np.random.default_rng(SEED + 9)
+    results = {"K7_csr_sddmm": {"cases": 0, "max_abs_err": 0.0}}
+
+    def record(name, err):
+        results[name]["cases"] += 1
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+
+    k7_schedules, k7_seen = set(), set()
+    for tdt, npdt in NP_DTYPES.items():
+        for itype in (np.int32, np.int64):
+            check_sddmm(rng7, tdt, npdt, itype, record, k7_schedules, k7_seen)
+    check_sddmm_special(rng7, record)
+    check_k7_schedules(k7_schedules, k7_seen)
+    emit(2, kernels=results, k7_schedules=sorted(k7_schedules),
+         k7_edges=sorted(k7_seen))
+
+
+def check_k7_schedules(seen, edges):
+    """K7 ran every path with both index widths: the entry kernel with
+    16-byte and scalar loads, the span kernel with both loads and rounds
+    of 2 and 4 entries; and phase 2 reached every edge of K7_EDGES."""
+    paths = {(True, False, 1), (False, False, 1), (True, True, 2),
+             (True, True, 4), (False, True, 2), (False, True, 4)}
+    want = {path + (bits,) for path in paths for bits in (32, 64)}
+    if not want <= seen:
+        raise AssertionError(f"K7 never ran {sorted(want - seen)} (16-byte "
+                             "loads, span kernel, round, index bits)")
+    if set(K7_EDGES) - edges:
+        raise AssertionError(f"K7 edges not reached: "
+                             f"{sorted(set(K7_EDGES) - edges)}")
 
 
 # K2 / K3 cases: (m, k, mean row, every k-th row empty, one long row).
@@ -555,46 +596,87 @@ def check_csr_special(rng, record):
                 record(name, compare(out[cuda(fin)], cuda(ref[fin]), tdt))
 
 
-# K7 cases: (m, k, mean row, every k-th row empty, one long row): empty
-# rows, a row of 100,000 entries (spans inside one row, run twice for the
-# same bits), nnz == 0 and an empty matrix.
-SDDMM_CASES = ((300, 200, 3, 5, 0), (64, 190, 12, 4, 100_000),
-               (50, 40, 0, 0, 0), (0, 40, 2, 0, 0))
-SDDMM_NS = (1, 2, 3, 4, 8, 17, 32, 64, 128, 200)
+# K7 cases: (m, k, mean row, every k-th row empty, one long row, a run of
+# empty rows): empty rows, a row of 100,000 entries (spans inside one row,
+# rows longer than a span), nnz == 0, an empty matrix, 3000 rows of 0.05
+# entries on average (spans across runs of empty rows) and 9000 rows with
+# 6000 empty ones in a run.  SDDMM_NS puts n on both kernels, both load
+# widths, rounds of 2 and 4 entries, and strips that end mid-row (130, 200
+# and 300 past a strip of 128 or 64 columns).
+SDDMM_CASES = ((300, 200, 3, 5, 0, 0), (64, 190, 12, 4, 100_000, 0),
+               (50, 40, 0, 0, 0, 0), (0, 40, 2, 0, 0, 0),
+               (3000, 300, 0.05, 0, 0, 0), (9000, 250, 2, 0, 0, 6000))
+SDDMM_NS = (1, 2, 3, 4, 8, 17, 32, 64, 128, 130, 200, 300)
+# The edges of K7's work split that phase 2 must reach (``k7_edges``).
+K7_EDGES = ("nnz_not_a_multiple_of_a_round", "nnz_not_a_multiple_of_a_span",
+            "span_across_1000_empty_rows", "row_longer_than_a_span",
+            "strip_ends_mid_row", "misaligned_takes_scalar_loads")
 
 
-def check_sddmm(rng, tdt, npdt, itype, record, schedules):
+def k7_edges(indptr, n, s, aligned_vec):
+    """Which of K7_EDGES a launch with schedule ``s`` reaches over the CSR
+    ``indptr`` at width n; ``aligned_vec`` is the load width the same n
+    would take on aligned G and B."""
+    nnz, edges = int(indptr[-1]), set()
+    if not nnz:
+        return edges
+    if s.vec == 1 and aligned_vec > 1:
+        edges.add("misaligned_takes_scalar_loads")
+    if s.lanes == 1:
+        return edges
+    if nnz % s.round:
+        edges.add("nnz_not_a_multiple_of_a_round")
+    if nnz > s.span and nnz % s.span:
+        edges.add("nnz_not_a_multiple_of_a_span")
+    rows = np.repeat(np.arange(len(indptr) - 1), np.diff(indptr))
+    gap = np.flatnonzero(np.diff(rows) > 1000)  # entries j, j + 1
+    if np.any(gap // s.span == (gap + 1) // s.span):
+        edges.add("span_across_1000_empty_rows")
+    if np.diff(indptr).max() > s.span:
+        edges.add("row_longer_than_a_span")
+    strip = s.lanes * s.per_lane * s.vec
+    if n > strip and n % strip:
+        edges.add("strip_ends_mid_row")
+    return edges
+
+
+def check_sddmm(rng, tdt, npdt, itype, record, schedules, edges):
     """K7 against ``csr_sddmm_plain`` at every case of SDDMM_CASES and n of
     SDDMM_NS, with and without alpha; G and B as views one row and one
-    element into a buffer (the second misaligned: scalar loads) at n = 4
-    and 64; the long row's case run twice for the same bits.
-    ``schedules`` collects K7's (vec, lanes)."""
+    element into a buffer (the second misaligned: scalar loads) at n = 4,
+    64 and 300; every call without alpha run twice for the same bits.
+    ``schedules`` collects K7's (16-byte loads, span kernel, round, index
+    bits), ``edges`` the K7_EDGES reached."""
     from sparse_dot_tpu_torch.ops import sddmm
 
     alpha = 0.5 - 0.25j if np.dtype(npdt).kind == "c" else -1.5
-    for m, k, mean_row, empty_every, long_row in SDDMM_CASES:
+    bits = 8 * np.dtype(itype).itemsize
+    for m, k, mean_row, empty_every, long_row, empty_run in SDDMM_CASES:
         indptr, indices, _ = random_csr(
-            rng, m, k, mean_row, npdt, itype, empty_every, long_row)
+            rng, m, k, mean_row, npdt, itype, empty_every, long_row,
+            empty_run)
         ip, ix = cuda(indptr), cuda(indices)
         for n in SDDMM_NS:
             g = cuda(values(rng, (m, n), npdt))
             b = cuda(values(rng, (k, n), npdt))
             views = [(g, b)]
-            if n in (4, 64) and m:
+            if n in (4, 64, 300) and m:
                 views += [(misaligned(g, n), misaligned(b, n)),
                           (misaligned(g, 1), misaligned(b, 1))]
+            aligned_vec = sddmm.sddmm_schedule(n, tdt, len(indices)).vec
             for gg, bb in views:
                 aligned = gg.data_ptr() % 16 == 0 and bb.data_ptr() % 16 == 0
-                schedules.add(tuple(sddmm.sddmm_schedule(
-                    n, tdt, len(indices), aligned)[:2]))
+                s = sddmm.sddmm_schedule(n, tdt, len(indices), aligned)
+                schedules.add((s.vec > 1, s.lanes > 1, s.round, bits))
+                edges.update(k7_edges(indptr, n, s, aligned_vec))
                 for al in (None, alpha):
                     out = sddmm.csr_sddmm(ip, ix, gg, bb, al)
                     record("K7_csr_sddmm", compare(
                         out, sddmm.csr_sddmm_plain(ip, ix, gg, bb, al), tdt))
-                    if long_row and n in (1, 17, 200) and al is None:
-                        if not torch.equal(out, sddmm.csr_sddmm(ip, ix, gg,
-                                                                bb)):
-                            raise AssertionError(f"K7 n={n}: runs differ")
+                    if al is None and not torch.equal(
+                            out, sddmm.csr_sddmm(ip, ix, gg, bb)):
+                        raise AssertionError(f"K7 {tdt} n={n} m={m}: runs "
+                                             "differ")
 
 
 def check_sddmm_special(rng, record):
@@ -958,20 +1040,9 @@ def spmv_csr(rng, size, per_row=10):
     return sps.csr_matrix((data, cols, indptr), shape=(size, size))
 
 
-def main_path():
-    import sparse_dot_tpu_torch as sdt
-    from sparse_dot_tpu_torch.ops import bsr, csr
-
+def path_inputs():
+    """Phase 3's operands (and phases 4 and 6's), made from SEED + 1."""
     rng = np.random.default_rng(SEED + 1)
-    cases = {}
-
-    def check(name, res, ref, decimal):
-        if res.shape != ref.shape or not np.isfinite(res).all():
-            raise AssertionError(f"{name}: shape {res.shape} or non-finite")
-        np.testing.assert_array_almost_equal(res, ref, decimal=decimal)
-        cases[name] = {"shape": list(res.shape), "dtype": str(res.dtype),
-                       "max_abs_err": float(np.abs(res - ref).max())}
-
     n1, n3, nc = SIZES["config1"], SIZES["config3"], SIZES["complex"]
     a1 = config1_csr(rng, n1)
     b1 = values(rng, (n1, 128), np.float64)
@@ -990,9 +1061,32 @@ def main_path():
     # The other layouts of the path: CSC (K2 on its CSR), dense x BSR (K1
     # on transposed blocks), BSR x vector (K3 on its element CSR).
     a1c = a1.tocsc()
-    a3 = bsrs[(64, np.float64)]
     d3 = values(rng, (256, n3), np.float64)
     x3 = values(rng, n3, np.float64)
+    return {"a1": a1, "b1": b1, "d1": d1, "bsrs": bsrs, "b3": b3,
+            "out3": out3, "av": av, "xv": xv, "xt": xt, "ac": ac, "bc": bc,
+            "abc": abc, "a1c": a1c, "d3": d3, "x3": x3}
+
+
+def main_path():
+    import sparse_dot_tpu_torch as sdt
+    from sparse_dot_tpu_torch.ops import bsr, csr
+
+    cases = {}
+
+    def check(name, res, ref, decimal):
+        if res.shape != ref.shape or not np.isfinite(res).all():
+            raise AssertionError(f"{name}: shape {res.shape} or non-finite")
+        np.testing.assert_array_almost_equal(res, ref, decimal=decimal)
+        cases[name] = {"shape": list(res.shape), "dtype": str(res.dtype),
+                       "max_abs_err": float(np.abs(res - ref).max())}
+
+    inputs = path_inputs()
+    (a1, b1, d1, bsrs, b3, out3, av, xv, xt, ac, bc, abc, a1c, d3, x3) = (
+        inputs[k] for k in ("a1", "b1", "d1", "bsrs", "b3", "out3", "av",
+                            "xv", "xt", "ac", "bc", "abc", "a1c", "d3",
+                            "x3"))
+    a3 = bsrs[(64, np.float64)]
 
     reset_launches()
     with plain_versions_refused():
@@ -1041,9 +1135,7 @@ def main_path():
     check("config3_bsr64_f64_x_vector", r3v, a3 @ x3, 6)
     check("bsr16_c128_spmm", rbc, abc @ bc, 6)
     emit(3, seconds=seconds, launches=launches, cases=cases)
-    return launches, {"a1": a1, "b1": b1, "d1": d1, "bsrs": bsrs, "b3": b3,
-                      "out3": out3, "av": av, "xv": xv, "ac": ac, "bc": bc,
-                      "abc": abc}
+    return launches, inputs
 
 
 # ---------------------------------------------------------------------------
@@ -1242,11 +1334,12 @@ def spgemm_path():
 
 
 def time_set(kernel_fn, plain_fn, library_fn=None, reps=REPS,
-             yardstick_fn=None):
+             yardstick_fn=None, beside=None):
     """The REPS times in ms of the kernel, its plain version, when given
     the one PyTorch call that computes the same function (``library_fn``)
     and another way to compute it (``yardstick_fn``; both are yardsticks,
-    which the port never calls), taken in turns, and the largest
+    which the port never calls), and ``beside`` ({name: fn}, other calls
+    to time in the same turns), taken in turns, and the largest
     |kernel - plain|.  Before each launch a 1 GiB read evicts L2
     with clean lines (a write would leave dirty lines to drain inside the
     timed launch) and keeps the card busy for ~0.3 ms while the host
@@ -1254,7 +1347,7 @@ def time_set(kernel_fn, plain_fn, library_fn=None, reps=REPS,
     (a 256 MB read covered ~85 us, less than the plain versions' host side
     of up to 0.36 ms).  The yardstick's result is held against the plain
     version's too.  Returns (kernel, plain, library or None, yardstick or
-    None, error)."""
+    None, error, {name: times} of ``beside``)."""
     out_k, out_p = kernel_fn(), plain_fn()
     err = compare(out_k, out_p, out_k.dtype)
     fns = {"plain": plain_fn, "kernel": kernel_fn}
@@ -1264,10 +1357,14 @@ def time_set(kernel_fn, plain_fn, library_fn=None, reps=REPS,
     if yardstick_fn is not None:
         compare(yardstick_fn(), out_p, out_k.dtype)
         fns["yardstick"] = yardstick_fn
+    for name, fn in (beside or {}).items():
+        fn()  # warm-up
+        fns["beside " + name] = fn
     del out_k, out_p
     times = time_turns(fns, reps)
     return (times["kernel"], times["plain"], times.get("library"),
-            times.get("yardstick"), err)
+            times.get("yardstick"), err,
+            {name: times["beside " + name] for name in beside or {}})
 
 
 def time_turns(fns, reps):
@@ -1414,14 +1511,15 @@ def bsr_library(indptr, indices, data, b, shape, c0=None, beta=None):
 
 def timed_row(kernel, shape, kernel_fn, plain_fn, bound_of, library=(None,
               "none: no single PyTorch call computes this"), reps=REPS,
-              yardstick=None, **extra):
+              yardstick=None, beside=None, **extra):
     """One phase-4 row: times of kernel, plain version, library call and
     (``yardstick``: (fn, note)) another way to compute the same, the
-    bound and the share of it that the kernel reaches."""
+    bound and the share of it that the kernel reaches; ``beside``
+    ({name: fn}) timed in the same turns, their spreads in ``beside``."""
     lib_fn, lib_note = library
     yard_fn, yard_note = yardstick or (None, None)
-    kt, pt, lt, yt, err = time_set(kernel_fn, plain_fn, lib_fn, reps,
-                                   yard_fn)
+    kt, pt, lt, yt, err, bt = time_set(kernel_fn, plain_fn, lib_fn, reps,
+                                       yard_fn, beside)
     (ms, p10, p90), (plain_ms, pp10, pp90) = spread(kt), spread(pt)
     bound_ms, bound_by = bound_of
     row = {"kernel": kernel, "shape": shape, "ms": ms, "p10": p10,
@@ -1436,6 +1534,9 @@ def timed_row(kernel, shape, kernel_fn, plain_fn, bound_of, library=(None,
         row["yardstick_ms"], row["yardstick_p10"], row["yardstick_p90"] = \
             spread(yt)
         row["yardstick"] = yard_note
+    if bt:
+        row["beside"] = {name: dict(zip(("ms", "p10", "p90"), spread(t)))
+                         for name, t in bt.items()}
     return row
 
 
@@ -1545,29 +1646,46 @@ def timings(inputs, solver_inp):
 def k7_rows(rows, inputs, rng):
     """K7's phase-4 rows: config 1 at n = 128 (f64; G of config 1's C,
     B phase 3's b1) and the 1M^2 SpMV matrix at n = 1 (the SpMV's value
-    gradient; B its x), each beside ``torch.sparse.sampled_addmm``."""
+    gradient; B its x), each beside ``torch.sparse.sampled_addmm`` and,
+    in the same turns, the kernel that gathers the same rows of B for the
+    same A (K2 with plan at config 1, K3 at n = 1).  Each row carries the
+    gathered bytes (nnz * n * itemsize: every entry reads its row of B)
+    and the rates they imply for K7 and that kernel."""
     from sparse_dot_tpu_torch import formats
-    from sparse_dot_tpu_torch.ops import sddmm
+    from sparse_dot_tpu_torch.ops import csr, sddmm
 
     n1, nv = SIZES["config1"], SIZES["spmv"]
     cases = (
         (f"config1 CSR f64 {n1}x{n1} 1%, G ({n1},128), B ({n1},128)",
          inputs["a1"], cuda(rng.standard_normal((n1, 128))),
-         cuda(inputs["b1"])),
+         cuda(inputs["b1"]), "K2_csr_spmm"),
         (f"CSR f64 {nv}x{nv}, 10 per row, G ({nv},1), B = x ({nv},1)",
          inputs["av"], cuda(rng.standard_normal((nv, 1))),
-         cuda(inputs["xv"][:, None])),
+         cuda(inputs["xv"][:, None]), "K3_csr_spmv"),
     )
-    for shape, a, g, b in cases:
+    for shape, a, g, b, same in cases:
         A = formats.to_device(a)
-        ip, ix, _ = A.csr_arrays()
-        rows.append(timed_row(
+        ip, ix, dv = A.csr_arrays()
+        if same == "K2_csr_spmm":
+            plan = A.csr_plan()
+            same_fn = (lambda: csr.csr_spmm(ip, ix, dv, b, plan=plan))
+        else:
+            plan = A.csr_plan(spmv=True)
+            same_fn = (lambda: csr.csr_spmv(ip, ix, dv, b[:, 0], plan=plan))
+        row = timed_row(
             "K7_csr_sddmm", shape,
             lambda: sddmm.csr_sddmm(ip, ix, g, b),
             lambda: sddmm.csr_sddmm_plain(ip, ix, g, b),
             sddmm_bound(ip, ix, g, b), sddmm_library(ip, ix, g, b, A.shape),
+            beside={same: same_fn},
             schedule=list(sddmm.sddmm_schedule(g.shape[1], g.dtype,
-                                               ix.numel()))))
+                                               ix.numel())))
+        gathered = ix.numel() * g.shape[1] * g.element_size()
+        row.update(gathered_bytes=gathered,
+                   gathered_tb_per_s=gathered / row["ms"] / 1e9)
+        row["beside"][same]["gathered_tb_per_s"] = (
+            gathered / row["beside"][same]["ms"] / 1e9)
+        rows.append(row)
 
 
 # Case d's plain versions expand 1.4 G products in chunks; fewer turns.
@@ -2331,6 +2449,17 @@ class TrainingRun:
                 "max_abs_err_vs_plain": err}
 
 
+def config1_problem(inputs):
+    """Phase 6's problem on config 1: A's COO (rows, cols), m, B and the
+    target T = A B on the card, and the step 1/L, L = 2 ||B||_2^2 from
+    power iterations."""
+    a1 = inputs["a1"]
+    b1 = cuda(inputs["b1"])
+    r1, c1 = coo_of(a1)
+    return (r1, c1, a1.shape[0], b1, cuda(a1 @ inputs["b1"]),
+            1.0 / (2.0 * power_norm_sq(b1)))
+
+
 def training_path(inputs):
     """Phase 6: SGD through the device API at full width with the plain
     versions refused.  Config 1's pattern (10,000^2, 1%) and phase 3's B
@@ -2348,14 +2477,12 @@ def training_path(inputs):
     each run, the gradients against the plain versions."""
     from sparse_dot_tpu_torch.ops import autograd, csr, sddmm
 
-    a1, av = inputs["a1"], inputs["av"]
-    m1, mv = a1.shape[0], av.shape[0]
-    b1, xv = cuda(inputs["b1"]), cuda(inputs["xv"])
-    t1 = cuda(a1 @ inputs["b1"])
+    av = inputs["av"]
+    mv = av.shape[0]
+    xv = cuda(inputs["xv"])
     tv = cuda(av @ inputs["xv"])
-    r1, c1 = coo_of(a1)
+    r1, c1, m1, b1, t1, lr1 = config1_problem(inputs)
     rv, cv = coo_of(av)
-    lr1 = 1.0 / (2.0 * power_norm_sq(b1))
     row_sq = torch.zeros(mv, dtype=torch.float64, device=xv.device).index_add_(
         0, rv, xv[cv.long()] ** 2)
     lrv = 1.0 / (2.0 * float(row_sq.max()))
@@ -2451,6 +2578,34 @@ def training_path(inputs):
     return launches
 
 
+def k7_training(inputs):
+    """Phase 6 for K7 alone (``--only k7``): training_path's 20 f64 SGD
+    steps on config 1's values (K2 forward, K7 backward) with the plain
+    versions refused, checked as there, and the device's busy ms of one
+    more step in a ``torch.profiler`` trace."""
+    r1, c1, m1, b1, t1, lr1 = config1_problem(inputs)
+    run = TrainingRun("f64_values", r1, c1, m1, b1, t1, torch.float64, lr1)
+    reset_launches()
+    with plain_versions_refused():
+        run.run(20)
+        busy = device_busy_ms(run.step)
+        # That step ran under the profiler: not one of the run's.
+        run.walls.pop()
+        run.losses.pop()
+    launches = read_launches()
+    expected = {name: 0 for name in launches}
+    expected.update(K2_csr_spmm=21, K7_csr_sddmm=21)
+    if launches != expected:
+        raise AssertionError(f"launch counts {launches}, expected {expected}")
+    record = run.check()
+    wall = record["step_wall_ms"]
+    emit(6, launches=launches, runs={"f64_values": record},
+         lr={"config1": lr1}, f64_step_device_busy_ms=busy,
+         f64_step_device_idle_share=None if busy is None else 1 - busy / wall,
+         timer="host clock per step to a synchronize, median of steps "
+               "2..N; device busy: torch.profiler, one more f64 step")
+
+
 # Each solve's matrix in phase 4: the K3 (K2) rows whose times make one
 # step's matvecs (CGLS: A and A^T).
 SOLVE_MATVECS = {
@@ -2488,11 +2643,12 @@ def solver_timings(records, rows):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
-        "--only", choices=("spgemm", "k6"),
+        "--only", choices=("spgemm", "k6", "k7"),
         help="a short run that ends with no result line: spgemm runs "
              "phases 1, 2 (K4-K6 and K2/K3's complex inf case), 3 and 4 of "
              "sparse x sparse; k6 runs phase 1 and K6's phase-4 rows "
-             "(k6_timings)")
+             "(k6_timings); k7 runs phase 1, K7's phase-2 checks, its "
+             "phase-4 rows and phase 6's config-1 f64 steps")
     only = parser.parse_args().only
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -2524,6 +2680,16 @@ def main():
         emit("4-k6", rows=k6_timings(spgemm_inputs()),
              timer="cuda events, median (p10, p90), 1 GiB read before "
                    "each")
+        return
+    if only == "k7":
+        check_k7()
+        inputs = path_inputs()
+        rows = []
+        k7_rows(rows, inputs, np.random.default_rng(SEED + 4))
+        emit("4-k7", rows=rows,
+             timer="cuda events, median (p10, p90), 1 GiB read before "
+                   "each; library and beside timed in the same turns")
+        k7_training(inputs)
         return
     check_kernels()
     by_path = {}

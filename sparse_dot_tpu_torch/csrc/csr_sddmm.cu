@@ -11,43 +11,59 @@
 // gather, multiply and reduce, with nothing but the output written.
 //
 // Bound: each entry reads a row of G and a row of B, n multiply-adds, so
-// the kernel is bound by bytes (A's indices, G and B read once each, the
-// output), far below the card's FMA rate.  It gathers the same rows of B
-// as K2 (csr_spmm.cu) does for the same A, and meets the same latency:
-// a gather depends on an index load.  The design mirrors K2's:
+// the kernel is bound by bytes, far below the card's FMA rate.  The HBM
+// bound counts A's indices, G, the rows of B that A names (each once) and
+// the output: 32.5 MB, 0.0097 ms at config 1.  What sets the time is the
+// gather through L2: every entry reads its whole row of B, nnz * n *
+// itemsize bytes (1.02 GB at config 1: G and B, 10 MB each, sit in the
+// 50 MB L2), each gather behind an index load.  K2 (csr_spmm.cu) gathers
+// the same rows for the same A.  The design:
 //
-// - Lane mapping from n and the value type (ops/sddmm.py,
-//   sddmm_schedule, which takes K2's spmm_schedule): a lane reads V
-//   adjacent columns in one 16-byte load when every row of G and B is
-//   whole 16-byte units and both pointers are aligned, else one column;
-//   an entry takes L lanes, the power of two at or above its loads, at
-//   most 32, each lane up to two loads (PER); wider n is walked in strips
-//   of PER * L * V columns by the same group.
-// - Work: a group of L lanes owns a span of S consecutive entries (S from
-//   the schedule, so every SM gets groups), finds the row of its first by
-//   a binary search of indptr, and keeps its strip of that row of G in
-//   registers while it walks the span, loading a new strip only where the
-//   span enters the next row.  Spans balance long rows by themselves: an
-//   entry's output depends on no other entry, so a row needs no chunks and
-//   no second pass, unlike K2's.
-// - Rounds of E entries (4, or 2 where a lane loads 32 bytes of an
-//   entry's B row, and at most L; round_entries): the group issues
-//   the E B loads together and loads the next round's indices before it
-//   sums this round, so no gather waits on an index load.  Each lane sums
-//   its products of each entry; one reduce-scatter across the group adds
-//   the E sums in E - 1 + log2(L / E) shuffles (not E log2 L), leaving
-//   entry e's total with the lanes whose bits spell e, one of which writes
-//   out[p + e]; a later strip adds to what the earlier wrote.
+// - Lane mapping from n and the value type (ops/sddmm.py, sddmm_schedule,
+//   which takes K2's spmm_schedule): a lane reads V adjacent columns in
+//   one 16-byte load when every row of G and B is whole 16-byte units and
+//   both pointers are aligned, else one column; an entry takes L lanes,
+//   the power of two at or above its loads, at most 32, each lane up to
+//   two loads (PER); wider n is walked in strips of PER * L * V columns by
+//   the same group, each strip adding to what the earlier wrote.
+// - Work: a group of L lanes owns a span of consecutive entries, one wave
+//   of groups for the card (the span from the schedule), issues its first
+//   round's B loads, finds the row of its first entry by a search of
+//   indptr that probes L rows at once (row_of_group: log_{L+1} m loads,
+//   not log_2 m) while they are in flight, and keeps its strip of
+//   that row of G in registers while it walks the span, loading a new
+//   strip only where the span enters the next row (row_from).  Spans
+//   balance long rows by themselves: an entry's output depends on no
+//   other entry, so a row needs no chunks and no second pass.
+// - Rounds of E entries (round_entries: 4, or 2 where a lane loads 32
+//   bytes of an entry's B row, at most L), software-pipelined: a round's
+//   products are taken, then the next round's B loads are issued into the
+//   same registers, and only then are the round's E sums added across the
+//   group by one reduce-scatter (E - 1 + log2(L / E) shuffles, leaving
+//   entry e's total with the lanes whose bits spell e, one of which
+//   writes out[p + e]).  So a warp's gathers stay in flight while it
+//   reduces, at no register cost; indices are loaded two rounds ahead.
+//   With 32-bit indices, entry and row numbers are 32-bit (unsigned, so a
+//   round past 2^31 - 1 cannot wrap): fewer registers, and the kernel fits
+//   the 64-register cap that keeps 32 warps on an SM without spilling.
+// - Registers decide: 32 warps an SM with 64 registers each beat fewer
+//   warps with more loads in flight.  Staging B in shared memory by
+//   asynchronous copies (cp.async, or TMA bulk copies on an mbarrier ring)
+//   to keep more rows in flight without registers measured no faster at
+//   any width: with a lane per entry the transposed rows cost L1 and
+//   shared-memory bandwidth, and a ring of each lane's own 16-byte pieces
+//   only matched this kernel (PERF.md).
 // - An entry whose G and B rows are one load (n == V, or n == 1; L == 1)
 //   takes a thread of its own: a warp a tile of 32 * 8 consecutive
-//   entries, a thread every 32nd, its first row found by binary search and
-//   each next from the last (forward steps of 1, 2, 4, ..., then a binary
-//   search), so the search is paid once for 8 entries.  Spans enter rows
-//   the same way, so runs of empty rows cost their logarithm.
+//   entries, a thread every 32nd, the tile's first row found by the warp
+//   together (row_of_group) and each thread's next from its last (forward
+//   steps of 1, 2, 4, ..., then a binary search), so runs of empty rows
+//   cost their logarithm.
 //
 // Every output is written by one lane, with no atomics: a run gives the
 // same bits twice.
 #include <cstring>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -81,19 +97,30 @@ __device__ __forceinline__ cuda::std::complex<R> conj_of(
   return cuda::std::complex<R>(v.real(), -v.imag());
 }
 
-// The row r of entry p: the last r with indptr[r] <= p, so that
-// indptr[r] <= p < indptr[r + 1] even across empty rows.
-template <typename I>
-__device__ __forceinline__ int64_t row_of(const I* __restrict__ indptr,
-                                          int64_t m, int64_t p) {
+// The row of entry p (the last r with indptr[r] <= p, so that indptr[r] <=
+// p < indptr[r + 1] even across empty rows), found by the L lanes of a
+// group together: each step probes L evenly spaced rows of [lo, hi) in one
+// load a lane, and the count of probes at or below p (a prefix, indptr
+// being sorted) narrows the range (L + 1)-fold.  Every lane of the group
+// must call it and gets the same row.
+template <typename I, int L>
+__device__ __forceinline__ int64_t row_of_group(const I* __restrict__ indptr,
+                                                int64_t m, int64_t p, int gl,
+                                                unsigned members) {
+  const int shift = static_cast<int>(threadIdx.x & 31) & ~(L - 1);
+  constexpr unsigned kGroup = L == 32 ? kFullMask : (1u << L) - 1u;
   int64_t lo = 0, hi = m;  // indptr[lo] <= p < indptr[hi]
   while (hi - lo > 1) {
-    const int64_t mid = (lo + hi) >> 1;
-    if (static_cast<int64_t>(indptr[mid]) <= p) {
-      lo = mid;
-    } else {
-      hi = mid;
-    }
+    const int64_t step = (hi - lo + L) / (L + 1);
+    const int64_t pos = lo + (gl + 1) * step;
+    const bool at_or_below =
+        pos < hi && static_cast<int64_t>(indptr[pos]) <= p;
+    const unsigned below =
+        (__ballot_sync(members, at_or_below) >> shift) & kGroup;
+    const int64_t count = __popc(below);
+    const int64_t next_hi = lo + (count + 1) * step;
+    lo += count * step;
+    if (next_hi < hi) hi = next_hi;
   }
   return lo;
 }
@@ -130,8 +157,8 @@ constexpr int kPerThread = 8;
 
 // A thread an entry at a time: G's and B's rows are one load (n == V, or
 // n == 1).  A thread takes the entries p, p + 32, ... of its warp's tile;
-// the first's row by binary search, each next one's from the last
-// (row_from), so the search is paid once a thread, not once an entry.
+// the tile's first row is found by the warp together, each thread's first
+// and each next one's forward from the last (row_from).
 template <typename T, typename I, int V>
 __global__ void __launch_bounds__(kThreads)
 csr_sddmm_entry_kernel(const I* __restrict__ indptr,
@@ -140,17 +167,19 @@ csr_sddmm_entry_kernel(const I* __restrict__ indptr,
                        T* __restrict__ out, int64_t m, int64_t n,
                        int64_t nnz, T alpha, bool scale) {
   using A = Arith<T>;
+  const int lane = static_cast<int>(threadIdx.x & 31);
   const int64_t tile = (static_cast<int64_t>(blockIdx.x) * kThreads +
                         (threadIdx.x & ~31)) * kPerThread;
-  const int64_t first = tile + (threadIdx.x & 31);
+  if (tile >= nnz) return;  // the whole warp
+  int64_t row = row_of_group<I, 32>(indptr, m, tile, lane, kFullMask);
+  const int64_t first = tile + lane;
   if (first >= nnz) return;
-  int64_t row = row_of(indptr, m, first);
 #pragma unroll
   for (int j = 0; j < kPerThread; ++j) {
     const int64_t p = first + 32 * j;
     if (p >= nnz) break;
     const int64_t col = static_cast<int64_t>(indices[p]);
-    if (j > 0) row = row_from(indptr, m, p, row);
+    row = row_from(indptr, m, p, row);
     T acc = A::zero();
     if constexpr (V > 1) {
       const Vec<T, V> gv = load_vec<T, V>(g + row * V);
@@ -210,6 +239,8 @@ __device__ __forceinline__ int entry_of(int gl) {
 // Entries a round for groups of L lanes that load `bytes` of an entry's B
 // row a lane: 4, fewer for narrow groups, and 2 where four rounds' loads
 // would pass 64 bytes a lane (they took registers, and so warps).
+// ops/sddmm.py (round_entries) mirrors it; the launch refuses a schedule
+// whose round differs.
 constexpr int round_entries(int lanes, int bytes) {
   int e = 4;
   while (e > 2 && e * bytes > 64) e >>= 1;
@@ -217,17 +248,18 @@ constexpr int round_entries(int lanes, int bytes) {
 }
 
 // Blocks an SM must hold of the span kernel: 8 of 128 threads (32 warps)
-// cap its registers at 64 a thread.  Warps in flight set the rate of its
-// gathers; at config 1's width the cap measured faster than the
-// compiler's own choice (96 registers), at other widths about even.
+// cap its registers at 64 a thread.  ops/sddmm.py sizes one wave of spans
+// from it (_SPAN_GROUPS).
 constexpr int kSpanBlocks = 8;
 
 // A group of L lanes a span of `span` entries (see the top), E entries a
-// round: their B rows loaded together, the next round's indices loaded
-// before this round's sums, the E sums added by one reduce-scatter.  L, V,
-// PER and E are compile-time, so shuffles, masks and offsets are too: a
-// form with the lane count known only at run time held more registers and
-// measured about 2x slower at config 1.
+// round, the next round's B loads issued between a round's products and
+// its reduce-scatter.  L, V, PER and E are compile-time, so shuffles,
+// masks and offsets are too.  P holds entry and row numbers: int32_t
+// with 32-bit indices (nnz and m below 2^31), else int64_t; an entry past
+// the span is tested as an offset against p1 - p, so no sum passes p1.
+// (Unsigned 32-bit numbers spilled: their wrap-around kept the compiler
+// from widening the addresses.)
 template <typename T, typename I, int L, int V, int PER, int E>
 __global__ void __launch_bounds__(kThreads, kSpanBlocks)
 csr_sddmm_span_kernel(const I* __restrict__ indptr,
@@ -236,82 +268,109 @@ csr_sddmm_span_kernel(const I* __restrict__ indptr,
                       T* out, int64_t m, int64_t n, int64_t nnz,
                       int64_t span, T alpha, bool scale) {
   using A = Arith<T>;
+  using P = std::conditional_t<sizeof(I) == 4, int32_t, int64_t>;
   constexpr int kPerBlock = kThreads / L;
   constexpr int kStrip = PER * L * V;
   const int gl = static_cast<int>(threadIdx.x) % L;
   const unsigned members =
       L == 32 ? kFullMask
               : ((1u << L) - 1u) << ((threadIdx.x & 31) & ~(L - 1));
-  const int64_t p0 =
+  const int64_t start =
       (static_cast<int64_t>(blockIdx.x) * kPerBlock + threadIdx.x / L) *
       span;
-  if (p0 >= nnz) return;  // the whole group
-  const int64_t p1 = p0 + span < nnz ? p0 + span : nnz;
-  const int64_t first_row = row_of(indptr, m, p0);
+  if (start >= nnz) return;  // the whole group
+  const P p0 = static_cast<P>(start);
+  const P p1 = static_cast<P>(start + span < nnz ? start + span : nnz);
   const int mine = entry_of<L, E>(gl);
   const bool writer = (gl & (L / E - 1)) == 0;
+  auto index_at = [&](P p, int k) {
+    return k < p1 - p ? indices[p + k] : I(0);
+  };
 
-  for (int64_t s0 = 0; s0 < n; s0 += kStrip) {
-    // This lane's columns: c + s * L * V for s < PER, those below n.
-    const int64_t c = s0 + gl * V;
-    int64_t row = first_row;
-    int64_t row_end = static_cast<int64_t>(indptr[row + 1]);
-    Vec<T, V> gv[PER];
+  // Columns are int: the wrapper refuses n of 2^31 or more.
+  const int nn = static_cast<int>(n);
+  // A round's B pieces, from the columns in cols[] at this lane's strip
+  // offset c.  Entries past the span load B's row 0 (index_at), unused:
+  // no branch between a round's loads.
+  Vec<T, V> bv[E][PER];
+  I next[E];
+  auto load_b = [&](const I (&cols)[E], int c) {
 #pragma unroll
-    for (int s = 0; s < PER; ++s) {
-      if (c + s * L * V < n) {
-        gv[s] = load_vec<T, V>(g + row * n + c + s * L * V);
+    for (int e = 0; e < E; ++e) {
+      const T* __restrict__ brow = b + static_cast<int64_t>(cols[e]) * n + c;
+#pragma unroll
+      for (int s = 0; s < PER; ++s) {
+        if (c + s * L * V < nn) bv[e][s] = load_vec<T, V>(brow + s * L * V);
       }
     }
-    I next[E];
+  };
+  // The first strip's first round needs no row: its loads go in flight
+  // before the row search.
 #pragma unroll
-    for (int e = 0; e < E; ++e) next[e] = p0 + e < p1 ? indices[p0 + e] : I(0);
-    for (int64_t p = p0; p < p1; p += E) {
-      Vec<T, V> bv[E][PER];
+  for (int e = 0; e < E; ++e) next[e] = index_at(p0, e);
+  load_b(next, gl * V);
+  const P first_row =
+      static_cast<P>(row_of_group<I, L>(indptr, m, start, gl, members));
+  for (int s0 = 0; s0 < nn; s0 += kStrip) {
+    // This lane's columns: c + s * L * V for s < PER, those below n.
+    const int c = s0 + gl * V;
+    P row = first_row;
+    P row_end = static_cast<P>(indptr[row + 1]);
+    Vec<T, V> gv[PER];
+    auto load_g = [&]() {
 #pragma unroll
-      for (int e = 0; e < E; ++e) {
-        const T* __restrict__ brow = b + static_cast<int64_t>(next[e]) * n + c;
-#pragma unroll
-        for (int s = 0; s < PER; ++s) {
-          if (c + s * L * V < n) bv[e][s] = load_vec<T, V>(brow + s * L * V);
+      for (int s = 0; s < PER; ++s) {
+        if (c + s * L * V < nn) {
+          gv[s] = load_vec<T, V>(g + static_cast<int64_t>(row) * n + c +
+                                 s * L * V);
         }
       }
+    };
+    load_g();
+    if (s0 > 0) {
 #pragma unroll
-      for (int e = 0; e < E; ++e) {
-        next[e] = p + E + e < p1 ? indices[p + E + e] : I(0);
-      }
+      for (int e = 0; e < E; ++e) next[e] = index_at(p0, e);
+      load_b(next, c);
+    }
+#pragma unroll
+    for (int e = 0; e < E; ++e) next[e] = index_at(p0, E + e);
+    for (P p = p0;; p += E) {
       T sum[E];
 #pragma unroll
       for (int e = 0; e < E; ++e) {
         sum[e] = A::zero();
-        const int64_t q = p + e;
-        if (q >= p1) continue;  // the whole group
-        if (q >= row_end) {     // the span enters a later row
-          row = row_from(indptr, m, q, row);
-          row_end = static_cast<int64_t>(indptr[row + 1]);
-#pragma unroll
-          for (int s = 0; s < PER; ++s) {
-            if (c + s * L * V < n) {
-              gv[s] = load_vec<T, V>(g + row * n + c + s * L * V);
-            }
-          }
+        if (e >= p1 - p) continue;  // the whole group
+        if (p + e >= row_end) {  // the span enters a later row
+          row = static_cast<P>(row_from(indptr, m, p + e, row));
+          row_end = static_cast<P>(indptr[row + 1]);
+          load_g();
         }
 #pragma unroll
         for (int s = 0; s < PER; ++s) {
-          if (c + s * L * V >= n) continue;
+          if (c + s * L * V >= nn) continue;
 #pragma unroll
           for (int k = 0; k < V; ++k) {
             sum[e] = A::fma(gv[s].v[k], conj_of(bv[e][s].v[k]), sum[e]);
           }
         }
       }
+      // This round's B registers are free: the next round's loads go in
+      // flight before the reduce-scatter, then the indices of the one
+      // after.
+      const bool more = E < p1 - p;
+      if (more) {
+        load_b(next, c);
+#pragma unroll
+        for (int e = 0; e < E; ++e) next[e] = index_at(p, 2 * E + e);
+      }
       const T total = reduce_scatter<T, L, E>(sum, gl, members);
-      const int64_t q = p + mine;
-      if (writer && q < p1) {
+      if (writer && mine < p1 - p) {
+        const P q = p + mine;
         T v = s0 == 0 ? total : A::add(out[q], total);
-        if (s0 + kStrip >= n && scale) v = A::mul(alpha, v);
+        if (s0 + kStrip >= nn && scale) v = A::mul(alpha, v);
         out[q] = v;
       }
+      if (!more) break;
     }
   }
 }
@@ -334,9 +393,11 @@ cudaError_t launch_entries(const void* indptr, const void* indices,
 template <typename T, typename I, int L, int V, int PER>
 cudaError_t launch_spans(const void* indptr, const void* indices,
                          const void* g, const void* b, void* out, int64_t m,
-                         int64_t n, int64_t nnz, int64_t span, T alpha,
-                         bool scale, cudaStream_t stream) {
+                         int64_t n, int64_t nnz, int round_len,
+                         int64_t span, T alpha, bool scale,
+                         cudaStream_t stream) {
   constexpr int E = round_entries(L, PER * V * static_cast<int>(sizeof(T)));
+  if (round_len != E) return cudaErrorInvalidValue;
   const int64_t groups = (nnz + span - 1) / span;
   const int64_t blocks = (groups + kThreads / L - 1) / (kThreads / L);
   csr_sddmm_span_kernel<T, I, L, V, PER, E>
@@ -351,7 +412,7 @@ template <typename T, typename I>
 cudaError_t launch(const void* indptr, const void* indices, const void* g,
                    const void* b, void* out, int64_t m, int64_t n,
                    int64_t nnz, int vec, int lanes, int per_lane,
-                   int64_t span, double alpha_re, double alpha_im,
+                   int round_len, int64_t span, double alpha_re, double alpha_im,
                    cudaStream_t stream) {
   constexpr int kVec = static_cast<int>(16 / sizeof(T));
   if (m <= 0 || n <= 0 || nnz <= 0 || span <= 0) {
@@ -360,6 +421,9 @@ cudaError_t launch(const void* indptr, const void* indices, const void* g,
   const T alpha = Arith<T>::make(alpha_re, alpha_im);
   const bool scale = !is_one(alpha_re, alpha_im);
   if (lanes == 1) {
+    if (round_len != 1 || span != 32 * kPerThread) {
+      return cudaErrorInvalidValue;
+    }
     if (vec == kVec && n == kVec) {
       return launch_entries<T, I, kVec>(indptr, indices, g, b, out, m, n,
                                         nnz, alpha, scale, stream);
@@ -373,7 +437,8 @@ cudaError_t launch(const void* indptr, const void* indices, const void* g,
   // Two loads a lane only where 32 lanes do not cover n in one
   // (ops/csr.spmm_schedule).
 #define SDT_K7_ARGS \
-  indptr, indices, g, b, out, m, n, nnz, span, alpha, scale, stream
+  indptr, indices, g, b, out, m, n, nnz, round_len, span, alpha, scale, \
+      stream
 #define SDT_K7_LANES(V)                                                    \
   switch (lanes) {                                                         \
     case 2: return launch_spans<T, I, 2, V, 1>(SDT_K7_ARGS);               \
@@ -402,9 +467,9 @@ extern "C" int sdt_csr_sddmm(int dtype, int itype, const void* indptr,
                              const void* indices, const void* g,
                              const void* b, void* out, int64_t m, int64_t n,
                              int64_t nnz, int vec, int lanes, int per_lane,
-                             int64_t span, double alpha_re, double alpha_im,
-                             void* stream) {
+                             int round_len, int64_t span, double alpha_re,
+                             double alpha_im, void* stream) {
   SDT_DISPATCH(dtype, itype, sdt::launch, indptr, indices, g, b, out, m, n,
-               nnz, vec, lanes, per_lane, span, alpha_re, alpha_im,
+               nnz, vec, lanes, per_lane, round_len, span, alpha_re, alpha_im,
                static_cast<cudaStream_t>(stream))
 }

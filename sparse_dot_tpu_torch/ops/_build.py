@@ -78,9 +78,9 @@ _PROTOTYPES = {
     "sdt_csr_spgemm_fill": (_INT, _INT, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _INT, _I64, _INT, _P, _P, _P, _P, _I64, _P),
     # dtype, itype, indptr, indices, g, b, out, m, n, nnz, vec, lanes,
-    # per_lane, span, alpha_re, alpha_im, stream
+    # per_lane, round, span, alpha_re, alpha_im, stream
     "sdt_csr_sddmm": (_INT, _INT, _P, _P, _P, _P, _P, _I64, _I64, _I64, _INT,
-                      _INT, _INT, _I64, _D, _D, _P),
+                      _INT, _INT, _INT, _I64, _D, _D, _P),
     # dtype, itype, a_indptr, a_indices, a_data, b_indptr, b_indices,
     # b_data, c0, c, m, n, alpha_re, alpha_im, beta_re, beta_im,
     # triangular, splits, width, k, starts (scratch), stream

@@ -373,15 +373,101 @@ def test_csr_sddmm_plain_chunking(monkeypatch):
     (200, torch.complex128, 32, 1),  # two strips of 64 columns
 ])
 def test_sddmm_schedule(n, dtype, lanes, vec):
-    """K7's lanes are K2's for the same n; spans stay in [32, 512] and
-    give about one group per 32 lanes of the card (``_GROUP_TARGET``)."""
+    """K7's lanes are K2's for the same n; the span kernel's spans stay in
+    [32, 512] and are the fewest entries that fit one wave of groups
+    (``_SPAN_GROUPS`` groups of 32 lanes); the entry kernel's span is its
+    warp tile."""
     s = sddmm.sddmm_schedule(n, dtype, 1_000_000)
     assert (s.lanes, s.vec) == (lanes, vec)
     assert s.lanes * s.per_lane * s.vec >= min(n, 128 if vec == 2 else 64)
+    if lanes == 1:
+        assert s.round == 1
+        for nnz in (10, 1_000_000, 10**9):
+            assert sddmm.sddmm_schedule(n, dtype, nnz).span == \
+                sddmm._ENTRY_TILE
+        return
     assert sddmm.sddmm_schedule(n, dtype, 10).span == 32
     assert sddmm.sddmm_schedule(n, dtype, 10**9).span == 512
-    groups = -(-1_000_000 // s.span)
-    assert groups <= sddmm._GROUP_TARGET * (32 // lanes) or s.span == 512
+    wave = sddmm._SPAN_GROUPS * (32 // lanes)
+    assert -(-1_000_000 // s.span) <= wave or s.span == 512
+    assert -(-1_000_000 // (s.span - 1)) > wave or s.span == 32
+
+
+@pytest.mark.parametrize("lanes, load_bytes, entries", [
+    (32, 32, 2),   # config 1 in f64: two 16-byte loads a lane
+    (32, 16, 4),
+    (32, 8, 4),    # scalar f64
+    (32, 64, 2),   # never below 2
+    (4, 16, 4),
+    (2, 16, 2),    # at most the group's lanes
+    (2, 4, 2),
+])
+def test_sddmm_round_entries(lanes, load_bytes, entries):
+    """A round holds 4 entries' B loads, 2 where 4 would pass 64 bytes a
+    lane, and no more than the group's lanes (``csrc/csr_sddmm.cu``,
+    round_entries, refuses a schedule that says otherwise)."""
+    assert sddmm.round_entries(lanes, load_bytes) == entries
+
+
+@pytest.mark.parametrize("n, dtype, aligned, path", [
+    # path: vec, lanes, per_lane, round
+    (1, torch.float64, True, (1, 1, 1, 1)),        # entry kernel, scalar
+    (2, torch.float64, True, (2, 1, 1, 1)),        # entry kernel, 16 bytes
+    (4, torch.float32, True, (4, 1, 1, 1)),
+    (1, torch.complex128, True, (1, 1, 1, 1)),
+    (2, torch.float64, False, (1, 2, 1, 2)),       # misaligned: span, scalar
+    (4, torch.float32, False, (1, 4, 1, 4)),
+    (64, torch.float64, False, (1, 32, 2, 4)),     # two 8-byte loads
+    (64, torch.float64, True, (2, 32, 1, 4)),
+    (128, torch.float64, True, (2, 32, 2, 2)),     # config 1
+    (128, torch.float32, True, (4, 32, 1, 4)),
+    (17, torch.float64, True, (1, 32, 1, 4)),      # rows not 16-byte units
+    (64, torch.complex128, True, (1, 32, 2, 2)),
+    (32, torch.complex64, True, (2, 16, 1, 4)),
+    (200, torch.float64, True, (2, 32, 2, 2)),     # last strip ends mid-row
+])
+def test_sddmm_schedule_paths(n, dtype, aligned, path):
+    """The path for (n, value type, alignment): the entry kernel only for
+    aligned rows of one 16-byte load (or n == 1); misaligned G or B, and
+    rows that are not whole 16-byte units, take scalar loads."""
+    assert tuple(sddmm.sddmm_schedule(n, dtype, 5000, aligned))[:4] == path
+
+
+def kernel_entries(nnz, s):
+    """The entries K7's launch writes, listed as the kernel walks them
+    (``csrc/csr_sddmm.cu``): the entry kernel's warps take tiles of
+    ``span`` entries, a thread every 32nd; the span kernel's groups take
+    ``span`` consecutive entries in rounds of ``round``."""
+    seen = []
+    if s.lanes == 1:
+        for tile in range(0, nnz, s.span):
+            for lane in range(32):
+                seen += [p for p in range(tile + lane, tile + s.span, 32)
+                         if p < nnz]
+        return seen
+    for start in range(0, nnz, s.span):
+        end = min(start + s.span, nnz)
+        for p in range(start, end, s.round):
+            seen += [p + e for e in range(s.round) if p + e < end]
+    return seen
+
+
+@pytest.mark.parametrize("n, dtype, aligned", [
+    (1, torch.float64, True), (2, torch.float64, True),
+    (128, torch.float64, True), (64, torch.float64, False),
+    (3, torch.complex64, True), (32, torch.float32, True),
+])
+@pytest.mark.parametrize("nnz", [1, 31, 255, 257, 4097, 1_000_003])
+def test_sddmm_spans_cover_every_entry_once(n, dtype, aligned, nnz):
+    """Spans and rounds (the schedule's, as the kernel walks them) cover
+    each of nnz entries exactly once, for nnz that is not a multiple of a
+    round, a span or a tile; the span kernel's launch is one wave or
+    fewer groups when nnz needs no more."""
+    s = sddmm.sddmm_schedule(n, dtype, nnz, aligned)
+    seen = kernel_entries(nnz, s)
+    assert len(seen) == nnz and sorted(seen) == list(range(nnz))
+    if s.lanes > 1 and s.span < sddmm._SPAN_MAX:
+        assert -(-nnz // s.span) <= sddmm._SPAN_GROUPS * (32 // s.lanes)
 
 
 # ---------------------------------------------------------------------------
