@@ -53,10 +53,22 @@ Phases, each printing one JSON line:
    4 entries; 16-byte and scalar loads; 32- and 64-bit indices) and each
    edge of its work split (K7_EDGES: nnz past a whole round or span, a
    span across 1000 empty rows, a row longer than a span, a strip ending
-   mid-row, misaligned views on scalar loads) seen; then
-   ``torch.autograd.gradcheck`` (reverse and forward mode) of
-   ``ops.coo_spmm_raw``, ``coo_spmv`` and ``csr_spmm`` on the card in f64
-   and c128, with the plain versions refused and K2, K3 and K7 launched;
+   mid-row, misaligned views on scalar loads) seen.  K8 block SDDMM
+   (BSR SpMM's gradient in the blocks) against its plain version at bs in
+   {1, 3, 8, 16, 64, 128} and n in {1, 37, 64, 256}, with and without
+   alpha, on G and B and on views of them one row into a buffer, with
+   empty block rows and no stored block, and with inf in G and B; K9, the
+   sampled sparse-row product (the dense-output SpGEMM's value
+   gradients), against its plain version in both forms (dA: P's rows
+   index D; dB: P read as (column, row)), with empty rows of P and of Y,
+   a row of Y of 2000 entries, 6000 short rows of P, no entry, and inf,
+   on groups of 1 to 32 lanes; every K8 and K9 call run twice for the
+   same bits.  Then ``torch.autograd.gradcheck`` (reverse and forward
+   mode) of ``ops.coo_spmm_raw``, ``coo_spmv``, ``csr_spmm``, the BSR
+   device function ``ops.bsr_spmm`` (on both K1 variants) and
+   ``csr_spgemm_dense`` (with and without ``triangular``) on the card in
+   f64 and c128, with the plain versions refused and K1-K3 and K6-K9
+   launched;
 3. the main path, ``dot_product`` with scipy/numpy operands at real
    sizes, against the scipy oracle at the reference's decimal=6 (f64)
    and decimal=5 (f32), with each kernel's launch count checked (the
@@ -65,7 +77,7 @@ Phases, each printing one JSON line:
    sparse x sparse path: the reference demo's X @ X.T (f64, f32, dense
    with ``out``) and its gram, BASELINE config 4's complex gram, a
    1M x 1M A @ A, config 3's BSR x BSR and a 50k-row ``sypr``; in both,
-   the plain versions of K1-K7 are made to raise;
+   the plain versions of K1-K9 are made to raise;
 4. kernel and plain-version times at the phase-3 shapes and, for K2 and
    K3, at the solvers' matrices (the 1M Laplacian at n = 1, 4, 16, CGLS's
    A and A^T at n = 1, 4; K3 on the Laplacian, the convection-diffusion
@@ -90,10 +102,13 @@ Phases, each printing one JSON line:
    op(B); K7 at config 1 (n = 128) and at the 1M^2 matrix (n = 1), beside
    ``torch.sparse.sampled_addmm`` and, in the same turns, K2 (K3) on the
    same pattern, with the gathered bytes (nnz * n * itemsize) and the
-   rate each reaches over them; and the wall
+   rate each reaches over them; K8 at config 3 (bs 64, n = 256, f64 and
+   f32) beside ``torch.bmm`` of the strips gathered beforehand; K9 at
+   case a (dA and dB) and d (dA) beside op(B) (op(A)) densified and
+   ``torch.sparse.sampled_addmm``; and the wall
    time of ``dot_product(X, X.T)`` beside scipy's;
 5. the solver path, with the counts set to 0 again and the plain versions
-   of K1-K7 made to raise, each result checked against scipy/numpy on the
+   of K1-K9 made to raise, each result checked against scipy/numpy on the
    host: the handle protocol on the demo X (create, convert from CSC,
    order a row-shuffled copy, ``matmul_handles(X, X.T)`` on K4 + K5,
    export); CG (K3) on a 1M-row 5-point Laplacian + 0.01 I, full and as
@@ -113,7 +128,7 @@ Phases, each printing one JSON line:
    and its idle share against the median wall, the host syncs counted in
    ``torch.cuda.set_sync_debug_mode("warn")`` and the launches;
 6. the training path, with the counts set to 0 again and the plain
-   versions of K1-K7 made to raise: SGD through ``ops.coo_spmm_raw`` from
+   versions of K1-K9 made to raise: SGD through ``ops.coo_spmm_raw`` from
    zero values toward T = A B on BASELINE config 1's pattern and phase 3's
    B (20 steps in f64 on the values; 20 in f32 with B trained too), 10
    steps of ``ops.coo_spmv`` on the 1M^2 matrix with x trained too, and
@@ -122,7 +137,14 @@ Phases, each printing one JSON line:
    rounding, every result with a grad_fn, the gradients at each run's
    first and last step equal to the plain versions' on the same tensors;
    per run the wall ms of a step (median of steps 2..N), and the device's
-   busy ms of an f64 step in a ``torch.profiler`` trace.
+   busy ms of an f64 step in a ``torch.profiler`` trace.  Then, each with
+   the counts set to 0 again: 15 f64 SGD steps through ``ops.bsr_spmm``
+   on config 3's blocks and b (K1 forward, K8 and K1 over A^H backward)
+   and 10 through ``csr_spgemm_dense`` on the demo X's values as op(A)
+   and a copy of X^T's CSR as op(B) (K6 forward, K9 twice backward), plus
+   one step with ``triangular``; losses non-increasing, gradients at the
+   first and last step equal to torch's through the plain versions, the
+   device's busy ms and idle share of a step.
 
 Then the card line, a JSON line of per-kernel results (its first phase-4
 row's times, bound and library time, and the launches of each path) and,
@@ -132,7 +154,9 @@ and a non-zero exit; without a CUDA device it exits 2 before any work.
 ``--only spgemm`` runs the sparse x sparse parts of phases 1-4 and prints
 no result lines; ``--only k6`` runs phase 1 and K6's phase-4 rows;
 ``--only k7`` runs phase 1, K7's phase-2 checks (without gradcheck), its
-phase-4 rows and phase 6's config-1 f64 steps, and prints no result line.
+phase-4 rows and phase 6's config-1 f64 steps, and prints no result line;
+``--only k8`` (``k9``) the same for K8 (K9): phase 1, its phase-2 checks,
+its phase-4 rows and its phase-6 run.
 """
 
 import argparse
@@ -200,6 +224,14 @@ KERNELS = {
     "K7_csr_sddmm": {
         "source": "sparse_dot_tpu_torch/csrc/csr_sddmm.cu",
         "replaces": "sparse_dot_tpu/ops/_xla.py:178",
+    },
+    "K8_bsr_sddmm": {
+        "source": "sparse_dot_tpu_torch/csrc/bsr_sddmm.cu",
+        "replaces": "sparse_dot_tpu/ops/_xla.py:799",
+    },
+    "K9_csr_spgemm_sddmm": {
+        "source": "sparse_dot_tpu_torch/csrc/csr_spgemm_sddmm.cu",
+        "replaces": "sparse_dot_tpu/ops/_xla.py:326",
     },
 }
 
@@ -335,9 +367,12 @@ def check_kernels(spgemm_only=False):
                 check_sddmm(rng7, tdt, npdt, itype, record, k7_schedules,
                             k7_seen)
             check_spgemm(rng, tdt, npdt, itype, record, bins_seen, k6_seen)
+    k9_lanes = None
     if not spgemm_only:
         check_k1_special(rng, record)
         check_sddmm_special(rng7, record)
+        k89, k9_lanes = check_k8_k9()
+        results.update(k89)
     check_csr_special(rng, record)
     check_bins_seen(bins_seen)
     check_k6_seen(k6_seen)
@@ -352,7 +387,7 @@ def check_kernels(spgemm_only=False):
     emit(2, kernels=results, spgemm_bins=sorted(bins_seen),
          k2_schedules=sorted(schedules), k6_plans=k6_plans,
          k7_schedules=sorted(k7_schedules), k7_edges=sorted(k7_seen),
-         gradcheck_launches=check_gradcheck())
+         k9_lanes=k9_lanes, gradcheck_launches=check_gradcheck())
     return results
 
 
@@ -697,34 +732,236 @@ def check_sddmm_special(rng, record):
                 b[indices[20], 0] = complex(0.0, -np.inf)
             args = (cuda(indptr), cuda(indices), cuda(g), cuda(b))
             out, ref = sddmm.csr_sddmm(*args), sddmm.csr_sddmm_plain(*args)
-            torch.cuda.synchronize()
-            got, want = (torch.view_as_real(t) if t.is_complex() else t
-                         for t in (out, ref))
-            for what in (torch.isnan, torch.isposinf, torch.isneginf):
-                if not torch.equal(what(got), what(want)):
-                    raise AssertionError(f"K7 {tdt} n={n}: {what.__name__} "
-                                         "differs from the plain version")
-            if not bool(torch.isinf(want).any()):
-                raise AssertionError("K7 inf case: no inf reached the output")
-            fin = torch.isfinite(ref) if not ref.is_complex() else (
-                torch.isfinite(ref.real) & torch.isfinite(ref.imag))
+            fin = same_parts(f"K7 {tdt} n={n}", out, ref)
             record("K7_csr_sddmm", compare(out[fin], ref[fin], tdt))
+
+
+# K8 cases: (bs, block rows, block columns, stored blocks a row, every
+# k-th block row empty): empty block rows in each, then no stored block.
+# K8_NS puts n at one column, a ragged stage of 16 (37) and whole stages.
+K8_BS = (1, 3, 8, 16, 64, 128)
+K8_NS = (1, 37, 64, 256)
+
+
+def k8_call(*args):
+    """bsr_sddmm(*args), checked to launch K8 once (none with no block)."""
+    from sparse_dot_tpu_torch.ops import bsr
+
+    before = bsr.bsr_sddmm.launches
+    out = bsr.bsr_sddmm(*args)
+    if bsr.bsr_sddmm.launches != before + int(args[1].numel() > 0):
+        raise AssertionError("bsr_sddmm did not launch K8 once")
+    return out
+
+
+def check_k8(rng, tdt, npdt, itype, record):
+    """K8 against ``bsr_sddmm_plain`` at every bs of K8_BS and n of K8_NS,
+    with and without alpha, on G and B and on views of them one row into a
+    buffer, block rows empty every third and a BSR with no stored block;
+    every call run twice for the same bits."""
+    from sparse_dot_tpu_torch.ops import bsr
+
+    alpha = 0.5 - 0.25j if np.dtype(npdt).kind == "c" else -1.5
+    for bs in K8_BS:
+        nbrows, nbcols = (3, 4) if bs >= 64 else (7, 5)
+        cases = [random_bsr(rng, nbrows, nbcols, bs, 2, npdt, itype, 3)[:2],
+                 (np.zeros(nbrows + 1, itype), np.zeros(0, itype))]
+        for indptr, indices in cases:
+            ip, ix = cuda(indptr), cuda(indices)
+            for n in K8_NS:
+                g = cuda(values(rng, (nbrows * bs, n), npdt))
+                b = cuda(values(rng, (nbcols * bs, n), npdt))
+                for gg, bb in ((g, b), (misaligned(g, n), misaligned(b, n))):
+                    for al in (None, alpha):
+                        args = (ip, ix, gg, bb, bs, al)
+                        out = k8_call(*args)
+                        record("K8_bsr_sddmm", compare(
+                            out, bsr.bsr_sddmm_plain(*args), tdt))
+                        if not torch.equal(out, k8_call(*args)):
+                            raise AssertionError(f"K8 {tdt} bs={bs} n={n}: "
+                                                 "runs differ")
+
+
+def same_parts(name, out, ref):
+    """``out`` and ``ref`` (tensors on the card) hold the same nan, +inf
+    and -inf in every real and imaginary part, and some inf; returns the
+    mask of the entries finite in ``ref``."""
+    torch.cuda.synchronize()
+    got, want = (torch.view_as_real(t) if t.is_complex() else t
+                 for t in (out, ref))
+    for what in (torch.isnan, torch.isposinf, torch.isneginf):
+        if not torch.equal(what(got), what(want)):
+            raise AssertionError(f"{name}: {what.__name__} differs from the "
+                                 "plain version")
+    if not bool(torch.isinf(want).any()):
+        raise AssertionError(f"{name}: no inf reached the output")
+    return torch.isfinite(ref) if not ref.is_complex() else (
+        torch.isfinite(ref.real) & torch.isfinite(ref.imag))
+
+
+def check_k8_special(rng, record):
+    """K8 with inf in G and in B (+inf, -inf, and an imaginary inf for
+    complex values) in every value type, at bs = 3 and 64: the same nan,
+    +inf and -inf parts as the plain version, finite entries within
+    tolerance."""
+    from sparse_dot_tpu_torch.ops import bsr
+
+    for tdt, npdt in NP_DTYPES.items():
+        for bs in (3, 64):
+            indptr, indices, _ = random_bsr(rng, 4, 3, bs, 2, npdt)
+            g = values(rng, (4 * bs, 40), npdt)
+            b = values(rng, (3 * bs, 40), npdt)
+            g[1, 0] = np.inf
+            b[indices[0] * bs + 2, 39] = -np.inf
+            if np.dtype(npdt).kind == "c":
+                b[indices[-1] * bs, 5] = complex(0.0, -np.inf)
+            args = (cuda(indptr), cuda(indices), cuda(g), cuda(b), bs)
+            out, ref = k8_call(*args), bsr.bsr_sddmm_plain(*args)
+            fin = same_parts(f"K8 {tdt} bs={bs}", out, ref)
+            record("K8_bsr_sddmm", compare(out[fin], ref[fin], tdt))
+
+
+# K9 cases: (rows of P, columns of P, mean row of P, every k-th row of P
+# empty, width of D, mean row of Y, every k-th row of Y empty, one row of
+# Y this long): Y's mean rows put K9 on groups of 1, 2, 4, 8, 16 and 32
+# lanes (``spgemm_grad.sampled_lanes``), the fifth has a row of Y of 2000
+# entries, the sixth 6000 short rows of P, the last no entry in P.  Each
+# case runs in both forms: the dA form (P's rows index D, its columns
+# Y's rows) and the dB form (read as (column, row)).
+K9_CASES = ((300, 200, 3, 5, 150, 1.2, 4, 0), (300, 200, 3, 5, 150, 5, 4, 0),
+            (120, 90, 5, 7, 300, 10, 3, 0), (120, 90, 5, 0, 300, 20, 3, 0),
+            (64, 190, 6, 3, 3000, 30, 5, 2000),
+            (120, 90, 5, 0, 300, 40, 3, 0),
+            (6000, 400, 2, 0, 48, 3, 0, 0), (50, 40, 0, 0, 60, 3, 0, 0))
+
+
+def k9_call(*args):
+    """csr_spgemm_sddmm(*args), checked to launch K9 once (none with no
+    entry)."""
+    from sparse_dot_tpu_torch.ops import spgemm_grad
+
+    wrapper = spgemm_grad.csr_spgemm_sddmm
+    before = wrapper.launches
+    out = wrapper(*args)
+    if wrapper.launches != before + int(args[1].numel() > 0):
+        raise AssertionError("csr_spgemm_sddmm did not launch K9 once")
+    return out
+
+
+def k9_operands(rng, case, npdt, itype, transposed):
+    """(P's indptr and indices, D, Y's arrays) of a K9_CASES case on the
+    card: Y has as many rows as P has columns (the dA form) or rows (the
+    dB form), D as many rows as P has rows (columns)."""
+    mp, kp, mean_p, empty_p, w, mean_y, empty_y, long_y = case
+    p_ip, p_ix, _ = random_csr(rng, mp, kp, mean_p, npdt, itype, empty_p)
+    y_rows, d_rows = (mp, kp) if transposed else (kp, mp)
+    y = random_csr(rng, y_rows, w, mean_y, npdt, itype, empty_y, long_y)
+    d = values(rng, (d_rows, w), npdt)
+    return (cuda(p_ip), cuda(p_ix)), cuda(d), tuple(map(cuda, y))
+
+
+def check_k9(rng, tdt, npdt, itype, record, lanes_seen):
+    """K9 against ``csr_spgemm_sddmm_plain`` at every case of K9_CASES in
+    both forms, with and without alpha; every call run twice for the same
+    bits.  ``lanes_seen`` collects the groups' widths."""
+    from sparse_dot_tpu_torch.ops import spgemm_grad
+
+    alpha = 0.5 - 0.25j if np.dtype(npdt).kind == "c" else -1.5
+    for case in K9_CASES:
+        for transposed in (False, True):
+            (ip, ix), d, (y_ip, y_ix, y_dv) = k9_operands(
+                rng, case, npdt, itype, transposed)
+            if ix.numel():
+                lanes_seen.add(spgemm_grad.sampled_lanes(
+                    y_ix.numel() / (y_ip.numel() - 1)))
+            for al in (None, alpha):
+                args = (ip, ix, d, y_ip, y_ix, y_dv, al, transposed)
+                out = k9_call(*args)
+                record("K9_csr_spgemm_sddmm", compare(
+                    out, spgemm_grad.csr_spgemm_sddmm_plain(*args), tdt))
+                if not torch.equal(out, k9_call(*args)):
+                    raise AssertionError(f"K9 {tdt} {case}: runs differ")
+
+
+def check_k9_special(rng, record):
+    """K9 with inf in D and in Y (+inf, -inf, and an imaginary inf for
+    complex values), both forms, in every value type: the same nan, +inf
+    and -inf parts as the plain version, finite entries within
+    tolerance."""
+    from sparse_dot_tpu_torch.ops import spgemm_grad
+
+    for tdt, npdt in NP_DTYPES.items():
+        for transposed in (False, True):
+            (ip, ix), d, (y_ip, y_ix, y_dv) = k9_operands(
+                rng, (60, 50, 4, 0, 40, 6, 0, 0), npdt, np.int32, transposed)
+            d[3, :5] = np.inf
+            y_dv[5] = -np.inf
+            if np.dtype(npdt).kind == "c":
+                y_dv[9] = complex(0.0, np.inf)
+            args = (ip, ix, d, y_ip, y_ix, y_dv, None, transposed)
+            out = k9_call(*args)
+            ref = spgemm_grad.csr_spgemm_sddmm_plain(*args)
+            fin = same_parts(f"K9 {tdt} transposed={transposed}", out, ref)
+            record("K9_csr_spgemm_sddmm", compare(out[fin], ref[fin], tdt))
+
+
+def check_k8_k9(which=("K8", "K9")):
+    """Phase 2 for K8 and K9 (``--only k8``, ``--only k9``, and inside
+    ``check_kernels``' run): every value type and index width, the inf
+    cases, and K9 on every width of group."""
+    rng = np.random.default_rng(SEED + 11)
+    results = {name: {"cases": 0, "max_abs_err": 0.0} for name in KERNELS
+               if name[:2] in which}
+
+    def record(name, err):
+        results[name]["cases"] += 1
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+
+    lanes_seen = set()
+    for tdt, npdt in NP_DTYPES.items():
+        for itype in (np.int32, np.int64):
+            if "K8" in which:
+                check_k8(rng, tdt, npdt, itype, record)
+            if "K9" in which:
+                check_k9(rng, tdt, npdt, itype, record, lanes_seen)
+    if "K8" in which:
+        check_k8_special(rng, record)
+    if "K9" in which:
+        check_k9_special(rng, record)
+        if lanes_seen != {1, 2, 4, 8, 16, 32}:
+            raise AssertionError(f"K9 ran groups of {sorted(lanes_seen)} "
+                                 "lanes only")
+    return results, sorted(lanes_seen)
 
 
 def check_gradcheck():
     """``torch.autograd.gradcheck`` of ``coo_spmm_raw`` (values and b),
     ``coo_spmv`` (values, x and y0, with alpha and beta) and ``csr_spmm``
-    (values, b and c0) on the card in f64 and c128, 60 x 50 at n = 5,
-    reverse and forward mode (``check_forward_ad``), with the plain
-    versions refused: K2, K3 and K7 must each launch.  Returns the
-    launches."""
-    from sparse_dot_tpu_torch.ops import autograd, csr
+    (values, b and c0) on the card in f64 and c128, 60 x 50 at n = 5; of
+    the BSR device function ``ops.bsr_spmm`` (blocks, b and c0, with a
+    repeated block and negative block ids) at bs = 8 (in f64 on K1's
+    tensor cores) and bs = 3; and of ``csr_spgemm_dense`` (both operands'
+    values and c0, 6 x 9 by 9 x 7, rows of distinct shuffled columns)
+    with and without
+    ``triangular``; reverse and forward mode (``check_forward_ad``), with
+    the plain versions refused: K1 (both variants), K2, K3, K6, K7, K8 and
+    K9 must each launch.  Returns the launches."""
+    from sparse_dot_tpu_torch import ops
+    from sparse_dot_tpu_torch.ops import autograd, csr, spgemm
 
     rng = np.random.default_rng(SEED + 7)
     m, k, n = 60, 50, 5
     indptr, indices, _ = random_csr(rng, m, k, 4, np.float64, np.int32, 7)
     rows = cuda(np.repeat(np.arange(m), np.diff(indptr)).astype(np.int32))
     ip, ix = cuda(indptr), cuda(indices)
+    block_rows = cuda(np.array([0, 2, 2, -1, 0, 1], np.int32))
+    block_cols = cuda(np.array([1, 0, 0, 1, -2, 1], np.int32))
+    # Rows of distinct, shuffled columns: K6 takes op(B) without repeats.
+    a_ip, a_ix, _ = distinct_rows(rng, (3, 0, 2, 5, 1, 4), 9, np.float64,
+                                  np.int32)
+    b_ip, b_ix, _ = distinct_rows(rng, (2, 4, 0, 3, 1, 2, 5, 0, 3), 7,
+                                  np.float64, np.int32)
+    a_ip, a_ix, b_ip, b_ix = map(cuda, (a_ip, a_ix, b_ip, b_ix))
     before = read_launches()
     with plain_versions_refused():
         for tdt, npdt in ((torch.float64, np.float64),
@@ -734,7 +971,7 @@ def check_gradcheck():
 
             v, b, x, y0, c0 = (leaf(len(indices)), leaf((k, n)), leaf(k),
                                leaf(m), leaf((m, n)))
-            checks = (
+            checks = [
                 (lambda vv, bb: autograd.coo_spmm_raw(rows, ix, vv, bb, m),
                  (v, b)),
                 (lambda vv, xx, yy: autograd.coo_spmv(rows, ix, vv, xx, m,
@@ -742,15 +979,30 @@ def check_gradcheck():
                  (v, x, y0)),
                 (lambda vv, bb, cc: csr.csr_spmm(ip, ix, vv, bb, 2.0, -1.0,
                                                  cc), (v, b, c0)),
-            )
+            ]
+            for bs in (8, 3):
+                checks.append((
+                    lambda dd, bb, cc, bs=bs: ops.bsr_spmm(
+                        dd, block_rows, block_cols, bb, 3 * bs, 1.5, -0.5,
+                        cc),
+                    (leaf((6, bs, bs)), leaf((2 * bs, 3)),
+                     leaf((3 * bs, 3)))))
+            for tri in (False, True):
+                checks.append((
+                    lambda av, bv, cc, tri=tri: spgemm.csr_spgemm_dense(
+                        a_ip, a_ix, av, b_ip, b_ix, bv, 7, 2.0, -0.5, cc,
+                        tri),
+                    (leaf(a_ix.numel()), leaf(b_ix.numel()), leaf((6, 7)))))
             for fn, inputs in checks:
                 if not torch.autograd.gradcheck(fn, inputs,
                                                 check_forward_ad=True):
                     raise AssertionError(f"gradcheck failed in {tdt}")
     launched = {name: count - before[name]
                 for name, count in read_launches().items()}
-    if not all(launched[name] > 0 for name in
-               ("K2_csr_spmm", "K3_csr_spmv", "K7_csr_sddmm")):
+    if not all(launched[name] > 0 for name in (
+            "K1_bsr_spmm_tc", "K1_bsr_spmm_simt", "K2_csr_spmm",
+            "K3_csr_spmv", "K6_csr_spgemm_dense", "K7_csr_sddmm",
+            "K8_bsr_sddmm", "K9_csr_spgemm_sddmm")):
         raise AssertionError(f"gradcheck launched {launched}")
     return {name: count for name, count in launched.items() if count}
 
@@ -1115,7 +1367,8 @@ def main_path():
     expected = {"K1_bsr_spmm_tc": len(bsrs) + 1, "K1_bsr_spmm_simt": 1,
                 "K2_csr_spmm": 4, "K3_csr_spmv": 3, "K4_csr_spgemm_count": 0,
                 "K5_csr_spgemm_fill": 0, "K6_csr_spgemm_dense": 0,
-                "K7_csr_sddmm": 0}
+                "K7_csr_sddmm": 0, "K8_bsr_sddmm": 0,
+                "K9_csr_spgemm_sddmm": 0}
     if (launches != expected or bsr.bsr_spmm.launches
             != launches["K1_bsr_spmm_tc"] + launches["K1_bsr_spmm_simt"]):
         raise AssertionError(f"launch counts {launches}, expected {expected}")
@@ -1188,12 +1441,13 @@ def spgemm_inputs():
 
 ALL_PLAIN = {"spgemm": SPGEMM_PLAIN,
              "csr": ("csr_spmm_plain", "csr_spmv_plain"),
-             "bsr": ("bsr_spmm_plain",),
-             "sddmm": ("csr_sddmm_plain",)}
+             "bsr": ("bsr_spmm_plain", "bsr_sddmm_plain"),
+             "sddmm": ("csr_sddmm_plain",),
+             "spgemm_grad": ("csr_spgemm_sddmm_plain",)}
 
 
 class plain_versions_refused:
-    """Inside the block, the plain versions of every kernel (K1-K7) raise:
+    """Inside the block, the plain versions of every kernel (K1-K9) raise:
     the main path must run the kernels, never their plain versions on the
     card."""
 
@@ -1217,17 +1471,18 @@ class plain_versions_refused:
 
 
 def reset_launches():
-    from sparse_dot_tpu_torch.ops import bsr, csr, sddmm, spgemm
+    from sparse_dot_tpu_torch.ops import bsr, csr, sddmm, spgemm, spgemm_grad
 
     for fn in (csr.csr_spmm, csr.csr_spmv, bsr.bsr_spmm,
                spgemm.csr_spgemm_count, spgemm.csr_spgemm_fill,
-               spgemm.csr_spgemm_dense, sddmm.csr_sddmm):
+               spgemm.csr_spgemm_dense, sddmm.csr_sddmm, bsr.bsr_sddmm,
+               spgemm_grad.csr_spgemm_sddmm):
         fn.launches = 0
     bsr.bsr_spmm.launches_tc = bsr.bsr_spmm.launches_simt = 0
 
 
 def read_launches():
-    from sparse_dot_tpu_torch.ops import bsr, csr, sddmm, spgemm
+    from sparse_dot_tpu_torch.ops import bsr, csr, sddmm, spgemm, spgemm_grad
 
     return {
         "K1_bsr_spmm_tc": bsr.bsr_spmm.launches_tc,
@@ -1238,6 +1493,8 @@ def read_launches():
         "K5_csr_spgemm_fill": spgemm.csr_spgemm_fill.launches,
         "K6_csr_spgemm_dense": spgemm.csr_spgemm_dense.launches,
         "K7_csr_sddmm": sddmm.csr_sddmm.launches,
+        "K8_bsr_sddmm": bsr.bsr_sddmm.launches,
+        "K9_csr_spgemm_sddmm": spgemm_grad.csr_spgemm_sddmm.launches,
     }
 
 
@@ -1605,6 +1862,7 @@ def timings(inputs, solver_inp):
        transpose=True)
     del lap, cgls
     k7_rows(rows, inputs, rng)
+    k8_rows(rows, inputs, rng)
 
     for (bs, dt), a3 in inputs["bsrs"].items():
         A3 = formats.to_device(a3)
@@ -1686,6 +1944,162 @@ def k7_rows(rows, inputs, rng):
         row["beside"][same]["gathered_tb_per_s"] = (
             gathered / row["beside"][same]["ms"] / 1e9)
         rows.append(row)
+
+
+def block_strips(indptr, indices, g, b, bs):
+    """(G's block row, B's block row) of every stored block, gathered:
+    the operands of K8's ``torch.bmm`` yardstick."""
+    from sparse_dot_tpu_torch.formats import expand_indptr
+
+    n = g.shape[1]
+    rows = expand_indptr(indptr, indices.numel()).long()
+    return (g.reshape(-1, bs, n)[rows].contiguous(),
+            b.reshape(-1, bs, n)[indices.long()].contiguous())
+
+
+def k8_bound(indptr, indices, g, b, bs):
+    """K8's bound: the BSR's index arrays, the block rows of G and of B it
+    names (each once) and the output; bs * bs multiply-adds per stored
+    block and column, at the card's peak for the value type (as K1's
+    bound: f64 and 3xTF32 f32 on the tensor cores, complex on the CUDA
+    cores)."""
+    nblocks, n = indices.numel(), g.shape[1]
+    g_rows = int((indptr.long().diff() > 0).sum())
+    panels = int(torch.unique(indices).numel())
+    moved = (nbytes(indptr, indices)
+             + (g_rows + panels) * bs * n * g.element_size()
+             + nblocks * bs * bs * g.element_size())
+    flop = flops_per_product(g.dtype) * nblocks * bs * bs * n
+    peak = TENSOR_CORE_FLOPS.get(g.dtype) or CUDA_CORE_FLOPS[g.dtype]
+    return bound(moved, flop, peak)
+
+
+def k8_rows(rows, inputs, rng):
+    """K8's phase-4 rows: config 3 (8192^2 BSR, bs 64, 5% of blocks) at
+    n = 256 in f64 and f32 (G random, B phase 3's b3), beside the
+    ``torch.bmm`` of the strips gathered beforehand (a yardstick: no
+    single torch call computes K8's function, and the gather is not
+    timed)."""
+    from sparse_dot_tpu_torch import formats
+    from sparse_dot_tpu_torch.ops import bsr
+
+    n3 = SIZES["config3"]
+    for dt in (np.float64, np.float32):
+        A3 = formats.to_device(inputs["bsrs"][(64, dt)])
+        ip, ix, _ = A3.bsr_arrays()
+        g = cuda(values(rng, (n3, 256), dt))
+        b = cuda(inputs["b3"][dt])
+        gs, bp = block_strips(ip, ix, g, b, 64)
+        bp = bp.conj_physical().mT
+        rows.append(timed_row(
+            "K8_bsr_sddmm",
+            f"config3 BSR bs=64 {np.dtype(dt).name} {n3}x{n3} 5% blocks, "
+            f"G ({n3},256), B ({n3},256)",
+            lambda: bsr.bsr_sddmm(ip, ix, g, b, 64),
+            lambda: bsr.bsr_sddmm_plain(ip, ix, g, b, 64),
+            k8_bound(ip, ix, g, b, 64),
+            yardstick=(lambda: torch.bmm(gs, bp),
+                       "torch.bmm of the stored blocks' strips of G and "
+                       "B^H, gathered beforehand (TF32 off)"),
+            nblocks=int(ix.numel())))
+        del A3, gs, bp
+
+
+def k9_work(ip, ix, y_ip, transposed):
+    """(products, rows of Y named, entries of those rows) of K9 over P =
+    (ip, ix) and Y's indptr: each entry of P walks its row of Y."""
+    from sparse_dot_tpu_torch.ops import spgemm_grad
+
+    _, q = spgemm_grad.entry_ids(ip, ix, transposed)
+    y_len = y_ip.long().diff()
+    named = torch.unique(q.long())
+    return (int(y_len[q.long()].sum()), int(named.numel()),
+            int(y_len[named].sum()))
+
+
+def k9_bound(ip, ix, d, y_ip, y_ix, y_dv, transposed):
+    """K9's bound and products: P's index arrays, the rows of D its
+    entries name (each once), the rows of Y they name (each once) and the
+    output; one multiply-add per product, on the CUDA cores."""
+    from sparse_dot_tpu_torch.ops import spgemm_grad
+
+    products, y_rows, y_entries = k9_work(ip, ix, y_ip, transposed)
+    r, _ = spgemm_grad.entry_ids(ip, ix, transposed)
+    d_rows = int(torch.unique(r.long()).numel())
+    moved = (nbytes(ip, ix) + d_rows * d.shape[1] * d.element_size()
+             + 2 * y_rows * y_ip.element_size()
+             + y_entries * (y_ix.element_size() + y_dv.element_size())
+             + ix.numel() * d.element_size())
+    flop = flops_per_product(d.dtype) * products
+    return bound(moved, flop, CUDA_CORE_FLOPS[d.dtype]), products
+
+
+def k9_yardstick(p_arrays, d, y_arrays, shapes, transposed):
+    """K9's function the way torch has one: Y densified (``to_dense``)
+    and ``torch.sparse.sampled_addmm`` (cuSPARSE SDDMM) of D and conj(Y)^T
+    at P's pattern, beta = 0; for the dB form (P read as (column, row))
+    of conj(Y) and D^T.  A yardstick: the port never calls it."""
+    (ip, ix), (y_ip, y_ix, y_dv) = p_arrays, y_arrays
+    p_shape, y_shape = shapes
+    zeros = torch.zeros(ix.numel(), dtype=d.dtype, device=d.device)
+    p = torch.sparse_csr_tensor(ip, ix, zeros, size=p_shape)
+    y = torch.sparse_csr_tensor(y_ip, y_ix, y_dv, size=y_shape)
+
+    def run():
+        yc = y.to_dense().conj_physical()
+        if transposed:
+            return torch.sparse.sampled_addmm(p, yc, d.mT, beta=0.0).values()
+        return torch.sparse.sampled_addmm(p, d, yc.mT, beta=0.0).values()
+
+    return run, ("Y densified + torch.sparse.sampled_addmm at P's pattern "
+                 "(cuSPARSE SDDMM), beta = 0")
+
+
+def k9_rows(inp):
+    """K9's phase-4 rows: the value gradients of case a (the demo X @ X.T;
+    dA: P = X, D = G, Y = X^T; dB: P = X^T read as (column, row), D = G^T,
+    Y = op(A)^T) and case d's dA (config 3's BSR x BSR as CSR), G random,
+    each beside ``k9_yardstick``."""
+    from sparse_dot_tpu_torch import formats
+    from sparse_dot_tpu_torch.ops import spgemm_grad
+
+    rng = np.random.default_rng(SEED + 12)
+    rows = []
+    x = inp["x"]
+    cases = (("a-dA", "demo X @ X.T, dL/dA at X's pattern", x, x.T, False,
+              REPS),
+             ("a-dB", "demo X @ X.T, dL/dB at X.T's pattern", x, x.T, True,
+              REPS),
+             ("d-dA", "config3 BSR bs=64 8192^2 5% blocks f64 as CSR, A @ B, "
+              "dL/dA", inp["bsr_a"], inp["bsr_b"], False, REPS_CONFIG3))
+    for case, shape, a, b, transposed, reps in cases:
+        A, B = formats.to_device(a), formats.to_device(b)
+        a_ip, a_ix, a_dv = A.csr_arrays()
+        b_ip, b_ix, b_dv = B.csr_arrays()
+        g = cuda(values(rng, (a.shape[0], b.shape[1]), np.float64))
+        if transposed:
+            t, order = formats.CsrPattern(a_ip, a_ix, a.shape[1]).transpose()
+            args = (b_ip, b_ix, g.mT.contiguous(), t.indptr, t.indices,
+                    a_dv[order], None, True)
+            shapes = (b.shape, t.shape)
+        else:
+            args = (a_ip, a_ix, g, b_ip, b_ix, b_dv, None, False)
+            shapes = (a.shape, b.shape)
+        (bound_ms, bound_by), products = k9_bound(*args[:6], transposed)
+        row = timed_row(
+            "K9_csr_spgemm_sddmm", shape,
+            lambda: spgemm_grad.csr_spgemm_sddmm(*args),
+            lambda: spgemm_grad.csr_spgemm_sddmm_plain(*args),
+            (bound_ms, bound_by), reps=reps,
+            yardstick=k9_yardstick(args[:2], args[2], args[3:6], shapes,
+                                   transposed),
+            case=case, products=products, lanes=spgemm_grad.sampled_lanes(
+                args[4].numel() / (args[3].numel() - 1)))
+        row["gproducts_per_s"] = products / row["ms"] / 1e6
+        rows.append(row)
+        del A, B, args
+        torch.cuda.empty_cache()
+    return rows
 
 
 # Case d's plain versions expand 1.4 G products in chunks; fewer turns.
@@ -1835,6 +2249,7 @@ def spgemm_timings(inp):
         del A, B, args, plan, whole, ref
         torch.cuda.empty_cache()
     rows += k6_timings(inp)
+    rows += k9_rows(inp)
 
     wall = {"dot_product": [], "scipy": []}
     for _ in range(5):
@@ -2361,92 +2776,119 @@ def coo_of(a):
     return cuda(rows.astype(np.int32)), cuda(a.indices.astype(np.int32))
 
 
-class TrainingRun:
-    """SGD on the values (and optionally the dense operand) of a sparse
-    product through ``ops.coo_spmm_raw`` / ``coo_spmv``, from zero values
-    toward a target made by the true values: loss = ||A(v) B - T||^2.
-    Each step is timed on the host clock to a synchronize; at the first
-    and the last step the inputs and gradients are kept, to be held
-    against the plain versions after the run (``check``)."""
+def host_norm_sq(a, iters=30):
+    """||a||_2^2 of a scipy matrix from ``iters`` power iterations on
+    a^T a, on the host."""
+    v = np.ones(a.shape[1])
+    for _ in range(iters):
+        w = a.T @ (a @ v)
+        v = w / np.linalg.norm(w)
+    return float(np.linalg.norm(a @ v)) ** 2
 
-    def __init__(self, name, rows, cols, m, b, target, dtype, lr,
-                 train_b=False, spmv=False):
-        from sparse_dot_tpu_torch.ops import autograd
 
-        self.name, self.m, self.spmv = name, m, spmv
-        self.rows, self.cols = rows, cols
-        self.vals = torch.zeros(rows.numel(), dtype=dtype,
-                                device=rows.device, requires_grad=True)
-        self.b = b.to(dtype, copy=True).requires_grad_(train_b)
-        self.target = target.to(dtype)
-        params = [self.vals] + ([self.b] if train_b else [])
-        self.opt = torch.optim.SGD(params, lr=lr)
-        self.fn = autograd.coo_spmv if spmv else autograd.coo_spmm_raw
+class GradRun:
+    """SGD on ``params`` (each with its step in ``lrs``) of
+    loss = ||fn(*params) - target||^2, ``fn`` through the port's
+    Functions, whose result must carry the node ``node``; at the first
+    and the last step the parameters and gradients are kept, and
+    ``check`` holds them against torch's own gradients of the same loss
+    through ``plain``, the plain versions.  Each step is timed on the
+    host clock to a synchronize."""
+
+    def __init__(self, name, fn, plain, params, lrs, target, node):
+        self.name, self.fn, self.plain, self.node = name, fn, plain, node
+        self.target = target
+        self.params = [p.detach().clone().requires_grad_() for p in params]
+        self.opt = torch.optim.SGD([{"params": [p], "lr": lr}
+                                    for p, lr in zip(self.params, lrs)])
         self.losses, self.walls, self.kept = [], [], []
 
-    def forward(self):
-        out = self.fn(self.rows, self.cols, self.vals, self.b, self.m)
-        if out.grad_fn is None:
-            raise AssertionError(f"{self.name}: no grad_fn on the card")
-        return out, ((out - self.target) ** 2).sum()
-
-    def step(self, keep=False):
-        t0 = time.perf_counter()
+    def step(self, keep=False, target=None, **kw):
+        """One step (``kw`` to ``fn``, and ``target`` for this step's
+        loss when given); returns the loss."""
+        target = self.target if target is None else target
         self.opt.zero_grad(set_to_none=True)
-        out, loss = self.forward()
+        out = self.fn(*self.params, **kw)
+        if type(out.grad_fn).__name__ != self.node:
+            raise AssertionError(f"{self.name}: node {out.grad_fn}")
+        loss = ((out - target) ** 2).sum()
         loss.backward()
         if keep:
-            self.kept.append({
-                "out": out.detach().clone(),
-                "vals": self.vals.detach().clone(),
-                "b": self.b.detach().clone(),
-                "g_vals": self.vals.grad.clone(),
-                "g_b": None if self.b.grad is None else self.b.grad.clone()})
+            self.kept.append((kw, target,
+                              [p.detach().clone() for p in self.params],
+                              [p.grad.clone() for p in self.params]))
         self.opt.step()
         torch.cuda.synchronize()
-        self.walls.append((time.perf_counter() - t0) * 1e3)
-        self.losses.append(loss.detach())
+        return loss.detach()
 
     def run(self, steps):
         for i in range(steps):
-            self.step(keep=i in (0, steps - 1))
+            t0 = time.perf_counter()
+            self.losses.append(self.step(keep=i in (0, steps - 1)))
+            self.walls.append((time.perf_counter() - t0) * 1e3)
 
     def check(self):
         """Finite losses, each at or below the one before up to rounding;
-        the kept gradients against the plain versions on the same
-        tensors.  Returns the run's record."""
-        from sparse_dot_tpu_torch.ops import autograd, csr, sddmm
-
+        every kept step's gradients against torch's through the plain
+        versions.  Returns the run's record."""
         losses = torch.stack(self.losses).cpu().tolist()
-        rtol = LOSS_RTOL[self.vals.dtype]
+        rtol = LOSS_RTOL[self.params[0].dtype]
         if not all(np.isfinite(losses)) or any(
                 b > a * (1 + rtol) for a, b in zip(losses, losses[1:])):
             raise AssertionError(f"{self.name}: losses {losses}")
-        s = autograd.structures.get(self.rows, self.cols, self.m,
-                                    self.b.shape[0])
-        ip, ix = s.pattern.indptr, s.pattern.indices
-        t, order_t = s.pattern.transpose()
-        err = {"vals": 0.0, "b": 0.0}
-        for kept in self.kept:
-            g = 2 * (kept["out"] - self.target)
-            b = kept["b"]
-            if self.spmv:
-                g, b = g[:, None], b[:, None]
-            ref = sddmm.csr_sddmm_plain(ip, ix, g, b)
-            err["vals"] = max(err["vals"], compare(
-                kept["g_vals"][s.order], ref, ref.dtype))
-            if kept["g_b"] is not None:
-                data_t = kept["vals"][s.order][order_t].conj_physical()
-                ref = csr.csr_spmm_plain(t.indptr, t.indices, data_t, g)
-                err["b"] = max(err["b"], compare(
-                    kept["g_b"], ref[:, 0] if self.spmv else ref, ref.dtype))
+        err = [0.0] * len(self.params)
+        for kw, target, params, grads in self.kept:
+            ps = [p.clone().requires_grad_() for p in params]
+            loss = ((self.plain(*ps, **kw) - target) ** 2).sum()
+            for i, (g, ref) in enumerate(zip(
+                    grads, torch.autograd.grad(loss, ps))):
+                err[i] = max(err[i], compare(g, ref, ref.dtype))
         return {"steps": len(losses), "first_loss": losses[0],
                 "last_loss": losses[-1], "losses": losses,
                 "step_wall_ms": float(np.median(self.walls[1:])),
                 "step_wall_min_ms": min(self.walls[1:]),
                 "step_wall_max_ms": max(self.walls[1:]),
                 "first_step_wall_ms": self.walls[0],
-                "max_abs_err_vs_plain": err}
+                "max_abs_err_vs_plain": err,
+                "kept_steps": [kw for kw, *_ in self.kept]}
+
+
+def profiled(run):
+    """The device's busy ms of one more step of ``run`` in a
+    ``torch.profiler`` trace (not one of the run's steps) and its idle
+    share against the run's median step."""
+    busy = device_busy_ms(run.step)
+    wall = float(np.median(run.walls[1:]))
+    return {"step_device_busy_ms": busy,
+            "step_device_idle_share": None if busy is None
+            else 1 - busy / wall}
+
+
+def coo_run(name, rows, cols, m, b, target, dtype, lr, train_b=False,
+            spmv=False):
+    """A ``GradRun`` of SGD through ``ops.coo_spmm_raw`` (``coo_spmv``
+    with ``spmv``) from zero values toward ``target``, on the values and,
+    with ``train_b``, on b too, each with step ``lr``; the plain reference
+    is ``csr_spmm_plain`` (``csr_spmv_plain``) on the COO's CSR form."""
+    from sparse_dot_tpu_torch.ops import autograd, csr
+
+    device_fn = autograd.coo_spmv if spmv else autograd.coo_spmm_raw
+    plain_fn = csr.csr_spmv_plain if spmv else csr.csr_spmm_plain
+    pattern = autograd.structures.get(rows, cols, m, b.shape[0])
+    b = b.to(dtype)
+
+    def fn(v, bb=b):
+        return device_fn(rows, cols, v, bb, m)
+
+    def plain(v, bb=b):
+        return plain_fn(pattern.pattern.indptr, pattern.pattern.indices,
+                        v[pattern.order], bb)
+
+    vals = torch.zeros(rows.numel(), dtype=dtype, device=rows.device)
+    params = (vals, b) if train_b else (vals,)
+    return GradRun(name, fn, plain, params, (lr,) * len(params),
+                   target.to(dtype),
+                   "CsrSpmvBackward" if spmv else "CsrSpmmBackward")
 
 
 def config1_problem(inputs):
@@ -2487,11 +2929,11 @@ def training_path(inputs):
         0, rv, xv[cv.long()] ** 2)
     lrv = 1.0 / (2.0 * float(row_sq.max()))
     runs = {
-        "f64_values": TrainingRun("f64_values", r1, c1, m1, b1, t1,
-                                  torch.float64, lr1),
-        "f32_values_and_b": TrainingRun("f32_values_and_b", r1, c1, m1, b1,
-                                        t1, torch.float32, lr1, train_b=True),
-        "spmv_f64_values_and_x": TrainingRun(
+        "f64_values": coo_run("f64_values", r1, c1, m1, b1, t1,
+                              torch.float64, lr1),
+        "f32_values_and_b": coo_run("f32_values_and_b", r1, c1, m1, b1, t1,
+                                    torch.float32, lr1, train_b=True),
+        "spmv_f64_values_and_x": coo_run(
             "spmv_f64_values_and_x", rv, cv, mv, xv, tv, torch.float64, lrv,
             train_b=True, spmv=True),
     }
@@ -2507,7 +2949,7 @@ def training_path(inputs):
             run.run(steps[name])
         seconds = time.perf_counter() - t0
         # One step through vmap over 4 right-hand sides.
-        v = runs["f64_values"].vals.detach().clone().requires_grad_()
+        v = runs["f64_values"].params[0].detach().clone().requires_grad_()
         k2_before = read_launches()["K2_csr_spmm"]
         cv4 = torch.func.vmap(
             lambda b: autograd.coo_spmm_raw(r1, c1, v, b, m1))(bs)
@@ -2535,10 +2977,7 @@ def training_path(inputs):
         if member_launches != {"K2_csr_spmm": 4, "K7_csr_sddmm": 3}:
             raise AssertionError(f"per-member vmap: {member_launches}")
         torch.cuda.synchronize()
-        busy = device_busy_ms(runs["f64_values"].step)
-        # That step ran under the profiler: not one of the run's.
-        runs["f64_values"].walls.pop()
-        runs["f64_values"].losses.pop()
+        busy = profiled(runs["f64_values"])
     launches = read_launches()
     expected = {name: 0 for name in launches}
     expected.update(K2_csr_spmm=20 + 40 + 1 + 4 + 1, K3_csr_spmv=20,
@@ -2565,14 +3004,13 @@ def training_path(inputs):
                                  vs[i][s.order], b_cols)
         member_err["values"] = max(member_err["values"], compare(
             member_out[i], ref, ref.dtype))
-    wall = records["f64_values"]["step_wall_ms"]
     emit(6, seconds=seconds, launches=launches, runs=records,
          lr={"config1": lr1, "spmv": lrv},
          vmap_step={"k2_launches": vmap_k2, "max_abs_err_vs_plain": vmap_err},
          per_member_vmap={"launches": member_launches,
                           "max_abs_err_vs_plain": member_err},
-         f64_step_device_busy_ms=busy,
-         f64_step_device_idle_share=None if busy is None else 1 - busy / wall,
+         f64_step_device_busy_ms=busy["step_device_busy_ms"],
+         f64_step_device_idle_share=busy["step_device_idle_share"],
          timer="host clock per step to a synchronize, median of steps "
                "2..N; device busy: torch.profiler, one more f64 step")
     return launches
@@ -2584,26 +3022,138 @@ def k7_training(inputs):
     versions refused, checked as there, and the device's busy ms of one
     more step in a ``torch.profiler`` trace."""
     r1, c1, m1, b1, t1, lr1 = config1_problem(inputs)
-    run = TrainingRun("f64_values", r1, c1, m1, b1, t1, torch.float64, lr1)
+    run = coo_run("f64_values", r1, c1, m1, b1, t1, torch.float64, lr1)
     reset_launches()
     with plain_versions_refused():
         run.run(20)
-        busy = device_busy_ms(run.step)
-        # That step ran under the profiler: not one of the run's.
-        run.walls.pop()
-        run.losses.pop()
+        busy = profiled(run)
     launches = read_launches()
     expected = {name: 0 for name in launches}
     expected.update(K2_csr_spmm=21, K7_csr_sddmm=21)
     if launches != expected:
         raise AssertionError(f"launch counts {launches}, expected {expected}")
-    record = run.check()
-    wall = record["step_wall_ms"]
-    emit(6, launches=launches, runs={"f64_values": record},
-         lr={"config1": lr1}, f64_step_device_busy_ms=busy,
-         f64_step_device_idle_share=None if busy is None else 1 - busy / wall,
+    emit(6, launches=launches, runs={"f64_values": run.check()},
+         lr={"config1": lr1},
+         f64_step_device_busy_ms=busy["step_device_busy_ms"],
+         f64_step_device_idle_share=busy["step_device_idle_share"],
          timer="host clock per step to a synchronize, median of steps "
                "2..N; device busy: torch.profiler, one more f64 step")
+
+
+# Phase 6's runs of the BSR device function and of the dense-output
+# sparse x sparse product: steps, and each kernel's launches a step.
+BSR_STEPS, SPGEMM_STEPS = 15, 10
+
+
+def bsr_training(inputs):
+    """SGD through ``ops.bsr_spmm`` on config 3's pattern (8192^2, bs 64,
+    5% of blocks, f64) and phase 3's b (8192 x 256), both trained, from
+    zero blocks toward T = A b: K1 forward on the tensor cores, K8 and K1
+    over A^H backward, with the plain versions refused; steps 1/(2
+    ||b||^2) for the blocks and 1/(4 ||A||^2) for b.  Returns the
+    launches and the run's record."""
+    from sparse_dot_tpu_torch import ops
+    from sparse_dot_tpu_torch.ops import autograd, bsr
+
+    a3 = inputs["bsrs"][(64, np.float64)]
+    m, k = a3.shape
+    rows = np.repeat(np.arange(m // 64), np.diff(a3.indptr))
+    r3, c3 = cuda(rows.astype(np.int32)), cuda(a3.indices.astype(np.int32))
+    b = cuda(inputs["b3"][np.float64])
+    target = cuda(a3 @ inputs["b3"][np.float64])
+    lrs = (1.0 / (2.0 * power_norm_sq(b)), 0.25 / host_norm_sq(a3))
+    blocks = torch.zeros(a3.data.shape, dtype=torch.float64, device=b.device)
+
+    def plain(d, bb):
+        p = autograd.bsr_structures.get(r3, c3, m, k, 64)
+        return bsr.bsr_spmm_plain(p.indptr, p.indices, d[p.order], bb)
+
+    run = GradRun("bsr_f64_blocks_and_b",
+                  lambda d, bb: ops.bsr_spmm(d, r3, c3, bb, m), plain,
+                  (blocks, b), lrs, target, "BsrSpmmBackward")
+    reset_launches()
+    with plain_versions_refused():
+        run.run(BSR_STEPS)
+        busy = profiled(run)
+    launches = read_launches()
+    expected = {name: 0 for name in launches}
+    expected.update(K1_bsr_spmm_tc=2 * (BSR_STEPS + 1),
+                    K8_bsr_sddmm=BSR_STEPS + 1)
+    if launches != expected:
+        raise AssertionError(f"launch counts {launches}, expected {expected}")
+    return launches, {**run.check(), **busy, "lr": list(lrs)}
+
+
+def spgemm_training(x):
+    """SGD through ``csr_spgemm_dense`` on the demo X (500 x 5000, 21.2%,
+    f64): op(A) = X's values, from zero, and op(B) = a separate copy of
+    X^T's CSR, from its values, both trained toward T = X X^T: K6 forward,
+    K9 twice backward, with the plain versions refused; steps
+    1/(2 ||X||^2) and 1/(4 ||X||^2); then one more step with
+    ``triangular`` toward triu(T) (the gram's launch, G's upper triangle
+    in K9).  Returns the launches and the run's record."""
+    from sparse_dot_tpu_torch import formats
+    from sparse_dot_tpu_torch.ops import spgemm
+
+    A, B = formats.to_device(x), formats.to_device(x.T.tocsr())
+    a_ip, a_ix, a_dv = A.csr_arrays()
+    b_ip, b_ix, b_dv = B.csr_arrays()
+    n = x.shape[0]
+    target = cuda((x @ x.T).toarray())
+    norm_sq = host_norm_sq(x)
+
+    b_sorted = B.csr_sorted()
+
+    def fn(av, bv, triangular=False):
+        return spgemm.csr_spgemm_dense(a_ip, a_ix, av, b_ip, b_ix, bv, n,
+                                       triangular=triangular,
+                                       b_sorted=b_sorted)
+
+    def plain(av, bv, triangular=False):
+        return spgemm.csr_spgemm_dense_plain(a_ip, a_ix, av, b_ip, b_ix, bv,
+                                             n, triangular=triangular)
+
+    run = GradRun("spgemm_dense_f64_a_and_b", fn, plain,
+                  (torch.zeros_like(a_dv), b_dv),
+                  (0.5 / norm_sq, 0.25 / norm_sq), target,
+                  "CsrSpgemmDenseBackward")
+    reset_launches()
+    with plain_versions_refused():
+        run.run(SPGEMM_STEPS)
+        busy = profiled(run)
+        t0 = time.perf_counter()
+        tri_loss = run.step(keep=True, target=torch.triu(target),
+                            triangular=True)
+        tri_wall = (time.perf_counter() - t0) * 1e3
+    launches = read_launches()
+    expected = {name: 0 for name in launches}
+    expected.update(K6_csr_spgemm_dense=SPGEMM_STEPS + 2,
+                    K9_csr_spgemm_sddmm=2 * (SPGEMM_STEPS + 2))
+    if launches != expected:
+        raise AssertionError(f"launch counts {launches}, expected {expected}")
+    record = run.check()
+    if not np.isfinite(float(tri_loss)):
+        raise AssertionError(f"triangular step: loss {float(tri_loss)}")
+    return launches, {**record, **busy, "triangular_step_loss":
+                      float(tri_loss), "triangular_step_wall_ms": tri_wall,
+                      "lr": [0.5 / norm_sq, 0.25 / norm_sq]}
+
+
+def grad_training(inputs, x, which=("K8", "K9")):
+    """Phase 6's runs of K8 (``bsr_training``) and K9
+    (``spgemm_training``), each with the counts set to 0 just before it:
+    one JSON line, and the launches of both summed."""
+    runs, launches = {}, {name: 0 for name in KERNELS}
+    for kernel, name, train, arg in (
+            ("K8", "bsr_f64_blocks_and_b", bsr_training, inputs),
+            ("K9", "spgemm_dense_f64_a_and_b", spgemm_training, x)):
+        if kernel in which:
+            got, runs[name] = train(arg)
+            launches = {key: launches[key] + got[key] for key in launches}
+    emit("6-grad", launches=launches, runs=runs,
+         timer="host clock per step to a synchronize, median of steps "
+               "2..N; device busy: torch.profiler, one more step")
+    return launches
 
 
 # Each solve's matrix in phase 4: the K3 (K2) rows whose times make one
@@ -2643,12 +3193,14 @@ def solver_timings(records, rows):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
-        "--only", choices=("spgemm", "k6", "k7"),
+        "--only", choices=("spgemm", "k6", "k7", "k8", "k9"),
         help="a short run that ends with no result line: spgemm runs "
              "phases 1, 2 (K4-K6 and K2/K3's complex inf case), 3 and 4 of "
              "sparse x sparse; k6 runs phase 1 and K6's phase-4 rows "
              "(k6_timings); k7 runs phase 1, K7's phase-2 checks, its "
-             "phase-4 rows and phase 6's config-1 f64 steps")
+             "phase-4 rows and phase 6's config-1 f64 steps; k8 (k9) runs "
+             "phase 1, K8's (K9's) phase-2 checks, its phase-4 rows and "
+             "its phase-6 run (bsr_training, spgemm_training)")
     only = parser.parse_args().only
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -2691,6 +3243,24 @@ def main():
                    "each; library and beside timed in the same turns")
         k7_training(inputs)
         return
+    if only in ("k8", "k9"):
+        kernel = only.upper()
+        results, lanes = check_k8_k9((kernel,))
+        emit(2, kernels=results, k9_lanes=lanes or None)
+        rows = []
+        if kernel == "K8":
+            inputs = path_inputs()
+            k8_rows(rows, inputs, np.random.default_rng(SEED + 4))
+            x = None
+        else:
+            inputs, x = None, spgemm_inputs()
+            rows = k9_rows(x)
+            x = x["x"]
+        emit(f"4-{only}", rows=rows,
+             timer="cuda events, median (p10, p90), 1 GiB read before "
+                   "each; yardstick timed in the same turns")
+        grad_training(inputs, x, (kernel,))
+        return
     check_kernels()
     by_path = {}
     by_path["dot_product"], inputs = main_path()
@@ -2699,7 +3269,10 @@ def main():
     rows = timings(inputs, solver_inp) + spgemm_timings(spgemm_inp)
     by_path["solvers"], records = solver_path(solver_inp)
     solver_timings(records, rows)
-    by_path["training"] = training_path(inputs)
+    training = training_path(inputs)
+    grad = grad_training(inputs, spgemm_inp["x"])
+    by_path["training"] = {name: training[name] + grad[name]
+                           for name in KERNELS}
     launches = {name: sum(path[name] for path in by_path.values())
                 for name in KERNELS}
 

@@ -29,6 +29,10 @@ searches them: from scipy's ``has_sorted_indices`` when the container is
 built from scipy, true by construction for the converted layouts, else
 computed once on the device; ``sorted_csr_arrays(transpose)`` gives those
 arrays sorted, sorting them once (the order cached) where they are not.
+``CsrPattern`` and ``BsrPattern`` hold a structure without values, with
+its plans and transpose cached the same way, for the device API's
+gradients (``ops/autograd``); ``coo_structure`` reads COO ids by the
+JAX package's rules.
 """
 
 import contextlib
@@ -357,6 +361,95 @@ class CsrPattern:
         rows = expand_indptr(self.indptr, self.nnz)
         return (CsrPattern(_indptr_of_rows(self.indices, self.ncols),
                            rows[order], self.shape[0]), order)
+
+
+def coo_structure(rows, cols, m, k):
+    """(order, indptr, indices): the CSR structure of expanded COO ids
+    read by NumPy's rules, as the JAX package's gathers and
+    ``mode="drop"`` scatters read them.  A row id in [-m, 0) is m + id, a
+    column id in [-k, 0) is k + id; entries whose row is then outside
+    [0, m) are dropped, the rest stably sorted by row (entry q of the CSR
+    is entry ``order[q]`` of the COO).  Raises on a kept entry whose
+    column lies outside [-k, k), which JAX would clamp to the edge.  One
+    host read."""
+    rows = torch.where(rows < 0, rows + m, rows)
+    cols = torch.where(cols < 0, cols + k, cols)
+    keep = (rows >= 0) & (rows < m)
+    kept_cols = cols[keep]
+    kept, bad = torch.stack([
+        keep.sum(), ((kept_cols < 0) | (kept_cols >= k)).sum()]).tolist()
+    if bad:
+        raise ValueError(f"coo: {bad} column ids outside [-{k}, {k})")
+    order = torch.argsort(torch.where(keep, rows, m), stable=True)[:kept]
+    return (order, _indptr_of_rows(rows[order], m),
+            cols[order].to(rows.dtype))
+
+
+class BsrPattern:
+    """The structure of a BSR matrix of square ``bs`` x ``bs`` blocks,
+    without its values: block ``indptr``, block-column ``indices`` and the
+    number of block columns ``nbcols``, with what K1 needs of it built
+    once on the device and cached, as ``CsrPattern`` does for CSR:
+    ``plan()`` is K1's chunk plan (``bsr_chunk_plan``), ``transpose()``
+    the pattern of the transpose (block coordinates swapped, blocks sorted
+    by block row) and the permutation that carries blocks to it, so that
+    A^H's blocks are ``data[order].transpose(1, 2).conj_physical()``,
+    gathered anew by each caller.  ``from_coo`` builds it from block COO
+    and keeps ``order``: stored block q is the caller's block ``order[q]``
+    (None for a pattern of BSR arrays)."""
+
+    def __init__(self, indptr, indices, nbcols, bs, order=None):
+        self.indptr = indptr
+        self.indices = indices
+        self.nbcols = int(nbcols)
+        self.bs = int(bs)
+        self.order = order
+        self._plan = None
+        self._transpose = None
+
+    @classmethod
+    def from_coo(cls, block_rows, block_cols, m, k, bs):
+        """The pattern of the blocks at (``block_rows``, ``block_cols``)
+        of an m x k matrix: ids by ``coo_structure``'s rules (block rows
+        outside [-m / bs, m / bs) dropped), the kept blocks stably sorted
+        by block row, repeated blocks kept apart."""
+        with structure_only():
+            order, indptr, indices = coo_structure(block_rows, block_cols,
+                                                   m // bs, k // bs)
+        return cls(indptr, indices, k // bs, bs, order)
+
+    @property
+    def shape(self):
+        return ((self.indptr.numel() - 1) * self.bs, self.nbcols * self.bs)
+
+    @property
+    def nblocks(self):
+        return self.indices.numel()
+
+    def plan(self, given=None):
+        """K1's ``BsrChunkPlan`` of these arrays, built on the device once
+        (no host sync) and cached; ``given``, a plan already built for
+        these arrays, is cached when none is."""
+        if self._plan is None:
+            with structure_only():
+                self._plan = (bsr_chunk_plan(self.indptr, self.nblocks)
+                              if given is None else given)
+        return self._plan
+
+    def transpose(self):
+        """(pattern of the transpose, order): stored block q of the
+        transpose is block ``order[q]`` of this one, transposed (one stable
+        sort of the block-column ids, once)."""
+        if self._transpose is None:
+            with structure_only():
+                indptr, indices, order = coo_to_csr(
+                    self.indices, expand_indptr(self.indptr, self.nblocks),
+                    torch.arange(self.nblocks, device=self.indices.device),
+                    self.nbcols)
+            self._transpose = (BsrPattern(indptr, indices,
+                                          self.indptr.numel() - 1, self.bs),
+                               order)
+        return self._transpose
 
 
 def structure_only():

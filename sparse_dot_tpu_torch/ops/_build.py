@@ -87,6 +87,14 @@ _PROTOTYPES = {
     "sdt_csr_spgemm_dense": (_INT, _INT, _P, _P, _P, _P, _P, _P, _P, _P,
                              _I64, _I64, _D, _D, _D, _D, _INT, _INT, _I64,
                              _I64, _P, _P),
+    # dtype, itype, indptr, nbrows, indices, nblocks, g, b, out, bs, n,
+    # alpha_re, alpha_im, stream
+    "sdt_bsr_sddmm": (_INT, _INT, _P, _I64, _P, _I64, _P, _P, _P, _I64,
+                      _I64, _D, _D, _P),
+    # dtype, itype, r_ids, q_ids, nnz, d, ld, y_indptr, y_indices, y_data,
+    # out, lanes, alpha_re, alpha_im, stream
+    "sdt_csr_spgemm_sddmm": (_INT, _INT, _P, _P, _I64, _P, _I64, _P, _P, _P,
+                             _P, _INT, _D, _D, _P),
 }
 
 _lib = None

@@ -1,10 +1,12 @@
-"""Differentiable CSR SpMM and SpMV: the port's device API.
+"""Differentiable sparse products: the port's device API.
 
-``coo_spmm_raw(rows, cols, vals, b, m)`` and ``coo_spmv(rows, cols, vals,
-x, m, alpha, beta, y0)`` are the counterparts of the JAX package's
-``_xla.coo_spmm_raw`` and ``_xla.coo_spmv``: A given as expanded COO, the
-result a dense tensor, and the functions open to PyTorch's transforms as
-the JAX ones are to JAX's.  Each runs one ``torch.autograd.Function``
+``coo_spmm_raw(rows, cols, vals, b, m)``, ``coo_spmv(rows, cols, vals,
+x, m, alpha, beta, y0)`` and ``bsr_spmm(block_data, block_rows,
+block_cols, b, m, alpha, beta, c0)`` are the counterparts of the JAX
+package's ``_xla.coo_spmm_raw``, ``_xla.coo_spmv`` and ``_xla.bsr_spmm``:
+A given as expanded COO (of entries or of square blocks), the result a
+dense tensor, and the functions open to PyTorch's transforms as the JAX
+ones are to JAX's.  Each runs one ``torch.autograd.Function``
 (``setup_context`` form, which ``torch.func`` needs):
 
 - ``CsrSpmm``: forward C = alpha A b + beta c0 on K2 (``ops/csr``);
@@ -18,10 +20,21 @@ the JAX ones are to JAX's.  Each runs one ``torch.autograd.Function``
   ``grad`` (per-member gradients), which batches G and b.
 - ``CsrSpmv``: the same with K3 for y = alpha A x + beta y0, K7 at n = 1
   and K3 over A^H; its ``vmap`` makes the batch the columns of one K2.
-- ``CsrSddmm``: K7 itself, so that the backward's launches are open to
-  the transforms too (``torch.func.grad`` runs the backward on wrapped
-  tensors, which only a Function's forward sees unwrapped, and ``vmap``
-  of ``grad`` batches them).
+- ``BsrSpmm``: the same for BSR A (``formats.BsrPattern``) on K1, with
+  dL/d(blocks) on K8 (``ops/bsr.bsr_sddmm``, block SDDMM) and dL/db on K1
+  over A^H's blocks ``data[order].transpose(1, 2).conj_physical()``.
+- ``CsrSpgemmDense``: C = alpha op(A) op(B) + beta c0 with dense output
+  on K6 (``ops/spgemm``); backward dL/d(op(A)'s values) = conj(alpha)
+  G op(B)^H at op(A)'s pattern and dL/d(op(B)'s values) =
+  conj(alpha) op(A)^H G at op(B)'s, both on K9 (``ops/spgemm_grad``; G's
+  upper triangle under ``triangular``, which keeps only j >= i of the
+  product while c0 is added everywhere), dL/dc0 = conj(beta) G; ``jvp``
+  two K6 launches; ``vmap`` one call a member.
+- ``CsrSddmm``, ``BsrSddmm`` and ``CsrSpgemmSddmm``: K7, K8 and K9
+  themselves, so that the backward's launches are open to the transforms
+  too (``torch.func.grad`` runs the backward on wrapped tensors, which
+  only a Function's forward sees unwrapped, and ``vmap`` of ``grad``
+  batches them).
 
 Gradients follow PyTorch's convention for complex values, the conjugate
 of JAX's: for |z|^2 at 3+4j JAX gives 6-8j, PyTorch 6+8j.  The backward
@@ -29,22 +42,25 @@ is ``once_differentiable``: a second-order request raises, through
 ``torch.autograd`` and through ``torch.func`` (``grad`` or ``jvp`` of
 ``grad``) alike.
 
-A^H's structure (``formats.CsrPattern.transpose``) is built once per
-pattern and cached; its values are gathered from the current values at
-every backward (``data[order]``, conjugated by ``conj_physical``, never by
-the lazy ``conj()``, whose bit the kernels cannot see), so the gradient
-follows values that a training step updates in place.  ``csr_spmm`` and
-``csr_spmv`` (``ops/csr``) take these Functions whenever autograd or a
+A^H's structure (``CsrPattern.transpose``, ``BsrPattern.transpose``) is
+built once per pattern and cached; its values are gathered from the
+current values at every backward (``data[order]``, conjugated by
+``conj_physical``, never by the lazy ``conj()``, whose bit the kernels
+cannot see), so the gradient follows values that a training step updates
+in place.  ``csr.csr_spmm``, ``csr.csr_spmv``, ``bsr.bsr_spmm`` and
+``spgemm.csr_spgemm_dense`` take these Functions whenever autograd or a
 transform follows an operand, on either device: the CPU and the card
-build the same graph.
+build the same graph.  The wrappers that carry no gradient (K5's
+sparse-output product, and K7, K8 and K9 called directly) raise on such
+an operand (``csr.refuse_tracked``).
 """
 
 import torch
 from torch._C import _functorch
 from torch.autograd.function import once_differentiable
 
-from ..formats import CsrPattern, _indptr_of_rows, structure_only
-from . import csr, sddmm
+from ..formats import BsrPattern, CsrPattern, coo_structure, structure_only
+from . import bsr, csr, sddmm, spgemm, spgemm_grad
 
 
 def _conj(s):
@@ -117,7 +133,7 @@ class CsrSddmm(torch.autograd.Function):
     @staticmethod
     def forward(pattern, g, b, alpha):
         g, b = _plain(g, b)
-        return sddmm.csr_sddmm(pattern.indptr, pattern.indices, g, b, alpha)
+        return sddmm.sddmm(pattern.indptr, pattern.indices, g, b, alpha)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -251,29 +267,192 @@ class CsrSpmv(torch.autograd.Function):
         return CsrSpmm.apply(pattern, data, cols, alpha, beta, rhs), 1
 
 
+class BsrSddmm(torch.autograd.Function):
+    """out[b] = alpha * g's block row r_b @ (b's block row c_b)^H (K8),
+    for the backward of ``BsrSpmm``, open to the transforms as
+    ``CsrSddmm`` is."""
+
+    @staticmethod
+    def forward(pattern, g, b, alpha):
+        g, b = _plain(g, b)
+        return bsr.sddmm(pattern.indptr, pattern.indices, g, b, pattern.bs,
+                         alpha)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, pattern, g, b, alpha):
+        return _batched(info, in_dims, (pattern, g, b, alpha),
+                        BsrSddmm.apply)
+
+
+class BsrSpmm(torch.autograd.Function):
+    """C = alpha * A @ b + beta * c0 on K1, A the BSR of ``pattern``
+    (``formats.BsrPattern``) with blocks ``data``; differentiable in
+    ``data``, ``b`` and ``c0``."""
+
+    @staticmethod
+    def forward(pattern, data, b, alpha, beta, c0):
+        data, b, c0 = _plain(data, b, c0)
+        return bsr.spmm(pattern.indptr, pattern.indices, data, b, alpha,
+                        beta, c0, pattern.plan())
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pattern, data, b, alpha, beta, c0 = inputs
+        ctx.pattern, ctx.alpha, ctx.beta = pattern, alpha, _beta(beta, c0)
+        ctx.save_for_backward(data, b)
+        ctx.save_for_forward(data, b)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        _first_order_only("BsrSpmm")
+        data, b = ctx.saved_tensors
+        pattern, alpha = ctx.pattern, _conj(ctx.alpha)
+        _, need_data, need_b, _, _, need_c0 = ctx.needs_input_grad
+        grad = grad.contiguous()
+        g_data = g_b = g_c0 = None
+        if need_data:
+            g_data = BsrSddmm.apply(pattern, grad, b, alpha)
+        if need_b:
+            t, order = pattern.transpose()
+            data_t = data[order].transpose(1, 2).conj_physical()
+            g_b = BsrSpmm.apply(t, data_t, grad, alpha, None, None)
+        if need_c0:
+            g_c0 = grad * _conj(ctx.beta)
+        return None, g_data, g_b, None, None, g_c0
+
+    @staticmethod
+    def jvp(ctx, _pattern, d_data, d_b, _alpha, _beta, d_c0):
+        data, b = ctx.saved_tensors
+        pattern, alpha = ctx.pattern, ctx.alpha
+        out = None if d_c0 is None else d_c0 * ctx.beta
+        if d_data is not None:
+            out = BsrSpmm.apply(pattern, d_data, b, alpha,
+                                None if out is None else 1.0, out)
+        if d_b is not None:
+            out = BsrSpmm.apply(pattern, data, d_b, alpha,
+                                None if out is None else 1.0, out)
+        return out
+
+    @staticmethod
+    def vmap(info, in_dims, pattern, data, b, alpha, beta, c0):
+        _, d_data, d_b, _, _, d_c0 = in_dims
+        if d_data is not None:
+            return _batched(info, in_dims, (pattern, data, b, alpha, beta,
+                                            c0), BsrSpmm.apply)
+        size, m = info.batch_size, pattern.shape[0]
+        out = BsrSpmm.apply(pattern, data, _fold(b, d_b, size, 1), alpha,
+                            beta, _fold(c0, d_c0, size, 1))
+        return out.view(m, size, out.shape[1] // size), 1
+
+
+class CsrSpgemmSddmm(torch.autograd.Function):
+    """out[p] = alpha * sum over (s, v) in row q_p of Y of d[r_p, s]
+    conj(v) (K9) at the entries of ``p_pattern`` (read as (column, row)
+    with ``transposed``), Y the CSR of ``y_pattern`` with values
+    ``y_data``: the backward's launches of ``CsrSpgemmDense``, open to the
+    transforms as ``CsrSddmm`` is."""
+
+    @staticmethod
+    def forward(p_pattern, d, y_pattern, y_data, alpha, transposed):
+        d, y_data = _plain(d, y_data)
+        return spgemm_grad.sampled(p_pattern.indptr, p_pattern.indices, d,
+                                   y_pattern.indptr, y_pattern.indices,
+                                   y_data, alpha, transposed)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return _batched(info, in_dims, args, CsrSpgemmSddmm.apply)
+
+
+class CsrSpgemmDense(torch.autograd.Function):
+    """C = alpha * op(A) @ op(B) + beta * c0 with dense output on K6 (only
+    j >= i of the product with ``triangular``, c0 added everywhere), op(A)
+    and op(B) the CSRs of ``a`` and ``b`` (``CsrPattern``s) with values
+    ``a_data`` and ``b_data``; differentiable in ``a_data``, ``b_data``
+    and ``c0``."""
+
+    @staticmethod
+    def forward(a, a_data, b, b_data, alpha, beta, c0, triangular,
+                b_sorted):
+        a_data, b_data, c0 = _plain(a_data, b_data, c0)
+        return spgemm.spgemm_dense(a.indptr, a.indices, a_data, b.indptr,
+                                   b.indices, b_data, b.ncols, alpha, beta,
+                                   c0, triangular, b_sorted)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        a, a_data, b, b_data, alpha, beta, c0, triangular, b_sorted = inputs
+        ctx.a, ctx.b, ctx.alpha, ctx.beta = a, b, alpha, _beta(beta, c0)
+        ctx.triangular, ctx.b_sorted = triangular, b_sorted
+        ctx.save_for_backward(a_data, b_data)
+        ctx.save_for_forward(a_data, b_data)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        _first_order_only("CsrSpgemmDense")
+        a_data, b_data = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        grad = grad.contiguous()
+        # The product reaches only j >= i under ``triangular``; c0 all.
+        g = torch.triu(grad) if ctx.triangular else grad
+        alpha = _conj(ctx.alpha)
+        g_a = g_b = g_c0 = None
+        if need[1]:
+            g_a = CsrSpgemmSddmm.apply(ctx.a, g, ctx.b, b_data, alpha,
+                                       False)
+        if need[3]:
+            t, order = ctx.a.transpose()
+            g_b = CsrSpgemmSddmm.apply(ctx.b, g.mT.contiguous(), t,
+                                       a_data[order], alpha, True)
+        if need[6]:
+            g_c0 = grad * _conj(ctx.beta)
+        return None, g_a, None, g_b, None, None, g_c0, None, None
+
+    @staticmethod
+    def jvp(ctx, _a, d_a, _b, d_b, _alpha, _beta, d_c0, _tri, _sorted):
+        a_data, b_data = ctx.saved_tensors
+        out = None if d_c0 is None else d_c0 * ctx.beta
+
+        def add(a_vals, b_vals, out):
+            return CsrSpgemmDense.apply(
+                ctx.a, a_vals, ctx.b, b_vals, ctx.alpha,
+                None if out is None else 1.0, out, ctx.triangular,
+                ctx.b_sorted)
+
+        if d_a is not None:
+            out = add(d_a, b_data, out)
+        if d_b is not None:
+            out = add(a_data, d_b, out)
+        return out
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return _batched(info, in_dims, args, CsrSpgemmDense.apply)
+
+
 class _CooStructure:
     """The CSR form of expanded COO (``rows``, ``cols``) with m rows and k
-    columns: entries with a row outside [0, m) dropped, the rest stably
-    sorted by row, so ``vals[order]`` are the CSR's values in the order of
-    ``pattern``.  Built once (one stable sort; one host read, of the kept
-    count and of the columns' range) and cached per structure."""
+    columns, ids read by the JAX package's rules
+    (``formats.coo_structure``: an id in [-m, 0) or [-k, 0) counts from the
+    end, entries with a row outside [-m, m) are dropped, a column outside
+    [-k, k) raises), so ``vals[order]`` are the CSR's values in the order
+    of ``pattern``.  Built once (one stable sort; one host read, of the
+    kept count and of the columns' range) and cached per structure."""
 
     def __init__(self, rows, cols, m, k):
         with structure_only():
-            self._build(rows, cols, m, k)
-
-    def _build(self, rows, cols, m, k):
-        keep = (rows >= 0) & (rows < m)
-        kept_cols = cols[keep]
-        n_kept, bad = torch.stack([
-            keep.sum(), ((kept_cols < 0) | (kept_cols >= k)).sum()]).tolist()
-        if bad:
-            raise ValueError(f"coo: {bad} column ids outside [0, {k})")
-        order = torch.argsort(torch.where(keep, rows, m), stable=True)
-        self.order = order[:n_kept]
-        kept_rows = rows[self.order]
-        self.pattern = CsrPattern(_indptr_of_rows(kept_rows, m),
-                                  cols[self.order].to(rows.dtype), k)
+            self.order, indptr, indices = coo_structure(rows, cols, m, k)
+        self.pattern = CsrPattern(indptr, indices, k)
 
 
 class _StructureCache:
@@ -304,11 +483,16 @@ class _StructureCache:
 
 
 # The COO structures of ``coo_spmm_raw`` and ``coo_spmv``, per (rows,
-# cols, m, k), and the ``CsrPattern``s of ``csr.csr_spmm`` and
-# ``csr.csr_spmv``'s tracked calls, per (indptr, indices, k): the
-# transpose's sort and the row plans are made once per structure.
+# cols, m, k); the ``CsrPattern``s of ``csr.csr_spmm``, ``csr.csr_spmv``
+# and ``spgemm.csr_spgemm_dense``'s tracked calls, per (indptr, indices,
+# k); the ``BsrPattern``s of ``bsr_spmm``, per (block rows, block cols, m,
+# k, bs), and of ``bsr.bsr_spmm``'s tracked calls, per (indptr, indices,
+# nbcols, bs): the transpose's sort and the plans are made once per
+# structure.
 structures = _StructureCache(_CooStructure)
 patterns = _StructureCache(CsrPattern)
+bsr_structures = _StructureCache(BsrPattern.from_coo)
+bsr_patterns = _StructureCache(BsrPattern)
 
 
 def _common(vals, dense):
@@ -321,8 +505,10 @@ def _common(vals, dense):
 def coo_spmm_raw(rows, cols, vals, b, m):
     """A @ b for A of m rows as expanded COO (``rows``, ``cols``,
     ``vals``), b of (k, n): the counterpart of ``_xla.coo_spmm_raw``, on
-    K2, differentiable in ``vals`` and ``b``.  Entries whose row is
-    outside [0, m) are dropped (JAX's ``mode="drop"``); repeated (row,
+    K2, differentiable in ``vals`` and ``b``.  Ids follow NumPy's rules,
+    as JAX's: a row id in [-m, 0) (a column id in [-k, 0)) counts from the
+    end, entries whose row is outside [-m, m) are dropped (JAX's
+    ``mode="drop"``), and a column outside [-k, k) raises; repeated (row,
     col) entries stay separate values, each with its own gradient.  The
     result is on the operands' device (``config.device`` unless the caller
     asks for the CPU)."""
@@ -334,9 +520,34 @@ def coo_spmm_raw(rows, cols, vals, b, m):
 def coo_spmv(rows, cols, vals, x, m, alpha=1.0, beta=0.0, y0=None):
     """alpha * A @ x (+ beta * y0) for A of m rows as expanded COO and
     1-d x: the counterpart of ``_xla.coo_spmv``, on K3, differentiable in
-    ``vals``, ``x`` and ``y0``; rows outside [0, m) are dropped and
-    repeated entries kept apart, as in ``coo_spmm_raw``."""
+    ``vals``, ``x`` and ``y0``; ids are read, rows outside [-m, m)
+    dropped and repeated entries kept apart as in ``coo_spmm_raw``."""
     vals, x = _common(vals, x)
     s = structures.get(rows, cols, m, x.shape[0])
     return CsrSpmv.apply(s.pattern, vals[s.order], x, alpha,
                          None if y0 is None else beta, y0)
+
+
+def bsr_spmm(block_data, block_rows, block_cols, b, m, alpha=None,
+             beta=None, c0=None):
+    """``alpha * A @ b + beta * c0`` for A of m rows given as square
+    blocks ``block_data`` (nb, bs, bs) at block coordinates
+    (``block_rows``, ``block_cols``), b of (k, n) with k % bs == 0: the
+    counterpart of ``_xla.bsr_spmm``, on K1, differentiable in
+    ``block_data``, ``b`` and ``c0`` (K8 and K1 over A^H).  Block ids are
+    read as ``coo_spmm_raw`` reads ids (``formats.coo_structure``):
+    blocks whose block row lies outside [-m / bs, m / bs) are dropped,
+    and repeated blocks stay separate, each with its own gradient.
+    Non-square blocks raise, as both packages' containers do.  The blocks
+    are sorted by block row once per structure (``bsr_structures``)."""
+    if block_data.dim() != 3 or block_data.shape[1] != block_data.shape[2]:
+        raise ValueError(f"bsr_spmm: blocks {tuple(block_data.shape)} must "
+                         "be square")
+    bs = block_data.shape[1]
+    if b.dim() != 2 or b.shape[0] % bs or m % bs:
+        raise ValueError(f"bsr_spmm: blocks of {bs} must divide m = {m} "
+                         f"and b's rows {tuple(b.shape)}")
+    data, b = _common(block_data, b)
+    c0 = None if c0 is None else c0.to(data.dtype)
+    p = bsr_structures.get(block_rows, block_cols, m, b.shape[0], bs)
+    return BsrSpmm.apply(p, data[p.order], b, alpha, beta, c0)

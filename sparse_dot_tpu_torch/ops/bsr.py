@@ -1,4 +1,5 @@
-"""BSR SpMM (kernel K1).
+"""BSR SpMM (kernel K1) and block SDDMM (kernel K8), its gradient in the
+blocks.
 
 Port of ``sparse_dot_tpu/ops/pallas_bsr.py`` ``bsr_spmm_pallas`` (the
 JAX package's one Pallas kernel) and of its XLA fallback
@@ -24,13 +25,22 @@ The variant follows the value type and the block size
 ``bsr_spmm.launches_tc`` and ``bsr_spmm.launches_simt`` count each.  The
 notes at the top of the ``.cu`` files say what bounds each variant and
 how its tiles are laid out.
+
+K8 (``bsr_sddmm``, ``csrc/bsr_sddmm.cu``) gives each stored block's
+gradient, G's block row times the conjugate transpose of B's block row,
+on the CUDA cores for every value type and square bs (a thread block a
+tile of at most 64 x 64 of a block, strips of G and B staged in shared
+memory); it replaces ``jax.grad`` of ``_xla.bsr_spmm`` in the blocks.
+``bsr_spmm`` takes ``ops.autograd.BsrSpmm`` when an operand is tracked,
+whose backward runs K8 and K1 over A^H.
 """
 
 import torch
 
+from ..config import config
 from ..formats import bsr_chunk_plan, expand_indptr
 from . import _build
-from .csr import _check, refuse_views
+from .csr import _check, refuse_tracked, refuse_views, tracked
 from .dense import axpby, ieee_matmul
 
 
@@ -65,7 +75,32 @@ def bsr_spmm(indptr, indices, data, b, alpha=None, beta=None, c0=None,
     (nbrows * bs, n) or None.  ``plan`` is ``bsr_chunk_plan`` of these
     arrays (for example ``BSR.bsr_plan``, cached); it is built here when
     None and the tensor-core variant needs it.  Returns a new
-    (nbrows * bs, n) tensor."""
+    (nbrows * bs, n) tensor.
+
+    When autograd or a ``torch.func`` transform follows ``data``, ``b`` or
+    ``c0`` (``csr.tracked``), the call goes through
+    ``ops.autograd.BsrSpmm`` on either device, with A's ``BsrPattern``
+    cached per index tensors (``autograd.bsr_patterns``), so the result
+    carries its gradient (K8 and K1 over A^H on the card); otherwise it is
+    the kernel (the plain version on the CPU) alone."""
+    if tracked(data, b, c0):
+        from .autograd import BsrSpmm, bsr_patterns
+
+        if data.dim() != 3 or b.dim() != 2:
+            raise ValueError(f"bsr_spmm: blocks {tuple(data.shape)} and b "
+                             f"{tuple(b.shape)} must be 3-d and 2-d")
+        bs = data.shape[1]
+        pattern = bsr_patterns.get(indptr, indices, b.shape[0] // bs, bs)
+        pattern.plan(plan)
+        return BsrSpmm.apply(pattern, data, b, alpha, beta, c0)
+    return spmm(indptr, indices, data, b, alpha, beta, c0, plan)
+
+
+def spmm(indptr, indices, data, b, alpha=None, beta=None, c0=None,
+         plan=None):
+    """``bsr_spmm`` without autograd: K1 on the card, the plain version on
+    the CPU; counted in ``bsr_spmm.launches`` (and ``launches_tc`` or
+    ``launches_simt``)."""
     refuse_views("bsr_spmm", indptr, indices, data, b, c0)
     if b.device.type == "cpu":
         return bsr_spmm_plain(indptr, indices, data, b, alpha, beta, c0)
@@ -122,3 +157,99 @@ def bsr_spmm(indptr, indices, data, b, alpha=None, beta=None, c0=None,
 bsr_spmm.launches = 0
 bsr_spmm.launches_tc = 0
 bsr_spmm.launches_simt = 0
+
+
+# ---------------------------------------------------------------------------
+# K8: block SDDMM, the gradient of K1 with respect to the blocks
+# ---------------------------------------------------------------------------
+
+
+def _strips_product(gs, bs_):
+    """``gs @ conj(bs_)^T`` for batches of strips (nb, bs, n), as one
+    ``torch.bmm`` in real arithmetic: complex strips go in as their real
+    and imaginary parts side by side, so that each product follows
+    numpy's component formula, as the kernels do (cuBLAS's complex GEMM
+    gives nan + nanj where a product of inf and a finite value is
+    +-inf +-infj by that formula)."""
+    if not gs.is_complex():
+        return torch.bmm(gs, bs_.mT)
+    bs = bs_.shape[1]
+    g2 = torch.cat([gs.real, gs.imag], -1)
+    b2 = torch.cat([torch.cat([bs_.real, bs_.imag], -1),
+                    torch.cat([-bs_.imag, bs_.real], -1)], 1)
+    out = torch.bmm(g2, b2.mT)
+    return torch.complex(out[..., :bs], out[..., bs:])
+
+
+def bsr_sddmm_plain(indptr, indices, g, b, bs, alpha=None):
+    """``alpha * G[r_b bs:(r_b + 1) bs, :] @ conj(B[c_b bs:(c_b + 1) bs,
+    :])^T`` for each stored block b in plain PyTorch: both block strips
+    gathered, one ``torch.bmm`` (``_strips_product``; what
+    ``_xla.bsr_spmm``'s batched ``dot_general`` transposes into under
+    ``jax.grad``), chunked over the blocks so each gathered strip stays
+    under ``config.spmm_chunk_elements`` elements."""
+    nblocks, n = indices.numel(), g.shape[1]
+    out = torch.zeros((nblocks, bs, bs), dtype=g.dtype, device=g.device)
+    if nblocks and n:
+        if g.is_cuda:
+            ieee_matmul()
+        rows = expand_indptr(indptr, nblocks).long()
+        cols = indices.long()
+        g_strips = g.reshape(-1, bs, n)
+        b_strips = b.reshape(-1, bs, n)
+        chunk = max(1, config.spmm_chunk_elements // (bs * n))
+        for s in range(0, nblocks, chunk):
+            e = min(s + chunk, nblocks)
+            out[s:e] = _strips_product(g_strips[rows[s:e]],
+                                       b_strips[cols[s:e]])
+    if alpha is not None and complex(alpha) != 1:
+        out = out * alpha
+    return out
+
+
+def bsr_sddmm(indptr, indices, g, b, bs, alpha=None):
+    """``alpha * G's block row r_b @ (B's block row c_b)^H`` for each
+    stored block b = (r_b, c_b) of the BSR (block ``indptr`` of nbrows + 1,
+    block-column ``indices``) with ``bs`` x ``bs`` blocks, for row-major
+    ``g`` of (nbrows * bs, n) and ``b`` of (k, n), k % bs == 0: a new
+    (nblocks, bs, bs) tensor in the blocks' stored order.  Not
+    differentiable itself (``ops.autograd.BsrSddmm`` is): it raises on a
+    tracked ``g`` or ``b`` (``csr.refuse_tracked``), on both devices."""
+    refuse_tracked("bsr_sddmm", g, b)
+    return sddmm(indptr, indices, g, b, bs, alpha)
+
+
+def sddmm(indptr, indices, g, b, bs, alpha=None):
+    """``bsr_sddmm`` without the tracked check, for ``BsrSddmm``'s
+    forward: K8 on the card, the plain version on the CPU; counted in
+    ``bsr_sddmm.launches``."""
+    refuse_views("bsr_sddmm", indptr, indices, g, b)
+    nbrows = indptr.numel() - 1
+    if (g.dim() != 2 or b.dim() != 2 or g.shape != (nbrows * bs, g.shape[1])
+            or b.shape[0] % bs or b.shape[1] != g.shape[1]):
+        raise ValueError(f"bsr_sddmm: g {tuple(g.shape)} and b "
+                         f"{tuple(b.shape)} do not fit {nbrows} block rows "
+                         f"of {bs}")
+    if g.device.type == "cpu":
+        return bsr_sddmm_plain(indptr, indices, g, b, bs, alpha)
+    if not g.is_cuda:
+        raise ValueError(f"bsr_sddmm: no kernel for device {g.device}")
+    _check("bsr_sddmm", (indptr, indices), (g, b))
+    nblocks, n = indices.numel(), g.shape[1]
+    out = torch.empty((nblocks, bs, bs), dtype=g.dtype, device=g.device)
+    if nblocks == 0:
+        return out
+    if n == 0:
+        return out.zero_()
+    dt, it = _build.type_codes(g, indptr)
+    _build.launch(
+        "sdt_bsr_sddmm", dt, it, indptr.data_ptr(), nbrows,
+        indices.data_ptr(), nblocks, g.data_ptr(), b.data_ptr(),
+        out.data_ptr(), bs, n, *_build.scalar_parts(alpha),
+        _build.stream_of(g),
+    )
+    bsr_sddmm.launches += 1
+    return out
+
+
+bsr_sddmm.launches = 0

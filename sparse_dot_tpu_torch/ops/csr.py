@@ -68,6 +68,21 @@ def tracked(*tensors):
     return False
 
 
+def refuse_tracked(name, *tensors):
+    """Raise on an operand that autograd or a ``torch.func`` transform
+    follows (``tracked``), for a wrapper whose result carries no
+    gradient: on the card its kernel writes a fresh tensor with no
+    ``grad_fn``, so the gradient would be dropped without a word.  Checked
+    on both devices, so the CPU's plain versions refuse what the card
+    would.  Detach the operand, or take the differentiable entry point
+    (``ops.autograd``)."""
+    if tracked(*tensors):
+        raise ValueError(
+            f"{name}: an operand requires grad or is followed by a "
+            "torch.func transform, and this kernel carries no gradient; "
+            "pass .detach() or use a differentiable entry point")
+
+
 def _check(name, index_tensors, value_tensors, optional=()):
     """Same CUDA device, contiguous, one index dtype and one value dtype,
     no lazy view (``refuse_views``)."""

@@ -31,7 +31,7 @@ import torch
 from ..config import config
 from ..formats import expand_indptr
 from . import _build
-from .csr import _check, refuse_views, spmm_schedule
+from .csr import _check, refuse_tracked, refuse_views, spmm_schedule
 
 # Groups of 32 lanes in one wave of the span kernel: the H100's 132 SMs,
 # 32 warps on each (``csrc/csr_sddmm.cu``, kSpanBlocks blocks of 4 warps).
@@ -113,7 +113,16 @@ def csr_sddmm(indptr, indices, g, b, alpha=None):
     """``alpha * (g @ b^H)`` at the entries of the CSR (``indptr`` of
     m + 1, ``indices`` into k columns), for row-major ``g`` of (m, n) and
     ``b`` of (k, n), as a new (nnz,) tensor in the entries' stored order.
-    Not differentiable itself (``ops.autograd.CsrSddmm`` is)."""
+    Not differentiable itself (``ops.autograd.CsrSddmm`` is): it raises on
+    a tracked ``g`` or ``b`` (``csr.refuse_tracked``), on both devices."""
+    refuse_tracked("csr_sddmm", g, b)
+    return sddmm(indptr, indices, g, b, alpha)
+
+
+def sddmm(indptr, indices, g, b, alpha=None):
+    """``csr_sddmm`` without the tracked check, for ``CsrSddmm``'s forward:
+    K7 on the card, the plain version on the CPU; counted in
+    ``csr_sddmm.launches``."""
     refuse_views("csr_sddmm", indptr, indices, g, b)
     if g.device.type == "cpu":
         return csr_sddmm_plain(indptr, indices, g, b, alpha)

@@ -48,6 +48,12 @@ the item's columns start: at a window from a table of window starts that
 the launch builds first (``window_starts_pay``), at the diagonal by
 binary search.  That needs op(B)'s rows sorted: the caller says so
 (``b_sorted``), else the wrapper sorts them first.
+
+Gradients: ``csr_spgemm_dense`` with a tracked operand (``csr.tracked``)
+runs ``ops.autograd.CsrSpgemmDense``, K6 forward and K9
+(``ops/spgemm_grad``) for both operands' values backward, on either
+device.  The sparse-output product (``csr_spgemm``, ``csr_spgemm_fill``)
+carries no gradient and raises on a tracked operand.
 """
 
 import functools
@@ -59,7 +65,7 @@ import torch
 from ..config import config
 from ..formats import _check_index_bounds, expand_indptr, sort_csr_indices
 from . import _build
-from .csr import _add_rows, _check, refuse_views
+from .csr import _add_rows, _check, refuse_tracked, refuse_views, tracked
 from .dense import axpby
 
 # Kinds of row bins (the codes of csrc/csr_spgemm.cu's BinKind).
@@ -468,7 +474,10 @@ def csr_spgemm_fill(a_indptr, a_indices, a_data, b_indptr, b_indices,
     ascending; values summed in op(A)'s stored order.  K5 skips the empty
     bins and sizes each grid to its bin: ``bin_sizes`` are the plan's rows
     per bin as host ints, read from ``plan.offsets`` when not given (a
-    host read, as that of ``nnz``; ``csr_spgemm`` reads both at once)."""
+    host read, as that of ``nnz``; ``csr_spgemm`` reads both at once).
+    Carries no gradient: raises on a tracked operand
+    (``csr.refuse_tracked``)."""
+    refuse_tracked("csr_spgemm_fill", a_data, b_data)
     refuse_views("csr_spgemm_fill", a_indptr, a_indices, a_data, b_indptr,
                  b_indices, b_data)
     if a_data.device.type == "cpu":
@@ -533,9 +542,11 @@ def csr_spgemm(a_indptr, a_indices, a_data, b_indptr, b_indices, b_data, n,
     """op(A) @ op(B) -> CSR (indptr, indices, data) with op(A)'s index
     dtype: the plan and K4 (one launch), the running sum, the nnz read, K5
     on the card (``PRODUCT_STEPS``; ``marks``, when given, is called with
-    each step's name as it ends, to time them); the plain ESC on the CPU.  Raises
-    (with the ILP64 hint) when int32 indices cannot hold the output's
-    nnz."""
+    each step's name as it ends, to time them); the plain ESC on the CPU.
+    Raises (with the ILP64 hint) when int32 indices cannot hold the
+    output's nnz, and on a tracked operand: the sparse output's gradient
+    is not ported (``csr.refuse_tracked``)."""
+    refuse_tracked("csr_spgemm", a_data, b_data)
     refuse_views("csr_spgemm", a_indptr, a_indices, a_data, b_indptr,
                  b_indices, b_data)
     if a_data.device.type == "cpu":
@@ -606,13 +617,36 @@ def csr_spgemm_dense(a_indptr, a_indices, a_data, b_indptr, b_indices,
                      triangular=False, b_sorted=False):
     """K6: ``alpha * op(A) @ op(B) + beta * c0`` as a new row-major (m, n)
     tensor (only j >= i of the product with ``triangular``; ``c0`` is
-    added everywhere).  ``b_sorted``: each row of op(B) lists its columns
-    in ascending order, as the container's ``csr_sorted`` tells; when it
-    is not known and the plan enters op(B)'s rows inside (windows, or
-    ``triangular``), the rows are sorted here first, on the card.  The
+    added everywhere); op(B)'s rows repeat no column (module docstring).
+    ``b_sorted``: each row of op(B) lists its columns in ascending order,
+    as the container's ``csr_sorted`` tells; when it is not known and the
+    plan enters op(B)'s rows inside (windows, or ``triangular``), the
+    rows are sorted here first, on the card.  The
     launch's plan is kept in ``csr_spgemm_dense.last_plan``, and whether
     it tabulated op(B)'s window starts (``window_starts_pay``) in
-    ``last_table``.  No atomics; the same bits on every run."""
+    ``last_table``.  No atomics; the same bits on every run.
+
+    When autograd or a ``torch.func`` transform follows ``a_data``,
+    ``b_data`` or ``c0`` (``csr.tracked``), the call goes through
+    ``ops.autograd.CsrSpgemmDense`` on either device, so the result
+    carries its gradient (K9 twice on the card, ``ops/spgemm_grad``);
+    otherwise it is the kernel (the plain version on the CPU) alone."""
+    if tracked(a_data, b_data, c0):
+        from .autograd import CsrSpgemmDense, patterns
+
+        return CsrSpgemmDense.apply(
+            patterns.get(a_indptr, a_indices, b_indptr.numel() - 1), a_data,
+            patterns.get(b_indptr, b_indices, n), b_data, alpha, beta, c0,
+            triangular, b_sorted)
+    return spgemm_dense(a_indptr, a_indices, a_data, b_indptr, b_indices,
+                        b_data, n, alpha, beta, c0, triangular, b_sorted)
+
+
+def spgemm_dense(a_indptr, a_indices, a_data, b_indptr, b_indices, b_data,
+                 n, alpha=None, beta=None, c0=None, triangular=False,
+                 b_sorted=False):
+    """``csr_spgemm_dense`` without autograd: K6 on the card, the plain
+    version on the CPU; counted in ``csr_spgemm_dense.launches``."""
     refuse_views("csr_spgemm_dense", a_indptr, a_indices, a_data, b_indptr,
                  b_indices, b_data, c0)
     if a_data.device.type == "cpu":

@@ -28,7 +28,8 @@ from sparse_dot_tpu.ops import _xla
 from sparse_dot_tpu.ops.pallas_bsr import bsr_spmm_pallas
 
 from sparse_dot_tpu_torch.config import config
-from sparse_dot_tpu_torch.ops import _build, bsr, csr, dense, sddmm, spgemm
+from sparse_dot_tpu_torch.ops import (_build, bsr, csr, dense, sddmm, spgemm,
+                                      spgemm_grad)
 
 
 @pytest.fixture(autouse=True)
@@ -477,15 +478,17 @@ def test_sddmm_spans_cover_every_entry_once(n, dtype, aligned, nnz):
 
 def launch_counts():
     return (csr.csr_spmm.launches, csr.csr_spmv.launches,
-            bsr.bsr_spmm.launches, sddmm.csr_sddmm.launches)
+            bsr.bsr_spmm.launches, sddmm.csr_sddmm.launches,
+            spgemm.csr_spgemm_dense.launches, bsr.bsr_sddmm.launches,
+            spgemm_grad.csr_spgemm_sddmm.launches)
 
 
 @pytest.mark.parametrize("tracked", [False, True])
 def test_cpu_tensors_take_plain_version_without_counting(tracked):
-    """On CPU tensors K1, K2, K3 and K7's wrappers give their plain
-    versions' results and count no launch; with ``tracked`` the SpMM and
-    SpMV take the autograd Functions (operands requiring grad), whose
-    forward and backward count none either."""
+    """On CPU tensors K1, K2, K3, K6 and K7's wrappers give their plain
+    versions' results and count no launch; with ``tracked`` K1, K2, K3
+    and K6 take the autograd Functions (operands requiring grad), whose
+    forward and backward (K7, K8 and K9 among them) count none either."""
     rng = np.random.default_rng(51)
     indptr, indices, data = random_csr(rng, 10, 8, 3, np.float64)
     b = values(rng, (8, 4), np.float64)
@@ -501,21 +504,92 @@ def test_cpu_tensors_take_plain_version_without_counting(tracked):
     assert_close(y.detach(), csr.csr_spmv_plain(ip, ix, t(data),
                                                 t(b[:, 0])).numpy(),
                  np.float64)
-    blocks = t(data.reshape(-1, 1, 1))
-    assert_close(bsr.bsr_spmm(ip, ix, blocks, t(b)),
-                 bsr.bsr_spmm_plain(ip, ix, blocks, t(b)).numpy(), np.float64)
+    blocks = dv.reshape(-1, 1, 1)
+    c1 = bsr.bsr_spmm(ip, ix, blocks, tb)
+    assert_close(c1.detach(), bsr.bsr_spmm_plain(
+        ip, ix, t(data.reshape(-1, 1, 1)), t(b)).numpy(), np.float64)
+    c6 = spgemm.csr_spgemm_dense(ip, ix, dv, ip[:9], ix[:int(ip[8])],
+                                 dv[:int(ip[8])], 8)
+    assert_close(c6.detach(), spgemm.csr_spgemm_dense_plain(
+        ip, ix, t(data), ip[:9], ix[:int(ip[8])], t(data[:int(ip[8])]),
+        8).numpy(), np.float64)
     assert_close(sddmm.csr_sddmm(ip, ix, t(g), t(b)),
                  sddmm.csr_sddmm_plain(ip, ix, t(g), t(b)).numpy(),
                  np.float64)
-    assert (out.grad_fn is not None) == tracked
-    assert (y.grad_fn is not None) == tracked
+    for result in (out, y, c1, c6):
+        assert (result.grad_fn is not None) == tracked
     if tracked:
         ((out * t(g)).sum() + y.sum()).backward()
         ones = t(np.ones((10, 1)))
         ref = (sddmm.csr_sddmm_plain(ip, ix, t(g), t(b))
                + sddmm.csr_sddmm_plain(ip, ix, ones, t(b[:, :1])))
         assert_close(dv.grad, ref.numpy(), np.float64)
+        dv.grad = None
+        (c1 * t(g)).sum().backward()
+        assert_close(dv.grad, sddmm.csr_sddmm_plain(
+            ip, ix, t(g), t(b)).numpy(), np.float64)
+        c6.sum().backward()
     assert launch_counts() == before
+
+
+@pytest.mark.parametrize("kernel", ["K5_product", "K5_fill", "K7", "K8",
+                                    "K9"])
+def test_wrappers_refuse_tracked_operands(kernel):
+    """A wrapper whose kernel carries no gradient raises on an operand
+    that requires grad, on the CPU as on the card (where its kernel would
+    write a tensor with no grad_fn): K5's sparse-output product and fill,
+    and K7, K8 and K9 called directly; the same call on detached operands
+    runs."""
+    rng = np.random.default_rng(65)
+    indptr, indices, data = random_csr(rng, 6, 6, 2, np.float64)
+    ip, ix = t(indptr), t(indices)
+    dv = t(data).requires_grad_()
+    g = t(values(rng, (6, 6), np.float64)).requires_grad_()
+
+    def call(dv, g):
+        if kernel == "K5_product":
+            return spgemm.csr_spgemm(ip, ix, dv, ip, ix, dv, 6)
+        if kernel == "K5_fill":
+            c_ip = spgemm.spgemm_plain(ip, ix, dv.detach(), ip, ix,
+                                       dv.detach(), 6)[0]
+            return spgemm.csr_spgemm_fill(ip, ix, dv, ip, ix, dv, 6, None,
+                                          c_ip, int(c_ip[-1]))
+        if kernel == "K7":
+            return sddmm.csr_sddmm(ip, ix, g, g)
+        if kernel == "K8":
+            return bsr.bsr_sddmm(ip, ix, g, g, 1)
+        return spgemm_grad.csr_spgemm_sddmm(ip, ix, g, ip, ix, dv)
+
+    with pytest.raises(ValueError, match="carries no gradient"):
+        call(dv, g)
+    call(dv.detach(), g.detach())
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K6"])
+def test_tracked_k1_and_k6_carry_gradients(kernel):
+    """K1 and K6 take their Functions for a tracked operand on either
+    device: the result's node is ``BsrSpmmBackward`` or
+    ``CsrSpgemmDenseBackward``, and its gradient equals the one torch
+    takes through the plain version."""
+    rng = np.random.default_rng(66)
+    indptr, indices, data = random_csr(rng, 6, 6, 2, np.float64)
+    ip, ix = t(indptr), t(indices)
+    w = t(values(rng, (6, 6), np.float64))
+    dv = t(data).requires_grad_()
+    ref_dv = t(data).requires_grad_()
+    if kernel == "K1":
+        out = bsr.bsr_spmm(ip, ix, dv.reshape(-1, 1, 1), w)
+        ref = bsr.bsr_spmm_plain(ip, ix, ref_dv.reshape(-1, 1, 1), w)
+        name = "BsrSpmmBackward"
+    else:
+        out = spgemm.csr_spgemm_dense(ip, ix, dv, ip, ix, dv.detach(), 6)
+        ref = spgemm.csr_spgemm_dense_plain(ip, ix, ref_dv, ip, ix,
+                                            t(data), 6)
+        name = "CsrSpgemmDenseBackward"
+    assert type(out.grad_fn).__name__ == name
+    (out * w).sum().backward()
+    (ref * w).sum().backward()
+    assert_close(dv.grad, ref_dv.grad.numpy(), np.float64)
 
 
 def lazy_view(x, kind):

@@ -351,6 +351,49 @@ def test_rows_outside_dropped(coo):
     assert not tv.grad[::7].any()
 
 
+def test_negative_ids_count_from_the_end(coo):
+    """Ids by NumPy's rules, as the JAX package's: a row id in [-m, 0)
+    and a column id in [-k, 0) count from the end, rows outside [-m, m)
+    are dropped.  ROADMAP's two inputs through ``coo_spmv`` and
+    ``coo_spmm_raw`` against ``_xla``'s, then the gradients in the values
+    of ``MATRIX_1[:40, :30]`` with negative row and column ids against
+    ``jax.grad``; a column outside [-k, k) still raises."""
+    vals, x = np.array([1.0, 2, 3, 4, 5]), np.array([1.0, 2, 3])
+    for rows, cols, want in (([0, 1, -1, 2, 3], [0, 1, 2, 0, 1], [1, 4, 13]),
+                             ([0, 1, 2, 2, 0], [0, 1, -1, 0, 1],
+                              [11, 4, 13])):
+        (tr, jr), (tc, jc), (tv, jv), (tx, jx) = both(
+            np.array(rows), np.array(cols), vals, x)
+        y = coo_spmv(tr, tc, tv, tx, 3)
+        close(y, want)
+        close(y, _xla.coo_spmv(jr, jc, jv, jx, 3))
+        close(coo_spmm_raw(tr, tc, tv, tx[:, None], 3),
+              _xla.coo_spmm_raw(jr, jc, jv, jx[:, None], 3))
+
+    rng = np.random.default_rng(15)
+    rows, cols, vals = coo
+    rows, cols = rows.copy(), cols.copy()
+    rows[::5] -= M
+    cols[1::4] -= K
+    rows[2] = -M - 1  # outside [-m, m): dropped
+    b = rng.random((K, N))
+    (tr, jr), (tc, jc) = both(rows, cols)
+
+    def jax_loss(v):
+        return jnp.sum(_xla.coo_spmm_raw(jr, jc, v, jnp.asarray(b), M) ** 2)
+
+    tv = torch.tensor(vals, requires_grad=True)
+    c = coo_spmm_raw(tr, tc, tv, torch.tensor(b), M)
+    close(c, _xla.coo_spmm_raw(jr, jc, jnp.asarray(vals), jnp.asarray(b), M))
+    (c ** 2).sum().backward()
+    close(tv.grad, jax.grad(jax_loss)(jnp.asarray(vals)))
+    assert tv.grad[2] == 0
+    cols[0] = -K - 1
+    with pytest.raises(ValueError, match="column ids outside"):
+        coo_spmm_raw(torch.tensor(rows), torch.tensor(cols),
+                     torch.tensor(vals), torch.tensor(b), M)
+
+
 def test_repeated_entries_keep_separate_gradients(coo):
     """A repeated (row, col) stays two values, each with its own
     gradient (``formats.from_arrays`` would sum them)."""
