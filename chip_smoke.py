@@ -53,16 +53,22 @@ Phases, each printing one JSON line:
    4 entries; 16-byte and scalar loads; 32- and 64-bit indices) and each
    edge of its work split (K7_EDGES: nnz past a whole round or span, a
    span across 1000 empty rows, a row longer than a span, a strip ending
-   mid-row, misaligned views on scalar loads) seen.  K8 block SDDMM
-   (BSR SpMM's gradient in the blocks) against its plain version at bs in
-   {1, 3, 8, 16, 64, 128} and n in {1, 37, 64, 256}, with and without
-   alpha, on G and B and on views of them one row into a buffer, with
-   empty block rows and no stored block, and with inf in G and B; K9, the
+   mid-row, misaligned views on scalar loads) seen.  K6 on the op(B)
+   whose rows repeat a column that ROADMAP's fault 1 names: the same
+   ``ValueError`` on the CPU and on the card, raw and tracked, and no
+   launch.  K8 block SDDMM (BSR SpMM's gradient in the blocks) in both
+   variants (real values with bs % 8 == 0 on the tensor cores, the rest
+   on the CUDA cores; each call's variant checked by the per-variant
+   counts) against its plain version at bs in {1, 3, 8, 16, 24, 64, 128}
+   and n in {1, 37, 64, 256}, with and without alpha, on G and B and on
+   views of them one row into a buffer, with empty block rows and no
+   stored block, and with inf in G and B at bs 3, 8 and 64; K9, the
    sampled sparse-row product (the dense-output SpGEMM's value
-   gradients), against its plain version in both forms (dA: P's rows
-   index D; dB: P read as (column, row)), with empty rows of P and of Y,
-   a row of Y of 2000 entries, 6000 short rows of P, no entry, and inf,
-   on groups of 1 to 32 lanes; every K8 and K9 call run twice for the
+   gradients), against its plain versions in both forms (dA: D's rows;
+   dB: D's columns), with empty rows of P and of Y, a row of Y of 2000
+   entries, 6000 short rows of P, no entry, and inf, on groups of 1 to 32
+   lanes, with D's lines staged in shared memory (panels of 4 to 32
+   lines) and read in place; every K8 and K9 call run twice for the
    same bits.  Then ``torch.autograd.gradcheck`` (reverse and forward
    mode) of ``ops.coo_spmm_raw``, ``coo_spmv``, ``csr_spmm``, the BSR
    device function ``ops.bsr_spmm`` (on both K1 variants) and
@@ -103,9 +109,15 @@ Phases, each printing one JSON line:
    ``torch.sparse.sampled_addmm`` and, in the same turns, K2 (K3) on the
    same pattern, with the gathered bytes (nnz * n * itemsize) and the
    rate each reaches over them; K8 at config 3 (bs 64, n = 256, f64 and
-   f32) beside ``torch.bmm`` of the strips gathered beforehand; K9 at
-   case a (dA and dB) and d (dA) beside op(B) (op(A)) densified and
-   ``torch.sparse.sampled_addmm``; and the wall
+   f32, tensor cores) beside ``torch.bmm`` of the strips gathered
+   beforehand and, in the same turns, its CUDA-core variant (the kernel
+   that served every value type before), and its CUDA-core variant at the
+   complex BSR (c128, bs 16, n = 64); K9 at cases a and d in both forms
+   beside op(B) (op(A)) densified and ``torch.sparse.sampled_addmm`` and,
+   for dB, in the same turns, the copy of G^T a backward without the dB
+   form makes;
+   K8's and K9's rows also carry ``device_ms``, the kernels' own time in a
+   ``torch.profiler`` trace of 10 calls; and the wall
    time of ``dot_product(X, X.T)`` beside scipy's;
 5. the solver path, with the counts set to 0 again and the plain versions
    of K1-K9 made to raise, each result checked against scipy/numpy on the
@@ -139,8 +151,9 @@ Phases, each printing one JSON line:
    per run the wall ms of a step (median of steps 2..N), and the device's
    busy ms of an f64 step in a ``torch.profiler`` trace.  Then, each with
    the counts set to 0 again: 15 f64 SGD steps through ``ops.bsr_spmm``
-   on config 3's blocks and b (K1 forward, K8 and K1 over A^H backward)
-   and 10 through ``csr_spgemm_dense`` on the demo X's values as op(A)
+   on config 3's blocks and b (K1 forward, K8 and K1 over A^H backward,
+   on the tensor cores) and 5 on a 4000^2 BSR of 20 x 20 blocks (on the
+   CUDA cores), and 10 through ``csr_spgemm_dense`` on the demo X's values as op(A)
    and a copy of X^T's CSR as op(B) (K6 forward, K9 twice backward), plus
    one step with ``triangular``; losses non-increasing, gradients at the
    first and last step equal to torch's through the plain versions, the
@@ -160,6 +173,7 @@ its phase-4 rows and its phase-6 run.
 """
 
 import argparse
+import contextlib
 import importlib
 import json
 import os
@@ -225,8 +239,12 @@ KERNELS = {
         "source": "sparse_dot_tpu_torch/csrc/csr_sddmm.cu",
         "replaces": "sparse_dot_tpu/ops/_xla.py:178",
     },
-    "K8_bsr_sddmm": {
+    "K8_bsr_sddmm_tc": {
         "source": "sparse_dot_tpu_torch/csrc/bsr_sddmm.cu",
+        "replaces": "sparse_dot_tpu/ops/_xla.py:799",
+    },
+    "K8_bsr_sddmm_simt": {
+        "source": "sparse_dot_tpu_torch/csrc/bsr_sddmm_simt.cu",
         "replaces": "sparse_dot_tpu/ops/_xla.py:799",
     },
     "K9_csr_spgemm_sddmm": {
@@ -376,16 +394,18 @@ def check_kernels(spgemm_only=False):
     check_csr_special(rng, record)
     check_bins_seen(bins_seen)
     check_k6_seen(k6_seen)
+    k6_repeats = check_k6_repeats()
     k6_plans = [dict(zip(K6_PLAN_KEYS, seen)) for seen in sorted(k6_seen)]
     if spgemm_only:
         emit(2, kernels=results, spgemm_bins=sorted(bins_seen),
-             k6_plans=k6_plans)
+             k6_plans=k6_plans, k6_repeated_column=k6_repeats)
         return results
     if {vec > 1 for vec, _ in schedules} != {True, False}:
         raise AssertionError(f"K2 ran only {schedules} (vec, lanes)")
     check_k7_schedules(k7_schedules, k7_seen)
     emit(2, kernels=results, spgemm_bins=sorted(bins_seen),
          k2_schedules=sorted(schedules), k6_plans=k6_plans,
+         k6_repeated_column=k6_repeats,
          k7_schedules=sorted(k7_schedules), k7_edges=sorted(k7_seen),
          k9_lanes=k9_lanes, gradcheck_launches=check_gradcheck())
     return results
@@ -739,19 +759,35 @@ def check_sddmm_special(rng, record):
 # K8 cases: (bs, block rows, block columns, stored blocks a row, every
 # k-th block row empty): empty block rows in each, then no stored block.
 # K8_NS puts n at one column, a ragged stage of 16 (37) and whole stages.
-K8_BS = (1, 3, 8, 16, 64, 128)
+K8_BS = (1, 3, 8, 16, 24, 64, 128)
 K8_NS = (1, 37, 64, 256)
 
 
 def k8_call(*args):
-    """bsr_sddmm(*args), checked to launch K8 once (none with no block)."""
+    """bsr_sddmm(*args), checked to launch K8 once (none with no block),
+    on the variant ``uses_tensor_cores`` names: the tensor cores for real
+    values with bs % 8 == 0, else the CUDA cores."""
     from sparse_dot_tpu_torch.ops import bsr
 
-    before = bsr.bsr_sddmm.launches
-    out = bsr.bsr_sddmm(*args)
-    if bsr.bsr_sddmm.launches != before + int(args[1].numel() > 0):
-        raise AssertionError("bsr_sddmm did not launch K8 once")
+    wrapper = bsr.bsr_sddmm
+    before = (wrapper.launches, wrapper.launches_tc, wrapper.launches_simt)
+    out = wrapper(*args)
+    once = int(args[1].numel() > 0)
+    tc = once if bsr.uses_tensor_cores(args[2].dtype, args[4]) else 0
+    if (wrapper.launches, wrapper.launches_tc, wrapper.launches_simt) != (
+            before[0] + once, before[1] + tc, before[2] + once - tc):
+        raise AssertionError(f"bsr_sddmm did not launch K8's "
+                             f"{'tensor-core' if tc else 'CUDA-core'} "
+                             "variant once")
     return out
+
+
+def k8_name(dtype, bs):
+    """The KERNELS entry of the K8 variant that serves ``dtype`` and bs."""
+    from sparse_dot_tpu_torch.ops import bsr
+
+    return ("K8_bsr_sddmm_tc" if bsr.uses_tensor_cores(dtype, bs)
+            else "K8_bsr_sddmm_simt")
 
 
 def check_k8(rng, tdt, npdt, itype, record):
@@ -775,7 +811,7 @@ def check_k8(rng, tdt, npdt, itype, record):
                     for al in (None, alpha):
                         args = (ip, ix, gg, bb, bs, al)
                         out = k8_call(*args)
-                        record("K8_bsr_sddmm", compare(
+                        record(k8_name(tdt, bs), compare(
                             out, bsr.bsr_sddmm_plain(*args), tdt))
                         if not torch.equal(out, k8_call(*args)):
                             raise AssertionError(f"K8 {tdt} bs={bs} n={n}: "
@@ -801,13 +837,15 @@ def same_parts(name, out, ref):
 
 def check_k8_special(rng, record):
     """K8 with inf in G and in B (+inf, -inf, and an imaginary inf for
-    complex values) in every value type, at bs = 3 and 64: the same nan,
+    complex values) in every value type, at bs = 3, 8 and 64 (for real
+    values the CUDA-core variant, then the tensor cores' 16- and 64-row
+    tiles): the same nan,
     +inf and -inf parts as the plain version, finite entries within
     tolerance."""
     from sparse_dot_tpu_torch.ops import bsr
 
     for tdt, npdt in NP_DTYPES.items():
-        for bs in (3, 64):
+        for bs in (3, 8, 64):
             indptr, indices, _ = random_bsr(rng, 4, 3, bs, 2, npdt)
             g = values(rng, (4 * bs, 40), npdt)
             b = values(rng, (3 * bs, 40), npdt)
@@ -818,21 +856,27 @@ def check_k8_special(rng, record):
             args = (cuda(indptr), cuda(indices), cuda(g), cuda(b), bs)
             out, ref = k8_call(*args), bsr.bsr_sddmm_plain(*args)
             fin = same_parts(f"K8 {tdt} bs={bs}", out, ref)
-            record("K8_bsr_sddmm", compare(out[fin], ref[fin], tdt))
+            record(k8_name(tdt, bs), compare(out[fin], ref[fin], tdt))
 
 
 # K9 cases: (rows of P, columns of P, mean row of P, every k-th row of P
-# empty, width of D, mean row of Y, every k-th row of Y empty, one row of
-# Y this long): Y's mean rows put K9 on groups of 1, 2, 4, 8, 16 and 32
-# lanes (``spgemm_grad.sampled_lanes``), the fifth has a row of Y of 2000
-# entries, the sixth 6000 short rows of P, the last no entry in P.  Each
-# case runs in both forms: the dA form (P's rows index D, its columns
-# Y's rows) and the dB form (read as (column, row)).
+# empty, Y's column range (the length of D's lines), mean row of Y,
+# every k-th row of Y empty, one row of Y this long): Y's mean rows put
+# K9 on groups of 1, 2, 4, 8, 16 and 32 lanes
+# (``spgemm_grad.sampled_lanes``), the fifth has a row of Y of 2000
+# entries (longer than a group holds), the sixth 6000 short rows of P,
+# the last no entry in P.  Each case runs in both forms: the dA form (D's
+# rows, P's columns name Y's rows) and the dB form (D's columns, P's
+# rows name Y's rows), with D's lines staged in shared memory (panels of
+# 4 to 32 lines) and, with K9_BUDGETS' 0, read in place through L1.
 K9_CASES = ((300, 200, 3, 5, 150, 1.2, 4, 0), (300, 200, 3, 5, 150, 5, 4, 0),
             (120, 90, 5, 7, 300, 10, 3, 0), (120, 90, 5, 0, 300, 20, 3, 0),
             (64, 190, 6, 3, 3000, 30, 5, 2000),
             (120, 90, 5, 0, 300, 40, 3, 0),
             (6000, 400, 2, 0, 48, 3, 0, 0), (50, 40, 0, 0, 60, 3, 0, 0))
+# Shared-memory budgets of K9's panels (``spgemm_grad.SAMPLED_SMEM``): the
+# default and none.
+K9_BUDGETS = (None, 0)
 
 
 def k9_call(*args):
@@ -851,36 +895,69 @@ def k9_call(*args):
 def k9_operands(rng, case, npdt, itype, transposed):
     """(P's indptr and indices, D, Y's arrays) of a K9_CASES case on the
     card: Y has as many rows as P has columns (the dA form) or rows (the
-    dB form), D as many rows as P has rows (columns)."""
+    dB form) and w columns; D is (rows of P, w) in the dA form and (w,
+    columns of P) in the dB form."""
     mp, kp, mean_p, empty_p, w, mean_y, empty_y, long_y = case
     p_ip, p_ix, _ = random_csr(rng, mp, kp, mean_p, npdt, itype, empty_p)
-    y_rows, d_rows = (mp, kp) if transposed else (kp, mp)
+    y_rows, d_shape = (mp, (w, kp)) if transposed else (kp, (mp, w))
     y = random_csr(rng, y_rows, w, mean_y, npdt, itype, empty_y, long_y)
-    d = values(rng, (d_rows, w), npdt)
+    d = values(rng, d_shape, npdt)
     return (cuda(p_ip), cuda(p_ix)), cuda(d), tuple(map(cuda, y))
 
 
-def check_k9(rng, tdt, npdt, itype, record, lanes_seen):
-    """K9 against ``csr_spgemm_sddmm_plain`` at every case of K9_CASES in
-    both forms, with and without alpha; every call run twice for the same
-    bits.  ``lanes_seen`` collects the groups' widths."""
+@contextlib.contextmanager
+def k9_budget(budget):
+    """Inside the block, K9's panels get ``budget`` bytes of shared
+    memory (``spgemm_grad.SAMPLED_SMEM``; None keeps the default)."""
     from sparse_dot_tpu_torch.ops import spgemm_grad
 
+    saved = spgemm_grad.SAMPLED_SMEM
+    if budget is not None:
+        spgemm_grad.SAMPLED_SMEM = budget
+    try:
+        yield
+    finally:
+        spgemm_grad.SAMPLED_SMEM = saved
+
+
+def k9_plan(d, y_ip, y_ix, transposed):
+    """The ``SampledPlan`` K9 takes for these operands."""
+    from sparse_dot_tpu_torch.ops import spgemm_grad
+
+    return spgemm_grad.sampled_plan(
+        d.shape[0] if transposed else d.shape[1], d.element_size(),
+        y_ix.numel() / max(y_ip.numel() - 1, 1), transposed)
+
+
+def check_k9(rng, tdt, npdt, itype, record, lanes_seen, plans_seen):
+    """K9 against ``csr_spgemm_sddmm_plain`` at every case of K9_CASES in
+    both forms, under each budget of K9_BUDGETS, with and without alpha;
+    every call run twice for the same bits.  ``lanes_seen`` collects the
+    groups' widths, ``plans_seen`` (form, staged) of each
+    launch."""
     alpha = 0.5 - 0.25j if np.dtype(npdt).kind == "c" else -1.5
+    from sparse_dot_tpu_torch.ops import spgemm_grad
+
     for case in K9_CASES:
         for transposed in (False, True):
             (ip, ix), d, (y_ip, y_ix, y_dv) = k9_operands(
                 rng, case, npdt, itype, transposed)
-            if ix.numel():
-                lanes_seen.add(spgemm_grad.sampled_lanes(
-                    y_ix.numel() / (y_ip.numel() - 1)))
-            for al in (None, alpha):
-                args = (ip, ix, d, y_ip, y_ix, y_dv, al, transposed)
-                out = k9_call(*args)
-                record("K9_csr_spgemm_sddmm", compare(
-                    out, spgemm_grad.csr_spgemm_sddmm_plain(*args), tdt))
-                if not torch.equal(out, k9_call(*args)):
-                    raise AssertionError(f"K9 {tdt} {case}: runs differ")
+            for budget in K9_BUDGETS:
+                with k9_budget(budget):
+                    plan = k9_plan(d, y_ip, y_ix, transposed)
+                    if ix.numel():
+                        lanes_seen.add(plan.lanes)
+                        plans_seen.add(("dB" if transposed else "dA",
+                                        plan.staged))
+                    for al in (None, alpha):
+                        args = (ip, ix, d, y_ip, y_ix, y_dv, al, transposed)
+                        out = k9_call(*args)
+                        record("K9_csr_spgemm_sddmm", compare(
+                            out, spgemm_grad.csr_spgemm_sddmm_plain(*args),
+                            tdt))
+                        if not torch.equal(out, k9_call(*args)):
+                            raise AssertionError(f"K9 {tdt} {case}: runs "
+                                                 "differ")
 
 
 def check_k9_special(rng, record):
@@ -895,6 +972,7 @@ def check_k9_special(rng, record):
             (ip, ix), d, (y_ip, y_ix, y_dv) = k9_operands(
                 rng, (60, 50, 4, 0, 40, 6, 0, 0), npdt, np.int32, transposed)
             d[3, :5] = np.inf
+            d[:4, 7] = -np.inf
             y_dv[5] = -np.inf
             if np.dtype(npdt).kind == "c":
                 y_dv[9] = complex(0.0, np.inf)
@@ -908,7 +986,9 @@ def check_k9_special(rng, record):
 def check_k8_k9(which=("K8", "K9")):
     """Phase 2 for K8 and K9 (``--only k8``, ``--only k9``, and inside
     ``check_kernels``' run): every value type and index width, the inf
-    cases, and K9 on every width of group."""
+    cases, K8 on both variants (``k8_call`` checks which one each call
+    launched), and K9 in both forms on every width of group, on panels of
+    4 to 32 lines in shared memory and on lines read in place."""
     rng = np.random.default_rng(SEED + 11)
     results = {name: {"cases": 0, "max_abs_err": 0.0} for name in KERNELS
                if name[:2] in which}
@@ -917,13 +997,14 @@ def check_k8_k9(which=("K8", "K9")):
         results[name]["cases"] += 1
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
 
-    lanes_seen = set()
+    lanes_seen, plans_seen = set(), set()
     for tdt, npdt in NP_DTYPES.items():
         for itype in (np.int32, np.int64):
             if "K8" in which:
                 check_k8(rng, tdt, npdt, itype, record)
             if "K9" in which:
-                check_k9(rng, tdt, npdt, itype, record, lanes_seen)
+                check_k9(rng, tdt, npdt, itype, record, lanes_seen,
+                         plans_seen)
     if "K8" in which:
         check_k8_special(rng, record)
     if "K9" in which:
@@ -931,6 +1012,11 @@ def check_k8_k9(which=("K8", "K9")):
         if lanes_seen != {1, 2, 4, 8, 16, 32}:
             raise AssertionError(f"K9 ran groups of {sorted(lanes_seen)} "
                                  "lanes only")
+        want = {(form, staged) for form in ("dA", "dB")
+                for staged in (True, False)}
+        if plans_seen != want:
+            raise AssertionError(f"K9 ran the plans {sorted(plans_seen)}, "
+                                 f"not {sorted(want)}")
     return results, sorted(lanes_seen)
 
 
@@ -944,8 +1030,8 @@ def check_gradcheck():
     values and c0, 6 x 9 by 9 x 7, rows of distinct shuffled columns)
     with and without
     ``triangular``; reverse and forward mode (``check_forward_ad``), with
-    the plain versions refused: K1 (both variants), K2, K3, K6, K7, K8 and
-    K9 must each launch.  Returns the launches."""
+    the plain versions refused: K1 and K8 (both variants each), K2, K3,
+    K6, K7 and K9 must each launch.  Returns the launches."""
     from sparse_dot_tpu_torch import ops
     from sparse_dot_tpu_torch.ops import autograd, csr, spgemm
 
@@ -1002,7 +1088,8 @@ def check_gradcheck():
     if not all(launched[name] > 0 for name in (
             "K1_bsr_spmm_tc", "K1_bsr_spmm_simt", "K2_csr_spmm",
             "K3_csr_spmv", "K6_csr_spgemm_dense", "K7_csr_sddmm",
-            "K8_bsr_sddmm", "K9_csr_spgemm_sddmm")):
+            "K8_bsr_sddmm_tc", "K8_bsr_sddmm_simt",
+            "K9_csr_spgemm_sddmm")):
         raise AssertionError(f"gradcheck launched {launched}")
     return {name: count for name, count in launched.items() if count}
 
@@ -1230,6 +1317,42 @@ def check_spgemm(rng, tdt, npdt, itype, record, bins_seen, k6_seen):
                 check_k6_wrong_flag(a_ip, a_ix, b_ip, b_ix, n, tri)
 
 
+def check_k6_repeats():
+    """K6 on an op(B) whose rows repeat a column, the failing input of
+    ROADMAP Queue 3's fault 1 (``random_csr(rng, 9, 7, 3, ...)`` as op(B),
+    with ``b_sorted=False``): on the CPU and on the card, raw and tracked,
+    ``csr_spgemm_dense`` raises the same ``ValueError`` and launches
+    nothing.  Returns the message."""
+    from sparse_dot_tpu_torch.ops import spgemm
+
+    rng = np.random.default_rng(SEED + 13)
+    b_ip, b_ix, b_dv = random_csr(rng, 9, 7, 3, np.float64)
+    rows = np.repeat(np.arange(9), np.diff(b_ip))
+    if len(set(zip(rows.tolist(), b_ix.tolist()))) == len(b_ix):
+        raise AssertionError("op(B) repeats no column")
+    a_ip, a_ix, a_dv = distinct_rows(rng, (3, 0, 2, 5, 1, 4), 9,
+                                     np.float64, np.int32)
+    messages = set()
+    for device in ("cpu", "cuda"):
+        for tracked in (False, True):
+            args = [torch.from_numpy(np.ascontiguousarray(x)).to(device)
+                    for x in (a_ip, a_ix, a_dv, b_ip, b_ix, b_dv)]
+            args[2].requires_grad_(tracked)
+            before = spgemm.csr_spgemm_dense.launches
+            try:
+                spgemm.csr_spgemm_dense(*args, 7)
+            except ValueError as err:
+                messages.add(str(err))
+            else:
+                raise AssertionError(f"K6 on {device} (tracked={tracked}) "
+                                     "took a repeated column")
+            if spgemm.csr_spgemm_dense.launches != before:
+                raise AssertionError("K6 launched on a repeated column")
+    if len(messages) != 1:
+        raise AssertionError(f"K6's messages differ: {sorted(messages)}")
+    return messages.pop()
+
+
 def check_k6_wrong_flag(a_ip, a_ix, b_ip, b_ix, n, triangular):
     """K6 told that op(B)'s shuffled rows are sorted: each row is then
     searched as if it were, so products go missing, but each product's
@@ -1367,8 +1490,8 @@ def main_path():
     expected = {"K1_bsr_spmm_tc": len(bsrs) + 1, "K1_bsr_spmm_simt": 1,
                 "K2_csr_spmm": 4, "K3_csr_spmv": 3, "K4_csr_spgemm_count": 0,
                 "K5_csr_spgemm_fill": 0, "K6_csr_spgemm_dense": 0,
-                "K7_csr_sddmm": 0, "K8_bsr_sddmm": 0,
-                "K9_csr_spgemm_sddmm": 0}
+                "K7_csr_sddmm": 0, "K8_bsr_sddmm_tc": 0,
+                "K8_bsr_sddmm_simt": 0, "K9_csr_spgemm_sddmm": 0}
     if (launches != expected or bsr.bsr_spmm.launches
             != launches["K1_bsr_spmm_tc"] + launches["K1_bsr_spmm_simt"]):
         raise AssertionError(f"launch counts {launches}, expected {expected}")
@@ -1479,6 +1602,7 @@ def reset_launches():
                spgemm_grad.csr_spgemm_sddmm):
         fn.launches = 0
     bsr.bsr_spmm.launches_tc = bsr.bsr_spmm.launches_simt = 0
+    bsr.bsr_sddmm.launches_tc = bsr.bsr_sddmm.launches_simt = 0
 
 
 def read_launches():
@@ -1493,7 +1617,8 @@ def read_launches():
         "K5_csr_spgemm_fill": spgemm.csr_spgemm_fill.launches,
         "K6_csr_spgemm_dense": spgemm.csr_spgemm_dense.launches,
         "K7_csr_sddmm": sddmm.csr_sddmm.launches,
-        "K8_bsr_sddmm": bsr.bsr_sddmm.launches,
+        "K8_bsr_sddmm_tc": bsr.bsr_sddmm.launches_tc,
+        "K8_bsr_sddmm_simt": bsr.bsr_sddmm.launches_simt,
         "K9_csr_spgemm_sddmm": spgemm_grad.csr_spgemm_sddmm.launches,
     }
 
@@ -1768,11 +1893,14 @@ def bsr_library(indptr, indices, data, b, shape, c0=None, beta=None):
 
 def timed_row(kernel, shape, kernel_fn, plain_fn, bound_of, library=(None,
               "none: no single PyTorch call computes this"), reps=REPS,
-              yardstick=None, beside=None, **extra):
+              yardstick=None, beside=None, device_match=None, **extra):
     """One phase-4 row: times of kernel, plain version, library call and
     (``yardstick``: (fn, note)) another way to compute the same, the
     bound and the share of it that the kernel reaches; ``beside``
-    ({name: fn}) timed in the same turns, their spreads in ``beside``."""
+    ({name: fn}) timed in the same turns, their spreads in ``beside``.
+    With ``device_match`` also ``device_ms``: the kernel's and each
+    beside call's kernels named so, from a profiler trace
+    (``kernel_device_ms``)."""
     lib_fn, lib_note = library
     yard_fn, yard_note = yardstick or (None, None)
     kt, pt, lt, yt, err, bt = time_set(kernel_fn, plain_fn, lib_fn, reps,
@@ -1794,6 +1922,10 @@ def timed_row(kernel, shape, kernel_fn, plain_fn, bound_of, library=(None,
     if bt:
         row["beside"] = {name: dict(zip(("ms", "p10", "p90"), spread(t)))
                          for name, t in bt.items()}
+    if device_match:
+        row["device_ms"] = {
+            name: kernel_device_ms(fn, device_match)
+            for name, fn in {"kernel": kernel_fn, **(beside or {})}.items()}
     return row
 
 
@@ -1974,12 +2106,31 @@ def k8_bound(indptr, indices, g, b, bs):
     return bound(moved, flop, peak)
 
 
+def k8_simt(ip, ix, g, b, bs):
+    """K8's CUDA-core variant on any value type (the kernel that served
+    every type before the tensor-core variant), launched directly: timed
+    beside the tensor-core variant, never called by the port on real
+    values with bs % 8 == 0."""
+    from sparse_dot_tpu_torch.ops import _build
+
+    out = torch.empty((ix.numel(), bs, bs), dtype=g.dtype, device=g.device)
+    dt, it = _build.type_codes(g, ip)
+    _build.launch("sdt_bsr_sddmm_simt", dt, it, ip.data_ptr(),
+                  ip.numel() - 1, ix.data_ptr(), ix.numel(), g.data_ptr(),
+                  b.data_ptr(), out.data_ptr(), bs, g.shape[1],
+                  *_build.scalar_parts(None), _build.stream_of(g))
+    return out
+
+
 def k8_rows(rows, inputs, rng):
     """K8's phase-4 rows: config 3 (8192^2 BSR, bs 64, 5% of blocks) at
-    n = 256 in f64 and f32 (G random, B phase 3's b3), beside the
-    ``torch.bmm`` of the strips gathered beforehand (a yardstick: no
-    single torch call computes K8's function, and the gather is not
-    timed)."""
+    n = 256 in f64 and f32 (G random, B phase 3's b3) on the tensor
+    cores, beside the ``torch.bmm`` of the strips gathered beforehand (a
+    yardstick: no single torch call computes K8's function, and the
+    gather is not timed) and, in the same turns, the CUDA-core variant on
+    the same operands (the kernel that served real values before the
+    tensor-core variant); then the CUDA-core variant's own row, phase 3's complex BSR (4000^2,
+    bs 16, c128) at n = 64."""
     from sparse_dot_tpu_torch import formats
     from sparse_dot_tpu_torch.ops import bsr
 
@@ -1992,7 +2143,7 @@ def k8_rows(rows, inputs, rng):
         gs, bp = block_strips(ip, ix, g, b, 64)
         bp = bp.conj_physical().mT
         rows.append(timed_row(
-            "K8_bsr_sddmm",
+            "K8_bsr_sddmm_tc",
             f"config3 BSR bs=64 {np.dtype(dt).name} {n3}x{n3} 5% blocks, "
             f"G ({n3},256), B ({n3},256)",
             lambda: bsr.bsr_sddmm(ip, ix, g, b, 64),
@@ -2001,8 +2152,28 @@ def k8_rows(rows, inputs, rng):
             yardstick=(lambda: torch.bmm(gs, bp),
                        "torch.bmm of the stored blocks' strips of G and "
                        "B^H, gathered beforehand (TF32 off)"),
-            nblocks=int(ix.numel())))
+            beside={"cuda_core_variant": lambda: k8_simt(ip, ix, g, b, 64)},
+            nblocks=int(ix.numel()),
+            device_match="bsr_sddmm"))
         del A3, gs, bp
+    nc = SIZES["complex"]
+    Ac = formats.to_device(inputs["abc"])
+    ip, ix, _ = Ac.bsr_arrays()
+    g = cuda(values(rng, (nc, 64), np.complex128))
+    b = cuda(inputs["bc"])
+    gs, bp = block_strips(ip, ix, g, b, 16)
+    bp = bp.conj_physical().mT
+    rows.append(timed_row(
+        "K8_bsr_sddmm_simt",
+        f"BSR bs=16 complex128 {nc}x{nc} 5% blocks, G ({nc},64), "
+        f"B ({nc},64)",
+        lambda: bsr.bsr_sddmm(ip, ix, g, b, 16),
+        lambda: bsr.bsr_sddmm_plain(ip, ix, g, b, 16),
+        k8_bound(ip, ix, g, b, 16),
+        yardstick=(lambda: torch.bmm(gs, bp),
+                   "torch.bmm of the stored blocks' strips of G and B^H, "
+                   "gathered beforehand"),
+        nblocks=int(ix.numel())))
 
 
 def k9_work(ip, ix, y_ip, transposed):
@@ -2018,15 +2189,17 @@ def k9_work(ip, ix, y_ip, transposed):
 
 
 def k9_bound(ip, ix, d, y_ip, y_ix, y_dv, transposed):
-    """K9's bound and products: P's index arrays, the rows of D its
-    entries name (each once), the rows of Y they name (each once) and the
-    output; one multiply-add per product, on the CUDA cores."""
+    """K9's bound and products: P's index arrays, the lines of D its
+    entries name (rows in the dA form, columns in the dB form; each
+    once), the rows of Y they name (each once) and the output; one
+    multiply-add per product, on the CUDA cores."""
     from sparse_dot_tpu_torch.ops import spgemm_grad
 
     products, y_rows, y_entries = k9_work(ip, ix, y_ip, transposed)
-    r, _ = spgemm_grad.entry_ids(ip, ix, transposed)
-    d_rows = int(torch.unique(r.long()).numel())
-    moved = (nbytes(ip, ix) + d_rows * d.shape[1] * d.element_size()
+    line, _ = spgemm_grad.entry_ids(ip, ix, transposed)
+    d_lines = int(torch.unique(line.long()).numel())
+    line_len = d.shape[0] if transposed else d.shape[1]
+    moved = (nbytes(ip, ix) + d_lines * line_len * d.element_size()
              + 2 * y_rows * y_ip.element_size()
              + y_entries * (y_ix.element_size() + y_dv.element_size())
              + ix.numel() * d.element_size())
@@ -2037,8 +2210,8 @@ def k9_bound(ip, ix, d, y_ip, y_ix, y_dv, transposed):
 def k9_yardstick(p_arrays, d, y_arrays, shapes, transposed):
     """K9's function the way torch has one: Y densified (``to_dense``)
     and ``torch.sparse.sampled_addmm`` (cuSPARSE SDDMM) of D and conj(Y)^T
-    at P's pattern, beta = 0; for the dB form (P read as (column, row))
-    of conj(Y) and D^T.  A yardstick: the port never calls it."""
+    at P's pattern, beta = 0; for the dB form of conj(Y) and D.  A
+    yardstick: the port never calls it."""
     (ip, ix), (y_ip, y_ix, y_dv) = p_arrays, y_arrays
     p_shape, y_shape = shapes
     zeros = torch.zeros(ix.numel(), dtype=d.dtype, device=d.device)
@@ -2048,7 +2221,7 @@ def k9_yardstick(p_arrays, d, y_arrays, shapes, transposed):
     def run():
         yc = y.to_dense().conj_physical()
         if transposed:
-            return torch.sparse.sampled_addmm(p, yc, d.mT, beta=0.0).values()
+            return torch.sparse.sampled_addmm(p, yc, d, beta=0.0).values()
         return torch.sparse.sampled_addmm(p, d, yc.mT, beta=0.0).values()
 
     return run, ("Y densified + torch.sparse.sampled_addmm at P's pattern "
@@ -2057,35 +2230,45 @@ def k9_yardstick(p_arrays, d, y_arrays, shapes, transposed):
 
 def k9_rows(inp):
     """K9's phase-4 rows: the value gradients of case a (the demo X @ X.T;
-    dA: P = X, D = G, Y = X^T; dB: P = X^T read as (column, row), D = G^T,
-    Y = op(A)^T) and case d's dA (config 3's BSR x BSR as CSR), G random,
-    each beside ``k9_yardstick``."""
+    dA: P = X, D = G, Y = X^T; dB: P = X^T, D = G, Y = op(A)^T) and case
+    d (config 3's BSR x BSR as CSR), G random, each beside
+    ``k9_yardstick`` and, for dB, in the same turns, the copy of G^T that
+    a backward without the dB form makes before K9
+    (``g.mT.contiguous()``); the plan and the number of runs with each
+    row."""
     from sparse_dot_tpu_torch import formats
     from sparse_dot_tpu_torch.ops import spgemm_grad
 
     rng = np.random.default_rng(SEED + 12)
     rows = []
     x = inp["x"]
+    d_shape = "config3 BSR bs=64 8192^2 5% blocks f64 as CSR, A @ B, "
     cases = (("a-dA", "demo X @ X.T, dL/dA at X's pattern", x, x.T, False,
               REPS),
              ("a-dB", "demo X @ X.T, dL/dB at X.T's pattern", x, x.T, True,
               REPS),
-             ("d-dA", "config3 BSR bs=64 8192^2 5% blocks f64 as CSR, A @ B, "
-              "dL/dA", inp["bsr_a"], inp["bsr_b"], False, REPS_CONFIG3))
+             ("d-dA", d_shape + "dL/dA", inp["bsr_a"], inp["bsr_b"], False,
+              REPS_CONFIG3),
+             ("d-dB", d_shape + "dL/dB", inp["bsr_a"], inp["bsr_b"], True,
+              REPS_CONFIG3))
     for case, shape, a, b, transposed, reps in cases:
         A, B = formats.to_device(a), formats.to_device(b)
         a_ip, a_ix, a_dv = A.csr_arrays()
         b_ip, b_ix, b_dv = B.csr_arrays()
         g = cuda(values(rng, (a.shape[0], b.shape[1]), np.float64))
+        beside = {}
         if transposed:
             t, order = formats.CsrPattern(a_ip, a_ix, a.shape[1]).transpose()
-            args = (b_ip, b_ix, g.mT.contiguous(), t.indptr, t.indices,
-                    a_dv[order], None, True)
+            args = (b_ip, b_ix, g, t.indptr, t.indices, a_dv[order], None,
+                    True)
             shapes = (b.shape, t.shape)
+            beside["gt_copy"] = lambda: g.mT.contiguous()
         else:
             args = (a_ip, a_ix, g, b_ip, b_ix, b_dv, None, False)
             shapes = (a.shape, b.shape)
+
         (bound_ms, bound_by), products = k9_bound(*args[:6], transposed)
+        plan = k9_plan(g, args[3], args[4], transposed)
         row = timed_row(
             "K9_csr_spgemm_sddmm", shape,
             lambda: spgemm_grad.csr_spgemm_sddmm(*args),
@@ -2093,13 +2276,29 @@ def k9_rows(inp):
             (bound_ms, bound_by), reps=reps,
             yardstick=k9_yardstick(args[:2], args[2], args[3:6], shapes,
                                    transposed),
-            case=case, products=products, lanes=spgemm_grad.sampled_lanes(
-                args[4].numel() / (args[3].numel() - 1)))
+            beside=beside, case=case, products=products,
+            plan=plan._asdict(),
+            device_match="sampled_kernel")
         row["gproducts_per_s"] = products / row["ms"] / 1e6
+        row["runs"] = k9_runs(args, plan)
         rows.append(row)
-        del A, B, args
+        del A, B, args, beside
         torch.cuda.empty_cache()
     return rows
+
+
+def k9_runs(args, plan):
+    """The number of runs and of work items K9 cached for ``args``."""
+    from sparse_dot_tpu_torch.ops import autograd
+
+    for *_, pattern in autograd.patterns.entries:
+        if pattern.indices is args[1]:
+            for key, runs in pattern.plans.items():
+                if key[:3] == ("k9", args[7], plan.panel):
+                    return {"runs": runs.run_q.numel(),
+                            "items": runs.items.numel() - 1,
+                            "chunk": runs.chunk}
+    return None
 
 
 # Case d's plain versions expand 1.4 G products in chunks; fewer turns.
@@ -2542,6 +2741,30 @@ def device_busy_ms(fn):
                for e in prof.key_averages()
                if e.device_type != DeviceType.CPU)
     return busy / 1e3 or None
+
+
+def kernel_device_ms(fn, match, reps=10):
+    """The mean device time in ms of the kernels whose names hold
+    ``match`` in a call of fn(), from a ``torch.profiler`` trace of
+    ``reps`` calls, each after a 1 GiB read (as ``time_turns``): the
+    kernels' own time, whatever the host does between launches; None when
+    the trace holds no such kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.ones(256 << 20, dtype=torch.float32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                 ) as prof:
+        for _ in range(reps):
+            flush.sum()
+            fn()
+        torch.cuda.synchronize()
+    busy = sum(getattr(e, "self_device_time_total", 0)
+               for e in prof.key_averages()
+               if e.device_type != DeviceType.CPU and match in e.key)
+    return busy / 1e3 / reps or None
 
 
 def rel_residual(a, x, b):
@@ -3042,35 +3265,44 @@ def k7_training(inputs):
 
 # Phase 6's runs of the BSR device function and of the dense-output
 # sparse x sparse product: steps, and each kernel's launches a step.
-BSR_STEPS, SPGEMM_STEPS = 15, 10
+BSR_STEPS, SPGEMM_STEPS, BSR_SIMT_STEPS = 15, 10, 5
+
+
+def bsr_run(name, a, b_np):
+    """A ``GradRun`` of SGD through ``ops.bsr_spmm`` on the scipy BSR
+    ``a``'s pattern (f64) and ``b_np``, both trained, from zero blocks
+    toward T = A b, with steps 1/(2 ||b||^2) for the blocks and
+    1/(4 ||A||^2) for b.  Returns (run, steps)."""
+    from sparse_dot_tpu_torch import ops
+    from sparse_dot_tpu_torch.ops import autograd, bsr
+
+    bs = a.blocksize[0]
+    m, k = a.shape
+    rows = np.repeat(np.arange(m // bs), np.diff(a.indptr))
+    r3, c3 = cuda(rows.astype(np.int32)), cuda(a.indices.astype(np.int32))
+    b = cuda(b_np)
+    target = cuda(a @ b_np)
+    lrs = (1.0 / (2.0 * power_norm_sq(b)), 0.25 / host_norm_sq(a))
+    blocks = torch.zeros(a.data.shape, dtype=torch.float64, device=b.device)
+
+    def plain(d, bb):
+        p = autograd.bsr_structures.get(r3, c3, m, k, bs)
+        return bsr.bsr_spmm_plain(p.indptr, p.indices, d[p.order], bb)
+
+    return GradRun(name, lambda d, bb: ops.bsr_spmm(d, r3, c3, bb, m),
+                   plain, (blocks, b), lrs, target, "BsrSpmmBackward"), lrs
 
 
 def bsr_training(inputs):
     """SGD through ``ops.bsr_spmm`` on config 3's pattern (8192^2, bs 64,
-    5% of blocks, f64) and phase 3's b (8192 x 256), both trained, from
-    zero blocks toward T = A b: K1 forward on the tensor cores, K8 and K1
-    over A^H backward, with the plain versions refused; steps 1/(2
-    ||b||^2) for the blocks and 1/(4 ||A||^2) for b.  Returns the
-    launches and the run's record."""
-    from sparse_dot_tpu_torch import ops
-    from sparse_dot_tpu_torch.ops import autograd, bsr
-
-    a3 = inputs["bsrs"][(64, np.float64)]
-    m, k = a3.shape
-    rows = np.repeat(np.arange(m // 64), np.diff(a3.indptr))
-    r3, c3 = cuda(rows.astype(np.int32)), cuda(a3.indices.astype(np.int32))
-    b = cuda(inputs["b3"][np.float64])
-    target = cuda(a3 @ inputs["b3"][np.float64])
-    lrs = (1.0 / (2.0 * power_norm_sq(b)), 0.25 / host_norm_sq(a3))
-    blocks = torch.zeros(a3.data.shape, dtype=torch.float64, device=b.device)
-
-    def plain(d, bb):
-        p = autograd.bsr_structures.get(r3, c3, m, k, 64)
-        return bsr.bsr_spmm_plain(p.indptr, p.indices, d[p.order], bb)
-
-    run = GradRun("bsr_f64_blocks_and_b",
-                  lambda d, bb: ops.bsr_spmm(d, r3, c3, bb, m), plain,
-                  (blocks, b), lrs, target, "BsrSpmmBackward")
+    5% of blocks, f64) and phase 3's b (8192 x 256), both trained: K1
+    forward on the tensor cores, K8 (tensor cores) and K1 over A^H
+    backward; then BSR_SIMT_STEPS steps on a 4000^2 f64 BSR of 20 x 20
+    blocks (5%) and a b of 64 columns, made from SEED + 14, which K1 and
+    K8 serve on the CUDA cores; the plain versions refused.  Returns the
+    launches and the runs' records."""
+    run, lrs = bsr_run("bsr_f64_blocks_and_b", inputs["bsrs"][(64, np.float64)],
+                       inputs["b3"][np.float64])
     reset_launches()
     with plain_versions_refused():
         run.run(BSR_STEPS)
@@ -3078,10 +3310,27 @@ def bsr_training(inputs):
     launches = read_launches()
     expected = {name: 0 for name in launches}
     expected.update(K1_bsr_spmm_tc=2 * (BSR_STEPS + 1),
-                    K8_bsr_sddmm=BSR_STEPS + 1)
+                    K8_bsr_sddmm_tc=BSR_STEPS + 1)
     if launches != expected:
         raise AssertionError(f"launch counts {launches}, expected {expected}")
-    return launches, {**run.check(), **busy, "lr": list(lrs)}
+    record = {**run.check(), **busy, "lr": list(lrs)}
+
+    rng = np.random.default_rng(SEED + 14)
+    small, lrs = bsr_run("bsr_f64_bs20_blocks_and_b",
+                         config3_bsr(rng, 4000, np.float64, 20),
+                         values(rng, (4000, 64), np.float64))
+    reset_launches()
+    with plain_versions_refused():
+        small.run(BSR_SIMT_STEPS)
+    got = read_launches()
+    expected = {name: 0 for name in got}
+    expected.update(K1_bsr_spmm_simt=2 * BSR_SIMT_STEPS,
+                    K8_bsr_sddmm_simt=BSR_SIMT_STEPS)
+    if got != expected:
+        raise AssertionError(f"launch counts {got}, expected {expected}")
+    launches = {name: launches[name] + got[name] for name in launches}
+    return launches, {"config3_bs64": record,
+                      "bs20": {**small.check(), "lr": list(lrs)}}
 
 
 def spgemm_training(x):

@@ -1,53 +1,81 @@
-// K8: block SDDMM, for each stored block b of a BSR A with square bs x bs
-// blocks at block coordinates (r_b, c_b),
+// K8, tensor-core variant: block SDDMM, for each stored block b of a BSR A
+// with square bs x bs blocks at block coordinates (r_b, c_b),
 //
-//   out[b] = alpha * G[r_b bs : (r_b + 1) bs, :] @ conj(B[c_b bs : (c_b + 1) bs, :])^T
+//   out[b] = alpha * G[r_b bs : (r_b + 1) bs, :] @ B[c_b bs : (c_b + 1) bs, :]^T
 //
-// a bs x bs block, with row-major G (m, n) and B (k, n); conj only for
-// complex values.  It is the gradient of C = A @ B (K1) with respect to
-// A's blocks (G = dL/dC), as PyTorch's convention for complex gradients
-// has it.
+// a bs x bs block, with row-major G (m, n) and B (k, n), real values (f32,
+// f64) and bs % 8 == 0.  It is the gradient of C = A @ B (K1) with respect
+// to A's blocks (G = dL/dC).  Complex values and other block sizes take
+// the CUDA-core variant in bsr_sddmm_simt.cu (the choice is made in
+// ops/bsr.py, uses_tensor_cores, before the launch).
 //
 // Replaces the transpose of sparse_dot_tpu/ops/_xla.py bsr_spmm (:799)
 // under jax.grad: XLA turns its batched dot_general over gathered B
 // panels into a second batched product of the gathered G block rows and
 // B panels, through an nblocks x bs x n intermediate for each.
 //
-// Bound: bs * bs * n multiply-adds a stored block against bs * n values of
-// G and of B read and bs * bs written, so at bs = 64 and n = 256 (BASELINE
-// config 3) the operations bound it; below about bs = 8 the bytes do.
-// The design, one correct CUDA-core kernel first (the tensor cores are
-// later work):
+// What bounds it.  Each stored block is a bs x bs x n product:
+// 2 * nblocks * bs^2 * n FLOPs, 1.72 GFLOP at BASELINE config 3 (8192^2,
+// 5% of 64 x 64 blocks, n = 256), against G's and B's strips (each block
+// row once, 8-17 MB) and the blocks written (27 MB in f64).  That is
+// 0.026 ms of f64 tensor-core work at 67 TFLOP/s against 0.013 ms of
+// memory: the tensor cores bound it, as they bound K1 on the same FLOPs.
+// The CUDA-core variant it replaces at these shapes reached 11.6 TFLOP/s
+// in f64, a third of the CUDA cores' peak, a sixth of the tensor cores'.
 //
-// - a thread block owns one tile (at most 64 x 64) of one stored block's
-//   output, found from blockIdx: x the stored block, y the tile; the block
-//   row r_b is the last row whose indptr is at or below b (a binary search
-//   of indptr by every thread, on the same addresses);
-// - it walks n in chunks of kTK columns, staging the chunk of the tile's
-//   rows of G and of B in shared memory (rows padded by one element, so a
-//   warp's reads of B's rows fall in distinct banks), and each thread keeps
-//   R x R sums, reusing each value it reads from shared memory R times;
-//   tiles of 8, 16, 32 and 64 rows (8 x 8 or 16 x 16 threads, R of 1, 2 or
-//   4) follow bs, and ragged rows and columns are masked;
-// - plain IEEE FMA in the value type (no TF32), each sum in ascending
-//   column order in one register: every output is written by one thread,
-//   with no atomics, and a run gives the same bits twice.
-#include "common.cuh"
+// The design, K1's tensor-core arithmetic (mma.cuh) on K8's layout:
+// - f64 on mma.sync m16n8k4 (DMMA, IEEE products and sums); f32 on
+//   3xTF32 with each k8 step's hi*hi added in IEEE f32 in fresh
+//   registers, so the tensor cores' round-toward-zero sums do not drift
+//   over the n / 8 steps of a tile; where hi is inf or nan, lo is 0.
+// - A thread block owns a BM x BM tile of one stored block's output (BM
+//   16, 32 or 64 from bs; larger blocks take several tiles): G's strip
+//   (BM rows x n, row-major) times B's strip transposed.  B's row-major
+//   strip is already the .col operand of the MMA, so both strips are
+//   staged the same way, 128 bytes of n a row at a time, and neither is
+//   transposed.
+// - A ring of kStages such chunks of both strips in dynamic shared
+//   memory (40 KB for f64's 64-row tile), filled by cp.async: the next
+//   chunk is in flight while the tensor cores work on the current one.
+//   16-byte copies where n and the pointers allow them, element copies
+//   otherwise; rows past bs and columns past n are zero-filled.
+// - Each sum is taken in one fixed order in one set of registers, each
+//   output written by one thread, no atomics: a run gives the same bits
+//   twice.
+#include <type_traits>
+
+#include "mma.cuh"
 
 namespace sdt {
 namespace {
 
-constexpr int kTK = 16;         // columns of n staged at once
-constexpr int kPad = kTK + 1;   // a staged row's stride, in elements
 constexpr int kMaxTiles = 255;  // tiles a side: gridDim.y holds 255^2
+// Depth of the cp.async ring: two chunks measured faster than three at
+// config 3 in f64 and f32 (more blocks an SM).
+constexpr int kStages = 2;
 
-__device__ __forceinline__ float conj_of(float v) { return v; }
-__device__ __forceinline__ double conj_of(double v) { return v; }
-template <typename R>
-__device__ __forceinline__ cuda::std::complex<R> conj_of(
-    cuda::std::complex<R> v) {
-  return cuda::std::complex<R>(v.real(), -v.imag());
-}
+// Tile shape for element type T and BM x BM outputs.  The inner chunk is
+// 128 bytes of n (BK elements); a staged row's pitch of BK + 4 puts a
+// fragment load's 32 lanes on distinct banks (two halves of 16 for 8-byte
+// values).
+template <typename T, int BM>
+struct Tile {
+  static constexpr int BK = 128 / static_cast<int>(sizeof(T));
+  static constexpr int kVec = 16 / static_cast<int>(sizeof(T));  // per 16 B
+  static constexpr int kWarpsM = BM >= 32 ? 2 : 1;
+  static constexpr int kWarpsN = 2;
+  static constexpr int kThreads = 32 * kWarpsM * kWarpsN;
+  // Blocks an SM holds at least: 4 (128 registers a thread), 3 for f32's
+  // 64-tile, whose operand splits need up to 170.
+  static constexpr int kMinBlocks = BM == 64 && sizeof(T) == 4 ? 3 : 4;
+  static constexpr int WM = BM / kWarpsM;  // rows per warp
+  static constexpr int WN = BM / kWarpsN;  // columns per warp
+  static constexpr int MT = WM / 16;       // m16 tiles per warp
+  static constexpr int NT = WN / 8;        // n8 tiles per warp
+  static constexpr int kPitch = BK + 4;
+  static constexpr int kStage = BM * kPitch;
+  static constexpr size_t kSmem = sizeof(T) * kStages * 2 * kStage;
+};
 
 // The block row of stored block b: the last r with indptr[r] <= b (so
 // indptr[r] <= b < indptr[r + 1], across empty block rows).
@@ -66,96 +94,195 @@ __device__ __forceinline__ int64_t block_row(const I* __restrict__ indptr,
   return lo;
 }
 
-template <typename T, typename I, int TX, int R>
-__global__ void __launch_bounds__(TX * TX)
-bsr_sddmm_kernel(const I* __restrict__ indptr, int64_t nbrows,
-                 const I* __restrict__ indices, const T* __restrict__ g,
-                 const T* __restrict__ b, T* __restrict__ out, int bs,
-                 int tiles, int64_t n, T alpha, bool scale) {
-  using A = Arith<T>;
-  constexpr int kThreads = TX * TX;
-  constexpr int TS = TX * R;  // the tile's side
-  // Raw bytes: complex element types may not be declared __shared__.
+template <typename T, typename I, int BM>
+__global__ void __launch_bounds__(Tile<T, BM>::kThreads,
+                                  Tile<T, BM>::kMinBlocks)
+bsr_sddmm_tc_kernel(const I* __restrict__ indptr, int64_t nbrows,
+                    const I* __restrict__ indices, const T* __restrict__ g,
+                    const T* __restrict__ b, T* __restrict__ out, int bs,
+                    int tiles, int64_t n, T alpha, bool scale, bool vec) {
+  using L = Tile<T, BM>;
+  constexpr int BK = L::BK;
+  constexpr int V = L::kVec;
+  constexpr int kThreads = L::kThreads;
+  using Op = Operand<T>;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* Gs = reinterpret_cast<T*>(smem);  // [TS][kPad]
-  T* Bs = Gs + TS * kPad;              // [TS][kPad]
+  constexpr int S = kStages;
+  T* Gs = reinterpret_cast<T*>(smem);  // [S][BM][kPitch]
+  T* Bs = Gs + S * L::kStage;          // [S][BM][kPitch]
 
   const int64_t blk = blockIdx.x;
-  const int i0 = static_cast<int>(blockIdx.y / tiles) * TS;
-  const int j0 = static_cast<int>(blockIdx.y % tiles) * TS;
+  const int i0 = static_cast<int>(blockIdx.y / tiles) * BM;
+  const int j0 = static_cast<int>(blockIdx.y % tiles) * BM;
   const int64_t brow = block_row(indptr, nbrows, blk);
   const T* __restrict__ gstrip = g + (brow * bs + i0) * n;
   const T* __restrict__ bstrip =
       b + (static_cast<int64_t>(indices[blk]) * bs + j0) * n;
-  const int tx = threadIdx.x % TX;
-  const int ty = threadIdx.x / TX;
+  const int64_t nsteps = (n + BK - 1) / BK;
 
-  T acc[R][R];
+  // Issue the copies of chunk s (columns [s BK, (s + 1) BK) of n) of both
+  // strips into ring stage `stage`.
+  auto load = [&](int64_t s, int stage) {
+    const int64_t k0 = s * BK;
+    T* gs = Gs + stage * L::kStage;
+    T* bsm = Bs + stage * L::kStage;
+    constexpr int kVecs = BM * BK / V;  // 16-byte vectors of a chunk
 #pragma unroll
-  for (int i = 0; i < R; ++i) {
+    for (int i = 0; i < (kVecs + kThreads - 1) / kThreads; ++i) {
+      const int e = threadIdx.x + i * kThreads;
+      if (kVecs % kThreads != 0 && e >= kVecs) break;
+      const int r = e / (BK / V);
+      const int kv = (e % (BK / V)) * V;
+      const bool g_ok = i0 + r < bs;
+      const bool b_ok = j0 + r < bs;
+      const int64_t off = static_cast<int64_t>(r) * n + k0 + kv;
+      T* gd = gs + r * L::kPitch + kv;
+      T* bd = bsm + r * L::kPitch + kv;
+      if (vec) {  // n % V == 0: a vector is wholly inside or outside
+        const bool in = k0 + kv < n;
+        cp_async16(gd, g_ok && in ? gstrip + off : g, g_ok && in);
+        cp_async16(bd, b_ok && in ? bstrip + off : b, b_ok && in);
+      } else {
 #pragma unroll
-    for (int j = 0; j < R; ++j) acc[i][j] = A::zero();
-  }
-
-  for (int64_t k0 = 0; k0 < n; k0 += kTK) {
-    for (int e = threadIdx.x; e < TS * kTK; e += kThreads) {
-      const int r = e / kTK;
-      const int c = e % kTK;
-      const bool col_ok = k0 + c < n;
-      const int64_t off = static_cast<int64_t>(r) * n + k0 + c;
-      Gs[r * kPad + c] = (col_ok && i0 + r < bs) ? gstrip[off] : A::zero();
-      Bs[r * kPad + c] =
-          (col_ok && j0 + r < bs) ? conj_of(bstrip[off]) : A::zero();
-    }
-    __syncthreads();
-    const int kmax = n - k0 < kTK ? static_cast<int>(n - k0) : kTK;
-    for (int kk = 0; kk < kmax; ++kk) {
-      T av[R], bv[R];
-#pragma unroll
-      for (int i = 0; i < R; ++i) av[i] = Gs[(ty + TX * i) * kPad + kk];
-#pragma unroll
-      for (int j = 0; j < R; ++j) bv[j] = Bs[(tx + TX * j) * kPad + kk];
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-#pragma unroll
-        for (int j = 0; j < R; ++j) acc[i][j] = A::fma(av[i], bv[j], acc[i][j]);
+        for (int v = 0; v < V; ++v) {
+          const bool in = k0 + kv + v < n;
+          cp_async_elem<sizeof(T)>(gd + v, g_ok && in ? gstrip + off + v : g,
+                                   g_ok && in);
+          cp_async_elem<sizeof(T)>(bd + v, b_ok && in ? bstrip + off + v : b,
+                                   b_ok && in);
+        }
       }
     }
-    __syncthreads();
+  };
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int wm = (warp % L::kWarpsM) * L::WM;
+  const int wn = (warp / L::kWarpsM) * L::WN;
+  const int gq = lane / 4;
+  const int t = lane % 4;
+
+  T acc[L::MT][L::NT][4], acc_lo[L::MT][L::NT][4];
+#pragma unroll
+  for (int i = 0; i < L::MT; ++i)
+#pragma unroll
+    for (int j = 0; j < L::NT; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = acc_lo[i][j][q] = T(0);
+
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < nsteps) load(s, s);
+    cp_async_commit();
+  }
+  for (int64_t s = 0; s < nsteps; ++s) {
+    cp_async_wait<S - 2>();
+    __syncthreads();  // chunk s has landed; chunk s - 1's stage is free
+    if (s + S - 1 < nsteps)
+      load(s + S - 1, static_cast<int>((s + S - 1) % S));
+    cp_async_commit();
+    const int stage = static_cast<int>(s % S);
+    const T* gs = Gs + stage * L::kStage;
+    const T* bsm = Bs + stage * L::kStage;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 8) {
+      typename Op::type af[L::MT][4], bf[L::NT][2];
+#pragma unroll
+      for (int i = 0; i < L::MT; ++i) {
+        const T* ap = gs + (wm + i * 16 + gq) * L::kPitch + kk + t;
+        af[i][0] = Op::make(ap[0]);
+        af[i][1] = Op::make(ap[8 * L::kPitch]);
+        af[i][2] = Op::make(ap[4]);
+        af[i][3] = Op::make(ap[8 * L::kPitch + 4]);
+      }
+      // B[k][col] of the MMA is B's strip at row col, column k.
+#pragma unroll
+      for (int j = 0; j < L::NT; ++j) {
+        const T* bp = bsm + (wn + j * 8 + gq) * L::kPitch + kk + t;
+        bf[j][0] = Op::make(bp[0]);
+        bf[j][1] = Op::make(bp[4]);
+      }
+#pragma unroll
+      for (int i = 0; i < L::MT; ++i)
+#pragma unroll
+        for (int j = 0; j < L::NT; ++j)
+          mma_k8(acc[i][j], acc_lo[i][j], af[i], bf[j]);
+    }
   }
 
+  // Accumulator q of tile (i, j) is row gq (+8 for q >= 2), column
+  // 2t + (q & 1) of that tile.
   T* __restrict__ oblk = out + blk * bs * bs;
 #pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int row = i0 + ty + TX * i;
-    if (row >= bs) continue;
+  for (int i = 0; i < L::MT; ++i) {
 #pragma unroll
-    for (int j = 0; j < R; ++j) {
-      const int col = j0 + tx + TX * j;
-      if (col < bs) {
-        oblk[static_cast<int64_t>(row) * bs + col] =
-            scale ? A::mul(alpha, acc[i][j]) : acc[i][j];
+    for (int q2 = 0; q2 < 2; ++q2) {
+      const int row = i0 + wm + i * 16 + gq + 8 * q2;
+      if (row >= bs) continue;
+#pragma unroll
+      for (int j = 0; j < L::NT; ++j) {
+#pragma unroll
+        for (int q1 = 0; q1 < 2; ++q1) {
+          const int col = j0 + wn + j * 8 + 2 * t + q1;
+          if (col >= bs) continue;
+          const int q = 2 * q2 + q1;
+          T v = acc[i][j][q];
+          if constexpr (std::is_same<T, float>::value) v += acc_lo[i][j][q];
+          oblk[static_cast<int64_t>(row) * bs + col] = scale ? alpha * v : v;
+        }
       }
     }
   }
 }
 
-template <typename T, typename I, int TX, int R>
+template <typename T, typename I, int BM>
 cudaError_t launch_tiles(const void* indptr, int64_t nbrows,
                          const void* indices, int64_t nblocks, const void* g,
                          const void* b, void* out, int bs, int64_t n,
-                         T alpha, bool scale, cudaStream_t stream) {
-  constexpr int TS = TX * R;
-  const int tiles = (bs + TS - 1) / TS;
+                         T alpha, bool scale, bool vec, cudaStream_t stream) {
+  using L = Tile<T, BM>;
+  const int tiles = (bs + BM - 1) / BM;
   if (tiles > kMaxTiles) return cudaErrorInvalidValue;
+  auto kernel = bsr_sddmm_tc_kernel<T, I, BM>;
+  if (L::kSmem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(L::kSmem));
+    if (err != cudaSuccess) return err;
+  }
   const dim3 grid(static_cast<unsigned>(nblocks),
                   static_cast<unsigned>(tiles * tiles));
-  const size_t smem = sizeof(T) * 2 * TS * kPad;
-  bsr_sddmm_kernel<T, I, TX, R><<<grid, TX * TX, smem, stream>>>(
+  kernel<<<grid, L::kThreads, L::kSmem, stream>>>(
       static_cast<const I*>(indptr), nbrows, static_cast<const I*>(indices),
       static_cast<const T*>(g), static_cast<const T*>(b),
-      static_cast<T*>(out), bs, tiles, n, alpha, scale);
+      static_cast<T*>(out), bs, tiles, n, alpha, scale, vec);
   return cudaGetLastError();
+}
+
+// The smallest tile that covers the block, 64 rows at most (larger
+// blocks take several tiles).
+template <typename T, typename I>
+cudaError_t launch_tile(const void* indptr, int64_t nbrows,
+                        const void* indices, int64_t nblocks, const void* g,
+                        const void* b, void* out, int bs, int64_t n,
+                        T alpha, bool scale, bool vec, cudaStream_t stream) {
+  if (bs <= 16) {
+    return launch_tiles<T, I, 16>(indptr, nbrows, indices, nblocks,
+                                           g, b, out, bs, n, alpha, scale,
+                                           vec, stream);
+  }
+  if (bs <= 32) {
+    return launch_tiles<T, I, 32>(indptr, nbrows, indices, nblocks,
+                                           g, b, out, bs, n, alpha, scale,
+                                           vec, stream);
+  }
+  return launch_tiles<T, I, 64>(indptr, nbrows, indices, nblocks,
+                                         g, b, out, bs, n, alpha, scale, vec,
+                                         stream);
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 template <typename T, typename I>
@@ -163,39 +290,33 @@ cudaError_t launch(const void* indptr, int64_t nbrows, const void* indices,
                    int64_t nblocks, const void* g, const void* b, void* out,
                    int64_t bs, int64_t n, double alpha_re, double alpha_im,
                    cudaStream_t stream) {
-  if (bs < 1 || bs > (1 << 20) || nblocks > 0x7fffffff || n < 1) {
-    return cudaErrorInvalidValue;
+  if constexpr (!std::is_floating_point<T>::value) {
+    return cudaErrorInvalidValue;  // complex values take the SIMT variant
+  } else {
+    if (bs < 8 || bs % 8 || bs > (1 << 20) || nblocks > 0x7fffffff ||
+        n < 1) {
+      return cudaErrorInvalidValue;
+    }
+    if (nblocks == 0) return cudaSuccess;
+    const T alpha = static_cast<T>(alpha_re);  // real values
+    const bool scale = !is_one(alpha_re, alpha_im);
+    const bool vec = aligned16(g) && aligned16(b) &&
+                     n % (16 / static_cast<int64_t>(sizeof(T))) == 0;
+    return launch_tile<T, I>(indptr, nbrows, indices, nblocks, g, b, out,
+                             static_cast<int>(bs), n, alpha, scale, vec,
+                             stream);
   }
-  if (nblocks == 0) return cudaSuccess;
-  const T alpha = Arith<T>::make(alpha_re, alpha_im);
-  const bool scale = !is_one(alpha_re, alpha_im);
-  const int ibs = static_cast<int>(bs);
-  // The smallest tile that covers the block, 64 rows at most (larger
-  // blocks take several tiles).
-  if (ibs <= 8) {
-    return launch_tiles<T, I, 8, 1>(indptr, nbrows, indices, nblocks, g, b,
-                                    out, ibs, n, alpha, scale, stream);
-  }
-  if (ibs <= 16) {
-    return launch_tiles<T, I, 16, 1>(indptr, nbrows, indices, nblocks, g, b,
-                                     out, ibs, n, alpha, scale, stream);
-  }
-  if (ibs <= 32) {
-    return launch_tiles<T, I, 16, 2>(indptr, nbrows, indices, nblocks, g, b,
-                                     out, ibs, n, alpha, scale, stream);
-  }
-  return launch_tiles<T, I, 16, 4>(indptr, nbrows, indices, nblocks, g, b,
-                                   out, ibs, n, alpha, scale, stream);
 }
 
 }  // namespace
 }  // namespace sdt
 
-extern "C" int sdt_bsr_sddmm(int dtype, int itype, const void* indptr,
-                             int64_t nbrows, const void* indices,
-                             int64_t nblocks, const void* g, const void* b,
-                             void* out, int64_t bs, int64_t n,
-                             double alpha_re, double alpha_im, void* stream) {
+extern "C" int sdt_bsr_sddmm_tc(int dtype, int itype, const void* indptr,
+                                int64_t nbrows, const void* indices,
+                                int64_t nblocks, const void* g, const void* b,
+                                void* out, int64_t bs, int64_t n,
+                                double alpha_re, double alpha_im,
+                                void* stream) {
   SDT_DISPATCH(dtype, itype, sdt::launch, indptr, nbrows, indices, nblocks,
                g, b, out, bs, n, alpha_re, alpha_im,
                static_cast<cudaStream_t>(stream))

@@ -195,47 +195,6 @@ csr_sddmm_entry_kernel(const I* __restrict__ indptr,
   }
 }
 
-// Adds each of the E sums v[] across a group of L lanes (E <= L, both
-// powers of two) in log2(L) shuffle stages, E - 1 + log2(L / E) shuffles
-// in all: each of the first log2(E) stages halves the values a lane holds
-// (the lanes with bit `off` set keep the upper half, the others the lower,
-// and each adds what its partner kept of the other half); the rest add
-// the one value left.  Returns the total of entry entry_of<L, E>(gl),
-// which every lane with the same high bits holds; a fixed order, so the
-// same bits every run.
-template <typename T, int L, int E>
-__device__ __forceinline__ T reduce_scatter(T (&v)[E], int gl,
-                                            unsigned members) {
-  using A = Arith<T>;
-#pragma unroll
-  for (int half = E / 2, off = L / 2; half > 0; half >>= 1, off >>= 1) {
-    const bool upper = gl & off;
-#pragma unroll
-    for (int i = 0; i < half; ++i) {
-      const T send = upper ? v[i] : v[i + half];
-      const T keep = upper ? v[i + half] : v[i];
-      v[i] = A::add(keep, A::shfl_xor(send, off, members));
-    }
-  }
-#pragma unroll
-  for (int off = L / (2 * E); off > 0; off >>= 1) {
-    v[0] = A::add(v[0], A::shfl_xor(v[0], off, members));
-  }
-  return v[0];
-}
-
-// The entry of a round whose total lane gl holds after reduce_scatter:
-// its bits L / 2, L / 4, ... read as a number.
-template <int L, int E>
-__device__ __forceinline__ int entry_of(int gl) {
-  int e = 0;
-#pragma unroll
-  for (int half = E / 2, off = L / 2; half > 0; half >>= 1, off >>= 1) {
-    if (gl & off) e += half;
-  }
-  return e;
-}
-
 // Entries a round for groups of L lanes that load `bytes` of an entry's B
 // row a lane: 4, fewer for narrow groups, and 2 where four rounds' loads
 // would pass 64 bytes a lane (they took registers, and so warps).

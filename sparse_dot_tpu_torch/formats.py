@@ -329,6 +329,8 @@ class CsrPattern:
         self.ncols = int(ncols)
         self.plans = {}
         self._transpose = None
+        self._sorted = None
+        self._span = None
 
     @property
     def shape(self):
@@ -355,6 +357,34 @@ class CsrPattern:
             with structure_only():
                 self._transpose = self._build_transpose()
         return self._transpose
+
+    def sorted_columns(self):
+        """(indices, order): each row's column ids in ascending order and
+        the permutation that carries values to them (``data[order]``).
+        Raises ``ValueError`` (``sorted_unique_columns``) when a row
+        repeats a column.  One stable sort
+        and one host read, once: a pattern that passed is not checked
+        again."""
+        if self._sorted is None:
+            with structure_only():
+                self._sorted = sorted_unique_columns(
+                    self.indptr, self.indices,
+                    torch.arange(self.nnz, device=self.indices.device),
+                    self.ncols)
+        return self._sorted
+
+    def column_span(self):
+        """(least, one past the greatest) column id, (0, 0) with no entry:
+        one host read, once."""
+        if self._span is None:
+            if self.nnz == 0:
+                self._span = (0, 0)
+            else:
+                with structure_only():
+                    lo, hi = torch.stack((self.indices.min(),
+                                          self.indices.max())).tolist()
+                self._span = (int(lo), int(hi) + 1)
+        return self._span
 
     def _build_transpose(self):
         order = torch.argsort(self.indices, stable=True)
@@ -477,6 +507,26 @@ def sort_csr_indices(rows, cols, vals, ncols):
     torch: the counterpart of ``_xla.sort_csr_indices``."""
     order = torch.argsort(rows.long() * ncols + cols.long(), stable=True)
     return cols[order], vals[order]
+
+
+def sorted_unique_columns(indptr, indices, vals, ncols):
+    """(cols, vals) of op(B)'s CSR (``indptr``, ``indices``, ``vals``) for
+    K6 (``ops/spgemm.csr_spgemm_dense``), each row's columns in ascending
+    order (``sort_csr_indices``); raises ``ValueError`` when a row holds a
+    column twice, found by comparing neighbours within each row after the
+    sort (one host read)."""
+    nnz = indices.numel()
+    rows = expand_indptr(indptr, nnz)
+    cols, vals = sort_csr_indices(rows, indices, vals, ncols)
+    repeat = (cols[1:] == cols[:-1]) & (rows[1:] == rows[:-1])
+    if nnz > 1 and bool(repeat.any()):
+        first = int(repeat.nonzero()[0])
+        raise ValueError(
+            f"csr_spgemm_dense: row {int(rows[first])} of op(B) repeats "
+            f"column {int(cols[first])}; op(B) must hold each column at "
+            "most once a row (sum repeated entries first, as the "
+            "containers do)")
+    return cols, vals
 
 
 def coo_to_sorted_csr(rows, cols, vals, shape):

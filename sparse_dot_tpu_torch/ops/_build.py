@@ -89,11 +89,17 @@ _PROTOTYPES = {
                              _I64, _P, _P),
     # dtype, itype, indptr, nbrows, indices, nblocks, g, b, out, bs, n,
     # alpha_re, alpha_im, stream
-    "sdt_bsr_sddmm": (_INT, _INT, _P, _I64, _P, _I64, _P, _P, _P, _I64,
-                      _I64, _D, _D, _P),
-    # dtype, itype, r_ids, q_ids, nnz, d, ld, y_indptr, y_indices, y_data,
-    # out, lanes, alpha_re, alpha_im, stream
-    "sdt_csr_spgemm_sddmm": (_INT, _INT, _P, _P, _I64, _P, _I64, _P, _P, _P,
+    "sdt_bsr_sddmm_simt": (_INT, _INT, _P, _I64, _P, _I64, _P, _P, _P, _I64,
+                           _I64, _D, _D, _P),
+    # dtype, itype, indptr, nbrows, indices, nblocks, g, b, out, bs, n,
+    # alpha_re, alpha_im, stream
+    "sdt_bsr_sddmm_tc": (_INT, _INT, _P, _I64, _P, _I64, _P, _P, _P, _I64,
+                         _I64, _D, _D, _P),
+    # dtype, itype, items, n_items, run_ptr, run_q, perm, line, d, se, sy,
+    # ne, ny, panel, pitch, staged, y_indptr, y_indices, y_data, out,
+    # lanes, alpha_re, alpha_im, stream
+    "sdt_csr_spgemm_sddmm": (_INT, _INT, _P, _I64, _P, _P, _P, _P, _P, _I64,
+                             _I64, _I64, _I64, _INT, _INT, _INT, _P, _P, _P,
                              _P, _INT, _D, _D, _P),
 }
 

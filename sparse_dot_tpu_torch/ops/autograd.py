@@ -351,9 +351,9 @@ class BsrSpmm(torch.autograd.Function):
 
 
 class CsrSpgemmSddmm(torch.autograd.Function):
-    """out[p] = alpha * sum over (s, v) in row q_p of Y of d[r_p, s]
-    conj(v) (K9) at the entries of ``p_pattern`` (read as (column, row)
-    with ``transposed``), Y the CSR of ``y_pattern`` with values
+    """K9's function (``ops/spgemm_grad``; the dA form, or the dB form
+    with ``transposed``) at the entries of ``p_pattern``, on whose plans
+    K9's runs are cached, Y the CSR of ``y_pattern`` with values
     ``y_data``: the backward's launches of ``CsrSpgemmDense``, open to the
     transforms as ``CsrSddmm`` is."""
 
@@ -362,7 +362,8 @@ class CsrSpgemmSddmm(torch.autograd.Function):
         d, y_data = _plain(d, y_data)
         return spgemm_grad.sampled(p_pattern.indptr, p_pattern.indices, d,
                                    y_pattern.indptr, y_pattern.indices,
-                                   y_data, alpha, transposed)
+                                   y_data, alpha, transposed, p_pattern,
+                                   y_pattern)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -384,9 +385,14 @@ class CsrSpgemmDense(torch.autograd.Function):
     def forward(a, a_data, b, b_data, alpha, beta, c0, triangular,
                 b_sorted):
         a_data, b_data, c0 = _plain(a_data, b_data, c0)
+        b_indices = b.indices
+        if not b_sorted:
+            # Sorted and checked for repeated columns once per pattern.
+            b_indices, order = b.sorted_columns()
+            b_data = b_data[order]
         return spgemm.spgemm_dense(a.indptr, a.indices, a_data, b.indptr,
-                                   b.indices, b_data, b.ncols, alpha, beta,
-                                   c0, triangular, b_sorted)
+                                   b_indices, b_data, b.ncols, alpha, beta,
+                                   c0, triangular, True)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -411,9 +417,10 @@ class CsrSpgemmDense(torch.autograd.Function):
             g_a = CsrSpgemmSddmm.apply(ctx.a, g, ctx.b, b_data, alpha,
                                        False)
         if need[3]:
+            # The dB form reads G's columns: no transposed copy.
             t, order = ctx.a.transpose()
-            g_b = CsrSpgemmSddmm.apply(ctx.b, g.mT.contiguous(), t,
-                                       a_data[order], alpha, True)
+            g_b = CsrSpgemmSddmm.apply(ctx.b, g, t, a_data[order], alpha,
+                                       True)
         if need[6]:
             g_c0 = grad * _conj(ctx.beta)
         return None, g_a, None, g_b, None, None, g_c0, None, None

@@ -26,11 +26,22 @@ The variant follows the value type and the block size
 notes at the top of the ``.cu`` files say what bounds each variant and
 how its tiles are laid out.
 
-K8 (``bsr_sddmm``, ``csrc/bsr_sddmm.cu``) gives each stored block's
-gradient, G's block row times the conjugate transpose of B's block row,
-on the CUDA cores for every value type and square bs (a thread block a
-tile of at most 64 x 64 of a block, strips of G and B staged in shared
-memory); it replaces ``jax.grad`` of ``_xla.bsr_spmm`` in the blocks.
+K8 (``bsr_sddmm``) gives each stored block's gradient, G's block row
+times the conjugate transpose of B's block row; it replaces ``jax.grad``
+of ``_xla.bsr_spmm`` in the blocks.  It is split as K1 is, by the same
+predicate (``uses_tensor_cores``), chosen before the launch:
+
+- real values with ``bs % 8 == 0`` on the tensor cores
+  (``csrc/bsr_sddmm.cu``): f64 MMA, 3xTF32 for f32 (K1's arithmetic,
+  ``csrc/mma.cuh``), a thread block a tile of at most 64 x 64 of a
+  stored block, G's and B's strips streamed through a ``cp.async`` ring
+  of 2 chunks;
+- complex values and other block sizes on the CUDA cores
+  (``csrc/bsr_sddmm_simt.cu``): strips staged in shared memory 16
+  columns at a time, plain FMA.
+
+``bsr_sddmm.launches`` counts launches of either variant,
+``bsr_sddmm.launches_tc`` and ``bsr_sddmm.launches_simt`` each.
 ``bsr_spmm`` takes ``ops.autograd.BsrSpmm`` when an operand is tracked,
 whose backward runs K8 and K1 over A^H.
 """
@@ -62,8 +73,8 @@ def bsr_spmm_plain(indptr, indices, data, b, alpha=None, beta=None, c0=None):
 
 
 def uses_tensor_cores(dtype, bs):
-    """Whether K1 runs on the tensor cores for values of ``dtype`` in
-    ``bs`` x ``bs`` blocks (else on the CUDA cores)."""
+    """Whether K1 and K8 run on the tensor cores for values of ``dtype``
+    in ``bs`` x ``bs`` blocks (else on the CUDA cores)."""
     return dtype in (torch.float32, torch.float64) and bs % 8 == 0
 
 
@@ -221,8 +232,9 @@ def bsr_sddmm(indptr, indices, g, b, bs, alpha=None):
 
 def sddmm(indptr, indices, g, b, bs, alpha=None):
     """``bsr_sddmm`` without the tracked check, for ``BsrSddmm``'s
-    forward: K8 on the card, the plain version on the CPU; counted in
-    ``bsr_sddmm.launches``."""
+    forward: K8 on the card (the variant ``uses_tensor_cores`` names),
+    the plain version on the CPU; counted in ``bsr_sddmm.launches`` (and
+    ``launches_tc`` or ``launches_simt``)."""
     refuse_views("bsr_sddmm", indptr, indices, g, b)
     nbrows = indptr.numel() - 1
     if (g.dim() != 2 or b.dim() != 2 or g.shape != (nbrows * bs, g.shape[1])
@@ -242,14 +254,20 @@ def sddmm(indptr, indices, g, b, bs, alpha=None):
     if n == 0:
         return out.zero_()
     dt, it = _build.type_codes(g, indptr)
-    _build.launch(
-        "sdt_bsr_sddmm", dt, it, indptr.data_ptr(), nbrows,
-        indices.data_ptr(), nblocks, g.data_ptr(), b.data_ptr(),
-        out.data_ptr(), bs, n, *_build.scalar_parts(alpha),
-        _build.stream_of(g),
-    )
+    args = (indptr.data_ptr(), nbrows, indices.data_ptr(), nblocks,
+            g.data_ptr(), b.data_ptr(), out.data_ptr(), bs, n)
+    if uses_tensor_cores(g.dtype, bs):
+        _build.launch("sdt_bsr_sddmm_tc", dt, it, *args,
+                      *_build.scalar_parts(alpha), _build.stream_of(g))
+        bsr_sddmm.launches_tc += 1
+    else:
+        _build.launch("sdt_bsr_sddmm_simt", dt, it, *args,
+                      *_build.scalar_parts(alpha), _build.stream_of(g))
+        bsr_sddmm.launches_simt += 1
     bsr_sddmm.launches += 1
     return out
 
 
 bsr_sddmm.launches = 0
+bsr_sddmm.launches_tc = 0
+bsr_sddmm.launches_simt = 0

@@ -47,7 +47,9 @@ row (windows, or the gram's diagonal), K6 enters each row of op(B) where
 the item's columns start: at a window from a table of window starts that
 the launch builds first (``window_starts_pay``), at the diagonal by
 binary search.  That needs op(B)'s rows sorted: the caller says so
-(``b_sorted``), else the wrapper sorts them first.
+(``b_sorted``), else the wrapper sorts them first and raises where a row
+repeats a column (on both devices, so the plain version and the kernel
+refuse the same inputs).
 
 Gradients: ``csr_spgemm_dense`` with a tracked operand (``csr.tracked``)
 runs ``ops.autograd.CsrSpgemmDense``, K6 forward and K9
@@ -63,7 +65,8 @@ import numpy as np
 import torch
 
 from ..config import config
-from ..formats import _check_index_bounds, expand_indptr, sort_csr_indices
+from ..formats import (_check_index_bounds, expand_indptr,
+                       sorted_unique_columns)
 from . import _build
 from .csr import _add_rows, _check, refuse_tracked, refuse_views, tracked
 from .dense import axpby
@@ -617,14 +620,21 @@ def csr_spgemm_dense(a_indptr, a_indices, a_data, b_indptr, b_indices,
                      triangular=False, b_sorted=False):
     """K6: ``alpha * op(A) @ op(B) + beta * c0`` as a new row-major (m, n)
     tensor (only j >= i of the product with ``triangular``; ``c0`` is
-    added everywhere); op(B)'s rows repeat no column (module docstring).
-    ``b_sorted``: each row of op(B) lists its columns in ascending order,
-    as the container's ``csr_sorted`` tells; when it is not known and the
-    plan enters op(B)'s rows inside (windows, or ``triangular``), the
-    rows are sorted here first, on the card.  The
-    launch's plan is kept in ``csr_spgemm_dense.last_plan``, and whether
-    it tabulated op(B)'s window starts (``window_starts_pay``) in
-    ``last_table``.  No atomics; the same bits on every run.
+    added everywhere); op(B)'s rows repeat no column (module docstring),
+    as ``_xla.spgemm_numeric_sorted``'s sorted, unique flat indices.
+    ``b_sorted=True`` is the caller's warrant that each row of op(B)
+    lists its columns in ascending order without repeats, as a
+    container's ``sorted_csr_arrays`` are (containers sum repeated
+    entries when they are built); nothing is checked then.  With
+    ``b_sorted=False`` the rows are sorted here first and a row that
+    repeats a column raises ``ValueError``
+    (``formats.sorted_unique_columns``: neighbours compared after the
+    sort, one host read), on either device with the same message; the
+    tracked path checks once per cached op(B) pattern
+    (``CsrPattern.sorted_columns``).  The launch's plan is kept in
+    ``csr_spgemm_dense.last_plan``, and whether it tabulated op(B)'s
+    window starts (``window_starts_pay``) in ``last_table``.  No atomics;
+    the same bits on every run.
 
     When autograd or a ``torch.func`` transform follows ``a_data``,
     ``b_data`` or ``c0`` (``csr.tracked``), the call goes through
@@ -650,6 +660,9 @@ def spgemm_dense(a_indptr, a_indices, a_data, b_indptr, b_indices, b_data,
     refuse_views("csr_spgemm_dense", a_indptr, a_indices, a_data, b_indptr,
                  b_indices, b_data, c0)
     if a_data.device.type == "cpu":
+        if not b_sorted:
+            b_indices, b_data = sorted_unique_columns(b_indptr, b_indices,
+                                                      b_data, n)
         return csr_spgemm_dense_plain(a_indptr, a_indices, a_data, b_indptr,
                                       b_indices, b_data, n, alpha, beta, c0,
                                       triangular)
@@ -663,20 +676,25 @@ def spgemm_dense(a_indptr, a_indices, a_data, b_indptr, b_indices, b_data,
         raise ValueError(f"csr_spgemm_dense: c0 is {tuple(c0.shape)}, "
                          f"need {(m, n)}")
     c = torch.empty((m, n), dtype=a_data.dtype, device=a_data.device)
+    k = b_indptr.numel() - 1
+    plan = starts = None
+    if m and n:
+        sms = torch.cuda.get_device_properties(
+            a_data.device).multi_processor_count
+        plan = dense_plan(m, n, a_data.element_size(), a_indices.numel(),
+                          sms)
+        if window_starts_pay(plan, m, n, k, a_indices.numel(),
+                             a_data.element_size(), b_indptr.element_size()):
+            starts = torch.empty(k * (plan.windows + 1),
+                                 dtype=b_indptr.dtype, device=a_data.device)
+    dt, it = _build.type_codes(a_data, a_indptr)
+    if not b_sorted:
+        # Last before the launch: the check's host read then leaves the
+        # card idle only while K6 is launched.
+        b_indices, b_data = sorted_unique_columns(b_indptr, b_indices,
+                                                  b_data, n)
     if m == 0 or n == 0:
         return c
-    sms = torch.cuda.get_device_properties(a_data.device).multi_processor_count
-    plan = dense_plan(m, n, a_data.element_size(), a_indices.numel(), sms)
-    if not b_sorted and (plan.windows > 1 or triangular):
-        b_indices, b_data = sort_csr_indices(
-            expand_indptr(b_indptr, b_indices.numel()), b_indices, b_data, n)
-    k = b_indptr.numel() - 1
-    starts = None
-    if window_starts_pay(plan, m, n, k, a_indices.numel(),
-                         a_data.element_size(), b_indptr.element_size()):
-        starts = torch.empty(k * (plan.windows + 1), dtype=b_indptr.dtype,
-                             device=a_data.device)
-    dt, it = _build.type_codes(a_data, a_indptr)
     _build.launch(
         "sdt_csr_spgemm_dense", dt, it, a_indptr.data_ptr(),
         a_indices.data_ptr(), a_data.data_ptr(), b_indptr.data_ptr(),

@@ -2,49 +2,76 @@
 x sparse product with dense output.
 
 ``csr_spgemm_sddmm(indptr, indices, d, y_indptr, y_indices, y_data,
-alpha, transposed)`` gives, for each stored entry p of a CSR P read as
-(r_p, q_p) (its row and column; with ``transposed``, its column and row),
+alpha, transposed)`` gives, for each stored entry p of a CSR P at row
+r_p, column c_p, one of two forms (conj only for complex values):
 
-    out[p] = alpha * sum over (s, v) in row q_p of Y of d[r_p, s] * conj(v)
+- the dA form (``transposed=False``):
+  ``out[p] = alpha * sum over (s, v) in row c_p of Y of d[r_p, s] conj(v)``;
+- the dB form (``transposed=True``):
+  ``out[p] = alpha * sum over (i, v) in row r_p of Y of d[i, c_p] conj(v)``,
 
-(conj only for complex values), with ``d`` dense and row-major and Y a
-CSR: K7's gather with a sparse row of Y in place of a dense row of B.  For
-C = alpha * op(A) @ op(B) + beta * c0 and G = dL/dC it is both value
-gradients, as PyTorch's convention for complex gradients has them:
+with ``d`` dense and row-major and Y a CSR: K7's gather with a sparse row
+of Y in place of a dense row of B.  For C = alpha * op(A) @ op(B) + beta
+* c0 and G = dL/dC they are both value gradients, as PyTorch's convention
+for complex gradients has them, with alpha conjugated and d = G:
 
-- dL/d(op(A)'s values) at A's pattern, with d = G and Y = op(B), alpha
-  conjugated;
-- dL/d(op(B)'s values) at B's pattern read as (column, row) pairs, with
-  d = G^T (contiguous) and Y = op(A)^T (``CsrPattern.transpose``'s
-  structure, op(A)'s values gathered through its permutation).
+- dL/d(op(A)'s values) at A's pattern, the dA form with Y = op(B);
+- dL/d(op(B)'s values) at B's pattern, the dB form with Y = op(A)^T
+  (``CsrPattern.transpose``'s structure, op(A)'s values gathered through
+  its permutation): no transposed copy of G.
 
-On a CUDA tensor the wrapper launches the hand-written kernel
-(``csrc/csr_spgemm_sddmm.cu``) or raises; on a CPU tensor it runs the
-plain version beside it, which is also what the kernel is checked against
-on the card.  ``csr_spgemm_sddmm.launches`` counts calls that launched the
+Each form has its plain version (``sampled_rows_plain``,
+``sampled_cols_plain``; ``csr_spgemm_sddmm_plain`` picks by
+``transposed``).  On a CUDA tensor the wrapper launches the hand-written
+kernel (``csrc/csr_spgemm_sddmm.cu``) or raises; on a CPU tensor it runs
+the plain version, which is also what the kernel is checked against on
+the card.  ``csr_spgemm_sddmm.launches`` counts calls that launched the
 kernel.
 
 K9 replaces XLA's transpose of ``_xla.spgemm_numeric_sorted``
 (``sparse_dot_tpu/ops/_xla.py``, through ``densify_sorted``), which
 ``jax.grad`` runs as a dense G @ op(B)^H (op(A)^H @ G) gathered at the
 operand's scatter positions.  Its work is one multiply-add per entry of
-P and entry of Y's row q_p; a group of ``sampled_lanes`` lanes walks a
-row of Y, so a row's products take one pass of the group.
+P and entry of the row of Y it names.  Call a line of D the row r_p (dA)
+or the column c_p (dB) that entry p reads.  The kernel's plan
+(``sampled_plan``) cuts D's lines into panels of ``panel`` lines that a
+thread block holds in shared memory where they fit its budget, and the
+entries of P into runs (``sampled_runs``, built once per pattern and
+cached): the entries of one panel that name one row of Y, which a group
+of ``lanes`` lanes serves with one load of that row.
 """
 
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
 from ..config import config
-from ..formats import expand_indptr
+from ..formats import expand_indptr, structure_only
 from . import _build
 from .csr import _add_rows, _check, refuse_tracked, refuse_views
 
-# Groups of lanes a group may take: 1 to 32, a power of two.
+# Lanes a group may take: 1 to 32, a power of two.
 _MAX_LANES = 32
+# Shared memory a thread block of K9 gives its panel of D's lines (two
+# blocks share an SM's 227 KB), the most lines a staged panel holds, and
+# the fewest worth staging; longer lines are read in place in panels of
+# SAMPLED_L1_PANEL lines.
+SAMPLED_SMEM = 112 * 1024
+SAMPLED_MAX_PANEL = 32
+SAMPLED_MIN_STAGED = 4
+SAMPLED_L1_PANEL = 8
+# Threads a block (csrc/csr_spgemm_sddmm.cu's kThreads, at 64 registers
+# a thread, so 1024 threads an SM), and work items a resident block of
+# the grid: few where each stages its panel, more where lines are read
+# in place (the finer the items, the shorter the last wave).
+_THREADS = 512
+_ITEMS_STAGED = 2
+_ITEMS_IN_PLACE = 8
 
 
 def sampled_lanes(mean_row):
-    """K9's lanes per entry for rows of Y with ``mean_row`` entries on
+    """K9's lanes per group for rows of Y with ``mean_row`` entries on
     average: the power of two at or above half of it, 1 to 32, so a lane
     takes about two entries of a row of mean length (``csrc/
     csr_spgemm_sddmm.cu`` instantiates each)."""
@@ -54,24 +81,134 @@ def sampled_lanes(mean_row):
     return lanes
 
 
+class SampledPlan(NamedTuple):
+    """K9's launch: ``lanes`` a group; ``panel`` lines of D a thread block
+    holds, staged in shared memory at ``pitch`` elements a line when
+    ``staged`` (else read through L1)."""
+
+    lanes: int
+    panel: int
+    staged: bool
+    pitch: int
+
+
+def sampled_plan(line, itemsize, mean_y_row, columns=False, budget=None):
+    """K9's plan for lines of D of ``line`` elements of ``itemsize``
+    bytes (n in the dA form; m in the dB form, whose lines are
+    ``columns`` of D) and rows of Y of ``mean_y_row`` entries on
+    average: as many lines as fit ``budget`` bytes (``SAMPLED_SMEM``) at
+    an odd pitch (so a warp's writes of a column of lines fall in
+    distinct banks), at most SAMPLED_MAX_PANEL, in shared memory, with
+    ``sampled_lanes`` lanes a group walking a row of Y.  When fewer than
+    SAMPLED_MIN_STAGED fit, the lines are read in place: rows in panels of
+    SAMPLED_L1_PANEL, the same groups; columns in panels of 32, a lane an
+    entry of a run, so a warp reads 32 neighbours in a row of D."""
+    budget = SAMPLED_SMEM if budget is None else budget
+    lanes = sampled_lanes(mean_y_row)
+    pitch = line | 1
+    panel = min(SAMPLED_MAX_PANEL, budget // (pitch * itemsize))
+    if panel >= SAMPLED_MIN_STAGED:
+        return SampledPlan(lanes, panel, True, pitch)
+    if columns:
+        return SampledPlan(_MAX_LANES, _MAX_LANES, False, 0)
+    return SampledPlan(lanes, SAMPLED_L1_PANEL, False, 0)
+
+
+def sampled_blocks_per_sm(plan, itemsize):
+    """Thread blocks of K9 an SM holds at once: 1024 threads' worth (its
+    registers at 64 a thread), or fewer where the staged panels fill its
+    shared memory (227 KB)."""
+    blocks = 1024 // _THREADS
+    if not plan.staged:
+        return blocks
+    smem = plan.panel * plan.pitch * itemsize
+    return max(1, min(blocks, 227 * 1024 // smem))
+
+
+class SampledRuns(NamedTuple):
+    """The entries of P in run order.  ``perm`` (nnz,): the entry at each
+    position; ``line`` (nnz,): its line of D; ``run_ptr`` (n_runs + 1,):
+    where each run starts; ``run_q`` (n_runs,): the row of Y it names;
+    ``items`` (n_items + 1,) int64: the first run of each work item (a
+    thread block), the runs of one panel that start within one span of
+    ``chunk`` of its entries."""
+
+    perm: torch.Tensor
+    line: torch.Tensor
+    run_ptr: torch.Tensor
+    run_q: torch.Tensor
+    items: torch.Tensor
+    chunk: int
+
+
 def entry_ids(indptr, indices, transposed):
-    """(r, q) of every stored entry of the CSR P: (row, column), or
-    (column, row) with ``transposed``."""
+    """(line, q) of every stored entry of the CSR P: its line of D and the
+    row of Y it names, (row, column), or (column, row) with
+    ``transposed``."""
     rows = expand_indptr(indptr, indices.numel())
     return (indices, rows) if transposed else (rows, indices)
 
 
-def csr_spgemm_sddmm_plain(indptr, indices, d, y_indptr, y_indices, y_data,
-                           alpha=None, transposed=False):
-    """``out[p] = alpha * sum_{(s, v) in row q_p of Y} d[r_p, s] conj(v)``
-    in plain PyTorch: every product of entry p and an entry of Y's row q_p
-    expanded and gathered, summed by ``index_add_`` into out, chunked so
-    that at most ``config.spmm_chunk_elements`` products are held."""
+def sampled_runs(indptr, indices, transposed, panel, y_rows, target):
+    """K9's runs of P's entries (``SampledRuns``): entries sorted stably
+    by (panel of their line, row of Y), a run for each (panel, row of Y)
+    that holds any, and work items of the runs of one panel that start
+    within one span of ``chunk`` of its entries: the smallest ``chunk``
+    that makes at most ``target`` items, or one item a panel where the
+    panels are more.  Device ops and two host reads (the runs' count,
+    and the panels' sizes)."""
     nnz = indices.numel()
-    out = torch.zeros(nnz, dtype=d.dtype, device=d.device)
+    device = indices.device
+    line, q = (ids.long() for ids in entry_ids(indptr, indices, transposed))
+    perm = torch.argsort((line // panel) * y_rows + q, stable=True)
+    key = ((line // panel) * y_rows + q)[perm]
+    first = torch.ones(nnz, dtype=torch.bool, device=device)
+    first[1:] = key[1:] != key[:-1]
+    starts = first.nonzero().squeeze(1)
+    n_runs = starts.numel()
+    run_panel = key[starts] // y_rows
+    new_panel = torch.ones(n_runs, dtype=torch.bool, device=device)
+    new_panel[1:] = run_panel[1:] != run_panel[:-1]
+    sizes = np.diff(torch.cat((starts[new_panel],
+                               torch.tensor([nnz], device=device))).cpu()
+                    .numpy())
+    chunk = _smallest_chunk(sizes, target)
+    # Each run's first position within its panel, in spans of chunk.
+    panel_start = torch.cummax(torch.where(new_panel, starts, 0), 0).values
+    span = (starts - panel_start) // chunk
+    new_item = new_panel.clone()
+    new_item[1:] |= span[1:] != span[:-1]
+    items = torch.cat((new_item.nonzero().squeeze(1),
+                       torch.tensor([n_runs], device=device)))
+    itype = indices.dtype
+    return SampledRuns(
+        perm.to(itype), line[perm].to(itype),
+        torch.cat((starts, torch.tensor([nnz], device=device))).to(itype),
+        q[perm][starts].to(itype), items, chunk)
+
+
+def _smallest_chunk(sizes, target):
+    """The smallest span c with sum(ceil(sizes / c)) <= target (the
+    largest size when no span does: one item a panel)."""
+    lo, hi = 1, max(1, int(sizes.max()))
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if int((-(-sizes // mid)).sum()) <= target:
+            hi = mid
+        else:
+            lo = mid + 1
+    return lo
+
+
+def _sampled_plain(q, gather, nnz, y_indptr, y_indices, y_data, dtype,
+                   device, alpha):
+    """``alpha * sum over (y, v) in row q[p] of Y of gather(p, y) conj(v)``
+    for each p: every product expanded and gathered, summed by
+    ``index_add_``, chunked so that at most ``config.spmm_chunk_elements``
+    products are held."""
+    out = torch.zeros(nnz, dtype=dtype, device=device)
     if nnz == 0:
         return out
-    r, q = (ids.long() for ids in entry_ids(indptr, indices, transposed))
     y_start = y_indptr[:-1].long()[q]
     y_len = y_indptr[1:].long()[q] - y_start
     ends = torch.cumsum(y_len, 0)
@@ -87,11 +224,11 @@ def csr_spgemm_sddmm_plain(indptr, indices, d, y_indptr, y_indices, y_data,
         count = y_len[p0:p1]
         n_prod = int(count.sum())
         entry = torch.repeat_interleave(
-            torch.arange(p0, p1, device=d.device), count, output_size=n_prod)
+            torch.arange(p0, p1, device=device), count, output_size=n_prod)
         first = torch.cumsum(count, 0) - count
-        t = (y_start[entry] + torch.arange(n_prod, device=d.device)
+        t = (y_start[entry] + torch.arange(n_prod, device=device)
              - first[entry - p0])
-        prods = d[r[entry], y_indices[t].long()] * y_data[t].conj()
+        prods = gather(entry, y_indices[t].long()) * y_data[t].conj()
         _add_rows(out, entry, prods)
         p0 = p1
     if alpha is not None and complex(alpha) != 1:
@@ -99,28 +236,75 @@ def csr_spgemm_sddmm_plain(indptr, indices, d, y_indptr, y_indices, y_data,
     return out
 
 
+def sampled_rows_plain(indptr, indices, d, y_indptr, y_indices, y_data,
+                       alpha=None):
+    """The dA form in plain PyTorch: ``out[p] = alpha * sum_{(s, v) in
+    row c_p of Y} d[r_p, s] conj(v)``."""
+    r, q = (ids.long() for ids in entry_ids(indptr, indices, False))
+    return _sampled_plain(q, lambda p, s: d[r[p], s], indices.numel(),
+                          y_indptr, y_indices, y_data, d.dtype, d.device,
+                          alpha)
+
+
+def sampled_cols_plain(indptr, indices, d, y_indptr, y_indices, y_data,
+                       alpha=None):
+    """The dB form in plain PyTorch: ``out[p] = alpha * sum_{(i, v) in
+    row r_p of Y} d[i, c_p] conj(v)``."""
+    c, q = (ids.long() for ids in entry_ids(indptr, indices, True))
+    return _sampled_plain(q, lambda p, i: d[i, c[p]], indices.numel(),
+                          y_indptr, y_indices, y_data, d.dtype, d.device,
+                          alpha)
+
+
+def csr_spgemm_sddmm_plain(indptr, indices, d, y_indptr, y_indices, y_data,
+                           alpha=None, transposed=False):
+    """K9's function in plain PyTorch: the dB form's plain version with
+    ``transposed``, else the dA form's."""
+    plain = sampled_cols_plain if transposed else sampled_rows_plain
+    return plain(indptr, indices, d, y_indptr, y_indices, y_data, alpha)
+
+
 def csr_spgemm_sddmm(indptr, indices, d, y_indptr, y_indices, y_data,
                      alpha=None, transposed=False):
-    """``alpha * sum_{(s, v) in row q_p of Y} d[r_p, s] conj(v)`` for each
-    entry p = (r_p, q_p) of the CSR (``indptr``, ``indices``) in its
-    stored order (with ``transposed`` an entry at row i, column j is read
-    as (j, i)), for row-major ``d`` whose columns Y's column ids index and
-    the CSR Y (``y_indptr``, ``y_indices``, ``y_data``), whose rows the
-    q_p name.  Returns a new (nnz,) tensor.  Not differentiable itself
-    (``ops.autograd.CsrSpgemmSddmm`` is): it raises on a tracked ``d`` or
-    ``y_data`` (``csr.refuse_tracked``), on both devices."""
+    """K9's function (module docstring) for each entry of the CSR
+    (``indptr``, ``indices``) in its stored order, for row-major ``d`` and
+    the CSR Y (``y_indptr``, ``y_indices``, ``y_data``): the dA form,
+    or the dB form with ``transposed``.  Returns a new (nnz,) tensor.  Not
+    differentiable itself (``ops.autograd.CsrSpgemmSddmm`` is): it raises
+    on a tracked ``d`` or ``y_data`` (``csr.refuse_tracked``), on both
+    devices."""
     refuse_tracked("csr_spgemm_sddmm", d, y_data)
     return sampled(indptr, indices, d, y_indptr, y_indices, y_data, alpha,
                    transposed)
 
 
 def sampled(indptr, indices, d, y_indptr, y_indices, y_data, alpha=None,
-            transposed=False):
+            transposed=False, pattern=None, y_pattern=None):
     """``csr_spgemm_sddmm`` without the tracked check, for the Function's
     forward: K9 on the card, the plain version on the CPU; counted in
-    ``csr_spgemm_sddmm.launches``."""
+    ``csr_spgemm_sddmm.launches``.  ``pattern`` (``y_pattern``) is P's
+    (Y's) ``CsrPattern``, on which the runs (the column ids' range) are
+    cached; when None, the one ``autograd.patterns`` holds for these
+    index tensors.  On either device it raises ``ValueError`` where d, P
+    and Y do not fit: d's rows against P's rows (dA) or Y's rows against
+    P's rows (dB), P's column ids against Y's rows (dA) or d's columns
+    (dB), Y's column ids against d's columns (dA) or rows (dB); the ids
+    are read once per pattern."""
     refuse_views("csr_spgemm_sddmm", indptr, indices, d, y_indptr,
                  y_indices, y_data)
+    m, y_rows = indptr.numel() - 1, y_indptr.numel() - 1
+    if d.dim() != 2 or (y_rows != m if transposed else d.shape[0] != m):
+        raise ValueError(f"csr_spgemm_sddmm: d {tuple(d.shape)} and Y of "
+                         f"{y_rows} rows do not fit P of {m} rows")
+    ne, ny = (d.shape[1], d.shape[0]) if transposed else d.shape
+    from .autograd import patterns
+
+    if pattern is None:
+        pattern = patterns.get(indptr, indices, ne if transposed else y_rows)
+    if y_pattern is None:
+        y_pattern = patterns.get(y_indptr, y_indices, ny)
+    _check_ids(pattern, ne if transposed else y_rows, y_pattern, ny,
+               transposed, d.shape)
     if d.device.type == "cpu":
         return csr_spgemm_sddmm_plain(indptr, indices, d, y_indptr,
                                       y_indices, y_data, alpha, transposed)
@@ -129,25 +313,56 @@ def sampled(indptr, indices, d, y_indptr, y_indices, y_data, alpha=None,
                          f"{d.device}")
     _check("csr_spgemm_sddmm", (indptr, indices, y_indptr, y_indices),
            (d, y_data))
-    if d.dim() != 2:
-        raise ValueError(f"csr_spgemm_sddmm: d is {tuple(d.shape)}, "
-                         "need 2-d")
     nnz = indices.numel()
     out = torch.empty(nnz, dtype=d.dtype, device=d.device)
     if nnz == 0:
         return out
-    r, q = entry_ids(indptr, indices, transposed)
-    y_rows = y_indptr.numel() - 1
-    lanes = sampled_lanes(y_indices.numel() / max(y_rows, 1))
+    plan = sampled_plan(ny, d.element_size(),
+                        y_indices.numel() / max(y_rows, 1), transposed)
+    sms = torch.cuda.get_device_properties(d.device).multi_processor_count
+    items = ((_ITEMS_STAGED if plan.staged else _ITEMS_IN_PLACE)
+             * sms * sampled_blocks_per_sm(plan, d.element_size()))
+    key = ("k9", bool(transposed), plan.panel, y_rows, items)
+    if key not in pattern.plans:
+        with structure_only():
+            pattern.plans[key] = sampled_runs(indptr, indices, transposed,
+                                              plan.panel, y_rows, items)
+    runs = pattern.plans[key]
+    # A line's elements lie 1 apart along a row of d (dA) or ld apart
+    # down a column (dB); lines lie ld or 1 apart.
+    se, sy = (1, d.shape[1]) if transposed else (d.shape[1], 1)
     dt, it = _build.type_codes(d, indptr)
     _build.launch(
-        "sdt_csr_spgemm_sddmm", dt, it, r.data_ptr(), q.data_ptr(), nnz,
-        d.data_ptr(), d.shape[1], y_indptr.data_ptr(), y_indices.data_ptr(),
-        y_data.data_ptr(), out.data_ptr(), lanes,
+        "sdt_csr_spgemm_sddmm", dt, it, runs.items.data_ptr(),
+        runs.items.numel() - 1, runs.run_ptr.data_ptr(),
+        runs.run_q.data_ptr(), runs.perm.data_ptr(), runs.line.data_ptr(),
+        d.data_ptr(), se, sy, ne, ny, plan.panel, plan.pitch,
+        int(plan.staged), y_indptr.data_ptr(), y_indices.data_ptr(),
+        y_data.data_ptr(), out.data_ptr(), plan.lanes,
         *_build.scalar_parts(alpha), _build.stream_of(d),
     )
     csr_spgemm_sddmm.launches += 1
     return out
+
+
+def _check_ids(pattern, p_cols, y_pattern, ny, transposed, d_shape):
+    """Raises ``ValueError`` when P's column ids (``pattern``) fall
+    outside [0, p_cols) or Y's (``y_pattern``) outside [0, ny): K9 would
+    read past d or Y.  The dB form takes d = G, whose columns are P's: a
+    G^T of another shape lands here."""
+    form = ("the dB form (transposed=True) takes d = G, not G^T"
+            if transposed else "the dA form")
+    for name, pat, limit, what in (
+            ("P", pattern, p_cols,
+             "d's columns" if transposed else "Y's rows"),
+            ("Y", y_pattern, ny, "d's rows" if transposed else
+             "d's columns")):
+        lo, hi = pat.column_span()
+        if lo < 0 or hi > limit:
+            raise ValueError(
+                f"csr_spgemm_sddmm: {name}'s column ids span [{lo}, {hi}), "
+                f"outside the {limit} of {what} (d {tuple(d_shape)}; "
+                f"{form})")
 
 
 csr_spgemm_sddmm.launches = 0

@@ -370,3 +370,25 @@ def test_plain_block_sddmm_keeps_the_component_formula_at_inf(dtype):
     assert np.isinf(ref).any()
     for what in (np.isnan, np.isposinf, np.isneginf):
         npt.assert_array_equal(what(got), what(ref))
+
+
+@pytest.mark.parametrize("dtype, bs, tensor_cores", [
+    (torch.float64, 64, True), (torch.float32, 8, True),
+    (torch.float64, 24, True), (torch.float32, 128, True),
+    (torch.float64, 3, False), (torch.float32, 20, False),
+    (torch.complex128, 64, False), (torch.complex64, 16, False),
+])
+def test_k8_variant_follows_dtype_and_block_size(dtype, bs, tensor_cores):
+    """K8 is split as K1 is, by one predicate on the value type and the
+    block size, decided before a launch: real values in blocks of a
+    multiple of 8 on the tensor cores, the rest on the CUDA cores.  On
+    the CPU neither variant is counted."""
+    assert bsr.uses_tensor_cores(dtype, bs) is tensor_cores
+    counts = (bsr.bsr_sddmm.launches, bsr.bsr_sddmm.launches_tc,
+              bsr.bsr_sddmm.launches_simt)
+    g = torch.ones((2 * bs, 3), dtype=dtype)
+    out = bsr.bsr_sddmm(torch.tensor([0, 1, 2]), torch.tensor([1, 0]), g, g,
+                        bs)
+    assert out.shape == (2, bs, bs) and bool((out == 3).all())
+    assert (bsr.bsr_sddmm.launches, bsr.bsr_sddmm.launches_tc,
+            bsr.bsr_sddmm.launches_simt) == counts

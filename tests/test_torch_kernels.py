@@ -64,15 +64,24 @@ def values(rng, size, dtype, scale=1.0):
     return (v * scale).astype(dtype)
 
 
-def random_csr(rng, m, k, mean_row, dtype, empty_every=4):
+def random_csr(rng, m, k, mean_row, dtype, empty_every=4, distinct=False):
     """indptr, indices, data: Poisson rows, every ``empty_every``-th row
-    empty, unsorted and possibly repeated columns."""
+    empty, unsorted and possibly repeated columns; with ``distinct`` each
+    row's columns are distinct (shuffled, at most k a row), as K6 takes
+    op(B)."""
     lengths = rng.poisson(mean_row, m)
     if empty_every:
         lengths[::empty_every] = 0
+    if distinct:
+        lengths = np.minimum(lengths, k)
     indptr = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int32)
     nnz = int(indptr[-1])
-    indices = rng.integers(0, k, nnz).astype(np.int32)
+    if distinct:
+        indices = np.concatenate(
+            [rng.permutation(k)[:n] for n in lengths] or [[]]
+        ).astype(np.int32)
+    else:
+        indices = rng.integers(0, k, nnz).astype(np.int32)
     data = values(rng, nnz, dtype, 1.0 / np.sqrt(max(mean_row, 1)))
     return indptr, indices, data
 
@@ -490,7 +499,9 @@ def test_cpu_tensors_take_plain_version_without_counting(tracked):
     and K6 take the autograd Functions (operands requiring grad), whose
     forward and backward (K7, K8 and K9 among them) count none either."""
     rng = np.random.default_rng(51)
-    indptr, indices, data = random_csr(rng, 10, 8, 3, np.float64)
+    # Rows of distinct columns: its first rows are K6's op(B).
+    indptr, indices, data = random_csr(rng, 10, 8, 3, np.float64,
+                                       distinct=True)
     b = values(rng, (8, 4), np.float64)
     g = values(rng, (10, 4), np.float64)
     ip, ix = t(indptr), t(indices)
@@ -572,7 +583,8 @@ def test_tracked_k1_and_k6_carry_gradients(kernel):
     ``CsrSpgemmDenseBackward``, and its gradient equals the one torch
     takes through the plain version."""
     rng = np.random.default_rng(66)
-    indptr, indices, data = random_csr(rng, 6, 6, 2, np.float64)
+    indptr, indices, data = random_csr(rng, 6, 6, 2, np.float64,
+                                       distinct=True)
     ip, ix = t(indptr), t(indices)
     w = t(values(rng, (6, 6), np.float64))
     dv = t(data).requires_grad_()
@@ -610,7 +622,7 @@ def test_wrappers_refuse_lazy_views(kernel, kind):
     (K4 reads indices only.)"""
     rng = np.random.default_rng(64)
     dtype = np.complex128 if kind == "conj" else np.float64
-    indptr, indices, data = random_csr(rng, 6, 6, 2, dtype)
+    indptr, indices, data = random_csr(rng, 6, 6, 2, dtype, distinct=True)
     ip, ix, dv = t(indptr), t(indices), t(data)
     b = t(values(rng, (6, 3), dtype))
     lazy = lazy_view(b, kind)

@@ -352,3 +352,38 @@ def test_port_container_with_unsorted_rows_matches_jax():
     g = shuffled(a, 9)
     assert_same_dense(sdtt.gram_matrix(raw(g), dense=True),
                       sdt.gram_matrix(g, dense=True), np.float64)
+
+
+@pytest.mark.parametrize("fmt", ["csr", "csc", "bsr"])
+@pytest.mark.parametrize("transpose", [False, True])
+def test_containers_sum_repeats_before_k6_takes_them_sorted(fmt, transpose):
+    """The public path hands K6 ``sorted_csr_arrays`` with
+    ``b_sorted=True``, the warrant of ascending columns without repeats:
+    every container sums repeated entries (blocks, for a BSR) when it is
+    built from scipy, so those arrays pass the check that raw op(B) gets
+    (``formats.sorted_unique_columns``) and agree with scipy's sum."""
+    rng = np.random.default_rng(80)
+    n = 12
+    if fmt == "bsr":  # 6 x 6 blocks of 2; block row 0 holds column 4 twice
+        indptr = np.array([0, 3, 4, 6, 6, 8, 9])
+        indices = np.array([4, 1, 4, 0, 5, 2, 3, 1, 0])
+        mat = sps.bsr_matrix((rng.standard_normal((9, 2, 2)), indices,
+                              indptr), shape=(n, n))
+    else:  # row (column) 3 holds 7 three times, among random repeats
+        lengths = rng.poisson(4, n)
+        lengths[3] = 5
+        indptr = np.concatenate([[0], np.cumsum(lengths)])
+        indices = rng.integers(0, n, indptr[-1])
+        indices[indptr[3]:indptr[3] + 3] = 7
+        cls = sps.csr_matrix if fmt == "csr" else sps.csc_matrix
+        mat = cls((rng.standard_normal(indptr[-1]), indices, indptr),
+                  shape=(n, n))
+    assert not mat.has_canonical_format
+    ip, ix, dv = formats.to_device(mat).sorted_csr_arrays(transpose)
+    cols_, vals = formats.sorted_unique_columns(ip, ix, dv, n)
+    assert torch.equal(cols_, ix) and torch.equal(vals, dv)
+    want = (mat.T if transpose else mat).tocsr()
+    want.sum_duplicates()
+    got = sps.csr_matrix((dv.numpy(), ix.numpy(), ip.numpy()), shape=(n, n))
+    npt.assert_allclose(got.toarray(), want.toarray(), rtol=1e-12,
+                        atol=1e-12)

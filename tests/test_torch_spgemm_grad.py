@@ -32,7 +32,8 @@ import sparse_dot_tpu  # noqa: F401  (enables x64 before any JAX array)
 from sparse_dot_tpu.ops import _xla
 
 from sparse_dot_tpu_torch.config import config
-from sparse_dot_tpu_torch.ops import spgemm, spgemm_grad
+from sparse_dot_tpu_torch import formats
+from sparse_dot_tpu_torch.ops import autograd, spgemm, spgemm_grad
 
 M, K, N = 7, 9, 8
 
@@ -265,14 +266,19 @@ def test_sgd_steps_match_jax():
         close(b_dv.detach(), jb, 1e-6, 1e-9)
 
 
-@pytest.mark.parametrize("dtype", [np.float64, np.complex128])
+@pytest.mark.parametrize("with_alpha", [False, True])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64, np.complex64,
+                                   np.complex128])
 @pytest.mark.parametrize("transposed", [False, True])
-def test_plain_sampled_product_against_dense_einsum(dtype, transposed):
-    """``csr_spgemm_sddmm_plain`` equals alpha (D @ conj(Y)^T) at P's
-    entries, read as (row, column) or, ``transposed``, as (column, row),
-    with empty rows in P and in Y, and with every product in one chunk
-    or in chunks of a few; ``csr_spgemm_sddmm`` on CPU tensors is the
-    plain version and raises on a tracked operand."""
+def test_plain_sampled_product_against_dense_einsum(dtype, transposed,
+                                                    with_alpha):
+    """``csr_spgemm_sddmm_plain`` in both forms against a dense einsum:
+    the dA form (``sampled_rows_plain``) equals alpha (D @ conj(Y)^T) at
+    P's entries, the dB form (``transposed``, ``sampled_cols_plain``)
+    alpha (conj(Y) @ D) at P's entries, with empty rows in P and in Y,
+    and with every product in one chunk or in chunks of a few;
+    ``csr_spgemm_sddmm`` on CPU tensors is the plain version and raises
+    on a tracked operand.  rtol 1e-12 (1e-5 in f32 and c64)."""
     rng = np.random.default_rng(50)
     p = sps.random(6, 5, density=0.5, format="csr", random_state=51)
     y = sps.random(6 if transposed else 5, 9, density=0.4, format="csr",
@@ -280,25 +286,69 @@ def test_plain_sampled_product_against_dense_einsum(dtype, transposed):
     y[1, :] = 0
     y = y.tocsr().astype(dtype)
     y.data = values(rng, y.nnz, dtype)
-    d = values(rng, (5 if transposed else 6, 9), dtype)
-    alpha = 0.5 - 1j if np.dtype(dtype).kind == "c" else -0.5
-    dense = alpha * d @ y.toarray().conj().T
+    d = values(rng, (9, 5) if transposed else (6, 9), dtype)
+    alpha = None
+    if with_alpha:
+        alpha = 0.5 - 1j if np.dtype(dtype).kind == "c" else -0.5
+    dense = np.einsum("qi,is->qs" if transposed else "rs,qs->rq",
+                      y.toarray().conj() if transposed else d,
+                      d if transposed else y.toarray().conj())
+    dense = dense * (1 if alpha is None else alpha)
     rows = np.repeat(np.arange(6), np.diff(p.indptr))
-    r, q = (p.indices, rows) if transposed else (rows, p.indices)
+    ref = dense[rows, p.indices]
+    tol = 1e-5 if dtype in (np.float32, np.complex64) else 1e-12
     args = (torch.tensor(p.indptr), torch.tensor(p.indices), torch.tensor(d),
             torch.tensor(y.indptr), torch.tensor(y.indices),
             torch.tensor(y.data), alpha, transposed)
-    close(spgemm_grad.csr_spgemm_sddmm_plain(*args), dense[r, q])
-    close(spgemm_grad.csr_spgemm_sddmm(*args), dense[r, q])
+    plain = (spgemm_grad.sampled_cols_plain if transposed
+             else spgemm_grad.sampled_rows_plain)
+    close(plain(*args[:7]), ref, tol, tol)
+    close(spgemm_grad.csr_spgemm_sddmm_plain(*args), ref, tol, tol)
+    close(spgemm_grad.csr_spgemm_sddmm(*args), ref, tol, tol)
     saved = config.spmm_chunk_elements
     try:
         config.spmm_chunk_elements = 3
-        close(spgemm_grad.csr_spgemm_sddmm_plain(*args), dense[r, q])
+        close(spgemm_grad.csr_spgemm_sddmm_plain(*args), ref, tol, tol)
     finally:
         config.spmm_chunk_elements = saved
     with pytest.raises(ValueError, match="carries no gradient"):
         spgemm_grad.csr_spgemm_sddmm(*args[:2], args[2].requires_grad_(),
                                      *args[3:])
+
+
+@pytest.mark.parametrize("case", ["dB_with_gt", "dA_y_past_d",
+                                  "dA_p_past_y"])
+def test_sampled_product_refuses_operands_that_do_not_fit(case):
+    """``csr_spgemm_sddmm`` raises ``ValueError`` on the CPU, as on the
+    card, where K9 would read past d or Y: the dB form given G^T (its
+    old convention) in place of G, Y's column ids past d's columns, and
+    P's column ids past Y's rows.  With operands that fit, the same call
+    equals the plain version."""
+    a = sps.random(6, 5, density=0.6, format="lil", random_state=60)
+    a[5, 0] = a[0, 4] = 1.0
+    a = a.tocsr()
+    b = sps.random(5, 4, density=0.6, format="csr", random_state=61)
+    g = torch.tensor(np.random.default_rng(62).standard_normal((6, 4)))
+
+    def arrays(x):
+        return (torch.tensor(x.indptr), torch.tensor(x.indices),
+                torch.tensor(x.data))
+
+    if case == "dB_with_gt":  # P = B, Y = A^T: G^T is (4, 6), G (6, 4)
+        p, y, transposed = arrays(b), arrays(a.T.tocsr()), True
+        bad, match = g.mT.contiguous(), "takes d = G, not G"
+    elif case == "dA_y_past_d":  # P = A, Y = B: d of 3 columns, not 4
+        p, y, transposed = arrays(a), arrays(b), False
+        bad, match = g[:, :3].contiguous(), "Y's column ids span"
+    else:  # P = A, Y = B's first 4 rows: A names row 4
+        p, y, transposed = arrays(a), arrays(b[:4]), False
+        bad, match = g, "P's column ids span"
+    with pytest.raises(ValueError, match=match):
+        spgemm_grad.csr_spgemm_sddmm(*p[:2], bad, *y, None, transposed)
+    if case != "dA_p_past_y":
+        args = (*p[:2], g, *y, None, transposed)
+        close(spgemm_grad.csr_spgemm_sddmm(*args),
+              spgemm_grad.csr_spgemm_sddmm_plain(*args))
 
 
 def test_sampled_lanes():
@@ -307,3 +357,147 @@ def test_sampled_lanes():
     assert [spgemm_grad.sampled_lanes(x) for x in
             (0, 1, 2, 3, 5, 16, 63, 64, 106, 5000)] == [1, 1, 1, 2, 4, 8,
                                                         32, 32, 32, 32]
+
+
+@pytest.mark.parametrize("line, itemsize, mean_row, columns, budget, want", [
+    # The demo's X @ X.T (lines of 500 f64): 28 lines in the default
+    # budget, 32 in the widest, rows or columns alike.
+    (500, 8, 106, False, None, (32, 28, True, 501)),
+    (500, 8, 106, True, None, (32, 28, True, 501)),
+    (500, 8, 106, False, 200 * 1024, (32, 32, True, 501)),
+    # Config 3's BSR x BSR (lines of 8192): fewer than 4 fit, so rows in
+    # panels of 8 read in place, columns in panels of 32 with a lane an
+    # entry, unless the budget holds 4 or more.
+    (8192, 8, 410, False, None, (32, 8, False, 0)),
+    (8192, 8, 410, True, None, (32, 32, False, 0)),
+    (8192, 8, 410, False, 200 * 1024, (32, 8, False, 0)),
+    (8192, 4, 410, True, 200 * 1024, (32, 6, True, 8193)),
+    (100_000, 8, 3, False, None, (2, 8, False, 0)),
+    (100_000, 8, 3, True, None, (32, 32, False, 0)),
+    (7, 16, 1, False, 0, (1, 8, False, 0)),
+])
+def test_sampled_plan(line, itemsize, mean_row, columns, budget, want):
+    """K9's plan: ``sampled_lanes`` lanes, as many lines of D as fit the
+    budget at an odd pitch (32 at most) where 4 or more do; else rows in
+    panels of 8 read through L1, columns in panels of 32 with a lane an
+    entry; the blocks an SM holds (two of 512 threads at most) follow the
+    staged panel's bytes."""
+    plan = spgemm_grad.sampled_plan(line, itemsize, mean_row, columns,
+                                    budget)
+    assert tuple(plan) == want
+    blocks = spgemm_grad.sampled_blocks_per_sm(plan, itemsize)
+    if plan.staged:
+        assert plan.pitch % 2 == 1 and plan.pitch >= line
+        smem = plan.panel * plan.pitch * itemsize
+        assert smem <= (spgemm_grad.SAMPLED_SMEM if budget is None
+                        else budget)
+        assert 1 <= blocks <= 2  # two blocks of 512 threads an SM
+        assert blocks * smem <= 227 * 1024
+    else:
+        assert blocks == 2
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("panel", [1, 3, 32])
+@pytest.mark.parametrize("target", [1, 7, 1000])
+def test_sampled_runs_cover_every_entry_once(transposed, panel, target):
+    """K9's runs hold every entry of P once; a run's entries share a
+    panel of lines and a row of Y; a work item's runs share a panel and
+    start within one span of ``chunk`` entries of it, the smallest span
+    that makes at most ``target`` items (one a panel where the panels are
+    more)."""
+    p = sps.random(40, 30, density=0.3, format="csr", random_state=7)
+    ip, ix = (torch.tensor(x, dtype=torch.int32)
+              for x in (p.indptr, p.indices))
+    y_rows = 40 if transposed else 30
+    runs = spgemm_grad.sampled_runs(ip, ix, transposed, panel, y_rows,
+                                    target)
+    line, q = (x.long() for x in spgemm_grad.entry_ids(ip, ix, transposed))
+    perm = runs.perm.long()
+    assert runs.perm.dtype == runs.run_ptr.dtype == torch.int32
+    assert sorted(perm.tolist()) == list(range(p.nnz))
+    assert torch.equal(runs.line.long(), line[perm])
+    ptr = runs.run_ptr.long()
+    assert ptr[0] == 0 and ptr[-1] == p.nnz and bool((ptr.diff() > 0).all())
+    for r in range(len(ptr) - 1):
+        seg = perm[ptr[r]:ptr[r + 1]]
+        assert bool((q[seg] == runs.run_q[r].long()).all())
+        assert len(set((line[seg] // panel).tolist())) == 1
+    sizes = np.bincount((line // panel).numpy())
+    sizes = sizes[sizes > 0]
+    spans = -(-sizes // runs.chunk)
+    assert spans.sum() <= target or runs.chunk == sizes.max()
+    assert runs.chunk == 1 or (-(-sizes // (runs.chunk - 1))).sum() > target
+    items = runs.items.tolist()
+    assert items[0] == 0 and items[-1] == len(ptr) - 1
+    panels = (line[perm[ptr[:-1]]] // panel).tolist()
+    first = {}
+    for r, pnl in enumerate(panels):
+        first.setdefault(pnl, int(ptr[r]))
+    for a, b in zip(items, items[1:]):
+        assert b > a and len(set(panels[a:b])) == 1
+        spans = {(int(ptr[r]) - first[panels[r]]) // runs.chunk
+                 for r in range(a, b)}
+        assert len(spans) == 1
+    assert len(items) - 1 <= max(target, len(sizes))
+
+
+def repeated_b():
+    """op(A) (3 x 4) with distinct columns a row, and op(B) (4 x 5) whose
+    row 2 holds column 3 twice."""
+    a_ip = torch.tensor([0, 2, 2, 4])
+    a_ix = torch.tensor([1, 2, 0, 3])
+    b_ip = torch.tensor([0, 1, 3, 6, 7])
+    b_ix = torch.tensor([4, 0, 2, 3, 1, 3, 2])
+    rng = np.random.default_rng(70)
+    return (a_ip, a_ix, torch.tensor(values(rng, 4, np.float64)), b_ip,
+            b_ix, torch.tensor(values(rng, 7, np.float64)))
+
+
+@pytest.mark.parametrize("tracked", [False, True])
+def test_repeated_column_of_op_b_raises(tracked):
+    """K6 takes op(B) without repeated columns (``_xla.spgemm_numeric_
+    sorted`` takes sorted, unique flat indices): with ``b_sorted=False``
+    a row that repeats a column raises ``ValueError``, raw or tracked, on
+    the CPU as on the card (``chip_smoke.py`` phase 2 holds the card to
+    the same message); ``b_sorted=True`` is the caller's warrant and is
+    not checked."""
+    a_ip, a_ix, a_dv, b_ip, b_ix, b_dv = repeated_b()
+    a_dv.requires_grad_(tracked)
+    with pytest.raises(ValueError, match="row 2 of op\\(B\\) repeats "
+                                         "column 3"):
+        spgemm.csr_spgemm_dense(a_ip, a_ix, a_dv, b_ip, b_ix, b_dv, 5)
+    c = spgemm.csr_spgemm_dense(a_ip, a_ix, a_dv, b_ip, b_ix, b_dv, 5,
+                                b_sorted=True)
+    ref = spgemm.csr_spgemm_dense_plain(a_ip, a_ix, a_dv.detach(), b_ip,
+                                        b_ix, b_dv, 5)
+    close(c, ref.numpy())
+
+
+def test_tracked_path_checks_op_b_once_per_pattern(monkeypatch):
+    """The tracked path sorts and checks op(B) once per cached pattern
+    (``CsrPattern.sorted_columns``), not at every step; a pattern that
+    failed the check raises again."""
+    a, b = operands(np.float64, 71, shuffle=True)
+    a_ip, a_ix, a_dv = arrays(a)
+    b_ip, b_ix, b_dv = arrays(b)
+    calls = []
+    real = formats.sorted_unique_columns
+
+    def spy(*args):
+        calls.append(args)
+        return real(*args)
+
+    monkeypatch.setattr(formats, "sorted_unique_columns", spy)
+    autograd.patterns.clear()
+    for _ in range(3):
+        c = spgemm.csr_spgemm_dense(a_ip, a_ix, a_dv, b_ip, b_ix, b_dv, N)
+        c.sum().backward()
+    assert len(calls) == 1
+    close(c, (a @ b).toarray())
+    r_ip, r_ix, r_dv, *rest = repeated_b()
+    for _ in range(2):
+        with pytest.raises(ValueError, match="repeats column"):
+            spgemm.csr_spgemm_dense(r_ip, r_ix, r_dv.requires_grad_(),
+                                    *rest, 5)
+    assert len(calls) == 3
