@@ -69,12 +69,21 @@ Phases, each printing one JSON line:
    entries, 6000 short rows of P, no entry, and inf, on groups of 1 to 32
    lanes, with D's lines staged in shared memory (panels of 4 to 32
    lines) and read in place; every K8 and K9 call run twice for the
-   same bits.  Then ``torch.autograd.gradcheck`` (reverse and forward
-   mode) of ``ops.coo_spmm_raw``, ``coo_spmv``, ``csr_spmm``, the BSR
-   device function ``ops.bsr_spmm`` (on both K1 variants) and
-   ``csr_spgemm_dense`` (with and without ``triangular``) on the card in
-   f64 and c128, with the plain versions refused and K1-K3 and K6-K9
-   launched;
+   same bits.  K11, the sparse-output product's value gradients, against
+   its plain version in both forms (dA: op(A)'s entries; dB: op(B)'s),
+   with and without ``triangular``, on C made by K4 + K5: empty rows of
+   op(A) and op(B), no entry of either, 6000 short rows, a row of C of
+   over 2000 entries staged in shared memory (a budget of 220 KB) and
+   searched in place, groups of 1 to 32 lanes, inf in G, every call run
+   twice for the same bits (``check_k11_all``).  Then
+   ``torch.autograd.gradcheck`` (reverse and forward mode) of
+   ``ops.coo_spmm_raw``, ``coo_spmv``, ``csr_spmm``, the BSR device
+   function ``ops.bsr_spmm`` (on both K1 variants), ``csr_spgemm_dense``
+   and ``csr_spgemm`` with tracked operands (each with and without
+   ``triangular``) on the card in f64 and c128, and
+   ``torch.autograd.gradgradcheck`` (with forward over reverse) of
+   ``coo_spmm_raw``, ``coo_spmv``, ``csr_spmm`` and ``csr_spmv``, with the
+   plain versions refused and K1-K9 and K11 launched;
 3. the main path, ``dot_product`` with scipy/numpy operands at real
    sizes, against the scipy oracle at the reference's decimal=6 (f64)
    and decimal=5 (f32), with each kernel's launch count checked (the
@@ -83,7 +92,7 @@ Phases, each printing one JSON line:
    sparse x sparse path: the reference demo's X @ X.T (f64, f32, dense
    with ``out``) and its gram, BASELINE config 4's complex gram, a
    1M x 1M A @ A, config 3's BSR x BSR and a 50k-row ``sypr``; in both,
-   the plain versions of K1-K9 are made to raise;
+   the plain versions of K1-K9 and K11 are made to raise;
 4. kernel and plain-version times at the phase-3 shapes and, for K2 and
    K3, at the solvers' matrices (the 1M Laplacian at n = 1, 4, 16, CGLS's
    A and A^T at n = 1, 4; K3 on the Laplacian, the convection-diffusion
@@ -115,17 +124,20 @@ Phases, each printing one JSON line:
    complex BSR (c128, bs 16, n = 64); K9 at cases a and d in both forms
    beside op(B) (op(A)) densified and ``torch.sparse.sampled_addmm`` and,
    for dB, in the same turns, the copy of G^T a backward without the dB
-   form makes;
-   K8's and K9's rows also carry ``device_ms``, the kernels' own time in a
-   ``torch.profiler`` trace of 10 calls; and the wall
+   form makes; K11 at cases a and c in both forms (G random on C's
+   pattern; 5 turns where a call takes over 50 ms), at a beside G and Y
+   densified + ``torch.sparse.sampled_addmm`` and, in the same turns, K9
+   on G densified;
+   K8's, K9's and K11's rows also carry ``device_ms``, the kernels' own
+   time in a ``torch.profiler`` trace of 10 calls; and the wall
    time of ``dot_product(X, X.T)`` beside scipy's;
 5. the solver path, with the counts set to 0 again and the plain versions
-   of K1-K9 made to raise, each result checked against scipy/numpy on the
-   host: the handle protocol on the demo X (create, convert from CSC,
-   order a row-shuffled copy, ``matmul_handles(X, X.T)`` on K4 + K5,
-   export); CG (K3) on a 1M-row 5-point Laplacian + 0.01 I, full and as
-   its upper triangle under the symmetric descriptor, and its first 20
-   steps stepwise against the fused loop (same bits); ``cg_mrhs`` (K2)
+   of K1-K9 and K11 made to raise, each result checked against
+   scipy/numpy on the host: the handle protocol on the demo X (create,
+   convert from CSC, order a row-shuffled copy, ``matmul_handles(X,
+   X.T)`` on K4 + K5, export); CG (K3) on a 1M-row 5-point Laplacian +
+   0.01 I, full and as its upper triangle under the symmetric
+   descriptor, and its first 20 steps stepwise against the fused loop (same bits); ``cg_mrhs`` (K2)
    with 16 right-hand sides; FGMRES(20) (K3) on a 1M-row upwind
    convection-diffusion matrix; ``sparse_qr_solve`` by Householder QR
    (20000 x 500) and by CGLS (BASELINE config 5's 1.2M x 50k: K3 for
@@ -140,10 +152,10 @@ Phases, each printing one JSON line:
    and its idle share against the median wall, the host syncs counted in
    ``torch.cuda.set_sync_debug_mode("warn")`` and the launches;
 6. the training path, with the counts set to 0 again and the plain
-   versions of K1-K9 made to raise: SGD through ``ops.coo_spmm_raw`` from
-   zero values toward T = A B on BASELINE config 1's pattern and phase 3's
-   B (20 steps in f64 on the values; 20 in f32 with B trained too), 10
-   steps of ``ops.coo_spmv`` on the 1M^2 matrix with x trained too, and
+   versions of K1-K9 and K11 made to raise: SGD through
+   ``ops.coo_spmm_raw`` from zero values toward T = A B on BASELINE
+   config 1's pattern and phase 3's B (20 steps in f64 on the values;
+   20 in f32 with B trained too), 10 steps of ``ops.coo_spmv`` on the 1M^2 matrix with x trained too, and
    one step through ``torch.func.vmap`` over 4 right-hand sides (one K2
    launch); every loss finite and at or below the one before up to
    rounding, every result with a grad_fn, the gradients at each run's
@@ -153,11 +165,17 @@ Phases, each printing one JSON line:
    the counts set to 0 again: 15 f64 SGD steps through ``ops.bsr_spmm``
    on config 3's blocks and b (K1 forward, K8 and K1 over A^H backward,
    on the tensor cores) and 5 on a 4000^2 BSR of 20 x 20 blocks (on the
-   CUDA cores), and 10 through ``csr_spgemm_dense`` on the demo X's values as op(A)
-   and a copy of X^T's CSR as op(B) (K6 forward, K9 twice backward), plus
-   one step with ``triangular``; losses non-increasing, gradients at the
+   CUDA cores), and 10 through ``csr_spgemm_dense`` on the demo X's
+   values as op(A) and a copy of X^T's CSR as op(B) (K6 forward, K9
+   twice backward), plus one step with ``triangular``; 10 through
+   ``csr_spgemm`` (sparse output) on case c's 1M^2 A @ A, both operands'
+   values on A's one pattern trained toward (A @ A)'s values (K4 + K5
+   forward, K11 twice backward); losses non-increasing, gradients at the
    first and last step equal to torch's through the plain versions, the
-   device's busy ms and idle share of a step.
+   device's busy ms and idle share of a step.  Last, one Hessian-vector
+   product by double backward of sum(sin(A b)) through ``coo_spmm_raw``
+   on config 1 (K2 and K7 only), against torch's through the plain
+   versions.
 
 Then the card line, a JSON line of per-kernel results (its first phase-4
 row's times, bound and library time, and the launches of each path) and,
@@ -168,8 +186,10 @@ and a non-zero exit; without a CUDA device it exits 2 before any work.
 no result lines; ``--only k6`` runs phase 1 and K6's phase-4 rows;
 ``--only k7`` runs phase 1, K7's phase-2 checks (without gradcheck), its
 phase-4 rows and phase 6's config-1 f64 steps, and prints no result line;
-``--only k8`` (``k9``) the same for K8 (K9): phase 1, its phase-2 checks,
-its phase-4 rows and its phase-6 run.
+``--only k8`` (``k9``, ``k11``) the same for K8 (K9, K11): phase 1, its
+phase-2 checks (for K11 with ``csr_spgemm``'s gradcheck and the CSR
+API's gradgradcheck), its phase-4 rows and its phase-6 run (for K11 with
+the Hessian-vector product).
 """
 
 import argparse
@@ -250,6 +270,10 @@ KERNELS = {
     "K9_csr_spgemm_sddmm": {
         "source": "sparse_dot_tpu_torch/csrc/csr_spgemm_sddmm.cu",
         "replaces": "sparse_dot_tpu/ops/_xla.py:326",
+    },
+    "K11_csr_spgemm_sparse_sddmm": {
+        "source": "sparse_dot_tpu_torch/csrc/csr_spgemm_sparse_sddmm.cu",
+        "replaces": "sparse_dot_tpu/ops/_xla.py:1916",
     },
 }
 
@@ -391,6 +415,8 @@ def check_kernels(spgemm_only=False):
         check_sddmm_special(rng7, record)
         k89, k9_lanes = check_k8_k9()
         results.update(k89)
+        k11, k11_lanes, k11_gradcheck = check_k11_all()
+        results.update(k11)
     check_csr_special(rng, record)
     check_bins_seen(bins_seen)
     check_k6_seen(k6_seen)
@@ -407,7 +433,10 @@ def check_kernels(spgemm_only=False):
          k2_schedules=sorted(schedules), k6_plans=k6_plans,
          k6_repeated_column=k6_repeats,
          k7_schedules=sorted(k7_schedules), k7_edges=sorted(k7_seen),
-         k9_lanes=k9_lanes, gradcheck_launches=check_gradcheck())
+         k9_lanes=k9_lanes, k11_lanes=k11_lanes,
+         gradcheck_launches=check_gradcheck(),
+         k11_gradcheck_launches=k11_gradcheck,
+         gradgradcheck_launches=check_second_order())
     return results
 
 
@@ -991,7 +1020,7 @@ def check_k8_k9(which=("K8", "K9")):
     4 to 32 lines in shared memory and on lines read in place."""
     rng = np.random.default_rng(SEED + 11)
     results = {name: {"cases": 0, "max_abs_err": 0.0} for name in KERNELS
-               if name[:2] in which}
+               if name.split("_")[0] in which}
 
     def record(name, err):
         results[name]["cases"] += 1
@@ -1018,6 +1047,258 @@ def check_k8_k9(which=("K8", "K9")):
             raise AssertionError(f"K9 ran the plans {sorted(plans_seen)}, "
                                  f"not {sorted(want)}")
     return results, sorted(lanes_seen)
+
+
+# K11 cases: (m rows of op(A), k, n, op(A)'s rows in turn, op(B)'s rows
+# in turn); each list of lengths repeats over the rows, an entry 0 an empty
+# row.  Their mean rows of Y (op(B) in the dA form, op(A)^T in the dB
+# form) give groups of every width, 1 to 32 lanes.  The fourth gives C a
+# row of over 2000 entries (op(A)'s row 10 names every row of op(B)),
+# searched in place under the default budget and staged under the largest
+# of K11_BUDGETS where its values and ids fit (f32, f64 and c64 with int32
+# ids); the last two have no entry of op(A) (the dA form launches nothing,
+# the dB form sums nothing) and none of op(B).
+K11_CASES = ((60, 50, 40, (4, 5, 3, 0), (5, 6, 0, 4)),
+             (200, 60, 100, (10, 12, 0, 8), (20, 22, 18)),
+             (6000, 400, 300, (2, 0, 3, 2), (1, 2, 0, 3)),
+             (20, 30, 3000, (2,) * 10 + (30,) + (2,) * 9, (150,)),
+             (64, 64, 64, (6, 0, 7, 5), (12, 10, 14, 0)),
+             (50, 40, 30, (0,), (3, 4)),
+             (50, 40, 30, (3, 4), (0,)))
+# Shared-memory budgets of K11's staged rows of C
+# (``spgemm_grad.SPARSE_SMEM``): the default, none, and 220 KB.
+K11_BUDGETS = (None, 0, 220 * 1024)
+
+
+def k11_call(*args):
+    """csr_spgemm_sparse_sddmm(*args), checked to launch K11 once (none
+    where P, op(A) in the dA form and op(B) in the dB form, has no
+    entry)."""
+    from sparse_dot_tpu_torch.ops import spgemm_grad
+
+    wrapper = spgemm_grad.csr_spgemm_sparse_sddmm
+    p_indices = args[4] if args[10] else args[1]
+    before = wrapper.launches
+    out = wrapper(*args)
+    if wrapper.launches != before + int(p_indices.numel() > 0):
+        raise AssertionError("csr_spgemm_sparse_sddmm did not launch K11 "
+                             "once")
+    return out
+
+
+def k11_operands(rng, case, npdt, itype, triangular):
+    """(op(A)'s arrays, op(B)'s arrays, C's indptr and indices, G, n) of a
+    K11_CASES case on the card: rows of distinct shuffled columns, C by
+    ``csr_spgemm`` (K4 + K5), G random on C's pattern."""
+    from sparse_dot_tpu_torch.ops import spgemm
+
+    m, k, n, a_rows, b_rows = case
+    a = distinct_rows(rng, np.resize(a_rows, m), k, npdt, itype)
+    b = distinct_rows(rng, np.resize(b_rows, k), n, npdt, itype)
+    a, b = tuple(map(cuda, a)), tuple(map(cuda, b))
+    c_ip, c_ix, _ = spgemm.csr_spgemm(*a, *b, n, triangular)
+    g = cuda(values(rng, c_ix.numel(), npdt))
+    return a, b, (c_ip, c_ix), g, n
+
+
+@contextlib.contextmanager
+def k11_budget(budget):
+    """Inside the block, K11's groups share ``budget`` bytes of shared
+    memory for their rows of C (``spgemm_grad.SPARSE_SMEM``; None keeps
+    the default)."""
+    from sparse_dot_tpu_torch.ops import spgemm_grad
+
+    saved = spgemm_grad.SPARSE_SMEM
+    if budget is not None:
+        spgemm_grad.SPARSE_SMEM = budget
+    try:
+        yield
+    finally:
+        spgemm_grad.SPARSE_SMEM = saved
+
+
+def k11_plan(a, b, g, transposed):
+    """The ``SparsePlan`` K11 takes for these operands."""
+    from sparse_dot_tpu_torch.ops import spgemm_grad
+
+    k = b[0].numel() - 1
+    y_nnz = (a if transposed else b)[1].numel()
+    return spgemm_grad.sparse_plan(y_nnz / max(k, 1), g.element_size(),
+                                   a[0].element_size(), transposed)
+
+
+def check_k11(rng, tdt, npdt, itype, record, lanes_seen, rows_seen):
+    """K11 against ``csr_spgemm_sparse_sddmm_plain`` at every case of
+    K11_CASES in both forms, with and without ``triangular``, the dA form
+    under each budget of K11_BUDGETS; every call run twice for the same
+    bits.  ``lanes_seen`` collects the groups' widths, ``rows_seen``
+    (form, staged, row of C past 2000 entries) of the rows of C each
+    launch reads (a row is staged where it fits the plan's ``cap``)."""
+    from sparse_dot_tpu_torch.ops import spgemm_grad
+
+    for case in K11_CASES:
+        for triangular in (False, True):
+            a, b, (c_ip, c_ix), g, n = k11_operands(rng, case, npdt, itype,
+                                                    triangular)
+            lengths = c_ip.diff().cpu().numpy()
+            a_rows = np.diff(a[0].cpu().numpy()) > 0
+            for transposed in (False, True):
+                p = b if transposed else a
+                for budget in (K11_BUDGETS[:1] if transposed
+                               else K11_BUDGETS):
+                    with k11_budget(budget):
+                        plan = k11_plan(a, b, g, transposed)
+                        args = (*a, *b, c_ip, c_ix, g, n, transposed,
+                                triangular)
+                        out = k11_call(*args)
+                        again = k11_call(*args)
+                    form = "dB" if transposed else "dA"
+                    if p[1].numel():
+                        lanes_seen.add(plan.lanes)
+                        if transposed:
+                            rows_seen.update(
+                                (form, False, bool(x > 2000))
+                                for x in np.unique(lengths))
+                        else:
+                            rows_seen.update(
+                                (form, bool(x <= plan.cap), bool(x > 2000))
+                                for x in np.unique(lengths[a_rows]))
+                    record("K11_csr_spgemm_sparse_sddmm", compare(
+                        out, spgemm_grad.csr_spgemm_sparse_sddmm_plain(
+                            *args), tdt))
+                    if not torch.equal(out, again):
+                        raise AssertionError(f"K11 {tdt} {case[:3]}: runs "
+                                             "differ")
+
+
+def check_k11_special(rng, record):
+    """K11 with inf in G (+inf, -inf, and an imaginary inf for complex
+    values), both forms, in every value type: the same nan, +inf and
+    -inf parts as the plain version, finite entries within tolerance."""
+    from sparse_dot_tpu_torch.ops import spgemm_grad
+
+    for tdt, npdt in NP_DTYPES.items():
+        a, b, (c_ip, c_ix), g, n = k11_operands(rng, K11_CASES[0], npdt,
+                                                np.int32, False)
+        g[3] = np.inf
+        g[40] = -np.inf
+        if np.dtype(npdt).kind == "c":
+            g[77] = complex(0.0, np.inf)
+        for transposed in (False, True):
+            args = (*a, *b, c_ip, c_ix, g, n, transposed, False)
+            out = k11_call(*args)
+            ref = spgemm_grad.csr_spgemm_sparse_sddmm_plain(*args)
+            fin = same_parts(f"K11 {tdt} transposed={transposed}", out, ref)
+            record("K11_csr_spgemm_sparse_sddmm", compare(out[fin],
+                                                          ref[fin], tdt))
+
+
+def check_k11_gradcheck():
+    """``torch.autograd.gradcheck`` (reverse and forward mode) of
+    ``csr_spgemm`` with both operands' values tracked, 6 x 9 by 9 x 7 of
+    distinct shuffled columns, in f64 and c128, with and without
+    ``triangular``, on the card with the plain versions refused: K4, K5
+    and K11 must launch.  Returns the launches."""
+    from sparse_dot_tpu_torch.ops import spgemm
+
+    rng = np.random.default_rng(SEED + 15)
+    before = read_launches()
+    with plain_versions_refused():
+        for npdt in (np.float64, np.complex128):
+            a_ip, a_ix, a_dv = map(cuda, distinct_rows(
+                rng, (3, 0, 2, 5, 1, 4), 9, npdt, np.int32))
+            b_ip, b_ix, b_dv = map(cuda, distinct_rows(
+                rng, (2, 4, 0, 3, 1, 2, 5, 0, 3), 7, npdt, np.int32))
+            for tri in (False, True):
+                if not torch.autograd.gradcheck(
+                        lambda av, bv, tri=tri: spgemm.csr_spgemm(
+                            a_ip, a_ix, av, b_ip, b_ix, bv, 7, tri)[2],
+                        (a_dv.clone().requires_grad_(),
+                         b_dv.clone().requires_grad_()),
+                        check_forward_ad=True):
+                    raise AssertionError(f"csr_spgemm gradcheck {npdt}")
+    launched = {name: count - before[name]
+                for name, count in read_launches().items()}
+    if not all(launched[name] > 0 for name in (
+            "K4_csr_spgemm_count", "K5_csr_spgemm_fill",
+            "K11_csr_spgemm_sparse_sddmm")):
+        raise AssertionError(f"csr_spgemm gradcheck launched {launched}")
+    return {name: count for name, count in launched.items() if count}
+
+
+def check_k11_all():
+    """Phase 2 for K11 (``--only k11``, and inside ``check_kernels``' run):
+    every value type and index width, the inf cases, groups of 1 to 32
+    lanes, rows of C staged and searched in place (one of over 2000
+    entries each way in the dA form), and the gradcheck of
+    ``csr_spgemm``.  Returns (results, lanes seen, gradcheck launches)."""
+    rng = np.random.default_rng(SEED + 16)
+    name = "K11_csr_spgemm_sparse_sddmm"
+    results = {name: {"cases": 0, "max_abs_err": 0.0}}
+
+    def record(kernel, err):
+        results[kernel]["cases"] += 1
+        results[kernel]["max_abs_err"] = max(results[kernel]["max_abs_err"],
+                                             err)
+
+    lanes_seen, rows_seen = set(), set()
+    for tdt, npdt in NP_DTYPES.items():
+        for itype in (np.int32, np.int64):
+            check_k11(rng, tdt, npdt, itype, record, lanes_seen, rows_seen)
+    check_k11_special(rng, record)
+    if lanes_seen != {1, 2, 4, 8, 16, 32}:
+        raise AssertionError(f"K11 ran groups of {sorted(lanes_seen)} "
+                             "lanes only")
+    want = {("dA", True, True), ("dA", False, True), ("dA", True, False),
+            ("dA", False, False), ("dB", False, True), ("dB", False, False)}
+    if not want <= rows_seen:
+        raise AssertionError(f"K11 read the rows {sorted(rows_seen)}, not "
+                             f"{sorted(want)}")
+    return results, sorted(lanes_seen), check_k11_gradcheck()
+
+
+def check_second_order():
+    """``torch.autograd.gradgradcheck`` (with forward over reverse) of
+    ``ops.coo_spmm_raw``, ``coo_spmv``, ``csr.csr_spmm`` and
+    ``csr.csr_spmv`` on the card in f64 and c128, 9 x 7 with a repeated
+    entry, alpha and beta, with the plain versions refused: K2, K3 and K7
+    must launch.  Returns the launches."""
+    from sparse_dot_tpu_torch.ops import autograd, csr
+
+    rng = np.random.default_rng(SEED + 17)
+    m, k = 9, 7
+    rows = np.array([0, 0, 1, 3, 3, 4, 5, 5, 6, 7, 8, 8, 1], np.int32)
+    cols = np.array([1, 4, 0, 2, 6, 3, 0, 5, 4, 1, 2, 6, 0], np.int32)
+    a = sps.csr_matrix((np.ones(len(rows)), (rows, cols)), shape=(m, k))
+    tr, tc, ip, ix = map(cuda, (rows, cols, a.indptr.astype(np.int32),
+                                a.indices.astype(np.int32)))
+    before = read_launches()
+    with plain_versions_refused():
+        for npdt in (np.float64, np.complex128):
+            def leaf(shape):
+                return cuda(values(rng, shape, npdt)).requires_grad_()
+
+            alpha = 2.0 - 0.5j if np.dtype(npdt).kind == "c" else 2.0
+            checks = (
+                (lambda v, b: autograd.coo_spmm_raw(tr, tc, v, b, m),
+                 (leaf(len(rows)), leaf((k, 2)))),
+                (lambda v, x, y: autograd.coo_spmv(tr, tc, v, x, m, -1.5,
+                                                   0.5, y),
+                 (leaf(len(rows)), leaf(k), leaf(m))),
+                (lambda v, b, c: csr.csr_spmm(ip, ix, v, b, alpha, -1.0, c),
+                 (leaf(a.nnz), leaf((k, 2)), leaf((m, 2)))),
+                (lambda v, x, y: csr.csr_spmv(ip, ix, v, x, alpha, -1.0, y),
+                 (leaf(a.nnz), leaf(k), leaf(m))))
+            for fn, inputs in checks:
+                if not torch.autograd.gradgradcheck(fn, inputs,
+                                                    check_fwd_over_rev=True):
+                    raise AssertionError(f"gradgradcheck failed in {npdt}")
+    launched = {name: count - before[name]
+                for name, count in read_launches().items()}
+    if not all(launched[name] > 0 for name in (
+            "K2_csr_spmm", "K3_csr_spmv", "K7_csr_sddmm")):
+        raise AssertionError(f"gradgradcheck launched {launched}")
+    return {name: count for name, count in launched.items() if count}
 
 
 def check_gradcheck():
@@ -1487,11 +1768,9 @@ def main_path():
     launches = read_launches()
     # The four config-3 calls and dense x BSR on the tensor cores, the
     # complex BSR on the CUDA cores.
-    expected = {"K1_bsr_spmm_tc": len(bsrs) + 1, "K1_bsr_spmm_simt": 1,
-                "K2_csr_spmm": 4, "K3_csr_spmv": 3, "K4_csr_spgemm_count": 0,
-                "K5_csr_spgemm_fill": 0, "K6_csr_spgemm_dense": 0,
-                "K7_csr_sddmm": 0, "K8_bsr_sddmm_tc": 0,
-                "K8_bsr_sddmm_simt": 0, "K9_csr_spgemm_sddmm": 0}
+    expected = {name: 0 for name in launches}
+    expected.update(K1_bsr_spmm_tc=len(bsrs) + 1, K1_bsr_spmm_simt=1,
+                    K2_csr_spmm=4, K3_csr_spmv=3)
     if (launches != expected or bsr.bsr_spmm.launches
             != launches["K1_bsr_spmm_tc"] + launches["K1_bsr_spmm_simt"]):
         raise AssertionError(f"launch counts {launches}, expected {expected}")
@@ -1566,11 +1845,13 @@ ALL_PLAIN = {"spgemm": SPGEMM_PLAIN,
              "csr": ("csr_spmm_plain", "csr_spmv_plain"),
              "bsr": ("bsr_spmm_plain", "bsr_sddmm_plain"),
              "sddmm": ("csr_sddmm_plain",),
-             "spgemm_grad": ("csr_spgemm_sddmm_plain",)}
+             "spgemm_grad": ("csr_spgemm_sddmm_plain",
+                             "csr_spgemm_sparse_sddmm_plain")}
 
 
 class plain_versions_refused:
-    """Inside the block, the plain versions of every kernel (K1-K9) raise:
+    """Inside the block, the plain versions of every kernel (K1-K9, K11)
+    raise:
     the main path must run the kernels, never their plain versions on the
     card."""
 
@@ -1599,7 +1880,8 @@ def reset_launches():
     for fn in (csr.csr_spmm, csr.csr_spmv, bsr.bsr_spmm,
                spgemm.csr_spgemm_count, spgemm.csr_spgemm_fill,
                spgemm.csr_spgemm_dense, sddmm.csr_sddmm, bsr.bsr_sddmm,
-               spgemm_grad.csr_spgemm_sddmm):
+               spgemm_grad.csr_spgemm_sddmm,
+               spgemm_grad.csr_spgemm_sparse_sddmm):
         fn.launches = 0
     bsr.bsr_spmm.launches_tc = bsr.bsr_spmm.launches_simt = 0
     bsr.bsr_sddmm.launches_tc = bsr.bsr_sddmm.launches_simt = 0
@@ -1620,6 +1902,8 @@ def read_launches():
         "K8_bsr_sddmm_tc": bsr.bsr_sddmm.launches_tc,
         "K8_bsr_sddmm_simt": bsr.bsr_sddmm.launches_simt,
         "K9_csr_spgemm_sddmm": spgemm_grad.csr_spgemm_sddmm.launches,
+        "K11_csr_spgemm_sparse_sddmm":
+            spgemm_grad.csr_spgemm_sparse_sddmm.launches,
     }
 
 
@@ -2210,19 +2494,23 @@ def k9_bound(ip, ix, d, y_ip, y_ix, y_dv, transposed):
 def k9_yardstick(p_arrays, d, y_arrays, shapes, transposed):
     """K9's function the way torch has one: Y densified (``to_dense``)
     and ``torch.sparse.sampled_addmm`` (cuSPARSE SDDMM) of D and conj(Y)^T
-    at P's pattern, beta = 0; for the dB form of conj(Y) and D.  A
-    yardstick: the port never calls it."""
+    at P's pattern, beta = 0; for the dB form of conj(Y) and D.  ``d`` is
+    D, or a function that makes it in each call.  A yardstick: the port
+    never calls it."""
     (ip, ix), (y_ip, y_ix, y_dv) = p_arrays, y_arrays
     p_shape, y_shape = shapes
-    zeros = torch.zeros(ix.numel(), dtype=d.dtype, device=d.device)
+    zeros = torch.zeros(ix.numel(), dtype=y_dv.dtype, device=y_dv.device)
     p = torch.sparse_csr_tensor(ip, ix, zeros, size=p_shape)
     y = torch.sparse_csr_tensor(y_ip, y_ix, y_dv, size=y_shape)
 
     def run():
+        dense = d() if callable(d) else d
         yc = y.to_dense().conj_physical()
         if transposed:
-            return torch.sparse.sampled_addmm(p, yc, d, beta=0.0).values()
-        return torch.sparse.sampled_addmm(p, d, yc.mT, beta=0.0).values()
+            return torch.sparse.sampled_addmm(p, yc, dense,
+                                              beta=0.0).values()
+        return torch.sparse.sampled_addmm(p, dense, yc.mT,
+                                          beta=0.0).values()
 
     return run, ("Y densified + torch.sparse.sampled_addmm at P's pattern "
                  "(cuSPARSE SDDMM), beta = 0")
@@ -2283,6 +2571,102 @@ def k9_rows(inp):
         row["runs"] = k9_runs(args, plan)
         rows.append(row)
         del A, B, args, beside
+        torch.cuda.empty_cache()
+    return rows
+
+
+def k11_bound(a, b, c, g, transposed):
+    """K11's bound and products for op(A) = ``a``, op(B) = ``b`` (their
+    CSR arrays) and G on C's pattern ``c``: the bytes of P's structure,
+    Y's arrays (op(B), or op(A)^T in the dB form), C's structure, G and
+    the output, each once; one multiply-add per product of op(A) op(B)
+    that lands in C (all of them but j < i under ``triangular``), on the
+    CUDA cores."""
+    products = int(b[0].long().diff()[a[1].long()].sum())
+    p, y = (b, a) if transposed else (a, b)
+    moved = (nbytes(p[0], p[1], *y, *c, g)
+             + p[1].numel() * g.element_size())
+    flop = flops_per_product(g.dtype) * products
+    return bound(moved, flop, CUDA_CORE_FLOPS[g.dtype]), products
+
+
+def k11_yardsticks(a, b, c, g, shapes, transposed):
+    """At case a: K11's function the way torch has one, G densified and
+    ``k9_yardstick`` (Y densified and ``torch.sparse.sampled_addmm``) in
+    each call; and K9 on G densified beforehand, timed beside.  Neither
+    is called by the port."""
+    from sparse_dot_tpu_torch import formats
+    from sparse_dot_tpu_torch.ops import spgemm_grad
+
+    a_shape, b_shape = shapes
+    g_csr = torch.sparse_csr_tensor(*c, g, size=(a_shape[0], b_shape[1]))
+    gd = g_csr.to_dense()
+    if transposed:
+        t, order = formats.CsrPattern(a[0], a[1], a_shape[1]).transpose()
+        p, y, y_shapes = b, (t.indptr, t.indices, a[2][order]), (b_shape,
+                                                                 t.shape)
+    else:
+        p, y, y_shapes = a, b, (a_shape, b_shape)
+    run, note = k9_yardstick(p[:2], g_csr.to_dense, y, y_shapes, transposed)
+    return ((run, "G densified + " + note),
+            {"k9_on_g_densified": lambda: spgemm_grad.csr_spgemm_sddmm(
+                *p[:2], gd, *y, None, transposed)})
+
+
+def k11_rows(inp):
+    """K11's phase-4 rows: the value gradients of case a (the demo X @
+    X.T, sparse output) and case c (the 1M^2 A @ A), dL/dA and dL/dB, G
+    random on C's pattern (f64): median, p10 and p90 of 25 (of 5 where a
+    call of the kernel or its plain version takes over 50 ms), the bound
+    by ``k11_bound``, products per second, the kernel's profiler time
+    (``device_ms``); at case a beside ``k11_yardsticks`` in the same
+    turns.  No torch call computes it."""
+    from sparse_dot_tpu_torch import formats
+    from sparse_dot_tpu_torch.ops import spgemm, spgemm_grad
+
+    rng = np.random.default_rng(SEED + 18)
+    rows = []
+    x = inp["x"]
+    cases = (("a", "demo X @ X.T, X 500x5000 CSR 21.2% f64, sparse output",
+              x, x.T.tocsr()),
+             ("c", "1M x 1M CSR, 2M random nnz, A @ A, f64, sparse output",
+              inp["a1m"], inp["a1m"]))
+    for case, shape, a_np, b_np in cases:
+        A, B = formats.to_device(a_np), formats.to_device(b_np)
+        a, b = A.csr_arrays(), B.csr_arrays()
+        n = b_np.shape[1]
+        c = spgemm.csr_spgemm(*a, *b, n)[:2]
+        g = cuda(values(rng, c[1].numel(), np.float64))
+        for transposed in (False, True):
+            args = (*a, *b, *c, g, n, transposed)
+            kernel_fn = (lambda args=args:
+                         spgemm_grad.csr_spgemm_sparse_sddmm(*args))
+            plain_fn = (lambda args=args:
+                        spgemm_grad.csr_spgemm_sparse_sddmm_plain(*args))
+            first = max(t[0] for t in time_turns(
+                {"kernel": kernel_fn, "plain": plain_fn}, 1).values())
+            reps = REPS if first <= 50 else 5
+            (bound_ms, bound_by), products = k11_bound(a, b, c, g,
+                                                       transposed)
+            yardstick, beside = (k11_yardsticks(
+                a, b, c, g, (a_np.shape, b_np.shape), transposed)
+                if case == "a" else (None, None))
+            plan = k11_plan(a, b, g, transposed)
+            form = "dL/dB at B's pattern" if transposed else \
+                "dL/dA at A's pattern"
+            row = timed_row(
+                "K11_csr_spgemm_sparse_sddmm", f"{shape}, {form}",
+                kernel_fn, plain_fn, (bound_ms, bound_by),
+                (None, "none: torch has no sampled product of two sparse "
+                       "operands at a sparse pattern"),
+                reps=reps, yardstick=yardstick, beside=beside,
+                device_match="sampled_kernel",
+                case=f"{case}-{'dB' if transposed else 'dA'}",
+                products=products, c_nnz=int(c[1].numel()),
+                plan=plan._asdict())
+            row["gproducts_per_s"] = products / row["ms"] / 1e6
+            rows.append(row)
+        del A, B, a, b, c, g
         torch.cuda.empty_cache()
     return rows
 
@@ -2449,6 +2833,7 @@ def spgemm_timings(inp):
         torch.cuda.empty_cache()
     rows += k6_timings(inp)
     rows += k9_rows(inp)
+    rows += k11_rows(inp)
 
     wall = {"dot_product": [], "scipy": []}
     for _ in range(5):
@@ -3388,14 +3773,108 @@ def spgemm_training(x):
                       "lr": [0.5 / norm_sq, 0.25 / norm_sq]}
 
 
-def grad_training(inputs, x, which=("K8", "K9")):
-    """Phase 6's runs of K8 (``bsr_training``) and K9
-    (``spgemm_training``), each with the counts set to 0 just before it:
-    one JSON line, and the launches of both summed."""
+def spgemm_sparse_training(a_np):
+    """SGD through ``csr_spgemm`` (sparse output) on case c's 1M^2 A @ A
+    (f64): op(A) and op(B) on A's one pattern with two value tensors,
+    op(A)'s from zero and op(B)'s from A's values, both trained toward T
+    = (A @ A)'s values on C's pattern, loss ||C.data - T||^2: K4 + K5
+    forward, K11 twice backward, with the plain versions refused; steps
+    1/(2 ||A||^2) and 1/(4 ||A||^2).  Returns the launches and the run's
+    record."""
+    from sparse_dot_tpu_torch import formats
+    from sparse_dot_tpu_torch.ops import spgemm
+
+    A = formats.to_device(a_np)
+    ip, ix, dv = A.csr_arrays()
+    n = a_np.shape[1]
+    target = spgemm.csr_spgemm(ip, ix, dv, ip, ix, dv, n)[2]
+    norm_sq = host_norm_sq(a_np)
+
+    def fn(av, bv):
+        return spgemm.csr_spgemm(ip, ix, av, ip, ix, bv, n)[2]
+
+    def plain(av, bv):
+        return spgemm.spgemm_plain(ip, ix, av, ip, ix, bv, n)[2]
+
+    lrs = (0.5 / norm_sq, 0.25 / norm_sq)
+    run = GradRun("spgemm_sparse_f64_a_and_b", fn, plain,
+                  (torch.zeros_like(dv), dv), lrs, target,
+                  "CsrSpgemmBackward")
+    reset_launches()
+    with plain_versions_refused():
+        run.run(SPGEMM_STEPS)
+        busy = profiled(run)
+    launches = read_launches()
+    expected = {name: 0 for name in launches}
+    expected.update(K4_csr_spgemm_count=SPGEMM_STEPS + 1,
+                    K5_csr_spgemm_fill=SPGEMM_STEPS + 1,
+                    K11_csr_spgemm_sparse_sddmm=2 * (SPGEMM_STEPS + 1))
+    if launches != expected:
+        raise AssertionError(f"launch counts {launches}, expected {expected}")
+    per_step = {name: count / (SPGEMM_STEPS + 1)
+                for name, count in launches.items() if count}
+    return launches, {**run.check(), **busy, "lr": list(lrs),
+                      "launches_per_step": per_step,
+                      "c_nnz": int(target.numel())}
+
+
+def hessian_vector_product(inputs):
+    """One Hessian-vector product of the non-quadratic loss
+    sum(sin(A b)) through ``ops.coo_spmm_raw`` on BASELINE config 1's
+    pattern and values and phase 3's b (f64), in (values, b), by double
+    backward along a random direction, with the plain versions refused;
+    held against torch's double backward through ``csr_spmm_plain`` on
+    the same tensors.  K2 and K7 must launch.  Returns the launches and
+    the record."""
+    from sparse_dot_tpu_torch.ops import autograd, csr
+
+    r1, c1, m1, b1, _, _ = config1_problem(inputs)
+    vals = cuda(inputs["a1"].data)
+    rng = np.random.default_rng(SEED + 19)
+    u = [cuda(values(rng, x.shape, np.float64)) for x in (vals, b1)]
+
+    def hvp(fn):
+        v, b = vals.clone().requires_grad_(), b1.clone().requires_grad_()
+        grads = torch.autograd.grad(torch.sin(fn(v, b)).sum(), (v, b),
+                                    create_graph=True)
+        dot = sum((g * w).sum() for g, w in zip(grads, u))
+        return torch.autograd.grad(dot, (v, b))
+
+    s = autograd.structures.get(r1, c1, m1, b1.shape[0])
+    reset_launches()
+    t0 = time.perf_counter()
+    with plain_versions_refused():
+        got = hvp(lambda v, b: autograd.coo_spmm_raw(r1, c1, v, b, m1))
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = read_launches()
+    ref = hvp(lambda v, b: csr.csr_spmm_plain(
+        s.pattern.indptr, s.pattern.indices, v[s.order], b))
+    if not (launches["K2_csr_spmm"] and launches["K7_csr_sddmm"]) or any(
+            count for name, count in launches.items()
+            if name not in ("K2_csr_spmm", "K7_csr_sddmm")):
+        raise AssertionError(f"HVP launched {launches}")
+    return launches, {
+        "max_abs_err_vs_plain": [compare(g, r, r.dtype)
+                                 for g, r in zip(got, ref)],
+        "wall_ms": wall, "launches": {k: v for k, v in launches.items()
+                                      if v}}
+
+
+def grad_training(inputs, spgemm_inp, which=("K8", "K9", "K11")):
+    """Phase 6's runs of K8 (``bsr_training``), K9 (``spgemm_training``)
+    and K11 (``spgemm_sparse_training``, then ``hessian_vector_product``,
+    the second order of the CSR device API), each with the counts set to
+    0 just before it: one JSON line, and the launches of all summed."""
     runs, launches = {}, {name: 0 for name in KERNELS}
     for kernel, name, train, arg in (
             ("K8", "bsr_f64_blocks_and_b", bsr_training, inputs),
-            ("K9", "spgemm_dense_f64_a_and_b", spgemm_training, x)):
+            ("K9", "spgemm_dense_f64_a_and_b", spgemm_training,
+             spgemm_inp["x"]),
+            ("K11", "spgemm_sparse_f64_a_and_b", spgemm_sparse_training,
+             spgemm_inp["a1m"]),
+            ("K11", "hvp_coo_spmm_raw_config1_f64", hessian_vector_product,
+             inputs)):
         if kernel in which:
             got, runs[name] = train(arg)
             launches = {key: launches[key] + got[key] for key in launches}
@@ -3442,14 +3921,17 @@ def solver_timings(records, rows):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
-        "--only", choices=("spgemm", "k6", "k7", "k8", "k9"),
+        "--only", choices=("spgemm", "k6", "k7", "k8", "k9", "k11"),
         help="a short run that ends with no result line: spgemm runs "
              "phases 1, 2 (K4-K6 and K2/K3's complex inf case), 3 and 4 of "
              "sparse x sparse; k6 runs phase 1 and K6's phase-4 rows "
              "(k6_timings); k7 runs phase 1, K7's phase-2 checks, its "
              "phase-4 rows and phase 6's config-1 f64 steps; k8 (k9) runs "
              "phase 1, K8's (K9's) phase-2 checks, its phase-4 rows and "
-             "its phase-6 run (bsr_training, spgemm_training)")
+             "its phase-6 run (bsr_training, spgemm_training); k11 the "
+             "same for K11 (its phase-2 checks with csr_spgemm's "
+             "gradcheck, k11_rows, spgemm_sparse_training and "
+             "hessian_vector_product)")
     only = parser.parse_args().only
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -3496,19 +3978,28 @@ def main():
         kernel = only.upper()
         results, lanes = check_k8_k9((kernel,))
         emit(2, kernels=results, k9_lanes=lanes or None)
+        inputs = path_inputs() if kernel == "K8" else None
+        spgemm_inp = spgemm_inputs() if kernel == "K9" else {"x": None}
         rows = []
         if kernel == "K8":
-            inputs = path_inputs()
             k8_rows(rows, inputs, np.random.default_rng(SEED + 4))
-            x = None
         else:
-            inputs, x = None, spgemm_inputs()
-            rows = k9_rows(x)
-            x = x["x"]
+            rows = k9_rows(spgemm_inp)
         emit(f"4-{only}", rows=rows,
              timer="cuda events, median (p10, p90), 1 GiB read before "
                    "each; yardstick timed in the same turns")
-        grad_training(inputs, x, (kernel,))
+        grad_training(inputs, spgemm_inp, (kernel,))
+        return
+    if only == "k11":
+        results, lanes, launched = check_k11_all()
+        emit(2, kernels=results, k11_lanes=lanes,
+             k11_gradcheck_launches=launched,
+             gradgradcheck_launches=check_second_order())
+        spgemm_inp = spgemm_inputs()
+        emit("4-k11", rows=k11_rows(spgemm_inp),
+             timer="cuda events, median (p10, p90), 1 GiB read before "
+                   "each; yardstick and beside timed in the same turns")
+        grad_training(path_inputs(), spgemm_inp, ("K11",))
         return
     check_kernels()
     by_path = {}
@@ -3519,7 +4010,7 @@ def main():
     by_path["solvers"], records = solver_path(solver_inp)
     solver_timings(records, rows)
     training = training_path(inputs)
-    grad = grad_training(inputs, spgemm_inp["x"])
+    grad = grad_training(inputs, spgemm_inp)
     by_path["training"] = {name: training[name] + grad[name]
                            for name in KERNELS}
     launches = {name: sum(path[name] for path in by_path.values())

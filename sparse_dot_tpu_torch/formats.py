@@ -321,16 +321,18 @@ class CsrPattern:
     already built for these arrays.  What it builds, it builds outside
     any ``torch.func`` transform that is active (``structure_only``), so a
     pattern first used inside ``torch.func.grad`` or ``vmap`` caches plain
-    tensors."""
+    tensors.  ``span`` is ``column_span``'s answer where the caller knows
+    bounds on the column ids without reading them (a product's output:
+    (0, ncols))."""
 
-    def __init__(self, indptr, indices, ncols):
+    def __init__(self, indptr, indices, ncols, span=None):
         self.indptr = indptr
         self.indices = indices
         self.ncols = int(ncols)
         self.plans = {}
         self._transpose = None
         self._sorted = None
-        self._span = None
+        self._span = span
 
     @property
     def shape(self):

@@ -30,29 +30,43 @@ ones are to JAX's.  Each runs one ``torch.autograd.Function``
   upper triangle under ``triangular``, which keeps only j >= i of the
   product while c0 is added everywhere), dL/dc0 = conj(beta) G; ``jvp``
   two K6 launches; ``vmap`` one call a member.
-- ``CsrSddmm``, ``BsrSddmm`` and ``CsrSpgemmSddmm``: K7, K8 and K9
-  themselves, so that the backward's launches are open to the transforms
-  too (``torch.func.grad`` runs the backward on wrapped tensors, which
-  only a Function's forward sees unwrapped, and ``vmap`` of ``grad``
-  batches them).
+- ``CsrSpgemm``: C = op(A) op(B) with sparse output on K4 + K5
+  (``ops/spgemm``), returning C's (indptr, indices, data); backward
+  dL/d(op(A)'s values) = G op(B)^H at op(A)'s pattern and dL/d(op(B)'s
+  values) = op(A)^H G at op(B)'s, G = dL/d(data) on C's structural
+  pattern, both on K11 (``ops/spgemm_grad.csr_spgemm_sparse_sddmm``);
+  ``jvp`` two K5 launches on the saved pattern (``CsrSpgemmFill``, no
+  second K4); ``vmap`` one call a member.
+- ``CsrSddmm``, ``BsrSddmm``, ``CsrSpgemmSddmm`` and
+  ``CsrSpgemmSparseSddmm``: K7, K8, K9 and K11 themselves, so that the
+  backward's launches are open to the transforms too
+  (``torch.func.grad`` runs the backward on wrapped tensors, which only a
+  Function's forward sees unwrapped, and ``vmap`` of ``grad`` batches
+  them).
 
 Gradients follow PyTorch's convention for complex values, the conjugate
-of JAX's: for |z|^2 at 3+4j JAX gives 6-8j, PyTorch 6+8j.  The backward
-is ``once_differentiable``: a second-order request raises, through
-``torch.autograd`` and through ``torch.func`` (``grad`` or ``jvp`` of
-``grad``) alike.
+of JAX's: for |z|^2 at 3+4j JAX gives 6-8j, PyTorch 6+8j.  ``CsrSpmm``
+and ``CsrSpmv`` are differentiable to any order: their backward runs
+Functions (``CsrSddmm``, and themselves over A^H), and ``CsrSddmm``'s own
+backward and ``jvp`` run K2 and K7 again, so ``torch.func.hessian``, a
+double backward and ``jvp`` of ``grad`` of ``coo_spmm_raw`` and
+``coo_spmv`` work; without a second-order request the first-order
+launches are unchanged.  The backward of ``BsrSpmm``, ``CsrSpgemmDense``
+and ``CsrSpgemm`` is ``once_differentiable``: a second-order request
+raises, through ``torch.autograd`` and through ``torch.func`` (``grad``
+or ``jvp`` of ``grad``) alike.
 
 A^H's structure (``CsrPattern.transpose``, ``BsrPattern.transpose``) is
 built once per pattern and cached; its values are gathered from the
 current values at every backward (``data[order]``, conjugated by
 ``conj_physical``, never by the lazy ``conj()``, whose bit the kernels
 cannot see), so the gradient follows values that a training step updates
-in place.  ``csr.csr_spmm``, ``csr.csr_spmv``, ``bsr.bsr_spmm`` and
-``spgemm.csr_spgemm_dense`` take these Functions whenever autograd or a
-transform follows an operand, on either device: the CPU and the card
-build the same graph.  The wrappers that carry no gradient (K5's
-sparse-output product, and K7, K8 and K9 called directly) raise on such
-an operand (``csr.refuse_tracked``).
+in place.  ``csr.csr_spmm``, ``csr.csr_spmv``, ``bsr.bsr_spmm``,
+``spgemm.csr_spgemm`` and ``spgemm.csr_spgemm_dense`` take these
+Functions whenever autograd or a transform follows an operand, on either
+device: the CPU and the card build the same graph.  The wrappers that
+carry no gradient (K5's fill, and K7, K8, K9 and K11 called directly)
+raise on such an operand (``csr.refuse_tracked``).
 """
 
 import torch
@@ -109,10 +123,11 @@ def _fold(t, dim, size, at):
     return t.contiguous().flatten(at, at + 1)
 
 
-def _batched(info, in_dims, args, apply):
+def _batched(info, in_dims, args, apply, stack=True):
     """A batch of calls whose values are batched too (or, for K7, whose G
     and b are): one call per member (``apply`` on the members'
-    arguments), launched one after another, stacked along dimension 0."""
+    arguments), launched one after another, stacked along dimension 0
+    (with ``stack=False`` the members' results as a list)."""
     size = info.batch_size
     members = [
         a if d is None else a.movedim(d, 0)
@@ -121,14 +136,17 @@ def _batched(info, in_dims, args, apply):
     out = [apply(*[a if d is None else a[i]
                    for a, d in zip(members, in_dims)])
            for i in range(size)]
-    return torch.stack(out), 0
+    return (torch.stack(out), 0) if stack else out
 
 
 class CsrSddmm(torch.autograd.Function):
     """out[p] = alpha * sum_n g[r_p, n] conj(b[c_p, n]) (K7), for the
     backward of ``CsrSpmm`` and ``CsrSpmv``, where ``vmap`` of ``grad``
-    batches it; it is not differentiated itself (that backward is
-    once-differentiable)."""
+    batches it.  Its own derivatives, the second derivatives of those
+    two, run on the same kernels: with W the CSR of P's pattern holding
+    the incoming gradient w, dL/dg = conj(alpha) W b and dL/db = alpha
+    W^H g on K2 (over P and its cached transpose), and the ``jvp`` alpha
+    (dg b^H + g db^H) at P's entries is two K7 launches."""
 
     @staticmethod
     def forward(pattern, g, b, alpha):
@@ -137,7 +155,34 @@ class CsrSddmm(torch.autograd.Function):
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        pass
+        pattern, g, b, alpha = inputs
+        ctx.pattern, ctx.alpha = pattern, alpha
+        ctx.save_for_backward(g, b)
+        ctx.save_for_forward(g, b)
+
+    @staticmethod
+    def backward(ctx, grad):
+        g, b = ctx.saved_tensors
+        pattern, alpha = ctx.pattern, ctx.alpha
+        _, need_g, need_b, _ = ctx.needs_input_grad
+        g_g = g_b = None
+        if need_g:
+            g_g = CsrSpmm.apply(pattern, grad, b, _conj(alpha), None, None)
+        if need_b:
+            t, grad_t = _transposed(pattern, grad)
+            g_b = CsrSpmm.apply(t, grad_t, g, alpha, None, None)
+        return None, g_g, g_b, None
+
+    @staticmethod
+    def jvp(ctx, _pattern, d_g, d_b, _alpha):
+        g, b = ctx.saved_tensors
+        out = None
+        if d_g is not None:
+            out = CsrSddmm.apply(ctx.pattern, d_g, b, ctx.alpha)
+        if d_b is not None:
+            d_out = CsrSddmm.apply(ctx.pattern, g, d_b, ctx.alpha)
+            out = d_out if out is None else out + d_out
+        return out
 
     @staticmethod
     def vmap(info, in_dims, pattern, g, b, alpha):
@@ -163,9 +208,7 @@ class CsrSpmm(torch.autograd.Function):
         ctx.save_for_forward(data, b)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, grad):
-        _first_order_only("CsrSpmm")
         data, b = ctx.saved_tensors
         pattern, alpha = ctx.pattern, _conj(ctx.alpha)
         _, need_data, need_b, _, _, need_c0 = ctx.needs_input_grad
@@ -223,9 +266,7 @@ class CsrSpmv(torch.autograd.Function):
         ctx.save_for_forward(data, x)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, grad):
-        _first_order_only("CsrSpmv")
         data, x = ctx.saved_tensors
         pattern, alpha = ctx.pattern, _conj(ctx.alpha)
         _, need_data, need_x, _, _, need_y0 = ctx.needs_input_grad
@@ -445,6 +486,121 @@ class CsrSpgemmDense(torch.autograd.Function):
     @staticmethod
     def vmap(info, in_dims, *args):
         return _batched(info, in_dims, args, CsrSpgemmDense.apply)
+
+
+class CsrSpgemmSparseSddmm(torch.autograd.Function):
+    """K11's function (``ops/spgemm_grad.csr_spgemm_sparse_sddmm``; the dA
+    form, or the dB form with ``transposed``) for op(A) and op(B) the CSRs
+    of ``a`` and ``b`` (``CsrPattern``s, op(A)'s holding the transpose
+    the dB form reads) with values ``a_data`` and ``b_data``, and G as
+    values ``g`` on the pattern (``c_indptr``, ``c_indices``) of their
+    product as K5 wrote it: the backward's launches of ``CsrSpgemm``, open
+    to the transforms as ``CsrSddmm`` is."""
+
+    @staticmethod
+    def forward(a, a_data, b, b_data, c_indptr, c_indices, g, transposed,
+                triangular):
+        a_data, b_data, g = _plain(a_data, b_data, g)
+        n = b.ncols
+        # K5 writes C's column ids in [0, n): no read of them.
+        c = CsrPattern(c_indptr, c_indices, n, span=(0, n))
+        return spgemm_grad.sparse_sampled(
+            a.indptr, a.indices, a_data, b.indptr, b.indices, b_data,
+            c_indptr, c_indices, g, n, transposed, triangular, a, b, c)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return _batched(info, in_dims, args, CsrSpgemmSparseSddmm.apply)
+
+
+class CsrSpgemmFill(torch.autograd.Function):
+    """K5 alone: the values of op(A) @ op(B) (the CSRs of ``a`` and ``b``
+    with values ``a_data`` and ``b_data``) on the pattern of their
+    product already counted (``c_indptr``, ``nnz`` entries; only j >= i
+    with ``triangular``): the tangents of ``CsrSpgemm``, open to the
+    transforms."""
+
+    @staticmethod
+    def forward(a, a_data, b, b_data, c_indptr, nnz, triangular):
+        a_data, b_data = _plain(a_data, b_data)
+        return spgemm.fill(a.indptr, a.indices, a_data, b.indptr, b.indices,
+                           b_data, b.ncols, None, c_indptr, nnz,
+                           triangular)[1]
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return _batched(info, in_dims, args, CsrSpgemmFill.apply)
+
+
+class CsrSpgemm(torch.autograd.Function):
+    """C = op(A) @ op(B) with sparse output on K4 + K5 (only j >= i with
+    ``triangular``), op(A) and op(B) the CSRs of ``a`` and ``b``
+    (``CsrPattern``s) with values ``a_data`` and ``b_data``: returns C's
+    (indptr, indices, data), differentiable in ``a_data`` and ``b_data``
+    through ``data``; ``indptr`` and ``indices`` carry no gradient.  C's
+    pattern is structural and fixed by the operands' patterns, so G =
+    dL/d(data) lies on it: backward K11 twice (``CsrSpgemmSparseSddmm``),
+    ``jvp`` K5 of (dA, B) plus K5 of (A, dB) on the saved pattern
+    (``CsrSpgemmFill``; no second K4), ``vmap`` one call a member."""
+
+    @staticmethod
+    def forward(a, a_data, b, b_data, triangular):
+        a_data, b_data = _plain(a_data, b_data)
+        return spgemm.product(a.indptr, a.indices, a_data, b.indptr,
+                              b.indices, b_data, b.ncols, triangular)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        a, a_data, b, b_data, triangular = inputs
+        indptr, indices, _ = output
+        ctx.mark_non_differentiable(indptr, indices)
+        ctx.a, ctx.b, ctx.triangular = a, b, triangular
+        ctx.save_for_backward(a_data, b_data, indptr, indices)
+        ctx.save_for_forward(a_data, b_data, indptr, indices)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, _g_indptr, _g_indices, grad):
+        _first_order_only("CsrSpgemm")
+        a_data, b_data, indptr, indices = ctx.saved_tensors
+        need = ctx.needs_input_grad
+
+        def grad_of(transposed):
+            return CsrSpgemmSparseSddmm.apply(ctx.a, a_data, ctx.b, b_data,
+                                              indptr, indices, grad,
+                                              transposed, ctx.triangular)
+
+        return (None, grad_of(False) if need[1] else None, None,
+                grad_of(True) if need[3] else None, None)
+
+    @staticmethod
+    def jvp(ctx, _a, d_a, _b, d_b, _tri):
+        a_data, b_data, indptr, indices = ctx.saved_tensors
+        out = None
+        for a_vals, b_vals in ((d_a, b_data), (a_data, d_b)):
+            if a_vals is None or b_vals is None:
+                continue
+            d_out = CsrSpgemmFill.apply(ctx.a, a_vals, ctx.b, b_vals, indptr,
+                                        indices.numel(), ctx.triangular)
+            out = d_out if out is None else out + d_out
+        return None, None, out
+
+    @staticmethod
+    def vmap(info, in_dims, a, a_data, b, b_data, triangular):
+        # The members share C's pattern: one indptr and indices for all.
+        members = _batched(info, in_dims, (a, a_data, b, b_data, triangular),
+                           CsrSpgemm.apply, stack=False)
+        indptr, indices, _ = members[0]
+        data = torch.stack([member[2] for member in members])
+        return (indptr, indices, data), (None, None, 0)
 
 
 class _CooStructure:

@@ -51,11 +51,15 @@ binary search.  That needs op(B)'s rows sorted: the caller says so
 repeats a column (on both devices, so the plain version and the kernel
 refuse the same inputs).
 
-Gradients: ``csr_spgemm_dense`` with a tracked operand (``csr.tracked``)
-runs ``ops.autograd.CsrSpgemmDense``, K6 forward and K9
-(``ops/spgemm_grad``) for both operands' values backward, on either
-device.  The sparse-output product (``csr_spgemm``, ``csr_spgemm_fill``)
-carries no gradient and raises on a tracked operand.
+Gradients, on either device, when an operand is tracked
+(``csr.tracked``): ``csr_spgemm_dense`` runs
+``ops.autograd.CsrSpgemmDense``, K6 forward and K9
+(``ops/spgemm_grad.csr_spgemm_sddmm``) for both operands' values
+backward; ``csr_spgemm`` runs ``ops.autograd.CsrSpgemm``, K4 + K5 forward
+and K11 (``ops/spgemm_grad.csr_spgemm_sparse_sddmm``) for both operands'
+values backward, with G on C's pattern.  Both are first order only.
+``csr_spgemm_fill`` called directly carries no gradient and raises on a
+tracked operand.
 """
 
 import functools
@@ -224,11 +228,12 @@ def _row_chunks(ub):
         r = end
 
 
-def _expand(a_indptr, a_indices, a_data, b_indptr, b_indices, b_data,
-            a_rows, r0, r1, triangular):
-    """(row, col, value) of every product a(i, k) * b(k, j) of rows
-    [r0, r1), in op(A)'s stored order, then op(B)'s; ``a_data`` None skips
-    the values."""
+def products(a_indptr, a_indices, b_indptr, b_indices, a_rows, r0, r1,
+             triangular):
+    """(p, q, row, col) of every product a(i, k) * b(k, j) of rows
+    [r0, r1), in op(A)'s stored order, then op(B)'s: the positions of its
+    entries of op(A) and op(B) and its entry (i, j) of C, as int64; only
+    j >= i with ``triangular``."""
     p0, p1 = int(a_indptr[r0]), int(a_indptr[r1])
     k = a_indices[p0:p1].long()
     b_start = b_indptr[:-1].long()[k]
@@ -238,12 +243,21 @@ def _expand(a_indptr, a_indices, a_data, b_indptr, b_indices, b_data,
         torch.arange(p1 - p0, device=k.device), count, output_size=total)
     first = torch.cumsum(count, 0) - count
     q = b_start[entry] + torch.arange(total, device=k.device) - first[entry]
-    rows, cols = a_rows[p0:p1][entry], b_indices[q].long()
-    vals = None if a_data is None else a_data[p0:p1][entry] * b_data[q]
+    p = entry + p0
+    rows, cols = a_rows[p].long(), b_indices[q].long()
     if triangular:
         keep = cols >= rows
-        rows, cols = rows[keep], cols[keep]
-        vals = None if vals is None else vals[keep]
+        p, q, rows, cols = p[keep], q[keep], rows[keep], cols[keep]
+    return p, q, rows, cols
+
+
+def _expand(a_indptr, a_indices, a_data, b_indptr, b_indices, b_data,
+            a_rows, r0, r1, triangular):
+    """(row, col, value) of every product of rows [r0, r1)
+    (``products``); ``a_data`` None skips the values."""
+    p, q, rows, cols = products(a_indptr, a_indices, b_indptr, b_indices,
+                                a_rows, r0, r1, triangular)
+    vals = None if a_data is None else a_data[p] * b_data[q]
     return rows, cols, vals
 
 
@@ -481,11 +495,24 @@ def csr_spgemm_fill(a_indptr, a_indices, a_data, b_indptr, b_indices,
     Carries no gradient: raises on a tracked operand
     (``csr.refuse_tracked``)."""
     refuse_tracked("csr_spgemm_fill", a_data, b_data)
+    return fill(a_indptr, a_indices, a_data, b_indptr, b_indices, b_data, n,
+                plan, c_indptr, nnz, triangular, bin_sizes)
+
+
+def fill(a_indptr, a_indices, a_data, b_indptr, b_indices, b_data, n, plan,
+         c_indptr, nnz, triangular=False, bin_sizes=None):
+    """``csr_spgemm_fill`` without the tracked check, for
+    ``ops.autograd``'s Functions: K5 on the card, its plain version on the
+    CPU; counted in ``csr_spgemm_fill.launches``.  ``plan`` None: the
+    plan is built here (``spgemm_plan``: device ops, no K4)."""
     refuse_views("csr_spgemm_fill", a_indptr, a_indices, a_data, b_indptr,
                  b_indices, b_data)
     if a_data.device.type == "cpu":
         return csr_spgemm_fill_plain(a_indptr, a_indices, a_data, b_indptr,
                                      b_indices, b_data, n, triangular)
+    if plan is None:
+        plan = spgemm_plan(a_indptr, a_indices, b_indptr, n, a_data.dtype,
+                           a_indptr.dtype)
     return _fill_launcher(a_indptr, a_indices, a_data, b_indptr, b_indices,
                           b_data, n, plan, c_indptr,
                           triangular)(nnz, bin_sizes)
@@ -547,14 +574,32 @@ def csr_spgemm(a_indptr, a_indices, a_data, b_indptr, b_indices, b_data, n,
     on the card (``PRODUCT_STEPS``; ``marks``, when given, is called with
     each step's name as it ends, to time them); the plain ESC on the CPU.
     Raises (with the ILP64 hint) when int32 indices cannot hold the
-    output's nnz, and on a tracked operand: the sparse output's gradient
-    is not ported (``csr.refuse_tracked``)."""
-    refuse_tracked("csr_spgemm", a_data, b_data)
+    output's nnz.
+
+    When autograd or a ``torch.func`` transform follows ``a_data`` or
+    ``b_data`` (``csr.tracked``), the call goes through
+    ``ops.autograd.CsrSpgemm`` on either device (``marks`` unused): the
+    same launches, and ``data`` carries its gradient (K11 twice on the
+    card, ``ops/spgemm_grad.csr_spgemm_sparse_sddmm``); ``indptr`` and
+    ``indices`` carry none."""
+    if tracked(a_data, b_data):
+        from .autograd import CsrSpgemm, patterns
+
+        return CsrSpgemm.apply(
+            patterns.get(a_indptr, a_indices, b_indptr.numel() - 1), a_data,
+            patterns.get(b_indptr, b_indices, n), b_data, triangular)
+    return product(a_indptr, a_indices, a_data, b_indptr, b_indices, b_data,
+                   n, triangular, marks)
+
+
+def product(a_indptr, a_indices, a_data, b_indptr, b_indices, b_data, n,
+            triangular=False, marks=None):
+    """``csr_spgemm`` without autograd: (indptr, indices, data)."""
     refuse_views("csr_spgemm", a_indptr, a_indices, a_data, b_indptr,
                  b_indices, b_data)
     if a_data.device.type == "cpu":
-        return spgemm_plain(a_indptr, a_indices, a_data, b_indptr,
-                            b_indices, b_data, n, triangular)
+        return spgemm_plain(a_indptr, a_indices, a_data, b_indptr, b_indices,
+                            b_data, n, triangular)
     mark = marks or (lambda step: None)
     m = a_indptr.numel() - 1
     total = torch.zeros(m + 1, dtype=torch.long, device=a_data.device)
@@ -563,15 +608,15 @@ def csr_spgemm(a_indptr, a_indices, a_data, b_indptr, b_indices, b_data, n,
     mark("plan_and_K4")
     total[1:].cumsum_(0)
     indptr = total.to(a_indptr.dtype)
-    fill = _fill_launcher(a_indptr, a_indices, a_data, b_indptr, b_indices,
-                          b_data, n, plan, indptr, triangular)
+    launch = _fill_launcher(a_indptr, a_indices, a_data, b_indptr,
+                            b_indices, b_data, n, plan, indptr, triangular)
     mark("running_sum")
     # The one host sync: the output's size, read with the bin sizes.
     head = torch.cat((total[-1:], plan.offsets)).tolist()
     nnz = head[0]
     _check_index_bounds(nnz, (m, n), a_indptr.dtype)
     mark("nnz_read")
-    indices, data = fill(nnz, np.diff(head[1:]))
+    indices, data = launch(nnz, np.diff(head[1:]))
     mark("K5")
     return indptr, indices, data
 

@@ -1,5 +1,7 @@
-"""Sampled sparse-row product (kernel K9): the value gradients of a sparse
-x sparse product with dense output.
+"""Sampled sparse-row products: the value gradients of a sparse x sparse
+product, with dense output (kernel K9, ``csr_spgemm_sddmm``) and with
+sparse output (kernel K11, ``csr_spgemm_sparse_sddmm``, at the end of
+this module).
 
 ``csr_spgemm_sddmm(indptr, indices, d, y_indptr, y_indices, y_data,
 alpha, transposed)`` gives, for each stored entry p of a CSR P at row
@@ -47,7 +49,7 @@ import numpy as np
 import torch
 
 from ..config import config
-from ..formats import expand_indptr, structure_only
+from ..formats import CsrPattern, expand_indptr, structure_only
 from . import _build
 from .csr import _add_rows, _check, refuse_tracked, refuse_views
 
@@ -366,3 +368,191 @@ def _check_ids(pattern, p_cols, y_pattern, ny, transposed, d_shape):
 
 
 csr_spgemm_sddmm.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K11: the sparse-output product's gradients
+# ---------------------------------------------------------------------------
+#
+# For C = op(A) @ op(B) on its structural pattern (``spgemm.csr_spgemm``:
+# every product a(i, k) b(k, j) has its entry (i, j) in C, each row's
+# columns ascending; only j >= i under ``triangular``) and G = dL/dC given
+# as values ``g`` on C's pattern, as PyTorch's convention for complex
+# gradients has them:
+#
+# - dL/d(op(A)'s values)[p = (i, k)] = sum over j of op(B)'s row k of
+#   G[i, j] conj(op(B)[k, j]) (the dA form);
+# - dL/d(op(B)'s values)[q = (k, j)] = sum over i of op(A)'s column k of
+#   conj(op(A)[i, k]) G[i, j] (the dB form, ``transposed``), which the
+#   kernel reads through op(A)'s cached transposed structure
+#   (``CsrPattern.transpose``), op(A)'s values gathered through its
+#   permutation.
+#
+# K11 (``csrc/csr_spgemm_sparse_sddmm.cu``) replaces XLA's transpose of
+# ``_xla.esc_spgemm_block`` (``sparse_dot_tpu/ops/_xla.py``): ``jax.grad``
+# of the expand-sort-compress product in its values.
+
+# Threads a block of K11 (csrc/csr_spgemm_sparse_sddmm.cu's kThreads), and
+# the shared memory a block gives its groups' staged rows of C (dA form).
+SPARSE_THREADS = 256
+SPARSE_SMEM = 48 * 1024
+
+
+class SparsePlan(NamedTuple):
+    """K11's launch: ``lanes`` a group (a row of P); in the dA form, the
+    entries of the group's row of C it stages in shared memory where the
+    row fits (``cap``; 0: every row searched in place)."""
+
+    lanes: int
+    cap: int
+
+
+def sparse_plan(mean_y_row, itemsize, index_size, transposed, budget=None):
+    """K11's plan for rows of Y (op(B) in the dA form, op(A)^T in the dB
+    form) of ``mean_y_row`` entries on average and values (indices) of
+    ``itemsize`` (``index_size``) bytes: ``sampled_lanes`` lanes a group,
+    and in the dA form each group's even share of ``budget`` bytes
+    (``SPARSE_SMEM``) for its row of C's values and column ids.  The dB
+    form stages nothing: a row of P's products land in many rows of C."""
+    budget = SPARSE_SMEM if budget is None else budget
+    lanes = sampled_lanes(mean_y_row)
+    if transposed:
+        return SparsePlan(lanes, 0)
+    groups = SPARSE_THREADS // lanes
+    return SparsePlan(lanes, budget // (groups * (itemsize + index_size)))
+
+
+def csr_spgemm_sparse_sddmm_plain(a_indptr, a_indices, a_data, b_indptr,
+                                  b_indices, b_data, c_indptr, c_indices, g,
+                                  n, transposed=False, triangular=False):
+    """K11's function in plain PyTorch, read as the JAX package's autodiff
+    reads the ESC product: every product a(i, k) b(k, j) expanded
+    (``spgemm.products``), its entry of C found by ``searchsorted`` on the
+    keys row * n + col, and G there times conj(b) added onto op(A)'s entry
+    (dA form), or conj(a) times G onto op(B)'s (dB form, ``transposed``),
+    by ``index_add_``; chunked as ``spgemm_plain``.  A product whose entry
+    C lacks adds nothing."""
+    from .spgemm import _row_chunks, products, row_bounds
+
+    out = torch.zeros((b_indices if transposed else a_indices).numel(),
+                      dtype=g.dtype, device=g.device)
+    if c_indices.numel() == 0:
+        return out
+    c_keys = (expand_indptr(c_indptr.long(), c_indices.numel()) * n
+              + c_indices.long())
+    last = c_keys.numel() - 1
+    a_rows = expand_indptr(a_indptr.long(), a_indices.numel())
+    for r0, r1 in _row_chunks(row_bounds(a_indptr, a_indices, b_indptr)):
+        p, q, rows, cols = products(a_indptr, a_indices, b_indptr, b_indices,
+                                    a_rows, r0, r1, triangular)
+        key = rows * n + cols
+        at = torch.searchsorted(c_keys, key).clamp_(max=last)
+        found = c_keys[at] == key
+        p, q, at = p[found], q[found], at[found]
+        if transposed:
+            _add_rows(out, q, a_data[p].conj() * g[at])
+        else:
+            _add_rows(out, p, g[at] * b_data[q].conj())
+    return out
+
+
+def csr_spgemm_sparse_sddmm(a_indptr, a_indices, a_data, b_indptr,
+                            b_indices, b_data, c_indptr, c_indices, g, n,
+                            transposed=False, triangular=False):
+    """K11's function (the comment above) for op(A) = (``a_indptr``,
+    ``a_indices``, ``a_data``) of m rows, op(B) = (``b_indptr``,
+    ``b_indices``, ``b_data``) of n columns, and G as values ``g`` on C =
+    op(A) @ op(B)'s pattern (``c_indptr``, ``c_indices``; each row's
+    columns ascending, as ``spgemm.csr_spgemm`` writes them): the dA form,
+    an (nnz(op(A)),) tensor in op(A)'s stored order, or with
+    ``transposed`` the dB form, (nnz(op(B)),) in op(B)'s.  The dA form
+    reads no ``a_data``, the dB form no ``b_data``.  Not differentiable
+    itself (``ops.autograd.CsrSpgemmSparseSddmm`` is): it raises on a
+    tracked operand (``csr.refuse_tracked``), on both devices."""
+    refuse_tracked("csr_spgemm_sparse_sddmm", a_data, b_data, g)
+    return sparse_sampled(a_indptr, a_indices, a_data, b_indptr, b_indices,
+                          b_data, c_indptr, c_indices, g, n, transposed,
+                          triangular)
+
+
+def sparse_sampled(a_indptr, a_indices, a_data, b_indptr, b_indices, b_data,
+                   c_indptr, c_indices, g, n, transposed=False,
+                   triangular=False, a=None, b=None, c=None):
+    """``csr_spgemm_sparse_sddmm`` without the tracked check, for the
+    Function's forward: K11 on the card, the plain version on the CPU;
+    counted in ``csr_spgemm_sparse_sddmm.launches``.  ``a``, ``b`` and
+    ``c`` are op(A)'s, op(B)'s and C's ``CsrPattern``s (op(A)'s holds the
+    cached transpose the dB form reads); when None, the ones
+    ``autograd.patterns`` holds for these index tensors (C's: a new one).
+    On either device it raises ``ValueError`` where the operands do not
+    fit (``_check_sparse_ids``)."""
+    refuse_views("csr_spgemm_sparse_sddmm", a_indptr, a_indices, a_data,
+                 b_indptr, b_indices, b_data, c_indptr, c_indices, g)
+    from .autograd import patterns
+
+    k = b_indptr.numel() - 1
+    if a is None:
+        a = patterns.get(a_indptr, a_indices, k)
+    if b is None:
+        b = patterns.get(b_indptr, b_indices, n)
+    if c is None:
+        c = CsrPattern(c_indptr, c_indices, n)
+    _check_sparse_ids(a, a_data, b, b_data, c, g)
+    if g.device.type == "cpu":
+        return csr_spgemm_sparse_sddmm_plain(
+            a_indptr, a_indices, a_data, b_indptr, b_indices, b_data,
+            c_indptr, c_indices, g, n, transposed, triangular)
+    if not g.is_cuda:
+        raise ValueError(f"csr_spgemm_sparse_sddmm: no kernel for device "
+                         f"{g.device}")
+    _check("csr_spgemm_sparse_sddmm",
+           (a_indptr, a_indices, b_indptr, b_indices, c_indptr, c_indices),
+           (a_data, b_data, g))
+    if transposed:
+        t, order = a.transpose()
+        p, y, y_data = b, t, a_data[order]
+    else:
+        p, y, y_data = a, b, b_data
+    out = torch.empty(p.nnz, dtype=g.dtype, device=g.device)
+    if p.nnz == 0:
+        return out
+    plan = sparse_plan(y.nnz / max(k, 1), g.element_size(),
+                       a_indptr.element_size(), transposed)
+    _build.launch(
+        "sdt_csr_spgemm_sparse_sddmm", *_build.type_codes(g, a_indptr),
+        p.indptr.data_ptr(), p.indices.data_ptr(), p.shape[0],
+        y.indptr.data_ptr(), y.indices.data_ptr(), y_data.data_ptr(),
+        c_indptr.data_ptr(), c_indices.data_ptr(), g.data_ptr(),
+        out.data_ptr(), int(transposed), int(triangular), plan.lanes,
+        plan.cap, _build.stream_of(g),
+    )
+    csr_spgemm_sparse_sddmm.launches += 1
+    return out
+
+
+def _check_sparse_ids(a, a_data, b, b_data, c, g):
+    """Raises ``ValueError`` where K11's operands do not fit: op(A)'s
+    column ids outside op(B)'s k rows, op(B)'s or C's outside the n
+    columns, C's rows other than op(A)'s m, or a value tensor whose length
+    is not its pattern's nnz.  The ids' spans are read once per
+    pattern."""
+    (m, k), n = a.shape, b.ncols
+    if b.shape[0] != k or c.shape != (m, n):
+        raise ValueError(
+            f"csr_spgemm_sparse_sddmm: op(A) {a.shape}, op(B) {b.shape} "
+            f"and C {c.shape} do not fit")
+    for what, data, name, pat in (("op(A)'s values", a_data, "op(A)", a),
+                                  ("op(B)'s values", b_data, "op(B)", b),
+                                  ("G", g, "C", c)):
+        if data.dim() != 1 or data.numel() != pat.nnz:
+            raise ValueError(
+                f"csr_spgemm_sparse_sddmm: {what} {tuple(data.shape)} do "
+                f"not fit the {pat.nnz} entries of {name}")
+        lo, hi = pat.column_span()
+        if lo < 0 or hi > pat.ncols:
+            raise ValueError(
+                f"csr_spgemm_sparse_sddmm: {name}'s column ids span "
+                f"[{lo}, {hi}), outside its {pat.ncols} columns")
+
+
+csr_spgemm_sparse_sddmm.launches = 0

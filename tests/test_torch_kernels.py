@@ -489,15 +489,19 @@ def launch_counts():
     return (csr.csr_spmm.launches, csr.csr_spmv.launches,
             bsr.bsr_spmm.launches, sddmm.csr_sddmm.launches,
             spgemm.csr_spgemm_dense.launches, bsr.bsr_sddmm.launches,
-            spgemm_grad.csr_spgemm_sddmm.launches)
+            spgemm_grad.csr_spgemm_sddmm.launches,
+            spgemm.csr_spgemm_count.launches,
+            spgemm.csr_spgemm_fill.launches,
+            spgemm_grad.csr_spgemm_sparse_sddmm.launches)
 
 
 @pytest.mark.parametrize("tracked", [False, True])
 def test_cpu_tensors_take_plain_version_without_counting(tracked):
-    """On CPU tensors K1, K2, K3, K6 and K7's wrappers give their plain
-    versions' results and count no launch; with ``tracked`` K1, K2, K3
-    and K6 take the autograd Functions (operands requiring grad), whose
-    forward and backward (K7, K8 and K9 among them) count none either."""
+    """On CPU tensors K1, K2, K3, K4 + K5, K6 and K7's wrappers give their
+    plain versions' results and count no launch; with ``tracked`` K1, K2,
+    K3, K4 + K5 and K6 take the autograd Functions (operands requiring
+    grad), whose forward and backward (K7, K8, K9 and K11 among them)
+    count none either."""
     rng = np.random.default_rng(51)
     # Rows of distinct columns: its first rows are K6's op(B).
     indptr, indices, data = random_csr(rng, 10, 8, 3, np.float64,
@@ -524,10 +528,15 @@ def test_cpu_tensors_take_plain_version_without_counting(tracked):
     assert_close(c6.detach(), spgemm.csr_spgemm_dense_plain(
         ip, ix, t(data), ip[:9], ix[:int(ip[8])], t(data[:int(ip[8])]),
         8).numpy(), np.float64)
+    c5 = spgemm.csr_spgemm(ip, ix, dv, ip[:9], ix[:int(ip[8])],
+                           dv[:int(ip[8])], 8)[2]
+    assert_close(c5.detach(), spgemm.spgemm_plain(
+        ip, ix, t(data), ip[:9], ix[:int(ip[8])], t(data[:int(ip[8])]),
+        8)[2].numpy(), np.float64)
     assert_close(sddmm.csr_sddmm(ip, ix, t(g), t(b)),
                  sddmm.csr_sddmm_plain(ip, ix, t(g), t(b)).numpy(),
                  np.float64)
-    for result in (out, y, c1, c6):
+    for result in (out, y, c1, c6, c5):
         assert (result.grad_fn is not None) == tracked
     if tracked:
         ((out * t(g)).sum() + y.sum()).backward()
@@ -540,17 +549,17 @@ def test_cpu_tensors_take_plain_version_without_counting(tracked):
         assert_close(dv.grad, sddmm.csr_sddmm_plain(
             ip, ix, t(g), t(b)).numpy(), np.float64)
         c6.sum().backward()
+        c5.sum().backward()
     assert launch_counts() == before
 
 
-@pytest.mark.parametrize("kernel", ["K5_product", "K5_fill", "K7", "K8",
-                                    "K9"])
+@pytest.mark.parametrize("kernel", ["K11", "K5_fill", "K7", "K8", "K9"])
 def test_wrappers_refuse_tracked_operands(kernel):
     """A wrapper whose kernel carries no gradient raises on an operand
     that requires grad, on the CPU as on the card (where its kernel would
-    write a tensor with no grad_fn): K5's sparse-output product and fill,
-    and K7, K8 and K9 called directly; the same call on detached operands
-    runs."""
+    write a tensor with no grad_fn): K5's fill, and K7, K8, K9 and K11
+    called directly (``csr_spgemm``, K4 + K5, carries a gradient through
+    K11); the same call on detached operands runs."""
     rng = np.random.default_rng(65)
     indptr, indices, data = random_csr(rng, 6, 6, 2, np.float64)
     ip, ix = t(indptr), t(indices)
@@ -558,8 +567,11 @@ def test_wrappers_refuse_tracked_operands(kernel):
     g = t(values(rng, (6, 6), np.float64)).requires_grad_()
 
     def call(dv, g):
-        if kernel == "K5_product":
-            return spgemm.csr_spgemm(ip, ix, dv, ip, ix, dv, 6)
+        if kernel == "K11":
+            c_ip, c_ix, c_dv = spgemm.spgemm_plain(ip, ix, dv.detach(), ip,
+                                                   ix, dv.detach(), 6)
+            return spgemm_grad.csr_spgemm_sparse_sddmm(
+                ip, ix, dv, ip, ix, dv, c_ip, c_ix, c_dv, 6, True)
         if kernel == "K5_fill":
             c_ip = spgemm.spgemm_plain(ip, ix, dv.detach(), ip, ix,
                                        dv.detach(), 6)[0]
@@ -576,10 +588,11 @@ def test_wrappers_refuse_tracked_operands(kernel):
     call(dv.detach(), g.detach())
 
 
-@pytest.mark.parametrize("kernel", ["K1", "K6"])
+@pytest.mark.parametrize("kernel", ["K1", "K5", "K6"])
 def test_tracked_k1_and_k6_carry_gradients(kernel):
-    """K1 and K6 take their Functions for a tracked operand on either
-    device: the result's node is ``BsrSpmmBackward`` or
+    """K1, K5 (the sparse-output product, K4 + K5) and K6 take their
+    Functions for a tracked operand on either device: the result's node
+    is ``BsrSpmmBackward``, ``CsrSpgemmBackward`` or
     ``CsrSpgemmDenseBackward``, and its gradient equals the one torch
     takes through the plain version."""
     rng = np.random.default_rng(66)
@@ -593,6 +606,11 @@ def test_tracked_k1_and_k6_carry_gradients(kernel):
         out = bsr.bsr_spmm(ip, ix, dv.reshape(-1, 1, 1), w)
         ref = bsr.bsr_spmm_plain(ip, ix, ref_dv.reshape(-1, 1, 1), w)
         name = "BsrSpmmBackward"
+    elif kernel == "K5":
+        out = spgemm.csr_spgemm(ip, ix, dv, ip, ix, dv.detach(), 6)[2]
+        ref = spgemm.spgemm_plain(ip, ix, ref_dv, ip, ix, t(data), 6)[2]
+        w = t(values(rng, out.numel(), np.float64))
+        name = "CsrSpgemmBackward"
     else:
         out = spgemm.csr_spgemm_dense(ip, ix, dv, ip, ix, dv.detach(), 6)
         ref = spgemm.csr_spgemm_dense_plain(ip, ix, ref_dv, ip, ix,

@@ -1,0 +1,420 @@
+"""Gradients of the port's sparse x sparse product with sparse output
+(``ops.spgemm.csr_spgemm`` through ``ops.autograd.CsrSpgemm``, backward on
+K11's function ``ops.spgemm_grad.csr_spgemm_sparse_sddmm``) against a numpy
+oracle and against ``jax.grad`` of the JAX package's
+``_xla.esc_spgemm_block``.
+
+For C = op(A) op(B) on its structural pattern and G = dL/d(C's values) on
+that pattern, the gradient in op(A)'s values is (G op(B)^H) at op(A)'s
+entries and in op(B)'s values (op(A)^H G) at op(B)'s, G read as a dense
+matrix that is zero off C's pattern (under ``triangular`` the pattern
+holds only j >= i).  On the CPU the Function runs the plain versions of
+K4, K5 and K11; ``chip_smoke.py`` runs the same graph on the kernels.
+
+Tolerances: rtol 1e-12 (atol 1e-12 times the largest gradient) in float64
+and complex128, 1e-5 in float32 and complex64, on values of order 1; the
+two sides sum in different orders.  ``esc_spgemm_block`` keeps float64
+values whole (its back half sorts and adds them exactly), so the port is
+held to ``jax.grad`` at rtol 1e-12 too.
+"""
+
+import numpy as np
+import numpy.testing as npt
+import pytest
+import scipy.sparse as sps
+import torch
+
+import jax
+import jax.numpy as jnp
+
+import sparse_dot_tpu  # noqa: F401  (enables x64 before any JAX array)
+from sparse_dot_tpu.ops import _xla
+
+from sparse_dot_tpu_torch.config import config
+from sparse_dot_tpu_torch.ops import spgemm, spgemm_grad
+
+M, K, N = 7, 9, 8
+TOL = {np.float32: 1e-5, np.complex64: 1e-5, np.float64: 1e-12,
+       np.complex128: 1e-12}
+
+
+@pytest.fixture(autouse=True)
+def on_the_cpu():
+    """The port runs on the card unless asked otherwise; these tests ask
+    for the CPU, where its wrappers take their plain versions, with one
+    intra-op thread (``gradcheck`` runs thousands of small operations,
+    whose parallel regions stall when test processes share the cores)."""
+    saved = config.device, torch.get_num_threads()
+    config.device = "cpu"
+    torch.set_num_threads(1)
+    yield
+    config.device = saved[0]
+    torch.set_num_threads(saved[1])
+
+
+def close(port, ref, tol=1e-12):
+    if isinstance(port, torch.Tensor):
+        port = port.detach().numpy()
+    ref = np.asarray(ref)
+    scale = np.abs(ref).max() if ref.size else 0.0
+    npt.assert_allclose(port, ref, rtol=tol, atol=tol * max(scale, 1.0))
+
+
+def values(rng, size, dtype):
+    v = rng.standard_normal(size)
+    if np.dtype(dtype).kind == "c":
+        v = v + 1j * rng.standard_normal(size)
+    return v.astype(dtype)
+
+
+def operands(dtype, seed, m=M, k=K, n=N, empty=True):
+    """Random CSR op(A) (m x k) and op(B) (k x n), with an empty row each
+    (``empty``); canonical rows (op(B) repeats no column in a row)."""
+    rng = np.random.default_rng(seed)
+    a = sps.random(m, k, density=0.4, format="lil", random_state=seed)
+    b = sps.random(k, n, density=0.4, format="lil", random_state=seed + 1)
+    if empty:
+        a[3, :] = 0
+        b[2, :] = 0
+    a, b = (x.tocsr().astype(dtype) for x in (a, b))
+    for x in (a, b):
+        x.data = values(rng, x.nnz, dtype)
+    return a, b
+
+
+def arrays(x, itype=np.int32, requires_grad=True):
+    return (torch.tensor(x.indptr.astype(itype)),
+            torch.tensor(x.indices.astype(itype)),
+            torch.tensor(x.data, requires_grad=requires_grad))
+
+
+def sampled(dense, x):
+    """``dense`` at the entries of CSR x, in x's stored order."""
+    rows = np.repeat(np.arange(x.shape[0]), np.diff(x.indptr))
+    return dense[rows, x.indices]
+
+
+def on_pattern(ip, ix, vals, shape):
+    """The dense matrix of values ``vals`` on the CSR pattern (ip, ix)."""
+    return sps.csr_matrix((np.asarray(vals), np.asarray(ix),
+                           np.asarray(ip)), shape=shape).toarray()
+
+
+def product(a, b, itype=np.int32, triangular=False):
+    """(C's indptr, indices, data, op(A)'s values, op(B)'s values) of
+    ``csr_spgemm`` with both operands' values tracked."""
+    a_ip, a_ix, a_dv = arrays(a, itype)
+    b_ip, b_ix, b_dv = arrays(b, itype)
+    c = spgemm.csr_spgemm(a_ip, a_ix, a_dv, b_ip, b_ix, b_dv, b.shape[1],
+                          triangular)
+    return (*c, a_dv, b_dv)
+
+
+def oracle(a, b, w):
+    """(dL/d(op(A)'s values), dL/d(op(B)'s values)) for G = ``w`` dense."""
+    return (sampled(w @ b.toarray().conj().T, a),
+            sampled(a.toarray().conj().T @ w, b))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64, np.complex64,
+                                   np.complex128])
+@pytest.mark.parametrize("itype", [np.int32, np.int64])
+@pytest.mark.parametrize("triangular", [False, True])
+def test_grads_match_numpy_oracle(dtype, itype, triangular):
+    """The result carries ``CsrSpgemmBackward`` (indptr and indices no
+    gradient); the result and both operands' gradients of
+    sum(Re(C conj(W))) against the numpy oracle, with empty rows in both
+    operands, in each value type and index width, with and without
+    ``triangular``."""
+    a, b = operands(dtype, 40)
+    ip, ix, data, a_dv, b_dv = product(a, b, itype, triangular)
+    assert type(data.grad_fn).__name__ == "CsrSpgemmBackward"
+    assert ip.grad_fn is None and ix.grad_fn is None
+    assert ip.dtype == ix.dtype == torch.from_numpy(np.zeros(0, itype)).dtype
+    prod = (a.astype(np.complex128) @ b.astype(np.complex128)).toarray()
+    c = on_pattern(ip, ix, data.detach(), (M, N))
+    close(c, np.triu(prod) if triangular else prod, TOL[dtype])
+    w = values(np.random.default_rng(41), data.numel(), dtype)
+    (data * torch.tensor(w).conj()).real.sum().backward()
+    ref_a, ref_b = oracle(a, b, on_pattern(ip, ix, w, (M, N)))
+    close(a_dv.grad, ref_a, TOL[dtype])
+    close(b_dv.grad, ref_b, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.complex128])
+def test_explicit_zeros_and_cancelled_sums(dtype):
+    """A stored zero of op(A) and a sum that cancels exactly keep their
+    entries of C (the pattern is structural), and the gradient reaches
+    them: the stored zero's gradient is G op(B)^H there, not 0, and so
+    are the gradients of the entries whose products cancel."""
+    a = sps.csr_matrix((np.array([1.0, 1.0, 0.0, 2.0], dtype),
+                        np.array([0, 1, 2, 0]), np.array([0, 3, 4])),
+                       shape=(2, 3))
+    b = sps.csr_matrix((np.array([1.0, -1.0, 3.0, 0.5], dtype),
+                        np.array([0, 0, 1, 1]), np.array([0, 1, 2, 4])),
+                       shape=(3, 2))
+    ip, ix, data, a_dv, b_dv = product(a, b)
+    # Row 0, column 0: 1 * 1 + 1 * (-1) = 0, stored; column 1 from the
+    # stored zero of op(A) alone: 0 * 0.5, stored.
+    assert ip.tolist() == [0, 2, 3] and ix.tolist() == [0, 1, 0]
+    assert data.detach().tolist()[:2] == [0.0, 0.0]
+    w = values(np.random.default_rng(42), data.numel(), dtype)
+    (data * torch.tensor(w).conj()).real.sum().backward()
+    ref_a, ref_b = oracle(a, b, on_pattern(ip, ix, w, (2, 2)))
+    close(a_dv.grad, ref_a)
+    close(b_dv.grad, ref_b)
+    assert a_dv.grad[2] != 0 and (a_dv.grad[:2] != 0).all()
+
+
+@pytest.mark.parametrize("case", ["empty_rows", "no_entry_of_a",
+                                  "no_product"])
+def test_empty_rows_and_no_entries(case):
+    """Operands with many empty rows, op(A) with no entry, and operands
+    whose entries meet nowhere (C has no entry): the gradients have the
+    operands' lengths and equal the oracle (zeros where no product
+    reaches an entry)."""
+    if case == "empty_rows":
+        a, b = operands(np.float64, 43, m=12, k=10, n=6)
+        a = a.tolil()
+        a[::2, :] = 0
+        b = b.tolil()
+        b[1::3, :] = 0
+        a, b = a.tocsr(), b.tocsr()
+    elif case == "no_entry_of_a":
+        a = sps.csr_matrix((M, K))
+        b = operands(np.float64, 44)[1]
+    else:  # op(A) names only op(B)'s empty row 2
+        a = sps.csr_matrix((np.ones(3), np.full(3, 2), np.array(
+            [0, 1, 1, 2, 2, 2, 3, 3])), shape=(M, K))
+        b = operands(np.float64, 44)[1]
+    ip, ix, data, a_dv, b_dv = product(a, b)
+    if case != "empty_rows":
+        assert data.numel() == 0
+    w = values(np.random.default_rng(45), data.numel(), np.float64)
+    (data * torch.tensor(w)).sum().backward()
+    ref_a, ref_b = oracle(a, b, on_pattern(ip, ix, w, (a.shape[0],
+                                                        b.shape[1])))
+    if case == "no_entry_of_a":
+        assert a_dv.grad is None or a_dv.grad.numel() == 0
+    else:
+        close(a_dv.grad, ref_a)
+    close(b_dv.grad, ref_b)
+
+
+def esc_block(a, b, a_chans, b_chans, triangular):
+    """``_xla.esc_spgemm_block`` over all of op(A)'s rows as one block
+    (row offset 0, no padding, 32-bit keys, co-sorted values): C's
+    values, one array a channel, in (row, column) order."""
+    m, n = a.shape[0], b.shape[1]
+    counts = np.diff(b.indptr)[a.indices]
+    offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    e_total = int(offsets[-1])
+    longest = int(np.diff(a.indptr).max())
+    out = _xla.esc_spgemm_block(
+        jnp.asarray(np.repeat(np.arange(m), np.diff(a.indptr)), jnp.int32),
+        jnp.asarray(a.indices, jnp.int32), a_chans, jnp.asarray(offsets),
+        jnp.asarray(e_total, jnp.int32), jnp.asarray(b.indptr, jnp.int32),
+        jnp.asarray(b.indices, jnp.int32), b_chans,
+        jnp.asarray(0, jnp.int32), e_pad=e_total, mb=m, n=n,
+        nchan=a_chans.shape[0], key64=False,
+        dup_passes=int(np.ceil(np.log2(max(longest, 1)))),
+        triangular=triangular, perm_sort=False)
+    count = int(out[-1])
+    return [v[:count] for v in out[1:-1]]
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.complex128])
+@pytest.mark.parametrize("triangular", [False, True])
+def test_grads_match_jax_esc(dtype, triangular):
+    """Gradients of sum(Re(C conj(W))) against ``jax.grad`` of
+    ``esc_spgemm_block`` called directly with one row block: float64
+    through one channel; complex128 through two planar channels (re, im),
+    where the port's gradient is PyTorch's combination of the channels'
+    ``jax.grad``s, d/d(re) + i d/d(im).  The forward equals the block's
+    values too."""
+    a, b = operands(dtype, 46)
+    ip, ix, data, a_dv, b_dv = product(a, b, triangular=triangular)
+    w = values(np.random.default_rng(47), data.numel(), dtype)
+
+    def planes(x):
+        return jnp.asarray(np.stack([x.real, x.imag]) if
+                           np.iscomplexobj(x) else x[None])
+
+    w_planes = planes(w)
+
+    def jax_loss(a_chans, b_chans):
+        c = esc_block(a, b, a_chans, b_chans, triangular)
+        return sum(jnp.sum(ch * wp) for ch, wp in zip(c, w_planes))
+
+    ga, gb = jax.grad(jax_loss, argnums=(0, 1))(planes(a.data),
+                                                planes(b.data))
+    c = esc_block(a, b, planes(a.data), planes(b.data), triangular)
+    complex_ = np.iscomplexobj(w)
+    close(data, (c[0] + 1j * c[1]) if complex_ else c[0])
+    (data * torch.tensor(w).conj()).real.sum().backward()
+    for port, ref in ((a_dv.grad, ga), (b_dv.grad, gb)):
+        ref = np.asarray(ref)
+        close(port, ref[0] + 1j * ref[1] if complex_ else ref[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.complex128])
+@pytest.mark.parametrize("triangular", [False, True])
+def test_gradcheck_with_forward_ad(dtype, triangular):
+    """``torch.autograd.gradcheck`` in both operands' values, reverse and
+    forward mode (the tangent: K5 of (dA, B) plus K5 of (A, dB))."""
+    npdt = np.dtype(str(dtype).removeprefix("torch."))
+    a, b = operands(npdt, 48)
+    a_ip, a_ix, a_dv = arrays(a)
+    b_ip, b_ix, b_dv = arrays(b)
+    assert torch.autograd.gradcheck(
+        lambda av, bv: spgemm.csr_spgemm(a_ip, a_ix, av, b_ip, b_ix, bv, N,
+                                         triangular)[2],
+        (a_dv, b_dv), check_forward_ad=True)
+
+
+def test_func_grad_and_vmap():
+    """``torch.func.grad`` in both operands' values, and ``vmap`` of it
+    over a batch of weights (K11 once a member), equal the autograd
+    gradients; ``vmap`` over op(A)'s values gives each member's values on
+    the one pattern; ``torch.func.jvp`` equals the product of the
+    tangent (the product is linear in op(A)'s values), and ``jacfwd``
+    ``jacrev``."""
+    a, b = operands(np.float64, 49)
+    a_ip, a_ix, a_dv = arrays(a, requires_grad=False)
+    b_ip, b_ix, b_dv = arrays(b, requires_grad=False)
+
+    def values_of(av, bv, triangular=True):
+        return spgemm.csr_spgemm(a_ip, a_ix, av, b_ip, b_ix, bv, N,
+                                 triangular)[2]
+
+    nnz = values_of(a_dv, b_dv).numel()
+    ws = torch.tensor(values(np.random.default_rng(50), (3, nnz),
+                             np.float64))
+
+    def loss(av, bv, w):
+        return (values_of(av, bv) * w).sum()
+
+    grads = torch.func.vmap(torch.func.grad(loss, argnums=(0, 1)),
+                            in_dims=(None, None, 0))(a_dv, b_dv, ws)
+    for i in range(3):
+        av, bv = a_dv.clone().requires_grad_(), b_dv.clone().requires_grad_()
+        loss(av, bv, ws[i]).backward()
+        single = torch.func.grad(loss, argnums=(0, 1))(a_dv, b_dv, ws[i])
+        for got in (grads[0][i], single[0]):
+            close(got, av.grad)
+        for got in (grads[1][i], single[1]):
+            close(got, bv.grad)
+    avs = torch.stack([a_dv, 2 * a_dv, -a_dv])
+    out = torch.func.vmap(lambda av: values_of(av, b_dv, False))(avs)
+    for i in range(3):
+        close(out[i], spgemm.spgemm_plain(a_ip, a_ix, avs[i], b_ip, b_ix,
+                                          b_dv, N)[2])
+    primal, tangent = torch.func.jvp(lambda av: values_of(av, b_dv),
+                                     (a_dv,), (2 * a_dv,))
+    close(tangent, 2 * primal)
+    # jacfwd is vmap of jvp: the tangents' K5 fills, one a member.
+    close(torch.func.jacfwd(values_of, argnums=(0, 1))(a_dv, b_dv)[1],
+          torch.func.jacrev(values_of, argnums=(0, 1))(a_dv, b_dv)[1])
+
+
+def test_second_order_raises():
+    """The backward is once-differentiable: differentiating a gradient
+    raises, through ``torch.autograd`` and through ``torch.func``."""
+    a, b = operands(np.float64, 51)
+    a_ip, a_ix, a_dv = arrays(a)
+    b_ip, b_ix, b_dv = arrays(b, requires_grad=False)
+
+    def f(av):
+        return (spgemm.csr_spgemm(a_ip, a_ix, av, b_ip, b_ix, b_dv, N)[2]
+                ** 2).sum()
+
+    (g,) = torch.autograd.grad(f(a_dv), a_dv, create_graph=True)
+    with pytest.raises(RuntimeError, match="once_differentiable"):
+        g.sum().backward()
+    with pytest.raises(RuntimeError, match="once_differentiable"):
+        torch.func.grad(lambda av: torch.func.grad(f)(av).sum())(
+            a_dv.detach())
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64, np.complex64,
+                                   np.complex128])
+@pytest.mark.parametrize("transposed", [False, True])
+def test_plain_forms_against_dense_einsum(dtype, transposed):
+    """``csr_spgemm_sparse_sddmm_plain`` against a dense einsum: the dA
+    form equals (G conj(op(B))^T) at op(A)'s entries, the dB form
+    (conj(op(A))^T G) at op(B)'s, G dense and zero off C's pattern, with
+    every product in one chunk or in chunks of a few;
+    ``csr_spgemm_sparse_sddmm`` on CPU tensors is the plain version, and
+    called directly it raises on a tracked operand."""
+    a, b = operands(dtype, 52)
+    a_ip, a_ix, a_dv = arrays(a, requires_grad=False)
+    b_ip, b_ix, b_dv = arrays(b, requires_grad=False)
+    c_ip, c_ix, _ = spgemm.spgemm_plain(a_ip, a_ix, a_dv, b_ip, b_ix, b_dv,
+                                        N)
+    g = values(np.random.default_rng(53), c_ix.numel(), dtype)
+    gd = on_pattern(c_ip, c_ix, g, (M, N))
+    dense = (np.einsum("ij,kj->ik", gd, b.toarray().conj()) if not
+             transposed else np.einsum("ik,ij->kj", a.toarray().conj(), gd))
+    ref = sampled(dense, b if transposed else a)
+    args = (a_ip, a_ix, a_dv, b_ip, b_ix, b_dv, c_ip, c_ix, torch.tensor(g),
+            N, transposed)
+    tol = TOL[dtype]
+    close(spgemm_grad.csr_spgemm_sparse_sddmm_plain(*args), ref, tol)
+    close(spgemm_grad.csr_spgemm_sparse_sddmm(*args), ref, tol)
+    saved = config.spmm_chunk_elements
+    try:
+        config.spmm_chunk_elements = 3
+        close(spgemm_grad.csr_spgemm_sparse_sddmm_plain(*args), ref, tol)
+    finally:
+        config.spmm_chunk_elements = saved
+    with pytest.raises(ValueError, match="carries no gradient"):
+        spgemm_grad.csr_spgemm_sparse_sddmm(
+            *args[:8], args[8].clone().requires_grad_(), *args[9:])
+
+
+@pytest.mark.parametrize("case", ["c_rows", "g_length", "a_past_b",
+                                  "c_past_n"])
+def test_sparse_sampled_product_refuses_operands_that_do_not_fit(case):
+    """``csr_spgemm_sparse_sddmm`` raises ``ValueError`` on the CPU, as
+    on the card, where K11 would read past an operand: C with other rows
+    than op(A), G of another length than C's entries, op(A)'s column ids
+    past op(B)'s rows, C's column ids past n."""
+    a, b = operands(np.float64, 54)
+    a_ip, a_ix, a_dv = arrays(a, requires_grad=False)
+    b_ip, b_ix, b_dv = arrays(b, requires_grad=False)
+    c_ip, c_ix, c_dv = spgemm.spgemm_plain(a_ip, a_ix, a_dv, b_ip, b_ix,
+                                           b_dv, N)
+    args = [a_ip, a_ix, a_dv, b_ip, b_ix, b_dv, c_ip, c_ix, c_dv, N]
+    if case == "c_rows":
+        args[6:8], match = (c_ip[:-1], c_ix[:int(c_ip[-2])]), "and C \\("
+        args[8] = c_dv[:int(c_ip[-2])]
+    elif case == "g_length":
+        args[8], match = c_dv[1:], "G \\("
+    elif case == "a_past_b":  # op(B)'s first K - 1 rows: op(A) names K - 1
+        args[3:6] = b_ip[:-1], b_ix[:int(b_ip[-2])], b_dv[:int(b_ip[-2])]
+        match = "op\\(A\\)'s column ids"
+    else:
+        args[7], match = c_ix.clone(), "C's column ids"
+        args[7][0] = N
+    for transposed in (False, True):
+        with pytest.raises(ValueError, match=match):
+            spgemm_grad.csr_spgemm_sparse_sddmm(*args, transposed)
+
+
+@pytest.mark.parametrize("mean_row, itemsize, index_size, transposed, "
+                         "budget, want", [
+                             (106, 8, 4, False, None, (32, 512)),
+                             (2, 8, 4, False, None, (1, 16)),
+                             (6, 16, 8, False, None, (4, 32)),
+                             (106, 8, 4, False, 0, (32, 0)),
+                             (106, 8, 4, False, 200 * 1024, (32, 2133)),
+                             (106, 8, 4, True, None, (32, 0)),
+                             (3, 4, 4, True, None, (2, 0)),
+                         ])
+def test_sparse_plan(mean_row, itemsize, index_size, transposed, budget,
+                     want):
+    """K11's plan: K9's lanes for Y's mean row; in the dA form each
+    group's share of the budget for its staged row of C (values and
+    column ids), in the dB form nothing staged."""
+    assert tuple(spgemm_grad.sparse_plan(mean_row, itemsize, index_size,
+                                         transposed, budget)) == want

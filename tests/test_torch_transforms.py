@@ -182,29 +182,112 @@ def test_gradcheck_with_forward_ad(coo, dtype):
         (va, b, c0), check_forward_ad=True)
 
 
-def test_second_order_raises(coo):
-    """The backward is once-differentiable: differentiating a gradient
-    raises rather than returning a wrong second derivative, through
-    ``torch.autograd`` and through ``torch.func`` (``grad`` and ``jvp``
-    of ``grad``)."""
+def loss_and_operand(coo, op, rng):
+    """(torch loss, JAX loss, values, x or b) of a non-quadratic loss,
+    sum(sin(A x)) through ``coo_spmv`` or sum(sin(A b)) through
+    ``coo_spmm_raw`` (b of two columns), on coo's pattern, f64."""
     rows, cols, vals = coo
+    (tr, jr), (tc, jc) = both(rows, cols)
+    dense = values(rng, K if op == "coo_spmv" else (K, 2), np.float64)
+    torch_fn, jax_fn = ((coo_spmv, _xla.coo_spmv) if op == "coo_spmv"
+                        else (coo_spmm_raw, _xla.coo_spmm_raw))
+
+    def torch_loss(v, d):
+        return torch.sin(torch_fn(tr, tc, v, d, M)).sum()
+
+    def jax_loss(v, d):
+        return jnp.sum(jnp.sin(jax_fn(jr, jc, v, d, M)))
+
+    return torch_loss, jax_loss, vals, dense
+
+
+@pytest.mark.parametrize("op", ["coo_spmv", "coo_spmm_raw"])
+@pytest.mark.parametrize("how", ["hessian", "double_backward"])
+def test_hessian_matches_jax(coo, op, how):
+    """Second derivatives in (values, x or b) of a non-quadratic loss
+    equal ``jax.hessian``'s of ``_xla.coo_spmv`` / ``coo_spmm_raw`` on the
+    same numpy inputs, f64, rtol 1e-10: the whole Hessian by
+    ``torch.func.hessian``, or Hessian-vector products by double backward
+    (``create_graph``) along a random direction; the backward's own
+    derivatives run K2 and K7 again (``CsrSddmm``'s backward)."""
+    rng = np.random.default_rng(5)
+    torch_loss, jax_loss, vals, dense = loss_and_operand(coo, op, rng)
+    jh = jax.hessian(jax_loss, argnums=(0, 1))(jnp.asarray(vals),
+                                               jnp.asarray(dense))
+    if how == "hessian":
+        th = torch.func.hessian(torch_loss, argnums=(0, 1))(
+            torch.tensor(vals), torch.tensor(dense))
+        for i in range(2):
+            for j in range(2):
+                close(th[i][j], jh[i][j])
+        return
+    u = [values(rng, x.shape, np.float64) for x in (vals, dense)]
     v = torch.tensor(vals, requires_grad=True)
-    b = torch.tensor(values(np.random.default_rng(3), (K, N), np.float64))
-    loss = (coo_spmm_raw(torch.tensor(rows), torch.tensor(cols), v, b, M)
-            ** 2).sum()
-    (g,) = torch.autograd.grad(loss, v, create_graph=True)
-    with pytest.raises(RuntimeError, match="once_differentiable"):
-        g.sum().backward()
+    d = torch.tensor(dense, requires_grad=True)
+    grads = torch.autograd.grad(torch_loss(v, d), (v, d), create_graph=True)
+    dot = sum((g * torch.tensor(w)).sum() for g, w in zip(grads, u))
+    hvp = torch.autograd.grad(dot, (v, d))
+    for i, got in enumerate(hvp):
+        ref = sum(np.tensordot(np.asarray(jh[i][j]), u[j], u[j].ndim)
+                  for j in range(2))
+        close(got, ref)
 
-    def f(vv):
-        return (coo_spmm_raw(torch.tensor(rows), torch.tensor(cols), vv, b,
-                             M) ** 2).sum()
 
-    v = torch.tensor(vals)
-    with pytest.raises(RuntimeError, match="once_differentiable"):
-        torch.func.grad(lambda vv: torch.func.grad(f)(vv).sum())(v)
-    with pytest.raises(RuntimeError, match="once_differentiable"):
-        torch.func.jvp(torch.func.grad(f), (v,), (v,))
+@pytest.mark.parametrize("op", ["coo_spmv", "coo_spmm_raw"])
+def test_jvp_of_grad_matches_jax(coo, op):
+    """``torch.func.jvp`` of ``torch.func.grad`` (forward over reverse,
+    the Hessian-vector product) equals ``jax.jvp`` of ``jax.grad`` on the
+    same inputs and direction, f64, rtol 1e-10."""
+    rng = np.random.default_rng(6)
+    torch_loss, jax_loss, vals, dense = loss_and_operand(coo, op, rng)
+    u = [values(rng, x.shape, np.float64) for x in (vals, dense)]
+    _, got = torch.func.jvp(torch.func.grad(torch_loss, argnums=(0, 1)),
+                            (torch.tensor(vals), torch.tensor(dense)),
+                            tuple(map(torch.tensor, u)))
+    _, ref = jax.jvp(jax.grad(jax_loss, argnums=(0, 1)),
+                     (jnp.asarray(vals), jnp.asarray(dense)),
+                     tuple(map(jnp.asarray, u)))
+    for g, r in zip(got, ref):
+        close(g, r)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.complex128])
+@pytest.mark.parametrize("fn", ["coo_spmm_raw", "coo_spmv", "csr_spmm",
+                                "csr_spmv"])
+def test_gradgradcheck(dtype, fn):
+    """``torch.autograd.gradgradcheck`` (with forward over reverse) of
+    ``coo_spmm_raw``, ``coo_spmv``, ``csr.csr_spmm`` and ``csr.csr_spmv``
+    in every differentiable operand, alpha and beta included, against
+    finite differences: the second derivatives, conjugations and alpha's
+    place included, in f64 and c128 (on a 9 x 7 pattern with a repeated
+    entry and an empty row, to keep the finite differences few)."""
+    rng = np.random.default_rng(7)
+    npdt = np.dtype(str(dtype).removeprefix("torch."))
+    m, k = 9, 7
+    rows = np.array([0, 0, 1, 3, 3, 4, 5, 5, 6, 7, 8, 8, 1], np.int32)
+    cols = np.array([1, 4, 0, 2, 6, 3, 0, 5, 4, 1, 2, 6, 0], np.int32)
+    tr, tc = torch.tensor(rows), torch.tensor(cols)
+    a = sps.csr_matrix((np.ones(len(rows)), (rows, cols)), shape=(m, k))
+    ip, ix = torch.tensor(a.indptr), torch.tensor(a.indices)
+
+    def leaf(shape):
+        return torch.tensor(values(rng, shape, npdt), requires_grad=True)
+
+    two = fn in ("coo_spmm_raw", "csr_spmm")
+    dense, out0 = leaf((k, 2) if two else k), leaf((m, 2) if two else m)
+    if fn == "coo_spmm_raw":
+        f, inputs = (lambda v, b: coo_spmm_raw(tr, tc, v, b, m),
+                     (leaf(len(rows)), dense))
+    elif fn == "coo_spmv":
+        f, inputs = (lambda v, x, y: coo_spmv(tr, tc, v, x, m, -1.5, 0.5,
+                                              y), (leaf(len(rows)), dense,
+                                                   out0))
+    else:
+        op = csr.csr_spmm if two else csr.csr_spmv
+        alpha = 2.0 - 0.5j if npdt.kind == "c" else 2.0
+        f, inputs = (lambda v, d, c: op(ip, ix, v, d, alpha, -1.0, c),
+                     (leaf(a.nnz), dense, out0))
+    assert torch.autograd.gradgradcheck(f, inputs, check_fwd_over_rev=True)
 
 
 def test_func_grad_and_per_member_grads(coo):
