@@ -72,10 +72,13 @@ Phases, each printing one JSON line:
    same bits.  K11, the sparse-output product's value gradients, against
    its plain version in both forms (dA: op(A)'s entries; dB: op(B)'s),
    with and without ``triangular``, on C made by K4 + K5: empty rows of
-   op(A) and op(B), no entry of either, 6000 short rows, a row of C of
-   over 2000 entries staged in shared memory (a budget of 220 KB) and
-   searched in place, groups of 1 to 32 lanes, inf in G, every call run
-   twice for the same bits (``check_k11_all``).  Then
+   op(A) and op(B), no entry of either, 6000 short rows, lines of G
+   staged and read in place in each form, each with a row of C of over
+   2000 entries (``K11_MODES``), under the budgets of ``K11_BUDGETS``,
+   groups of 1 to 32 lanes staged and in place, inf in
+   G, and a C that lacks some products' entries with inf and nan in Y
+   (those products add nothing), every call run twice for the same bits
+   (``check_k11_all``).  Then
    ``torch.autograd.gradcheck`` (reverse and forward mode) of
    ``ops.coo_spmm_raw``, ``coo_spmv``, ``csr_spmm``, the BSR device
    function ``ops.bsr_spmm`` (on both K1 variants), ``csr_spgemm_dense``
@@ -125,9 +128,10 @@ Phases, each printing one JSON line:
    beside op(B) (op(A)) densified and ``torch.sparse.sampled_addmm`` and,
    for dB, in the same turns, the copy of G^T a backward without the dB
    form makes; K11 at cases a and c in both forms (G random on C's
-   pattern; 5 turns where a call takes over 50 ms), at a beside G and Y
-   densified + ``torch.sparse.sampled_addmm`` and, in the same turns, K9
-   on G densified;
+   pattern; 5 turns where a call takes over 50 ms), beside it in the
+   same turns the call as ``CsrSpgemmSparseSddmm`` makes it (patterns
+   given, no host read) and at a G and Y densified +
+   ``torch.sparse.sampled_addmm`` and K9 on G densified;
    K8's, K9's and K11's rows also carry ``device_ms``, the kernels' own
    time in a ``torch.profiler`` trace of 10 calls; and the wall
    time of ``dot_product(X, X.T)`` beside scipy's;
@@ -170,7 +174,8 @@ Phases, each printing one JSON line:
    twice backward), plus one step with ``triangular``; 10 through
    ``csr_spgemm`` (sparse output) on case c's 1M^2 A @ A, both operands'
    values on A's one pattern trained toward (A @ A)'s values (K4 + K5
-   forward, K11 twice backward); losses non-increasing, gradients at the
+   forward, K11 twice backward, lines in place), and 10 on case a's
+   demo X @ X.T (lines staged); losses non-increasing, gradients at the
    first and last step equal to torch's through the plain versions, the
    device's busy ms and idle share of a step.  Last, one Hessian-vector
    product by double backward of sum(sin(A b)) through ``coo_spmm_raw``
@@ -1052,12 +1057,13 @@ def check_k8_k9(which=("K8", "K9")):
 # K11 cases: (m rows of op(A), k, n, op(A)'s rows in turn, op(B)'s rows
 # in turn); each list of lengths repeats over the rows, an entry 0 an empty
 # row.  Their mean rows of Y (op(B) in the dA form, op(A)^T in the dB
-# form) give groups of every width, 1 to 32 lanes.  The fourth gives C a
-# row of over 2000 entries (op(A)'s row 10 names every row of op(B)),
-# searched in place under the default budget and staged under the largest
-# of K11_BUDGETS where its values and ids fit (f32, f64 and c64 with int32
-# ids); the last two have no entry of op(A) (the dA form launches nothing,
-# the dB form sums nothing) and none of op(B).
+# form) give groups of every width, 1 to 32 lanes, staged and in place.
+# The fourth gives C a row of over 2000 entries (op(A)'s row 10 names
+# every row of op(B)): staged in the dA form where 4 of its lines of 3000
+# fit (f32, f64, c64; c128 under the budget of 220 KB), searched in place
+# where not; the third's m = 6000 is too long to stage in the dB form but
+# under the budget of 220 KB; the last two have no entry of op(A) (the dA
+# form launches nothing, the dB form sums nothing) and none of op(B).
 K11_CASES = ((60, 50, 40, (4, 5, 3, 0), (5, 6, 0, 4)),
              (200, 60, 100, (10, 12, 0, 8), (20, 22, 18)),
              (6000, 400, 300, (2, 0, 3, 2), (1, 2, 0, 3)),
@@ -1065,9 +1071,14 @@ K11_CASES = ((60, 50, 40, (4, 5, 3, 0), (5, 6, 0, 4)),
              (64, 64, 64, (6, 0, 7, 5), (12, 10, 14, 0)),
              (50, 40, 30, (0,), (3, 4)),
              (50, 40, 30, (3, 4), (0,)))
-# Shared-memory budgets of K11's staged rows of C
-# (``spgemm_grad.SPARSE_SMEM``): the default, none, and 220 KB.
+# Shared-memory budgets of K11's staged lines (``spgemm_grad.SPARSE_SMEM``;
+# None keeps the default of 112 KB): the default, none (every line read
+# in place) and 220 KB.
 K11_BUDGETS = (None, 0, 220 * 1024)
+# What each launch reads (form, staged or not, a row of C past 2000
+# entries): phase 2 must reach every one.
+K11_MODES = {(form, staged, long) for form in ("dA", "dB")
+             for staged in (True, False) for long in (False, True)}
 
 
 def k11_call(*args):
@@ -1103,9 +1114,9 @@ def k11_operands(rng, case, npdt, itype, triangular):
 
 @contextlib.contextmanager
 def k11_budget(budget):
-    """Inside the block, K11's groups share ``budget`` bytes of shared
-    memory for their rows of C (``spgemm_grad.SPARSE_SMEM``; None keeps
-    the default)."""
+    """Inside the block, K11 stages lines of G in ``budget`` bytes of
+    shared memory (``spgemm_grad.SPARSE_SMEM``; None keeps the
+    default)."""
     from sparse_dot_tpu_torch.ops import spgemm_grad
 
     saved = spgemm_grad.SPARSE_SMEM
@@ -1117,23 +1128,31 @@ def k11_budget(budget):
         spgemm_grad.SPARSE_SMEM = saved
 
 
-def k11_plan(a, b, g, transposed):
-    """The ``SparsePlan`` K11 takes for these operands."""
+def k11_plan(a, b, g, n, transposed):
+    """The plan (``SampledPlan``) K11 takes for these operands."""
     from sparse_dot_tpu_torch.ops import spgemm_grad
 
     k = b[0].numel() - 1
     y_nnz = (a if transposed else b)[1].numel()
-    return spgemm_grad.sparse_plan(y_nnz / max(k, 1), g.element_size(),
-                                   a[0].element_size(), transposed)
+    line = a[0].numel() - 1 if transposed else n
+    return spgemm_grad.sparse_plan(line, g.element_size(), y_nnz / max(k, 1))
+
+
+def same_bits(x, y):
+    """x and y hold the same bits (nan included)."""
+    def bits(t):
+        t = torch.view_as_real(t) if t.is_complex() else t
+        return t.view(torch.int32 if t.element_size() == 4 else torch.int64)
+    return torch.equal(bits(x), bits(y))
 
 
 def check_k11(rng, tdt, npdt, itype, record, lanes_seen, rows_seen):
     """K11 against ``csr_spgemm_sparse_sddmm_plain`` at every case of
-    K11_CASES in both forms, with and without ``triangular``, the dA form
-    under each budget of K11_BUDGETS; every call run twice for the same
-    bits.  ``lanes_seen`` collects the groups' widths, ``rows_seen``
-    (form, staged, row of C past 2000 entries) of the rows of C each
-    launch reads (a row is staged where it fits the plan's ``cap``)."""
+    K11_CASES in both forms, with and without ``triangular``, under each
+    budget of K11_BUDGETS; every call run twice for the same bits.
+    ``lanes_seen`` collects (staged, lanes) of each launch, ``rows_seen``
+    the K11_MODES it reads (the dA form reads the rows of C of op(A)'s
+    non-empty rows, the dB form any)."""
     from sparse_dot_tpu_torch.ops import spgemm_grad
 
     for case in K11_CASES:
@@ -1144,31 +1163,70 @@ def check_k11(rng, tdt, npdt, itype, record, lanes_seen, rows_seen):
             a_rows = np.diff(a[0].cpu().numpy()) > 0
             for transposed in (False, True):
                 p = b if transposed else a
-                for budget in (K11_BUDGETS[:1] if transposed
-                               else K11_BUDGETS):
+                form = "dB" if transposed else "dA"
+                for budget in K11_BUDGETS:
                     with k11_budget(budget):
-                        plan = k11_plan(a, b, g, transposed)
+                        plan = k11_plan(a, b, g, n, transposed)
                         args = (*a, *b, c_ip, c_ix, g, n, transposed,
                                 triangular)
                         out = k11_call(*args)
                         again = k11_call(*args)
-                    form = "dB" if transposed else "dA"
                     if p[1].numel():
-                        lanes_seen.add(plan.lanes)
-                        if transposed:
-                            rows_seen.update(
-                                (form, False, bool(x > 2000))
-                                for x in np.unique(lengths))
-                        else:
-                            rows_seen.update(
-                                (form, bool(x <= plan.cap), bool(x > 2000))
-                                for x in np.unique(lengths[a_rows]))
+                        lanes_seen.add((plan.staged, plan.lanes))
+                        rows_seen.update(
+                            (form, plan.staged, bool(x > 2000))
+                            for x in np.unique(lengths if transposed
+                                               else lengths[a_rows]))
                     record("K11_csr_spgemm_sparse_sddmm", compare(
                         out, spgemm_grad.csr_spgemm_sparse_sddmm_plain(
                             *args), tdt))
-                    if not torch.equal(out, again):
+                    if not same_bits(out, again):
                         raise AssertionError(f"K11 {tdt} {case[:3]}: runs "
                                              "differ")
+
+
+def check_k11_presence(rng, record):
+    """The presence rule on the card: C's pattern with every other entry
+    of every third row dropped, so that some products' entries are
+    missing, and Y's values (op(B)'s for the dA form, op(A)'s for the dB
+    form) holding +inf, -inf and nan: K11 must skip those products as the
+    plain version does (0 * inf would be nan), staged and in place, both
+    forms, every value type; the same nan and inf parts, finite entries
+    within tolerance, the same bits twice."""
+    from sparse_dot_tpu_torch.ops import spgemm_grad
+
+    for tdt, npdt in NP_DTYPES.items():
+        a, b, (c_ip, c_ix), _, n = k11_operands(rng, K11_CASES[1], npdt,
+                                                np.int32, False)
+        ip, ix = c_ip.cpu().numpy(), c_ix.cpu().numpy()
+        keep = np.ones(ix.size, bool)
+        for row in range(0, ip.size - 1, 3):
+            keep[ip[row] + 1:ip[row + 1]:2] = False
+        rows = np.repeat(np.arange(ip.size - 1), np.diff(ip))[keep]
+        c_ip = cuda(np.concatenate([[0], np.cumsum(np.bincount(
+            rows, minlength=ip.size - 1))]).astype(np.int32))
+        c_ix = cuda(ix[keep])
+        g = cuda(values(rng, c_ix.numel(), npdt))
+        a, b = list(a), list(b)
+        for x, where in ((a, (5, 91, 300)), (b, (7, 40, 333))):
+            x[2] = x[2].clone()
+            x[2][where[0]] = np.inf
+            x[2][where[1]] = -np.inf
+            x[2][where[2]] = np.nan
+        for transposed in (False, True):
+            for budget in K11_BUDGETS[:2]:
+                with k11_budget(budget):
+                    args = (*a, *b, c_ip, c_ix, g, n, transposed, False)
+                    out = k11_call(*args)
+                    again = k11_call(*args)
+                ref = spgemm_grad.csr_spgemm_sparse_sddmm_plain(*args)
+                name = (f"K11 presence {tdt} transposed={transposed} "
+                        f"budget={budget}")
+                fin = same_parts(name, out, ref)
+                record("K11_csr_spgemm_sparse_sddmm",
+                       compare(out[fin], ref[fin], tdt))
+                if not same_bits(out, again):
+                    raise AssertionError(f"{name}: runs differ")
 
 
 def check_k11_special(rng, record):
@@ -1228,10 +1286,11 @@ def check_k11_gradcheck():
 
 def check_k11_all():
     """Phase 2 for K11 (``--only k11``, and inside ``check_kernels``' run):
-    every value type and index width, the inf cases, groups of 1 to 32
-    lanes, rows of C staged and searched in place (one of over 2000
-    entries each way in the dA form), and the gradcheck of
-    ``csr_spgemm``.  Returns (results, lanes seen, gradcheck launches)."""
+    every value type and index width, the inf cases, the presence rule,
+    groups of 1 to 32 lanes staged and in place, every mode of
+    K11_MODES (a row of C of over 2000 entries in each), and the
+    gradcheck of ``csr_spgemm``.  Returns (results, (staged, lanes) seen,
+    gradcheck launches)."""
     rng = np.random.default_rng(SEED + 16)
     name = "K11_csr_spgemm_sparse_sddmm"
     results = {name: {"cases": 0, "max_abs_err": 0.0}}
@@ -1246,14 +1305,15 @@ def check_k11_all():
         for itype in (np.int32, np.int64):
             check_k11(rng, tdt, npdt, itype, record, lanes_seen, rows_seen)
     check_k11_special(rng, record)
-    if lanes_seen != {1, 2, 4, 8, 16, 32}:
-        raise AssertionError(f"K11 ran groups of {sorted(lanes_seen)} "
-                             "lanes only")
-    want = {("dA", True, True), ("dA", False, True), ("dA", True, False),
-            ("dA", False, False), ("dB", False, True), ("dB", False, False)}
-    if not want <= rows_seen:
+    check_k11_presence(rng, record)
+    want = {(staged, lanes) for staged in (True, False)
+            for lanes in (1, 2, 4, 8, 16, 32)}
+    if lanes_seen != want:
+        raise AssertionError(f"K11 ran (staged, lanes) {sorted(lanes_seen)}"
+                             f", not {sorted(want)}")
+    if not K11_MODES <= rows_seen:
         raise AssertionError(f"K11 read the rows {sorted(rows_seen)}, not "
-                             f"{sorted(want)}")
+                             f"{sorted(K11_MODES)}")
     return results, sorted(lanes_seen), check_k11_gradcheck()
 
 
@@ -2619,10 +2679,12 @@ def k11_rows(inp):
     random on C's pattern (f64): median, p10 and p90 of 25 (of 5 where a
     call of the kernel or its plain version takes over 50 ms), the bound
     by ``k11_bound``, products per second, the kernel's profiler time
-    (``device_ms``); at case a beside ``k11_yardsticks`` in the same
-    turns.  No torch call computes it."""
+    (``device_ms``); beside it in the same turns the call as
+    ``CsrSpgemmSparseSddmm`` makes it (``function``: the operands'
+    patterns given, C's column span known, so no host read), and at case
+    a ``k11_yardsticks``.  No torch call computes it."""
     from sparse_dot_tpu_torch import formats
-    from sparse_dot_tpu_torch.ops import spgemm, spgemm_grad
+    from sparse_dot_tpu_torch.ops import autograd, spgemm, spgemm_grad
 
     rng = np.random.default_rng(SEED + 18)
     rows = []
@@ -2637,6 +2699,8 @@ def k11_rows(inp):
         n = b_np.shape[1]
         c = spgemm.csr_spgemm(*a, *b, n)[:2]
         g = cuda(values(rng, c[1].numel(), np.float64))
+        pa = autograd.patterns.get(a[0], a[1], b[0].numel() - 1)
+        pb = autograd.patterns.get(b[0], b[1], n)
         for transposed in (False, True):
             args = (*a, *b, *c, g, n, transposed)
             kernel_fn = (lambda args=args:
@@ -2650,8 +2714,12 @@ def k11_rows(inp):
                                                        transposed)
             yardstick, beside = (k11_yardsticks(
                 a, b, c, g, (a_np.shape, b_np.shape), transposed)
-                if case == "a" else (None, None))
-            plan = k11_plan(a, b, g, transposed)
+                if case == "a" else (None, {}))
+            beside["function"] = (
+                lambda args=args: spgemm_grad.sparse_sampled(
+                    *args, a=pa, b=pb, c=formats.CsrPattern(
+                        c[0], c[1], n, span=(0, n))))
+            plan = k11_plan(a, b, g, n, transposed)
             form = "dL/dB at B's pattern" if transposed else \
                 "dL/dA at A's pattern"
             row = timed_row(
@@ -2660,15 +2728,32 @@ def k11_rows(inp):
                 (None, "none: torch has no sampled product of two sparse "
                        "operands at a sparse pattern"),
                 reps=reps, yardstick=yardstick, beside=beside,
-                device_match="sampled_kernel",
+                device_match=K11_DEVICE_NAMES,
                 case=f"{case}-{'dB' if transposed else 'dA'}",
                 products=products, c_nnz=int(c[1].numel()),
-                plan=plan._asdict())
+                plan=plan._asdict(),
+                runs=k11_runs(pb if transposed else pa, transposed))
             row["gproducts_per_s"] = products / row["ms"] / 1e6
             rows.append(row)
-        del A, B, a, b, c, g
+        del A, B, a, b, c, g, pa, pb
+        autograd.patterns.clear()
         torch.cuda.empty_cache()
     return rows
+
+
+# Kernel names in a profiler trace: K11's in place, and K9's, which K11
+# runs where it stages lines and which is timed beside K11 at case a.
+K11_DEVICE_NAMES = ("sparse_in_place_kernel", "sampled_kernel")
+
+
+def k11_runs(pattern, transposed):
+    """The number of runs and of work items K11 cached on P's
+    ``pattern``, or None where its lines were read in place."""
+    for key, runs in pattern.plans.items():
+        if key[:2] == ("k11", transposed):
+            return {"runs": runs.run_q.numel(),
+                    "items": runs.items.numel() - 1, "chunk": runs.chunk}
+    return None
 
 
 def k9_runs(args, plan):
@@ -3130,7 +3215,7 @@ def device_busy_ms(fn):
 
 def kernel_device_ms(fn, match, reps=10):
     """The mean device time in ms of the kernels whose names hold
-    ``match`` in a call of fn(), from a ``torch.profiler`` trace of
+    ``match`` (or one of a tuple of names) in a call of fn(), from a ``torch.profiler`` trace of
     ``reps`` calls, each after a 1 GiB read (as ``time_turns``): the
     kernels' own time, whatever the host does between launches; None when
     the trace holds no such kernel."""
@@ -3146,9 +3231,11 @@ def kernel_device_ms(fn, match, reps=10):
             flush.sum()
             fn()
         torch.cuda.synchronize()
+    names = (match,) if isinstance(match, str) else match
     busy = sum(getattr(e, "self_device_time_total", 0)
                for e in prof.key_averages()
-               if e.device_type != DeviceType.CPU and match in e.key)
+               if e.device_type != DeviceType.CPU
+               and any(name in e.key for name in names))
     return busy / 1e3 / reps or None
 
 
@@ -3773,32 +3860,34 @@ def spgemm_training(x):
                       "lr": [0.5 / norm_sq, 0.25 / norm_sq]}
 
 
-def spgemm_sparse_training(a_np):
-    """SGD through ``csr_spgemm`` (sparse output) on case c's 1M^2 A @ A
-    (f64): op(A) and op(B) on A's one pattern with two value tensors,
-    op(A)'s from zero and op(B)'s from A's values, both trained toward T
-    = (A @ A)'s values on C's pattern, loss ||C.data - T||^2: K4 + K5
-    forward, K11 twice backward, with the plain versions refused; steps
-    1/(2 ||A||^2) and 1/(4 ||A||^2).  Returns the launches and the run's
-    record."""
+def spgemm_sparse_training(a_np, b_np=None):
+    """SGD through ``csr_spgemm`` (sparse output) on op(A) = ``a_np`` and
+    op(B) = ``b_np`` (f64; None: op(B) on op(A)'s one pattern, as case
+    c's 1M^2 A @ A has it), two value tensors, op(A)'s from zero and
+    op(B)'s from its values, both trained toward T = (A @ B)'s values on
+    C's pattern, loss ||C.data - T||^2: K4 + K5 forward, K11 twice
+    backward, with the plain versions refused; steps 1/(2 ||A||^2) and
+    1/(4 ||A||^2) (``b_np`` is A^T or A: the same norm).  Returns the
+    launches and the run's record."""
     from sparse_dot_tpu_torch import formats
     from sparse_dot_tpu_torch.ops import spgemm
 
-    A = formats.to_device(a_np)
-    ip, ix, dv = A.csr_arrays()
-    n = a_np.shape[1]
-    target = spgemm.csr_spgemm(ip, ix, dv, ip, ix, dv, n)[2]
+    ip, ix, dv = formats.to_device(a_np).csr_arrays()
+    bip, bix, bdv = ((ip, ix, dv) if b_np is None
+                     else formats.to_device(b_np).csr_arrays())
+    n = a_np.shape[1] if b_np is None else b_np.shape[1]
+    target = spgemm.csr_spgemm(ip, ix, dv, bip, bix, bdv, n)[2]
     norm_sq = host_norm_sq(a_np)
 
     def fn(av, bv):
-        return spgemm.csr_spgemm(ip, ix, av, ip, ix, bv, n)[2]
+        return spgemm.csr_spgemm(ip, ix, av, bip, bix, bv, n)[2]
 
     def plain(av, bv):
-        return spgemm.spgemm_plain(ip, ix, av, ip, ix, bv, n)[2]
+        return spgemm.spgemm_plain(ip, ix, av, bip, bix, bv, n)[2]
 
     lrs = (0.5 / norm_sq, 0.25 / norm_sq)
     run = GradRun("spgemm_sparse_f64_a_and_b", fn, plain,
-                  (torch.zeros_like(dv), dv), lrs, target,
+                  (torch.zeros_like(dv), bdv), lrs, target,
                   "CsrSpgemmBackward")
     reset_launches()
     with plain_versions_refused():
@@ -3816,6 +3905,13 @@ def spgemm_sparse_training(a_np):
     return launches, {**run.check(), **busy, "lr": list(lrs),
                       "launches_per_step": per_step,
                       "c_nnz": int(target.numel())}
+
+
+def spgemm_sparse_demo_training(x):
+    """``spgemm_sparse_training`` at case a: the demo X @ X.T (X 500 x
+    5000, 21.2%, f64), op(A) = X and op(B) = a CSR of X^T, where K11
+    stages lines of G in both forms."""
+    return spgemm_sparse_training(x, x.T.tocsr())
 
 
 def hessian_vector_product(inputs):
@@ -3863,7 +3959,8 @@ def hessian_vector_product(inputs):
 
 def grad_training(inputs, spgemm_inp, which=("K8", "K9", "K11")):
     """Phase 6's runs of K8 (``bsr_training``), K9 (``spgemm_training``)
-    and K11 (``spgemm_sparse_training``, then ``hessian_vector_product``,
+    and K11 (``spgemm_sparse_training`` at case c and at case a, then
+    ``hessian_vector_product``,
     the second order of the CSR device API), each with the counts set to
     0 just before it: one JSON line, and the launches of all summed."""
     runs, launches = {}, {name: 0 for name in KERNELS}
@@ -3873,6 +3970,8 @@ def grad_training(inputs, spgemm_inp, which=("K8", "K9", "K11")):
              spgemm_inp["x"]),
             ("K11", "spgemm_sparse_f64_a_and_b", spgemm_sparse_training,
              spgemm_inp["a1m"]),
+            ("K11", "spgemm_sparse_demo_f64_a_and_b",
+             spgemm_sparse_demo_training, spgemm_inp["x"]),
             ("K11", "hvp_coo_spmm_raw_config1_f64", hessian_vector_product,
              inputs)):
         if kernel in which:

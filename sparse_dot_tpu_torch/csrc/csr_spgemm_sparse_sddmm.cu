@@ -1,18 +1,19 @@
 // K11: the value gradients of a sparse x sparse product with sparse
 // output.  For C = op(A) op(B) on its structural pattern (K4 + K5: every
 // product a(i, k) b(k, j) has its entry (i, j) in C, each row's columns
-// ascending; only j >= i under `triangular`) and G = dL/dC on that
-// pattern, one of two forms for each stored entry p of a CSR P at row r,
-// column c (conj only for complex values):
+// distinct and ascending; only j >= i under `triangular`) and G = dL/dC
+// on that pattern, one of two forms for each stored entry p of a CSR P at
+// row r, column c (conj only for complex values):
 //
 //   dA (P = op(A), Y = op(B)):
 //     out[p] = sum over (j, v) in row c of Y of G[r, j] conj(v)
 //   dB (P = op(B), Y = op(A)^T, `transposed`):
 //     out[p] = sum over (i, v) in row r of Y of G[i, c] conj(v)
 //
-// where G[i, j] is G's value at (i, j) in C's row i, and a product with
-// j < i adds nothing under `triangular` (the kernel tests it before any
-// search).  They are dL/d(op(A)'s values) and dL/d(op(B)'s values) as
+// where G[i, j] is G's value at (i, j) in C's row i.  A product whose
+// entry C lacks adds nothing (not 0 conj(v), which an inf or nan in Y
+// would turn into nan), and under `triangular` neither does one with
+// j < i.  They are dL/d(op(A)'s values) and dL/d(op(B)'s values) as
 // PyTorch's convention for complex gradients has them
 // (ops/spgemm_grad.py, csr_spgemm_sparse_sddmm).
 //
@@ -22,141 +23,167 @@
 // JVP and the doubling sums backwards, so each product's G is gathered
 // through the sort's permutation and scattered onto the operands.
 //
-// Bound: one multiply-add per product and a search for its entry of C;
+// Bound: one multiply-add per product and the lookup of its entry of C;
 // the bytes that must move are P's and Y's arrays, C's structure, G and
-// the output, each once.  This first design is plain:
+// the output, each once.  These are K9's sums (csr_spgemm_sddmm.cu) with
+// G on C's sparse pattern in place of a dense D, and the design is K9's
+// with another loader of G's lines (a line: G's row r in the dA form, its
+// column c in the dB form; the other id names the row of Y, q):
 //
-// - a group of L lanes (1 to 32, ops/spgemm_grad.py's sampled_lanes from
-//   Y's mean row) takes one row of P; for each of its entries in turn the
-//   lanes walk the named row of Y (lane l its entries l, l + L, ...), each
-//   finds its product's entry of C by binary search in C's row and adds
-//   G there times conj(v), and a butterfly of shuffles adds the lanes'
-//   sums in a fixed order: the same bits on every run, no atomics;
-// - dA: every product of a row of P lands in the same row of C, so the
-//   group stages that row's columns and G in shared memory (its slot of
-//   `cap` entries) where it fits and searches it in place where it does
-//   not; dB: each product lands in another row of C (Y's column ids), so
-//   rows are searched in place.
-#include "common.cuh"
+// - Staged lines (ops/spgemm_grad.py, sparse_plan: where at least 4 lines
+//   fit 112 KB) run K9's kernel (sampled.cuh) in its kSparse modes: K9's
+//   runs (sampled_runs, built once per P's pattern, never per C), one
+//   work item a resident block.  The block marks its panel's elements
+//   absent (a nan whose payload no arithmetic makes; a G value of that
+//   payload is staged as the canonical nan), then writes G from C's
+//   storage (stage_lines): in the dA form the entries of C's rows e0 ..
+//   e0 + panel, which lie together, 8 loads in flight a thread, scattered
+//   at their column ids; in the dB form each row i of C searched once for
+//   the panel's first column, then read a lane an entry, so no transposed
+//   copy of C or G.  A group of L lanes serves a run as K9 does: the row
+//   of Y loaded once, the run's entries summed in rounds of kRound with
+//   one reduce-scatter, each product added only where its element is
+//   present.
+// - Lines in place (longer lines, as the 1M^2 A @ A's): a group of L
+//   lanes takes a row of P, 256 / L rows a block, so short rows share a
+//   warp, and no shared memory bounds how many an SM holds.  dA: the
+//   row's products all land in C's row r, searched where it lies, a
+//   binary search a product (its few lines stay in L1; staging the row in
+//   shared memory first took 1.5x as long at the 1M^2 A @ A, where a row
+//   of C holds 4 entries).  dB: the row's entries in rounds of kRound
+//   share the group's row of Y, so the lane holding Y's entry i reads row
+//   i of C's bounds once and searches it for the round's columns at once
+//   (count_below).  Positions in a row of C take C's id type (32 bits
+//   where C's ids are: fewer registers, more threads an SM).
+//
+// Every output is written by one lane, in a fixed order, with no atomics:
+// the same inputs give the same bits twice.
+#include "sampled.cuh"
 
 namespace sdt {
 namespace {
 
-// Threads a block (ops/spgemm_grad.py's SPARSE_THREADS).
-constexpr int kThreads = 256;
-
-__device__ __forceinline__ float conj_of(float v) { return v; }
-__device__ __forceinline__ double conj_of(double v) { return v; }
-template <typename R>
-__device__ __forceinline__ cuda::std::complex<R> conj_of(
-    cuda::std::complex<R> v) {
-  return cuda::std::complex<R>(v.real(), -v.imag());
-}
+// Threads a block of the in-place kernel; the staged lines run
+// sampled.cuh's kernel, K9's.
+constexpr int kInPlaceThreads = 256;
 
 // Position of `col` among the ascending cols[0, len), or -1.
 template <typename I>
-__device__ __forceinline__ int64_t find_column(const I* __restrict__ cols,
-                                               int64_t len, int64_t col) {
-  int64_t lo = 0, hi = len;
+__device__ __forceinline__ I find_column(const I* __restrict__ cols, I len,
+                                         I col) {
+  I lo = 0, hi = len;
   while (lo < hi) {
-    const int64_t mid = (lo + hi) >> 1;
-    if (static_cast<int64_t>(cols[mid]) < col) {
+    const I mid = (lo + hi) >> 1;
+    if (cols[mid] < col) {
       lo = mid + 1;
     } else {
       hi = mid;
     }
   }
-  return lo < len && static_cast<int64_t>(cols[lo]) == col ? lo : -1;
+  return lo < len && cols[lo] == col ? lo : I(-1);
 }
 
+// Lines in place: a group of L lanes a row r of P.
 template <typename T, typename I, int L, bool kTransposed>
-__global__ void __launch_bounds__(kThreads)
-sparse_sampled_kernel(const I* __restrict__ p_indptr,
-                      const I* __restrict__ p_indices, int64_t p_rows,
-                      const I* __restrict__ y_indptr,
-                      const I* __restrict__ y_indices,
-                      const T* __restrict__ y_data,
-                      const I* __restrict__ c_indptr,
-                      const I* __restrict__ c_indices,
-                      const T* __restrict__ g, T* __restrict__ out,
-                      bool triangular, int cap) {
+__global__ void __launch_bounds__(kInPlaceThreads)
+sparse_in_place_kernel(const I* __restrict__ p_indptr,
+                       const I* __restrict__ p_indices, int64_t p_rows,
+                       const I* __restrict__ y_indptr,
+                       const I* __restrict__ y_indices,
+                       const T* __restrict__ y_data,
+                       const I* __restrict__ c_indptr,
+                       const I* __restrict__ c_indices,
+                       const T* __restrict__ g, T* __restrict__ out,
+                       bool triangular) {
   using A = Arith<T>;
-  // Raw bytes: complex element types may not be declared __shared__.
-  // The groups' slots of G's values, then of C's column ids.
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int G = kThreads / L;
-  const int slot = static_cast<int>(threadIdx.x) / L;
+  constexpr int G = kInPlaceThreads / L;
   const int lane = static_cast<int>(threadIdx.x) % L;
-  // The group's lanes in its warp (groups never straddle a warp).
   const unsigned members =
       L == 32 ? kFullMask
               : ((1u << L) - 1u) << ((threadIdx.x & 31) & ~(L - 1));
-  const int64_t r = static_cast<int64_t>(blockIdx.x) * G + slot;
+  const int64_t r =
+      static_cast<int64_t>(blockIdx.x) * G + static_cast<int>(threadIdx.x) / L;
   if (r >= p_rows) return;  // the whole group: it shares r
   const int64_t p0 = static_cast<int64_t>(p_indptr[r]);
   const int64_t p1 = static_cast<int64_t>(p_indptr[r + 1]);
 
-  // dA: the group's row of C, staged where it fits its slot.
-  const I* cols = nullptr;
-  const T* gv = nullptr;
-  int64_t c_len = 0;
   if constexpr (!kTransposed) {
+    // Every product of the row lands in C's row r, searched where it lies
+    // (through L1: its few lines stay there while the group works).
     const int64_t c0 = static_cast<int64_t>(c_indptr[r]);
-    c_len = static_cast<int64_t>(c_indptr[r + 1]) - c0;
-    cols = c_indices + c0;
-    gv = g + c0;
-    if (c_len <= cap && p1 > p0) {
-      T* sv = reinterpret_cast<T*>(smem) + static_cast<int64_t>(slot) * cap;
-      I* sc = reinterpret_cast<I*>(reinterpret_cast<T*>(smem) +
-                                   static_cast<int64_t>(G) * cap) +
-              static_cast<int64_t>(slot) * cap;
-      for (int64_t x = lane; x < c_len; x += L) {
-        sv[x] = gv[x];
-        sc[x] = cols[x];
+    const I c_len = c_indptr[r + 1] - c_indptr[r];
+    const I* __restrict__ cols = c_indices + c0;
+    const T* __restrict__ gv = g + c0;
+    for (int64_t p = p0; p < p1; ++p) {
+      const int64_t q = static_cast<int64_t>(p_indices[p]);
+      const int64_t t1 = static_cast<int64_t>(y_indptr[q + 1]);
+      T acc = A::zero();
+      for (int64_t t = static_cast<int64_t>(y_indptr[q]) + lane; t < t1;
+           t += L) {
+        const I j = y_indices[t];
+        if (triangular && j < r) continue;
+        const I at = find_column(cols, c_len, j);
+        if (at >= 0) acc = A::fma(gv[at], conj_of(y_data[t]), acc);
       }
-      __syncwarp(members);
-      cols = sc;
-      gv = sv;
-    }
-  }
-
-  for (int64_t p = p0; p < p1; ++p) {
-    const int64_t c = static_cast<int64_t>(p_indices[p]);
-    // The row of Y the entry names: its column (dA), the group's row (dB).
-    const int64_t q = kTransposed ? r : c;
-    const int64_t t1 = static_cast<int64_t>(y_indptr[q + 1]);
-    T acc = A::zero();
-    for (int64_t t = static_cast<int64_t>(y_indptr[q]) + lane; t < t1;
-         t += L) {
-      const int64_t y = static_cast<int64_t>(y_indices[t]);
-      // The product's entry (i, j) of C.
-      const int64_t i = kTransposed ? y : r;
-      const int64_t j = kTransposed ? c : y;
-      if (triangular && j < i) continue;
-      int64_t at;
-      const T* row_g;
-      if constexpr (kTransposed) {
-        const int64_t c0 = static_cast<int64_t>(c_indptr[i]);
-        at = find_column(c_indices + c0,
-                         static_cast<int64_t>(c_indptr[i + 1]) - c0, j);
-        row_g = g + c0;
-      } else {
-        at = find_column(cols, c_len, j);
-        row_g = gv;
-      }
-      if (at >= 0) acc = A::fma(row_g[at], conj_of(y_data[t]), acc);
-    }
 #pragma unroll
-    for (int off = L / 2; off > 0; off >>= 1) {
-      acc = A::add(acc, A::shfl_xor(acc, off, members));
+      for (int off = L / 2; off > 0; off >>= 1) {
+        acc = A::add(acc, A::shfl_xor(acc, off, members));
+      }
+      if (lane == 0) out[p] = acc;
     }
-    if (lane == 0) out[p] = acc;
+  } else {
+    const int64_t t0 = static_cast<int64_t>(y_indptr[r]);
+    const int64_t t1 = static_cast<int64_t>(y_indptr[r + 1]);
+    for (int64_t pb = p0; pb < p1; pb += kRound) {
+      // A round: the columns of up to kRound entries (-1 past the row),
+      // in C's id type, as are positions in a row of C.
+      I col[kRound];
+      T acc[kRound];
+#pragma unroll
+      for (int e = 0; e < kRound; ++e) {
+        col[e] = pb + e < p1 ? p_indices[pb + e] : I(-1);
+        acc[e] = A::zero();
+      }
+      for (int64_t t = t0 + lane; t < t1; t += L) {
+        const int64_t i = static_cast<int64_t>(y_indices[t]);
+        const T v = conj_of(y_data[t]);
+        const int64_t c0 = static_cast<int64_t>(c_indptr[i]);
+        const I len = c_indptr[i + 1] - c_indptr[i];
+        const I* __restrict__ cols = c_indices + c0;
+        // Row i searched for the round's columns at once.
+        I at[kRound];
+        count_below<kRound>(cols, len, col, at);
+#pragma unroll
+        for (int e = 0; e < kRound; ++e) {
+          if (col[e] >= 0 && !(triangular && col[e] < i) && at[e] < len &&
+              cols[at[e]] == col[e]) {
+            acc[e] = A::fma(g[c0 + at[e]], v, acc[e]);
+          }
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < kRound; ++e) {
+#pragma unroll
+        for (int off = L / 2; off > 0; off >>= 1) {
+          acc[e] = A::add(acc[e], A::shfl_xor(acc[e], off, members));
+        }
+        if (lane == 0 && pb + e < p1) out[pb + e] = acc[e];
+      }
+    }
   }
 }
 
 // The launch's arguments past the type codes, as the C entry point takes
 // them.
 struct Args {
+  const void* items;
+  int64_t n_items;
+  const void* run_ptr;
+  const void* run_q;
+  const void* perm;
+  const void* line;
+  int64_t ne, ny;
+  int panel, pitch, staged;
   const void* p_indptr;
   const void* p_indices;
   int64_t p_rows;
@@ -167,34 +194,47 @@ struct Args {
   const void* c_indices;
   const void* g;
   void* out;
-  int transposed, triangular, lanes, cap;
+  int transposed, triangular, lanes;
 };
 
 template <typename T, typename I, int L, bool kTransposed>
 cudaError_t launch_lanes(const Args& a, cudaStream_t stream) {
-  constexpr int G = kThreads / L;
-  const size_t smem =
-      kTransposed ? 0
-                  : static_cast<size_t>(G) * a.cap * (sizeof(T) + sizeof(I));
-  const int64_t blocks = (a.p_rows + G - 1) / G;
-  if (smem > 227 * 1024 || blocks > 0x7fffffff) return cudaErrorInvalidValue;
-  auto kernel = sparse_sampled_kernel<T, I, L, kTransposed>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
+  if (a.staged) {
+    auto kernel =
+        sampled_kernel<T, I, L, kTransposed ? kSparseColumns : kSparseRows>;
+    // Beside the panel, the kernel's own row bounds (kMaxPanel + 1).
+    const size_t smem = sizeof(T) * static_cast<size_t>(a.panel) * a.pitch;
+    if (smem + sizeof(int64_t) * (kMaxPanel + 1) > 227 * 1024) {
+      return cudaErrorInvalidValue;
+    }
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (err != cudaSuccess) return err;
+    }
+    kernel<<<static_cast<unsigned>(a.n_items), kThreads, smem, stream>>>(
+        static_cast<const int64_t*>(a.items),
+        static_cast<const I*>(a.run_ptr), static_cast<const I*>(a.run_q),
+        static_cast<const I*>(a.perm), static_cast<const I*>(a.line),
+        static_cast<const T*>(a.g), 0, 0, a.ne, static_cast<int>(a.ny),
+        a.panel, a.pitch, static_cast<const I*>(a.y_indptr),
+        static_cast<const I*>(a.y_indices), static_cast<const T*>(a.y_data),
+        static_cast<T*>(a.out), Arith<T>::make(0.0, 0.0), false,
+        static_cast<const I*>(a.c_indptr), static_cast<const I*>(a.c_indices),
+        a.triangular != 0);
+    return cudaGetLastError();
   }
-  kernel
-      <<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
-          static_cast<const I*>(a.p_indptr),
-          static_cast<const I*>(a.p_indices), a.p_rows,
-          static_cast<const I*>(a.y_indptr),
-          static_cast<const I*>(a.y_indices),
-          static_cast<const T*>(a.y_data),
-          static_cast<const I*>(a.c_indptr),
-          static_cast<const I*>(a.c_indices), static_cast<const T*>(a.g),
-          static_cast<T*>(a.out), a.triangular != 0, a.cap);
+  constexpr int G = kInPlaceThreads / L;
+  const int64_t blocks = (a.p_rows + G - 1) / G;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  sparse_in_place_kernel<T, I, L, kTransposed>
+      <<<static_cast<unsigned>(blocks), kInPlaceThreads, 0, stream>>>(
+      static_cast<const I*>(a.p_indptr), static_cast<const I*>(a.p_indices),
+      a.p_rows, static_cast<const I*>(a.y_indptr),
+      static_cast<const I*>(a.y_indices), static_cast<const T*>(a.y_data),
+      static_cast<const I*>(a.c_indptr), static_cast<const I*>(a.c_indices),
+      static_cast<const T*>(a.g), static_cast<T*>(a.out), a.triangular != 0);
   return cudaGetLastError();
 }
 
@@ -213,8 +253,18 @@ cudaError_t launch_form(const Args& a, cudaStream_t stream) {
 
 template <typename T, typename I>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  if (a.p_rows < 0 || a.cap < 0) return cudaErrorInvalidValue;
-  if (a.p_rows == 0) return cudaSuccess;
+  if (a.staged) {
+    if (a.n_items < 0 || a.n_items > 0x7fffffff || a.panel < 1 ||
+        a.panel > kMaxPanel ||
+        a.ny < 0 || a.ny > 0x7fffffff || a.pitch < a.ny ||
+        static_cast<int64_t>(a.panel) * a.pitch > 0x7fffffff) {
+      return cudaErrorInvalidValue;
+    }
+    if (a.n_items == 0) return cudaSuccess;
+  } else {
+    if (a.p_rows < 0) return cudaErrorInvalidValue;
+    if (a.p_rows == 0) return cudaSuccess;
+  }
   return a.transposed ? launch_form<T, I, true>(a, stream)
                       : launch_form<T, I, false>(a, stream);
 }
@@ -223,14 +273,17 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 }  // namespace sdt
 
 extern "C" int sdt_csr_spgemm_sparse_sddmm(
-    int dtype, int itype, const void* p_indptr, const void* p_indices,
-    int64_t p_rows, const void* y_indptr, const void* y_indices,
-    const void* y_data, const void* c_indptr, const void* c_indices,
-    const void* g, void* out, int transposed, int triangular, int lanes,
-    int cap, void* stream) {
-  const sdt::Args args{p_indptr, p_indices, p_rows, y_indptr, y_indices,
-                       y_data, c_indptr, c_indices, g, out,
-                       transposed, triangular, lanes, cap};
+    int dtype, int itype, const void* items, int64_t n_items,
+    const void* run_ptr, const void* run_q, const void* perm,
+    const void* line, int64_t ne, int64_t ny, int panel, int pitch,
+    int staged, const void* p_indptr, const void* p_indices, int64_t p_rows,
+    const void* y_indptr, const void* y_indices, const void* y_data,
+    const void* c_indptr, const void* c_indices, const void* g, void* out,
+    int transposed, int triangular, int lanes, void* stream) {
+  const sdt::Args args{items, n_items, run_ptr, run_q, perm, line, ne, ny,
+                       panel, pitch, staged, p_indptr, p_indices, p_rows,
+                       y_indptr, y_indices, y_data, c_indptr, c_indices, g,
+                       out, transposed, triangular, lanes};
   SDT_DISPATCH(dtype, itype, sdt::launch, args,
                static_cast<cudaStream_t>(stream))
 }

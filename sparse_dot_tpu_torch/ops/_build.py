@@ -101,11 +101,14 @@ _PROTOTYPES = {
     "sdt_csr_spgemm_sddmm": (_INT, _INT, _P, _I64, _P, _P, _P, _P, _P, _I64,
                              _I64, _I64, _I64, _INT, _INT, _INT, _P, _P, _P,
                              _P, _INT, _D, _D, _P),
-    # dtype, itype, p_indptr, p_indices, p_rows, y_indptr, y_indices,
-    # y_data, c_indptr, c_indices, g, out, transposed, triangular, lanes,
-    # cap, stream
-    "sdt_csr_spgemm_sparse_sddmm": (_INT, _INT, _P, _P, _I64, _P, _P, _P, _P,
-                                    _P, _P, _P, _INT, _INT, _INT, _INT, _P),
+    # dtype, itype, items, n_items, run_ptr, run_q, perm, line, ne, ny,
+    # panel, pitch, staged, p_indptr, p_indices, p_rows, y_indptr,
+    # y_indices, y_data, c_indptr, c_indices, g, out, transposed,
+    # triangular, lanes, stream
+    "sdt_csr_spgemm_sparse_sddmm": (_INT, _INT, _P, _I64, _P, _P, _P, _P,
+                                    _I64, _I64, _INT, _INT, _INT, _P, _P,
+                                    _I64, _P, _P, _P, _P, _P, _P, _P, _INT,
+                                    _INT, _INT, _P),
 }
 
 _lib = None

@@ -390,36 +390,58 @@ csr_spgemm_sddmm.launches = 0
 #
 # K11 (``csrc/csr_spgemm_sparse_sddmm.cu``) replaces XLA's transpose of
 # ``_xla.esc_spgemm_block`` (``sparse_dot_tpu/ops/_xla.py``): ``jax.grad``
-# of the expand-sort-compress product in its values.
+# of the expand-sort-compress product in its values.  Its sums are K9's,
+# with G on C's sparse pattern in place of a dense D: where G's lines (its
+# rows in the dA form, its columns in the dB form) are short enough, a
+# thread block stages a panel of them from C's storage and serves K9's
+# runs (``sampled_runs``) of P's entries (op(A) in the dA form, op(B) in
+# the dB form); a product whose entry C lacks adds nothing.
 
-# Threads a block of K11 (csrc/csr_spgemm_sparse_sddmm.cu's kThreads), and
-# the shared memory a block gives its groups' staged rows of C (dA form).
-SPARSE_THREADS = 256
-SPARSE_SMEM = 48 * 1024
+# K11's plan (``sparse_plan``): lines of G staged as K9 stages them, in
+# SPARSE_SMEM bytes a block, where at least SAMPLED_MIN_STAGED fit, and
+# otherwise read in place (256 threads a block, a group of lanes a row of
+# P).
+SPARSE_SMEM = SAMPLED_SMEM
+# Staged work items a resident block: one, where K9 takes two.  K11
+# stages a panel from C's storage (a scatter, or a search a row of C),
+# which costs more than K9's copy of dense lines, and every item stages
+# its panel anew.
+_SPARSE_ITEMS = 1
 
 
-class SparsePlan(NamedTuple):
-    """K11's launch: ``lanes`` a group (a row of P); in the dA form, the
-    entries of the group's row of C it stages in shared memory where the
-    row fits (``cap``; 0: every row searched in place)."""
+def sparse_plan(line, itemsize, mean_y_row, budget=None):
+    """K11's ``SampledPlan`` for lines of G of ``line`` elements (n in the
+    dA form, G's rows; m in the dB form, its columns) of ``itemsize``
+    bytes and rows of Y (op(B), or op(A)^T in the dB form) of
+    ``mean_y_row`` entries on average: K9's (``sampled_plan``, its lines
+    staged in ``budget`` bytes, ``SPARSE_SMEM``) where it stages lines;
+    else ``sampled_lanes`` lanes a group and lines read in place
+    (``panel`` 0)."""
+    plan = sampled_plan(line, itemsize, mean_y_row, False,
+                        SPARSE_SMEM if budget is None else budget)
+    return plan if plan.staged else plan._replace(panel=0)
 
-    lanes: int
-    cap: int
 
-
-def sparse_plan(mean_y_row, itemsize, index_size, transposed, budget=None):
-    """K11's plan for rows of Y (op(B) in the dA form, op(A)^T in the dB
-    form) of ``mean_y_row`` entries on average and values (indices) of
-    ``itemsize`` (``index_size``) bytes: ``sampled_lanes`` lanes a group,
-    and in the dA form each group's even share of ``budget`` bytes
-    (``SPARSE_SMEM``) for its row of C's values and column ids.  The dB
-    form stages nothing: a row of P's products land in many rows of C."""
-    budget = SPARSE_SMEM if budget is None else budget
-    lanes = sampled_lanes(mean_y_row)
-    if transposed:
-        return SparsePlan(lanes, 0)
-    groups = SPARSE_THREADS // lanes
-    return SparsePlan(lanes, budget // (groups * (itemsize + index_size)))
+def sparse_schedule(p, y, line, itemsize, transposed, sms):
+    """(``SampledPlan``, runs) of K11 for P's ``CsrPattern`` ``p`` (op(A)
+    in the dA form, op(B) in the dB form), Y's ``y`` and lines of G of
+    ``line`` elements on a card of ``sms`` SMs: the runs
+    (``sampled_runs``, work items for ``_SPARSE_ITEMS`` a resident block)
+    where the plan stages lines, else None.  The runs depend on P's
+    pattern and the panel alone, never on C: they are cached on ``p``'s
+    ``plans`` and built once over a training loop whose C tensors are new
+    at every step."""
+    k = y.shape[0]
+    plan = sparse_plan(line, itemsize, y.nnz / max(k, 1))
+    if not plan.staged:
+        return plan, None
+    items = _SPARSE_ITEMS * sms * sampled_blocks_per_sm(plan, itemsize)
+    key = ("k11", bool(transposed), plan.panel, k, items)
+    if key not in p.plans:
+        with structure_only():
+            p.plans[key] = sampled_runs(p.indptr, p.indices, transposed,
+                                        plan.panel, k, items)
+    return plan, p.plans[key]
 
 
 def csr_spgemm_sparse_sddmm_plain(a_indptr, a_indices, a_data, b_indptr,
@@ -516,15 +538,23 @@ def sparse_sampled(a_indptr, a_indices, a_data, b_indptr, b_indices, b_data,
     out = torch.empty(p.nnz, dtype=g.dtype, device=g.device)
     if p.nnz == 0:
         return out
-    plan = sparse_plan(y.nnz / max(k, 1), g.element_size(),
-                       a_indptr.element_size(), transposed)
+    m = c.shape[0]
+    sms = torch.cuda.get_device_properties(g.device).multi_processor_count
+    plan, runs = sparse_schedule(p, y, m if transposed else n,
+                                 g.element_size(), transposed, sms)
+    # The runs' arrays, or null pointers where lines are read in place.
+    staged = (0,) * 6 if runs is None else (
+        runs.items.data_ptr(), runs.items.numel() - 1,
+        runs.run_ptr.data_ptr(), runs.run_q.data_ptr(),
+        runs.perm.data_ptr(), runs.line.data_ptr())
     _build.launch(
         "sdt_csr_spgemm_sparse_sddmm", *_build.type_codes(g, a_indptr),
-        p.indptr.data_ptr(), p.indices.data_ptr(), p.shape[0],
-        y.indptr.data_ptr(), y.indices.data_ptr(), y_data.data_ptr(),
-        c_indptr.data_ptr(), c_indices.data_ptr(), g.data_ptr(),
-        out.data_ptr(), int(transposed), int(triangular), plan.lanes,
-        plan.cap, _build.stream_of(g),
+        *staged, n if transposed else m, m if transposed else n,
+        plan.panel, plan.pitch, int(plan.staged), p.indptr.data_ptr(),
+        p.indices.data_ptr(), p.shape[0], y.indptr.data_ptr(),
+        y.indices.data_ptr(), y_data.data_ptr(), c_indptr.data_ptr(),
+        c_indices.data_ptr(), g.data_ptr(), out.data_ptr(), int(transposed),
+        int(triangular), plan.lanes, _build.stream_of(g),
     )
     csr_spgemm_sparse_sddmm.launches += 1
     return out

@@ -401,20 +401,149 @@ def test_sparse_sampled_product_refuses_operands_that_do_not_fit(case):
             spgemm_grad.csr_spgemm_sparse_sddmm(*args, transposed)
 
 
-@pytest.mark.parametrize("mean_row, itemsize, index_size, transposed, "
-                         "budget, want", [
-                             (106, 8, 4, False, None, (32, 512)),
-                             (2, 8, 4, False, None, (1, 16)),
-                             (6, 16, 8, False, None, (4, 32)),
-                             (106, 8, 4, False, 0, (32, 0)),
-                             (106, 8, 4, False, 200 * 1024, (32, 2133)),
-                             (106, 8, 4, True, None, (32, 0)),
-                             (3, 4, 4, True, None, (2, 0)),
-                         ])
-def test_sparse_plan(mean_row, itemsize, index_size, transposed, budget,
-                     want):
-    """K11's plan: K9's lanes for Y's mean row; in the dA form each
-    group's share of the budget for its staged row of C (values and
-    column ids), in the dB form nothing staged."""
-    assert tuple(spgemm_grad.sparse_plan(mean_row, itemsize, index_size,
-                                         transposed, budget)) == want
+@pytest.mark.parametrize("line, itemsize, mean_row, budget, want", [
+    # case a (the demo X @ X.T, f64): 28 lines of 501 staged, 32 lanes
+    (500, 8, 106, None, (32, 28, True, 501)),
+    # case c (the 1M^2 A @ A): in place, a lane a row of P
+    (10 ** 6, 8, 2, None, (1, 0, False, 0)),
+    # short lines: at most 32 a panel
+    (20, 4, 3, None, (2, 32, True, 21)),
+    (20, 16, 40, None, (32, 32, True, 21)),
+    # c128 lines of 3000: 2 fit 112 KB, in place; 4 fit 220 KB, staged
+    (3000, 16, 150, None, (32, 0, False, 0)),
+    (3000, 16, 150, 220 * 1024, (32, 4, True, 3001)),
+    # f64 lines of 3583 (pitch 3583): 4 fit, the fewest staged; of 3584
+    # (pitch 3585), 3: in place
+    (3583, 8, 6, None, (4, 4, True, 3583)),
+    (3584, 8, 6, None, (4, 0, False, 0)),
+    # no shared memory: in place
+    (500, 8, 106, 0, (32, 0, False, 0)),
+])
+def test_sparse_plan(line, itemsize, mean_row, budget, want):
+    """K11's plan (lanes, panel, staged, pitch): K9's lanes for Y's mean
+    row; lines of G (n long in the dA form, m in the dB form) staged as
+    K9 stages them where at least 4 fit the budget (an odd pitch, at most
+    32 a panel), else read in place (panel and pitch 0)."""
+    assert tuple(spgemm_grad.sparse_plan(line, itemsize, mean_row,
+                                         budget)) == want
+
+
+def test_sparse_runs_built_once_per_pattern(monkeypatch):
+    """K11's runs live on P's ``CsrPattern`` (op(A)'s in the dA form,
+    op(B)'s in the dB form) under a key of their own, built once over
+    three steps of a training loop whose C tensors are new at every
+    step; they are ``sampled_runs`` of P's pattern and the plan's panel,
+    whatever C holds."""
+    from sparse_dot_tpu_torch import formats
+    from sparse_dot_tpu_torch.ops import autograd
+
+    a, b = operands(np.float64, 55, m=40, k=30, n=36)
+    a_ip, a_ix, a_dv = arrays(a, requires_grad=False)
+    b_ip, b_ix, b_dv = arrays(b, requires_grad=False)
+    built = []
+    real = spgemm_grad.sampled_runs
+
+    def counted(*args):
+        built.append(args[2:])
+        return real(*args)
+
+    monkeypatch.setattr(spgemm_grad, "sampled_runs", counted)
+    pa = autograd.patterns.get(a_ip, a_ix, b_ip.numel() - 1)
+    pb = autograd.patterns.get(b_ip, b_ix, b.shape[1])
+    t, _ = pa.transpose()
+    seen = {}
+    for step in range(3):
+        # A step's product: new C tensors, which the runs never read.
+        spgemm.csr_spgemm(a_ip, a_ix, torch.tensor(a.data * (step + 1)),
+                          b_ip, b_ix, b_dv, b.shape[1])
+        for transposed, p, y, line in ((False, pa, pb, b.shape[1]),
+                                       (True, pb, t, a.shape[0])):
+            plan, runs = spgemm_grad.sparse_schedule(p, y, line, 8,
+                                                     transposed, sms=4)
+            assert plan.staged
+            assert seen.setdefault(transposed, runs) is runs
+    assert len(built) == 2
+    for transposed, p in ((False, pa), (True, pb)):
+        key = [k for k in p.plans if k[:2] == ("k11", transposed)]
+        assert len(key) == 1
+        runs = p.plans[key[0]]
+        want = real(p.indptr, p.indices, transposed, key[0][2],
+                    b_ip.numel() - 1, key[0][4])
+        for got, ref in zip(runs[:5], want[:5]):
+            assert torch.equal(got, ref)
+        # Sorted stably by (panel of the line, row of Y): every entry once.
+        assert sorted(runs.perm.tolist()) == list(range(p.nnz))
+        line, q = formats.expand_indptr(p.indptr, p.nnz), p.indices
+        if transposed:
+            line, q = q, line
+        key_of = ((line.long() // key[0][2]) * 100 + q.long())[runs.perm]
+        assert (key_of[1:] >= key_of[:-1]).all()
+
+
+def same_parts_and_close(port, ref, tol):
+    """The same nan, +inf and -inf in each real and imaginary part, and
+    the finite entries within ``tol`` of the largest finite one."""
+    port = np.asarray(port.detach() if isinstance(port, torch.Tensor)
+                      else port)
+    got = port.view(np.float64) if np.iscomplexobj(port) else port
+    want = ref.view(np.float64) if np.iscomplexobj(ref) else ref
+    for what in (np.isnan, np.isposinf, np.isneginf):
+        npt.assert_array_equal(what(got), what(want))
+    fin = np.isfinite(want)
+    scale = np.abs(want[fin]).max() if fin.any() else 1.0
+    npt.assert_allclose(got[fin], want[fin], rtol=tol, atol=tol * scale)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.complex128])
+@pytest.mark.parametrize("transposed", [False, True])
+def test_plain_skips_products_that_c_lacks(dtype, transposed):
+    """The presence rule: where C's pattern lacks some products' entries
+    (every other entry of some rows dropped), those products add
+    nothing, so an inf in op(B)'s (dA form) or op(A)'s (dB form) values
+    that meets only such entries leaves no nan, where a dense 0 * inf
+    would.  ``csr_spgemm_sparse_sddmm_plain`` (and the wrapper on CPU
+    tensors) against a numpy oracle that walks the products and skips
+    them, in f64 and c128, at rtol 1e-12."""
+    a, b = operands(dtype, 56, m=9, k=8, n=10)
+    a.data[[1, 6]] = [np.inf, -np.inf]
+    b.data[[0, 7]] = [-np.inf, np.inf]
+    if np.iscomplexobj(a.data):
+        a.data[3] = complex(0.0, np.inf)
+        b.data[4] = complex(0.0, -np.inf)
+    a_ip, a_ix, a_dv = arrays(a, requires_grad=False)
+    b_ip, b_ix, b_dv = arrays(b, requires_grad=False)
+    n = b.shape[1]
+    full_ip, full_ix, _ = spgemm.spgemm_plain(a_ip, a_ix, a_dv, b_ip, b_ix,
+                                              b_dv, n)
+    keep = np.ones(full_ix.numel(), bool)
+    for row in (0, 2, 3, 5, 8):
+        keep[int(full_ip[row]) + 1:int(full_ip[row + 1]):2] = False
+    rows = np.repeat(np.arange(a.shape[0]), np.diff(full_ip.numpy()))[keep]
+    cols = full_ix.numpy()[keep]
+    c_ip = torch.tensor(np.concatenate([[0], np.cumsum(np.bincount(
+        rows, minlength=a.shape[0]))]).astype(np.int32))
+    c_ix = torch.tensor(cols.astype(np.int32))
+    g = values(np.random.default_rng(57), cols.size, dtype)
+    present = {(int(i), int(j)): v for i, j, v in zip(rows, cols, g)}
+    ref = np.zeros((b if transposed else a).nnz, dtype)
+    a_rows = np.repeat(np.arange(a.shape[0]), np.diff(a.indptr))
+    for pa, (i, kk) in enumerate(zip(a_rows, a.indices)):
+        for pb in range(b.indptr[kk], b.indptr[kk + 1]):
+            j = b.indices[pb]
+            if (i, j) not in present:
+                continue
+            if transposed:
+                ref[pb] += np.conj(a.data[pa]) * present[(i, j)]
+            else:
+                ref[pa] += present[(i, j)] * np.conj(b.data[pb])
+    gd = on_pattern(c_ip, c_ix, g, (a.shape[0], n))
+    with np.errstate(invalid="ignore"):
+        dense = (sampled(gd @ b.toarray().conj().T, a) if not transposed
+                 else sampled(a.toarray().conj().T @ gd, b))
+    assert np.isnan(dense).sum() > np.isnan(ref).sum()
+    args = (a_ip, a_ix, a_dv, b_ip, b_ix, b_dv, c_ip, c_ix, torch.tensor(g),
+            n, transposed)
+    same_parts_and_close(
+        spgemm_grad.csr_spgemm_sparse_sddmm_plain(*args), ref, 1e-12)
+    same_parts_and_close(spgemm_grad.csr_spgemm_sparse_sddmm(*args), ref,
+                         1e-12)
