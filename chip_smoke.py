@@ -85,8 +85,12 @@ Phases, each printing one JSON line:
    and ``csr_spgemm`` with tracked operands (each with and without
    ``triangular``) on the card in f64 and c128, and
    ``torch.autograd.gradgradcheck`` (with forward over reverse) of
-   ``coo_spmm_raw``, ``coo_spmv``, ``csr_spmm`` and ``csr_spmv``, with the
-   plain versions refused and K1-K9 and K11 launched;
+   ``coo_spmm_raw``, ``coo_spmv``, ``csr_spmm`` and ``csr_spmv``, of
+   ``ops.bsr_spmm`` at bs 8 (f64, tensor cores) and bs 3 (c128), of
+   ``csr_spgemm_dense`` with and without ``triangular`` and over shuffled
+   op(B) with ``b_sorted=False``, and of ``csr_spgemm`` with and without
+   ``triangular``, in f64 and c128, with the plain versions refused and
+   K1-K9 and K11 (K1 and K8 in both variants) launched;
 3. the main path, ``dot_product`` with scipy/numpy operands at real
    sizes, against the scipy oracle at the reference's decimal=6 (f64)
    and decimal=5 (f32), with each kernel's launch count checked (the
@@ -177,24 +181,33 @@ Phases, each printing one JSON line:
    forward, K11 twice backward, lines in place), and 10 on case a's
    demo X @ X.T (lines staged); losses non-increasing, gradients at the
    first and last step equal to torch's through the plain versions, the
-   device's busy ms and idle share of a step.  Last, one Hessian-vector
-   product by double backward of sum(sin(A b)) through ``coo_spmm_raw``
-   on config 1 (K2 and K7 only), against torch's through the plain
-   versions.
+   device's busy ms and idle share of a step.  Hessian-vector products
+   by double backward of sum(sin(.)) along a random direction, f64, in
+   both differentiable operands, each against torch's double backward
+   through the plain versions (within 1e-12 of max|plain|), with its
+   wall ms host to host (first call, median of 5 more), the device's
+   busy ms and its exact launches: through ``ops.bsr_spmm`` at config 3
+   in the blocks and b (K1 6, K8 3), through ``csr_spgemm_dense`` on the
+   demo X @ X.T (K6 3, K9 6), through ``csr_spgemm`` on case c's 1M^2
+   A @ A (K4 1, K5 3, K11 6), and through ``coo_spmm_raw`` on config 1
+   in the values and b (K2 6, K7 3).
 
 Then the card line, a JSON line of per-kernel results (its first phase-4
 row's times, bound and library time, and the launches of each path) and,
-last, ``{"ok": true, "device": {...}}``.  With ``CHIP_SMOKE_LOG`` set to a path,
-every JSON line also goes to that file.  Any failure is an uncaught exception
+last, ``{"ok": true, "device": {...}}``.  Each phase's line carries
+``elapsed_s``, the seconds since the script started.  With
+``CHIP_SMOKE_LOG`` set to a path, every JSON line also goes to that
+file.  Any failure is an uncaught exception
 and a non-zero exit; without a CUDA device it exits 2 before any work.
 ``--only spgemm`` runs the sparse x sparse parts of phases 1-4 and prints
 no result lines; ``--only k6`` runs phase 1 and K6's phase-4 rows;
 ``--only k7`` runs phase 1, K7's phase-2 checks (without gradcheck), its
 phase-4 rows and phase 6's config-1 f64 steps, and prints no result line;
 ``--only k8`` (``k9``, ``k11``) the same for K8 (K9, K11): phase 1, its
-phase-2 checks (for K11 with ``csr_spgemm``'s gradcheck and the CSR
-API's gradgradcheck), its phase-4 rows and its phase-6 run (for K11 with
-the Hessian-vector product).
+phase-2 checks (for K11 with ``csr_spgemm``'s gradcheck and the device
+API's gradgradcheck), its phase-4 rows and its phase-6 runs with their
+Hessian-vector products (K8: the BSR one; K9: the dense-output one;
+K11: the sparse-output and the CSR ones).
 """
 
 import argparse
@@ -286,10 +299,14 @@ KERNELS = {
 # A path to which every JSON line is also written (the file is started
 # anew), for output too long to read from the end of the standard output.
 LOG = os.environ.get("CHIP_SMOKE_LOG")
+# Each JSON line carries the seconds since the script started
+# (``elapsed_s``), so that a phase's share of the run can be read.
+START = time.perf_counter()
 
 
 def emit(phase, **fields):
-    line = json.dumps({"phase": phase, **fields})
+    line = json.dumps({"phase": phase, **fields,
+                       "elapsed_s": time.perf_counter() - START})
     print(line, flush=True)
     if LOG:
         with open(LOG, "a") as f:
@@ -1318,12 +1335,21 @@ def check_k11_all():
 
 
 def check_second_order():
-    """``torch.autograd.gradgradcheck`` (with forward over reverse) of
+    """``torch.autograd.gradgradcheck`` (with forward over reverse) on the
+    card in f64 and c128, with the plain versions refused, of
     ``ops.coo_spmm_raw``, ``coo_spmv``, ``csr.csr_spmm`` and
-    ``csr.csr_spmv`` on the card in f64 and c128, 9 x 7 with a repeated
-    entry, alpha and beta, with the plain versions refused: K2, K3 and K7
-    must launch.  Returns the launches."""
-    from sparse_dot_tpu_torch.ops import autograd, csr
+    ``csr.csr_spmv`` (9 x 7 with a repeated entry, alpha and beta); of
+    ``ops.bsr_spmm`` in the blocks, b and c0 (alpha and beta, a repeated
+    block and negative block ids) at bs 8 in f64 (K1's and K8's
+    tensor-core variants) and at bs 3 in c128 (their CUDA-core ones); of
+    ``csr_spgemm_dense`` in both operands' values (alpha, 6 x 9 by 9 x 7)
+    over sorted op(B), with c0 and beta, and with ``triangular``, and
+    with ``b_sorted=False`` over the same op(B) shuffled; and of
+    ``csr_spgemm``'s values with and without ``triangular``: K1 and K8
+    (both variants each), K2-K7, K9 and K11 must launch.  Returns the
+    launches."""
+    from sparse_dot_tpu_torch import ops
+    from sparse_dot_tpu_torch.ops import autograd, csr, spgemm
 
     rng = np.random.default_rng(SEED + 17)
     m, k = 9, 7
@@ -1332,14 +1358,25 @@ def check_second_order():
     a = sps.csr_matrix((np.ones(len(rows)), (rows, cols)), shape=(m, k))
     tr, tc, ip, ix = map(cuda, (rows, cols, a.indptr.astype(np.int32),
                                 a.indices.astype(np.int32)))
+    block_rows = cuda(np.array([0, 2, 2, -1, 0, 1], np.int32))
+    block_cols = cuda(np.array([1, 0, 0, 1, -2, 1], np.int32))
+    # op(B)'s rows shuffled (``b_sorted=False``) and sorted.
+    a_ip, a_ix, _ = map(cuda, distinct_rows(rng, (3, 0, 2, 5, 1, 4), 9,
+                                            np.float64, np.int32))
+    b_arrays = distinct_rows(rng, (2, 4, 0, 3, 1, 2, 5, 0, 3), 7,
+                             np.float64, np.int32)
+    b_ip, b_shuffled, _ = map(cuda, b_arrays)
+    b_sorted = cuda(sorted_rows(*b_arrays)[1])
     before = read_launches()
     with plain_versions_refused():
         for npdt in (np.float64, np.complex128):
             def leaf(shape):
                 return cuda(values(rng, shape, npdt)).requires_grad_()
 
-            alpha = 2.0 - 0.5j if np.dtype(npdt).kind == "c" else 2.0
-            checks = (
+            complex_ = np.dtype(npdt).kind == "c"
+            alpha = 2.0 - 0.5j if complex_ else 2.0
+            beta = 0.25 + 1j if complex_ else -0.5
+            checks = [
                 (lambda v, b: autograd.coo_spmm_raw(tr, tc, v, b, m),
                  (leaf(len(rows)), leaf((k, 2)))),
                 (lambda v, x, y: autograd.coo_spmv(tr, tc, v, x, m, -1.5,
@@ -1348,15 +1385,38 @@ def check_second_order():
                 (lambda v, b, c: csr.csr_spmm(ip, ix, v, b, alpha, -1.0, c),
                  (leaf(a.nnz), leaf((k, 2)), leaf((m, 2)))),
                 (lambda v, x, y: csr.csr_spmv(ip, ix, v, x, alpha, -1.0, y),
-                 (leaf(a.nnz), leaf(k), leaf(m))))
+                 (leaf(a.nnz), leaf(k), leaf(m)))]
+            bs = 3 if complex_ else 8
+            checks.append((
+                lambda dd, bb, cc: ops.bsr_spmm(
+                    dd, block_rows, block_cols, bb, 3 * bs, alpha, beta, cc),
+                (leaf((6, bs, bs)), leaf((2 * bs, 2)), leaf((3 * bs, 2)))))
+            checks.append((
+                lambda av, bv, cc: spgemm.csr_spgemm_dense(
+                    a_ip, a_ix, av, b_ip, b_sorted, bv, 7, alpha, beta, cc,
+                    b_sorted=True),
+                (leaf(a_ix.numel()), leaf(b_ip[-1].item()), leaf((6, 7)))))
+            # c0's second derivative is 0: one check above holds it.
+            for tri, b_ix, warrant in ((True, b_sorted, True),
+                                       (False, b_shuffled, False)):
+                checks.append((
+                    lambda av, bv, tri=tri, b_ix=b_ix, warrant=warrant:
+                    spgemm.csr_spgemm_dense(a_ip, a_ix, av, b_ip, b_ix, bv,
+                                            7, alpha, triangular=tri,
+                                            b_sorted=warrant),
+                    (leaf(a_ix.numel()), leaf(b_ip[-1].item()))))
+            for tri in (False, True):
+                checks.append((
+                    lambda av, bv, tri=tri: spgemm.csr_spgemm(
+                        a_ip, a_ix, av, b_ip, b_sorted, bv, 7, tri)[2],
+                    (leaf(a_ix.numel()), leaf(b_ip[-1].item()))))
             for fn, inputs in checks:
                 if not torch.autograd.gradgradcheck(fn, inputs,
                                                     check_fwd_over_rev=True):
                     raise AssertionError(f"gradgradcheck failed in {npdt}")
     launched = {name: count - before[name]
                 for name, count in read_launches().items()}
-    if not all(launched[name] > 0 for name in (
-            "K2_csr_spmm", "K3_csr_spmv", "K7_csr_sddmm")):
+    if not all(launched.values()):
         raise AssertionError(f"gradgradcheck launched {launched}")
     return {name: count for name, count in launched.items() if count}
 
@@ -3914,64 +3974,176 @@ def spgemm_sparse_demo_training(x):
     return spgemm_sparse_training(x, x.T.tocsr())
 
 
-def hessian_vector_product(inputs):
+# Timed repeats of each phase-6 Hessian-vector product after its checked
+# first call, and how far (relative to the largest |entry|) it may lie
+# from torch's double backward through the plain versions: the two sum
+# in different orders, in f64.
+HVP_REPS = 5
+HVP_RTOL = 1e-12
+
+
+def hvp_run(fn, plain, params, expected, seed):
     """One Hessian-vector product of the non-quadratic loss
-    sum(sin(A b)) through ``ops.coo_spmm_raw`` on BASELINE config 1's
-    pattern and values and phase 3's b (f64), in (values, b), by double
-    backward along a random direction, with the plain versions refused;
-    held against torch's double backward through ``csr_spmm_plain`` on
-    the same tensors.  K2 and K7 must launch.  Returns the launches and
-    the record."""
+    sum(sin(fn(*params))) in every one of ``params`` (f64), by double
+    backward along a random direction made from ``seed``, with the plain
+    versions refused: its launches must be ``expected`` (every other
+    kernel none), and it must lie within HVP_RTOL of max|plain| of
+    torch's double backward through ``plain`` on the same tensors.
+    Timed on the host clock, host to host (to a synchronize): the first
+    call and the median of HVP_REPS more; the device's busy ms of one
+    more in a ``torch.profiler`` trace.  Returns the launches (of the
+    first call) and the record."""
+    rng = np.random.default_rng(seed)
+    u = [cuda(values(rng, tuple(p.shape), np.float64)) for p in params]
+
+    def hvp(f):
+        ps = [p.clone().requires_grad_() for p in params]
+        grads = torch.autograd.grad(torch.sin(f(*ps)).sum(), ps,
+                                    create_graph=True)
+        dot = sum((g * w).sum() for g, w in zip(grads, u))
+        out = torch.autograd.grad(dot, ps)
+        torch.cuda.synchronize()
+        return out
+
+    def timed():
+        t0 = time.perf_counter()
+        out = hvp(fn)
+        return out, (time.perf_counter() - t0) * 1e3
+
+    reset_launches()
+    with plain_versions_refused():
+        got, first = timed()
+        launches = read_launches()
+        walls = [timed()[1] for _ in range(HVP_REPS)]
+        busy = device_busy_ms(lambda: hvp(fn))
+    want = {name: 0 for name in launches}
+    want.update(expected)
+    if launches != want:
+        raise AssertionError(f"HVP launched {launches}, expected {want}")
+    errs = []
+    for g, r in zip(got, hvp(plain)):
+        scale = float(r.abs().max())
+        errs.append(float((g - r).abs().max()) / scale)
+        if not (scale > 0 and np.isfinite(scale) and errs[-1] <= HVP_RTOL):
+            raise AssertionError(f"HVP off the plain one by {errs[-1]} of "
+                                 f"{scale}")
+    wall = float(np.median(walls))
+    return launches, {
+        "max_rel_err_vs_plain": errs, "first_wall_ms": first,
+        "wall_ms": wall, "wall_min_ms": min(walls),
+        "wall_max_ms": max(walls), "device_busy_ms": busy,
+        "device_idle_share": None if busy is None else 1 - busy / wall,
+        "launches": {k: v for k, v in launches.items() if v},
+        "shapes": [list(p.shape) for p in params]}
+
+
+def bsr_hvp(inputs):
+    """``hvp_run`` through ``ops.bsr_spmm`` at config 3 (8192^2, bs 64, 5%
+    of blocks, f64: K1 and K8 on the tensor cores) in its blocks and
+    phase 3's b (8192 x 256).  One product: K1 forward; K8 and K1 over
+    A^H in the first backward; in the second, K1 twice (``BsrSddmm``'s
+    backward), K8 and K1 over A^H's transpose (``BsrSpmm`` over A^H) and
+    K8 and K1 over A^H (``BsrSpmm`` over A): K1 6 times, K8 3."""
+    from sparse_dot_tpu_torch import ops
+    from sparse_dot_tpu_torch.ops import autograd, bsr
+
+    a = inputs["bsrs"][(64, np.float64)]
+    bs, (m, k) = a.blocksize[0], a.shape
+    rows = np.repeat(np.arange(m // bs), np.diff(a.indptr))
+    r3, c3 = cuda(rows.astype(np.int32)), cuda(a.indices.astype(np.int32))
+
+    def plain(d, bb):
+        p = autograd.bsr_structures.get(r3, c3, m, k, bs)
+        return bsr.bsr_spmm_plain(p.indptr, p.indices, d[p.order], bb)
+
+    return hvp_run(lambda d, bb: ops.bsr_spmm(d, r3, c3, bb, m), plain,
+                   (cuda(a.data), cuda(inputs["b3"][np.float64])),
+                   {"K1_bsr_spmm_tc": 6, "K8_bsr_sddmm_tc": 3}, SEED + 20)
+
+
+def spgemm_dense_hvp(x):
+    """``hvp_run`` through ``csr_spgemm_dense`` on the demo X @ X.T (X 500
+    x 5000, 21.2%, f64; op(B) a CSR of X^T) in both operands' values.
+    One product: K6 forward; K9 twice in the first backward; in the
+    second, K6 and K9 for each of the first backward's K9 calls
+    (``CsrSpgemmSddmm``'s backward) and K9 twice (``CsrSpgemmDense``'s):
+    K6 3 times, K9 6."""
+    from sparse_dot_tpu_torch import formats
+    from sparse_dot_tpu_torch.ops import spgemm
+
+    A, B = formats.to_device(x), formats.to_device(x.T.tocsr())
+    a_ip, a_ix, a_dv = A.csr_arrays()
+    b_ip, b_ix, b_dv = B.csr_arrays()
+    n, b_sorted = x.shape[0], B.csr_sorted()
+    return hvp_run(
+        lambda av, bv: spgemm.csr_spgemm_dense(a_ip, a_ix, av, b_ip, b_ix,
+                                               bv, n, b_sorted=b_sorted),
+        lambda av, bv: spgemm.csr_spgemm_dense_plain(a_ip, a_ix, av, b_ip,
+                                                     b_ix, bv, n),
+        (a_dv, b_dv), {"K6_csr_spgemm_dense": 3, "K9_csr_spgemm_sddmm": 6},
+        SEED + 21)
+
+
+def spgemm_sparse_hvp(a_np):
+    """``hvp_run`` through ``csr_spgemm`` on case c's 1M^2 A @ A (f64),
+    two value tensors on A's one pattern, in both.  One product: K4 and
+    K5 forward; K11 twice in the first backward; in the second, K5 on C's
+    saved pattern and K11 for each of the first backward's K11 calls
+    (``CsrSpgemmSparseSddmm``'s backward) and K11 twice (``CsrSpgemm``'s):
+    K4 once, K5 3 times, K11 6."""
+    from sparse_dot_tpu_torch import formats
+    from sparse_dot_tpu_torch.ops import spgemm
+
+    ip, ix, dv = formats.to_device(a_np).csr_arrays()
+    n = a_np.shape[1]
+    return hvp_run(
+        lambda av, bv: spgemm.csr_spgemm(ip, ix, av, ip, ix, bv, n)[2],
+        lambda av, bv: spgemm.spgemm_plain(ip, ix, av, ip, ix, bv, n)[2],
+        (dv, dv.clone()), {"K4_csr_spgemm_count": 1,
+                           "K5_csr_spgemm_fill": 3,
+                           "K11_csr_spgemm_sparse_sddmm": 6}, SEED + 22)
+
+
+def hessian_vector_product(inputs):
+    """``hvp_run`` through ``ops.coo_spmm_raw`` on BASELINE config 1's
+    pattern and values and phase 3's b (f64), in (values, b), against
+    ``csr_spmm_plain``.  One product: K2 forward; K7 and K2 over A^H in
+    the first backward; in the second, K2 twice (``CsrSddmm``'s
+    backward), K7 and K2 over A^H's transpose, and K7 and K2 over A^H: K2
+    6 times, K7 3."""
     from sparse_dot_tpu_torch.ops import autograd, csr
 
     r1, c1, m1, b1, _, _ = config1_problem(inputs)
-    vals = cuda(inputs["a1"].data)
-    rng = np.random.default_rng(SEED + 19)
-    u = [cuda(values(rng, x.shape, np.float64)) for x in (vals, b1)]
-
-    def hvp(fn):
-        v, b = vals.clone().requires_grad_(), b1.clone().requires_grad_()
-        grads = torch.autograd.grad(torch.sin(fn(v, b)).sum(), (v, b),
-                                    create_graph=True)
-        dot = sum((g * w).sum() for g, w in zip(grads, u))
-        return torch.autograd.grad(dot, (v, b))
-
     s = autograd.structures.get(r1, c1, m1, b1.shape[0])
-    reset_launches()
-    t0 = time.perf_counter()
-    with plain_versions_refused():
-        got = hvp(lambda v, b: autograd.coo_spmm_raw(r1, c1, v, b, m1))
-        torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3
-    launches = read_launches()
-    ref = hvp(lambda v, b: csr.csr_spmm_plain(
-        s.pattern.indptr, s.pattern.indices, v[s.order], b))
-    if not (launches["K2_csr_spmm"] and launches["K7_csr_sddmm"]) or any(
-            count for name, count in launches.items()
-            if name not in ("K2_csr_spmm", "K7_csr_sddmm")):
-        raise AssertionError(f"HVP launched {launches}")
-    return launches, {
-        "max_abs_err_vs_plain": [compare(g, r, r.dtype)
-                                 for g, r in zip(got, ref)],
-        "wall_ms": wall, "launches": {k: v for k, v in launches.items()
-                                      if v}}
+    return hvp_run(
+        lambda v, b: autograd.coo_spmm_raw(r1, c1, v, b, m1),
+        lambda v, b: csr.csr_spmm_plain(s.pattern.indptr, s.pattern.indices,
+                                        v[s.order], b),
+        (cuda(inputs["a1"].data), b1), {"K2_csr_spmm": 6, "K7_csr_sddmm": 3},
+        SEED + 19)
 
 
 def grad_training(inputs, spgemm_inp, which=("K8", "K9", "K11")):
-    """Phase 6's runs of K8 (``bsr_training``), K9 (``spgemm_training``)
-    and K11 (``spgemm_sparse_training`` at case c and at case a, then
-    ``hessian_vector_product``,
-    the second order of the CSR device API), each with the counts set to
-    0 just before it: one JSON line, and the launches of all summed."""
+    """Phase 6's runs of K8 (``bsr_training``, then ``bsr_hvp``), K9
+    (``spgemm_training``, then ``spgemm_dense_hvp``) and K11
+    (``spgemm_sparse_training`` at case c and at case a, then
+    ``spgemm_sparse_hvp`` and ``hessian_vector_product``, the second
+    order of the CSR device API), each with the counts set to 0 just
+    before it: one JSON line, and the launches of all summed."""
     runs, launches = {}, {name: 0 for name in KERNELS}
     for kernel, name, train, arg in (
             ("K8", "bsr_f64_blocks_and_b", bsr_training, inputs),
+            ("K8", "hvp_bsr_spmm_config3_f64", bsr_hvp, inputs),
             ("K9", "spgemm_dense_f64_a_and_b", spgemm_training,
+             spgemm_inp["x"]),
+            ("K9", "hvp_csr_spgemm_dense_demo_f64", spgemm_dense_hvp,
              spgemm_inp["x"]),
             ("K11", "spgemm_sparse_f64_a_and_b", spgemm_sparse_training,
              spgemm_inp["a1m"]),
             ("K11", "spgemm_sparse_demo_f64_a_and_b",
              spgemm_sparse_demo_training, spgemm_inp["x"]),
+            ("K11", "hvp_csr_spgemm_1m_f64", spgemm_sparse_hvp,
+             spgemm_inp["a1m"]),
             ("K11", "hvp_coo_spmm_raw_config1_f64", hessian_vector_product,
              inputs)):
         if kernel in which:
@@ -3979,7 +4151,9 @@ def grad_training(inputs, spgemm_inp, which=("K8", "K9", "K11")):
             launches = {key: launches[key] + got[key] for key in launches}
     emit("6-grad", launches=launches, runs=runs,
          timer="host clock per step to a synchronize, median of steps "
-               "2..N; device busy: torch.profiler, one more step")
+               "2..N; HVPs: host clock, host to host, first call and "
+               f"median of {HVP_REPS} more; device busy: torch.profiler, "
+               "one more step or HVP")
     return launches
 
 
@@ -4027,10 +4201,11 @@ def main():
              "(k6_timings); k7 runs phase 1, K7's phase-2 checks, its "
              "phase-4 rows and phase 6's config-1 f64 steps; k8 (k9) runs "
              "phase 1, K8's (K9's) phase-2 checks, its phase-4 rows and "
-             "its phase-6 run (bsr_training, spgemm_training); k11 the "
-             "same for K11 (its phase-2 checks with csr_spgemm's "
-             "gradcheck, k11_rows, spgemm_sparse_training and "
-             "hessian_vector_product)")
+             "its phase-6 runs (bsr_training and bsr_hvp; "
+             "spgemm_training and spgemm_dense_hvp); k11 the same for "
+             "K11 (its phase-2 checks with csr_spgemm's gradcheck and "
+             "check_second_order, k11_rows, spgemm_sparse_training, "
+             "spgemm_sparse_hvp and hessian_vector_product)")
     only = parser.parse_args().only
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -4078,7 +4253,8 @@ def main():
         results, lanes = check_k8_k9((kernel,))
         emit(2, kernels=results, k9_lanes=lanes or None)
         inputs = path_inputs() if kernel == "K8" else None
-        spgemm_inp = spgemm_inputs() if kernel == "K9" else {"x": None}
+        spgemm_inp = (spgemm_inputs() if kernel == "K9"
+                      else dict.fromkeys(("x", "a1m")))
         rows = []
         if kernel == "K8":
             k8_rows(rows, inputs, np.random.default_rng(SEED + 4))

@@ -37,24 +37,33 @@ ones are to JAX's.  Each runs one ``torch.autograd.Function``
   pattern, both on K11 (``ops/spgemm_grad.csr_spgemm_sparse_sddmm``);
   ``jvp`` two K5 launches on the saved pattern (``CsrSpgemmFill``, no
   second K4); ``vmap`` one call a member.
-- ``CsrSddmm``, ``BsrSddmm``, ``CsrSpgemmSddmm`` and
-  ``CsrSpgemmSparseSddmm``: K7, K8, K9 and K11 themselves, so that the
-  backward's launches are open to the transforms too
-  (``torch.func.grad`` runs the backward on wrapped tensors, which only a
-  Function's forward sees unwrapped, and ``vmap`` of ``grad`` batches
-  them).
+- ``CsrSddmm``, ``BsrSddmm``, ``CsrSpgemmSddmm``,
+  ``CsrSpgemmSparseSddmm`` and ``CsrSpgemmFill``: K7, K8, K9, K11 and K5
+  themselves, so that the backward's launches are open to the transforms
+  too (``torch.func.grad`` runs the backward on wrapped tensors, which
+  only a Function's forward sees unwrapped, and ``vmap`` of ``grad``
+  batches them).
 
 Gradients follow PyTorch's convention for complex values, the conjugate
-of JAX's: for |z|^2 at 3+4j JAX gives 6-8j, PyTorch 6+8j.  ``CsrSpmm``
-and ``CsrSpmv`` are differentiable to any order: their backward runs
-Functions (``CsrSddmm``, and themselves over A^H), and ``CsrSddmm``'s own
-backward and ``jvp`` run K2 and K7 again, so ``torch.func.hessian``, a
-double backward and ``jvp`` of ``grad`` of ``coo_spmm_raw`` and
-``coo_spmv`` work; without a second-order request the first-order
-launches are unchanged.  The backward of ``BsrSpmm``, ``CsrSpgemmDense``
-and ``CsrSpgemm`` is ``once_differentiable``: a second-order request
-raises, through ``torch.autograd`` and through ``torch.func`` (``grad``
-or ``jvp`` of ``grad``) alike.
+of JAX's: for |z|^2 at 3+4j JAX gives 6-8j, PyTorch 6+8j.  Every Function
+here is differentiable to any order: each backward runs Functions, and
+the gradient Functions' own derivatives run the same kernels again, so
+``torch.func.hessian``, a double backward, ``jvp`` of ``grad`` and
+``gradgradcheck`` work through every device function:
+
+- ``CsrSddmm`` (K7): backward K2 over P and over P^T, ``jvp`` two K7;
+- ``BsrSddmm`` (K8): backward K1 over A's pattern and over its cached
+  transpose, ``jvp`` two K8;
+- ``CsrSpgemmSddmm`` (K9): backward K6 (the dense-output product of W,
+  the incoming gradient on P's pattern, with op(B), or of op(A) with W)
+  and K9 in the other form, ``jvp`` two K9;
+- ``CsrSpgemmSparseSddmm`` (K11): backward K5 on C's saved pattern (W
+  times op(B), or op(A) times W) and K11 in the other form, ``jvp`` two
+  K11;
+- ``CsrSpgemmFill`` (K5): backward the two K11 forms, ``jvp`` two K5.
+
+Without a second-order request the first-order launches are unchanged:
+a backward that builds no graph saves nothing in the gradient Functions.
 
 A^H's structure (``CsrPattern.transpose``, ``BsrPattern.transpose``) is
 built once per pattern and cached; its values are gathered from the
@@ -70,8 +79,6 @@ raise on such an operand (``csr.refuse_tracked``).
 """
 
 import torch
-from torch._C import _functorch
-from torch.autograd.function import once_differentiable
 
 from ..formats import BsrPattern, CsrPattern, coo_structure, structure_only
 from . import bsr, csr, sddmm, spgemm, spgemm_grad
@@ -96,16 +103,12 @@ def _transposed(pattern, data):
     return t, data[order].conj_physical()
 
 
-def _first_order_only(name):
-    """Raise when a ``torch.func`` transform outside the one that runs this
-    backward would differentiate it (``grad`` of ``grad``, ``jvp`` of
-    ``grad``): there ``once_differentiable`` does not stop it, and the
-    second derivative would come out as zeros."""
-    outer = (_functorch.get_interpreter_stack() or [])[:-1]
-    if any(i.key() in (_functorch.TransformType.Grad,
-                       _functorch.TransformType.Jvp) for i in outer):
-        raise RuntimeError(f"{name}: second-order derivatives are not "
-                           "supported (its backward is once_differentiable)")
+def _bsr_transposed(pattern, data):
+    """(pattern of A^H, its blocks) for the BSR A of ``pattern`` with
+    blocks ``data``: the cached transposed structure, the blocks gathered
+    through its permutation, each transposed and conjugated."""
+    t, order = pattern.transpose()
+    return t, data[order].transpose(1, 2).conj_physical()
 
 
 def _plain(*tensors):
@@ -311,7 +314,12 @@ class CsrSpmv(torch.autograd.Function):
 class BsrSddmm(torch.autograd.Function):
     """out[b] = alpha * g's block row r_b @ (b's block row c_b)^H (K8),
     for the backward of ``BsrSpmm``, open to the transforms as
-    ``CsrSddmm`` is."""
+    ``CsrSddmm`` is.  Its own derivatives, the second derivatives of
+    ``BsrSpmm``, run on K1 and K8: with W the BSR of ``pattern`` holding
+    the incoming gradient's blocks w, dL/dg = conj(alpha) W b on K1 and
+    dL/db = alpha W^H g on K1 over the cached transpose (W^H's blocks
+    ``w[order].transpose(1, 2).conj_physical()``); the ``jvp`` alpha (dg
+    b^H + g db^H) at the stored blocks is two K8 launches."""
 
     @staticmethod
     def forward(pattern, g, b, alpha):
@@ -321,7 +329,34 @@ class BsrSddmm(torch.autograd.Function):
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        pass
+        pattern, g, b, alpha = inputs
+        ctx.pattern, ctx.alpha = pattern, alpha
+        ctx.save_for_backward(g, b)
+        ctx.save_for_forward(g, b)
+
+    @staticmethod
+    def backward(ctx, grad):
+        g, b = ctx.saved_tensors
+        pattern, alpha = ctx.pattern, ctx.alpha
+        _, need_g, need_b, _ = ctx.needs_input_grad
+        g_g = g_b = None
+        if need_g:
+            g_g = BsrSpmm.apply(pattern, grad, b, _conj(alpha), None, None)
+        if need_b:
+            t, grad_t = _bsr_transposed(pattern, grad)
+            g_b = BsrSpmm.apply(t, grad_t, g, alpha, None, None)
+        return None, g_g, g_b, None
+
+    @staticmethod
+    def jvp(ctx, _pattern, d_g, d_b, _alpha):
+        g, b = ctx.saved_tensors
+        out = None
+        if d_g is not None:
+            out = BsrSddmm.apply(ctx.pattern, d_g, b, ctx.alpha)
+        if d_b is not None:
+            d_out = BsrSddmm.apply(ctx.pattern, g, d_b, ctx.alpha)
+            out = d_out if out is None else out + d_out
+        return out
 
     @staticmethod
     def vmap(info, in_dims, pattern, g, b, alpha):
@@ -332,7 +367,8 @@ class BsrSddmm(torch.autograd.Function):
 class BsrSpmm(torch.autograd.Function):
     """C = alpha * A @ b + beta * c0 on K1, A the BSR of ``pattern``
     (``formats.BsrPattern``) with blocks ``data``; differentiable in
-    ``data``, ``b`` and ``c0``."""
+    ``data``, ``b`` and ``c0``, to any order (its backward runs
+    ``BsrSddmm`` and itself)."""
 
     @staticmethod
     def forward(pattern, data, b, alpha, beta, c0):
@@ -348,9 +384,7 @@ class BsrSpmm(torch.autograd.Function):
         ctx.save_for_forward(data, b)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, grad):
-        _first_order_only("BsrSpmm")
         data, b = ctx.saved_tensors
         pattern, alpha = ctx.pattern, _conj(ctx.alpha)
         _, need_data, need_b, _, _, need_c0 = ctx.needs_input_grad
@@ -359,8 +393,7 @@ class BsrSpmm(torch.autograd.Function):
         if need_data:
             g_data = BsrSddmm.apply(pattern, grad, b, alpha)
         if need_b:
-            t, order = pattern.transpose()
-            data_t = data[order].transpose(1, 2).conj_physical()
+            t, data_t = _bsr_transposed(pattern, data)
             g_b = BsrSpmm.apply(t, data_t, grad, alpha, None, None)
         if need_c0:
             g_c0 = grad * _conj(ctx.beta)
@@ -392,23 +425,72 @@ class BsrSpmm(torch.autograd.Function):
 
 
 class CsrSpgemmSddmm(torch.autograd.Function):
-    """K9's function (``ops/spgemm_grad``; the dA form, or the dB form
-    with ``transposed``) at the entries of ``p_pattern``, on whose plans
-    K9's runs are cached, Y the CSR of ``y_pattern`` with values
-    ``y_data``: the backward's launches of ``CsrSpgemmDense``, open to the
-    transforms as ``CsrSddmm`` is."""
+    """K9's function (``ops/spgemm_grad``) at the entries (r_p, c_p) of
+    ``p`` (a ``CsrPattern``, on whose plans K9's runs are cached), for
+    row-major ``d`` and X the CSR of ``x`` with values ``x_data``:
+
+    - the dA form: out[p] = alpha sum_s d[r_p, s] conj(X[c_p, s]), with
+      X = op(B) (K9's Y);
+    - the dB form (``transposed``): out[p] = alpha sum_i d[i, c_p]
+      conj(X[i, r_p]), with X = op(A), which K9 reads as Y = X^T through
+      X's cached transpose (``x_data`` gathered through its permutation).
+
+    These are the backward's launches of ``CsrSpgemmDense``, open to the
+    transforms as ``CsrSddmm`` is.  The function is bilinear in (d,
+    x_data); with W the CSR of ``p``'s pattern holding the incoming
+    gradient w, its own derivatives are dL/dd = conj(alpha) W X (dA) or
+    conj(alpha) X W (dB), on K6 (``CsrSpgemmDense``, which sorts the
+    rows of its op(B), ``p`` or ``x``, once per pattern: they come in the
+    caller's order), and dL/d(x_data) = the other form at X's entries
+    with W in place of X (``CsrSpgemmSddmm`` again, K9); the ``jvp`` is
+    two K9 launches."""
 
     @staticmethod
-    def forward(p_pattern, d, y_pattern, y_data, alpha, transposed):
-        d, y_data = _plain(d, y_data)
-        return spgemm_grad.sampled(p_pattern.indptr, p_pattern.indices, d,
-                                   y_pattern.indptr, y_pattern.indices,
-                                   y_data, alpha, transposed, p_pattern,
-                                   y_pattern)
+    def forward(p, d, x, x_data, alpha, transposed):
+        d, x_data = _plain(d, x_data)
+        y, y_data = x, x_data
+        if transposed:
+            y, order = x.transpose()
+            y_data = x_data[order]
+        return spgemm_grad.sampled(p.indptr, p.indices, d, y.indptr,
+                                   y.indices, y_data, alpha, transposed, p,
+                                   y)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        pass
+        p, d, x, x_data, alpha, transposed = inputs
+        ctx.p, ctx.x, ctx.alpha, ctx.transposed = p, x, alpha, transposed
+        ctx.save_for_backward(d, x_data)
+        ctx.save_for_forward(d, x_data)
+
+    @staticmethod
+    def backward(ctx, grad):
+        d, x_data = ctx.saved_tensors
+        p, x, alpha = ctx.p, ctx.x, ctx.alpha
+        _, need_d, _, need_x, _, _ = ctx.needs_input_grad
+        g_d = g_x = None
+        if need_d:
+            # W X (dA) or X W (dB); K6's op(B), X or W, in caller order.
+            left, right = ((x, x_data), (p, grad)) if ctx.transposed else (
+                (p, grad), (x, x_data))
+            g_d = CsrSpgemmDense.apply(*left, *right, _conj(alpha), None,
+                                       None, False, False)
+        if need_x:
+            g_x = CsrSpgemmSddmm.apply(x, d, p, grad, alpha,
+                                       not ctx.transposed)
+        return None, g_d, None, g_x, None, None
+
+    @staticmethod
+    def jvp(ctx, _p, d_d, _x, d_x, _alpha, _transposed):
+        d, x_data = ctx.saved_tensors
+        out = None
+        for dd, xx in ((d_d, x_data), (d, d_x)):
+            if dd is None or xx is None:
+                continue
+            d_out = CsrSpgemmSddmm.apply(ctx.p, dd, ctx.x, xx, ctx.alpha,
+                                         ctx.transposed)
+            out = d_out if out is None else out + d_out
+        return out
 
     @staticmethod
     def vmap(info, in_dims, *args):
@@ -420,7 +502,7 @@ class CsrSpgemmDense(torch.autograd.Function):
     j >= i of the product with ``triangular``, c0 added everywhere), op(A)
     and op(B) the CSRs of ``a`` and ``b`` (``CsrPattern``s) with values
     ``a_data`` and ``b_data``; differentiable in ``a_data``, ``b_data``
-    and ``c0``."""
+    and ``c0``, to any order (its backward runs ``CsrSpgemmSddmm``)."""
 
     @staticmethod
     def forward(a, a_data, b, b_data, alpha, beta, c0, triangular,
@@ -444,9 +526,7 @@ class CsrSpgemmDense(torch.autograd.Function):
         ctx.save_for_forward(a_data, b_data)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, grad):
-        _first_order_only("CsrSpgemmDense")
         a_data, b_data = ctx.saved_tensors
         need = ctx.needs_input_grad
         grad = grad.contiguous()
@@ -459,9 +539,7 @@ class CsrSpgemmDense(torch.autograd.Function):
                                        False)
         if need[3]:
             # The dB form reads G's columns: no transposed copy.
-            t, order = ctx.a.transpose()
-            g_b = CsrSpgemmSddmm.apply(ctx.b, g, t, a_data[order], alpha,
-                                       True)
+            g_b = CsrSpgemmSddmm.apply(ctx.b, g, ctx.a, a_data, alpha, True)
         if need[6]:
             g_c0 = grad * _conj(ctx.beta)
         return None, g_a, None, g_b, None, None, g_c0, None, None
@@ -488,6 +566,36 @@ class CsrSpgemmDense(torch.autograd.Function):
         return _batched(info, in_dims, args, CsrSpgemmDense.apply)
 
 
+def _sparse_value_grads(ctx, a_data, b_data, indptr, indices, grad):
+    """(dL/d(op(A)'s values), dL/d(op(B)'s values)) of op(A) @ op(B)'s
+    values on C's pattern (``indptr``, ``indices``) for G = ``grad`` on
+    it, each None where ``ctx.needs_input_grad`` does not ask for it (at
+    positions 1 and 3): the two K11 forms (``CsrSpgemmSparseSddmm``)."""
+    need = ctx.needs_input_grad
+
+    def grad_of(transposed):
+        return CsrSpgemmSparseSddmm.apply(ctx.a, a_data, ctx.b, b_data,
+                                          indptr, indices, grad, transposed,
+                                          ctx.triangular)
+
+    return (grad_of(False) if need[1] else None,
+            grad_of(True) if need[3] else None)
+
+
+def _sparse_value_tangent(ctx, a_data, b_data, indptr, indices, d_a, d_b):
+    """The tangent of op(A) @ op(B)'s values on C's pattern (``indptr``,
+    ``indices``): K5 of (dA, B) plus K5 of (A, dB) (``CsrSpgemmFill``; no
+    second K4), None where neither tangent is given."""
+    out = None
+    for a_vals, b_vals in ((d_a, b_data), (a_data, d_b)):
+        if a_vals is None or b_vals is None:
+            continue
+        d_out = CsrSpgemmFill.apply(ctx.a, a_vals, ctx.b, b_vals, indptr,
+                                    indices, ctx.triangular)
+        out = d_out if out is None else out + d_out
+    return out
+
+
 class CsrSpgemmSparseSddmm(torch.autograd.Function):
     """K11's function (``ops/spgemm_grad.csr_spgemm_sparse_sddmm``; the dA
     form, or the dB form with ``transposed``) for op(A) and op(B) the CSRs
@@ -495,7 +603,17 @@ class CsrSpgemmSparseSddmm(torch.autograd.Function):
     the dB form reads) with values ``a_data`` and ``b_data``, and G as
     values ``g`` on the pattern (``c_indptr``, ``c_indices``) of their
     product as K5 wrote it: the backward's launches of ``CsrSpgemm``, open
-    to the transforms as ``CsrSddmm`` is."""
+    to the transforms as ``CsrSddmm`` is.  The dA form (at op(A)'s
+    entries, sum_j G[i, j] conj(op(B)[k, j])) is bilinear in (b_data, g)
+    and reads no ``a_data``; the dB form (at op(B)'s, sum_i conj(op(A)[i,
+    k]) G[i, j]) in (a_data, g), and reads no ``b_data``: the gradient
+    there is None.  With W the incoming gradient on the output's pattern,
+    dL/dg is W op(B) (dA) or op(A) W (dB) on C's pattern, by K5 on it
+    (``CsrSpgemmFill``; C's pattern is the structural product of the same
+    two patterns: no K4), and dL/d(the operand values a form reads) is
+    the other form with W in place of the values it does not read (K11
+    again); the ``jvp`` is two K11 launches (none for a tangent of the
+    values it does not read)."""
 
     @staticmethod
     def forward(a, a_data, b, b_data, c_indptr, c_indices, g, transposed,
@@ -510,7 +628,50 @@ class CsrSpgemmSparseSddmm(torch.autograd.Function):
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        pass
+        a, a_data, b, b_data, c_indptr, c_indices, g, transposed, \
+            triangular = inputs
+        ctx.a, ctx.b = a, b
+        ctx.transposed, ctx.triangular = transposed, triangular
+        ctx.save_for_backward(a_data, b_data, c_indptr, c_indices, g)
+        ctx.save_for_forward(a_data, b_data, c_indptr, c_indices, g)
+
+    @staticmethod
+    def backward(ctx, grad):
+        a_data, b_data, indptr, indices, g = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        a_vals, b_vals = (a_data, grad) if ctx.transposed else (grad,
+                                                                b_data)
+        g_a = g_b = g_g = None
+        if ctx.transposed and need[1]:
+            g_a = CsrSpgemmSparseSddmm.apply(ctx.a, a_data, ctx.b, grad,
+                                             indptr, indices, g, False,
+                                             ctx.triangular)
+        if not ctx.transposed and need[3]:
+            g_b = CsrSpgemmSparseSddmm.apply(ctx.a, grad, ctx.b, b_data,
+                                             indptr, indices, g, True,
+                                             ctx.triangular)
+        if need[6]:
+            g_g = CsrSpgemmFill.apply(ctx.a, a_vals, ctx.b, b_vals, indptr,
+                                      indices, ctx.triangular)
+        return None, g_a, None, g_b, None, None, g_g, None, None
+
+    @staticmethod
+    def jvp(ctx, _a, d_a, _b, d_b, _ip, _ix, d_g, _transposed, _tri):
+        a_data, b_data, indptr, indices, g = ctx.saved_tensors
+        d_read = d_a if ctx.transposed else d_b
+        out = None
+        for a_vals, b_vals, gg in (
+                (a_data, b_data, d_g),
+                (d_read, b_data, g) if ctx.transposed else
+                (a_data, d_read, g)):
+            if a_vals is None or b_vals is None or gg is None:
+                continue
+            d_out = CsrSpgemmSparseSddmm.apply(ctx.a, a_vals, ctx.b, b_vals,
+                                               indptr, indices, gg,
+                                               ctx.transposed,
+                                               ctx.triangular)
+            out = d_out if out is None else out + d_out
+        return out
 
     @staticmethod
     def vmap(info, in_dims, *args):
@@ -519,21 +680,35 @@ class CsrSpgemmSparseSddmm(torch.autograd.Function):
 
 class CsrSpgemmFill(torch.autograd.Function):
     """K5 alone: the values of op(A) @ op(B) (the CSRs of ``a`` and ``b``
-    with values ``a_data`` and ``b_data``) on the pattern of their
-    product already counted (``c_indptr``, ``nnz`` entries; only j >= i
-    with ``triangular``): the tangents of ``CsrSpgemm``, open to the
-    transforms."""
+    with values ``a_data`` and ``b_data``) on the pattern (``c_indptr``,
+    ``c_indices``) of their product already counted (only j >= i with
+    ``triangular``): the tangents of ``CsrSpgemm``, and the derivatives
+    of ``CsrSpgemmSparseSddmm`` in G, open to the transforms.  Its own
+    derivatives are ``CsrSpgemm``'s: backward the two K11 forms, ``jvp``
+    two K5 fills."""
 
     @staticmethod
-    def forward(a, a_data, b, b_data, c_indptr, nnz, triangular):
+    def forward(a, a_data, b, b_data, c_indptr, c_indices, triangular):
         a_data, b_data = _plain(a_data, b_data)
         return spgemm.fill(a.indptr, a.indices, a_data, b.indptr, b.indices,
-                           b_data, b.ncols, None, c_indptr, nnz,
-                           triangular)[1]
+                           b_data, b.ncols, None, c_indptr,
+                           c_indices.numel(), triangular)[1]
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        pass
+        a, a_data, b, b_data, c_indptr, c_indices, triangular = inputs
+        ctx.a, ctx.b, ctx.triangular = a, b, triangular
+        ctx.save_for_backward(a_data, b_data, c_indptr, c_indices)
+        ctx.save_for_forward(a_data, b_data, c_indptr, c_indices)
+
+    @staticmethod
+    def backward(ctx, grad):
+        g_a, g_b = _sparse_value_grads(ctx, *ctx.saved_tensors, grad)
+        return None, g_a, None, g_b, None, None, None
+
+    @staticmethod
+    def jvp(ctx, _a, d_a, _b, d_b, _ip, _ix, _tri):
+        return _sparse_value_tangent(ctx, *ctx.saved_tensors, d_a, d_b)
 
     @staticmethod
     def vmap(info, in_dims, *args):
@@ -545,11 +720,12 @@ class CsrSpgemm(torch.autograd.Function):
     ``triangular``), op(A) and op(B) the CSRs of ``a`` and ``b``
     (``CsrPattern``s) with values ``a_data`` and ``b_data``: returns C's
     (indptr, indices, data), differentiable in ``a_data`` and ``b_data``
-    through ``data``; ``indptr`` and ``indices`` carry no gradient.  C's
-    pattern is structural and fixed by the operands' patterns, so G =
-    dL/d(data) lies on it: backward K11 twice (``CsrSpgemmSparseSddmm``),
-    ``jvp`` K5 of (dA, B) plus K5 of (A, dB) on the saved pattern
-    (``CsrSpgemmFill``; no second K4), ``vmap`` one call a member."""
+    through ``data``, to any order; ``indptr`` and ``indices`` carry no
+    gradient.  C's pattern is structural and fixed by the operands'
+    patterns, so G = dL/d(data) lies on it: backward K11 twice
+    (``CsrSpgemmSparseSddmm``), ``jvp`` K5 of (dA, B) plus K5 of (A, dB)
+    on the saved pattern (``CsrSpgemmFill``; no second K4), ``vmap`` one
+    call a member."""
 
     @staticmethod
     def forward(a, a_data, b, b_data, triangular):
@@ -567,31 +743,14 @@ class CsrSpgemm(torch.autograd.Function):
         ctx.save_for_forward(a_data, b_data, indptr, indices)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, _g_indptr, _g_indices, grad):
-        _first_order_only("CsrSpgemm")
-        a_data, b_data, indptr, indices = ctx.saved_tensors
-        need = ctx.needs_input_grad
-
-        def grad_of(transposed):
-            return CsrSpgemmSparseSddmm.apply(ctx.a, a_data, ctx.b, b_data,
-                                              indptr, indices, grad,
-                                              transposed, ctx.triangular)
-
-        return (None, grad_of(False) if need[1] else None, None,
-                grad_of(True) if need[3] else None, None)
+        g_a, g_b = _sparse_value_grads(ctx, *ctx.saved_tensors, grad)
+        return None, g_a, None, g_b, None
 
     @staticmethod
     def jvp(ctx, _a, d_a, _b, d_b, _tri):
-        a_data, b_data, indptr, indices = ctx.saved_tensors
-        out = None
-        for a_vals, b_vals in ((d_a, b_data), (a_data, d_b)):
-            if a_vals is None or b_vals is None:
-                continue
-            d_out = CsrSpgemmFill.apply(ctx.a, a_vals, ctx.b, b_vals, indptr,
-                                        indices.numel(), ctx.triangular)
-            out = d_out if out is None else out + d_out
-        return None, None, out
+        return None, None, _sparse_value_tangent(ctx, *ctx.saved_tensors,
+                                                 d_a, d_b)
 
     @staticmethod
     def vmap(info, in_dims, a, a_data, b, b_data, triangular):

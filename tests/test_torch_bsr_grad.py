@@ -7,7 +7,11 @@ same blocks, block coordinates and dense operands, made from a seed with
 numpy, go to both as numpy arrays.  On the CPU the port's Functions run
 the plain versions of K1 (``bsr_spmm_plain``) and K8 (``bsr_sddmm_plain``);
 the graph they build is the one the card builds (``chip_smoke.py`` runs
-the same transforms there on the kernels).
+the same transforms there on the kernels).  Second derivatives
+(``torch.func.hessian``, double backward, ``jvp`` of ``grad``) are held
+to ``jax.hessian`` / ``jax.jvp`` of ``_xla.bsr_spmm`` and to
+``gradgradcheck``; there ``BsrSddmm``'s own backward runs K1 and its
+``jvp`` K8.
 
 Tolerance: rtol 1e-10 (atol 1e-12) in float64 and complex128, 1e-5 in
 float32, on values of order 1; the two sides sum in different orders.
@@ -164,24 +168,161 @@ def test_gradcheck_with_forward_ad(bs, dtype):
         check_forward_ad=True)
 
 
-def test_second_order_raises():
-    """The backward is once-differentiable: differentiating a gradient
-    raises, through ``torch.autograd`` and through ``torch.func``."""
-    rng = np.random.default_rng(30)
+def hvp_along(loss, primals, u, how):
+    """The Hessian-vector products of ``loss`` at the numpy ``primals``
+    along the directions ``u``: by double backward (``create_graph``), or
+    with ``how="grad_of_grad"`` by ``torch.func.grad`` of
+    ``torch.func.grad`` (no guard left to stop it, nor zeros)."""
+    us = [torch.tensor(w) for w in u]
+    argnums = tuple(range(len(primals)))
+    if how == "grad_of_grad":
+        def dot(*xs):
+            grads = torch.func.grad(loss, argnums=argnums)(*xs)
+            return sum((g * w).sum() for g, w in zip(grads, us))
+
+        return torch.func.grad(dot, argnums=argnums)(
+            *map(torch.tensor, primals))
+    leaves = [torch.tensor(x, requires_grad=True) for x in primals]
+    grads = torch.autograd.grad(loss(*leaves), leaves, create_graph=True)
+    return torch.autograd.grad(
+        sum((g * w).sum() for g, w in zip(grads, us)), leaves)
+
+
+def hessian_problem(rng, bs):
+    """(torch loss, JAX loss, blocks, b) of the non-quadratic loss
+    sum(sin(alpha A b + beta c0)) through ``bsr_spmm`` / ``_xla.bsr_spmm``
+    in (blocks, b), on a 6 x 4 block pattern of ``bs`` with a repeated
+    block, negative ids and a dropped block, f64."""
+    data, rows, cols, m, k = blocks(rng, bs, np.float64, 3, 2, 5)
+    b, c0 = values(rng, (k, 2), np.float64), values(rng, (m, 2), np.float64)
+    (tr, jr), (tc, jc) = both(rows, cols)
+
+    def torch_loss(d, bb):
+        return torch.sin(bsr_spmm(d, tr, tc, bb, m, 1.5, -0.5,
+                                  torch.tensor(c0))).sum()
+
+    def jax_loss(d, bb):
+        return jnp.sum(jnp.sin(_xla.bsr_spmm(d, jr, jc, bb, m, alpha=1.5,
+                                             beta=-0.5,
+                                             c0=jnp.asarray(c0))))
+
+    return torch_loss, jax_loss, data, b
+
+
+def hvp_reference(jh, u):
+    """The Hessian-vector products of JAX's Hessian blocks ``jh`` along
+    the directions ``u`` (one per argument)."""
+    return [sum(np.tensordot(np.asarray(jh[i][j]), u[j], u[j].ndim)
+                for j in range(len(u))) for i in range(len(u))]
+
+
+@pytest.mark.parametrize("bs", [3, 8])
+@pytest.mark.parametrize("how", ["hessian", "double_backward",
+                                 "grad_of_grad"])
+def test_hessian_matches_jax(how, bs):
+    """Second derivatives in (blocks, b) of a non-quadratic loss through
+    ``bsr_spmm`` (alpha and beta given) equal ``jax.hessian``'s of
+    ``_xla.bsr_spmm`` on the same numpy inputs, f64, rtol 1e-10: the whole
+    Hessian by ``torch.func.hessian`` (forward over reverse, with no guard
+    left: its mixed block is nonzero and JAX's), or Hessian-vector
+    products along a random direction by double backward and by
+    ``torch.func.grad`` of ``grad``; the backward's own derivatives run K1
+    and K8 again (``BsrSddmm``'s backward)."""
+    rng = np.random.default_rng(36 + bs)
+    torch_loss, jax_loss, data, b = hessian_problem(rng, bs)
+    jh = jax.hessian(jax_loss, argnums=(0, 1))(jnp.asarray(data),
+                                               jnp.asarray(b))
+    assert np.abs(np.asarray(jh[0][1])).max() > 0.1
+    if how == "hessian":
+        th = torch.func.hessian(torch_loss, argnums=(0, 1))(
+            torch.tensor(data), torch.tensor(b))
+        for i in range(2):
+            for j in range(2):
+                close(th[i][j], jh[i][j])
+        return
+    u = [values(rng, x.shape, np.float64) for x in (data, b)]
+    for got, ref in zip(hvp_along(torch_loss, (data, b), u, how),
+                        hvp_reference(jh, u)):
+        close(got, ref)
+
+
+@pytest.mark.parametrize("bs", [3, 8])
+def test_jvp_of_grad_matches_jax(bs):
+    """``torch.func.jvp`` of ``torch.func.grad`` (forward over reverse,
+    the Hessian-vector product: ``BsrSddmm``'s ``jvp``) equals
+    ``jax.jvp`` of ``jax.grad`` on the same inputs and direction, f64,
+    rtol 1e-10."""
+    rng = np.random.default_rng(38 + bs)
+    torch_loss, jax_loss, data, b = hessian_problem(rng, bs)
+    u = [values(rng, x.shape, np.float64) for x in (data, b)]
+    _, got = torch.func.jvp(torch.func.grad(torch_loss, argnums=(0, 1)),
+                            (torch.tensor(data), torch.tensor(b)),
+                            tuple(map(torch.tensor, u)))
+    _, ref = jax.jvp(jax.grad(jax_loss, argnums=(0, 1)),
+                     (jnp.asarray(data), jnp.asarray(b)),
+                     tuple(map(jnp.asarray, u)))
+    for g, r in zip(got, ref):
+        close(g, r)
+
+
+@pytest.mark.parametrize("bs, dtype", [(3, torch.float64),
+                                       (3, torch.complex128),
+                                       (8, torch.float64)])
+def test_gradgradcheck(bs, dtype):
+    """``torch.autograd.gradgradcheck`` (with forward over reverse) of
+    the device function in the blocks, b and c0, with alpha and beta
+    (complex in c128), and of ``bsr.bsr_spmm`` on BSR arrays, against
+    finite differences: the conjugations and alpha's place in
+    ``BsrSddmm``'s derivatives included.  bs 8 in f64 is the shape the
+    card serves on the tensor cores; c128 runs on the CUDA cores at any
+    bs."""
+    rng = np.random.default_rng(40 + bs)
+    npdt = np.dtype(str(dtype).removeprefix("torch."))
+    data, rows, cols, m, k = blocks(rng, bs, npdt, 3, 2, 5)
+    tr, tc = torch.tensor(rows), torch.tensor(cols)
+    complex_ = npdt.kind == "c"
+    alpha, beta = (1.5 - 0.5j, 0.25 + 1j) if complex_ else (-1.5, 0.5)
+
+    def leaf(a):
+        return torch.tensor(a, requires_grad=True)
+
+    d, b, c0 = leaf(data), leaf(values(rng, (k, 2), npdt)), leaf(
+        values(rng, (m, 2), npdt))
+    assert torch.autograd.gradgradcheck(
+        lambda dd, bb, cc: bsr_spmm(dd, tr, tc, bb, m, alpha, beta, cc),
+        (d, b, c0), check_fwd_over_rev=True)
+    ip, ix = torch.tensor([0, 1, 1, 3]), torch.tensor([1, 0, 1])
+    db = leaf(values(rng, (3, bs, bs), npdt))
+    assert torch.autograd.gradgradcheck(
+        lambda dd, bb: bsr.bsr_spmm(ip, ix, dd, bb, alpha), (db, b),
+        check_fwd_over_rev=True)
+
+
+def test_first_order_launches_unchanged(monkeypatch):
+    """One first-order backward in the blocks, b and c0 calls K8's plain
+    version once and K1's once (over A^H), as before second order was
+    added, and builds no graph: its gradients carry no ``grad_fn``."""
+    rng = np.random.default_rng(42)
     data, rows, cols, m, k = blocks(rng, 3, np.float64)
     tr, tc = torch.tensor(rows), torch.tensor(cols)
-    b = torch.tensor(values(rng, (k, N), np.float64))
+    calls = {"bsr_spmm_plain": 0, "bsr_sddmm_plain": 0}
+    for name in calls:
+        real = getattr(bsr, name)
 
-    def f(d):
-        return (bsr_spmm(d, tr, tc, b, m) ** 2).sum()
+        def counted(*args, name=name, real=real):
+            calls[name] += 1
+            return real(*args)
 
-    d = torch.tensor(data, requires_grad=True)
-    (g,) = torch.autograd.grad(f(d), d, create_graph=True)
-    with pytest.raises(RuntimeError, match="once_differentiable"):
-        g.sum().backward()
-    with pytest.raises(RuntimeError, match="once_differentiable"):
-        torch.func.grad(lambda dd: torch.func.grad(f)(dd).sum())(
-            torch.tensor(data))
+        monkeypatch.setattr(bsr, name, counted)
+    leaves = [torch.tensor(a, requires_grad=True) for a in (
+        data, values(rng, (k, N), np.float64),
+        values(rng, (m, N), np.float64))]
+    loss = torch.sin(bsr_spmm(leaves[0], tr, tc, leaves[1], m, 2.0, 0.5,
+                              leaves[2])).sum()
+    assert calls == {"bsr_spmm_plain": 1, "bsr_sddmm_plain": 0}
+    grads = torch.autograd.grad(loss, leaves)
+    assert calls == {"bsr_spmm_plain": 2, "bsr_sddmm_plain": 1}
+    assert all(g.grad_fn is None for g in grads)
 
 
 def test_func_grad_and_vmap():

@@ -9,7 +9,10 @@ conj(alpha) (op(A)^H G') at op(B)'s pattern, with G' = G, or its upper
 triangle under ``triangular`` (the product keeps only j >= i there while c0
 is added everywhere), and in c0 conj(beta) G.  On the CPU the Function runs
 the plain versions of K6 and K9; ``chip_smoke.py`` runs the same graph on
-the kernels.
+the kernels.  Second derivatives run K6 and K9 again (``CsrSpgemmSddmm``'s
+backward and ``jvp``); they are held to ``jax.hessian`` of
+``spgemm_numeric_sorted``, to torch's own Hessian through dense matrices
+scattered from the values, and to ``gradgradcheck``.
 
 Tolerances: rtol 1e-12 (atol 1e-12) against the numpy oracle in float64
 and complex128.  Against JAX rtol 1e-6, with atol 1e-6 of the largest
@@ -179,23 +182,180 @@ def test_gradcheck_with_forward_ad(dtype, triangular):
         (a_dv, b_dv, c0), check_forward_ad=True)
 
 
-def test_second_order_raises():
-    """The backward is once-differentiable: differentiating a gradient
-    raises, through ``torch.autograd`` and through ``torch.func``."""
-    a, b = operands(np.float64, 46)
+def hvp_along(loss, primals, u, how):
+    """The Hessian-vector products of ``loss`` at the numpy ``primals``
+    along the directions ``u``: by double backward (``create_graph``), or
+    with ``how="grad_of_grad"`` by ``torch.func.grad`` of
+    ``torch.func.grad`` (no guard left to stop it, nor zeros)."""
+    us = [torch.tensor(w) for w in u]
+    argnums = tuple(range(len(primals)))
+    if how == "grad_of_grad":
+        def dot(*xs):
+            grads = torch.func.grad(loss, argnums=argnums)(*xs)
+            return sum((g * w).sum() for g, w in zip(grads, us))
+
+        return torch.func.grad(dot, argnums=argnums)(
+            *map(torch.tensor, primals))
+    leaves = [torch.tensor(x, requires_grad=True) for x in primals]
+    grads = torch.autograd.grad(loss(*leaves), leaves, create_graph=True)
+    return torch.autograd.grad(
+        sum((g * w).sum() for g, w in zip(grads, us)), leaves)
+
+
+def hessian_problem(seed, triangular):
+    """(port loss, JAX loss, plain-torch loss, op(A), op(B)) of the
+    non-quadratic loss sum(sin(C)) for C = op(A) op(B) (its upper
+    triangle under ``triangular``) in both operands' values, f64:
+    through ``csr_spgemm_dense``, through ``spgemm_numeric_sorted`` over
+    the same sorted operands, and through dense matrices scattered from
+    the values in plain torch (no port Function)."""
+    a, b = operands(np.float64, seed)
+    a_ip, a_ix, _ = arrays(a, requires_grad=False)
+    b_ip, b_ix, _ = arrays(b, requires_grad=False)
+    a_flat = np.repeat(np.arange(M), np.diff(a.indptr)) * K + a.indices
+    b_flat = np.repeat(np.arange(K), np.diff(b.indptr)) * N + b.indices
+
+    def port_loss(av, bv):
+        return torch.sin(spgemm.csr_spgemm_dense(
+            a_ip, a_ix, av, b_ip, b_ix, bv, N, triangular=triangular,
+            b_sorted=True)).sum()
+
+    def jax_loss(av, bv):
+        return jnp.sum(jnp.sin(_xla.spgemm_numeric_sorted(
+            jnp.asarray(a_flat), av, jnp.asarray(b_flat), bv, M, K, N,
+            triangular=triangular)))
+
+    def dense_loss(av, bv):
+        da = torch.zeros(M * K, dtype=av.dtype).scatter(
+            0, torch.tensor(a_flat), av).view(M, K)
+        db = torch.zeros(K * N, dtype=bv.dtype).scatter(
+            0, torch.tensor(b_flat), bv).view(K, N)
+        c = da @ db
+        return torch.sin(torch.triu(c) if triangular else c).sum()
+
+    return port_loss, jax_loss, dense_loss, a, b
+
+
+def jax_close(port, ref):
+    """At the JAX package's float32-accurate level (module docstring)."""
+    ref = np.asarray(ref)
+    close(port, ref, 1e-6, 1e-6 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("triangular", [False, True])
+@pytest.mark.parametrize("how", ["hessian", "double_backward",
+                                 "grad_of_grad"])
+def test_hessian_matches_jax(how, triangular):
+    """Second derivatives in both operands' values of a non-quadratic loss
+    through ``csr_spgemm_dense`` equal ``jax.hessian``'s of
+    ``spgemm_numeric_sorted`` at rtol 1e-6 (its f64 gradient is f32-
+    accurate) and torch's own Hessian through dense matrices scattered
+    from the values at rtol 1e-10: the whole Hessian by
+    ``torch.func.hessian`` (forward over reverse, with no guard left: its
+    mixed block is nonzero), or Hessian-vector products along a random
+    direction by double backward and by ``torch.func.grad`` of ``grad``;
+    the backward's own derivatives run K6 and K9 again
+    (``CsrSpgemmSddmm``'s backward)."""
+    port_loss, jax_loss, dense_loss, a, b = hessian_problem(50, triangular)
+    primals = (a.data, b.data)
+    jh = jax.hessian(jax_loss, argnums=(0, 1))(*map(jnp.asarray, primals))
+    dh = torch.func.hessian(dense_loss, argnums=(0, 1))(
+        *map(torch.tensor, primals))
+    assert np.abs(dh[0][1].numpy()).max() > 0.1
+    if how == "hessian":
+        th = torch.func.hessian(port_loss, argnums=(0, 1))(
+            *map(torch.tensor, primals))
+        for i in range(2):
+            for j in range(2):
+                jax_close(th[i][j], jh[i][j])
+                close(th[i][j], dh[i][j], 1e-10, 1e-12)
+        return
+    rng = np.random.default_rng(51)
+    u = [values(rng, x.shape, np.float64) for x in primals]
+    for i, got in enumerate(hvp_along(port_loss, primals, u, how)):
+        jax_close(got, sum(np.asarray(jh[i][j]) @ u[j] for j in range(2)))
+        close(got, sum(dh[i][j].numpy() @ u[j] for j in range(2)), 1e-10,
+              1e-12)
+
+
+@pytest.mark.parametrize("triangular", [False, True])
+def test_jvp_of_grad_matches_jax(triangular):
+    """``torch.func.jvp`` of ``torch.func.grad`` (forward over reverse:
+    ``CsrSpgemmSddmm``'s ``jvp``) equals ``jax.jvp`` of ``jax.grad`` at
+    rtol 1e-6 and the same through the plain-torch dense loss at 1e-10."""
+    port_loss, jax_loss, dense_loss, a, b = hessian_problem(52, triangular)
+    primals = (a.data, b.data)
+    u = [values(np.random.default_rng(53), x.shape, np.float64)
+         for x in primals]
+
+    def forward_over_reverse(loss):
+        return torch.func.jvp(torch.func.grad(loss, argnums=(0, 1)),
+                              tuple(map(torch.tensor, primals)),
+                              tuple(map(torch.tensor, u)))[1]
+
+    _, ref = jax.jvp(jax.grad(jax_loss, argnums=(0, 1)),
+                     tuple(map(jnp.asarray, primals)),
+                     tuple(map(jnp.asarray, u)))
+    for got, r, d in zip(forward_over_reverse(port_loss), ref,
+                         forward_over_reverse(dense_loss)):
+        jax_close(got, r)
+        close(got, d, 1e-10, 1e-12)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.complex128])
+@pytest.mark.parametrize("case", ["sorted", "triangular", "shuffled"])
+def test_gradgradcheck(case, dtype):
+    """``torch.autograd.gradgradcheck`` (with forward over reverse) in
+    both operands' values and c0, with alpha and beta (complex in c128),
+    with and without ``triangular``, and with ``b_sorted=False`` over
+    op(B) whose rows list their entries shuffled: K9's derivative in d
+    is K6 over op(B) in the caller's order, which must not be read as
+    sorted."""
+    npdt = np.dtype(str(dtype).removeprefix("torch."))
+    a, b = operands(npdt, 54, shuffle=case == "shuffled")
     a_ip, a_ix, a_dv = arrays(a)
-    b_ip, b_ix, b_dv = arrays(b, requires_grad=False)
+    b_ip, b_ix, b_dv = arrays(b)
+    c0 = torch.tensor(values(np.random.default_rng(55), (M, N), npdt),
+                      requires_grad=True)
+    alpha, beta = (1.5 - 0.5j, 0.25 + 1j) if npdt.kind == "c" else (2.0,
+                                                                   -0.5)
+    assert torch.autograd.gradgradcheck(
+        lambda av, bv, cc: spgemm.csr_spgemm_dense(
+            a_ip, a_ix, av, b_ip, b_ix, bv, N, alpha, beta, cc,
+            case == "triangular", b_sorted=case == "sorted"),
+        (a_dv, b_dv, c0), check_fwd_over_rev=True)
 
-    def f(av):
-        return (spgemm.csr_spgemm_dense(a_ip, a_ix, av, b_ip, b_ix, b_dv,
-                                        N) ** 2).sum()
 
-    (g,) = torch.autograd.grad(f(a_dv), a_dv, create_graph=True)
-    with pytest.raises(RuntimeError, match="once_differentiable"):
-        g.sum().backward()
-    with pytest.raises(RuntimeError, match="once_differentiable"):
-        torch.func.grad(lambda av: torch.func.grad(f)(av).sum())(
-            a_dv.detach())
+def test_first_order_launches_unchanged(monkeypatch):
+    """One first-order backward in both operands' values and c0 calls
+    K9's plain version twice and K6's not at all, sorts op(B) no more,
+    as before second order was added, and builds no graph: its
+    gradients carry no ``grad_fn``."""
+    a, b = operands(np.float64, 56, shuffle=True)
+    a_ip, a_ix, a_dv = arrays(a)
+    b_ip, b_ix, b_dv = arrays(b)
+    c0 = torch.tensor(values(np.random.default_rng(57), (M, N), np.float64),
+                      requires_grad=True)
+    calls = []
+    for module, name in ((spgemm, "csr_spgemm_dense_plain"),
+                         (spgemm_grad, "csr_spgemm_sddmm_plain"),
+                         (formats, "sorted_unique_columns")):
+        real = getattr(module, name)
+
+        def counted(*args, name=name, real=real):
+            calls.append(name)
+            return real(*args)
+
+        monkeypatch.setattr(module, name, counted)
+    autograd.patterns.clear()
+    c = spgemm.csr_spgemm_dense(a_ip, a_ix, a_dv, b_ip, b_ix, b_dv, N, 2.0,
+                                0.5, c0, True)
+    assert sorted(calls) == ["csr_spgemm_dense_plain",
+                             "sorted_unique_columns"]
+    calls.clear()
+    grads = torch.autograd.grad(torch.sin(c).sum(), (a_dv, b_dv, c0))
+    assert calls == ["csr_spgemm_sddmm_plain"] * 2
+    assert all(g.grad_fn is None for g in grads)
 
 
 def test_func_grad_and_vmap():

@@ -10,6 +10,10 @@ entries and in op(B)'s values (op(A)^H G) at op(B)'s, G read as a dense
 matrix that is zero off C's pattern (under ``triangular`` the pattern
 holds only j >= i).  On the CPU the Function runs the plain versions of
 K4, K5 and K11; ``chip_smoke.py`` runs the same graph on the kernels.
+Second derivatives run K5 on C's saved pattern and K11 again
+(``CsrSpgemmSparseSddmm``'s and ``CsrSpgemmFill``'s backward and
+``jvp``); they are held to ``jax.hessian`` of ``esc_spgemm_block`` (one
+channel, f64) and to ``gradgradcheck``.
 
 Tolerances: rtol 1e-12 (atol 1e-12 times the largest gradient) in float64
 and complex128, 1e-5 in float32 and complex64, on values of order 1; the
@@ -317,23 +321,142 @@ def test_func_grad_and_vmap():
           torch.func.jacrev(values_of, argnums=(0, 1))(a_dv, b_dv)[1])
 
 
-def test_second_order_raises():
-    """The backward is once-differentiable: differentiating a gradient
-    raises, through ``torch.autograd`` and through ``torch.func``."""
-    a, b = operands(np.float64, 51)
+def hvp_along(loss, primals, u, how):
+    """The Hessian-vector products of ``loss`` at the numpy ``primals``
+    along the directions ``u``: by double backward (``create_graph``), or
+    with ``how="grad_of_grad"`` by ``torch.func.grad`` of
+    ``torch.func.grad`` (no guard left to stop it, nor zeros)."""
+    us = [torch.tensor(w) for w in u]
+    argnums = tuple(range(len(primals)))
+    if how == "grad_of_grad":
+        def dot(*xs):
+            grads = torch.func.grad(loss, argnums=argnums)(*xs)
+            return sum((g * w).sum() for g, w in zip(grads, us))
+
+        return torch.func.grad(dot, argnums=argnums)(
+            *map(torch.tensor, primals))
+    leaves = [torch.tensor(x, requires_grad=True) for x in primals]
+    grads = torch.autograd.grad(loss(*leaves), leaves, create_graph=True)
+    return torch.autograd.grad(
+        sum((g * w).sum() for g, w in zip(grads, us)), leaves)
+
+
+def hessian_problem(seed, triangular):
+    """(port loss, JAX loss, op(A), op(B)) of the non-quadratic loss
+    sum(sin(C's values)) for C = op(A) op(B) on its structural pattern
+    (only j >= i under ``triangular``) in both operands' values, f64:
+    through ``csr_spgemm`` and through ``esc_spgemm_block`` called with
+    one row block and one channel."""
+    a, b = operands(np.float64, seed)
+    a_ip, a_ix, _ = arrays(a, requires_grad=False)
+    b_ip, b_ix, _ = arrays(b, requires_grad=False)
+
+    def port_loss(av, bv):
+        return torch.sin(spgemm.csr_spgemm(a_ip, a_ix, av, b_ip, b_ix, bv, N,
+                                           triangular)[2]).sum()
+
+    def jax_loss(av, bv):
+        return jnp.sum(jnp.sin(esc_block(a, b, av[None], bv[None],
+                                         triangular)[0]))
+
+    return port_loss, jax_loss, a, b
+
+
+@pytest.mark.parametrize("triangular", [False, True])
+@pytest.mark.parametrize("how", ["hessian", "double_backward",
+                                 "grad_of_grad"])
+def test_hessian_matches_jax(how, triangular):
+    """Second derivatives in both operands' values of a non-quadratic loss
+    through ``csr_spgemm`` equal ``jax.hessian``'s of ``esc_spgemm_block``
+    (one channel, f64) on the same numpy inputs at rtol 1e-10: the whole
+    Hessian by ``torch.func.hessian`` (forward over reverse, with no guard
+    left: its mixed block is nonzero and JAX's), or Hessian-vector
+    products along a random direction by double backward and by
+    ``torch.func.grad`` of ``grad``; the backward's own derivatives run K5
+    on C's saved pattern and K11 again (``CsrSpgemmSparseSddmm``'s
+    backward)."""
+    port_loss, jax_loss, a, b = hessian_problem(60, triangular)
+    primals = (a.data, b.data)
+    jh = jax.hessian(jax_loss, argnums=(0, 1))(*map(jnp.asarray, primals))
+    assert np.abs(np.asarray(jh[0][1])).max() > 0.1
+    if how == "hessian":
+        th = torch.func.hessian(port_loss, argnums=(0, 1))(
+            *map(torch.tensor, primals))
+        for i in range(2):
+            for j in range(2):
+                close(th[i][j], jh[i][j], 1e-10)
+        return
+    rng = np.random.default_rng(61)
+    u = [values(rng, x.shape, np.float64) for x in primals]
+    for i, got in enumerate(hvp_along(port_loss, primals, u, how)):
+        close(got, sum(np.asarray(jh[i][j]) @ u[j] for j in range(2)),
+              1e-10)
+
+
+@pytest.mark.parametrize("triangular", [False, True])
+def test_jvp_of_grad_matches_jax(triangular):
+    """``torch.func.jvp`` of ``torch.func.grad`` (forward over reverse:
+    ``CsrSpgemmSparseSddmm``'s ``jvp``) equals ``jax.jvp`` of
+    ``jax.grad`` on the same inputs and direction, f64, rtol 1e-10."""
+    port_loss, jax_loss, a, b = hessian_problem(62, triangular)
+    primals = (a.data, b.data)
+    u = [values(np.random.default_rng(63), x.shape, np.float64)
+         for x in primals]
+    _, got = torch.func.jvp(torch.func.grad(port_loss, argnums=(0, 1)),
+                            tuple(map(torch.tensor, primals)),
+                            tuple(map(torch.tensor, u)))
+    _, ref = jax.jvp(jax.grad(jax_loss, argnums=(0, 1)),
+                     tuple(map(jnp.asarray, primals)),
+                     tuple(map(jnp.asarray, u)))
+    for g, r in zip(got, ref):
+        close(g, r, 1e-10)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.complex128])
+@pytest.mark.parametrize("case", ["sorted", "triangular", "shuffled"])
+def test_gradgradcheck(case, dtype):
+    """``torch.autograd.gradgradcheck`` (with forward over reverse) of
+    ``csr_spgemm``'s values in both operands' values, with and without
+    ``triangular``, and over op(B) whose rows list their entries
+    shuffled: the conjugations of ``CsrSpgemmSparseSddmm``'s and
+    ``CsrSpgemmFill``'s derivatives included."""
+    npdt = np.dtype(str(dtype).removeprefix("torch."))
+    a, b = operands(npdt, 64)
+    if case == "shuffled":
+        rng = np.random.default_rng(65)
+        for r in range(K):
+            lo, hi = b.indptr[r], b.indptr[r + 1]
+            perm = lo + rng.permutation(hi - lo)
+            b.indices[lo:hi], b.data[lo:hi] = b.indices[perm], b.data[perm]
     a_ip, a_ix, a_dv = arrays(a)
-    b_ip, b_ix, b_dv = arrays(b, requires_grad=False)
+    b_ip, b_ix, b_dv = arrays(b)
+    assert torch.autograd.gradgradcheck(
+        lambda av, bv: spgemm.csr_spgemm(a_ip, a_ix, av, b_ip, b_ix, bv, N,
+                                         case == "triangular")[2],
+        (a_dv, b_dv), check_fwd_over_rev=True)
 
-    def f(av):
-        return (spgemm.csr_spgemm(a_ip, a_ix, av, b_ip, b_ix, b_dv, N)[2]
-                ** 2).sum()
 
-    (g,) = torch.autograd.grad(f(a_dv), a_dv, create_graph=True)
-    with pytest.raises(RuntimeError, match="once_differentiable"):
-        g.sum().backward()
-    with pytest.raises(RuntimeError, match="once_differentiable"):
-        torch.func.grad(lambda av: torch.func.grad(f)(av).sum())(
-            a_dv.detach())
+def test_first_order_launches_unchanged(monkeypatch):
+    """One first-order backward in both operands' values calls K11's
+    plain version twice and neither the product's nor K5's, as before
+    second order was added, and builds no graph: its gradients carry no
+    ``grad_fn``."""
+    a, b = operands(np.float64, 66)
+    ip, ix, data, a_dv, b_dv = product(a, b, triangular=True)
+    calls = []
+    for module, name in ((spgemm, "spgemm_plain"),
+                         (spgemm, "csr_spgemm_fill_plain"),
+                         (spgemm_grad, "csr_spgemm_sparse_sddmm_plain")):
+        real = getattr(module, name)
+
+        def counted(*args, name=name, real=real):
+            calls.append(name)
+            return real(*args)
+
+        monkeypatch.setattr(module, name, counted)
+    grads = torch.autograd.grad(torch.sin(data).sum(), (a_dv, b_dv))
+    assert calls == ["csr_spgemm_sparse_sddmm_plain"] * 2
+    assert all(g.grad_fn is None for g in grads)
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64, np.complex64,
