@@ -190,7 +190,28 @@ Phases, each printing one JSON line:
    in the blocks and b (K1 6, K8 3), through ``csr_spgemm_dense`` on the
    demo X @ X.T (K6 3, K9 6), through ``csr_spgemm`` on case c's 1M^2
    A @ A (K4 1, K5 3, K11 6), and through ``coo_spmm_raw`` on config 1
-   in the values and b (K2 6, K7 3).
+   in the values and b (K2 6, K7 3);
+7. the sharded layer (``sparse_dot_tpu_torch.parallel``) in a one-rank
+   NCCL group on the card (one card: NCCL takes one rank a GPU), the
+   plain versions refused: ``sharded_spmm`` at config 1 (f64, f32, c128),
+   ``sharded_spmm_2d``, ``sharded_spmm_ring`` and ``dot_product`` on a
+   ShardedCSR with ``out``/``out_scalar`` at config 1, ``sharded_spmv``,
+   ``sharded_spmv_halo`` (halo 1) and ``sharded_cg`` (atol 1e-10) on the
+   1M Laplacian, ``sharded_spgemm`` on the demo X @ X.T and config 1's
+   A @ A, ``sharded_gram`` of the demo X, and ``sharded_cgls`` and
+   ``sparse_qr_solve`` on a ShardedCSR (one and four right-hand sides)
+   at config 5's 1.2M x 50k; each against the single-device port (the
+   same kernels, its operand already on the card) and scipy at decimal
+   6 (5 for f32), the solvers by their true residuals; per op a line
+   with the wall ms host to host (first call apart, median, min and max
+   of 5 after it), the single-device port's in the same turns, the
+   device's busy ms of one more call and one call's launches, beside
+   the card line; the sharded calls' launches are the ``sharded`` path
+   (K2, K3 and K6 must move; in a group of one the sums and gathers are
+   the identity and NCCL is not called); the host and device ms a call of
+   NCCL's collectives that a sharded CG / CGLS step makes across ranks
+   (``collective_times``);
+   and the group is left at the end.
 
 Then the card line, a JSON line of per-kernel results (its first phase-4
 row's times, bound and library time, and the launches of each path) and,
@@ -207,7 +228,8 @@ phase-4 rows and phase 6's config-1 f64 steps, and prints no result line;
 phase-2 checks (for K11 with ``csr_spgemm``'s gradcheck and the device
 API's gradgradcheck), its phase-4 rows and its phase-6 runs with their
 Hessian-vector products (K8: the BSR one; K9: the dense-output one;
-K11: the sparse-output and the CSR ones).
+K11: the sparse-output and the CSR ones); ``--only sharded`` runs phase 1
+and phase 7 and prints no result line.
 """
 
 import argparse
@@ -3305,6 +3327,13 @@ def rel_residual(a, x, b):
     return float(np.max(np.linalg.norm(r, axis=0) / np.linalg.norm(b, axis=0)))
 
 
+def normal_residual(a, x, b):
+    """||A^T (A x - b)||_inf / ||A^T b||_inf, the largest over columns
+    (phase 5's least-squares check)."""
+    grad = np.abs(a.T @ (a @ x - b)).max(axis=0)
+    return float(np.max(grad / np.abs(a.T @ b).max(axis=0)))
+
+
 def solver_path(inp):
     """The handle protocol and the solvers through the public API, each
     call's launches, syncs and wall time recorded, each result checked."""
@@ -3478,10 +3507,10 @@ def solver_path(inp):
     for name, got, bb, iters in (
             ("qr_cgls_1.2Mx50k", x_cgls, inp["cgls_b"], cgls_iters),
             ("qr_cgls_1.2Mx50k_4rhs", x_cgls4, inp["cgls_b4"], cgls4_iters)):
-        grad = np.abs(a.T @ (a @ got - bb)).max(axis=0)
-        oracle[name] = float(np.max(grad / np.abs(a.T @ bb).max(axis=0)))
+        oracle[name] = normal_residual(a, got, bb)
         if not oracle[name] <= 1e-6:
-            raise AssertionError(f"{name}: normal-equation residual {grad}")
+            raise AssertionError(f"{name}: normal-equation residual "
+                                 f"{oracle[name]}")
         records[name]["iterations"] = iters
     lu_full = sps.triu(inp["lu_spd"]) + sps.triu(inp["lu_spd"], k=1).T
     for name, got, a, rhs, limit in (
@@ -4191,10 +4220,312 @@ def solver_timings(records, rows):
                "idle share: 1 - busy / median wall")
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the sharded layer (sparse_dot_tpu_torch.parallel) on one card
+# ---------------------------------------------------------------------------
+
+# Timed repeats of each phase-7 call after its checked first call.
+SHARDED_REPS = 5
+
+
+def host(x):
+    """A result as numpy: a tensor on the card is copied to the host."""
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else x
+
+
+def sharded_inputs(inputs, solver_inp):
+    """Phase 7's operands, from the earlier phases': config 1 (f64, and
+    f32 and c128 copies), the 1M Laplacian and its right-hand side, the
+    demo X, and config 5's 1.2M x 50k least-squares problem."""
+    a1, b1 = inputs["a1"], inputs["b1"]
+    return {
+        "a1": a1, "b1": b1, "a1_f32": a1.astype(np.float32),
+        "b1_f32": b1.astype(np.float32),
+        "a1_c128": (a1 * (1 + 0.5j)).tocsr(), "b1_c128": b1 * (1 - 0.25j),
+        "out1": values(np.random.default_rng(SEED + 7), b1.shape,
+                       np.float64),
+        "lap": solver_inp["lap"], "b": solver_inp["b"], "x": demo_x(),
+        "cgls_a": solver_inp["cgls_a"], "cgls_b": solver_inp["cgls_b"],
+        "cgls_b4": solver_inp["cgls_b4"],
+    }
+
+
+def array_err(name, got, want, decimal):
+    """max |got - want|; raises past ``decimal`` or on a wrong shape or a
+    non-finite value."""
+    if got.shape != want.shape or not np.isfinite(got).all():
+        raise AssertionError(f"{name}: shape {got.shape} or non-finite")
+    np.testing.assert_array_almost_equal(got, want, decimal=decimal)
+    return float(np.abs(got - want).max())
+
+
+def sparse_err(name, got, want, decimal):
+    """As ``array_err`` on the values, after the patterns (columns sorted
+    in each row, explicit zeros kept) are found equal."""
+    want = want.tocsr()
+    want.sort_indices()
+    if not (np.array_equal(got.indptr, want.indptr)
+            and np.array_equal(got.indices, want.indices)):
+        raise AssertionError(f"{name}: pattern differs")
+    return array_err(name, got.data, want.data, decimal)
+
+
+def collective_times(mesh, n_gather, n_reduce, reps=200):
+    """Per call, the host ms (a loop of ``reps`` calls to a synchronize)
+    and the device ms (CUDA events around the loop) of the collectives a
+    sharded CG / CGLS step makes across ranks, called on NCCL itself
+    (``parallel.comm`` skips them in a group of one): an all-gather of an
+    f64 vector of ``n_gather`` (the 1M Laplacian's rows), an all-reduce of
+    ``n_reduce`` (config 5's columns), and a copy of the same vector
+    beside them."""
+    import torch.distributed as dist
+
+    group = mesh.get_group("rows")
+    y = torch.randn(n_gather, dtype=torch.float64, device="cuda")
+    z = torch.randn(n_reduce, dtype=torch.float64, device="cuda")
+    parts = [torch.empty_like(y) for _ in range(dist.get_world_size(group))]
+    out = {}
+    for name, fn in (("all_gather",
+                      lambda: dist.all_gather(parts, y, group=group)),
+                     ("all_reduce", lambda: dist.all_reduce(z, group=group)),
+                     ("copy", lambda: y.clone())):
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        out[name] = {"host_ms": (time.perf_counter() - t0) * 1e3 / reps,
+                     "device_ms": start.elapsed_time(end) / reps}
+    return out
+
+
+def sharded_path(inp):
+    """Phase 7: each of the nine sharded ops and both routes
+    (``dot_product`` and ``sparse_qr_solve`` on a ShardedCSR) in a
+    one-rank NCCL group on the card at full width, the plain versions made
+    to raise.  Each result is held against the single-device port's (the
+    same kernels, its operand already on the card) and scipy's at decimal
+    6 (f64, c128) or 5 (f32), or by the residuals phase 5 uses where scipy
+    has no solve at this size.  Each op's line carries its wall ms host to
+    host (first call apart, median of SHARDED_REPS after it), the
+    single-device port's in the same turns, the device's busy ms of one
+    more call and one call's launches.  Returns the launches of the
+    sharded calls (the single-device calls not counted)."""
+    import torch.distributed as dist
+
+    import sparse_dot_tpu_torch as sdt
+    from sparse_dot_tpu_torch import parallel
+
+    card = card_line()
+    mesh = parallel.make_mesh()
+    if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+        raise AssertionError(f"phase 7 runs on {dist.get_backend()} x "
+                             f"{dist.get_world_size()}, not one NCCL rank")
+    totals = {name: 0 for name in KERNELS}
+
+    def counted(fn):
+        before = read_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        after = read_launches()
+        moved = {k: after[k] - before[k] for k in after
+                 if after[k] != before[k]}
+        for k, v in moved.items():
+            totals[k] += v
+        return out, moved
+
+    def run(name, shape, sharded, single, check, expect):
+        """One op's line; ``check(got, mine)`` returns its errors."""
+        t0 = time.perf_counter()
+        got, launched = counted(sharded)
+        first = (time.perf_counter() - t0) * 1e3
+        if set(launched) != set(expect):
+            raise AssertionError(f"{name}: launched {launched}, expected "
+                                 f"{expect}")
+        t0 = time.perf_counter()
+        mine = single()
+        single_first = (time.perf_counter() - t0) * 1e3
+        errs = check(got, mine)
+        walls = {"sharded": [], "single": []}
+        for _ in range(SHARDED_REPS):
+            for key, fn in (("sharded", lambda: counted(sharded)),
+                            ("single", single)):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                walls[key].append((time.perf_counter() - t0) * 1e3)
+        busy = device_busy_ms(lambda: counted(sharded))
+        emit(7, op=name, shape=shape, card=card,
+             wall_ms=float(np.median(walls["sharded"])),
+             wall_min_ms=min(walls["sharded"]),
+             wall_max_ms=max(walls["sharded"]), first_wall_ms=first,
+             device_busy_ms=busy,
+             single_wall_ms=float(np.median(walls["single"])),
+             single_first_wall_ms=single_first, launches=launched, **errs)
+        return got
+
+    def both(name, ref, decimal, err=array_err, view=host):
+        """The check of a result against the single-device port's and
+        scipy's ``ref``."""
+        return lambda got, mine: {
+            "max_abs_err_vs_single": err(f"{name} vs single", view(got),
+                                         host(mine), decimal),
+            "max_abs_err_vs_scipy": err(f"{name} vs scipy", view(got), ref,
+                                        decimal)}
+
+    a1, b1, lap, x, xv = inp["a1"], inp["b1"], inp["lap"], inp["x"], inp["b"]
+    cgls_a = inp["cgls_a"]
+    dev = {key: sdt.to_device(inp[key]) for key in
+           ("a1", "a1_f32", "a1_c128", "lap", "x", "cgls_a")}
+    dev["xT"] = sdt.to_device(x.T.tocsr())
+    shape1 = "config 1: 10k^2 1% @ (10k, 128)"
+    reset_launches()
+    with plain_versions_refused():
+        rows = {dt: parallel.shard_csr_rows(inp[f"a1_{dt}"] if dt != "f64"
+                                            else a1, 1, mesh)
+                for dt in ("f64", "f32", "c128")}
+        for dt, dec in (("f64", 6), ("f32", 5), ("c128", 6)):
+            key = "" if dt == "f64" else f"_{dt}"
+            a, b = inp["a1" + key], inp["b1" + key]
+            run(f"sharded_spmm_{dt}", shape1,
+                lambda a_sh=rows[dt], b=b: parallel.sharded_spmm(
+                    mesh, a_sh, b).cpu(),
+                lambda key=key, b=b: sdt.dot_product(dev["a1" + key], b),
+                both(f"sharded_spmm_{dt}", a @ b, dec), ("K2_csr_spmm",))
+        cols = parallel.shard_csr_cols(a1, 1, mesh, axis="cols")
+        run("sharded_spmm_2d", shape1,
+            lambda: parallel.sharded_spmm_2d(mesh, cols, b1).cpu(),
+            lambda: sdt.dot_product(dev["a1"], b1),
+            both("sharded_spmm_2d", a1 @ b1, 6), ("K2_csr_spmm",))
+        grid = parallel.shard_csr_grid(a1, 1, mesh)
+        run("sharded_spmm_ring", shape1,
+            lambda: parallel.sharded_spmm_ring(mesh, grid, b1).cpu(),
+            lambda: sdt.dot_product(dev["a1"], b1),
+            both("sharded_spmm_ring", a1 @ b1, 6), ("K2_csr_spmm",))
+        out = inp["out1"].copy()
+        ref_out = a1 @ b1 + 2.0 * out
+
+        def out_check(got, mine):
+            if got is not out:
+                raise AssertionError("dot_product(ShardedCSR, out=...) did "
+                                     "not return out")
+            return both("dot_product_out", ref_out, 6)(got.copy(), mine)
+
+        run("dot_product_sharded_out", shape1 + ", out_scalar 2",
+            lambda: sdt.dot_product(rows["f64"], b1, out=out,
+                                    out_scalar=2.0),
+            lambda: sdt.dot_product(dev["a1"], b1, out=inp["out1"].copy(),
+                                    out_scalar=2.0),
+            out_check, ("K2_csr_spmm",))
+        lap_rows = parallel.shard_csr_rows(lap, 1, mesh)
+        shape_lap = "1M Laplacian, 5.0 M nnz"
+        run("sharded_spmv", shape_lap,
+            lambda: parallel.sharded_spmv(mesh, lap_rows, xv).cpu(),
+            lambda: sdt.dot_product(dev["lap"], xv),
+            both("sharded_spmv", lap @ xv, 6), ("K3_csr_spmv",))
+        run("sharded_spmv_halo", shape_lap + ", halo 1",
+            lambda: parallel.sharded_spmv_halo(mesh, lap_rows, xv, halo=1),
+            lambda: sdt.dot_product(dev["lap"], xv),
+            both("sharded_spmv_halo", lap @ xv, 6), ("K3_csr_spmv",))
+
+        def cg_check(got, mine):
+            x_cg, res, iters = got
+            # Stopped at ||r|| <= 1e-10 on the recurrence; the true
+            # residual drifts by ~eps ||A|| ||x|| per step (phase 5's
+            # Krylov bound).
+            rel = rel_residual(lap, x_cg, xv)
+            if not rel <= 1e-9:
+                raise AssertionError(f"sharded_cg: relative residual {rel}")
+            return {"max_abs_err_vs_single": array_err(
+                "sharded_cg vs single", x_cg, mine[0], 6),
+                "rel_residual": rel, "residual": res, "iterations": iters}
+
+        def single_cg(a, b):
+            with sdt.CGIterativeSparseSolver(a, b, a_tol=1e-10, r_tol=0.0,
+                                             n=a.shape[1]) as solver:
+                return solver.solve(), solver.final_code
+
+        run("sharded_cg", shape_lap + ", atol 1e-10",
+            lambda: parallel.sharded_cg(mesh, lap_rows, xv, tol=1e-10),
+            lambda: single_cg(dev["lap"], xv), cg_check, ("K3_csr_spmv",))
+        x_grid = parallel.shard_csr_grid(x, 1, mesh)
+        x_t = parallel.shard_csr_krows(x.T.tocsr(), 1, mesh)
+        run("sharded_spgemm_demo", "demo X @ X.T, panels 500 x 500",
+            lambda: parallel.sharded_spgemm(mesh, x_grid, x_t),
+            lambda: sdt.dot_product(dev["x"], dev["xT"]),
+            both("sharded_spgemm_demo", x @ x.T, 6, sparse_err),
+            ("K6_csr_spgemm_dense",))
+        a1_k = parallel.shard_csr_krows(a1, 1, mesh)
+        run("sharded_spgemm_config1", "config 1 A @ A, panels 10k x 10k "
+            "(f64 + f32)",
+            lambda: parallel.sharded_spgemm(mesh, grid, a1_k),
+            lambda: sdt.dot_product(dev["a1"], dev["a1"]),
+            both("sharded_spgemm_config1", a1 @ a1, 6, sparse_err),
+            ("K6_csr_spgemm_dense",))
+        x_rows = parallel.shard_csr_rows(x, 1, mesh)
+        gram = (x.T @ x).toarray()
+        run("sharded_gram", "demo X^T X, 5000^2 f64",
+            lambda: parallel.sharded_gram(mesh, x_rows).cpu(),
+            lambda: sdt.gram_matrix(dev["x"], dense=True),
+            # the single-device gram keeps the upper triangle (reference)
+            lambda got, mine: {
+                "max_abs_err_vs_single": array_err(
+                    "sharded_gram vs single", np.triu(host(got)), mine, 6),
+                "max_abs_err_vs_scipy": array_err(
+                    "sharded_gram vs scipy", host(got), gram, 6)},
+            ("K6_csr_spgemm_dense",))
+        cgls_rows = parallel.shard_csr_rows(cgls_a, 1, mesh)
+        shape5 = "config 5: 1.2M x 50k, 4.65 M nnz + identity tail"
+
+        def lstsq_check(name, rhs):
+            def check(got, mine):
+                sol = got[0] if isinstance(got, tuple) else got
+                rel = normal_residual(cgls_a, sol, rhs)
+                if not rel <= 1e-6:
+                    raise AssertionError(f"{name}: normal-equation "
+                                         f"residual {rel}")
+                out = {"max_abs_err_vs_single": array_err(
+                    f"{name} vs single", sol, mine, 6),
+                    "normal_residual": rel}
+                if isinstance(got, tuple):
+                    out.update(residual=got[1], iterations=got[2])
+                return out
+            return check
+
+        run("sharded_cgls", shape5,
+            lambda: parallel.sharded_cgls(mesh, cgls_rows, inp["cgls_b"]),
+            lambda: sdt.sparse_qr_solve(dev["cgls_a"], inp["cgls_b"]),
+            lstsq_check("sharded_cgls", inp["cgls_b"]), ("K3_csr_spmv",))
+        for suffix, rhs in (("", inp["cgls_b"]), ("_4rhs", inp["cgls_b4"])):
+            run("sparse_qr_solve_sharded" + suffix, shape5,
+                lambda rhs=rhs: sdt.sparse_qr_solve(cgls_rows, rhs),
+                lambda rhs=rhs: sdt.sparse_qr_solve(dev["cgls_a"], rhs),
+                lstsq_check("sparse_qr_solve_sharded" + suffix, rhs),
+                ("K3_csr_spmv",))
+    for kernel in ("K2_csr_spmm", "K3_csr_spmv", "K6_csr_spgemm_dense"):
+        if not totals[kernel]:
+            raise AssertionError(f"phase 7 launched no {kernel}")
+    emit("7-comm", card=card, collectives=collective_times(mesh, lap.shape[0],
+                                                           cgls_a.shape[1]))
+    parallel.shutdown()
+    emit("7-launches", launches=totals, card=card,
+         timer="host clock, host in to host out, median (min, max) of "
+               f"{SHARDED_REPS} after a checked first call, the "
+               "single-device port (operand on the card) in the same "
+               "turns; device busy: torch.profiler, one more call")
+    return totals
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
-        "--only", choices=("spgemm", "k6", "k7", "k8", "k9", "k11"),
+        "--only", choices=("spgemm", "k6", "k7", "k8", "k9", "k11",
+                           "sharded"),
         help="a short run that ends with no result line: spgemm runs "
              "phases 1, 2 (K4-K6 and K2/K3's complex inf case), 3 and 4 of "
              "sparse x sparse; k6 runs phase 1 and K6's phase-4 rows "
@@ -4205,7 +4536,8 @@ def main():
              "spgemm_training and spgemm_dense_hvp); k11 the same for "
              "K11 (its phase-2 checks with csr_spgemm's gradcheck and "
              "check_second_order, k11_rows, spgemm_sparse_training, "
-             "spgemm_sparse_hvp and hessian_vector_product)")
+             "spgemm_sparse_hvp and hessian_vector_product); sharded runs "
+             "phase 1 and phase 7 (sharded_path)")
     only = parser.parse_args().only
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -4276,6 +4608,9 @@ def main():
                    "each; yardstick and beside timed in the same turns")
         grad_training(path_inputs(), spgemm_inp, ("K11",))
         return
+    if only == "sharded":
+        sharded_path(sharded_inputs(path_inputs(), solver_inputs()))
+        return
     check_kernels()
     by_path = {}
     by_path["dot_product"], inputs = main_path()
@@ -4288,6 +4623,7 @@ def main():
     grad = grad_training(inputs, spgemm_inp)
     by_path["training"] = {name: training[name] + grad[name]
                            for name in KERNELS}
+    by_path["sharded"] = sharded_path(sharded_inputs(inputs, solver_inp))
     launches = {name: sum(path[name] for path in by_path.values())
                 for name in KERNELS}
 

@@ -32,8 +32,10 @@ the dense operand (K7 CSR SDDMM and K2/K3 over A^H), forward mode, and
 an operand requires grad.
 
 The drop-in aliases with the reference's ``*_mkl`` names are exported.
-Not ported yet (ROADMAP.md): the sharded (multi-device) layer.  This
-package never imports JAX.
+The sharded layer, ``parallel``, runs the products and solvers over
+``torch.distributed`` ranks (one device each; NCCL on the cards, gloo on
+the CPU), and ``dot_product`` and ``sparse_qr_solve`` route a
+``parallel.ShardedCSR`` operand to it.  This package never imports JAX.
 """
 
 from .config import (

@@ -339,6 +339,117 @@ def _dense_dot_dense(matrix_a, matrix_b, cast=False, scalar=1.0, out=None,
 
 
 # ---------------------------------------------------------------------------
+# sharded operands (the torch.distributed layer)
+# ---------------------------------------------------------------------------
+
+
+def _sharded_dot_product(matrix_a, matrix_b, cast=False, dense=False,
+                         reorder_output=False, out=None, out_scalar=None):
+    """Route ``dot_product`` on sharded operands to ``parallel.ops``
+    (``sparse_dot_tpu/dispatch.py:361-466``): A must be the sharded
+    operand, built with a mesh; B a dense array (by A's layout: the ring,
+    the contraction partition, or the row partition's SpMV / SpMM) or a
+    ShardedCSR sharded along k (the ring SpGEMM, sparse output).  The
+    single-device keyword contract holds: ``out``/``out_scalar`` accumulate
+    into the caller's array, which is returned; ``out`` without ``dense``
+    and ``dense=True`` on sparse @ sparse follow the reference's rules;
+    dtype mismatches follow ``cast``.  An unsharded sparse B raises a
+    ``ValueError`` that names it."""
+    from .parallel import ops as pops
+
+    if not isinstance(matrix_a, pops.ShardedCSR):
+        raise ValueError(
+            "dot_product with a sharded operand requires the SHARDED "
+            "matrix on the left (dense @ sharded is not supported)"
+        )
+    mesh = matrix_a.mesh
+    if mesh is None:
+        raise ValueError(
+            "ShardedCSR must be built with a mesh (shard_csr_rows(..., "
+            "mesh=...)) to be used with dot_product"
+        )
+
+    if isinstance(matrix_b, pops.ShardedCSR):
+        if dense:
+            raise NotImplementedError(
+                "dense=True is not supported for sharded @ sharded "
+                "products (the output is assembled as sparse CSR)"
+            )
+        if out is not None:
+            raise ValueError(
+                "out argument cannot be used with sparse (dot) sparse "
+                "matrix multiplication unless dense=True"
+            )
+        if np.dtype(matrix_a.dtype) != np.dtype(matrix_b.dtype):
+            if not cast:
+                raise ValueError(
+                    "Matrix dtypes must be identical; set cast=True or "
+                    "build both sharded operands at the same dtype "
+                    f"(got {matrix_a.dtype} and {matrix_b.dtype})"
+                )
+            raise NotImplementedError(
+                "cast=True cannot re-type mesh-sharded operands; build "
+                "the shards at the common dtype (shard_csr_*(A.astype(...)))"
+            )
+        if matrix_a.layout != "grid":
+            raise ValueError(
+                "sharded @ sharded requires A partitioned with "
+                "shard_csr_grid (row + column blocks)"
+            )
+        res = pops.sharded_spgemm(mesh, matrix_a, matrix_b,
+                                  axis=matrix_a.axis)
+        if reorder_output:
+            res.sort_indices()
+        return res
+
+    if formats.issparse(matrix_b):
+        raise ValueError(
+            "dot_product with a sharded A takes a dense B or a ShardedCSR "
+            "B (shard_csr_krows); got an unsharded sparse "
+            f"{type(matrix_b).__name__}: shard it with shard_csr_krows or "
+            "densify it"
+        )
+    b = np.asarray(matrix_b)
+    a_dt, b_dt = np.dtype(matrix_a.dtype), np.dtype(b.dtype)
+    if a_dt != b_dt:
+        if not cast:
+            raise ValueError(
+                "Matrix dtypes must be identical; set cast=True to "
+                f"upcast the dense operand (got {a_dt} and {b_dt})"
+            )
+        promoted = np.promote_types(a_dt, b_dt)
+        if promoted != a_dt:
+            raise NotImplementedError(
+                "cast=True would need to upcast the mesh-sharded "
+                f"operand ({a_dt} -> {promoted}); build the shards at "
+                "the promoted dtype instead"
+            )
+        b = b.astype(promoted)
+
+    b2 = b.reshape(-1, 1) if b.ndim == 1 else b
+    if matrix_a.layout == "grid":
+        res = pops.sharded_spmm_ring(mesh, matrix_a, b2, axis=matrix_a.axis)
+    elif matrix_a.layout == "cols":
+        res = pops.sharded_spmm_2d(mesh, matrix_a, b2, axis=matrix_a.axis)
+    elif b.ndim == 1:
+        res = pops.sharded_spmv(mesh, matrix_a, b, axis=matrix_a.axis)
+    else:
+        res = pops.sharded_spmm(mesh, matrix_a, b, axis=matrix_a.axis)
+    res = res.cpu().numpy()
+    if b.ndim == 1:
+        res = res.reshape(-1)
+
+    if out is None:
+        return res
+    out_validated = policy.out_matrix(
+        res.shape, res.dtype, "C", out_arr=out
+    )
+    beta = 1.0 if out_scalar is None else out_scalar
+    out_validated[...] = res + beta * out_validated
+    return out_validated
+
+
+# ---------------------------------------------------------------------------
 # public entry point
 # ---------------------------------------------------------------------------
 
@@ -359,12 +470,23 @@ def dot_product(matrix_a, matrix_b, cast=False, copy=True,
     * vector @ vector -> np.dot special case
     * dense @ dense -> GEMM
 
+    * a ``ShardedCSR`` operand -> the sharded layer (``parallel``), on
+      the ranks of its mesh
+
     With ``config.device == "cuda"`` (the default) and no visible card
     this raises before any work.
     """
     _deprecated_debug(debug)
     torch_device()
     print_backend_debug()
+
+    from .parallel.ops import ShardedCSR
+
+    if isinstance(matrix_a, ShardedCSR) or isinstance(matrix_b, ShardedCSR):
+        return _sharded_dot_product(
+            matrix_a, matrix_b, cast=cast, dense=dense,
+            reorder_output=reorder_output, out=out, out_scalar=out_scalar,
+        )
 
     num_sparse = sum((formats.issparse(matrix_a), formats.issparse(matrix_b)))
 

@@ -148,13 +148,15 @@ def _cg_step(op, x, r, p, rs, active=None):
     return x, r, torch.addcmul(r, beta, p), rs_new
 
 
-def _cg_loop(op, b, x0, threshold, maxiter):
+def _cg_loop(op, b, x0, threshold, maxiter, at_least_one=True):
     """CG from x0 until sqrt(rs) <= threshold or ``maxiter`` steps, at
-    least one step: (x, rs, it) on the device.  The done flag is read
-    every ``CHECK_EVERY`` steps."""
+    least one step unless ``at_least_one`` is False (then a start that is
+    already converged takes none): (x, rs, it) on the device.  The done
+    flag is read every ``CHECK_EVERY`` steps."""
     r = op.residual(b, x0)
     x, p, rs = x0, r, torch.dot(r, r)
-    done = torch.zeros((), dtype=torch.bool, device=b.device)
+    done = (torch.zeros((), dtype=torch.bool, device=b.device)
+            if at_least_one else torch.sqrt(rs) <= threshold)
     it = torch.zeros((), dtype=torch.int64, device=b.device)
     for step in range(maxiter):
         if step and step % CHECK_EVERY == 0 and bool(done):

@@ -17,8 +17,10 @@ Two routes, chosen by the densified size of A alone:
   the device from the same CSR arrays.  The loop's scalars stay on the
   device; its running flag is read every ``CHECK_EVERY`` steps.
 
-The JAX package's TPU probe ``supports_f64_qr`` and its sharded route
-(``ShardedCSR``) have no counterpart here.
+A ``ShardedCSR`` A (``parallel``) takes the sharded route: one
+distributed CGLS (``parallel.ops.sharded_cgls``) per column of B, with the
+same guards and output dtypes.  The JAX package's TPU probe
+``supports_f64_qr`` has no counterpart here.
 """
 
 import numpy as np
@@ -51,19 +53,21 @@ def _qr_lstsq(a, b):
     return torch.linalg.solve_triangular(r, q.T @ b, upper=True)
 
 
-def _cgls_loop(fwd, adj, b, k, tol, maxiter, d):
+def _cgls_loop(fwd, adj, b, k, maxiter, d, rtol=0.0, atol=0.0):
     """CGLS for min ||A X - B|| column by column, each column with its own
     step sizes, on the column-equilibrated system (A diag(d)) Y = B; returns
-    (X = diag(d) Y, iterations) on the device.  With d_j = 1/||a_j|| the
-    normal matrix has a unit diagonal, which bounds the iteration growth on
-    ill-conditioned systems.  The loop runs while any column's squared
-    gradient norm is above tol^2 times its start; steps issued after that
-    change nothing and do not count."""
+    (X = diag(d) Y, the residual B - A X, iterations) on the device.  With
+    d_j = 1/||a_j|| the normal matrix has a unit diagonal, which bounds the
+    iteration growth on ill-conditioned systems.  The loop runs while any
+    column's squared gradient norm is above rtol^2 times its start and
+    above atol^2; steps issued after that change nothing and do not
+    count."""
     dcol = d[:, None]
     x = torch.zeros((k, b.shape[1]), dtype=b.dtype, device=b.device)
     r, s = b, dcol * adj(b)
     p, g = s, (s * s).sum(0)
-    thresh = (tol * tol) * torch.clamp(g, min=1e-300)
+    thresh = torch.clamp((rtol * rtol) * torch.clamp(g, min=1e-300),
+                         min=atol * atol)
     it = torch.zeros((), dtype=torch.int64, device=b.device)
     for step in range(maxiter):
         running = (g > thresh).any()
@@ -80,14 +84,21 @@ def _cgls_loop(fwd, adj, b, k, tol, maxiter, d):
         p = torch.where(running, torch.addcmul(s, beta, p), p)
         g = torch.where(running, g_new, g)
         it += running
-    return dcol * x, it
+    return dcol * x, r, it
 
 
-def _jacobi_colscale(indices, data, n):
-    """d_j = 1/||a_j||_2 (1.0 for an empty column) from A's CSR arrays, on
-    their device, float64."""
+def _col_sumsq(indices, data, n):
+    """The column sums of squares of A's CSR arrays, float64, on their
+    device."""
     sq = torch.zeros(n, dtype=torch.float64, device=data.device)
+    data = data.to(torch.float64)
     sq.index_add_(0, indices.long(), data * data)
+    return sq
+
+
+def _jacobi_colscale(sq):
+    """d_j = 1/||a_j||_2 (1.0 for an empty column) from the column sums of
+    squares ``sq``."""
     return torch.where(sq > 0, torch.rsqrt(sq), 1.0)
 
 
@@ -109,9 +120,10 @@ def _sparse_qr(matrix_a, matrix_b):
         fwd = CsrOperator(*A.csr_arrays())
         adj = CsrOperator(*A.csr_arrays(transpose=True))
         nrhs = b.shape[1]
-        x, it = _cgls_loop(
+        x, _, it = _cgls_loop(
             _panel(fwd, nrhs), _panel(adj, nrhs), b.to(torch.float64), n,
-            1e-14, 10 * n + 1000, _jacobi_colscale(*fwd.arrays[1:], n),
+            10 * n + 1000, _jacobi_colscale(_col_sumsq(*fwd.arrays[1:], n)),
+            rtol=1e-14,
         )
         host = _to_host(x, it)
         x = host[:-1].reshape(n, -1)
@@ -126,10 +138,46 @@ def _sparse_qr(matrix_a, matrix_b):
     return np.asfortranarray(x)
 
 
+def _sharded_qr(matrix_a, matrix_b):
+    """The ``ShardedCSR`` route (``sparse_dot_tpu/solvers/qr.py:257-296``):
+    a mesh is required, shapes must align and complex is rejected; one
+    ``sharded_cgls`` per column of B; float64 out for float64 A, float32
+    otherwise."""
+    from ..parallel.ops import sharded_cgls
+
+    if matrix_a.mesh is None:
+        raise ValueError(
+            "Sharded QR solve requires the ShardedCSR to carry a "
+            "mesh (shard_csr_rows(..., mesh=...))"
+        )
+    if matrix_a.shape[0] != np.asarray(matrix_b).shape[0]:
+        raise ValueError(
+            f"Bad matrix shapes for AX=B solver: "
+            f"A {matrix_a.shape} & B {np.asarray(matrix_b).shape}"
+        )
+    if np.dtype(matrix_a.dtype).kind == "c":
+        raise ValueError(
+            "Complex datatypes are not supported by the QR solver"
+        )
+    out_dt = (np.float64 if np.dtype(matrix_a.dtype) == np.float64
+              else np.float32)
+    b_np = np.asarray(matrix_b, dtype=np.float64)
+    cols = [b_np] if b_np.ndim == 1 else list(b_np.T)
+    xs = [sharded_cgls(matrix_a.mesh, matrix_a, col, axis=matrix_a.axis)[0]
+          for col in cols]
+    x = xs[0] if b_np.ndim == 1 else np.stack(xs, axis=1)
+    return x.astype(out_dt, copy=False)
+
+
 def sparse_qr_solver(matrix_a, matrix_b, cast=False):
     """Solve AX = B in the least-squares sense, with the reference's guards
     (``_sparse_qr_solver.py:110-163``): CSC requires cast=True, only
-    CSR/CSC sparse is accepted, shapes must align, complex is rejected."""
+    CSR/CSC sparse is accepted, shapes must align, complex is rejected.
+    A ``ShardedCSR`` A runs the distributed CGLS (``_sharded_qr``)."""
+    from ..parallel.ops import ShardedCSR
+
+    if isinstance(matrix_a, ShardedCSR):
+        return _sharded_qr(matrix_a, matrix_b)
     if formats.is_csc(matrix_a) and not cast:
         raise ValueError(
             "sparse_qr_solver only accepts CSR matrices if cast=False"

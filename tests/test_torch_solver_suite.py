@@ -22,8 +22,10 @@ config``, ...).
   ``TestEllKillSwitch`` (the TPU's binned-ELL loop forms and their kill
   switch) and ``TestEllHiloRangeGate`` (the hi|lo f32 split's range gate);
   the port has one CSR operator per solver and exact f64;
-- ``tests/test_qr_solver.py``: every test but ``test_sharded_qr_route``
-  (the sharded layer is not ported);
+- ``tests/test_qr_solver.py``: every test; ``test_sharded_qr_route``
+  builds its ``ShardedCSR`` with the port's ``parallel`` in a one-rank
+  gloo group (the port's device count, one per process, stands in for
+  ``jax.device_count()``), left again after the test;
 - ``tests/test_pardiso.py``: every test, with the ``case`` grid's native
   parameters (f32, f64, c64, c128) and ``native`` of
   ``test_iparm11_transpose_solve_complex``; the ``*-planar`` and
@@ -47,13 +49,17 @@ import numpy as np
 import pytest
 import scipy.sparse as sps
 
+import jax
+
 import sparse_dot_tpu
 import sparse_dot_tpu.config
+import sparse_dot_tpu.parallel
 import sparse_dot_tpu.solvers
 import sparse_dot_tpu.solvers.iterative
 import sparse_dot_tpu_torch
 from sparse_dot_tpu_torch import formats as port_formats
 from sparse_dot_tpu_torch import interface as port_interface
+from sparse_dot_tpu_torch import parallel as port_parallel
 from sparse_dot_tpu_torch import policy as port_policy
 from sparse_dot_tpu_torch.config import config as port_config
 from sparse_dot_tpu_torch.solvers import iterative as port_iterative
@@ -80,6 +86,16 @@ def on_the_cpu():
     port_config.device = "cpu"
     yield
     port_config.device = saved
+
+
+@pytest.fixture(autouse=True)
+def no_group_left():
+    """A process group that a test started (the sharded QR route's
+    one-rank group) is left after it."""
+    started = port_parallel.is_initialized()
+    yield
+    if not started:
+        port_parallel.shutdown()
 
 
 @contextlib.contextmanager
@@ -143,6 +159,12 @@ QR = [
     (test_qr_solver, "sparse_qr_solve", sparse_dot_tpu_torch.sparse_qr_solve),
     (sparse_dot_tpu.solvers, "qr", port_qr),
 ]
+SHARDED_QR = [
+    *QR,
+    (sys.modules, "sparse_dot_tpu.parallel", port_parallel),
+    (jax, "device_count",
+     lambda: port_parallel.process_info()["global_device_count"]),
+]
 PARDISO_NO_CONFIG = [
     *_port_names(test_pardiso, sparse_dot_tpu_torch,
                  ("pardiso", "pardisoinit", "sparse_qr_solve")),
@@ -194,7 +216,6 @@ for _module, _names in ((test_handles, ("TestHandles",)),
 _LEFT_OUT = {
     "test_full_f64_range_capability_and_no_warning_on_cpu",
     "test_container_astype_identity_and_planar",
-    "test_sharded_qr_route",
     "test_iparm11_transpose_solve_complex",
 }
 for _module, _prefix, _patches in (
@@ -207,7 +228,8 @@ for _module, _prefix, _patches in (
         if (_name.startswith("test_") and inspect.isfunction(_obj)
                 and _name not in _LEFT_OUT):
             globals()[_name.replace("test_", f"test_port_{_prefix}_", 1)] = (
-                port_function(_obj, _patches))
+                port_function(_obj, SHARDED_QR if _name ==
+                              "test_sharded_qr_route" else _patches))
 del _module, _names, _name, _cls, _prefix, _patches, _obj
 
 # test_qr_solver's fixture, under its own name for the functions above.
