@@ -78,7 +78,16 @@ Phases, each printing one JSON line:
    groups of 1 to 32 lanes staged and in place, inf in
    G, and a C that lacks some products' entries with inf and nan in Y
    (those products add nothing), every call run twice for the same bits
-   (``check_k11_all``).  Then
+   (``check_k11_all``).  The batched launches (``check_batched``): K2,
+   K7, K1 and K8 (each variant) with a batch of members that share the
+   pattern, against their batched plain versions in every value type,
+   with shared and batched operands (``SPMM_COMBOS``, ``SDDMM_COMBOS``),
+   alpha, beta and c0, members at odd strides (not on 16 bytes: the
+   scalar path), K2 and K7 over a row past 3x K2's chunk and K1 over a
+   split block row (each member with its own counts, partial rows and
+   workspace slots), every call twice for the same bits, and a batch of
+   70,000 tiny members through each (two launches: the grid holds
+   65,535 a launch).  Then
    ``torch.autograd.gradcheck`` (reverse and forward mode) of
    ``ops.coo_spmm_raw``, ``coo_spmv``, ``csr_spmm``, the BSR device
    function ``ops.bsr_spmm`` (on both K1 variants), ``csr_spgemm_dense``
@@ -137,8 +146,16 @@ Phases, each printing one JSON line:
    given, no host read) and at a G and Y densified +
    ``torch.sparse.sampled_addmm`` and K9 on G densified;
    K8's, K9's and K11's rows also carry ``device_ms``, the kernels' own
-   time in a ``torch.profiler`` trace of 10 calls; and the wall
-   time of ``dot_product(X, X.T)`` beside scipy's;
+   time in a ``torch.profiler`` trace of 10 calls; the batched launches
+   (``batched_rows``, each beside the same members' single launches in
+   the same turns, ``ms_over_single_launches``): K2 at config 1 over 4
+   and 16 value sets (b shared) beside ``torch.bmm`` of a batched sparse
+   COO, K2 at n = 1 on the 1M^2 matrix over 4 value sets (``CsrSpmv``'s
+   ``vmap`` over the values) beside 4 K3 launches, K7 at config 1 over 4
+   and 16 (G, B) pairs beside batched-CSR ``torch.sparse.sampled_addmm``,
+   K1 and K8 at config 3 (bs 64, f64) and at the complex BSR over 4
+   members, beside their rows' yardsticks made once a member; and the
+   wall time of ``dot_product(X, X.T)`` beside scipy's;
 5. the solver path, with the counts set to 0 again and the plain versions
    of K1-K9 and K11 made to raise, each result checked against
    scipy/numpy on the host: the handle protocol on the demo X (create,
@@ -165,7 +182,9 @@ Phases, each printing one JSON line:
    config 1's pattern and phase 3's B (20 steps in f64 on the values;
    20 in f32 with B trained too), 10 steps of ``ops.coo_spmv`` on the 1M^2 matrix with x trained too, and
    one step through ``torch.func.vmap`` over 4 right-hand sides (one K2
-   launch); every loss finite and at or below the one before up to
+   launch), ``vmap`` of ``grad`` over 3 right-hand sides (K2 once,
+   folded; K7 once, batched) and ``vmap`` over 3 value sets (K2 once,
+   batched); every loss finite and at or below the one before up to
    rounding, every result with a grad_fn, the gradients at each run's
    first and last step equal to the plain versions' on the same tensors;
    per run the wall ms of a step (median of steps 2..N), and the device's
@@ -190,7 +209,15 @@ Phases, each printing one JSON line:
    in the blocks and b (K1 6, K8 3), through ``csr_spgemm_dense`` on the
    demo X @ X.T (K6 3, K9 6), through ``csr_spgemm`` on case c's 1M^2
    A @ A (K4 1, K5 3, K11 6), and through ``coo_spmm_raw`` on config 1
-   in the values and b (K2 6, K7 3);
+   in the values and b (K2 6, K7 3).  Then the batched runs
+   (``batched_training``, the ``vmap`` path), each with its exact
+   launches, wall ms, the device's busy ms and the same work one member
+   at a time in the same turns: per-sample gradients over 16 right-hand
+   sides at config 1 (K2 1, folded; K7 1, batched), an ensemble over 4
+   block sets at config 3 (K1 1, K8 1, batched), ``jacrev`` of
+   ``coo_spmm_raw`` in the values at a small pattern (K2 1, K7 1) and
+   ``hessian`` of sum(sin(.)) in (values, b) there (K2 6, K7 3), against
+   the plain versions;
 7. the sharded layer (``sparse_dot_tpu_torch.parallel``) in a one-rank
    NCCL group on the card (one card: NCCL takes one rank a GPU), the
    plain versions refused: ``sharded_spmm`` at config 1 (f64, f32, c128),
@@ -214,7 +241,8 @@ Phases, each printing one JSON line:
    and the group is left at the end.
 
 Then the card line, a JSON line of per-kernel results (its first phase-4
-row's times, bound and library time, and the launches of each path) and,
+row's times, bound and library time, the launches of each path and the
+batched ones among them) and,
 last, ``{"ok": true, "device": {...}}``.  Each phase's line carries
 ``elapsed_s``, the seconds since the script started.  With
 ``CHIP_SMOKE_LOG`` set to a path, every JSON line also goes to that
@@ -229,7 +257,9 @@ phase-2 checks (for K11 with ``csr_spgemm``'s gradcheck and the device
 API's gradgradcheck), its phase-4 rows and its phase-6 runs with their
 Hessian-vector products (K8: the BSR one; K9: the dense-output one;
 K11: the sparse-output and the CSR ones); ``--only sharded`` runs phase 1
-and phase 7 and prints no result line.
+and phase 7 and prints no result line; ``--only batched`` runs phase 1,
+``check_batched``, ``batched_rows`` and ``batched_training``, and prints
+no result line.
 """
 
 import argparse
@@ -461,6 +491,7 @@ def check_kernels(spgemm_only=False):
         results.update(k89)
         k11, k11_lanes, k11_gradcheck = check_k11_all()
         results.update(k11)
+        batched_paths = check_batched(record)
     check_csr_special(rng, record)
     check_bins_seen(bins_seen)
     check_k6_seen(k6_seen)
@@ -478,6 +509,7 @@ def check_kernels(spgemm_only=False):
          k6_repeated_column=k6_repeats,
          k7_schedules=sorted(k7_schedules), k7_edges=sorted(k7_seen),
          k9_lanes=k9_lanes, k11_lanes=k11_lanes,
+         batched_16_byte_paths=batched_paths,
          gradcheck_launches=check_gradcheck(),
          k11_gradcheck_launches=k11_gradcheck,
          gradgradcheck_launches=check_second_order())
@@ -1356,6 +1388,211 @@ def check_k11_all():
     return results, sorted(lanes_seen), check_k11_gradcheck()
 
 
+# ---------------------------------------------------------------------------
+# Phase 2: the batched launches of K1, K2, K7 and K8
+# ---------------------------------------------------------------------------
+
+# Members of phase 2's batched cases, and of the batch past the grid's
+# limit of 65,535 members a launch (two launches).
+BATCH = 5
+BIG_BATCH = 70_000
+# Which operands a batched case gives with a member dimension: for K1 and
+# K2 (values, b, c0: None, "shared" or "batched"), for K7 and K8 (g, b).
+SPMM_COMBOS = ((True, False, None), (True, True, "batched"),
+               (False, True, "shared"), (True, False, "shared"),
+               (False, False, "batched"))
+SDDMM_COMBOS = ((True, False), (True, True), (False, True))
+
+
+def odd_members(x):
+    """A copy of the batch x (B, ...) whose members lie one element further
+    apart than their size: each member contiguous, but (except for c128)
+    not on 16 bytes, so the kernels take their scalar path."""
+    inner = x[0].numel()
+    buf = torch.zeros(x.shape[0] * (inner + 1), dtype=x.dtype,
+                      device=x.device)
+    view = buf.as_strided(x.shape, (inner + 1, *x[0].stride()))
+    view.copy_(x)
+    return view
+
+
+def batched_call(wrapper, launches, fn, *args):
+    """fn(*args), checked to make ``launches`` batched launches (counted in
+    ``wrapper.launches_batched``) and run twice for the same bits."""
+    before = wrapper.launches_batched
+    out = fn(*args)
+    made = wrapper.launches_batched - before
+    if made != launches:
+        raise AssertionError(f"{fn.__name__}: {made} batched launches, "
+                             f"expected {launches}")
+    if not torch.equal(out, fn(*args)):
+        raise AssertionError(f"{fn.__name__}: runs differ")
+    return out
+
+
+def member_operands(rng, npdt, shapes, batched, odd):
+    """Operands of ``shapes`` on the card, each with BATCH members ahead
+    where ``batched`` says so (None: no operand), as ``odd_members``
+    views with ``odd``."""
+    out = []
+    for shape, how in zip(shapes, batched):
+        if how is None or how is False:
+            out.append(None if how is None else cuda(values(rng, shape,
+                                                            npdt)))
+            continue
+        if how == "shared":
+            out.append(cuda(values(rng, shape, npdt)))
+            continue
+        x = cuda(values(rng, (BATCH, *shape), npdt))
+        out.append(odd_members(x) if odd else x)
+    return out
+
+
+def check_batched(record):
+    """Phase 2 for the batched launches: K2, K7, K1 and K8 (each variant)
+    against their batched plain versions in every value type, with
+    shared and batched operands (``SPMM_COMBOS``, ``SDDMM_COMBOS``),
+    alpha, beta and c0, members at odd strides (the scalar path), K2 and
+    K7 over a row past 3x K2's chunk (split: each member's own counts
+    and partial rows), K1 over a split block row (each member's own
+    workspace slots); every call run twice for the same bits; then a
+    batch of BIG_BATCH tiny members through each, two launches.
+    Returns {kernel: (16-byte paths seen, scalar paths seen)}."""
+    from sparse_dot_tpu_torch import formats
+    from sparse_dot_tpu_torch.ops import bsr, csr, sddmm
+
+    rng = np.random.default_rng(SEED + 17)
+    paths = {}
+
+    def path(name, vec):
+        paths.setdefault(name, set()).add(vec > 1)
+
+    for tdt, npdt in NP_DTYPES.items():
+        itype = np.int64 if tdt in (torch.float64, torch.complex64) \
+            else np.int32
+        cplx = np.dtype(npdt).kind == "c"
+        alpha = 0.5 - 0.25j if cplx else -1.5
+        for m, k, mean_row, empty_every, long_row in (
+                (300, 200, 3, 5, 0), (257, 190, 12, 0, 3500)):
+            indptr, indices, _ = random_csr(rng, m, k, mean_row, npdt, itype,
+                                            empty_every, long_row)
+            ip, ix = cuda(indptr), cuda(indices)
+            nnz = len(indices)
+            plan = formats.csr_plan(ip, nnz)
+            if long_row and long_row < 3 * plan.chunk:
+                raise AssertionError("batched K2: the long row is too short")
+            for n in (1, 4, 17, 64):
+                for combo in SPMM_COMBOS:
+                    for odd in (False, True):
+                        data, b, c0 = member_operands(
+                            rng, npdt, ((nnz,), (k, n), (m, n)), combo, odd)
+                        args = (ip, ix, data, b, alpha, 2.0, c0)
+                        out = batched_call(csr.csr_spmm, 1,
+                                           csr.spmm_batched, *args, plan)
+                        record("K2_csr_spmm", compare(
+                            out, csr.csr_spmm_batched_plain(*args), tdt))
+                        path("K2", csr.spmm_schedule(
+                            n, tdt, nnz / m, csr.aligned_members(
+                                *((t, csr.member_stride("", t, core))
+                                  for t, core in ((b, 2), (c0, 2)))
+                            )).vec)
+                for g_b, b_b in SDDMM_COMBOS:
+                    for odd in (False, True):
+                        g, b = member_operands(rng, npdt, ((m, n), (k, n)),
+                                               (g_b, b_b), odd)
+                        for al in (None, alpha):
+                            out = batched_call(sddmm.csr_sddmm, 1,
+                                               sddmm.sddmm_batched, ip, ix,
+                                               g, b, al)
+                            record("K7_csr_sddmm", compare(
+                                out, sddmm.csr_sddmm_batched_plain(
+                                    ip, ix, g, b, al), tdt))
+                        path("K7", sddmm.sddmm_schedule(
+                            n, tdt, nnz, csr.aligned_members(
+                                (g, csr.member_stride("", g, 2)),
+                                (b, csr.member_stride("", b, 2)))).vec)
+        for bs, nbrows, nbcols, per_row, empty_every, split in (
+                (8, 24, 20, 3, 5, True), (3, 30, 20, 3, 4, False),
+                (64, 8, 6, 1, 3, True)):
+            indptr, indices, _ = random_bsr(rng, nbrows, nbcols, bs, per_row,
+                                            npdt, itype, empty_every, split)
+            ip, ix = cuda(indptr), cuda(indices)
+            nb = len(indices)
+            tc = bsr.uses_tensor_cores(tdt, bs)
+            k1 = "K1_bsr_spmm_tc" if tc else "K1_bsr_spmm_simt"
+            for n in (1, 37, 64):
+                for combo in SPMM_COMBOS:
+                    for odd in (False, True):
+                        data, b, c0 = member_operands(
+                            rng, npdt, ((nb, bs, bs), (nbcols * bs, n),
+                                        (nbrows * bs, n)), combo, odd)
+                        args = (ip, ix, data, b, alpha, 2.0, c0)
+                        before = bsr.bsr_spmm.launches_tc
+                        out = batched_call(bsr.bsr_spmm, 1, bsr.spmm_batched,
+                                           *args)
+                        if (bsr.bsr_spmm.launches_tc - before) != 2 * tc:
+                            raise AssertionError(f"batched {k1}: variant")
+                        record(k1, compare(
+                            out, bsr.bsr_spmm_batched_plain(*args), tdt))
+                for g_b, b_b in SDDMM_COMBOS:
+                    for odd in (False, True):
+                        g, b = member_operands(
+                            rng, npdt, ((nbrows * bs, n), (nbcols * bs, n)),
+                            (g_b, b_b), odd)
+                        before = bsr.bsr_sddmm.launches_tc
+                        out = batched_call(bsr.bsr_sddmm, 1,
+                                           bsr.sddmm_batched, ip, ix, g, b,
+                                           bs, alpha)
+                        if (bsr.bsr_sddmm.launches_tc - before) != 2 * tc:
+                            raise AssertionError("batched K8: variant")
+                        record(k8_name(tdt, bs), compare(
+                            out, bsr.bsr_sddmm_batched_plain(
+                                ip, ix, g, b, bs, alpha), tdt))
+    for name, want in (("K2", {True, False}), ("K7", {True, False})):
+        if paths.get(name) != want:
+            raise AssertionError(f"batched {name} took only the "
+                                 f"{paths.get(name)} 16-byte paths")
+    check_big_batch(record)
+    return {name: sorted(seen) for name, seen in paths.items()}
+
+
+def check_big_batch(record):
+    """BIG_BATCH members of a tiny pattern through each batched wrapper:
+    two launches each (65,535 members, then the rest), against the
+    batched plain versions."""
+    from sparse_dot_tpu_torch.ops import bsr, csr, sddmm
+
+    rng = np.random.default_rng(SEED + 18)
+    indptr, indices, _ = random_csr(rng, 3, 2, 2, np.float64)
+    ip, ix = cuda(indptr), cuda(indices)
+    data = cuda(values(rng, (BIG_BATCH, len(indices)), np.float64))
+    b = cuda(values(rng, (2, 1), np.float64))
+    out = batched_call(csr.csr_spmm, 2, csr.spmm_batched, ip, ix, data, b)
+    record("K2_csr_spmm", compare(out, csr.csr_spmm_batched_plain(
+        ip, ix, data, b), torch.float64))
+    g = cuda(values(rng, (BIG_BATCH, 3, 1), np.float64))
+    out = batched_call(sddmm.csr_sddmm, 2, sddmm.sddmm_batched, ip, ix, g, b)
+    record("K7_csr_sddmm", compare(out, sddmm.csr_sddmm_batched_plain(
+        ip, ix, g, b), torch.float64))
+    for bs, npdt in ((8, np.float64), (3, np.complex128)):
+        tdt = torch.from_numpy(np.zeros(0, npdt)).dtype
+        indptr, indices, _ = random_bsr(rng, 2, 2, bs, 1, npdt)
+        ip, ix = cuda(indptr), cuda(indices)
+        data = cuda(values(rng, (BIG_BATCH, len(indices), bs, bs), npdt))
+        b = cuda(values(rng, (2 * bs, 1), npdt))
+        out = batched_call(bsr.bsr_spmm, 2, bsr.spmm_batched, ip, ix, data,
+                           b)
+        k1 = ("K1_bsr_spmm_tc" if bsr.uses_tensor_cores(tdt, bs)
+              else "K1_bsr_spmm_simt")
+        record(k1, compare(out, bsr.bsr_spmm_batched_plain(ip, ix, data, b),
+                           tdt))
+        g = cuda(values(rng, (BIG_BATCH, 2 * bs, 1), npdt))
+        out = batched_call(bsr.bsr_sddmm, 2, bsr.sddmm_batched, ip, ix, g, b,
+                           bs)
+        record(k8_name(tdt, bs), compare(out, bsr.bsr_sddmm_batched_plain(
+            ip, ix, g, b, bs), tdt))
+
+
 def check_second_order():
     """``torch.autograd.gradgradcheck`` (with forward over reverse) on the
     card in f64 and c128, with the plain versions refused, of
@@ -1984,9 +2221,11 @@ def spgemm_inputs():
 
 
 ALL_PLAIN = {"spgemm": SPGEMM_PLAIN,
-             "csr": ("csr_spmm_plain", "csr_spmv_plain"),
-             "bsr": ("bsr_spmm_plain", "bsr_sddmm_plain"),
-             "sddmm": ("csr_sddmm_plain",),
+             "csr": ("csr_spmm_plain", "csr_spmv_plain",
+                     "csr_spmm_batched_plain"),
+             "bsr": ("bsr_spmm_plain", "bsr_sddmm_plain",
+                     "bsr_spmm_batched_plain", "bsr_sddmm_batched_plain"),
+             "sddmm": ("csr_sddmm_plain", "csr_sddmm_batched_plain"),
              "spgemm_grad": ("csr_spgemm_sddmm_plain",
                              "csr_spgemm_sparse_sddmm_plain")}
 
@@ -2027,6 +2266,23 @@ def reset_launches():
         fn.launches = 0
     bsr.bsr_spmm.launches_tc = bsr.bsr_spmm.launches_simt = 0
     bsr.bsr_sddmm.launches_tc = bsr.bsr_sddmm.launches_simt = 0
+    for fn in (csr.csr_spmm, sddmm.csr_sddmm, bsr.bsr_spmm, bsr.bsr_sddmm):
+        fn.launches_batched = 0
+    for fn in (bsr.bsr_spmm, bsr.bsr_sddmm):
+        fn.launches_batched_tc = fn.launches_batched_simt = 0
+
+
+def read_batched():
+    """The batched launches among ``read_launches``' counts, by kernel
+    (K1 and K8 by variant)."""
+    from sparse_dot_tpu_torch.ops import bsr, csr, sddmm
+
+    return {"K1_bsr_spmm_tc": bsr.bsr_spmm.launches_batched_tc,
+            "K1_bsr_spmm_simt": bsr.bsr_spmm.launches_batched_simt,
+            "K2_csr_spmm": csr.csr_spmm.launches_batched,
+            "K7_csr_sddmm": sddmm.csr_sddmm.launches_batched,
+            "K8_bsr_sddmm_tc": bsr.bsr_sddmm.launches_batched_tc,
+            "K8_bsr_sddmm_simt": bsr.bsr_sddmm.launches_batched_simt}
 
 
 def read_launches():
@@ -2448,6 +2704,8 @@ def timings(inputs, solver_inp):
         "K1_bsr_spmm_simt", f"BSR c128 bs=16 {nc}x{nc} 5% blocks @ ({nc},64)",
         lambda: bsr.bsr_spmm(*args), lambda: bsr.bsr_spmm_plain(*args),
         bsr_bound(*args), bsr_library(*args, Abc.shape)))
+    # After every kernel's own rows: the final line reads each one's first.
+    batched_rows(rows, inputs, rng)
     emit(4, reps=REPS, rows=rows,
          timer="cuda events, median (p10, p90), 1 GiB read before each; "
                "library: the one torch call, warmed up, timed the same way",
@@ -2544,7 +2802,8 @@ def k8_simt(ip, ix, g, b, bs):
     _build.launch("sdt_bsr_sddmm_simt", dt, it, ip.data_ptr(),
                   ip.numel() - 1, ix.data_ptr(), ix.numel(), g.data_ptr(),
                   b.data_ptr(), out.data_ptr(), bs, g.shape[1],
-                  *_build.scalar_parts(None), _build.stream_of(g))
+                  *_build.scalar_parts(None), 1, 0, 0, 0,
+                  _build.stream_of(g))
     return out
 
 
@@ -2600,6 +2859,225 @@ def k8_rows(rows, inputs, rng):
                    "torch.bmm of the stored blocks' strips of G and B^H, "
                    "gathered beforehand"),
         nblocks=int(ix.numel())))
+
+
+def members_of(t, core):
+    """The members that read operand ``t`` of ``core`` dimensions a
+    batched call: B with a member dimension, else 1 (shared)."""
+    return t.shape[0] if t.dim() > core else 1
+
+
+def csr_batched_bound(indptr, indices, data, b, size):
+    """``csr_bound`` of a batched K2 call of ``size`` members: the index
+    arrays once, each member's values and named rows of b (once for a
+    shared operand), ``size`` outputs; ``size`` times the multiply-adds."""
+    n = b.shape[-1]
+    rows = int(torch.unique(indices).numel())
+    moved = (nbytes(indptr, indices, data)
+             + members_of(b, 2) * rows * n * b.element_size()
+             + size * (indptr.numel() - 1) * n * b.element_size())
+    flop = size * flops_per_product(b.dtype) * indices.numel() * n
+    return bound(moved, flop, CUDA_CORE_FLOPS[b.dtype])
+
+
+def sddmm_batched_bound(indptr, indices, g, b, size):
+    """``sddmm_bound`` of a batched K7 call of ``size`` members."""
+    n = g.shape[-1]
+    rows = int(torch.unique(indices).numel())
+    moved = (nbytes(indptr, indices, g)
+             + members_of(b, 2) * rows * n * b.element_size()
+             + size * indices.numel() * g.element_size())
+    flop = size * flops_per_product(g.dtype) * indices.numel() * n
+    return bound(moved, flop, CUDA_CORE_FLOPS[g.dtype])
+
+
+def bsr_batched_bound(indptr, indices, data, b, size):
+    """``bsr_bound`` of a batched K1 call of ``size`` members."""
+    bs, n = data.shape[-1], b.shape[-1]
+    nblocks = indices.numel()
+    panels = int(torch.unique(indices).numel())
+    moved = (nbytes(indptr, indices, data)
+             + members_of(b, 2) * panels * bs * n * b.element_size()
+             + size * (indptr.numel() - 1) * bs * n * b.element_size())
+    flop = size * flops_per_product(b.dtype) * nblocks * bs * bs * n
+    peak = TENSOR_CORE_FLOPS.get(b.dtype) or CUDA_CORE_FLOPS[b.dtype]
+    return bound(moved, flop, peak)
+
+
+def k8_batched_bound(indptr, indices, g, b, bs, size):
+    """``k8_bound`` of a batched K8 call of ``size`` members."""
+    nblocks, n = indices.numel(), g.shape[-1]
+    g_rows = int((indptr.long().diff() > 0).sum())
+    panels = int(torch.unique(indices).numel())
+    moved = (nbytes(indptr, indices)
+             + (members_of(g, 2) * g_rows + members_of(b, 2) * panels)
+             * bs * n * g.element_size()
+             + size * nblocks * bs * bs * g.element_size())
+    flop = size * flops_per_product(g.dtype) * nblocks * bs * bs * n
+    peak = TENSOR_CORE_FLOPS.get(g.dtype) or CUDA_CORE_FLOPS[g.dtype]
+    return bound(moved, flop, peak)
+
+
+def batched_coo_library(indptr, indices, data, b, shape):
+    """The batched K2's one torch call: ``torch.bmm`` of the members as
+    one batched sparse COO (B, m, k) (cuSPARSE) and b expanded to (B, k,
+    n) beforehand."""
+    from sparse_dot_tpu_torch.formats import expand_indptr
+
+    def make():
+        size, nnz = data.shape
+        rows = expand_indptr(indptr, nnz).long()
+        member = torch.arange(size, device=data.device).repeat_interleave(nnz)
+        ids = torch.stack([member, rows.repeat(size),
+                           indices.long().repeat(size)])
+        a = torch.sparse_coo_tensor(ids, data.reshape(-1), (size, *shape))
+        a = a.coalesce()
+        bb = (b if b.dim() == 3 else b.expand(size, *b.shape)).contiguous()
+        return ((lambda: torch.bmm(a, bb)),
+                "torch.bmm(A_coo (B, m, k), B (B, k, n)) (cuSPARSE)")
+    return library_call(make)
+
+
+def batched_sddmm_library(indptr, indices, g, b, shape):
+    """The batched K7's one torch call: ``torch.sparse.sampled_addmm`` at a
+    batched CSR (B, m, k) of A's pattern (cuSPARSE batched SDDMM), G
+    (B, m, n) and B^T (B, n, k), beta = 0."""
+    def make():
+        size = g.shape[0]
+        a = torch.sparse_csr_tensor(
+            indptr.expand(size, -1).contiguous(),
+            indices.expand(size, -1).contiguous(),
+            torch.zeros((size, indices.numel()), dtype=g.dtype,
+                        device=g.device), size=(size, *shape))
+        bt = (b if b.dim() == 3 else b.expand(size, *b.shape)).mT
+        return ((lambda: torch.sparse.sampled_addmm(a, g, bt, beta=0.0)),
+                "torch.sparse.sampled_addmm(A_csr (B, m, k), G, B^T, "
+                "beta=0) (cuSPARSE batched SDDMM)")
+    return library_call(make)
+
+
+def batched_rows(rows, inputs, rng):
+    """Phase 4's rows of the batched launches, each beside the same
+    members' single launches (one a member) in the same turns: K2 at
+    config 1 (f64, n = 128) over 4 and 16 value sets with b shared,
+    beside ``torch.bmm`` of a batched sparse COO; K2 at n = 1 on the 1M^2
+    SpMV matrix over 4 value sets (``CsrSpmv``'s vmap over the values),
+    beside 4 K3 launches; K7 at config 1 over 4 and 16 (G, B) pairs (the
+    per-sample gradients' launch), beside batched-CSR
+    ``torch.sparse.sampled_addmm``; K1 and K8 at config 3 (bs 64, f64, n
+    = 256) over 4 block sets (K8: 4 G's, B shared) and at the complex BSR
+    (c128, bs 16, n = 64, the CUDA cores), each beside its existing
+    row's yardstick made once a member (K1: ``torch.sparse.mm`` of a
+    sparse BSR, K8: ``torch.bmm`` of the strips gathered beforehand)."""
+    from sparse_dot_tpu_torch import formats
+    from sparse_dot_tpu_torch.ops import bsr, csr, sddmm
+
+    n1, n3, nc = SIZES["config1"], SIZES["config3"], SIZES["complex"]
+    nv = SIZES["spmv"]
+    A1 = formats.to_device(inputs["a1"])
+    ip, ix, _ = A1.csr_arrays()
+    plan = A1.csr_plan()
+    b1 = cuda(inputs["b1"])
+    for size in (4, 16):
+        data = cuda(values(rng, (size, ix.numel()), np.float64, 0.1))
+        rows.append(timed_row(
+            "K2_csr_spmm",
+            f"batched: config1 CSR f64 {n1}x{n1} 1%, {size} value sets "
+            f"@ ({n1},128) shared",
+            lambda: csr.spmm_batched(ip, ix, data, b1, plan=plan),
+            lambda: csr.csr_spmm_batched_plain(ip, ix, data, b1),
+            csr_batched_bound(ip, ix, data, b1, size),
+            batched_coo_library(ip, ix, data, b1, A1.shape),
+            beside={f"{size}_single_launches": lambda: [
+                csr.csr_spmm(ip, ix, data[i], b1, plan=plan)
+                for i in range(size)]},
+            members=size))
+        g = cuda(values(rng, (size, n1, 128), np.float64))
+        bb = cuda(values(rng, (size, n1, 128), np.float64))
+        rows.append(timed_row(
+            "K7_csr_sddmm",
+            f"batched: config1 CSR f64 {n1}x{n1} 1%, {size} (G, B) pairs "
+            f"of ({n1},128)",
+            lambda: sddmm.sddmm_batched(ip, ix, g, bb),
+            lambda: sddmm.csr_sddmm_batched_plain(ip, ix, g, bb),
+            sddmm_batched_bound(ip, ix, g, bb, size),
+            batched_sddmm_library(ip, ix, g, bb, A1.shape),
+            beside={f"{size}_single_launches": lambda: [
+                sddmm.csr_sddmm(ip, ix, g[i], bb[i]) for i in range(size)]},
+            members=size,
+            schedule=list(sddmm.sddmm_schedule(128, g.dtype,
+                                               size * ix.numel()))))
+        del data, g, bb
+    Av = formats.to_device(inputs["av"])
+    vp, vx, _ = Av.csr_arrays()
+    x = cuda(inputs["xv"])
+    data = cuda(values(rng, (4, vx.numel()), np.float64, 0.3))
+    plan_v, plan_k3 = Av.csr_plan(), Av.csr_plan(spmv=True)
+    rows.append(timed_row(
+        "K2_csr_spmm",
+        f"batched: CSR f64 {nv}x{nv}, 10 per row, 4 value sets @ ({nv},1) "
+        "shared (CsrSpmv's vmap over the values)",
+        lambda: csr.spmm_batched(vp, vx, data, x[:, None], plan=plan_v),
+        lambda: csr.csr_spmm_batched_plain(vp, vx, data, x[:, None]),
+        csr_batched_bound(vp, vx, data, x[:, None], 4),
+        batched_coo_library(vp, vx, data, x[:, None], Av.shape),
+        beside={"4_k3_launches": lambda: [
+            csr.csr_spmv(vp, vx, data[i], x, plan=plan_k3)
+            for i in range(4)]},
+        members=4))
+    del data, Av
+    for key, n, label in (((64, np.float64), 256, "config3"),
+                          (None, 64, "complex")):
+        a = inputs["bsrs"][key] if key else inputs["abc"]
+        A = formats.to_device(a)
+        bp, bx, _ = A.bsr_arrays()
+        bs = a.blocksize[0]
+        npdt = a.dtype.type
+        tdt = torch.from_numpy(np.zeros(0, npdt)).dtype
+        b = cuda(inputs["b3"][np.float64] if key else inputs["bc"])
+        kplan = A.bsr_plan() if key else None
+        blocks_ = cuda(values(rng, (4, *a.data.shape), npdt,
+                              1.0 / np.sqrt(bs * 20)))
+        side = a.shape[0]
+        mats = [torch.sparse_bsr_tensor(bp, bx, blocks_[i], size=a.shape)
+                for i in range(4)]
+        variant = "tc" if bsr.uses_tensor_cores(tdt, bs) else "simt"
+        rows.append(timed_row(
+            f"K1_bsr_spmm_{variant}",
+            f"batched: {label} BSR bs={bs} {np.dtype(npdt).name} "
+            f"{side}x{side} 5% blocks, 4 block sets @ ({side},{n}) shared",
+            lambda: bsr.spmm_batched(bp, bx, blocks_, b, plan=kplan),
+            lambda: bsr.bsr_spmm_batched_plain(bp, bx, blocks_, b),
+            bsr_batched_bound(bp, bx, blocks_, b, 4),
+            yardstick=(lambda: torch.stack([torch.sparse.mm(mat, b)
+                                            for mat in mats]),
+                       "4 x torch.sparse.mm(A_bsr, B), one a member"),
+            beside={"4_single_launches": lambda: [
+                bsr.bsr_spmm(bp, bx, blocks_[i], b, plan=kplan)
+                for i in range(4)]},
+            members=4))
+        g = cuda(values(rng, (4, side, n), npdt))
+        strips = [block_strips(bp, bx, g[i], b, bs) for i in range(4)]
+        panels = strips[0][1].conj_physical().mT
+        rows.append(timed_row(
+            f"K8_bsr_sddmm_{variant}",
+            f"batched: {label} BSR bs={bs} {np.dtype(npdt).name} "
+            f"{side}x{side} 5% blocks, 4 G's ({side},{n}), B shared",
+            lambda: bsr.sddmm_batched(bp, bx, g, b, bs),
+            lambda: bsr.bsr_sddmm_batched_plain(bp, bx, g, b, bs),
+            k8_batched_bound(bp, bx, g, b, bs, 4),
+            yardstick=(lambda: torch.stack([torch.bmm(gs, panels)
+                                            for gs, _ in strips]),
+                       "4 x torch.bmm of the stored blocks' strips of G "
+                       "and B^H, gathered beforehand, one a member"),
+            beside={"4_single_launches": lambda: [
+                bsr.bsr_sddmm(bp, bx, g[i], b, bs) for i in range(4)]},
+            members=4, device_match="bsr_sddmm"))
+        del A, blocks_, mats, g, strips, panels
+    for row in rows:
+        if row["shape"].startswith("batched:"):
+            (single,) = row["beside"].values()
+            row["ms_over_single_launches"] = row["ms"] / single["ms"]
 
 
 def k9_work(ip, ix, y_ip, transposed):
@@ -3694,10 +4172,11 @@ def training_path(inputs):
     (K2 over A^H as well); 10 steps of the SpMV form on the 1M^2 matrix
     with x trained too (K3, K7 at n = 1, K3 over A^H; L = 2 max over rows
     of ||x at the row's columns||^2); one step through ``torch.func.vmap``
-    over 4 right-hand sides of 32 columns (K2 once, K7 once); the
-    per-member path of ``vmap``, one launch a member: ``vmap`` of ``grad``
-    over 3 right-hand sides (K7 3 times) and over 3 sets of values (K2 3
-    times), against the plain versions; one more f64
+    over 4 right-hand sides of 32 columns (K2 once, K7 once); the batched
+    launches, one a ``vmap`` level: ``vmap`` of ``grad`` over 3
+    right-hand sides (K2 once, folded; K7 once, batched) and ``vmap``
+    over 3 sets of values (K2 once, batched), against the plain
+    versions; one more f64
     step under ``torch.profiler`` for the device's busy time.  Checks the
     losses, the grad_fn of every result and, at the first and last step of
     each run, the gradients against the plain versions."""
@@ -3741,10 +4220,9 @@ def training_path(inputs):
         if cv4.grad_fn is None or vmap_k2 != 1:
             raise AssertionError(f"vmap step: K2 launched {vmap_k2} times")
         ((cv4 - ts) ** 2).sum().backward()
-        # The per-member path (``autograd._batched``), one launch a member
-        # one after another: gradients of 3 members' losses through
-        # ``vmap`` of ``grad`` over b (K2 once, folded; K7 3 times), and a
-        # batch of 3 values (K2 3 times).
+        # The batched launches, one a vmap level: gradients of 3 members'
+        # losses through ``vmap`` of ``grad`` over b (K2 once, folded; K7
+        # once, batched), and a batch of 3 values (K2 once, batched).
         before = read_launches()
         v0 = v.detach()
         member_grads = torch.func.vmap(
@@ -3758,14 +4236,14 @@ def training_path(inputs):
         member_launches = {
             name: after[name] - before[name]
             for name in ("K2_csr_spmm", "K7_csr_sddmm")}
-        if member_launches != {"K2_csr_spmm": 4, "K7_csr_sddmm": 3}:
-            raise AssertionError(f"per-member vmap: {member_launches}")
+        if member_launches != {"K2_csr_spmm": 2, "K7_csr_sddmm": 1}:
+            raise AssertionError(f"batched vmap: {member_launches}")
         torch.cuda.synchronize()
         busy = profiled(runs["f64_values"])
     launches = read_launches()
     expected = {name: 0 for name in launches}
-    expected.update(K2_csr_spmm=20 + 40 + 1 + 4 + 1, K3_csr_spmv=20,
-                    K7_csr_sddmm=20 + 20 + 10 + 1 + 3 + 1)
+    expected.update(K2_csr_spmm=20 + 40 + 1 + 2 + 1, K3_csr_spmv=20,
+                    K7_csr_sddmm=20 + 20 + 10 + 1 + 1 + 1)
     if launches != expected:
         raise AssertionError(f"launch counts {launches}, expected {expected}")
 
@@ -3791,7 +4269,7 @@ def training_path(inputs):
     emit(6, seconds=seconds, launches=launches, runs=records,
          lr={"config1": lr1, "spmv": lrv},
          vmap_step={"k2_launches": vmap_k2, "max_abs_err_vs_plain": vmap_err},
-         per_member_vmap={"launches": member_launches,
+         batched_vmap={"launches": member_launches,
                           "max_abs_err_vs_plain": member_err},
          f64_step_device_busy_ms=busy["step_device_busy_ms"],
          f64_step_device_idle_share=busy["step_device_idle_share"],
@@ -4150,6 +4628,217 @@ def hessian_vector_product(inputs):
                                         v[s.order], b),
         (cuda(inputs["a1"].data), b1), {"K2_csr_spmm": 6, "K7_csr_sddmm": 3},
         SEED + 19)
+
+
+# Phase 6's batched runs: members of the per-sample gradients (config 1)
+# and of the ensemble (config 3), the small pattern of jacrev and hessian
+# ((m, k, mean row, n)), and the timed repeats after each first call.
+PER_SAMPLE, ENSEMBLE = 16, 4
+JAC_PATTERN = (300, 200, 5, 4)
+BATCHED_REPS = 5
+
+
+def launches_delta(before):
+    """``read_launches()`` less ``before``, the kernels that moved."""
+    now = read_launches()
+    return {name: now[name] - before[name] for name in now
+            if now[name] != before[name]}
+
+
+def batched_run(name, fn, expected, expected_batched, member_loop=None):
+    """One batched run on the card, the plain versions refused: fn()'s
+    first call must make exactly ``expected`` launches (every other
+    kernel none), ``expected_batched`` of them batched (``read_batched``);
+    then BATCHED_REPS more calls timed host to host (to a synchronize),
+    taken in turns with ``member_loop`` (the same work one member at a
+    time) when given, and the device's busy ms of one more call of each
+    (``device_busy_ms``); the first result against the member loop's
+    (single launches).  Returns (fn()'s first result, the record)."""
+    def timed(f):
+        t0 = time.perf_counter()
+        out = f()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    with plain_versions_refused():
+        before, before_b = read_launches(), read_batched()
+        out, first = timed(fn)
+        got = launches_delta(before)
+        now_b = read_batched()
+        got_b = {k: now_b[k] - before_b[k] for k in now_b
+                 if now_b[k] != before_b[k]}
+        if got != expected or got_b != expected_batched:
+            raise AssertionError(f"{name}: launched {got} ({got_b} "
+                                 f"batched), expected {expected} "
+                                 f"({expected_batched} batched)")
+        loop_diff = None
+        if member_loop is not None:
+            looped = torch.stack(member_loop())
+            torch.cuda.synchronize()
+            loop_diff = float((out - looped).abs().max())
+            del looped
+        walls, loop_walls = [], []
+        for _ in range(BATCHED_REPS):
+            walls.append(timed(fn)[1])
+            if member_loop is not None:
+                loop_walls.append(timed(member_loop)[1])
+        busy = device_busy_ms(fn)
+        loop_busy = (device_busy_ms(member_loop) if member_loop is not None
+                     else None)
+    wall = float(np.median(walls))
+    record = {"launches": got, "launches_batched": got_b,
+              "first_wall_ms": first, "wall_ms": wall,
+              "wall_min_ms": min(walls), "wall_max_ms": max(walls),
+              "device_busy_ms": busy,
+              "device_idle_share": None if busy is None else 1 - busy / wall}
+    if member_loop is not None:
+        loop_wall = float(np.median(loop_walls))
+        record.update(member_loop_wall_ms=loop_wall,
+                      member_loop_device_busy_ms=loop_busy,
+                      wall_over_member_loop=wall / loop_wall,
+                      max_abs_diff_vs_member_loop=loop_diff)
+    return out, record
+
+
+def batched_training(inputs):
+    """Phase 6's batched runs, each a first call with its exact launches
+    (one a ``vmap`` level, the plain versions refused), timed wall and
+    device busy ms, and its result against the plain versions:
+
+    - per-sample gradients at config 1 (f64): ``vmap`` of ``grad`` of
+      each member's ||A b_i - t_i||^2 in A's values (shared) over
+      PER_SAMPLE pairs (b_i, t_i) of (10,000, 128): K2 once (the members
+      folded into its columns), K7 once (batched); beside it, in the same
+      turns, the same gradients one member at a time (``torch.func.grad``
+      a member: PER_SAMPLE K2 and K7 launches); each member's gradient
+      against the plain versions (``csr_sddmm_plain`` of the plain
+      residual);
+    - an ensemble at config 3 (bs 64, f64): ``vmap`` over ENSEMBLE block
+      sets of ``grad`` of ||A_i b - t||^2 in the blocks: K1 once and K8
+      once, both batched, on the tensor cores; the member loop beside
+      it; against ``bsr_sddmm_plain``;
+    - ``jacrev`` of ``coo_spmm_raw`` in the values at a small pattern
+      (JAC_PATTERN, f64): K2 once, K7 once (batched over the m * n
+      cotangents);
+    - ``hessian`` of sum(sin(``coo_spmm_raw``)) in (values, b) there: K2
+      6 times (2 batched), K7 3 times (batched);
+
+    the last two against the same transform on CPU copies of the inputs,
+    where the Functions run the plain versions.  Returns the launches of
+    all four (the ``vmap`` path)."""
+    from sparse_dot_tpu_torch import ops
+    from sparse_dot_tpu_torch.ops import autograd, bsr, csr, sddmm
+
+    rng = np.random.default_rng(SEED + 23)
+    reset_launches()
+    runs, errs = {}, {}
+    # Per-sample gradients at config 1.
+    r1, c1, m1, b1, t1, _ = config1_problem(inputs)
+    s = autograd.structures.get(r1, c1, m1, b1.shape[0])
+    v = cuda(inputs["a1"].data * 0.5)
+    bs = b1 + 0.1 * cuda(values(rng, (PER_SAMPLE, *b1.shape), np.float64))
+    ts = t1 + 0.1 * cuda(values(rng, (PER_SAMPLE, *t1.shape), np.float64))
+
+    def loss(vv, b, t):
+        return ((autograd.coo_spmm_raw(r1, c1, vv, b, m1) - t) ** 2).sum()
+
+    grads, runs["per_sample_grads_config1_f64"] = batched_run(
+        "per-sample gradients",
+        lambda: torch.func.vmap(torch.func.grad(loss),
+                                in_dims=(None, 0, 0))(v, bs, ts),
+        {"K2_csr_spmm": 1, "K7_csr_sddmm": 1}, {"K7_csr_sddmm": 1},
+        lambda: [torch.func.grad(loss)(v, bs[i], ts[i])
+                 for i in range(PER_SAMPLE)])
+    ip, ix, order = s.pattern.indptr, s.pattern.indices, s.order
+    err = 0.0
+    for i in range(PER_SAMPLE):
+        g = 2 * (csr.csr_spmm_plain(ip, ix, v[order], bs[i]) - ts[i])
+        ref = sddmm.csr_sddmm_plain(ip, ix, g, bs[i])
+        err = max(err, compare(grads[i][order], ref, ref.dtype))
+    errs["per_sample_grads_config1_f64"] = err
+    del bs, ts, grads
+    # An ensemble at config 3.
+    a3 = inputs["bsrs"][(64, np.float64)]
+    m3, k3 = a3.shape
+    r3 = cuda(np.repeat(np.arange(m3 // 64), np.diff(a3.indptr))
+              .astype(np.int32))
+    c3 = cuda(a3.indices.astype(np.int32))
+    b3 = cuda(inputs["b3"][np.float64])
+    t3 = cuda(a3 @ inputs["b3"][np.float64])
+    blocks_ = cuda(a3.data)[None] * (
+        1 + 0.1 * cuda(values(rng, (ENSEMBLE, *a3.data.shape), np.float64)))
+
+    def bsr_loss(d):
+        return ((ops.bsr_spmm(d, r3, c3, b3, m3) - t3) ** 2).sum()
+
+    grads, runs["ensemble_grads_config3_f64"] = batched_run(
+        "ensemble gradients", lambda: torch.func.vmap(
+            torch.func.grad(bsr_loss))(blocks_),
+        {"K1_bsr_spmm_tc": 1, "K8_bsr_sddmm_tc": 1},
+        {"K1_bsr_spmm_tc": 1, "K8_bsr_sddmm_tc": 1},
+        lambda: [torch.func.grad(bsr_loss)(blocks_[i])
+                 for i in range(ENSEMBLE)])
+    p = autograd.bsr_structures.get(r3, c3, m3, k3, 64)
+    err = 0.0
+    for i in range(ENSEMBLE):
+        g = 2 * (bsr.bsr_spmm_plain(p.indptr, p.indices,
+                                    blocks_[i][p.order], b3) - t3)
+        ref = bsr.bsr_sddmm_plain(p.indptr, p.indices, g, b3, 64)
+        err = max(err, compare(grads[i][p.order], ref, ref.dtype))
+    errs["ensemble_grads_config3_f64"] = err
+    del blocks_, grads
+    # jacrev and hessian at a small pattern, against CPU copies.
+    m, k, mean_row, n = JAC_PATTERN
+    indptr, indices, data = random_csr(rng, m, k, mean_row, np.float64)
+    rows = np.repeat(np.arange(m), np.diff(indptr)).astype(np.int32)
+    host = [torch.from_numpy(np.ascontiguousarray(a)) for a in
+            (rows, indices, data, values(rng, (k, n), np.float64))]
+    card = [t.cuda() for t in host]
+
+    def jac(r, c, vv, b):
+        return torch.func.jacrev(
+            lambda x: autograd.coo_spmm_raw(r, c, x, b, m))(vv)
+
+    def hess(r, c, vv, b):
+        return torch.func.hessian(
+            lambda x, y: torch.sin(autograd.coo_spmm_raw(r, c, x, y,
+                                                         m)).sum(),
+            argnums=(0, 1))(vv, b)
+
+    for name, fn, expected, batched in (
+            ("jacrev_values_small_f64", jac,
+             {"K2_csr_spmm": 1, "K7_csr_sddmm": 1}, {"K7_csr_sddmm": 1}),
+            ("hessian_values_and_b_small_f64", hess,
+             {"K2_csr_spmm": 6, "K7_csr_sddmm": 3},
+             {"K2_csr_spmm": 2, "K7_csr_sddmm": 3})):
+        out, runs[name] = batched_run(name, lambda: fn(*card), expected,
+                                      batched)
+        ref = fn(*host)
+        leaves = [t.cpu() for t in tensor_leaves(out)]
+        err = 0.0
+        for got, want in zip(leaves, tensor_leaves(ref)):
+            err = max(err, compare(got, want, want.dtype))
+        errs[name] = err
+        runs[name]["members"] = (m * n if name.startswith("jacrev")
+                                 else len(indices) + k * n)
+    for name, record in runs.items():
+        record["max_abs_err_vs_plain"] = errs[name]
+    launches = read_launches()
+    emit("6-vmap", launches=launches, batched_launches=read_batched(),
+         runs=runs, members={"per_sample": PER_SAMPLE,
+                             "ensemble": ENSEMBLE},
+         jac_pattern=dict(zip(("m", "k", "mean_row", "n"), JAC_PATTERN)),
+         timer=f"host clock, host to host to a synchronize, first call and "
+               f"median of {BATCHED_REPS} more, the member loop in the "
+               "same turns; device busy: torch.profiler, one more call")
+    return launches
+
+
+def tensor_leaves(x):
+    """The tensors of a nested tuple of tensors, in order."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    return [t for item in x for t in tensor_leaves(item)]
 
 
 def grad_training(inputs, spgemm_inp, which=("K8", "K9", "K11")):
@@ -4525,7 +5214,7 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
         "--only", choices=("spgemm", "k6", "k7", "k8", "k9", "k11",
-                           "sharded"),
+                           "sharded", "batched"),
         help="a short run that ends with no result line: spgemm runs "
              "phases 1, 2 (K4-K6 and K2/K3's complex inf case), 3 and 4 of "
              "sparse x sparse; k6 runs phase 1 and K6's phase-4 rows "
@@ -4537,7 +5226,8 @@ def main():
              "K11 (its phase-2 checks with csr_spgemm's gradcheck and "
              "check_second_order, k11_rows, spgemm_sparse_training, "
              "spgemm_sparse_hvp and hessian_vector_product); sharded runs "
-             "phase 1 and phase 7 (sharded_path)")
+             "phase 1 and phase 7 (sharded_path); batched runs phase 1 and "
+             "the batched launches' phase-2 checks (check_batched)")
     only = parser.parse_args().only
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -4611,6 +5301,26 @@ def main():
     if only == "sharded":
         sharded_path(sharded_inputs(path_inputs(), solver_inputs()))
         return
+    if only == "batched":
+        results = {name: {"cases": 0, "max_abs_err": 0.0}
+                   for name in KERNELS}
+
+        def record(name, err):
+            results[name]["cases"] += 1
+            results[name]["max_abs_err"] = max(
+                results[name]["max_abs_err"], err)
+
+        paths = check_batched(record)
+        emit(2, kernels={k: v for k, v in results.items() if v["cases"]},
+             batched_16_byte_paths=paths)
+        inputs, rows = path_inputs(), []
+        batched_rows(rows, inputs, np.random.default_rng(SEED + 4))
+        emit("4-batched", rows=rows,
+             timer="cuda events, median (p10, p90), 1 GiB read before "
+                   "each; library, yardstick and beside timed in the same "
+                   "turns")
+        batched_training(inputs)
+        return
     check_kernels()
     by_path = {}
     by_path["dot_product"], inputs = main_path()
@@ -4620,9 +5330,12 @@ def main():
     by_path["solvers"], records = solver_path(solver_inp)
     solver_timings(records, rows)
     training = training_path(inputs)
+    batched = {"training": read_batched()}
     grad = grad_training(inputs, spgemm_inp)
     by_path["training"] = {name: training[name] + grad[name]
                            for name in KERNELS}
+    by_path["vmap"] = batched_training(inputs)
+    batched["vmap"] = read_batched()
     by_path["sharded"] = sharded_path(sharded_inputs(inputs, solver_inp))
     launches = {name: sum(path[name] for path in by_path.values())
                 for name in KERNELS}
@@ -4636,6 +5349,8 @@ def main():
             "name": name, "route": "cuda", **meta,
             "launches": launches[name],
             "launches_by_path": {path: n[name] for path, n in by_path.items()},
+            "launches_batched_by_path": {
+                path: n.get(name, 0) for path, n in batched.items()},
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": mine[0]["ms"], "plain_ms": mine[0]["plain_ms"],
             "bound_ms": mine[0]["bound_ms"], "bound_by": mine[0]["bound_by"],

@@ -42,6 +42,13 @@
 // - Each sum is taken in one fixed order in one set of registers, each
 //   output written by one thread, no atomics: a run gives the same bits
 //   twice.
+//
+// A batch of members that share A's pattern (the backward of a vmap over
+// the blocks or over b, jacrev's cotangents, a batched tangent) is one
+// launch: the member is blockIdx.z (gridDim.y already holds up to 255^2
+// tiles), and G, B and the output each have a member stride, 0 for the
+// operand that all members share.  A single product is the instance with
+// BATCH false, whose code has no member offsets.
 #include <type_traits>
 
 #include "mma.cuh"
@@ -53,6 +60,11 @@ constexpr int kMaxTiles = 255;  // tiles a side: gridDim.y holds 255^2
 // Depth of the cp.async ring: two chunks measured faster than three at
 // config 3 in f64 and f32 (more blocks an SM).
 constexpr int kStages = 2;
+
+// Member strides, in elements, of a batched launch (0: shared).
+struct Strides {
+  int64_t g, b, out;
+};
 
 // Tile shape for element type T and BM x BM outputs.  The inner chunk is
 // 128 bytes of n (BK elements); a staged row's pitch of BK + 4 puts a
@@ -94,13 +106,21 @@ __device__ __forceinline__ int64_t block_row(const I* __restrict__ indptr,
   return lo;
 }
 
-template <typename T, typename I, int BM>
+// With BATCH, blockIdx.z is the member.
+template <typename T, typename I, int BM, bool BATCH>
 __global__ void __launch_bounds__(Tile<T, BM>::kThreads,
                                   Tile<T, BM>::kMinBlocks)
 bsr_sddmm_tc_kernel(const I* __restrict__ indptr, int64_t nbrows,
                     const I* __restrict__ indices, const T* __restrict__ g,
                     const T* __restrict__ b, T* __restrict__ out, int bs,
-                    int tiles, int64_t n, T alpha, bool scale, bool vec) {
+                    int tiles, int64_t n, T alpha, bool scale, bool vec,
+                    Strides st) {
+  if constexpr (BATCH) {
+    const int64_t z = blockIdx.z;
+    g += z * st.g;
+    b += z * st.b;
+    out += z * st.out;
+  }
   using L = Tile<T, BM>;
   constexpr int BK = L::BK;
   constexpr int V = L::kVec;
@@ -239,11 +259,13 @@ template <typename T, typename I, int BM>
 cudaError_t launch_tiles(const void* indptr, int64_t nbrows,
                          const void* indices, int64_t nblocks, const void* g,
                          const void* b, void* out, int bs, int64_t n,
-                         T alpha, bool scale, bool vec, cudaStream_t stream) {
+                         T alpha, bool scale, bool vec, int64_t batch,
+                         Strides st, cudaStream_t stream) {
   using L = Tile<T, BM>;
   const int tiles = (bs + BM - 1) / BM;
   if (tiles > kMaxTiles) return cudaErrorInvalidValue;
-  auto kernel = bsr_sddmm_tc_kernel<T, I, BM>;
+  auto kernel = batch == 1 ? bsr_sddmm_tc_kernel<T, I, BM, false>
+                           : bsr_sddmm_tc_kernel<T, I, BM, true>;
   if (L::kSmem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -251,11 +273,12 @@ cudaError_t launch_tiles(const void* indptr, int64_t nbrows,
     if (err != cudaSuccess) return err;
   }
   const dim3 grid(static_cast<unsigned>(nblocks),
-                  static_cast<unsigned>(tiles * tiles));
+                  static_cast<unsigned>(tiles * tiles),
+                  static_cast<unsigned>(batch));
   kernel<<<grid, L::kThreads, L::kSmem, stream>>>(
       static_cast<const I*>(indptr), nbrows, static_cast<const I*>(indices),
       static_cast<const T*>(g), static_cast<const T*>(b),
-      static_cast<T*>(out), bs, tiles, n, alpha, scale, vec);
+      static_cast<T*>(out), bs, tiles, n, alpha, scale, vec, st);
   return cudaGetLastError();
 }
 
@@ -265,20 +288,21 @@ template <typename T, typename I>
 cudaError_t launch_tile(const void* indptr, int64_t nbrows,
                         const void* indices, int64_t nblocks, const void* g,
                         const void* b, void* out, int bs, int64_t n,
-                        T alpha, bool scale, bool vec, cudaStream_t stream) {
+                        T alpha, bool scale, bool vec, int64_t batch,
+                        Strides st, cudaStream_t stream) {
   if (bs <= 16) {
     return launch_tiles<T, I, 16>(indptr, nbrows, indices, nblocks,
                                            g, b, out, bs, n, alpha, scale,
-                                           vec, stream);
+                                           vec, batch, st, stream);
   }
   if (bs <= 32) {
     return launch_tiles<T, I, 32>(indptr, nbrows, indices, nblocks,
                                            g, b, out, bs, n, alpha, scale,
-                                           vec, stream);
+                                           vec, batch, st, stream);
   }
   return launch_tiles<T, I, 64>(indptr, nbrows, indices, nblocks,
                                          g, b, out, bs, n, alpha, scale, vec,
-                                         stream);
+                                         batch, st, stream);
 }
 
 bool aligned16(const void* p) {
@@ -289,35 +313,42 @@ template <typename T, typename I>
 cudaError_t launch(const void* indptr, int64_t nbrows, const void* indices,
                    int64_t nblocks, const void* g, const void* b, void* out,
                    int64_t bs, int64_t n, double alpha_re, double alpha_im,
+                   int64_t batch, int64_t s_g, int64_t s_b, int64_t s_out,
                    cudaStream_t stream) {
   if constexpr (!std::is_floating_point<T>::value) {
     return cudaErrorInvalidValue;  // complex values take the SIMT variant
   } else {
     if (bs < 8 || bs % 8 || bs > (1 << 20) || nblocks > 0x7fffffff ||
-        n < 1) {
+        n < 1 || batch < 1 || batch > kMaxMembers || s_g < 0 || s_b < 0 ||
+        s_out < 0) {
       return cudaErrorInvalidValue;
     }
     if (nblocks == 0) return cudaSuccess;
     const T alpha = static_cast<T>(alpha_re);  // real values
     const bool scale = !is_one(alpha_re, alpha_im);
+    // 16-byte copies need every member's rows on 16 bytes too.
     const bool vec = aligned16(g) && aligned16(b) &&
-                     n % (16 / static_cast<int64_t>(sizeof(T))) == 0;
+                     n % (16 / static_cast<int64_t>(sizeof(T))) == 0 &&
+                     ((s_g | s_b) * static_cast<int64_t>(sizeof(T))) % 16 == 0;
     return launch_tile<T, I>(indptr, nbrows, indices, nblocks, g, b, out,
                              static_cast<int>(bs), n, alpha, scale, vec,
-                             stream);
+                             batch, Strides{s_g, s_b, s_out}, stream);
   }
 }
 
 }  // namespace
 }  // namespace sdt
 
+// batch members (at most kMaxMembers, grid.z's limit), each operand at
+// its member stride in elements (0: shared); batch 1 is one product.
 extern "C" int sdt_bsr_sddmm_tc(int dtype, int itype, const void* indptr,
                                 int64_t nbrows, const void* indices,
                                 int64_t nblocks, const void* g, const void* b,
                                 void* out, int64_t bs, int64_t n,
                                 double alpha_re, double alpha_im,
-                                void* stream) {
+                                int64_t batch, int64_t s_g, int64_t s_b,
+                                int64_t s_out, void* stream) {
   SDT_DISPATCH(dtype, itype, sdt::launch, indptr, nbrows, indices, nblocks,
-               g, b, out, bs, n, alpha_re, alpha_im,
+               g, b, out, bs, n, alpha_re, alpha_im, batch, s_g, s_b, s_out,
                static_cast<cudaStream_t>(stream))
 }

@@ -33,6 +33,13 @@
 // - plain IEEE FMA in the value type (no TF32), each sum in ascending
 //   column order in one register: every output is written by one thread,
 //   with no atomics, and a run gives the same bits twice.
+//
+// A batch of members that share A's pattern (the backward of a vmap over
+// the blocks or over b, jacrev's cotangents, a batched tangent) is one
+// launch: the member is blockIdx.z (gridDim.y already holds up to 255^2
+// tiles), and G, B and the output each have a member stride, 0 for the
+// operand that all members share.  A single product is the instance with
+// BATCH false, whose code has no member offsets.
 #include "common.cuh"
 
 namespace sdt {
@@ -41,6 +48,11 @@ namespace {
 constexpr int kTK = 16;         // columns of n staged at once
 constexpr int kPad = kTK + 1;   // a staged row's stride, in elements
 constexpr int kMaxTiles = 255;  // tiles a side: gridDim.y holds 255^2
+
+// Member strides, in elements, of a batched launch (0: shared).
+struct Strides {
+  int64_t g, b, out;
+};
 
 __device__ __forceinline__ float conj_of(float v) { return v; }
 __device__ __forceinline__ double conj_of(double v) { return v; }
@@ -67,12 +79,19 @@ __device__ __forceinline__ int64_t block_row(const I* __restrict__ indptr,
   return lo;
 }
 
-template <typename T, typename I, int TX, int R>
+// With BATCH, blockIdx.z is the member.
+template <typename T, typename I, int TX, int R, bool BATCH>
 __global__ void __launch_bounds__(TX * TX)
 bsr_sddmm_kernel(const I* __restrict__ indptr, int64_t nbrows,
                  const I* __restrict__ indices, const T* __restrict__ g,
                  const T* __restrict__ b, T* __restrict__ out, int bs,
-                 int tiles, int64_t n, T alpha, bool scale) {
+                 int tiles, int64_t n, T alpha, bool scale, Strides st) {
+  if constexpr (BATCH) {
+    const int64_t z = blockIdx.z;
+    g += z * st.g;
+    b += z * st.b;
+    out += z * st.out;
+  }
   using A = Arith<T>;
   constexpr int kThreads = TX * TX;
   constexpr int TS = TX * R;  // the tile's side
@@ -145,17 +164,21 @@ template <typename T, typename I, int TX, int R>
 cudaError_t launch_tiles(const void* indptr, int64_t nbrows,
                          const void* indices, int64_t nblocks, const void* g,
                          const void* b, void* out, int bs, int64_t n,
-                         T alpha, bool scale, cudaStream_t stream) {
+                         T alpha, bool scale, int64_t batch, Strides st,
+                         cudaStream_t stream) {
   constexpr int TS = TX * R;
   const int tiles = (bs + TS - 1) / TS;
   if (tiles > kMaxTiles) return cudaErrorInvalidValue;
   const dim3 grid(static_cast<unsigned>(nblocks),
-                  static_cast<unsigned>(tiles * tiles));
+                  static_cast<unsigned>(tiles * tiles),
+                  static_cast<unsigned>(batch));
   const size_t smem = sizeof(T) * 2 * TS * kPad;
-  bsr_sddmm_kernel<T, I, TX, R><<<grid, TX * TX, smem, stream>>>(
+  auto kernel = batch == 1 ? bsr_sddmm_kernel<T, I, TX, R, false>
+                           : bsr_sddmm_kernel<T, I, TX, R, true>;
+  kernel<<<grid, TX * TX, smem, stream>>>(
       static_cast<const I*>(indptr), nbrows, static_cast<const I*>(indices),
       static_cast<const T*>(g), static_cast<const T*>(b),
-      static_cast<T*>(out), bs, tiles, n, alpha, scale);
+      static_cast<T*>(out), bs, tiles, n, alpha, scale, st);
   return cudaGetLastError();
 }
 
@@ -163,43 +186,50 @@ template <typename T, typename I>
 cudaError_t launch(const void* indptr, int64_t nbrows, const void* indices,
                    int64_t nblocks, const void* g, const void* b, void* out,
                    int64_t bs, int64_t n, double alpha_re, double alpha_im,
+                   int64_t batch, int64_t s_g, int64_t s_b, int64_t s_out,
                    cudaStream_t stream) {
-  if (bs < 1 || bs > (1 << 20) || nblocks > 0x7fffffff || n < 1) {
+  if (bs < 1 || bs > (1 << 20) || nblocks > 0x7fffffff || n < 1 ||
+      batch < 1 || batch > kMaxMembers || s_g < 0 || s_b < 0 || s_out < 0) {
     return cudaErrorInvalidValue;
   }
   if (nblocks == 0) return cudaSuccess;
   const T alpha = Arith<T>::make(alpha_re, alpha_im);
   const bool scale = !is_one(alpha_re, alpha_im);
+  const Strides st{s_g, s_b, s_out};
   const int ibs = static_cast<int>(bs);
   // The smallest tile that covers the block, 64 rows at most (larger
   // blocks take several tiles).
   if (ibs <= 8) {
     return launch_tiles<T, I, 8, 1>(indptr, nbrows, indices, nblocks, g, b,
-                                    out, ibs, n, alpha, scale, stream);
+                                    out, ibs, n, alpha, scale, batch, st, stream);
   }
   if (ibs <= 16) {
     return launch_tiles<T, I, 16, 1>(indptr, nbrows, indices, nblocks, g, b,
-                                     out, ibs, n, alpha, scale, stream);
+                                     out, ibs, n, alpha, scale, batch, st, stream);
   }
   if (ibs <= 32) {
     return launch_tiles<T, I, 16, 2>(indptr, nbrows, indices, nblocks, g, b,
-                                     out, ibs, n, alpha, scale, stream);
+                                     out, ibs, n, alpha, scale, batch, st, stream);
   }
   return launch_tiles<T, I, 16, 4>(indptr, nbrows, indices, nblocks, g, b,
-                                   out, ibs, n, alpha, scale, stream);
+                                   out, ibs, n, alpha, scale, batch, st, stream);
 }
 
 }  // namespace
 }  // namespace sdt
 
+// batch members (at most kMaxMembers, grid.z's limit), each operand at
+// its member stride in elements (0: shared); batch 1 is one product.
 extern "C" int sdt_bsr_sddmm_simt(int dtype, int itype,
                                   const void* indptr, int64_t nbrows,
                                   const void* indices,
                                   int64_t nblocks, const void* g,
                                   const void* b, void* out, int64_t bs,
                                   int64_t n, double alpha_re,
-                                  double alpha_im, void* stream) {
+                                  double alpha_im, int64_t batch,
+                                  int64_t s_g, int64_t s_b, int64_t s_out,
+                                  void* stream) {
   SDT_DISPATCH(dtype, itype, sdt::launch, indptr, nbrows, indices, nblocks,
-               g, b, out, bs, n, alpha_re, alpha_im,
+               g, b, out, bs, n, alpha_re, alpha_im, batch, s_g, s_b, s_out,
                static_cast<cudaStream_t>(stream))
 }

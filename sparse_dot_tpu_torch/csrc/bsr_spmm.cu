@@ -56,6 +56,13 @@
 //   epilogue.  The chunks of a longer row write partial tiles to a
 //   workspace, and bsr_reduce_kernel sums them in chunk order and applies
 //   the epilogue.  No atomics: results are the same from run to run.
+// - A batch of members that share A's pattern (torch.func.vmap over the
+//   blocks, jacfwd, a Hessian's batched tangents) is one launch: the
+//   member is blockIdx.z of both kernels, the blocks, B, C0 and C each
+//   have a member stride (0 for an operand all members share), the chunk
+//   plan is shared, and each member has its own workspace slots
+//   (work + z * slots * bs * n).  A single product is the instance with
+//   BATCH false, whose code has no member offsets.
 #include <type_traits>
 
 #include "mma.cuh"
@@ -66,6 +73,21 @@ namespace {
 constexpr int kThreads = 256;  // 8 warps
 constexpr int kBN = 64;        // columns of B per thread block
 constexpr int kStages = 3;     // depth of the cp.async ring
+
+// Member strides, in elements, of a batched launch (0: shared), and the
+// elements of one member's workspace.
+struct Strides {
+  int64_t data, b, c0, c, work;
+};
+
+// Moves C0, C and the workspace to member blockIdx.z of a batch (BATCH).
+#define SDT_K1_TO_MEMBER                        \
+  if constexpr (BATCH) {                        \
+    const int64_t z = blockIdx.z;               \
+    if (c0 != nullptr) c0 += z * st.c0;         \
+    c += z * st.c;                              \
+    if (work != nullptr) work += z * st.work;   \
+  }
 
 // Tile shape for element type T and thread-block height BM (16, 32, 64 or
 // 128 rows).  The inner chunk is 128 bytes of a row of A (BK elements);
@@ -93,15 +115,21 @@ struct Tile {
 // stored block, workspace slot or -1); rows with block row -1 are
 // padding.  gridDim.x = n_items * row_tiles, gridDim.y = column tiles.
 // At most 128 registers a thread, so two thread blocks share an SM.
-template <typename T, typename I, int BM>
+// With BATCH, blockIdx.z is the member.
+template <typename T, typename I, int BM, bool BATCH>
 __global__ void __launch_bounds__(kThreads, 2)
 bsr_spmm_tc_kernel(const int64_t* __restrict__ items,
                    const I* __restrict__ indices, const T* __restrict__ data,
                    const T* __restrict__ b, const T* __restrict__ c0,
                    T* __restrict__ c, T* __restrict__ work, int bs,
                    int row_tiles, int64_t n, T alpha, T beta, bool scale,
-                   bool a_vec, bool b_vec) {
+                   bool a_vec, bool b_vec, Strides st) {
   using L = Tile<T, BM>;
+  SDT_K1_TO_MEMBER
+  if constexpr (BATCH) {
+    data += blockIdx.z * st.data;
+    b += blockIdx.z * st.b;
+  }
   constexpr int BK = L::BK;
   constexpr int V = L::kVec;
   using Op = Operand<T>;
@@ -261,12 +289,14 @@ bsr_spmm_tc_kernel(const int64_t* __restrict__ items,
 // splits: (n_splits, 3) int64 rows of (block row, first workspace slot,
 // number of chunks); rows with block row -1 are padding.  Sums the
 // partial tiles of each split block row in chunk order and writes C.
-template <typename T>
+// With BATCH, blockIdx.z is the member.
+template <typename T, bool BATCH>
 __global__ void __launch_bounds__(kThreads)
 bsr_reduce_kernel(const int64_t* __restrict__ splits,
                   const T* __restrict__ work, const T* __restrict__ c0,
                   T* __restrict__ c, int64_t tile, T alpha, T beta,
-                  bool scale) {
+                  bool scale, Strides st) {
+  SDT_K1_TO_MEMBER
   const int64_t brow = splits[blockIdx.x * 3];
   if (brow < 0) return;
   const T* part = work + splits[blockIdx.x * 3 + 1] * tile;
@@ -280,27 +310,50 @@ bsr_reduce_kernel(const int64_t* __restrict__ splits,
   }
 }
 
-template <typename T, typename I, int BM>
+#undef SDT_K1_TO_MEMBER
+
+template <typename T, typename I, int BM, bool BATCH>
 cudaError_t launch_tiles(const void* items, int64_t n_items,
                          const void* indices, const void* data,
                          const void* b, const void* c0, void* c, void* work,
                          int bs, int64_t n, T alpha, T beta, bool scale,
-                         bool a_vec, bool b_vec, cudaStream_t stream) {
+                         bool a_vec, bool b_vec, int64_t batch, Strides st,
+                         cudaStream_t stream) {
   using L = Tile<T, BM>;
-  auto kernel = bsr_spmm_tc_kernel<T, I, BM>;
+  auto kernel = bsr_spmm_tc_kernel<T, I, BM, BATCH>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(L::kSmem));
   if (err != cudaSuccess) return err;
   const int row_tiles = (bs + BM - 1) / BM;
   const dim3 grid(static_cast<unsigned>(n_items * row_tiles),
-                  static_cast<unsigned>((n + kBN - 1) / kBN));
+                  static_cast<unsigned>((n + kBN - 1) / kBN),
+                  static_cast<unsigned>(batch));
   kernel<<<grid, kThreads, L::kSmem, stream>>>(
       static_cast<const int64_t*>(items), static_cast<const I*>(indices),
       static_cast<const T*>(data), static_cast<const T*>(b),
       static_cast<const T*>(c0), static_cast<T*>(c), static_cast<T*>(work),
-      bs, row_tiles, n, alpha, beta, scale, a_vec, b_vec);
+      bs, row_tiles, n, alpha, beta, scale, a_vec, b_vec, st);
   return cudaGetLastError();
+}
+
+// The tile height that covers bs (128 rows at most), for one member
+// (BATCH false) or a batch.
+template <typename T, typename I, bool BATCH>
+cudaError_t launch_height(const void* items, int64_t n_items,
+                          const void* indices, const void* data,
+                          const void* b, const void* c0, void* c, void* work,
+                          int bs, int64_t n, T alpha, T beta, bool scale,
+                          bool a_vec, bool b_vec, int64_t batch, Strides st,
+                          cudaStream_t stream) {
+#define SDT_K1_TILE_ARGS                                                    \
+  items, n_items, indices, data, b, c0, c, work, bs, n, alpha, beta, scale, \
+      a_vec, b_vec, batch, st, stream
+  if (bs <= 16) return launch_tiles<T, I, 16, BATCH>(SDT_K1_TILE_ARGS);
+  if (bs <= 32) return launch_tiles<T, I, 32, BATCH>(SDT_K1_TILE_ARGS);
+  if (bs <= 64) return launch_tiles<T, I, 64, BATCH>(SDT_K1_TILE_ARGS);
+  return launch_tiles<T, I, 128, BATCH>(SDT_K1_TILE_ARGS);
+#undef SDT_K1_TILE_ARGS
 }
 
 bool aligned16(const void* p) {
@@ -311,40 +364,48 @@ template <typename T, typename I>
 cudaError_t launch(const void* items, int64_t n_items, const void* splits,
                    int64_t n_splits, const void* indices, const void* data,
                    const void* b, const void* c0, void* c, void* work,
-                   int64_t bs, int64_t n, double alpha_re, double alpha_im,
-                   double beta_re, double beta_im, cudaStream_t stream) {
+                   int64_t slots, int64_t bs, int64_t n, double alpha_re,
+                   double alpha_im, double beta_re, double beta_im,
+                   int64_t batch, int64_t s_data, int64_t s_b, int64_t s_c0,
+                   int64_t s_c, cudaStream_t stream) {
   if constexpr (!std::is_floating_point<T>::value) {
     return cudaErrorInvalidValue;  // complex values take the SIMT variant
   } else {
     if (bs < 8 || bs % 8 || bs > (1 << 20) || n_items < 0 || n_splits < 0 ||
-        (n_splits > 0 && work == nullptr))
+        (n_splits > 0 && work == nullptr) || batch < 1 ||
+        batch > kMaxMembers || slots < 0 || s_data < 0 || s_b < 0 ||
+        s_c0 < 0 || s_c < 0)
       return cudaErrorInvalidValue;
     if (n_items == 0 || n == 0) return cudaSuccess;
     const T alpha = static_cast<T>(alpha_re);  // real values: no imaginary
     const T beta = static_cast<T>(beta_re);    // parts to take
     const bool scale = !is_one(alpha_re, alpha_im);
     const int ibs = static_cast<int>(bs);
-    const bool a_vec = aligned16(data);
-    const bool b_vec = aligned16(b) && n % (16 / sizeof(T)) == 0;
-    cudaError_t err;
-    if (ibs <= 16) {
-      err = launch_tiles<T, I, 16>(items, n_items, indices, data, b, c0, c, work, ibs, n, alpha, beta, scale, a_vec, b_vec, stream);
-    } else if (ibs <= 32) {
-      err = launch_tiles<T, I, 32>(items, n_items, indices, data, b, c0, c, work, ibs, n, alpha, beta, scale, a_vec, b_vec, stream);
-    } else if (ibs <= 64) {
-      err = launch_tiles<T, I, 64>(items, n_items, indices, data, b, c0, c, work, ibs, n, alpha, beta, scale, a_vec, b_vec, stream);
-    } else {
-      err = launch_tiles<T, I, 128>(items, n_items, indices, data, b, c0, c, work, ibs, n, alpha, beta, scale, a_vec, b_vec, stream);
-    }
+    // 16-byte copies need every member's blocks (rows of B) on 16 bytes.
+    const int64_t size = static_cast<int64_t>(sizeof(T));
+    const bool a_vec = aligned16(data) && (s_data * size) % 16 == 0;
+    const bool b_vec = aligned16(b) && n % (16 / sizeof(T)) == 0 &&
+                       (s_b * size) % 16 == 0;
+    const Strides st{s_data, s_b, s_c0, s_c, slots * bs * n};
+#define SDT_K1_HEIGHT_ARGS                                                  \
+  items, n_items, indices, data, b, c0, c, work, ibs, n, alpha, beta, scale, \
+      a_vec, b_vec, batch, st, stream
+    cudaError_t err = batch == 1
+                          ? launch_height<T, I, false>(SDT_K1_HEIGHT_ARGS)
+                          : launch_height<T, I, true>(SDT_K1_HEIGHT_ARGS);
+#undef SDT_K1_HEIGHT_ARGS
     if (err != cudaSuccess || n_splits == 0) return err;
     const int64_t tile = bs * n;
     const int64_t per_split = (tile + kThreads - 1) / kThreads;
     const dim3 grid(static_cast<unsigned>(n_splits),
-                    static_cast<unsigned>(per_split < 1024 ? per_split : 1024));
-    bsr_reduce_kernel<T><<<grid, kThreads, 0, stream>>>(
+                    static_cast<unsigned>(per_split < 1024 ? per_split : 1024),
+                    static_cast<unsigned>(batch));
+    auto reduce =
+        batch == 1 ? bsr_reduce_kernel<T, false> : bsr_reduce_kernel<T, true>;
+    reduce<<<grid, kThreads, 0, stream>>>(
         static_cast<const int64_t*>(splits), static_cast<const T*>(work),
         static_cast<const T*>(c0), static_cast<T*>(c), tile, alpha, beta,
-        scale);
+        scale, st);
     return cudaGetLastError();
   }
 }
@@ -352,17 +413,23 @@ cudaError_t launch(const void* items, int64_t n_items, const void* splits,
 }  // namespace
 }  // namespace sdt
 
+// batch members (at most kMaxMembers, grid.z's limit), each operand at
+// its member stride in elements (0: shared), each with its own `slots`
+// workspace slots; batch 1 is one product.
 extern "C" int sdt_bsr_spmm_tc(int dtype, int itype, const void* items,
                                int64_t n_items, const void* splits,
                                int64_t n_splits, const void* indices,
                                const void* data, const void* b,
                                const void* c0, void* c, void* work,
-                               int64_t bs, int64_t n, double alpha_re,
-                               double alpha_im, double beta_re,
-                               double beta_im, void* stream) {
+                               int64_t slots, int64_t bs, int64_t n,
+                               double alpha_re, double alpha_im,
+                               double beta_re, double beta_im, int64_t batch,
+                               int64_t s_data, int64_t s_b, int64_t s_c0,
+                               int64_t s_c, void* stream) {
   SDT_DISPATCH(dtype, itype, sdt::launch, items, n_items, splits, n_splits,
-               indices, data, b, c0, c, work, bs, n, alpha_re, alpha_im,
-               beta_re, beta_im, static_cast<cudaStream_t>(stream))
+               indices, data, b, c0, c, work, slots, bs, n, alpha_re,
+               alpha_im, beta_re, beta_im, batch, s_data, s_b, s_c0, s_c,
+               static_cast<cudaStream_t>(stream))
 }
 
 extern "C" const char* sdt_error_string(int err) {

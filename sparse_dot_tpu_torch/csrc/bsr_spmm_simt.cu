@@ -24,6 +24,11 @@
 // loads from shared memory for MAXR rows.  Plain FMA in the element type,
 // no tensor cores.  Any square bs and any n are taken; ragged rows, inner
 // chunks and columns are masked, and B is not padded to a panel width.
+//
+// A batch of members that share A's pattern is one launch: the member is
+// blockIdx.z, and the blocks, B, C0 and C each have a member stride (0
+// for an operand all members share).  A single product is the instance
+// with BATCH false, whose code has no member offsets.
 #include "common.cuh"
 
 namespace sdt {
@@ -35,13 +40,27 @@ constexpr int kTY = kThreads / kTX;  // thread rows
 constexpr int kTN = 2 * kTX;        // columns of B per tile
 constexpr int kTK = 16;             // inner-dimension chunk staged at once
 
-template <typename T, typename I, int MAXR>
+// Member strides, in elements, of a batched launch (0: shared).
+struct Strides {
+  int64_t data, b, c0, c;
+};
+
+// With BATCH, blockIdx.z is the member.
+template <typename T, typename I, int MAXR, bool BATCH>
 __global__ void __launch_bounds__(kThreads)
 bsr_spmm_kernel(const I* __restrict__ indptr, const I* __restrict__ indices,
                 const T* __restrict__ data, const T* __restrict__ b,
                 const T* __restrict__ c0, T* __restrict__ c, int bs,
-                int row_tiles, int64_t n, T alpha, T beta, bool scale) {
+                int row_tiles, int64_t n, T alpha, T beta, bool scale,
+                Strides st) {
   using A = Arith<T>;
+  if constexpr (BATCH) {
+    const int64_t z = blockIdx.z;
+    data += z * st.data;
+    b += z * st.b;
+    if (c0 != nullptr) c0 += z * st.c0;
+    c += z * st.c;
+  }
   constexpr int TM = kTY * MAXR;  // rows of the block row per thread block
   // Raw bytes: complex element types may not be declared __shared__.
   extern __shared__ __align__(16) unsigned char smem[];
@@ -114,40 +133,48 @@ template <typename T, typename I, int MAXR>
 void launch_rows(const void* indptr, const void* indices, const void* data,
                  const void* b, const void* c0, void* c, int64_t nbrows,
                  int bs, int64_t n, T alpha, T beta, bool scale,
-                 cudaStream_t stream) {
+                 int64_t batch, Strides st, cudaStream_t stream) {
   constexpr int TM = kTY * MAXR;
   const int row_tiles = (bs + TM - 1) / TM;
   const dim3 grid(static_cast<unsigned>(nbrows * row_tiles),
-                  static_cast<unsigned>((n + kTN - 1) / kTN));
+                  static_cast<unsigned>((n + kTN - 1) / kTN),
+                  static_cast<unsigned>(batch));
   const size_t smem = sizeof(T) * (TM * kTK + kTK * kTN);
-  bsr_spmm_kernel<T, I, MAXR><<<grid, kThreads, smem, stream>>>(
+  auto kernel = batch == 1 ? bsr_spmm_kernel<T, I, MAXR, false>
+                           : bsr_spmm_kernel<T, I, MAXR, true>;
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const I*>(indptr), static_cast<const I*>(indices),
       static_cast<const T*>(data), static_cast<const T*>(b),
       static_cast<const T*>(c0), static_cast<T*>(c), bs, row_tiles, n, alpha,
-      beta, scale);
+      beta, scale, st);
 }
 
 template <typename T, typename I>
 cudaError_t launch(const void* indptr, const void* indices, const void* data,
                    const void* b, const void* c0, void* c, int64_t nbrows,
                    int64_t bs, int64_t n, double alpha_re, double alpha_im,
-                   double beta_re, double beta_im, cudaStream_t stream) {
-  if (bs < 1 || bs > (1 << 20)) return cudaErrorInvalidValue;
+                   double beta_re, double beta_im, int64_t batch,
+                   int64_t s_data, int64_t s_b, int64_t s_c0, int64_t s_c,
+                   cudaStream_t stream) {
+  if (bs < 1 || bs > (1 << 20) || batch < 1 || batch > kMaxMembers ||
+      s_data < 0 || s_b < 0 || s_c0 < 0 || s_c < 0)
+    return cudaErrorInvalidValue;
   const T alpha = Arith<T>::make(alpha_re, alpha_im);
   const T beta = Arith<T>::make(beta_re, beta_im);
   const bool scale = !is_one(alpha_re, alpha_im);
   const int ibs = static_cast<int>(bs);
+  const Strides st{s_data, s_b, s_c0, s_c};
   // Fewest thread rows that cover the block: small blocks keep one
   // accumulator row per thread, blocks of 64 and more take 64 rows per
   // thread block and split taller blocks across thread blocks.
   if (ibs <= kTY) {
-    launch_rows<T, I, 1>(indptr, indices, data, b, c0, c, nbrows, ibs, n, alpha, beta, scale, stream);
+    launch_rows<T, I, 1>(indptr, indices, data, b, c0, c, nbrows, ibs, n, alpha, beta, scale, batch, st, stream);
   } else if (ibs <= 2 * kTY) {
-    launch_rows<T, I, 2>(indptr, indices, data, b, c0, c, nbrows, ibs, n, alpha, beta, scale, stream);
+    launch_rows<T, I, 2>(indptr, indices, data, b, c0, c, nbrows, ibs, n, alpha, beta, scale, batch, st, stream);
   } else if (ibs <= 4 * kTY) {
-    launch_rows<T, I, 4>(indptr, indices, data, b, c0, c, nbrows, ibs, n, alpha, beta, scale, stream);
+    launch_rows<T, I, 4>(indptr, indices, data, b, c0, c, nbrows, ibs, n, alpha, beta, scale, batch, st, stream);
   } else {
-    launch_rows<T, I, 8>(indptr, indices, data, b, c0, c, nbrows, ibs, n, alpha, beta, scale, stream);
+    launch_rows<T, I, 8>(indptr, indices, data, b, c0, c, nbrows, ibs, n, alpha, beta, scale, batch, st, stream);
   }
   return cudaGetLastError();
 }
@@ -155,14 +182,17 @@ cudaError_t launch(const void* indptr, const void* indices, const void* data,
 }  // namespace
 }  // namespace sdt
 
+// batch members (at most kMaxMembers, grid.z's limit), each operand at
+// its member stride in elements (0: shared); batch 1 is one product.
 extern "C" int sdt_bsr_spmm_simt(int dtype, int itype, const void* indptr,
                                  const void* indices, const void* data,
                                  const void* b, const void* c0, void* c,
                                  int64_t nbrows, int64_t bs, int64_t n,
                                  double alpha_re, double alpha_im,
                                  double beta_re, double beta_im,
-                                 void* stream) {
+                                 int64_t batch, int64_t s_data, int64_t s_b,
+                                 int64_t s_c0, int64_t s_c, void* stream) {
   SDT_DISPATCH(dtype, itype, sdt::launch, indptr, indices, data, b, c0, c,
-               nbrows, bs, n, alpha_re, alpha_im, beta_re, beta_im,
-               static_cast<cudaStream_t>(stream))
+               nbrows, bs, n, alpha_re, alpha_im, beta_re, beta_im, batch,
+               s_data, s_b, s_c0, s_c, static_cast<cudaStream_t>(stream))
 }

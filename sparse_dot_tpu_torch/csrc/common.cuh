@@ -24,6 +24,11 @@ enum ITypeCode : int { kI32 = 0, kI64 = 1 };
 
 constexpr unsigned kFullMask = 0xffffffffu;
 
+// Members of a batched launch: its grid's y and z dimensions hold at most
+// 65,535 blocks, and ops/_build.py (MAX_MEMBERS) cuts a larger batch into
+// launches of at most this many.
+constexpr int64_t kMaxMembers = 65535;
+
 __device__ __forceinline__ float fma_r(float a, float b, float c) {
   return fmaf(a, b, c);
 }

@@ -62,6 +62,15 @@
 //
 // Every output is written by one lane, with no atomics: a run gives the
 // same bits twice.
+//
+// A batch of members that share A's pattern (the backward of a vmap over
+// values or over b, jacrev's cotangents, a batched tangent) is one
+// launch: the member is blockIdx.y, and G, B and the output each have a
+// member stride, 0 for the operand that all members share (jacrev
+// batches G alone, per-sample gradients G and B, a batched tangent B
+// alone).  The wrapper sizes the spans over all members' entries
+// (sddmm_schedule).  A single product is the instance with BATCH false,
+// whose code has no member offsets.
 #include <cstring>
 #include <type_traits>
 
@@ -155,18 +164,33 @@ __device__ __forceinline__ int64_t row_from(const I* __restrict__ indptr,
 // 32 * kPerThread consecutive entries.
 constexpr int kPerThread = 8;
 
+// Member strides, in elements, of a batched launch (0: shared).
+struct Strides {
+  int64_t g, b, out;
+};
+
+// Moves g, b and out to member blockIdx.y of a batch (BATCH).
+#define SDT_K7_TO_MEMBER          \
+  if constexpr (BATCH) {          \
+    const int64_t z = blockIdx.y; \
+    g += z * st.g;                \
+    b += z * st.b;                \
+    out += z * st.out;            \
+  }
+
 // A thread an entry at a time: G's and B's rows are one load (n == V, or
 // n == 1).  A thread takes the entries p, p + 32, ... of its warp's tile;
 // the tile's first row is found by the warp together, each thread's first
 // and each next one's forward from the last (row_from).
-template <typename T, typename I, int V>
+template <typename T, typename I, int V, bool BATCH>
 __global__ void __launch_bounds__(kThreads)
 csr_sddmm_entry_kernel(const I* __restrict__ indptr,
                        const I* __restrict__ indices,
                        const T* __restrict__ g, const T* __restrict__ b,
                        T* __restrict__ out, int64_t m, int64_t n,
-                       int64_t nnz, T alpha, bool scale) {
+                       int64_t nnz, T alpha, bool scale, Strides st) {
   using A = Arith<T>;
+  SDT_K7_TO_MEMBER
   const int lane = static_cast<int>(threadIdx.x & 31);
   const int64_t tile = (static_cast<int64_t>(blockIdx.x) * kThreads +
                         (threadIdx.x & ~31)) * kPerThread;
@@ -219,14 +243,15 @@ constexpr int kSpanBlocks = 8;
 // the span is tested as an offset against p1 - p, so no sum passes p1.
 // (Unsigned 32-bit numbers spilled: their wrap-around kept the compiler
 // from widening the addresses.)
-template <typename T, typename I, int L, int V, int PER, int E>
+template <typename T, typename I, int L, int V, int PER, int E, bool BATCH>
 __global__ void __launch_bounds__(kThreads, kSpanBlocks)
 csr_sddmm_span_kernel(const I* __restrict__ indptr,
                       const I* __restrict__ indices,
                       const T* __restrict__ g, const T* __restrict__ b,
                       T* out, int64_t m, int64_t n, int64_t nnz,
-                      int64_t span, T alpha, bool scale) {
+                      int64_t span, T alpha, bool scale, Strides st) {
   using A = Arith<T>;
+  SDT_K7_TO_MEMBER
   using P = std::conditional_t<sizeof(I) == 4, int32_t, int64_t>;
   constexpr int kPerBlock = kThreads / L;
   constexpr int kStrip = PER * L * V;
@@ -334,37 +359,62 @@ csr_sddmm_span_kernel(const I* __restrict__ indptr,
   }
 }
 
-template <typename T, typename I, int V>
+#undef SDT_K7_TO_MEMBER
+
+template <typename T, typename I, int V, bool BATCH>
 cudaError_t launch_entries(const void* indptr, const void* indices,
                            const void* g, const void* b, void* out,
                            int64_t m, int64_t n, int64_t nnz, T alpha,
-                           bool scale, cudaStream_t stream) {
+                           bool scale, int64_t batch, Strides st,
+                           cudaStream_t stream) {
   const int64_t per_block = static_cast<int64_t>(kThreads) * kPerThread;
   const int64_t blocks = (nnz + per_block - 1) / per_block;
-  csr_sddmm_entry_kernel<T, I, V>
-      <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-          static_cast<const I*>(indptr), static_cast<const I*>(indices),
-          static_cast<const T*>(g), static_cast<const T*>(b),
-          static_cast<T*>(out), m, n, nnz, alpha, scale);
+  const dim3 grid(static_cast<unsigned>(blocks),
+                  static_cast<unsigned>(batch));
+  csr_sddmm_entry_kernel<T, I, V, BATCH><<<grid, kThreads, 0, stream>>>(
+      static_cast<const I*>(indptr), static_cast<const I*>(indices),
+      static_cast<const T*>(g), static_cast<const T*>(b),
+      static_cast<T*>(out), m, n, nnz, alpha, scale, st);
   return cudaGetLastError();
 }
 
+template <typename T, typename I, int L, int V, int PER, bool BATCH>
+cudaError_t launch_span_kernel(const void* indptr, const void* indices,
+                               const void* g, const void* b, void* out,
+                               int64_t m, int64_t n, int64_t nnz,
+                               int64_t span, T alpha, bool scale,
+                               int64_t batch, Strides st,
+                               cudaStream_t stream) {
+  constexpr int E = round_entries(L, PER * V * static_cast<int>(sizeof(T)));
+  const int64_t groups = (nnz + span - 1) / span;
+  const int64_t blocks = (groups + kThreads / L - 1) / (kThreads / L);
+  const dim3 grid(static_cast<unsigned>(blocks),
+                  static_cast<unsigned>(batch));
+  csr_sddmm_span_kernel<T, I, L, V, PER, E, BATCH>
+      <<<grid, kThreads, 0, stream>>>(
+          static_cast<const I*>(indptr), static_cast<const I*>(indices),
+          static_cast<const T*>(g), static_cast<const T*>(b),
+          static_cast<T*>(out), m, n, nnz, span, alpha, scale, st);
+  return cudaGetLastError();
+}
+
+// One member (BATCH false) or a batch.
 template <typename T, typename I, int L, int V, int PER>
 cudaError_t launch_spans(const void* indptr, const void* indices,
                          const void* g, const void* b, void* out, int64_t m,
                          int64_t n, int64_t nnz, int round_len,
-                         int64_t span, T alpha, bool scale,
-                         cudaStream_t stream) {
+                         int64_t span, T alpha, bool scale, int64_t batch,
+                         Strides st, cudaStream_t stream) {
   constexpr int E = round_entries(L, PER * V * static_cast<int>(sizeof(T)));
   if (round_len != E) return cudaErrorInvalidValue;
-  const int64_t groups = (nnz + span - 1) / span;
-  const int64_t blocks = (groups + kThreads / L - 1) / (kThreads / L);
-  csr_sddmm_span_kernel<T, I, L, V, PER, E>
-      <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-          static_cast<const I*>(indptr), static_cast<const I*>(indices),
-          static_cast<const T*>(g), static_cast<const T*>(b),
-          static_cast<T*>(out), m, n, nnz, span, alpha, scale);
-  return cudaGetLastError();
+  if (batch == 1) {
+    return launch_span_kernel<T, I, L, V, PER, false>(
+        indptr, indices, g, b, out, m, n, nnz, span, alpha, scale, batch, st,
+        stream);
+  }
+  return launch_span_kernel<T, I, L, V, PER, true>(
+      indptr, indices, g, b, out, m, n, nnz, span, alpha, scale, batch, st,
+      stream);
 }
 
 template <typename T, typename I>
@@ -372,32 +422,43 @@ cudaError_t launch(const void* indptr, const void* indices, const void* g,
                    const void* b, void* out, int64_t m, int64_t n,
                    int64_t nnz, int vec, int lanes, int per_lane,
                    int round_len, int64_t span, double alpha_re, double alpha_im,
+                   int64_t batch, int64_t s_g, int64_t s_b, int64_t s_out,
                    cudaStream_t stream) {
   constexpr int kVec = static_cast<int>(16 / sizeof(T));
-  if (m <= 0 || n <= 0 || nnz <= 0 || span <= 0) {
+  if (m <= 0 || n <= 0 || nnz <= 0 || span <= 0 || batch < 1 ||
+      batch > kMaxMembers || s_g < 0 || s_b < 0 || s_out < 0) {
+    return cudaErrorInvalidValue;
+  }
+  // 16-byte loads need every member's rows on 16 bytes too.
+  if (vec > 1 && batch > 1 &&
+      ((s_g | s_b) * static_cast<int64_t>(sizeof(T))) % 16 != 0) {
     return cudaErrorInvalidValue;
   }
   const T alpha = Arith<T>::make(alpha_re, alpha_im);
   const bool scale = !is_one(alpha_re, alpha_im);
+  const Strides st{s_g, s_b, s_out};
   if (lanes == 1) {
     if (round_len != 1 || span != 32 * kPerThread) {
       return cudaErrorInvalidValue;
     }
-    if (vec == kVec && n == kVec) {
-      return launch_entries<T, I, kVec>(indptr, indices, g, b, out, m, n,
-                                        nnz, alpha, scale, stream);
-    }
-    if (vec == 1 && n == 1) {
-      return launch_entries<T, I, 1>(indptr, indices, g, b, out, m, n, nnz,
-                                     alpha, scale, stream);
-    }
+#define SDT_K7_ENTRY(V)                                                     \
+  return batch == 1                                                         \
+             ? launch_entries<T, I, V, false>(indptr, indices, g, b, out, m, \
+                                              n, nnz, alpha, scale, batch,   \
+                                              st, stream)                    \
+             : launch_entries<T, I, V, true>(indptr, indices, g, b, out, m,  \
+                                             n, nnz, alpha, scale, batch,    \
+                                             st, stream);
+    if (vec == kVec && n == kVec) SDT_K7_ENTRY(kVec)
+    if (vec == 1 && n == 1) SDT_K7_ENTRY(1)
+#undef SDT_K7_ENTRY
     return cudaErrorInvalidValue;
   }
   // Two loads a lane only where 32 lanes do not cover n in one
   // (ops/csr.spmm_schedule).
 #define SDT_K7_ARGS \
   indptr, indices, g, b, out, m, n, nnz, round_len, span, alpha, scale, \
-      stream
+      batch, st, stream
 #define SDT_K7_LANES(V)                                                    \
   switch (lanes) {                                                         \
     case 2: return launch_spans<T, I, 2, V, 1>(SDT_K7_ARGS);               \
@@ -422,13 +483,16 @@ cudaError_t launch(const void* indptr, const void* indices, const void* g,
 }  // namespace
 }  // namespace sdt
 
+// batch members (at most kMaxMembers, grid.y's limit), each operand at
+// its member stride in elements (0: shared); batch 1 is one product.
 extern "C" int sdt_csr_sddmm(int dtype, int itype, const void* indptr,
                              const void* indices, const void* g,
                              const void* b, void* out, int64_t m, int64_t n,
                              int64_t nnz, int vec, int lanes, int per_lane,
                              int round_len, int64_t span, double alpha_re,
-                             double alpha_im, void* stream) {
+                             double alpha_im, int64_t batch, int64_t s_g,
+                             int64_t s_b, int64_t s_out, void* stream) {
   SDT_DISPATCH(dtype, itype, sdt::launch, indptr, indices, g, b, out, m, n,
                nnz, vec, lanes, per_lane, round_len, span, alpha_re, alpha_im,
-               static_cast<cudaStream_t>(stream))
+               batch, s_g, s_b, s_out, static_cast<cudaStream_t>(stream))
 }

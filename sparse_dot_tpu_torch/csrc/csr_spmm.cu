@@ -41,6 +41,16 @@
 // Every output element is written once, by the group that owns it, with
 // the alpha / beta * C0 epilogue fused; rows with no nonzeros store
 // beta * C0 or 0.
+//
+// A batch of members that share A's pattern (torch.func.vmap over the
+// values, per-sample gradients, jacrev, jacfwd) is one launch: the member
+// is blockIdx.z, and the values, B, C0 and C each have a member stride,
+// 0 for an operand that all members share (never copied per member).
+// indptr, indices and the row plan are read by every member; the plan's
+// counts and the workspace are each member's own (counts + z * n_chunks,
+// work + z * n_chunks * n), so the last-chunk test of a split row counts
+// that member's chunks only.  A single product is the instance with
+// BATCH false, whose code has no member offsets.
 #include <cstring>
 
 #include "common.cuh"
@@ -197,9 +207,16 @@ __device__ __forceinline__ void reduce_split(T (&acc)[PER][V], int lanes,
   }
 }
 
+// Member strides, in elements, of a batched launch (0: shared).
+struct Strides {
+  int64_t data, b, c0, c;
+};
+
 // Blocks [0, chunk_blocks) walk the chunks of split rows into work; the
 // others take one row per group of lanes * split lanes and write C.
-template <typename T, typename I, int V, int PER, int U, bool WARP>
+// With BATCH, blockIdx.z is the member.
+template <typename T, typename I, int V, int PER, int U, bool WARP,
+          bool BATCH>
 __global__ void __launch_bounds__(kThreads)
 csr_spmm_kernel(const I* __restrict__ indptr, const I* __restrict__ indices,
                 const T* __restrict__ data, const T* __restrict__ b,
@@ -207,8 +224,19 @@ csr_spmm_kernel(const I* __restrict__ indptr, const I* __restrict__ indices,
                 unsigned* counts, const int64_t* __restrict__ chunks,
                 int64_t n_chunks, int chunk_blocks, int64_t m, int64_t n,
                 int64_t max_row, int lanes, int split, T alpha, T beta,
-                bool scale) {
+                bool scale, Strides st) {
   using A = Arith<T>;
+  if constexpr (BATCH) {
+    const int64_t z = blockIdx.z;
+    data += z * st.data;
+    b += z * st.b;
+    if (c0 != nullptr) c0 += z * st.c0;
+    c += z * st.c;
+    if (n_chunks > 0) {
+      work += z * n_chunks * n;
+      counts += z * n_chunks;
+    }
+  }
   const int group = lanes * split;
   const int per_block = kThreads / group;
   const int g = static_cast<int>(threadIdx.x) % group;
@@ -319,13 +347,15 @@ csr_spmm_kernel(const I* __restrict__ indptr, const I* __restrict__ indices,
   }
 }
 
-template <typename T, typename I, int V, int PER, int U, bool WARP = false>
+template <typename T, typename I, int V, int PER, int U, bool WARP,
+          bool BATCH>
 cudaError_t launch_mapped(const void* indptr, const void* indices,
                           const void* data, const void* b, const void* c0,
                           void* c, void* work, void* counts,
                           const void* chunks, int64_t n_chunks, int64_t m,
                           int64_t n, int64_t max_row, int lanes, int split,
-                          T alpha, T beta, bool scale, cudaStream_t stream) {
+                          T alpha, T beta, bool scale, int64_t batch,
+                          Strides st, cudaStream_t stream) {
   const int per_block = kThreads / (lanes * split);
   const int64_t row_blocks = (m + per_block - 1) / per_block;
   const int64_t wanted = (n_chunks + per_block - 1) / per_block;
@@ -333,15 +363,36 @@ cudaError_t launch_mapped(const void* indptr, const void* indices,
       static_cast<int>(wanted < kChunkBlocks ? wanted : kChunkBlocks);
   const int64_t strip = static_cast<int64_t>(PER) * lanes * V;
   const dim3 grid(static_cast<unsigned>(row_blocks + chunk_blocks),
-                  static_cast<unsigned>((n + strip - 1) / strip));
-  csr_spmm_kernel<T, I, V, PER, U, WARP><<<grid, kThreads, 0, stream>>>(
+                  static_cast<unsigned>((n + strip - 1) / strip),
+                  static_cast<unsigned>(batch));
+  csr_spmm_kernel<T, I, V, PER, U, WARP, BATCH>
+      <<<grid, kThreads, 0, stream>>>(
       static_cast<const I*>(indptr), static_cast<const I*>(indices),
       static_cast<const T*>(data), static_cast<const T*>(b),
       static_cast<const T*>(c0), static_cast<T*>(c), static_cast<T*>(work),
       static_cast<unsigned*>(counts), static_cast<const int64_t*>(chunks),
       n_chunks, chunk_blocks, m, n, max_row, lanes, split, alpha, beta,
-      scale);
+      scale, st);
   return cudaGetLastError();
+}
+
+// The instance for one member (BATCH false) or for a batch.
+template <typename T, typename I, int V, int PER, int U, bool WARP = false>
+cudaError_t launch_members(const void* indptr, const void* indices,
+                           const void* data, const void* b, const void* c0,
+                           void* c, void* work, void* counts,
+                           const void* chunks, int64_t n_chunks, int64_t m,
+                           int64_t n, int64_t max_row, int lanes, int split,
+                           T alpha, T beta, bool scale, int64_t batch,
+                           Strides st, cudaStream_t stream) {
+#define SDT_K2_MAPPED_ARGS                                               \
+  indptr, indices, data, b, c0, c, work, counts, chunks, n_chunks, m, n, \
+      max_row, lanes, split, alpha, beta, scale, batch, st, stream
+  if (batch == 1) {
+    return launch_mapped<T, I, V, PER, U, WARP, false>(SDT_K2_MAPPED_ARGS);
+  }
+  return launch_mapped<T, I, V, PER, U, WARP, true>(SDT_K2_MAPPED_ARGS);
+#undef SDT_K2_MAPPED_ARGS
 }
 
 template <typename T, typename I>
@@ -350,19 +401,29 @@ cudaError_t launch(const void* indptr, const void* indices, const void* data,
                    void* counts, const void* chunks, int64_t n_chunks,
                    int64_t m, int64_t n, int64_t max_row, int vec, int lanes,
                    int split, int per_lane, double alpha_re, double alpha_im,
-                   double beta_re, double beta_im, cudaStream_t stream) {
+                   double beta_re, double beta_im, int64_t batch,
+                   int64_t s_data, int64_t s_b, int64_t s_c0, int64_t s_c,
+                   cudaStream_t stream) {
   constexpr int kVec = static_cast<int>(16 / sizeof(T));
   const bool pow2 = lanes > 0 && split > 0 && !(lanes & (lanes - 1)) &&
                     !(split & (split - 1)) && lanes * split <= 32;
-  if (!pow2 || (n_chunks > 0 && (work == nullptr || counts == nullptr))) {
+  if (!pow2 || (n_chunks > 0 && (work == nullptr || counts == nullptr)) ||
+      batch < 1 || batch > kMaxMembers || s_data < 0 || s_b < 0 ||
+      s_c0 < 0 || s_c < 0) {
     return cudaErrorInvalidValue;
   }
+  // 16-byte loads need every member's rows on 16 bytes too.
+  if (vec > 1 && batch > 1 &&
+      ((s_b | s_c0 | s_c) * static_cast<int64_t>(sizeof(T))) % 16 != 0) {
+    return cudaErrorInvalidValue;
+  }
+  const Strides st{s_data, s_b, s_c0, s_c};
   const T alpha = Arith<T>::make(alpha_re, alpha_im);
   const T beta = Arith<T>::make(beta_re, beta_im);
   const bool scale = !is_one(alpha_re, alpha_im);
 #define SDT_K2_ARGS                                                      \
   indptr, indices, data, b, c0, c, work, counts, chunks, n_chunks, m, n, \
-      max_row, lanes, split, alpha, beta, scale, stream
+      max_row, lanes, split, alpha, beta, scale, batch, st, stream
   // A row that a whole warp owns takes the shuffle path, a row of one lane
   // (n of at most one 16-byte load) 4 nonzeros at a time, other groups 2:
   // more registers a thread cost more warps in flight than the loads gain
@@ -370,26 +431,26 @@ cudaError_t launch(const void* indptr, const void* indices, const void* data,
   // gets its own register count.
   if (lanes == 32 && split == 1) {
     if (vec == kVec && per_lane == 2)
-      return launch_mapped<T, I, kVec, 2, 1, true>(SDT_K2_ARGS);
+      return launch_members<T, I, kVec, 2, 1, true>(SDT_K2_ARGS);
     if (vec == kVec && per_lane == 1)
-      return launch_mapped<T, I, kVec, 1, 1, true>(SDT_K2_ARGS);
+      return launch_members<T, I, kVec, 1, 1, true>(SDT_K2_ARGS);
     if (vec == 1 && per_lane == 2)
-      return launch_mapped<T, I, 1, 2, 1, true>(SDT_K2_ARGS);
+      return launch_members<T, I, 1, 2, 1, true>(SDT_K2_ARGS);
     if (vec == 1 && per_lane == 1)
-      return launch_mapped<T, I, 1, 1, 1, true>(SDT_K2_ARGS);
+      return launch_members<T, I, 1, 1, 1, true>(SDT_K2_ARGS);
     return cudaErrorInvalidValue;
   }
   if (lanes == 1 && vec == kVec)
-    return launch_mapped<T, I, kVec, 1, 4>(SDT_K2_ARGS);
-  if (lanes == 1 && vec == 1) return launch_mapped<T, I, 1, 1, 4>(SDT_K2_ARGS);
+    return launch_members<T, I, kVec, 1, 4>(SDT_K2_ARGS);
+  if (lanes == 1 && vec == 1) return launch_members<T, I, 1, 1, 4>(SDT_K2_ARGS);
   if (vec == kVec && per_lane == 2)
-    return launch_mapped<T, I, kVec, 2, 2>(SDT_K2_ARGS);
+    return launch_members<T, I, kVec, 2, 2>(SDT_K2_ARGS);
   if (vec == kVec && per_lane == 1)
-    return launch_mapped<T, I, kVec, 1, 2>(SDT_K2_ARGS);
+    return launch_members<T, I, kVec, 1, 2>(SDT_K2_ARGS);
   if (vec == 1 && per_lane == 2)
-    return launch_mapped<T, I, 1, 2, 2>(SDT_K2_ARGS);
+    return launch_members<T, I, 1, 2, 2>(SDT_K2_ARGS);
   if (vec == 1 && per_lane == 1)
-    return launch_mapped<T, I, 1, 1, 2>(SDT_K2_ARGS);
+    return launch_members<T, I, 1, 1, 2>(SDT_K2_ARGS);
 #undef SDT_K2_ARGS
   return cudaErrorInvalidValue;
 }
@@ -397,6 +458,8 @@ cudaError_t launch(const void* indptr, const void* indices, const void* data,
 }  // namespace
 }  // namespace sdt
 
+// batch members (at most kMaxMembers, grid.z's limit), each operand at
+// its member stride in elements (0: shared); batch 1 is one product.
 extern "C" int sdt_csr_spmm(int dtype, int itype, const void* indptr,
                             const void* indices, const void* data,
                             const void* b, const void* c0, void* c,
@@ -404,9 +467,11 @@ extern "C" int sdt_csr_spmm(int dtype, int itype, const void* indptr,
                             int64_t n_chunks, int64_t m, int64_t n,
                             int64_t max_row, int vec, int lanes, int split,
                             int per_lane, double alpha_re, double alpha_im,
-                            double beta_re, double beta_im, void* stream) {
+                            double beta_re, double beta_im, int64_t batch,
+                            int64_t s_data, int64_t s_b, int64_t s_c0,
+                            int64_t s_c, void* stream) {
   SDT_DISPATCH(dtype, itype, sdt::launch, indptr, indices, data, b, c0, c,
                work, counts, chunks, n_chunks, m, n, max_row, vec, lanes,
-               split, per_lane, alpha_re, alpha_im, beta_re, beta_im,
-               static_cast<cudaStream_t>(stream))
+               split, per_lane, alpha_re, alpha_im, beta_re, beta_im, batch,
+               s_data, s_b, s_c0, s_c, static_cast<cudaStream_t>(stream))
 }

@@ -44,28 +44,40 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _D = ctypes.c_double
 _INT = ctypes.c_int
+# Members of one batched launch of K1, K2, K7 or K8: the grid's y and z
+# dimensions hold at most 65,535 blocks (``kMaxMembers`` in
+# ``csrc/common.cuh``); a larger batch is cut into launches of at most
+# this many.
+MAX_MEMBERS = 65535
+
 # Every pointer and the stream are c_void_p: ctypes would cut a Python
-# int passed as a plain int to 32 bits.
+# int passed as a plain int to 32 bits.  ``batch, s_*``: the members of a
+# launch (1 for one product) and each operand's member stride in elements
+# (0: shared by all members).
 _PROTOTYPES = {
     # dtype, itype, indptr, indices, data, b, c0, c, work, counts, chunks,
     # n_chunks, m, n, chunk, vec, lanes, split, per_lane, alpha_re,
-    # alpha_im, beta_re, beta_im, stream
+    # alpha_im, beta_re, beta_im, batch, s_data, s_b, s_c0, s_c, stream
     "sdt_csr_spmm": (_INT, _INT, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64,
                      _I64, _I64, _I64, _INT, _INT, _INT, _INT,
-                     _D, _D, _D, _D, _P),
+                     _D, _D, _D, _D, _I64, _I64, _I64, _I64, _I64, _P),
     # dtype, itype, indptr, indices, data, x, y0, y, work, counts, tiles,
     # n_tiles, chunks, n_chunks, m, tile, alpha_re, alpha_im, beta_re,
     # beta_im, stream
     "sdt_csr_spmv": (_INT, _INT, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64,
                      _P, _I64, _I64, _INT, _D, _D, _D, _D, _P),
     # dtype, itype, indptr, indices, data, b, c0, c, nbrows, bs, n,
-    # alpha_re, alpha_im, beta_re, beta_im, stream
+    # alpha_re, alpha_im, beta_re, beta_im, batch, s_data, s_b, s_c0, s_c,
+    # stream
     "sdt_bsr_spmm_simt": (_INT, _INT, _P, _P, _P, _P, _P, _P, _I64, _I64,
-                          _I64, _D, _D, _D, _D, _P),
+                          _I64, _D, _D, _D, _D, _I64, _I64, _I64, _I64,
+                          _I64, _P),
     # dtype, itype, items, n_items, splits, n_splits, indices, data, b, c0,
-    # c, work, bs, n, alpha_re, alpha_im, beta_re, beta_im, stream
+    # c, work, slots, bs, n, alpha_re, alpha_im, beta_re, beta_im, batch,
+    # s_data, s_b, s_c0, s_c, stream
     "sdt_bsr_spmm_tc": (_INT, _INT, _P, _I64, _P, _I64, _P, _P, _P, _P, _P,
-                        _P, _I64, _I64, _D, _D, _D, _D, _P),
+                        _P, _I64, _I64, _I64, _D, _D, _D, _D, _I64, _I64,
+                        _I64, _I64, _I64, _P),
     # itype, a_indptr, a_indices, b_indptr, b_indices, rows, offsets,
     # bins (host), nbins, n, triangular, counts, work, work_groups,
     # u_max (host, or None), m, lanes, tile_rows, ub, tile_bins, stream
@@ -78,9 +90,11 @@ _PROTOTYPES = {
     "sdt_csr_spgemm_fill": (_INT, _INT, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _INT, _I64, _INT, _P, _P, _P, _P, _I64, _P),
     # dtype, itype, indptr, indices, g, b, out, m, n, nnz, vec, lanes,
-    # per_lane, round, span, alpha_re, alpha_im, stream
+    # per_lane, round, span, alpha_re, alpha_im, batch, s_g, s_b, s_out,
+    # stream
     "sdt_csr_sddmm": (_INT, _INT, _P, _P, _P, _P, _P, _I64, _I64, _I64, _INT,
-                      _INT, _INT, _INT, _I64, _D, _D, _P),
+                      _INT, _INT, _INT, _I64, _D, _D, _I64, _I64, _I64, _I64,
+                      _P),
     # dtype, itype, a_indptr, a_indices, a_data, b_indptr, b_indices,
     # b_data, c0, c, m, n, alpha_re, alpha_im, beta_re, beta_im,
     # triangular, splits, width, k, starts (scratch), stream
@@ -88,13 +102,13 @@ _PROTOTYPES = {
                              _I64, _I64, _D, _D, _D, _D, _INT, _INT, _I64,
                              _I64, _P, _P),
     # dtype, itype, indptr, nbrows, indices, nblocks, g, b, out, bs, n,
-    # alpha_re, alpha_im, stream
+    # alpha_re, alpha_im, batch, s_g, s_b, s_out, stream
     "sdt_bsr_sddmm_simt": (_INT, _INT, _P, _I64, _P, _I64, _P, _P, _P, _I64,
-                           _I64, _D, _D, _P),
+                           _I64, _D, _D, _I64, _I64, _I64, _I64, _P),
     # dtype, itype, indptr, nbrows, indices, nblocks, g, b, out, bs, n,
-    # alpha_re, alpha_im, stream
+    # alpha_re, alpha_im, batch, s_g, s_b, s_out, stream
     "sdt_bsr_sddmm_tc": (_INT, _INT, _P, _I64, _P, _I64, _P, _P, _P, _I64,
-                         _I64, _D, _D, _P),
+                         _I64, _D, _D, _I64, _I64, _I64, _I64, _P),
     # dtype, itype, items, n_items, run_ptr, run_q, perm, line, d, se, sy,
     # ne, ny, panel, pitch, staged, y_indptr, y_indices, y_data, out,
     # lanes, alpha_re, alpha_im, stream

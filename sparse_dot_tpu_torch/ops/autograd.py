@@ -14,15 +14,15 @@ ones are to JAX's.  Each runs one ``torch.autograd.Function``
   (``ops/sddmm``), dL/db = conj(alpha) A^H G on K2 over A's transposed
   structure, dL/dc0 = conj(beta) G; ``jvp`` alpha (A(dvals) b + A db) on
   K2 (two launches, the second adding the first in its epilogue); ``vmap``
-  folds a batch of b (and c0) into the columns, one K2 launch for all.
-  A batch of values cannot be folded so: it takes one launch per member,
-  one after another (``_batched``), as does K7 under ``vmap`` of
-  ``grad`` (per-member gradients), which batches G and b.
+  folds a batch of b (and c0) into the columns, one K2 launch for all,
+  and takes a batch of values to the batched form below, one K2 launch
+  for all members.
 - ``CsrSpmv``: the same with K3 for y = alpha A x + beta y0, K7 at n = 1
-  and K3 over A^H; its ``vmap`` makes the batch the columns of one K2.
+  and K3 over A^H; its ``vmap`` makes a batch of x the columns of one
+  K2, and a batch of values one batched K2 launch at n = 1.
 - ``BsrSpmm``: the same for BSR A (``formats.BsrPattern``) on K1, with
   dL/d(blocks) on K8 (``ops/bsr.bsr_sddmm``, block SDDMM) and dL/db on K1
-  over A^H's blocks ``data[order].transpose(1, 2).conj_physical()``.
+  over A^H's blocks ``data[order].transpose(1, 2)``, conjugated.
 - ``CsrSpgemmDense``: C = alpha op(A) op(B) + beta c0 with dense output
   on K6 (``ops/spgemm``); backward dL/d(op(A)'s values) = conj(alpha)
   G op(B)^H at op(A)'s pattern and dL/d(op(B)'s values) =
@@ -43,6 +43,21 @@ ones are to JAX's.  Each runs one ``torch.autograd.Function``
   too (``torch.func.grad`` runs the backward on wrapped tensors, which
   only a Function's forward sees unwrapped, and ``vmap`` of ``grad``
   batches them).
+
+Batches (``torch.func.vmap``, and ``jacrev``, ``jacfwd``, ``hessian`` and
+per-sample gradients, which are built on it).  ``CsrSpmm``, ``CsrSddmm``,
+``BsrSpmm`` and ``BsrSddmm`` take their operands with a member dimension
+ahead (values (B, nnz) or blocks (B, nblocks, bs, bs), b (B, k, n), c0
+and g (B, m, n), each per member or shared) and run them as one batched
+launch of K2, K7, K1 or K8 (``csr.spmm_batched``,
+``sddmm.sddmm_batched``, ``bsr.spmm_batched``, ``bsr.sddmm_batched``):
+their ``vmap`` rules move the batch to the front and call that form, so
+each ``vmap`` level is one launch whatever its size; a level outside
+another merges its batch with the members already there.  Their
+backward and ``jvp`` take the same form (the gradient of a shared
+operand summed over the members), so the transforms compose to any
+depth.  The sparse x sparse Functions (K5, K6, K9, K11) have no batched
+launch: their ``vmap`` is one call a member (``_batched``).
 
 Gradients follow PyTorch's convention for complex values, the conjugate
 of JAX's: for |z|^2 at 3+4j JAX gives 6-8j, PyTorch 6+8j.  Every Function
@@ -68,7 +83,7 @@ a backward that builds no graph saves nothing in the gradient Functions.
 A^H's structure (``CsrPattern.transpose``, ``BsrPattern.transpose``) is
 built once per pattern and cached; its values are gathered from the
 current values at every backward (``data[order]``, conjugated by
-``conj_physical``, never by the lazy ``conj()``, whose bit the kernels
+``_conj_values``, never by the lazy ``conj()`` alone, whose bit the kernels
 cannot see), so the gradient follows values that a training step updates
 in place.  ``csr.csr_spmm``, ``csr.csr_spmv``, ``bsr.bsr_spmm``,
 ``spgemm.csr_spgemm`` and ``spgemm.csr_spgemm_dense`` take these
@@ -96,19 +111,29 @@ def _beta(beta, c0):
     return 1.0 if beta is None else beta
 
 
+def _conj_values(t):
+    """conj(t) as a tensor of its own (``conj().resolve_conj()``: the
+    kernels cannot see a lazy conjugate's bit, and ``torch.func.vmap``
+    batches this in one call where it runs ``conj_physical`` once a
+    member)."""
+    return t.conj().resolve_conj()
+
+
 def _transposed(pattern, data):
     """(pattern of A^H, its values): A's cached transposed structure and
-    conj(data) gathered through its permutation."""
+    conj(data) gathered through its permutation (each member's, for
+    values (B, nnz))."""
     t, order = pattern.transpose()
-    return t, data[order].conj_physical()
+    return t, _conj_values(data[..., order])
 
 
 def _bsr_transposed(pattern, data):
     """(pattern of A^H, its blocks) for the BSR A of ``pattern`` with
-    blocks ``data``: the cached transposed structure, the blocks gathered
-    through its permutation, each transposed and conjugated."""
+    blocks ``data`` ((nblocks, bs, bs), or (B, nblocks, bs, bs) for a
+    batch): the cached transposed structure, the blocks gathered through
+    its permutation, each transposed and conjugated."""
     t, order = pattern.transpose()
-    return t, data[order].transpose(1, 2).conj_physical()
+    return t, _conj_values(data[..., order, :, :].mT)
 
 
 def _plain(*tensors):
@@ -126,11 +151,76 @@ def _fold(t, dim, size, at):
     return t.contiguous().flatten(at, at + 1)
 
 
+def _member(t, core):
+    """Whether operand ``t`` comes with a member dimension ahead of its
+    ``core`` dimensions: the batched form of the CSR and BSR Functions,
+    whose forward is one batched launch (``csr.spmm_batched``,
+    ``sddmm.sddmm_batched``, ``bsr.spmm_batched``,
+    ``bsr.sddmm_batched``)."""
+    return t is not None and t.dim() > core
+
+
+def _sum_to(t, dims):
+    """The gradient ``t`` of an operand of ``dims`` dimensions: summed
+    over the members when the operand had no member dimension (every
+    member read it)."""
+    return t.sum(0) if t is not None and t.dim() > dims else t
+
+
+def _to_shape(t, shape):
+    """A tangent ``t`` of a batched output of ``shape``: a term that no
+    member's operand touched is the same for every member."""
+    return t if t.shape == shape else t.expand(shape).contiguous()
+
+
+def _members(info, in_dims, tensors, cores):
+    """A ``vmap`` rule's operands as one batched call of its Function:
+    each of ``tensors`` (operands of ``cores`` dimensions, perhaps with a
+    member dimension already, from a ``vmap`` level inside this one)
+    with this level's batch dimension ``in_dims`` moved to 0.  Without
+    members inside, this level's batch is the members and an operand it
+    does not batch stays shared (no copy).  With members inside (B1 of
+    them), the B members of this level and those B1 are merged into
+    B * B1 members (member (i, j) at i * B1 + j), and an operand that
+    only one of the two batches is copied for the other.  Returns the
+    operands and B1 (None without members inside)."""
+    size = info.batch_size
+    inner = None
+    for t, d, core in zip(tensors, in_dims, cores):
+        if t is not None and t.dim() - (d is not None) > core:
+            inner = (t if d is None else t.movedim(d, 0)[0]).shape[0]
+    out = []
+    for t, d, core in zip(tensors, in_dims, cores):
+        if t is None:
+            out.append(None)
+            continue
+        x = t if d is None else t.movedim(d, 0)
+        if inner is not None:
+            has = x.dim() - (d is not None) > core
+            if d is None and has:
+                x = x.expand(size, *x.shape).flatten(0, 1)
+            elif d is not None and not has:
+                x = x.unsqueeze(1).expand(size, inner,
+                                          *x.shape[1:]).flatten(0, 1)
+            elif d is not None:
+                x = x.flatten(0, 1)
+        out.append(x)
+    return out, inner
+
+
+def _unmerge(out, info, inner):
+    """A batched call's (members, ...) result as ``vmap``'s: (B, B1, ...)
+    after ``_members`` merged two batches, else as it is."""
+    if inner is None:
+        return out, 0
+    return out.unflatten(0, (info.batch_size, inner)), 0
+
+
 def _batched(info, in_dims, args, apply, stack=True):
-    """A batch of calls whose values are batched too (or, for K7, whose G
-    and b are): one call per member (``apply`` on the members'
-    arguments), launched one after another, stacked along dimension 0
-    (with ``stack=False`` the members' results as a list)."""
+    """A batch of calls of the sparse x sparse Functions (K5, K6, K9,
+    K11), which have no batched launch: one call per member (``apply`` on
+    the members' arguments), launched one after another, stacked along
+    dimension 0 (with ``stack=False`` the members' results as a list)."""
     size = info.batch_size
     members = [
         a if d is None else a.movedim(d, 0)
@@ -149,17 +239,24 @@ class CsrSddmm(torch.autograd.Function):
     two, run on the same kernels: with W the CSR of P's pattern holding
     the incoming gradient w, dL/dg = conj(alpha) W b and dL/db = alpha
     W^H g on K2 (over P and its cached transpose), and the ``jvp`` alpha
-    (dg b^H + g db^H) at P's entries is two K7 launches."""
+    (dg b^H + g db^H) at P's entries is two K7 launches.  ``g`` (m, n) and
+    ``b`` (k, n) may each come with a member dimension ahead (the batched
+    form): the output is then (B, nnz), one batched K7 launch, and the
+    ``vmap`` rule calls that form."""
 
     @staticmethod
     def forward(pattern, g, b, alpha):
         g, b = _plain(g, b)
+        if _member(g, 2) or _member(b, 2):
+            return sddmm.sddmm_batched(pattern.indptr, pattern.indices, g, b,
+                                       alpha)
         return sddmm.sddmm(pattern.indptr, pattern.indices, g, b, alpha)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
         pattern, g, b, alpha = inputs
         ctx.pattern, ctx.alpha = pattern, alpha
+        ctx.dims = (g.dim(), b.dim())
         ctx.save_for_backward(g, b)
         ctx.save_for_forward(g, b)
 
@@ -170,10 +267,12 @@ class CsrSddmm(torch.autograd.Function):
         _, need_g, need_b, _ = ctx.needs_input_grad
         g_g = g_b = None
         if need_g:
-            g_g = CsrSpmm.apply(pattern, grad, b, _conj(alpha), None, None)
+            g_g = _sum_to(CsrSpmm.apply(pattern, grad, b, _conj(alpha), None,
+                                        None), ctx.dims[0])
         if need_b:
             t, grad_t = _transposed(pattern, grad)
-            g_b = CsrSpmm.apply(t, grad_t, g, alpha, None, None)
+            g_b = _sum_to(CsrSpmm.apply(t, grad_t, g, alpha, None, None),
+                          ctx.dims[1])
         return None, g_g, g_b, None
 
     @staticmethod
@@ -189,17 +288,24 @@ class CsrSddmm(torch.autograd.Function):
 
     @staticmethod
     def vmap(info, in_dims, pattern, g, b, alpha):
-        return _batched(info, in_dims, (pattern, g, b, alpha),
-                        CsrSddmm.apply)
+        (g, b), inner = _members(info, in_dims[1:3], (g, b), (2, 2))
+        return _unmerge(CsrSddmm.apply(pattern, g, b, alpha), info, inner)
 
 
 class CsrSpmm(torch.autograd.Function):
     """C = alpha * A @ b + beta * c0 on K2, A the CSR of ``pattern`` with
-    values ``data``; differentiable in ``data``, ``b`` and ``c0``."""
+    values ``data``; differentiable in ``data``, ``b`` and ``c0``.
+    ``data`` (nnz,), ``b`` (k, n) and ``c0`` (m, n) may each come with a
+    member dimension ahead (the batched form): the output is then (B, m,
+    n), one batched K2 launch, and the gradient of an operand without it
+    is summed over the members."""
 
     @staticmethod
     def forward(pattern, data, b, alpha, beta, c0):
         data, b, c0 = _plain(data, b, c0)
+        if _member(data, 1) or _member(b, 2) or _member(c0, 2):
+            return csr.spmm_batched(pattern.indptr, pattern.indices, data, b,
+                                    alpha, beta, c0, pattern.plan())
         return csr.spmm(pattern.indptr, pattern.indices, data, b, alpha,
                         beta, c0, pattern.plan())
 
@@ -207,6 +313,8 @@ class CsrSpmm(torch.autograd.Function):
     def setup_context(ctx, inputs, output):
         pattern, data, b, alpha, beta, c0 = inputs
         ctx.pattern, ctx.alpha, ctx.beta = pattern, alpha, _beta(beta, c0)
+        ctx.dims = (data.dim(), b.dim(), None if c0 is None else c0.dim())
+        ctx.shape = output.shape
         ctx.save_for_backward(data, b)
         ctx.save_for_forward(data, b)
 
@@ -218,12 +326,14 @@ class CsrSpmm(torch.autograd.Function):
         grad = grad.contiguous()
         g_data = g_b = g_c0 = None
         if need_data:
-            g_data = CsrSddmm.apply(pattern, grad, b, alpha)
+            g_data = _sum_to(CsrSddmm.apply(pattern, grad, b, alpha),
+                             ctx.dims[0])
         if need_b:
             t, data_t = _transposed(pattern, data)
-            g_b = CsrSpmm.apply(t, data_t, grad, alpha, None, None)
+            g_b = _sum_to(CsrSpmm.apply(t, data_t, grad, alpha, None, None),
+                          ctx.dims[1])
         if need_c0:
-            g_c0 = grad * _conj(ctx.beta)
+            g_c0 = _sum_to(grad * _conj(ctx.beta), ctx.dims[2])
         return None, g_data, g_b, None, None, g_c0
 
     @staticmethod
@@ -237,18 +347,23 @@ class CsrSpmm(torch.autograd.Function):
         if d_b is not None:
             out = CsrSpmm.apply(pattern, data, d_b, alpha,
                                 None if out is None else 1.0, out)
-        return out
+        return _to_shape(out, ctx.shape)
 
     @staticmethod
     def vmap(info, in_dims, pattern, data, b, alpha, beta, c0):
         _, d_data, d_b, _, _, d_c0 = in_dims
-        if d_data is not None:
-            return _batched(info, in_dims, (pattern, data, b, alpha, beta,
-                                            c0), CsrSpmm.apply)
         size, m = info.batch_size, pattern.shape[0]
-        out = CsrSpmm.apply(pattern, data, _fold(b, d_b, size, 1), alpha,
-                            beta, _fold(c0, d_c0, size, 1))
-        return out.view(m, size, out.shape[1] // size), 1
+        if (d_data is None and not _member(data, 1)
+                and not _member(b, 2 + (d_b is not None))
+                and not _member(c0, 2 + (d_c0 is not None))):
+            # A batch of b (and c0) alone: the columns of one K2 launch.
+            out = CsrSpmm.apply(pattern, data, _fold(b, d_b, size, 1),
+                                alpha, beta, _fold(c0, d_c0, size, 1))
+            return out.view(m, size, out.shape[1] // size), 1
+        (data, b, c0), inner = _members(info, (d_data, d_b, d_c0),
+                                        (data, b, c0), (1, 2, 2))
+        return _unmerge(CsrSpmm.apply(pattern, data, b, alpha, beta, c0),
+                        info, inner)
 
 
 class CsrSpmv(torch.autograd.Function):
@@ -301,14 +416,19 @@ class CsrSpmv(torch.autograd.Function):
     @staticmethod
     def vmap(info, in_dims, pattern, data, x, alpha, beta, y0):
         _, d_data, d_x, _, _, d_y0 = in_dims
-        if d_data is not None:
-            return _batched(info, in_dims, (pattern, data, x, alpha, beta,
-                                            y0), CsrSpmv.apply)
         size = info.batch_size
-        # The batch of x as the columns of one (k, B) operand: one K2.
-        cols = _fold(x[..., None], d_x, size, 1)
-        rhs = _fold(None if y0 is None else y0[..., None], d_y0, size, 1)
-        return CsrSpmm.apply(pattern, data, cols, alpha, beta, rhs), 1
+        if d_data is None:
+            # The batch of x as the columns of one (k, B) operand: one K2.
+            cols = _fold(x[..., None], d_x, size, 1)
+            rhs = _fold(None if y0 is None else y0[..., None], d_y0, size, 1)
+            return CsrSpmm.apply(pattern, data, cols, alpha, beta, rhs), 1
+        # A batch of values: K2 at n = 1 over the members, x and y0 as
+        # (k, 1) and (m, 1) members (or shared), one launch.
+        data = data.movedim(d_data, 0)
+        x = (x if d_x is None else x.movedim(d_x, 0))[..., None]
+        if y0 is not None:
+            y0 = (y0 if d_y0 is None else y0.movedim(d_y0, 0))[..., None]
+        return CsrSpmm.apply(pattern, data, x, alpha, beta, y0)[..., 0], 0
 
 
 class BsrSddmm(torch.autograd.Function):
@@ -318,12 +438,18 @@ class BsrSddmm(torch.autograd.Function):
     ``BsrSpmm``, run on K1 and K8: with W the BSR of ``pattern`` holding
     the incoming gradient's blocks w, dL/dg = conj(alpha) W b on K1 and
     dL/db = alpha W^H g on K1 over the cached transpose (W^H's blocks
-    ``w[order].transpose(1, 2).conj_physical()``); the ``jvp`` alpha (dg
-    b^H + g db^H) at the stored blocks is two K8 launches."""
+    ``w[order].transpose(1, 2)``, conjugated); the ``jvp`` alpha (dg
+    b^H + g db^H) at the stored blocks is two K8 launches.  ``g`` and
+    ``b`` may each come with a member dimension ahead (the batched form,
+    output (B, nblocks, bs, bs), one batched K8 launch), as for
+    ``CsrSddmm``."""
 
     @staticmethod
     def forward(pattern, g, b, alpha):
         g, b = _plain(g, b)
+        if _member(g, 2) or _member(b, 2):
+            return bsr.sddmm_batched(pattern.indptr, pattern.indices, g, b,
+                                     pattern.bs, alpha)
         return bsr.sddmm(pattern.indptr, pattern.indices, g, b, pattern.bs,
                          alpha)
 
@@ -331,6 +457,7 @@ class BsrSddmm(torch.autograd.Function):
     def setup_context(ctx, inputs, output):
         pattern, g, b, alpha = inputs
         ctx.pattern, ctx.alpha = pattern, alpha
+        ctx.dims = (g.dim(), b.dim())
         ctx.save_for_backward(g, b)
         ctx.save_for_forward(g, b)
 
@@ -341,10 +468,12 @@ class BsrSddmm(torch.autograd.Function):
         _, need_g, need_b, _ = ctx.needs_input_grad
         g_g = g_b = None
         if need_g:
-            g_g = BsrSpmm.apply(pattern, grad, b, _conj(alpha), None, None)
+            g_g = _sum_to(BsrSpmm.apply(pattern, grad, b, _conj(alpha), None,
+                                        None), ctx.dims[0])
         if need_b:
             t, grad_t = _bsr_transposed(pattern, grad)
-            g_b = BsrSpmm.apply(t, grad_t, g, alpha, None, None)
+            g_b = _sum_to(BsrSpmm.apply(t, grad_t, g, alpha, None, None),
+                          ctx.dims[1])
         return None, g_g, g_b, None
 
     @staticmethod
@@ -360,19 +489,24 @@ class BsrSddmm(torch.autograd.Function):
 
     @staticmethod
     def vmap(info, in_dims, pattern, g, b, alpha):
-        return _batched(info, in_dims, (pattern, g, b, alpha),
-                        BsrSddmm.apply)
+        (g, b), inner = _members(info, in_dims[1:3], (g, b), (2, 2))
+        return _unmerge(BsrSddmm.apply(pattern, g, b, alpha), info, inner)
 
 
 class BsrSpmm(torch.autograd.Function):
     """C = alpha * A @ b + beta * c0 on K1, A the BSR of ``pattern``
     (``formats.BsrPattern``) with blocks ``data``; differentiable in
     ``data``, ``b`` and ``c0``, to any order (its backward runs
-    ``BsrSddmm`` and itself)."""
+    ``BsrSddmm`` and itself).  ``data`` (nblocks, bs, bs), ``b`` and
+    ``c0`` may each come with a member dimension ahead (the batched form,
+    output (B, m, n), one batched K1 launch), as for ``CsrSpmm``."""
 
     @staticmethod
     def forward(pattern, data, b, alpha, beta, c0):
         data, b, c0 = _plain(data, b, c0)
+        if _member(data, 3) or _member(b, 2) or _member(c0, 2):
+            return bsr.spmm_batched(pattern.indptr, pattern.indices, data, b,
+                                    alpha, beta, c0, pattern.plan())
         return bsr.spmm(pattern.indptr, pattern.indices, data, b, alpha,
                         beta, c0, pattern.plan())
 
@@ -380,6 +514,8 @@ class BsrSpmm(torch.autograd.Function):
     def setup_context(ctx, inputs, output):
         pattern, data, b, alpha, beta, c0 = inputs
         ctx.pattern, ctx.alpha, ctx.beta = pattern, alpha, _beta(beta, c0)
+        ctx.dims = (data.dim(), b.dim(), None if c0 is None else c0.dim())
+        ctx.shape = output.shape
         ctx.save_for_backward(data, b)
         ctx.save_for_forward(data, b)
 
@@ -391,12 +527,14 @@ class BsrSpmm(torch.autograd.Function):
         grad = grad.contiguous()
         g_data = g_b = g_c0 = None
         if need_data:
-            g_data = BsrSddmm.apply(pattern, grad, b, alpha)
+            g_data = _sum_to(BsrSddmm.apply(pattern, grad, b, alpha),
+                             ctx.dims[0])
         if need_b:
             t, data_t = _bsr_transposed(pattern, data)
-            g_b = BsrSpmm.apply(t, data_t, grad, alpha, None, None)
+            g_b = _sum_to(BsrSpmm.apply(t, data_t, grad, alpha, None, None),
+                          ctx.dims[1])
         if need_c0:
-            g_c0 = grad * _conj(ctx.beta)
+            g_c0 = _sum_to(grad * _conj(ctx.beta), ctx.dims[2])
         return None, g_data, g_b, None, None, g_c0
 
     @staticmethod
@@ -410,18 +548,23 @@ class BsrSpmm(torch.autograd.Function):
         if d_b is not None:
             out = BsrSpmm.apply(pattern, data, d_b, alpha,
                                 None if out is None else 1.0, out)
-        return out
+        return _to_shape(out, ctx.shape)
 
     @staticmethod
     def vmap(info, in_dims, pattern, data, b, alpha, beta, c0):
         _, d_data, d_b, _, _, d_c0 = in_dims
-        if d_data is not None:
-            return _batched(info, in_dims, (pattern, data, b, alpha, beta,
-                                            c0), BsrSpmm.apply)
         size, m = info.batch_size, pattern.shape[0]
-        out = BsrSpmm.apply(pattern, data, _fold(b, d_b, size, 1), alpha,
-                            beta, _fold(c0, d_c0, size, 1))
-        return out.view(m, size, out.shape[1] // size), 1
+        if (d_data is None and not _member(data, 3)
+                and not _member(b, 2 + (d_b is not None))
+                and not _member(c0, 2 + (d_c0 is not None))):
+            # A batch of b (and c0) alone: the columns of one K1 launch.
+            out = BsrSpmm.apply(pattern, data, _fold(b, d_b, size, 1),
+                                alpha, beta, _fold(c0, d_c0, size, 1))
+            return out.view(m, size, out.shape[1] // size), 1
+        (data, b, c0), inner = _members(info, (d_data, d_b, d_c0),
+                                        (data, b, c0), (3, 2, 2))
+        return _unmerge(BsrSpmm.apply(pattern, data, b, alpha, beta, c0),
+                        info, inner)
 
 
 class CsrSpgemmSddmm(torch.autograd.Function):

@@ -44,6 +44,14 @@ predicate (``uses_tensor_cores``), chosen before the launch:
 ``bsr_sddmm.launches_tc`` and ``bsr_sddmm.launches_simt`` each.
 ``bsr_spmm`` takes ``ops.autograd.BsrSpmm`` when an operand is tracked,
 whose backward runs K8 and K1 over A^H.
+
+``spmm_batched`` and ``sddmm_batched`` run either kernel, in the variant
+the value type and bs name, for a batch of members that share A's
+pattern (blocks, b, c0 or g each per member or shared) in one launch, the
+member on the grid's z dimension: what ``torch.func.vmap`` over the
+blocks and the transforms built on it reach (``ops.autograd``).  Each
+member of K1's tensor-core variant has its own workspace slots for split
+block rows; the chunk plan is shared.
 """
 
 import torch
@@ -51,7 +59,9 @@ import torch
 from ..config import config
 from ..formats import bsr_chunk_plan, expand_indptr
 from . import _build
-from .csr import _check, refuse_tracked, refuse_views, tracked
+from .csr import (_check, batch_size, check_members, member_chunks,
+                  member_ptr, member_stride, refuse_tracked, refuse_views,
+                  tracked)
 from .dense import axpby, ieee_matmul
 
 
@@ -70,6 +80,28 @@ def bsr_spmm_plain(indptr, indices, data, b, alpha=None, beta=None, c0=None):
         c.index_add_(0, expand_indptr(indptr, nblocks),
                      torch.bmm(data, panels))
     return axpby(c.reshape(nbrows * bs, n), alpha, beta, c0)
+
+
+def bsr_spmm_batched_plain(indptr, indices, data, b, alpha=None, beta=None,
+                           c0=None):
+    """``spmm_batched`` in plain PyTorch, vectorised over the members:
+    ``bsr_spmm_plain``'s gathered panels and batched matmul with a member
+    dimension ahead (shared operands broadcast), one ``index_add_`` of
+    the block rows."""
+    size = batch_size("bsr_spmm", ((data, 3), (b, 2), (c0, 2)))
+    nblocks, bs = data.shape[-3], data.shape[-1]
+    nbrows = indptr.numel() - 1
+    k, n = b.shape[-2:]
+    c = torch.zeros((size, nbrows, bs, n), dtype=b.dtype, device=b.device)
+    if nblocks and n and size:
+        if b.is_cuda:
+            ieee_matmul()
+        panels = b.reshape(*b.shape[:-2], k // bs, bs, n)[
+            ..., indices.long(), :, :]
+        prods = torch.matmul(data, panels)
+        c.index_add_(1, expand_indptr(indptr, nblocks),
+                     prods.expand(size, nblocks, bs, n))
+    return axpby(c.reshape(size, nbrows * bs, n), alpha, beta, c0)
 
 
 def uses_tensor_cores(dtype, bs):
@@ -131,43 +163,118 @@ def spmm(indptr, indices, data, b, alpha=None, beta=None, c0=None,
     c = torch.empty((m, n), dtype=b.dtype, device=b.device)
     if m == 0 or n == 0:
         return c
-    dt, it = _build.type_codes(data, indptr)
+    plan = (_chunk_plan(plan, indptr, data.shape[0], b.device)
+            if uses_tensor_cores(data.dtype, bs) else None)
+    _launch_k1(indptr, indices, plan, alpha, beta, c0 is not None, 1,
+               (0, 0, 0, 0), data.data_ptr(), b.data_ptr(),
+               None if c0 is None else c0.data_ptr(), c.data_ptr(), data, b)
+    return c
+
+
+def _chunk_plan(plan, indptr, nblocks, device):
+    """``plan``, or the chunk plan of these arrays when None (K1's tensor
+    cores); raises when it was built for other arrays."""
+    if plan is None:
+        plan = bsr_chunk_plan(indptr, nblocks)
+    if ((plan.nbrows, plan.nblocks) != (indptr.numel() - 1, nblocks)
+            or plan.items.device != device):
+        raise ValueError("bsr_spmm: the chunk plan is for other arrays")
+    return plan
+
+
+def _launch_k1(indptr, indices, plan, alpha, beta, with_c0, members,
+               strides, data, b, c0, c, data_t, b_t):
+    """One launch of K1 for ``members`` members at ``strides`` (blocks, b,
+    c0, c), given the addresses: on the tensor cores with ``plan``, the
+    chunk plan (each member with its own workspace slots for the partial
+    tiles of split block rows), on the CUDA cores when it is None.
+    Counted in ``bsr_spmm.launches`` and ``launches_tc`` or
+    ``launches_simt``."""
+    bs, n = data_t.shape[-1], b_t.shape[-1]
+    dt, it = _build.type_codes(data_t, indptr)
     scalars = (*_build.scalar_parts(alpha),
-               *_build.scalar_parts(0.0 if c0 is None else beta))
-    c0_ptr = None if c0 is None else c0.data_ptr()
-    if uses_tensor_cores(data.dtype, bs):
-        nblocks = data.shape[0]
-        if plan is None:
-            plan = bsr_chunk_plan(indptr, nblocks)
-        if ((plan.nbrows, plan.nblocks) != (nbrows, nblocks)
-                or plan.items.device != b.device):
-            raise ValueError("bsr_spmm: the chunk plan is for other arrays")
+               *_build.scalar_parts(beta if with_c0 else 0.0))
+    if plan is not None:
         n_splits = plan.splits.shape[0]
-        # Partial tiles of split block rows; untouched when none is split.
-        work = (torch.empty((plan.slots, bs, n), dtype=b.dtype,
-                            device=b.device) if n_splits else None)
+        # Untouched when no block row is split.
+        work = (torch.empty((members, plan.slots, bs, n), dtype=b_t.dtype,
+                            device=b_t.device) if n_splits else None)
         _build.launch(
             "sdt_bsr_spmm_tc", dt, it, plan.items.data_ptr(),
             plan.items.shape[0], plan.splits.data_ptr(), n_splits,
-            indices.data_ptr(), data.data_ptr(), b.data_ptr(), c0_ptr,
-            c.data_ptr(), None if work is None else work.data_ptr(), bs, n,
-            *scalars, _build.stream_of(b),
+            indices.data_ptr(), data, b, c0, c,
+            None if work is None else work.data_ptr(), plan.slots, bs, n,
+            *scalars, members, *strides, _build.stream_of(b_t),
         )
         bsr_spmm.launches_tc += 1
     else:
         _build.launch(
             "sdt_bsr_spmm_simt", dt, it, indptr.data_ptr(),
-            indices.data_ptr(), data.data_ptr(), b.data_ptr(), c0_ptr,
-            c.data_ptr(), nbrows, bs, n, *scalars, _build.stream_of(b),
+            indices.data_ptr(), data, b, c0, c, indptr.numel() - 1, bs, n,
+            *scalars, members, *strides, _build.stream_of(b_t),
         )
         bsr_spmm.launches_simt += 1
     bsr_spmm.launches += 1
+
+
+def spmm_batched(indptr, indices, data, b, alpha=None, beta=None, c0=None,
+                 plan=None):
+    """K1 for a batch of members that share the BSR (``indptr``,
+    ``indices``): member i is ``alpha * A_i @ b_i + beta * c0_i``, A_i with
+    blocks ``data[i]``.  ``data`` is (B, nblocks, bs, bs) or (nblocks, bs,
+    bs), ``b`` (B, k, n) or (k, n), ``c0`` (B, m, n), (m, n) or None; at
+    least one has the member dimension, and each member is contiguous.
+    An operand without it (or expanded along it) is shared, read in place
+    by every member.  Returns a new (B, m, n) tensor.  One launch of the
+    variant ``uses_tensor_cores`` names (one per ``_build.MAX_MEMBERS``
+    members; the tensor-core variant's split block rows add their partial
+    tiles in a second kernel of the same call, each member in its own
+    workspace slots), counted as ``spmm``'s and in
+    ``bsr_spmm.launches_batched`` (and ``launches_batched_tc`` or
+    ``launches_batched_simt``).  The plain version on the CPU."""
+    refuse_views("bsr_spmm", indptr, indices, data, b, c0)
+    operands = ((data, 3), (b, 2), (c0, 2))
+    size = batch_size("bsr_spmm", operands)
+    if b.device.type == "cpu":
+        return bsr_spmm_batched_plain(indptr, indices, data, b, alpha, beta,
+                                      c0)
+    if not b.is_cuda:
+        raise ValueError(f"bsr_spmm: no kernel for device {b.device}")
+    check_members("bsr_spmm", (indptr, indices), operands)
+    nbrows, bs, n = indptr.numel() - 1, data.shape[-1], b.shape[-1]
+    m, nblocks = nbrows * bs, data.shape[-3]
+    if (data.shape[-2] != bs or b.shape[-2] % bs or nblocks != indices.numel()
+            or (c0 is not None and tuple(c0.shape[-2:]) != (m, n))):
+        raise ValueError(
+            f"bsr_spmm: blocks {tuple(data.shape)}, b {tuple(b.shape)} and "
+            f"c0 {None if c0 is None else tuple(c0.shape)} do not fit")
+    c = torch.empty((size, m, n), dtype=b.dtype, device=b.device)
+    if m == 0 or n == 0 or size == 0:
+        return c
+    tc = uses_tensor_cores(data.dtype, bs)
+    plan = _chunk_plan(plan, indptr, nblocks, b.device) if tc else None
+    strides = (member_stride("bsr_spmm", data, 3),
+               member_stride("bsr_spmm", b, 2),
+               member_stride("bsr_spmm", c0, 2), m * n)
+    for first, count in member_chunks(size):
+        _launch_k1(indptr, indices, plan, alpha, beta, c0 is not None,
+                   count, strides, *(member_ptr(t, st, first) for t, st in
+                                     zip((data, b, c0, c), strides)),
+                   data, b)
+        bsr_spmm.launches_batched += 1
+        if tc:
+            bsr_spmm.launches_batched_tc += 1
+        else:
+            bsr_spmm.launches_batched_simt += 1
     return c
 
 
 bsr_spmm.launches = 0
 bsr_spmm.launches_tc = 0
 bsr_spmm.launches_simt = 0
+bsr_spmm.launches_batched = 0
+bsr_spmm.launches_batched_tc = 0
+bsr_spmm.launches_batched_simt = 0
 
 
 # ---------------------------------------------------------------------------
@@ -176,19 +283,20 @@ bsr_spmm.launches_simt = 0
 
 
 def _strips_product(gs, bs_):
-    """``gs @ conj(bs_)^T`` for batches of strips (nb, bs, n), as one
-    ``torch.bmm`` in real arithmetic: complex strips go in as their real
-    and imaginary parts side by side, so that each product follows
-    numpy's component formula, as the kernels do (cuBLAS's complex GEMM
-    gives nan + nanj where a product of inf and a finite value is
+    """``gs @ conj(bs_)^T`` for batches of strips (..., nb, bs, n), as one
+    batched ``torch.matmul`` in real arithmetic (a ``torch.bmm`` for 3-d
+    strips; leading member dimensions broadcast): complex strips go in as
+    their real and imaginary parts side by side, so that each product
+    follows numpy's component formula, as the kernels do (cuBLAS's complex
+    GEMM gives nan + nanj where a product of inf and a finite value is
     +-inf +-infj by that formula)."""
     if not gs.is_complex():
-        return torch.bmm(gs, bs_.mT)
-    bs = bs_.shape[1]
+        return torch.matmul(gs, bs_.mT)
+    bs = bs_.shape[-2]
     g2 = torch.cat([gs.real, gs.imag], -1)
     b2 = torch.cat([torch.cat([bs_.real, bs_.imag], -1),
-                    torch.cat([-bs_.imag, bs_.real], -1)], 1)
-    out = torch.bmm(g2, b2.mT)
+                    torch.cat([-bs_.imag, bs_.real], -1)], -2)
+    out = torch.matmul(g2, b2.mT)
     return torch.complex(out[..., :bs], out[..., bs:])
 
 
@@ -213,6 +321,33 @@ def bsr_sddmm_plain(indptr, indices, g, b, bs, alpha=None):
             e = min(s + chunk, nblocks)
             out[s:e] = _strips_product(g_strips[rows[s:e]],
                                        b_strips[cols[s:e]])
+    if alpha is not None and complex(alpha) != 1:
+        out = out * alpha
+    return out
+
+
+def bsr_sddmm_batched_plain(indptr, indices, g, b, bs, alpha=None):
+    """``sddmm_batched`` in plain PyTorch, vectorised over the members:
+    ``bsr_sddmm_plain``'s gathered strips and batched product with a
+    member dimension ahead (a shared operand broadcast), chunked over the
+    blocks so each gathered strip of all members stays under
+    ``config.spmm_chunk_elements`` elements."""
+    size = batch_size("bsr_sddmm", ((g, 2), (b, 2)))
+    nblocks, n = indices.numel(), g.shape[-1]
+    out = torch.zeros((size, nblocks, bs, bs), dtype=g.dtype,
+                      device=g.device)
+    if nblocks and n and size:
+        if g.is_cuda:
+            ieee_matmul()
+        rows = expand_indptr(indptr, nblocks).long()
+        cols = indices.long()
+        g_strips = g.reshape(*g.shape[:-2], -1, bs, n)
+        b_strips = b.reshape(*b.shape[:-2], -1, bs, n)
+        chunk = max(1, config.spmm_chunk_elements // (size * bs * n))
+        for s in range(0, nblocks, chunk):
+            e = min(s + chunk, nblocks)
+            out[:, s:e] = _strips_product(g_strips[..., rows[s:e], :, :],
+                                          b_strips[..., cols[s:e], :, :])
     if alpha is not None and complex(alpha) != 1:
         out = out * alpha
     return out
@@ -253,21 +388,81 @@ def sddmm(indptr, indices, g, b, bs, alpha=None):
         return out
     if n == 0:
         return out.zero_()
-    dt, it = _build.type_codes(g, indptr)
-    args = (indptr.data_ptr(), nbrows, indices.data_ptr(), nblocks,
-            g.data_ptr(), b.data_ptr(), out.data_ptr(), bs, n)
-    if uses_tensor_cores(g.dtype, bs):
-        _build.launch("sdt_bsr_sddmm_tc", dt, it, *args,
-                      *_build.scalar_parts(alpha), _build.stream_of(g))
+    _launch_k8(indptr, indices, bs, alpha, 1, (0, 0, 0), g.data_ptr(),
+               b.data_ptr(), out.data_ptr(), g)
+    return out
+
+
+def _launch_k8(indptr, indices, bs, alpha, members, strides, g, b, out,
+               g_t):
+    """One launch of K8, in the variant ``uses_tensor_cores`` names, for
+    ``members`` members at ``strides`` (g, b, out), given the addresses;
+    counted in ``bsr_sddmm.launches`` and ``launches_tc`` or
+    ``launches_simt``."""
+    tc = uses_tensor_cores(g_t.dtype, bs)
+    dt, it = _build.type_codes(g_t, indptr)
+    _build.launch("sdt_bsr_sddmm_tc" if tc else "sdt_bsr_sddmm_simt", dt, it,
+                  indptr.data_ptr(), indptr.numel() - 1, indices.data_ptr(),
+                  indices.numel(), g, b, out, bs, g_t.shape[-1],
+                  *_build.scalar_parts(alpha), members, *strides,
+                  _build.stream_of(g_t))
+    if tc:
         bsr_sddmm.launches_tc += 1
     else:
-        _build.launch("sdt_bsr_sddmm_simt", dt, it, *args,
-                      *_build.scalar_parts(alpha), _build.stream_of(g))
         bsr_sddmm.launches_simt += 1
     bsr_sddmm.launches += 1
+
+
+def sddmm_batched(indptr, indices, g, b, bs, alpha=None):
+    """K8 for a batch of members that share the BSR (``indptr``,
+    ``indices``, ``bs`` x ``bs`` blocks): member i is ``bsr_sddmm`` of
+    ``g_i`` and ``b_i``, with ``g`` (B, nbrows * bs, n) or (nbrows * bs,
+    n) and ``b`` (B, k, n) or (k, n), at least one with the member
+    dimension, each member contiguous; an operand without it (or
+    expanded along it) is shared, read in place by every member.  Returns
+    a new (B, nblocks, bs, bs) tensor.  One launch of the variant
+    ``uses_tensor_cores`` names (one per ``_build.MAX_MEMBERS`` members),
+    counted as ``sddmm``'s and in ``bsr_sddmm.launches_batched`` (and
+    ``launches_batched_tc`` or ``launches_batched_simt``).  The plain
+    version on the CPU."""
+    refuse_views("bsr_sddmm", indptr, indices, g, b)
+    operands = ((g, 2), (b, 2))
+    size = batch_size("bsr_sddmm", operands)
+    nbrows = indptr.numel() - 1
+    if (g.shape[-2:] != (nbrows * bs, g.shape[-1]) or b.shape[-2] % bs
+            or b.shape[-1] != g.shape[-1]):
+        raise ValueError(f"bsr_sddmm: g {tuple(g.shape)} and b "
+                         f"{tuple(b.shape)} do not fit {nbrows} block rows "
+                         f"of {bs}")
+    if g.device.type == "cpu":
+        return bsr_sddmm_batched_plain(indptr, indices, g, b, bs, alpha)
+    if not g.is_cuda:
+        raise ValueError(f"bsr_sddmm: no kernel for device {g.device}")
+    check_members("bsr_sddmm", (indptr, indices), operands)
+    nblocks, n = indices.numel(), g.shape[-1]
+    out = torch.empty((size, nblocks, bs, bs), dtype=g.dtype,
+                      device=g.device)
+    if nblocks == 0 or size == 0:
+        return out
+    if n == 0:
+        return out.zero_()
+    strides = (member_stride("bsr_sddmm", g, 2),
+               member_stride("bsr_sddmm", b, 2), nblocks * bs * bs)
+    for first, count in member_chunks(size):
+        _launch_k8(indptr, indices, bs, alpha, count, strides,
+                   *(member_ptr(t, st, first)
+                     for t, st in zip((g, b, out), strides)), g)
+        bsr_sddmm.launches_batched += 1
+        if uses_tensor_cores(g.dtype, bs):
+            bsr_sddmm.launches_batched_tc += 1
+        else:
+            bsr_sddmm.launches_batched_simt += 1
     return out
 
 
 bsr_sddmm.launches = 0
 bsr_sddmm.launches_tc = 0
 bsr_sddmm.launches_simt = 0
+bsr_sddmm.launches_batched = 0
+bsr_sddmm.launches_batched_tc = 0
+bsr_sddmm.launches_batched_simt = 0

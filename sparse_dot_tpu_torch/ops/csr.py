@@ -19,6 +19,13 @@ main path's densities; the notes at the top of each ``.cu`` file say how
 their designs meet that.  K2's lane mapping is chosen on the host from n,
 the value type, the alignment of the pointers and the mean row length
 (``spmm_schedule``), with no device read.
+
+``spmm_batched`` runs K2 for a batch of members that share A's pattern
+(values, b and c0 each per member or shared) in one launch, the member
+on the grid's z dimension: what ``torch.func.vmap`` over the values
+(``ops.autograd``) and the transforms built on it reach.  The helpers
+below it (``batch_size``, ``member_stride``, ``member_chunks``) serve the
+batched wrappers of K1, K7 and K8 too.
 """
 
 from typing import NamedTuple
@@ -132,15 +139,88 @@ def _chunk_args(plan):
     return plan.counts.data_ptr(), plan.chunks.data_ptr(), plan.slots
 
 
-def _add_rows(out, rows, src):
-    """``out[rows] += src`` row by row.  Complex values are added on their
-    real view: ``index_add_`` on a complex tensor multiplies src by
-    alpha = 1+0j, and (1+0j)(inf+nanj) has a nan real part where scipy
-    keeps inf+nanj."""
+def _add_rows(out, rows, src, dim=0):
+    """``out[rows] += src`` row by row along ``dim``.  Complex values are
+    added on their real view: ``index_add_`` on a complex tensor
+    multiplies src by alpha = 1+0j, and (1+0j)(inf+nanj) has a nan real
+    part where scipy keeps inf+nanj."""
     if out.is_complex():
-        torch.view_as_real(out).index_add_(0, rows, torch.view_as_real(src))
+        torch.view_as_real(out).index_add_(dim, rows,
+                                           torch.view_as_real(src))
     else:
-        out.index_add_(0, rows, src)
+        out.index_add_(dim, rows, src)
+
+
+# ---------------------------------------------------------------------------
+# Batches: members that share one pattern, one launch (K1, K2, K7, K8)
+# ---------------------------------------------------------------------------
+
+
+def batch_size(name, operands):
+    """The members of a batched call: the leading size of every operand
+    given with a member dimension ahead of its own ``core`` dimensions
+    (``operands``: (tensor or None, core) pairs); these must agree, and
+    at least one operand must have it."""
+    sizes = {t.shape[0] for t, core in operands
+             if t is not None and t.dim() == core + 1}
+    if len(sizes) != 1:
+        raise ValueError(f"{name}: batched operands of sizes {sorted(sizes)}"
+                         "; need one member dimension of one size")
+    return sizes.pop()
+
+
+def member_stride(name, t, core):
+    """Operand ``t``'s member stride in elements: 0 when it has only its
+    ``core`` dimensions (shared: every member reads it in place, and it
+    is never copied) or is expanded along the members, else
+    ``t.stride(0)``, each member contiguous."""
+    if t is None or t.dim() == core:
+        return 0
+    if t.dim() != core + 1 or (t.shape[0] and not t[0].is_contiguous()):
+        raise ValueError(f"{name}: a batched operand of {tuple(t.shape)} "
+                         f"needs {core} contiguous dimensions a member")
+    return t.stride(0)
+
+
+def member_chunks(size):
+    """(first member, members) of each launch of a batch of ``size``:
+    launches of at most ``_build.MAX_MEMBERS`` (the grid's limit)."""
+    return [(s, min(_build.MAX_MEMBERS, size - s))
+            for s in range(0, size, _build.MAX_MEMBERS)]
+
+
+def member_ptr(t, stride, first):
+    """The address of member ``first`` of ``t`` (None for None)."""
+    if t is None:
+        return None
+    return t.data_ptr() + first * stride * t.element_size()
+
+
+def aligned_members(*pairs):
+    """Whether every member of each (tensor, member stride) starts on 16
+    bytes: its first does and the stride is whole 16-byte units."""
+    return all(t.data_ptr() % 16 == 0 and (st * t.element_size()) % 16 == 0
+               for t, st in pairs if t is not None)
+
+
+def check_members(name, index_tensors, operands):
+    """``_check`` for a batched call: one CUDA device, one index and one
+    value dtype, no lazy view, each operand's members contiguous
+    (``member_stride``)."""
+    values = [t for t, _ in operands if t is not None]
+    refuse_views(name, *index_tensors, *values)
+    device = values[0].device
+    for t in (*index_tensors, *values):
+        if t.device != device:
+            raise ValueError(f"{name}: tensors on {t.device} and {device}")
+    if not all(t.is_contiguous() for t in index_tensors):
+        raise ValueError(f"{name}: operands must be contiguous")
+    for t, core in operands:
+        member_stride(name, t, core)
+    if any(t.dtype != index_tensors[0].dtype for t in index_tensors):
+        raise TypeError(f"{name}: indptr and indices dtypes differ")
+    if any(t.dtype != values[0].dtype for t in values):
+        raise TypeError(f"{name}: value dtypes differ")
 
 
 # ---------------------------------------------------------------------------
@@ -164,6 +244,28 @@ def csr_spmm_plain(indptr, indices, data, b, alpha=None, beta=None, c0=None):
             e = min(s + chunk, nnz)
             gathered = data[s:e, None] * b[indices[s:e].long()]
             _add_rows(c, rows[s:e], gathered)
+    return axpby(c, alpha, beta, c0)
+
+
+def csr_spmm_batched_plain(indptr, indices, data, b, alpha=None, beta=None,
+                           c0=None):
+    """``spmm_batched`` in plain PyTorch, vectorised over the members:
+    ``csr_spmm_plain``'s gather, scale and ``index_add_`` with a member
+    dimension ahead (shared operands broadcast), chunked over nnz so the
+    gathered intermediate of all members stays under
+    ``config.spmm_chunk_elements`` elements."""
+    size = batch_size("csr_spmm", ((data, 1), (b, 2), (c0, 2)))
+    m, n = indptr.numel() - 1, b.shape[-1]
+    nnz = indices.numel()
+    c = torch.zeros((size, m, n), dtype=b.dtype, device=b.device)
+    if nnz and n and size:
+        rows = expand_indptr(indptr, nnz)
+        nchunks = max(1, (size * nnz * n) // config.spmm_chunk_elements)
+        chunk = -(-nnz // nchunks)
+        for s in range(0, nnz, chunk):
+            e = min(s + chunk, nnz)
+            gathered = data[..., s:e, None] * b[..., indices[s:e].long(), :]
+            _add_rows(c, rows[s:e], gathered.expand(size, e - s, n), dim=1)
     return axpby(c, alpha, beta, c0)
 
 
@@ -250,22 +352,86 @@ def spmm(indptr, indices, data, b, alpha=None, beta=None, c0=None,
     # Partial rows of the chunks of split rows; untouched when none is.
     work = (torch.empty((plan.slots, n), dtype=b.dtype, device=b.device)
             if n_chunks else None)
-    dt, it = _build.type_codes(data, indptr)
+    _launch_k2(indptr, indices, plan, s, alpha, beta, c0 is not None, 1,
+               (0, 0, 0, 0), data.data_ptr(), b.data_ptr(),
+               None if c0 is None else c0.data_ptr(), c.data_ptr(),
+               None if work is None else work.data_ptr(), counts, data, b)
+    return c
+
+
+def _launch_k2(indptr, indices, plan, s, alpha, beta, with_c0, members,
+               strides, data, b, c0, c, work, counts, data_t, b_t):
+    """One launch of K2 (``sdt_csr_spmm``) for ``members`` members at
+    ``strides`` (values, b, c0, c), given the addresses; counted in
+    ``csr_spmm.launches``."""
+    _, chunks, n_chunks = _chunk_args(plan)
+    m, n = indptr.numel() - 1, b_t.shape[-1]
+    dt, it = _build.type_codes(data_t, indptr)
     _build.launch(
-        "sdt_csr_spmm", dt, it, indptr.data_ptr(), indices.data_ptr(),
-        data.data_ptr(), b.data_ptr(),
-        None if c0 is None else c0.data_ptr(), c.data_ptr(),
-        None if work is None else work.data_ptr(), counts, chunks, n_chunks,
-        m, n, plan.chunk, s.vec, s.lanes, s.split, s.per_lane,
-        *_build.scalar_parts(alpha),
-        *_build.scalar_parts(0.0 if c0 is None else beta),
-        _build.stream_of(b),
+        "sdt_csr_spmm", dt, it, indptr.data_ptr(), indices.data_ptr(), data,
+        b, c0, c, work, counts, chunks, n_chunks, m, n, plan.chunk, s.vec,
+        s.lanes, s.split, s.per_lane, *_build.scalar_parts(alpha),
+        *_build.scalar_parts(beta if with_c0 else 0.0), members, *strides,
+        _build.stream_of(b_t),
     )
     csr_spmm.launches += 1
+
+
+def spmm_batched(indptr, indices, data, b, alpha=None, beta=None, c0=None,
+                 plan=None):
+    """K2 for a batch of members that share the CSR (``indptr``,
+    ``indices``): member i is ``alpha * A_i @ b_i + beta * c0_i``, A_i
+    with values ``data[i]``.  ``data`` is (B, nnz) or (nnz,), ``b`` (B, k,
+    n) or (k, n), ``c0`` (B, m, n), (m, n) or None; at least one has the
+    member dimension, and each member is contiguous.  An operand without
+    it, or expanded along it, is shared: every member reads it in place.
+    Returns a new (B, m, n) tensor.  One launch on the card (one per
+    ``_build.MAX_MEMBERS`` members), each member with its own counts and
+    workspace for split rows; counted in ``csr_spmm.launches`` and
+    ``csr_spmm.launches_batched``.  The plain version on the CPU."""
+    refuse_views("csr_spmm", indptr, indices, data, b, c0)
+    operands = ((data, 1), (b, 2), (c0, 2))
+    size = batch_size("csr_spmm", operands)
+    if b.device.type == "cpu":
+        return csr_spmm_batched_plain(indptr, indices, data, b, alpha, beta,
+                                      c0)
+    if not b.is_cuda:
+        raise ValueError(f"csr_spmm: no kernel for device {b.device}")
+    check_members("csr_spmm", (indptr, indices), operands)
+    m, nnz, n = indptr.numel() - 1, indices.numel(), b.shape[-1]
+    if data.shape[-1] != nnz or (
+            c0 is not None and tuple(c0.shape[-2:]) != (m, n)):
+        raise ValueError(f"csr_spmm: values {tuple(data.shape)} and c0 "
+                         f"{None if c0 is None else tuple(c0.shape)} do not "
+                         f"fit {nnz} entries and ({m}, {n})")
+    c = torch.empty((size, m, n), dtype=b.dtype, device=b.device)
+    if m == 0 or n == 0 or size == 0:
+        return c
+    plan = _row_plan("csr_spmm", plan, indptr, nnz, spmv=False)
+    strides = (member_stride("csr_spmm", data, 1),
+               member_stride("csr_spmm", b, 2),
+               member_stride("csr_spmm", c0, 2), m * n)
+    s = spmm_schedule(n, b.dtype, nnz / m, aligned_members(
+        (b, strides[1]), (c0, strides[2]), (c, strides[3])))
+    for first, count in member_chunks(size):
+        # Each member's own counts (zeroed) and partial rows of split rows.
+        counts = work = None
+        if plan.slots:
+            counts = torch.zeros((count, plan.slots), dtype=torch.int32,
+                                 device=b.device)
+            work = torch.empty((count, plan.slots, n), dtype=b.dtype,
+                               device=b.device)
+        _launch_k2(indptr, indices, plan, s, alpha, beta, c0 is not None,
+                   count, strides, *(member_ptr(t, st, first) for t, st in
+                                     zip((data, b, c0, c), strides)),
+                   None if work is None else work.data_ptr(),
+                   None if counts is None else counts.data_ptr(), data, b)
+        csr_spmm.launches_batched += 1
     return c
 
 
 csr_spmm.launches = 0
+csr_spmm.launches_batched = 0
 
 
 # ---------------------------------------------------------------------------

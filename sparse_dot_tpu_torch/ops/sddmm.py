@@ -22,6 +22,12 @@ whole B row per entry through L2 sets its time.  Its lane mapping is
 K2's (``csr.spmm_schedule``), chosen on the host with no device read,
 with rounds of entries software-pipelined and spans sized to one wave
 of the card (``sddmm_schedule``).
+
+``sddmm_batched`` runs K7 for a batch of members that share the pattern
+(g and b each per member or shared) in one launch, the member on the
+grid's y dimension: the backward of ``torch.func.vmap`` over the values
+or over b (per-sample gradients), ``jacrev``'s batch of cotangents and a
+batch of tangents (``ops.autograd``).
 """
 
 from typing import NamedTuple
@@ -31,7 +37,9 @@ import torch
 from ..config import config
 from ..formats import expand_indptr
 from . import _build
-from .csr import _check, refuse_tracked, refuse_views, spmm_schedule
+from .csr import (_check, aligned_members, batch_size, check_members,
+                  member_chunks, member_ptr, member_stride, refuse_tracked,
+                  refuse_views, spmm_schedule)
 
 # Groups of 32 lanes in one wave of the span kernel: the H100's 132 SMs,
 # 32 warps on each (``csrc/csr_sddmm.cu``, kSpanBlocks blocks of 4 warps).
@@ -109,6 +117,29 @@ def csr_sddmm_plain(indptr, indices, g, b, alpha=None):
     return out
 
 
+def csr_sddmm_batched_plain(indptr, indices, g, b, alpha=None):
+    """``sddmm_batched`` in plain PyTorch, vectorised over the members:
+    ``csr_sddmm_plain``'s gathers, product and sum with a member
+    dimension ahead (a shared operand broadcast), chunked over nnz so the
+    gathered intermediate of all members stays under
+    ``config.spmm_chunk_elements`` elements."""
+    size = batch_size("csr_sddmm", ((g, 2), (b, 2)))
+    nnz, n = indices.numel(), g.shape[-1]
+    out = torch.zeros((size, nnz), dtype=g.dtype, device=g.device)
+    if nnz and n and size:
+        rows = expand_indptr(indptr, nnz).long()
+        nchunks = max(1, (size * nnz * n) // config.spmm_chunk_elements)
+        chunk = -(-nnz // nchunks)
+        for s in range(0, nnz, chunk):
+            e = min(s + chunk, nnz)
+            prods = g[..., rows[s:e], :] * b[..., indices[s:e].long(),
+                                             :].conj()
+            out[:, s:e] = prods.sum(-1)
+    if alpha is not None and complex(alpha) != 1:
+        out = out * alpha
+    return out
+
+
 def csr_sddmm(indptr, indices, g, b, alpha=None):
     """``alpha * (g @ b^H)`` at the entries of the CSR (``indptr`` of
     m + 1, ``indices`` into k columns), for row-major ``g`` of (m, n) and
@@ -144,15 +175,67 @@ def sddmm(indptr, indices, g, b, alpha=None):
         return out.zero_()
     aligned = g.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
     s = sddmm_schedule(n, g.dtype, nnz, aligned)
-    dt, it = _build.type_codes(g, indptr)
+    _launch_k7(indptr, indices, s, alpha, 1, (0, 0, 0), g.data_ptr(),
+               b.data_ptr(), out.data_ptr(), g)
+    return out
+
+
+def _launch_k7(indptr, indices, s, alpha, members, strides, g, b, out,
+               g_t):
+    """One launch of K7 (``sdt_csr_sddmm``) for ``members`` members at
+    ``strides`` (g, b, out), given the addresses; counted in
+    ``csr_sddmm.launches``."""
+    m, nnz, n = indptr.numel() - 1, indices.numel(), g_t.shape[-1]
+    dt, it = _build.type_codes(g_t, indptr)
     _build.launch(
-        "sdt_csr_sddmm", dt, it, indptr.data_ptr(), indices.data_ptr(),
-        g.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, nnz, s.vec,
-        s.lanes, s.per_lane, s.round, s.span, *_build.scalar_parts(alpha),
-        _build.stream_of(g),
+        "sdt_csr_sddmm", dt, it, indptr.data_ptr(), indices.data_ptr(), g, b,
+        out, m, n, nnz, s.vec, s.lanes, s.per_lane, s.round, s.span,
+        *_build.scalar_parts(alpha), members, *strides, _build.stream_of(g_t),
     )
     csr_sddmm.launches += 1
+
+
+def sddmm_batched(indptr, indices, g, b, alpha=None):
+    """K7 for a batch of members that share the CSR (``indptr``,
+    ``indices``): member i is ``alpha * (g_i @ b_i^H)`` at the entries,
+    with ``g`` (B, m, n) or (m, n) and ``b`` (B, k, n) or (k, n), at least
+    one with the member dimension, each member contiguous; an operand
+    without it (or expanded along it) is shared, read in place by every
+    member.  Returns a new (B, nnz) tensor.  One launch on the card (one
+    per ``_build.MAX_MEMBERS`` members), its spans sized over all the
+    members' entries; counted in ``csr_sddmm.launches`` and
+    ``csr_sddmm.launches_batched``.  The plain version on the CPU."""
+    refuse_views("csr_sddmm", indptr, indices, g, b)
+    operands = ((g, 2), (b, 2))
+    size = batch_size("csr_sddmm", operands)
+    if g.device.type == "cpu":
+        return csr_sddmm_batched_plain(indptr, indices, g, b, alpha)
+    if not g.is_cuda:
+        raise ValueError(f"csr_sddmm: no kernel for device {g.device}")
+    check_members("csr_sddmm", (indptr, indices), operands)
+    m, nnz = indptr.numel() - 1, indices.numel()
+    if g.shape[-2] != m or g.shape[-1] != b.shape[-1]:
+        raise ValueError(f"csr_sddmm: g {tuple(g.shape)} and b "
+                         f"{tuple(b.shape)} do not fit {m} rows")
+    n = g.shape[-1]
+    if n > _MAX_N:
+        raise ValueError(f"csr_sddmm: n = {n} past the kernel's {_MAX_N}")
+    out = torch.empty((size, nnz), dtype=g.dtype, device=g.device)
+    if nnz == 0 or size == 0:
+        return out
+    if n == 0:
+        return out.zero_()
+    strides = (member_stride("csr_sddmm", g, 2),
+               member_stride("csr_sddmm", b, 2), nnz)
+    s = sddmm_schedule(n, g.dtype, size * nnz,
+                       aligned_members((g, strides[0]), (b, strides[1])))
+    for first, count in member_chunks(size):
+        _launch_k7(indptr, indices, s, alpha, count, strides,
+                   *(member_ptr(t, st, first)
+                     for t, st in zip((g, b, out), strides)), g)
+        csr_sddmm.launches_batched += 1
     return out
 
 
 csr_sddmm.launches = 0
+csr_sddmm.launches_batched = 0
