@@ -87,7 +87,15 @@ Phases, each printing one JSON line:
    split block row (each member with its own counts, partial rows and
    workspace slots), every call twice for the same bits, and a batch of
    70,000 tiny members through each (two launches: the grid holds
-   65,535 a launch).  Then
+   65,535 a launch); and the sparse x sparse ones
+   (``check_batched_spgemm``): K5, K6, K9 (both forms) and K11 (both
+   forms) against their batched plain versions in every value type and
+   both index widths, with shared and per-member operands at odd member
+   strides, with and without ``triangular``, K6 with and without the
+   alpha/beta/c0 epilogue over sorted and shuffled op(B) on split rows
+   and column windows, K5 on every row bin (its indices equal the single
+   product's), K9 and K11 staged and in place, each call twice for the
+   same bits, and 70,000 members each (two launches).  Then
    ``torch.autograd.gradcheck`` (reverse and forward mode) of
    ``ops.coo_spmm_raw``, ``coo_spmv``, ``csr_spmm``, the BSR device
    function ``ops.bsr_spmm`` (on both K1 variants), ``csr_spgemm_dense``
@@ -154,8 +162,13 @@ Phases, each printing one JSON line:
    ``vmap`` over the values) beside 4 K3 launches, K7 at config 1 over 4
    and 16 (G, B) pairs beside batched-CSR ``torch.sparse.sampled_addmm``,
    K1 and K8 at config 3 (bs 64, f64) and at the complex BSR over 4
-   members, beside their rows' yardsticks made once a member; and the
-   wall time of ``dot_product(X, X.T)`` beside scipy's;
+   members, beside their rows' yardsticks made once a member; K6 at the
+   demo X @ X.T over 4 and 16 value sets, K9 there in both forms over 4
+   G's, K11 at cases a and c in both forms over 4 G's (patterns given as
+   ``CsrSpgemmSparseSddmm`` gives them) and K5 at case c over 4 value
+   sets on one plan beside 4 x ``torch.sparse.mm(A_csr, B_csr)``
+   (``batched_spgemm_rows``, each with ``device_ms``); and the wall time
+   of ``dot_product(X, X.T)`` beside scipy's;
 5. the solver path, with the counts set to 0 again and the plain versions
    of K1-K9 and K11 made to raise, each result checked against
    scipy/numpy on the host: the handle protocol on the demo X (create,
@@ -217,7 +230,14 @@ Phases, each printing one JSON line:
    block sets at config 3 (K1 1, K8 1, batched), ``jacrev`` of
    ``coo_spmm_raw`` in the values at a small pattern (K2 1, K7 1) and
    ``hessian`` of sum(sin(.)) in (values, b) there (K2 6, K7 3), against
-   the plain versions;
+   the plain versions; then the sparse x sparse ones
+   (``batched_spgemm_training``): an ensemble over 4 value sets of the
+   demo X through ``csr_spgemm_dense`` with its gradients (K6 1, K9 2,
+   all batched), ``jacrev`` of ``csr_spgemm_dense`` at a small pattern
+   (K6 1, K9 1 batched), ``hessian`` of sum(sin(``csr_spgemm``)) there
+   (K4 1, K5 3 of which 2 batched, K11 6 batched) and an ensemble over 4
+   value sets of the 1M^2 A @ A with sparse output and its gradients (K4
+   1, K5 1 and K11 2 batched);
 7. the sharded layer (``sparse_dot_tpu_torch.parallel``) in a one-rank
    NCCL group on the card (one card: NCCL takes one rank a GPU), the
    plain versions refused: ``sharded_spmm`` at config 1 (f64, f32, c128),
@@ -258,8 +278,8 @@ API's gradgradcheck), its phase-4 rows and its phase-6 runs with their
 Hessian-vector products (K8: the BSR one; K9: the dense-output one;
 K11: the sparse-output and the CSR ones); ``--only sharded`` runs phase 1
 and phase 7 and prints no result line; ``--only batched`` runs phase 1,
-``check_batched``, ``batched_rows`` and ``batched_training``, and prints
-no result line.
+``check_batched``, ``batched_rows``, ``batched_spgemm_rows`` and
+``batched_training``, and prints no result line.
 """
 
 import argparse
@@ -491,7 +511,7 @@ def check_kernels(spgemm_only=False):
         results.update(k89)
         k11, k11_lanes, k11_gradcheck = check_k11_all()
         results.update(k11)
-        batched_paths = check_batched(record)
+        batched_paths, batched_spgemm = check_batched(record)
     check_csr_special(rng, record)
     check_bins_seen(bins_seen)
     check_k6_seen(k6_seen)
@@ -510,6 +530,7 @@ def check_kernels(spgemm_only=False):
          k7_schedules=sorted(k7_schedules), k7_edges=sorted(k7_seen),
          k9_lanes=k9_lanes, k11_lanes=k11_lanes,
          batched_16_byte_paths=batched_paths,
+         batched_spgemm_seen=batched_spgemm,
          gradcheck_launches=check_gradcheck(),
          k11_gradcheck_launches=k11_gradcheck,
          gradgradcheck_launches=check_second_order())
@@ -1455,9 +1476,11 @@ def check_batched(record):
     alpha, beta and c0, members at odd strides (the scalar path), K2 and
     K7 over a row past 3x K2's chunk (split: each member's own counts
     and partial rows), K1 over a split block row (each member's own
-    workspace slots); every call run twice for the same bits; then a
-    batch of BIG_BATCH tiny members through each, two launches.
-    Returns {kernel: (16-byte paths seen, scalar paths seen)}."""
+    workspace slots); every call run twice for the same bits; then the
+    sparse x sparse kernels K5, K6, K9 and K11 (``check_batched_spgemm``);
+    then a batch of BIG_BATCH tiny members through each, two launches.
+    Returns ({kernel: (16-byte paths seen, scalar paths seen)}, the
+    sparse x sparse plans seen)."""
     from sparse_dot_tpu_torch import formats
     from sparse_dot_tpu_torch.ops import bsr, csr, sddmm
 
@@ -1552,15 +1575,18 @@ def check_batched(record):
         if paths.get(name) != want:
             raise AssertionError(f"batched {name} took only the "
                                  f"{paths.get(name)} 16-byte paths")
+    spgemm_seen = check_batched_spgemm(record)
     check_big_batch(record)
-    return {name: sorted(seen) for name, seen in paths.items()}
+    return ({name: sorted(seen) for name, seen in paths.items()},
+            spgemm_seen)
 
 
 def check_big_batch(record):
     """BIG_BATCH members of a tiny pattern through each batched wrapper:
     two launches each (65,535 members, then the rest), against the
-    batched plain versions."""
-    from sparse_dot_tpu_torch.ops import bsr, csr, sddmm
+    batched plain versions (K5, K6, K9 and K11 also twice for the same
+    bits)."""
+    from sparse_dot_tpu_torch.ops import bsr, csr, sddmm, spgemm, spgemm_grad
 
     rng = np.random.default_rng(SEED + 18)
     indptr, indices, _ = random_csr(rng, 3, 2, 2, np.float64)
@@ -1591,6 +1617,252 @@ def check_big_batch(record):
                            bs)
         record(k8_name(tdt, bs), compare(out, bsr.bsr_sddmm_batched_plain(
             ip, ix, g, b, bs), tdt))
+    # The sparse x sparse kernels on a 3 x 2 op(A) times a 2 x 2 op(B).
+    a_ip, a_ix, a_dv = map(cuda, distinct_rows(rng, (1, 2, 0), 2, np.float64,
+                                               np.int32))
+    b_ip, b_ix, b_dv = map(cuda, distinct_rows(rng, (2, 1), 2, np.float64,
+                                               np.int32))
+    av = cuda(values(rng, (BIG_BATCH, a_ix.numel()), np.float64))
+    c_ip, c_ix, _ = spgemm.product(a_ip, a_ix, a_dv, b_ip, b_ix, b_dv, 2)
+    f64 = torch.float64
+    _, out = spgemm_batched_call(
+        spgemm.csr_spgemm_fill, 2, "K5", spgemm.fill_batched, a_ip, a_ix, av,
+        b_ip, b_ix, b_dv, 2, None, c_ip, c_ix.numel())
+    record("K5_csr_spgemm_fill", compare(
+        out, spgemm.csr_spgemm_fill_batched_plain(a_ip, a_ix, av, b_ip, b_ix,
+                                                  b_dv, 2)[1], f64))
+    # K6 over a 1 x 2 op(A) and a 2 x 1000 op(B): rows cut into windows,
+    # whose start table the first launch builds and the second reads.
+    w_ip, w_ix, _ = map(cuda, distinct_rows(rng, (2,), 2, np.float64,
+                                            np.int32))
+    wb_ip, wb_ix, wb_dv = map(cuda, distinct_rows(rng, (40, 40), 1000,
+                                                  np.float64, np.int32))
+    wv = cuda(values(rng, (BIG_BATCH, 2), np.float64))
+    out = spgemm_batched_call(
+        spgemm.csr_spgemm_dense, 2, "K6", spgemm.spgemm_dense_batched, w_ip,
+        w_ix, wv, wb_ip, wb_ix, wb_dv, 1000)
+    if not spgemm.csr_spgemm_dense.last_table:
+        raise AssertionError("batched K6: no window-start table")
+    record("K6_csr_spgemm_dense", compare(
+        out, spgemm.csr_spgemm_dense_batched_plain(w_ip, w_ix, wv, wb_ip,
+                                                   wb_ix, wb_dv, 1000), f64))
+    del out, wv
+    d = cuda(values(rng, (BIG_BATCH, 3, 2), np.float64))
+    out = spgemm_batched_call(
+        spgemm_grad.csr_spgemm_sddmm, 2, "K9", spgemm_grad.sampled_batched,
+        a_ip, a_ix, d, b_ip, b_ix, b_dv)
+    record("K9_csr_spgemm_sddmm", compare(
+        out, spgemm_grad.csr_spgemm_sddmm_batched_plain(
+            a_ip, a_ix, d, b_ip, b_ix, b_dv), f64))
+    g = cuda(values(rng, (BIG_BATCH, c_ix.numel()), np.float64))
+    for transposed in (False, True):
+        args = (a_ip, a_ix, av, b_ip, b_ix, b_dv, c_ip, c_ix, g, 2,
+                transposed)
+        out = spgemm_batched_call(
+            spgemm_grad.csr_spgemm_sparse_sddmm, 2, "K11",
+            spgemm_grad.sparse_sampled_batched, *args)
+        record("K11_csr_spgemm_sparse_sddmm", compare(
+            out, spgemm_grad.csr_spgemm_sparse_sddmm_batched_plain(*args),
+            f64))
+
+
+# Phase 2's batched sparse x sparse cases: (m, k, n, op(A)'s row lengths,
+# op(B)'s), rows of distinct shuffled columns.  The first puts K5's rows in
+# every bin (up to a dense row in the device workspace) and cuts K6's rows
+# into windows; the second splits K6's rows across warps; the third is
+# many short rows (K5's register bins, K9's and K11's staged runs); the
+# fourth has rows of C past 2000 entries (K11's long lines).
+SPGEMM_BATCH_CASES = (
+    (42, 2000, 100_000, (0, 1, 3, 10, 40, 150, 600), (20,)),
+    (3, 3000, 300, (1200, 2000, 1500), (20,)),
+    (300, 200, 150, (3, 0, 5, 2), (4, 6, 0, 3)),
+    (20, 30, 3000, (2,) * 10 + (30,) + (2,) * 9, (150,)),
+)
+# Which of op(A)'s and op(B)'s values (and K6's c0: None, "shared" or
+# "batched") a batched case gives with a member dimension; for K9 and K11
+# (d or G, Y's values).
+K6_COMBOS = ((True, False, None), (True, True, "batched"),
+             (False, True, "shared"), (False, False, "batched"))
+PAIR_COMBOS = ((True, False), (False, True), (True, True))
+
+
+def spgemm_batched_call(wrapper, launches, name, fn, *args):
+    """fn(*args) of a batched sparse x sparse wrapper, checked to make
+    ``launches`` batched launches (``wrapper.launches_batched``) and run
+    twice for the same bits (nan included); K5's (indices, data) checked
+    on its data, the indices equal."""
+    before = wrapper.launches_batched
+    out = fn(*args)
+    made = wrapper.launches_batched - before
+    if made != launches:
+        raise AssertionError(f"{name}: {made} batched launches, expected "
+                             f"{launches}")
+    again = fn(*args)
+    pairs = tuple(zip(out, again)) if isinstance(out, tuple) else (
+        (out, again),)
+    if not all(same_bits(x, y) if x.is_floating_point() or x.is_complex()
+               else torch.equal(x, y) for x, y in pairs):
+        raise AssertionError(f"{name}: runs differ")
+    return out
+
+
+def check_batched_spgemm(record, budgets=(None, 0)):
+    """Phase 2 for the batched sparse x sparse launches: K5
+    (``fill_batched``, its indices equal to the single product's), K6
+    (``spgemm_dense_batched``, with and without ``triangular`` and the
+    alpha/beta/c0 epilogue, over op(B) sorted and shuffled), K9
+    (``sampled_batched``, both forms, with and without alpha) and K11
+    (``sparse_sampled_batched``, both forms, with and without
+    ``triangular``) against their batched plain versions at every case of
+    SPGEMM_BATCH_CASES, in every value type (int64 indices for f64 and
+    c64, int32 for the others), with shared and per-member operands
+    (``K6_COMBOS``, ``PAIR_COMBOS``), members at odd strides, K9's and
+    K11's lines staged and read in place (``budgets``); every call run
+    twice for the same bits, one batched launch each.  Returns the K6
+    plans and the (form, staged) of K9 and K11 seen."""
+    from sparse_dot_tpu_torch import formats
+    from sparse_dot_tpu_torch.ops import spgemm, spgemm_grad
+
+    rng = np.random.default_rng(SEED + 24)
+    seen = {"K6": set(), "K9": set(), "K11": set()}
+    for tdt, npdt in NP_DTYPES.items():
+        itype = np.int64 if tdt in (torch.float64, torch.complex64) \
+            else np.int32
+        alpha = 0.5 - 0.25j if np.dtype(npdt).kind == "c" else -1.5
+        for m, k, n, a_rows, b_rows in SPGEMM_BATCH_CASES:
+            a = distinct_rows(rng, np.resize(a_rows, m), k, npdt, itype)
+            b = distinct_rows(rng, np.resize(b_rows, k), n, npdt, itype)
+            a_ip, a_ix, a_dv = map(cuda, a)
+            b_ip, b_ix, b_dv = map(cuda, b)
+            bs_ix = cuda(sorted_rows(*b)[1])
+            by_column = cuda(np.lexsort(
+                (b[1], np.repeat(np.arange(k), np.diff(b[0])))))
+            plan = spgemm.spgemm_plan(a_ip, a_ix, b_ip, n, tdt, a_ip.dtype)
+            shapes = ((a[1].size,), (b[1].size,))
+            for tri in (False, True):
+                c_ip, c_ix, _ = spgemm.product(a_ip, a_ix, a_dv, b_ip, b_ix,
+                                               b_dv, n, tri)
+                nnz = c_ix.numel()
+                for odd in (False, True):
+                    for combo in PAIR_COMBOS:
+                        av, bv = member_operands(rng, npdt, shapes, combo,
+                                                 odd)
+                        idx, out = spgemm_batched_call(
+                            spgemm.csr_spgemm_fill, int(nnz > 0), "K5",
+                            spgemm.fill_batched, a_ip, a_ix, av, b_ip, b_ix,
+                            bv, n, plan, c_ip, nnz, tri)
+                        ref = spgemm.csr_spgemm_fill_batched_plain(
+                            a_ip, a_ix, av, b_ip, b_ix, bv, n, tri)
+                        if not (torch.equal(idx, c_ix)
+                                and torch.equal(idx, ref[0])):
+                            raise AssertionError(f"batched K5 {tdt} m={m}: "
+                                                 "indices differ")
+                        record("K5_csr_spgemm_fill",
+                               compare(out, ref[1], tdt))
+                    av, bv, g = member_operands(
+                        rng, npdt, (*shapes, (nnz,)), (True,) * 3, odd)
+                    for g_b, y_b in PAIR_COMBOS:
+                        for transposed in (False, True):
+                            y = (av if transposed else bv) if y_b else (
+                                av[0] if transposed else bv[0])
+                            check_k11_batched(
+                                record, seen, budgets, tdt, a_ip, a_ix,
+                                y if transposed else a_dv, b_ip, b_ix,
+                                b_dv if transposed else y, c_ip, c_ix,
+                                g if g_b else g[0], n, transposed, tri)
+            for odd in (False, True):
+                for combo in K6_COMBOS:
+                    av, bv, c0 = member_operands(rng, npdt, (*shapes, (m, n)),
+                                                 combo, odd)
+                    for tri in (False, True):
+                        for srt in (False, True):
+                            bix, bvv = ((bs_ix, bv[..., by_column]
+                                         .contiguous()) if srt
+                                        else (b_ix, bv))
+                            for al, be in ((None, None), (alpha, 2.0)):
+                                cc = None if be is None else c0
+                                if cc is None and not (combo[0] or
+                                                       combo[1]):
+                                    continue
+                                args = (a_ip, a_ix, av, b_ip, bix, bvv, n,
+                                        al, be, cc, tri, srt)
+                                out = spgemm_batched_call(
+                                    spgemm.csr_spgemm_dense, 1, "K6",
+                                    spgemm.spgemm_dense_batched, *args)
+                                used = spgemm.csr_spgemm_dense.last_plan
+                                seen["K6"].add((used.splits > 1,
+                                                used.windows > 1, srt, tri))
+                                ref = spgemm.csr_spgemm_dense_batched_plain(
+                                    a_ip, a_ix, av, b_ip, bs_ix,
+                                    bv[..., by_column], n, al, be, cc, tri)
+                                record("K6_csr_spgemm_dense",
+                                       compare(out, ref, tdt))
+                # K9: d = G (m, n); dA with Y = op(B), dB with Y = op(A)^T.
+                t, order = formats.CsrPattern(a_ip, a_ix, k).transpose()
+                for d_b, y_b in PAIR_COMBOS:
+                    d, av, bv = member_operands(
+                        rng, npdt, ((m, n), *shapes), (d_b, y_b, y_b), odd)
+                    for transposed in (False, True):
+                        p_arr, y_arr = ((b_ip, b_ix), (
+                            t.indptr, t.indices, av[..., order].contiguous())
+                        ) if transposed else ((a_ip, a_ix), (b_ip, b_ix, bv))
+                        for budget in budgets:
+                            with k9_budget(budget):
+                                staged = k9_plan(d[0] if d_b else d,
+                                                 *y_arr[:2],
+                                                 transposed).staged
+                                for al in (None, alpha):
+                                    args = (*p_arr, d, *y_arr, al,
+                                            transposed)
+                                    out = spgemm_batched_call(
+                                        spgemm_grad.csr_spgemm_sddmm,
+                                        int(p_arr[1].numel() > 0), "K9",
+                                        spgemm_grad.sampled_batched, *args)
+                                    record("K9_csr_spgemm_sddmm", compare(
+                                        out, spgemm_grad
+                                        .csr_spgemm_sddmm_batched_plain(
+                                            *args), tdt))
+                            seen["K9"].add((transposed, staged))
+    check_seen_batched(seen)
+    return {name: sorted(map(list, got)) for name, got in seen.items()}
+
+
+def check_k11_batched(record, seen, budgets, tdt, a_ip, a_ix, a_dv, b_ip,
+                      b_ix, b_dv, c_ip, c_ix, g, n, transposed, triangular):
+    """One batched K11 form under each of ``budgets``, against its batched
+    plain version; ``seen`` collects (form, staged)."""
+    from sparse_dot_tpu_torch.ops import spgemm_grad
+
+    args = (a_ip, a_ix, a_dv, b_ip, b_ix, b_dv, c_ip, c_ix, g, n,
+            transposed, triangular)
+    p_nnz = (b_ix if transposed else a_ix).numel()
+    for budget in budgets:
+        with k11_budget(budget):
+            staged = k11_plan((a_ip, a_ix, a_dv), (b_ip, b_ix, b_dv), g, n,
+                              transposed).staged
+            out = spgemm_batched_call(
+                spgemm_grad.csr_spgemm_sparse_sddmm, int(p_nnz > 0), "K11",
+                spgemm_grad.sparse_sampled_batched, *args)
+        seen["K11"].add((transposed, staged))
+        record("K11_csr_spgemm_sparse_sddmm", compare(
+            out, spgemm_grad.csr_spgemm_sparse_sddmm_batched_plain(*args),
+            tdt))
+
+
+def check_seen_batched(seen):
+    """The batched checks reached K6's split rows, windows, sorted and
+    shuffled op(B) with and without ``triangular``, and K9's and K11's
+    both forms staged and in place."""
+    k6 = seen["K6"]
+    if not ({s[0] for s in k6} == {s[1] for s in k6} == {False, True}
+            and {s[2:] for s in k6} == {(x, y) for x in (False, True)
+                                        for y in (False, True)}):
+        raise AssertionError(f"batched K6 ran only {sorted(k6)}")
+    want = {(x, y) for x in (False, True) for y in (False, True)}
+    for name in ("K9", "K11"):
+        if seen[name] != want:
+            raise AssertionError(f"batched {name} ran only "
+                                 f"{sorted(seen[name])}")
 
 
 def check_second_order():
@@ -2177,7 +2449,9 @@ def main_path():
 # ---------------------------------------------------------------------------
 
 SPGEMM_PLAIN = ("spgemm_plain", "csr_spgemm_count_plain",
-                "csr_spgemm_fill_plain", "csr_spgemm_dense_plain")
+                "csr_spgemm_fill_plain", "csr_spgemm_dense_plain",
+                "spgemm_plain_batched", "csr_spgemm_fill_batched_plain",
+                "csr_spgemm_dense_batched_plain")
 
 
 def demo_x():
@@ -2227,7 +2501,9 @@ ALL_PLAIN = {"spgemm": SPGEMM_PLAIN,
                      "bsr_spmm_batched_plain", "bsr_sddmm_batched_plain"),
              "sddmm": ("csr_sddmm_plain", "csr_sddmm_batched_plain"),
              "spgemm_grad": ("csr_spgemm_sddmm_plain",
-                             "csr_spgemm_sparse_sddmm_plain")}
+                             "csr_spgemm_sparse_sddmm_plain",
+                             "csr_spgemm_sddmm_batched_plain",
+                             "csr_spgemm_sparse_sddmm_batched_plain")}
 
 
 class plain_versions_refused:
@@ -2266,7 +2542,10 @@ def reset_launches():
         fn.launches = 0
     bsr.bsr_spmm.launches_tc = bsr.bsr_spmm.launches_simt = 0
     bsr.bsr_sddmm.launches_tc = bsr.bsr_sddmm.launches_simt = 0
-    for fn in (csr.csr_spmm, sddmm.csr_sddmm, bsr.bsr_spmm, bsr.bsr_sddmm):
+    for fn in (csr.csr_spmm, sddmm.csr_sddmm, bsr.bsr_spmm, bsr.bsr_sddmm,
+               spgemm.csr_spgemm_fill, spgemm.csr_spgemm_dense,
+               spgemm_grad.csr_spgemm_sddmm,
+               spgemm_grad.csr_spgemm_sparse_sddmm):
         fn.launches_batched = 0
     for fn in (bsr.bsr_spmm, bsr.bsr_sddmm):
         fn.launches_batched_tc = fn.launches_batched_simt = 0
@@ -2275,14 +2554,20 @@ def reset_launches():
 def read_batched():
     """The batched launches among ``read_launches``' counts, by kernel
     (K1 and K8 by variant)."""
-    from sparse_dot_tpu_torch.ops import bsr, csr, sddmm
+    from sparse_dot_tpu_torch.ops import bsr, csr, sddmm, spgemm, spgemm_grad
 
     return {"K1_bsr_spmm_tc": bsr.bsr_spmm.launches_batched_tc,
             "K1_bsr_spmm_simt": bsr.bsr_spmm.launches_batched_simt,
             "K2_csr_spmm": csr.csr_spmm.launches_batched,
+            "K5_csr_spgemm_fill": spgemm.csr_spgemm_fill.launches_batched,
+            "K6_csr_spgemm_dense": spgemm.csr_spgemm_dense.launches_batched,
             "K7_csr_sddmm": sddmm.csr_sddmm.launches_batched,
             "K8_bsr_sddmm_tc": bsr.bsr_sddmm.launches_batched_tc,
-            "K8_bsr_sddmm_simt": bsr.bsr_sddmm.launches_batched_simt}
+            "K8_bsr_sddmm_simt": bsr.bsr_sddmm.launches_batched_simt,
+            "K9_csr_spgemm_sddmm":
+                spgemm_grad.csr_spgemm_sddmm.launches_batched,
+            "K11_csr_spgemm_sparse_sddmm":
+                spgemm_grad.csr_spgemm_sparse_sddmm.launches_batched}
 
 
 def read_launches():
@@ -3479,6 +3764,7 @@ def spgemm_timings(inp):
     rows += k6_timings(inp)
     rows += k9_rows(inp)
     rows += k11_rows(inp)
+    rows += batched_spgemm_rows(inp)
 
     wall = {"dot_product": [], "scipy": []}
     for _ in range(5):
@@ -3663,6 +3949,203 @@ def k6_timings(inp):
         rows.append(row)
         del A, B, args
         torch.cuda.empty_cache()
+    return rows
+
+
+def k6_batched_bound(args, size):
+    """``k6_bound`` of a batched K6 call of ``size`` members: op(A)'s index
+    arrays and the entries of op(B) it names once, each member's values
+    (once for a shared operand), ``size`` outputs; ``size`` times the
+    multiply-adds."""
+    ip, ix, dv, bip, bix, bdv, n = args
+    products, read, named = k6_work(ip, ix, bip, bix, n, False)
+    moved = (nbytes(ip, ix) + dv.shape[-1] * members_of(dv, 1)
+             * dv.element_size()
+             + read * (bix.element_size()
+                       + members_of(bdv, 1) * bdv.element_size())
+             + 2 * named * bip.element_size()
+             + size * (ip.numel() - 1) * n * dv.element_size())
+    flop = size * flops_per_product(dv.dtype) * products
+    return bound(moved, flop, CUDA_CORE_FLOPS[dv.dtype])
+
+
+def k9_batched_bound(args, size):
+    """``k9_bound`` of a batched K9 call of ``size`` members (d and Y's
+    values per member or shared)."""
+    from sparse_dot_tpu_torch.ops import spgemm_grad
+
+    ip, ix, d, y_ip, y_ix, y_dv, _, transposed = args
+    products, y_rows, y_entries = k9_work(ip, ix, y_ip, transposed)
+    line, _ = spgemm_grad.entry_ids(ip, ix, transposed)
+    d_lines = int(torch.unique(line.long()).numel())
+    line_len = d.shape[-2] if transposed else d.shape[-1]
+    moved = (nbytes(ip, ix)
+             + members_of(d, 2) * d_lines * line_len * d.element_size()
+             + 2 * y_rows * y_ip.element_size()
+             + y_entries * (y_ix.element_size()
+                            + members_of(y_dv, 1) * y_dv.element_size())
+             + size * ix.numel() * d.element_size())
+    flop = size * flops_per_product(d.dtype) * products
+    return bound(moved, flop, CUDA_CORE_FLOPS[d.dtype])
+
+
+def k11_batched_bound(a, b, c, g, transposed, size):
+    """``k11_bound`` of a batched K11 call of ``size`` members over G's
+    values ``g`` (B, nnz(C)), op(A)'s and op(B)'s values shared."""
+    products = int(b[0].long().diff()[a[1].long()].sum())
+    p, y = (b, a) if transposed else (a, b)
+    moved = (nbytes(p[0], p[1], *y, *c) + members_of(g, 1)
+             * g.shape[-1] * g.element_size()
+             + size * p[1].numel() * g.element_size())
+    flop = size * flops_per_product(g.dtype) * products
+    return bound(moved, flop, CUDA_CORE_FLOPS[g.dtype])
+
+
+def batched_spgemm_rows(inp):
+    """Phase 4's rows of the batched sparse x sparse launches, each beside
+    the same members' single launches in the same turns
+    (``ms_over_single_launches``), f64: K6 at case a (the demo X @ X.T)
+    over 4 and 16 value sets of op(A), op(B) shared; K9 at case a,
+    dL/dA and dL/dB, over 4 G's, the values shared (``jacrev``'s and a
+    batch of tangents' launch); K11 at cases a and c, dL/dA and dL/dB,
+    over 4 G's on C's pattern; K5 at case c over 4 value sets of op(A)
+    on one shared plan, beside 4 x ``torch.sparse.mm(A_csr, B_csr)``
+    (cuSPARSE SpGEMM, which also counts the pattern) as its yardstick.
+    Each with its bound (``k6_batched_bound``, ``k9_batched_bound``,
+    ``k11_batched_bound``; K5: the index arrays and C's structure once,
+    each member's values and output)."""
+    from sparse_dot_tpu_torch import formats
+    from sparse_dot_tpu_torch.ops import autograd, spgemm, spgemm_grad
+
+    rng = np.random.default_rng(SEED + 25)
+    rows = []
+    x = inp["x"]
+    shape_a = "demo X @ X.T, X 500x5000 CSR 21.2% f64"
+    A, B = formats.to_device(x), formats.to_device(x.T)
+    ip, ix, dv = A.csr_arrays()
+    bip, bix, bdv = B.csr_arrays()
+    n, b_sorted = x.shape[0], B.csr_sorted()
+    for size in (4, 16):
+        av = dv[None] * (1 + 0.1 * cuda(values(rng, (size, ix.numel()),
+                                               np.float64)))
+        args = (ip, ix, av, bip, bix, bdv, n)
+        rows.append(timed_row(
+            "K6_csr_spgemm_dense",
+            f"batched: {shape_a}, {size} value sets of op(A), op(B) shared",
+            lambda: spgemm.spgemm_dense_batched(*args, b_sorted=b_sorted),
+            lambda: spgemm.csr_spgemm_dense_batched_plain(*args),
+            k6_batched_bound(args, size),
+            beside={f"{size}_single_launches": lambda: [
+                spgemm.csr_spgemm_dense(ip, ix, av[i], bip, bix, bdv, n,
+                                        b_sorted=b_sorted)
+                for i in range(size)]},
+            device_match="spgemm_dense_kernel", members=size, case="a"))
+        del av
+    g = cuda(values(rng, (4, n, n), np.float64))
+    t, order = formats.CsrPattern(ip, ix, x.shape[1]).transpose()
+    for transposed in (False, True):
+        args = ((bip, bix, g, t.indptr, t.indices, dv[order], None, True)
+                if transposed else (ip, ix, g, bip, bix, bdv, None, False))
+        rows.append(timed_row(
+            "K9_csr_spgemm_sddmm",
+            f"batched: {shape_a}, 4 G's ({n},{n}), "
+            f"{'dL/dB' if transposed else 'dL/dA'}, values shared",
+            lambda: spgemm_grad.sampled_batched(*args),
+            lambda: spgemm_grad.csr_spgemm_sddmm_batched_plain(*args),
+            k9_batched_bound(args, 4),
+            beside={"4_single_launches": lambda: [
+                spgemm_grad.csr_spgemm_sddmm(*args[:2], args[2][i],
+                                             *args[3:])
+                for i in range(4)]},
+            device_match="sampled_kernel", members=4,
+            case="a-dB" if transposed else "a-dA"))
+    del g, A, B
+    for case, shape, a_np, b_np in (
+            ("a", shape_a + ", sparse output", x, x.T.tocsr()),
+            ("c", "1M x 1M CSR, 2M random nnz, A @ A, f64, sparse output",
+             inp["a1m"], inp["a1m"])):
+        A, B = formats.to_device(a_np), formats.to_device(b_np)
+        a, b = A.csr_arrays(), B.csr_arrays()
+        n = b_np.shape[1]
+        c = spgemm.csr_spgemm(*a, *b, n)[:2]
+        g = cuda(values(rng, (4, c[1].numel()), np.float64))
+        # The patterns as CsrSpgemmSparseSddmm gives them (C's column span
+        # known: no host read), to the batched and the single calls.
+        pats = {"a": autograd.patterns.get(a[0], a[1], b[0].numel() - 1),
+                "b": autograd.patterns.get(b[0], b[1], n),
+                "c": formats.CsrPattern(c[0], c[1], n, span=(0, n))}
+        for transposed in (False, True):
+            args = (*a, *b, *c, g, n, transposed)
+            first = max(tt[0] for tt in time_turns({
+                "kernel": lambda: spgemm_grad.sparse_sampled_batched(
+                    *args, **pats),
+                "plain": lambda: spgemm_grad
+                .csr_spgemm_sparse_sddmm_batched_plain(*args)}, 1).values())
+            rows.append(timed_row(
+                "K11_csr_spgemm_sparse_sddmm",
+                f"batched: {shape}, 4 G's on C's pattern, "
+                f"{'dL/dB' if transposed else 'dL/dA'}, values shared",
+                lambda: spgemm_grad.sparse_sampled_batched(*args, **pats),
+                lambda: spgemm_grad.csr_spgemm_sparse_sddmm_batched_plain(
+                    *args),
+                k11_batched_bound(a, b, c, g, transposed, 4),
+                (None, "none: torch has no sampled product of two sparse "
+                       "operands at a sparse pattern"),
+                reps=REPS if first <= 50 else 5,
+                beside={"4_single_launches": lambda: [
+                    spgemm_grad.sparse_sampled(*args[:8], g[i], *args[9:],
+                                               **pats)
+                    for i in range(4)]},
+                device_match=K11_DEVICE_NAMES,
+                members=4, case=f"{case}-{'dB' if transposed else 'dA'}"))
+        del pats
+        autograd.patterns.clear()
+        if case == "c":
+            ip, ix, dv = a
+            bip, bix, bdv = b
+            plan = spgemm.spgemm_plan(ip, ix, bip, n, dv.dtype, ip.dtype)
+            sizes = plan.offsets.diff().tolist()
+            nnz = c[1].numel()
+            av = dv[None] * (1 + 0.1 * cuda(values(rng, (4, ix.numel()),
+                                                   np.float64)))
+            fill_args = (ip, ix, av, bip, bix, bdv, n)
+            named = torch.unique(ix.long())
+            b_len = (bip[1:] - bip[:-1]).long()[named]
+            moved = (nbytes(ip, ix, av) + int(b_len.sum())
+                     * (bix.element_size() + bdv.element_size())
+                     + 2 * named.numel() * bip.element_size()
+                     + nbytes(*c) + 4 * nnz * dv.element_size())
+            flop = 4 * flops_per_product(dv.dtype) * int(plan.ub.sum())
+            mats = [torch.sparse_csr_tensor(ip, ix, av[i], size=a_np.shape)
+                    for i in range(4)]
+            b_t = torch.sparse_csr_tensor(bip, bix, bdv, size=b_np.shape)
+            rows.append(timed_row(
+                "K5_csr_spgemm_fill",
+                f"batched: {shape}, 4 value sets of op(A), op(B) shared, "
+                "one plan",
+                lambda: spgemm.fill_batched(*fill_args, plan, c[0], nnz,
+                                            bin_sizes=sizes)[1],
+                lambda: spgemm.csr_spgemm_fill_batched_plain(*fill_args)[1],
+                bound(moved, flop, CUDA_CORE_FLOPS[dv.dtype]),
+                beside={"4_single_launches": lambda: [
+                    spgemm.csr_spgemm_fill(ip, ix, av[i], bip, bix, bdv, n,
+                                           plan, c[0], nnz,
+                                           bin_sizes=sizes)[1]
+                    for i in range(4)],
+                    "yardstick": lambda: [torch.sparse.mm(mat, b_t)
+                                          for mat in mats]},
+                yardstick_note="beside's yardstick: 4 x torch.sparse.mm("
+                               "A_csr, B_csr) (cuSPARSE SpGEMM, which counts "
+                               "the pattern too), one a member",
+                device_match=("spgemm_tiny_kernel", "spgemm_rows_kernel"),
+                members=4, case="c"))
+            del av, mats, b_t
+        del A, B, a, b, c, g
+        torch.cuda.empty_cache()
+    for row in rows:
+        (single,) = (v for k, v in row["beside"].items()
+                     if k.endswith("_single_launches"))
+        row["ms_over_single_launches"] = row["ms"] / single["ms"]
     return rows
 
 
@@ -4673,9 +5156,11 @@ def batched_run(name, fn, expected, expected_batched, member_loop=None):
                                  f"({expected_batched} batched)")
         loop_diff = None
         if member_loop is not None:
-            looped = torch.stack(member_loop())
+            looped = [tensor_leaves(r) for r in member_loop()]
             torch.cuda.synchronize()
-            loop_diff = float((out - looped).abs().max())
+            loop_diff = max(
+                float((got - torch.stack([r[j] for r in looped])).abs().max())
+                for j, got in enumerate(tensor_leaves(out)))
             del looped
         walls, loop_walls = [], []
         for _ in range(BATCHED_REPS):
@@ -4700,7 +5185,7 @@ def batched_run(name, fn, expected, expected_batched, member_loop=None):
     return out, record
 
 
-def batched_training(inputs):
+def batched_training(inputs, spgemm_inp):
     """Phase 6's batched runs, each a first call with its exact launches
     (one a ``vmap`` level, the plain versions refused), timed wall and
     device busy ms, and its result against the plain versions:
@@ -4724,8 +5209,9 @@ def batched_training(inputs):
       6 times (2 batched), K7 3 times (batched);
 
     the last two against the same transform on CPU copies of the inputs,
-    where the Functions run the plain versions.  Returns the launches of
-    all four (the ``vmap`` path)."""
+    where the Functions run the plain versions; then the sparse x sparse
+    runs (``batched_spgemm_training``).  Returns the launches of all (the
+    ``vmap`` path)."""
     from sparse_dot_tpu_torch import ops
     from sparse_dot_tpu_torch.ops import autograd, bsr, csr, sddmm
 
@@ -4821,6 +5307,7 @@ def batched_training(inputs):
         errs[name] = err
         runs[name]["members"] = (m * n if name.startswith("jacrev")
                                  else len(indices) + k * n)
+    batched_spgemm_training(runs, errs, spgemm_inp, rng)
     for name, record in runs.items():
         record["max_abs_err_vs_plain"] = errs[name]
     launches = read_launches()
@@ -4832,6 +5319,137 @@ def batched_training(inputs):
                f"median of {BATCHED_REPS} more, the member loop in the "
                "same turns; device busy: torch.profiler, one more call")
     return launches
+
+
+# Phase 6's small sparse x sparse pattern for jacrev and hessian: op(A)
+# (m x k) and op(B) (k x n) with (op(A)'s, op(B)'s) row lengths.
+SPGEMM_JAC_PATTERN = (60, 50, 40, (4, 3, 5), (5, 2, 6))
+
+
+def batched_spgemm_training(runs, errs, inp, rng):
+    """Phase 6's batched sparse x sparse runs (``batched_run``: exact
+    launches, the plain versions refused), into ``runs`` and ``errs``:
+
+    - an ensemble over ENSEMBLE value sets of the demo X as op(A) (op(B)
+      a CSR of X^T, its values shared) through ``csr_spgemm_dense``:
+      ``vmap`` of ``grad`` of ||op(A)_i op(B) - T||^2 in (op(A)'s, op(B)'s
+      values): K6 once, K9 twice, all batched; the member loop beside it;
+      each member's gradients against the plain versions on the card
+      (``csr_spgemm_dense_plain``, ``sampled_rows_plain``,
+      ``sampled_cols_plain``);
+    - ``jacrev`` of ``csr_spgemm_dense`` in op(A)'s values at
+      SPGEMM_JAC_PATTERN: K6 once, K9 once (batched over the m n
+      cotangents);
+    - ``hessian`` of sum(sin(``csr_spgemm``'s values)) in (op(A)'s,
+      op(B)'s values) there: K4 1, K5 3 (2 batched), K11 6 (batched);
+      both against the same transform on CPU copies;
+    - an ensemble over ENSEMBLE value sets of op(A) of the 1M^2 A @ A with
+      sparse output: ``vmap`` of ``grad`` of ||C_i - T||^2 on C's
+      pattern in (op(A)'s, op(B)'s values): one K4, one K5 and K11 twice,
+      K5 and K11 batched; the member loop beside it; against
+      ``spgemm_plain`` and ``csr_spgemm_sparse_sddmm_plain`` on the
+      card."""
+    from sparse_dot_tpu_torch import formats
+    from sparse_dot_tpu_torch.ops import spgemm, spgemm_grad
+
+    # The demo X @ X.T ensemble (dense output).
+    x = inp["x"]
+    A, B = formats.to_device(x), formats.to_device(x.T.tocsr())
+    ip, ix, dv = A.csr_arrays()
+    bip, bix, bdv = B.csr_arrays()
+    n = x.shape[0]
+    target = cuda((x @ x.T).toarray())
+    avs = dv[None] * (1 + 0.1 * cuda(values(rng, (ENSEMBLE, ix.numel()),
+                                            np.float64)))
+
+    def dense_loss(av, bv):
+        c = spgemm.csr_spgemm_dense(ip, ix, av, bip, bix, bv, n)
+        return ((c - target) ** 2).sum()
+
+    grad = torch.func.grad(dense_loss, argnums=(0, 1))
+    name = "ensemble_grads_spgemm_dense_demo_f64"
+    grads, runs[name] = batched_run(
+        name, lambda: torch.func.vmap(grad, in_dims=(0, None))(avs, bdv),
+        {"K6_csr_spgemm_dense": 1, "K9_csr_spgemm_sddmm": 2},
+        {"K6_csr_spgemm_dense": 1, "K9_csr_spgemm_sddmm": 2},
+        lambda: [grad(avs[i], bdv) for i in range(ENSEMBLE)])
+    t, order = formats.CsrPattern(ip, ix, x.shape[1]).transpose()
+    err = 0.0
+    for i in range(ENSEMBLE):
+        g = 2 * (spgemm.csr_spgemm_dense_plain(ip, ix, avs[i], bip, bix, bdv,
+                                               n) - target)
+        refs = (spgemm_grad.sampled_rows_plain(ip, ix, g, bip, bix, bdv),
+                spgemm_grad.sampled_cols_plain(bip, bix, g, t.indptr,
+                                               t.indices, avs[i][order]))
+        for got, ref in zip(grads, refs):
+            err = max(err, compare(got[i], ref, ref.dtype))
+    errs[name] = err
+    del A, B, avs, grads, target
+    # jacrev and hessian at a small pattern, against CPU copies.
+    m, k, nn, a_rows, b_rows = SPGEMM_JAC_PATTERN
+    host = [torch.from_numpy(arr) for arr in (
+        *distinct_rows(rng, np.resize(a_rows, m), k, np.float64, np.int32),
+        *distinct_rows(rng, np.resize(b_rows, k), nn, np.float64,
+                       np.int32))]
+    card = [arr.cuda() for arr in host]
+
+    def jac(a_ip, a_ix, av, b_ip, b_ix, bv):
+        return torch.func.jacrev(lambda z: spgemm.csr_spgemm_dense(
+            a_ip, a_ix, z, b_ip, b_ix, bv, nn))(av)
+
+    def hess(a_ip, a_ix, av, b_ip, b_ix, bv):
+        return torch.func.hessian(lambda y, z: torch.sin(spgemm.csr_spgemm(
+            a_ip, a_ix, y, b_ip, b_ix, z, nn)[2]).sum(),
+            argnums=(0, 1))(av, bv)
+
+    for name, fn, expected, batched, members in (
+            ("jacrev_spgemm_dense_small_f64", jac,
+             {"K6_csr_spgemm_dense": 1, "K9_csr_spgemm_sddmm": 1},
+             {"K9_csr_spgemm_sddmm": 1}, m * nn),
+            ("hessian_spgemm_sparse_small_f64", hess,
+             {"K4_csr_spgemm_count": 1, "K5_csr_spgemm_fill": 3,
+              "K11_csr_spgemm_sparse_sddmm": 6},
+             {"K5_csr_spgemm_fill": 2, "K11_csr_spgemm_sparse_sddmm": 6},
+             host[1].numel() + host[4].numel())):
+        out, runs[name] = batched_run(name, lambda: fn(*card), expected,
+                                      batched)
+        err = 0.0
+        for got, want in zip(tensor_leaves(out), tensor_leaves(fn(*host))):
+            err = max(err, compare(got.cpu(), want, want.dtype))
+        errs[name] = err
+        runs[name]["members"] = members
+    # The 1M^2 A @ A ensemble (sparse output).
+    A = formats.to_device(inp["a1m"])
+    ip, ix, dv = A.csr_arrays()
+    n = inp["a1m"].shape[1]
+    c_ip, c_ix, c_dv = spgemm.csr_spgemm(ip, ix, dv, ip, ix, dv, n)
+    target = c_dv * (1 + 0.1 * cuda(values(rng, c_dv.numel(), np.float64)))
+    avs = dv[None] * (1 + 0.1 * cuda(values(rng, (ENSEMBLE, ix.numel()),
+                                            np.float64)))
+
+    def sparse_loss(av, bv):
+        return ((spgemm.csr_spgemm(ip, ix, av, ip, ix, bv, n)[2] - target)
+                ** 2).sum()
+
+    grad = torch.func.grad(sparse_loss, argnums=(0, 1))
+    name = "ensemble_grads_spgemm_sparse_1m_f64"
+    grads, runs[name] = batched_run(
+        name, lambda: torch.func.vmap(grad, in_dims=(0, None))(avs, dv),
+        {"K4_csr_spgemm_count": 1, "K5_csr_spgemm_fill": 1,
+         "K11_csr_spgemm_sparse_sddmm": 2},
+        {"K5_csr_spgemm_fill": 1, "K11_csr_spgemm_sparse_sddmm": 2},
+        lambda: [grad(avs[i], dv) for i in range(ENSEMBLE)])
+    err = 0.0
+    for i in range(ENSEMBLE):
+        g = 2 * (spgemm.spgemm_plain(ip, ix, avs[i], ip, ix, dv, n)[2]
+                 - target)
+        for got, transposed in zip(grads, (False, True)):
+            ref = spgemm_grad.csr_spgemm_sparse_sddmm_plain(
+                ip, ix, avs[i], ip, ix, dv, c_ip, c_ix, g, n, transposed)
+            err = max(err, compare(got[i], ref, ref.dtype))
+    errs[name] = err
+    del A, avs, grads, target, c_dv
+    torch.cuda.empty_cache()
 
 
 def tensor_leaves(x):
@@ -5226,8 +5844,9 @@ def main():
              "K11 (its phase-2 checks with csr_spgemm's gradcheck and "
              "check_second_order, k11_rows, spgemm_sparse_training, "
              "spgemm_sparse_hvp and hessian_vector_product); sharded runs "
-             "phase 1 and phase 7 (sharded_path); batched runs phase 1 and "
-             "the batched launches' phase-2 checks (check_batched)")
+             "phase 1 and phase 7 (sharded_path); batched runs phase 1, "
+             "the batched launches' phase-2 checks (check_batched), their "
+             "phase-4 rows and phase 6's batched runs")
     only = parser.parse_args().only
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -5310,16 +5929,18 @@ def main():
             results[name]["max_abs_err"] = max(
                 results[name]["max_abs_err"], err)
 
-        paths = check_batched(record)
+        paths, spgemm_seen = check_batched(record)
         emit(2, kernels={k: v for k, v in results.items() if v["cases"]},
-             batched_16_byte_paths=paths)
+             batched_16_byte_paths=paths, batched_spgemm_seen=spgemm_seen)
         inputs, rows = path_inputs(), []
         batched_rows(rows, inputs, np.random.default_rng(SEED + 4))
+        spgemm_inp = spgemm_inputs()
+        rows += batched_spgemm_rows(spgemm_inp)
         emit("4-batched", rows=rows,
              timer="cuda events, median (p10, p90), 1 GiB read before "
                    "each; library, yardstick and beside timed in the same "
                    "turns")
-        batched_training(inputs)
+        batched_training(inputs, spgemm_inp)
         return
     check_kernels()
     by_path = {}
@@ -5334,7 +5955,7 @@ def main():
     grad = grad_training(inputs, spgemm_inp)
     by_path["training"] = {name: training[name] + grad[name]
                            for name in KERNELS}
-    by_path["vmap"] = batched_training(inputs)
+    by_path["vmap"] = batched_training(inputs, spgemm_inp)
     batched["vmap"] = read_batched()
     by_path["sharded"] = sharded_path(sharded_inputs(inputs, solver_inp))
     launches = {name: sum(path[name] for path in by_path.values())

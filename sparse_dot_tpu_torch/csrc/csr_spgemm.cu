@@ -56,6 +56,19 @@
 // products stay in op(A)'s stored order, and folds them with the same
 // fma from zero.  Every value is thus summed in op(A)'s stored order with
 // no float atomics: the same bits on every run, and on either path.
+//
+// A batch of K5 fills whose members share op(A)'s and op(B)'s patterns
+// (jax.vmap of esc_spgemm_block over the values; torch.func.vmap, jacfwd
+// and hessian of csr_spgemm) is one launch a bin, the member on
+// blockIdx.y: the plan, the bins and C's indptr are the patterns' and
+// shared, op(A)'s and op(B)'s values and C's values have member strides
+// (0 for an operand that all members share; C's values nnz(C) apart), and
+// a kDenseGlobal group's workspace row is its member's own.  Every member
+// builds each row from the same columns in the same order (the same
+// sorted keys and hash tables, the same flags), so C's column ids, which
+// member 0 alone writes, are every member's.  The persistent grids give
+// each member resident / batch blocks (at least one).  A single fill is
+// the instance with BATCH false, whose code has no member offsets.
 #include <type_traits>
 
 #include "common.cuh"
@@ -95,6 +108,27 @@ struct Args {
   I* c_indices;        // K5 output
   T* c_data;           // K5 output
 };
+
+// A batched K5 launch: member strides of op(A)'s, op(B)'s and C's values
+// in elements (0: shared), and whether member 0 writes C's column ids (a
+// later launch of the same batch does not write them again).
+struct Members {
+  int64_t a, b, c;
+  bool indices;
+};
+
+// Moves args and work to member blockIdx.y of a batch (BATCH, K5 only):
+// its values, and its groups' workspace rows past the `stride` bytes of
+// each member before it.  C's column ids stay with member 0.
+#define SDT_K5_TO_MEMBER(stride)                         \
+  if constexpr (BATCH) {                                 \
+    const int64_t z = blockIdx.y;                        \
+    args.a_data += z * mb.a;                             \
+    args.b_data += z * mb.b;                             \
+    args.c_data += z * mb.c;                             \
+    if (z != 0 || !mb.indices) args.c_indices = nullptr; \
+    if (work != nullptr) work += z * (stride);           \
+  }
 
 template <int G>
 __device__ __forceinline__ void group_sync() {
@@ -207,12 +241,14 @@ __host__ __device__ int64_t region_bytes(int64_t slots) {
 
 // One group of G threads builds one row of C at a time, walking the rows
 // of bin `bin`.  `slots` is the hash table's size, or n for a dense row;
-// `work` (kDenseGlobal) holds one region per group, else the regions are
-// in dynamic shared memory.
-template <typename T, typename I, int MODE, int G, bool FILL>
+// `work` (kDenseGlobal) holds one region per group (per member's group
+// with BATCH, blockIdx.y the member), else the regions are in dynamic
+// shared memory.
+template <typename T, typename I, int MODE, int G, bool FILL, bool BATCH>
 __global__ void __launch_bounds__(kThreads)
 spgemm_rows_kernel(Args<T, I> args, int bin, int64_t slots,
-                   unsigned char* work) {
+                   unsigned char* work, const Members mb) {
+  static_assert(FILL || !BATCH, "a batch is K5's alone");
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int scratch[kThreads / 32];
   constexpr int kGroups = kThreads / G;
@@ -221,6 +257,7 @@ spgemm_rows_kernel(Args<T, I> args, int bin, int64_t slots,
       static_cast<int64_t>(blockIdx.x) * kGroups + threadIdx.x / G;
   const int64_t ngroups = static_cast<int64_t>(gridDim.x) * kGroups;
   const int64_t region = region_bytes<T, I, MODE, FILL>(slots);
+  SDT_K5_TO_MEMBER(ngroups * region)
   unsigned char* base = work != nullptr
                             ? work + gid * region
                             : smem + (threadIdx.x / G) * region;
@@ -285,7 +322,9 @@ spgemm_rows_kernel(Args<T, I> args, int bin, int64_t slots,
         int total;
         const int pos = group_scan<G>(f, scratch, &total);
         if (f) {
-          args.c_indices[out + pos] = static_cast<I>(j);
+          if (!BATCH || args.c_indices != nullptr) {
+            args.c_indices[out + pos] = static_cast<I>(j);
+          }
           args.c_data[out + pos] = vals[j];
         }
         out += total;
@@ -295,7 +334,9 @@ spgemm_rows_kernel(Args<T, I> args, int bin, int64_t slots,
       const int64_t c0 = args.c_indptr[i];
       const int64_t cnt = args.c_indptr[i + 1] - c0;
       for (int64_t t = lane; t < cnt; t += G) {
-        args.c_indices[c0 + t] = keys[t];
+        if (!BATCH || args.c_indices != nullptr) {
+          args.c_indices[c0 + t] = keys[t];
+        }
         args.c_data[c0 + t] = vals[t];
       }
     }
@@ -337,7 +378,8 @@ __device__ __forceinline__ unsigned group_bits(int wl) {
 // The rows of bin `bin` (at most G products each), 32 / G a warp at a
 // time.  Every lane of the warp runs every loop to the same count (rows
 // past the bin's end take part with no product), as the shuffles need.
-template <typename T, typename I, typename K, int G, bool FILL>
+// With BATCH, args.c_indices is null where this member writes no ids.
+template <typename T, typename I, typename K, int G, bool FILL, bool BATCH>
 __device__ __forceinline__ void tiny_bin(const Args<T, I>& args, int bin,
                                          int64_t warp, int64_t nwarps) {
   constexpr int kRows = 32 / G;
@@ -454,7 +496,9 @@ __device__ __forceinline__ void tiny_bin(const Args<T, I>& args, int bin,
       }
       if (head) {
         const int64_t pos = c0 + __popc(heads & ((1u << wl) - 1u));
-        store_streaming(args.c_indices + pos, static_cast<I>(key >> 5));
+        if (!BATCH || args.c_indices != nullptr) {
+          store_streaming(args.c_indices + pos, static_cast<I>(key >> 5));
+        }
         store_streaming(args.c_data + pos, acc);
       }
     }
@@ -465,18 +509,21 @@ __device__ __forceinline__ void tiny_bin(const Args<T, I>& args, int bin,
 // persistent launch: every warp walks its share of each bin in turn.
 // Latency bounds it, so registers are capped for many warps an SM: 6
 // blocks of 8 for K4, 5 for K5 (at 6 it spills), 4 for complex double's
-// wider values.
-template <typename T, typename I, typename K, bool FILL>
+// wider values.  With BATCH, blockIdx.y is the member.
+template <typename T, typename I, typename K, bool FILL, bool BATCH>
 __global__ void __launch_bounds__(kThreads,
                                   FILL ? (sizeof(T) > 8 ? 4 : 5) : 6)
-spgemm_tiny_kernel(Args<T, I> args, int bin) {
+spgemm_tiny_kernel(Args<T, I> args, int bin, const Members mb) {
+  static_assert(FILL || !BATCH, "a batch is K5's alone");
+  unsigned char* work = nullptr;  // the register path has no workspace
+  SDT_K5_TO_MEMBER(0)
   const int64_t warp =
       (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
   const int64_t nwarps = static_cast<int64_t>(gridDim.x) * (kThreads / 32);
-  tiny_bin<T, I, K, 4, FILL>(args, bin, warp, nwarps);
-  tiny_bin<T, I, K, 8, FILL>(args, bin + 1, warp, nwarps);
-  tiny_bin<T, I, K, 16, FILL>(args, bin + 2, warp, nwarps);
-  tiny_bin<T, I, K, 32, FILL>(args, bin + 3, warp, nwarps);
+  tiny_bin<T, I, K, 4, FILL, BATCH>(args, bin, warp, nwarps);
+  tiny_bin<T, I, K, 8, FILL, BATCH>(args, bin + 1, warp, nwarps);
+  tiny_bin<T, I, K, 16, FILL, BATCH>(args, bin + 2, warp, nwarps);
+  tiny_bin<T, I, K, 32, FILL, BATCH>(args, bin + 3, warp, nwarps);
 }
 
 // Resident blocks an SM of `device` holds of `kernel` with `shared` bytes
@@ -521,33 +568,45 @@ cudaError_t blocks_per_sm(Kernel kernel, size_t shared, int device,
   return cudaSuccess;
 }
 
-// A persistent grid for `rows` rows, `per_block` a block at once.
+// A persistent grid for `rows` rows, `per_block` a block at once, for
+// each of `batch` members (the resident blocks shared out among them).
 inline int64_t grid_for(int64_t rows, int64_t per_block, int per_sm,
-                        int sms) {
+                        int sms, int64_t batch) {
   const int64_t wanted = (rows + per_block - 1) / per_block;
-  const int64_t resident = static_cast<int64_t>(per_sm) * sms;
+  const int64_t resident = static_cast<int64_t>(per_sm) * sms / batch;
   const int64_t grid = wanted < resident ? wanted : resident;
   return grid < 1 ? 1 : grid;
 }
 
-template <typename T, typename I, typename K, bool FILL>
+// A launch's members (one for a single product) and their Members.
+struct Batch {
+  int64_t size;
+  Members mb;
+};
+
+template <typename T, typename I, typename K, bool FILL, bool BATCH>
 cudaError_t launch_tiny(const Args<T, I>& args, int bin, int64_t rows,
-                        int device, int sms, cudaStream_t stream) {
-  auto kernel = spgemm_tiny_kernel<T, I, K, FILL>;
+                        int device, int sms, const Batch& batch,
+                        cudaStream_t stream) {
+  auto kernel = spgemm_tiny_kernel<T, I, K, FILL, BATCH>;
   int per_sm = 0;
   cudaError_t err = blocks_per_sm(kernel, 0, device, &per_sm);
   if (err != cudaSuccess) return err;
   // A block holds at least 8 rows at once (G = 32).
-  const int64_t grid = grid_for(rows, kThreads / 32, per_sm, sms);
-  kernel<<<static_cast<unsigned>(grid), kThreads, 0, stream>>>(args, bin);
+  const int64_t grid =
+      grid_for(rows, kThreads / 32, per_sm, sms, batch.size);
+  kernel<<<dim3(static_cast<unsigned>(grid),
+                static_cast<unsigned>(batch.size)),
+           kThreads, 0, stream>>>(args, bin, batch.mb);
   return cudaGetLastError();
 }
 
-template <typename T, typename I, int MODE, int G, bool FILL>
+template <typename T, typename I, int MODE, int G, bool FILL, bool BATCH>
 cudaError_t launch_bin(const Args<T, I>& args, int bin, int64_t slots,
                        int64_t rows, unsigned char* work, int64_t work_groups,
-                       int device, int sms, cudaStream_t stream) {
-  auto kernel = spgemm_rows_kernel<T, I, MODE, G, FILL>;
+                       int device, int sms, const Batch& batch,
+                       cudaStream_t stream) {
+  auto kernel = spgemm_rows_kernel<T, I, MODE, G, FILL, BATCH>;
   constexpr int kGroups = kThreads / G;
   int64_t grid = work_groups < 1 ? 1 : work_groups;
   size_t shared = 0;
@@ -557,10 +616,11 @@ cudaError_t launch_bin(const Args<T, I>& args, int bin, int64_t slots,
     int per_sm = 0;
     const cudaError_t err = blocks_per_sm(kernel, shared, device, &per_sm);
     if (err != cudaSuccess) return err;
-    grid = grid_for(rows, kGroups, per_sm, sms);
+    grid = grid_for(rows, kGroups, per_sm, sms, batch.size);
   }
-  kernel<<<static_cast<unsigned>(grid), kThreads, shared, stream>>>(
-      args, bin, slots, work);
+  kernel<<<dim3(static_cast<unsigned>(grid),
+                static_cast<unsigned>(batch.size)),
+           kThreads, shared, stream>>>(args, bin, slots, work, batch.mb);
   return cudaGetLastError();
 }
 
@@ -741,11 +801,12 @@ cudaError_t build_plan(const I* a_indptr, const I* a_indices,
 
 // Launches every bin of `bins` ((kind, slots, rows) rows in host memory;
 // rows bounds the bin's rows, to size its grid: m where it is not known).
-// A bin whose kind is kSkip launches nothing.
-template <typename T, typename I, bool FILL>
+// A bin whose kind is kSkip launches nothing.  A batch's kDenseGlobal
+// workspace holds work_groups rows for each member.
+template <typename T, typename I, bool FILL, bool BATCH>
 cudaError_t launch_bins(const Args<T, I>& args, const int64_t* bins,
                         int nbins, unsigned char* work, int64_t work_groups,
-                        cudaStream_t stream) {
+                        const Batch& batch, cudaStream_t stream) {
   int device = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
@@ -769,11 +830,11 @@ cudaError_t launch_bins(const Args<T, I>& args, const int64_t* bins,
           most = r > most ? r : most;
         }
         if (args.n < kNarrowKeyColumns) {
-          err = launch_tiny<T, I, uint32_t, FILL>(args, b, most, device, sms,
-                                                  stream);
+          err = launch_tiny<T, I, uint32_t, FILL, BATCH>(
+              args, b, most, device, sms, batch, stream);
         } else {
-          err = launch_tiny<T, I, uint64_t, FILL>(args, b, most, device, sms,
-                                                  stream);
+          err = launch_tiny<T, I, uint64_t, FILL, BATCH>(
+              args, b, most, device, sms, batch, stream);
         }
         break;
       }
@@ -786,21 +847,22 @@ cudaError_t launch_bins(const Args<T, I>& args, const int64_t* bins,
         err = cudaSuccess;
         break;
       case kHashWarp:
-        err = launch_bin<T, I, kHash, 32, FILL>(args, b, slots, rows, nullptr,
-                                                0, device, sms, stream);
+        err = launch_bin<T, I, kHash, 32, FILL, BATCH>(
+            args, b, slots, rows, nullptr, 0, device, sms, batch, stream);
         break;
       case kHashBlock:
-        err = launch_bin<T, I, kHash, kThreads, FILL>(
-            args, b, slots, rows, nullptr, 0, device, sms, stream);
+        err = launch_bin<T, I, kHash, kThreads, FILL, BATCH>(
+            args, b, slots, rows, nullptr, 0, device, sms, batch, stream);
         break;
       case kDenseShared:
-        err = launch_bin<T, I, kDense, kThreads, FILL>(
-            args, b, slots, rows, nullptr, 0, device, sms, stream);
+        err = launch_bin<T, I, kDense, kThreads, FILL, BATCH>(
+            args, b, slots, rows, nullptr, 0, device, sms, batch, stream);
         break;
       case kDenseGlobal:
         if (work == nullptr || work_groups < 1) return cudaErrorInvalidValue;
-        err = launch_bin<T, I, kDense, kThreads, FILL>(
-            args, b, slots, rows, work, work_groups, device, sms, stream);
+        err = launch_bin<T, I, kDense, kThreads, FILL, BATCH>(
+            args, b, slots, rows, work, work_groups, device, sms, batch,
+            stream);
         break;
       default:
         return cudaErrorInvalidValue;
@@ -839,9 +901,9 @@ cudaError_t count(const void* a_indptr, const void* a_indices,
   args.n = n;
   args.triangular = triangular != 0;
   args.counts = static_cast<int64_t*>(counts);
-  return launch_bins<float, I, false>(args, bins, nbins,
-                                      static_cast<unsigned char*>(work),
-                                      work_groups, stream);
+  return launch_bins<float, I, false, false>(
+      args, bins, nbins, static_cast<unsigned char*>(work), work_groups,
+      Batch{1, Members{}}, stream);
 }
 
 template <typename T, typename I>
@@ -851,7 +913,12 @@ cudaError_t fill(const void* a_indptr, const void* a_indices,
                  const void* offsets, const int64_t* bins, int nbins,
                  int64_t n, int triangular, const void* c_indptr,
                  void* c_indices, void* c_data, void* work,
-                 int64_t work_groups, cudaStream_t stream) {
+                 int64_t work_groups, int64_t batch, int64_t s_a,
+                 int64_t s_b, int64_t s_c, int write_indices,
+                 cudaStream_t stream) {
+  if (batch < 1 || batch > kMaxMembers || s_a < 0 || s_b < 0 || s_c < 0) {
+    return cudaErrorInvalidValue;
+  }
   Args<T, I> args{};
   args.a_indptr = static_cast<const I*>(a_indptr);
   args.a_indices = static_cast<const I*>(a_indices);
@@ -866,9 +933,15 @@ cudaError_t fill(const void* a_indptr, const void* a_indices,
   args.c_indptr = static_cast<const I*>(c_indptr);
   args.c_indices = static_cast<I*>(c_indices);
   args.c_data = static_cast<T*>(c_data);
-  return launch_bins<T, I, true>(args, bins, nbins,
-                                 static_cast<unsigned char*>(work),
-                                 work_groups, stream);
+  auto* ws = static_cast<unsigned char*>(work);
+  const Batch members{batch, Members{s_a, s_b, s_c, write_indices != 0}};
+  // One member that writes C's ids is a single fill.
+  if (batch == 1 && write_indices) {
+    return launch_bins<T, I, true, false>(args, bins, nbins, ws, work_groups,
+                                          members, stream);
+  }
+  return launch_bins<T, I, true, true>(args, bins, nbins, ws, work_groups,
+                                       members, stream);
 }
 
 }  // namespace
@@ -908,16 +981,22 @@ extern "C" int sdt_csr_spgemm_count(int itype, const void* a_indptr,
   }
 }
 
+// batch members (at most kMaxMembers, grid.y's limit), op(A)'s, op(B)'s
+// and C's values at their member strides in elements (0: shared), work
+// holding work_groups rows for each member; write_indices: member 0
+// writes C's column ids (0 for a later launch of the same batch).  batch 1
+// with write_indices is one fill.
 extern "C" int sdt_csr_spgemm_fill(
     int dtype, int itype, const void* a_indptr, const void* a_indices,
     const void* a_data, const void* b_indptr, const void* b_indices,
     const void* b_data, const void* rows, const void* offsets,
     const void* bins, int nbins, int64_t n, int triangular,
     const void* c_indptr, void* c_indices, void* c_data, void* work,
-    int64_t work_groups, void* stream) {
+    int64_t work_groups, int64_t batch, int64_t s_a, int64_t s_b,
+    int64_t s_c, int write_indices, void* stream) {
   SDT_DISPATCH(dtype, itype, sdt::fill, a_indptr, a_indices, a_data,
                b_indptr, b_indices, b_data, rows, offsets,
                static_cast<const int64_t*>(bins), nbins, n, triangular,
-               c_indptr, c_indices, c_data, work, work_groups,
-               static_cast<cudaStream_t>(stream))
+               c_indptr, c_indices, c_data, work, work_groups, batch, s_a,
+               s_b, s_c, write_indices, static_cast<cudaStream_t>(stream))
 }

@@ -58,6 +58,18 @@
 // The same bits on every run: each warp sums its chunk in op(A)'s stored
 // order, and the chunks' partial rows are added in chunk order.  The
 // alpha/beta epilogue is fused into the store.
+//
+// A batch of members that share op(A)'s and op(B)'s patterns (jax.vmap of
+// spgemm_numeric_sorted over the values; torch.func.vmap, jacfwd and
+// hessian of csr_spgemm_dense) is one launch: the member is blockIdx.y,
+// and op(A)'s values, op(B)'s values, C0 and C each have a member stride,
+// 0 for an operand that all members share (read in place, never copied).
+// The plan and the window-start table depend on the patterns alone: the
+// wrapper plans once, and the table is built once for the batch (not
+// again by a second launch of a batch past kMaxMembers).  A block works
+// for one member, so a split row's chunks meet only that member's
+// partial rows.  A single product is the instance with BATCH false, whose
+// code has no member offsets.
 #include "common.cuh"
 
 namespace sdt {
@@ -87,6 +99,11 @@ struct Args {
   T alpha, beta;
   int splits;       // warps an item: 1, 2, 4 or 8
   bool scale, triangular;
+};
+
+// Member strides, in elements, of a batched launch (0: shared).
+struct Strides {
+  int64_t a, b, c0, c;
 };
 
 // The first q in [lo, hi) with idx[q] >= key (hi when there is none), for
@@ -236,11 +253,19 @@ __device__ __forceinline__ void walk(const Args<T, I>& g, T* acc, int64_t pa,
 }
 
 // At most 64 registers a thread for values of up to 8 bytes, so 4 blocks
-// (32 warps) fit an SM; 128 for complex128.
-template <typename T, typename I>
+// (32 warps) fit an SM; 128 for complex128.  With BATCH, blockIdx.y is the
+// member.
+template <typename T, typename I, bool BATCH>
 __global__ void __launch_bounds__(kThreads, sizeof(T) <= 8 ? 4 : 2)
-spgemm_dense_kernel(const Args<T, I> g) {
+spgemm_dense_kernel(Args<T, I> g, const Strides st) {
   using A = Arith<T>;
+  if constexpr (BATCH) {
+    const int64_t z = blockIdx.y;
+    g.a_data += z * st.a;
+    g.b_data += z * st.b;
+    if (g.c0 != nullptr) g.c0 += z * st.c0;
+    g.c += z * st.c;
+  }
   extern __shared__ __align__(16) unsigned char smem[];
   T* const rows = reinterpret_cast<T*>(smem);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -303,6 +328,24 @@ spgemm_dense_kernel(const Args<T, I> g) {
   }
 }
 
+// The walk for one member (BATCH false) or for a batch.
+template <typename T, typename I, bool BATCH>
+cudaError_t launch_walk(const Args<T, I>& g, int64_t batch, const Strides& st,
+                        cudaStream_t stream) {
+  const size_t bytes = kWarps * static_cast<size_t>(g.width) * sizeof(T);
+  auto kernel = spgemm_dense_kernel<T, I, BATCH>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  const int groups = kWarps / g.splits;
+  const int64_t blocks = (g.items + groups - 1) / groups;
+  const int64_t grid = blocks < 0x7fffffff ? blocks : 0x7fffffff;
+  kernel<<<dim3(static_cast<unsigned>(grid), static_cast<unsigned>(batch)),
+           kThreads, bytes, stream>>>(g, st);
+  return cudaGetLastError();
+}
+
 template <typename T, typename I>
 cudaError_t launch(const void* a_indptr, const void* a_indices,
                    const void* a_data, const void* b_indptr,
@@ -310,9 +353,12 @@ cudaError_t launch(const void* a_indptr, const void* a_indices,
                    void* c, int64_t m, int64_t n, double alpha_re,
                    double alpha_im, double beta_re, double beta_im,
                    int triangular, int splits, int64_t width, int64_t k,
-                   void* starts, cudaStream_t stream) {
+                   void* starts, int starts_ready, int64_t batch,
+                   int64_t s_a, int64_t s_b, int64_t s_c0, int64_t s_c,
+                   cudaStream_t stream) {
   if ((splits != 1 && splits != 2 && splits != 4 && splits != 8) ||
-      width < 1 || m < 1 || n < 1) {
+      width < 1 || m < 1 || n < 1 || batch < 1 || batch > kMaxMembers ||
+      s_a < 0 || s_b < 0 || s_c0 < 0 || s_c < 0) {
     return cudaErrorInvalidValue;
   }
   Args<T, I> g;
@@ -336,37 +382,35 @@ cudaError_t launch(const void* a_indptr, const void* a_indices,
   g.scale = !is_one(alpha_re, alpha_im);
   g.triangular = triangular != 0;
   if (g.windows == 1) g.starts = nullptr;
-  if (g.starts != nullptr && k > 0) {
+  if (g.starts != nullptr && k > 0 && !starts_ready) {
     const int64_t total = k * (g.windows + 1);
     const int64_t blocks = (total + 255) / 256;
     window_starts_kernel<T, I><<<static_cast<unsigned>(
         blocks < 65535 * 16 ? blocks : 65535 * 16), 256, 0, stream>>>(g);
   }
-  const size_t bytes = kWarps * static_cast<size_t>(g.width) * sizeof(T);
-  auto kernel = spgemm_dense_kernel<T, I>;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err != cudaSuccess) return err;
-  const int groups = kWarps / splits;
-  const int64_t blocks = (g.items + groups - 1) / groups;
-  const int64_t grid = blocks < 0x7fffffff ? blocks : 0x7fffffff;
-  kernel<<<static_cast<unsigned>(grid), kThreads, bytes, stream>>>(g);
-  return cudaGetLastError();
+  const Strides st{s_a, s_b, s_c0, s_c};
+  if (batch == 1) return launch_walk<T, I, false>(g, batch, st, stream);
+  return launch_walk<T, I, true>(g, batch, st, stream);
 }
 
 }  // namespace
 }  // namespace sdt
 
+// batch members (at most kMaxMembers, grid.y's limit), each operand at
+// its member stride in elements (0: shared); batch 1 is one product.
+// starts_ready: the window-start table was built by an earlier launch of
+// the same call (for the same patterns), so this one only reads it.
 extern "C" int sdt_csr_spgemm_dense(
     int dtype, int itype, const void* a_indptr, const void* a_indices,
     const void* a_data, const void* b_indptr, const void* b_indices,
     const void* b_data, const void* c0, void* c, int64_t m, int64_t n,
     double alpha_re, double alpha_im, double beta_re, double beta_im,
     int triangular, int splits, int64_t width, int64_t k, void* starts,
-    void* stream) {
+    int starts_ready, int64_t batch, int64_t s_a, int64_t s_b, int64_t s_c0,
+    int64_t s_c, void* stream) {
   SDT_DISPATCH(dtype, itype, sdt::launch, a_indptr, a_indices, a_data,
                b_indptr, b_indices, b_data, c0, c, m, n, alpha_re, alpha_im,
                beta_re, beta_im, triangular, splits, width, k, starts,
+               starts_ready, batch, s_a, s_b, s_c0, s_c,
                static_cast<cudaStream_t>(stream))
 }

@@ -56,7 +56,10 @@
 //
 // The kernel itself is in sampled.cuh, which K11
 // (csr_spgemm_sparse_sddmm.cu) shares for the lines it stages from a
-// sparse G; this file launches K9's modes.
+// sparse G; this file launches K9's modes.  A batch of members that share
+// P and Y's pattern is one launch there (the member on blockIdx.y, D, Y's
+// values and the output at member strides); the wrapper sizes the work
+// items over members x items (ops/spgemm_grad.py, sampled_batched).
 #include "sampled.cuh"
 
 namespace sdt {
@@ -79,12 +82,14 @@ struct Args {
   const void* y_data;
   void* out;
   int lanes;
+  int64_t batch;
+  Strides st;
 };
 
-template <typename T, typename I, int L, int kMode>
-cudaError_t launch_lanes(const Args& a, T alpha, bool scale,
-                         cudaStream_t stream) {
-  auto kernel = sampled_kernel<T, I, L, kMode>;
+template <typename T, typename I, int L, int kMode, bool BATCH>
+cudaError_t launch_members(const Args& a, T alpha, bool scale,
+                           cudaStream_t stream) {
+  auto kernel = sampled_kernel<T, I, L, kMode, BATCH>;
   const size_t smem = kMode == kStagedLines
                           ? sizeof(T) * static_cast<size_t>(a.panel) * a.pitch
                           : 0;
@@ -94,15 +99,27 @@ cudaError_t launch_lanes(const Args& a, T alpha, bool scale,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  kernel<<<static_cast<unsigned>(a.n_items), kThreads, smem, stream>>>(
+  kernel<<<dim3(static_cast<unsigned>(a.n_items),
+                static_cast<unsigned>(a.batch)),
+           kThreads, smem, stream>>>(
       static_cast<const int64_t*>(a.items), static_cast<const I*>(a.run_ptr),
       static_cast<const I*>(a.run_q), static_cast<const I*>(a.perm),
       static_cast<const I*>(a.line), static_cast<const T*>(a.d), a.se, a.sy,
       a.ne, static_cast<int>(a.ny), a.panel, a.pitch,
       static_cast<const I*>(a.y_indptr), static_cast<const I*>(a.y_indices),
       static_cast<const T*>(a.y_data), static_cast<T*>(a.out), alpha, scale,
-      nullptr, nullptr, false);
+      nullptr, nullptr, false, a.st);
   return cudaGetLastError();
+}
+
+// The instance for one member (BATCH false) or for a batch.
+template <typename T, typename I, int L, int kMode>
+cudaError_t launch_lanes(const Args& a, T alpha, bool scale,
+                         cudaStream_t stream) {
+  if (a.batch == 1) {
+    return launch_members<T, I, L, kMode, false>(a, alpha, scale, stream);
+  }
+  return launch_members<T, I, L, kMode, true>(a, alpha, scale, stream);
 }
 
 template <typename T, typename I, int kMode>
@@ -123,7 +140,8 @@ template <typename T, typename I>
 cudaError_t launch(const Args& a, double alpha_re, double alpha_im,
                    cudaStream_t stream) {
   if (a.n_items < 0 || a.n_items > 0x7fffffff || a.panel < 1 || a.ny < 0 ||
-      a.ny > 0x7fffffff ||
+      a.ny > 0x7fffffff || a.batch < 1 || a.batch > kMaxMembers ||
+      a.st.d < 0 || a.st.y < 0 || a.st.out < 0 ||
       (a.staged && (a.pitch < a.ny ||
                     static_cast<int64_t>(a.panel) * a.pitch > 0x7fffffff))) {
     return cudaErrorInvalidValue;
@@ -144,16 +162,22 @@ cudaError_t launch(const Args& a, double alpha_re, double alpha_im,
 }  // namespace
 }  // namespace sdt
 
+// batch members (at most kMaxMembers, grid.y's limit), d, y_data and out
+// at their member strides in elements (0: shared); batch 1 is one
+// product.
 extern "C" int sdt_csr_spgemm_sddmm(
     int dtype, int itype, const void* items, int64_t n_items,
     const void* run_ptr, const void* run_q, const void* perm,
     const void* line, const void* d, int64_t se, int64_t sy, int64_t ne,
     int64_t ny, int panel, int pitch, int staged, const void* y_indptr,
     const void* y_indices, const void* y_data, void* out, int lanes,
-    double alpha_re, double alpha_im, void* stream) {
-  const sdt::Args args{items, n_items, run_ptr, run_q, perm, line,
-                       d, se, sy, ne, ny, panel, pitch, staged,
-                       y_indptr, y_indices, y_data, out, lanes};
+    double alpha_re, double alpha_im, int64_t batch, int64_t s_d,
+    int64_t s_y, int64_t s_out, void* stream) {
+  const sdt::Args args{items,    n_items,   run_ptr, run_q, perm,
+                       line,     d,         se,      sy,    ne,
+                       ny,       panel,     pitch,   staged, y_indptr,
+                       y_indices, y_data,   out,     lanes, batch,
+                       sdt::Strides{s_d, s_y, s_out}};
   SDT_DISPATCH(dtype, itype, sdt::launch, args, alpha_re, alpha_im,
                static_cast<cudaStream_t>(stream))
 }

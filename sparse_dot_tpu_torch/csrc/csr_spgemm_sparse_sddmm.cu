@@ -58,6 +58,15 @@
 //
 // Every output is written by one lane, in a fixed order, with no atomics:
 // the same inputs give the same bits twice.
+//
+// A batch of members that share op(A)'s, op(B)'s and C's patterns (the
+// backward of a vmap over the values, jacrev's cotangents, a batch of
+// tangents) is one launch in either mode: the member is blockIdx.y, and
+// Y's values, G's values and the output each have a member stride, 0 for
+// an operand that all members share.  Staged, each block stages its own
+// member's panel of G (sampled.cuh, Strides); the runs are P's, shared.
+// A single product is the instance with BATCH false, whose code has no
+// member offsets.
 #include "sampled.cuh"
 
 namespace sdt {
@@ -83,8 +92,9 @@ __device__ __forceinline__ I find_column(const I* __restrict__ cols, I len,
   return lo < len && cols[lo] == col ? lo : I(-1);
 }
 
-// Lines in place: a group of L lanes a row r of P.
-template <typename T, typename I, int L, bool kTransposed>
+// Lines in place: a group of L lanes a row r of P.  With BATCH,
+// blockIdx.y is the member (st.d: G's stride).
+template <typename T, typename I, int L, bool kTransposed, bool BATCH>
 __global__ void __launch_bounds__(kInPlaceThreads)
 sparse_in_place_kernel(const I* __restrict__ p_indptr,
                        const I* __restrict__ p_indices, int64_t p_rows,
@@ -94,8 +104,14 @@ sparse_in_place_kernel(const I* __restrict__ p_indptr,
                        const I* __restrict__ c_indptr,
                        const I* __restrict__ c_indices,
                        const T* __restrict__ g, T* __restrict__ out,
-                       bool triangular) {
+                       bool triangular, const Strides st) {
   using A = Arith<T>;
+  if constexpr (BATCH) {
+    const int64_t z = blockIdx.y;
+    y_data += z * st.y;
+    g += z * st.d;
+    out += z * st.out;
+  }
   constexpr int G = kInPlaceThreads / L;
   const int lane = static_cast<int>(threadIdx.x) % L;
   const unsigned members =
@@ -195,13 +211,17 @@ struct Args {
   const void* g;
   void* out;
   int transposed, triangular, lanes;
+  int64_t batch;
+  Strides st;  // d: G's values
 };
 
-template <typename T, typename I, int L, bool kTransposed>
-cudaError_t launch_lanes(const Args& a, cudaStream_t stream) {
+template <typename T, typename I, int L, bool kTransposed, bool BATCH>
+cudaError_t launch_members(const Args& a, cudaStream_t stream) {
+  const unsigned members = static_cast<unsigned>(a.batch);
   if (a.staged) {
-    auto kernel =
-        sampled_kernel<T, I, L, kTransposed ? kSparseColumns : kSparseRows>;
+    auto kernel = sampled_kernel<T, I, L,
+                                 kTransposed ? kSparseColumns : kSparseRows,
+                                 BATCH>;
     // Beside the panel, the kernel's own row bounds (kMaxPanel + 1).
     const size_t smem = sizeof(T) * static_cast<size_t>(a.panel) * a.pitch;
     if (smem + sizeof(int64_t) * (kMaxPanel + 1) > 227 * 1024) {
@@ -213,7 +233,8 @@ cudaError_t launch_lanes(const Args& a, cudaStream_t stream) {
           static_cast<int>(smem));
       if (err != cudaSuccess) return err;
     }
-    kernel<<<static_cast<unsigned>(a.n_items), kThreads, smem, stream>>>(
+    kernel<<<dim3(static_cast<unsigned>(a.n_items), members), kThreads,
+             smem, stream>>>(
         static_cast<const int64_t*>(a.items),
         static_cast<const I*>(a.run_ptr), static_cast<const I*>(a.run_q),
         static_cast<const I*>(a.perm), static_cast<const I*>(a.line),
@@ -222,20 +243,31 @@ cudaError_t launch_lanes(const Args& a, cudaStream_t stream) {
         static_cast<const I*>(a.y_indices), static_cast<const T*>(a.y_data),
         static_cast<T*>(a.out), Arith<T>::make(0.0, 0.0), false,
         static_cast<const I*>(a.c_indptr), static_cast<const I*>(a.c_indices),
-        a.triangular != 0);
+        a.triangular != 0, a.st);
     return cudaGetLastError();
   }
   constexpr int G = kInPlaceThreads / L;
   const int64_t blocks = (a.p_rows + G - 1) / G;
   if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
-  sparse_in_place_kernel<T, I, L, kTransposed>
-      <<<static_cast<unsigned>(blocks), kInPlaceThreads, 0, stream>>>(
+  sparse_in_place_kernel<T, I, L, kTransposed, BATCH>
+      <<<dim3(static_cast<unsigned>(blocks), members), kInPlaceThreads, 0,
+         stream>>>(
       static_cast<const I*>(a.p_indptr), static_cast<const I*>(a.p_indices),
       a.p_rows, static_cast<const I*>(a.y_indptr),
       static_cast<const I*>(a.y_indices), static_cast<const T*>(a.y_data),
       static_cast<const I*>(a.c_indptr), static_cast<const I*>(a.c_indices),
-      static_cast<const T*>(a.g), static_cast<T*>(a.out), a.triangular != 0);
+      static_cast<const T*>(a.g), static_cast<T*>(a.out), a.triangular != 0,
+      a.st);
   return cudaGetLastError();
+}
+
+// The instance for one member (BATCH false) or for a batch.
+template <typename T, typename I, int L, bool kTransposed>
+cudaError_t launch_lanes(const Args& a, cudaStream_t stream) {
+  if (a.batch == 1) {
+    return launch_members<T, I, L, kTransposed, false>(a, stream);
+  }
+  return launch_members<T, I, L, kTransposed, true>(a, stream);
 }
 
 template <typename T, typename I, bool kTransposed>
@@ -253,6 +285,10 @@ cudaError_t launch_form(const Args& a, cudaStream_t stream) {
 
 template <typename T, typename I>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
+  if (a.batch < 1 || a.batch > kMaxMembers || a.st.d < 0 || a.st.y < 0 ||
+      a.st.out < 0) {
+    return cudaErrorInvalidValue;
+  }
   if (a.staged) {
     if (a.n_items < 0 || a.n_items > 0x7fffffff || a.panel < 1 ||
         a.panel > kMaxPanel ||
@@ -272,6 +308,9 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 }  // namespace
 }  // namespace sdt
 
+// batch members (at most kMaxMembers, grid.y's limit), y_data, g and out
+// at their member strides in elements (0: shared); batch 1 is one
+// product.
 extern "C" int sdt_csr_spgemm_sparse_sddmm(
     int dtype, int itype, const void* items, int64_t n_items,
     const void* run_ptr, const void* run_q, const void* perm,
@@ -279,11 +318,14 @@ extern "C" int sdt_csr_spgemm_sparse_sddmm(
     int staged, const void* p_indptr, const void* p_indices, int64_t p_rows,
     const void* y_indptr, const void* y_indices, const void* y_data,
     const void* c_indptr, const void* c_indices, const void* g, void* out,
-    int transposed, int triangular, int lanes, void* stream) {
-  const sdt::Args args{items, n_items, run_ptr, run_q, perm, line, ne, ny,
-                       panel, pitch, staged, p_indptr, p_indices, p_rows,
-                       y_indptr, y_indices, y_data, c_indptr, c_indices, g,
-                       out, transposed, triangular, lanes};
+    int transposed, int triangular, int lanes, int64_t batch, int64_t s_y,
+    int64_t s_g, int64_t s_out, void* stream) {
+  const sdt::Args args{items,     n_items,   run_ptr,   run_q,  perm,
+                       line,      ne,        ny,        panel,  pitch,
+                       staged,    p_indptr,  p_indices, p_rows, y_indptr,
+                       y_indices, y_data,    c_indptr,  c_indices, g,
+                       out,       transposed, triangular, lanes, batch,
+                       sdt::Strides{s_g, s_y, s_out}};
   SDT_DISPATCH(dtype, itype, sdt::launch, args,
                static_cast<cudaStream_t>(stream))
 }

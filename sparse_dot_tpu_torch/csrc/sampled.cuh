@@ -3,6 +3,17 @@
 // entries (sampled_runs) against one row of Y and lines of G, read from a
 // dense D (K9) or staged from C's sparse storage (K11's kSparse modes).
 // Each source file instantiates its own modes.
+//
+// A batch of members that share P's, Y's (and K11: C's) patterns is one
+// launch (the backward of a vmap over the values, jacrev's cotangents, a
+// batch of tangents): the member is blockIdx.y, and D (K11: G's values),
+// Y's values and the output each have a member stride, 0 for an operand
+// that all members share.  The runs, the work items and the panels are
+// the patterns', shared by every member; a block stages its own member's
+// lines.  Staging copies one element at a time (cp_async_elem of
+// sizeof(T) bytes), so a member at any element stride stays aligned.  A
+// single product is the instance with BATCH false, whose code has no
+// member offsets.
 #pragma once
 
 #include "mma.cuh"
@@ -105,6 +116,12 @@ __device__ __forceinline__ void count_below(const I* __restrict__ cols,
     }
   }
 }
+
+// Member strides, in elements, of a batched launch (0: shared): D (K11:
+// G's values on C's pattern), Y's values, the output.
+struct Strides {
+  int64_t d, y, out;
+};
 
 // Entries of C a thread (dA) or rows of C a warp (dB) reads at once while
 // it stages lines of G.
@@ -211,7 +228,8 @@ __device__ __forceinline__ void stage_lines(
 // each lane an entry of the run and read the row of Y by all lanes at
 // once: the lanes' elements of D then lie side by side in one of its
 // rows, where a group of lanes walking the row of Y would read 32 rows.
-template <typename T, typename I, int L, int kMode>
+// With BATCH, blockIdx.y is the member (st: its strides).
+template <typename T, typename I, int L, int kMode, bool BATCH>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 sampled_kernel(const int64_t* __restrict__ items,
                const I* __restrict__ run_ptr, const I* __restrict__ run_q,
@@ -222,8 +240,15 @@ sampled_kernel(const int64_t* __restrict__ items,
                const I* __restrict__ y_indices,
                const T* __restrict__ y_data, T* __restrict__ out, T alpha,
                bool scale, const I* __restrict__ c_indptr,
-               const I* __restrict__ c_indices, bool triangular) {
+               const I* __restrict__ c_indices, bool triangular,
+               const Strides st) {
   using A = Arith<T>;
+  if constexpr (BATCH) {
+    const int64_t z = blockIdx.y;
+    d += z * st.d;
+    y_data += z * st.y;
+    out += z * st.out;
+  }
   // Raw bytes: complex element types may not be declared __shared__.
   extern __shared__ __align__(16) unsigned char smem[];
   T* dp = reinterpret_cast<T*>(smem);

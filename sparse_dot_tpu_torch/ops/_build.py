@@ -44,8 +44,8 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _D = ctypes.c_double
 _INT = ctypes.c_int
-# Members of one batched launch of K1, K2, K7 or K8: the grid's y and z
-# dimensions hold at most 65,535 blocks (``kMaxMembers`` in
+# Members of one batched launch of K1, K2, K5, K6, K7, K8, K9 or K11: the
+# grid's y and z dimensions hold at most 65,535 blocks (``kMaxMembers`` in
 # ``csrc/common.cuh``); a larger batch is cut into launches of at most
 # this many.
 MAX_MEMBERS = 65535
@@ -86,9 +86,11 @@ _PROTOTYPES = {
                              _P, _P),
     # dtype, itype, a_indptr, a_indices, a_data, b_indptr, b_indices,
     # b_data, rows, offsets, bins (host), nbins, n, triangular, c_indptr,
-    # c_indices, c_data, work, work_groups, stream
+    # c_indices, c_data, work, work_groups, batch, s_a, s_b, s_c,
+    # write_indices, stream
     "sdt_csr_spgemm_fill": (_INT, _INT, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                            _INT, _I64, _INT, _P, _P, _P, _P, _I64, _P),
+                            _INT, _I64, _INT, _P, _P, _P, _P, _I64, _I64,
+                            _I64, _I64, _I64, _INT, _P),
     # dtype, itype, indptr, indices, g, b, out, m, n, nnz, vec, lanes,
     # per_lane, round, span, alpha_re, alpha_im, batch, s_g, s_b, s_out,
     # stream
@@ -97,10 +99,12 @@ _PROTOTYPES = {
                       _P),
     # dtype, itype, a_indptr, a_indices, a_data, b_indptr, b_indices,
     # b_data, c0, c, m, n, alpha_re, alpha_im, beta_re, beta_im,
-    # triangular, splits, width, k, starts (scratch), stream
+    # triangular, splits, width, k, starts (scratch), starts_ready, batch,
+    # s_a, s_b, s_c0, s_c, stream
     "sdt_csr_spgemm_dense": (_INT, _INT, _P, _P, _P, _P, _P, _P, _P, _P,
                              _I64, _I64, _D, _D, _D, _D, _INT, _INT, _I64,
-                             _I64, _P, _P),
+                             _I64, _P, _INT, _I64, _I64, _I64, _I64, _I64,
+                             _P),
     # dtype, itype, indptr, nbrows, indices, nblocks, g, b, out, bs, n,
     # alpha_re, alpha_im, batch, s_g, s_b, s_out, stream
     "sdt_bsr_sddmm_simt": (_INT, _INT, _P, _I64, _P, _I64, _P, _P, _P, _I64,
@@ -111,18 +115,18 @@ _PROTOTYPES = {
                          _I64, _D, _D, _I64, _I64, _I64, _I64, _P),
     # dtype, itype, items, n_items, run_ptr, run_q, perm, line, d, se, sy,
     # ne, ny, panel, pitch, staged, y_indptr, y_indices, y_data, out,
-    # lanes, alpha_re, alpha_im, stream
+    # lanes, alpha_re, alpha_im, batch, s_d, s_y, s_out, stream
     "sdt_csr_spgemm_sddmm": (_INT, _INT, _P, _I64, _P, _P, _P, _P, _P, _I64,
                              _I64, _I64, _I64, _INT, _INT, _INT, _P, _P, _P,
-                             _P, _INT, _D, _D, _P),
+                             _P, _INT, _D, _D, _I64, _I64, _I64, _I64, _P),
     # dtype, itype, items, n_items, run_ptr, run_q, perm, line, ne, ny,
     # panel, pitch, staged, p_indptr, p_indices, p_rows, y_indptr,
     # y_indices, y_data, c_indptr, c_indices, g, out, transposed,
-    # triangular, lanes, stream
+    # triangular, lanes, batch, s_y, s_g, s_out, stream
     "sdt_csr_spgemm_sparse_sddmm": (_INT, _INT, _P, _I64, _P, _P, _P, _P,
                                     _I64, _I64, _INT, _INT, _INT, _P, _P,
                                     _I64, _P, _P, _P, _P, _P, _P, _P, _INT,
-                                    _INT, _INT, _P),
+                                    _INT, _INT, _I64, _I64, _I64, _I64, _P),
 }
 
 _lib = None

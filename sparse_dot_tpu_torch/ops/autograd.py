@@ -29,14 +29,15 @@ ones are to JAX's.  Each runs one ``torch.autograd.Function``
   conj(alpha) op(A)^H G at op(B)'s, both on K9 (``ops/spgemm_grad``; G's
   upper triangle under ``triangular``, which keeps only j >= i of the
   product while c0 is added everywhere), dL/dc0 = conj(beta) G; ``jvp``
-  two K6 launches; ``vmap`` one call a member.
+  two K6 launches; ``vmap`` one batched K6 launch.
 - ``CsrSpgemm``: C = op(A) op(B) with sparse output on K4 + K5
   (``ops/spgemm``), returning C's (indptr, indices, data); backward
   dL/d(op(A)'s values) = G op(B)^H at op(A)'s pattern and dL/d(op(B)'s
   values) = op(A)^H G at op(B)'s, G = dL/d(data) on C's structural
   pattern, both on K11 (``ops/spgemm_grad.csr_spgemm_sparse_sddmm``);
   ``jvp`` two K5 launches on the saved pattern (``CsrSpgemmFill``, no
-  second K4); ``vmap`` one call a member.
+  second K4); ``vmap`` one K4 and one batched K5 (the members share C's
+  pattern).
 - ``CsrSddmm``, ``BsrSddmm``, ``CsrSpgemmSddmm``,
   ``CsrSpgemmSparseSddmm`` and ``CsrSpgemmFill``: K7, K8, K9, K11 and K5
   themselves, so that the backward's launches are open to the transforms
@@ -45,19 +46,21 @@ ones are to JAX's.  Each runs one ``torch.autograd.Function``
   batches them).
 
 Batches (``torch.func.vmap``, and ``jacrev``, ``jacfwd``, ``hessian`` and
-per-sample gradients, which are built on it).  ``CsrSpmm``, ``CsrSddmm``,
-``BsrSpmm`` and ``BsrSddmm`` take their operands with a member dimension
-ahead (values (B, nnz) or blocks (B, nblocks, bs, bs), b (B, k, n), c0
-and g (B, m, n), each per member or shared) and run them as one batched
-launch of K2, K7, K1 or K8 (``csr.spmm_batched``,
-``sddmm.sddmm_batched``, ``bsr.spmm_batched``, ``bsr.sddmm_batched``):
-their ``vmap`` rules move the batch to the front and call that form, so
-each ``vmap`` level is one launch whatever its size; a level outside
-another merges its batch with the members already there.  Their
-backward and ``jvp`` take the same form (the gradient of a shared
-operand summed over the members), so the transforms compose to any
-depth.  The sparse x sparse Functions (K5, K6, K9, K11) have no batched
-launch: their ``vmap`` is one call a member (``_batched``).
+per-sample gradients, which are built on it).  Every Function here but
+``CsrSpmv`` takes its operands with a member dimension ahead (values (B, nnz) or blocks (B,
+nblocks, bs, bs), b (B, k, n), c0 and g (B, m, n) or G's values (B,
+nnz(C)), each per member or shared) and runs them as one batched launch
+(``csr.spmm_batched``, ``sddmm.sddmm_batched``, ``bsr.spmm_batched``,
+``bsr.sddmm_batched``, ``spgemm.spgemm_dense_batched``,
+``spgemm.fill_batched``, ``spgemm.product_batched`` (one K4 for the
+batch), ``spgemm_grad.sampled_batched``,
+``spgemm_grad.sparse_sampled_batched``): their ``vmap`` rules move the
+batch to the front and call that form, so each ``vmap`` level is one
+launch whatever its size; a level outside another merges its batch with
+the members already there.  Their backward and ``jvp`` take the same
+form (the gradient of a shared operand summed over the members), so the
+transforms compose to any depth.  ``CsrSpmv``'s ``vmap`` runs
+``CsrSpmm``'s batched form at n = 1.
 
 Gradients follow PyTorch's convention for complex values, the conjugate
 of JAX's: for |z|^2 at 3+4j JAX gives 6-8j, PyTorch 6+8j.  Every Function
@@ -153,10 +156,8 @@ def _fold(t, dim, size, at):
 
 def _member(t, core):
     """Whether operand ``t`` comes with a member dimension ahead of its
-    ``core`` dimensions: the batched form of the CSR and BSR Functions,
-    whose forward is one batched launch (``csr.spmm_batched``,
-    ``sddmm.sddmm_batched``, ``bsr.spmm_batched``,
-    ``bsr.sddmm_batched``)."""
+    ``core`` dimensions: the batched form of the Functions, whose forward
+    is one batched launch."""
     return t is not None and t.dim() > core
 
 
@@ -214,22 +215,6 @@ def _unmerge(out, info, inner):
     if inner is None:
         return out, 0
     return out.unflatten(0, (info.batch_size, inner)), 0
-
-
-def _batched(info, in_dims, args, apply, stack=True):
-    """A batch of calls of the sparse x sparse Functions (K5, K6, K9,
-    K11), which have no batched launch: one call per member (``apply`` on
-    the members' arguments), launched one after another, stacked along
-    dimension 0 (with ``stack=False`` the members' results as a list)."""
-    size = info.batch_size
-    members = [
-        a if d is None else a.movedim(d, 0)
-        for a, d in zip(args, in_dims)
-    ]
-    out = [apply(*[a if d is None else a[i]
-                   for a, d in zip(members, in_dims)])
-           for i in range(size)]
-    return (torch.stack(out), 0) if stack else out
 
 
 class CsrSddmm(torch.autograd.Function):
@@ -586,7 +571,9 @@ class CsrSpgemmSddmm(torch.autograd.Function):
     rows of its op(B), ``p`` or ``x``, once per pattern: they come in the
     caller's order), and dL/d(x_data) = the other form at X's entries
     with W in place of X (``CsrSpgemmSddmm`` again, K9); the ``jvp`` is
-    two K9 launches."""
+    two K9 launches.  ``d`` and ``x_data`` may each come with a member
+    dimension ahead (the batched form: output (B, nnz(P)), one batched K9
+    launch), as for ``CsrSddmm``."""
 
     @staticmethod
     def forward(p, d, x, x_data, alpha, transposed):
@@ -594,15 +581,18 @@ class CsrSpgemmSddmm(torch.autograd.Function):
         y, y_data = x, x_data
         if transposed:
             y, order = x.transpose()
-            y_data = x_data[order]
-        return spgemm_grad.sampled(p.indptr, p.indices, d, y.indptr,
-                                   y.indices, y_data, alpha, transposed, p,
-                                   y)
+            y_data = x_data[..., order]
+        sampled = (spgemm_grad.sampled_batched
+                   if _member(d, 2) or _member(x_data, 1)
+                   else spgemm_grad.sampled)
+        return sampled(p.indptr, p.indices, d, y.indptr, y.indices, y_data,
+                       alpha, transposed, p, y)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
         p, d, x, x_data, alpha, transposed = inputs
         ctx.p, ctx.x, ctx.alpha, ctx.transposed = p, x, alpha, transposed
+        ctx.dims, ctx.shape = (d.dim(), x_data.dim()), output.shape
         ctx.save_for_backward(d, x_data)
         ctx.save_for_forward(d, x_data)
 
@@ -616,11 +606,13 @@ class CsrSpgemmSddmm(torch.autograd.Function):
             # W X (dA) or X W (dB); K6's op(B), X or W, in caller order.
             left, right = ((x, x_data), (p, grad)) if ctx.transposed else (
                 (p, grad), (x, x_data))
-            g_d = CsrSpgemmDense.apply(*left, *right, _conj(alpha), None,
-                                       None, False, False)
+            g_d = _sum_to(CsrSpgemmDense.apply(*left, *right, _conj(alpha),
+                                               None, None, False, False),
+                          ctx.dims[0])
         if need_x:
-            g_x = CsrSpgemmSddmm.apply(x, d, p, grad, alpha,
-                                       not ctx.transposed)
+            g_x = _sum_to(CsrSpgemmSddmm.apply(x, d, p, grad, alpha,
+                                               not ctx.transposed),
+                          ctx.dims[1])
         return None, g_d, None, g_x, None, None
 
     @staticmethod
@@ -633,11 +625,14 @@ class CsrSpgemmSddmm(torch.autograd.Function):
             d_out = CsrSpgemmSddmm.apply(ctx.p, dd, ctx.x, xx, ctx.alpha,
                                          ctx.transposed)
             out = d_out if out is None else out + d_out
-        return out
+        return _to_shape(out, ctx.shape)
 
     @staticmethod
-    def vmap(info, in_dims, *args):
-        return _batched(info, in_dims, args, CsrSpgemmSddmm.apply)
+    def vmap(info, in_dims, p, d, x, x_data, alpha, transposed):
+        (d, x_data), inner = _members(info, (in_dims[1], in_dims[3]),
+                                      (d, x_data), (2, 1))
+        return _unmerge(CsrSpgemmSddmm.apply(p, d, x, x_data, alpha,
+                                             transposed), info, inner)
 
 
 class CsrSpgemmDense(torch.autograd.Function):
@@ -645,7 +640,10 @@ class CsrSpgemmDense(torch.autograd.Function):
     j >= i of the product with ``triangular``, c0 added everywhere), op(A)
     and op(B) the CSRs of ``a`` and ``b`` (``CsrPattern``s) with values
     ``a_data`` and ``b_data``; differentiable in ``a_data``, ``b_data``
-    and ``c0``, to any order (its backward runs ``CsrSpgemmSddmm``)."""
+    and ``c0``, to any order (its backward runs ``CsrSpgemmSddmm``).
+    ``a_data``, ``b_data`` (nnz,) and ``c0`` (m, n) may each come with a
+    member dimension ahead (the batched form: output (B, m, n), one
+    batched K6 launch), as for ``CsrSpmm``."""
 
     @staticmethod
     def forward(a, a_data, b, b_data, alpha, beta, c0, triangular,
@@ -655,16 +653,21 @@ class CsrSpgemmDense(torch.autograd.Function):
         if not b_sorted:
             # Sorted and checked for repeated columns once per pattern.
             b_indices, order = b.sorted_columns()
-            b_data = b_data[order]
-        return spgemm.spgemm_dense(a.indptr, a.indices, a_data, b.indptr,
-                                   b_indices, b_data, b.ncols, alpha, beta,
-                                   c0, triangular, True)
+            b_data = b_data[..., order]
+        dense = (spgemm.spgemm_dense_batched
+                 if _member(a_data, 1) or _member(b_data, 1)
+                 or _member(c0, 2) else spgemm.spgemm_dense)
+        return dense(a.indptr, a.indices, a_data, b.indptr, b_indices,
+                     b_data, b.ncols, alpha, beta, c0, triangular, True)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
         a, a_data, b, b_data, alpha, beta, c0, triangular, b_sorted = inputs
         ctx.a, ctx.b, ctx.alpha, ctx.beta = a, b, alpha, _beta(beta, c0)
         ctx.triangular, ctx.b_sorted = triangular, b_sorted
+        ctx.dims = (a_data.dim(), b_data.dim(),
+                    None if c0 is None else c0.dim())
+        ctx.shape = output.shape
         ctx.save_for_backward(a_data, b_data)
         ctx.save_for_forward(a_data, b_data)
 
@@ -678,13 +681,14 @@ class CsrSpgemmDense(torch.autograd.Function):
         alpha = _conj(ctx.alpha)
         g_a = g_b = g_c0 = None
         if need[1]:
-            g_a = CsrSpgemmSddmm.apply(ctx.a, g, ctx.b, b_data, alpha,
-                                       False)
+            g_a = _sum_to(CsrSpgemmSddmm.apply(ctx.a, g, ctx.b, b_data, alpha,
+                                               False), ctx.dims[0])
         if need[3]:
             # The dB form reads G's columns: no transposed copy.
-            g_b = CsrSpgemmSddmm.apply(ctx.b, g, ctx.a, a_data, alpha, True)
+            g_b = _sum_to(CsrSpgemmSddmm.apply(ctx.b, g, ctx.a, a_data, alpha,
+                                               True), ctx.dims[1])
         if need[6]:
-            g_c0 = grad * _conj(ctx.beta)
+            g_c0 = _sum_to(grad * _conj(ctx.beta), ctx.dims[2])
         return None, g_a, None, g_b, None, None, g_c0, None, None
 
     @staticmethod
@@ -702,24 +706,33 @@ class CsrSpgemmDense(torch.autograd.Function):
             out = add(d_a, b_data, out)
         if d_b is not None:
             out = add(a_data, d_b, out)
-        return out
+        return _to_shape(out, ctx.shape)
 
     @staticmethod
-    def vmap(info, in_dims, *args):
-        return _batched(info, in_dims, args, CsrSpgemmDense.apply)
+    def vmap(info, in_dims, a, a_data, b, b_data, alpha, beta, c0,
+             triangular, b_sorted):
+        _, d_a, _, d_b, _, _, d_c0, _, _ = in_dims
+        (a_data, b_data, c0), inner = _members(info, (d_a, d_b, d_c0),
+                                               (a_data, b_data, c0),
+                                               (1, 1, 2))
+        return _unmerge(CsrSpgemmDense.apply(a, a_data, b, b_data, alpha,
+                                             beta, c0, triangular, b_sorted),
+                        info, inner)
 
 
 def _sparse_value_grads(ctx, a_data, b_data, indptr, indices, grad):
     """(dL/d(op(A)'s values), dL/d(op(B)'s values)) of op(A) @ op(B)'s
     values on C's pattern (``indptr``, ``indices``) for G = ``grad`` on
     it, each None where ``ctx.needs_input_grad`` does not ask for it (at
-    positions 1 and 3): the two K11 forms (``CsrSpgemmSparseSddmm``)."""
+    positions 1 and 3): the two K11 forms (``CsrSpgemmSparseSddmm``),
+    each summed over the members where its operand had none
+    (``ctx.dims``)."""
     need = ctx.needs_input_grad
 
     def grad_of(transposed):
-        return CsrSpgemmSparseSddmm.apply(ctx.a, a_data, ctx.b, b_data,
-                                          indptr, indices, grad, transposed,
-                                          ctx.triangular)
+        return _sum_to(CsrSpgemmSparseSddmm.apply(
+            ctx.a, a_data, ctx.b, b_data, indptr, indices, grad, transposed,
+            ctx.triangular), ctx.dims[1 if transposed else 0])
 
     return (grad_of(False) if need[1] else None,
             grad_of(True) if need[3] else None)
@@ -728,7 +741,8 @@ def _sparse_value_grads(ctx, a_data, b_data, indptr, indices, grad):
 def _sparse_value_tangent(ctx, a_data, b_data, indptr, indices, d_a, d_b):
     """The tangent of op(A) @ op(B)'s values on C's pattern (``indptr``,
     ``indices``): K5 of (dA, B) plus K5 of (A, dB) (``CsrSpgemmFill``; no
-    second K4), None where neither tangent is given."""
+    second K4), as a batch where an operand has members (``ctx.shape``),
+    None where neither tangent is given."""
     out = None
     for a_vals, b_vals in ((d_a, b_data), (a_data, d_b)):
         if a_vals is None or b_vals is None:
@@ -736,7 +750,7 @@ def _sparse_value_tangent(ctx, a_data, b_data, indptr, indices, d_a, d_b):
         d_out = CsrSpgemmFill.apply(ctx.a, a_vals, ctx.b, b_vals, indptr,
                                     indices, ctx.triangular)
         out = d_out if out is None else out + d_out
-    return out
+    return None if out is None else _to_shape(out, ctx.shape)
 
 
 class CsrSpgemmSparseSddmm(torch.autograd.Function):
@@ -756,7 +770,9 @@ class CsrSpgemmSparseSddmm(torch.autograd.Function):
     two patterns: no K4), and dL/d(the operand values a form reads) is
     the other form with W in place of the values it does not read (K11
     again); the ``jvp`` is two K11 launches (none for a tangent of the
-    values it does not read)."""
+    values it does not read).  ``a_data``, ``b_data`` and ``g`` may each
+    come with a member dimension ahead (the batched form: output (B,
+    nnz(P)), one batched K11 launch)."""
 
     @staticmethod
     def forward(a, a_data, b, b_data, c_indptr, c_indices, g, transposed,
@@ -765,9 +781,12 @@ class CsrSpgemmSparseSddmm(torch.autograd.Function):
         n = b.ncols
         # K5 writes C's column ids in [0, n): no read of them.
         c = CsrPattern(c_indptr, c_indices, n, span=(0, n))
-        return spgemm_grad.sparse_sampled(
-            a.indptr, a.indices, a_data, b.indptr, b.indices, b_data,
-            c_indptr, c_indices, g, n, transposed, triangular, a, b, c)
+        sampled = (spgemm_grad.sparse_sampled_batched
+                   if _member(a_data, 1) or _member(b_data, 1)
+                   or _member(g, 1) else spgemm_grad.sparse_sampled)
+        return sampled(a.indptr, a.indices, a_data, b.indptr, b.indices,
+                       b_data, c_indptr, c_indices, g, n, transposed,
+                       triangular, a, b, c)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -775,6 +794,8 @@ class CsrSpgemmSparseSddmm(torch.autograd.Function):
             triangular = inputs
         ctx.a, ctx.b = a, b
         ctx.transposed, ctx.triangular = transposed, triangular
+        ctx.dims, ctx.shape = (a_data.dim(), b_data.dim(), g.dim()), \
+            output.shape
         ctx.save_for_backward(a_data, b_data, c_indptr, c_indices, g)
         ctx.save_for_forward(a_data, b_data, c_indptr, c_indices, g)
 
@@ -786,16 +807,17 @@ class CsrSpgemmSparseSddmm(torch.autograd.Function):
                                                                 b_data)
         g_a = g_b = g_g = None
         if ctx.transposed and need[1]:
-            g_a = CsrSpgemmSparseSddmm.apply(ctx.a, a_data, ctx.b, grad,
-                                             indptr, indices, g, False,
-                                             ctx.triangular)
+            g_a = _sum_to(CsrSpgemmSparseSddmm.apply(
+                ctx.a, a_data, ctx.b, grad, indptr, indices, g, False,
+                ctx.triangular), ctx.dims[0])
         if not ctx.transposed and need[3]:
-            g_b = CsrSpgemmSparseSddmm.apply(ctx.a, grad, ctx.b, b_data,
-                                             indptr, indices, g, True,
-                                             ctx.triangular)
+            g_b = _sum_to(CsrSpgemmSparseSddmm.apply(
+                ctx.a, grad, ctx.b, b_data, indptr, indices, g, True,
+                ctx.triangular), ctx.dims[1])
         if need[6]:
-            g_g = CsrSpgemmFill.apply(ctx.a, a_vals, ctx.b, b_vals, indptr,
-                                      indices, ctx.triangular)
+            g_g = _sum_to(CsrSpgemmFill.apply(ctx.a, a_vals, ctx.b, b_vals,
+                                              indptr, indices,
+                                              ctx.triangular), ctx.dims[2])
         return None, g_a, None, g_b, None, None, g_g, None, None
 
     @staticmethod
@@ -814,11 +836,17 @@ class CsrSpgemmSparseSddmm(torch.autograd.Function):
                                                ctx.transposed,
                                                ctx.triangular)
             out = d_out if out is None else out + d_out
-        return out
+        return None if out is None else _to_shape(out, ctx.shape)
 
     @staticmethod
-    def vmap(info, in_dims, *args):
-        return _batched(info, in_dims, args, CsrSpgemmSparseSddmm.apply)
+    def vmap(info, in_dims, a, a_data, b, b_data, c_indptr, c_indices, g,
+             transposed, triangular):
+        _, d_a, _, d_b, _, _, d_g, _, _ = in_dims
+        (a_data, b_data, g), inner = _members(info, (d_a, d_b, d_g),
+                                              (a_data, b_data, g), (1, 1, 1))
+        return _unmerge(CsrSpgemmSparseSddmm.apply(
+            a, a_data, b, b_data, c_indptr, c_indices, g, transposed,
+            triangular), info, inner)
 
 
 class CsrSpgemmFill(torch.autograd.Function):
@@ -828,19 +856,31 @@ class CsrSpgemmFill(torch.autograd.Function):
     ``triangular``): the tangents of ``CsrSpgemm``, and the derivatives
     of ``CsrSpgemmSparseSddmm`` in G, open to the transforms.  Its own
     derivatives are ``CsrSpgemm``'s: backward the two K11 forms, ``jvp``
-    two K5 fills."""
+    two K5 fills.  K5's plan and bin sizes are the pattern pair's, made
+    once and cached (``spgemm.pair_plan``).  ``a_data`` and ``b_data`` may
+    each come with a member dimension ahead (the batched form: output (B,
+    nnz(C)), one batched K5 launch)."""
 
     @staticmethod
     def forward(a, a_data, b, b_data, c_indptr, c_indices, triangular):
         a_data, b_data = _plain(a_data, b_data)
+        plan = sizes = None
+        if a_data.is_cuda:
+            plan, sizes = spgemm.pair_plan(a, b, a_data.dtype)
+        if _member(a_data, 1) or _member(b_data, 1):
+            return spgemm.fill_batched(
+                a.indptr, a.indices, a_data, b.indptr, b.indices, b_data,
+                b.ncols, plan, c_indptr, c_indices.numel(), triangular,
+                sizes)[1]
         return spgemm.fill(a.indptr, a.indices, a_data, b.indptr, b.indices,
-                           b_data, b.ncols, None, c_indptr,
-                           c_indices.numel(), triangular)[1]
+                           b_data, b.ncols, plan, c_indptr,
+                           c_indices.numel(), triangular, sizes)[1]
 
     @staticmethod
     def setup_context(ctx, inputs, output):
         a, a_data, b, b_data, c_indptr, c_indices, triangular = inputs
         ctx.a, ctx.b, ctx.triangular = a, b, triangular
+        ctx.dims, ctx.shape = (a_data.dim(), b_data.dim()), output.shape
         ctx.save_for_backward(a_data, b_data, c_indptr, c_indices)
         ctx.save_for_forward(a_data, b_data, c_indptr, c_indices)
 
@@ -854,8 +894,14 @@ class CsrSpgemmFill(torch.autograd.Function):
         return _sparse_value_tangent(ctx, *ctx.saved_tensors, d_a, d_b)
 
     @staticmethod
-    def vmap(info, in_dims, *args):
-        return _batched(info, in_dims, args, CsrSpgemmFill.apply)
+    def vmap(info, in_dims, a, a_data, b, b_data, c_indptr, c_indices,
+             triangular):
+        _, d_a, _, d_b, _, _, _ = in_dims
+        (a_data, b_data), inner = _members(info, (d_a, d_b),
+                                           (a_data, b_data), (1, 1))
+        return _unmerge(CsrSpgemmFill.apply(a, a_data, b, b_data, c_indptr,
+                                            c_indices, triangular),
+                        info, inner)
 
 
 class CsrSpgemm(torch.autograd.Function):
@@ -867,21 +913,28 @@ class CsrSpgemm(torch.autograd.Function):
     gradient.  C's pattern is structural and fixed by the operands'
     patterns, so G = dL/d(data) lies on it: backward K11 twice
     (``CsrSpgemmSparseSddmm``), ``jvp`` K5 of (dA, B) plus K5 of (A, dB)
-    on the saved pattern (``CsrSpgemmFill``; no second K4), ``vmap`` one
-    call a member."""
+    on the saved pattern (``CsrSpgemmFill``; no second K4).  ``a_data``
+    and ``b_data`` may each come with a member dimension ahead (the
+    batched form: one plan and K4, one nnz read and one batched K5,
+    ``spgemm.product_batched``; ``data`` (B, nnz(C)) on the members' one
+    pattern), which the ``vmap`` rule calls."""
 
     @staticmethod
     def forward(a, a_data, b, b_data, triangular):
         a_data, b_data = _plain(a_data, b_data)
-        return spgemm.product(a.indptr, a.indices, a_data, b.indptr,
-                              b.indices, b_data, b.ncols, triangular)
+        product = (spgemm.product_batched
+                   if _member(a_data, 1) or _member(b_data, 1)
+                   else spgemm.product)
+        return product(a.indptr, a.indices, a_data, b.indptr, b.indices,
+                       b_data, b.ncols, triangular)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
         a, a_data, b, b_data, triangular = inputs
-        indptr, indices, _ = output
+        indptr, indices, data = output
         ctx.mark_non_differentiable(indptr, indices)
         ctx.a, ctx.b, ctx.triangular = a, b, triangular
+        ctx.dims, ctx.shape = (a_data.dim(), b_data.dim()), data.shape
         ctx.save_for_backward(a_data, b_data, indptr, indices)
         ctx.save_for_forward(a_data, b_data, indptr, indices)
 
@@ -897,11 +950,13 @@ class CsrSpgemm(torch.autograd.Function):
 
     @staticmethod
     def vmap(info, in_dims, a, a_data, b, b_data, triangular):
+        _, d_a, _, d_b, _ = in_dims
+        (a_data, b_data), inner = _members(info, (d_a, d_b),
+                                           (a_data, b_data), (1, 1))
         # The members share C's pattern: one indptr and indices for all.
-        members = _batched(info, in_dims, (a, a_data, b, b_data, triangular),
-                           CsrSpgemm.apply, stack=False)
-        indptr, indices, _ = members[0]
-        data = torch.stack([member[2] for member in members])
+        indptr, indices, data = CsrSpgemm.apply(a, a_data, b, b_data,
+                                                triangular)
+        data, _ = _unmerge(data, info, inner)
         return (indptr, indices, data), (None, None, 0)
 
 

@@ -25,7 +25,7 @@ the value type, the alignment of the pointers and the mean row length
 on the grid's z dimension: what ``torch.func.vmap`` over the values
 (``ops.autograd``) and the transforms built on it reach.  The helpers
 below it (``batch_size``, ``member_stride``, ``member_chunks``) serve the
-batched wrappers of K1, K7 and K8 too.
+batched wrappers of K1, K5, K6, K7, K8, K9 and K11 too.
 """
 
 from typing import NamedTuple
@@ -182,11 +182,12 @@ def member_stride(name, t, core):
     return t.stride(0)
 
 
-def member_chunks(size):
+def member_chunks(size, most=None):
     """(first member, members) of each launch of a batch of ``size``:
-    launches of at most ``_build.MAX_MEMBERS`` (the grid's limit)."""
-    return [(s, min(_build.MAX_MEMBERS, size - s))
-            for s in range(0, size, _build.MAX_MEMBERS)]
+    launches of at most ``most`` members, ``_build.MAX_MEMBERS`` (the
+    grid's limit) when None or larger."""
+    most = min(most or _build.MAX_MEMBERS, _build.MAX_MEMBERS)
+    return [(s, min(most, size - s)) for s in range(0, size, most)]
 
 
 def member_ptr(t, stride, first):

@@ -57,9 +57,16 @@ Gradients, on either device, when an operand is tracked
 (``ops/spgemm_grad.csr_spgemm_sddmm``) for both operands' values
 backward; ``csr_spgemm`` runs ``ops.autograd.CsrSpgemm``, K4 + K5 forward
 and K11 (``ops/spgemm_grad.csr_spgemm_sparse_sddmm``) for both operands'
-values backward, with G on C's pattern.  Both are first order only.
+values backward, with G on C's pattern; both to any order.
 ``csr_spgemm_fill`` called directly carries no gradient and raises on a
 tracked operand.
+
+Batches (``torch.func.vmap`` over the values, and the transforms built
+on it): ``spgemm_dense_batched`` (K6), ``fill_batched`` (K5) and
+``product_batched`` (one plan and K4, one nnz read, one batched K5) take
+members that share both patterns, each operand's values per member or
+shared, in one launch, the member on the grid's y dimension; each has a
+plain version vectorised over the members.
 """
 
 import functools
@@ -69,10 +76,12 @@ import numpy as np
 import torch
 
 from ..config import config
-from ..formats import (_check_index_bounds, expand_indptr,
+from ..formats import (_check_index_bounds, expand_indptr, structure_only,
                        sorted_unique_columns)
 from . import _build
-from .csr import _add_rows, _check, refuse_tracked, refuse_views, tracked
+from .csr import (_add_rows, _check, batch_size, check_members,
+                  member_chunks, member_ptr, member_stride, refuse_tracked,
+                  refuse_views, tracked)
 from .dense import axpby
 
 # Kinds of row bins (the codes of csrc/csr_spgemm.cu's BinKind).
@@ -215,10 +224,11 @@ def spgemm_plan(a_indptr, a_indices, b_indptr, n, dtype, index_dtype):
 # ---------------------------------------------------------------------------
 
 
-def _row_chunks(ub):
-    """Row ranges [r0, r1) whose products stay within
+def _row_chunks(ub, members=1):
+    """Row ranges [r0, r1) whose products, once for each of ``members``
+    (a batch's members, each with its own values), stay within
     ``config.spmm_chunk_elements`` (a longer row is a chunk alone)."""
-    budget = config.spmm_chunk_elements
+    budget = max(1, config.spmm_chunk_elements // members)
     prefix = np.concatenate([[0], np.cumsum(ub.cpu().numpy())])
     m, r = len(prefix) - 1, 0
     while r < m:
@@ -254,10 +264,11 @@ def products(a_indptr, a_indices, b_indptr, b_indices, a_rows, r0, r1,
 def _expand(a_indptr, a_indices, a_data, b_indptr, b_indices, b_data,
             a_rows, r0, r1, triangular):
     """(row, col, value) of every product of rows [r0, r1)
-    (``products``); ``a_data`` None skips the values."""
+    (``products``), the values with the members of a batch ahead where an
+    operand has them; ``a_data`` None skips the values."""
     p, q, rows, cols = products(a_indptr, a_indices, b_indptr, b_indices,
                                 a_rows, r0, r1, triangular)
-    vals = None if a_data is None else a_data[p] * b_data[q]
+    vals = None if a_data is None else a_data[..., p] * b_data[..., q]
     return rows, cols, vals
 
 
@@ -268,19 +279,43 @@ def spgemm_plain(a_indptr, a_indices, a_data, b_indptr, b_indices, b_data,
     stably, and summed by ``unique_consecutive`` and ``index_add_``; so
     each entry's products add in op(A)'s stored order, as in K5.  Chunks
     hold at most ``config.spmm_chunk_elements`` products."""
+    return _esc(a_indptr, a_indices, a_data, b_indptr, b_indices, b_data,
+                n, triangular, ())
+
+
+def spgemm_plain_batched(a_indptr, a_indices, a_data, b_indptr, b_indices,
+                         b_data, n, triangular=False):
+    """``spgemm_plain`` for a batch of members that share both patterns,
+    ``a_data`` and ``b_data`` each (B, nnz) or shared (nnz,), at least one
+    with the member dimension: vectorised over the members (one expansion
+    and one sort of the keys for all, each member's products summed as
+    ``spgemm_plain`` sums them).  Returns (indptr, indices, data (B,
+    nnz(C)))."""
+    size = batch_size("csr_spgemm", ((a_data, 1), (b_data, 1)))
+    return _esc(a_indptr, a_indices, a_data, b_indptr, b_indices, b_data,
+                n, triangular, (size,))
+
+
+def _esc(a_indptr, a_indices, a_data, b_indptr, b_indices, b_data, n,
+         triangular, lead):
+    """``spgemm_plain``'s expand, sort and compress, C's values of leading
+    shape ``lead``: () for one product, (B,) for a batch's members."""
     m = a_indptr.numel() - 1
     dev, itype = a_indptr.device, a_indptr.dtype
     a_rows = expand_indptr(a_indptr.long(), a_indices.numel())
     counts = torch.zeros(m, dtype=torch.long, device=dev)
     cols, vals = [], []
-    for r0, r1 in _row_chunks(row_bounds(a_indptr, a_indices, b_indptr)):
+    for r0, r1 in _row_chunks(row_bounds(a_indptr, a_indices, b_indptr),
+                              lead[0] if lead else 1):
         rows, col, val = _expand(a_indptr, a_indices, a_data, b_indptr,
                                  b_indices, b_data, a_rows, r0, r1,
                                  triangular)
         key, order = torch.sort(rows * n + col, stable=True)
         key, inverse = torch.unique_consecutive(key, return_inverse=True)
-        summed = torch.zeros(key.numel(), dtype=a_data.dtype, device=dev)
-        _add_rows(summed, inverse, val[order])
+        summed = torch.zeros((*lead, key.numel()), dtype=a_data.dtype,
+                             device=dev)
+        _add_rows(summed, inverse, val[..., order].expand(*lead, -1),
+                  dim=len(lead))
         vals.append(summed)
         cols.append(key % n)
         counts[r0:r1] = torch.bincount(key // n - r0, minlength=r1 - r0)
@@ -289,7 +324,8 @@ def spgemm_plain(a_indptr, a_indices, a_data, b_indptr, b_indices, b_data,
     _check_index_bounds(int(indptr[-1]), (m, n), itype)
     empty = torch.zeros(0, dtype=torch.long, device=dev)
     return (indptr.to(itype), torch.cat(cols or [empty]).to(itype),
-            torch.cat(vals) if vals else a_data[:0].clone())
+            torch.cat(vals, -1) if vals
+            else torch.zeros((*lead, 0), dtype=a_data.dtype, device=dev))
 
 
 def csr_spgemm_count_plain(a_indptr, a_indices, b_indptr, b_indices, n,
@@ -315,21 +351,53 @@ def csr_spgemm_fill_plain(a_indptr, a_indices, a_data, b_indptr, b_indices,
     return indices, data
 
 
+def csr_spgemm_fill_batched_plain(a_indptr, a_indices, a_data, b_indptr,
+                                  b_indices, b_data, n, triangular=False):
+    """K5's batched plain version: (indices, data (B, nnz(C))) of
+    ``spgemm_plain_batched``."""
+    _, indices, data = spgemm_plain_batched(a_indptr, a_indices, a_data,
+                                            b_indptr, b_indices, b_data, n,
+                                            triangular)
+    return indices, data
+
+
 def csr_spgemm_dense_plain(a_indptr, a_indices, a_data, b_indptr, b_indices,
                            b_data, n, alpha=None, beta=None, c0=None,
                            triangular=False):
     """K6's plain version: ``alpha * op(A) @ op(B) + beta * c0`` as a
     dense (m, n) tensor, scattering the expanded products of each chunk
     of rows with ``index_add_`` (no densified operand)."""
+    return _dense_plain(a_indptr, a_indices, a_data, b_indptr, b_indices,
+                        b_data, n, alpha, beta, c0, triangular, ())
+
+
+def csr_spgemm_dense_batched_plain(a_indptr, a_indices, a_data, b_indptr,
+                                   b_indices, b_data, n, alpha=None,
+                                   beta=None, c0=None, triangular=False):
+    """K6's batched plain version: ``csr_spgemm_dense_plain`` for a batch
+    of members that share both patterns (``a_data`` and ``b_data`` (B,
+    nnz) or shared (nnz,), ``c0`` (B, m, n), (m, n) or None, at least one
+    with the member dimension), vectorised over the members; (B, m, n)."""
+    size = batch_size("csr_spgemm_dense",
+                      ((a_data, 1), (b_data, 1), (c0, 2)))
+    return _dense_plain(a_indptr, a_indices, a_data, b_indptr, b_indices,
+                        b_data, n, alpha, beta, c0, triangular, (size,))
+
+
+def _dense_plain(a_indptr, a_indices, a_data, b_indptr, b_indices, b_data,
+                 n, alpha, beta, c0, triangular, lead):
+    """``csr_spgemm_dense_plain`` with C of leading shape ``lead``: () for
+    one product, (B,) for a batch's members."""
     m = a_indptr.numel() - 1
-    c = torch.zeros(m * n, dtype=a_data.dtype, device=a_data.device)
+    c = torch.zeros((*lead, m * n), dtype=a_data.dtype, device=a_data.device)
     a_rows = expand_indptr(a_indptr.long(), a_indices.numel())
-    for r0, r1 in _row_chunks(row_bounds(a_indptr, a_indices, b_indptr)):
+    for r0, r1 in _row_chunks(row_bounds(a_indptr, a_indices, b_indptr),
+                              lead[0] if lead else 1):
         rows, cols, vals = _expand(a_indptr, a_indices, a_data, b_indptr,
                                    b_indices, b_data, a_rows, r0, r1,
                                    triangular)
-        _add_rows(c, rows * n + cols, vals)
-    return axpby(c.reshape(m, n), alpha, beta, c0)
+        _add_rows(c, rows * n + cols, vals.expand(*lead, -1), dim=len(lead))
+    return axpby(c.reshape(*lead, m, n), alpha, beta, c0)
 
 
 # ---------------------------------------------------------------------------
@@ -337,16 +405,27 @@ def csr_spgemm_dense_plain(a_indptr, a_indices, a_data, b_indptr, b_indices,
 # ---------------------------------------------------------------------------
 
 
-def _workspace(table, per_group, device):
+def _workspace(table, per_group, device, members=1):
     """(workspace, groups): dense rows of ``per_group`` bytes for the
-    DENSE_GLOBAL bin of ``table`` (``_launch_table``'s), as many as
-    GLOBAL_WORKSPACE holds (at least one, at most two per SM)."""
+    DENSE_GLOBAL bin of ``table`` (``_launch_table``'s), ``groups`` for
+    each of ``members`` members, as many as GLOBAL_WORKSPACE holds (at
+    least one a member, at most two per SM)."""
     if table[-1, 0] != DENSE_GLOBAL:
         return None, 0
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    groups = max(1, min(2 * sms, GLOBAL_WORKSPACE // per_group))
-    work = torch.empty(groups * per_group, dtype=torch.uint8, device=device)
+    groups = max(1, min(2 * sms, GLOBAL_WORKSPACE // (per_group * members)))
+    work = torch.empty(members * groups * per_group, dtype=torch.uint8,
+                       device=device)
     return work, groups
+
+
+def _fill_members(table, per_group):
+    """The most members of one batched K5 launch: ``_build.MAX_MEMBERS``,
+    or where the DENSE_GLOBAL bin of ``table`` is used, as many as keep
+    one workspace row each within GLOBAL_WORKSPACE (at least one)."""
+    if table[-1, 0] != DENSE_GLOBAL:
+        return _build.MAX_MEMBERS
+    return max(1, min(_build.MAX_MEMBERS, GLOBAL_WORKSPACE // per_group))
 
 
 def _launch_table(plan, m, sizes=None):
@@ -504,7 +583,8 @@ def fill(a_indptr, a_indices, a_data, b_indptr, b_indices, b_data, n, plan,
     """``csr_spgemm_fill`` without the tracked check, for
     ``ops.autograd``'s Functions: K5 on the card, its plain version on the
     CPU; counted in ``csr_spgemm_fill.launches``.  ``plan`` None: the
-    plan is built here (``spgemm_plan``: device ops, no K4)."""
+    plan is built here (``spgemm_plan``: device ops, no K4; the
+    Functions pass ``pair_plan``'s, cached on the operands' patterns)."""
     refuse_views("csr_spgemm_fill", a_indptr, a_indices, a_data, b_indptr,
                  b_indices, b_data)
     if a_data.device.type == "cpu":
@@ -518,49 +598,121 @@ def fill(a_indptr, a_indices, a_data, b_indptr, b_indices, b_data, n, plan,
                           triangular)(nnz, bin_sizes)
 
 
+def fill_batched(a_indptr, a_indices, a_data, b_indptr, b_indices, b_data,
+                 n, plan, c_indptr, nnz, triangular=False, bin_sizes=None):
+    """K5 for a batch of members that share op(A)'s and op(B)'s patterns:
+    member i's values of op(A) @ op(B) on C's pattern (``c_indptr``, nnz
+    entries), op(A)'s values ``a_data[i]`` and op(B)'s ``b_data[i]``
+    ((B, nnz) each, or (nnz,) shared, at least one with the member
+    dimension, each member contiguous).  Returns (indices (nnz,), data
+    (B, nnz)): C's column ids, the same for every member, written once.
+    One launch a bin on the card for up to ``_build.MAX_MEMBERS`` members
+    (fewer where the dense rows in the device workspace would pass
+    GLOBAL_WORKSPACE: ``_fill_members``), on the shared plan (``plan``
+    None: built here, as in ``fill``); counted in
+    ``csr_spgemm_fill.launches`` and ``launches_batched``.  The batched
+    plain version on the CPU.  Carries no gradient (``ops.autograd``'s
+    ``CsrSpgemmFill`` does)."""
+    refuse_views("csr_spgemm_fill", a_indptr, a_indices, a_data, b_indptr,
+                 b_indices, b_data)
+    size = batch_size("csr_spgemm_fill", ((a_data, 1), (b_data, 1)))
+    if a_data.device.type == "cpu":
+        return csr_spgemm_fill_batched_plain(a_indptr, a_indices, a_data,
+                                             b_indptr, b_indices, b_data, n,
+                                             triangular)
+    if plan is None:
+        plan = spgemm_plan(a_indptr, a_indices, b_indptr, n, a_data.dtype,
+                           a_indptr.dtype)
+    return _fill_launcher(a_indptr, a_indices, a_data, b_indptr, b_indices,
+                          b_data, n, plan, c_indptr, triangular,
+                          size)(nnz, bin_sizes)
+
+
+def pair_plan(a, b, dtype):
+    """(plan, bin sizes) of K5 for op(A) and op(B) given as
+    ``CsrPattern``s ``a`` and ``b`` and values of ``dtype``:
+    ``spgemm_plan``'s device ops and one host read of its bin sizes, made
+    once per pattern pair and value type and cached on ``a.plans`` (as
+    K11's runs are on P's), so that ``CsrSpgemmFill`` (the tangents of
+    ``csr_spgemm``, the derivatives of its backward) neither plans nor
+    reads the host again at every fill.  The plan holds no values and
+    counts every product (``triangular`` is K5's own filter)."""
+    key = ("k5", b, dtype)
+    if key not in a.plans:
+        with structure_only():
+            plan = spgemm_plan(a.indptr, a.indices, b.indptr, b.ncols, dtype,
+                               a.indptr.dtype)
+            a.plans[key] = (plan, np.diff(plan.offsets.tolist()))
+    return a.plans[key]
+
+
 def _fill_launcher(a_indptr, a_indices, a_data, b_indptr, b_indices,
-                   b_data, n, plan, c_indptr, triangular):
+                   b_data, n, plan, c_indptr, triangular, members=None):
     """K5's launch on the card, made ready up to what the output's size
     decides: ``launch(nnz, bin_sizes)`` then allocates the output and
     launches (``bin_sizes`` None: read from ``plan.offsets``).
     ``csr_spgemm`` makes it before its one host sync, so only ``launch``
-    stands between the sync and K5."""
+    stands between the sync and K5.  With ``members`` (a batch's size)
+    the values are ``fill_batched``'s and so is the output."""
     if not a_data.is_cuda:
         raise ValueError(f"csr_spgemm_fill: no kernel for device "
                          f"{a_data.device}")
-    _check("csr_spgemm_fill",
-           (a_indptr, a_indices, b_indptr, b_indices, c_indptr),
-           (a_data, b_data))
+    index_tensors = (a_indptr, a_indices, b_indptr, b_indices, c_indptr)
+    if members is None:
+        _check("csr_spgemm_fill", index_tensors, (a_data, b_data))
+        strides = (0, 0, 0)
+    else:
+        check_members("csr_spgemm_fill", index_tensors,
+                      ((a_data, 1), (b_data, 1)))
+        strides = (member_stride("csr_spgemm_fill", a_data, 1),
+                   member_stride("csr_spgemm_fill", b_data, 1))
     m = a_indptr.numel() - 1
     device = a_data.device
-    head = (*_build.type_codes(a_data, a_indptr), a_indptr.data_ptr(),
-            a_indices.data_ptr(), a_data.data_ptr(), b_indptr.data_ptr(),
-            b_indices.data_ptr(), b_data.data_ptr(), plan.rows.data_ptr(),
-            plan.offsets.data_ptr())
+    codes = _build.type_codes(a_data, a_indptr)
+    a_ids = (a_indptr.data_ptr(), a_indices.data_ptr())
+    b_ids = (b_indptr.data_ptr(), b_indices.data_ptr())
+    rows = (plan.rows.data_ptr(), plan.offsets.data_ptr())
     tail = (n, int(triangular), c_indptr.data_ptr())
     stream = _build.stream_of(a_data)
     row_bytes = dense_row_bytes(n, a_data.dtype)
 
+    def launch_k5(table, first, count, strides, indices, data, write):
+        """One launch of K5 for ``count`` members from ``first``."""
+        a_ptr, b_ptr, c_ptr = (member_ptr(t, st, first) for t, st in
+                               zip((a_data, b_data, data), strides))
+        work, groups = _workspace(table, row_bytes, device, count)
+        _build.launch(
+            "sdt_csr_spgemm_fill", *codes, *a_ids, a_ptr, *b_ids, b_ptr,
+            *rows, table.ctypes.data, len(table), *tail, indices.data_ptr(),
+            c_ptr,
+            None if work is None else work.data_ptr(), groups, count,
+            *strides, int(write), stream)
+        csr_spgemm_fill.launches += 1
+
     def launch(nnz, bin_sizes=None):
         indices = torch.empty(nnz, dtype=a_indptr.dtype, device=device)
-        data = torch.empty(nnz, dtype=a_data.dtype, device=device)
-        if nnz == 0:
+        data = torch.empty(nnz if members is None else (members, nnz),
+                           dtype=a_data.dtype, device=device)
+        if nnz == 0 or members == 0:
             return indices, data
         if bin_sizes is None:
             bin_sizes = np.diff(plan.offsets.tolist())
         table = _launch_table(plan, m, bin_sizes)
-        work, groups = _workspace(table, row_bytes, device)
-        _build.launch(
-            "sdt_csr_spgemm_fill", *head, table.ctypes.data, len(table),
-            *tail, indices.data_ptr(), data.data_ptr(),
-            None if work is None else work.data_ptr(), groups, stream)
-        csr_spgemm_fill.launches += 1
+        if members is None:
+            launch_k5(table, 0, 1, strides, indices, data, True)
+            return indices, data
+        for i, (first, count) in enumerate(member_chunks(
+                members, _fill_members(table, row_bytes))):
+            launch_k5(table, first, count, (*strides, nnz), indices, data,
+                      i == 0)
+            csr_spgemm_fill.launches_batched += 1
         return indices, data
 
     return launch
 
 
 csr_spgemm_fill.launches = 0
+csr_spgemm_fill.launches_batched = 0
 
 
 # The steps of ``csr_spgemm`` on the card, as its ``marks`` names them.
@@ -600,6 +752,32 @@ def product(a_indptr, a_indices, a_data, b_indptr, b_indices, b_data, n,
     if a_data.device.type == "cpu":
         return spgemm_plain(a_indptr, a_indices, a_data, b_indptr, b_indices,
                             b_data, n, triangular)
+    return _product(a_indptr, a_indices, a_data, b_indptr, b_indices, b_data,
+                    n, triangular, marks)
+
+
+def product_batched(a_indptr, a_indices, a_data, b_indptr, b_indices,
+                    b_data, n, triangular=False):
+    """``product`` for a batch of members that share op(A)'s and op(B)'s
+    patterns (``a_data`` and ``b_data`` (B, nnz) or (nnz,) shared, at
+    least one with the member dimension): (indptr, indices, data (B,
+    nnz(C))), C's structure the patterns' and the members'.  On the card
+    one plan and K4 (one launch), one nnz read and one batched K5
+    (``fill_batched``'s launch); the batched plain version on the
+    CPU."""
+    refuse_views("csr_spgemm", a_indptr, a_indices, a_data, b_indptr,
+                 b_indices, b_data)
+    size = batch_size("csr_spgemm", ((a_data, 1), (b_data, 1)))
+    if a_data.device.type == "cpu":
+        return spgemm_plain_batched(a_indptr, a_indices, a_data, b_indptr,
+                                    b_indices, b_data, n, triangular)
+    return _product(a_indptr, a_indices, a_data, b_indptr, b_indices, b_data,
+                    n, triangular, None, size)
+
+
+def _product(a_indptr, a_indices, a_data, b_indptr, b_indices, b_data, n,
+             triangular, marks, members=None):
+    """``product`` on the card, of a batch of ``members`` when given."""
     mark = marks or (lambda step: None)
     m = a_indptr.numel() - 1
     total = torch.zeros(m + 1, dtype=torch.long, device=a_data.device)
@@ -609,7 +787,8 @@ def product(a_indptr, a_indices, a_data, b_indptr, b_indices, b_data, n,
     total[1:].cumsum_(0)
     indptr = total.to(a_indptr.dtype)
     launch = _fill_launcher(a_indptr, a_indices, a_data, b_indptr,
-                            b_indices, b_data, n, plan, indptr, triangular)
+                            b_indices, b_data, n, plan, indptr, triangular,
+                            members)
     mark("running_sum")
     # The one host sync: the output's size, read with the bin sizes.
     head = torch.cat((total[-1:], plan.offsets)).tolist()
@@ -721,18 +900,8 @@ def spgemm_dense(a_indptr, a_indices, a_data, b_indptr, b_indices, b_data,
         raise ValueError(f"csr_spgemm_dense: c0 is {tuple(c0.shape)}, "
                          f"need {(m, n)}")
     c = torch.empty((m, n), dtype=a_data.dtype, device=a_data.device)
-    k = b_indptr.numel() - 1
-    plan = starts = None
-    if m and n:
-        sms = torch.cuda.get_device_properties(
-            a_data.device).multi_processor_count
-        plan = dense_plan(m, n, a_data.element_size(), a_indices.numel(),
-                          sms)
-        if window_starts_pay(plan, m, n, k, a_indices.numel(),
-                             a_data.element_size(), b_indptr.element_size()):
-            starts = torch.empty(k * (plan.windows + 1),
-                                 dtype=b_indptr.dtype, device=a_data.device)
-    dt, it = _build.type_codes(a_data, a_indptr)
+    launch = _k6_launcher(a_indptr, a_indices, a_data, b_indptr, n, alpha,
+                          beta, c0 is not None, triangular)
     if not b_sorted:
         # Last before the launch: the check's host read then leaves the
         # card idle only while K6 is launched.
@@ -740,23 +909,122 @@ def spgemm_dense(a_indptr, a_indices, a_data, b_indptr, b_indices, b_data,
                                                   b_data, n)
     if m == 0 or n == 0:
         return c
-    _build.launch(
-        "sdt_csr_spgemm_dense", dt, it, a_indptr.data_ptr(),
-        a_indices.data_ptr(), a_data.data_ptr(), b_indptr.data_ptr(),
-        b_indices.data_ptr(), b_data.data_ptr(),
-        None if c0 is None else c0.data_ptr(), c.data_ptr(), m, n,
-        *_build.scalar_parts(alpha),
-        *_build.scalar_parts(0.0 if c0 is None else beta),
-        int(triangular), plan.splits, plan.width, k,
-        None if starts is None else starts.data_ptr(),
-        _build.stream_of(a_data),
-    )
-    csr_spgemm_dense.launches += 1
-    csr_spgemm_dense.last_plan = plan
-    csr_spgemm_dense.last_table = starts is not None
+    launch(b_indices, 1, (0, 0, 0, 0), a_data.data_ptr(), b_data.data_ptr(),
+           None if c0 is None else c0.data_ptr(), c.data_ptr(), False)
     return c
 
 
+def spgemm_dense_batched(a_indptr, a_indices, a_data, b_indptr, b_indices,
+                         b_data, n, alpha=None, beta=None, c0=None,
+                         triangular=False, b_sorted=False):
+    """K6 for a batch of members that share op(A)'s and op(B)'s patterns:
+    member i is ``alpha * A_i @ B_i + beta * c0_i`` (only j >= i of the
+    product with ``triangular``), with ``a_data`` and ``b_data`` (B, nnz)
+    or (nnz,) and ``c0`` (B, m, n), (m, n) or None, at least one with the
+    member dimension, each member contiguous; an operand without it (or
+    expanded along it) is shared, read in place by every member.  Returns
+    a new (B, m, n) tensor.  op(B)'s rows are sorted and checked once for
+    the batch (``b_sorted`` as in ``csr_spgemm_dense``), its members'
+    values gathered as ``b_data[..., order]``.  One launch on the card
+    (one per ``_build.MAX_MEMBERS`` members) on the shared plan and
+    window-start table; counted in ``csr_spgemm_dense.launches`` and
+    ``launches_batched``.  The batched plain version on the CPU."""
+    refuse_views("csr_spgemm_dense", a_indptr, a_indices, a_data, b_indptr,
+                 b_indices, b_data, c0)
+    operands = ((a_data, 1), (b_data, 1), (c0, 2))
+    size = batch_size("csr_spgemm_dense", operands)
+    if a_data.device.type == "cpu":
+        if not b_sorted:
+            b_indices, b_data = _sorted_members(b_indptr, b_indices, b_data,
+                                                n)
+        return csr_spgemm_dense_batched_plain(
+            a_indptr, a_indices, a_data, b_indptr, b_indices, b_data, n,
+            alpha, beta, c0, triangular)
+    if not a_data.is_cuda:
+        raise ValueError(f"csr_spgemm_dense: no kernel for device "
+                         f"{a_data.device}")
+    check_members("csr_spgemm_dense",
+                  (a_indptr, a_indices, b_indptr, b_indices), operands)
+    m = a_indptr.numel() - 1
+    if (a_data.shape[-1] != a_indices.numel()
+            or b_data.shape[-1] != b_indices.numel()
+            or (c0 is not None and tuple(c0.shape[-2:]) != (m, n))):
+        raise ValueError(
+            f"csr_spgemm_dense: values {tuple(a_data.shape)}, "
+            f"{tuple(b_data.shape)} and c0 "
+            f"{None if c0 is None else tuple(c0.shape)} do not fit "
+            f"{a_indices.numel()} and {b_indices.numel()} entries and "
+            f"{(m, n)}")
+    c = torch.empty((size, m, n), dtype=a_data.dtype, device=a_data.device)
+    launch = _k6_launcher(a_indptr, a_indices, a_data, b_indptr, n, alpha,
+                          beta, c0 is not None, triangular)
+    if not b_sorted:
+        b_indices, b_data = _sorted_members(b_indptr, b_indices, b_data, n)
+    if m == 0 or n == 0 or size == 0:
+        return c
+    strides = (member_stride("csr_spgemm_dense", a_data, 1),
+               member_stride("csr_spgemm_dense", b_data, 1),
+               member_stride("csr_spgemm_dense", c0, 2), m * n)
+    for i, (first, count) in enumerate(member_chunks(size)):
+        launch(b_indices, count, strides,
+               *(member_ptr(t, st, first)
+                 for t, st in zip((a_data, b_data, c0, c), strides)),
+               i > 0)
+        csr_spgemm_dense.launches_batched += 1
+    return c
+
+
+def _sorted_members(b_indptr, b_indices, b_data, n):
+    """op(B)'s rows sorted, each once for every member of ``b_data`` ((B,
+    nnz) or (nnz,)): (indices, b_data[..., order]); raises where a row
+    repeats a column (``formats.sorted_unique_columns``)."""
+    indices, order = sorted_unique_columns(
+        b_indptr, b_indices,
+        torch.arange(b_indices.numel(), device=b_indices.device), n)
+    return indices, b_data[..., order]
+
+
+def _k6_launcher(a_indptr, a_indices, a_data, b_indptr, n, alpha, beta,
+                 with_c0, triangular):
+    """K6's launch for op(A) and op(B)'s patterns, planned here
+    (``dense_plan``, and the window-start table's scratch where
+    ``window_starts_pay``): ``launch(b_indices, members, strides, a, b,
+    c0, c, starts_ready)`` launches for ``members`` members at
+    ``strides`` (op(A)'s, op(B)'s values, c0, C) given the addresses;
+    ``starts_ready``: an earlier launch of the call built the table.
+    Counted in ``csr_spgemm_dense.launches``."""
+    m, k = a_indptr.numel() - 1, b_indptr.numel() - 1
+    a_nnz, itemsize = a_indices.numel(), a_data.element_size()
+    plan = starts = None
+    if m and n:
+        sms = torch.cuda.get_device_properties(
+            a_data.device).multi_processor_count
+        plan = dense_plan(m, n, itemsize, a_nnz, sms)
+        if window_starts_pay(plan, m, n, k, a_nnz, itemsize,
+                             b_indptr.element_size()):
+            starts = torch.empty(k * (plan.windows + 1),
+                                 dtype=b_indptr.dtype, device=a_data.device)
+    dt, it = _build.type_codes(a_data, a_indptr)
+    stream = _build.stream_of(a_data)
+
+    def launch(b_indices, members, strides, a, b, c0, c, starts_ready):
+        _build.launch(
+            "sdt_csr_spgemm_dense", dt, it, a_indptr.data_ptr(),
+            a_indices.data_ptr(), a, b_indptr.data_ptr(),
+            b_indices.data_ptr(), b, c0, c, m, n,
+            *_build.scalar_parts(alpha),
+            *_build.scalar_parts(beta if with_c0 else 0.0),
+            int(triangular), plan.splits, plan.width, k,
+            None if starts is None else starts.data_ptr(), int(starts_ready),
+            members, *strides, stream)
+        csr_spgemm_dense.launches += 1
+        csr_spgemm_dense.last_plan = plan
+        csr_spgemm_dense.last_table = starts is not None
+
+    return launch
+
+
 csr_spgemm_dense.launches = 0
+csr_spgemm_dense.launches_batched = 0
 csr_spgemm_dense.last_plan = None
 csr_spgemm_dense.last_table = False

@@ -41,6 +41,14 @@ thread block holds in shared memory where they fit its budget, and the
 entries of P into runs (``sampled_runs``, built once per pattern and
 cached): the entries of one panel that name one row of Y, which a group
 of ``lanes`` lanes serves with one load of that row.
+
+Batches (the backward of ``torch.func.vmap`` over the values, ``jacrev``'s
+cotangents, a batch of tangents): ``sampled_batched`` (K9) and
+``sparse_sampled_batched`` (K11) take members that share the patterns,
+D (G) and Y's values each per member or shared, in one launch, the
+member on the grid's y dimension, on the runs that the single launch
+caches (its work items shared out over the members); each has a plain
+version vectorised over the members.
 """
 
 from typing import NamedTuple
@@ -51,7 +59,9 @@ import torch
 from ..config import config
 from ..formats import CsrPattern, expand_indptr, structure_only
 from . import _build
-from .csr import _add_rows, _check, refuse_tracked, refuse_views
+from .csr import (_add_rows, _check, batch_size, check_members,
+                  member_chunks, member_ptr, member_stride, refuse_tracked,
+                  refuse_views)
 
 # Lanes a group may take: 1 to 32, a power of two.
 _MAX_LANES = 32
@@ -203,19 +213,21 @@ def _smallest_chunk(sizes, target):
 
 
 def _sampled_plain(q, gather, nnz, y_indptr, y_indices, y_data, dtype,
-                   device, alpha):
+                   device, alpha, lead=()):
     """``alpha * sum over (y, v) in row q[p] of Y of gather(p, y) conj(v)``
     for each p: every product expanded and gathered, summed by
     ``index_add_``, chunked so that at most ``config.spmm_chunk_elements``
-    products are held."""
-    out = torch.zeros(nnz, dtype=dtype, device=device)
+    products are held.  ``lead``: the output's leading shape, (B,) for a
+    batch's members (``gather`` and ``y_data`` then give each member's,
+    or one for all)."""
+    out = torch.zeros((*lead, nnz), dtype=dtype, device=device)
     if nnz == 0:
         return out
     y_start = y_indptr[:-1].long()[q]
     y_len = y_indptr[1:].long()[q] - y_start
     ends = torch.cumsum(y_len, 0)
     total = int(ends[-1])
-    budget = config.spmm_chunk_elements
+    budget = max(1, config.spmm_chunk_elements // (lead[0] if lead else 1))
     p0 = 0
     while p0 < nnz and total:
         # Entries [p0, p1) hold at most ``budget`` products (a longer
@@ -230,8 +242,8 @@ def _sampled_plain(q, gather, nnz, y_indptr, y_indices, y_data, dtype,
         first = torch.cumsum(count, 0) - count
         t = (y_start[entry] + torch.arange(n_prod, device=device)
              - first[entry - p0])
-        prods = gather(entry, y_indices[t].long()) * y_data[t].conj()
-        _add_rows(out, entry, prods)
+        prods = gather(entry, y_indices[t].long()) * y_data[..., t].conj()
+        _add_rows(out, entry, prods.expand(*lead, -1), dim=len(lead))
         p0 = p1
     if alpha is not None and complex(alpha) != 1:
         out = out * alpha
@@ -264,6 +276,20 @@ def csr_spgemm_sddmm_plain(indptr, indices, d, y_indptr, y_indices, y_data,
     ``transposed``, else the dA form's."""
     plain = sampled_cols_plain if transposed else sampled_rows_plain
     return plain(indptr, indices, d, y_indptr, y_indices, y_data, alpha)
+
+
+def csr_spgemm_sddmm_batched_plain(indptr, indices, d, y_indptr, y_indices,
+                                   y_data, alpha=None, transposed=False):
+    """``sampled_batched`` in plain PyTorch: K9's function for each member
+    of ``d`` ((B, rows, cols) or shared (rows, cols)) and ``y_data`` ((B,
+    nnz(Y)) or shared), at least one with the member dimension,
+    vectorised over the members; (B, nnz(P))."""
+    size = batch_size("csr_spgemm_sddmm", ((d, 2), (y_data, 1)))
+    line, q = (ids.long() for ids in entry_ids(indptr, indices, transposed))
+    gather = ((lambda p, i: d[..., i, line[p]]) if transposed
+              else (lambda p, s: d[..., line[p], s]))
+    return _sampled_plain(q, gather, indices.numel(), y_indptr, y_indices,
+                          y_data, d.dtype, d.device, alpha, (size,))
 
 
 def csr_spgemm_sddmm(indptr, indices, d, y_indptr, y_indices, y_data,
@@ -319,11 +345,91 @@ def sampled(indptr, indices, d, y_indptr, y_indices, y_data, alpha=None,
     out = torch.empty(nnz, dtype=d.dtype, device=d.device)
     if nnz == 0:
         return out
-    plan = sampled_plan(ny, d.element_size(),
-                        y_indices.numel() / max(y_rows, 1), transposed)
+    launch = _k9_launcher(indptr, indices, d, y_indptr, y_indices, alpha,
+                          transposed, pattern, ne, ny, 1)
+    launch(1, (0, 0, 0), d.data_ptr(), y_data.data_ptr(), out.data_ptr())
+    return out
+
+
+def sampled_batched(indptr, indices, d, y_indptr, y_indices, y_data,
+                    alpha=None, transposed=False, pattern=None,
+                    y_pattern=None):
+    """K9 for a batch of members that share P's and Y's patterns: member i
+    is K9's function of ``d[i]`` and Y with values ``y_data[i]``, ``d``
+    (B, rows, cols) or (rows, cols), ``y_data`` (B, nnz(Y)) or (nnz(Y),),
+    at least one with the member dimension, each member contiguous; an
+    operand without it (or expanded along it) is shared, read in place by
+    every member.  Returns a new (B, nnz(P)) tensor.  One launch on the
+    card (one per ``_build.MAX_MEMBERS`` members) on the runs cached on
+    P's pattern, their work items sized over members x items; counted in
+    ``csr_spgemm_sddmm.launches`` and ``launches_batched``.  The batched
+    plain version on the CPU.  Raises as ``sampled`` does where the
+    operands do not fit."""
+    refuse_views("csr_spgemm_sddmm", indptr, indices, d, y_indptr,
+                 y_indices, y_data)
+    operands = ((d, 2), (y_data, 1))
+    size = batch_size("csr_spgemm_sddmm", operands)
+    m, y_rows = indptr.numel() - 1, y_indptr.numel() - 1
+    d_shape = tuple(d.shape[-2:])
+    if d.dim() not in (2, 3) or (y_rows != m if transposed
+                                 else d_shape[0] != m):
+        raise ValueError(f"csr_spgemm_sddmm: d {tuple(d.shape)} and Y of "
+                         f"{y_rows} rows do not fit P of {m} rows")
+    ne, ny = (d_shape[1], d_shape[0]) if transposed else d_shape
+    from .autograd import patterns
+
+    if pattern is None:
+        pattern = patterns.get(indptr, indices, ne if transposed else y_rows)
+    if y_pattern is None:
+        y_pattern = patterns.get(y_indptr, y_indices, ny)
+    _check_ids(pattern, ne if transposed else y_rows, y_pattern, ny,
+               transposed, d_shape)
+    if y_data.shape[-1] != y_indices.numel():
+        raise ValueError(f"csr_spgemm_sddmm: Y's values "
+                         f"{tuple(y_data.shape)} do not fit its "
+                         f"{y_indices.numel()} entries")
+    if d.device.type == "cpu":
+        return csr_spgemm_sddmm_batched_plain(indptr, indices, d, y_indptr,
+                                              y_indices, y_data, alpha,
+                                              transposed)
+    if not d.is_cuda:
+        raise ValueError(f"csr_spgemm_sddmm: no kernel for device "
+                         f"{d.device}")
+    check_members("csr_spgemm_sddmm", (indptr, indices, y_indptr, y_indices),
+                  operands)
+    nnz = indices.numel()
+    out = torch.empty((size, nnz), dtype=d.dtype, device=d.device)
+    if nnz == 0 or size == 0:
+        return out
+    launch = _k9_launcher(indptr, indices, d, y_indptr, y_indices, alpha,
+                          transposed, pattern, ne, ny, size)
+    strides = (member_stride("csr_spgemm_sddmm", d, 2),
+               member_stride("csr_spgemm_sddmm", y_data, 1), nnz)
+    for first, count in member_chunks(size):
+        launch(count, strides, *(member_ptr(t, st, first) for t, st in
+                                 zip((d, y_data, out), strides)))
+        csr_spgemm_sddmm.launches_batched += 1
+    return out
+
+
+def _k9_launcher(indptr, indices, d, y_indptr, y_indices, alpha, transposed,
+                 pattern, ne, ny, members):
+    """K9's launch for P (``indptr``, ``indices``; its ``CsrPattern``
+    ``pattern`` caches the runs) and Y's pattern, d's lines of ``ne`` x
+    ``ny`` (d's last two dimensions): ``launch(count, strides, d, y_data,
+    out)`` launches for ``count`` members at ``strides`` (d, Y's values,
+    the output) given the addresses.  The plan is the single launch's;
+    its work items, one wave's worth, are shared out over ``members``
+    members (at least one item a panel).  Counted in
+    ``csr_spgemm_sddmm.launches``."""
+    y_rows = y_indptr.numel() - 1
+    itemsize = d.element_size()
+    plan = sampled_plan(ny, itemsize, y_indices.numel() / max(y_rows, 1),
+                        transposed)
     sms = torch.cuda.get_device_properties(d.device).multi_processor_count
     items = ((_ITEMS_STAGED if plan.staged else _ITEMS_IN_PLACE)
-             * sms * sampled_blocks_per_sm(plan, d.element_size()))
+             * sms * sampled_blocks_per_sm(plan, itemsize))
+    items = -(-items // members)
     key = ("k9", bool(transposed), plan.panel, y_rows, items)
     if key not in pattern.plans:
         with structure_only():
@@ -332,19 +438,22 @@ def sampled(indptr, indices, d, y_indptr, y_indices, y_data, alpha=None,
     runs = pattern.plans[key]
     # A line's elements lie 1 apart along a row of d (dA) or ld apart
     # down a column (dB); lines lie ld or 1 apart.
-    se, sy = (1, d.shape[1]) if transposed else (d.shape[1], 1)
+    se, sy = (1, d.shape[-1]) if transposed else (d.shape[-1], 1)
     dt, it = _build.type_codes(d, indptr)
-    _build.launch(
-        "sdt_csr_spgemm_sddmm", dt, it, runs.items.data_ptr(),
-        runs.items.numel() - 1, runs.run_ptr.data_ptr(),
-        runs.run_q.data_ptr(), runs.perm.data_ptr(), runs.line.data_ptr(),
-        d.data_ptr(), se, sy, ne, ny, plan.panel, plan.pitch,
-        int(plan.staged), y_indptr.data_ptr(), y_indices.data_ptr(),
-        y_data.data_ptr(), out.data_ptr(), plan.lanes,
-        *_build.scalar_parts(alpha), _build.stream_of(d),
-    )
-    csr_spgemm_sddmm.launches += 1
-    return out
+    stream = _build.stream_of(d)
+
+    def launch(count, strides, d_ptr, y_ptr, out_ptr):
+        _build.launch(
+            "sdt_csr_spgemm_sddmm", dt, it, runs.items.data_ptr(),
+            runs.items.numel() - 1, runs.run_ptr.data_ptr(),
+            runs.run_q.data_ptr(), runs.perm.data_ptr(),
+            runs.line.data_ptr(), d_ptr, se, sy, ne, ny, plan.panel,
+            plan.pitch, int(plan.staged), y_indptr.data_ptr(),
+            y_indices.data_ptr(), y_ptr, out_ptr, plan.lanes,
+            *_build.scalar_parts(alpha), count, *strides, stream)
+        csr_spgemm_sddmm.launches += 1
+
+    return launch
 
 
 def _check_ids(pattern, p_cols, y_pattern, ny, transposed, d_shape):
@@ -368,6 +477,7 @@ def _check_ids(pattern, p_cols, y_pattern, ny, transposed, d_shape):
 
 
 csr_spgemm_sddmm.launches = 0
+csr_spgemm_sddmm.launches_batched = 0
 
 
 # ---------------------------------------------------------------------------
@@ -422,20 +532,21 @@ def sparse_plan(line, itemsize, mean_y_row, budget=None):
     return plan if plan.staged else plan._replace(panel=0)
 
 
-def sparse_schedule(p, y, line, itemsize, transposed, sms):
+def sparse_schedule(p, y, line, itemsize, transposed, sms, members=1):
     """(``SampledPlan``, runs) of K11 for P's ``CsrPattern`` ``p`` (op(A)
     in the dA form, op(B) in the dB form), Y's ``y`` and lines of G of
     ``line`` elements on a card of ``sms`` SMs: the runs
-    (``sampled_runs``, work items for ``_SPARSE_ITEMS`` a resident block)
-    where the plan stages lines, else None.  The runs depend on P's
-    pattern and the panel alone, never on C: they are cached on ``p``'s
-    ``plans`` and built once over a training loop whose C tensors are new
-    at every step."""
+    (``sampled_runs``, work items for ``_SPARSE_ITEMS`` a resident block,
+    shared out over a batch's ``members``) where the plan stages lines,
+    else None.  The runs depend on P's pattern and the panel alone, never
+    on C: they are cached on ``p``'s ``plans`` and built once over a
+    training loop whose C tensors are new at every step."""
     k = y.shape[0]
     plan = sparse_plan(line, itemsize, y.nnz / max(k, 1))
     if not plan.staged:
         return plan, None
     items = _SPARSE_ITEMS * sms * sampled_blocks_per_sm(plan, itemsize)
+    items = -(-items // members)
     key = ("k11", bool(transposed), plan.panel, k, items)
     if key not in p.plans:
         with structure_only():
@@ -454,9 +565,35 @@ def csr_spgemm_sparse_sddmm_plain(a_indptr, a_indices, a_data, b_indptr,
     (dA form), or conj(a) times G onto op(B)'s (dB form, ``transposed``),
     by ``index_add_``; chunked as ``spgemm_plain``.  A product whose entry
     C lacks adds nothing."""
+    return _sparse_plain(a_indptr, a_indices, a_data, b_indptr, b_indices,
+                         b_data, c_indptr, c_indices, g, n, transposed,
+                         triangular, ())
+
+
+def csr_spgemm_sparse_sddmm_batched_plain(a_indptr, a_indices, a_data,
+                                          b_indptr, b_indices, b_data,
+                                          c_indptr, c_indices, g, n,
+                                          transposed=False,
+                                          triangular=False):
+    """``sparse_sampled_batched`` in plain PyTorch: K11's function for each
+    member of ``a_data``, ``b_data`` and ``g`` (each (B, nnz) or shared
+    (nnz,), at least one with the member dimension), vectorised over the
+    members; (B, nnz(P))."""
+    size = batch_size("csr_spgemm_sparse_sddmm",
+                      ((a_data, 1), (b_data, 1), (g, 1)))
+    return _sparse_plain(a_indptr, a_indices, a_data, b_indptr, b_indices,
+                         b_data, c_indptr, c_indices, g, n, transposed,
+                         triangular, (size,))
+
+
+def _sparse_plain(a_indptr, a_indices, a_data, b_indptr, b_indices, b_data,
+                  c_indptr, c_indices, g, n, transposed, triangular, lead):
+    """``csr_spgemm_sparse_sddmm_plain`` with an output of leading shape
+    ``lead``: () for one product, (B,) for a batch's members."""
     from .spgemm import _row_chunks, products, row_bounds
 
-    out = torch.zeros((b_indices if transposed else a_indices).numel(),
+    out = torch.zeros((*lead, (b_indices if transposed else
+                               a_indices).numel()),
                       dtype=g.dtype, device=g.device)
     if c_indices.numel() == 0:
         return out
@@ -464,7 +601,8 @@ def csr_spgemm_sparse_sddmm_plain(a_indptr, a_indices, a_data, b_indptr,
               + c_indices.long())
     last = c_keys.numel() - 1
     a_rows = expand_indptr(a_indptr.long(), a_indices.numel())
-    for r0, r1 in _row_chunks(row_bounds(a_indptr, a_indices, b_indptr)):
+    for r0, r1 in _row_chunks(row_bounds(a_indptr, a_indices, b_indptr),
+                              lead[0] if lead else 1):
         p, q, rows, cols = products(a_indptr, a_indices, b_indptr, b_indices,
                                     a_rows, r0, r1, triangular)
         key = rows * n + cols
@@ -472,9 +610,10 @@ def csr_spgemm_sparse_sddmm_plain(a_indptr, a_indices, a_data, b_indptr,
         found = c_keys[at] == key
         p, q, at = p[found], q[found], at[found]
         if transposed:
-            _add_rows(out, q, a_data[p].conj() * g[at])
+            ids, prods = q, a_data[..., p].conj() * g[..., at]
         else:
-            _add_rows(out, p, g[at] * b_data[q].conj())
+            ids, prods = p, g[..., at] * b_data[..., q].conj()
+        _add_rows(out, ids, prods.expand(*lead, -1), dim=len(lead))
     return out
 
 
@@ -510,15 +649,8 @@ def sparse_sampled(a_indptr, a_indices, a_data, b_indptr, b_indices, b_data,
     fit (``_check_sparse_ids``)."""
     refuse_views("csr_spgemm_sparse_sddmm", a_indptr, a_indices, a_data,
                  b_indptr, b_indices, b_data, c_indptr, c_indices, g)
-    from .autograd import patterns
-
-    k = b_indptr.numel() - 1
-    if a is None:
-        a = patterns.get(a_indptr, a_indices, k)
-    if b is None:
-        b = patterns.get(b_indptr, b_indices, n)
-    if c is None:
-        c = CsrPattern(c_indptr, c_indices, n)
+    a, b, c = _sparse_patterns(a_indptr, a_indices, b_indptr, b_indices,
+                               c_indptr, c_indices, n, a, b, c)
     _check_sparse_ids(a, a_data, b, b_data, c, g)
     if g.device.type == "cpu":
         return csr_spgemm_sparse_sddmm_plain(
@@ -530,42 +662,129 @@ def sparse_sampled(a_indptr, a_indices, a_data, b_indptr, b_indices, b_data,
     _check("csr_spgemm_sparse_sddmm",
            (a_indptr, a_indices, b_indptr, b_indices, c_indptr, c_indices),
            (a_data, b_data, g))
+    out = torch.empty((b if transposed else a).nnz, dtype=g.dtype,
+                      device=g.device)
+    if out.numel() == 0:
+        return out
+    launch, y_data = _k11_launcher(a, a_data, b, b_data, c, g, n, transposed,
+                                   triangular, 1)
+    launch(1, (0, 0, 0), y_data.data_ptr(), g.data_ptr(), out.data_ptr())
+    return out
+
+
+def sparse_sampled_batched(a_indptr, a_indices, a_data, b_indptr, b_indices,
+                           b_data, c_indptr, c_indices, g, n,
+                           transposed=False, triangular=False, a=None,
+                           b=None, c=None):
+    """K11 for a batch of members that share op(A)'s, op(B)'s and C's
+    patterns: member i is K11's function of op(A)'s values ``a_data[i]``,
+    op(B)'s ``b_data[i]`` and G's ``g[i]``, each (B, nnz) or (nnz,)
+    shared, at least one with the member dimension, each member
+    contiguous; an operand without it (or expanded along it) is read in
+    place by every member (the dB form's op(A)^T values are gathered once
+    for the batch, ``a_data[..., order]``).  Returns a new (B, nnz(P))
+    tensor, P = op(A) (dA) or op(B) (dB).  One launch on the card (one per
+    ``_build.MAX_MEMBERS`` members), staged on the runs cached on P's
+    pattern (work items shared out over the members) or in place; counted
+    in ``csr_spgemm_sparse_sddmm.launches`` and ``launches_batched``.  The
+    batched plain version on the CPU.  ``a``, ``b``, ``c`` and the checks
+    as in ``sparse_sampled``."""
+    refuse_views("csr_spgemm_sparse_sddmm", a_indptr, a_indices, a_data,
+                 b_indptr, b_indices, b_data, c_indptr, c_indices, g)
+    operands = ((a_data, 1), (b_data, 1), (g, 1))
+    size = batch_size("csr_spgemm_sparse_sddmm", operands)
+    a, b, c = _sparse_patterns(a_indptr, a_indices, b_indptr, b_indices,
+                               c_indptr, c_indices, n, a, b, c)
+    _check_sparse_ids(a, a_data, b, b_data, c, g, batched=True)
+    if g.device.type == "cpu":
+        return csr_spgemm_sparse_sddmm_batched_plain(
+            a_indptr, a_indices, a_data, b_indptr, b_indices, b_data,
+            c_indptr, c_indices, g, n, transposed, triangular)
+    if not g.is_cuda:
+        raise ValueError(f"csr_spgemm_sparse_sddmm: no kernel for device "
+                         f"{g.device}")
+    check_members("csr_spgemm_sparse_sddmm",
+                  (a_indptr, a_indices, b_indptr, b_indices, c_indptr,
+                   c_indices), operands)
+    nnz = (b if transposed else a).nnz
+    out = torch.empty((size, nnz), dtype=g.dtype, device=g.device)
+    if nnz == 0 or size == 0:
+        return out
+    launch, y_data = _k11_launcher(a, a_data, b, b_data, c, g, n, transposed,
+                                   triangular, size)
+    strides = (member_stride("csr_spgemm_sparse_sddmm", y_data, 1),
+               member_stride("csr_spgemm_sparse_sddmm", g, 1), nnz)
+    for first, count in member_chunks(size):
+        launch(count, strides, *(member_ptr(t, st, first) for t, st in
+                                 zip((y_data, g, out), strides)))
+        csr_spgemm_sparse_sddmm.launches_batched += 1
+    return out
+
+
+def _sparse_patterns(a_indptr, a_indices, b_indptr, b_indices, c_indptr,
+                     c_indices, n, a, b, c):
+    """op(A)'s, op(B)'s and C's ``CsrPattern``s: ``a``, ``b`` and ``c``,
+    or where None the ones ``autograd.patterns`` holds for these index
+    tensors (C's: a new one)."""
+    from .autograd import patterns
+
+    k = b_indptr.numel() - 1
+    if a is None:
+        a = patterns.get(a_indptr, a_indices, k)
+    if b is None:
+        b = patterns.get(b_indptr, b_indices, n)
+    if c is None:
+        c = CsrPattern(c_indptr, c_indices, n)
+    return a, b, c
+
+
+def _k11_launcher(a, a_data, b, b_data, c, g, n, transposed, triangular,
+                  members):
+    """(launch, Y's values) of K11 for op(A), op(B) and C's
+    patterns ``a``, ``b``, ``c``: P is op(A) with Y = op(B) (dA) or op(B)
+    with Y = op(A)^T (dB, its values ``a_data[..., order]`` through op(A)'s
+    cached transpose).  ``launch(count, strides, y_data, g, out)``
+    launches for ``count`` members at ``strides`` (Y's values, G, the
+    output) given the addresses, staged on the runs of
+    ``sparse_schedule`` (items shared out over ``members``) or in place.
+    Counted in ``csr_spgemm_sparse_sddmm.launches``; P holds entries."""
     if transposed:
         t, order = a.transpose()
-        p, y, y_data = b, t, a_data[order]
+        p, y, y_data = b, t, a_data[..., order]
     else:
         p, y, y_data = a, b, b_data
-    out = torch.empty(p.nnz, dtype=g.dtype, device=g.device)
-    if p.nnz == 0:
-        return out
     m = c.shape[0]
     sms = torch.cuda.get_device_properties(g.device).multi_processor_count
     plan, runs = sparse_schedule(p, y, m if transposed else n,
-                                 g.element_size(), transposed, sms)
+                                 g.element_size(), transposed, sms, members)
     # The runs' arrays, or null pointers where lines are read in place.
     staged = (0,) * 6 if runs is None else (
         runs.items.data_ptr(), runs.items.numel() - 1,
         runs.run_ptr.data_ptr(), runs.run_q.data_ptr(),
         runs.perm.data_ptr(), runs.line.data_ptr())
-    _build.launch(
-        "sdt_csr_spgemm_sparse_sddmm", *_build.type_codes(g, a_indptr),
-        *staged, n if transposed else m, m if transposed else n,
-        plan.panel, plan.pitch, int(plan.staged), p.indptr.data_ptr(),
-        p.indices.data_ptr(), p.shape[0], y.indptr.data_ptr(),
-        y.indices.data_ptr(), y_data.data_ptr(), c_indptr.data_ptr(),
-        c_indices.data_ptr(), g.data_ptr(), out.data_ptr(), int(transposed),
-        int(triangular), plan.lanes, _build.stream_of(g),
-    )
-    csr_spgemm_sparse_sddmm.launches += 1
-    return out
+    codes = _build.type_codes(g, a.indptr)
+    stream = _build.stream_of(g)
+
+    def launch(count, strides, y_ptr, g_ptr, out_ptr):
+        _build.launch(
+            "sdt_csr_spgemm_sparse_sddmm", *codes, *staged,
+            n if transposed else m, m if transposed else n, plan.panel,
+            plan.pitch, int(plan.staged), p.indptr.data_ptr(),
+            p.indices.data_ptr(), p.shape[0], y.indptr.data_ptr(),
+            y.indices.data_ptr(), y_ptr, c.indptr.data_ptr(),
+            c.indices.data_ptr(), g_ptr, out_ptr, int(transposed),
+            int(triangular), plan.lanes, count, *strides, stream)
+        csr_spgemm_sparse_sddmm.launches += 1
+
+    return launch, y_data
 
 
-def _check_sparse_ids(a, a_data, b, b_data, c, g):
+def _check_sparse_ids(a, a_data, b, b_data, c, g, batched=False):
     """Raises ``ValueError`` where K11's operands do not fit: op(A)'s
     column ids outside op(B)'s k rows, op(B)'s or C's outside the n
     columns, C's rows other than op(A)'s m, or a value tensor whose length
-    is not its pattern's nnz.  The ids' spans are read once per
-    pattern."""
+    (each member's, ``batched``) is not its pattern's nnz.  The ids'
+    spans are read once per pattern."""
     (m, k), n = a.shape, b.ncols
     if b.shape[0] != k or c.shape != (m, n):
         raise ValueError(
@@ -574,7 +793,8 @@ def _check_sparse_ids(a, a_data, b, b_data, c, g):
     for what, data, name, pat in (("op(A)'s values", a_data, "op(A)", a),
                                   ("op(B)'s values", b_data, "op(B)", b),
                                   ("G", g, "C", c)):
-        if data.dim() != 1 or data.numel() != pat.nnz:
+        if data.dim() not in ((1, 2) if batched else (1,)) or \
+                data.shape[-1] != pat.nnz:
             raise ValueError(
                 f"csr_spgemm_sparse_sddmm: {what} {tuple(data.shape)} do "
                 f"not fit the {pat.nnz} entries of {name}")
@@ -586,3 +806,4 @@ def _check_sparse_ids(a, a_data, b, b_data, c, g):
 
 
 csr_spgemm_sparse_sddmm.launches = 0
+csr_spgemm_sparse_sddmm.launches_batched = 0

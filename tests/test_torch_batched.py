@@ -38,14 +38,22 @@ from sparse_dot_tpu.ops import _xla
 from sparse_dot_tpu_torch import formats
 from sparse_dot_tpu_torch.config import config
 from sparse_dot_tpu_torch.ops import (_build, autograd, bsr, bsr_spmm,
-                                      coo_spmm_raw, coo_spmv, csr, sddmm)
+                                      coo_spmm_raw, coo_spmv, csr, sddmm,
+                                      spgemm, spgemm_grad)
 
 RTOL = {np.dtype(np.float64): 1e-12, np.dtype(np.complex128): 1e-12,
         np.dtype(np.float32): 1e-5, np.dtype(np.complex64): 1e-5}
 M, K, N, NNZ = 12, 10, 3, 30
+# Every wrapper the Functions call, single and batched: a Function that
+# ran one call a member would show as a count of single calls.
 WRAPPERS = ((csr, "spmm"), (csr, "spmm_batched"), (csr, "spmv"),
             (sddmm, "sddmm"), (sddmm, "sddmm_batched"), (bsr, "spmm"),
-            (bsr, "spmm_batched"), (bsr, "sddmm"), (bsr, "sddmm_batched"))
+            (bsr, "spmm_batched"), (bsr, "sddmm"), (bsr, "sddmm_batched"),
+            (spgemm, "spgemm_dense"), (spgemm, "spgemm_dense_batched"),
+            (spgemm, "fill"), (spgemm, "fill_batched"), (spgemm, "product"),
+            (spgemm, "product_batched"), (spgemm_grad, "sampled"),
+            (spgemm_grad, "sampled_batched"), (spgemm_grad, "sparse_sampled"),
+            (spgemm_grad, "sparse_sampled_batched"))
 
 
 @pytest.fixture(autouse=True)
@@ -64,21 +72,20 @@ def on_the_cpu():
 
 @pytest.fixture
 def calls(monkeypatch):
-    """The wrapper calls the Functions make ({"module.name": count}), and
-    ``_batched`` (one call a member) refused: the CSR and BSR Functions
-    must never reach it."""
+    """The wrapper calls the Functions make ({"module.name": count}) of
+    every wrapper, single or batched (``WRAPPERS``), so that a member
+    loop in any Function shows as single calls, which the cases' exact
+    counts refuse; and no per-member path left in ``ops.autograd`` (its
+    ``_batched`` helper is gone)."""
+    assert not hasattr(autograd, "_batched"), "a per-member vmap path"
     counts = collections.Counter()
     for mod, name in WRAPPERS:
         def counted(*args, _fn=getattr(mod, name),
-                    _key=f"{mod.__name__.rsplit('.', 1)[1]}.{name}"):
+                    _key=f"{mod.__name__.rsplit('.', 1)[1]}.{name}",
+                    **kwargs):
             counts[_key] += 1
-            return _fn(*args)
+            return _fn(*args, **kwargs)
         monkeypatch.setattr(mod, name, counted)
-
-    def refuse(*args, **kwargs):
-        raise AssertionError("a CSR or BSR Function took the per-member path")
-
-    monkeypatch.setattr(autograd, "_batched", refuse)
     return counts
 
 

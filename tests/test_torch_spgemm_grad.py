@@ -360,7 +360,7 @@ def test_first_order_launches_unchanged(monkeypatch):
 
 def test_func_grad_and_vmap():
     """``torch.func.grad`` in both operands' values, and ``vmap`` of it
-    over a batch of weights (each member's gradient, K9 once a member),
+    over a batch of weights (each member's gradient, one batched K9 call),
     equal the autograd gradients; ``vmap`` over op(A)'s values equals the
     products one by one."""
     a, b = operands(np.float64, 47)

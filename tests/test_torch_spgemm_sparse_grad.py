@@ -278,7 +278,7 @@ def test_gradcheck_with_forward_ad(dtype, triangular):
 
 def test_func_grad_and_vmap():
     """``torch.func.grad`` in both operands' values, and ``vmap`` of it
-    over a batch of weights (K11 once a member), equal the autograd
+    over a batch of weights (one batched K11 call), equal the autograd
     gradients; ``vmap`` over op(A)'s values gives each member's values on
     the one pattern; ``torch.func.jvp`` equals the product of the
     tangent (the product is linear in op(A)'s values), and ``jacfwd``
