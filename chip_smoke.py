@@ -95,7 +95,14 @@ Phases, each printing one JSON line:
    alpha/beta/c0 epilogue over sorted and shuffled op(B) on split rows
    and column windows, K5 on every row bin (its indices equal the single
    product's), K9 and K11 staged and in place, each call twice for the
-   same bits, and 70,000 members each (two launches).  Then
+   same bits, and 70,000 members each (two launches).  K12 CSR densify
+   (``check_k12``) against its plain version in every value type and
+   index width: repeated and unsorted columns, explicit zeros, empty
+   rows, no entry, m or k = 1, an odd width, rows exactly TILE_BYTES wide
+   and one element wider, rows wider than shared memory, no row (no
+   launch), and the transposed use (a CSC's ``dense()`` read as ``.mT``,
+   a CSR's ``dense(transpose=True)``, a BSR's element CSR), with the same
+   bits wherever a position gets one entry.  Then
    ``torch.autograd.gradcheck`` (reverse and forward mode) of
    ``ops.coo_spmm_raw``, ``coo_spmv``, ``csr_spmm``, the BSR device
    function ``ops.bsr_spmm`` (on both K1 variants), ``csr_spgemm_dense``
@@ -116,7 +123,15 @@ Phases, each printing one JSON line:
    sparse x sparse path: the reference demo's X @ X.T (f64, f32, dense
    with ``out``) and its gram, BASELINE config 4's complex gram, a
    1M x 1M A @ A, config 3's BSR x BSR and a 50k-row ``sypr``; in both,
-   the plain versions of K1-K9 and K11 are made to raise;
+   the plain versions of K1-K9, K11 and K12 are made to raise; then the
+   densify route (``densify_path``), each call alone with its exact
+   launches: the demo X @ B (n = 128; f64, f32, f64 with
+   ``out``/``out_scalar``), config 1's shape at 10% as CSR (also with
+   ``out``/``out_scalar``), CSC and dense x CSR, the demo X @ X.T with
+   dense output and its dense gram, each on
+   K12 where the gates of ``ops/host`` send it, config 1 at 1% (below the
+   crossover: K2) and config 1 at 10% with inf, -inf and nan in B (K2 by
+   the finite check, scipy's inf and nan);
 4. kernel and plain-version times at the phase-3 shapes and, for K2 and
    K3, at the solvers' matrices (the 1M Laplacian at n = 1, 4, 16, CGLS's
    A and A^T at n = 1, 4; K3 on the Laplacian, the convection-diffusion
@@ -168,7 +183,16 @@ Phases, each printing one JSON line:
    ``CsrSpgemmSparseSddmm`` gives them) and K5 at case c over 4 value
    sets on one plan beside 4 x ``torch.sparse.mm(A_csr, B_csr)``
    (``batched_spgemm_rows``, each with ``device_ms``); and the wall time
-   of ``dot_product(X, X.T)`` beside scipy's;
+   of ``dot_product(X, X.T)`` beside scipy's; K12 at config 1's A, the
+   demo X and PARDISO's n = 12,000 matrix beside
+   ``torch.sparse_csr_tensor(...).to_dense()`` (``4-k12``); the
+   crossover sweep (``densify_sweep``, ``4-densify``): K2 against the
+   densify route (the finite check, K12, ``torch.matmul``) at 10,000^2,
+   n in {16, 128, 512}, densities 0.5-40%, the four value types, and K6
+   against it at the demo X's shape (X @ X.T with and without
+   ``triangular``, X @ Y.T) at 1, 5, 21.2 and 50%, each point checked
+   first, with both times, the route's parts, the gate's choice and
+   whether it took the faster route;
 5. the solver path, with the counts set to 0 again and the plain versions
    of K1-K9 and K11 made to raise, each result checked against
    scipy/numpy on the host: the handle protocol on the demo X (create,
@@ -182,7 +206,8 @@ Phases, each printing one JSON line:
    one right-hand side, K2 for four);
    ``pardiso`` by dense LU (n = 12000 f64, phases 13 then 33 with new
    right-hand sides; c128 n = 4000 with iparm[11] = 2; mtype 2 stored as
-   its upper triangle) and by its Krylov route (the 1M SPD system at mtype
+   its upper triangle; each densified by K12, as is the Householder QR's
+   operand) and by its Krylov route (the 1M SPD system at mtype
    2).  Per solve: wall ms host in to host out (median, min and max of 5
    after a checked first call), iterations, ms per iteration beside one
    K3 (K2) call's time on the same matrix (phase 4's),
@@ -279,7 +304,9 @@ Hessian-vector products (K8: the BSR one; K9: the dense-output one;
 K11: the sparse-output and the CSR ones); ``--only sharded`` runs phase 1
 and phase 7 and prints no result line; ``--only batched`` runs phase 1,
 ``check_batched``, ``batched_rows``, ``batched_spgemm_rows`` and
-``batched_training``, and prints no result line.
+``batched_training``, and prints no result line; ``--only densify`` runs
+phase 1, ``check_k12``, ``densify_path``, ``k12_rows`` and
+``densify_sweep``, and prints no result line.
 """
 
 import argparse
@@ -364,6 +391,10 @@ KERNELS = {
     "K11_csr_spgemm_sparse_sddmm": {
         "source": "sparse_dot_tpu_torch/csrc/csr_spgemm_sparse_sddmm.cu",
         "replaces": "sparse_dot_tpu/ops/_xla.py:1916",
+    },
+    "K12_csr_densify": {
+        "source": "sparse_dot_tpu_torch/csrc/csr_densify.cu",
+        "replaces": "sparse_dot_tpu/ops/_xla.py:199",
     },
 }
 
@@ -512,6 +543,7 @@ def check_kernels(spgemm_only=False):
         k11, k11_lanes, k11_gradcheck = check_k11_all()
         results.update(k11)
         batched_paths, batched_spgemm = check_batched(record)
+        k12_paths = check_k12(record)
     check_csr_special(rng, record)
     check_bins_seen(bins_seen)
     check_k6_seen(k6_seen)
@@ -530,7 +562,7 @@ def check_kernels(spgemm_only=False):
          k7_schedules=sorted(k7_schedules), k7_edges=sorted(k7_seen),
          k9_lanes=k9_lanes, k11_lanes=k11_lanes,
          batched_16_byte_paths=batched_paths,
-         batched_spgemm_seen=batched_spgemm,
+         batched_spgemm_seen=batched_spgemm, k12_paths=k12_paths,
          gradcheck_launches=check_gradcheck(),
          k11_gradcheck_launches=k11_gradcheck,
          gradgradcheck_launches=check_second_order())
@@ -1415,6 +1447,92 @@ def check_k11_all():
 
 # Members of phase 2's batched cases, and of the batch past the grid's
 # limit of 65,535 members a launch (two launches).
+# ---------------------------------------------------------------------------
+# Phase 2 for K12: CSR densify against its plain version
+# ---------------------------------------------------------------------------
+
+# (case, m, k, mean row, every empty_every-th row empty, share of explicit
+# zeros): rows with repeated and unsorted columns (``random_csr``), empty
+# rows, no entry, m or k = 1, an odd width (tiles that start off 16
+# bytes), rows wider than shared memory (60,000 columns: 240 KB in f32),
+# no row (no launch); ``check_k12`` adds a row exactly TILE_BYTES wide and
+# one element wider for each value type.
+K12_CASES = (
+    ("repeats_unsorted", 300, 200, 5.0, 0, 0.1),
+    ("empty_rows", 257, 190, 12.0, 3, 0.0),
+    ("no_entry", 40, 30, 0.0, 0, 0.0),
+    ("m_1", 1, 500, 80.0, 0, 0.0),
+    ("k_1", 500, 1, 2.0, 0, 0.0),
+    ("odd_width", 1234, 7, 3.0, 5, 0.1),
+    ("wide_60000", 20, 60_000, 300.0, 4, 0.1),
+    ("no_row", 0, 10, 0.0, 0, 0.0),
+)
+
+
+def k12_check(name, got, indptr, indices, data, shape, record):
+    """K12's output against its plain version: the shape and dtype, the
+    same bits wherever a position gets at most one entry, within RTOL
+    elsewhere (repeated columns, summed by atomics in any order)."""
+    from sparse_dot_tpu_torch.ops import densify
+
+    ref = densify.csr_densify_plain(indptr, indices, data, shape)
+    if got.shape != ref.shape or got.dtype != ref.dtype:
+        raise AssertionError(f"K12 {name}: {tuple(got.shape)} {got.dtype}")
+    ones = torch.ones(indices.numel(), dtype=torch.float64,
+                      device=data.device)
+    single = densify.csr_densify_plain(indptr, indices, ones, shape) <= 1
+    if not same_bits(got[single], ref[single]):
+        raise AssertionError(f"K12 {name}: bits differ at a position of one "
+                             "entry")
+    record("K12_csr_densify", compare(got, ref, data.dtype))
+
+
+def check_k12(record):
+    """Phase 2 for K12: ``csr_densify`` in every value type and index
+    width on ``K12_CASES`` and at the tile's edge, each launch counted,
+    and the transposed use: a CSC's ``dense()`` (its stored arrays
+    densified and read as ``.mT``) and a CSR's ``dense(transpose=True)``
+    against the plain version of the sorted transposed arrays, and a
+    BSR's element CSR."""
+    from sparse_dot_tpu_torch import formats
+    from sparse_dot_tpu_torch.ops import densify
+
+    rng = np.random.default_rng(SEED + 12)
+    seen = set()
+    for tdt, npdt in NP_DTYPES.items():
+        edge = densify.TILE_BYTES // tdt.itemsize
+        cases = K12_CASES + (("tile_edge", 9, edge, 40.0, 4, 0.0),
+                             ("past_tile_edge", 9, edge + 1, 40.0, 4, 0.0))
+        for itype in (np.int32, np.int64):
+            for name, m, k, mean_row, empty, zeros in cases:
+                ip, ix, dv = random_csr(rng, m, k, mean_row, npdt, itype,
+                                        empty_every=empty)
+                if zeros:
+                    dv[rng.random(dv.size) < zeros] = 0
+                args = (cuda(ip), cuda(ix), cuda(dv))
+                before = densify.csr_densify.launches
+                got = densify.csr_densify(*args, (m, k))
+                if densify.csr_densify.launches - before != int(m * k > 0):
+                    raise AssertionError(f"K12 {name}: launches")
+                k12_check(name, got, *args, (m, k), record)
+                seen.add(densify.densify_plan(m, k, tdt.itemsize) > 0
+                         if m * k else None)
+        mat = sps.random(700, 300, density=0.05, format="csr",
+                         random_state=rng, dtype=np.float64)
+        mat = (mat + 1j * mat if tdt.is_complex else mat).astype(npdt)
+        for name, cont, transpose in (
+                ("csc", formats.CSC.from_scipy(mat.tocsc()), False),
+                ("csc_transposed", formats.CSC.from_scipy(mat.tocsc()), True),
+                ("csr_transposed", formats.CSR.from_scipy(mat), True),
+                ("bsr", formats.BSR.from_scipy(mat.tobsr((10, 10))), False)):
+            got = cont.dense(transpose)
+            k12_check(name, got, *cont.csr_arrays(transpose),
+                      got.shape, record)
+    if seen != {True, False, None}:
+        raise AssertionError(f"K12 took the paths {seen}")
+    return {"tile_and_wide_paths": True}
+
+
 BATCH = 5
 BIG_BATCH = 70_000
 # Which operands a batched case gives with a member dimension: for K1 and
@@ -1947,7 +2065,9 @@ def check_second_order():
                     raise AssertionError(f"gradgradcheck failed in {npdt}")
     launched = {name: count - before[name]
                 for name, count in read_launches().items()}
-    if not all(launched.values()):
+    # K12 has no gradient to check: every other kernel must have moved.
+    if not all(count for name, count in launched.items()
+               if name != "K12_csr_densify"):
         raise AssertionError(f"gradgradcheck launched {launched}")
     return {name: count for name, count in launched.items() if count}
 
@@ -2503,12 +2623,13 @@ ALL_PLAIN = {"spgemm": SPGEMM_PLAIN,
              "spgemm_grad": ("csr_spgemm_sddmm_plain",
                              "csr_spgemm_sparse_sddmm_plain",
                              "csr_spgemm_sddmm_batched_plain",
-                             "csr_spgemm_sparse_sddmm_batched_plain")}
+                             "csr_spgemm_sparse_sddmm_batched_plain"),
+             "densify": ("csr_densify_plain",)}
 
 
 class plain_versions_refused:
-    """Inside the block, the plain versions of every kernel (K1-K9, K11)
-    raise:
+    """Inside the block, the plain versions of every kernel (K1-K9, K11,
+    K12) raise:
     the main path must run the kernels, never their plain versions on the
     card."""
 
@@ -2532,13 +2653,14 @@ class plain_versions_refused:
 
 
 def reset_launches():
-    from sparse_dot_tpu_torch.ops import bsr, csr, sddmm, spgemm, spgemm_grad
+    from sparse_dot_tpu_torch.ops import (bsr, csr, densify, sddmm, spgemm,
+                                          spgemm_grad)
 
     for fn in (csr.csr_spmm, csr.csr_spmv, bsr.bsr_spmm,
                spgemm.csr_spgemm_count, spgemm.csr_spgemm_fill,
                spgemm.csr_spgemm_dense, sddmm.csr_sddmm, bsr.bsr_sddmm,
                spgemm_grad.csr_spgemm_sddmm,
-               spgemm_grad.csr_spgemm_sparse_sddmm):
+               spgemm_grad.csr_spgemm_sparse_sddmm, densify.csr_densify):
         fn.launches = 0
     bsr.bsr_spmm.launches_tc = bsr.bsr_spmm.launches_simt = 0
     bsr.bsr_sddmm.launches_tc = bsr.bsr_sddmm.launches_simt = 0
@@ -2571,7 +2693,8 @@ def read_batched():
 
 
 def read_launches():
-    from sparse_dot_tpu_torch.ops import bsr, csr, sddmm, spgemm, spgemm_grad
+    from sparse_dot_tpu_torch.ops import (bsr, csr, densify, sddmm, spgemm,
+                                          spgemm_grad)
 
     return {
         "K1_bsr_spmm_tc": bsr.bsr_spmm.launches_tc,
@@ -2587,6 +2710,7 @@ def read_launches():
         "K9_csr_spgemm_sddmm": spgemm_grad.csr_spgemm_sddmm.launches,
         "K11_csr_spgemm_sparse_sddmm":
             spgemm_grad.csr_spgemm_sparse_sddmm.launches,
+        "K12_csr_densify": densify.csr_densify.launches,
     }
 
 
@@ -2639,9 +2763,14 @@ def spgemm_path():
         }
         seconds = time.perf_counter() - t0
     launches = read_launches()
+    # The dense X @ X.T and its dense gram: K12 once each (X^T is X's
+    # transpose view) where the gate sends them to the densify route, else
+    # K6.
+    dense_route = [xxt_dense_route(x), xxt_dense_route(x, True)]
     expected = {name: 0 for name in launches}
     expected.update(K4_csr_spgemm_count=9, K5_csr_spgemm_fill=9,
-                    K6_csr_spgemm_dense=2)
+                    K6_csr_spgemm_dense=2 - sum(dense_route),
+                    K12_csr_densify=sum(dense_route))
     if launches != expected:
         raise AssertionError(f"launch counts {launches}, expected {expected}")
     if r["a_x_xT_dense_out"] is not out:
@@ -2673,8 +2802,165 @@ def spgemm_path():
     sa, sb = inp["sypr_a"], inp["sypr_b"]
     check_sparse(cases, "e_sypr_50k", r["e_sypr_50k"],
                  sps.triu(sa.T @ sb @ sa, format="csr"), 6)
-    emit("3-spgemm", seconds=seconds, launches=launches, cases=cases)
+    emit("3-spgemm", seconds=seconds, launches=launches, cases=cases,
+         dense_x_xT_routes=["densify" if d else "K6" for d in dense_route])
     return launches, inp
+
+
+# ---------------------------------------------------------------------------
+# Phase 3, the densify route: dot_product where the gates send it
+# ---------------------------------------------------------------------------
+
+
+def spmm_dense_route(a, n, dtype, transpose=False):
+    """Whether ``ops.host._prefer_densify`` sends op(a) @ (k, n) to the
+    densify route on the card."""
+    from sparse_dot_tpu_torch.ops import host
+
+    m, k = a.shape[::-1] if transpose else a.shape
+    return host._prefer_densify(m, k, n, a.nnz, dtype, torch.device("cuda"))
+
+
+def xxt_dense_route(x, triangular=False, dtype=torch.float64):
+    """Whether ``ops.host._prefer_densify_product`` sends the dense
+    X @ X.T (one operand; the gram with ``triangular``) to the densify
+    route on the card."""
+    from sparse_dot_tpu_torch.ops import host
+
+    return host._prefer_densify_product(
+        x.shape[0], x.shape[1], x.shape[0], x.nnz, x.nnz, dtype,
+        torch.device("cuda"), True, triangular)
+
+
+def densify_path():
+    """Phase 3's densify calls through ``dot_product`` and
+    ``gram_matrix``, each alone with the counts set to 0 and the plain
+    versions made to raise, with its exact launches (K12 1 on the route,
+    K2 or K6 0; the kernel's 1 elsewhere) and its result against scipy at
+    decimal 6 (f64) or 5 (f32): the demo X @ B (n = 128; f64, f32, and f64
+    with ``out``/``out_scalar``), config 1's shape at 10% as CSR (also with
+    ``out``/``out_scalar``), CSC and dense x CSR, the demo X @ X.T with
+    dense output and its dense gram, a
+    call below the crossover (config 1 at 1%) and one with inf, -inf and
+    nan in B at 10% and n = 512 (K12, then the finite check turns it to
+    K2: scipy's inf and nan).  Returns the launches by kernel."""
+    import sparse_dot_tpu_torch as sdt
+
+    rng = np.random.default_rng(SEED + 6)
+    x = demo_x()
+    x32 = (x / 16).astype(np.float32)
+    n1 = SIZES["config1"]
+    bx = values(rng, (x.shape[1], 128), np.float64)
+    out_x = values(rng, (x.shape[0], 128), np.float64)
+    a10 = config1_csr(rng, n1, density=0.1)
+    a10c = a10.tocsc()
+    a1 = config1_csr(rng, n1)
+    b1 = values(rng, (n1, 128), np.float64)
+    d1 = values(rng, (128, n1), np.float64)
+    # n = 512, where the densify route is far ahead at 10%: rows with
+    # entries in columns 3 and 4 meet inf and -inf (nan where their signs
+    # cancel), rows with one in column 6 meet nan.
+    b_inf = values(rng, (n1, 512), np.float64)
+    b_inf[3, 5], b_inf[4, 5], b_inf[6, 7] = np.inf, -np.inf, np.nan
+    cases, routes, moved = {}, {}, {}
+
+    def call(name, fn, dense, kernel, also=None):
+        """fn() alone; K12 once on the route, ``kernel`` once off it (and
+        the launches ``also``)."""
+        expect = {"K12_csr_densify" if dense else kernel: 1, **(also or {})}
+        reset_launches()
+        with plain_versions_refused():
+            t0 = time.perf_counter()
+            res = fn()
+            seconds = time.perf_counter() - t0
+        got = {k: v for k, v in read_launches().items() if v}
+        if got != expect:
+            raise AssertionError(f"{name}: launched {got}, expected "
+                                 f"{expect}")
+        routes[name] = "densify" if dense else kernel
+        moved[name] = got
+        cases[name] = {"seconds": seconds}
+        return res
+
+    def check(name, res, ref, decimal, finite=True):
+        if res.shape != ref.shape or (finite and not np.isfinite(res).all()):
+            raise AssertionError(f"{name}: shape {res.shape} or non-finite")
+        np.testing.assert_array_almost_equal(res, ref, decimal=decimal)
+        ok = np.isfinite(ref)
+        cases[name].update(shape=list(res.shape), dtype=str(res.dtype),
+                           max_abs_err=float(np.abs(res - ref)[ok].max()))
+
+    f64, f32 = torch.float64, torch.float32
+    check("demo_x_at_b_f64", call(
+        "demo_x_at_b_f64", lambda: sdt.dot_product(x, bx),
+        spmm_dense_route(x, 128, f64), "K2_csr_spmm"), x @ bx, 6)
+    bx32 = bx.astype(np.float32)
+    check("demo_x_at_b_f32", call(
+        "demo_x_at_b_f32", lambda: sdt.dot_product(x32, bx32),
+        spmm_dense_route(x32, 128, f32), "K2_csr_spmm"),
+        (x32.astype(np.float64) @ bx32.astype(np.float64)), 5)
+    out = out_x.copy()
+    res = call("demo_x_at_b_f64_out", lambda: sdt.dot_product(
+        x, bx, out=out, out_scalar=2.0), spmm_dense_route(x, 128, f64),
+        "K2_csr_spmm")
+    if res is not out:
+        raise AssertionError("dot_product(out=...) did not return out")
+    check("demo_x_at_b_f64_out", res, x @ bx + 2.0 * out_x, 6)
+    ref10 = a10 @ b1
+    dense10 = spmm_dense_route(a10, 128, f64)
+    check("config1_10pct_csr", call(
+        "config1_10pct_csr", lambda: sdt.dot_product(a10, b1), dense10,
+        "K2_csr_spmm"), ref10, 6)
+    out1 = values(rng, (n1, 128), np.float64)
+    out = out1.copy()
+    res = call("config1_10pct_csr_out", lambda: sdt.dot_product(
+        a10, b1, out=out, out_scalar=2.0), dense10, "K2_csr_spmm")
+    if res is not out:
+        raise AssertionError("dot_product(out=...) did not return out")
+    check("config1_10pct_csr_out", res, ref10 + 2.0 * out1, 6)
+    check("config1_10pct_csc", call(
+        "config1_10pct_csc", lambda: sdt.dot_product(a10c, b1), dense10,
+        "K2_csr_spmm"), ref10, 6)
+    check("config1_10pct_dense_x_csr", call(
+        "config1_10pct_dense_x_csr", lambda: sdt.dot_product(d1, a10),
+        spmm_dense_route(a10, 128, f64, transpose=True), "K2_csr_spmm"),
+        (a10.T @ d1.T).T, 6)
+    xxt = (x @ x.T).toarray()
+    check("demo_x_xT_dense", call(
+        "demo_x_xT_dense", lambda: sdt.dot_product(x, x.T, dense=True),
+        xxt_dense_route(x), "K6_csr_spgemm_dense"), xxt, 6)
+    check("demo_gram_xxT_dense", call(
+        "demo_gram_xxT_dense", lambda: sdt.gram_matrix(
+            x, transpose=True, dense=True), xxt_dense_route(x, True),
+        "K6_csr_spgemm_dense"), np.triu(xxt), 6)
+    if spmm_dense_route(a1, 128, f64):
+        raise AssertionError("the gate sends config 1 at 1% to the densify "
+                             "route")
+    check("config1_1pct_below_crossover", call(
+        "config1_1pct_below_crossover", lambda: sdt.dot_product(a1, b1),
+        False, "K2_csr_spmm"), a1 @ b1, 6)
+    if not spmm_dense_route(a10, 512, f64):
+        raise AssertionError("the gate keeps config 1 at 10%, n = 512 on "
+                             "K2: the inf case would not reach the finite "
+                             "check")
+    ref_inf = a10 @ b_inf
+    # K12 runs before the finite check's host read; the product is K2's.
+    res = call("config1_10pct_inf_in_b", lambda: sdt.dot_product(a10, b_inf),
+               False, "K2_csr_spmm", also={"K12_csr_densify": 1})
+    if not (np.array_equal(np.isnan(res), np.isnan(ref_inf))
+            and np.array_equal(np.isinf(res), np.isinf(ref_inf))
+            and np.isinf(ref_inf).any() and np.isnan(ref_inf).any()):
+        raise AssertionError("inf in B: the inf and nan of scipy's result "
+                             "differ")
+    check("config1_10pct_inf_in_b", res, ref_inf, 6, finite=False)
+    if not any(r == "densify" for r in routes.values()):
+        raise AssertionError("no phase-3 call took the densify route")
+    totals = {name: 0 for name in KERNELS}
+    for got in moved.values():
+        for k, v in got.items():
+            totals[k] += v
+    emit("3-densify", routes=routes, launches=moved, cases=cases)
+    return totals
 
 
 # ---------------------------------------------------------------------------
@@ -3832,7 +4118,9 @@ def densify_matmul(args, shape_a, triangular):
     """K6's function the JAX package's way (``_xla.py``,
     ``spgemm_numeric_sorted``): both CSR operands densified
     (``to_dense``), one ``torch.matmul`` (TF32 off), ``triu`` for the
-    gram.  A yardstick: the port never calls it."""
+    gram.  A yardstick: the port never calls it.  Returns ((fn, note),
+    parts): its three steps alone ({name: fn}, the dense operands made
+    beforehand) to time beside it."""
     ip, ix, dv, bip, bix, bdv, n = args
     a = torch.sparse_csr_tensor(ip, ix, dv, size=shape_a)
     b = torch.sparse_csr_tensor(bip, bix, bdv, size=(shape_a[1], n))
@@ -3841,8 +4129,11 @@ def densify_matmul(args, shape_a, triangular):
         c = torch.matmul(a.to_dense(), b.to_dense())
         return torch.triu(c) if triangular else c
 
-    return run, ("to_dense() of both CSR operands + torch.matmul, TF32 "
-                 "off" + (", triu" if triangular else ""))
+    a_dense, b_dense = a.to_dense(), b.to_dense()
+    parts = {"to_dense(A)": a.to_dense, "to_dense(B)": b.to_dense,
+             "matmul": lambda: torch.matmul(a_dense, b_dense)}
+    return (run, ("to_dense() of both CSR operands + torch.matmul, TF32 "
+                  "off" + (", triu" if triangular else ""))), parts
 
 
 def rows_of(lengths, width, seed):
@@ -3937,12 +4228,14 @@ def k6_timings(inp):
         kw = {"triangular": tri, "b_sorted": B.csr_sorted()}
         (bound_ms, bound_by), products = k6_bound(
             args, tri and "shuffled" not in case)
+        yardstick, parts = (densify_matmul(args, a.shape, tri) if yard
+                            else (None, None))
         row = timed_row(
             "K6_csr_spgemm_dense", shape, lambda: wrapper(*args, **kw),
             lambda: spgemm.csr_spgemm_dense_plain(*args, triangular=tri),
-            (bound_ms, bound_by), reps=reps,
-            yardstick=densify_matmul(args, a.shape, tri) if yard else None,
-            case=case, products=products, b_sorted=kw["b_sorted"])
+            (bound_ms, bound_by), reps=reps, yardstick=yardstick,
+            beside=parts, case=case, products=products,
+            b_sorted=kw["b_sorted"])
         row["plan"] = wrapper.last_plan._asdict()
         row["window_starts_table"] = wrapper.last_table
         row["gproducts_per_s"] = products / row["ms"] / 1e6
@@ -3950,6 +4243,338 @@ def k6_timings(inp):
         del A, B, args
         torch.cuda.empty_cache()
     return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 4 for K12 and the densify route: K12's rows and the crossovers
+# ---------------------------------------------------------------------------
+
+
+def k12_rows(inputs, solver_inp):
+    """K12's rows: config 1's A, the demo X and PARDISO's n = 12,000
+    matrix (its dense LU's operand), each beside
+    ``torch.sparse_csr_tensor(...).to_dense()``; the bound is the dense
+    output written once and A's arrays read once."""
+    from sparse_dot_tpu_torch import formats
+    from sparse_dot_tpu_torch.ops import densify
+
+    rows = []
+    for shape, mat in (
+            ("config1 CSR f64 10000x10000 1%", inputs["a1"]),
+            ("demo X CSR f64 500x5000 21.2%", demo_x()),
+            ("PARDISO LU operand CSR f64 12000x12000", solver_inp["lu_a"])):
+        A = formats.to_device(mat.tocsr())
+        ip, ix, dv = A.indptr, A.indices, A.data
+        m, k = A.shape
+        written = m * k * dv.element_size()
+
+        def make(ip=ip, ix=ix, dv=dv, m=m, k=k):
+            a = torch.sparse_csr_tensor(ip, ix, dv, size=(m, k))
+            return a.to_dense, "torch.sparse_csr_tensor(...).to_dense()"
+
+        row = timed_row(
+            "K12_csr_densify", shape,
+            lambda: densify.csr_densify(ip, ix, dv, (m, k)),
+            lambda: densify.csr_densify_plain(ip, ix, dv, (m, k)),
+            bound(written + nbytes(ip, ix, dv), 0, 1.0),
+            library_call(make), nnz=int(ix.numel()),
+            rows_per_tile=densify.densify_plan(m, k, dv.element_size()))
+        row["gbytes_written_per_s"] = written / row["ms"] / 1e6
+        rows.append(row)
+        del A, ip, ix, dv
+        torch.cuda.empty_cache()
+    return rows
+
+
+# The crossover sweep: K2 against K12 + torch.matmul at config 1's side,
+# and K6 against it at the demo X's shape (X @ X.T).
+SWEEP_SIDE = 10_000
+SWEEP_NS = (16, 128, 512)
+SWEEP_PERCENT = (0.5, 1, 2, 5, 10, 20, 40)
+SWEEP_TYPES = (torch.float32, torch.float64, torch.complex64,
+               torch.complex128)
+K6_SWEEP_PERCENT = (1, 5, 21.2, 50)
+# A point's calls whose first run took longer than this many ms are timed
+# SWEEP_SLOW_REPS times, not REPS.
+SWEEP_SLOW_MS = 20.0
+SWEEP_SLOW_REPS = 7
+
+
+def sweep_pattern(side, density, gen):
+    """(indptr, indices) int32 of a side x side CSR on the card, each
+    position stored with probability ``density`` (rows sorted, no
+    repeats)."""
+    ids = (torch.rand((side, side), device="cuda", generator=gen)
+           < density).nonzero()
+    indptr = torch.zeros(side + 1, dtype=torch.int32, device="cuda")
+    indptr[1:] = torch.bincount(ids[:, 0], minlength=side).cumsum(0)
+    return indptr, ids[:, 1].to(torch.int32).contiguous()
+
+
+def synced(fn):
+    """``fn`` followed by a host sync, as ``dot_product`` follows either
+    route with the host read of its result."""
+    def run():
+        fn()
+        torch.cuda.synchronize()
+    return run
+
+
+def sweep_point(kernel_fn, route_fn, parts, dense_chosen):
+    """One crossover point: the kernel's and the densify route's results
+    against each other (``compare``), then both (each up to the host sync
+    that reading its result takes) and the route's parts (device time)
+    timed in turns; the gate's choice beside the faster route."""
+    t0 = time.perf_counter()
+    out_k = kernel_fn()
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    err = compare(route_fn(), out_k, out_k.dtype)
+    del out_k
+    reps = SWEEP_SLOW_REPS if first_ms > SWEEP_SLOW_MS else REPS
+    times = time_turns({"kernel": synced(kernel_fn),
+                        "route": synced(route_fn), **parts}, reps)
+    ms = {name: spread(t)[0] for name, t in times.items()}
+    faster = "densify" if ms["route"] < ms["kernel"] else "kernel"
+    chosen = "densify" if dense_chosen else "kernel"
+    gap = (max(ms["route"], ms["kernel"]) / min(ms["route"], ms["kernel"])
+           - 1.0)
+    return {"kernel_ms": ms["kernel"], "route_ms": ms["route"],
+            **{f"{name}_ms": ms[name] for name in parts},
+            "gate": chosen, "faster": faster, "gap": gap,
+            "gate_right": chosen == faster or gap <= 0.10,
+            "max_abs_err": err, "reps": reps}
+
+
+def densify_sweep():
+    """Phase 4's crossover sweep (``4-densify``).  K2 (with its cached
+    plan, as ``dot_product`` passes it) against the densify route as
+    ``ops.host.densified_spmm`` runs it (K12 on A's arrays,
+    ``torch.matmul``, the finite flag of B read on the host), each up to
+    a host sync, at SWEEP_SIDE^2 for n in SWEEP_NS, densities
+    in SWEEP_PERCENT and the value types SWEEP_TYPES; beside them the
+    route's parts alone: the check (its host read included), K12 and the
+    matmul.  Then K6 (op(B) sorted, as the public path passes it) against
+    the route as ``ops.host.densified_product`` runs it at the demo X's
+    shape, X @ X.T (one densify) with and without ``triangular``, at
+    K6_SWEEP_PERCENT (21.2: the demo X itself) in the four value types,
+    and X @ Y.T (two operands) in f64.  Each point checked first (both
+    results held against each other), then timed in turns; each prints
+    both times, the gate's choice, the faster route and whether the gate
+    took it (or they lie within 10%)."""
+    from sparse_dot_tpu_torch import formats
+    from sparse_dot_tpu_torch.ops import csr, host, spgemm
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 7)
+    spmm_points, product_points = [], []
+    for pct in SWEEP_PERCENT:
+        ip, ix = sweep_pattern(SWEEP_SIDE, pct / 100.0, gen)
+        nnz = int(ix.numel())
+        for tdt in SWEEP_TYPES:
+            dv = (torch.randn(nnz, dtype=tdt, device="cuda", generator=gen)
+                  / np.sqrt(SWEEP_SIDE * pct / 100.0))
+            A = formats.CSR(dv, ix, ip, (SWEEP_SIDE, SWEEP_SIDE), True)
+            plan = A.csr_plan()
+            a_dense = A.dense()
+            for n in SWEEP_NS:
+                b = torch.randn((SWEEP_SIDE, n), dtype=tdt, device="cuda",
+                                generator=gen)
+                point = sweep_point(
+                    lambda: csr.csr_spmm(ip, ix, dv, b, plan=plan),
+                    lambda: host.densified_spmm(A, b, False),
+                    {"check": lambda: host.all_finite(b),
+                     "k12": A.dense,
+                     "matmul": lambda: torch.matmul(a_dense, b)},
+                    host._prefer_densify(SWEEP_SIDE, SWEEP_SIDE, n, nnz, tdt,
+                                         dev))
+                point.update(percent=pct, n=n, dtype=str(tdt), nnz=nnz)
+                spmm_points.append(point)
+                del b
+            del A, dv, plan, a_dense
+            torch.cuda.empty_cache()
+        del ip, ix
+    for i, pct in enumerate(K6_SWEEP_PERCENT):
+        x = demo_x() if pct == 21.2 else sps.random(
+            500, 5000, density=pct / 100.0, format="csr", dtype=np.float64,
+            random_state=100 + i)
+        y = sps.random(500, 5000, density=pct / 100.0, format="csr",
+                       dtype=np.float64, random_state=200 + i)
+        for tdt in (torch.float64, torch.float32, torch.complex64,
+                    torch.complex128):
+            npdt = NP_DTYPES[tdt]
+            xd = (x + 0.5j * x if tdt.is_complex else x).astype(npdt)
+            A = formats.to_device(xd.tocsr())
+            pairs = [("x_xT", A.T, True)]
+            if tdt == torch.float64:
+                pairs.append(("x_yT", formats.to_device(
+                    y.astype(npdt).T), False))
+            for case, B, one in pairs:
+                args = host._product_arrays(A, B, npdt, sort_b=True)
+                a_dense = A.dense(dtype=tdt)
+                b_dense = a_dense.mT if one else B.dense(dtype=tdt)
+                for tri in (False, True):
+                    finite_of = (A.data,) if one else (A.data, B.data)
+                    point = sweep_point(
+                        lambda: spgemm.csr_spgemm_dense(
+                            *args, 500, triangular=tri, b_sorted=True),
+                        lambda: host.densified_product(
+                            A, B, tdt, triangular=tri),
+                        {"check": lambda: host.all_finite(*finite_of),
+                         "k12": lambda: (A.dense(dtype=tdt), None if one
+                                         else B.dense(dtype=tdt)),
+                         "matmul": lambda: torch.matmul(a_dense, b_dense)},
+                        host._prefer_densify_product(
+                            500, 5000, 500, A.nnz, B.nnz, tdt, dev, one,
+                            tri))
+                    point.update(percent=pct, case=case, triangular=tri,
+                                 dtype=str(tdt), nnz=int(A.nnz),
+                                 b_nnz=int(B.nnz), one_operand=one,
+                                 products_estimate=A.nnz * B.nnz / 5000)
+                    product_points.append(point)
+    misses = [p for p in spmm_points + product_points if not p["gate_right"]]
+    fitted, fit_misses = fit_gate(spmm_points, product_points)
+    emit("4-densify", card=card_line(), spmm=spmm_points,
+         product=product_points, gate_misses=len(misses),
+         gate_constants=gate_constants(), fitted=fitted,
+         fitted_gate_misses=fit_misses,
+         timer="cuda events, median of REPS (SWEEP_SLOW_REPS where a call "
+               f"took over {SWEEP_SLOW_MS} ms), 1 GiB read before each, "
+               "kernel, route and parts in the same turns")
+
+
+def gate_constants():
+    """The cost models' constants in ``ops.host``, as the run used them."""
+    from sparse_dot_tpu_torch.ops import host
+
+    def by_type(table):
+        return {str(k): v for k, v in table.items()}
+
+    return {"k2_s": by_type(host._K2_S), "k6_s": by_type(host._K6_S),
+            "k12_s": by_type(host._K12_S), "matmul_s": host._MATMUL_S,
+            "matmul": by_type(host._MATMUL),
+            "dense_route_s": host._DENSE_ROUTE_S,
+            "dense_product_s": host._DENSE_PRODUCT_S,
+            "k2_rows": host._K2_ROWS,
+            "dense_cap_bytes": host.DENSE_CAP_BYTES}
+
+
+def relative_fit(columns, seconds):
+    """Non-negative least squares of ``seconds`` by ``columns`` in
+    relative error (each row divided by its time): the coefficients."""
+    from scipy.optimize import nnls
+
+    a = np.stack([np.asarray(c, float) / seconds for c in columns], axis=1)
+    return nnls(a, np.ones(len(seconds)))[0]
+
+
+def near_crossover(points, least):
+    """The points whose two routes lie within 3x of each other, where the
+    gate's choice is made (all of them when fewer than ``least`` do)."""
+    near = [p for p in points if 1 / 3 < p["route_ms"] / p["kernel_ms"] < 3]
+    return near if len(near) >= least else points
+
+
+def k2_log_rows(nnz, m):
+    """ln(R_hi / r) of ``ops.host``'s K2 model: r, op(A)'s mean row, held
+    within the rows the sweep spans (``host._K2_ROWS``)."""
+    from sparse_dot_tpu_torch.ops import host
+
+    lo, hi = host._K2_ROWS
+    return np.log(hi / np.clip(np.asarray(nnz, float) / m, lo, hi))
+
+
+def fit_gate(spmm_points, product_points):
+    """The constants of ``ops.host``'s cost models fitted to this run's
+    sweep, in the order the module holds them, and the points where a gate
+    with them would miss the faster route by more than 10% (their
+    forecasts beside the measured times).  K2's model is fitted near the
+    crossover (``near_crossover``), K6's over every point (a triangular
+    launch's products apart), the route's own seconds apart for SpMM and
+    for sparse x sparse of one and of two operands."""
+    types = {str(t): t for t in SWEEP_TYPES}
+    side2 = SWEEP_SIDE * SWEEP_SIDE
+    k2, k12, mm, k6 = {}, {}, {}, {}
+    for name, tdt in types.items():
+        pts = [p for p in spmm_points if p["dtype"] == name]
+        near = near_crossover(pts, 5)
+        nnz = np.array([p["nnz"] for p in near], float)
+        n = np.array([p["n"] for p in near], float)
+        sec = np.array([p["kernel_ms"] for p in near]) / 1e3
+        k2[name] = relative_fit((np.ones_like(nnz), nnz, nnz * n, nnz * n
+                                 * k2_log_rows(nnz, SWEEP_SIDE)), sec)
+        sec = np.array([p["k12_ms"] for p in pts]) / 1e3
+        k12[name] = relative_fit(([side2 * tdt.itemsize] * len(pts),
+                                  [p["nnz"] for p in pts]), sec)
+        flop = 2.0 * side2 * (4 if tdt.is_complex else 1)
+        t16 = np.median([p["matmul_ms"] for p in pts if p["n"] == 16]) / 1e3
+        t512 = np.median([p["matmul_ms"] for p in pts
+                          if p["n"] == 512]) / 1e3
+        mm[name] = [t16 / (side2 * tdt.itemsize), flop * 512 / t512]
+    resid = []
+    for p in product_points:
+        tdt = types[p["dtype"]]
+        per_byte, flops = mm[p["dtype"]]
+        flop = 2.0 * 500 * 5000 * 500 * (4 if tdt.is_complex else 1)
+        resid.append(p["matmul_ms"] / 1e3 - max(
+            500 * 5000 * tdt.itemsize * per_byte, flop / flops))
+    mm_fixed = max(0.0, float(np.median(resid)))
+    for name, tdt in types.items():
+        fits = []
+        for tri in (False, True):
+            pts = [p for p in product_points
+                   if p["dtype"] == name and p["triangular"] == tri]
+            sec = np.array([p["kernel_ms"] for p in pts]) / 1e3
+            fits.append(relative_fit(([1.0] * len(pts), [
+                p["products_estimate"] for p in pts]), sec))
+        # The triangular launch's share of the full one's time a product.
+        k6[name] = [fits[0][0], fits[0][1], fits[1][1] / fits[0][1]]
+
+    def route_s(points):
+        return float(np.median([
+            (p["route_ms"] - p["k12_ms"] - p["matmul_ms"]) / 1e3
+            for p in points]))
+
+    fitted = {"k2_s": k2, "k12_s": k12, "matmul": mm, "matmul_s": mm_fixed,
+              "k6_s": k6, "dense_route_s": route_s(spmm_points),
+              "dense_product_s": [
+                  route_s([p for p in product_points if p["one_operand"]]),
+                  route_s([p for p in product_points
+                           if not p["one_operand"]])]}
+    fitted = json.loads(json.dumps(fitted, default=lambda v: v.tolist()))
+    misses = []
+    for p in spmm_points + product_points:
+        tdt = types[p["dtype"]]
+        if "n" in p:
+            m, k, n, elements, nnz = SWEEP_SIDE, SWEEP_SIDE, p["n"], side2, \
+                p["nnz"]
+            fixed, a, b, d = fitted["k2_s"][p["dtype"]]
+            kernel = fixed + nnz * (a + n * (b + d * float(
+                k2_log_rows(nnz, m))))
+            own = fitted["dense_route_s"]
+        else:
+            m, k, n = 500, 5000, 500
+            one = p["one_operand"]
+            elements = m * k if one else 2 * m * k
+            nnz = p["nnz"] if one else p["nnz"] + p["b_nnz"]
+            fixed, per, tri = fitted["k6_s"][p["dtype"]]
+            kernel = fixed + per * p["products_estimate"] * (
+                tri if p["triangular"] else 1.0)
+            own = fitted["dense_product_s"][0 if one else 1]
+        w, e = fitted["k12_s"][p["dtype"]]
+        per_byte, flops = fitted["matmul"][p["dtype"]]
+        flop = 2.0 * m * k * n * (4 if tdt.is_complex else 1)
+        dense_s = (own + elements * tdt.itemsize * w + nnz * e
+                   + fitted["matmul_s"]
+                   + max(m * k * tdt.itemsize * per_byte, flop / flops))
+        chosen = "densify" if dense_s < kernel else "kernel"
+        if chosen != p["faster"] and p["gap"] > 0.10:
+            misses.append({key: p.get(key) for key in (
+                "dtype", "percent", "n", "case", "triangular", "kernel_ms",
+                "route_ms")} | {"forecast_kernel_ms": kernel * 1e3,
+                                "forecast_route_ms": dense_s * 1e3})
+    return fitted, misses
 
 
 def k6_batched_bound(args, size):
@@ -4398,7 +5023,7 @@ def solver_path(inp):
                            lambda: sdt.cg_mrhs(lap, inp["b16"]))
         x_fg, cycles, inner, code_fg = run("fgmres_20", ("K3_csr_spmv",),
                                            fgmres)
-        x_qr = run("qr_householder_20000x500", (),
+        x_qr = run("qr_householder_20000x500", ("K12_csr_densify",),
                    lambda: sdt.sparse_qr_solve(inp["qr_a"], inp["qr_b"]))
         x_cgls = run("qr_cgls_1.2Mx50k", ("K3_csr_spmv",),
                      lambda: sdt.sparse_qr_solve(inp["cgls_a"],
@@ -4408,12 +5033,12 @@ def solver_path(inp):
                       lambda: sdt.sparse_qr_solve(inp["cgls_a"],
                                                   inp["cgls_b4"]))
         cgls4_iters = qr._last_cgls_iters
-        lu = run("pardiso_lu_12000_f64", (),
+        lu = run("pardiso_lu_12000_f64", ("K12_csr_densify",),
                  lambda: pardiso(inp["lu_a"], inp["lu_b"], 11,
                                  then=inp["lu_b4"]))
-        lu_c = run("pardiso_lu_4000_c128_transpose", (),
+        lu_c = run("pardiso_lu_4000_c128_transpose", ("K12_csr_densify",),
                    lambda: pardiso(inp["lu_c"], inp["lu_cb"], 13, tmode=2))
-        lu_spd = run("pardiso_lu_3969_spd_triangle", (),
+        lu_spd = run("pardiso_lu_3969_spd_triangle", ("K12_csr_densify",),
                      lambda: pardiso(inp["lu_spd_upper"], inp["lu_spd_b"], 2))
         kry = run("pardiso_krylov_1M_spd", ("K3_csr_spmv",),
                   lambda: pardiso(lap, b, 2), warns=RuntimeWarning)
@@ -5832,7 +6457,7 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
         "--only", choices=("spgemm", "k6", "k7", "k8", "k9", "k11",
-                           "sharded", "batched"),
+                           "sharded", "batched", "densify"),
         help="a short run that ends with no result line: spgemm runs "
              "phases 1, 2 (K4-K6 and K2/K3's complex inf case), 3 and 4 of "
              "sparse x sparse; k6 runs phase 1 and K6's phase-4 rows "
@@ -5846,7 +6471,10 @@ def main():
              "spgemm_sparse_hvp and hessian_vector_product); sharded runs "
              "phase 1 and phase 7 (sharded_path); batched runs phase 1, "
              "the batched launches' phase-2 checks (check_batched), their "
-             "phase-4 rows and phase 6's batched runs")
+             "phase-4 rows and phase 6's batched runs; densify runs "
+             "phase 1, K12's phase-2 checks (check_k12), phase 3's "
+             "densify calls (densify_path), K12's phase-4 rows and the "
+             "crossover sweep (densify_sweep)")
     only = parser.parse_args().only
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -5920,6 +6548,21 @@ def main():
     if only == "sharded":
         sharded_path(sharded_inputs(path_inputs(), solver_inputs()))
         return
+    if only == "densify":
+        results = {"K12_csr_densify": {"cases": 0, "max_abs_err": 0.0}}
+
+        def record(name, err):
+            results[name]["cases"] += 1
+            results[name]["max_abs_err"] = max(
+                results[name]["max_abs_err"], err)
+
+        emit(2, kernels=results, k12_paths=check_k12(record))
+        emit("4-k12", rows=k12_rows(path_inputs(), solver_inputs()),
+             timer="cuda events, median (p10, p90), 1 GiB read before "
+                   "each; library timed in the same turns")
+        densify_sweep()
+        densify_path()
+        return
     if only == "batched":
         results = {name: {"cases": 0, "max_abs_err": 0.0}
                    for name in KERNELS}
@@ -5945,9 +6588,15 @@ def main():
     check_kernels()
     by_path = {}
     by_path["dot_product"], inputs = main_path()
+    by_path["densify"] = densify_path()
     by_path["spgemm"], spgemm_inp = spgemm_path()
     solver_inp = solver_inputs()
-    rows = timings(inputs, solver_inp) + spgemm_timings(spgemm_inp)
+    rows = (timings(inputs, solver_inp) + spgemm_timings(spgemm_inp)
+            + k12_rows(inputs, solver_inp))
+    emit("4-k12", rows=[r for r in rows if r["kernel"] == "K12_csr_densify"],
+         timer="cuda events, median (p10, p90), 1 GiB read before each; "
+               "library timed in the same turns")
+    densify_sweep()
     by_path["solvers"], records = solver_path(solver_inp)
     solver_timings(records, rows)
     training = training_path(inputs)

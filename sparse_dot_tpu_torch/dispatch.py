@@ -45,6 +45,27 @@ def _scipy_blocksize(mat):
 # ---------------------------------------------------------------------------
 
 
+def _same_array(x, y):
+    """Whether two numpy arrays are the same memory read the same way."""
+    return (x.shape == y.shape and x.dtype == y.dtype
+            and x.strides == y.strides
+            and x.__array_interface__["data"][0]
+            == y.__array_interface__["data"][0])
+
+
+def _transpose_view(matrix_a, matrix_b):
+    """Whether scipy ``matrix_b`` is ``matrix_a.T``: the same arrays read
+    as the other of CSR and CSC, the shape transposed.  Its container is
+    then the zero-cost view ``A.T`` of A's (one upload; a dense-output
+    product densifies once, ``ops.host.transpose_pair``)."""
+    return (_sps.issparse(matrix_a) and _sps.issparse(matrix_b)
+            and {matrix_a.format, matrix_b.format} == {"csr", "csc"}
+            and matrix_b.shape == matrix_a.shape[::-1]
+            and all(_same_array(getattr(matrix_a, name),
+                                getattr(matrix_b, name))
+                    for name in ("data", "indices", "indptr")))
+
+
 def _sparse_dot_sparse(matrix_a, matrix_b, cast=False, reorder_output=False,
                        dense=False, out=None):
     if not policy.allowed_sparse_format(matrix_a) or not (
@@ -82,7 +103,8 @@ def _sparse_dot_sparse(matrix_a, matrix_b, cast=False, reorder_output=False,
     out_dtype = policy.output_dtype(matrix_a, matrix_b)
 
     A = formats.to_device(matrix_a)
-    B = formats.to_device(matrix_b)
+    B = (A.T if _transpose_view(matrix_a, matrix_b)
+         else formats.to_device(matrix_b))
 
     if dense:
         # spmmd semantics: the product overwrites out (no accumulation).

@@ -623,14 +623,29 @@ class SparseDeviceMatrix:
         )
 
     def to_dense(self):
-        """The matrix as a dense tensor on its device: the entries of
-        ``csr_arrays()`` scattered into zeros (the counterpart of
-        ``_xla.densify``)."""
-        indptr, indices, data = self.csr_arrays()
-        rows = expand_indptr(indptr, indices.numel())
-        dense = torch.zeros(self.shape, dtype=data.dtype, device=data.device)
-        return dense.index_put_((rows.long(), indices.long()), data,
-                                accumulate=True)
+        """The matrix as a dense tensor on its device (``dense()``)."""
+        return self.dense()
+
+    def dense(self, transpose=False, dtype=None):
+        """op(A) as a dense tensor on its device, its values cast to
+        ``dtype`` when given: K12 (``ops.densify.csr_densify``, the
+        counterpart of ``_xla.densify`` / ``densify_sorted``) on the stored
+        arrays, which a CSR holds as its own rows and a CSC as the rows of
+        its transpose (a BSR on its element CSR).  Where the stored rows
+        are op(A)ᵀ's, the result is the transposed view of their dense
+        (column-major), so no transposed layout is ever sorted."""
+        from .ops.densify import csr_densify
+
+        stored_t = self._own_csr_transpose
+        if isinstance(self, BSR):
+            indptr, indices, data = self.csr_arrays()
+        else:
+            indptr, indices, data = self.indptr, self.indices, self.data
+        if dtype is not None:
+            data = data.to(dtype)
+        dense = csr_densify(indptr, indices, data,
+                            self.shape[::-1] if stored_t else self.shape)
+        return dense.mT if stored_t != bool(transpose) else dense
 
     def csr_plan(self, transpose=False, spmv=False):
         """K2's ``CsrPlan`` (K3's with ``spmv``) of

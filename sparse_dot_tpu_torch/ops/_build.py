@@ -127,6 +127,8 @@ _PROTOTYPES = {
                                     _I64, _I64, _INT, _INT, _INT, _P, _P,
                                     _I64, _P, _P, _P, _P, _P, _P, _P, _INT,
                                     _INT, _INT, _I64, _I64, _I64, _I64, _P),
+    # dtype, itype, indptr, indices, data, out, m, k, rows_per_tile, stream
+    "sdt_csr_densify": (_INT, _INT, _P, _P, _P, _P, _I64, _I64, _I64, _P),
 }
 
 _lib = None
