@@ -102,7 +102,16 @@ Phases, each printing one JSON line:
    and one element wider, rows wider than shared memory, no row (no
    launch), and the transposed use (a CSC's ``dense()`` read as ``.mT``,
    a CSR's ``dense(transpose=True)``, a BSR's element CSR), with the same
-   bits wherever a position gets one entry.  Then
+   bits wherever a position gets one entry; its indicator template
+   (``indicator_check``: bf16 1.0 at each stored entry) on the same
+   patterns and index widths, at the tile's edge and over a repeated
+   column, the same bits as its plain version.  K13 masked compaction
+   (``check_k13``) against its plain version in every value type and
+   index width on ``K13_CASES`` (16-byte and scalar loads of P, a P one
+   element into its buffer, ``triangular`` with and without a row offset,
+   empty and full rows, an exact zero of C kept, no position, no row) and
+   at case a with and without ``triangular``: equal indptr and indices,
+   the same bits of data, the exact launches, each call twice.  Then
    ``torch.autograd.gradcheck`` (reverse and forward mode) of
    ``ops.coo_spmm_raw``, ``coo_spmv``, ``csr_spmm``, the BSR device
    function ``ops.bsr_spmm`` (on both K1 variants), ``csr_spgemm_dense``
@@ -131,7 +140,14 @@ Phases, each printing one JSON line:
    dense output and its dense gram, each on
    K12 where the gates of ``ops/host`` send it, config 1 at 1% (below the
    crossover: K2) and config 1 at 10% with inf, -inf and nan in B (K2 by
-   the finite check, scipy's inf and nan);
+   the finite check, scipy's inf and nan); and the structural densify
+   route of sparse output (``sparse_path``): the demo X @ X.T and its gram
+   on K12, its indicator and K13 (no K4 or K5), their patterns scipy's
+   structural product; X with inf and nan (K4 + K5 after the route's host
+   read: scipy's values); a repeat call on one container (K13 alone: the
+   kept planes); a dense x BSR above the gate (K12, not K1).  In phase
+   3's sparse x sparse calls the gate's choice sets the expected launches
+   of each product, and cases c, d and e must stay on K4 + K5;
 4. kernel and plain-version times at the phase-3 shapes and, for K2 and
    K3, at the solvers' matrices (the 1M Laplacian at n = 1, 4, 16, CGLS's
    A and A^T at n = 1, 4; K3 on the Laplacian, the convection-diffusion
@@ -192,12 +208,23 @@ Phases, each printing one JSON line:
    against it at the demo X's shape (X @ X.T with and without
    ``triangular``, X @ Y.T) at 1, 5, 21.2 and 50%, each point checked
    first, with both times, the route's parts, the gate's choice and
-   whether it took the faster route;
+   whether it took the faster route; and K4 + K5 against the structural
+   route (``sparse_sweep``) at the demo X's shape (X @ X.T with and
+   without ``triangular``, X @ Y.T) at 1, 5, 21.2 and 50% in the four
+   value types, A @ A at 10,000^2 at 0.1, 1 and 5% (each type) and case
+   d (config 3's BSR x BSR, f64), with the
+   route's parts and its time on a container with kept planes; the
+   constants ``fit_gate`` fits to all of it and where they would miss;
+   K13 at case a, a-tri and config 4's c128 gram X^T X beside
+   ``torch.nonzero`` + gather, K12's indicator template beside K12 on ones
+   cast to bf16 (``k13_rows``, ``4-k12``).  K12's and K13's rows and the
+   sweep run first in phase 4, as ``--only densify`` runs them;
 5. the solver path, with the counts set to 0 again and the plain versions
    of K1-K9 and K11 made to raise, each result checked against
    scipy/numpy on the host: the handle protocol on the demo X (create,
    convert from CSC, order a row-shuffled copy, ``matmul_handles(X,
-   X.T)`` on K4 + K5, export); CG (K3) on a 1M-row 5-point Laplacian +
+   X.T)`` on the structural densify route or K4 + K5, as the gate says,
+   export); CG (K3) on a 1M-row 5-point Laplacian +
    0.01 I, full and as its upper triangle under the symmetric
    descriptor, and its first 20 steps stepwise against the fused loop (same bits); ``cg_mrhs`` (K2)
    with 16 right-hand sides; FGMRES(20) (K3) on a 1M-row upwind
@@ -305,14 +332,16 @@ K11: the sparse-output and the CSR ones); ``--only sharded`` runs phase 1
 and phase 7 and prints no result line; ``--only batched`` runs phase 1,
 ``check_batched``, ``batched_rows``, ``batched_spgemm_rows`` and
 ``batched_training``, and prints no result line; ``--only densify`` runs
-phase 1, ``check_k12``, ``densify_path``, ``k12_rows`` and
-``densify_sweep``, and prints no result line.
+phase 1, ``check_k12``, ``check_k13``, ``densify_path`` (with
+``sparse_path``), ``k12_rows``, ``k13_rows`` and ``densify_sweep``, and
+prints no result line.
 """
 
 import argparse
 import contextlib
 import importlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -336,6 +365,8 @@ RTOL = {
     torch.complex64: 1e-5,
     torch.float64: 1e-12,
     torch.complex128: 1e-12,
+    # K12's indicator template writes the same bits as its plain version.
+    torch.bfloat16: 0.0,
 }
 NP_DTYPES = {
     torch.float32: np.float32,
@@ -395,6 +426,14 @@ KERNELS = {
     "K12_csr_densify": {
         "source": "sparse_dot_tpu_torch/csrc/csr_densify.cu",
         "replaces": "sparse_dot_tpu/ops/_xla.py:199",
+    },
+    "K12_csr_indicator": {
+        "source": "sparse_dot_tpu_torch/csrc/csr_densify.cu",
+        "replaces": "sparse_dot_tpu/ops/_xla.py:881",
+    },
+    "K13_csr_compact": {
+        "source": "sparse_dot_tpu_torch/csrc/csr_compact.cu",
+        "replaces": "sparse_dot_tpu/ops/_xla.py:1460",
     },
 }
 
@@ -544,6 +583,7 @@ def check_kernels(spgemm_only=False):
         results.update(k11)
         batched_paths, batched_spgemm = check_batched(record)
         k12_paths = check_k12(record)
+        k13_paths = check_k13(record)
     check_csr_special(rng, record)
     check_bins_seen(bins_seen)
     check_k6_seen(k6_seen)
@@ -563,6 +603,7 @@ def check_kernels(spgemm_only=False):
          k9_lanes=k9_lanes, k11_lanes=k11_lanes,
          batched_16_byte_paths=batched_paths,
          batched_spgemm_seen=batched_spgemm, k12_paths=k12_paths,
+         k13_paths=k13_paths,
          gradcheck_launches=check_gradcheck(),
          k11_gradcheck_launches=k11_gradcheck,
          gradgradcheck_launches=check_second_order())
@@ -1517,6 +1558,8 @@ def check_k12(record):
                 k12_check(name, got, *args, (m, k), record)
                 seen.add(densify.densify_plan(m, k, tdt.itemsize) > 0
                          if m * k else None)
+                if tdt == torch.float64:
+                    indicator_check(name, args[0], args[1], (m, k), record)
         mat = sps.random(700, 300, density=0.05, format="csr",
                          random_state=rng, dtype=np.float64)
         mat = (mat + 1j * mat if tdt.is_complex else mat).astype(npdt)
@@ -1528,9 +1571,139 @@ def check_k12(record):
             got = cont.dense(transpose)
             k12_check(name, got, *cont.csr_arrays(transpose),
                       got.shape, record)
+            got = cont.dense_planes(transpose).indicator
+            ip, ix, _ = cont.csr_arrays(transpose)
+            if not torch.equal(got, densify.csr_indicator_plain(
+                    ip, ix, got.shape)):
+                raise AssertionError(f"K12 indicator {name} differs")
+            record("K12_csr_indicator", 0.0)
+    # The indicator at a tile exactly TILE_BYTES wide and one element
+    # wider (its 2-byte entries), and a repeated column (set once).
+    edge = densify.TILE_BYTES // 2
+    for name, k in (("tile_edge", edge), ("past_tile_edge", edge + 1)):
+        ip, ix, _ = random_csr(rng, 9, k, 40.0, np.float64)
+        indicator_check(name, cuda(ip), cuda(ix), (9, k), record)
+    indicator_check("repeat", cuda(np.array([0, 3, 3])),
+                    cuda(np.array([2, 2, 0])), (2, 4), record)
     if seen != {True, False, None}:
         raise AssertionError(f"K12 took the paths {seen}")
     return {"tile_and_wide_paths": True}
+
+
+def indicator_check(name, indptr, indices, shape, record):
+    """K12's indicator template against its plain version: the same bf16
+    bits, one launch (none for an empty shape)."""
+    from sparse_dot_tpu_torch.ops import densify
+
+    before = densify.csr_indicator.launches
+    got = densify.csr_indicator(indptr, indices, shape)
+    if densify.csr_indicator.launches - before != int(shape[0] * shape[1]
+                                                      > 0):
+        raise AssertionError(f"K12 indicator {name}: launches")
+    want = densify.csr_indicator_plain(indptr, indices, shape)
+    if got.dtype != torch.bfloat16 or not torch.equal(got, want):
+        raise AssertionError(f"K12 indicator {name} differs from its plain "
+                             "version")
+    record("K12_csr_indicator", 0.0)
+
+
+# K13's cases (name, r, n, share of P's positions > 0, triangular, row0,
+# P's offset in elements into its buffer): rows 3 (empty) and 5 (full)
+# in each; n = 45 (not a multiple of 32 or 8: the scalar path), 256 and
+# 1000 (16-byte loads), P one element into a buffer (scalar loads at n %
+# 8 == 0), row offsets, no position, n = 1, a row of 70,000 columns, no
+# row (no launch).
+K13_CASES = (
+    ("n_45", 23, 45, 0.4, False, 0, 0),
+    ("n_45_triangular_row0", 23, 45, 0.4, True, 7, 0),
+    ("vec_n_256", 300, 256, 0.3, False, 0, 0),
+    ("vec_triangular", 300, 256, 0.3, True, 0, 0),
+    ("vec_triangular_row0", 130, 1000, 0.05, True, 600, 0),
+    ("misaligned_p", 64, 512, 0.5, False, 0, 1),
+    ("misaligned_triangular", 64, 512, 0.5, True, 3, 1),
+    ("none_positive", 40, 300, 0.0, False, 0, 0),
+    ("n_1", 500, 1, 0.5, True, 0, 0),
+    ("wide_70000", 6, 70_000, 0.02, False, 0, 0),
+    ("no_row", 0, 10, 0.5, False, 0, 0),
+)
+
+
+def k13_operands(rng, r, n, share, npdt, offset):
+    """(C, P) on the card: P a bf16 count with ``share`` of its positions
+    in 1..299 (rows 3 and 5 empty and full where they exist), ``offset``
+    elements into its buffer; C random with an exact zero at a stored
+    position of row 5."""
+    counts = rng.integers(1, 300, (r, n)) * (rng.random((r, n)) < share)
+    if r > 5:
+        counts[3] = 0
+        counts[5] = 1
+    p = torch.zeros(r * n + offset, dtype=torch.bfloat16, device="cuda")
+    p[offset:] = cuda(counts.reshape(-1).astype(np.float32)).to(
+        torch.bfloat16)
+    c = values(rng, (r, n), npdt)
+    if r > 5:
+        c[5, 0] = 0
+    return cuda(c), p[offset:].view(r, n)
+
+
+def k13_call(c, p, triangular, row0, itype):
+    """``csr_compact`` through its two wrappers, each launch counted:
+    (arrays, count launches, fill launches)."""
+    from sparse_dot_tpu_torch.ops import compact
+
+    before = (compact.compact_count.launches, compact.compact_fill.launches)
+    got = compact.csr_compact(c, p, triangular, row0, itype)
+    return (got, compact.compact_count.launches - before[0],
+            compact.compact_fill.launches - before[1])
+
+
+def k13_check(name, c, p, triangular, row0, itype, record):
+    """K13 against its plain version: equal indptr and indices, the same
+    bits of data (a gather), the launches (count: one unless P is empty;
+    fill: one unless the area holds no position), a second call the same
+    bits."""
+    from sparse_dot_tpu_torch.ops import compact
+
+    got, counted, filled = k13_call(c, p, triangular, row0, itype)
+    again = compact.csr_compact(c, p, triangular, row0, itype)
+    want = compact.csr_compact_plain(c, p, triangular, row0, itype)
+    torch.cuda.synchronize()
+    nnz = int(want[0][-1])
+    if (counted, filled) != (int(p.numel() > 0), int(compact.area(
+            *p.shape, triangular, row0) > 0)):
+        raise AssertionError(f"K13 {name}: launches {(counted, filled)}")
+    for g, a, w in zip(got, again, want):
+        if g.dtype != w.dtype or not (same_bits(g, w) and same_bits(a, w)):
+            raise AssertionError(f"K13 {name}: differs from its plain "
+                                 "version")
+    record("K13_csr_compact", 0.0)
+    return nnz
+
+
+def check_k13(record):
+    """Phase 2 for K13: ``csr_compact`` on ``K13_CASES`` in every value type
+    and index width, and at case a (the demo X @ X.T's C and P, with and
+    without ``triangular``); both load paths seen."""
+    from sparse_dot_tpu_torch import formats
+
+    rng = np.random.default_rng(SEED + 13)
+    paths = set()
+    for tdt, npdt in NP_DTYPES.items():
+        for itype in (torch.int32, torch.int64):
+            for name, r, n, share, tri, row0, offset in K13_CASES:
+                c, p = k13_operands(rng, r, n, share, npdt, offset)
+                k13_check(name, c, p, tri, row0, itype, record)
+                if r * n:
+                    paths.add(n % 8 == 0 and p.data_ptr() % 16 == 0)
+    planes = formats.to_device(demo_x()).dense_planes()
+    c = planes.dense @ planes.dense.mT
+    p = planes.indicator @ planes.indicator.mT
+    for tri in (False, True):
+        k13_check(f"case_a_triangular_{tri}", c, p, tri, 0, torch.int32,
+                  record)
+    if paths != {True, False}:
+        raise AssertionError(f"K13 took the load paths {paths}")
+    return {"vector_and_scalar_loads": True}
 
 
 BATCH = 5
@@ -2065,9 +2238,10 @@ def check_second_order():
                     raise AssertionError(f"gradgradcheck failed in {npdt}")
     launched = {name: count - before[name]
                 for name, count in read_launches().items()}
-    # K12 has no gradient to check: every other kernel must have moved.
-    if not all(count for name, count in launched.items()
-               if name != "K12_csr_densify"):
+    # K12 (and its indicator) and K13 have no gradient to check: every
+    # other kernel must have moved.
+    if not all(count for name, count in launched.items() if name not in (
+            "K12_csr_densify", "K12_csr_indicator", "K13_csr_compact")):
         raise AssertionError(f"gradgradcheck launched {launched}")
     return {name: count for name, count in launched.items() if count}
 
@@ -2624,12 +2798,14 @@ ALL_PLAIN = {"spgemm": SPGEMM_PLAIN,
                              "csr_spgemm_sparse_sddmm_plain",
                              "csr_spgemm_sddmm_batched_plain",
                              "csr_spgemm_sparse_sddmm_batched_plain"),
-             "densify": ("csr_densify_plain",)}
+             "densify": ("csr_densify_plain", "csr_indicator_plain"),
+             "compact": ("compact_count_plain", "compact_fill_plain",
+                         "csr_compact_plain")}
 
 
 class plain_versions_refused:
     """Inside the block, the plain versions of every kernel (K1-K9, K11,
-    K12) raise:
+    K12 and its indicator template, K13) raise:
     the main path must run the kernels, never their plain versions on the
     card."""
 
@@ -2653,14 +2829,16 @@ class plain_versions_refused:
 
 
 def reset_launches():
-    from sparse_dot_tpu_torch.ops import (bsr, csr, densify, sddmm, spgemm,
-                                          spgemm_grad)
+    from sparse_dot_tpu_torch.ops import (bsr, compact, csr, densify, sddmm,
+                                          spgemm, spgemm_grad)
 
     for fn in (csr.csr_spmm, csr.csr_spmv, bsr.bsr_spmm,
                spgemm.csr_spgemm_count, spgemm.csr_spgemm_fill,
                spgemm.csr_spgemm_dense, sddmm.csr_sddmm, bsr.bsr_sddmm,
                spgemm_grad.csr_spgemm_sddmm,
-               spgemm_grad.csr_spgemm_sparse_sddmm, densify.csr_densify):
+               spgemm_grad.csr_spgemm_sparse_sddmm, densify.csr_densify,
+               densify.csr_indicator, compact.compact_count,
+               compact.compact_fill):
         fn.launches = 0
     bsr.bsr_spmm.launches_tc = bsr.bsr_spmm.launches_simt = 0
     bsr.bsr_sddmm.launches_tc = bsr.bsr_sddmm.launches_simt = 0
@@ -2693,8 +2871,8 @@ def read_batched():
 
 
 def read_launches():
-    from sparse_dot_tpu_torch.ops import (bsr, csr, densify, sddmm, spgemm,
-                                          spgemm_grad)
+    from sparse_dot_tpu_torch.ops import (bsr, compact, csr, densify, sddmm,
+                                          spgemm, spgemm_grad)
 
     return {
         "K1_bsr_spmm_tc": bsr.bsr_spmm.launches_tc,
@@ -2711,6 +2889,9 @@ def read_launches():
         "K11_csr_spgemm_sparse_sddmm":
             spgemm_grad.csr_spgemm_sparse_sddmm.launches,
         "K12_csr_densify": densify.csr_densify.launches,
+        "K12_csr_indicator": densify.csr_indicator.launches,
+        "K13_csr_compact": (compact.compact_count.launches
+                            + compact.compact_fill.launches),
     }
 
 
@@ -2765,12 +2946,25 @@ def spgemm_path():
     launches = read_launches()
     # The dense X @ X.T and its dense gram: K12 once each (X^T is X's
     # transpose view) where the gate sends them to the densify route, else
-    # K6.
+    # K6.  The sparse-output products: K12, its indicator and K13's two
+    # launches each (one densify for a transpose view) where the gate sends
+    # them to the structural densify route, else K4 + K5 (sypr's two
+    # products of 50k rows, case c and case d always: their dense
+    # intermediates pass the cap, or the dense product is slower).
     dense_route = [xxt_dense_route(x), xxt_dense_route(x, True)]
+    sparse_route = {name: sparse_dense_route(*shape)
+                    for name, shape in spgemm_shapes(inp).items()}
+    for name in ("c_1M_a_x_a", "d_config3_bsr_x_bsr", "e_sypr_50k"):
+        if sparse_route[name]:
+            raise AssertionError(f"the gate sends {name} to the densify "
+                                 "route")
+    routed = sum(sparse_route.values())
     expected = {name: 0 for name in launches}
-    expected.update(K4_csr_spgemm_count=9, K5_csr_spgemm_fill=9,
+    expected.update(K4_csr_spgemm_count=9 - routed,
+                    K5_csr_spgemm_fill=9 - routed,
                     K6_csr_spgemm_dense=2 - sum(dense_route),
-                    K12_csr_densify=sum(dense_route))
+                    K12_csr_densify=sum(dense_route) + routed,
+                    K12_csr_indicator=routed, K13_csr_compact=2 * routed)
     if launches != expected:
         raise AssertionError(f"launch counts {launches}, expected {expected}")
     if r["a_x_xT_dense_out"] is not out:
@@ -2803,8 +2997,47 @@ def spgemm_path():
     check_sparse(cases, "e_sypr_50k", r["e_sypr_50k"],
                  sps.triu(sa.T @ sb @ sa, format="csr"), 6)
     emit("3-spgemm", seconds=seconds, launches=launches, cases=cases,
-         dense_x_xT_routes=["densify" if d else "K6" for d in dense_route])
+         dense_x_xT_routes=["densify" if d else "K6" for d in dense_route],
+         sparse_routes={name: "densify" if r else "K4+K5"
+                        for name, r in sparse_route.items()})
     return launches, inp
+
+
+def spgemm_shapes(inp):
+    """The shapes of phase 3's sparse-output products that
+    ``ops.host._prefer_densify_sparse_product`` reads: (m, k, n, nnz of
+    op(A), of op(B), type, one operand (a transpose view), triangular);
+    sypr's first product, A^T B, of its two."""
+    x, xc, a1m = inp["x"], inp["xc"], inp["a1m"]
+    f64, c128 = torch.float64, torch.complex128
+    xxt = (500, 5000, 500, x.nnz, x.nnz)
+    return {
+        "a_x_xT_f64": (*xxt, f64, True),
+        "a_x_xT_f32": (*xxt, torch.float32, True),
+        "a_gram_xxT": (*xxt, f64, True, True),
+        "b_gram_c128_xTx": (5000, 500, 5000, xc.nnz, xc.nnz, c128, True,
+                            True),
+        "b_gram_c128_xxT": (500, 5000, 500, xc.nnz, xc.nnz, c128, True,
+                            True),
+        "c_1M_a_x_a": (*a1m.shape, a1m.shape[1], a1m.nnz, a1m.nnz, f64,
+                       False),
+        "d_config3_bsr_x_bsr": (*inp["bsr_a"].shape, inp["bsr_b"].shape[1],
+                                inp["bsr_a"].nnz, inp["bsr_b"].nnz, f64,
+                                False),
+        "e_sypr_50k": (50_000, 50_000, 50_000, inp["sypr_a"].nnz,
+                       inp["sypr_b"].nnz, f64, False),
+    }
+
+
+def sparse_dense_route(m, k, n, a_nnz, b_nnz, dtype, one_operand,
+                       triangular=False):
+    """Whether ``ops.host._prefer_densify_sparse_product`` sends a
+    sparse-output product to the structural densify route on the card."""
+    from sparse_dot_tpu_torch.ops import host
+
+    return host._prefer_densify_sparse_product(
+        m, k, n, a_nnz, b_nnz, dtype, torch.device("cuda"), one_operand,
+        triangular)
 
 
 # ---------------------------------------------------------------------------
@@ -2814,11 +3047,13 @@ def spgemm_path():
 
 def spmm_dense_route(a, n, dtype, transpose=False):
     """Whether ``ops.host._prefer_densify`` sends op(a) @ (k, n) to the
-    densify route on the card."""
+    densify route on the card (a BSR against K1's forecast)."""
     from sparse_dot_tpu_torch.ops import host
 
     m, k = a.shape[::-1] if transpose else a.shape
-    return host._prefer_densify(m, k, n, a.nnz, dtype, torch.device("cuda"))
+    return host._prefer_densify(
+        m, k, n, a.nnz, dtype, torch.device("cuda"),
+        a.blocksize[0] if a.format == "bsr" else None)
 
 
 def xxt_dense_route(x, triangular=False, dtype=torch.float64):
@@ -2867,7 +3102,12 @@ def densify_path():
     def call(name, fn, dense, kernel, also=None):
         """fn() alone; K12 once on the route, ``kernel`` once off it (and
         the launches ``also``)."""
-        expect = {"K12_csr_densify" if dense else kernel: 1, **(also or {})}
+        return run(name, fn,
+                   {"K12_csr_densify" if dense else kernel: 1,
+                    **(also or {})}, "densify" if dense else kernel)
+
+    def run(name, fn, expect, route):
+        """fn() alone, with exactly the launches ``expect``."""
         reset_launches()
         with plain_versions_refused():
             t0 = time.perf_counter()
@@ -2877,7 +3117,7 @@ def densify_path():
         if got != expect:
             raise AssertionError(f"{name}: launched {got}, expected "
                                  f"{expect}")
-        routes[name] = "densify" if dense else kernel
+        routes[name] = route
         moved[name] = got
         cases[name] = {"seconds": seconds}
         return res
@@ -2953,6 +3193,7 @@ def densify_path():
         raise AssertionError("inf in B: the inf and nan of scipy's result "
                              "differ")
     check("config1_10pct_inf_in_b", res, ref_inf, 6, finite=False)
+    sparse_path(x, run, cases, rng)
     if not any(r == "densify" for r in routes.values()):
         raise AssertionError("no phase-3 call took the densify route")
     totals = {name: 0 for name in KERNELS}
@@ -2961,6 +3202,88 @@ def densify_path():
             totals[k] += v
     emit("3-densify", routes=routes, launches=moved, cases=cases)
     return totals
+
+
+def structural(a, b):
+    """The structural pattern of a @ b (scipy CSR, rows sorted): the
+    product of the indicators, whose sums of ones never cancel."""
+    def ones(m):
+        m = m.tocsr()
+        return sps.csr_matrix((np.ones(m.nnz), m.indices, m.indptr),
+                              shape=m.shape)
+    p = (ones(a) @ ones(b)).tocsr()
+    p.sort_indices()
+    return p
+
+
+def sparse_path(x, run, cases, rng):
+    """Phase 3's sparse-output densify calls (``densify_path``), each alone
+    with its exact launches: the demo X @ X.T and its gram (K12 once, its
+    indicator once, K13's two launches, no K4 or K5), their patterns
+    scipy's structural product (explicit zeros included), their values
+    scipy's at decimal 6; X with inf and nan (the route up to its host
+    read, then K4 + K5: scipy's inf and nan); dot_product(Xd, Xd.T) twice
+    on one container (the second call K13 alone: the kept planes); a dense
+    x BSR above the gate (K12, not K1: a complex BSR of 50% blocks)."""
+    import sparse_dot_tpu_torch as sdt
+    from sparse_dot_tpu_torch import formats
+
+    if not sparse_dense_route(500, 5000, 500, x.nnz, x.nnz, torch.float64,
+                              True):
+        raise AssertionError("the gate keeps the demo X @ X.T on K4 + K5")
+    on_route = {"K12_csr_densify": 1, "K12_csr_indicator": 1,
+                "K13_csr_compact": 2}
+    xxt, pattern = x @ x.T, structural(x, x.T)
+
+    def check(name, res, ref, pat, decimal=6):
+        res = res.tocsr()
+        res.sort_indices()
+        if not (np.array_equal(res.indptr, pat.indptr)
+                and np.array_equal(res.indices, pat.indices)):
+            raise AssertionError(f"{name}: pattern differs from scipy's "
+                                 "structural product")
+        np.testing.assert_array_almost_equal(res.toarray(), ref.toarray(),
+                                             decimal=decimal)
+        ok = np.isfinite(ref.toarray())
+        cases[name].update(nnz=int(res.nnz), max_abs_err=float(np.abs(
+            res.toarray() - ref.toarray())[ok].max()))
+
+    check("sparse_x_xT", run("sparse_x_xT", lambda: sdt.dot_product(
+        x, x.T), on_route, "densify"), xxt, pattern)
+    check("sparse_gram_xxT", run("sparse_gram_xxT", lambda: sdt.gram_matrix(
+        x, transpose=True), on_route, "densify"), sps.triu(xxt),
+        sps.triu(pattern, format="csr"))
+    x_inf = x.copy()
+    x_inf.data[0], x_inf.data[x.indptr[7]] = np.inf, np.nan
+    ref = x_inf @ x_inf.T
+    check("sparse_x_xT_nonfinite", run(
+        "sparse_x_xT_nonfinite", lambda: sdt.dot_product(x_inf, x_inf.T),
+        {"K12_csr_densify": 1, "K12_csr_indicator": 1, "K13_csr_compact": 2,
+         "K4_csr_spgemm_count": 1, "K5_csr_spgemm_fill": 1}, "K4+K5"),
+        ref, pattern)
+    if not np.isnan(ref.data).any() or not np.isinf(ref.data).any():
+        raise AssertionError("the non-finite case lacks inf or nan")
+    xd = formats.to_device(x)
+    first = run("sparse_container_first", lambda: sdt.dot_product(
+        xd, xd.T), on_route, "densify")
+    check("sparse_container_first", first, xxt, pattern)
+    check("sparse_container_repeat", run(
+        "sparse_container_repeat", lambda: sdt.dot_product(xd, xd.T),
+        {"K13_csr_compact": 2}, "densify, kept planes"), xxt, pattern)
+    nb = SIZES["complex"] // 16
+    blocks = sps.random(nb, nb, density=0.5, format="csr", random_state=rng)
+    a = sps.bsr_matrix((values(rng, (blocks.nnz, 16, 16), np.complex128,
+                               1 / 45), blocks.indices, blocks.indptr),
+                       shape=(SIZES["complex"],) * 2)
+    d = values(rng, (64, SIZES["complex"]), np.complex128)
+    if not spmm_dense_route(a, 64, torch.complex128, transpose=True):
+        raise AssertionError("the gate keeps the dense x BSR case on K1")
+    res = run("dense_x_bsr16_c128_50pct", lambda: sdt.dot_product(d, a),
+              {"K12_csr_densify": 1}, "densify")
+    ref = (a.T @ d.T).T
+    np.testing.assert_array_almost_equal(res, ref, decimal=6)
+    cases["dense_x_bsr16_c128_50pct"].update(
+        shape=list(res.shape), max_abs_err=float(np.abs(res - ref).max()))
 
 
 # ---------------------------------------------------------------------------
@@ -4286,6 +4609,87 @@ def k12_rows(inputs, solver_inp):
     return rows
 
 
+def k13_rows():
+    """K13's rows at the main path's shapes: the demo X @ X.T's C and P
+    (case a; with ``triangular``, the gram's) and the c128 gram X^T X of
+    BASELINE config 4's X (5000^2, ``triangular``), each beside the
+    yardstick ``torch.nonzero`` of the mask and C gathered there; no
+    single torch call keeps a mask's explicit zeros.  The bound: P read
+    once (its upper triangle with ``triangular``), C's entries at the mask
+    read, the CSR written.  Then K12's indicator template on the demo X and
+    on config 1's A, beside the design it replaced (K12 on ones in f32,
+    cast to bf16) in the same turns."""
+    from sparse_dot_tpu_torch import formats
+    from sparse_dot_tpu_torch.ops import compact, densify
+
+    rows = []
+    x = demo_x()
+    xc = (x + 0.5j * x).astype(np.complex128).tocsr()
+    for shape, mat, ata, tri in (
+            ("case a: demo X @ X.T, C 500^2 f64", x, False, False),
+            ("case a-tri: the demo's gram, C 500^2 f64", x, False, True),
+            ("config 4's c128 gram X^T X, C 5000^2", xc, True, True)):
+        planes = formats.to_device(mat).dense_planes()
+        a, ia = (planes.dense.mT, planes.indicator.mT) if ata else \
+            (planes.dense, planes.indicator)
+        c, p = a @ a.mT, ia @ ia.mT
+        starts = compact.compact_count(p, tri)
+        nnz, r = int(starts[-1]), p.shape[0]
+        read = (r * (r + 1) // 2 if tri else r * r) * p.element_size()
+        moved = (read + nnz * c.element_size() + (r + 1) * 4
+                 + nnz * (4 + c.element_size()))
+
+        def yardstick(c=c, p=p, tri=tri):
+            def run():
+                idx = torch.nonzero(compact._mask(p, tri, 0))
+                return c[idx[:, 0], idx[:, 1]]
+            return run, "torch.nonzero(mask) + C gathered at it"
+
+        rows.append(timed_row(
+            "K13_csr_compact", shape,
+            lambda c=c, p=p, tri=tri: compact.csr_compact(c, p, tri)[2],
+            lambda c=c, p=p, tri=tri: compact.csr_compact_plain(
+                c, p, tri)[2],
+            bound(moved, 0, 1.0),
+            (None, "none: no single torch call keeps a mask's explicit "
+                   "zeros"),
+            yardstick=yardstick(), nnz=nnz, triangular=tri))
+        del planes, a, ia, c, p
+        torch.cuda.empty_cache()
+    rng = np.random.default_rng(SEED + 14)
+    for shape, mat in (("demo X CSR 500x5000 21.2%", x),
+                       ("config1 CSR 10000x10000 1%", config1_csr(
+                           rng, SIZES["config1"]))):
+        A = formats.to_device(mat)
+        ip, ix, m, k = A.indptr, A.indices, *A.shape
+        ones = torch.ones(ix.numel(), dtype=torch.float32, device="cuda")
+
+        def make(ip=ip, ix=ix, m=m, k=k):
+            a = torch.sparse_csr_tensor(ip, ix, torch.ones(
+                ix.numel(), dtype=torch.bfloat16, device="cuda"),
+                size=(m, k))
+            return a.to_dense, ("torch.sparse_csr_tensor(indptr, indices, "
+                                "ones bf16).to_dense()")
+
+        row = timed_row(
+            "K12_csr_indicator", shape,
+            lambda ip=ip, ix=ix, m=m, k=k: densify.csr_indicator(
+                ip, ix, (m, k)),
+            lambda ip=ip, ix=ix, m=m, k=k: densify.csr_indicator_plain(
+                ip, ix, (m, k)),
+            bound(m * k * 2 + nbytes(ip, ix), 0, 1.0), library_call(make),
+            beside={"K12 on ones f32, .to(bfloat16)":
+                    lambda ip=ip, ix=ix, ones=ones, m=m, k=k:
+                    densify.csr_densify(ip, ix, ones, (m, k)).to(
+                        torch.bfloat16)},
+            nnz=int(ix.numel()))
+        row["gbytes_written_per_s"] = m * k * 2 / row["ms"] / 1e6
+        rows.append(row)
+        del A, ip, ix, ones
+        torch.cuda.empty_cache()
+    return rows
+
+
 # The crossover sweep: K2 against K12 + torch.matmul at config 1's side,
 # and K6 against it at the demo X's shape (X @ X.T).
 SWEEP_SIDE = 10_000
@@ -4294,6 +4698,9 @@ SWEEP_PERCENT = (0.5, 1, 2, 5, 10, 20, 40)
 SWEEP_TYPES = (torch.float32, torch.float64, torch.complex64,
                torch.complex128)
 K6_SWEEP_PERCENT = (1, 5, 21.2, 50)
+# The sparse-output sweep: K4 + K5 against the structural densify route at
+# the demo X's shape (K6_SWEEP_PERCENT) and at SWEEP_SIDE^2 A @ A.
+SQUARE_SWEEP_PERCENT = (0.1, 1, 5)
 # A point's calls whose first run took longer than this many ms are timed
 # SWEEP_SLOW_REPS times, not REPS.
 SWEEP_SLOW_MS = 20.0
@@ -4318,6 +4725,13 @@ def synced(fn):
         fn()
         torch.cuda.synchronize()
     return run
+
+
+def finite_read(*tensors):
+    """The densify routes' finite check alone: each tensor's sum's flag,
+    read on the host in one copy."""
+    return all(torch.stack([torch.isfinite(t.sum())
+                            for t in tensors]).tolist())
 
 
 def sweep_point(kernel_fn, route_fn, parts, dense_chosen):
@@ -4361,7 +4775,21 @@ def densify_sweep():
     and X @ Y.T (two operands) in f64.  Each point checked first (both
     results held against each other), then timed in turns; each prints
     both times, the gate's choice, the faster route and whether the gate
-    took it (or they lie within 10%)."""
+    took it (or they lie within 10%).  No planes are kept in the sweep
+    (``config.spgemm_plane_cache`` off): each route pays its densify, as
+    a first use does and as the gates forecast it."""
+    from sparse_dot_tpu_torch.config import config
+
+    config.spgemm_plane_cache = False
+    try:
+        sweep_routes()
+    finally:
+        config.spgemm_plane_cache = True
+
+
+def sweep_routes():
+    """The points of ``densify_sweep``, the fit and the ``4-densify``
+    line."""
     from sparse_dot_tpu_torch import formats
     from sparse_dot_tpu_torch.ops import csr, host, spgemm
 
@@ -4384,7 +4812,7 @@ def densify_sweep():
                 point = sweep_point(
                     lambda: csr.csr_spmm(ip, ix, dv, b, plan=plan),
                     lambda: host.densified_spmm(A, b, False),
-                    {"check": lambda: host.all_finite(b),
+                    {"check": lambda: finite_read(b),
                      "k12": A.dense,
                      "matmul": lambda: torch.matmul(a_dense, b)},
                     host._prefer_densify(SWEEP_SIDE, SWEEP_SIDE, n, nnz, tdt,
@@ -4421,7 +4849,7 @@ def densify_sweep():
                             *args, 500, triangular=tri, b_sorted=True),
                         lambda: host.densified_product(
                             A, B, tdt, triangular=tri),
-                        {"check": lambda: host.all_finite(*finite_of),
+                        {"check": lambda: finite_read(*finite_of),
                          "k12": lambda: (A.dense(dtype=tdt), None if one
                                          else B.dense(dtype=tdt)),
                          "matmul": lambda: torch.matmul(a_dense, b_dense)},
@@ -4433,15 +4861,129 @@ def densify_sweep():
                                  b_nnz=int(B.nnz), one_operand=one,
                                  products_estimate=A.nnz * B.nnz / 5000)
                     product_points.append(point)
-    misses = [p for p in spmm_points + product_points if not p["gate_right"]]
-    fitted, fit_misses = fit_gate(spmm_points, product_points)
+    sparse_points = sparse_sweep(gen)
+    misses = [p for p in spmm_points + product_points + sparse_points
+              if not p["gate_right"]]
+    fitted, fit_misses = fit_gate(spmm_points, product_points, sparse_points)
     emit("4-densify", card=card_line(), spmm=spmm_points,
-         product=product_points, gate_misses=len(misses),
+         product=product_points, sparse=sparse_points,
+         gate_misses=len(misses),
          gate_constants=gate_constants(), fitted=fitted,
          fitted_gate_misses=fit_misses,
          timer="cuda events, median of REPS (SWEEP_SLOW_REPS where a call "
                f"took over {SWEEP_SLOW_MS} ms), 1 GiB read before each, "
                "kernel, route and parts in the same turns")
+
+
+def sparse_sweep(gen):
+    """The sparse-output points of ``densify_sweep``: K4 + K5 (as
+    ``spgemm_device`` runs it: plan, count, the nnz read, fill) against the
+    structural densify route as ``ops.host.densified_sparse_product`` runs
+    it with no planes kept (K12 and its indicator, the two
+    ``torch.matmul``, K13 with its host read), each up to its host sync, at
+    the demo X's shape: X @ X.T with and without ``triangular`` and X @
+    Y.T, at K6_SWEEP_PERCENT in the four value types; A @ A at
+    SWEEP_SIDE^2 (one densify) at SQUARE_SWEEP_PERCENT in the four value
+    types; and case d, config 3's BSR x BSR (f64); no planes kept (the
+    sweep turns the cache off).  Beside
+    them the route's parts alone (device time) and the route on a
+    container whose planes are kept (``route_kept``: its repeat calls)."""
+    from sparse_dot_tpu_torch import formats
+    from sparse_dot_tpu_torch.config import config
+    from sparse_dot_tpu_torch.ops import compact, densify, host, spgemm
+
+    dev = torch.device("cuda")
+    points = []
+
+    def kept(fn):
+        def run():
+            config.spgemm_plane_cache = True
+            try:
+                return fn()
+            finally:
+                config.spgemm_plane_cache = False
+        return run
+
+    def point(A, B, tdt, tri, one, **extra):
+        m, k, n = A.shape[0], A.shape[1], B.shape[1]
+        npdt = NP_DTYPES[tdt]
+        args = host._product_arrays(A, B, npdt)
+        pa = A.dense_planes(dtype=tdt)
+        if one:
+            b, ib = ((pa.dense, pa.indicator) if B is A
+                     else (pa.dense.mT, pa.indicator.mT))
+        else:
+            pb = B.dense_planes(dtype=tdt)
+            b, ib = pb.dense, pb.indicator
+        c, p = torch.matmul(pa.dense, b), torch.matmul(pa.indicator, ib)
+        operands = (A,) if one else (A, B)
+
+        def stored(M):
+            ip, ix, _, shape = M._stored_csr()
+            return ip, ix, shape
+
+        parts = {"k12": lambda: [M.dense(dtype=tdt) for M in operands],
+                 "indicator": lambda: [densify.csr_indicator(*stored(M))
+                                       for M in operands],
+                 "matmul": lambda: torch.matmul(pa.dense, b),
+                 "matmul_indicator": lambda: torch.matmul(pa.indicator, ib),
+                 "k13": lambda: compact.csr_compact(c, p, tri)}
+        # The route on kept planes, where the cache's budget holds them.
+        if m * k * (tdt.itemsize + 2) <= config.spgemm_plane_cache_bytes:
+            parts["route_kept"] = kept(
+                lambda: host.densified_sparse_product(A, B, tdt, tri))
+        result = sweep_point(
+            lambda: spgemm.csr_spgemm(*args, n, tri)[2],
+            lambda: host.densified_sparse_product(A, B, tdt, tri).data,
+            parts,
+            host._prefer_densify_sparse_product(
+                m, k, n, A.nnz, B.nnz, tdt, dev, one, tri))
+        products = A.nnz * B.nnz / k
+        result.update(dtype=str(tdt), triangular=tri, one_operand=one,
+                      m=m, k=k, n=n, nnz=int(A.nnz), b_nnz=int(B.nnz),
+                      products_estimate=products,
+                      entries_estimate=-m * n * math.expm1(-products
+                                                           / (m * n)),
+                      c_nnz=int(compact.compact_count(p, tri)[-1]),
+                      **extra)
+        points.append(result)
+        A.__dict__.pop("_planes", None)
+
+    for i, pct in enumerate(K6_SWEEP_PERCENT):
+        x = demo_x() if pct == 21.2 else sps.random(
+            500, 5000, density=pct / 100.0, format="csr",
+            dtype=np.float64, random_state=100 + i)
+        y = sps.random(500, 5000, density=pct / 100.0, format="csr",
+                       dtype=np.float64, random_state=200 + i)
+        for tdt in SWEEP_TYPES:
+            npdt = NP_DTYPES[tdt]
+            xd, yd = ((m + 0.5j * m if tdt.is_complex else m).astype(npdt)
+                      for m in (x, y))
+            A = formats.to_device(xd.tocsr())
+            for tri in (False, True):
+                point(A, A.T, tdt, tri, True, percent=pct, case="x_xT")
+            point(A, formats.to_device(yd.T), tdt, False, False,
+                  percent=pct, case="x_yT")
+            del A
+            torch.cuda.empty_cache()
+    for pct in SQUARE_SWEEP_PERCENT:
+        ip, ix = sweep_pattern(SWEEP_SIDE, pct / 100.0, gen)
+        for tdt in SWEEP_TYPES:
+            dv = (torch.randn(ix.numel(), dtype=tdt, device="cuda",
+                              generator=gen)
+                  / np.sqrt(SWEEP_SIDE * pct / 100.0))
+            A = formats.CSR(dv, ix, ip, (SWEEP_SIDE, SWEEP_SIDE), True)
+            point(A, A, tdt, False, True, percent=pct, case="a_a_10000")
+            del A, dv
+            torch.cuda.empty_cache()
+        del ip, ix
+    rng = np.random.default_rng(SEED + 15)
+    a, b = (formats.to_device(config3_bsr(rng, SIZES["config3"],
+                                          np.float64, 64))
+            for _ in range(2))
+    point(a, b, torch.float64, False, False, percent=5.0,
+          case="d_config3_bsr_x_bsr")
+    return points
 
 
 def gate_constants():
@@ -4456,6 +4998,9 @@ def gate_constants():
             "matmul": by_type(host._MATMUL),
             "dense_route_s": host._DENSE_ROUTE_S,
             "dense_product_s": host._DENSE_PRODUCT_S,
+            "k45_s": by_type(host._K45_S), "k13_s": host._K13_S,
+            "dense_sparse_s": host._DENSE_SPARSE_S,
+            "k1_s": host._K1_S, "k1_flops": host._K1_FLOPS,
             "k2_rows": host._K2_ROWS,
             "dense_cap_bytes": host.DENSE_CAP_BYTES}
 
@@ -4485,14 +5030,16 @@ def k2_log_rows(nnz, m):
     return np.log(hi / np.clip(np.asarray(nnz, float) / m, lo, hi))
 
 
-def fit_gate(spmm_points, product_points):
+def fit_gate(spmm_points, product_points, sparse_points):
     """The constants of ``ops.host``'s cost models fitted to this run's
     sweep, in the order the module holds them, and the points where a gate
     with them would miss the faster route by more than 10% (their
     forecasts beside the measured times).  K2's model is fitted near the
     crossover (``near_crossover``), K6's over every point (a triangular
     launch's products apart), the route's own seconds apart for SpMM and
-    for sparse x sparse of one and of two operands."""
+    for sparse x sparse of one and of two operands; for sparse output
+    (``fit_sparse``) K4 + K5's, the indicator's, the bf16 product's, K13's
+    and the structural route's own."""
     types = {str(t): t for t in SWEEP_TYPES}
     side2 = SWEEP_SIDE * SWEEP_SIDE
     k2, k12, mm, k6 = {}, {}, {}, {}
@@ -4542,6 +5089,7 @@ def fit_gate(spmm_points, product_points):
                   route_s([p for p in product_points if p["one_operand"]]),
                   route_s([p for p in product_points
                            if not p["one_operand"]])]}
+    fitted.update(fit_sparse(sparse_points, fitted))
     fitted = json.loads(json.dumps(fitted, default=lambda v: v.tolist()))
     misses = []
     for p in spmm_points + product_points:
@@ -4574,7 +5122,146 @@ def fit_gate(spmm_points, product_points):
                 "dtype", "percent", "n", "case", "triangular", "kernel_ms",
                 "route_ms")} | {"forecast_kernel_ms": kernel * 1e3,
                                 "forecast_route_ms": dense_s * 1e3})
+    for p in sparse_points:
+        kernel, dense_s = sparse_forecast(p, fitted)
+        chosen = "densify" if dense_s < kernel else "kernel"
+        if chosen != p["faster"] and p["gap"] > 0.10:
+            misses.append({key: p.get(key) for key in (
+                "dtype", "percent", "case", "triangular", "kernel_ms",
+                "route_ms")} | {"forecast_kernel_ms": kernel * 1e3,
+                                "forecast_route_ms": dense_s * 1e3})
     return fitted, misses
+
+
+BF16 = str(torch.bfloat16)
+
+
+def sparse_forecast(p, c):
+    """(K4 + K5's seconds, the structural route's) at sweep point ``p``
+    by ``ops.host._prefer_densify_sparse_product``'s models with the
+    constants ``c`` (``fit_gate``'s names)."""
+    tdt = {str(t): t for t in SWEEP_TYPES}[p["dtype"]]
+    m, k, n, item = p["m"], p["k"], p["n"], tdt.itemsize
+    one = p["one_operand"]
+    elements = m * k if one else m * k + k * n
+    nnz = p["nnz"] if one else p["nnz"] + p["b_nnz"]
+    fixed, per_p, per_log, per_e, spread, tri = c["k45_s"][p["dtype"]]
+    share = tri if p["triangular"] else 1.0
+    entries = p["entries_estimate"]
+    kernel = fixed + share * (
+        p["products_estimate"] * (1 + spread / m) * (per_p + per_log * float(
+            k45_log_rows(p["products_estimate"], m))) + per_e * entries)
+
+    def matmul(dt, bytes_per_element):
+        per_byte, flops = c["matmul"][dt]
+        flop = 2.0 * m * k * n * (4 if dt.startswith("torch.complex")
+                                  else 1)
+        return c["matmul_s"] + max(m * k * bytes_per_element * per_byte,
+                                   flop / flops)
+
+    w, e = c["k12_s"][p["dtype"]]
+    wi, ei = c["k12_s"][BF16]
+    dense = (c["dense_sparse_s"][0 if one else 1]
+             + elements * (item * w + 2 * wi) + nnz * (e + ei)
+             + matmul(p["dtype"], item) + matmul(BF16, 2)
+             + c["k13_s"] * (4 * m * n + share * entries * (2 * item + 4)))
+    return kernel, dense
+
+
+# The candidate S of K4 + K5's model (``fit_sparse``).
+K45_SPREADS = (0, 125, 250, 500, 1000, 2000, 4000)
+
+
+def k45_log_rows(products, m):
+    """ln(R_hi / r) of ``ops.host``'s K4 + K5 model: r the products a row
+    of op(A), held within ``host._K45_ROWS``."""
+    from sparse_dot_tpu_torch.ops import host
+
+    lo, hi = host._K45_ROWS
+    return np.log(hi / np.clip(np.asarray(products, float)
+                               / np.asarray(m, float), lo, hi))
+
+
+def fit_sparse(points, fitted):
+    """The sparse-output constants fitted to ``sparse_sweep``'s points:
+    K4 + K5 by type (fixed seconds; seconds a product as (b + d ln(R_hi
+    / r)) (1 + S / m), r the products a row (``k45_log_rows``: a row's
+    work a product falls as its products grow) and S the rows below which
+    part of the card idles, the best of K45_SPREADS; seconds an entry of
+    C; from the full launches; the triangular launches' share of the rest,
+    summed over them), K12's
+    indicator template (a byte, an entry), the bf16 product (a byte at the
+    demo shape; FLOP/s at SWEEP_SIDE^2), K13 (fixed and a byte; its fixed
+    seconds go to the route's own), the route's own seconds (its time
+    past its parts) of one operand and of two."""
+    k45 = {}
+    for name in {p["dtype"] for p in points}:
+        full = [p for p in points if p["dtype"] == name
+                and not p["triangular"]]
+        prods = np.array([p["products_estimate"] for p in full])
+        rows = np.array([p["m"] for p in full], float)
+        logs = k45_log_rows(prods, rows)
+        sec = np.array([p["kernel_ms"] for p in full]) / 1e3
+        fits = []
+        for spread in K45_SPREADS:
+            work = prods * (1 + spread / rows)
+            cols = (np.ones_like(prods), work, work * logs,
+                    [p["entries_estimate"] for p in full])
+            coef = relative_fit(cols, sec)
+            resid = np.stack(cols, axis=1).astype(float) @ coef / sec - 1
+            fits.append((float(resid @ resid), spread, coef))
+        _, spread, (fixed, per_p, per_log, per_e) = min(
+            fits, key=lambda f: f[0])
+        tri = [p for p in points if p["dtype"] == name and p["triangular"]]
+
+        def work(p):
+            return (p["products_estimate"] * (1 + spread / p["m"]) * (
+                per_p + per_log * float(k45_log_rows(
+                    p["products_estimate"], p["m"])))
+                + per_e * p["entries_estimate"])
+
+        share = (sum(p["kernel_ms"] / 1e3 - fixed for p in tri)
+                 / sum(work(p) for p in tri))
+        k45[name] = [fixed, per_p, per_log, per_e, spread, share]
+
+    def elements(p):
+        return p["m"] * p["k"] * (1 if p["one_operand"] else 2)
+
+    def entries_of(p):
+        return p["nnz"] * (1 if p["one_operand"] else 2)
+
+    indicator = relative_fit((
+        [elements(p) * 2 for p in points], [entries_of(p) for p in points]),
+        np.array([p["indicator_ms"] for p in points]) / 1e3)
+    mm_fixed = fitted["matmul_s"]
+    small = [p for p in points if p["m"] == 500]
+    big = [p for p in points if p["m"] != 500]
+    per_byte = float(np.median([(p["matmul_indicator_ms"] / 1e3 - mm_fixed)
+                                / (p["m"] * p["k"] * 2) for p in small]))
+    flops = float(np.median([2.0 * p["m"] * p["k"] * p["n"]
+                             / (p["matmul_indicator_ms"] / 1e3 - mm_fixed)
+                             for p in big]))
+    item = {str(t): t.itemsize for t in SWEEP_TYPES}
+    k13_bytes = [4 * p["m"] * p["n"] + (k45[p["dtype"]][5] if p["triangular"]
+                                        else 1.0) * p["entries_estimate"]
+                 * (2 * item[p["dtype"]] + 4) for p in points]
+    k13_fixed, k13_s = relative_fit(([1.0] * len(points), k13_bytes),
+                                    np.array([p["k13_ms"] for p in points])
+                                    / 1e3)
+
+    def own(pts):
+        return float(np.median([
+            (p["route_ms"] - p["k12_ms"] - p["indicator_ms"] - p["matmul_ms"]
+             - p["matmul_indicator_ms"] - p["k13_ms"]) / 1e3 + k13_fixed
+            for p in pts]))
+
+    k12 = dict(fitted["k12_s"], **{BF16: indicator})
+    matmul = dict(fitted["matmul"], **{BF16: [per_byte, flops]})
+    return {"k45_s": k45, "k12_s": k12, "matmul": matmul, "k13_s": k13_s,
+            "k13_fixed_s": k13_fixed,
+            "dense_sparse_s": [own([p for p in points if p["one_operand"]]),
+                               own([p for p in points
+                                    if not p["one_operand"]])]}
 
 
 def k6_batched_bound(args, size):
@@ -5006,10 +5693,17 @@ def solver_path(inp):
 
     sym = (interface.SPARSE_MATRIX_TYPE_SYMMETRIC,
            interface.SPARSE_FILL_MODE_UPPER, interface.SPARSE_DIAG_NON_UNIT)
+    # matmul_handles(X, X.T) of two handles (two operands): the structural
+    # densify route where the gate sends it, else K4 + K5.
+    x = inp["x"]
+    handle_kernels = (
+        ("K12_csr_densify", "K12_csr_indicator", "K13_csr_compact")
+        if sparse_dense_route(*x.shape, x.shape[0], x.nnz, x.nnz,
+                              torch.float64, False)
+        else ("K4_csr_spgemm_count", "K5_csr_spgemm_fill"))
     reset_launches()
     with plain_versions_refused():
-        conv, ordered, product = run(
-            "handles", ("K4_csr_spgemm_count", "K5_csr_spgemm_fill"), handles)
+        conv, ordered, product = run("handles", handle_kernels, handles)
         x_cg, it_cg, code_cg = run("cg", ("K3_csr_spmv",), lambda: cg(lap))
         x_sym, it_sym, code_sym = run("cg_symmetric_triangle",
                                       ("K3_csr_spmv",),
@@ -6549,19 +7243,23 @@ def main():
         sharded_path(sharded_inputs(path_inputs(), solver_inputs()))
         return
     if only == "densify":
-        results = {"K12_csr_densify": {"cases": 0, "max_abs_err": 0.0}}
+        results = {name: {"cases": 0, "max_abs_err": 0.0} for name in (
+            "K12_csr_densify", "K12_csr_indicator", "K13_csr_compact")}
 
         def record(name, err):
             results[name]["cases"] += 1
             results[name]["max_abs_err"] = max(
                 results[name]["max_abs_err"], err)
 
-        emit(2, kernels=results, k12_paths=check_k12(record))
-        emit("4-k12", rows=k12_rows(path_inputs(), solver_inputs()),
-             timer="cuda events, median (p10, p90), 1 GiB read before "
-                   "each; library timed in the same turns")
-        densify_sweep()
+        emit(2, kernels=results, k12_paths=check_k12(record),
+             k13_paths=check_k13(record))
         densify_path()
+        emit("4-k12", rows=k12_rows(path_inputs(), solver_inputs())
+             + k13_rows(),
+             timer="cuda events, median (p10, p90), 1 GiB read before "
+                   "each; library, yardstick and beside timed in the same "
+                   "turns")
+        densify_sweep()
         return
     if only == "batched":
         results = {name: {"cases": 0, "max_abs_err": 0.0}
@@ -6591,12 +7289,16 @@ def main():
     by_path["densify"] = densify_path()
     by_path["spgemm"], spgemm_inp = spgemm_path()
     solver_inp = solver_inputs()
-    rows = (timings(inputs, solver_inp) + spgemm_timings(spgemm_inp)
-            + k12_rows(inputs, solver_inp))
-    emit("4-k12", rows=[r for r in rows if r["kernel"] == "K12_csr_densify"],
+    # The densify rows and the sweep first, in the state ``--only densify``
+    # measures them in (no profiler trace taken yet), so that the sweep's
+    # points and the gate's fit compare between the two.
+    densify_rows = k12_rows(inputs, solver_inp) + k13_rows()
+    emit("4-k12", rows=densify_rows,
          timer="cuda events, median (p10, p90), 1 GiB read before each; "
-               "library timed in the same turns")
+               "library, yardstick and beside timed in the same turns")
     densify_sweep()
+    rows = (timings(inputs, solver_inp) + spgemm_timings(spgemm_inp)
+            + densify_rows)
     by_path["solvers"], records = solver_path(solver_inp)
     solver_timings(records, rows)
     training = training_path(inputs)

@@ -12,9 +12,12 @@ for Hopper (``csrc/``): K1 BSR SpMM, K2 CSR SpMM, K3 CSR SpMV, K4 + K5
 sparse x sparse with sparse output (count, then fill), K6 sparse x
 sparse with dense output and K7 CSR SDDMM (the gradient of a sparse
 product with respect to its values); dense GEMM and the dense gram run on
-``torch.matmul``.  The solvers' matvecs run on K3 (one right-hand side)
-and K2 (several, and CGLS); the dense QR and LU routes on
-``torch.linalg``.
+``torch.matmul``.  Where a gate measured on the card says the dense
+product is faster, a product runs on the densify routes instead: K12
+(CSR densify, and its bf16 structural indicator) and ``torch.matmul``,
+with K13 (masked compaction) for sparse output.  The solvers' matvecs
+run on K3 (one right-hand side) and K2 (several, and CGLS); the dense QR
+and LU routes on ``torch.linalg``.
 
 Tensors live on ``config.device``: "cuda" by default, where an operation
 raises when no card is visible (it never falls back to the CPU), or

@@ -2,10 +2,11 @@
 
 Port of ``sparse_dot_tpu/config.py``: the index integer width ("LP64"
 int32 or "ILP64" int64, the reference's ``MKL_INTERFACE_LAYER``), the
-debug flag, the chunk budget of the plain paths and PARDISO's dense
-budget, plus the device every tensor is created on: the card unless the
-caller sets ``config.device = "cpu"``.  The TPU switches of the JAX package (planar
-complex, Pallas/ELL/Ozaki routes and their caches) have no counterpart.
+debug flag, the chunk budget of the plain paths, PARDISO's dense budget
+and the dense plane cache of the densify routes, plus the device every
+tensor is created on: the card unless the caller sets ``config.device =
+"cpu"``.  The TPU switches of the JAX package (planar complex,
+Pallas/ELL/Ozaki routes and their caches) have no counterpart.
 
 Environment variables
 ---------------------
@@ -57,6 +58,13 @@ class _Config:
         # budget and solves matrix-free (CG / FGMRES) beyond it: the JAX
         # package's rule and default, so both packages take the same route.
         self.pardiso_dense_budget_bytes = 2 << 30
+        # Dense planes of a container (``SparseDeviceMatrix.dense_planes``:
+        # its dense op(A), bf16 structural indicator and the finite flag of
+        # its values), kept on it while their bytes stay within this
+        # budget, so that the densify routes of ``ops/host`` skip K12 on a
+        # container's repeat use.  The JAX package's names and defaults.
+        self.spgemm_plane_cache = True
+        self.spgemm_plane_cache_bytes = 1 << 28
         self._device = "cuda"
 
     @property

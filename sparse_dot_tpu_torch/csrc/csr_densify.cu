@@ -33,6 +33,13 @@
 // Duplicates make the sums' order depend on the atomics; a position that
 // receives one entry holds exactly that entry's bits (0 + v).  Column ids
 // outside [0, k) are skipped (no stray write).
+//
+// The indicator template (sdt_csr_indicator, T = Indicator) writes bf16 1.0
+// at every stored position, explicit zeros included, and reads no values:
+// the operand of the structural count P = ind(A) @ ind(B) of the densify
+// route of sparse-output products (ops/host.py), the counterpart of
+// _xla.py _indicator_sorted (:881).  Its "add" is a plain 16-bit store, as
+// every entry writes the same 1.0; it is bound by its 2 * m * k bytes.
 #include "common.cuh"
 
 namespace sdt {
@@ -64,6 +71,22 @@ __device__ __forceinline__ void add_to(c128* p, c128 v) {
   atomicAdd(q + 1, v.imag());
 }
 
+// A bf16 of the structural indicator; T() is its 0.
+struct Indicator {
+  uint16_t bits;
+};
+constexpr uint16_t kBf16One = 0x3f80;
+__device__ __forceinline__ void add_to(Indicator* p, Indicator v) { *p = v; }
+
+// Entry q's value: the data, or for the indicator 1.0 (no value read).
+template <typename T>
+__device__ __forceinline__ T entry(const T* __restrict__ data, int64_t q) {
+  return data[q];
+}
+__device__ __forceinline__ Indicator entry(const Indicator*, int64_t) {
+  return Indicator{kBf16One};
+}
+
 // Adds the entries of row r to row (k elements), skipping column ids out
 // of range; `first` and `stride` spread the entries over the caller's
 // threads, each loading kUnroll of its entries before it adds them.
@@ -82,7 +105,7 @@ __device__ __forceinline__ void scatter_row(const I* __restrict__ indptr,
     for (int u = 0; u < kUnroll; ++u) {
       const int64_t q = p + u * stride;
       c[u] = q < e ? static_cast<int64_t>(indices[q]) : -1;
-      v[u] = q < e ? data[q] : Arith<T>::zero();
+      v[u] = q < e ? entry(data, q) : T();
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
@@ -163,7 +186,7 @@ __global__ void __launch_bounds__(kThreads)
   const int pad = static_cast<int>(reinterpret_cast<uintptr_t>(dst) & 15);
   const int64_t head_max = ((16 - pad) & 15) / static_cast<int64_t>(sizeof(T));
   const int64_t head = head_max < k ? head_max : k;
-  const T zero = Arith<T>::zero();
+  const T zero = T();
   if (threadIdx.x < head) dst[threadIdx.x] = zero;
   const int64_t vecs = (k - head) / kPerVec;
   uint4* dst4 = reinterpret_cast<uint4*>(dst + head);
@@ -224,4 +247,21 @@ extern "C" int sdt_csr_densify(int dtype, int itype, const void* indptr,
                                int64_t rows_per_tile, void* stream) {
   SDT_DISPATCH(dtype, itype, sdt::launch, indptr, indices, data, out, m, k,
                rows_per_tile, static_cast<cudaStream_t>(stream))
+}
+
+extern "C" int sdt_csr_indicator(int itype, const void* indptr,
+                                 const void* indices, void* out, int64_t m,
+                                 int64_t k, int64_t rows_per_tile,
+                                 void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (itype) {
+    case sdt::kI32:
+      return sdt::launch<sdt::Indicator, int32_t>(indptr, indices, nullptr,
+                                                  out, m, k, rows_per_tile, s);
+    case sdt::kI64:
+      return sdt::launch<sdt::Indicator, int64_t>(indptr, indices, nullptr,
+                                                  out, m, k, rows_per_tile, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }

@@ -485,10 +485,12 @@ def dot_product(matrix_a, matrix_b, cast=False, copy=True,
     inputs may be scipy sparse (CSR/CSC/BSR), numpy dense, or containers,
     in float32/float64/complex64/complex128.  Routing:
 
-    * sparse @ sparse -> SpGEMM: sparse output in A's format (K4 + K5),
-      or dense with ``dense=True`` (K6)
+    * sparse @ sparse -> SpGEMM: sparse output in A's format (K4 + K5, or
+      K12 + two ``torch.matmul`` + K13 where the densify gate says so),
+      or dense with ``dense=True`` (K6, or K12 + ``torch.matmul``)
     * sparse @ vector / vector @ sparse -> SpMV (kernel K3)
-    * sparse @ dense / dense @ sparse -> SpMM (K2 for CSR/CSC, K1 for BSR)
+    * sparse @ dense / dense @ sparse -> SpMM (K2 for CSR/CSC, K1 for BSR,
+      or K12 + ``torch.matmul`` where the densify gate says so)
     * vector @ vector -> np.dot special case
     * dense @ dense -> GEMM
 
@@ -569,8 +571,8 @@ def gram_matrix(matrix, transpose=False, cast=False, dense=False,
     the strict lower triangle as out_scalar * out; the empty-input shape
     rule.  ``allow_complex=True`` (the JAX package's extension) computes
     the unconjugated AᵀA / AAᵀ of complex input.  Sparse output runs on
-    K4 + K5, dense output from sparse input on K6, dense input on
-    ``torch.matmul``.
+    K4 + K5 (or the structural densify route), dense output from sparse
+    input on K6 (or the densify route), dense input on ``torch.matmul``.
     """
     _deprecated_debug(debug)
     torch_device()

@@ -29,7 +29,11 @@ searches them: from scipy's ``has_sorted_indices`` when the container is
 built from scipy, true by construction for the converted layouts, else
 computed once on the device; ``sorted_csr_arrays(transpose)`` gives those
 arrays sorted, sorting them once (the order cached) where they are not.
-``CsrPattern`` and ``BsrPattern`` hold a structure without values, with
+The one cache of values is ``dense_planes(transpose, dtype)``: the dense
+op(A), its bf16 structural indicator and the finite flag of its values for
+the densify routes, kept within ``config.spgemm_plane_cache_bytes`` and
+keyed on ``data``'s identity and ``_version``, so an in-place change of
+``data`` is seen.  ``CsrPattern`` and ``BsrPattern`` hold a structure without values, with
 its plans and transpose cached the same way, for the device API's
 gradients (``ops/autograd``); ``coo_structure`` reads COO ids by the
 JAX package's rules.
@@ -539,6 +543,34 @@ def coo_to_sorted_csr(rows, cols, vals, shape):
     return _indptr_of_rows(rows, shape[0]), cols, vals
 
 
+class Planes(NamedTuple):
+    """What the densify routes read of op(A) (``dense_planes``): its dense
+    values, its bf16 structural indicator (None when not asked for), and
+    whether its values are finite (a Python bool once read on the host, a
+    0-d bool tensor on the device before)."""
+
+    dense: torch.Tensor
+    indicator: object
+    finite: object
+
+
+class _StoredPlanes:
+    """A container's planes of the stored rows, for the values ``data``
+    held at ``version`` cast to ``dtype``."""
+
+    def __init__(self, data, dtype):
+        self.data, self.version, self.dtype = data, data._version, dtype
+        self.dense = self.indicator = self.finite = None
+
+    def holds(self, data, dtype):
+        return (self.data is data and self.version == data._version
+                and self.dtype == dtype)
+
+    def nbytes(self):
+        return sum(t.numel() * t.element_size()
+                   for t in (self.dense, self.indicator) if t is not None)
+
+
 class SparseDeviceMatrix:
     """Base class of the containers.
 
@@ -636,16 +668,80 @@ class SparseDeviceMatrix:
         (column-major), so no transposed layout is ever sorted."""
         from .ops.densify import csr_densify
 
-        stored_t = self._own_csr_transpose
-        if isinstance(self, BSR):
-            indptr, indices, data = self.csr_arrays()
-        else:
-            indptr, indices, data = self.indptr, self.indices, self.data
+        indptr, indices, data, shape = self._stored_csr()
         if dtype is not None:
             data = data.to(dtype)
-        dense = csr_densify(indptr, indices, data,
-                            self.shape[::-1] if stored_t else self.shape)
-        return dense.mT if stored_t != bool(transpose) else dense
+        return self._op_view(csr_densify(indptr, indices, data, shape),
+                             transpose)
+
+    def _stored_csr(self):
+        """(indptr, indices, data, shape) of the CSR that the container
+        stores: its own arrays (a CSC's are the rows of its transpose), a
+        BSR's element CSR."""
+        if isinstance(self, BSR):
+            return (*self.csr_arrays(), self.shape)
+        shape = self.shape[::-1] if self._own_csr_transpose else self.shape
+        return self.indptr, self.indices, self.data, shape
+
+    def _op_view(self, stored, transpose):
+        """op(A) of a dense tensor of the stored rows (``_stored_csr``)."""
+        if stored is None:
+            return None
+        return stored.mT if self._own_csr_transpose != bool(transpose) \
+            else stored
+
+    def dense_planes(self, transpose=False, dtype=None, indicator=True):
+        """``Planes`` of op(A) for the densify routes of ``ops/host``: its
+        dense values cast to ``dtype`` (``dense``), with ``indicator`` its
+        bf16 structural indicator (K12's indicator template,
+        ``ops.densify.csr_indicator``: 1.0 at every stored entry, explicit
+        zeros included), and the finite flag of its values.
+
+        The port of the JAX package's ``formats.dense_planes``: while
+        ``config.spgemm_plane_cache`` is on, the planes are kept on the
+        container, within ``config.spgemm_plane_cache_bytes``, and a later
+        call with the same values returns them without a launch (the
+        indicator is added to them when first asked for).  Values are
+        matched by ``data``'s identity and its ``_version``, so an in-place
+        change of ``data`` (or a new ``data``) builds them anew; tracked
+        values are never kept.  The planes are kept from the first use on:
+        the route densifies then anyway, and the scipy path's containers
+        live for one call, so they take their planes with them.  The flag is
+        a 0-d bool tensor on the device until a caller reads it and
+        records it (``note_finite``); then a Python bool, and the route
+        skips that read."""
+        from .config import config
+        from .ops.csr import tracked
+        from .ops.densify import csr_densify, csr_indicator
+
+        dtype = self.data.dtype if dtype is None else dtype
+        use_cache = config.spgemm_plane_cache and not tracked(self.data)
+        planes = self.__dict__.get("_planes") if use_cache else None
+        if planes is None or not planes.holds(self.data, dtype):
+            planes = _StoredPlanes(self.data, dtype)
+        indptr, indices, data, shape = self._stored_csr()
+        if planes.dense is None:
+            values = data.to(dtype)
+            planes.dense = csr_densify(indptr, indices, values, shape)
+            planes.finite = torch.isfinite(values.sum())
+        if indicator and planes.indicator is None:
+            planes.indicator = csr_indicator(indptr, indices, shape)
+        if use_cache:
+            if planes.nbytes() <= config.spgemm_plane_cache_bytes:
+                self._planes = planes
+            else:
+                self.__dict__.pop("_planes", None)
+        return Planes(self._op_view(planes.dense, transpose),
+                      self._op_view(planes.indicator, transpose),
+                      planes.finite)
+
+    def note_finite(self, dtype, finite):
+        """Record the host's reading of the finite flag of the values cast
+        to ``dtype`` in the kept planes, when they still hold these
+        values."""
+        planes = self.__dict__.get("_planes")
+        if planes is not None and planes.holds(self.data, dtype):
+            planes.finite = bool(finite)
 
     def csr_plan(self, transpose=False, spmv=False):
         """K2's ``CsrPlan`` (K3's with ``spmv``) of
@@ -696,7 +792,9 @@ class SparseDeviceMatrix:
     def _cached(self, key, build):
         """``build()``, once per key.  Layouts cache structure (index
         arrays, plans, permutations), never values: ``data`` may be
-        updated in place, and each call gathers it anew."""
+        updated in place, and each call gathers it anew.  The one cache of
+        values is ``dense_planes``', which keys on ``data``'s identity and
+        ``_version`` and so sees an in-place change."""
         cache = self.__dict__.setdefault("_layout_cache", {})
         if key not in cache:
             cache[key] = build()

@@ -12,8 +12,8 @@ enums) over this package's containers:
   converted or ordered CSR has each row's columns sorted, as the JAX
   package's are;
 * "destroy" empties the box, and raises on an empty one;
-* ``matmul_handles`` multiplies on K4 + K5 (``ops/host.spgemm_device``)
-  and keeps the product on the device.
+* ``matmul_handles`` multiplies on K4 + K5 or the structural densify
+  route (``ops/host.spgemm_device``) and keeps the product on the device.
 """
 
 from . import formats

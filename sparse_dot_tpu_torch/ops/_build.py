@@ -129,6 +129,14 @@ _PROTOTYPES = {
                                     _INT, _INT, _I64, _I64, _I64, _I64, _P),
     # dtype, itype, indptr, indices, data, out, m, k, rows_per_tile, stream
     "sdt_csr_densify": (_INT, _INT, _P, _P, _P, _P, _I64, _I64, _I64, _P),
+    # itype, indptr, indices, out, m, k, rows_per_tile, stream
+    "sdt_csr_indicator": (_INT, _P, _P, _P, _I64, _I64, _I64, _P),
+    # p, r, n, triangular, row0, starts, stream
+    "sdt_csr_compact_count": (_P, _I64, _I64, _INT, _I64, _P, _P),
+    # dtype, itype, c, p, r, n, triangular, row0, starts, indptr, indices,
+    # data, stream
+    "sdt_csr_compact_fill": (_INT, _INT, _P, _P, _I64, _I64, _INT, _I64, _P,
+                             _P, _P, _P, _P),
 }
 
 _lib = None
@@ -246,10 +254,15 @@ def type_codes(data, index):
     if data.dtype not in DTYPE_CODES:
         raise TypeError(f"kernels take float32/float64/complex64/"
                         f"complex128 values, not {data.dtype}")
+    return DTYPE_CODES[data.dtype], index_code(index)
+
+
+def index_code(index):
+    """The index code of the C interface; raises for other types."""
     if index.dtype not in ITYPE_CODES:
         raise TypeError(f"kernels take int32/int64 indices, not "
                         f"{index.dtype}")
-    return DTYPE_CODES[data.dtype], ITYPE_CODES[index.dtype]
+    return ITYPE_CODES[index.dtype]
 
 
 def scalar_parts(x):

@@ -17,6 +17,13 @@ time (``densify_plan``) and stored once, wider rows are zeroed in device
 memory and their entries added in L2.  The containers' ``dense()`` and
 ``to_dense()`` (``formats``) call it on a matrix's stored arrays, so the
 densify route of ``ops/host`` and the dense QR and LU solvers run on it.
+
+``csr_indicator(indptr, indices, shape)`` is K12's indicator template: bf16
+1.0 at every stored position (explicit zeros included, repeats once), no
+value read, the counterpart of ``_xla._indicator_sorted``.  The densify
+route of sparse-output products multiplies two of them into the
+structural count P (``ops/host``); ``csr_indicator.launches`` counts its
+launches apart from K12's values.
 """
 
 import torch
@@ -60,6 +67,16 @@ def csr_densify_plain(indptr, indices, data, shape):
                             accumulate=True)
 
 
+def _arguments(name, indptr, indices, data, shape):
+    """(m, k) of ``shape``; raises where the arrays do not fit it."""
+    m, k = (int(s) for s in shape)
+    if indptr.numel() != m + 1 or data.numel() != indices.numel():
+        raise ValueError(f"{name}: indptr of {indptr.numel()} and "
+                         f"{indices.numel()} indices, {data.numel()} values "
+                         f"do not fit {(m, k)}")
+    return m, k
+
+
 def csr_densify(indptr, indices, data, shape):
     """The (m, k) = ``shape`` dense matrix of CSR arrays (``indptr`` of
     m + 1, ``indices`` and ``data`` of nnz), row-major, as a new tensor:
@@ -69,11 +86,7 @@ def csr_densify(indptr, indices, data, shape):
     gradient."""
     refuse_views("csr_densify", indptr, indices, data)
     refuse_tracked("csr_densify", data)
-    m, k = (int(s) for s in shape)
-    if indptr.numel() != m + 1 or data.numel() != indices.numel():
-        raise ValueError(f"csr_densify: indptr of {indptr.numel()} and "
-                         f"{indices.numel()} indices, {data.numel()} values "
-                         f"do not fit {(m, k)}")
+    m, k = _arguments("csr_densify", indptr, indices, data, shape)
     if data.device.type == "cpu":
         return csr_densify_plain(indptr, indices, data, (m, k))
     if not data.is_cuda:
@@ -92,3 +105,41 @@ def csr_densify(indptr, indices, data, shape):
 
 
 csr_densify.launches = 0
+
+
+def csr_indicator_plain(indptr, indices, shape):
+    """The indicator template's plain version: bf16 zeros, 1.0 put at each
+    entry's (row, column)."""
+    rows = expand_indptr(indptr, indices.numel())
+    ind = torch.zeros(tuple(shape), dtype=torch.bfloat16,
+                      device=indices.device)
+    return ind.index_put_((rows.long(), indices.long()),
+                          torch.ones((), dtype=torch.bfloat16,
+                                     device=indices.device))
+
+
+def csr_indicator(indptr, indices, shape):
+    """The (m, k) = ``shape`` bf16 structural indicator of CSR arrays: 1.0
+    at every stored position, 0 elsewhere, row-major, as a new tensor: K12's
+    indicator template on the card, the plain version on the CPU.  Column
+    ids must lie in [0, k) (the kernel skips others)."""
+    refuse_views("csr_indicator", indptr, indices)
+    m, k = _arguments("csr_indicator", indptr, indices, indices, shape)
+    if indices.device.type == "cpu":
+        return csr_indicator_plain(indptr, indices, (m, k))
+    if not indices.is_cuda:
+        raise ValueError(f"csr_indicator: no kernel for device "
+                         f"{indices.device}")
+    _check("csr_indicator", (indptr, indices), (indices,))
+    out = torch.empty((m, k), dtype=torch.bfloat16, device=indices.device)
+    if m == 0 or k == 0:
+        return out
+    _build.launch("sdt_csr_indicator", _build.index_code(indptr),
+                  indptr.data_ptr(), indices.data_ptr(), out.data_ptr(), m, k,
+                  densify_plan(m, k, out.element_size()),
+                  _build.stream_of(indices))
+    csr_indicator.launches += 1
+    return out
+
+
+csr_indicator.launches = 0

@@ -2,14 +2,16 @@
 
 Port of ``sparse_dot_tpu/ops/sypr.py``, the working version of the
 reference's dead ``_sparse_sypr.py`` module.  The triple product chains
-two structural sparse products (``host.spgemm_sparse_arrays``, K4 + K5 on
-the card), so
+two structural sparse products (``host.spgemm_sparse_arrays``: K4 + K5
+on the card, or the structural densify route where its gate says so), so
 
 * the output pattern is the structural pattern product
   ``1[op(A)]·1[B]·1[A]`` with exactly-cancelled entries kept as explicit
   zeros, as in every other sparse product of the package,
-* no dense m×k or m×m intermediate is ever materialized: each product
-  builds one output row at a time in an accumulator sized to that row.
+* on K4 + K5 no dense m×k or m×m intermediate is materialized: each
+  product builds one output row at a time in an accumulator sized to
+  that row; the densify route is taken only where its dense operands
+  and product fit ``host.DENSE_CAP_BYTES``.
 """
 
 import numpy as np
