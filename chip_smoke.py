@@ -81,7 +81,9 @@ Phases, each printing one JSON line:
    (``check_k11_all``).  The batched launches (``check_batched``): K2,
    K7, K1 and K8 (each variant) with a batch of members that share the
    pattern, against their batched plain versions in every value type,
-   with shared and batched operands (``SPMM_COMBOS``, ``SDDMM_COMBOS``),
+   with shared and batched operands (``SPMM_COMBOS``, ``SDDMM_COMBOS``;
+   K7 with B shared on 2 and 4 members a group, with G shared also with
+   the roles swapped on A's transpose, every such count seen),
    alpha, beta and c0, members at odd strides (not on 16 bytes: the
    scalar path), K2 and K7 over a row past 3x K2's chunk and K1 over a
    split block row (each member with its own counts, partial rows and
@@ -109,9 +111,11 @@ Phases, each printing one JSON line:
    (``check_k13``) against its plain version in every value type and
    index width on ``K13_CASES`` (16-byte and scalar loads of P, a P one
    element into its buffer, ``triangular`` with and without a row offset,
-   empty and full rows, an exact zero of C kept, no position, no row) and
-   at case a with and without ``triangular``: equal indptr and indices,
-   the same bits of data, the exact launches, each call twice.  Then
+   empty and full rows, an exact zero of C kept, no position, rows of
+   300,000 columns in work items of 2 steps, no row) and at case a with
+   and without ``triangular``, each with P's masks kept in shared memory
+   and with none (P read again in the fill): equal indptr and indices,
+   the same bits of data, one launch a call, each call twice.  Then
    ``torch.autograd.gradcheck`` (reverse and forward mode) of
    ``ops.coo_spmm_raw``, ``coo_spmv``, ``csr_spmm``, the BSR device
    function ``ops.bsr_spmm`` (on both K1 variants), ``csr_spgemm_dense``
@@ -192,6 +196,9 @@ Phases, each printing one JSON line:
    COO, K2 at n = 1 on the 1M^2 matrix over 4 value sets (``CsrSpmv``'s
    ``vmap`` over the values) beside 4 K3 launches, K7 at config 1 over 4
    and 16 (G, B) pairs beside batched-CSR ``torch.sparse.sampled_addmm``,
+   K7 at config 1 over 16 G's with B shared and 16 B's with G shared
+   (``k7_batched_rows``: through ``CsrSddmm``, beside
+   ``sampled_addmm`` given the shared operand expanded into a copy),
    K1 and K8 at config 3 (bs 64, f64) and at the complex BSR over 4
    members, beside their rows' yardsticks made once a member; K6 at the
    demo X @ X.T over 4 and 16 value sets, K9 there in both forms over 4
@@ -1611,8 +1618,8 @@ def indicator_check(name, indptr, indices, shape, record):
 # P's offset in elements into its buffer): rows 3 (empty) and 5 (full)
 # in each; n = 45 (not a multiple of 32 or 8: the scalar path), 256 and
 # 1000 (16-byte loads), P one element into a buffer (scalar loads at n %
-# 8 == 0), row offsets, no position, n = 1, a row of 70,000 columns, no
-# row (no launch).
+# 8 == 0), row offsets, no position, n = 1, a row of 70,000 columns, rows
+# of 300,000 (work items of 2 steps, no masks kept), no row (no launch).
 K13_CASES = (
     ("n_45", 23, 45, 0.4, False, 0, 0),
     ("n_45_triangular_row0", 23, 45, 0.4, True, 7, 0),
@@ -1624,6 +1631,7 @@ K13_CASES = (
     ("none_positive", 40, 300, 0.0, False, 0, 0),
     ("n_1", 500, 1, 0.5, True, 0, 0),
     ("wide_70000", 6, 70_000, 0.02, False, 0, 0),
+    ("wide_300000", 3, 300_000, 0.01, True, 1000, 0),
     ("no_row", 0, 10, 0.5, False, 0, 0),
 )
 
@@ -1647,31 +1655,28 @@ def k13_operands(rng, r, n, share, npdt, offset):
 
 
 def k13_call(c, p, triangular, row0, itype):
-    """``csr_compact`` through its two wrappers, each launch counted:
-    (arrays, count launches, fill launches)."""
+    """``csr_compact`` through its wrapper, its launches counted: (arrays,
+    launches)."""
     from sparse_dot_tpu_torch.ops import compact
 
-    before = (compact.compact_count.launches, compact.compact_fill.launches)
+    before = compact.masked_compact.launches
     got = compact.csr_compact(c, p, triangular, row0, itype)
-    return (got, compact.compact_count.launches - before[0],
-            compact.compact_fill.launches - before[1])
+    return got, compact.masked_compact.launches - before
 
 
 def k13_check(name, c, p, triangular, row0, itype, record):
     """K13 against its plain version: equal indptr and indices, the same
-    bits of data (a gather), the launches (count: one unless P is empty;
-    fill: one unless the area holds no position), a second call the same
-    bits."""
+    bits of data (a gather), one launch (none where the area holds no
+    position), a second call the same bits."""
     from sparse_dot_tpu_torch.ops import compact
 
-    got, counted, filled = k13_call(c, p, triangular, row0, itype)
+    got, launched = k13_call(c, p, triangular, row0, itype)
     again = compact.csr_compact(c, p, triangular, row0, itype)
     want = compact.csr_compact_plain(c, p, triangular, row0, itype)
     torch.cuda.synchronize()
     nnz = int(want[0][-1])
-    if (counted, filled) != (int(p.numel() > 0), int(compact.area(
-            *p.shape, triangular, row0) > 0)):
-        raise AssertionError(f"K13 {name}: launches {(counted, filled)}")
+    if launched != int(compact.area(*p.shape, triangular, row0) > 0):
+        raise AssertionError(f"K13 {name}: launches {launched}")
     for g, a, w in zip(got, again, want):
         if g.dtype != w.dtype or not (same_bits(g, w) and same_bits(a, w)):
             raise AssertionError(f"K13 {name}: differs from its plain "
@@ -1680,30 +1685,78 @@ def k13_check(name, c, p, triangular, row0, itype, record):
     return nnz
 
 
+def graph_and_stream(c, p, record):
+    """K13 at case a captured in a CUDA graph and replayed twice (its
+    workspace, made in the capture, left 0 by each replay), and launched on
+    a second stream (its own workspace), each equal to the plain version
+    bit for bit."""
+    from sparse_dot_tpu_torch.ops import compact
+
+    want = compact.csr_compact_plain(c, p)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        *arrays, total = compact.masked_compact(c, p)
+    runs = []
+    for _ in range(2):
+        graph.replay()
+        runs.append(("graph replay", compact.cut(arrays, int(total),
+                                                 p.shape[1])))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        runs.append(("second stream", compact.csr_compact(c, p)))
+    torch.cuda.synchronize()
+    for name, got in runs:
+        if not all(same_bits(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"K13 {name}: differs from its plain "
+                                 "version")
+        record("K13_csr_compact", 0.0)
+
+
 def check_k13(record):
     """Phase 2 for K13: ``csr_compact`` on ``K13_CASES`` in every value type
     and index width, and at case a (the demo X @ X.T's C and P, with and
-    without ``triangular``); both load paths seen."""
+    without ``triangular``), each with P's masks staged in shared memory
+    and with none (``STAGE_BYTES`` 0: P read again in the fill); both load
+    paths of each seen."""
     from sparse_dot_tpu_torch import formats
 
+    from sparse_dot_tpu_torch.ops import compact
+
     rng = np.random.default_rng(SEED + 13)
-    paths = set()
-    for tdt, npdt in NP_DTYPES.items():
-        for itype in (torch.int32, torch.int64):
-            for name, r, n, share, tri, row0, offset in K13_CASES:
-                c, p = k13_operands(rng, r, n, share, npdt, offset)
-                k13_check(name, c, p, tri, row0, itype, record)
-                if r * n:
-                    paths.add(n % 8 == 0 and p.data_ptr() % 16 == 0)
-    planes = formats.to_device(demo_x()).dense_planes()
-    c = planes.dense @ planes.dense.mT
-    p = planes.indicator @ planes.indicator.mT
-    for tri in (False, True):
-        k13_check(f"case_a_triangular_{tri}", c, p, tri, 0, torch.int32,
-                  record)
-    if paths != {True, False}:
-        raise AssertionError(f"K13 took the load paths {paths}")
-    return {"vector_and_scalar_loads": True}
+    paths, steps_an_item = set(), set()
+    stage_bytes = compact.STAGE_BYTES
+    try:
+        # Every case twice: masks staged in shared memory where the plan
+        # says so, then with no stage, P read again in the fill.
+        for stage in (stage_bytes, 0):
+            compact.STAGE_BYTES = stage
+            for tdt, npdt in NP_DTYPES.items():
+                for itype in (torch.int32, torch.int64):
+                    for name, r, n, share, tri, row0, offset in K13_CASES:
+                        c, p = k13_operands(rng, r, n, share, npdt, offset)
+                        k13_check(f"{name}_stage_{stage}", c, p, tri, row0,
+                                  itype, record)
+                        if r * n:
+                            plan = compact.compact_plan(r, n)
+                            paths.add((n % 8 == 0 and p.data_ptr() % 16 == 0,
+                                       plan[2]))
+                            steps_an_item.add(plan[1])
+            planes = formats.to_device(demo_x()).dense_planes()
+            c = planes.dense @ planes.dense.mT
+            p = planes.indicator @ planes.indicator.mT
+            for tri in (False, True):
+                k13_check(f"case_a_triangular_{tri}_stage_{stage}", c, p,
+                          tri, 0, torch.int32, record)
+    finally:
+        compact.STAGE_BYTES = stage_bytes
+    graph_and_stream(c, p, record)
+    if len(paths) != 4 or len(steps_an_item) < 2:
+        raise AssertionError(f"K13 took the paths (16-byte loads, staged) "
+                             f"{sorted(paths)}, steps an item "
+                             f"{sorted(steps_an_item)}")
+    return {"loads_by_stage": sorted(paths),
+            "steps_an_item": sorted(steps_an_item)}
 
 
 BATCH = 5
@@ -1777,6 +1830,7 @@ def check_batched(record):
 
     rng = np.random.default_rng(SEED + 17)
     paths = {}
+    k7_shared = set()  # (operand shared, members a group) seen by K7
 
     def path(name, vec):
         paths.setdefault(name, set()).add(vec > 1)
@@ -1810,21 +1864,41 @@ def check_batched(record):
                                 *((t, csr.member_stride("", t, core))
                                   for t, core in ((b, 2), (c0, 2)))
                             )).vec)
+                transpose = formats.CsrPattern(ip, ix, k).transpose
                 for g_b, b_b in SDDMM_COMBOS:
                     for odd in (False, True):
                         g, b = member_operands(rng, npdt, ((m, n), (k, n)),
                                                (g_b, b_b), odd)
+                        strides = (csr.member_stride("", g, 2),
+                                   csr.member_stride("", b, 2))
+                        aligned = csr.aligned_members((g, strides[0]),
+                                                      (b, strides[1]))
                         for al in (None, alpha):
                             out = batched_call(sddmm.csr_sddmm, 1,
                                                sddmm.sddmm_batched, ip, ix,
                                                g, b, al)
-                            record("K7_csr_sddmm", compare(
-                                out, sddmm.csr_sddmm_batched_plain(
-                                    ip, ix, g, b, al), tdt))
+                            want = sddmm.csr_sddmm_batched_plain(
+                                ip, ix, g, b, al)
+                            record("K7_csr_sddmm", compare(out, want, tdt))
+                            if g_b:
+                                continue
+                            # G shared: the roles swapped on A's transpose
+                            # where b's members can share a launch group.
+                            out = batched_call(
+                                sddmm.csr_sddmm, 1, sddmm.sddmm_batched, ip,
+                                ix, g, b, al, transpose)
+                            record("K7_csr_sddmm", compare(out, want, tdt))
+                            swap = sddmm.batched_schedule(
+                                n, tdt, nnz, BATCH, (strides[1], 0),
+                                aligned, ix.element_size())[1]
+                            k7_shared.add(("g", swap))
+                        members = sddmm.batched_schedule(
+                            n, tdt, nnz, BATCH, strides, aligned,
+                            ix.element_size())[1]
+                        k7_shared.add(("b" if not b_b else "none",
+                                       members))
                         path("K7", sddmm.sddmm_schedule(
-                            n, tdt, nnz, csr.aligned_members(
-                                (g, csr.member_stride("", g, 2)),
-                                (b, csr.member_stride("", b, 2)))).vec)
+                            n, tdt, nnz, aligned).vec)
         for bs, nbrows, nbcols, per_row, empty_every, split in (
                 (8, 24, 20, 3, 5, True), (3, 30, 20, 3, 4, False),
                 (64, 8, 6, 1, 3, True)):
@@ -1866,10 +1940,14 @@ def check_batched(record):
         if paths.get(name) != want:
             raise AssertionError(f"batched {name} took only the "
                                  f"{paths.get(name)} 16-byte paths")
+    if not {("b", 2), ("b", 4), ("g", 2), ("g", 4), ("none", 1),
+            ("b", 1)} <= k7_shared:
+        raise AssertionError(f"batched K7 took only {sorted(k7_shared)}")
     spgemm_seen = check_batched_spgemm(record)
     check_big_batch(record)
-    return ({name: sorted(seen) for name, seen in paths.items()},
-            spgemm_seen)
+    paths = {name: sorted(seen) for name, seen in paths.items()}
+    paths["K7_shared_members"] = sorted(k7_shared)
+    return paths, spgemm_seen
 
 
 def check_big_batch(record):
@@ -1891,6 +1969,23 @@ def check_big_batch(record):
     out = batched_call(sddmm.csr_sddmm, 2, sddmm.sddmm_batched, ip, ix, g, b)
     record("K7_csr_sddmm", compare(out, sddmm.csr_sddmm_batched_plain(
         ip, ix, g, b), torch.float64))
+    # n = 8: B shared, 4 members a group; G shared, the roles swapped (on
+    # a generator of their own, so that the cases after keep their data).
+    rng8 = np.random.default_rng(SEED + 21)
+    g = cuda(values(rng8, (BIG_BATCH, 3, 8), np.float64))
+    b8 = cuda(values(rng8, (2, 8), np.float64))
+    out = batched_call(sddmm.csr_sddmm, 2, sddmm.sddmm_batched, ip, ix, g,
+                       b8)
+    record("K7_csr_sddmm", compare(out, sddmm.csr_sddmm_batched_plain(
+        ip, ix, g, b8), torch.float64))
+    from sparse_dot_tpu_torch import formats
+
+    bb = cuda(values(rng8, (BIG_BATCH, 2, 8), np.float64))
+    out = batched_call(sddmm.csr_sddmm, 2, sddmm.sddmm_batched, ip, ix,
+                       g[0], bb, None, formats.CsrPattern(ip, ix, 2).transpose)
+    record("K7_csr_sddmm", compare(out, sddmm.csr_sddmm_batched_plain(
+        ip, ix, g[0], bb), torch.float64))
+    del g, b8, bb
     for bs, npdt in ((8, np.float64), (3, np.complex128)):
         tdt = torch.from_numpy(np.zeros(0, npdt)).dtype
         indptr, indices, _ = random_bsr(rng, 2, 2, bs, 1, npdt)
@@ -2799,8 +2894,7 @@ ALL_PLAIN = {"spgemm": SPGEMM_PLAIN,
                              "csr_spgemm_sddmm_batched_plain",
                              "csr_spgemm_sparse_sddmm_batched_plain"),
              "densify": ("csr_densify_plain", "csr_indicator_plain"),
-             "compact": ("compact_count_plain", "compact_fill_plain",
-                         "csr_compact_plain")}
+             "compact": ("csr_compact_plain",)}
 
 
 class plain_versions_refused:
@@ -2837,8 +2931,7 @@ def reset_launches():
                spgemm.csr_spgemm_dense, sddmm.csr_sddmm, bsr.bsr_sddmm,
                spgemm_grad.csr_spgemm_sddmm,
                spgemm_grad.csr_spgemm_sparse_sddmm, densify.csr_densify,
-               densify.csr_indicator, compact.compact_count,
-               compact.compact_fill):
+               densify.csr_indicator, compact.masked_compact):
         fn.launches = 0
     bsr.bsr_spmm.launches_tc = bsr.bsr_spmm.launches_simt = 0
     bsr.bsr_sddmm.launches_tc = bsr.bsr_sddmm.launches_simt = 0
@@ -2890,8 +2983,7 @@ def read_launches():
             spgemm_grad.csr_spgemm_sparse_sddmm.launches,
         "K12_csr_densify": densify.csr_densify.launches,
         "K12_csr_indicator": densify.csr_indicator.launches,
-        "K13_csr_compact": (compact.compact_count.launches
-                            + compact.compact_fill.launches),
+        "K13_csr_compact": compact.masked_compact.launches,
     }
 
 
@@ -2946,8 +3038,8 @@ def spgemm_path():
     launches = read_launches()
     # The dense X @ X.T and its dense gram: K12 once each (X^T is X's
     # transpose view) where the gate sends them to the densify route, else
-    # K6.  The sparse-output products: K12, its indicator and K13's two
-    # launches each (one densify for a transpose view) where the gate sends
+    # K6.  The sparse-output products: K12, its indicator and K13's one
+    # launch each (one densify for a transpose view) where the gate sends
     # them to the structural densify route, else K4 + K5 (sypr's two
     # products of 50k rows, case c and case d always: their dense
     # intermediates pass the cap, or the dense product is slower).
@@ -2964,7 +3056,7 @@ def spgemm_path():
                     K5_csr_spgemm_fill=9 - routed,
                     K6_csr_spgemm_dense=2 - sum(dense_route),
                     K12_csr_densify=sum(dense_route) + routed,
-                    K12_csr_indicator=routed, K13_csr_compact=2 * routed)
+                    K12_csr_indicator=routed, K13_csr_compact=routed)
     if launches != expected:
         raise AssertionError(f"launch counts {launches}, expected {expected}")
     if r["a_x_xT_dense_out"] is not out:
@@ -3219,7 +3311,7 @@ def structural(a, b):
 def sparse_path(x, run, cases, rng):
     """Phase 3's sparse-output densify calls (``densify_path``), each alone
     with its exact launches: the demo X @ X.T and its gram (K12 once, its
-    indicator once, K13's two launches, no K4 or K5), their patterns
+    indicator once, K13 once, no K4 or K5), their patterns
     scipy's structural product (explicit zeros included), their values
     scipy's at decimal 6; X with inf and nan (the route up to its host
     read, then K4 + K5: scipy's inf and nan); dot_product(Xd, Xd.T) twice
@@ -3232,7 +3324,7 @@ def sparse_path(x, run, cases, rng):
                               True):
         raise AssertionError("the gate keeps the demo X @ X.T on K4 + K5")
     on_route = {"K12_csr_densify": 1, "K12_csr_indicator": 1,
-                "K13_csr_compact": 2}
+                "K13_csr_compact": 1}
     xxt, pattern = x @ x.T, structural(x, x.T)
 
     def check(name, res, ref, pat, decimal=6):
@@ -3258,7 +3350,7 @@ def sparse_path(x, run, cases, rng):
     ref = x_inf @ x_inf.T
     check("sparse_x_xT_nonfinite", run(
         "sparse_x_xT_nonfinite", lambda: sdt.dot_product(x_inf, x_inf.T),
-        {"K12_csr_densify": 1, "K12_csr_indicator": 1, "K13_csr_compact": 2,
+        {"K12_csr_densify": 1, "K12_csr_indicator": 1, "K13_csr_compact": 1,
          "K4_csr_spgemm_count": 1, "K5_csr_spgemm_fill": 1}, "K4+K5"),
         ref, pattern)
     if not np.isnan(ref.data).any() or not np.isinf(ref.data).any():
@@ -3269,7 +3361,7 @@ def sparse_path(x, run, cases, rng):
     check("sparse_container_first", first, xxt, pattern)
     check("sparse_container_repeat", run(
         "sparse_container_repeat", lambda: sdt.dot_product(xd, xd.T),
-        {"K13_csr_compact": 2}, "densify, kept planes"), xxt, pattern)
+        {"K13_csr_compact": 1}, "densify, kept planes"), xxt, pattern)
     nb = SIZES["complex"] // 16
     blocks = sps.random(nb, nb, density=0.5, format="csr", random_state=rng)
     a = sps.bsr_matrix((values(rng, (blocks.nnz, 16, 16), np.complex128,
@@ -3358,6 +3450,12 @@ CUDA_CORE_FLOPS = {torch.float32: 67e12, torch.complex64: 67e12,
 TENSOR_CORE_FLOPS = {torch.float64: 67e12, torch.float32: 495e12 / 3}
 
 
+def peak_flops(dtype):
+    """The card's highest FLOP/s for ``dtype``, on whichever units reach
+    it: the least time of a kernel's operations, whatever units it uses."""
+    return max(CUDA_CORE_FLOPS[dtype], TENSOR_CORE_FLOPS.get(dtype, 0.0))
+
+
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
@@ -3384,7 +3482,7 @@ def csr_bound(indptr, indices, data, b, c0=None):
     moved = (nbytes(indptr, indices, data, c0) + rows * n * b.element_size()
              + out)
     flop = flops_per_product(b.dtype) * indices.numel() * n
-    return bound(moved, flop, CUDA_CORE_FLOPS[b.dtype])
+    return bound(moved, flop, peak_flops(b.dtype))
 
 
 def sddmm_bound(indptr, indices, g, b):
@@ -3395,7 +3493,7 @@ def sddmm_bound(indptr, indices, g, b):
     moved = (nbytes(indptr, indices, g) + rows * n * b.element_size()
              + indices.numel() * g.element_size())
     flop = flops_per_product(g.dtype) * indices.numel() * n
-    return bound(moved, flop, CUDA_CORE_FLOPS[g.dtype])
+    return bound(moved, flop, peak_flops(g.dtype))
 
 
 def sddmm_library(indptr, indices, g, b, shape):
@@ -3424,7 +3522,7 @@ def bsr_bound(indptr, indices, data, b, c0=None):
     moved = (nbytes(indptr, indices, data, c0)
              + panels * bs * n * b.element_size() + out)
     flop = flops_per_product(b.dtype) * nblocks * bs * bs * n
-    peak = TENSOR_CORE_FLOPS.get(b.dtype) or CUDA_CORE_FLOPS[b.dtype]
+    peak = peak_flops(b.dtype)
     return bound(moved, flop, peak)
 
 
@@ -3680,7 +3778,7 @@ def k8_bound(indptr, indices, g, b, bs):
              + (g_rows + panels) * bs * n * g.element_size()
              + nblocks * bs * bs * g.element_size())
     flop = flops_per_product(g.dtype) * nblocks * bs * bs * n
-    peak = TENSOR_CORE_FLOPS.get(g.dtype) or CUDA_CORE_FLOPS[g.dtype]
+    peak = peak_flops(g.dtype)
     return bound(moved, flop, peak)
 
 
@@ -3771,7 +3869,7 @@ def csr_batched_bound(indptr, indices, data, b, size):
              + members_of(b, 2) * rows * n * b.element_size()
              + size * (indptr.numel() - 1) * n * b.element_size())
     flop = size * flops_per_product(b.dtype) * indices.numel() * n
-    return bound(moved, flop, CUDA_CORE_FLOPS[b.dtype])
+    return bound(moved, flop, peak_flops(b.dtype))
 
 
 def sddmm_batched_bound(indptr, indices, g, b, size):
@@ -3782,7 +3880,7 @@ def sddmm_batched_bound(indptr, indices, g, b, size):
              + members_of(b, 2) * rows * n * b.element_size()
              + size * indices.numel() * g.element_size())
     flop = size * flops_per_product(g.dtype) * indices.numel() * n
-    return bound(moved, flop, CUDA_CORE_FLOPS[g.dtype])
+    return bound(moved, flop, peak_flops(g.dtype))
 
 
 def bsr_batched_bound(indptr, indices, data, b, size):
@@ -3794,7 +3892,7 @@ def bsr_batched_bound(indptr, indices, data, b, size):
              + members_of(b, 2) * panels * bs * n * b.element_size()
              + size * (indptr.numel() - 1) * bs * n * b.element_size())
     flop = size * flops_per_product(b.dtype) * nblocks * bs * bs * n
-    peak = TENSOR_CORE_FLOPS.get(b.dtype) or CUDA_CORE_FLOPS[b.dtype]
+    peak = peak_flops(b.dtype)
     return bound(moved, flop, peak)
 
 
@@ -3808,7 +3906,7 @@ def k8_batched_bound(indptr, indices, g, b, bs, size):
              * bs * n * g.element_size()
              + size * nblocks * bs * bs * g.element_size())
     flop = size * flops_per_product(g.dtype) * nblocks * bs * bs * n
-    peak = TENSOR_CORE_FLOPS.get(g.dtype) or CUDA_CORE_FLOPS[g.dtype]
+    peak = peak_flops(g.dtype)
     return bound(moved, flop, peak)
 
 
@@ -3850,21 +3948,89 @@ def batched_sddmm_library(indptr, indices, g, b, shape):
     return library_call(make)
 
 
+def k7_batched_rows(rows, inputs, rng):
+    """Batched K7's phase-4 rows at config 1 (f64, n = 128), each beside
+    the same members' single launches in the same turns: 4 and 16 (G, B)
+    pairs (the per-sample gradients' launch) beside batched-CSR
+    ``torch.sparse.sampled_addmm``; 16 G's with B shared (jacrev's
+    cotangents) and 16 B's with G shared (a batched tangent), each through
+    ``CsrSddmm`` as the ``vmap`` rules call it, beside ``sampled_addmm``
+    given the shared operand expanded into a copy."""
+    from sparse_dot_tpu_torch import formats
+    from sparse_dot_tpu_torch.ops import autograd, sddmm
+
+    n1 = SIZES["config1"]
+    A1 = formats.to_device(inputs["a1"])
+    ip, ix, _ = A1.csr_arrays()
+    pattern = formats.CsrPattern(ip, ix, n1)
+    nnz = ix.numel()
+    for size in (4, 16):
+        g = cuda(values(rng, (size, n1, 128), np.float64))
+        bb = cuda(values(rng, (size, n1, 128), np.float64))
+        rows.append(timed_row(
+            "K7_csr_sddmm",
+            f"batched: config1 CSR f64 {n1}x{n1} 1%, {size} (G, B) pairs "
+            f"of ({n1},128)",
+            lambda: sddmm.sddmm_batched(ip, ix, g, bb),
+            lambda: sddmm.csr_sddmm_batched_plain(ip, ix, g, bb),
+            sddmm_batched_bound(ip, ix, g, bb, size),
+            batched_sddmm_library(ip, ix, g, bb, A1.shape),
+            beside={f"{size}_single_launches": lambda: [
+                sddmm.csr_sddmm(ip, ix, g[i], bb[i]) for i in range(size)]},
+            members=size,
+            schedule=list(sddmm.sddmm_schedule(128, g.dtype,
+                                               size * nnz))))
+        if size == 16:
+            break
+        del g, bb
+    b0, g0 = bb[0], g[0]
+    for label, gs, bs, shared in (("16 G's of (10000,128), B shared", g, b0,
+                                   "b"),
+                                  ("16 B's of (10000,128), G shared", g0,
+                                   bb, "g")):
+        copied = (bs.expand(16, -1, -1).contiguous() if shared == "b"
+                  else bs)
+        g_lib = (gs.expand(16, -1, -1).contiguous() if shared == "g"
+                 else gs)
+        row = timed_row(
+            "K7_csr_sddmm",
+            f"batched: config1 CSR f64 {n1}x{n1} 1%, {label}",
+            lambda gs=gs, bs=bs: autograd.CsrSddmm.apply(pattern, gs, bs,
+                                                         None),
+            lambda gs=gs, bs=bs: sddmm.csr_sddmm_batched_plain(ip, ix, gs,
+                                                               bs),
+            sddmm_batched_bound(ip, ix, gs, bs, 16),
+            batched_sddmm_library(ip, ix, g_lib, copied, A1.shape),
+            beside={"16_single_launches": (
+                lambda: [sddmm.csr_sddmm(ip, ix, g[i], b0)
+                         for i in range(16)]) if shared == "b" else (
+                lambda: [sddmm.csr_sddmm(ip, ix, g0, bb[i])
+                         for i in range(16)])},
+            members=16, shared=shared)
+        # The schedule of the launch: G shared runs on A's transpose with
+        # the roles swapped, so B is the operand shared there.
+        s, members = sddmm.batched_schedule(128, g.dtype, nnz, 16,
+                                            (n1 * 128, 0))
+        row["schedule"], row["members_a_group"] = list(s), members
+        rows.append(row)
+        del copied, g_lib
+    del g, bb
+
+
 def batched_rows(rows, inputs, rng):
     """Phase 4's rows of the batched launches, each beside the same
     members' single launches (one a member) in the same turns: K2 at
     config 1 (f64, n = 128) over 4 and 16 value sets with b shared,
     beside ``torch.bmm`` of a batched sparse COO; K2 at n = 1 on the 1M^2
     SpMV matrix over 4 value sets (``CsrSpmv``'s vmap over the values),
-    beside 4 K3 launches; K7 at config 1 over 4 and 16 (G, B) pairs (the
-    per-sample gradients' launch), beside batched-CSR
-    ``torch.sparse.sampled_addmm``; K1 and K8 at config 3 (bs 64, f64, n
+    beside 4 K3 launches; K7's (``k7_batched_rows``); K1 and K8 at
+    config 3 (bs 64, f64, n
     = 256) over 4 block sets (K8: 4 G's, B shared) and at the complex BSR
     (c128, bs 16, n = 64, the CUDA cores), each beside its existing
     row's yardstick made once a member (K1: ``torch.sparse.mm`` of a
     sparse BSR, K8: ``torch.bmm`` of the strips gathered beforehand)."""
     from sparse_dot_tpu_torch import formats
-    from sparse_dot_tpu_torch.ops import bsr, csr, sddmm
+    from sparse_dot_tpu_torch.ops import bsr, csr
 
     n1, n3, nc = SIZES["config1"], SIZES["config3"], SIZES["complex"]
     nv = SIZES["spmv"]
@@ -3886,22 +4052,8 @@ def batched_rows(rows, inputs, rng):
                 csr.csr_spmm(ip, ix, data[i], b1, plan=plan)
                 for i in range(size)]},
             members=size))
-        g = cuda(values(rng, (size, n1, 128), np.float64))
-        bb = cuda(values(rng, (size, n1, 128), np.float64))
-        rows.append(timed_row(
-            "K7_csr_sddmm",
-            f"batched: config1 CSR f64 {n1}x{n1} 1%, {size} (G, B) pairs "
-            f"of ({n1},128)",
-            lambda: sddmm.sddmm_batched(ip, ix, g, bb),
-            lambda: sddmm.csr_sddmm_batched_plain(ip, ix, g, bb),
-            sddmm_batched_bound(ip, ix, g, bb, size),
-            batched_sddmm_library(ip, ix, g, bb, A1.shape),
-            beside={f"{size}_single_launches": lambda: [
-                sddmm.csr_sddmm(ip, ix, g[i], bb[i]) for i in range(size)]},
-            members=size,
-            schedule=list(sddmm.sddmm_schedule(128, g.dtype,
-                                               size * ix.numel()))))
-        del data, g, bb
+        del data
+    k7_batched_rows(rows, inputs, rng)
     Av = formats.to_device(inputs["av"])
     vp, vx, _ = Av.csr_arrays()
     x = cuda(inputs["xv"])
@@ -4002,7 +4154,7 @@ def k9_bound(ip, ix, d, y_ip, y_ix, y_dv, transposed):
              + y_entries * (y_ix.element_size() + y_dv.element_size())
              + ix.numel() * d.element_size())
     flop = flops_per_product(d.dtype) * products
-    return bound(moved, flop, CUDA_CORE_FLOPS[d.dtype]), products
+    return bound(moved, flop, peak_flops(d.dtype)), products
 
 
 def k9_yardstick(p_arrays, d, y_arrays, shapes, transposed):
@@ -4101,7 +4253,7 @@ def k11_bound(a, b, c, g, transposed):
     moved = (nbytes(p[0], p[1], *y, *c, g)
              + p[1].numel() * g.element_size())
     flop = flops_per_product(g.dtype) * products
-    return bound(moved, flop, CUDA_CORE_FLOPS[g.dtype]), products
+    return bound(moved, flop, peak_flops(g.dtype)), products
 
 
 def k11_yardsticks(a, b, c, g, shapes, transposed):
@@ -4318,7 +4470,7 @@ def spgemm_timings(inp):
         b_index = int(b_len.sum()) * bix.element_size() \
             + 2 * named.numel() * bip.element_size()
         flop = flops_per_product(dv.dtype) * products
-        peak = CUDA_CORE_FLOPS[dv.dtype]
+        peak = peak_flops(dv.dtype)
         out_sparse = (len(whole[0]) * ip.element_size()
                       + nnz * (ix.element_size() + dv.element_size()))
         bounds = {
@@ -4434,7 +4586,7 @@ def k6_bound(args, triangular):
              + 2 * named * bip.element_size()
              + (ip.numel() - 1) * n * dv.element_size())
     flop = flops_per_product(dv.dtype) * products
-    return bound(moved, flop, CUDA_CORE_FLOPS[dv.dtype]), products
+    return bound(moved, flop, peak_flops(dv.dtype)), products
 
 
 def densify_matmul(args, shape_a, triangular):
@@ -4609,7 +4761,7 @@ def k12_rows(inputs, solver_inp):
     return rows
 
 
-def k13_rows():
+def k13_rows(device_match="compact"):
     """K13's rows at the main path's shapes: the demo X @ X.T's C and P
     (case a; with ``triangular``, the gram's) and the c128 gram X^T X of
     BASELINE config 4's X (5000^2, ``triangular``), each beside the
@@ -4618,7 +4770,9 @@ def k13_rows():
     once (its upper triangle with ``triangular``), C's entries at the mask
     read, the CSR written.  Then K12's indicator template on the demo X and
     on config 1's A, beside the design it replaced (K12 on ones in f32,
-    cast to bf16) in the same turns."""
+    cast to bf16) in the same turns.  K13's rows carry ``device_ms``: the
+    device time of the call's kernels (those whose names hold
+    ``device_match``) from a profiler trace."""
     from sparse_dot_tpu_torch import formats
     from sparse_dot_tpu_torch.ops import compact, densify
 
@@ -4633,8 +4787,7 @@ def k13_rows():
         a, ia = (planes.dense.mT, planes.indicator.mT) if ata else \
             (planes.dense, planes.indicator)
         c, p = a @ a.mT, ia @ ia.mT
-        starts = compact.compact_count(p, tri)
-        nnz, r = int(starts[-1]), p.shape[0]
+        nnz, r = compact.csr_compact(c, p, tri)[1].numel(), p.shape[0]
         read = (r * (r + 1) // 2 if tri else r * r) * p.element_size()
         moved = (read + nnz * c.element_size() + (r + 1) * 4
                  + nnz * (4 + c.element_size()))
@@ -4653,7 +4806,8 @@ def k13_rows():
             bound(moved, 0, 1.0),
             (None, "none: no single torch call keeps a mask's explicit "
                    "zeros"),
-            yardstick=yardstick(), nnz=nnz, triangular=tri))
+            yardstick=yardstick(), nnz=nnz, triangular=tri,
+            device_match=device_match))
         del planes, a, ia, c, p
         torch.cuda.empty_cache()
     rng = np.random.default_rng(SEED + 14)
@@ -4944,7 +5098,7 @@ def sparse_sweep(gen):
                       products_estimate=products,
                       entries_estimate=-m * n * math.expm1(-products
                                                            / (m * n)),
-                      c_nnz=int(compact.compact_count(p, tri)[-1]),
+                      c_nnz=int(compact.masked_compact(c, p, tri)[3]),
                       **extra)
         points.append(result)
         A.__dict__.pop("_planes", None)
@@ -5278,7 +5432,7 @@ def k6_batched_bound(args, size):
              + 2 * named * bip.element_size()
              + size * (ip.numel() - 1) * n * dv.element_size())
     flop = size * flops_per_product(dv.dtype) * products
-    return bound(moved, flop, CUDA_CORE_FLOPS[dv.dtype])
+    return bound(moved, flop, peak_flops(dv.dtype))
 
 
 def k9_batched_bound(args, size):
@@ -5298,7 +5452,7 @@ def k9_batched_bound(args, size):
                             + members_of(y_dv, 1) * y_dv.element_size())
              + size * ix.numel() * d.element_size())
     flop = size * flops_per_product(d.dtype) * products
-    return bound(moved, flop, CUDA_CORE_FLOPS[d.dtype])
+    return bound(moved, flop, peak_flops(d.dtype))
 
 
 def k11_batched_bound(a, b, c, g, transposed, size):
@@ -5310,7 +5464,7 @@ def k11_batched_bound(a, b, c, g, transposed, size):
              * g.shape[-1] * g.element_size()
              + size * p[1].numel() * g.element_size())
     flop = size * flops_per_product(g.dtype) * products
-    return bound(moved, flop, CUDA_CORE_FLOPS[g.dtype])
+    return bound(moved, flop, peak_flops(g.dtype))
 
 
 def batched_spgemm_rows(inp):
@@ -5438,7 +5592,7 @@ def batched_spgemm_rows(inp):
                 lambda: spgemm.fill_batched(*fill_args, plan, c[0], nnz,
                                             bin_sizes=sizes)[1],
                 lambda: spgemm.csr_spgemm_fill_batched_plain(*fill_args)[1],
-                bound(moved, flop, CUDA_CORE_FLOPS[dv.dtype]),
+                bound(moved, flop, peak_flops(dv.dtype)),
                 beside={"4_single_launches": lambda: [
                     spgemm.csr_spgemm_fill(ip, ix, av[i], bip, bix, bdv, n,
                                            plan, c[0], nnz,

@@ -70,7 +70,25 @@
 // batches G alone, per-sample gradients G and B, a batched tangent B
 // alone).  The wrapper sizes the spans over all members' entries
 // (sddmm_schedule).  A single product is the instance with BATCH false,
-// whose code has no member offsets.
+// whose code has no member offsets.  Blocks are scheduled as SMs free
+// up, so a last wave that is part full costs little: spans sized to fill
+// whole waves measured 1% slower at 16 members of config 1 (PERF.md).
+//
+// Where B is shared (stride 0) and G is not, the gather of B's rows, the
+// kernel's dominant traffic, serves M members at once
+// (csr_sddmm_shared_kernel): blockIdx.y is a group of M consecutive
+// members, each lane keeps the M members' strips of G's row in registers,
+// and each entry's B strip, loaded once, meets all M of them.  A round
+// then takes E' = max(1, E / M) entries: its M * E' sums go through one
+// reduce-scatter, whose lanes each end with one member's total of one
+// entry.  M (2 or 4) is the wrapper's choice (ops/sddmm.py,
+// shared_members): the most that one reduce-scatter holds, 4 wherever
+// the lanes allow, though the registers then spill (60 bytes a lane at
+// f64 n = 128), since the spill costs less than a second gather of B;
+// 2 for c128 with 64-bit indices, where 4 timed slower (PERF.md).  Where
+// no M fits, the per-member kernel runs.  A batched tangent, G shared and
+// B not, reaches this kernel through A's transpose (ops/sddmm.py,
+// sddmm_batched).
 #include <cstring>
 #include <type_traits>
 
@@ -361,6 +379,143 @@ csr_sddmm_span_kernel(const I* __restrict__ indptr,
 
 #undef SDT_K7_TO_MEMBER
 
+// Entries a round of the shared kernel: round_entries' count split over
+// the M members, at least 1.  ops/sddmm.py (shared_round) mirrors it.
+constexpr int shared_round(int lanes, int bytes, int members) {
+  const int e = round_entries(lanes, bytes) / members;
+  return e > 1 ? e : 1;
+}
+
+// The span kernel for M members with B shared (see the top): member group
+// blockIdx.y takes members M * blockIdx.y onward, `batch` in all; G and
+// the output advance by their member strides, B does not move.  A lane's
+// registers hold M strips of G (M * PER * V values), E rounds' B pieces
+// and M * E sums.  The rest is the span kernel's: rounds pipelined the
+// same way, one lane writes each output, no atomics.
+template <typename T, typename I, int L, int V, int PER, int E, int M>
+__global__ void __launch_bounds__(kThreads, kSpanBlocks)
+csr_sddmm_shared_kernel(const I* __restrict__ indptr,
+                        const I* __restrict__ indices,
+                        const T* __restrict__ g, const T* __restrict__ b,
+                        T* out, int64_t m, int64_t n, int64_t nnz,
+                        int64_t span, T alpha, bool scale, int64_t batch,
+                        int64_t s_g, int64_t s_out) {
+  using A = Arith<T>;
+  using P = std::conditional_t<sizeof(I) == 4, int32_t, int64_t>;
+  constexpr int kPerBlock = kThreads / L;
+  constexpr int kStrip = PER * L * V;
+  constexpr int kSums = E * M;
+  const int64_t first = static_cast<int64_t>(blockIdx.y) * M;
+  const int count = batch - first < M ? static_cast<int>(batch - first) : M;
+  g += first * s_g;
+  out += first * s_out;
+  const int gl = static_cast<int>(threadIdx.x) % L;
+  const unsigned members =
+      L == 32 ? kFullMask
+              : ((1u << L) - 1u) << ((threadIdx.x & 31) & ~(L - 1));
+  const int64_t start =
+      (static_cast<int64_t>(blockIdx.x) * kPerBlock + threadIdx.x / L) *
+      span;
+  if (start >= nnz) return;  // the whole group
+  const P p0 = static_cast<P>(start);
+  const P p1 = static_cast<P>(start + span < nnz ? start + span : nnz);
+  // The sum this lane holds after the reduce-scatter: sums are laid out
+  // member-major, sum[k * E + e].
+  const int mine = entry_of<L, kSums>(gl);
+  const int mine_k = mine / E;
+  const int mine_e = mine % E;
+  const bool writer = (gl & (L / kSums - 1)) == 0 && mine_k < count;
+  T* const my_out = out + mine_k * s_out;
+  auto index_at = [&](P p, int k) {
+    return k < p1 - p ? indices[p + k] : I(0);
+  };
+
+  const int nn = static_cast<int>(n);
+  Vec<T, V> bv[E][PER];
+  I next[E];
+  auto load_b = [&](const I (&cols)[E], int c) {
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const T* __restrict__ brow = b + static_cast<int64_t>(cols[e]) * n + c;
+#pragma unroll
+      for (int s = 0; s < PER; ++s) {
+        if (c + s * L * V < nn) bv[e][s] = load_vec<T, V>(brow + s * L * V);
+      }
+    }
+  };
+#pragma unroll
+  for (int e = 0; e < E; ++e) next[e] = index_at(p0, e);
+  load_b(next, gl * V);
+  const P first_row =
+      static_cast<P>(row_of_group<I, L>(indptr, m, start, gl, members));
+  for (int s0 = 0; s0 < nn; s0 += kStrip) {
+    const int c = s0 + gl * V;
+    P row = first_row;
+    P row_end = static_cast<P>(indptr[row + 1]);
+    Vec<T, V> gv[M][PER];
+    // Members past the batch read member 0's row and write nothing.
+    auto load_g = [&]() {
+#pragma unroll
+      for (int k = 0; k < M; ++k) {
+        const T* __restrict__ grow =
+            g + (k < count ? k : 0) * s_g + static_cast<int64_t>(row) * n + c;
+#pragma unroll
+        for (int s = 0; s < PER; ++s) {
+          if (c + s * L * V < nn) gv[k][s] = load_vec<T, V>(grow + s * L * V);
+        }
+      }
+    };
+    load_g();
+    if (s0 > 0) {
+#pragma unroll
+      for (int e = 0; e < E; ++e) next[e] = index_at(p0, e);
+      load_b(next, c);
+    }
+#pragma unroll
+    for (int e = 0; e < E; ++e) next[e] = index_at(p0, E + e);
+    for (P p = p0;; p += E) {
+      T sum[kSums];
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+#pragma unroll
+        for (int k = 0; k < M; ++k) sum[k * E + e] = A::zero();
+        if (e >= p1 - p) continue;  // the whole group
+        if (p + e >= row_end) {  // the span enters a later row
+          row = static_cast<P>(row_from(indptr, m, p + e, row));
+          row_end = static_cast<P>(indptr[row + 1]);
+          load_g();
+        }
+#pragma unroll
+        for (int s = 0; s < PER; ++s) {
+          if (c + s * L * V >= nn) continue;
+#pragma unroll
+          for (int v = 0; v < V; ++v) {
+            const T bc = conj_of(bv[e][s].v[v]);
+#pragma unroll
+            for (int k = 0; k < M; ++k) {
+              sum[k * E + e] = A::fma(gv[k][s].v[v], bc, sum[k * E + e]);
+            }
+          }
+        }
+      }
+      const bool more = E < p1 - p;
+      if (more) {
+        load_b(next, c);
+#pragma unroll
+        for (int e = 0; e < E; ++e) next[e] = index_at(p, 2 * E + e);
+      }
+      const T total = reduce_scatter<T, L, kSums>(sum, gl, members);
+      if (writer && mine_e < p1 - p) {
+        const P q = p + mine_e;
+        T v = s0 == 0 ? total : A::add(my_out[q], total);
+        if (s0 + kStrip >= nn && scale) v = A::mul(alpha, v);
+        my_out[q] = v;
+      }
+      if (!more) break;
+    }
+  }
+}
+
 template <typename T, typename I, int V, bool BATCH>
 cudaError_t launch_entries(const void* indptr, const void* indices,
                            const void* g, const void* b, void* out,
@@ -398,15 +553,55 @@ cudaError_t launch_span_kernel(const void* indptr, const void* indices,
   return cudaGetLastError();
 }
 
-// One member (BATCH false) or a batch.
+// M members a group with B shared (csr_sddmm_shared_kernel): member
+// groups on grid.y.
+template <typename T, typename I, int L, int V, int PER, int M>
+cudaError_t launch_shared(const void* indptr, const void* indices,
+                          const void* g, const void* b, void* out, int64_t m,
+                          int64_t n, int64_t nnz, int round_len,
+                          int64_t span, T alpha, bool scale, int64_t batch,
+                          Strides st, cudaStream_t stream) {
+  constexpr int E =
+      shared_round(L, PER * V * static_cast<int>(sizeof(T)), M);
+  if constexpr (E * M > L) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (round_len != E || st.b != 0) {
+      return cudaErrorInvalidValue;
+    }
+    const int64_t groups = (nnz + span - 1) / span;
+    const int64_t blocks = (groups + kThreads / L - 1) / (kThreads / L);
+    const dim3 grid(static_cast<unsigned>(blocks),
+                    static_cast<unsigned>((batch + M - 1) / M));
+    csr_sddmm_shared_kernel<T, I, L, V, PER, E, M>
+        <<<grid, kThreads, 0, stream>>>(
+            static_cast<const I*>(indptr), static_cast<const I*>(indices),
+            static_cast<const T*>(g), static_cast<const T*>(b),
+            static_cast<T*>(out), m, n, nnz, span, alpha, scale, batch, st.g,
+            st.out);
+    return cudaGetLastError();
+  }
+}
+
+// One member (BATCH false), a batch, or a batch M members a group with B
+// shared (`shared` == M, 2 or 4).
 template <typename T, typename I, int L, int V, int PER>
 cudaError_t launch_spans(const void* indptr, const void* indices,
                          const void* g, const void* b, void* out, int64_t m,
                          int64_t n, int64_t nnz, int round_len,
                          int64_t span, T alpha, bool scale, int64_t batch,
-                         Strides st, cudaStream_t stream) {
+                         Strides st, int shared, cudaStream_t stream) {
+  if (shared == 2 || shared == 4) {
+    return shared == 2
+               ? launch_shared<T, I, L, V, PER, 2>(
+                     indptr, indices, g, b, out, m, n, nnz, round_len, span,
+                     alpha, scale, batch, st, stream)
+               : launch_shared<T, I, L, V, PER, 4>(
+                     indptr, indices, g, b, out, m, n, nnz, round_len, span,
+                     alpha, scale, batch, st, stream);
+  }
   constexpr int E = round_entries(L, PER * V * static_cast<int>(sizeof(T)));
-  if (round_len != E) return cudaErrorInvalidValue;
+  if (round_len != E || shared != 1) return cudaErrorInvalidValue;
   if (batch == 1) {
     return launch_span_kernel<T, I, L, V, PER, false>(
         indptr, indices, g, b, out, m, n, nnz, span, alpha, scale, batch, st,
@@ -423,7 +618,7 @@ cudaError_t launch(const void* indptr, const void* indices, const void* g,
                    int64_t nnz, int vec, int lanes, int per_lane,
                    int round_len, int64_t span, double alpha_re, double alpha_im,
                    int64_t batch, int64_t s_g, int64_t s_b, int64_t s_out,
-                   cudaStream_t stream) {
+                   int shared, cudaStream_t stream) {
   constexpr int kVec = static_cast<int>(16 / sizeof(T));
   if (m <= 0 || n <= 0 || nnz <= 0 || span <= 0 || batch < 1 ||
       batch > kMaxMembers || s_g < 0 || s_b < 0 || s_out < 0) {
@@ -438,7 +633,7 @@ cudaError_t launch(const void* indptr, const void* indices, const void* g,
   const bool scale = !is_one(alpha_re, alpha_im);
   const Strides st{s_g, s_b, s_out};
   if (lanes == 1) {
-    if (round_len != 1 || span != 32 * kPerThread) {
+    if (round_len != 1 || span != 32 * kPerThread || shared != 1) {
       return cudaErrorInvalidValue;
     }
 #define SDT_K7_ENTRY(V)                                                     \
@@ -458,7 +653,7 @@ cudaError_t launch(const void* indptr, const void* indices, const void* g,
   // (ops/csr.spmm_schedule).
 #define SDT_K7_ARGS \
   indptr, indices, g, b, out, m, n, nnz, round_len, span, alpha, scale, \
-      batch, st, stream
+      batch, st, shared, stream
 #define SDT_K7_LANES(V)                                                    \
   switch (lanes) {                                                         \
     case 2: return launch_spans<T, I, 2, V, 1>(SDT_K7_ARGS);               \
@@ -485,14 +680,17 @@ cudaError_t launch(const void* indptr, const void* indices, const void* g,
 
 // batch members (at most kMaxMembers, grid.y's limit), each operand at
 // its member stride in elements (0: shared); batch 1 is one product.
+// shared: 1, or the members a group serves at once with B shared (2, 4).
 extern "C" int sdt_csr_sddmm(int dtype, int itype, const void* indptr,
                              const void* indices, const void* g,
                              const void* b, void* out, int64_t m, int64_t n,
                              int64_t nnz, int vec, int lanes, int per_lane,
                              int round_len, int64_t span, double alpha_re,
                              double alpha_im, int64_t batch, int64_t s_g,
-                             int64_t s_b, int64_t s_out, void* stream) {
+                             int64_t s_b, int64_t s_out, int shared,
+                             void* stream) {
   SDT_DISPATCH(dtype, itype, sdt::launch, indptr, indices, g, b, out, m, n,
                nnz, vec, lanes, per_lane, round_len, span, alpha_re, alpha_im,
-               batch, s_g, s_b, s_out, static_cast<cudaStream_t>(stream))
+               batch, s_g, s_b, s_out, shared,
+               static_cast<cudaStream_t>(stream))
 }

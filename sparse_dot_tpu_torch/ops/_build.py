@@ -93,10 +93,10 @@ _PROTOTYPES = {
                             _I64, _I64, _I64, _INT, _P),
     # dtype, itype, indptr, indices, g, b, out, m, n, nnz, vec, lanes,
     # per_lane, round, span, alpha_re, alpha_im, batch, s_g, s_b, s_out,
-    # stream
+    # shared, stream
     "sdt_csr_sddmm": (_INT, _INT, _P, _P, _P, _P, _P, _I64, _I64, _I64, _INT,
                       _INT, _INT, _INT, _I64, _D, _D, _I64, _I64, _I64, _I64,
-                      _P),
+                      _INT, _P),
     # dtype, itype, a_indptr, a_indices, a_data, b_indptr, b_indices,
     # b_data, c0, c, m, n, alpha_re, alpha_im, beta_re, beta_im,
     # triangular, splits, width, k, starts (scratch), starts_ready, batch,
@@ -131,12 +131,10 @@ _PROTOTYPES = {
     "sdt_csr_densify": (_INT, _INT, _P, _P, _P, _P, _I64, _I64, _I64, _P),
     # itype, indptr, indices, out, m, k, rows_per_tile, stream
     "sdt_csr_indicator": (_INT, _P, _P, _P, _I64, _I64, _I64, _P),
-    # p, r, n, triangular, row0, starts, stream
-    "sdt_csr_compact_count": (_P, _I64, _I64, _INT, _I64, _P, _P),
-    # dtype, itype, c, p, r, n, triangular, row0, starts, indptr, indices,
-    # data, stream
-    "sdt_csr_compact_fill": (_INT, _INT, _P, _P, _I64, _I64, _INT, _I64, _P,
-                             _P, _P, _P, _P),
+    # dtype, itype, c, p, r, n, triangular, row0, rows_per_tile, q,
+    # staged, status, ticket, tag, indptr, indices, data, total, stream
+    "sdt_csr_compact": (_INT, _INT, _P, _P, _I64, _I64, _INT, _I64, _INT,
+                        _INT, _INT, _P, _P, _I64, _P, _P, _P, _P, _P),
 }
 
 _lib = None

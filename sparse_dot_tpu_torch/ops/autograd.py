@@ -234,7 +234,7 @@ class CsrSddmm(torch.autograd.Function):
         g, b = _plain(g, b)
         if _member(g, 2) or _member(b, 2):
             return sddmm.sddmm_batched(pattern.indptr, pattern.indices, g, b,
-                                       alpha)
+                                       alpha, pattern.transpose)
         return sddmm.sddmm(pattern.indptr, pattern.indices, g, b, alpha)
 
     @staticmethod

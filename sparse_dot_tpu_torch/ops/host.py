@@ -458,8 +458,9 @@ def densified_sparse_product(A, B, dtype, triangular=False):
     ``torch.matmul`` of the values and one bf16 ``torch.matmul`` of the
     indicators, P = ind(A) @ ind(B), whose terms are all >= 0, so P > 0
     exactly where a product is stored (explicit zeros included), then K13
-    (``ops.compact``): its count, the rows' running sum and its fill, then
-    one host copy of C's nnz with the finite flags the planes do not know.
+    (``ops.compact.masked_compact``, one launch: count, running sum across
+    tiles and fill), then one host copy of C's nnz with the finite flags
+    the planes do not know.
     None when a value is not finite: a densified operand meets the other's
     entries with its zeros, and 0 * inf is NaN where the structural product
     has no term."""
@@ -469,10 +470,9 @@ def densified_sparse_product(A, B, dtype, triangular=False):
     pa, b, b_ind, checks = operands
     c = torch.matmul(pa.dense, b)
     p = torch.matmul(pa.indicator, b_ind)
-    starts = compact.compact_count(p, triangular)
-    arrays = compact.compact_fill(c, p, starts, triangular,
-                                  index_dtype=A.indices.dtype)
-    nnz, finite = _host_read(starts[-1], checks)
+    *arrays, total = compact.masked_compact(c, p, triangular,
+                                             index_dtype=A.indices.dtype)
+    nnz, finite = _host_read(total, checks)
     if not finite:
         return None
     indptr, indices, data = compact.cut(arrays, nnz, B.shape[1])

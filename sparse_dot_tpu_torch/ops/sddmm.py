@@ -27,7 +27,11 @@ of the card (``sddmm_schedule``).
 (g and b each per member or shared) in one launch, the member on the
 grid's y dimension: the backward of ``torch.func.vmap`` over the values
 or over b (per-sample gradients), ``jacrev``'s batch of cotangents and a
-batch of tangents (``ops.autograd``).
+batch of tangents (``ops.autograd``).  Where b is shared, a group of
+lanes serves ``shared_members`` members at once (4, or 2 where the card
+timed that faster or the lanes hold no more), gathering each entry's row
+of b once for all of them; where g is shared and b is not, the same runs
+on A's transpose with the roles swapped, given that transpose.
 """
 
 from typing import NamedTuple
@@ -95,6 +99,82 @@ def sddmm_schedule(n, dtype, nnz, aligned=True):
     load_bytes = s.per_lane * s.vec * dtype.itemsize
     return SddmmSchedule(s.vec, s.lanes, s.per_lane,
                          round_entries(s.lanes, load_bytes), span)
+
+
+# Members a group serves with b shared where the card timed fewer faster
+# than the most one reduce-scatter holds, by (value type, index bytes):
+# c128 with 64-bit indices ran 16 G's at config 1 (n = 128) in 3.43 ms
+# at 2 members against 4.87 at 4 (PERF.md).
+_FEWER_MEMBERS = {(torch.complex128, 8): 2}
+
+
+def shared_round(lanes, load_bytes, members):
+    """Entries a round of the shared kernel: ``round_entries``' split over
+    the ``members``, at least 1 (``csrc/csr_sddmm.cu``, shared_round)."""
+    return max(1, round_entries(lanes, load_bytes) // members)
+
+
+def shared_members(s, dtype, index_bytes=4):
+    """Members a group serves at once where b is shared: the most of 4 and
+    2 whose sums one reduce-scatter of the group's lanes holds (round *
+    members <= lanes), within ``_FEWER_MEMBERS`` for its type and index
+    bytes; 1 (the per-member kernel) where none does, and for the entry
+    kernel.  Timed at config 1, n = 128, 16 G's (``compare_k7_k13.py
+    members``): 4 ran fastest in f32, f64 (either index width), c64 and
+    c128 with 32-bit indices, 2 in c128 with 64-bit ones."""
+    if s.lanes == 1:
+        return 1
+    most = _FEWER_MEMBERS.get((dtype, index_bytes), 4)
+    load_bytes = s.per_lane * s.vec * dtype.itemsize
+    for members in (4, 2):
+        if (members <= most and shared_round(s.lanes, load_bytes, members)
+                * members <= s.lanes):
+            return members
+    return 1
+
+
+def batched_schedule(n, dtype, nnz, size, strides, aligned=True,
+                     index_bytes=4):
+    """(``SddmmSchedule``, members a group) of a batched launch of
+    ``size`` members at member ``strides`` (g, b), indices of
+    ``index_bytes``: with b shared and g not, ``shared_members`` members a
+    group, the round ``shared_round`` and the span sized over the member
+    groups' entries; otherwise one member a group, the span sized over all
+    members' entries (spans sized to fill whole waves of the card measured
+    slower, PERF.md)."""
+    s = sddmm_schedule(n, dtype, size * nnz, aligned)
+    members = (shared_members(s, dtype, index_bytes)
+               if strides[1] == 0 and strides[0] else 1)
+    if members == 1:
+        return s, 1
+    groups = -(-size // members)
+    span = sddmm_schedule(n, dtype, groups * nnz, aligned).span
+    load_bytes = s.per_lane * s.vec * dtype.itemsize
+    return s._replace(round=shared_round(s.lanes, load_bytes, members),
+                      span=span), members
+
+
+def swapped_roles(transpose, g, b, alpha, run, out=None):
+    """``alpha * (g @ b^H)`` at A's entries computed as ``run`` (a batched
+    K7 or its plain version) on A's transpose with b and g swapped:
+    entry q of the transpose, (c, r), is entry order[q], (r, c), of A, and
+    ``conj(conj(alpha) * b_c . conj(g_r)) = alpha * g_r . conj(b_c)``.
+    ``transpose`` is (pattern of A's transpose, order); the result goes to
+    ``out`` (a new tensor when None) in A's entries' order."""
+    t, order = transpose
+    if alpha is not None and g.is_complex():
+        alpha = complex(alpha).conjugate()
+    swapped = run(t.indptr, t.indices, b, g, alpha)
+    if swapped.is_complex():
+        swapped.conj_physical_()
+    # A gather in A's order (each output written once, in order) through
+    # the inverse of ``order``.
+    back = torch.empty_like(order)
+    back[order] = torch.arange(order.numel(), dtype=order.dtype,
+                               device=order.device)
+    if out is None:
+        return swapped.index_select(-1, back)
+    return torch.index_select(swapped, -1, back, out=out)
 
 
 def csr_sddmm_plain(indptr, indices, g, b, alpha=None):
@@ -181,30 +261,36 @@ def sddmm(indptr, indices, g, b, alpha=None):
 
 
 def _launch_k7(indptr, indices, s, alpha, members, strides, g, b, out,
-               g_t):
+               g_t, shared=1):
     """One launch of K7 (``sdt_csr_sddmm``) for ``members`` members at
-    ``strides`` (g, b, out), given the addresses; counted in
-    ``csr_sddmm.launches``."""
+    ``strides`` (g, b, out), ``shared`` of them a group (b shared), given
+    the addresses; counted in ``csr_sddmm.launches``."""
     m, nnz, n = indptr.numel() - 1, indices.numel(), g_t.shape[-1]
     dt, it = _build.type_codes(g_t, indptr)
     _build.launch(
         "sdt_csr_sddmm", dt, it, indptr.data_ptr(), indices.data_ptr(), g, b,
         out, m, n, nnz, s.vec, s.lanes, s.per_lane, s.round, s.span,
-        *_build.scalar_parts(alpha), members, *strides, _build.stream_of(g_t),
+        *_build.scalar_parts(alpha), members, *strides, shared,
+        _build.stream_of(g_t),
     )
     csr_sddmm.launches += 1
 
 
-def sddmm_batched(indptr, indices, g, b, alpha=None):
+def sddmm_batched(indptr, indices, g, b, alpha=None, transpose=None):
     """K7 for a batch of members that share the CSR (``indptr``,
     ``indices``): member i is ``alpha * (g_i @ b_i^H)`` at the entries,
     with ``g`` (B, m, n) or (m, n) and ``b`` (B, k, n) or (k, n), at least
     one with the member dimension, each member contiguous; an operand
     without it (or expanded along it) is shared, read in place by every
     member.  Returns a new (B, nnz) tensor.  One launch on the card (one
-    per ``_build.MAX_MEMBERS`` members), its spans sized over all the
-    members' entries; counted in ``csr_sddmm.launches`` and
-    ``csr_sddmm.launches_batched``.  The plain version on the CPU."""
+    per ``_build.MAX_MEMBERS`` members), its schedule ``batched_schedule``;
+    counted in ``csr_sddmm.launches`` and ``csr_sddmm.launches_batched``.
+    ``transpose``, where given, returns (CSR pattern of A's transpose with
+    ``indptr`` and ``indices``, order) as ``formats.CsrPattern.transpose``
+    does: with g shared and b not, the launch then runs on it with the
+    roles swapped (b's rows held in registers, g's rows gathered once for
+    a group of members), alpha conjugated, and its result conjugated into
+    the entries' order.  The plain version on the CPU."""
     refuse_views("csr_sddmm", indptr, indices, g, b)
     operands = ((g, 2), (b, 2))
     size = batch_size("csr_sddmm", operands)
@@ -227,12 +313,20 @@ def sddmm_batched(indptr, indices, g, b, alpha=None):
         return out.zero_()
     strides = (member_stride("csr_sddmm", g, 2),
                member_stride("csr_sddmm", b, 2), nnz)
-    s = sddmm_schedule(n, g.dtype, size * nnz,
-                       aligned_members((g, strides[0]), (b, strides[1])))
+    aligned = aligned_members((g, strides[0]), (b, strides[1]))
+    index_bytes = indices.element_size()
+    if transpose is not None and strides[0] == 0 and strides[1]:
+        if batched_schedule(n, g.dtype, nnz, size, (strides[1], 0), aligned,
+                            index_bytes)[1] > 1:
+            return swapped_roles(transpose(), g, b, alpha, sddmm_batched,
+                                 out)
+    s, shared = batched_schedule(n, g.dtype, nnz, size, strides, aligned,
+                                 index_bytes)
     for first, count in member_chunks(size):
         _launch_k7(indptr, indices, s, alpha, count, strides,
                    *(member_ptr(t, st, first)
-                     for t, st in zip((g, b, out), strides)), g)
+                     for t, st in zip((g, b, out), strides)), g,
+                   shared)
         csr_sddmm.launches_batched += 1
     return out
 

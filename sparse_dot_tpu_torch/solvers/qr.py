@@ -129,6 +129,13 @@ def _sparse_qr(matrix_a, matrix_b):
         x = host[:-1].reshape(n, -1)
         _last_cgls_iters = int(host[-1])
     else:
+        if m < n:
+            # Householder QR solves R x = Q^T b with a square R: the JAX
+            # package's triangular solve refuses a wide A the same way.
+            raise ValueError(
+                f"Householder QR needs m >= n: A has shape {(m, n)}; "
+                "a wide A takes the CGLS route only past the densify budget"
+            )
         x = _qr_lstsq(A.to_dense(), b).cpu().numpy()
         _last_cgls_iters = None
 

@@ -131,33 +131,80 @@ def test_plain_compact_matches_jax_extract(dtype, itype, triangular, row0):
     if not triangular:
         assert indptr[6] - indptr[5] == n  # the full row
         assert data[indptr[5] + 4] == 0
-    assert compact.compact_count.launches == 0
-    assert compact.compact_fill.launches == 0
+    assert compact.masked_compact.launches == 0
 
 
 def test_compact_steps_and_checks():
-    """``compact_count`` gives int64 row starts with the total last;
-    ``compact_fill`` at that total equals the one-call plain version; P
-    of another type, a row offset below 0 and an index type too narrow for
-    the shape are refused."""
+    """``masked_compact`` gives the arrays and the total as a 0-d int64
+    tensor; cut at that total they equal the one-call plain version; P of
+    another type, a row offset below 0, a C of another shape and an index
+    type too narrow for the shape are refused."""
     rng = np.random.default_rng(12)
     p = torch.from_numpy(count_plane(rng, 9, 70)).to(torch.bfloat16)
     c = torch.from_numpy(values(rng, (9, 70), np.float64))
-    starts = compact.compact_count(p, True, 2)
-    assert starts.dtype == torch.int64 and starts[0] == 0
-    arrays = compact.compact_fill(c, p, starts, True, 2, torch.int64)
-    got = compact.cut(arrays, int(starts[-1]), 70)
+    *arrays, total = compact.masked_compact(c, p, True, 2, torch.int64)
+    assert total.dtype == torch.int64 and total.dim() == 0
+    assert arrays[0][0] == 0 and arrays[0][-1] == total
+    got = compact.cut(arrays, int(total), 70)
     want = compact.csr_compact_plain(c, p, True, 2, torch.int64)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     with pytest.raises(ValueError, match="bfloat16"):
-        compact.compact_count(p.float())
+        compact.masked_compact(c, p.float())
     with pytest.raises(ValueError, match="row0"):
-        compact.compact_count(p, True, -1)
+        compact.masked_compact(c, p, True, -1)
     with pytest.raises(ValueError, match="ILP64"):
-        compact.cut(compact.compact_fill(c, p, starts), 2 ** 31, 70)
-    with pytest.raises(ValueError, match="starts"):
-        compact.compact_fill(c, p, starts[1:])
+        compact.cut(compact.masked_compact(c, p)[:3], 2 ** 31, 70)
+    with pytest.raises(ValueError, match=r"C \(8, 70\)"):
+        compact.masked_compact(c[1:], p)
+
+
+def test_compact_workspaces_are_kept_per_stream_and_bounded():
+    """K13's workspace: zeroed status words and ticket, one kept a (device,
+    stream) and reused while it holds the tiles, each call's tag one more
+    than the last, grown to at least twice its words, the words zeroed
+    when the tag wraps, the least recently used dropped past
+    ``_MAX_WORKSPACES``."""
+    saved = compact._workspaces.copy()
+    compact._workspaces.clear()
+    cpu = torch.device("cpu")
+    try:
+        first = compact._workspace(cpu, 0, 5)
+        assert first.status.dtype == torch.int64
+        assert first.status.numel() == 5 and first.tag == 1
+        assert not first.status.any() and not first.ticket.any()
+        assert compact._workspace(cpu, 0, 3) is first and first.tag == 2
+        grown = compact._workspace(cpu, 0, 6)
+        assert grown.status.numel() == 10 and grown.tag == 1
+        grown.status.fill_(7)
+        grown.tag = compact._MAX_TAG - 1
+        assert compact._workspace(cpu, 0, 1).tag == 1
+        assert not grown.status.any()
+        for stream in range(1, compact._MAX_WORKSPACES + 1):
+            compact._workspace(cpu, stream, 1)
+        assert len(compact._workspaces) == compact._MAX_WORKSPACES
+        assert (cpu, 0) not in compact._workspaces
+    finally:
+        compact._workspaces.clear()
+        compact._workspaces.update(saved)
+
+
+@pytest.mark.parametrize("r,n,plan", [
+    (500, 500, (4, 1, True)), (5000, 5000, (1, 1, True)),
+    (23, 45, (8, 1, True)), (6, 70_000, (1, 1, True)),
+    (40, 100_000, (1, 1, True)), (3, 400_000, (1, 2, False)),
+    (5000, 1, (16, 1, True)), (100, 1_000_000, (1, 4, False))])
+def test_compact_plan_fills_the_card_within_shared_memory(r, n, plan):
+    """K13's tiles: case a's 500 x 500 takes 125 tiles of 4 rows, its 8
+    items (2 steps of 256 columns a row) one a warp; the c128 gram's 5000
+    x 5000 a row a tile, its 20 steps shared by the 8 warps; at most 1024
+    items a tile (steps of 2 or 4 for the widest rows) and 32 rows; masks
+    within ``STAGE_BYTES``, else none (P read again)."""
+    assert compact.compact_plan(r, n) == plan
+    rows, q, staged = plan
+    steps = -(-n // 256)
+    assert rows * -(-steps // q) <= compact._MAX_ITEMS
+    assert staged == (rows * steps * 32 <= compact.STAGE_BYTES)
 
 
 @pytest.mark.parametrize("triangular,row0", [(False, 0), (True, 0),
@@ -358,8 +405,8 @@ def test_nonfinite_operand_takes_k4_k5(operand, bad):
     a = random_sparse(rng, (8, 6), 0.9)
     b = random_sparse(rng, (6, 7), 0.9)
     (a if operand == "a" else b).data[1] = bad
-    with mock.patch.object(compact, "compact_fill",
-                           wraps=compact.compact_fill) as fill:
+    with mock.patch.object(compact, "masked_compact",
+                           wraps=compact.masked_compact) as fill:
         got, routes, k45 = run_forced(True, lambda: sdtt.dot_product(a, b))
     assert (routes, k45, fill.call_count) == (1, 1, 1)
     want = a @ b
@@ -522,9 +569,11 @@ def test_bsr_spmm_routes(case, density, dtype):
 # ---------------------------------------------------------------------------
 
 def test_prototypes_match_the_c_entry_points():
-    """Every ``extern "C"`` entry point of ``csrc/`` takes as many
-    parameters as its ctypes prototype in ``ops/_build`` lists: ctypes
-    passes surplus arguments unchecked, so a missing one shifts the rest."""
+    """Every ``extern "C"`` entry point of ``csrc/`` has a ctypes prototype
+    in ``ops/_build`` and every prototype an entry point (K13's one launch
+    replaced its count and fill entry points; K7's took ``shared``), each
+    with as many parameters: ctypes passes surplus arguments unchecked, so
+    a missing one shifts the rest."""
     import re
 
     from sparse_dot_tpu_torch.ops import _build
@@ -534,6 +583,8 @@ def test_prototypes_match_the_c_entry_points():
         for name, params in re.findall(
                 r'extern "C" int (sdt_\w+)\(([^)]*)\)', path.read_text()):
             found[name] = len([p for p in params.split(",") if p.strip()])
-    assert set(_build._PROTOTYPES) <= set(found)
+    assert set(_build._PROTOTYPES) == set(found)
     for name, argtypes in _build._PROTOTYPES.items():
         assert len(argtypes) == found[name], name
+    assert "sdt_csr_compact_count" not in found
+    assert found["sdt_csr_compact"] == 19 and found["sdt_csr_sddmm"] == 23

@@ -27,6 +27,7 @@ import sparse_dot_tpu  # noqa: F401  (enables x64 before any JAX array)
 from sparse_dot_tpu.ops import _xla
 from sparse_dot_tpu.ops.pallas_bsr import bsr_spmm_pallas
 
+from sparse_dot_tpu_torch import formats
 from sparse_dot_tpu_torch.config import config
 from sparse_dot_tpu_torch.ops import (_build, bsr, csr, dense, sddmm, spgemm,
                                       spgemm_grad)
@@ -478,6 +479,120 @@ def test_sddmm_spans_cover_every_entry_once(n, dtype, aligned, nnz):
     assert len(seen) == nnz and sorted(seen) == list(range(nnz))
     if s.lanes > 1 and s.span < sddmm._SPAN_MAX:
         assert -(-nnz // s.span) <= sddmm._SPAN_GROUPS * (32 // s.lanes)
+
+
+def batch_items(s, members, nnz, size):
+    """The work of a batched K7 launch as its kernels split it, mirroring
+    their index arithmetic (``csrc/csr_sddmm.cu``): for each group of
+    lanes, (first member, end member, first entry, end entry), as four
+    arrays over all the launches (``csr.member_chunks``).  The span
+    kernels: blockIdx.y a member group of ``members`` members, blockIdx.x's
+    128 // lanes groups spans of ``s.span`` entries; the entry kernel: a
+    member a blockIdx.y, a warp (4 a block) a tile."""
+    per_block = 128 // s.lanes if s.lanes > 1 else 4
+    groups = -(-nnz // s.span)
+    blocks = -(-groups // per_block)
+    parts = []
+    for first, count in csr.member_chunks(size):
+        y, x, t = np.meshgrid(np.arange(-(-count // members)),
+                              np.arange(blocks), np.arange(per_block),
+                              indexing="ij")
+        start = ((x * per_block + t) * s.span).ravel()
+        m0 = (first + y * members).ravel()
+        m1 = np.minimum(m0 + members, first + count)
+        keep = start < nnz
+        parts.append((m0[keep], m1[keep], start[keep],
+                      np.minimum(start[keep] + s.span, nnz)))
+    return tuple(np.concatenate(col) for col in zip(*parts))
+
+
+def member_strides(shared, m, k, n):
+    """(g, b) member strides: per-member pairs, b shared or g shared."""
+    return {"none": (m * n, k * n), "b": (m * n, 0), "g": (0, k * n)}[shared]
+
+
+@pytest.mark.parametrize("size", [1, 4, 16, 65_536])
+@pytest.mark.parametrize("shared", ["none", "b", "g"])
+@pytest.mark.parametrize("n, dtype", [(128, torch.float64),
+                                      (64, torch.complex128),
+                                      (3, torch.float32),
+                                      (2, torch.float64)])
+def test_batched_sddmm_items_cover_every_member_entry_once(size, shared, n,
+                                                           dtype):
+    """A batched K7's work as its kernels split it (``batch_items``: member
+    groups on blockIdx.y within launches of at most 65,535 members, spans
+    of entries on blockIdx.x; the entry kernel a member a blockIdx.y)
+    covers every (member, entry) exactly once, at 1, 4, 16 and 65,535 + 1
+    members, per-member or with an operand shared (b shared: several
+    members a group)."""
+    nnz = 1000 if size < 65_536 else 70
+    s, members = sddmm.batched_schedule(n, dtype, nnz, size,
+                                        member_strides(shared, 9, 7, n))
+    assert members == (sddmm.shared_members(s, dtype)
+                       if shared == "b" else 1)
+    m0, m1, e0, e1 = batch_items(s, members, nnz, size)
+    cover = np.zeros((size + 1, nnz + 1), np.int64)
+    np.add.at(cover, (m0, e0), 1)
+    np.add.at(cover, (m1, e0), -1)
+    np.add.at(cover, (m0, e1), -1)
+    np.add.at(cover, (m1, e1), 1)
+    cover = cover.cumsum(0).cumsum(1)[:size, :nnz]
+    assert (cover == 1).all()
+    assert (m1 - m0 <= members).all()
+
+
+@pytest.mark.parametrize("index_bytes", [4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.complex64, torch.complex128])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_shared_members_follow_the_timed_rule(dtype, aligned, index_bytes):
+    """With b shared, the members a group serves are the most of 4 and 2
+    whose sums one reduce-scatter of the group's lanes holds, 2 at most
+    for c128 with 64-bit indices (timed faster on the card); the entry
+    kernel serves one.  At config 1's n = 128 that is 4, but 2 for c128
+    with 64-bit indices."""
+    most = 2 if (dtype, index_bytes) == (torch.complex128, 8) else 4
+    for n in range(1, 600):
+        s = sddmm.sddmm_schedule(n, dtype, 10**6, aligned)
+        members = sddmm.shared_members(s, dtype, index_bytes)
+        load = s.per_lane * s.vec * dtype.itemsize
+        if s.lanes == 1:
+            assert members == 1
+            continue
+
+        def fits(mm):
+            return (mm <= most and sddmm.shared_round(s.lanes, load, mm)
+                    * mm <= s.lanes)
+
+        assert members > 1 and fits(members)
+        assert all(not fits(mm) for mm in (4, 2) if mm > members)
+    s = sddmm.sddmm_schedule(128, dtype, 10**6, aligned)
+    assert sddmm.shared_members(s, dtype, index_bytes) == most
+    assert sddmm.shared_round(32, 32, 2) == 1
+    assert sddmm.shared_round(32, 16, 2) == 2
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_swapped_roles_match_the_direct_product(dtype):
+    """G shared and b per member, computed on A's transpose with the roles
+    swapped (``swapped_roles``: alpha conjugated, the result conjugated
+    into A's entries' order) equals the direct batched product."""
+    rng = np.random.default_rng(31)
+    m, k, n, nnz, size = 9, 7, 5, 30, 3
+    rows = np.sort(rng.integers(0, m, nnz))
+    indptr = np.searchsorted(rows, np.arange(m + 1)).astype(np.int64)
+    indices = rng.integers(0, k, nnz).astype(np.int64)
+    pattern = formats.CsrPattern(torch.tensor(indptr), torch.tensor(indices),
+                                 k)
+    g = torch.tensor(values(rng, (m, n), dtype))
+    b = torch.tensor(values(rng, (size, k, n), dtype))
+    alpha = 0.5 - 2.0j if np.dtype(dtype).kind == "c" else -1.5
+    want = sddmm.csr_sddmm_batched_plain(pattern.indptr, pattern.indices, g,
+                                         b, alpha)
+    got = sddmm.swapped_roles(pattern.transpose(), g, b, alpha,
+                              sddmm.csr_sddmm_batched_plain)
+    assert got.dtype == want.dtype
+    assert_close(got, want.numpy(), dtype)
 
 
 # ---------------------------------------------------------------------------

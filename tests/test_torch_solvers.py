@@ -307,6 +307,42 @@ def test_sparse_qr_matches_jax(route, monkeypatch):
         got, np.linalg.lstsq(A.toarray(), B, rcond=None)[0], rtol=1e-8)
 
 
+def wide_system(seed, m=40, k=120, nrhs=2):
+    rng = np.random.default_rng(seed)
+    a = (random_csr(rng, m, k, 6 * m)
+         + sps.hstack([2.0 * sps.eye(m), sps.csr_matrix((m, k - m))])
+         ).tocsr()
+    return a, rng.standard_normal((m, nrhs))
+
+
+def test_sparse_qr_wide_a_raises_on_householder_like_jax():
+    """A wide A on the dense route: both packages raise ValueError (the
+    type only is held to JAX's; the port's message names A's shape)."""
+    A = sps.random(4, 8, density=0.5, format="csr", random_state=0)
+    with pytest.raises(ValueError, match=r"\(4, 8\)"):
+        pt.sparse_qr_solve(A, np.ones(4))
+    with pytest.raises(ValueError):
+        jx.sparse_qr_solve(A, np.ones(4))
+
+
+@pytest.mark.parametrize("nrhs", [1, 2])
+def test_sparse_qr_wide_cgls_matches_jax(nrhs, monkeypatch):
+    """Past the densify budget a wide A runs CGLS in both packages and
+    solves the consistent system (the Jacobi scaling picks a solution
+    other than the least-norm one, the same in both)."""
+    A, B = wide_system(10, nrhs=nrhs)
+    b = B[:, 0] if nrhs == 1 else B
+    monkeypatch.setattr(jx_qr, "_QR_DENSIFY_BUDGET", 1)
+    monkeypatch.setattr(pt_qr, "_QR_DENSIFY_BUDGET", 1)
+    got = pt.sparse_qr_solve(A, b)
+    ref = jx.sparse_qr_solve(A, b)
+    assert got.shape == ref.shape == (A.shape[1],) + b.shape[1:]
+    assert_close(got, ref)
+    assert pt_qr._last_cgls_iters == jx_qr._last_cgls_iters
+    np.testing.assert_allclose(A @ got, b, rtol=1e-8,
+                               atol=1e-8 * np.abs(b).max())
+
+
 @pytest.mark.parametrize("nrhs", [1, 2])
 def test_cgls_products_by_column_count(nrhs, monkeypatch):
     """CGLS runs its products on the CSR SpMV (K3) for one right-hand side
