@@ -97,7 +97,13 @@ Phases, each printing one JSON line:
    alpha/beta/c0 epilogue over sorted and shuffled op(B) on split rows
    and column windows, K5 on every row bin (its indices equal the single
    product's), K9 and K11 staged and in place, each call twice for the
-   same bits, and 70,000 members each (two launches).  K12 CSR densify
+   same bits, and 70,000 members each (two launches); K9 and K11 with a
+   group of members a block (``check_grouped_sampled``): the rule's
+   choice, which the inputs lead to 4 and 2 members a group and to one
+   member a block, in every value type and both index widths, at 3 and 5
+   members (a last group part full), D (G) and Y's values shared or per
+   member at odd strides, rows of Y held in registers and longer ones,
+   every call twice for the same bits.  K12 CSR densify
    (``check_k12``) against its plain version in every value type and
    index width: repeated and unsorted columns, explicit zeros, empty
    rows, no entry, m or k = 1, an odd width, rows exactly TILE_BYTES wide
@@ -205,7 +211,9 @@ Phases, each printing one JSON line:
    G's, K11 at cases a and c in both forms over 4 G's (patterns given as
    ``CsrSpgemmSparseSddmm`` gives them) and K5 at case c over 4 value
    sets on one plan beside 4 x ``torch.sparse.mm(A_csr, B_csr)``
-   (``batched_spgemm_rows``, each with ``device_ms``); and the wall time
+   (``batched_spgemm_rows``, each with ``device_ms``, its ratios to the
+   single launches by events and on the device, and K9's and K11's
+   group: members, lines a member); and the wall time
    of ``dot_product(X, X.T)`` beside scipy's; K12 at config 1's A, the
    demo X and PARDISO's n = 12,000 matrix beside
    ``torch.sparse_csr_tensor(...).to_dense()`` (``4-k12``); the
@@ -2210,7 +2218,9 @@ def check_batched_spgemm(record, budgets=(None, 0)):
                                             *args), tdt))
                             seen["K9"].add((transposed, staged))
     check_seen_batched(seen)
-    return {name: sorted(map(list, got)) for name, got in seen.items()}
+    groups = check_grouped_sampled(record)
+    return {**{name: sorted(map(list, got)) for name, got in seen.items()},
+            "K9_K11_groups": [list(g) for g in groups]}
 
 
 def check_k11_batched(record, seen, budgets, tdt, a_ip, a_ix, a_dv, b_ip,
@@ -2249,6 +2259,120 @@ def check_seen_batched(seen):
         if seen[name] != want:
             raise AssertionError(f"batched {name} ran only "
                                  f"{sorted(seen[name])}")
+
+
+# Phase 2's member groups of batched K9 and K11 (``spgemm_grad.
+# group_plan``): (m, k, n, op(A)'s row lengths, op(B)'s).  The first has
+# rows of op(B) of ~30 entries (16 lanes, so 4 members a group in the dA
+# forms) and one of 120, past what a group's lanes hold in registers,
+# and columns of op(A) of ~13 (8 lanes: 4 members for K9's dB form, one
+# member a block for K11's, which groups from 32 lanes); the second
+# columns of op(A) of ~75 (32 lanes: groups in both dB forms).  With Y's
+# values per member the batch runs one member a block.  A batch of 2
+# takes a group of 2; 3 and 5 leave a last group part full.
+GROUP_CASES = ((120, 90, 200, (3, 0, 5, 12, 30), (10, 14, 0, 6, 120)),
+               (150, 40, 64, (20, 12, 28), (20, 30, 10)))
+GROUP_BATCHES = (2, 3, 5)
+
+
+def batch_of(rng, npdt, size, shape, batched, odd):
+    """Values of ``shape`` on the card: ``size`` members ahead where
+    ``batched`` (as ``odd_members`` views with ``odd``), else one set
+    that every member shares."""
+    if not batched:
+        return cuda(values(rng, shape, npdt))
+    x = cuda(values(rng, (size, *shape), npdt))
+    return odd_members(x) if odd else x
+
+
+def check_grouped_sampled(record):
+    """Batched K9 (``sampled_batched``, both forms, with and without
+    alpha) and K11 (``sparse_sampled_batched``, both forms, with and
+    without ``triangular``) on the plan ``group_plan`` gives them, against
+    their batched plain versions at each case of GROUP_CASES, in every
+    value type and both index widths, at GROUP_BATCHES members (a last
+    group part full), with D (G) and Y's values each shared or per member
+    (``PAIR_COMBOS``), members at odd strides; each call run twice for
+    the same bits, one batched launch.  Returns the (kernel, dB form,
+    members, Y's values shared) seen, and raises unless each kernel ran
+    2 and 4 members a group (Y's values shared) and one member a block
+    with Y's values per member, in both forms."""
+    from sparse_dot_tpu_torch import formats
+    from sparse_dot_tpu_torch.ops import spgemm, spgemm_grad
+
+    k11_plain = spgemm_grad.csr_spgemm_sparse_sddmm_batched_plain
+    rng = np.random.default_rng(SEED + 26)
+    seen = set()
+    for tdt, npdt in NP_DTYPES.items():
+        alpha = 0.5 - 0.25j if np.dtype(npdt).kind == "c" else -1.5
+        for itype in (np.int32, np.int64):
+            for m, k, n, a_rows, b_rows in GROUP_CASES:
+                a = distinct_rows(rng, np.resize(a_rows, m), k, npdt, itype)
+                b = distinct_rows(rng, np.resize(b_rows, k), n, npdt, itype)
+                a_ip, a_ix, a_dv = map(cuda, a)
+                b_ip, b_ix, b_dv = map(cuda, b)
+                t, order = formats.CsrPattern(a_ip, a_ix, k).transpose()
+                cs = {tri: spgemm.product(a_ip, a_ix, a_dv, b_ip, b_ix, b_dv,
+                                          n, tri)[:2] for tri in (False, True)}
+                for size in GROUP_BATCHES:
+                    odd = size != 5
+                    for d_b, y_b in PAIR_COMBOS:
+                        d = batch_of(rng, npdt, size, (m, n), d_b, odd)
+                        av = batch_of(rng, npdt, size, a[1].shape, y_b, odd)
+                        bv = batch_of(rng, npdt, size, b[1].shape, y_b, odd)
+                        gs = {tri: batch_of(rng, npdt, size,
+                                            (c[1].numel(),), d_b, odd)
+                              for tri, c in cs.items()}
+                        for transposed in (False, True):
+                            p_arr, y_arr = ((b_ip, b_ix), (
+                                t.indptr, t.indices,
+                                av[..., order].contiguous())
+                            ) if transposed else ((a_ip, a_ix),
+                                                  (b_ip, b_ix, bv))
+                            plan = spgemm_grad.group_plan(
+                                k9_plan(d[0] if d_b else d, *y_arr[:2],
+                                        transposed),
+                                d.element_size(), size, not d_b, not y_b)
+                            seen.add(("K9", transposed, plan.members,
+                                      not y_b))
+                            args = (*p_arr, d, *y_arr,
+                                    alpha if odd else None, transposed)
+                            out = spgemm_batched_call(
+                                spgemm_grad.csr_spgemm_sddmm, 1, "K9",
+                                spgemm_grad.sampled_batched, *args)
+                            record("K9_csr_spgemm_sddmm", compare(
+                                out, spgemm_grad
+                                .csr_spgemm_sddmm_batched_plain(*args),
+                                tdt))
+                        for tri, (c_ip, c_ix) in cs.items():
+                            for transposed in (False, True):
+                                args = (a_ip, a_ix,
+                                        av if transposed else a_dv,
+                                        b_ip, b_ix,
+                                        b_dv if transposed else bv,
+                                        c_ip, c_ix, gs[tri], n, transposed,
+                                        tri)
+                                plan = spgemm_grad.sparse_group_plan(
+                                    k11_plan((a_ip, a_ix, a_dv),
+                                             (b_ip, b_ix, b_dv), gs[tri],
+                                             n, transposed),
+                                    gs[tri].element_size(), size,
+                                    (not d_b, not y_b), transposed)
+                                seen.add(("K11", transposed, plan.members,
+                                          not y_b))
+                                out = spgemm_batched_call(
+                                    spgemm_grad.csr_spgemm_sparse_sddmm, 1,
+                                    "K11", spgemm_grad.sparse_sampled_batched,
+                                    *args)
+                                record("K11_csr_spgemm_sparse_sddmm",
+                                       compare(out, k11_plain(*args), tdt))
+    for name in ("K9", "K11"):
+        want = {(name, t, m, y) for t in (False, True)
+                for m, y in ((2, True), (4, True), (1, False))}
+        if not want <= seen:
+            raise AssertionError(f"batched {name} ran no group of "
+                                 f"{sorted(want - seen)}")
+    return sorted(seen)
 
 
 def check_second_order():
@@ -4349,14 +4473,21 @@ def k11_rows(inp):
 
 # Kernel names in a profiler trace: K11's in place, and K9's, which K11
 # runs where it stages lines and which is timed beside K11 at case a.
-K11_DEVICE_NAMES = ("sparse_in_place_kernel", "sampled_kernel")
+K11_DEVICE_NAMES = ("sparse_in_place_kernel", "sampled_kernel",
+                    "sampled_group_kernel")
+# K9's kernels in a trace: the per-member one and a member group's.
+K9_DEVICE_NAMES = ("sampled_kernel", "sampled_group_kernel")
+# PyTorch's gathers (``t[index]``), which a batched K9 or K11 call runs
+# before its launch: Y's values into bank order for a member group, the
+# dB form's op(A)^T values; counted in the batched rows' device times.
+GATHER_NAMES = ("index", "gather")
 
 
 def k11_runs(pattern, transposed):
-    """The number of runs and of work items K11 cached on P's
-    ``pattern``, or None where its lines were read in place."""
+    """The number of runs and of work items K11's single launch cached on
+    P's ``pattern``, or None where its lines were read in place."""
     for key, runs in pattern.plans.items():
-        if key[:2] == ("k11", transposed):
+        if key[:2] == ("k11", transposed) and key[-1] == 1:
             return {"runs": runs.run_q.numel(),
                     "items": runs.items.numel() - 1, "chunk": runs.chunk}
     return None
@@ -4369,7 +4500,7 @@ def k9_runs(args, plan):
     for *_, pattern in autograd.patterns.entries:
         if pattern.indices is args[1]:
             for key, runs in pattern.plans.items():
-                if key[:3] == ("k9", args[7], plan.panel):
+                if key[:3] == ("k9", args[7], plan.panel) and key[-1] == 1:
                     return {"runs": runs.run_q.numel(),
                             "items": runs.items.numel() - 1,
                             "chunk": runs.chunk}
@@ -5467,6 +5598,24 @@ def k11_batched_bound(a, b, c, g, transposed, size):
     return bound(moved, flop, peak_flops(g.dtype))
 
 
+def sampled_group(single, g, shared_y, k11_transposed=None):
+    """{members, lines a member} of batched K9's launch (K11's, in the
+    form ``k11_transposed`` says) over the members of ``g`` (G per
+    member) whose single launch takes ``single``, Y's values shared or
+    not (``spgemm_grad.group_plan``, ``sparse_group_plan``)."""
+    from sparse_dot_tpu_torch.ops import spgemm_grad
+
+    if k11_transposed is None:
+        plan = spgemm_grad.group_plan(single, g.element_size(), g.shape[0],
+                                      False, shared_y)
+    else:
+        plan = spgemm_grad.sparse_group_plan(
+            single, g.element_size(), g.shape[0], (False, shared_y),
+            k11_transposed)
+    return {"members": plan.members,
+            "lines_a_member": plan.panel if plan.staged else None}
+
+
 def batched_spgemm_rows(inp):
     """Phase 4's rows of the batched sparse x sparse launches, each beside
     the same members' single launches in the same turns
@@ -5523,7 +5672,9 @@ def batched_spgemm_rows(inp):
                 spgemm_grad.csr_spgemm_sddmm(*args[:2], args[2][i],
                                              *args[3:])
                 for i in range(4)]},
-            device_match="sampled_kernel", members=4,
+            device_match=K9_DEVICE_NAMES + GATHER_NAMES, members=4,
+            group=sampled_group(k9_plan(g[0], *args[3:5], transposed), g,
+                                True),
             case="a-dB" if transposed else "a-dA"))
     del g, A, B
     for case, shape, a_np, b_np in (
@@ -5562,8 +5713,10 @@ def batched_spgemm_rows(inp):
                     spgemm_grad.sparse_sampled(*args[:8], g[i], *args[9:],
                                                **pats)
                     for i in range(4)]},
-                device_match=K11_DEVICE_NAMES,
-                members=4, case=f"{case}-{'dB' if transposed else 'dA'}"))
+                device_match=K11_DEVICE_NAMES + GATHER_NAMES, members=4,
+                group=sampled_group(k11_plan(a, b, g, n, transposed), g,
+                                    True, transposed),
+                case=f"{case}-{'dB' if transposed else 'dA'}"))
         del pats
         autograd.patterns.clear()
         if case == "c":
@@ -5609,9 +5762,13 @@ def batched_spgemm_rows(inp):
         del A, B, a, b, c, g
         torch.cuda.empty_cache()
     for row in rows:
-        (single,) = (v for k, v in row["beside"].items()
-                     if k.endswith("_single_launches"))
+        (name, single), = ((k, v) for k, v in row["beside"].items()
+                           if k.endswith("_single_launches"))
         row["ms_over_single_launches"] = row["ms"] / single["ms"]
+        device = row.get("device_ms") or {}
+        if device.get("kernel") and device.get(name):
+            row["device_over_single_launches"] = (device["kernel"]
+                                                  / device[name])
     return rows
 
 

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Side-by-side timings of batched K7 and K13 on one NVIDIA GPU.
+"""Side-by-side timings of batched K7, K9 and K11 and of K13 on one
+NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with the card:
 
@@ -7,6 +8,9 @@ Run from the root of a checkout, on a machine with the card:
     python3 compare_k7_k13.py members          # members a group, by type
     python3 compare_k7_k13.py rows [--root DIR]
     python3 compare_k7_k13.py route [--root DIR]
+    python3 compare_k7_k13.py groups           # batched K9/K11 groups
+    python3 compare_k7_k13.py sampled [--root DIR]
+    python3 compare_k7_k13.py walls [--root DIR]
 
 ``schedules`` times batched K7 at config 1 (f64, n = 128, 16 members) as
 one launch with spans sized over all members' entries, with spans that
@@ -22,8 +26,20 @@ of the checkout at DIR instead of this one, so that two checkouts are
 compared by running this script for each in turns (parent, change,
 change, parent).  ``route`` times the structural densify route at case a
 host to host (``route_rows``), with ``--root DIR`` the package at DIR
-too, imported beside this one, both in the same turns.  Each mode
-prints one JSON line, also written to ``--out`` when given.  The helpers (timing in turns after a 1 GiB read,
+too, imported beside this one, both in the same turns.  ``groups``
+times batched K9 and K11 (4 G's, values shared, both forms) at one
+member a block and at groups of 2 and 4, and the group of 4 with Y's
+rows in column order, beside the rule's launch and the 4 single
+launches, in each value type and index width and at rows of Y short
+enough for 2 and 8 lanes (``group_sweep``).  ``sampled`` times batched
+K9 and K11 (case a, K11 also at case c, and ensembles with per-member
+values) beside the same members' single launches, by events, on the
+device and on the host (``sampled_turns``); with ``--root DIR`` the
+package at DIR too, in the same turns.  ``walls`` times the ``vmap``
+transforms of ``chip_smoke.py``'s phase 6 that run K7, K9 and K11 host
+to host, with ``--root DIR`` the package at DIR too, in alternating
+turns (``vmap_walls``).  Each mode prints one JSON line, also written to
+``--out`` when given.  The helpers (timing in turns after a 1 GiB read,
 the plain versions' comparison, the inputs) are ``chip_smoke.py``'s.
 """
 
@@ -363,13 +379,430 @@ def route_rows(packages, reps=100):
             "turns_won": wins}
 
 
+SAMPLED_DEVICE_NAMES = ("sampled_kernel", "sampled_group_kernel",
+                        "sparse_in_place_kernel")
+# ``group_sweep``'s settings: (value type, index type, density of a
+# 500 x 5000 X, None: the demo X itself, 21.2%): case a in f64, f32 and
+# c128 with int32 ids and in f64 and c128 with int64 ids, then X at 0.7%
+# (rows of Y of ~3.5 entries: 2 lanes), 1.2% (~6: 4 lanes) and 2% (~10:
+# 8 lanes).
+SWEEP_SETTINGS = ((np.float64, np.int32, None), (np.float32, np.int32, None),
+                  (np.complex128, np.int32, None),
+                  (np.float64, np.int64, None),
+                  (np.complex128, np.int64, None),
+                  (np.float64, np.int32, 0.007), (np.float64, np.int32, 0.012),
+                  (np.float64, np.int32, 0.02))
+# The group sizes a launch may take at each point (``_GROUP_SIZES``, at
+# any number of lanes): one member a block, 2, 4.
+SWEEP_POINTS = {"members 1": (), "members 2": (2,), "members 4": (4,)}
+
+
+def sampled_cases(sdt, inputs, rng, size=4):
+    """The operands of batched K9 and K11 at case a (the demo X @ X.T,
+    f64) and K11 at case c (the 1M² A @ A), both forms, ``size`` G's
+    with the values shared, and at case a also an ensemble (G and the
+    values per member): {name: (kernel, args, P's arrays, Y's arrays)}
+    (K11: (op(A)'s, op(B)'s and C's arrays), None), made with package
+    ``sdt``'s containers."""
+    x = inputs["x"]
+    A, B = sdt.formats.to_device(x), sdt.formats.to_device(x.T)
+    ip, ix, dv = A.csr_arrays()
+    bip, bix, bdv = B.csr_arrays()
+    n = x.shape[0]
+    g = cuda(values(rng, (size, n, n), np.float64))
+    pa = sdt.formats.CsrPattern(ip, ix, x.shape[1])
+    t, order = pa.transpose()
+    cases = {}
+    for transposed in (False, True):
+        form = "dB" if transposed else "dA"
+        args = ((bip, bix, g, t.indptr, t.indices, dv[order].contiguous(),
+                 None, True) if transposed
+                else (ip, ix, g, bip, bix, bdv, None, False))
+        cases[f"K9 a {form}"] = ("K9", args, args[:2], args[3:5])
+    bv = bdv[None] * (1 + 0.1 * cuda(values(rng, (size, bix.numel()),
+                                            np.float64)))
+    cases["K9 a dA ensemble"] = ("K9", (ip, ix, g, bip, bix, bv, None,
+                                        False), (ip, ix), (bip, bix))
+    for case, a_np, b_np in (("a", x, x.T.tocsr()),
+                             ("c", inputs["a1m"], inputs["a1m"])):
+        Ad, Bd = sdt.formats.to_device(a_np), sdt.formats.to_device(b_np)
+        a, b = Ad.csr_arrays(), Bd.csr_arrays()
+        nn = b_np.shape[1]
+        c = sdt.ops.spgemm.csr_spgemm(*a, *b, nn)[:2]
+        gc = cuda(values(rng, (size, c[1].numel()), np.float64))
+        for transposed in (False, True):
+            form = "dB" if transposed else "dA"
+            cases[f"K11 {case} {form}"] = (
+                "K11", (*a, *b, *c, gc, nn, transposed), (a, b, c), None)
+        if case == "a":
+            bvs = b[2][None] * (1 + 0.1 * cuda(values(
+                rng, (size, b[1].numel()), np.float64)))
+            cases["K11 a dA ensemble"] = (
+                "K11", (*a[:3], *b[:2], bvs, *c, gc, nn, False), (a, b, c),
+                None)
+    return cases
+
+
+def sampled_fns(sdt, cases, size=4):
+    """({name: fn} of each case's batched call and its ``size`` single
+    launches, through package ``sdt`` with patterns made once, as the
+    Functions hand them; {name: plain version} of the batched calls;
+    {name: the pattern of P, on which the launch's record is cached})."""
+    grad = sdt.ops.spgemm_grad
+    fns, plain, owners = {}, {}, {}
+    for name, (kernel, args, p_arr, y_arr) in cases.items():
+        if kernel == "K9":
+            transposed = args[7]
+            d = args[2]
+            ne = d.shape[-1] if transposed else args[3].numel() - 1
+            ny = d.shape[-2] if transposed else d.shape[-1]
+            pats = {"pattern": sdt.formats.CsrPattern(*p_arr, ne),
+                    "y_pattern": sdt.formats.CsrPattern(*y_arr, ny)}
+            y = args[5]
+            owners[name] = pats["pattern"]
+
+            def batched(args=args, pats=pats):
+                return grad.sampled_batched(*args, **pats)
+
+            def single(args=args, pats=pats, y=y):
+                return [grad.sampled(*args[:2], args[2][i], *args[3:5],
+                                     y[i] if y.dim() == 2 else y,
+                                     *args[6:], **pats)
+                        for i in range(size)]
+            plain[name] = lambda args=args: (
+                grad.csr_spgemm_sddmm_batched_plain(*args))
+        else:
+            a, b, c = p_arr
+            nn = args[9]
+            pats = {"a": sdt.formats.CsrPattern(a[0], a[1],
+                                                b[0].numel() - 1),
+                    "b": sdt.formats.CsrPattern(b[0], b[1], nn),
+                    "c": sdt.formats.CsrPattern(c[0], c[1], nn,
+                                                span=(0, nn))}
+            owners[name] = pats["b"] if args[10] else pats["a"]
+
+            def batched(args=args, pats=pats):
+                return grad.sparse_sampled_batched(*args, **pats)
+
+            def single(args=args, pats=pats):
+                bv = args[5]
+                return [grad.sparse_sampled(
+                    *args[:5], bv[i] if bv.dim() == 2 else bv, *args[6:8],
+                    args[8][i], *args[9:], **pats) for i in range(size)]
+            plain[name] = lambda args=args: (
+                grad.csr_spgemm_sparse_sddmm_batched_plain(*args))
+        fns[name] = batched
+        fns[f"{name}: {size} single launches"] = single
+    return fns, plain, owners
+
+
+def enqueue_times(fns, reps=25):
+    """{name: the ``reps`` host times in ms of ``fns[name]()`` from an
+    idle card until the call returns (its launches enqueued, not run)}."""
+    times = {name: [] for name in fns}
+    for _ in range(reps):
+        for name, fn in fns.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return times
+
+
+def timed_fns(fns, plain=None, reps=REPS):
+    """Each fn timed in turns (``time_turns``: events, a 1 GiB read
+    before each), its kernels' device time (``kernel_device_ms``), all
+    its device work (``device_busy_ms``: gathers and fills too), its host
+    enqueue time (``enqueue_times``) and, where ``plain`` has its name,
+    its largest error against the plain version."""
+    errs = {}
+    for name, fn in fns.items():
+        out = fn()
+        if plain and name in plain:
+            errs[name] = compare(out, plain[name](), out.dtype)
+    times = time_turns(fns, reps)
+    host = enqueue_times(fns)
+    result = {}
+    for name, fn in fns.items():
+        ms, p10, p90 = spread(times[name])
+        result[name] = {
+            "ms": ms, "p10": p10, "p90": p90,
+            "device_ms": chip_smoke.kernel_device_ms(
+                fn, SAMPLED_DEVICE_NAMES),
+            "device_all_ms": chip_smoke.device_busy_ms(fn),
+            "host_enqueue_ms": spread(host[name])[0],
+            "max_abs_err": errs.get(name)}
+    return result
+
+
+def sweep_cases(sdt, setting, rng, size=4):
+    """``sampled_cases``' case a (K9 and K11, both forms, ``size`` G's,
+    values shared) for a ``SWEEP_SETTINGS`` entry: X (the demo X, or a
+    random 500 x 5000 X of that density) in that value type with ids of
+    that index type."""
+    import scipy.sparse as sps
+
+    dtype, itype, density = setting
+    x = chip_smoke.demo_x() if density is None else sps.random(
+        500, 5000, density=density, format="csr", random_state=SEED + 28)
+    x = sps.csr_matrix((values(rng, x.nnz, dtype), x.indices, x.indptr),
+                       shape=x.shape)
+    xt = x.T.tocsr()
+    ip, ix, dv = (cuda(a.astype(t)) for a, t in (
+        (x.indptr, itype), (x.indices, itype), (x.data, dtype)))
+    bip, bix, bdv = (cuda(a.astype(t)) for a, t in (
+        (xt.indptr, itype), (xt.indices, itype), (xt.data, dtype)))
+    n = x.shape[0]
+    g = cuda(values(rng, (size, n, n), dtype))
+    t, order = sdt.formats.CsrPattern(ip, ix, x.shape[1]).transpose()
+    cases = {}
+    for transposed in (False, True):
+        form = "dB" if transposed else "dA"
+        args = ((bip, bix, g, t.indptr, t.indices, dv[order].contiguous(),
+                 None, True) if transposed
+                else (ip, ix, g, bip, bix, bdv, None, False))
+        cases[f"K9 {form}"] = ("K9", args, args[:2], args[3:5])
+    a, b = (ip, ix, dv), (bip, bix, bdv)
+    c = sdt.ops.spgemm.csr_spgemm(*a, *b, n)[:2]
+    gc = cuda(values(rng, (size, c[1].numel()), dtype))
+    for transposed in (False, True):
+        form = "dB" if transposed else "dA"
+        cases[f"K11 {form}"] = ("K11", (*a, *b, *c, gc, n, transposed),
+                                (a, b, c), None)
+    return cases
+
+
+def column_order(y, itemsize):
+    """``bank_order``'s stand-in that keeps Y's rows in column order (the
+    identity: Y's values are gathered as they lie)."""
+    key = ("column", itemsize)
+    if key not in y.plans:
+        y.plans[key] = (torch.arange(y.nnz, device=y.indices.device),
+                        y.indices)
+    return y.plans[key]
+
+
+def group_sweep(rng, size=4):
+    """Batched K9 and K11, both forms, ``size`` G's, values shared, at
+    each of SWEEP_SETTINGS: at each of SWEEP_POINTS (one member a block,
+    groups of 2 and of 4 at any lanes: ``_GROUP_SIZES`` and the lanes'
+    minimums set while the launch's record is built), the
+    group of 4 with Y's rows in column order
+    (``column_order``), the rule's own launch and the same members' single
+    launches, all in the same turns for one setting: events, the
+    kernels' device time, all the call's device time, the plans; held
+    against the plain version."""
+    import sparse_dot_tpu_torch as sdt
+
+    grad = sdt.ops.spgemm_grad
+    result = {}
+    for setting in SWEEP_SETTINGS:
+        dtype, itype, density = setting
+        label = (f"{np.dtype(dtype).name}, {np.dtype(itype).name}, X "
+                 f"{'demo 21.2%' if density is None else density}")
+        cases = sweep_cases(sdt, setting, rng, size)
+        fns, plain, plans = {}, {}, {}
+        points = dict(SWEEP_POINTS, **{"rule": None,
+                                       "members 4, column order": (4,)})
+        for point, sizes in points.items():
+            saved = (grad._GROUP_SIZES, grad._GROUP_MIN_LANES,
+                     grad._GROUP_MIN_LANES_DB, grad.bank_order)
+            if sizes is not None:
+                grad._GROUP_SIZES = sizes
+                grad._GROUP_MIN_LANES = grad._GROUP_MIN_LANES_DB = 1
+            if point.endswith("column order"):
+                grad.bank_order = column_order
+            try:
+                f, p, owners = sampled_fns(sdt, cases, size)
+                for name in cases:
+                    f[name]()  # the plan, runs and record, built now
+                    fns[f"{name}, {point}"] = f[name]
+                    plain[f"{name}, {point}"] = p[name]
+                    plans[f"{name}, {point}"] = launch_plan(owners[name])
+                    if point == "rule":
+                        key = f"{name}: {size} single launches"
+                        fns[f"{name}, {key}"] = f[key]
+            finally:
+                (grad._GROUP_SIZES, grad._GROUP_MIN_LANES,
+                 grad._GROUP_MIN_LANES_DB, grad.bank_order) = saved
+        if any(p.endswith("column order") for p in fns):
+            fns = {k: (_in_column_order(grad, fn)
+                       if k.endswith("column order") else fn)
+                   for k, fn in fns.items()}
+        result[label] = {"plans": plans, "ms": timed_fns(fns, plain)}
+    return {"shape": f"{size} G's, values shared; X 500 x 5000",
+            "by_setting": result}
+
+
+def _in_column_order(grad, fn):
+    """fn run with ``column_order`` in place of ``bank_order``."""
+    def run():
+        saved = grad.bank_order
+        grad.bank_order = column_order
+        try:
+            return fn()
+        finally:
+            grad.bank_order = saved
+    return run
+
+
+def launch_plan(pattern):
+    """The plan and runs of the batched launch record cached on P's
+    ``pattern`` (the one record of more than one member)."""
+    for key, rec in pattern.plans.items():
+        if key[0].endswith("-launch") and \
+                key[9 if key[0] == "k11-launch" else 10] > 1:
+            runs = rec.runs
+            return {"members": rec.plan.members,
+                    "lines_a_member": rec.plan.panel,
+                    "lanes": rec.plan.lanes,
+                    "items": None if runs is None else runs.items.numel() - 1,
+                    "runs": None if runs is None else runs.run_q.numel()}
+    return None
+
+
+def sampled_turns(packages, inputs, rng, size=4):
+    """Batched K9 and K11 (``sampled_cases``) and the same members' single
+    launches, through each of ``packages`` ({label: module name}), all in
+    the same turns: events, device time, host enqueue time, the error
+    against this checkout's plain versions."""
+    import importlib
+
+    fns, plain = {}, {}
+    cases = None
+    for label, name in packages.items():
+        sdt = importlib.import_module(name)
+        cases = sampled_cases(sdt, inputs, np.random.default_rng(
+            SEED + 27), size)
+        f, p, _ = sampled_fns(sdt, cases, size)
+        for key, fn in f.items():
+            fns[f"{label}: {key}"] = fn
+            if key in p:
+                plain[f"{label}: {key}"] = p[key]
+    return {"shape": f"{size} members, f64; case a: demo X @ X.T (500 x "
+                     "5000 21.2%), case c: 1M x 1M 2M nnz A @ A; values "
+                     "shared unless 'ensemble' (G and Y's values per "
+                     "member)", "packages": packages,
+            "ms": timed_fns(fns, plain)}
+
+
+def vmap_transforms(sdt, inp, rng):
+    """{name: fn} of phase 6's transforms through package ``sdt`` that
+    launch batched K7, K9 or K11 (``chip_smoke.batched_training`` and
+    ``batched_spgemm_training``, the same shapes): ``hessian`` of
+    sum(sin(``coo_spmm_raw``)) at JAC_PATTERN (K2, K7), the ensemble of 4
+    demo X's through ``csr_spgemm_dense`` (K6, K9), ``jacrev`` of
+    ``csr_spgemm_dense`` and ``hessian`` of sum(sin(``csr_spgemm``)) at
+    SPGEMM_JAC_PATTERN (K9; K4, K5, K11), and the ensemble of 4 1M² A's
+    through ``csr_spgemm`` (K4, K5, K11)."""
+    autograd, spgemm = sdt.ops.autograd, sdt.ops.spgemm
+    fns = {}
+    m, k, mean_row, n = chip_smoke.JAC_PATTERN
+    indptr, indices, data = chip_smoke.random_csr(rng, m, k, mean_row,
+                                                  np.float64)
+    r, c, v, b = (cuda(a) for a in (
+        np.repeat(np.arange(m), np.diff(indptr)).astype(np.int32), indices,
+        data, values(rng, (k, n), np.float64)))
+    fns["hessian_values_and_b_small_f64"] = lambda: torch.func.hessian(
+        lambda x, y: torch.sin(autograd.coo_spmm_raw(r, c, x, y, m)).sum(),
+        argnums=(0, 1))(v, b)
+    x = inp["x"]
+    A, B = sdt.formats.to_device(x), sdt.formats.to_device(x.T.tocsr())
+    ip, ix, dv = A.csr_arrays()
+    bip, bix, bdv = B.csr_arrays()
+    nx = x.shape[0]
+    target = cuda((x @ x.T).toarray())
+    avs = dv[None] * (1 + 0.1 * cuda(values(
+        rng, (chip_smoke.ENSEMBLE, ix.numel()), np.float64)))
+
+    def dense_loss(av, bv):
+        cc = spgemm.csr_spgemm_dense(ip, ix, av, bip, bix, bv, nx)
+        return ((cc - target) ** 2).sum()
+
+    fns["ensemble_grads_spgemm_dense_demo_f64"] = lambda: torch.func.vmap(
+        torch.func.grad(dense_loss, argnums=(0, 1)),
+        in_dims=(0, None))(avs, bdv)
+    mm, kk, nn, a_rows, b_rows = chip_smoke.SPGEMM_JAC_PATTERN
+    a_ip, a_ix, av, b_ip, b_ix, bv = (cuda(arr) for arr in (
+        *chip_smoke.distinct_rows(rng, np.resize(a_rows, mm), kk,
+                                  np.float64, np.int32),
+        *chip_smoke.distinct_rows(rng, np.resize(b_rows, kk), nn,
+                                  np.float64, np.int32)))
+    fns["jacrev_spgemm_dense_small_f64"] = lambda: torch.func.jacrev(
+        lambda z: spgemm.csr_spgemm_dense(a_ip, a_ix, z, b_ip, b_ix, bv,
+                                          nn))(av)
+    fns["hessian_spgemm_sparse_small_f64"] = lambda: torch.func.hessian(
+        lambda y, z: torch.sin(spgemm.csr_spgemm(
+            a_ip, a_ix, y, b_ip, b_ix, z, nn)[2]).sum(),
+        argnums=(0, 1))(av, bv)
+    A1 = sdt.formats.to_device(inp["a1m"])
+    p1, x1, d1 = A1.csr_arrays()
+    n1 = inp["a1m"].shape[1]
+    c1 = spgemm.csr_spgemm(p1, x1, d1, p1, x1, d1, n1)[2]
+    t1 = c1 * (1 + 0.1 * cuda(values(rng, c1.numel(), np.float64)))
+    avs1 = d1[None] * (1 + 0.1 * cuda(values(
+        rng, (chip_smoke.ENSEMBLE, x1.numel()), np.float64)))
+
+    def sparse_loss(aa, bb):
+        return ((spgemm.csr_spgemm(p1, x1, aa, p1, x1, bb, n1)[2] - t1)
+                ** 2).sum()
+
+    fns["ensemble_grads_spgemm_sparse_1m_f64"] = lambda: torch.func.vmap(
+        torch.func.grad(sparse_loss, argnums=(0, 1)),
+        in_dims=(0, None))(avs1, d1)
+    return fns
+
+
+def vmap_walls(packages, inp, reps=20):
+    """``vmap_transforms`` through each of ``packages`` ({label: module
+    name}), each timed host to host (a sync before and after) ``reps``
+    times, the packages in alternating turns (A B, B A, ...) after one
+    warm call each; the device's busy ms of one more call
+    (``device_busy_ms``) and the idle share of the median wall."""
+    import importlib
+
+    fns = {}
+    for label, name in packages.items():
+        sdt = importlib.import_module(name)
+        for key, fn in vmap_transforms(
+                sdt, inp, np.random.default_rng(SEED + 29)).items():
+            fns[key, label] = fn
+    times = {key: [] for key in fns}
+    for fn in fns.values():
+        fn()
+    labels = list(packages)
+    for rep in range(reps):
+        turn = labels if rep % 2 == 0 else labels[::-1]
+        for key in dict.fromkeys(k for k, _ in fns):
+            for label in turn:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fns[key, label]()
+                torch.cuda.synchronize()
+                times[key, label].append((time.perf_counter() - t0) * 1e3)
+    result = {}
+    for (key, label), fn in fns.items():
+        ms, p10, p90 = spread(times[key, label])
+        busy = chip_smoke.device_busy_ms(fn)
+        result.setdefault(key, {})[label] = {
+            "wall_ms": ms, "p10": p10, "p90": p90,
+            "min": min(times[key, label]), "device_busy_ms": busy,
+            "device_idle_share": None if busy is None else 1 - busy / ms}
+    return {"timer": f"host clock, a sync before and after, median of "
+                     f"{reps} turns, packages alternating",
+            "packages": packages, "walls": result}
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("mode", choices=("schedules", "members", "rows",
-                                         "route"))
+                                         "route", "groups", "sampled",
+                                         "walls"))
     parser.add_argument("--root", help="rows: time the package of the "
-                                       "checkout at ROOT instead; route: "
-                                       "time it beside this one")
+                                       "checkout at ROOT instead; route, "
+                                       "sampled and walls: time it beside "
+                                       "this one")
     parser.add_argument("--out", help="also write the JSON line here")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -400,6 +833,13 @@ def main():
         line.update(members_by_type(chip_smoke.path_inputs(), rng))
     elif args.mode == "route":
         line.update(route_rows(packages))
+    elif args.mode == "groups":
+        line.update(group_sweep(rng))
+    elif args.mode == "sampled":
+        line.update(sampled_turns(packages, chip_smoke.spgemm_inputs(),
+                                  rng))
+    elif args.mode == "walls":
+        line.update(vmap_walls(packages, chip_smoke.spgemm_inputs()))
     else:
         if not hasattr(sddmm, "batched_schedule"):
             # A checkout before member groups: its schedule, one member a

@@ -57,9 +57,12 @@
 // The kernel itself is in sampled.cuh, which K11
 // (csr_spgemm_sparse_sddmm.cu) shares for the lines it stages from a
 // sparse G; this file launches K9's modes.  A batch of members that share
-// P and Y's pattern is one launch there (the member on blockIdx.y, D, Y's
-// values and the output at member strides); the wrapper sizes the work
-// items over members x items (ops/spgemm_grad.py, sampled_batched).
+// P and Y's pattern is one launch there (D, Y's values and the output at
+// member strides), one member a block (blockIdx.y); where the members
+// share Y's values and the lines are staged, csr_spgemm_sddmm_group.cu
+// launches a group of 2 or 4 members a block instead.  The wrapper sizes
+// the work items over the member groups (ops/spgemm_grad.py, group_plan,
+// sampled_batched).
 #include "sampled.cuh"
 
 namespace sdt {

@@ -61,11 +61,12 @@
 //
 // A batch of members that share op(A)'s, op(B)'s and C's patterns (the
 // backward of a vmap over the values, jacrev's cotangents, a batch of
-// tangents) is one launch in either mode: the member is blockIdx.y, and
-// Y's values, G's values and the output each have a member stride, 0 for
-// an operand that all members share.  Staged, each block stages its own
-// member's panel of G (sampled.cuh, Strides); the runs are P's, shared.
-// A single product is the instance with BATCH false, whose code has no
+// tangents) is one launch in either mode: Y's values, G's values and the
+// output each have a member stride, 0 for an operand that all members
+// share; blockIdx.y is the member.  Where the members share Y's values
+// and the lines are staged, csr_spgemm_sparse_sddmm_group.cu launches a
+// group of 2 or 4 members a block instead.  The runs are P's, shared.  A
+// single product is the instance with BATCH false, whose code has no
 // member offsets.
 #include "sampled.cuh"
 

@@ -127,6 +127,21 @@ _PROTOTYPES = {
                                     _I64, _I64, _INT, _INT, _INT, _P, _P,
                                     _I64, _P, _P, _P, _P, _P, _P, _P, _INT,
                                     _INT, _INT, _I64, _I64, _I64, _I64, _P),
+    # dtype, itype, items, n_items, run_ptr, run_q, perm, line, d, se, sy,
+    # ne, ny, panel, pitch, y_indptr, y_indices, y_data, out, lanes,
+    # alpha_re, alpha_im, batch, s_d, s_out, group, stream
+    "sdt_csr_spgemm_sddmm_group": (_INT, _INT, _P, _I64, _P, _P, _P, _P, _P,
+                                   _I64, _I64, _I64, _I64, _INT, _INT, _P,
+                                   _P, _P, _P, _INT, _D, _D, _I64, _I64,
+                                   _I64, _INT, _P),
+    # dtype, itype, items, n_items, run_ptr, run_q, perm, line, ne, ny,
+    # panel, pitch, y_indptr, y_indices, y_data, c_indptr, c_indices, g,
+    # out, transposed, triangular, lanes, batch, s_g, s_out, group, stream
+    "sdt_csr_spgemm_sparse_sddmm_group": (_INT, _INT, _P, _I64, _P, _P, _P,
+                                          _P, _I64, _I64, _INT, _INT, _P,
+                                          _P, _P, _P, _P, _P, _P, _INT,
+                                          _INT, _INT, _I64, _I64, _I64,
+                                          _INT, _P),
     # dtype, itype, indptr, indices, data, out, m, k, rows_per_tile, stream
     "sdt_csr_densify": (_INT, _INT, _P, _P, _P, _P, _I64, _I64, _I64, _P),
     # itype, indptr, indices, out, m, k, rows_per_tile, stream

@@ -204,24 +204,26 @@ def aligned_members(*pairs):
                for t, st in pairs if t is not None)
 
 
-def check_members(name, index_tensors, operands):
+def check_members(name, index_tensors, operands, views=True):
     """``_check`` for a batched call: one CUDA device, one index and one
-    value dtype, no lazy view, each operand's members contiguous
-    (``member_stride``)."""
+    value dtype, no lazy view (``views=False``: the caller ran
+    ``refuse_views`` on these tensors), each operand's members contiguous
+    (``member_stride``).  Returns the operands' member strides."""
     values = [t for t, _ in operands if t is not None]
-    refuse_views(name, *index_tensors, *values)
+    if views:
+        refuse_views(name, *index_tensors, *values)
     device = values[0].device
     for t in (*index_tensors, *values):
         if t.device != device:
             raise ValueError(f"{name}: tensors on {t.device} and {device}")
     if not all(t.is_contiguous() for t in index_tensors):
         raise ValueError(f"{name}: operands must be contiguous")
-    for t, core in operands:
-        member_stride(name, t, core)
+    strides = [member_stride(name, t, core) for t, core in operands]
     if any(t.dtype != index_tensors[0].dtype for t in index_tensors):
         raise TypeError(f"{name}: indptr and indices dtypes differ")
     if any(t.dtype != values[0].dtype for t in values):
         raise TypeError(f"{name}: value dtypes differ")
+    return strides
 
 
 # ---------------------------------------------------------------------------

@@ -45,10 +45,14 @@ of ``lanes`` lanes serves with one load of that row.
 Batches (the backward of ``torch.func.vmap`` over the values, ``jacrev``'s
 cotangents, a batch of tangents): ``sampled_batched`` (K9) and
 ``sparse_sampled_batched`` (K11) take members that share the patterns,
-D (G) and Y's values each per member or shared, in one launch, the
-member on the grid's y dimension, on the runs that the single launch
-caches (its work items shared out over the members); each has a plain
-version vectorised over the members.
+D (G) and Y's values each per member or shared, in one launch.  Where
+the lines are staged, ``group_plan`` gives a thread block a group of 2
+or 4 members, which walks the runs and loads each row of Y once for all
+of them (the members' panels side by side in shared memory, fewer lines
+a member); elsewhere a block serves one member.  The work items are
+sized over the member groups, and the runs, the plan and the type codes
+are cached on P's pattern per launch shape (``SampledRecord``).  Each
+has a plain version vectorised over the members.
 """
 
 from typing import NamedTuple
@@ -135,6 +139,154 @@ def sampled_blocks_per_sm(plan, itemsize):
         return blocks
     smem = plan.panel * plan.pitch * itemsize
     return max(1, min(blocks, 227 * 1024 // smem))
+
+
+# A batch's staged lines (``group_plan``): where the members share Y's
+# values, a thread block of 1024 threads serves a group of 2 or 4 members
+# (``csrc/sampled.cuh``, sampled_group_kernel), one block an SM with
+# ``_GROUP_SMEM`` for the members' panels (the SM's 227 KB, less K11's
+# row bounds) and ``_GROUP_ITEMS`` work items a resident block.  Timed
+# (PERF.md): at case a (the demo's X @ X.T, f64, 4 G's) one block of 1024
+# threads in 226 KB beat two of 512 in 112 KB each at every group size,
+# and 2 items a block beat 1, 4 and 8; with Y's values per member, 2
+# members a group (a row of values a member in registers) ran slower
+# than the per-member kernel, so a group needs them shared.  The rule
+# tries ``_GROUP_SIZES``, largest first, at ``_GROUP_MIN_LANES`` lanes or
+# more, and in K11's dB form (which stages columns of G by searching C's
+# rows) at ``_GROUP_MIN_LANES_DB``: in f32, f64 and c128 with int32 and
+# int64 ids at 32 lanes, and in f64 at 8, a group of 4 beat 1 and 2 (in
+# K11's dB form, f32 and f64, 2 and 4 within 8% of each other either
+# way); at 2 and 4 lanes groups ran up to 2x slower (K9 at 4 lanes
+# level), and K11's dB form 1.3x slower at 8.
+_GROUP_SMEM = 226 * 1024
+_GROUP_ITEMS = 2
+_GROUP_SIZES = (4, 2)
+_GROUP_MIN_LANES = 8
+_GROUP_MIN_LANES_DB = 32
+
+
+class GroupPlan(NamedTuple):
+    """A batched launch's plan: ``SampledPlan``'s fields for one member's
+    lines (``panel`` lines a member), and ``members`` a thread block (1:
+    the per-member kernel)."""
+
+    lanes: int
+    panel: int
+    staged: bool
+    pitch: int
+    members: int = 1
+
+
+def group_round(lanes, members):
+    """Entries of a run a round of the group kernel takes: K9's round
+    (kRound = 4, at most the lanes) split over the members, at least 1."""
+    return max(1, min(4, lanes) // members)
+
+
+def group_fits(lanes, members, shared_y):
+    """Whether the group kernel takes ``members`` a group at ``lanes``
+    lanes: Y's values shared by the members, and a round's sums
+    (``group_round`` entries for each member) within one reduce-scatter
+    of the lanes (``csrc/csr_spgemm_sddmm_group.cu``, launch_lanes)."""
+    return (bool(shared_y) and members in (2, 4)
+            and group_round(lanes, members) * members <= lanes)
+
+
+def group_members(lanes, shared_y, min_lanes=None):
+    """Members a group of the staged kernel serves at once: at
+    ``min_lanes`` (``_GROUP_MIN_LANES``) lanes or more, the first of
+    ``_GROUP_SIZES`` that ``group_fits``; 1 (the per-member kernel) where
+    none does."""
+    if lanes < (_GROUP_MIN_LANES if min_lanes is None else min_lanes):
+        return 1
+    for members in _GROUP_SIZES:
+        if group_fits(lanes, members, shared_y):
+            return members
+    return 1
+
+
+def group_plan(single, itemsize, size, shared_d, shared_y, min_lanes=None):
+    """The ``GroupPlan`` of a batched launch of ``size`` members whose
+    single launch takes ``single`` (``sampled_plan`` or ``sparse_plan``),
+    for values of ``itemsize`` bytes: where ``single`` stages lines and
+    the batch has 2 or more members, ``group_members`` members a group
+    (at most 2 for a batch of 2), each member's panel as many lines as
+    fit ``_GROUP_SMEM`` beside the others' (one panel for all where D,
+    or G, is shared: ``shared_d``), at most SAMPLED_MAX_PANEL; half the
+    group where fewer than SAMPLED_MIN_STAGED lines a member fit, and the
+    per-member kernel on ``single``'s plan where no group does.
+    ``min_lanes``: as ``group_members``."""
+    if not single.staged or size < 2:
+        return GroupPlan(*single)
+    members = min(group_members(single.lanes, shared_y, min_lanes),
+                  2 if size == 2 else 4)
+    while members > 1:
+        if group_fits(single.lanes, members, shared_y):
+            panels = 1 if shared_d else members
+            panel = min(SAMPLED_MAX_PANEL,
+                        _GROUP_SMEM // (panels * single.pitch * itemsize))
+            if panel >= SAMPLED_MIN_STAGED:
+                return GroupPlan(single.lanes, panel, True, single.pitch,
+                                 members)
+        members //= 2
+    return GroupPlan(*single)
+
+
+def group_items(plan, itemsize, per_member, sms, size):
+    """Work items of a ``GroupPlan``'s launch of ``size`` members on a
+    card of ``sms`` SMs: ``per_member`` (the per-member kernel's items a
+    resident block, ``sampled_blocks_per_sm`` of them an SM) or
+    ``_GROUP_ITEMS`` (a group's, one block an SM) for each resident
+    block, shared out over the member groups."""
+    if plan.members == 1:
+        items = per_member * sms * sampled_blocks_per_sm(
+            SampledPlan(*plan[:4]), itemsize)
+    else:
+        items = _GROUP_ITEMS * sms
+    return -(-items // -(-size // plan.members))
+
+
+def bank_order(y, itemsize):
+    """(order, indices) for the CSR pattern ``y`` of Y, for the group
+    kernel: a permutation of each row's entries (int64), and the column
+    ids in that order, that deals the row's entries
+    round-robin over the shared-memory banks that a staged line's
+    elements at those ids fall in (bucketed by column mod B, B = 128 /
+    ``itemsize`` elements of one 128-byte wavefront: the first entry of
+    each bucket, then the second, ...).  The lanes of a group take a
+    row's entries in turn, so B lanes that read one staged line at once
+    mostly hit distinct banks, where a row in column order puts
+    neighbouring ids in one bank.  Y's values are gathered into this
+    order once a call (``_bank_values``); sums over a row are taken in
+    it.  Device ops, built once per pattern and value size and cached on
+    ``y.plans``."""
+    b = 128 // itemsize
+    key = ("bank", b)
+    if key not in y.plans:
+        with structure_only():
+            nnz = y.nnz
+            rows = expand_indptr(y.indptr, nnz)
+            res = y.indices.long() % b
+            pos = torch.arange(nnz, device=y.indices.device)
+            # Each entry's rank among its row's entries of its bucket.
+            by_bucket = torch.argsort(rows.long() * b + res, stable=True)
+            bucket = (rows.long() * b + res)[by_bucket]
+            first = torch.ones(nnz, dtype=torch.bool, device=pos.device)
+            first[1:] = bucket[1:] != bucket[:-1]
+            rank = torch.empty_like(pos)
+            rank[by_bucket] = pos - torch.cummax(
+                torch.where(first, pos, 0), 0).values
+            # By (row, rank, bucket): two stable sorts.
+            inner = torch.argsort(rank * b + res, stable=True)
+            order = inner[torch.argsort(rows[inner], stable=True)]
+            y.plans[key] = (order, y.indices[order])
+    return y.plans[key]
+
+
+def _bank_values(y_data, order):
+    """Y's values, shared by the members (1-d, or expanded along the
+    members), gathered in ``order``: one row for all of them."""
+    return (y_data[0] if y_data.dim() == 2 else y_data)[order]
 
 
 class SampledRuns(NamedTuple):
@@ -345,9 +497,10 @@ def sampled(indptr, indices, d, y_indptr, y_indices, y_data, alpha=None,
     out = torch.empty(nnz, dtype=d.dtype, device=d.device)
     if nnz == 0:
         return out
-    launch = _k9_launcher(indptr, indices, d, y_indptr, y_indices, alpha,
-                          transposed, pattern, ne, ny, 1)
-    launch(1, (0, 0, 0), d.data_ptr(), y_data.data_ptr(), out.data_ptr())
+    rec = _k9_record(indptr, indices, d, y_indptr, y_indices, transposed,
+                     pattern, ne, ny, 1, (0, 0, 0))
+    _k9_launch(rec, indptr, d, y_indptr, y_indices, y_data, out, alpha, 1,
+               (0, 0, 0), 0, _build.stream_of(d))
     return out
 
 
@@ -360,11 +513,12 @@ def sampled_batched(indptr, indices, d, y_indptr, y_indices, y_data,
     at least one with the member dimension, each member contiguous; an
     operand without it (or expanded along it) is shared, read in place by
     every member.  Returns a new (B, nnz(P)) tensor.  One launch on the
-    card (one per ``_build.MAX_MEMBERS`` members) on the runs cached on
-    P's pattern, their work items sized over members x items; counted in
-    ``csr_spgemm_sddmm.launches`` and ``launches_batched``.  The batched
-    plain version on the CPU.  Raises as ``sampled`` does where the
-    operands do not fit."""
+    card (one per ``_build.MAX_MEMBERS`` members) on the plan of
+    ``group_plan``: where it stages lines, a block serves a group of
+    members at once; the runs and the launch's record are cached on P's
+    pattern (``_k9_record``).  Counted in ``csr_spgemm_sddmm.launches``
+    and ``launches_batched``.  The batched plain version on the CPU.
+    Raises as ``sampled`` does where the operands do not fit."""
     refuse_views("csr_spgemm_sddmm", indptr, indices, d, y_indptr,
                  y_indices, y_data)
     operands = ((d, 2), (y_data, 1))
@@ -395,65 +549,108 @@ def sampled_batched(indptr, indices, d, y_indptr, y_indices, y_data,
     if not d.is_cuda:
         raise ValueError(f"csr_spgemm_sddmm: no kernel for device "
                          f"{d.device}")
-    check_members("csr_spgemm_sddmm", (indptr, indices, y_indptr, y_indices),
-                  operands)
+    strides = check_members("csr_spgemm_sddmm",
+                            (indptr, indices, y_indptr, y_indices),
+                            operands, views=False)
     nnz = indices.numel()
     out = torch.empty((size, nnz), dtype=d.dtype, device=d.device)
     if nnz == 0 or size == 0:
         return out
-    launch = _k9_launcher(indptr, indices, d, y_indptr, y_indices, alpha,
-                          transposed, pattern, ne, ny, size)
-    strides = (member_stride("csr_spgemm_sddmm", d, 2),
-               member_stride("csr_spgemm_sddmm", y_data, 1), nnz)
+    strides = (*strides, nnz)
+    rec = _k9_record(indptr, indices, d, y_indptr, y_indices, transposed,
+                     pattern, ne, ny, size, strides)
+    if rec.plan.members > 1:
+        # A group reads Y's rows in bank order, its values gathered once.
+        order, y_indices = bank_order(y_pattern, d.element_size())
+        y_data = _bank_values(y_data, order)
+    stream = _build.stream_of(d)
     for first, count in member_chunks(size):
-        launch(count, strides, *(member_ptr(t, st, first) for t, st in
-                                 zip((d, y_data, out), strides)))
+        _k9_launch(rec, indptr, d, y_indptr, y_indices, y_data, out, alpha,
+                   count, strides, first, stream)
         csr_spgemm_sddmm.launches_batched += 1
     return out
 
 
-def _k9_launcher(indptr, indices, d, y_indptr, y_indices, alpha, transposed,
-                 pattern, ne, ny, members):
-    """K9's launch for P (``indptr``, ``indices``; its ``CsrPattern``
-    ``pattern`` caches the runs) and Y's pattern, d's lines of ``ne`` x
-    ``ny`` (d's last two dimensions): ``launch(count, strides, d, y_data,
-    out)`` launches for ``count`` members at ``strides`` (d, Y's values,
-    the output) given the addresses.  The plan is the single launch's;
-    its work items, one wave's worth, are shared out over ``members``
-    members (at least one item a panel).  Counted in
-    ``csr_spgemm_sddmm.launches``."""
+class SampledRecord(NamedTuple):
+    """What a K9 or K11 launch needs besides the operands' addresses,
+    built once per P's pattern and launch shape and cached with the runs
+    (``_k9_record``, ``_k11_record``): the ``GroupPlan``, the runs (None
+    where lines are read in place), the type codes, and ``dims``: K9's
+    (se, sy, ne, ny), a line's step and an element's in d and the lines'
+    count and length; K11's (ne, ny)."""
+
+    plan: "GroupPlan"
+    runs: "SampledRuns"
+    codes: tuple
+    dims: tuple
+
+
+def _k9_record(indptr, indices, d, y_indptr, y_indices, transposed,
+               pattern, ne, ny, size, strides):
+    """K9's ``SampledRecord`` for P (``indptr``, ``indices``; its
+    ``CsrPattern`` ``pattern`` caches the record and the runs), Y's
+    pattern, d's lines of ``ne`` x ``ny`` (d's last two dimensions) and a
+    launch of ``size`` members at member ``strides`` (d, Y's values, the
+    output; 1 and zeros for one product): the plan is ``group_plan``'s,
+    its work items (``group_items``: ``_ITEMS_STAGED`` or
+    ``_ITEMS_IN_PLACE`` a resident block of the per-member kernel, or a
+    group's) shared out over the member groups.  Keyed on all that the plan and the runs depend
+    on, so a record (and the runs) sized for one group size is never
+    reused for another."""
     y_rows = y_indptr.numel() - 1
+    key = ("k9-launch", bool(transposed), ne, ny, d.shape[-1], y_rows,
+           y_indices.numel(), d.dtype, indices.dtype, d.device, size,
+           strides[0] == 0, strides[1] == 0)
+    rec = pattern.plans.get(key)
+    if rec is not None:
+        return rec
     itemsize = d.element_size()
-    plan = sampled_plan(ny, itemsize, y_indices.numel() / max(y_rows, 1),
-                        transposed)
+    single = sampled_plan(ny, itemsize, y_indices.numel() / max(y_rows, 1),
+                          transposed)
+    plan = group_plan(single, itemsize, size, strides[0] == 0,
+                      strides[1] == 0)
     sms = torch.cuda.get_device_properties(d.device).multi_processor_count
-    items = ((_ITEMS_STAGED if plan.staged else _ITEMS_IN_PLACE)
-             * sms * sampled_blocks_per_sm(plan, itemsize))
-    items = -(-items // members)
-    key = ("k9", bool(transposed), plan.panel, y_rows, items)
-    if key not in pattern.plans:
+    items = group_items(plan, itemsize, _ITEMS_STAGED if plan.staged
+                        else _ITEMS_IN_PLACE, sms, size)
+    run_key = ("k9", bool(transposed), plan.panel, y_rows, items,
+               plan.members)
+    if run_key not in pattern.plans:
         with structure_only():
-            pattern.plans[key] = sampled_runs(indptr, indices, transposed,
-                                              plan.panel, y_rows, items)
-    runs = pattern.plans[key]
+            pattern.plans[run_key] = sampled_runs(
+                indptr, indices, transposed, plan.panel, y_rows, items)
     # A line's elements lie 1 apart along a row of d (dA) or ld apart
     # down a column (dB); lines lie ld or 1 apart.
     se, sy = (1, d.shape[-1]) if transposed else (d.shape[-1], 1)
-    dt, it = _build.type_codes(d, indptr)
-    stream = _build.stream_of(d)
+    rec = SampledRecord(plan, pattern.plans[run_key],
+                        _build.type_codes(d, indptr), (se, sy, ne, ny))
+    pattern.plans[key] = rec
+    return rec
 
-    def launch(count, strides, d_ptr, y_ptr, out_ptr):
-        _build.launch(
-            "sdt_csr_spgemm_sddmm", dt, it, runs.items.data_ptr(),
-            runs.items.numel() - 1, runs.run_ptr.data_ptr(),
-            runs.run_q.data_ptr(), runs.perm.data_ptr(),
-            runs.line.data_ptr(), d_ptr, se, sy, ne, ny, plan.panel,
-            plan.pitch, int(plan.staged), y_indptr.data_ptr(),
-            y_indices.data_ptr(), y_ptr, out_ptr, plan.lanes,
-            *_build.scalar_parts(alpha), count, *strides, stream)
-        csr_spgemm_sddmm.launches += 1
 
-    return launch
+def _k9_launch(rec, indptr, d, y_indptr, y_indices, y_data, out, alpha,
+               count, strides, first, stream):
+    """One launch of K9 on ``rec`` for ``count`` members from ``first``
+    at ``strides`` (d, Y's values, the output): a group of members a
+    block where the plan says so and the launch has 2 or more, else one
+    member a block; counted in ``csr_spgemm_sddmm.launches``."""
+    plan, runs = rec.plan, rec.runs
+    group = plan.members > 1 and count > 1
+    arrays = (*rec.codes, runs.items.data_ptr(), runs.items.numel() - 1,
+              runs.run_ptr.data_ptr(), runs.run_q.data_ptr(),
+              runs.perm.data_ptr(), runs.line.data_ptr(),
+              member_ptr(d, strides[0], first), *rec.dims, plan.panel,
+              plan.pitch)
+    y = (y_indptr.data_ptr(), y_indices.data_ptr(),
+         member_ptr(y_data, strides[1], first),
+         member_ptr(out, strides[2], first), plan.lanes,
+         *_build.scalar_parts(alpha), count)
+    if group:
+        _build.launch("sdt_csr_spgemm_sddmm_group", *arrays, *y, strides[0],
+                      strides[2], plan.members, stream)
+    else:
+        _build.launch("sdt_csr_spgemm_sddmm", *arrays, int(plan.staged), *y,
+                      *strides, stream)
+    csr_spgemm_sddmm.launches += 1
 
 
 def _check_ids(pattern, p_cols, y_pattern, ny, transposed, d_shape):
@@ -532,22 +729,36 @@ def sparse_plan(line, itemsize, mean_y_row, budget=None):
     return plan if plan.staged else plan._replace(panel=0)
 
 
-def sparse_schedule(p, y, line, itemsize, transposed, sms, members=1):
-    """(``SampledPlan``, runs) of K11 for P's ``CsrPattern`` ``p`` (op(A)
+def sparse_group_plan(single, itemsize, size, shared, transposed):
+    """K11's ``group_plan`` for a launch of ``size`` members whose G and
+    Y's values are or are not ``shared``: in the dB form (``transposed``)
+    a group from ``_GROUP_MIN_LANES_DB`` lanes."""
+    return group_plan(single, itemsize, size, *shared,
+                      _GROUP_MIN_LANES_DB if transposed else None)
+
+
+def sparse_schedule(p, y, line, itemsize, transposed, sms, members=1,
+                    shared=(False, False)):
+    """(``GroupPlan``, runs) of K11 for P's ``CsrPattern`` ``p`` (op(A)
     in the dA form, op(B) in the dB form), Y's ``y`` and lines of G of
-    ``line`` elements on a card of ``sms`` SMs: the runs
-    (``sampled_runs``, work items for ``_SPARSE_ITEMS`` a resident block,
-    shared out over a batch's ``members``) where the plan stages lines,
-    else None.  The runs depend on P's pattern and the panel alone, never
-    on C: they are cached on ``p``'s ``plans`` and built once over a
+    ``line`` elements on a card of ``sms`` SMs, for a launch of
+    ``members`` members whose G and Y's values are or are not
+    ``shared``: ``sparse_group_plan``'s plan on ``sparse_plan``'s, and
+    the
+    runs (``sampled_runs``, ``group_items``' work items:
+    ``_SPARSE_ITEMS`` a resident block of the per-member kernel, or a
+    group's) where the plan stages lines, else None.  The runs depend on
+    P's pattern, the panel and the work items alone, never on C: they are
+    cached on ``p``'s ``plans`` (keyed with the group's members too, so
+    runs sized for one group size serve no other) and built once over a
     training loop whose C tensors are new at every step."""
     k = y.shape[0]
-    plan = sparse_plan(line, itemsize, y.nnz / max(k, 1))
+    plan = sparse_group_plan(sparse_plan(line, itemsize, y.nnz / max(k, 1)),
+                             itemsize, members, shared, transposed)
     if not plan.staged:
         return plan, None
-    items = _SPARSE_ITEMS * sms * sampled_blocks_per_sm(plan, itemsize)
-    items = -(-items // members)
-    key = ("k11", bool(transposed), plan.panel, k, items)
+    items = group_items(plan, itemsize, _SPARSE_ITEMS, sms, members)
+    key = ("k11", bool(transposed), plan.panel, k, items, plan.members)
     if key not in p.plans:
         with structure_only():
             p.plans[key] = sampled_runs(p.indptr, p.indices, transposed,
@@ -666,9 +877,9 @@ def sparse_sampled(a_indptr, a_indices, a_data, b_indptr, b_indices, b_data,
                       device=g.device)
     if out.numel() == 0:
         return out
-    launch, y_data = _k11_launcher(a, a_data, b, b_data, c, g, n, transposed,
-                                   triangular, 1)
-    launch(1, (0, 0, 0), y_data.data_ptr(), g.data_ptr(), out.data_ptr())
+    rec, p, *y = _k11_record(a, a_data, b, b_data, g, n, transposed)
+    _k11_launch(rec, p, *y, c, g, out, transposed, triangular, 1,
+                (0, 0, 0), 0, _build.stream_of(g))
     return out
 
 
@@ -684,9 +895,10 @@ def sparse_sampled_batched(a_indptr, a_indices, a_data, b_indptr, b_indices,
     place by every member (the dB form's op(A)^T values are gathered once
     for the batch, ``a_data[..., order]``).  Returns a new (B, nnz(P))
     tensor, P = op(A) (dA) or op(B) (dB).  One launch on the card (one per
-    ``_build.MAX_MEMBERS`` members), staged on the runs cached on P's
-    pattern (work items shared out over the members) or in place; counted
-    in ``csr_spgemm_sparse_sddmm.launches`` and ``launches_batched``.  The
+    ``_build.MAX_MEMBERS`` members) on the plan of ``group_plan``: staged
+    on the runs cached on P's pattern, a group of members a block where
+    they share Y's values, or in place; counted in
+    ``csr_spgemm_sparse_sddmm.launches`` and ``launches_batched``.  The
     batched plain version on the CPU.  ``a``, ``b``, ``c`` and the checks
     as in ``sparse_sampled``."""
     refuse_views("csr_spgemm_sparse_sddmm", a_indptr, a_indices, a_data,
@@ -703,20 +915,21 @@ def sparse_sampled_batched(a_indptr, a_indices, a_data, b_indptr, b_indices,
     if not g.is_cuda:
         raise ValueError(f"csr_spgemm_sparse_sddmm: no kernel for device "
                          f"{g.device}")
-    check_members("csr_spgemm_sparse_sddmm",
-                  (a_indptr, a_indices, b_indptr, b_indices, c_indptr,
-                   c_indices), operands)
+    *_, s_g = check_members(
+        "csr_spgemm_sparse_sddmm",
+        (a_indptr, a_indices, b_indptr, b_indices, c_indptr, c_indices),
+        operands, views=False)
     nnz = (b if transposed else a).nnz
     out = torch.empty((size, nnz), dtype=g.dtype, device=g.device)
     if nnz == 0 or size == 0:
         return out
-    launch, y_data = _k11_launcher(a, a_data, b, b_data, c, g, n, transposed,
-                                   triangular, size)
-    strides = (member_stride("csr_spgemm_sparse_sddmm", y_data, 1),
-               member_stride("csr_spgemm_sparse_sddmm", g, 1), nnz)
+    rec, p, *y = _k11_record(a, a_data, b, b_data, g, n, transposed, size,
+                             s_g == 0)
+    strides = (member_stride("csr_spgemm_sparse_sddmm", y[2], 1), s_g, nnz)
+    stream = _build.stream_of(g)
     for first, count in member_chunks(size):
-        launch(count, strides, *(member_ptr(t, st, first) for t, st in
-                                 zip((y_data, g, out), strides)))
+        _k11_launch(rec, p, *y, c, g, out, transposed, triangular, count,
+                    strides, first, stream)
         csr_spgemm_sparse_sddmm.launches_batched += 1
     return out
 
@@ -738,45 +951,80 @@ def _sparse_patterns(a_indptr, a_indices, b_indptr, b_indices, c_indptr,
     return a, b, c
 
 
-def _k11_launcher(a, a_data, b, b_data, c, g, n, transposed, triangular,
-                  members):
-    """(launch, Y's values) of K11 for op(A), op(B) and C's
-    patterns ``a``, ``b``, ``c``: P is op(A) with Y = op(B) (dA) or op(B)
-    with Y = op(A)^T (dB, its values ``a_data[..., order]`` through op(A)'s
-    cached transpose).  ``launch(count, strides, y_data, g, out)``
-    launches for ``count`` members at ``strides`` (Y's values, G, the
-    output) given the addresses, staged on the runs of
-    ``sparse_schedule`` (items shared out over ``members``) or in place.
-    Counted in ``csr_spgemm_sparse_sddmm.launches``; P holds entries."""
+def _k11_record(a, a_data, b, b_data, g, n, transposed, size=1,
+                shared_g=False):
+    """(``SampledRecord``, P, Y's indptr, indices and values) of a K11
+    launch of ``size`` members for op(A), op(B) and their
+    ``CsrPattern``s ``a``, ``b``, G shared by the members or not
+    (``shared_g``): P is op(A) with Y = op(B) (dA), or op(B) with Y =
+    op(A)^T (dB, its values gathered from ``a_data`` through op(A)'s
+    cached transpose, once for the batch).  Where the plan gives a block
+    a group of members, Y's rows come in ``bank_order``, the members'
+    shared values gathered once in that order (in the dB form through
+    both orders, composed once per pattern).  The record
+    (``sparse_schedule``'s plan and runs, the type codes, (ne, ny)) is
+    cached on P's pattern, keyed on all that the plan and the runs depend
+    on."""
     if transposed:
-        t, order = a.transpose()
-        p, y, y_data = b, t, a_data[..., order]
+        p, (y, order) = b, a.transpose()
+        src = a_data
     else:
-        p, y, y_data = a, b, b_data
-    m = c.shape[0]
-    sms = torch.cuda.get_device_properties(g.device).multi_processor_count
-    plan, runs = sparse_schedule(p, y, m if transposed else n,
-                                 g.element_size(), transposed, sms, members)
+        p, y, order, src = a, b, None, b_data
+    m = a.shape[0]
+    shared = (bool(shared_g), src.dim() == 1 or src.stride(0) == 0)
+    key = ("k11-launch", bool(transposed), m, n, y.shape[0], y.nnz, g.dtype,
+           a.indptr.dtype, g.device, size, *shared)
+    rec = p.plans.get(key)
+    if rec is None:
+        sms = torch.cuda.get_device_properties(
+            g.device).multi_processor_count
+        plan, runs = sparse_schedule(p, y, m if transposed else n,
+                                     g.element_size(), transposed, sms,
+                                     size, shared)
+        rec = SampledRecord(plan, runs, _build.type_codes(g, a.indptr),
+                            (n, m) if transposed else (m, n))
+        p.plans[key] = rec
+    if rec.plan.members == 1:
+        return (rec, p, y.indptr, y.indices,
+                src if order is None else src[..., order])
+    bank, y_indices = bank_order(y, g.element_size())
+    if order is not None:
+        gather = ("bank-gather", g.element_size())
+        if gather not in y.plans:
+            y.plans[gather] = order[bank]
+        bank = y.plans[gather]
+    return rec, p, y.indptr, y_indices, _bank_values(src, bank)
+
+
+def _k11_launch(rec, p, y_indptr, y_indices, y_data, c, g, out, transposed,
+                triangular, count, strides, first, stream):
+    """One launch of K11 on ``rec`` (``_k11_record``) for ``count``
+    members from ``first`` at ``strides`` (Y's values, G, the output):
+    staged on the record's runs, a group of members a block where the
+    plan says so and the launch has 2 or more, or one member a block,
+    staged or in place; counted in
+    ``csr_spgemm_sparse_sddmm.launches``."""
+    plan, runs = rec.plan, rec.runs
+    args = (y_indptr.data_ptr(), y_indices.data_ptr(),
+            member_ptr(y_data, strides[0], first), c.indptr.data_ptr(),
+            c.indices.data_ptr(), member_ptr(g, strides[1], first),
+            member_ptr(out, strides[2], first), int(transposed),
+            int(triangular), plan.lanes, count)
     # The runs' arrays, or null pointers where lines are read in place.
     staged = (0,) * 6 if runs is None else (
         runs.items.data_ptr(), runs.items.numel() - 1,
         runs.run_ptr.data_ptr(), runs.run_q.data_ptr(),
         runs.perm.data_ptr(), runs.line.data_ptr())
-    codes = _build.type_codes(g, a.indptr)
-    stream = _build.stream_of(g)
-
-    def launch(count, strides, y_ptr, g_ptr, out_ptr):
-        _build.launch(
-            "sdt_csr_spgemm_sparse_sddmm", *codes, *staged,
-            n if transposed else m, m if transposed else n, plan.panel,
-            plan.pitch, int(plan.staged), p.indptr.data_ptr(),
-            p.indices.data_ptr(), p.shape[0], y.indptr.data_ptr(),
-            y.indices.data_ptr(), y_ptr, c.indptr.data_ptr(),
-            c.indices.data_ptr(), g_ptr, out_ptr, int(transposed),
-            int(triangular), plan.lanes, count, *strides, stream)
-        csr_spgemm_sparse_sddmm.launches += 1
-
-    return launch, y_data
+    if plan.members > 1 and count > 1:
+        _build.launch("sdt_csr_spgemm_sparse_sddmm_group", *rec.codes,
+                      *staged, *rec.dims, plan.panel, plan.pitch, *args,
+                      strides[1], strides[2], plan.members, stream)
+    else:
+        _build.launch("sdt_csr_spgemm_sparse_sddmm", *rec.codes, *staged,
+                      *rec.dims, plan.panel, plan.pitch, int(plan.staged),
+                      p.indptr.data_ptr(), p.indices.data_ptr(), p.shape[0],
+                      *args, *strides, stream)
+    csr_spgemm_sparse_sddmm.launches += 1
 
 
 def _check_sparse_ids(a, a_data, b, b_data, c, g, batched=False):
