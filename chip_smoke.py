@@ -20,12 +20,14 @@ Phases, each printing one JSON line:
    latter misaligned, so scalar), and K3 CSR SpMV, both with empty rows,
    nnz == 0 and a row at least 3x K2's chunk and K3's tile (split, summed
    in chunk order; run twice, same bits).  K1 BSR SpMM in both
-   variants: the tensor-core one (real values, bs in {8, 16, 24, 64,
-   128, 256}) and the CUDA-core one (complex values, and bs in {1, 3}),
-   at n in {1, 37, 64, 256}, with empty block rows, no stored block, a
-   block row at least 3x the chunk length (split and summed; run twice,
+   variants: the tensor-core one (bs in {8, 16, 24, 64, 128, 256}, every
+   value type, complex values on its complex instances) and the
+   CUDA-core one (bs in {1, 3}), at n in {1, 37, 64, 256}, with empty
+   block rows, no stored block, a block row at least 3x the chunk
+   length (split and summed; run twice,
    same bits), f32 values log-uniform over 1e-3..1e3 (plain TF32 would
-   fail) and inf in A and B; each call's variant is checked by the
+   fail) and inf in A and B (complex values too, -inf in imaginary parts,
+   with alpha, beta and C0); each call's variant is checked by the
    per-variant launch counts.  K2 and K3 on complex values with inf in A
    and in B against scipy (the same inf/nan parts).  K4 + K5 (sparse x
    sparse, count then fill) against the plain expand-sort-compress with
@@ -57,10 +59,11 @@ Phases, each printing one JSON line:
    whose rows repeat a column that ROADMAP's fault 1 names: the same
    ``ValueError`` on the CPU and on the card, raw and tracked, and no
    launch.  K8 block SDDMM (BSR SpMM's gradient in the blocks) in both
-   variants (real values with bs % 8 == 0 on the tensor cores, the rest
-   on the CUDA cores; each call's variant checked by the per-variant
-   counts) against its plain version at bs in {1, 3, 8, 16, 24, 64, 128}
-   and n in {1, 37, 64, 256}, with and without alpha, on G and B and on
+   variants (bs % 8 == 0 on the tensor cores in every value type, the
+   rest on the CUDA cores; each call's variant checked by the
+   per-variant counts) against its plain version at bs in
+   {1, 3, 8, 16, 24, 64, 128} and n in {1, 37, 64, 256}, with and
+   without alpha, on G and B and on
    views of them one row into a buffer, with empty block rows and no
    stored block, and with inf in G and B at bs 3, 8 and 64; K9, the
    sampled sparse-row product (the dense-output SpGEMM's value
@@ -138,7 +141,7 @@ Phases, each printing one JSON line:
    sizes, against the scipy oracle at the reference's decimal=6 (f64)
    and decimal=5 (f32), with each kernel's launch count checked (the
    config-3 and dense x BSR calls on K1's tensor-core variant, a complex
-   BSR on its CUDA-core one); then, with the counts set to 0 again, the
+   BSR on its complex instances); then, with the counts set to 0 again, the
    sparse x sparse path: the reference demo's X @ X.T (f64, f32, dense
    with ``out``) and its gram, BASELINE config 4's complex gram, a
    1M x 1M A @ A, config 3's BSR x BSR and a 50k-row ``sypr``; in both,
@@ -185,8 +188,11 @@ Phases, each printing one JSON line:
    rate each reaches over them; K8 at config 3 (bs 64, n = 256, f64 and
    f32, tensor cores) beside ``torch.bmm`` of the strips gathered
    beforehand and, in the same turns, its CUDA-core variant (the kernel
-   that served every value type before), and its CUDA-core variant at the
-   complex BSR (c128, bs 16, n = 64); K9 at cases a and d in both forms
+   that served every value type before), and at the complex BSR (bs 16,
+   n = 64) in c128 and c64 on the tensor cores' complex instances beside
+   the CUDA-core variant launched directly, then
+   the CUDA-core variant's own row (K1 the same at that BSR, beside
+   ``torch.sparse.mm``); K9 at cases a and d in both forms
    beside op(B) (op(A)) densified and ``torch.sparse.sampled_addmm`` and,
    for dB, in the same turns, the copy of G^T a backward without the dB
    form makes; K11 at cases a and c in both forms (G random on C's
@@ -206,7 +212,8 @@ Phases, each printing one JSON line:
    (``k7_batched_rows``: through ``CsrSddmm``, beside
    ``sampled_addmm`` given the shared operand expanded into a copy),
    K1 and K8 at config 3 (bs 64, f64) and at the complex BSR over 4
-   members, beside their rows' yardsticks made once a member; K6 at the
+   members, beside their rows' yardsticks made once a member (the complex
+   ones also beside the CUDA-core variant's batched launch); K6 at the
    demo X @ X.T over 4 and 16 value sets, K9 there in both forms over 4
    G's, K11 at cases a and c in both forms over 4 G's (patterns given as
    ``CsrSpgemmSparseSddmm`` gives them) and K5 at case c over 4 value
@@ -271,9 +278,11 @@ Phases, each printing one JSON line:
    busy ms of an f64 step in a ``torch.profiler`` trace.  Then, each with
    the counts set to 0 again: 15 f64 SGD steps through ``ops.bsr_spmm``
    on config 3's blocks and b (K1 forward, K8 and K1 over A^H backward,
-   on the tensor cores) and 5 on a 4000^2 BSR of 20 x 20 blocks (on the
-   CUDA cores), and 10 through ``csr_spgemm_dense`` on the demo X's
-   values as op(A) and a copy of X^T's CSR as op(B) (K6 forward, K9
+   on the tensor cores), 5 on a 4000^2 BSR of 20 x 20 blocks (on the
+   CUDA cores) and 5 on a 4000^2 c128 BSR of 16 x 16 blocks (on the
+   tensor cores' complex instances), and 10 through
+   ``csr_spgemm_dense`` on the demo X's values as op(A) and a copy of
+   X^T's CSR as op(B) (K6 forward, K9
    twice backward), plus one step with ``triangular``; 10 through
    ``csr_spgemm`` (sparse output) on case c's 1M^2 A @ A, both operands'
    values on A's one pattern trained toward (A @ A)'s values (K4 + K5
@@ -294,7 +303,9 @@ Phases, each printing one JSON line:
    launches, wall ms, the device's busy ms and the same work one member
    at a time in the same turns: per-sample gradients over 16 right-hand
    sides at config 1 (K2 1, folded; K7 1, batched), an ensemble over 4
-   block sets at config 3 (K1 1, K8 1, batched), ``jacrev`` of
+   block sets at config 3 (K1 1, K8 1, batched), per-sample gradients
+   over 4 b's at the complex BSR (c128, bs 16: K1 2, folded; K8 1,
+   batched; the tensor cores' complex instances), ``jacrev`` of
    ``coo_spmm_raw`` in the values at a small pattern (K2 1, K7 1) and
    ``hessian`` of sum(sin(.)) in (values, b) there (K2 6, K7 3), against
    the plain versions; then the sparse x sparse ones
@@ -349,7 +360,11 @@ and phase 7 and prints no result line; ``--only batched`` runs phase 1,
 ``batched_training``, and prints no result line; ``--only densify`` runs
 phase 1, ``check_k12``, ``check_k13``, ``densify_path`` (with
 ``sparse_path``), ``k12_rows``, ``k13_rows`` and ``densify_sweep``, and
-prints no result line.
+prints no result line; ``--only bsr`` runs phase 1, K1's and K8's
+phase-2 checks (``check_k1`` and ``check_bsr_batched`` in every value
+type, ``check_k1_special``, K8's part of ``check_k8_k9``), ``k1_rows``,
+``k8_rows``, ``bsr_batched_rows``, K8's phase-6 runs and
+``complex_bsr_vmap``, and prints no result line.
 """
 
 import argparse
@@ -394,6 +409,10 @@ KERNELS = {
         "source": "sparse_dot_tpu_torch/csrc/bsr_spmm.cu",
         "replaces": "sparse_dot_tpu/ops/pallas_bsr.py:57",
     },
+    "K1_bsr_spmm_tc_complex": {
+        "source": "sparse_dot_tpu_torch/csrc/bsr_spmm.cu",
+        "replaces": "sparse_dot_tpu/ops/pallas_bsr.py:57",
+    },
     "K1_bsr_spmm_simt": {
         "source": "sparse_dot_tpu_torch/csrc/bsr_spmm_simt.cu",
         "replaces": "sparse_dot_tpu/ops/pallas_bsr.py:57",
@@ -423,6 +442,10 @@ KERNELS = {
         "replaces": "sparse_dot_tpu/ops/_xla.py:178",
     },
     "K8_bsr_sddmm_tc": {
+        "source": "sparse_dot_tpu_torch/csrc/bsr_sddmm.cu",
+        "replaces": "sparse_dot_tpu/ops/_xla.py:799",
+    },
+    "K8_bsr_sddmm_tc_complex": {
         "source": "sparse_dot_tpu_torch/csrc/bsr_sddmm.cu",
         "replaces": "sparse_dot_tpu/ops/_xla.py:799",
     },
@@ -747,18 +770,43 @@ K1_CASES = (
 K1_NS = (1, 37, 64, 256)
 
 
+def variant_name(kernel, dtype, bs):
+    """The KERNELS entry of the K1 (``kernel`` "K1_bsr_spmm") or K8
+    ("K8_bsr_sddmm") variant that serves ``dtype`` in bs x bs blocks: the
+    tensor cores (their complex instances apart) or the CUDA cores."""
+    from sparse_dot_tpu_torch.ops import bsr
+
+    if not bsr.uses_tensor_cores(dtype, bs):
+        return f"{kernel}_simt"
+    return f"{kernel}_tc_complex" if dtype.is_complex else f"{kernel}_tc"
+
+
+def variant_counts(wrapper):
+    """(tensor cores on real values, on complex values, CUDA cores): the
+    launches of ``bsr.bsr_spmm`` or ``bsr.bsr_sddmm`` by variant."""
+    return (wrapper.launches_tc - wrapper.launches_tc_complex,
+            wrapper.launches_tc_complex, wrapper.launches_simt)
+
+
+def variant_delta(dtype, bs, count=1):
+    """``variant_counts``' change when ``count`` launches take the variant
+    that serves ``dtype`` and bs."""
+    name = variant_name("K", dtype, bs)
+    return tuple(count * (name == f"K_{v}")
+                 for v in ("tc", "tc_complex", "simt"))
+
+
 def k1_call(*args):
     """(variant, bsr_spmm(*args)): the K1 variant that the value type and
     block size select, checked to be the one the launch counts show."""
     from sparse_dot_tpu_torch.ops import bsr
 
     data = args[2]
-    tc = bsr.uses_tensor_cores(data.dtype, data.shape[1])
-    before = (bsr.bsr_spmm.launches_tc, bsr.bsr_spmm.launches_simt)
+    before = variant_counts(bsr.bsr_spmm)
     out = bsr.bsr_spmm(*args)
-    variant = "K1_bsr_spmm_tc" if tc else "K1_bsr_spmm_simt"
-    if (bsr.bsr_spmm.launches_tc - before[0],
-            bsr.bsr_spmm.launches_simt - before[1]) != (tc, not tc):
+    variant = variant_name("K1_bsr_spmm", data.dtype, data.shape[1])
+    got = tuple(a - b for a, b in zip(variant_counts(bsr.bsr_spmm), before))
+    if got != variant_delta(data.dtype, data.shape[1]):
         raise AssertionError(f"bsr_spmm did not launch {variant} once")
     return variant, out
 
@@ -795,28 +843,32 @@ def check_k1(rng, tdt, npdt, itype, record):
 
 
 def check_k1_special(rng, record):
-    """inf in A and in B on the tensor-core variant: the same inf/nan
-    pattern as the plain version (3xTF32 must not make inf * 0), finite
-    values within tolerance."""
+    """inf in A and in B on the tensor-core variant, real (bs 64) and
+    complex (bs 16 and 64, with -inf in an imaginary part of each and
+    alpha/beta/C0): the same nan, +inf and -inf parts as the plain
+    version (3xTF32 must not make inf * 0; complex products follow the
+    component formula), finite values within tolerance."""
     from sparse_dot_tpu_torch.ops import bsr
 
-    for tdt in (torch.float32, torch.float64):
+    cases = [(torch.float32, 64), (torch.float64, 64)] + [
+        (tdt, bs) for tdt in (torch.complex64, torch.complex128)
+        for bs in (16, 64)]
+    for tdt, bs in cases:
         npdt = NP_DTYPES[tdt]
-        indptr, indices, data = random_bsr(rng, 8, 6, 64, 1, npdt,
+        indptr, indices, data = random_bsr(rng, 8, 6, bs, 1, npdt,
                                            split=True)
         data[0, 5, 7] = np.inf
-        b = values(rng, (6 * 64, 64), npdt)
-        b[100, 3] = -np.inf
-        args = (cuda(indptr), cuda(indices), cuda(data), cuda(b))
+        b = values(rng, (6 * bs, 64), npdt)
+        b[100 % (6 * bs), 3] = -np.inf
+        extra = ()
+        if tdt.is_complex:
+            data[-1, 2, 3] = complex(0.0, -np.inf)
+            b[indices[-1] * bs + 3, 9] = complex(1.0, -np.inf)
+            extra = (0.5 - 1.5j, 2.0, cuda(values(rng, (8 * bs, 64), npdt)))
+        args = (cuda(indptr), cuda(indices), cuda(data), cuda(b), *extra)
         variant, out = k1_call(*args)
         ref = bsr.bsr_spmm_plain(*args)
-        torch.cuda.synchronize()
-        for what in (torch.isnan, torch.isposinf, torch.isneginf):
-            if not torch.equal(what(out), what(ref)):
-                raise AssertionError(f"K1 {tdt}: {what.__name__} differs")
-        fin = torch.isfinite(ref)
-        if not bool(torch.isinf(ref).any()):
-            raise AssertionError("K1 inf case: no inf reached the output")
+        fin = same_parts(f"K1 {tdt} bs={bs}", out, ref)
         record(variant, compare(out[fin], ref[fin], tdt))
 
 
@@ -979,29 +1031,26 @@ K8_NS = (1, 37, 64, 256)
 
 def k8_call(*args):
     """bsr_sddmm(*args), checked to launch K8 once (none with no block),
-    on the variant ``uses_tensor_cores`` names: the tensor cores for real
-    values with bs % 8 == 0, else the CUDA cores."""
+    on the variant ``uses_tensor_cores`` names: the tensor cores for bs %
+    8 == 0 (complex values on their own instances), else the CUDA
+    cores."""
     from sparse_dot_tpu_torch.ops import bsr
 
     wrapper = bsr.bsr_sddmm
-    before = (wrapper.launches, wrapper.launches_tc, wrapper.launches_simt)
+    before = (wrapper.launches, *variant_counts(wrapper))
     out = wrapper(*args)
     once = int(args[1].numel() > 0)
-    tc = once if bsr.uses_tensor_cores(args[2].dtype, args[4]) else 0
-    if (wrapper.launches, wrapper.launches_tc, wrapper.launches_simt) != (
-            before[0] + once, before[1] + tc, before[2] + once - tc):
-        raise AssertionError(f"bsr_sddmm did not launch K8's "
-                             f"{'tensor-core' if tc else 'CUDA-core'} "
-                             "variant once")
+    want = (before[0] + once, *(a + b for a, b in zip(
+        before[1:], variant_delta(args[2].dtype, args[4], once))))
+    if (wrapper.launches, *variant_counts(wrapper)) != want:
+        raise AssertionError(f"bsr_sddmm did not launch "
+                             f"{k8_name(args[2].dtype, args[4])} once")
     return out
 
 
 def k8_name(dtype, bs):
     """The KERNELS entry of the K8 variant that serves ``dtype`` and bs."""
-    from sparse_dot_tpu_torch.ops import bsr
-
-    return ("K8_bsr_sddmm_tc" if bsr.uses_tensor_cores(dtype, bs)
-            else "K8_bsr_sddmm_simt")
+    return variant_name("K8_bsr_sddmm", dtype, bs)
 
 
 def check_k8(rng, tdt, npdt, itype, record):
@@ -1025,8 +1074,8 @@ def check_k8(rng, tdt, npdt, itype, record):
                     for al in (None, alpha):
                         args = (ip, ix, gg, bb, bs, al)
                         out = k8_call(*args)
-                        record(k8_name(tdt, bs), compare(
-                            out, bsr.bsr_sddmm_plain(*args), tdt))
+                        ref = bsr.bsr_sddmm_plain(*args)
+                        record(k8_name(tdt, bs), compare(out, ref, tdt))
                         if not torch.equal(out, k8_call(*args)):
                             raise AssertionError(f"K8 {tdt} bs={bs} n={n}: "
                                                  "runs differ")
@@ -1051,11 +1100,10 @@ def same_parts(name, out, ref):
 
 def check_k8_special(rng, record):
     """K8 with inf in G and in B (+inf, -inf, and an imaginary inf for
-    complex values) in every value type, at bs = 3, 8 and 64 (for real
-    values the CUDA-core variant, then the tensor cores' 16- and 64-row
-    tiles): the same nan,
-    +inf and -inf parts as the plain version, finite entries within
-    tolerance."""
+    complex values) in every value type, at bs = 3, 8 and 64 (the
+    CUDA-core variant, then the tensor cores' 16- and 64-row tiles; for
+    complex values 32-row tiles at 64): the same nan, +inf and -inf parts
+    as the plain version, finite entries within tolerance."""
     from sparse_dot_tpu_torch.ops import bsr
 
     for tdt, npdt in NP_DTYPES.items():
@@ -1821,6 +1869,54 @@ def member_operands(rng, npdt, shapes, batched, odd):
     return out
 
 
+def check_bsr_batched(rng, tdt, npdt, itype, alpha, record):
+    """K1 and K8 batched (``spmm_batched``, ``sddmm_batched``) against
+    their batched plain versions in ``tdt`` at bs 8 (a split block row),
+    3 (the CUDA cores) and 64 (split; complex values in two row tiles of
+    32), n in {1, 37, 64}, with shared and batched operands
+    (``SPMM_COMBOS``, ``SDDMM_COMBOS``) at even and odd member strides;
+    each call's variant checked by the launch counts."""
+    from sparse_dot_tpu_torch.ops import bsr
+
+    for bs, nbrows, nbcols, per_row, empty_every, split in (
+            (8, 24, 20, 3, 5, True), (3, 30, 20, 3, 4, False),
+            (64, 8, 6, 1, 3, True)):
+        indptr, indices, _ = random_bsr(rng, nbrows, nbcols, bs, per_row,
+                                        npdt, itype, empty_every, split)
+        ip, ix = cuda(indptr), cuda(indices)
+        nb = len(indices)
+        tc = bsr.uses_tensor_cores(tdt, bs)
+        k1 = variant_name("K1_bsr_spmm", tdt, bs)
+        for n in (1, 37, 64):
+            for combo in SPMM_COMBOS:
+                for odd in (False, True):
+                    data, b, c0 = member_operands(
+                        rng, npdt, ((nb, bs, bs), (nbcols * bs, n),
+                                    (nbrows * bs, n)), combo, odd)
+                    args = (ip, ix, data, b, alpha, 2.0, c0)
+                    before = bsr.bsr_spmm.launches_tc
+                    out = batched_call(bsr.bsr_spmm, 1, bsr.spmm_batched,
+                                       *args)
+                    if (bsr.bsr_spmm.launches_tc - before) != 2 * tc:
+                        raise AssertionError(f"batched {k1}: variant")
+                    record(k1, compare(
+                        out, bsr.bsr_spmm_batched_plain(*args), tdt))
+            for g_b, b_b in SDDMM_COMBOS:
+                for odd in (False, True):
+                    g, b = member_operands(
+                        rng, npdt, ((nbrows * bs, n), (nbcols * bs, n)),
+                        (g_b, b_b), odd)
+                    before = bsr.bsr_sddmm.launches_tc
+                    out = batched_call(bsr.bsr_sddmm, 1,
+                                       bsr.sddmm_batched, ip, ix, g, b,
+                                       bs, alpha)
+                    if (bsr.bsr_sddmm.launches_tc - before) != 2 * tc:
+                        raise AssertionError("batched K8: variant")
+                    record(k8_name(tdt, bs), compare(
+                        out, bsr.bsr_sddmm_batched_plain(
+                            ip, ix, g, b, bs, alpha), tdt))
+
+
 def check_batched(record):
     """Phase 2 for the batched launches: K2, K7, K1 and K8 (each variant)
     against their batched plain versions in every value type, with
@@ -1907,43 +2003,7 @@ def check_batched(record):
                                        members))
                         path("K7", sddmm.sddmm_schedule(
                             n, tdt, nnz, aligned).vec)
-        for bs, nbrows, nbcols, per_row, empty_every, split in (
-                (8, 24, 20, 3, 5, True), (3, 30, 20, 3, 4, False),
-                (64, 8, 6, 1, 3, True)):
-            indptr, indices, _ = random_bsr(rng, nbrows, nbcols, bs, per_row,
-                                            npdt, itype, empty_every, split)
-            ip, ix = cuda(indptr), cuda(indices)
-            nb = len(indices)
-            tc = bsr.uses_tensor_cores(tdt, bs)
-            k1 = "K1_bsr_spmm_tc" if tc else "K1_bsr_spmm_simt"
-            for n in (1, 37, 64):
-                for combo in SPMM_COMBOS:
-                    for odd in (False, True):
-                        data, b, c0 = member_operands(
-                            rng, npdt, ((nb, bs, bs), (nbcols * bs, n),
-                                        (nbrows * bs, n)), combo, odd)
-                        args = (ip, ix, data, b, alpha, 2.0, c0)
-                        before = bsr.bsr_spmm.launches_tc
-                        out = batched_call(bsr.bsr_spmm, 1, bsr.spmm_batched,
-                                           *args)
-                        if (bsr.bsr_spmm.launches_tc - before) != 2 * tc:
-                            raise AssertionError(f"batched {k1}: variant")
-                        record(k1, compare(
-                            out, bsr.bsr_spmm_batched_plain(*args), tdt))
-                for g_b, b_b in SDDMM_COMBOS:
-                    for odd in (False, True):
-                        g, b = member_operands(
-                            rng, npdt, ((nbrows * bs, n), (nbcols * bs, n)),
-                            (g_b, b_b), odd)
-                        before = bsr.bsr_sddmm.launches_tc
-                        out = batched_call(bsr.bsr_sddmm, 1,
-                                           bsr.sddmm_batched, ip, ix, g, b,
-                                           bs, alpha)
-                        if (bsr.bsr_sddmm.launches_tc - before) != 2 * tc:
-                            raise AssertionError("batched K8: variant")
-                        record(k8_name(tdt, bs), compare(
-                            out, bsr.bsr_sddmm_batched_plain(
-                                ip, ix, g, b, bs, alpha), tdt))
+        check_bsr_batched(rng, tdt, npdt, itype, alpha, record)
     for name, want in (("K2", {True, False}), ("K7", {True, False})):
         if paths.get(name) != want:
             raise AssertionError(f"batched {name} took only the "
@@ -2002,8 +2062,7 @@ def check_big_batch(record):
         b = cuda(values(rng, (2 * bs, 1), npdt))
         out = batched_call(bsr.bsr_spmm, 2, bsr.spmm_batched, ip, ix, data,
                            b)
-        k1 = ("K1_bsr_spmm_tc" if bsr.uses_tensor_cores(tdt, bs)
-              else "K1_bsr_spmm_simt")
+        k1 = variant_name("K1_bsr_spmm", tdt, bs)
         record(k1, compare(out, bsr.bsr_spmm_batched_plain(ip, ix, data, b),
                            tdt))
         g = cuda(values(rng, (BIG_BATCH, 2 * bs, 1), npdt))
@@ -2382,7 +2441,9 @@ def check_second_order():
     ``csr.csr_spmv`` (9 x 7 with a repeated entry, alpha and beta); of
     ``ops.bsr_spmm`` in the blocks, b and c0 (alpha and beta, a repeated
     block and negative block ids) at bs 8 in f64 (K1's and K8's
-    tensor-core variants) and at bs 3 in c128 (their CUDA-core ones); of
+    tensor-core variants) and at bs 3 in c128 (their CUDA-core ones), and
+    at bs 8 in c128 on one block stored twice (once by negative ids) and
+    n = 1 (the tensor cores' complex instances); of
     ``csr_spgemm_dense`` in both operands' values (alpha, 6 x 9 by 9 x 7)
     over sorted op(B), with c0 and beta, and with ``triangular``, and
     with ``b_sorted=False`` over the same op(B) shuffled; and of
@@ -2401,6 +2462,9 @@ def check_second_order():
                                 a.indices.astype(np.int32)))
     block_rows = cuda(np.array([0, 2, 2, -1, 0, 1], np.int32))
     block_cols = cuda(np.array([1, 0, 0, 1, -2, 1], np.int32))
+    # One block twice, the second time by negative ids.
+    few_rows = cuda(np.array([0, -3], np.int32))
+    few_cols = cuda(np.array([1, -1], np.int32))
     # op(B)'s rows shuffled (``b_sorted=False``) and sorted.
     a_ip, a_ix, _ = map(cuda, distinct_rows(rng, (3, 0, 2, 5, 1, 4), 9,
                                             np.float64, np.int32))
@@ -2432,6 +2496,11 @@ def check_second_order():
                 lambda dd, bb, cc: ops.bsr_spmm(
                     dd, block_rows, block_cols, bb, 3 * bs, alpha, beta, cc),
                 (leaf((6, bs, bs)), leaf((2 * bs, 2)), leaf((3 * bs, 2)))))
+            if complex_:  # the complex tensor-core instances, 2 blocks
+                checks.append((
+                    lambda dd, bb, cc: ops.bsr_spmm(
+                        dd, few_rows, few_cols, bb, 24, alpha, beta, cc),
+                    (leaf((2, 8, 8)), leaf((16, 1)), leaf((24, 1)))))
             checks.append((
                 lambda av, bv, cc: spgemm.csr_spgemm_dense(
                     a_ip, a_ix, av, b_ip, b_sorted, bv, 7, alpha, beta, cc,
@@ -2470,10 +2539,10 @@ def check_gradcheck():
     ``coo_spmv`` (values, x and y0, with alpha and beta) and ``csr_spmm``
     (values, b and c0) on the card in f64 and c128, 60 x 50 at n = 5; of
     the BSR device function ``ops.bsr_spmm`` (blocks, b and c0, with a
-    repeated block and negative block ids) at bs = 8 (in f64 on K1's
-    tensor cores) and bs = 3; and of ``csr_spgemm_dense`` (both operands'
-    values and c0, 6 x 9 by 9 x 7, rows of distinct shuffled columns)
-    with and without
+    repeated block and negative block ids) at bs = 8 (on K1's and K8's
+    tensor cores, c128 on their complex instances) and bs = 3; and of
+    ``csr_spgemm_dense`` (both operands' values and c0, 6 x 9 by 9 x 7,
+    rows of distinct shuffled columns) with and without
     ``triangular``; reverse and forward mode (``check_forward_ad``), with
     the plain versions refused: K1 and K8 (both variants each), K2, K3,
     K6, K7 and K9 must each launch.  Returns the launches."""
@@ -2531,9 +2600,10 @@ def check_gradcheck():
     launched = {name: count - before[name]
                 for name, count in read_launches().items()}
     if not all(launched[name] > 0 for name in (
-            "K1_bsr_spmm_tc", "K1_bsr_spmm_simt", "K2_csr_spmm",
-            "K3_csr_spmv", "K6_csr_spgemm_dense", "K7_csr_sddmm",
-            "K8_bsr_sddmm_tc", "K8_bsr_sddmm_simt",
+            "K1_bsr_spmm_tc", "K1_bsr_spmm_tc_complex", "K1_bsr_spmm_simt",
+            "K2_csr_spmm", "K3_csr_spmv", "K6_csr_spgemm_dense",
+            "K7_csr_sddmm", "K8_bsr_sddmm_tc", "K8_bsr_sddmm_tc_complex",
+            "K8_bsr_sddmm_simt",
             "K9_csr_spgemm_sddmm")):
         raise AssertionError(f"gradcheck launched {launched}")
     return {name: count for name, count in launched.items() if count}
@@ -2931,12 +3001,13 @@ def main_path():
         seconds = time.perf_counter() - t0
     launches = read_launches()
     # The four config-3 calls and dense x BSR on the tensor cores, the
-    # complex BSR on the CUDA cores.
+    # complex BSR (bs 16) on their complex instances.
     expected = {name: 0 for name in launches}
-    expected.update(K1_bsr_spmm_tc=len(bsrs) + 1, K1_bsr_spmm_simt=1,
+    expected.update(K1_bsr_spmm_tc=len(bsrs) + 1, K1_bsr_spmm_tc_complex=1,
                     K2_csr_spmm=4, K3_csr_spmv=3)
     if (launches != expected or bsr.bsr_spmm.launches
-            != launches["K1_bsr_spmm_tc"] + launches["K1_bsr_spmm_simt"]):
+            != launches["K1_bsr_spmm_tc"] + launches["K1_bsr_spmm_simt"]
+            + launches["K1_bsr_spmm_tc_complex"]):
         raise AssertionError(f"launch counts {launches}, expected {expected}")
 
     check("config1_csr_f64_spmm", r1, a1 @ b1, 6)
@@ -3057,8 +3128,8 @@ def reset_launches():
                spgemm_grad.csr_spgemm_sparse_sddmm, densify.csr_densify,
                densify.csr_indicator, compact.masked_compact):
         fn.launches = 0
-    bsr.bsr_spmm.launches_tc = bsr.bsr_spmm.launches_simt = 0
-    bsr.bsr_sddmm.launches_tc = bsr.bsr_sddmm.launches_simt = 0
+    for fn in (bsr.bsr_spmm, bsr.bsr_sddmm):
+        fn.launches_tc = fn.launches_tc_complex = fn.launches_simt = 0
     for fn in (csr.csr_spmm, sddmm.csr_sddmm, bsr.bsr_spmm, bsr.bsr_sddmm,
                spgemm.csr_spgemm_fill, spgemm.csr_spgemm_dense,
                spgemm_grad.csr_spgemm_sddmm,
@@ -3066,6 +3137,7 @@ def reset_launches():
         fn.launches_batched = 0
     for fn in (bsr.bsr_spmm, bsr.bsr_sddmm):
         fn.launches_batched_tc = fn.launches_batched_simt = 0
+        fn.launches_batched_tc_complex = 0
 
 
 def read_batched():
@@ -3073,14 +3145,19 @@ def read_batched():
     (K1 and K8 by variant)."""
     from sparse_dot_tpu_torch.ops import bsr, csr, sddmm, spgemm, spgemm_grad
 
-    return {"K1_bsr_spmm_tc": bsr.bsr_spmm.launches_batched_tc,
-            "K1_bsr_spmm_simt": bsr.bsr_spmm.launches_batched_simt,
+    k1, k8 = bsr.bsr_spmm, bsr.bsr_sddmm
+    return {"K1_bsr_spmm_tc": (k1.launches_batched_tc
+                               - k1.launches_batched_tc_complex),
+            "K1_bsr_spmm_tc_complex": k1.launches_batched_tc_complex,
+            "K1_bsr_spmm_simt": k1.launches_batched_simt,
             "K2_csr_spmm": csr.csr_spmm.launches_batched,
             "K5_csr_spgemm_fill": spgemm.csr_spgemm_fill.launches_batched,
             "K6_csr_spgemm_dense": spgemm.csr_spgemm_dense.launches_batched,
             "K7_csr_sddmm": sddmm.csr_sddmm.launches_batched,
-            "K8_bsr_sddmm_tc": bsr.bsr_sddmm.launches_batched_tc,
-            "K8_bsr_sddmm_simt": bsr.bsr_sddmm.launches_batched_simt,
+            "K8_bsr_sddmm_tc": (k8.launches_batched_tc
+                                - k8.launches_batched_tc_complex),
+            "K8_bsr_sddmm_tc_complex": k8.launches_batched_tc_complex,
+            "K8_bsr_sddmm_simt": k8.launches_batched_simt,
             "K9_csr_spgemm_sddmm":
                 spgemm_grad.csr_spgemm_sddmm.launches_batched,
             "K11_csr_spgemm_sparse_sddmm":
@@ -3092,7 +3169,9 @@ def read_launches():
                                           spgemm, spgemm_grad)
 
     return {
-        "K1_bsr_spmm_tc": bsr.bsr_spmm.launches_tc,
+        "K1_bsr_spmm_tc": (bsr.bsr_spmm.launches_tc
+                           - bsr.bsr_spmm.launches_tc_complex),
+        "K1_bsr_spmm_tc_complex": bsr.bsr_spmm.launches_tc_complex,
         "K1_bsr_spmm_simt": bsr.bsr_spmm.launches_simt,
         "K2_csr_spmm": csr.csr_spmm.launches,
         "K3_csr_spmv": csr.csr_spmv.launches,
@@ -3100,7 +3179,9 @@ def read_launches():
         "K5_csr_spgemm_fill": spgemm.csr_spgemm_fill.launches,
         "K6_csr_spgemm_dense": spgemm.csr_spgemm_dense.launches,
         "K7_csr_sddmm": sddmm.csr_sddmm.launches,
-        "K8_bsr_sddmm_tc": bsr.bsr_sddmm.launches_tc,
+        "K8_bsr_sddmm_tc": (bsr.bsr_sddmm.launches_tc
+                            - bsr.bsr_sddmm.launches_tc_complex),
+        "K8_bsr_sddmm_tc_complex": bsr.bsr_sddmm.launches_tc_complex,
         "K8_bsr_sddmm_simt": bsr.bsr_sddmm.launches_simt,
         "K9_csr_spgemm_sddmm": spgemm_grad.csr_spgemm_sddmm.launches,
         "K11_csr_spgemm_sparse_sddmm":
@@ -3440,7 +3521,9 @@ def sparse_path(x, run, cases, rng):
     scipy's at decimal 6; X with inf and nan (the route up to its host
     read, then K4 + K5: scipy's inf and nan); dot_product(Xd, Xd.T) twice
     on one container (the second call K13 alone: the kept planes); a dense
-    x BSR above the gate (K12, not K1: a complex BSR of 50% blocks)."""
+    x BSR above the gate (K12, not K1: a complex BSR of 90% blocks, past
+    the gate's crossover near 72% now that K1 runs complex values on the
+    tensor cores)."""
     import sparse_dot_tpu_torch as sdt
     from sparse_dot_tpu_torch import formats
 
@@ -3486,19 +3569,22 @@ def sparse_path(x, run, cases, rng):
     check("sparse_container_repeat", run(
         "sparse_container_repeat", lambda: sdt.dot_product(xd, xd.T),
         {"K13_csr_compact": 1}, "densify, kept planes"), xxt, pattern)
-    nb = SIZES["complex"] // 16
+    # Blocks of 20 (K1 on the CUDA cores): complex K1 on the tensor cores
+    # ran faster than the densify route at every density of blocks up to
+    # 90% at this shape (``compare_k7_k13.py bsr_gate``).
+    nb = SIZES["complex"] // 20
     blocks = sps.random(nb, nb, density=0.5, format="csr", random_state=rng)
-    a = sps.bsr_matrix((values(rng, (blocks.nnz, 16, 16), np.complex128,
+    a = sps.bsr_matrix((values(rng, (blocks.nnz, 20, 20), np.complex128,
                                1 / 45), blocks.indices, blocks.indptr),
                        shape=(SIZES["complex"],) * 2)
     d = values(rng, (64, SIZES["complex"]), np.complex128)
     if not spmm_dense_route(a, 64, torch.complex128, transpose=True):
         raise AssertionError("the gate keeps the dense x BSR case on K1")
-    res = run("dense_x_bsr16_c128_50pct", lambda: sdt.dot_product(d, a),
+    res = run("dense_x_bsr20_c128_50pct", lambda: sdt.dot_product(d, a),
               {"K12_csr_densify": 1}, "densify")
     ref = (a.T @ d.T).T
     np.testing.assert_array_almost_equal(res, ref, decimal=6)
-    cases["dense_x_bsr16_c128_50pct"].update(
+    cases["dense_x_bsr20_c128_50pct"].update(
         shape=list(res.shape), max_abs_err=float(np.abs(res - ref).max()))
 
 
@@ -3566,12 +3652,15 @@ def spread(times):
 
 
 # The H100 SXM's published peaks (NVIDIA's data sheet): HBM bytes/s, the
-# CUDA cores' FLOP/s by value type, and the tensor cores' as K1 uses them
-# (f64 MMA; f32 as 3xTF32, three TF32 MMAs per product).
+# CUDA cores' FLOP/s by value type, and the tensor cores' as K1 and K8 use
+# them (f64 MMA; f32 as 3xTF32, three TF32 MMAs per product; complex
+# values as four real products of their parts, c128 on f64 MMA and c64
+# on 3xTF32, so at the rate of their part's type).
 HBM_BYTES_PER_S = 3.35e12
 CUDA_CORE_FLOPS = {torch.float32: 67e12, torch.complex64: 67e12,
                    torch.float64: 34e12, torch.complex128: 34e12}
-TENSOR_CORE_FLOPS = {torch.float64: 67e12, torch.float32: 495e12 / 3}
+TENSOR_CORE_FLOPS = {torch.float64: 67e12, torch.float32: 495e12 / 3,
+                     torch.complex128: 67e12, torch.complex64: 495e12 / 3}
 
 
 def peak_flops(dtype):
@@ -3637,8 +3726,9 @@ def sddmm_library(indptr, indices, g, b, shape):
 
 def bsr_bound(indptr, indices, data, b, c0=None):
     """K1's bound: the BSR's arrays, the block rows of b it names, C0 and
-    C; bs * bs multiply-adds per stored block and column, on the tensor
-    cores for real values and on the CUDA cores for complex ones."""
+    C; bs * bs multiply-adds per stored block and column, at the card's
+    highest rate for the value type (``peak_flops``: the tensor cores' in
+    every type, complex ones as four real products of their parts)."""
     nblocks, bs, _ = data.shape
     n = b.shape[1]
     panels = int(torch.unique(indices).numel())
@@ -3794,6 +3884,32 @@ def timings(inputs, solver_inp):
     k7_rows(rows, inputs, rng)
     k8_rows(rows, inputs, rng)
 
+    k1_rows(rows, inputs)
+    # After every kernel's own rows: the final line reads each one's first.
+    batched_rows(rows, inputs, rng)
+    emit(4, reps=REPS, rows=rows,
+         timer="cuda events, median (p10, p90), 1 GiB read before each; "
+               "library: the one torch call, warmed up, timed the same way",
+         peaks={"hbm_bytes_per_s": HBM_BYTES_PER_S,
+                "cuda_core_flops": {str(k): v for k, v in
+                                    CUDA_CORE_FLOPS.items()},
+                "tensor_core_flops": {str(k): v for k, v in
+                                      TENSOR_CORE_FLOPS.items()}})
+    return rows
+
+
+def k1_rows(rows, inputs):
+    """K1's phase-4 rows: config 3 (8192^2 BSR, 5% of blocks) at bs 64
+    and 128 in f32 and f64, n = 256 with ``out_scalar`` (C0), on the
+    tensor cores, beside ``torch.addmm`` of a sparse BSR; then phase 3's
+    complex BSR (4000^2, bs 16, n = 64) in c128 and c64 on the tensor
+    cores' complex instances, each beside ``torch.sparse.mm`` of a sparse
+    BSR and the CUDA-core variant launched directly (``k1_simt``), and
+    that variant's own row in c128, launched directly."""
+    from sparse_dot_tpu_torch import formats
+    from sparse_dot_tpu_torch.ops import bsr
+
+    n3, nc = SIZES["config3"], SIZES["complex"]
     for (bs, dt), a3 in inputs["bsrs"].items():
         A3 = formats.to_device(a3)
         lengths = np.diff(a3.indptr)
@@ -3814,23 +3930,31 @@ def timings(inputs, solver_inp):
         row.update(tflops=flop / row["ms"] / 1e9,
                    plain_tflops=flop / row["plain_ms"] / 1e9)
         rows.append(row)
-    Abc = formats.to_device(inputs["abc"])
-    args = (*Abc.bsr_arrays(), cuda(inputs["bc"]))
-    rows.append(timed_row(
-        "K1_bsr_spmm_simt", f"BSR c128 bs=16 {nc}x{nc} 5% blocks @ ({nc},64)",
-        lambda: bsr.bsr_spmm(*args), lambda: bsr.bsr_spmm_plain(*args),
-        bsr_bound(*args), bsr_library(*args, Abc.shape)))
-    # After every kernel's own rows: the final line reads each one's first.
-    batched_rows(rows, inputs, rng)
-    emit(4, reps=REPS, rows=rows,
-         timer="cuda events, median (p10, p90), 1 GiB read before each; "
-               "library: the one torch call, warmed up, timed the same way",
-         peaks={"hbm_bytes_per_s": HBM_BYTES_PER_S,
-                "cuda_core_flops": {str(k): v for k, v in
-                                    CUDA_CORE_FLOPS.items()},
-                "tensor_core_flops": {str(k): v for k, v in
-                                      TENSOR_CORE_FLOPS.items()}})
-    return rows
+    # Phase 3's complex BSR on the tensor cores' complex instances in c128
+    # and c64, each beside the CUDA-core variant launched directly (which
+    # served complex values before them); then that variant's own row.
+    for npdt in (np.complex128, np.complex64):
+        Abc, bc = complex_bsr_operands(inputs, npdt)
+        args = (*Abc.bsr_arrays(), bc)
+        plan = Abc.bsr_plan()  # as dot_product passes it, built once
+        shape = (f"BSR {np.dtype(npdt).name} bs=16 {nc}x{nc} 5% blocks "
+                 f"@ ({nc},64)")
+        flop = 8.0 * args[2].numel() * 64
+        row = timed_row(
+            "K1_bsr_spmm_tc_complex", shape,
+            lambda: bsr.bsr_spmm(*args, plan=plan),
+            lambda: bsr.bsr_spmm_plain(*args), bsr_bound(*args),
+            bsr_library(*args, Abc.shape),
+            beside={"cuda_core_variant": lambda: k1_simt(*args)},
+            gflop=flop / 1e9, chunk=plan.chunk)
+        row.update(tflops=flop / row["ms"] / 1e9)
+        rows.append(row)
+        if npdt == np.complex128:
+            rows.append(timed_row(
+                "K1_bsr_spmm_simt", shape + " (launched directly)",
+                lambda: k1_simt(*args), lambda: bsr.bsr_spmm_plain(*args),
+                bsr_bound(*args), bsr_library(*args, Abc.shape)))
+        del Abc, args
 
 
 def k7_rows(rows, inputs, rng):
@@ -3893,8 +4017,8 @@ def k8_bound(indptr, indices, g, b, bs):
     """K8's bound: the BSR's index arrays, the block rows of G and of B it
     names (each once) and the output; bs * bs multiply-adds per stored
     block and column, at the card's peak for the value type (as K1's
-    bound: f64 and 3xTF32 f32 on the tensor cores, complex on the CUDA
-    cores)."""
+    bound: the tensor cores' rate, f64 MMA for f64 and c128, 3xTF32 for
+    f32 and c64)."""
     nblocks, n = indices.numel(), g.shape[1]
     g_rows = int((indptr.long().diff() > 0).sum())
     panels = int(torch.unique(indices).numel())
@@ -3907,20 +4031,57 @@ def k8_bound(indptr, indices, g, b, bs):
 
 
 def k8_simt(ip, ix, g, b, bs):
-    """K8's CUDA-core variant on any value type (the kernel that served
-    every type before the tensor-core variant), launched directly: timed
-    beside the tensor-core variant, never called by the port on real
-    values with bs % 8 == 0."""
+    """K8's CUDA-core variant (which served every type before the
+    tensor-core variant, and complex values until they took the tensor
+    cores too) launched directly on one G or, with a leading member
+    dimension on ``g`` (B shared), a batch: timed beside the tensor-core
+    variant, never called by the port in blocks of a multiple of 8."""
     from sparse_dot_tpu_torch.ops import _build
 
-    out = torch.empty((ix.numel(), bs, bs), dtype=g.dtype, device=g.device)
+    members = g.shape[0] if g.dim() == 3 else 1
+    nb = ix.numel()
+    out = torch.empty((members, nb, bs, bs), dtype=g.dtype, device=g.device)
     dt, it = _build.type_codes(g, ip)
+    strides = (g.shape[-2] * g.shape[-1], 0, nb * bs * bs) if members > 1 \
+        else (0, 0, 0)
     _build.launch("sdt_bsr_sddmm_simt", dt, it, ip.data_ptr(),
-                  ip.numel() - 1, ix.data_ptr(), ix.numel(), g.data_ptr(),
-                  b.data_ptr(), out.data_ptr(), bs, g.shape[1],
-                  *_build.scalar_parts(None), 1, 0, 0, 0,
+                  ip.numel() - 1, ix.data_ptr(), nb, g.data_ptr(),
+                  b.data_ptr(), out.data_ptr(), bs, g.shape[-1],
+                  *_build.scalar_parts(None), members, *strides,
                   _build.stream_of(g))
-    return out
+    return out if members > 1 else out[0]
+
+
+def k1_simt(ip, ix, data, b):
+    """K1's CUDA-core variant (the port's first K1, which served complex
+    values until they took the tensor cores too), launched directly for
+    one block set or, with a leading member dimension on ``data`` (b
+    shared), a batch: timed beside the tensor-core variant, never called
+    by the port in blocks of a multiple of 8."""
+    from sparse_dot_tpu_torch.ops import _build
+
+    members = data.shape[0] if data.dim() == 4 else 1
+    nbrows, bs, n = ip.numel() - 1, data.shape[-1], b.shape[-1]
+    c = torch.empty((members, nbrows * bs, n), dtype=b.dtype,
+                    device=b.device)
+    dt, it = _build.type_codes(data, ip)
+    strides = ((data[0].numel(), 0, 0, nbrows * bs * n) if members > 1
+               else (0, 0, 0, 0))
+    _build.launch("sdt_bsr_spmm_simt", dt, it, ip.data_ptr(), ix.data_ptr(),
+                  data.data_ptr(), b.data_ptr(), None, c.data_ptr(), nbrows,
+                  bs, n, *_build.scalar_parts(None),
+                  *_build.scalar_parts(0.0), members, *strides,
+                  _build.stream_of(b))
+    return c if members > 1 else c[0]
+
+
+def complex_bsr_operands(inputs, npdt):
+    """Phase 3's complex BSR (4000^2, bs 16, 5% of blocks) and its b in
+    the complex type ``npdt``, on the card: (container, b)."""
+    from sparse_dot_tpu_torch import formats
+
+    return (formats.to_device(inputs["abc"].astype(npdt)),
+            cuda(inputs["bc"].astype(npdt)))
 
 
 def k8_rows(rows, inputs, rng):
@@ -3930,8 +4091,11 @@ def k8_rows(rows, inputs, rng):
     yardstick: no single torch call computes K8's function, and the
     gather is not timed) and, in the same turns, the CUDA-core variant on
     the same operands (the kernel that served real values before the
-    tensor-core variant); then the CUDA-core variant's own row, phase 3's complex BSR (4000^2,
-    bs 16, c128) at n = 64."""
+    tensor-core variant); then phase 3's complex BSR (4000^2, bs 16) at
+    n = 64 in c128 and c64 on the tensor cores' complex instances, each
+    beside the same yardstick and the CUDA-core variant launched directly
+    (``k8_simt``, which served complex values before them), and the
+    CUDA-core variant's own row in c128, launched directly."""
     from sparse_dot_tpu_torch import formats
     from sparse_dot_tpu_torch.ops import bsr
 
@@ -3958,23 +4122,33 @@ def k8_rows(rows, inputs, rng):
             device_match="bsr_sddmm"))
         del A3, gs, bp
     nc = SIZES["complex"]
-    Ac = formats.to_device(inputs["abc"])
-    ip, ix, _ = Ac.bsr_arrays()
-    g = cuda(values(rng, (nc, 64), np.complex128))
-    b = cuda(inputs["bc"])
-    gs, bp = block_strips(ip, ix, g, b, 16)
-    bp = bp.conj_physical().mT
-    rows.append(timed_row(
-        "K8_bsr_sddmm_simt",
-        f"BSR bs=16 complex128 {nc}x{nc} 5% blocks, G ({nc},64), "
-        f"B ({nc},64)",
-        lambda: bsr.bsr_sddmm(ip, ix, g, b, 16),
-        lambda: bsr.bsr_sddmm_plain(ip, ix, g, b, 16),
-        k8_bound(ip, ix, g, b, 16),
-        yardstick=(lambda: torch.bmm(gs, bp),
-                   "torch.bmm of the stored blocks' strips of G and B^H, "
-                   "gathered beforehand"),
-        nblocks=int(ix.numel())))
+    for npdt in (np.complex128, np.complex64):
+        Ac, b = complex_bsr_operands(inputs, npdt)
+        ip, ix, _ = Ac.bsr_arrays()
+        g = cuda(values(rng, (nc, 64), npdt))
+        gs, bp = block_strips(ip, ix, g, b, 16)
+        bp = bp.conj_physical().mT
+        name = np.dtype(npdt).name
+        shape = f"BSR bs=16 {name} {nc}x{nc} 5% blocks, G ({nc},64), " \
+                f"B ({nc},64)"
+        yardstick = (lambda: torch.bmm(gs, bp),
+                     "torch.bmm of the stored blocks' strips of G and B^H, "
+                     "gathered beforehand")
+        rows.append(timed_row(
+            "K8_bsr_sddmm_tc_complex", shape,
+            lambda: bsr.bsr_sddmm(ip, ix, g, b, 16),
+            lambda: bsr.bsr_sddmm_plain(ip, ix, g, b, 16),
+            k8_bound(ip, ix, g, b, 16), yardstick=yardstick,
+            beside={"cuda_core_variant": lambda: k8_simt(ip, ix, g, b, 16)},
+            nblocks=int(ix.numel()), device_match="bsr_sddmm"))
+        if npdt == np.complex128:
+            rows.append(timed_row(
+                "K8_bsr_sddmm_simt", shape + " (launched directly)",
+                lambda: k8_simt(ip, ix, g, b, 16),
+                lambda: bsr.bsr_sddmm_plain(ip, ix, g, b, 16),
+                k8_bound(ip, ix, g, b, 16), yardstick=yardstick,
+                nblocks=int(ix.numel())))
+        del Ac, g, b, gs, bp
 
 
 def members_of(t, core):
@@ -4141,6 +4315,72 @@ def k7_batched_rows(rows, inputs, rng):
     del g, bb
 
 
+def bsr_batched_rows(rows, inputs, rng):
+    """``batched_rows``' rows of K1 and K8: config 3 (bs 64, f64, n = 256)
+    and phase 3's complex BSR (c128, bs 16, n = 64), 4 block sets with b
+    shared (K8: 4 G's, B shared), each beside the same members' single
+    launches and a yardstick made once a member, the complex ones also
+    beside the CUDA-core variant's batched launch (``k1_simt``,
+    ``k8_simt``)."""
+    from sparse_dot_tpu_torch import formats
+    from sparse_dot_tpu_torch.ops import bsr
+
+    for key, n, label in (((64, np.float64), 256, "config3"),
+                          (None, 64, "complex")):
+        a = inputs["bsrs"][key] if key else inputs["abc"]
+        A = formats.to_device(a)
+        bp, bx, _ = A.bsr_arrays()
+        bs = a.blocksize[0]
+        npdt = a.dtype.type
+        tdt = torch.from_numpy(np.zeros(0, npdt)).dtype
+        b = cuda(inputs["b3"][np.float64] if key else inputs["bc"])
+        kplan = A.bsr_plan()
+        blocks_ = cuda(values(rng, (4, *a.data.shape), npdt,
+                              1.0 / np.sqrt(bs * 20)))
+        side = a.shape[0]
+        mats = [torch.sparse_bsr_tensor(bp, bx, blocks_[i], size=a.shape)
+                for i in range(4)]
+        # The complex rows also time the CUDA-core variant launched
+        # directly (which served them before) in the same turns.
+        k1_beside = {"4_single_launches": lambda: [
+            bsr.bsr_spmm(bp, bx, blocks_[i], b, plan=kplan)
+            for i in range(4)]}
+        if not key:
+            k1_beside["cuda_core_variant"] = lambda: k1_simt(bp, bx, blocks_,
+                                                             b)
+        rows.append(timed_row(
+            variant_name("K1_bsr_spmm", tdt, bs),
+            f"batched: {label} BSR bs={bs} {np.dtype(npdt).name} "
+            f"{side}x{side} 5% blocks, 4 block sets @ ({side},{n}) shared",
+            lambda: bsr.spmm_batched(bp, bx, blocks_, b, plan=kplan),
+            lambda: bsr.bsr_spmm_batched_plain(bp, bx, blocks_, b),
+            bsr_batched_bound(bp, bx, blocks_, b, 4),
+            yardstick=(lambda: torch.stack([torch.sparse.mm(mat, b)
+                                            for mat in mats]),
+                       "4 x torch.sparse.mm(A_bsr, B), one a member"),
+            beside=k1_beside, members=4))
+        g = cuda(values(rng, (4, side, n), npdt))
+        strips = [block_strips(bp, bx, g[i], b, bs) for i in range(4)]
+        panels = strips[0][1].conj_physical().mT
+        k8_beside = {"4_single_launches": lambda: [
+            bsr.bsr_sddmm(bp, bx, g[i], b, bs) for i in range(4)]}
+        if not key:
+            k8_beside["cuda_core_variant"] = lambda: k8_simt(bp, bx, g, b, bs)
+        rows.append(timed_row(
+            variant_name("K8_bsr_sddmm", tdt, bs),
+            f"batched: {label} BSR bs={bs} {np.dtype(npdt).name} "
+            f"{side}x{side} 5% blocks, 4 G's ({side},{n}), B shared",
+            lambda: bsr.sddmm_batched(bp, bx, g, b, bs),
+            lambda: bsr.bsr_sddmm_batched_plain(bp, bx, g, b, bs),
+            k8_batched_bound(bp, bx, g, b, bs, 4),
+            yardstick=(lambda: torch.stack([torch.bmm(gs, panels)
+                                            for gs, _ in strips]),
+                       "4 x torch.bmm of the stored blocks' strips of G "
+                       "and B^H, gathered beforehand, one a member"),
+            beside=k8_beside, members=4, device_match="bsr_sddmm"))
+        del A, blocks_, mats, g, strips, panels
+
+
 def batched_rows(rows, inputs, rng):
     """Phase 4's rows of the batched launches, each beside the same
     members' single launches (one a member) in the same turns: K2 at
@@ -4150,7 +4390,8 @@ def batched_rows(rows, inputs, rng):
     beside 4 K3 launches; K7's (``k7_batched_rows``); K1 and K8 at
     config 3 (bs 64, f64, n
     = 256) over 4 block sets (K8: 4 G's, B shared) and at the complex BSR
-    (c128, bs 16, n = 64, the CUDA cores), each beside its existing
+    (c128, bs 16, n = 64, the tensor cores' complex instances, beside the
+    CUDA-core variant's batched launch too), each beside its existing
     row's yardstick made once a member (K1: ``torch.sparse.mm`` of a
     sparse BSR, K8: ``torch.bmm`` of the strips gathered beforehand)."""
     from sparse_dot_tpu_torch import formats
@@ -4196,57 +4437,11 @@ def batched_rows(rows, inputs, rng):
             for i in range(4)]},
         members=4))
     del data, Av
-    for key, n, label in (((64, np.float64), 256, "config3"),
-                          (None, 64, "complex")):
-        a = inputs["bsrs"][key] if key else inputs["abc"]
-        A = formats.to_device(a)
-        bp, bx, _ = A.bsr_arrays()
-        bs = a.blocksize[0]
-        npdt = a.dtype.type
-        tdt = torch.from_numpy(np.zeros(0, npdt)).dtype
-        b = cuda(inputs["b3"][np.float64] if key else inputs["bc"])
-        kplan = A.bsr_plan() if key else None
-        blocks_ = cuda(values(rng, (4, *a.data.shape), npdt,
-                              1.0 / np.sqrt(bs * 20)))
-        side = a.shape[0]
-        mats = [torch.sparse_bsr_tensor(bp, bx, blocks_[i], size=a.shape)
-                for i in range(4)]
-        variant = "tc" if bsr.uses_tensor_cores(tdt, bs) else "simt"
-        rows.append(timed_row(
-            f"K1_bsr_spmm_{variant}",
-            f"batched: {label} BSR bs={bs} {np.dtype(npdt).name} "
-            f"{side}x{side} 5% blocks, 4 block sets @ ({side},{n}) shared",
-            lambda: bsr.spmm_batched(bp, bx, blocks_, b, plan=kplan),
-            lambda: bsr.bsr_spmm_batched_plain(bp, bx, blocks_, b),
-            bsr_batched_bound(bp, bx, blocks_, b, 4),
-            yardstick=(lambda: torch.stack([torch.sparse.mm(mat, b)
-                                            for mat in mats]),
-                       "4 x torch.sparse.mm(A_bsr, B), one a member"),
-            beside={"4_single_launches": lambda: [
-                bsr.bsr_spmm(bp, bx, blocks_[i], b, plan=kplan)
-                for i in range(4)]},
-            members=4))
-        g = cuda(values(rng, (4, side, n), npdt))
-        strips = [block_strips(bp, bx, g[i], b, bs) for i in range(4)]
-        panels = strips[0][1].conj_physical().mT
-        rows.append(timed_row(
-            f"K8_bsr_sddmm_{variant}",
-            f"batched: {label} BSR bs={bs} {np.dtype(npdt).name} "
-            f"{side}x{side} 5% blocks, 4 G's ({side},{n}), B shared",
-            lambda: bsr.sddmm_batched(bp, bx, g, b, bs),
-            lambda: bsr.bsr_sddmm_batched_plain(bp, bx, g, b, bs),
-            k8_batched_bound(bp, bx, g, b, bs, 4),
-            yardstick=(lambda: torch.stack([torch.bmm(gs, panels)
-                                            for gs, _ in strips]),
-                       "4 x torch.bmm of the stored blocks' strips of G "
-                       "and B^H, gathered beforehand, one a member"),
-            beside={"4_single_launches": lambda: [
-                bsr.bsr_sddmm(bp, bx, g[i], b, bs) for i in range(4)]},
-            members=4, device_match="bsr_sddmm"))
-        del A, blocks_, mats, g, strips, panels
+    bsr_batched_rows(rows, inputs, rng)
     for row in rows:
         if row["shape"].startswith("batched:"):
-            (single,) = row["beside"].values()
+            single = next(v for k, v in row["beside"].items()
+                          if k != "cuda_core_variant")
             row["ms_over_single_launches"] = row["ms"] / single["ms"]
 
 
@@ -6132,7 +6327,13 @@ def solver_path(inp):
 # ---------------------------------------------------------------------------
 
 # Loss tolerance of "at or below the previous one, up to rounding".
-LOSS_RTOL = {torch.float64: 1e-12, torch.float32: 1e-5}
+LOSS_RTOL = {torch.float64: 1e-12, torch.float32: 1e-5,
+             torch.complex128: 1e-12}
+
+
+def squares(d):
+    """sum |d|^2, a real loss for real and complex ``d``."""
+    return (torch.view_as_real(d) if d.is_complex() else d).square().sum()
 
 
 def power_norm_sq(b, iters=30):
@@ -6153,10 +6354,11 @@ def coo_of(a):
 
 def host_norm_sq(a, iters=30):
     """||a||_2^2 of a scipy matrix from ``iters`` power iterations on
-    a^T a, on the host."""
+    a^H a, on the host."""
     v = np.ones(a.shape[1])
+    ah = a.conj().T
     for _ in range(iters):
-        w = a.T @ (a @ v)
+        w = ah @ (a @ v)
         v = w / np.linalg.norm(w)
     return float(np.linalg.norm(a @ v)) ** 2
 
@@ -6186,7 +6388,7 @@ class GradRun:
         out = self.fn(*self.params, **kw)
         if type(out.grad_fn).__name__ != self.node:
             raise AssertionError(f"{self.name}: node {out.grad_fn}")
-        loss = ((out - target) ** 2).sum()
+        loss = squares(out - target)
         loss.backward()
         if keep:
             self.kept.append((kw, target,
@@ -6214,7 +6416,7 @@ class GradRun:
         err = [0.0] * len(self.params)
         for kw, target, params, grads in self.kept:
             ps = [p.clone().requires_grad_() for p in params]
-            loss = ((self.plain(*ps, **kw) - target) ** 2).sum()
+            loss = squares(self.plain(*ps, **kw) - target)
             for i, (g, ref) in enumerate(zip(
                     grads, torch.autograd.grad(loss, ps))):
                 err[i] = max(err[i], compare(g, ref, ref.dtype))
@@ -6417,14 +6619,14 @@ def k7_training(inputs):
 
 # Phase 6's runs of the BSR device function and of the dense-output
 # sparse x sparse product: steps, and each kernel's launches a step.
-BSR_STEPS, SPGEMM_STEPS, BSR_SIMT_STEPS = 15, 10, 5
+BSR_STEPS, SPGEMM_STEPS, BSR_SIMT_STEPS, BSR_COMPLEX_STEPS = 15, 10, 5, 5
 
 
 def bsr_run(name, a, b_np):
     """A ``GradRun`` of SGD through ``ops.bsr_spmm`` on the scipy BSR
-    ``a``'s pattern (f64) and ``b_np``, both trained, from zero blocks
-    toward T = A b, with steps 1/(2 ||b||^2) for the blocks and
-    1/(4 ||A||^2) for b.  Returns (run, steps)."""
+    ``a``'s pattern (in its value type) and ``b_np``, both trained, from
+    zero blocks toward T = A b, with steps 1/(2 ||b||^2) for the blocks
+    and 1/(4 ||A||^2) for b.  Returns (run, steps)."""
     from sparse_dot_tpu_torch import ops
     from sparse_dot_tpu_torch.ops import autograd, bsr
 
@@ -6435,7 +6637,7 @@ def bsr_run(name, a, b_np):
     b = cuda(b_np)
     target = cuda(a @ b_np)
     lrs = (1.0 / (2.0 * power_norm_sq(b)), 0.25 / host_norm_sq(a))
-    blocks = torch.zeros(a.data.shape, dtype=torch.float64, device=b.device)
+    blocks = torch.zeros(a.data.shape, dtype=b.dtype, device=b.device)
 
     def plain(d, bb):
         p = autograd.bsr_structures.get(r3, c3, m, k, bs)
@@ -6451,8 +6653,12 @@ def bsr_training(inputs):
     forward on the tensor cores, K8 (tensor cores) and K1 over A^H
     backward; then BSR_SIMT_STEPS steps on a 4000^2 f64 BSR of 20 x 20
     blocks (5%) and a b of 64 columns, made from SEED + 14, which K1 and
-    K8 serve on the CUDA cores; the plain versions refused.  Returns the
-    launches and the runs' records."""
+    K8 serve on the CUDA cores; then BSR_COMPLEX_STEPS steps on a 4000^2
+    c128 BSR of 16 x 16 blocks (5%) and a b of 64 columns, made from
+    SEED + 33, which K1 and K8 serve on the tensor cores' complex
+    instances (K1 forward and over A^H, K8 in BsrSpmm's backward); the
+    plain versions refused.  Returns the launches and the runs'
+    records."""
     run, lrs = bsr_run("bsr_f64_blocks_and_b", inputs["bsrs"][(64, np.float64)],
                        inputs["b3"][np.float64])
     reset_launches()
@@ -6481,8 +6687,25 @@ def bsr_training(inputs):
     if got != expected:
         raise AssertionError(f"launch counts {got}, expected {expected}")
     launches = {name: launches[name] + got[name] for name in launches}
-    return launches, {"config3_bs64": record,
-                      "bs20": {**small.check(), "lr": list(lrs)}}
+    records = {"config3_bs64": record,
+               "bs20": {**small.check(), "lr": list(lrs)}}
+
+    rng = np.random.default_rng(SEED + 33)
+    cplx, lrs = bsr_run("bsr_c128_bs16_blocks_and_b",
+                        config3_bsr(rng, 4000, np.complex128, 16),
+                        values(rng, (4000, 64), np.complex128))
+    reset_launches()
+    with plain_versions_refused():
+        cplx.run(BSR_COMPLEX_STEPS)
+    got = read_launches()
+    expected = {name: 0 for name in got}
+    expected.update(K1_bsr_spmm_tc_complex=2 * BSR_COMPLEX_STEPS,
+                    K8_bsr_sddmm_tc_complex=BSR_COMPLEX_STEPS)
+    if got != expected:
+        raise AssertionError(f"launch counts {got}, expected {expected}")
+    launches = {name: launches[name] + got[name] for name in launches}
+    records["c128_bs16"] = {**cplx.check(), "lr": list(lrs)}
+    return launches, records
 
 
 def spgemm_training(x):
@@ -6815,6 +7038,49 @@ def batched_run(name, fn, expected, expected_batched, member_loop=None):
     return out, record
 
 
+def complex_bsr_vmap(inputs, runs, errs):
+    """Per-sample gradients at phase 3's complex BSR (4000^2, bs 16, 5% of
+    blocks, c128): ``vmap`` over ENSEMBLE b's (from SEED + 34) of ``grad``
+    of ||A b_i - t||^2 in (blocks, b_i), the blocks shared: K1 on the
+    tensor cores' complex instances twice (the members folded into its
+    columns, forward and over A^H), K8 once, batched; the member loop
+    beside it; each member's gradient in the blocks against
+    ``bsr_sddmm_plain`` of the plain residual.  Adds its record to
+    ``runs`` and its error to ``errs``."""
+    from sparse_dot_tpu_torch import ops
+    from sparse_dot_tpu_torch.ops import autograd, bsr
+
+    rng = np.random.default_rng(SEED + 34)
+    a = inputs["abc"]
+    bs, (m, k) = a.blocksize[0], a.shape
+    r = cuda(np.repeat(np.arange(m // bs), np.diff(a.indptr))
+             .astype(np.int32))
+    c = cuda(a.indices.astype(np.int32))
+    d = cuda(a.data)
+    bb = cuda(values(rng, (ENSEMBLE, k, 64), np.complex128))
+    t = cuda(values(rng, (m, 64), np.complex128))
+
+    def loss(dd, b):
+        return squares(ops.bsr_spmm(dd, r, c, b, m) - t)
+
+    grad = torch.func.grad(loss, argnums=(0, 1))
+    name = "per_sample_grads_complex_bsr_c128"
+    grads, runs[name] = batched_run(
+        "complex per-sample gradients",
+        lambda: torch.func.vmap(grad, in_dims=(None, 0))(d, bb),
+        {"K1_bsr_spmm_tc_complex": 2, "K8_bsr_sddmm_tc_complex": 1},
+        {"K8_bsr_sddmm_tc_complex": 1},
+        lambda: [grad(d, bb[i]) for i in range(ENSEMBLE)])
+    p = autograd.bsr_structures.get(r, c, m, k, bs)
+    err = 0.0
+    for i in range(ENSEMBLE):
+        g = 2 * (bsr.bsr_spmm_plain(p.indptr, p.indices, d[p.order], bb[i])
+                 - t)
+        ref = bsr.bsr_sddmm_plain(p.indptr, p.indices, g, bb[i], bs)
+        err = max(err, compare(grads[0][i][p.order], ref, ref.dtype))
+    errs[name] = err
+
+
 def batched_training(inputs, spgemm_inp):
     """Phase 6's batched runs, each a first call with its exact launches
     (one a ``vmap`` level, the plain versions refused), timed wall and
@@ -6832,6 +7098,8 @@ def batched_training(inputs, spgemm_inp):
       sets of ``grad`` of ||A_i b - t||^2 in the blocks: K1 once and K8
       once, both batched, on the tensor cores; the member loop beside
       it; against ``bsr_sddmm_plain``;
+    - per-sample gradients at the complex BSR (``complex_bsr_vmap``): K1
+      twice, K8 once (batched), on the tensor cores' complex instances;
     - ``jacrev`` of ``coo_spmm_raw`` in the values at a small pattern
       (JAC_PATTERN, f64): K2 once, K7 once (batched over the m * n
       cotangents);
@@ -6903,6 +7171,7 @@ def batched_training(inputs, spgemm_inp):
         err = max(err, compare(grads[i][p.order], ref, ref.dtype))
     errs["ensemble_grads_config3_f64"] = err
     del blocks_, grads
+    complex_bsr_vmap(inputs, runs, errs)
     # jacrev and hessian at a small pattern, against CPU copies.
     m, k, mean_row, n = JAC_PATTERN
     indptr, indices, data = random_csr(rng, m, k, mean_row, np.float64)
@@ -7462,7 +7731,7 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
         "--only", choices=("spgemm", "k6", "k7", "k8", "k9", "k11",
-                           "sharded", "batched", "densify"),
+                           "sharded", "batched", "densify", "bsr"),
         help="a short run that ends with no result line: spgemm runs "
              "phases 1, 2 (K4-K6 and K2/K3's complex inf case), 3 and 4 of "
              "sparse x sparse; k6 runs phase 1 and K6's phase-4 rows "
@@ -7479,7 +7748,10 @@ def main():
              "phase-4 rows and phase 6's batched runs; densify runs "
              "phase 1, K12's phase-2 checks (check_k12), phase 3's "
              "densify calls (densify_path), K12's phase-4 rows and the "
-             "crossover sweep (densify_sweep)")
+             "crossover sweep (densify_sweep); bsr runs phase 1, K1's and "
+             "K8's phase-2 checks (single and batched, every variant), "
+             "their phase-4 rows (single and batched) and phase 6's BSR "
+             "runs (bsr_training and bsr_hvp)")
     only = parser.parse_args().only
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -7571,6 +7843,46 @@ def main():
                    "each; library, yardstick and beside timed in the same "
                    "turns")
         densify_sweep()
+        return
+    if only == "bsr":
+        results = {name: {"cases": 0, "max_abs_err": 0.0}
+                   for name in KERNELS if name.startswith(("K1_", "K8_"))}
+
+        def record(name, err):
+            results[name]["cases"] += 1
+            results[name]["max_abs_err"] = max(
+                results[name]["max_abs_err"], err)
+
+        rng = np.random.default_rng(SEED)
+        for tdt, npdt in NP_DTYPES.items():
+            for itype in (np.int32, np.int64):
+                check_k1(rng, tdt, npdt, itype, record)
+            check_bsr_batched(rng, tdt, npdt, np.int32,
+                              0.5 - 0.25j if tdt.is_complex else -1.5,
+                              record)
+        check_k1_special(rng, record)
+        k8, _ = check_k8_k9(("K8",))
+        for name, got in k8.items():
+            results[name] = {
+                "cases": results[name]["cases"] + got["cases"],
+                "max_abs_err": max(results[name]["max_abs_err"],
+                                   got["max_abs_err"])}
+        emit(2, kernels=results)
+        inputs, rows = path_inputs(), []
+        rng = np.random.default_rng(SEED + 4)
+        k1_rows(rows, inputs)
+        k8_rows(rows, inputs, rng)
+        bsr_batched_rows(rows, inputs, rng)
+        emit("4-bsr", rows=rows,
+             timer="cuda events, median (p10, p90), 1 GiB read before "
+                   "each; library, yardstick and beside timed in the same "
+                   "turns")
+        grad_training(inputs, dict.fromkeys(("x", "a1m")), ("K8",))
+        reset_launches()
+        runs, errs = {}, {}
+        complex_bsr_vmap(inputs, runs, errs)
+        emit("6-vmap", runs=runs, max_abs_err_vs_plain=errs,
+             batched_launches=read_batched())
         return
     if only == "batched":
         results = {name: {"cases": 0, "max_abs_err": 0.0}

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Side-by-side timings of batched K7, K9 and K11 and of K13 on one
-NVIDIA GPU.
+"""Side-by-side timings of batched K7, K9 and K11, of K13 and of complex
+K1 and K8 on one NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with the card:
 
@@ -11,6 +11,9 @@ Run from the root of a checkout, on a machine with the card:
     python3 compare_k7_k13.py groups           # batched K9/K11 groups
     python3 compare_k7_k13.py sampled [--root DIR]
     python3 compare_k7_k13.py walls [--root DIR]
+    python3 compare_k7_k13.py bsr [--root DIR]
+    python3 compare_k7_k13.py bsr_gate         # dense x complex BSR routes
+    python3 compare_k7_k13.py plain_cpu [--root DIR]   # no card needed
 
 ``schedules`` times batched K7 at config 1 (f64, n = 128, 16 members) as
 one launch with spans sized over all members' entries, with spans that
@@ -38,7 +41,15 @@ device and on the host (``sampled_turns``); with ``--root DIR`` the
 package at DIR too, in the same turns.  ``walls`` times the ``vmap``
 transforms of ``chip_smoke.py``'s phase 6 that run K7, K9 and K11 host
 to host, with ``--root DIR`` the package at DIR too, in alternating
-turns (``vmap_walls``).  Each mode prints one JSON line, also written to
+turns (``vmap_walls``).  ``bsr`` times K1 and K8 at phase 3's complex
+BSR in c128 and c64 beside the CUDA-core variants launched directly, with
+``--root DIR`` the package at DIR too, in the same turns
+(``bsr_turns``).  ``bsr_gate`` times dense x BSR at that BSR's shape at
+several densities of blocks on K1 and on the densify route, beside the
+gate's choice (``bsr_gate``).  ``plain_cpu`` times the plain K1 on the
+CPU at that BSR, with ``--root DIR`` the package at DIR's too, in turns
+(``plain_cpu``); it is the one mode that runs without a card.  Each mode
+prints one JSON line, also written to
 ``--out`` when given.  The helpers (timing in turns after a 1 GiB read,
 the plain versions' comparison, the inputs) are ``chip_smoke.py``'s.
 """
@@ -687,6 +698,152 @@ def sampled_turns(packages, inputs, rng, size=4):
             "ms": timed_fns(fns, plain)}
 
 
+def bsr_turns(packages, inputs, rng):
+    """K1 and K8 at phase 3's complex BSR (4000^2, bs 16, 5% of blocks,
+    n = 64) in c128 and c64 through each of ``packages`` ({label: module
+    name}; K1 given its chunk plan, as ``dot_product`` passes it), beside
+    this checkout's CUDA-core variants launched directly, all in the same
+    turns: events, all device work, host enqueue, the error against this
+    checkout's plain versions."""
+    import importlib
+
+    from sparse_dot_tpu_torch.formats import bsr_chunk_plan
+    from sparse_dot_tpu_torch.ops import bsr
+
+    nc = SIZES["complex"]
+    fns, plain = {}, {}
+    for npdt in (np.complex128, np.complex64):
+        tag = np.dtype(npdt).name
+        A, b = chip_smoke.complex_bsr_operands(inputs, npdt)
+        ip, ix, data = A.bsr_arrays()
+        g = cuda(values(rng, (nc, 64), npdt))
+        plan = bsr_chunk_plan(ip, data.shape[0])
+        k1_args, k8_args = (ip, ix, data, b), (ip, ix, g, b, 16)
+        for label, name in packages.items():
+            wrapper = importlib.import_module(f"{name}.ops.bsr")
+            fns[f"{label}: K1 {tag}"] = (
+                lambda w=wrapper, a=k1_args: w.bsr_spmm(*a, plan=plan))
+            fns[f"{label}: K8 {tag}"] = (
+                lambda w=wrapper, a=k8_args: w.bsr_sddmm(*a))
+            plain[f"{label}: K1 {tag}"] = (
+                lambda a=k1_args: bsr.bsr_spmm_plain(*a))
+            plain[f"{label}: K8 {tag}"] = (
+                lambda a=k8_args: bsr.bsr_sddmm_plain(*a))
+        fns[f"CUDA cores: K1 {tag}"] = lambda a=k1_args: chip_smoke.k1_simt(*a)
+        fns[f"CUDA cores: K8 {tag}"] = lambda a=k8_args: chip_smoke.k8_simt(*a)
+        plain[f"CUDA cores: K1 {tag}"] = plain[f"this checkout: K1 {tag}"]
+        plain[f"CUDA cores: K8 {tag}"] = plain[f"this checkout: K8 {tag}"]
+    return {"shape": f"BSR {nc}x{nc}, bs 16, 5% of blocks, n = 64 (K8: G "
+                     f"({nc},64), B ({nc},64))", "packages": packages,
+            "ms": timed_fns(fns, plain)}
+
+
+# (block size, percent of blocks stored, value types) at which
+# ``bsr_gate`` times dense x BSR: bs 16 on the tensor cores, bs 20 (phase
+# 3's dense x BSR case) on the CUDA cores.
+GATE_POINTS = ([(16, pct, (np.complex128, np.complex64))
+                for pct in (10, 30, 50, 70, 90)]
+               + [(20, pct, (np.complex128,)) for pct in (50, 90)])
+
+
+def bsr_gate(rng, n=64):
+    """Dense x BSR, D (n, 4000) @ A for A of phase 3's complex BSR shape
+    (4000^2) at GATE_POINTS' block sizes and percents of blocks stored:
+    K1 over the transposed blocks as ``ops.host._spmm_pass`` runs it (the
+    blocks gathered into A^T's order, the cached chunk plan) against the
+    densify route as ``ops.host.densified_spmm`` runs it with no planes
+    kept (K12, ``torch.matmul``, the finite checks read on the host), each
+    up to a host sync, in the same turns (``chip_smoke.sweep_point``),
+    beside K1 alone on the gathered blocks and the gather alone; with the
+    gate's choice, both cost models' forecasts and the FLOP rate K1 alone
+    reaches (8 real FLOP a complex multiply-add, after the model's fixed
+    seconds)."""
+    from sparse_dot_tpu_torch import formats
+    from sparse_dot_tpu_torch.config import config
+    from sparse_dot_tpu_torch.ops import bsr, host
+
+    nc = SIZES["complex"]
+    dev = torch.device("cuda")
+    points = []
+    config.spgemm_plane_cache = False
+    try:
+        for bs, pct, types in GATE_POINTS:
+            a = chip_smoke.config3_bsr(rng, nc, np.complex128, bs,
+                                       pct / 100.0)
+            for npdt in types:
+                A = formats.to_device(a.astype(npdt))
+                b = cuda(values(rng, (nc, n), npdt))
+                arrays, plan = A.bsr_arrays(True), A.bsr_plan(True)
+                tdt, nnz = b.dtype, int(A.nnz)
+                point = chip_smoke.sweep_point(
+                    lambda: bsr.bsr_spmm(*A.bsr_arrays(True), b,
+                                         plan=A.bsr_plan(True)),
+                    lambda: host.densified_spmm(A, b, True),
+                    {"k1_alone": lambda: bsr.bsr_spmm(*arrays, b, plan=plan),
+                     "gather": lambda: A.bsr_arrays(True)},
+                    host._prefer_densify(nc, nc, n, nnz, tdt, dev, bs))
+                route_s = (host._DENSE_ROUTE_S
+                           + host._densify_seconds(nc * nc, nnz, tdt)
+                           + host._matmul_seconds(nc, nc, n, tdt))
+                point.update(
+                    bs=bs, percent=pct, dtype=str(tdt), nnz=nnz,
+                    forecast_k1_ms=host._k1_seconds(nnz, n, tdt, bs) * 1e3,
+                    forecast_route_ms=route_s * 1e3,
+                    k1_alone_flops_per_s=8.0 * nnz * n / max(
+                        point["k1_alone_ms"] * 1e-3 - host._K1_S, 1e-9))
+                points.append(point)
+                del A, b, arrays, plan
+                torch.cuda.empty_cache()
+    finally:
+        config.spgemm_plane_cache = True
+    return {"shape": f"D ({n},{nc}) @ BSR {nc}x{nc}",
+            "gate_constants": {"K1_S": host._K1_S,
+                               "K1_FLOPS": host._K1_FLOPS},
+            "points": points}
+
+
+def plain_cpu(packages, reps=15, n=64):
+    """The plain K1 (``bsr_spmm_plain``) on the CPU at phase 3's complex
+    BSR shape (4000^2, bs 16, 5% of blocks, n = 64), made from SEED + 1,
+    in c128 and c64 through each of ``packages`` ({label: module name}),
+    in turns: wall ms (median, p10, p90) and each package's largest
+    difference from the first's result."""
+    import importlib
+    import platform
+
+    nc = SIZES["complex"]
+    rng = np.random.default_rng(SEED + 1)
+    a = chip_smoke.config3_bsr(rng, nc, np.complex128, 16)
+    result = {}
+    for npdt in (np.complex128, np.complex64):
+        ip, ix = (torch.from_numpy(t.astype(np.int64))
+                  for t in (a.indptr, a.indices))
+        data = torch.from_numpy(a.data.astype(npdt))
+        b = torch.from_numpy(values(rng, (nc, n), npdt))
+        fns = {label: (lambda w=importlib.import_module(f"{name}.ops.bsr"):
+                       w.bsr_spmm_plain(ip, ix, data, b))
+               for label, name in packages.items()}
+        outs = {label: fn() for label, fn in fns.items()}
+        first = next(iter(outs.values()))
+        times = {label: [] for label in fns}
+        for _ in range(reps):
+            for label, fn in fns.items():
+                t0 = time.perf_counter()
+                fn()
+                times[label].append((time.perf_counter() - t0) * 1e3)
+        result[np.dtype(npdt).name] = {
+            label: {"ms": spread(t),
+                    "max_abs_diff": float((outs[label] - first).abs().max())}
+            for label, t in times.items()}
+    return {"shape": f"BSR {nc}x{nc}, bs 16, 5% of blocks, n = {n}",
+            "timer": "time.perf_counter around each call, median/p10/p90 "
+                     f"of {reps} turns",
+            "cpu": {"machine": platform.machine(),
+                    "cpus": os.cpu_count(),
+                    "torch_threads": torch.get_num_threads()},
+            "plain_ms": result}
+
+
 def vmap_transforms(sdt, inp, rng):
     """{name: fn} of phase 6's transforms through package ``sdt`` that
     launch batched K7, K9 or K11 (``chip_smoke.batched_training`` and
@@ -798,13 +955,21 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("mode", choices=("schedules", "members", "rows",
                                          "route", "groups", "sampled",
-                                         "walls"))
+                                         "walls", "bsr", "bsr_gate",
+                                         "plain_cpu"))
     parser.add_argument("--root", help="rows: time the package of the "
                                        "checkout at ROOT instead; route, "
-                                       "sampled and walls: time it beside "
-                                       "this one")
+                                       "sampled, walls, bsr and plain_cpu: "
+                                       "time it beside this one")
     parser.add_argument("--out", help="also write the JSON line here")
     args = parser.parse_args()
+    if args.mode == "plain_cpu":
+        packages = {"this checkout": "sparse_dot_tpu_torch"}
+        if args.root:
+            load_package(args.root, "sdt_other")
+            packages["other checkout"] = "sdt_other"
+        emit_line({"mode": args.mode, **plain_cpu(packages)}, args.out)
+        return
     if not torch.cuda.is_available():
         print("compare_k7_k13: no CUDA device visible", file=sys.stderr)
         sys.exit(2)
@@ -840,6 +1005,10 @@ def main():
                                   rng))
     elif args.mode == "walls":
         line.update(vmap_walls(packages, chip_smoke.spgemm_inputs()))
+    elif args.mode == "bsr":
+        line.update(bsr_turns(packages, chip_smoke.path_inputs(), rng))
+    elif args.mode == "bsr_gate":
+        line.update(bsr_gate(rng))
     else:
         if not hasattr(sddmm, "batched_schedule"):
             # A checkout before member groups: its schedule, one member a
@@ -851,12 +1020,17 @@ def main():
         rows = chip_smoke.k13_rows(device_match=("compact", "Scan"))
         chip_smoke.k7_batched_rows(rows, chip_smoke.path_inputs(), rng)
         line["rows"] = rows
+    emit_line(line, args.out)
+
+
+def emit_line(line, out=None):
+    """Print ``line`` as one JSON line, also written to ``out`` when
+    given."""
     text = json.dumps(line)
     print(text, flush=True)
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
-                    exist_ok=True)
-        with open(args.out, "w") as f:
+    if out:
+        os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+        with open(out, "w") as f:
             f.write(text + "\n")
 
 

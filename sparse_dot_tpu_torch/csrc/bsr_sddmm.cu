@@ -1,13 +1,13 @@
 // K8, tensor-core variant: block SDDMM, for each stored block b of a BSR A
 // with square bs x bs blocks at block coordinates (r_b, c_b),
 //
-//   out[b] = alpha * G[r_b bs : (r_b + 1) bs, :] @ B[c_b bs : (c_b + 1) bs, :]^T
+//   out[b] = alpha * G[r_b bs : (r_b + 1) bs, :] @ conj(B[c_b bs : (c_b + 1) bs, :])^T
 //
-// a bs x bs block, with row-major G (m, n) and B (k, n), real values (f32,
-// f64) and bs % 8 == 0.  It is the gradient of C = A @ B (K1) with respect
-// to A's blocks (G = dL/dC).  Complex values and other block sizes take
-// the CUDA-core variant in bsr_sddmm_simt.cu (the choice is made in
-// ops/bsr.py, uses_tensor_cores, before the launch).
+// a bs x bs block, with row-major G (m, n) and B (k, n), in every value
+// type (conj only for complex ones) and bs % 8 == 0.  It is the gradient
+// of C = A @ B (K1) with respect to A's blocks (G = dL/dC).  Other block
+// sizes take the CUDA-core variant in bsr_sddmm_simt.cu (the choice is
+// made in ops/bsr.py, uses_tensor_cores, before the launch).
 //
 // Replaces the transpose of sparse_dot_tpu/ops/_xla.py bsr_spmm (:799)
 // under jax.grad: XLA turns its batched dot_general over gathered B
@@ -42,6 +42,15 @@
 // - Each sum is taken in one fixed order in one set of registers, each
 //   output written by one thread, no atomics: a run gives the same bits
 //   twice.
+// - Complex values (mma.cuh): four real products a step on the parts of
+//   G and of conj(B), read from interleaved complex shared memory, c128
+//   on f64 MMA and c64 on 3xTF32; the inner chunk is 16 elements and a
+//   tile at most 32 x 32 (64-row tiles' complex sums would not fit 128
+//   registers).  The CUDA-core kernel that served them until then gave
+//   each thread one output at bs 16 and read two 16-byte values from
+//   shared memory for every complex FMA, about 0.05 ms of shared-memory
+//   reads at phase 3's c128 BSR (4000^2, bs 16, n = 64), and staged its
+//   strips synchronously.
 //
 // A batch of members that share A's pattern (the backward of a vmap over
 // the blocks or over b, jacrev's cotangents, a batched tangent) is one
@@ -67,12 +76,13 @@ struct Strides {
 };
 
 // Tile shape for element type T and BM x BM outputs.  The inner chunk is
-// 128 bytes of n (BK elements); a staged row's pitch of BK + 4 puts a
-// fragment load's 32 lanes on distinct banks (two halves of 16 for 8-byte
-// values).
+// 128 bytes of n (BK elements; 16 complex elements); a staged row's pitch
+// of BK + 4 puts each phase of a fragment load (32 lanes of 4 bytes, 16
+// of 8, 8 of 16) on distinct banks.
 template <typename T, int BM>
 struct Tile {
-  static constexpr int BK = 128 / static_cast<int>(sizeof(T));
+  static constexpr int BK =
+      IsComplex<T>::value ? 16 : 128 / static_cast<int>(sizeof(T));
   static constexpr int kVec = 16 / static_cast<int>(sizeof(T));  // per 16 B
   static constexpr int kWarpsM = BM >= 32 ? 2 : 1;
   static constexpr int kWarpsN = 2;
@@ -88,6 +98,14 @@ struct Tile {
   static constexpr int kStage = BM * kPitch;
   static constexpr size_t kSmem = sizeof(T) * kStages * 2 * kStage;
 };
+
+__device__ __forceinline__ float conj_of(float v) { return v; }
+__device__ __forceinline__ double conj_of(double v) { return v; }
+template <typename R>
+__device__ __forceinline__ cuda::std::complex<R> conj_of(
+    cuda::std::complex<R> v) {
+  return cuda::std::complex<R>(v.real(), -v.imag());
+}
 
 // The block row of stored block b: the last r with indptr[r] <= b (so
 // indptr[r] <= b < indptr[r + 1], across empty block rows).
@@ -215,12 +233,12 @@ bsr_sddmm_tc_kernel(const I* __restrict__ indptr, int64_t nbrows,
         af[i][2] = Op::make(ap[4]);
         af[i][3] = Op::make(ap[8 * L::kPitch + 4]);
       }
-      // B[k][col] of the MMA is B's strip at row col, column k.
+      // B[k][col] of the MMA is conj of B's strip at row col, column k.
 #pragma unroll
       for (int j = 0; j < L::NT; ++j) {
         const T* bp = bsm + (wn + j * 8 + gq) * L::kPitch + kk + t;
-        bf[j][0] = Op::make(bp[0]);
-        bf[j][1] = Op::make(bp[4]);
+        bf[j][0] = Op::make(conj_of(bp[0]));
+        bf[j][1] = Op::make(conj_of(bp[4]));
       }
 #pragma unroll
       for (int i = 0; i < L::MT; ++i)
@@ -247,8 +265,9 @@ bsr_sddmm_tc_kernel(const I* __restrict__ indptr, int64_t nbrows,
           if (col >= bs) continue;
           const int q = 2 * q2 + q1;
           T v = acc[i][j][q];
-          if constexpr (std::is_same<T, float>::value) v += acc_lo[i][j][q];
-          oblk[static_cast<int64_t>(row) * bs + col] = scale ? alpha * v : v;
+          if constexpr (kSplitSum<T>) v += acc_lo[i][j][q];
+          oblk[static_cast<int64_t>(row) * bs + col] =
+              scale ? Arith<T>::mul(alpha, v) : v;
         }
       }
     }
@@ -282,8 +301,8 @@ cudaError_t launch_tiles(const void* indptr, int64_t nbrows,
   return cudaGetLastError();
 }
 
-// The smallest tile that covers the block, 64 rows at most (larger
-// blocks take several tiles).
+// The smallest tile that covers the block, 64 rows at most (complex 32;
+// larger blocks take several tiles).
 template <typename T, typename I>
 cudaError_t launch_tile(const void* indptr, int64_t nbrows,
                         const void* indices, int64_t nblocks, const void* g,
@@ -295,14 +314,20 @@ cudaError_t launch_tile(const void* indptr, int64_t nbrows,
                                            g, b, out, bs, n, alpha, scale,
                                            vec, batch, st, stream);
   }
-  if (bs <= 32) {
-    return launch_tiles<T, I, 32>(indptr, nbrows, indices, nblocks,
-                                           g, b, out, bs, n, alpha, scale,
-                                           vec, batch, st, stream);
+  if constexpr (IsComplex<T>::value) {
+    return launch_tiles<T, I, 32>(indptr, nbrows, indices, nblocks, g, b,
+                                  out, bs, n, alpha, scale, vec, batch, st,
+                                  stream);
+  } else {
+    if (bs <= 32) {
+      return launch_tiles<T, I, 32>(indptr, nbrows, indices, nblocks,
+                                             g, b, out, bs, n, alpha, scale,
+                                             vec, batch, st, stream);
+    }
+    return launch_tiles<T, I, 64>(indptr, nbrows, indices, nblocks,
+                                           g, b, out, bs, n, alpha, scale, vec,
+                                           batch, st, stream);
   }
-  return launch_tiles<T, I, 64>(indptr, nbrows, indices, nblocks,
-                                         g, b, out, bs, n, alpha, scale, vec,
-                                         batch, st, stream);
 }
 
 bool aligned16(const void* p) {
@@ -315,25 +340,21 @@ cudaError_t launch(const void* indptr, int64_t nbrows, const void* indices,
                    int64_t bs, int64_t n, double alpha_re, double alpha_im,
                    int64_t batch, int64_t s_g, int64_t s_b, int64_t s_out,
                    cudaStream_t stream) {
-  if constexpr (!std::is_floating_point<T>::value) {
-    return cudaErrorInvalidValue;  // complex values take the SIMT variant
-  } else {
-    if (bs < 8 || bs % 8 || bs > (1 << 20) || nblocks > 0x7fffffff ||
-        n < 1 || batch < 1 || batch > kMaxMembers || s_g < 0 || s_b < 0 ||
-        s_out < 0) {
-      return cudaErrorInvalidValue;
-    }
-    if (nblocks == 0) return cudaSuccess;
-    const T alpha = static_cast<T>(alpha_re);  // real values
-    const bool scale = !is_one(alpha_re, alpha_im);
-    // 16-byte copies need every member's rows on 16 bytes too.
-    const bool vec = aligned16(g) && aligned16(b) &&
-                     n % (16 / static_cast<int64_t>(sizeof(T))) == 0 &&
-                     ((s_g | s_b) * static_cast<int64_t>(sizeof(T))) % 16 == 0;
-    return launch_tile<T, I>(indptr, nbrows, indices, nblocks, g, b, out,
-                             static_cast<int>(bs), n, alpha, scale, vec,
-                             batch, Strides{s_g, s_b, s_out}, stream);
+  if (bs < 8 || bs % 8 || bs > (1 << 20) || nblocks > 0x7fffffff ||
+      n < 1 || batch < 1 || batch > kMaxMembers || s_g < 0 || s_b < 0 ||
+      s_out < 0) {
+    return cudaErrorInvalidValue;
   }
+  if (nblocks == 0) return cudaSuccess;
+  const T alpha = Arith<T>::make(alpha_re, alpha_im);  // real: the real part
+  const bool scale = !is_one(alpha_re, alpha_im);
+  // 16-byte copies need every member's rows on 16 bytes too.
+  const bool vec = aligned16(g) && aligned16(b) &&
+                   n % (16 / static_cast<int64_t>(sizeof(T))) == 0 &&
+                   ((s_g | s_b) * static_cast<int64_t>(sizeof(T))) % 16 == 0;
+  return launch_tile<T, I>(indptr, nbrows, indices, nblocks, g, b, out,
+                           static_cast<int>(bs), n, alpha, scale, vec,
+                           batch, Strides{s_g, s_b, s_out}, stream);
 }
 
 }  // namespace

@@ -1,7 +1,8 @@
 // K1, tensor-core variant: BSR SpMM, C = alpha * A @ B + beta * C0, for
-// BSR A with square bs x bs blocks, bs % 8 == 0, real values (f32, f64),
-// and row-major B.  Complex values and other block sizes go to the
-// CUDA-core variant in bsr_spmm_simt.cu (the choice is made in ops/bsr.py).
+// BSR A with square bs x bs blocks, bs % 8 == 0, in every value type
+// (f32, f64, c64, c128), and row-major B.  Other block sizes go to the
+// CUDA-core variant in bsr_spmm_simt.cu (the choice is made in ops/bsr.py,
+// uses_tensor_cores).
 //
 // Replaces sparse_dot_tpu/ops/pallas_bsr.py bsr_spmm_pallas (Pallas body
 // _kernel), which walked (128-column B panel, stored block) in order on
@@ -41,6 +42,18 @@
 //   CUDA cores in IEEE f32, and the cross products accumulate apart.
 //   Where hi is inf or nan, lo and the copy of hi used in the two cross
 //   products are 0, so inf * finite stays inf and no inf * 0 appears.
+// - Complex values take the same tiles, ring and plan (mma.cuh: four real
+//   products a k4 or k8 step on the parts, read from interleaved complex
+//   shared memory; c128 on f64 MMA, c64 on 3xTF32), with a complex
+//   alpha/beta/C0 epilogue.  The CUDA-core kernel served them before:
+//   one thread block per block row and 64 columns walked the whole row
+//   (12.5 blocks on average, 25 at the longest, at phase 3's c128 BSR)
+//   with each block staged behind two barriers, and every complex FMA
+//   read two 16-byte values from shared memory.  A complex element
+//   is 8 or 16 bytes, so the inner chunk is 16 elements (256 bytes of a
+//   c128 row: one step a block at bs 16) and tiles are at most 32 rows
+//   tall (the sums of a 64-row tile would not fit 128 registers);
+//   taller blocks take several row tiles.
 // - A ring of kStages tiles in dynamic shared memory, filled by cp.async:
 //   the copies of the next two (block, k-chunk) steps are in flight while
 //   the tensor cores work on the current one, across stored-block
@@ -90,12 +103,14 @@ struct Strides {
   }
 
 // Tile shape for element type T and thread-block height BM (16, 32, 64 or
-// 128 rows).  The inner chunk is 128 bytes of a row of A (BK elements);
-// the shared-memory pitches are padded so that the fragment loads below
-// hit 32 distinct banks.
+// 128 rows; complex 16 or 32).  The inner chunk is 128 bytes of a row of
+// A (BK elements; 16 complex elements); the shared-memory pitches are
+// padded so that the fragment loads below hit distinct banks in each
+// phase of a warp's load (32 lanes of 4 bytes, 16 of 8, 8 of 16).
 template <typename T, int BM>
 struct Tile {
-  static constexpr int kBK0 = 128 / static_cast<int>(sizeof(T));
+  static constexpr int kBK0 =
+      IsComplex<T>::value ? 16 : 128 / static_cast<int>(sizeof(T));
   static constexpr int BK = kBK0 < BM ? kBK0 : BM;
   static constexpr int kVec = 16 / static_cast<int>(sizeof(T));  // per 16 B
   static constexpr int kWarpsM = BM >= 64 ? 4 : BM / 16;
@@ -105,7 +120,7 @@ struct Tile {
   static constexpr int MT = WM / 16;        // m16 tiles per warp
   static constexpr int NT = WN / 8;         // n8 tiles per warp
   static constexpr int kAPitch = BK + 4;
-  static constexpr int kBPitch = kBN + (sizeof(T) == 4 ? 8 : 4);
+  static constexpr int kBPitch = kBN + 32 / static_cast<int>(sizeof(T));
   static constexpr int kAStage = BM * kAPitch;
   static constexpr int kBStage = BK * kBPitch;
   static constexpr size_t kSmem = sizeof(T) * kStages * (kAStage + kBStage);
@@ -272,7 +287,7 @@ bsr_spmm_tc_kernel(const int64_t* __restrict__ items,
           if (col >= n) continue;
           const int q = 2 * q2 + q1;
           T v = acc[i][j][q];
-          if constexpr (std::is_same<T, float>::value) v += acc_lo[i][j][q];
+          if constexpr (kSplitSum<T>) v += acc_lo[i][j][q];
           const int64_t off = static_cast<int64_t>(r) * n + col;
           if (slot < 0) {
             const int64_t idx = brow * tile + off;
@@ -337,8 +352,8 @@ cudaError_t launch_tiles(const void* items, int64_t n_items,
   return cudaGetLastError();
 }
 
-// The tile height that covers bs (128 rows at most), for one member
-// (BATCH false) or a batch.
+// The tile height that covers bs (128 rows at most, complex 32), for one
+// member (BATCH false) or a batch.
 template <typename T, typename I, bool BATCH>
 cudaError_t launch_height(const void* items, int64_t n_items,
                           const void* indices, const void* data,
@@ -350,9 +365,13 @@ cudaError_t launch_height(const void* items, int64_t n_items,
   items, n_items, indices, data, b, c0, c, work, bs, n, alpha, beta, scale, \
       a_vec, b_vec, batch, st, stream
   if (bs <= 16) return launch_tiles<T, I, 16, BATCH>(SDT_K1_TILE_ARGS);
-  if (bs <= 32) return launch_tiles<T, I, 32, BATCH>(SDT_K1_TILE_ARGS);
-  if (bs <= 64) return launch_tiles<T, I, 64, BATCH>(SDT_K1_TILE_ARGS);
-  return launch_tiles<T, I, 128, BATCH>(SDT_K1_TILE_ARGS);
+  if constexpr (IsComplex<T>::value) {
+    return launch_tiles<T, I, 32, BATCH>(SDT_K1_TILE_ARGS);
+  } else {
+    if (bs <= 32) return launch_tiles<T, I, 32, BATCH>(SDT_K1_TILE_ARGS);
+    if (bs <= 64) return launch_tiles<T, I, 64, BATCH>(SDT_K1_TILE_ARGS);
+    return launch_tiles<T, I, 128, BATCH>(SDT_K1_TILE_ARGS);
+  }
 #undef SDT_K1_TILE_ARGS
 }
 
@@ -368,46 +387,42 @@ cudaError_t launch(const void* items, int64_t n_items, const void* splits,
                    double alpha_im, double beta_re, double beta_im,
                    int64_t batch, int64_t s_data, int64_t s_b, int64_t s_c0,
                    int64_t s_c, cudaStream_t stream) {
-  if constexpr (!std::is_floating_point<T>::value) {
-    return cudaErrorInvalidValue;  // complex values take the SIMT variant
-  } else {
-    if (bs < 8 || bs % 8 || bs > (1 << 20) || n_items < 0 || n_splits < 0 ||
-        (n_splits > 0 && work == nullptr) || batch < 1 ||
-        batch > kMaxMembers || slots < 0 || s_data < 0 || s_b < 0 ||
-        s_c0 < 0 || s_c < 0)
-      return cudaErrorInvalidValue;
-    if (n_items == 0 || n == 0) return cudaSuccess;
-    const T alpha = static_cast<T>(alpha_re);  // real values: no imaginary
-    const T beta = static_cast<T>(beta_re);    // parts to take
-    const bool scale = !is_one(alpha_re, alpha_im);
-    const int ibs = static_cast<int>(bs);
-    // 16-byte copies need every member's blocks (rows of B) on 16 bytes.
-    const int64_t size = static_cast<int64_t>(sizeof(T));
-    const bool a_vec = aligned16(data) && (s_data * size) % 16 == 0;
-    const bool b_vec = aligned16(b) && n % (16 / sizeof(T)) == 0 &&
-                       (s_b * size) % 16 == 0;
-    const Strides st{s_data, s_b, s_c0, s_c, slots * bs * n};
+  if (bs < 8 || bs % 8 || bs > (1 << 20) || n_items < 0 || n_splits < 0 ||
+      (n_splits > 0 && work == nullptr) || batch < 1 ||
+      batch > kMaxMembers || slots < 0 || s_data < 0 || s_b < 0 ||
+      s_c0 < 0 || s_c < 0)
+    return cudaErrorInvalidValue;
+  if (n_items == 0 || n == 0) return cudaSuccess;
+  const T alpha = Arith<T>::make(alpha_re, alpha_im);  // real values take
+  const T beta = Arith<T>::make(beta_re, beta_im);     // the real parts
+  const bool scale = !is_one(alpha_re, alpha_im);
+  const int ibs = static_cast<int>(bs);
+  // 16-byte copies need every member's blocks (rows of B) on 16 bytes.
+  const int64_t size = static_cast<int64_t>(sizeof(T));
+  const bool a_vec = aligned16(data) && (s_data * size) % 16 == 0;
+  const bool b_vec = aligned16(b) && n % (16 / size) == 0 &&
+                     (s_b * size) % 16 == 0;
+  const Strides st{s_data, s_b, s_c0, s_c, slots * bs * n};
 #define SDT_K1_HEIGHT_ARGS                                                  \
   items, n_items, indices, data, b, c0, c, work, ibs, n, alpha, beta, scale, \
       a_vec, b_vec, batch, st, stream
-    cudaError_t err = batch == 1
-                          ? launch_height<T, I, false>(SDT_K1_HEIGHT_ARGS)
-                          : launch_height<T, I, true>(SDT_K1_HEIGHT_ARGS);
+  cudaError_t err = batch == 1
+                        ? launch_height<T, I, false>(SDT_K1_HEIGHT_ARGS)
+                        : launch_height<T, I, true>(SDT_K1_HEIGHT_ARGS);
 #undef SDT_K1_HEIGHT_ARGS
-    if (err != cudaSuccess || n_splits == 0) return err;
-    const int64_t tile = bs * n;
-    const int64_t per_split = (tile + kThreads - 1) / kThreads;
-    const dim3 grid(static_cast<unsigned>(n_splits),
-                    static_cast<unsigned>(per_split < 1024 ? per_split : 1024),
-                    static_cast<unsigned>(batch));
-    auto reduce =
-        batch == 1 ? bsr_reduce_kernel<T, false> : bsr_reduce_kernel<T, true>;
-    reduce<<<grid, kThreads, 0, stream>>>(
-        static_cast<const int64_t*>(splits), static_cast<const T*>(work),
-        static_cast<const T*>(c0), static_cast<T*>(c), tile, alpha, beta,
-        scale, st);
-    return cudaGetLastError();
-  }
+  if (err != cudaSuccess || n_splits == 0) return err;
+  const int64_t tile = bs * n;
+  const int64_t per_split = (tile + kThreads - 1) / kThreads;
+  const dim3 grid(static_cast<unsigned>(n_splits),
+                  static_cast<unsigned>(per_split < 1024 ? per_split : 1024),
+                  static_cast<unsigned>(batch));
+  auto reduce =
+      batch == 1 ? bsr_reduce_kernel<T, false> : bsr_reduce_kernel<T, true>;
+  reduce<<<grid, kThreads, 0, stream>>>(
+      static_cast<const int64_t*>(splits), static_cast<const T*>(work),
+      static_cast<const T*>(c0), static_cast<T*>(c), tile, alpha, beta,
+      scale, st);
+  return cudaGetLastError();
 }
 
 }  // namespace

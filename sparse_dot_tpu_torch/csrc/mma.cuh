@@ -1,6 +1,6 @@
 // Tensor-core and asynchronous-copy helpers shared by the kernels that
-// run real values on Hopper's tensor cores at full precision: K1's
-// tensor-core variant (bsr_spmm.cu) and K8's (bsr_sddmm.cu).
+// run on Hopper's tensor cores at full precision: K1's tensor-core
+// variant (bsr_spmm.cu) and K8's (bsr_sddmm.cu), in all four value types.
 //
 // - cp.async copies of 16 bytes or one element into shared memory, with
 //   zero fill for the ragged edge, committed and waited for in groups;
@@ -14,7 +14,16 @@
 //   tile's sum in IEEE f32, and the cross products accumulate apart.
 //   Where hi is inf or nan, lo and the copy of hi used in the two cross
 //   products are 0, so inf * finite stays inf and no inf * 0 appears.
+// - complex (c128 on f64 MMA, c64 on 3xTF32): four real products a step
+//   on the real and imaginary parts, read from interleaved complex
+//   shared memory: re += Ar Br, re += (-Ai) Bi, im += Ar Bi, im += Ai Br.
+//   Each real product is an IEEE product in the MMA, so the nan, +inf
+//   and -inf of a sum are those of numpy's component formula summed over
+//   k (which the plain versions follow); the 3-multiplication (Gauss)
+//   form would not keep them.
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -114,6 +123,80 @@ __device__ __forceinline__ void mma_k8(double (&d)[4], double (&)[4],
   mma_f64(d, a[2], a[3], b[1]);
 }
 
+// c128: the k8 step of one (m16, n8) tile as four real products per k4
+// half, in f64 MMA on the real and imaginary parts; lo is not used.
+__device__ __forceinline__ void mma_k8(c128 (&d)[4], c128 (&)[4],
+                                       const c128 (&a)[4],
+                                       const c128 (&b)[2]) {
+  double re[4], im[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    re[q] = d[q].real();
+    im[q] = d[q].imag();
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {  // k = t, then k = t + 4
+    const c128 a0 = a[2 * h], a1 = a[2 * h + 1], b0 = b[h];
+    mma_f64(re, a0.real(), a1.real(), b0.real());
+    mma_f64(re, -a0.imag(), -a1.imag(), b0.imag());
+    mma_f64(im, a0.real(), a1.real(), b0.imag());
+    mma_f64(im, a0.imag(), a1.imag(), b0.real());
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q) d[q] = c128(re[q], im[q]);
+}
+
+// c64: a 3xTF32 operand for each part.
+struct CTf32x3 {
+  Tf32x3 re, im;
+};
+
+__device__ __forceinline__ Tf32x3 negate(Tf32x3 x) {
+  return {x.hi ^ 0x80000000u, x.hic ^ 0x80000000u, x.lo ^ 0x80000000u};
+}
+
+// c64: the k8 step as four 3xTF32 real products, each with its hi*hi in
+// fresh registers (mma_k8 on floats above).
+__device__ __forceinline__ void mma_k8(c64 (&d)[4], c64 (&lo)[4],
+                                       const CTf32x3 (&a)[4],
+                                       const CTf32x3 (&b)[2]) {
+  float re[4], im[4], re_lo[4], im_lo[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    re[q] = d[q].real();
+    im[q] = d[q].imag();
+    re_lo[q] = lo[q].real();
+    im_lo[q] = lo[q].imag();
+  }
+  const Tf32x3 ar[4] = {a[0].re, a[1].re, a[2].re, a[3].re};
+  const Tf32x3 ai[4] = {a[0].im, a[1].im, a[2].im, a[3].im};
+  const Tf32x3 nai[4] = {negate(a[0].im), negate(a[1].im), negate(a[2].im),
+                         negate(a[3].im)};
+  const Tf32x3 br[2] = {b[0].re, b[1].re};
+  const Tf32x3 bi[2] = {b[0].im, b[1].im};
+  mma_k8(re, re_lo, ar, br);
+  mma_k8(re, re_lo, nai, bi);
+  mma_k8(im, im_lo, ar, bi);
+  mma_k8(im, im_lo, ai, br);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    d[q] = c64(re[q], im[q]);
+    lo[q] = c64(re_lo[q], im_lo[q]);
+  }
+}
+
+template <typename T>
+struct IsComplex : std::false_type {};
+template <typename R>
+struct IsComplex<cuda::std::complex<R>> : std::true_type {};
+
+// Whether a tile keeps 3xTF32 cross products apart (acc_lo), to be added
+// to its sum at the end: f32 and c64.
+template <typename T>
+constexpr bool kSplitSum =
+    std::is_same<T, float>::value || std::is_same<T, c64>::value;
+
+// The MMA operand of a value read from shared memory.
 template <typename T>
 struct Operand {
   using type = T;
@@ -123,6 +206,13 @@ template <>
 struct Operand<float> {
   using type = Tf32x3;
   __device__ static Tf32x3 make(float x) { return split_tf32(x); }
+};
+template <>
+struct Operand<c64> {
+  using type = CTf32x3;
+  __device__ static CTf32x3 make(c64 x) {
+    return {split_tf32(x.real()), split_tf32(x.imag())};
+  }
 };
 
 }  // namespace sdt

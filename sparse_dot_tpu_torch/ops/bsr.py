@@ -11,18 +11,24 @@ on the card.
 The variant follows the value type and the block size
 (``uses_tensor_cores``), a choice on shape, not a fallback:
 
-- real values (f32, f64) with ``bs % 8 == 0`` take the tensor-core
-  variant (``csrc/bsr_spmm.cu``): f64 MMA, 3xTF32 for f32 (about f32's
-  own precision; never plain TF32), a cp.async ring of tiles, one thread
-  block per (chunk of a block row, 64 columns) up to 128 rows tall, and
-  block rows longer than the chunk plan's S stored blocks
-  (``formats.bsr_chunk_plan``) summed from partial tiles in chunk order,
-  so results do not change from run to run;
-- complex values and other block sizes take the CUDA-core variant of
-  PR 1 (``csrc/bsr_spmm_simt.cu``): any square bs, any n, plain FMA.
+- blocks of a multiple of 8 take the tensor-core variant
+  (``csrc/bsr_spmm.cu``): f64 MMA, 3xTF32 for f32 (about f32's own
+  precision; never plain TF32), complex values as four real products a
+  step on their parts (c128 on f64 MMA, c64 on 3xTF32), a cp.async ring
+  of tiles, one thread block per (chunk of a block row, 64 columns) up to
+  128 rows tall (complex 32), and block rows longer than the chunk plan's
+  S stored blocks (``formats.bsr_chunk_plan``) summed from partial tiles
+  in chunk order, so results do not change from run to run;
+- other block sizes take the port's first, CUDA-core variant
+  (``csrc/bsr_spmm_simt.cu``): any square bs, any n, plain FMA.
+
+Complex products in both variants, and in the plain versions, follow
+numpy's component formula (``_component_matmul``): the nan, +inf and
+-inf of a result are those of the real products of the parts.
 
 ``bsr_spmm.launches`` counts launches of either variant;
-``bsr_spmm.launches_tc`` and ``bsr_spmm.launches_simt`` count each.  The
+``bsr_spmm.launches_tc`` and ``bsr_spmm.launches_simt`` count each, and
+``launches_tc_complex`` the tensor-core launches on complex values.  The
 notes at the top of the ``.cu`` files say what bounds each variant and
 how its tiles are laid out.
 
@@ -31,17 +37,16 @@ times the conjugate transpose of B's block row; it replaces ``jax.grad``
 of ``_xla.bsr_spmm`` in the blocks.  It is split as K1 is, by the same
 predicate (``uses_tensor_cores``), chosen before the launch:
 
-- real values with ``bs % 8 == 0`` on the tensor cores
-  (``csrc/bsr_sddmm.cu``): f64 MMA, 3xTF32 for f32 (K1's arithmetic,
-  ``csrc/mma.cuh``), a thread block a tile of at most 64 x 64 of a
-  stored block, G's and B's strips streamed through a ``cp.async`` ring
-  of 2 chunks;
-- complex values and other block sizes on the CUDA cores
-  (``csrc/bsr_sddmm_simt.cu``): strips staged in shared memory 16
-  columns at a time, plain FMA.
+- blocks of a multiple of 8 on the tensor cores (``csrc/bsr_sddmm.cu``):
+  K1's arithmetic (``csrc/mma.cuh``) in every value type, a thread block
+  a tile of at most 64 x 64 (complex 32 x 32) of a stored block, G's and
+  B's strips streamed through a ``cp.async`` ring of 2 chunks;
+- other block sizes on the CUDA cores (``csrc/bsr_sddmm_simt.cu``):
+  strips staged in shared memory 16 columns at a time, plain FMA.
 
 ``bsr_sddmm.launches`` counts launches of either variant,
-``bsr_sddmm.launches_tc`` and ``bsr_sddmm.launches_simt`` each.
+``bsr_sddmm.launches_tc`` and ``bsr_sddmm.launches_simt`` each, and
+``launches_tc_complex`` the tensor-core launches on complex values.
 ``bsr_spmm`` takes ``ops.autograd.BsrSpmm`` when an operand is tracked,
 whose backward runs K8 and K1 over A^H.
 
@@ -59,16 +64,37 @@ import torch
 from ..config import config
 from ..formats import bsr_chunk_plan, expand_indptr
 from . import _build
-from .csr import (_check, batch_size, check_members, member_chunks,
-                  member_ptr, member_stride, refuse_tracked, refuse_views,
-                  tracked)
+from .csr import (_add_rows, _check, batch_size, check_members,
+                  member_chunks, member_ptr, member_stride, refuse_tracked,
+                  refuse_views, tracked)
 from .dense import axpby, ieee_matmul
+
+
+def _component_matmul(a, b):
+    """``a @ b`` (``torch.matmul``, leading dimensions broadcast); complex
+    operands go in as one real product of their parts side by side,
+    [Ar, Ai] @ [[Br, Bi], [-Bi, Br]], so that each product follows
+    numpy's component formula, as the kernels do (cuBLAS's complex GEMM
+    gives nan + nanj where that formula gives +-inf +-infj).  On the CPU
+    only where a value is not finite: finite ones take the complex
+    product there, 2.6 to 5 times faster (PERF.md), and a sum that
+    overflows only sends them the slower way; on the card the check
+    would cost a host sync."""
+    if not a.is_complex() or (not a.is_cuda and bool(
+            torch.isfinite(torch.stack([a.sum(), b.sum()])).all())):
+        return torch.matmul(a, b)
+    n = b.shape[-1]
+    a2 = torch.cat([a.real, a.imag], -1)
+    b2 = torch.cat([torch.cat([b.real, b.imag], -1),
+                    torch.cat([-b.imag, b.real], -1)], -2)
+    out = torch.matmul(a2, b2)
+    return torch.complex(out[..., :n], out[..., n:])
 
 
 def bsr_spmm_plain(indptr, indices, data, b, alpha=None, beta=None, c0=None):
     """``alpha * A @ b + beta * c0`` in plain PyTorch: gather the B panel
-    of every stored block, one batched matmul, ``index_add_`` of the
-    block rows (``_xla.bsr_spmm``)."""
+    of every stored block, one batched matmul (``_component_matmul``),
+    ``index_add_`` of the block rows (``_xla.bsr_spmm``)."""
     nblocks, bs, _ = data.shape
     nbrows = indptr.numel() - 1
     k, n = b.shape
@@ -77,8 +103,8 @@ def bsr_spmm_plain(indptr, indices, data, b, alpha=None, beta=None, c0=None):
         if b.is_cuda:
             ieee_matmul()
         panels = b.reshape(k // bs, bs, n)[indices.long()]
-        c.index_add_(0, expand_indptr(indptr, nblocks),
-                     torch.bmm(data, panels))
+        _add_rows(c, expand_indptr(indptr, nblocks),
+                  _component_matmul(data, panels))
     return axpby(c.reshape(nbrows * bs, n), alpha, beta, c0)
 
 
@@ -98,16 +124,18 @@ def bsr_spmm_batched_plain(indptr, indices, data, b, alpha=None, beta=None,
             ieee_matmul()
         panels = b.reshape(*b.shape[:-2], k // bs, bs, n)[
             ..., indices.long(), :, :]
-        prods = torch.matmul(data, panels)
-        c.index_add_(1, expand_indptr(indptr, nblocks),
-                     prods.expand(size, nblocks, bs, n))
+        prods = _component_matmul(data, panels)
+        _add_rows(c, expand_indptr(indptr, nblocks),
+                  prods.expand(size, nblocks, bs, n), dim=1)
     return axpby(c.reshape(size, nbrows * bs, n), alpha, beta, c0)
 
 
 def uses_tensor_cores(dtype, bs):
     """Whether K1 and K8 run on the tensor cores for values of ``dtype``
-    in ``bs`` x ``bs`` blocks (else on the CUDA cores)."""
-    return dtype in (torch.float32, torch.float64) and bs % 8 == 0
+    in ``bs`` x ``bs`` blocks (else on the CUDA cores): blocks of a
+    multiple of 8, in every value type (c64's 3xTF32 measured faster than
+    the CUDA cores at phase 3's complex BSR, PERF.md)."""
+    return bs % 8 == 0
 
 
 def bsr_spmm(indptr, indices, data, b, alpha=None, beta=None, c0=None,
@@ -207,6 +235,7 @@ def _launch_k1(indptr, indices, plan, alpha, beta, with_c0, members,
             *scalars, members, *strides, _build.stream_of(b_t),
         )
         bsr_spmm.launches_tc += 1
+        bsr_spmm.launches_tc_complex += b_t.is_complex()
     else:
         _build.launch(
             "sdt_bsr_spmm_simt", dt, it, indptr.data_ptr(),
@@ -264,6 +293,7 @@ def spmm_batched(indptr, indices, data, b, alpha=None, beta=None, c0=None,
         bsr_spmm.launches_batched += 1
         if tc:
             bsr_spmm.launches_batched_tc += 1
+            bsr_spmm.launches_batched_tc_complex += b.is_complex()
         else:
             bsr_spmm.launches_batched_simt += 1
     return c
@@ -271,9 +301,11 @@ def spmm_batched(indptr, indices, data, b, alpha=None, beta=None, c0=None,
 
 bsr_spmm.launches = 0
 bsr_spmm.launches_tc = 0
+bsr_spmm.launches_tc_complex = 0
 bsr_spmm.launches_simt = 0
 bsr_spmm.launches_batched = 0
 bsr_spmm.launches_batched_tc = 0
+bsr_spmm.launches_batched_tc_complex = 0
 bsr_spmm.launches_batched_simt = 0
 
 
@@ -284,20 +316,9 @@ bsr_spmm.launches_batched_simt = 0
 
 def _strips_product(gs, bs_):
     """``gs @ conj(bs_)^T`` for batches of strips (..., nb, bs, n), as one
-    batched ``torch.matmul`` in real arithmetic (a ``torch.bmm`` for 3-d
-    strips; leading member dimensions broadcast): complex strips go in as
-    their real and imaginary parts side by side, so that each product
-    follows numpy's component formula, as the kernels do (cuBLAS's complex
-    GEMM gives nan + nanj where a product of inf and a finite value is
-    +-inf +-infj by that formula)."""
-    if not gs.is_complex():
-        return torch.matmul(gs, bs_.mT)
-    bs = bs_.shape[-2]
-    g2 = torch.cat([gs.real, gs.imag], -1)
-    b2 = torch.cat([torch.cat([bs_.real, bs_.imag], -1),
-                    torch.cat([-bs_.imag, bs_.real], -1)], -2)
-    out = torch.matmul(g2, b2.mT)
-    return torch.complex(out[..., :bs], out[..., bs:])
+    batched ``torch.matmul`` (``_component_matmul``: complex strips in
+    real arithmetic, as the kernels compute them)."""
+    return _component_matmul(gs, bs_.conj().mT)
 
 
 def bsr_sddmm_plain(indptr, indices, g, b, bs, alpha=None):
@@ -408,6 +429,7 @@ def _launch_k8(indptr, indices, bs, alpha, members, strides, g, b, out,
                   _build.stream_of(g_t))
     if tc:
         bsr_sddmm.launches_tc += 1
+        bsr_sddmm.launches_tc_complex += g_t.is_complex()
     else:
         bsr_sddmm.launches_simt += 1
     bsr_sddmm.launches += 1
@@ -455,6 +477,7 @@ def sddmm_batched(indptr, indices, g, b, bs, alpha=None):
         bsr_sddmm.launches_batched += 1
         if uses_tensor_cores(g.dtype, bs):
             bsr_sddmm.launches_batched_tc += 1
+            bsr_sddmm.launches_batched_tc_complex += g.is_complex()
         else:
             bsr_sddmm.launches_batched_simt += 1
     return out
@@ -462,7 +485,9 @@ def sddmm_batched(indptr, indices, g, b, bs, alpha=None):
 
 bsr_sddmm.launches = 0
 bsr_sddmm.launches_tc = 0
+bsr_sddmm.launches_tc_complex = 0
 bsr_sddmm.launches_simt = 0
 bsr_sddmm.launches_batched = 0
 bsr_sddmm.launches_batched_tc = 0
+bsr_sddmm.launches_batched_tc_complex = 0
 bsr_sddmm.launches_batched_simt = 0

@@ -101,11 +101,16 @@ _K45_ROWS = (100.0, 1.0e6)
 _K13_S = 3.39e-13
 _DENSE_SPARSE_S = (3.55e-4, 4.89e-4)
 # K1 over a transposed BSR (dense x BSR): fixed seconds and FLOP/s on the
-# tensor cores (real values, bs % 8 == 0) and on the CUDA cores (the rest),
-# from K1's rows in PERF.md (config 3, bs 64: 1.72 GFLOP in 0.0925 ms f64,
-# 0.0949 ms f32; c128 bs 16: 0.41 GFLOP in 0.0659 ms).
+# tensor cores (bs % 8 == 0; complex values apart) and on the CUDA cores
+# (the rest), from K1's rows in PERF.md (config 3, bs 64: 1.72 GFLOP in
+# 0.0925 ms f64, 0.0949 ms f32; c128 bs 16: 0.41 GFLOP in 0.0659 ms on
+# the CUDA cores) and, for complex values on the tensor cores, from
+# ``compare_k7_k13.py bsr_gate`` (4000^2, bs 16, n = 64, 10-90% of
+# blocks: 2.1-2.3e13 in c64, 2.7-2.9e13 in c128).  K1 alone: the reorder
+# of a BSR's stored values, which both routes pay (K1 into A^T's block
+# order, K12 into the element CSR's), is left out of both forecasts.
 _K1_S = 2.0e-5
-_K1_FLOPS = {"tc": 1.8e13, "simt": 6.0e12}
+_K1_FLOPS = {"tc": 1.8e13, "tc_complex": 2.2e13, "simt": 6.0e12}
 # Dense operands past this many bytes stay on the kernels (the JAX
 # package's cap, ``_xla.py:557-558``).
 DENSE_CAP_BYTES = 4e9
@@ -138,9 +143,11 @@ def _k2_seconds(m, n, nnz, dtype):
 def _k1_seconds(nnz, n, dtype, blocksize):
     """K1's forecast for a BSR of ``nnz`` stored elements in blocks of
     ``blocksize`` times n columns."""
-    tc = not dtype.is_complex and blocksize % 8 == 0
+    variant = "simt"
+    if bsr.uses_tensor_cores(dtype, blocksize):
+        variant = "tc_complex" if dtype.is_complex else "tc"
     flop = nnz * n * (8 if dtype.is_complex else 2)
-    return _K1_S + flop / _K1_FLOPS["tc" if tc else "simt"]
+    return _K1_S + flop / _K1_FLOPS[variant]
 
 
 def _prefer_densify(m, k, n, nnz, dtype, device, blocksize=None):

@@ -129,8 +129,10 @@ def test_chunk_plan_cached_on_container():
 @pytest.mark.parametrize("dtype, bs, tc", [
     (torch.float32, 8, True), (torch.float64, 128, True),
     (torch.float64, 24, True), (torch.float32, 3, False),
-    (torch.float64, 1, False), (torch.complex64, 64, False),
-    (torch.complex128, 16, False),
+    (torch.float64, 1, False), (torch.complex64, 64, True),
+    (torch.complex128, 16, True), (torch.complex128, 8, True),
+    (torch.complex128, 20, False), (torch.complex64, 12, False),
+    (torch.float64, 20, False),
 ])
 def test_variant_follows_dtype_and_block_size(dtype, bs, tc):
     assert bsr.uses_tensor_cores(dtype, bs) is tc
