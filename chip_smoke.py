@@ -106,7 +106,20 @@ Phases, each printing one JSON line:
    member a block, in every value type and both index widths, at 3 and 5
    members (a last group part full), D (G) and Y's values shared or per
    member at odd strides, rows of Y held in registers and longer ones,
-   every call twice for the same bits.  K12 CSR densify
+   every call twice for the same bits; K2 and K5 with a group of members
+   a block (``check_groups``): K2 with b shared and per-member values in
+   f32, f64 and c128 with 32- and 64-bit indices, n in {1, 17, 64, 128},
+   batches of 1, 3, 4, 5 (at odd member strides) and 16, alpha / beta
+   with c0 per member or shared and none, over empty rows and a row past
+   3x the chunk (split), each call's group launches counted
+   (``csr_spmm.launches_group``) and each member against its single
+   launch, bit for bit where the two take one lane mapping; K5 in the
+   same types and batches over the register bins, hash tables of a warp
+   and of a block, a dense row in shared memory and dense rows in the
+   device workspace (one member a block), with and without
+   ``triangular``, op(A)'s, op(B)'s or both values per member, each
+   member's values bit for bit its single fill's; every call twice for
+   the same bits.  K12 CSR densify
    (``check_k12``) against its plain version in every value type and
    index width: repeated and unsorted columns, explicit zeros, empty
    rows, no entry, m or k = 1, an odd width, rows exactly TILE_BYTES wide
@@ -204,9 +217,12 @@ Phases, each printing one JSON line:
    time in a ``torch.profiler`` trace of 10 calls; the batched launches
    (``batched_rows``, each beside the same members' single launches in
    the same turns, ``ms_over_single_launches``): K2 at config 1 over 4
-   and 16 value sets (b shared) beside ``torch.bmm`` of a batched sparse
-   COO, K2 at n = 1 on the 1M^2 matrix over 4 value sets (``CsrSpmv``'s
-   ``vmap`` over the values) beside 4 K3 launches, K7 at config 1 over 4
+   and 16 value sets (b shared: a group of members a block) beside
+   ``torch.bmm`` of a batched sparse COO, K2 at n = 1 on the 1M^2 matrix
+   over 4 value sets (``CsrSpmv``'s ``vmap`` over the values) beside 4 K3
+   launches, both also beside the per-member instance (one member a
+   block, as the parent ran them: ``k2_batched_at``) and with
+   ``device_ms``, K7 at config 1 over 4
    and 16 (G, B) pairs beside batched-CSR ``torch.sparse.sampled_addmm``,
    K7 at config 1 over 16 G's with B shared and 16 B's with G shared
    (``k7_batched_rows``: through ``CsrSddmm``, beside
@@ -216,11 +232,14 @@ Phases, each printing one JSON line:
    ones also beside the CUDA-core variant's batched launch); K6 at the
    demo X @ X.T over 4 and 16 value sets, K9 there in both forms over 4
    G's, K11 at cases a and c in both forms over 4 G's (patterns given as
-   ``CsrSpgemmSparseSddmm`` gives them) and K5 at case c over 4 value
-   sets on one plan beside 4 x ``torch.sparse.mm(A_csr, B_csr)``
-   (``batched_spgemm_rows``, each with ``device_ms``, its ratios to the
-   single launches by events and on the device, and K9's and K11's
-   group: members, lines a member); and the wall time
+   ``CsrSpgemmSparseSddmm`` gives them) and K5 at case c and at a
+   product of hash-bin rows (100,000^2, Poisson(10) a row, A @ A) over 4
+   value sets on one plan, a group of members a block in each bin,
+   beside the per-member instance and 4 x ``torch.sparse.mm(A_csr,
+   B_csr)`` (``k5_batched_row``; ``batched_spgemm_rows``, each with
+   ``device_ms``, its ratios to the single launches by events and on
+   the device, and K9's and K11's group: members, lines a member); and
+   the wall time
    of ``dot_product(X, X.T)`` beside scipy's; K12 at config 1's A, the
    demo X and PARDISO's n = 12,000 matrix beside
    ``torch.sparse_csr_tensor(...).to_dense()`` (``4-k12``); the
@@ -303,6 +322,8 @@ Phases, each printing one JSON line:
    launches, wall ms, the device's busy ms and the same work one member
    at a time in the same turns: per-sample gradients over 16 right-hand
    sides at config 1 (K2 1, folded; K7 1, batched), an ensemble over 4
+   value sets of A at config 1, b shared (K2 1, a group of members a
+   block; K7 1, B shared; both batched), an ensemble over 4
    block sets at config 3 (K1 1, K8 1, batched), per-sample gradients
    over 4 b's at the complex BSR (c128, bs 16: K1 2, folded; K8 1,
    batched; the tensor cores' complex instances), ``jacrev`` of
@@ -357,6 +378,8 @@ Hessian-vector products (K8: the BSR one; K9: the dense-output one;
 K11: the sparse-output and the CSR ones); ``--only sharded`` runs phase 1
 and phase 7 and prints no result line; ``--only batched`` runs phase 1,
 ``check_batched``, ``batched_rows``, ``batched_spgemm_rows`` and
+``batched_training``, and prints no result line; ``--only groups`` runs
+phase 1, ``check_groups``, batched K2's and K5's phase-4 rows and
 ``batched_training``, and prints no result line; ``--only densify`` runs
 phase 1, ``check_k12``, ``check_k13``, ``densify_path`` (with
 ``sparse_path``), ``k12_rows``, ``k13_rows`` and ``densify_sweep``, and
@@ -2012,6 +2035,7 @@ def check_batched(record):
             ("b", 1)} <= k7_shared:
         raise AssertionError(f"batched K7 took only {sorted(k7_shared)}")
     spgemm_seen = check_batched_spgemm(record)
+    spgemm_seen["K2_K5_groups"] = check_groups(record)
     check_big_batch(record)
     paths = {name: sorted(seen) for name, seen in paths.items()}
     paths["K7_shared_members"] = sorted(k7_shared)
@@ -2432,6 +2456,199 @@ def check_grouped_sampled(record):
             raise AssertionError(f"batched {name} ran no group of "
                                  f"{sorted(want - seen)}")
     return sorted(seen)
+
+
+# Phase 2's member groups of batched K2 and K5 (``csr.spmm_group``,
+# ``spgemm.fill_groups``): batch sizes (1 runs one member a block; 3 and
+# 5 leave a last group part full; 5 at odd member strides), and value and
+# index types.
+GROUP_SIZES = (1, 3, 4, 5, 16)
+GROUP_TYPES = ((torch.float32, np.int32), (torch.float32, np.int64),
+               (torch.float64, np.int32), (torch.float64, np.int64),
+               (torch.complex128, np.int32), (torch.complex128, np.int64))
+
+
+def k2_group_case(rng, record, ip, ix, plan, b, size, mode, odd, tdt,
+                  alpha):
+    """One batched K2 call of ``size`` members sharing b (values per
+    member; c0 none, per member or shared by ``mode``; ``odd`` member
+    strides) against its batched plain version; each member against its
+    single launch, bit for bit where the two take one lane mapping.
+    Returns (group launches, bit-checked members, whether the batch
+    ends in a part-full group)."""
+    from sparse_dot_tpu_torch.ops import csr
+
+    npdt = NP_DTYPES[tdt]
+    m, nnz, n = ip.numel() - 1, ix.numel(), b.shape[1]
+    data = cuda(values(rng, (size, nnz), npdt))
+    c0 = None if mode == 0 else cuda(values(
+        rng, (size, m, n) if mode == 1 else (m, n), npdt))
+    if odd:
+        data = odd_members(data)
+        c0 = odd_members(c0) if mode == 1 else c0
+    al, be = (None, None) if mode == 0 else (alpha, 2.0)
+    before = csr.csr_spmm.launches_group
+    out = batched_call(csr.csr_spmm, 1, csr.spmm_batched, ip, ix, data, b,
+                       al, be, c0, plan)
+    grouped = csr.csr_spmm.launches_group - before
+    if grouped != 2 * (size > 1):
+        raise AssertionError(f"batched K2 of {size} members, b shared: "
+                             f"{grouped} group launches in two calls")
+    record("K2_csr_spmm", compare(
+        out, csr.csr_spmm_batched_plain(ip, ix, data, b, al, be, c0), tdt))
+    st0 = csr.member_stride("", c0, 2)
+    batched = csr.spmm_schedule(n, tdt, nnz / m, csr.aligned_members(
+        (b, 0), (c0, st0), (out, m * n)))
+    group = csr.spmm_group(batched, tdt, ix.element_size(), size)
+    part_full = csr.member_groups(size, group)[-1][1] < group
+    bits = 0
+    for i in range(size):
+        c0_i = c0 if mode != 1 else c0[i]
+        single = csr.spmm(ip, ix, data[i], b, al, be, c0_i, plan)
+        aligned = all(t.data_ptr() % 16 == 0 for t in (b, single, c0_i)
+                      if t is not None)
+        if csr.spmm_schedule(n, tdt, nnz / m, aligned) == batched:
+            if not same_bits(single, out[i]):
+                raise AssertionError(f"batched K2 member {i} of {size}: "
+                                     "bits differ from its single launch")
+            bits += 1
+        else:
+            record("K2_csr_spmm", compare(out[i], single, tdt))
+    return grouped, bits, part_full
+
+
+def check_k2_groups(record):
+    """Batched K2 with b shared and per-member values, which runs a group
+    of ``csr.spmm_group`` members a block: every type of GROUP_TYPES, n in
+    {1, 17, 64, 128} (a lane a row, scalar and 16-byte loads, a warp a
+    row), a pattern with empty rows and one with a row past 3x the plan's
+    chunk (split, each member's own counts and partial rows), batches of
+    GROUP_SIZES, alpha / beta with c0 per member or shared, odd member
+    strides; each call twice for the same bits, against the batched plain
+    version, and each member against its single launch
+    (``k2_group_case``).  Returns what was seen."""
+    from sparse_dot_tpu_torch import formats
+    from sparse_dot_tpu_torch.ops import csr
+
+    rng = np.random.default_rng(SEED + 40)
+    seen = {"group_launches": 0, "bit_checked_members": 0,
+            "part_full_groups": 0, "groups": set()}
+    for tdt, itype in GROUP_TYPES:
+        npdt = NP_DTYPES[tdt]
+        alpha = 0.5 - 0.25j if tdt.is_complex else -1.5
+        for m, k, mean_row, empty_every, long_row in (
+                (300, 200, 3, 5, 0), (257, 190, 12, 0, 3500)):
+            indptr, indices, _ = random_csr(rng, m, k, mean_row, npdt, itype,
+                                            empty_every, long_row)
+            ip, ix = cuda(indptr), cuda(indices)
+            plan = formats.csr_plan(ip, len(indices))
+            if long_row and long_row < 3 * plan.chunk:
+                raise AssertionError("K2 groups: the long row is too short")
+            for n in (1, 17, 64, 128):
+                b = cuda(values(rng, (k, n), npdt))
+                for j, size in enumerate(GROUP_SIZES):
+                    grouped, bits, part_full = k2_group_case(
+                        rng, record, ip, ix, plan, b, size, j % 3,
+                        size == 5, tdt, alpha)
+                    seen["group_launches"] += grouped
+                    seen["bit_checked_members"] += bits
+                    seen["part_full_groups"] += part_full
+                    s = csr.spmm_schedule(n, tdt, len(indices) / m)
+                    seen["groups"].add((str(tdt), str(ix.dtype), size,
+                                        s.lanes, csr.spmm_group(
+                                            s, tdt, ix.element_size(),
+                                            size)))
+    if not seen["part_full_groups"]:
+        raise AssertionError("K2 groups: no batch ended in a part-full "
+                             "group")
+    seen["groups"] = sorted(map(list, seen["groups"]))
+    return seen
+
+
+def check_k5_groups(record):
+    """Batched K5 with a group of ``spgemm.fill_groups`` members a block
+    in each bin: every type of GROUP_TYPES, SPGEMM_BATCH_CASES' first
+    three (hash tables of a warp and of a block with the dense rows in
+    the device workspace, a dense row in shared memory, the register
+    bins), with and without ``triangular``, batches of GROUP_SIZES with
+    op(A)'s, op(B)'s or both values per member (and odd member strides
+    at 5); each call twice for the same bits, against the batched plain
+    version, its indices equal to the product's, and each member's values
+    equal, bit for bit, to its single fill's.  Returns the (bin kind,
+    members a block) seen."""
+    from sparse_dot_tpu_torch.ops import spgemm
+
+    rng = np.random.default_rng(SEED + 41)
+    seen = set()
+    bits = 0
+    for tdt, itype in GROUP_TYPES:
+        npdt = NP_DTYPES[tdt]
+        for m, k, n, a_rows, b_rows in SPGEMM_BATCH_CASES[:3]:
+            a = distinct_rows(rng, np.resize(a_rows, m), k, npdt, itype)
+            b = distinct_rows(rng, np.resize(b_rows, k), n, npdt, itype)
+            a_ip, a_ix, a_dv = map(cuda, a)
+            b_ip, b_ix, b_dv = map(cuda, b)
+            plan = spgemm.spgemm_plan(a_ip, a_ix, b_ip, n, tdt, a_ip.dtype)
+            sizes = plan.offsets.diff().tolist()
+            shapes = ((a[1].size,), (b[1].size,))
+            for tri in (False, True):
+                c_ip, c_ix, _ = spgemm.product(a_ip, a_ix, a_dv, b_ip, b_ix,
+                                               b_dv, n, tri)
+                nnz = c_ix.numel()
+                for j, size in enumerate(GROUP_SIZES):
+                    combo = PAIR_COMBOS[j % 3]
+                    av, bv = (cuda(values(rng, (size, *shape), npdt))
+                              if batched else cuda(values(rng, shape, npdt))
+                              for shape, batched in zip(shapes, combo))
+                    if size == 5:
+                        av, bv = (odd_members(x) if x.dim() == 2 else x
+                                  for x in (av, bv))
+                    groups = spgemm.fill_groups(plan.bins, tdt, a_ip.dtype,
+                                                size)
+                    live = [(int(kind), int(g)) for kind, g, rows in zip(
+                        plan.bins[:, 0], groups, sizes) if rows]
+                    before = spgemm.csr_spgemm_fill.launches_group
+                    idx, out = spgemm_batched_call(
+                        spgemm.csr_spgemm_fill, int(nnz > 0), "K5",
+                        spgemm.fill_batched, a_ip, a_ix, av, b_ip, b_ix,
+                        bv, n, plan, c_ip, nnz, tri)
+                    grouped = spgemm.csr_spgemm_fill.launches_group - before
+                    want = 2 * (nnz > 0 and max(g for _, g in live) > 1)
+                    if grouped != want:
+                        raise AssertionError(
+                            f"batched K5 of {size}: {grouped} group "
+                            f"launches in two calls, expected {want}")
+                    ref = spgemm.csr_spgemm_fill_batched_plain(
+                        a_ip, a_ix, av, b_ip, b_ix, bv, n, tri)
+                    if not (torch.equal(idx, c_ix)
+                            and torch.equal(idx, ref[0])):
+                        raise AssertionError(f"batched K5 {tdt} m={m}: "
+                                             "indices differ")
+                    record("K5_csr_spgemm_fill", compare(out, ref[1], tdt))
+                    for i in range(size if nnz else 0):
+                        single = spgemm.csr_spgemm_fill(
+                            a_ip, a_ix, av[i] if av.dim() == 2 else av,
+                            b_ip, b_ix, bv[i] if bv.dim() == 2 else bv, n,
+                            plan, c_ip, nnz, tri, bin_sizes=sizes)[1]
+                        if not same_bits(single, out[i]):
+                            raise AssertionError(
+                                f"batched K5 {tdt} m={m} member {i} of "
+                                f"{size}: bits differ from its single fill")
+                        bits += 1
+                    seen.update(live)
+    kinds = {kind for kind, g in seen if g > 1}
+    want = {spgemm.HASH_WARP, spgemm.HASH_BLOCK, spgemm.DENSE_SHARED}
+    if (not want <= kinds or not kinds & set(spgemm.TINY_KINDS.values())
+            or (spgemm.DENSE_GLOBAL, 1) not in seen):
+        raise AssertionError(f"K5 groups ran only {sorted(seen)}")
+    return {"bins_and_members": sorted(map(list, seen)),
+            "bit_checked_members": bits}
+
+
+def check_groups(record):
+    """Phase 2's member groups of batched K2 and K5
+    (``check_k2_groups``, ``check_k5_groups``)."""
+    return {"K2": check_k2_groups(record), "K5": check_k5_groups(record)}
 
 
 def check_second_order():
@@ -3138,6 +3355,7 @@ def reset_launches():
     for fn in (bsr.bsr_spmm, bsr.bsr_sddmm):
         fn.launches_batched_tc = fn.launches_batched_simt = 0
         fn.launches_batched_tc_complex = 0
+    csr.csr_spmm.launches_group = spgemm.csr_spgemm_fill.launches_group = 0
 
 
 def read_batched():
@@ -4381,6 +4599,33 @@ def bsr_batched_rows(rows, inputs, rng):
         del A, blocks_, mats, g, strips, panels
 
 
+def k2_batched_at(ip, ix, data, b, plan, group):
+    """K2's batched launch of ``data``'s members, b shared, at ``group``
+    members a block (1: the per-member instance, as the parent ran such a
+    batch), as ``csr.spmm_batched`` makes it (``csr._launch_k2``): for
+    phase 4's rows and ``compare_k7_k13.py``'s sweeps of the group."""
+    from sparse_dot_tpu_torch.ops import csr
+
+    size, nnz = data.shape
+    m, n = ip.numel() - 1, b.shape[-1]
+    c = torch.empty((size, m, n), dtype=b.dtype, device=b.device)
+    s = csr.spmm_schedule(n, b.dtype, nnz / m, csr.aligned_members(
+        (b, 0), (c, m * n)))
+    counts = work = None
+    if plan.slots:
+        counts = torch.zeros((size, plan.slots), dtype=torch.int32,
+                             device=b.device)
+        work = torch.empty((size, plan.slots, n), dtype=b.dtype,
+                           device=b.device)
+    csr._launch_k2(ip, ix, plan, s, None, None, False, size,
+                   (data.stride(0), 0, 0, m * n), data.data_ptr(),
+                   b.data_ptr(), None, c.data_ptr(),
+                   None if work is None else work.data_ptr(),
+                   None if counts is None else counts.data_ptr(), data, b,
+                   group)
+    return c
+
+
 def batched_rows(rows, inputs, rng):
     """Phase 4's rows of the batched launches, each beside the same
     members' single launches (one a member) in the same turns: K2 at
@@ -4415,8 +4660,12 @@ def batched_rows(rows, inputs, rng):
             batched_coo_library(ip, ix, data, b1, A1.shape),
             beside={f"{size}_single_launches": lambda: [
                 csr.csr_spmm(ip, ix, data[i], b1, plan=plan)
-                for i in range(size)]},
-            members=size))
+                for i in range(size)],
+                "per_member_instance": lambda: k2_batched_at(
+                    ip, ix, data, b1, plan, 1)},
+            device_match="csr_spmm_kernel", members=size,
+            group=csr.batched_plan(128, b1.dtype, ix.numel() / n1, True,
+                                   ix.element_size(), size, True, True)[1]))
         del data
     k7_batched_rows(rows, inputs, rng)
     Av = formats.to_device(inputs["av"])
@@ -4434,15 +4683,22 @@ def batched_rows(rows, inputs, rng):
         batched_coo_library(vp, vx, data, x[:, None], Av.shape),
         beside={"4_k3_launches": lambda: [
             csr.csr_spmv(vp, vx, data[i], x, plan=plan_k3)
-            for i in range(4)]},
-        members=4))
+            for i in range(4)],
+            "per_member_instance": lambda: k2_batched_at(
+                vp, vx, data, x[:, None], plan_v, 1)},
+        device_match=("csr_spmm_kernel", "csr_spmv_kernel"), members=4,
+        group=csr.batched_plan(1, x.dtype, vx.numel() / nv, True,
+                               vx.element_size(), 4, True, True)[1]))
     del data, Av
     bsr_batched_rows(rows, inputs, rng)
     for row in rows:
         if row["shape"].startswith("batched:"):
             single = next(v for k, v in row["beside"].items()
-                          if k != "cuda_core_variant")
+                          if k.endswith(("_single_launches", "_k3_launches")))
             row["ms_over_single_launches"] = row["ms"] / single["ms"]
+            if "per_member_instance" in row["beside"]:
+                row["ms_over_per_member_instance"] = (
+                    row["ms"] / row["beside"]["per_member_instance"]["ms"])
 
 
 def k9_work(ip, ix, y_ip, transposed):
@@ -5811,7 +6067,86 @@ def sampled_group(single, g, shared_y, k11_transposed=None):
             "lines_a_member": plan.panel if plan.staged else None}
 
 
-def batched_spgemm_rows(inp):
+def k5_batched_row(shape, a_np, b_np, a, b, c, rng, case, size=4):
+    """Phase 4's row of batched K5 over ``size`` value sets of op(A),
+    op(B) shared, on one plan (``fill_batched``: the wrapper's groups),
+    beside the same members' single fills, the per-member instance (the
+    parent's launch: ``most`` 1) and 4 x ``torch.sparse.mm(A_csr,
+    B_csr)`` (cuSPARSE SpGEMM, which counts the pattern too) in the same
+    turns; its bound the index arrays and C's structure once, each
+    member's values and output."""
+    from sparse_dot_tpu_torch.ops import spgemm
+
+    ip, ix, dv = a
+    bip, bix, bdv = b
+    n = b_np.shape[1]
+    plan = spgemm.spgemm_plan(ip, ix, bip, n, dv.dtype, ip.dtype)
+    sizes = plan.offsets.diff().tolist()
+    nnz = c[1].numel()
+    av = dv[None] * (1 + 0.1 * cuda(values(rng, (size, ix.numel()),
+                                           np.float64)))
+    fill_args = (ip, ix, av, bip, bix, bdv, n)
+    named = torch.unique(ix.long())
+    b_len = (bip[1:] - bip[:-1]).long()[named]
+    moved = (nbytes(ip, ix, av) + int(b_len.sum())
+             * (bix.element_size() + bdv.element_size())
+             + 2 * named.numel() * bip.element_size()
+             + nbytes(*c) + size * nnz * dv.element_size())
+    flop = size * flops_per_product(dv.dtype) * int(plan.ub.sum())
+    mats = [torch.sparse_csr_tensor(ip, ix, av[i], size=a_np.shape)
+            for i in range(size)]
+    b_t = torch.sparse_csr_tensor(bip, bix, bdv, size=b_np.shape)
+    groups = spgemm.fill_groups(plan.bins, dv.dtype, ip.dtype, size)
+    per_member = spgemm._fill_launcher(*fill_args, plan, c[0], False, size)
+    row = timed_row(
+        "K5_csr_spgemm_fill",
+        f"batched: {shape}, {size} value sets of op(A), op(B) shared, "
+        "one plan",
+        lambda: spgemm.fill_batched(*fill_args, plan, c[0], nnz,
+                                    bin_sizes=sizes)[1],
+        lambda: spgemm.csr_spgemm_fill_batched_plain(*fill_args)[1],
+        bound(moved, flop, peak_flops(dv.dtype)),
+        beside={f"{size}_single_launches": lambda: [
+            spgemm.csr_spgemm_fill(ip, ix, av[i], bip, bix, bdv, n, plan,
+                                   c[0], nnz, bin_sizes=sizes)[1]
+            for i in range(size)],
+            "per_member_instance": lambda: per_member(nnz, sizes, most=1)[1],
+            "yardstick": lambda: [torch.sparse.mm(mat, b_t)
+                                  for mat in mats]},
+        yardstick_note=f"beside's yardstick: {size} x torch.sparse.mm("
+                       "A_csr, B_csr) (cuSPARSE SpGEMM, which counts the "
+                       "pattern too), one a member",
+        device_match=("spgemm_tiny_kernel", "spgemm_rows_kernel"),
+        members=size, case=case,
+        bins={str(int(kind)): [int(r), int(g)] for kind, r, g in zip(
+            plan.bins[:, 0], sizes, groups) if r})
+    return row
+
+
+def k5_hash_row(rng, side=100_000, mean_row=10):
+    """``k5_batched_row`` at a product whose rows fill K5's hash tables
+    of a warp (``side``^2, Poisson(``mean_row``) entries a row, A @ A,
+    f64: about mean_row^2 products a row)."""
+    from sparse_dot_tpu_torch import formats
+    from sparse_dot_tpu_torch.ops import spgemm
+
+    indptr, indices, data = random_csr(np.random.default_rng(SEED + 42),
+                                       side, side, mean_row, np.float64)
+    a_np = sps.csr_matrix((data, indices, indptr), shape=(side, side))
+    a_np.sum_duplicates()
+    A = formats.to_device(a_np)
+    a = A.csr_arrays()
+    c = spgemm.csr_spgemm(*a, *a, side)[:2]
+    row = k5_batched_row(f"{side // 1000}k x {side // 1000}k CSR, "
+                         f"Poisson({mean_row}) a row, A @ A, f64, sparse "
+                         "output (hash bins)", a_np, a_np, a, a, c, rng,
+                         "hash")
+    del A, a, c
+    torch.cuda.empty_cache()
+    return row
+
+
+def batched_spgemm_rows(inp, k5_only=False):
     """Phase 4's rows of the batched sparse x sparse launches, each beside
     the same members' single launches in the same turns
     (``ms_over_single_launches``), f64: K6 at case a (the demo X @ X.T)
@@ -5823,11 +6158,21 @@ def batched_spgemm_rows(inp):
     (cuSPARSE SpGEMM, which also counts the pattern) as its yardstick.
     Each with its bound (``k6_batched_bound``, ``k9_batched_bound``,
     ``k11_batched_bound``; K5: the index arrays and C's structure once,
-    each member's values and output)."""
+    each member's values and output); K5 also at a product of hash-bin
+    rows (``k5_hash_row``).  With ``k5_only`` the K5 rows alone."""
     from sparse_dot_tpu_torch import formats
     from sparse_dot_tpu_torch.ops import autograd, spgemm, spgemm_grad
 
     rng = np.random.default_rng(SEED + 25)
+    shape_c = "1M x 1M CSR, 2M random nnz, A @ A, f64, sparse output"
+    if k5_only:
+        A = formats.to_device(inp["a1m"])
+        a = A.csr_arrays()
+        c = spgemm.csr_spgemm(*a, *a, inp["a1m"].shape[1])[:2]
+        rows = [k5_batched_row(shape_c, inp["a1m"], inp["a1m"], a, a, c,
+                               rng, "c")]
+        del A, a, c
+        return over_single_launches(rows + [k5_hash_row(rng)])
     rows = []
     x = inp["x"]
     shape_a = "demo X @ X.T, X 500x5000 CSR 21.2% f64"
@@ -5874,8 +6219,7 @@ def batched_spgemm_rows(inp):
     del g, A, B
     for case, shape, a_np, b_np in (
             ("a", shape_a + ", sparse output", x, x.T.tocsr()),
-            ("c", "1M x 1M CSR, 2M random nnz, A @ A, f64, sparse output",
-             inp["a1m"], inp["a1m"])):
+            ("c", shape_c, inp["a1m"], inp["a1m"])):
         A, B = formats.to_device(a_np), formats.to_device(b_np)
         a, b = A.csr_arrays(), B.csr_arrays()
         n = b_np.shape[1]
@@ -5915,51 +6259,23 @@ def batched_spgemm_rows(inp):
         del pats
         autograd.patterns.clear()
         if case == "c":
-            ip, ix, dv = a
-            bip, bix, bdv = b
-            plan = spgemm.spgemm_plan(ip, ix, bip, n, dv.dtype, ip.dtype)
-            sizes = plan.offsets.diff().tolist()
-            nnz = c[1].numel()
-            av = dv[None] * (1 + 0.1 * cuda(values(rng, (4, ix.numel()),
-                                                   np.float64)))
-            fill_args = (ip, ix, av, bip, bix, bdv, n)
-            named = torch.unique(ix.long())
-            b_len = (bip[1:] - bip[:-1]).long()[named]
-            moved = (nbytes(ip, ix, av) + int(b_len.sum())
-                     * (bix.element_size() + bdv.element_size())
-                     + 2 * named.numel() * bip.element_size()
-                     + nbytes(*c) + 4 * nnz * dv.element_size())
-            flop = 4 * flops_per_product(dv.dtype) * int(plan.ub.sum())
-            mats = [torch.sparse_csr_tensor(ip, ix, av[i], size=a_np.shape)
-                    for i in range(4)]
-            b_t = torch.sparse_csr_tensor(bip, bix, bdv, size=b_np.shape)
-            rows.append(timed_row(
-                "K5_csr_spgemm_fill",
-                f"batched: {shape}, 4 value sets of op(A), op(B) shared, "
-                "one plan",
-                lambda: spgemm.fill_batched(*fill_args, plan, c[0], nnz,
-                                            bin_sizes=sizes)[1],
-                lambda: spgemm.csr_spgemm_fill_batched_plain(*fill_args)[1],
-                bound(moved, flop, peak_flops(dv.dtype)),
-                beside={"4_single_launches": lambda: [
-                    spgemm.csr_spgemm_fill(ip, ix, av[i], bip, bix, bdv, n,
-                                           plan, c[0], nnz,
-                                           bin_sizes=sizes)[1]
-                    for i in range(4)],
-                    "yardstick": lambda: [torch.sparse.mm(mat, b_t)
-                                          for mat in mats]},
-                yardstick_note="beside's yardstick: 4 x torch.sparse.mm("
-                               "A_csr, B_csr) (cuSPARSE SpGEMM, which counts "
-                               "the pattern too), one a member",
-                device_match=("spgemm_tiny_kernel", "spgemm_rows_kernel"),
-                members=4, case="c"))
-            del av, mats, b_t
+            rows.append(k5_batched_row(shape, a_np, b_np, a, b, c, rng, "c"))
         del A, B, a, b, c, g
         torch.cuda.empty_cache()
+    rows.append(k5_hash_row(rng))
+    return over_single_launches(rows)
+
+
+def over_single_launches(rows):
+    """``rows`` with each row's ms (and device ms) over its beside single
+    launches' and, where timed, over the per-member instance's."""
     for row in rows:
         (name, single), = ((k, v) for k, v in row["beside"].items()
                            if k.endswith("_single_launches"))
         row["ms_over_single_launches"] = row["ms"] / single["ms"]
+        if "per_member_instance" in row["beside"]:
+            row["ms_over_per_member_instance"] = (
+                row["ms"] / row["beside"]["per_member_instance"]["ms"])
         device = row.get("device_ms") or {}
         if device.get("kernel") and device.get(name):
             row["device_over_single_launches"] = (device["kernel"]
@@ -7094,6 +7410,11 @@ def batched_training(inputs, spgemm_inp):
       a member: PER_SAMPLE K2 and K7 launches); each member's gradient
       against the plain versions (``csr_sddmm_plain`` of the plain
       residual);
+    - an ensemble at config 1 (f64): ``vmap`` over ENSEMBLE value sets of
+      A of ``grad`` of ||A_i b - t||^2, b shared: K2 once (batched, a
+      group of members a block, which one more call checks by
+      ``csr_spmm.launches_group``) and K7 once (batched, B shared); the
+      member loop beside it; against the plain versions;
     - an ensemble at config 3 (bs 64, f64): ``vmap`` over ENSEMBLE block
       sets of ``grad`` of ||A_i b - t||^2 in the blocks: K1 once and K8
       once, both batched, on the tensor cores; the member loop beside
@@ -7111,7 +7432,7 @@ def batched_training(inputs, spgemm_inp):
     runs (``batched_spgemm_training``).  Returns the launches of all (the
     ``vmap`` path)."""
     from sparse_dot_tpu_torch import ops
-    from sparse_dot_tpu_torch.ops import autograd, bsr, csr, sddmm
+    from sparse_dot_tpu_torch.ops import autograd, bsr, csr, sddmm, spgemm
 
     rng = np.random.default_rng(SEED + 23)
     reset_launches()
@@ -7141,6 +7462,41 @@ def batched_training(inputs, spgemm_inp):
         err = max(err, compare(grads[i][order], ref, ref.dtype))
     errs["per_sample_grads_config1_f64"] = err
     del bs, ts, grads
+    # An ensemble at config 1: ENSEMBLE value sets of A, b shared.
+    vs = v[None] * (1 + 0.1 * cuda(values(rng, (ENSEMBLE, v.numel()),
+                                          np.float64)))
+
+    def ensemble_loss(vv):
+        return ((autograd.coo_spmm_raw(r1, c1, vv, b1, m1) - t1) ** 2).sum()
+
+    name = "ensemble_grads_config1_f64"
+    grads, runs[name] = batched_run(
+        "config-1 ensemble gradients",
+        lambda: torch.func.vmap(torch.func.grad(ensemble_loss))(vs),
+        {"K2_csr_spmm": 1, "K7_csr_sddmm": 1},
+        {"K2_csr_spmm": 1, "K7_csr_sddmm": 1},
+        lambda: [torch.func.grad(ensemble_loss)(vs[i])
+                 for i in range(ENSEMBLE)])
+    before = csr.csr_spmm.launches_group
+    torch.func.vmap(torch.func.grad(ensemble_loss))(vs)
+    runs[name]["k2_group_launches_a_call"] = (csr.csr_spmm.launches_group
+                                              - before)
+    if runs[name]["k2_group_launches_a_call"] != 1:
+        raise AssertionError(f"{name}: K2 did not run its member groups")
+    n1 = b1.shape[1]
+    runs[name]["members_a_group"] = {
+        "K2": csr.batched_plan(n1, b1.dtype, ix.numel() / m1, True,
+                               ix.element_size(), ENSEMBLE, True, True)[1],
+        "K7": sddmm.batched_schedule(n1, b1.dtype, ix.numel(), ENSEMBLE,
+                                     (m1 * n1, 0), True,
+                                     ix.element_size())[1]}
+    err = 0.0
+    for i in range(ENSEMBLE):
+        g = 2 * (csr.csr_spmm_plain(ip, ix, vs[i][order], b1) - t1)
+        ref = sddmm.csr_sddmm_plain(ip, ix, g, b1)
+        err = max(err, compare(grads[i][order], ref, ref.dtype))
+    errs[name] = err
+    del vs, grads
     # An ensemble at config 3.
     a3 = inputs["bsrs"][(64, np.float64)]
     m3, k3 = a3.shape
@@ -7211,6 +7567,9 @@ def batched_training(inputs, spgemm_inp):
         record["max_abs_err_vs_plain"] = errs[name]
     launches = read_launches()
     emit("6-vmap", launches=launches, batched_launches=read_batched(),
+         group_launches={
+             "K2_csr_spmm": csr.csr_spmm.launches_group,
+             "K5_csr_spgemm_fill": spgemm.csr_spgemm_fill.launches_group},
          runs=runs, members={"per_sample": PER_SAMPLE,
                              "ensemble": ENSEMBLE},
          jac_pattern=dict(zip(("m", "k", "mean_row", "n"), JAC_PATTERN)),
@@ -7731,7 +8090,8 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
         "--only", choices=("spgemm", "k6", "k7", "k8", "k9", "k11",
-                           "sharded", "batched", "densify", "bsr"),
+                           "sharded", "batched", "groups", "densify",
+                           "bsr"),
         help="a short run that ends with no result line: spgemm runs "
              "phases 1, 2 (K4-K6 and K2/K3's complex inf case), 3 and 4 of "
              "sparse x sparse; k6 runs phase 1 and K6's phase-4 rows "
@@ -7745,7 +8105,10 @@ def main():
              "spgemm_sparse_hvp and hessian_vector_product); sharded runs "
              "phase 1 and phase 7 (sharded_path); batched runs phase 1, "
              "the batched launches' phase-2 checks (check_batched), their "
-             "phase-4 rows and phase 6's batched runs; densify runs "
+             "phase-4 rows and phase 6's batched runs; groups runs phase "
+             "1, the member groups' phase-2 checks (check_groups), "
+             "batched K2's and K5's phase-4 rows and phase 6's batched "
+             "runs; densify runs "
              "phase 1, K12's phase-2 checks (check_k12), phase 3's "
              "densify calls (densify_path), K12's phase-4 rows and the "
              "crossover sweep (densify_sweep); bsr runs phase 1, K1's and "
@@ -7883,6 +8246,27 @@ def main():
         complex_bsr_vmap(inputs, runs, errs)
         emit("6-vmap", runs=runs, max_abs_err_vs_plain=errs,
              batched_launches=read_batched())
+        return
+    if only == "groups":
+        results = {name: {"cases": 0, "max_abs_err": 0.0}
+                   for name in ("K2_csr_spmm", "K5_csr_spgemm_fill")}
+
+        def record(name, err):
+            results[name]["cases"] += 1
+            results[name]["max_abs_err"] = max(
+                results[name]["max_abs_err"], err)
+
+        emit(2, kernels=results, groups=check_groups(record))
+        inputs, rows = path_inputs(), []
+        batched_rows(rows, inputs, np.random.default_rng(SEED + 4))
+        spgemm_inp = spgemm_inputs()
+        rows = [r for r in rows if r["kernel"] == "K2_csr_spmm"]
+        rows += [r for r in batched_spgemm_rows(spgemm_inp, k5_only=True)]
+        emit("4-groups", rows=rows,
+             timer="cuda events, median (p10, p90), 1 GiB read before "
+                   "each; library, yardstick and beside timed in the same "
+                   "turns")
+        batched_training(inputs, spgemm_inp)
         return
     if only == "batched":
         results = {name: {"cases": 0, "max_abs_err": 0.0}

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Side-by-side timings of batched K7, K9 and K11, of K13 and of complex
-K1 and K8 on one NVIDIA GPU.
+"""Side-by-side timings of batched K2, K5, K7, K9 and K11, of K13 and of
+complex K1 and K8 on one NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with the card:
 
@@ -14,6 +14,8 @@ Run from the root of a checkout, on a machine with the card:
     python3 compare_k7_k13.py bsr [--root DIR]
     python3 compare_k7_k13.py bsr_gate         # dense x complex BSR routes
     python3 compare_k7_k13.py plain_cpu [--root DIR]   # no card needed
+    python3 compare_k7_k13.py k2k5 [--root DIR]        # batched K2/K5 groups
+    python3 compare_k7_k13.py k5 [--root DIR]          # K5's half alone
 
 ``schedules`` times batched K7 at config 1 (f64, n = 128, 16 members) as
 one launch with spans sized over all members' entries, with spans that
@@ -48,7 +50,13 @@ BSR in c128 and c64 beside the CUDA-core variants launched directly, with
 several densities of blocks on K1 and on the densify route, beside the
 gate's choice (``bsr_gate``).  ``plain_cpu`` times the plain K1 on the
 CPU at that BSR, with ``--root DIR`` the package at DIR's too, in turns
-(``plain_cpu``); it is the one mode that runs without a card.  Each mode
+(``plain_cpu``); it is the one mode that runs without a card.  ``k2k5``
+times batched K2 (b shared) and batched K5 at 1, 2 and 4 members a
+block beside the wrappers' choice and the single launches, K2 at config
+1 in each value type and index width and at the 1M^2 SpMV matrix, K5 at
+case c and at a product of hash-bin rows (``k2_group_sweep``,
+``k5_group_sweep``; ``k5`` the K5 half alone), with ``--root DIR`` the
+package at DIR's wrappers too, in the same turns.  Each mode
 prints one JSON line, also written to
 ``--out`` when given.  The helpers (timing in turns after a 1 GiB read,
 the plain versions' comparison, the inputs) are ``chip_smoke.py``'s.
@@ -951,16 +959,170 @@ def vmap_walls(packages, inp, reps=20):
             "packages": packages, "walls": result}
 
 
+# Value and index types of the member-group sweeps of batched K2 and K5.
+GROUP_SWEEP_TYPES = ((torch.float32, torch.int32), (torch.float32, torch.int64),
+                     (torch.float64, torch.int32), (torch.float64, torch.int64),
+                     (torch.complex128, torch.int32),
+                     (torch.complex128, torch.int64))
+
+
+def other_packages(packages):
+    """The modules of ``packages`` ({label: module name}) other than this
+    checkout's."""
+    import importlib
+
+    return {label: importlib.import_module(name)
+            for label, name in packages.items() if label != "this checkout"}
+
+
+def timed_group_fns(fns, want, tdt, match, reps=REPS):
+    """Each fn of ``fns`` held against ``want`` (a list's members
+    stacked), timed in turns (``time_turns``) and its kernels' device
+    time (``kernel_device_ms`` of ``match``)."""
+    errs = {}
+    for name, fn in fns.items():
+        out = fn()
+        out = torch.stack(out) if isinstance(out, list) else out
+        errs[name] = compare(out, want, tdt)
+    del out
+    times = time_turns(fns, reps)
+    return {name: {**dict(zip(("ms", "p10", "p90"), spread(times[name]))),
+                   "device_ms": chip_smoke.kernel_device_ms(fn, match),
+                   "max_abs_err": errs[name]}
+            for name, fn in fns.items()}
+
+
+def k2_group_sweep(packages, inputs, rng):
+    """Batched K2 with b shared by per-member values: at config 1 (n =
+    128) over 4 and 16 value sets in each type of GROUP_SWEEP_TYPES, and
+    at the 1M^2 SpMV matrix (n = 1, f64, 4 sets), the launch at 1 (the
+    per-member instance), 2 and 4 members a block
+    (``chip_smoke.k2_batched_at``), the wrapper's call, the same members'
+    single launches and each other package's wrapper call, in the same
+    turns, each against the batched plain version."""
+    from sparse_dot_tpu_torch import formats
+    from sparse_dot_tpu_torch.ops import csr
+
+    others = other_packages(packages)
+    cases = [("config1", inputs["a1"], 128, tdt, itype, size)
+             for tdt, itype in GROUP_SWEEP_TYPES for size in (4, 16)]
+    cases += [("spmv", inputs["av"], 1, torch.float64, torch.int32, 4)]
+    result = {}
+    for name, a_np, n, tdt, itype, size in cases:
+        ip, ix, _ = formats.to_device(a_np).csr_arrays()
+        ip, ix = ip.to(itype), ix.to(itype)
+        nnz, k = ix.numel(), a_np.shape[1]
+        plan = formats.csr_plan(ip, nnz)
+        npdt = chip_smoke.NP_DTYPES[tdt]
+        data = cuda(values(rng, (size, nnz), npdt, 0.1))
+        b = cuda(values(rng, (k, n), npdt))
+        fns = {"wrapper": lambda: csr.spmm_batched(ip, ix, data, b,
+                                                    plan=plan)}
+        for g in (1, 2, 4):
+            fns[f"members_{g}"] = (
+                lambda g=g: chip_smoke.k2_batched_at(ip, ix, data, b, plan,
+                                                     g))
+        fns["single_launches"] = lambda: [
+            csr.csr_spmm(ip, ix, data[i], b, plan=plan) for i in range(size)]
+        for label, other in others.items():
+            oplan = other.formats.csr_plan(ip, nnz)
+            fns[f"{label}: wrapper"] = (
+                lambda other=other, oplan=oplan: other.ops.csr.spmm_batched(
+                    ip, ix, data, b, plan=oplan))
+        want = csr.csr_spmm_batched_plain(ip, ix, data, b)
+        s = csr.spmm_schedule(n, tdt, nnz / (ip.numel() - 1))
+        result[f"{name} {tdt} {itype} x{size}"] = {
+            "schedule": list(s),
+            "wrapper_members": csr.spmm_group(s, tdt, ix.element_size(),
+                                              size),
+            "bound": chip_smoke.csr_batched_bound(ip, ix, data, b, size),
+            "times": timed_group_fns(fns, want, tdt,
+                                     ("csr_spmm_kernel", "csr_spmm"))}
+        del data, b, want, fns
+        torch.cuda.empty_cache()
+    return {"shape": {"config1": "CSR 10000x10000 1%, b (10000,128) shared",
+                      "spmv": "CSR 1000000x1000000, 10 a row, x "
+                              "(1000000,1) shared"},
+            "cases": result}
+
+
+def k5_group_sweep(packages, inputs, rng, size=4):
+    """Batched K5 over ``size`` value sets of op(A), op(B) shared, one
+    plan: at case c (the 1M^2 A @ A: register bins) in f64, f32 and c128
+    and f64 with int64 indices, and at ``chip_smoke.k5_hash_row``'s
+    product (hash bins of a warp) in f64: each bin at up to 1 (the
+    per-member instance), 2 and 4 members a block (``_fill_launcher``'s
+    ``most``), the wrapper's call, the same members' single fills and
+    each other package's wrapper call, in the same turns, each against
+    the batched plain version."""
+    from sparse_dot_tpu_torch import formats
+    from sparse_dot_tpu_torch.ops import spgemm
+
+    others = other_packages(packages)
+    side = 100_000
+    indptr, indices, data = chip_smoke.random_csr(
+        np.random.default_rng(SEED + 42), side, side, 10, np.float64)
+    hash_np = chip_smoke.sps.csr_matrix((data, indices, indptr),
+                                        shape=(side, side))
+    hash_np.sum_duplicates()
+    cases = [("c", inputs["a1m"], tdt, itype) for tdt, itype in (
+        (torch.float64, torch.int32), (torch.float32, torch.int32),
+        (torch.complex128, torch.int32), (torch.float64, torch.int64))]
+    cases += [("hash", hash_np, torch.float64, torch.int32)]
+    result = {}
+    for name, a_np, tdt, itype in cases:
+        npdt = chip_smoke.NP_DTYPES[tdt]
+        A = formats.to_device(a_np.astype(npdt))
+        ip, ix, dv = (t.to(itype) if i < 2 else t
+                      for i, t in enumerate(A.csr_arrays()))
+        n = a_np.shape[1]
+        c_ip, c_ix, _ = spgemm.csr_spgemm(ip, ix, dv, ip, ix, dv, n)
+        nnz = c_ix.numel()
+        plan = spgemm.spgemm_plan(ip, ix, ip, n, tdt, ip.dtype)
+        sizes = plan.offsets.diff().tolist()
+        av = dv[None] * (1 + 0.1 * cuda(values(rng, (size, ix.numel()),
+                                               npdt)))
+        args = (ip, ix, av, ip, ix, dv, n)
+        launcher = spgemm._fill_launcher(*args, plan, c_ip, False, size)
+        fns = {"wrapper": lambda: spgemm.fill_batched(
+            *args, plan, c_ip, nnz, bin_sizes=sizes)[1]}
+        for g in (1, 2, 4):
+            fns[f"members_{g}"] = (
+                lambda g=g: launcher(nnz, sizes, most=g)[1])
+        fns["single_launches"] = lambda: [
+            spgemm.csr_spgemm_fill(ip, ix, av[i], ip, ix, dv, n, plan, c_ip,
+                                   nnz, bin_sizes=sizes)[1]
+            for i in range(size)]
+        for label, other in others.items():
+            oplan = other.ops.spgemm.spgemm_plan(ip, ix, ip, n, tdt,
+                                                 ip.dtype)
+            fns[f"{label}: wrapper"] = (
+                lambda other=other, oplan=oplan: other.ops.spgemm
+                .fill_batched(*args, oplan, c_ip, nnz, bin_sizes=sizes)[1])
+        want = spgemm.csr_spgemm_fill_batched_plain(*args)[1]
+        groups = spgemm.fill_groups(plan.bins, tdt, ip.dtype, size)
+        result[f"{name} {tdt} {itype} x{size}"] = {
+            "bins": {str(int(kind)): [int(r), int(g)] for kind, r, g in zip(
+                plan.bins[:, 0], sizes, groups) if r},
+            "times": timed_group_fns(fns, want, tdt, (
+                "spgemm_tiny_kernel", "spgemm_rows_kernel"))}
+        del A, av, want, fns, launcher
+        torch.cuda.empty_cache()
+    return {"shape": {"c": "1M x 1M CSR, 2M random nnz, A @ A",
+                      "hash": f"{side}^2 CSR, Poisson(10) a row, A @ A"},
+            "cases": result}
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("mode", choices=("schedules", "members", "rows",
                                          "route", "groups", "sampled",
                                          "walls", "bsr", "bsr_gate",
-                                         "plain_cpu"))
+                                         "plain_cpu", "k2k5", "k5"))
     parser.add_argument("--root", help="rows: time the package of the "
                                        "checkout at ROOT instead; route, "
-                                       "sampled, walls, bsr and plain_cpu: "
-                                       "time it beside this one")
+                                       "sampled, walls, bsr, plain_cpu and "
+                                       "k2k5: time it beside this one")
     parser.add_argument("--out", help="also write the JSON line here")
     args = parser.parse_args()
     if args.mode == "plain_cpu":
@@ -1009,6 +1171,15 @@ def main():
         line.update(bsr_turns(packages, chip_smoke.path_inputs(), rng))
     elif args.mode == "bsr_gate":
         line.update(bsr_gate(rng))
+    elif args.mode == "k5":
+        line["k5"] = k5_group_sweep(packages, chip_smoke.spgemm_inputs(),
+                                    rng)
+    elif args.mode == "k2k5":
+        inputs = chip_smoke.path_inputs()
+        line["k2"] = k2_group_sweep(packages, inputs, rng)
+        emit_line(line, args.out)  # the K2 half, should K5's fail
+        line["k5"] = k5_group_sweep(packages, chip_smoke.spgemm_inputs(),
+                                    rng)
     else:
         if not hasattr(sddmm, "batched_schedule"):
             # A checkout before member groups: its schedule, one member a

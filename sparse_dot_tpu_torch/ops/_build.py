@@ -61,6 +61,14 @@ _PROTOTYPES = {
     "sdt_csr_spmm": (_INT, _INT, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64,
                      _I64, _I64, _I64, _INT, _INT, _INT, _INT,
                      _D, _D, _D, _D, _I64, _I64, _I64, _I64, _I64, _P),
+    # dtype, itype, indptr, indices, data, b, c0, c, work, counts, chunks,
+    # n_chunks, m, n, chunk, vec, lanes, split, per_lane, alpha_re,
+    # alpha_im, beta_re, beta_im, batch, s_data, s_c0, s_c, group, stream
+    # (b shared by the batch, ``group`` members a block)
+    "sdt_csr_spmm_group": (_INT, _INT, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _I64, _I64, _I64, _I64, _INT, _INT, _INT, _INT,
+                           _D, _D, _D, _D, _I64, _I64, _I64, _I64, _INT,
+                           _P),
     # dtype, itype, indptr, indices, data, x, y0, y, work, counts, tiles,
     # n_tiles, chunks, n_chunks, m, tile, alpha_re, alpha_im, beta_re,
     # beta_im, stream
@@ -91,6 +99,13 @@ _PROTOTYPES = {
     "sdt_csr_spgemm_fill": (_INT, _INT, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                             _INT, _I64, _INT, _P, _P, _P, _P, _I64, _I64,
                             _I64, _I64, _I64, _INT, _P),
+    # dtype, itype, a_indptr, a_indices, a_data, b_indptr, b_indices,
+    # b_data, rows, offsets, bins (host, no DENSE_GLOBAL bin), nbins, n,
+    # triangular, c_indptr, c_indices, c_data, batch, s_a, s_b, s_c,
+    # write_indices, group, stream (``group`` members a block)
+    "sdt_csr_spgemm_fill_group": (_INT, _INT, _P, _P, _P, _P, _P, _P, _P,
+                                  _P, _P, _INT, _I64, _INT, _P, _P, _P,
+                                  _I64, _I64, _I64, _I64, _INT, _INT, _P),
     # dtype, itype, indptr, indices, g, b, out, m, n, nnz, vec, lanes,
     # per_lane, round, span, alpha_re, alpha_im, batch, s_g, s_b, s_out,
     # shared, stream

@@ -23,11 +23,16 @@ the value type, the alignment of the pointers and the mean row length
 ``spmm_batched`` runs K2 for a batch of members that share A's pattern
 (values, b and c0 each per member or shared) in one launch, the member
 on the grid's z dimension: what ``torch.func.vmap`` over the values
-(``ops.autograd``) and the transforms built on it reach.  The helpers
+(``ops.autograd``) and the transforms built on it reach.  Where b is
+shared and the values are not (an ensemble over A's values, a batched
+tangent in them), a block serves a group of ``spmm_group`` members
+(``csrc/csr_spmm_group.cu``), each strip of b gathered once for the
+group.  The helpers
 below it (``batch_size``, ``member_stride``, ``member_chunks``) serve the
 batched wrappers of K1, K5, K6, K7, K8, K9 and K11 too.
 """
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -190,6 +195,15 @@ def member_chunks(size, most=None):
     return [(s, min(most, size - s)) for s in range(0, size, most)]
 
 
+def member_groups(size, group):
+    """(first member, members) of each group of ``group`` members that
+    one block serves (the kernels' group ``blockIdx * group``): whole
+    groups, then a part-full last one where ``group`` does not divide
+    ``size``, whose missing members read the last member's values and
+    store nothing."""
+    return [(s, min(group, size - s)) for s in range(0, size, group)]
+
+
 def member_ptr(t, stride, first):
     """The address of member ``first`` of ``t`` (None for None)."""
     if t is None:
@@ -310,6 +324,40 @@ def spmm_schedule(n, dtype, mean_row, aligned=True):
     return SpmmSchedule(vec, lanes, split, per_lane, strips)
 
 
+# Members a block serves where b is shared, by (value type, index bytes),
+# where the card timed fewer faster than 4: f32 at config 1 (n = 128) ran
+# 4 and 16 value sets 3-4% faster at 2 than at 4, with either index width
+# (PERF.md).
+_K2_FEWER_MEMBERS = {(torch.float32, 4): 2, (torch.float32, 8): 2}
+
+
+def spmm_group(s, dtype, index_bytes=4, size=4):
+    """Members a block of K2's group instance serves at once where b is
+    shared and the values are not, for the ``SpmmSchedule`` ``s``: 4,
+    fewer where ``_K2_FEWER_MEMBERS`` says so for the value type and
+    index bytes, 2 for a batch of 2, 1 (the per-member instance) for a
+    batch of 1.  Each member keeps ``per_lane * vec`` sums a lane beside
+    the single kernel's registers; a group keeps the single kernel's lane
+    mapping, so each member's output has its single launch's bits."""
+    if size < 2:
+        return 1
+    most = _K2_FEWER_MEMBERS.get((dtype, index_bytes), 4)
+    return min(most, 2 if size == 2 else 4)
+
+
+@functools.lru_cache(maxsize=256)
+def batched_plan(n, dtype, mean_row, aligned, index_bytes, size, shared_b,
+                 per_member_values):
+    """(``SpmmSchedule``, members a block) of a batched K2 launch of
+    ``size`` members: ``spmm_schedule``'s lanes, and ``spmm_group``'s
+    members where b is shared and the values are per member, else 1.
+    Cached, so that a training loop's calls plan once."""
+    s = spmm_schedule(n, dtype, mean_row, aligned)
+    group = (spmm_group(s, dtype, index_bytes, size)
+             if shared_b and per_member_values else 1)
+    return s, group
+
+
 def csr_spmm(indptr, indices, data, b, alpha=None, beta=None, c0=None,
              plan=None):
     """``alpha * A @ b + beta * c0`` for CSR A (``indptr`` of m + 1,
@@ -363,20 +411,27 @@ def spmm(indptr, indices, data, b, alpha=None, beta=None, c0=None,
 
 
 def _launch_k2(indptr, indices, plan, s, alpha, beta, with_c0, members,
-               strides, data, b, c0, c, work, counts, data_t, b_t):
-    """One launch of K2 (``sdt_csr_spmm``) for ``members`` members at
-    ``strides`` (values, b, c0, c), given the addresses; counted in
-    ``csr_spmm.launches``."""
+               strides, data, b, c0, c, work, counts, data_t, b_t, group=1):
+    """One launch of K2 for ``members`` members at ``strides`` (values, b,
+    c0, c), given the addresses: ``sdt_csr_spmm`` (one member a block),
+    or with ``group`` > 1 ``sdt_csr_spmm_group`` (b shared, ``group``
+    members a block); counted in ``csr_spmm.launches``, the group
+    launches also in ``csr_spmm.launches_group``."""
     _, chunks, n_chunks = _chunk_args(plan)
     m, n = indptr.numel() - 1, b_t.shape[-1]
     dt, it = _build.type_codes(data_t, indptr)
-    _build.launch(
-        "sdt_csr_spmm", dt, it, indptr.data_ptr(), indices.data_ptr(), data,
-        b, c0, c, work, counts, chunks, n_chunks, m, n, plan.chunk, s.vec,
-        s.lanes, s.split, s.per_lane, *_build.scalar_parts(alpha),
-        *_build.scalar_parts(beta if with_c0 else 0.0), members, *strides,
-        _build.stream_of(b_t),
-    )
+    head = (dt, it, indptr.data_ptr(), indices.data_ptr(), data, b, c0, c,
+            work, counts, chunks, n_chunks, m, n, plan.chunk, s.vec,
+            s.lanes, s.split, s.per_lane, *_build.scalar_parts(alpha),
+            *_build.scalar_parts(beta if with_c0 else 0.0), members)
+    if group == 1:
+        _build.launch("sdt_csr_spmm", *head, *strides, _build.stream_of(b_t))
+    else:
+        if strides[1]:
+            raise ValueError("csr_spmm: a group of members needs b shared")
+        _build.launch("sdt_csr_spmm_group", *head, strides[0], *strides[2:],
+                      group, _build.stream_of(b_t))
+        csr_spmm.launches_group += 1
     csr_spmm.launches += 1
 
 
@@ -390,8 +445,10 @@ def spmm_batched(indptr, indices, data, b, alpha=None, beta=None, c0=None,
     it, or expanded along it, is shared: every member reads it in place.
     Returns a new (B, m, n) tensor.  One launch on the card (one per
     ``_build.MAX_MEMBERS`` members), each member with its own counts and
-    workspace for split rows; counted in ``csr_spmm.launches`` and
-    ``csr_spmm.launches_batched``.  The plain version on the CPU."""
+    workspace for split rows; where b is shared and the values are not,
+    ``spmm_group`` members a block (``batched_plan``); counted in
+    ``csr_spmm.launches`` and ``csr_spmm.launches_batched``.  The plain
+    version on the CPU."""
     refuse_views("csr_spmm", indptr, indices, data, b, c0)
     operands = ((data, 1), (b, 2), (c0, 2))
     size = batch_size("csr_spmm", operands)
@@ -400,7 +457,8 @@ def spmm_batched(indptr, indices, data, b, alpha=None, beta=None, c0=None,
                                       c0)
     if not b.is_cuda:
         raise ValueError(f"csr_spmm: no kernel for device {b.device}")
-    check_members("csr_spmm", (indptr, indices), operands)
+    strides = check_members("csr_spmm", (indptr, indices), operands,
+                            views=False)
     m, nnz, n = indptr.numel() - 1, indices.numel(), b.shape[-1]
     if data.shape[-1] != nnz or (
             c0 is not None and tuple(c0.shape[-2:]) != (m, n)):
@@ -411,11 +469,11 @@ def spmm_batched(indptr, indices, data, b, alpha=None, beta=None, c0=None,
     if m == 0 or n == 0 or size == 0:
         return c
     plan = _row_plan("csr_spmm", plan, indptr, nnz, spmv=False)
-    strides = (member_stride("csr_spmm", data, 1),
-               member_stride("csr_spmm", b, 2),
-               member_stride("csr_spmm", c0, 2), m * n)
-    s = spmm_schedule(n, b.dtype, nnz / m, aligned_members(
-        (b, strides[1]), (c0, strides[2]), (c, strides[3])))
+    strides = (*strides, m * n)
+    s, group = batched_plan(
+        n, b.dtype, nnz / m, aligned_members(
+            (b, strides[1]), (c0, strides[2]), (c, strides[3])),
+        indices.element_size(), size, strides[1] == 0, strides[0] != 0)
     for first, count in member_chunks(size):
         # Each member's own counts (zeroed) and partial rows of split rows.
         counts = work = None
@@ -428,13 +486,16 @@ def spmm_batched(indptr, indices, data, b, alpha=None, beta=None, c0=None,
                    count, strides, *(member_ptr(t, st, first) for t, st in
                                      zip((data, b, c0, c), strides)),
                    None if work is None else work.data_ptr(),
-                   None if counts is None else counts.data_ptr(), data, b)
+                   None if counts is None else counts.data_ptr(), data, b,
+                   group if group == 1 else spmm_group(
+                       s, b.dtype, indices.element_size(), count))
         csr_spmm.launches_batched += 1
     return c
 
 
 csr_spmm.launches = 0
 csr_spmm.launches_batched = 0
+csr_spmm.launches_group = 0
 
 
 # ---------------------------------------------------------------------------

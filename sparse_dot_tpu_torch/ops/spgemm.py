@@ -66,7 +66,10 @@ on it): ``spgemm_dense_batched`` (K6), ``fill_batched`` (K5) and
 ``product_batched`` (one plan and K4, one nnz read, one batched K5) take
 members that share both patterns, each operand's values per member or
 shared, in one launch, the member on the grid's y dimension; each has a
-plain version vectorised over the members.
+plain version vectorised over the members.  K5's batch runs a group of
+``fill_groups`` members a block in each bin where that fits
+(``csrc/csr_spgemm_group.cu``): the row's structural work done once for
+the group, each member's values M times.
 """
 
 import functools
@@ -428,6 +431,70 @@ def _fill_members(table, per_group):
     return max(1, min(_build.MAX_MEMBERS, GLOBAL_WORKSPACE // per_group))
 
 
+# Groups of threads a block of each shared-memory bin holds (one table or
+# dense row each).
+_BIN_GROUPS = {HASH_WARP: 8, HASH_BLOCK: 1, DENSE_SHARED: 1}
+
+
+def group_bytes(kind, slots, dtype, index_dtype, members):
+    """Shared memory a block of K5's hash or dense-shared bin ``kind``
+    asks for with ``members`` members' values a slot: one region a group
+    of threads, the members' values then the keys (hash) or flag bytes
+    (dense), rounded up to 16 (``csrc/csr_spgemm.cuh``, region_bytes)."""
+    tail = slots * index_dtype.itemsize if kind != DENSE_SHARED else slots
+    return _BIN_GROUPS[kind] * _round16(members * slots * dtype.itemsize
+                                        + tail)
+
+
+def fill_groups(bins, dtype, index_dtype, size, most=None):
+    """Members a block of each bin of ``bins`` (a plan's or a launch
+    table's kinds and slots) in a batched K5 launch of ``size`` members:
+    the register bins 4, a hash or dense-shared bin the most of 4 and 2
+    whose values fit one table within SHARED_BUDGET (``group_bytes``),
+    else 1 (the per-member instance), as are the dense rows in the device
+    workspace; 2 at most for a batch of 2, and 1 for a batch of 1; at
+    most ``most`` when given (1: the per-member instance in every bin).
+    4 ran fastest at case c in f64 (either index width), f32 and c128
+    and at hash-bin rows in f64, 2 and 1 slower (PERF.md).  An
+    int64 numpy array, one entry a bin; cached by what it depends on."""
+    top = 1 if size < 2 else 2 if size == 2 else 4
+    if most is not None:
+        top = min(top, most)
+    return _fill_groups(np.ascontiguousarray(bins[:, :2]).tobytes(), dtype,
+                        index_dtype, top)
+
+
+@functools.lru_cache(maxsize=256)
+def _fill_groups(kinds_slots, dtype, index_dtype, most):
+    table = np.frombuffer(kinds_slots, dtype=np.int64).reshape(-1, 2)
+    out = np.ones(len(table), dtype=np.int64)
+    for b, (kind, slots) in enumerate(table):
+        if kind in TINY_KINDS.values():
+            out[b] = most
+        elif kind in _BIN_GROUPS:
+            out[b] = next((g for g in (4, 2) if g <= most and group_bytes(
+                kind, int(slots), dtype, index_dtype, g) <= SHARED_BUDGET),
+                1)
+    out.flags.writeable = False
+    return out
+
+
+def _by_group(table, groups):
+    """(members a block, table) of each group size among ``table``'s
+    launched bins: the table with every other bin SKIP (the table itself
+    where all take one size)."""
+    live = table[:, 0] != SKIP
+    sizes = sorted(set(groups[live].tolist())) or [1]
+    if len(sizes) == 1:
+        return [(sizes[0], table)]
+    parts = []
+    for g in sizes:
+        part = table.copy()
+        part[groups != g, 0] = SKIP
+        parts.append((g, part))
+    return parts
+
+
 def _launch_table(plan, m, sizes=None):
     """The kernels' bin table: (kind, slots, rows) a bin, rows bounding
     the bin's rows to size its grid: m for K4, which runs before the sizes
@@ -608,11 +675,12 @@ def fill_batched(a_indptr, a_indices, a_data, b_indptr, b_indices, b_data,
     (B, nnz)): C's column ids, the same for every member, written once.
     One launch a bin on the card for up to ``_build.MAX_MEMBERS`` members
     (fewer where the dense rows in the device workspace would pass
-    GLOBAL_WORKSPACE: ``_fill_members``), on the shared plan (``plan``
-    None: built here, as in ``fill``); counted in
-    ``csr_spgemm_fill.launches`` and ``launches_batched``.  The batched
-    plain version on the CPU.  Carries no gradient (``ops.autograd``'s
-    ``CsrSpgemmFill`` does)."""
+    GLOBAL_WORKSPACE: ``_fill_members``), each bin at ``fill_groups``
+    members a block, on the shared plan (``plan`` None: built here, as in
+    ``fill``); counted in ``csr_spgemm_fill.launches`` and
+    ``launches_batched``, those with a group in ``launches_group``.  The
+    batched plain version on the CPU.  Carries no gradient
+    (``ops.autograd``'s ``CsrSpgemmFill`` does)."""
     refuse_views("csr_spgemm_fill", a_indptr, a_indices, a_data, b_indptr,
                  b_indices, b_data)
     size = batch_size("csr_spgemm_fill", ((a_data, 1), (b_data, 1)))
@@ -653,7 +721,9 @@ def _fill_launcher(a_indptr, a_indices, a_data, b_indptr, b_indices,
     launches (``bin_sizes`` None: read from ``plan.offsets``).
     ``csr_spgemm`` makes it before its one host sync, so only ``launch``
     stands between the sync and K5.  With ``members`` (a batch's size)
-    the values are ``fill_batched``'s and so is the output."""
+    the values are ``fill_batched``'s and so is the output, each bin at
+    ``fill_groups`` members a block (``launch``'s ``most``, when given,
+    caps them: 1 runs the per-member instance, for measurements)."""
     if not a_data.is_cuda:
         raise ValueError(f"csr_spgemm_fill: no kernel for device "
                          f"{a_data.device}")
@@ -662,10 +732,9 @@ def _fill_launcher(a_indptr, a_indices, a_data, b_indptr, b_indices,
         _check("csr_spgemm_fill", index_tensors, (a_data, b_data))
         strides = (0, 0, 0)
     else:
-        check_members("csr_spgemm_fill", index_tensors,
-                      ((a_data, 1), (b_data, 1)))
-        strides = (member_stride("csr_spgemm_fill", a_data, 1),
-                   member_stride("csr_spgemm_fill", b_data, 1))
+        strides = tuple(check_members("csr_spgemm_fill", index_tensors,
+                                      ((a_data, 1), (b_data, 1)),
+                                      views=False))
     m = a_indptr.numel() - 1
     device = a_data.device
     codes = _build.type_codes(a_data, a_indptr)
@@ -676,20 +745,33 @@ def _fill_launcher(a_indptr, a_indices, a_data, b_indptr, b_indices,
     stream = _build.stream_of(a_data)
     row_bytes = dense_row_bytes(n, a_data.dtype)
 
-    def launch_k5(table, first, count, strides, indices, data, write):
-        """One launch of K5 for ``count`` members from ``first``."""
+    def launch_k5(table, first, count, strides, indices, data, write,
+                  groups=None):
+        """One launch of K5 for ``count`` members from ``first``: each
+        bin at its ``groups`` members a block (``fill_groups``; None: one
+        member a block), the bins of one size in one call."""
         a_ptr, b_ptr, c_ptr = (member_ptr(t, st, first) for t, st in
                                zip((a_data, b_data, data), strides))
-        work, groups = _workspace(table, row_bytes, device, count)
-        _build.launch(
-            "sdt_csr_spgemm_fill", *codes, *a_ids, a_ptr, *b_ids, b_ptr,
-            *rows, table.ctypes.data, len(table), *tail, indices.data_ptr(),
-            c_ptr,
-            None if work is None else work.data_ptr(), groups, count,
-            *strides, int(write), stream)
+        head = (*codes, *a_ids, a_ptr, *b_ids, b_ptr, *rows)
+        parts = (_by_group(table, groups) if groups is not None
+                 else [(1, table)])
+        for group, part in parts:
+            if group == 1:
+                work, wgroups = _workspace(part, row_bytes, device, count)
+                _build.launch(
+                    "sdt_csr_spgemm_fill", *head, part.ctypes.data,
+                    len(part), *tail, indices.data_ptr(), c_ptr,
+                    None if work is None else work.data_ptr(), wgroups,
+                    count, *strides, int(write), stream)
+            else:
+                _build.launch(
+                    "sdt_csr_spgemm_fill_group", *head, part.ctypes.data,
+                    len(part), *tail, indices.data_ptr(), c_ptr, count,
+                    *strides, int(write), group, stream)
         csr_spgemm_fill.launches += 1
+        csr_spgemm_fill.launches_group += max(g for g, _ in parts) > 1
 
-    def launch(nnz, bin_sizes=None):
+    def launch(nnz, bin_sizes=None, most=None):
         indices = torch.empty(nnz, dtype=a_indptr.dtype, device=device)
         data = torch.empty(nnz if members is None else (members, nnz),
                            dtype=a_data.dtype, device=device)
@@ -704,7 +786,8 @@ def _fill_launcher(a_indptr, a_indices, a_data, b_indptr, b_indices,
         for i, (first, count) in enumerate(member_chunks(
                 members, _fill_members(table, row_bytes))):
             launch_k5(table, first, count, (*strides, nnz), indices, data,
-                      i == 0)
+                      i == 0, fill_groups(table, a_data.dtype,
+                                          a_indptr.dtype, count, most))
             csr_spgemm_fill.launches_batched += 1
         return indices, data
 
@@ -713,6 +796,7 @@ def _fill_launcher(a_indptr, a_indices, a_data, b_indptr, b_indices,
 
 csr_spgemm_fill.launches = 0
 csr_spgemm_fill.launches_batched = 0
+csr_spgemm_fill.launches_group = 0
 
 
 # The steps of ``csr_spgemm`` on the card, as its ``marks`` names them.

@@ -163,6 +163,45 @@ def test_vmap_over_values(dtype, in_dim, b_batched, calls):
     assert calls == {"csr.spmm_batched": 1}
 
 
+@pytest.mark.parametrize("dtype", [np.float64, np.complex128, np.float32])
+@pytest.mark.parametrize("size", [3, 5])
+@pytest.mark.parametrize("c0", [None, "shared", "batched"])
+def test_vmap_over_values_b_shared_groups(dtype, size, c0, calls):
+    """``vmap`` over 3 and 5 value sets with b shared (on the card a group
+    of ``csr.spmm_group`` members a block, its last group part full):
+    ``coo_spmm_raw``, and ``ops.csr.csr_spmm`` with alpha, beta and c0
+    shared or per member, equal ``jax.vmap`` of ``_xla.coo_spmm_raw`` (and
+    of alpha * A b + beta * c0): one batched K2 call each."""
+    rng = np.random.default_rng(40 + size)
+    rows, cols = coo(rng)
+    vs = values(rng, (size, NNZ), dtype)
+    b = values(rng, (K, N), dtype)
+    (tr, jr), (tc, jc), (tv, jv), (tb, jb) = both(rows, cols, vs, b)
+    out = torch.func.vmap(lambda v: coo_spmm_raw(tr, tc, v, tb, M))(tv)
+    ref = jax.vmap(lambda v: _xla.coo_spmm_raw(jr, jc, v, jb, M))(jv)
+    assert out.shape == (size, M, N)
+    close(out, ref, dtype)
+    a = formats.CSR.from_scipy(_csr_matrix(rng, dtype))
+    ip, ix, dv = a.csr_arrays()
+    a_rows = np.repeat(np.arange(M), np.diff(ip.numpy()))
+    vs = values(rng, (size, dv.numel()), dtype)
+    c0s = values(rng, (size, M, N) if c0 == "batched" else (M, N), dtype)
+    alpha = (1.5 - 0.5j) if np.dtype(dtype).kind == "c" else 1.5
+    dims = (0, 0 if c0 == "batched" else None)
+    out = torch.func.vmap(lambda v, c: csr.csr_spmm(
+        ip, ix, v, tb, alpha, -0.5, None if c0 is None else c),
+        in_dims=dims)(torch.tensor(vs), torch.tensor(c0s))
+    ref = jax.vmap(lambda v, c: alpha * _xla.coo_spmm_raw(
+        jnp.asarray(a_rows), jnp.asarray(ix.numpy()), v, jb, M)
+        - 0.5 * (0 if c0 is None else c), in_axes=dims)(jnp.asarray(vs),
+                                                       jnp.asarray(c0s))
+    close(out, ref, dtype)
+    assert calls == {"csr.spmm_batched": 2}
+    s = csr.spmm_schedule(N, tb.dtype, NNZ / M)
+    assert csr.spmm_group(s, tb.dtype, 4, size) > 1
+    assert csr.member_groups(size, 4)[-1][1] == (3 if size == 3 else 1)
+
+
 @pytest.mark.parametrize("dtype", [np.float64, np.complex128])
 @pytest.mark.parametrize("over", ["values", "values_and_x"])
 def test_vmap_spmv(dtype, over, calls):

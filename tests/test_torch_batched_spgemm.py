@@ -465,6 +465,41 @@ def test_vmap_sparse(dtype, batched, calls):
     assert calls == {"spgemm.product_batched": 1}
 
 
+@pytest.mark.parametrize("size", [3, 5])
+@pytest.mark.parametrize("batched", ["a", "b"])
+@pytest.mark.parametrize("triangular", [False, True])
+def test_vmap_sparse_groups(size, batched, triangular, calls):
+    """``vmap`` of ``csr_spgemm`` over 3 and 5 value sets of op(A) with
+    op(B) shared, or of op(B) with op(A) shared (on the card K5's groups
+    of ``spgemm.fill_groups`` members a block, the last part full), float64:
+    each member's values equal ``jax.vmap`` of ``esc_spgemm_block`` and
+    the dense oracle at C's entries; one batched product."""
+    rng = np.random.default_rng(50 + size)
+    a, b = operands(51)
+    a_ip, a_ix = pattern(a)
+    b_ip, b_ix = pattern(b)
+    av = values(rng, (size, a.nnz) if batched == "a" else a.nnz, np.float64)
+    bv = values(rng, (size, b.nnz) if batched == "b" else b.nnz, np.float64)
+    dims = (0 if batched == "a" else None, 0 if batched == "b" else None)
+    ip, ix, data = torch.func.vmap(
+        lambda x, y: spgemm.csr_spgemm(a_ip, a_ix, x, b_ip, b_ix, y, N,
+                                       triangular),
+        in_dims=dims, out_dims=(None, None, 0))(torch.tensor(av),
+                                                torch.tensor(bv))
+    c_ptr, c_idx = structure(a, b, triangular)
+    assert np.array_equal(ip.numpy(), c_ptr)
+    assert np.array_equal(ix.numpy(), c_idx)
+    assert data.shape == (size, len(c_idx))
+    ref = np.stack([dense(a, av if av.ndim == 1 else av[i])
+                    @ dense(b, bv if bv.ndim == 1 else bv[i])
+                    for i in range(size)])
+    close(data, on_c(c_ptr, c_idx, ref))
+    jx = jax.vmap(lambda x, y: esc_values(a, b, x, y, triangular),
+                  in_axes=dims)(jnp.asarray(av), jnp.asarray(bv))
+    close(data, jx)
+    assert calls == {"spgemm.product_batched": 1}
+
+
 @pytest.mark.parametrize("dtype", [np.float64, np.complex128])
 @pytest.mark.parametrize("triangular", [False, True])
 def test_per_sample_grads_sparse(dtype, triangular, calls):
