@@ -118,8 +118,16 @@ Phases, each printing one JSON line:
    and of a block, a dense row in shared memory and dense rows in the
    device workspace (one member a block), with and without
    ``triangular``, op(A)'s, op(B)'s or both values per member, each
-   member's values bit for bit its single fill's; every call twice for
-   the same bits.  K12 CSR densify
+   member's values bit for bit its single fill's; K6 at 2 and 4 members
+   a block (``check_k6_groups``) in every value type and both index
+   widths, op(A)'s, op(B)'s, both or only c0's values per member, split
+   rows and column windows with and without the window-start table, with
+   and without ``triangular``, batches of 2, 3 and 5, each member bit for
+   bit its single launch on the single plan and on the group's; K1 on
+   the tensor cores at 2 and 4 members a block (``check_k1_groups``) in
+   f32 and f64, bs 8 to 128, a split block row, n 37 and 64, c0 none, shared or per member, odd member strides,
+   each member bit for bit its single launch; every call twice for the
+   same bits.  K12 CSR densify
    (``check_k12``) against its plain version in every value type and
    index width: repeated and unsorted columns, explicit zeros, empty
    rows, no entry, m or k = 1, an odd width, rows exactly TILE_BYTES wide
@@ -379,8 +387,8 @@ K11: the sparse-output and the CSR ones); ``--only sharded`` runs phase 1
 and phase 7 and prints no result line; ``--only batched`` runs phase 1,
 ``check_batched``, ``batched_rows``, ``batched_spgemm_rows`` and
 ``batched_training``, and prints no result line; ``--only groups`` runs
-phase 1, ``check_groups``, batched K2's and K5's phase-4 rows and
-``batched_training``, and prints no result line; ``--only densify`` runs
+phase 1, ``check_groups``, batched K1's (config 3), K2's, K5's and
+K6's phase-4 rows and ``batched_training``, and prints no result line; ``--only densify`` runs
 phase 1, ``check_k12``, ``check_k13``, ``densify_path`` (with
 ``sparse_path``), ``k12_rows``, ``k13_rows`` and ``densify_sweep``, and
 prints no result line; ``--only bsr`` runs phase 1, K1's and K8's
@@ -2035,7 +2043,7 @@ def check_batched(record):
             ("b", 1)} <= k7_shared:
         raise AssertionError(f"batched K7 took only {sorted(k7_shared)}")
     spgemm_seen = check_batched_spgemm(record)
-    spgemm_seen["K2_K5_groups"] = check_groups(record)
+    spgemm_seen["member_groups"] = check_groups(record)
     check_big_batch(record)
     paths = {name: sorted(seen) for name, seen in paths.items()}
     paths["K7_shared_members"] = sorted(k7_shared)
@@ -2645,10 +2653,237 @@ def check_k5_groups(record):
             "bit_checked_members": bits}
 
 
+def k6_batched_at(args, group, alpha=None, beta=None, c0=None,
+                  triangular=False):
+    """K6's batched launch of ``args`` = (ip, ix, av, bip, bix, bv, n),
+    op(B)'s rows sorted, the values (and ``c0``) with a member dimension
+    ahead or shared, at ``group`` members a block (1: the per-member
+    instance, as the parent ran every batch) on the single plan, as
+    ``spgemm.spgemm_dense_batched`` makes it: for phase 2's group checks,
+    phase 4's rows and ``compare_k7_k13.py``'s sweeps."""
+    from sparse_dot_tpu_torch.ops import csr, spgemm
+
+    ip, ix, av, bip, bix, bv, n = args
+    m = ip.numel() - 1
+    size = next(t.shape[0] for t, core in ((av, 1), (bv, 1), (c0, 2))
+                if t is not None and t.dim() > core)
+    strides = (csr.member_stride("", av, 1), csr.member_stride("", bv, 1),
+               csr.member_stride("", c0, 2), m * n)
+    c = torch.empty((size, m, n), dtype=av.dtype, device=av.device)
+    spgemm._k6_launcher(ip, ix, av, bip, n, alpha, beta, c0 is not None,
+                        triangular)(
+        bix, size, strides, av.data_ptr(), bv.data_ptr(),
+        None if c0 is None else c0.data_ptr(), c.data_ptr(), False, group)
+    return c
+
+
+# Phase 2's batched K6 groups: (m, k, n, op(A)'s row length, op(B)'s): a
+# row a block of 8 warps (splits 8) in one window; rows cut into windows
+# with the window-start table; windows without it (op(A) holds fewer
+# entries than op(B) has rows).  The forms: which of op(A)'s values,
+# op(B)'s values and c0 have the member dimension (K6_COMBOS' order).
+K6_GROUP_CASES = ((40, 2000, 300, 600, 12), (60, 300, 1000, 20, 60),
+                  (12, 400, 1000, 5, 40))
+K6_GROUP_SIZES = (2, 3, 5)
+
+
+def check_k6_groups(record):
+    """Batched K6 at 2 and 4 members a block (``k6_batched_at``; 4 in the
+    ONE_SUM form) in every
+    value type and both index widths, in the four forms of K6_COMBOS (op(A)'s
+    values per member; both; op(B)'s; only c0), each case of
+    K6_GROUP_CASES with and without ``triangular``, batches of
+    K6_GROUP_SIZES (3 and 5: a part-full last group), alpha / beta with
+    c0 shared or per member; each call against the batched plain version
+    and run twice for the same bits, each member bit for bit against its
+    single launch (the group runs on the single plan), and the wrapper's
+    call (its group launch counted) against
+    the forced one.  Returns what was seen."""
+    from sparse_dot_tpu_torch.ops import spgemm
+
+    rng = np.random.default_rng(SEED + 43)
+    seen = {"groups": set(), "plans": set(), "bit_checked_members": 0,
+            "part_full_groups": 0}
+    for tdt, npdt in NP_DTYPES.items():
+        alpha = 0.5 - 0.25j if tdt.is_complex else -1.5
+        for itype in (np.int32, np.int64):
+            for m, k, n, a_rows, b_rows in K6_GROUP_CASES:
+                a = distinct_rows(rng, np.resize(a_rows, m), k, npdt, itype)
+                b = sorted_rows(*distinct_rows(rng, np.resize(b_rows, k), n,
+                                               npdt, itype))
+                ip, ix, dv = map(cuda, a)
+                bip, bix, bdv = map(cuda, b)
+                for j, size in enumerate(K6_GROUP_SIZES):
+                    for a_b, b_b, c_b in K6_COMBOS:
+                        tri = bool((j + a_b) % 2)
+                        av = (cuda(values(rng, (size, dv.numel()), npdt, 0.3))
+                              if a_b else dv)
+                        bv = (cuda(values(rng, (size, bdv.numel()), npdt,
+                                          0.3)) if b_b else bdv)
+                        c0 = None if c_b is None else cuda(values(
+                            rng, (size, m, n) if c_b == "batched" else (m, n),
+                            npdt))
+                        al, be = (None, None) if c0 is None else (alpha, 2.0)
+                        args = (ip, ix, av, bip, bix, bv, n)
+                        want = spgemm.csr_spgemm_dense_batched_plain(
+                            *args, al, be, c0, tri)
+                        form = spgemm.dense_form(a_b, b_b)
+                        groups = ((4,) if form == spgemm.ONE_SUM else
+                                  (2,) if size == 2 else (2, 4))
+                        for group in groups:
+                            out = k6_batched_at(args, group, al, be, c0, tri)
+                            if not same_bits(out, k6_batched_at(
+                                    args, group, al, be, c0, tri)):
+                                raise AssertionError("batched K6 group: runs "
+                                                     "differ")
+                            record("K6_csr_spgemm_dense",
+                                   compare(out, want, tdt))
+                            gplan = spgemm.csr_spgemm_dense.last_plan
+                            seen["groups"].add((form, group))
+                            seen["plans"].add((gplan.splits > 1,
+                                               gplan.windows > 1, tri))
+                            seen["part_full_groups"] += size % group > 0
+                            for i in range(size):
+                                single_args = (
+                                    ip, ix, av[i] if a_b else av, bip, bix,
+                                    bv[i] if b_b else bv, n)
+                                c0_i = c0[i] if c_b == "batched" else c0
+                                single = spgemm.csr_spgemm_dense(
+                                    *single_args, al, be, c0_i, tri,
+                                    b_sorted=True)
+                                if (spgemm.csr_spgemm_dense.last_plan != gplan
+                                        or not same_bits(single, out[i])):
+                                    raise AssertionError(
+                                        f"batched K6 {tdt} {form} member "
+                                        f"{i} of {size} at {group} a block: "
+                                        "plan or bits differ from its "
+                                        "single launch")
+                                seen["bit_checked_members"] += 1
+                        before = spgemm.csr_spgemm_dense.launches_group
+                        got = spgemm.spgemm_dense_batched(
+                            *args, al, be, c0, tri, b_sorted=True)
+                        grouped = (spgemm.csr_spgemm_dense.launches_group
+                                   - before)
+                        wanted = spgemm.dense_group(tdt, ix.element_size(),
+                                                    size, form)
+                        if grouped != (wanted > 1):
+                            raise AssertionError(
+                                f"batched K6 of {size}: {grouped} group "
+                                f"launches, expected {wanted} a block")
+                        if not same_bits(got, k6_batched_at(
+                                args, wanted, al, be, c0, tri)):
+                            raise AssertionError("batched K6: the wrapper's "
+                                                 "bits differ")
+    want = {(f, g) for f in (spgemm.B_SHARED, spgemm.B_PER_MEMBER)
+            for g in (2, 4)} | {(spgemm.ONE_SUM, 4)}
+    if (not want <= seen["groups"] or not seen["part_full_groups"]
+            or {(True, False), (False, True)} - {p[:2] for p in
+                                                  seen["plans"]}):
+        raise AssertionError(f"K6 groups ran only {seen}")
+    return {key: sorted(map(list, v)) if isinstance(v, set) else v
+            for key, v in seen.items()}
+
+
+def k1_batched_at(ip, ix, data, b, plan, group, alpha=None, beta=None,
+                  c0=None):
+    """K1's batched launch of ``data``'s members ((B, nblocks, bs, bs)), b
+    shared, on the tensor cores at ``group`` members a block (1: the
+    per-member instance, as the parent ran every batch), as ``bsr.spmm_batched`` makes it
+    (``bsr._launch_k1``): for phase 2's group checks, phase 4's rows and
+    ``compare_k7_k13.py``'s sweeps."""
+    from sparse_dot_tpu_torch.ops import bsr, csr
+
+    size, _, bs, _ = data.shape
+    m, n = (ip.numel() - 1) * bs, b.shape[-1]
+    c = torch.empty((size, m, n), dtype=b.dtype, device=b.device)
+    bsr._launch_k1(ip, ix, plan, alpha, beta, c0 is not None, size,
+                   (data.stride(0), 0, csr.member_stride("", c0, 2), m * n),
+                   data.data_ptr(), b.data_ptr(),
+                   None if c0 is None else c0.data_ptr(), c.data_ptr(), data,
+                   b, group)
+    return c
+
+
+def check_k1_groups(record):
+    """Batched K1 on the tensor cores with b shared and per-member blocks,
+    f32 and f64, int32 and int64 ids: bs 8, 16, 32, 64 and 128 (two
+    64-row tiles), a split block row (each member's
+    own workspace slots), n in {37, 64} (element and 16-byte copies),
+    batches of 2, 3 and 5 at 2 and 4 members a block
+    (``k1_batched_at``), alpha / beta with c0 none, shared or per member
+    and odd member strides at 5; each call against the batched plain
+    version and run twice for the same bits, each member bit for bit
+    against its single launch, and the wrapper's call against the forced
+    one (its group launch counted).  Returns what was seen."""
+    from sparse_dot_tpu_torch import formats
+    from sparse_dot_tpu_torch.ops import bsr
+
+    rng = np.random.default_rng(SEED + 44)
+    seen = {"groups": set(), "bit_checked_members": 0}
+    for tdt in (torch.float32, torch.float64):
+        npdt = NP_DTYPES[tdt]
+        for itype in (np.int32, np.int64):
+            for bs in (8, 16, 32, 64, 128):
+                nbrows = max(6, 384 // bs)
+                indptr, indices, _ = random_bsr(rng, nbrows, nbrows, bs, 2,
+                                                npdt, itype, 5, True)
+                ip, ix = cuda(indptr), cuda(indices)
+                plan = formats.bsr_chunk_plan(ip, len(indices))
+                if not plan.splits.shape[0]:
+                    raise AssertionError("K1 groups: no split block row")
+                for j, (n, size) in enumerate(((37, 2), (64, 3), (37, 5),
+                                               (64, 5))):
+                    data = cuda(values(rng, (size, len(indices), bs, bs),
+                                       npdt, 1.0 / np.sqrt(2 * bs)))
+                    if size == 5:
+                        data = odd_members(data)
+                    b = cuda(values(rng, (nbrows * bs, n), npdt))
+                    mode = (j + bs) % 3
+                    c0 = None if mode == 0 else cuda(values(
+                        rng, (size, nbrows * bs, n) if mode == 2
+                        else (nbrows * bs, n), npdt))
+                    al, be = (None, None) if c0 is None else (-1.5, 2.0)
+                    want = bsr.bsr_spmm_batched_plain(ip, ix, data, b, al,
+                                                      be, c0)
+                    for group in ((2,) if size == 2 else (2, 4)):
+                        out = k1_batched_at(ip, ix, data, b, plan, group,
+                                            al, be, c0)
+                        if not same_bits(out, k1_batched_at(
+                                ip, ix, data, b, plan, group, al, be, c0)):
+                            raise AssertionError("batched K1 group: runs "
+                                                 "differ")
+                        record("K1_bsr_spmm_tc", compare(out, want, tdt))
+                        seen["groups"].add((str(tdt), bs, group))
+                        for i in range(size):
+                            c0_i = c0[i] if mode == 2 else c0
+                            single = bsr.spmm(ip, ix, data[i], b, al, be,
+                                              c0_i, plan)
+                            if not same_bits(single, out[i]):
+                                raise AssertionError(
+                                    f"batched K1 {tdt} bs {bs} member {i} "
+                                    f"of {size} at {group} a block: bits "
+                                    "differ from its single launch")
+                            seen["bit_checked_members"] += 1
+                    before = bsr.bsr_spmm.launches_group
+                    got = bsr.spmm_batched(ip, ix, data, b, al, be, c0, plan)
+                    group = bsr.spmm_group(tdt, bs, size)
+                    if bsr.bsr_spmm.launches_group - before != (group > 1):
+                        raise AssertionError(f"batched K1 of {size}: group "
+                                             "launches")
+                    if not same_bits(got, k1_batched_at(
+                            ip, ix, data, b, plan, group, al, be, c0)):
+                        raise AssertionError("batched K1: the wrapper's bits "
+                                             "differ")
+    return {"groups": sorted(map(list, seen["groups"])),
+            "bit_checked_members": seen["bit_checked_members"]}
+
+
 def check_groups(record):
-    """Phase 2's member groups of batched K2 and K5
-    (``check_k2_groups``, ``check_k5_groups``)."""
-    return {"K2": check_k2_groups(record), "K5": check_k5_groups(record)}
+    """Phase 2's member groups of batched K2, K5, K6 and K1
+    (``check_k2_groups``, ``check_k5_groups``, ``check_k6_groups``,
+    ``check_k1_groups``)."""
+    return {"K2": check_k2_groups(record), "K5": check_k5_groups(record),
+            "K6": check_k6_groups(record), "K1": check_k1_groups(record)}
 
 
 def check_second_order():
@@ -3356,6 +3591,7 @@ def reset_launches():
         fn.launches_batched_tc = fn.launches_batched_simt = 0
         fn.launches_batched_tc_complex = 0
     csr.csr_spmm.launches_group = spgemm.csr_spgemm_fill.launches_group = 0
+    bsr.bsr_spmm.launches_group = spgemm.csr_spgemm_dense.launches_group = 0
 
 
 def read_batched():
@@ -4035,6 +4271,45 @@ def timed_row(kernel, shape, kernel_fn, plain_fn, bound_of, library=(None,
     return row
 
 
+def k10_row(inputs):
+    """Phase 4's row of K10 (``formats.coo_to_sorted_csr``: one stable
+    sort, torch code and not a hand kernel, so its plain version is
+    itself) at config 1's matrix as expanded COO in a random order, int32
+    ids, f64 values; bound: the COO read once and the CSR written once."""
+    from sparse_dot_tpu_torch import formats
+
+    a = inputs["a1"]
+    rng = np.random.default_rng(SEED + 45)
+    order = rng.permutation(a.nnz)
+    rows = cuda(np.repeat(np.arange(a.shape[0], dtype=np.int32),
+                          np.diff(a.indptr))[order])
+    cols = cuda(a.indices.astype(np.int32)[order])
+    vals = cuda(a.data[order])
+
+    def sort():  # the whole conversion; its values stand for the result
+        return formats.coo_to_sorted_csr(rows, cols, vals, a.shape)[2]
+
+    moved = nbytes(rows, cols, vals) + nbytes(cols, vals) + (
+        a.shape[0] + 1) * 4
+    return timed_row(
+        "K10_coo_to_sorted_csr",
+        f"config1 COO f64 {a.shape[0]}x{a.shape[1]}, {a.nnz} entries in a "
+        "random order, int32 ids (torch code: the plain version is itself)",
+        sort, sort, bound(moved, 0, peak_flops(torch.float64)),
+        (None, "none: torch's COO -> CSR sums repeated entries, which K10 "
+               "keeps apart"))
+
+
+def sorts_in(fn, *args):
+    """(fn(*args), the stable sorts of ``formats.sort_csr_indices``, K10,
+    that it ran)."""
+    from sparse_dot_tpu_torch import formats
+
+    before = formats.sort_csr_indices.calls
+    out = fn(*args)
+    return out, formats.sort_csr_indices.calls - before
+
+
 def timings(inputs, solver_inp):
     """Phase 4: K1, K2 and K3 at the phase-3 shapes and at the solvers'
     matrices (the 1M Laplacian, the convection-diffusion matrix and CGLS's
@@ -4534,16 +4809,18 @@ def k7_batched_rows(rows, inputs, rng):
 
 
 def bsr_batched_rows(rows, inputs, rng):
-    """``batched_rows``' rows of K1 and K8: config 3 (bs 64, f64, n = 256)
-    and phase 3's complex BSR (c128, bs 16, n = 64), 4 block sets with b
-    shared (K8: 4 G's, B shared), each beside the same members' single
-    launches and a yardstick made once a member, the complex ones also
-    beside the CUDA-core variant's batched launch (``k1_simt``,
-    ``k8_simt``)."""
+    """``batched_rows``' rows of K1 and K8: config 3 (bs 64, f64, n = 256;
+    K1 also in f32) and phase 3's complex BSR (c128, bs 16, n = 64), 4
+    block sets with b shared (K8: 4 G's, B shared), each beside the same
+    members' single launches and a yardstick made once a member, config
+    3's K1 also beside the per-member instance (``k1_batched_at``), the
+    complex ones beside the CUDA-core variant's batched launch
+    (``k1_simt``, ``k8_simt``)."""
     from sparse_dot_tpu_torch import formats
     from sparse_dot_tpu_torch.ops import bsr
 
     for key, n, label in (((64, np.float64), 256, "config3"),
+                          ((64, np.float32), 256, "config3"),
                           (None, 64, "complex")):
         a = inputs["bsrs"][key] if key else inputs["abc"]
         A = formats.to_device(a)
@@ -4551,7 +4828,7 @@ def bsr_batched_rows(rows, inputs, rng):
         bs = a.blocksize[0]
         npdt = a.dtype.type
         tdt = torch.from_numpy(np.zeros(0, npdt)).dtype
-        b = cuda(inputs["b3"][np.float64] if key else inputs["bc"])
+        b = cuda(inputs["b3"][key[1]] if key else inputs["bc"])
         kplan = A.bsr_plan()
         blocks_ = cuda(values(rng, (4, *a.data.shape), npdt,
                               1.0 / np.sqrt(bs * 20)))
@@ -4566,6 +4843,9 @@ def bsr_batched_rows(rows, inputs, rng):
         if not key:
             k1_beside["cuda_core_variant"] = lambda: k1_simt(bp, bx, blocks_,
                                                              b)
+        else:
+            k1_beside["per_member_instance"] = lambda: k1_batched_at(
+                bp, bx, blocks_, b, kplan, 1)
         rows.append(timed_row(
             variant_name("K1_bsr_spmm", tdt, bs),
             f"batched: {label} BSR bs={bs} {np.dtype(npdt).name} "
@@ -4576,7 +4856,11 @@ def bsr_batched_rows(rows, inputs, rng):
             yardstick=(lambda: torch.stack([torch.sparse.mm(mat, b)
                                             for mat in mats]),
                        "4 x torch.sparse.mm(A_bsr, B), one a member"),
-            beside=k1_beside, members=4))
+            beside=k1_beside, members=4,
+            group=bsr.spmm_group(tdt, bs, 4)))
+        if key == (64, np.float32):  # K8's f32 batched row is not kept
+            del A, blocks_, mats
+            continue
         g = cuda(values(rng, (4, side, n), npdt))
         strips = [block_strips(bp, bx, g[i], b, bs) for i in range(4)]
         panels = strips[0][1].conj_physical().mT
@@ -6146,7 +6430,7 @@ def k5_hash_row(rng, side=100_000, mean_row=10):
     return row
 
 
-def batched_spgemm_rows(inp, k5_only=False):
+def batched_spgemm_rows(inp, groups_only=False):
     """Phase 4's rows of the batched sparse x sparse launches, each beside
     the same members' single launches in the same turns
     (``ms_over_single_launches``), f64: K6 at case a (the demo X @ X.T)
@@ -6159,43 +6443,56 @@ def batched_spgemm_rows(inp, k5_only=False):
     Each with its bound (``k6_batched_bound``, ``k9_batched_bound``,
     ``k11_batched_bound``; K5: the index arrays and C's structure once,
     each member's values and output); K5 also at a product of hash-bin
-    rows (``k5_hash_row``).  With ``k5_only`` the K5 rows alone."""
+    rows (``k5_hash_row``).  K6 also over 4 value sets of op(B), op(A)
+    shared; K6 and K5 beside their per-member instances too.  With
+    ``groups_only`` the K6 and K5 rows alone (the member groups')."""
     from sparse_dot_tpu_torch import formats
     from sparse_dot_tpu_torch.ops import autograd, spgemm, spgemm_grad
 
     rng = np.random.default_rng(SEED + 25)
     shape_c = "1M x 1M CSR, 2M random nnz, A @ A, f64, sparse output"
-    if k5_only:
-        A = formats.to_device(inp["a1m"])
-        a = A.csr_arrays()
-        c = spgemm.csr_spgemm(*a, *a, inp["a1m"].shape[1])[:2]
-        rows = [k5_batched_row(shape_c, inp["a1m"], inp["a1m"], a, a, c,
-                               rng, "c")]
-        del A, a, c
-        return over_single_launches(rows + [k5_hash_row(rng)])
     rows = []
     x = inp["x"]
     shape_a = "demo X @ X.T, X 500x5000 CSR 21.2% f64"
     A, B = formats.to_device(x), formats.to_device(x.T)
     ip, ix, dv = A.csr_arrays()
-    bip, bix, bdv = B.csr_arrays()
-    n, b_sorted = x.shape[0], B.csr_sorted()
-    for size in (4, 16):
-        av = dv[None] * (1 + 0.1 * cuda(values(rng, (size, ix.numel()),
-                                               np.float64)))
-        args = (ip, ix, av, bip, bix, bdv, n)
+    bip, bix, bdv = B.sorted_csr_arrays()
+    n = x.shape[0]
+    for size, over in ((4, "A"), (16, "A"), (4, "B")):
+        if over == "A":
+            av, bv = dv[None] * (1 + 0.1 * cuda(values(
+                rng, (size, ix.numel()), np.float64))), bdv
+        else:
+            av, bv = dv, bdv[None] * (1 + 0.1 * cuda(values(
+                rng, (size, bix.numel()), np.float64)))
+        args = (ip, ix, av, bip, bix, bv, n)
         rows.append(timed_row(
             "K6_csr_spgemm_dense",
-            f"batched: {shape_a}, {size} value sets of op(A), op(B) shared",
-            lambda: spgemm.spgemm_dense_batched(*args, b_sorted=b_sorted),
+            f"batched: {shape_a}, {size} value sets of op({over}), "
+            f"op({'B' if over == 'A' else 'A'}) shared",
+            lambda: spgemm.spgemm_dense_batched(*args, b_sorted=True),
             lambda: spgemm.csr_spgemm_dense_batched_plain(*args),
             k6_batched_bound(args, size),
             beside={f"{size}_single_launches": lambda: [
-                spgemm.csr_spgemm_dense(ip, ix, av[i], bip, bix, bdv, n,
-                                        b_sorted=b_sorted)
-                for i in range(size)]},
-            device_match="spgemm_dense_kernel", members=size, case="a"))
-        del av
+                spgemm.csr_spgemm_dense(
+                    ip, ix, av[i] if over == "A" else av, bip, bix,
+                    bv[i] if over == "B" else bv, n, b_sorted=True)
+                for i in range(size)],
+                "per_member_instance": lambda: k6_batched_at(args, 1)},
+            device_match=("spgemm_dense_kernel",
+                          "spgemm_dense_group_kernel"),
+            members=size, case="a", group=spgemm.dense_group(
+                av.dtype, ix.element_size(), size,
+                spgemm.dense_form(over == "A", over == "B"))))
+        del av, bv
+    if groups_only:
+        A = formats.to_device(inp["a1m"])
+        a = A.csr_arrays()
+        c = spgemm.csr_spgemm(*a, *a, inp["a1m"].shape[1])[:2]
+        rows.append(k5_batched_row(shape_c, inp["a1m"], inp["a1m"], a, a, c,
+                                   rng, "c"))
+        del A, a, c
+        return over_single_launches(rows + [k5_hash_row(rng)])
     g = cuda(values(rng, (4, n, n), np.float64))
     t, order = formats.CsrPattern(ip, ix, x.shape[1]).transpose()
     for transposed in (False, True):
@@ -7568,8 +7865,10 @@ def batched_training(inputs, spgemm_inp):
     launches = read_launches()
     emit("6-vmap", launches=launches, batched_launches=read_batched(),
          group_launches={
+             "K1_bsr_spmm_tc": bsr.bsr_spmm.launches_group,
              "K2_csr_spmm": csr.csr_spmm.launches_group,
-             "K5_csr_spgemm_fill": spgemm.csr_spgemm_fill.launches_group},
+             "K5_csr_spgemm_fill": spgemm.csr_spgemm_fill.launches_group,
+             "K6_csr_spgemm_dense": spgemm.csr_spgemm_dense.launches_group},
          runs=runs, members={"per_sample": PER_SAMPLE,
                              "ensemble": ENSEMBLE},
          jac_pattern=dict(zip(("m", "k", "mean_row", "n"), JAC_PATTERN)),
@@ -8107,8 +8406,8 @@ def main():
              "the batched launches' phase-2 checks (check_batched), their "
              "phase-4 rows and phase 6's batched runs; groups runs phase "
              "1, the member groups' phase-2 checks (check_groups), "
-             "batched K2's and K5's phase-4 rows and phase 6's batched "
-             "runs; densify runs "
+             "batched K1's (config 3), K2's, K5's and K6's phase-4 rows "
+             "and phase 6's batched runs; densify runs "
              "phase 1, K12's phase-2 checks (check_k12), phase 3's "
              "densify calls (densify_path), K12's phase-4 rows and the "
              "crossover sweep (densify_sweep); bsr runs phase 1, K1's and "
@@ -8249,7 +8548,8 @@ def main():
         return
     if only == "groups":
         results = {name: {"cases": 0, "max_abs_err": 0.0}
-                   for name in ("K2_csr_spmm", "K5_csr_spgemm_fill")}
+                   for name in ("K1_bsr_spmm_tc", "K2_csr_spmm",
+                                "K5_csr_spgemm_fill", "K6_csr_spgemm_dense")}
 
         def record(name, err):
             results[name]["cases"] += 1
@@ -8260,8 +8560,9 @@ def main():
         inputs, rows = path_inputs(), []
         batched_rows(rows, inputs, np.random.default_rng(SEED + 4))
         spgemm_inp = spgemm_inputs()
-        rows = [r for r in rows if r["kernel"] == "K2_csr_spmm"]
-        rows += [r for r in batched_spgemm_rows(spgemm_inp, k5_only=True)]
+        rows = [r for r in rows if r["kernel"] == "K2_csr_spmm"
+                or r["shape"].startswith("batched: config3")]
+        rows += batched_spgemm_rows(spgemm_inp, groups_only=True)
         emit("4-groups", rows=rows,
              timer="cuda events, median (p10, p90), 1 GiB read before "
                    "each; library, yardstick and beside timed in the same "
@@ -8291,10 +8592,11 @@ def main():
         batched_training(inputs, spgemm_inp)
         return
     check_kernels()
-    by_path = {}
-    by_path["dot_product"], inputs = main_path()
-    by_path["densify"] = densify_path()
-    by_path["spgemm"], spgemm_inp = spgemm_path()
+    by_path, k10 = {}, {}
+    (by_path["dot_product"], inputs), k10["dot_product"] = sorts_in(
+        main_path)
+    by_path["densify"], k10["densify"] = sorts_in(densify_path)
+    (by_path["spgemm"], spgemm_inp), k10["spgemm"] = sorts_in(spgemm_path)
     solver_inp = solver_inputs()
     # The densify rows and the sweep first, in the state ``--only densify``
     # measures them in (no profiler trace taken yet), so that the sweep's
@@ -8305,17 +8607,24 @@ def main():
                "library, yardstick and beside timed in the same turns")
     densify_sweep()
     rows = (timings(inputs, solver_inp) + spgemm_timings(spgemm_inp)
-            + densify_rows)
-    by_path["solvers"], records = solver_path(solver_inp)
+            + densify_rows + [k10_row(inputs)])
+    (by_path["solvers"], records), k10["solvers"] = sorts_in(solver_path,
+                                                             solver_inp)
     solver_timings(records, rows)
-    training = training_path(inputs)
+    training, k10["training"] = sorts_in(training_path, inputs)
     batched = {"training": read_batched()}
-    grad = grad_training(inputs, spgemm_inp)
+    grad, sorts = sorts_in(grad_training, inputs, spgemm_inp)
+    k10["training"] += sorts
     by_path["training"] = {name: training[name] + grad[name]
                            for name in KERNELS}
-    by_path["vmap"] = batched_training(inputs, spgemm_inp)
+    by_path["vmap"], k10["vmap"] = sorts_in(batched_training, inputs,
+                                            spgemm_inp)
     batched["vmap"] = read_batched()
-    by_path["sharded"] = sharded_path(sharded_inputs(inputs, solver_inp))
+    by_path["sharded"], k10["sharded"] = sorts_in(
+        sharded_path, sharded_inputs(inputs, solver_inp))
+    emit("4-k10", row=next(r for r in rows
+                           if r["kernel"] == "K10_coo_to_sorted_csr"),
+         sorts_by_path=k10)
     launches = {name: sum(path[name] for path in by_path.values())
                 for name in KERNELS}
 

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Side-by-side timings of batched K2, K5, K7, K9 and K11, of K13 and of
-complex K1 and K8 on one NVIDIA GPU.
+"""Side-by-side timings of batched K1, K2, K5, K6, K7, K9 and K11, of K13
+and of complex K1 and K8 on one NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with the card:
 
@@ -16,6 +16,8 @@ Run from the root of a checkout, on a machine with the card:
     python3 compare_k7_k13.py plain_cpu [--root DIR]   # no card needed
     python3 compare_k7_k13.py k2k5 [--root DIR]        # batched K2/K5 groups
     python3 compare_k7_k13.py k5 [--root DIR]          # K5's half alone
+    python3 compare_k7_k13.py k6k1 [--root DIR]        # batched K6/K1 groups
+    python3 compare_k7_k13.py k6_banks                 # no card needed
 
 ``schedules`` times batched K7 at config 1 (f64, n = 128, 16 members) as
 one launch with spans sized over all members' entries, with spans that
@@ -56,13 +58,27 @@ block beside the wrappers' choice and the single launches, K2 at config
 1 in each value type and index width and at the 1M^2 SpMV matrix, K5 at
 case c and at a product of hash-bin rows (``k2_group_sweep``,
 ``k5_group_sweep``; ``k5`` the K5 half alone), with ``--root DIR`` the
-package at DIR's wrappers too, in the same turns.  Each mode
+package at DIR's wrappers too, in the same turns.  ``k6k1`` times
+batched K6 at case a (op(A)'s values per member in every value type and
+index width at 4, 8 and 16 sets, op(B)'s over 4, c0's over 4) and
+batched K1 at config 3 (f64 and f32, 4 block sets, b shared) at 1, 2
+and 4 members a block (K6 also on two windows, and in f64 beside a
+conflict-free stand-in of its group kernel built from a copy of the
+package under ``build/``, with the SM clock read; K1 also on 32-row
+tiles, from another such copy) beside the wrappers' choice and the
+single launches (``k6_group_sweep``, ``k1_group_sweep``; ``k1`` and
+``k6`` each half alone), with ``--root DIR`` the package at DIR's wrappers
+too, in the same turns.  ``k6_banks`` counts, from the demo X alone
+(no card needed), the shared-memory wavefronts of K6's sum updates a
+member-product in the per-member kernel's layout and in its groups'
+(``k6_banks``).  Each mode
 prints one JSON line, also written to
 ``--out`` when given.  The helpers (timing in turns after a 1 GiB read,
 the plain versions' comparison, the inputs) are ``chip_smoke.py``'s.
 """
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -975,15 +991,16 @@ def other_packages(packages):
             for label, name in packages.items() if label != "this checkout"}
 
 
-def timed_group_fns(fns, want, tdt, match, reps=REPS):
+def timed_group_fns(fns, want, tdt, match, reps=REPS, unchecked=()):
     """Each fn of ``fns`` held against ``want`` (a list's members
-    stacked), timed in turns (``time_turns``) and its kernels' device
-    time (``kernel_device_ms`` of ``match``)."""
+    stacked; those named in ``unchecked``, stand-ins, not held), timed in
+    turns (``time_turns``) and its kernels' device time
+    (``kernel_device_ms`` of ``match``)."""
     errs = {}
     for name, fn in fns.items():
         out = fn()
         out = torch.stack(out) if isinstance(out, list) else out
-        errs[name] = compare(out, want, tdt)
+        errs[name] = None if name in unchecked else compare(out, want, tdt)
     del out
     times = time_turns(fns, reps)
     return {name: {**dict(zip(("ms", "p10", "p90"), spread(times[name]))),
@@ -1113,18 +1130,342 @@ def k5_group_sweep(packages, inputs, rng, size=4):
             "cases": result}
 
 
+# Edits of a variant package (``variant_package``): (source in csrc/,
+# line, its replacement).  K6_CONFLICT_FREE: K6's group kernel updates
+# column ``lane`` for every product (the same loads, fmas and accesses,
+# no bank met twice; its sums are wrong and only timed).  K1_ROWS_32:
+# K1's group kernel takes 32-row tiles for blocks past 32 rows (two row
+# tiles at bs 64, half the accumulators; its results are checked).
+K6_CONFLICT_FREE = ("csr_spgemm_dense_group.cu",
+                    "const int col = static_cast<int>(j[u] - first);",
+                    "const int col = lane;")
+K1_ROWS_32 = ("bsr_spmm_group.cu",
+              "return launch_group_tiles<T, I, 64, M>(SDT_K1_GROUP_ARGS);",
+              "return launch_group_tiles<T, I, 32, M>(SDT_K1_GROUP_ARGS);")
+
+
+def variant_package(dest, name, edits):
+    """A copy of this checkout's package at ``dest`` with ``edits`` made to
+    its kernels' sources, imported as ``name``, its kernels built from
+    the copy's sources."""
+    import importlib
+    import shutil
+
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "sparse_dot_tpu_torch")
+    root = os.path.join(os.path.abspath(dest), "sparse_dot_tpu_torch")
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(src, root, ignore=shutil.ignore_patterns("__pycache__"))
+    for source, line, replacement in edits:
+        path = os.path.join(root, "csrc", source)
+        with open(path) as f:
+            text = f.read()
+        if text.count(line) != 1:
+            raise AssertionError(f"{source}: the line to edit moved")
+        with open(path, "w") as f:
+            f.write(text.replace(line, replacement))
+    module = load_package(dest, name)
+    importlib.import_module(f"{name}.config").config.device = "cuda"
+    importlib.import_module(f"{name}.ops._build").library()
+    return module
+
+
+class SmClocks:
+    """The SM clock (MHz) as ``nvidia-smi`` reads it every 50 ms while the
+    block runs: ``samples`` after it."""
+
+    def __enter__(self):
+        import subprocess
+
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+             "--format=csv,noheader,nounits", "-i", "0", "-lms", "50"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        out, _ = self.proc.communicate(timeout=60)
+        self.samples = [[int(v) for v in line.split(",")]
+                        for line in out.splitlines() if line.strip()]
+        return False
+
+
+def k6_group_sweep(packages, inputs, rng):
+    """Batched K6 at case a (the demo X @ X.T) over 4, 8 and 16 value sets
+    of op(A), op(B) shared, over 4 sets of op(B)'s values, op(A)'s
+    shared, and over 4 c0's, both operands shared (the ONE_SUM form), in
+    every value type and index width: the launch at 1 (the per-member
+    instance), 2 and 4 members a block (ONE_SUM: 1 and 4;
+    ``chip_smoke.k6_batched_at``), at 4 also on two windows of 256
+    columns (a quarter of the shared memory a block), the wrapper's call,
+    the same members' single launches and each other package's wrapper
+    call, in the same turns, each against the batched plain version.  At
+    f64 with int32 ids over 4 sets of op(A), also the conflict-free
+    stand-in of the group kernel at 2 and 4 members a block
+    (``variant_package`` with K6_CONFLICT_FREE, unchecked) and the SM
+    clock while the turns ran."""
+    from sparse_dot_tpu_torch import formats
+    from sparse_dot_tpu_torch.ops import spgemm
+
+    others = other_packages(packages)
+    stand_in = variant_package(os.path.join("build", "k6_conflict_free"),
+                               "sdt_conflict_free", [K6_CONFLICT_FREE])
+    x = inputs["x"]
+    A, B = formats.to_device(x), formats.to_device(x.T)
+    n = x.shape[0]
+    types = [(tdt, itype) for tdt in (torch.float32, torch.float64,
+                                      torch.complex64, torch.complex128)
+             for itype in (torch.int32, torch.int64)]
+    cases = [(tdt, itype, size, "a") for tdt, itype in types
+             for size in (4, 8, 16)]
+    cases += [(tdt, itype, 4, over) for over in ("b", "c0")
+              for tdt, itype in types]
+    result = {}
+    for tdt, itype, size, over in cases:
+        ip, ix, dv = (t.to(itype) if i < 2 else t.to(tdt)
+                      for i, t in enumerate(A.csr_arrays()))
+        bip, bix, bdv = (t.to(itype) if i < 2 else t.to(tdt)
+                         for i, t in enumerate(B.csr_arrays()))
+        npdt = chip_smoke.NP_DTYPES[tdt]
+        av, bv, c0, beta = dv, bdv, None, None
+        if over == "a":
+            av = dv[None] * (1 + 0.1 * cuda(values(
+                rng, (size, ix.numel()), npdt)))
+        elif over == "b":
+            bv = bdv[None] * (1 + 0.1 * cuda(values(
+                rng, (size, bix.numel()), npdt)))
+        else:
+            c0, beta = cuda(values(rng, (size, n, n), npdt)), 1.0
+        args = (ip, ix, av, bip, bix, bv, n)
+        plan = spgemm.dense_plan(n, n, av.element_size(), ix.numel())
+        fns = {"wrapper": lambda: spgemm.spgemm_dense_batched(
+            *args, None, beta, c0, b_sorted=True)}
+        for g in ((1, 4) if over == "c0" else (1, 2, 4)):
+            fns[f"members_{g}"] = lambda g=g: chip_smoke.k6_batched_at(
+                args, g, None, beta, c0)
+        if over != "c0":
+            two = spgemm.DensePlan(plan.splits, 256, 2)
+
+            def two_windows(two=two):
+                # A plain swap of the planner: a mock's set-up would add
+                # host time to the turn.
+                single, spgemm.dense_plan = (spgemm.dense_plan,
+                                             lambda *_: two)
+                try:
+                    return chip_smoke.k6_batched_at(args, 4)
+                finally:
+                    spgemm.dense_plan = single
+
+            fns["members_4_two_windows"] = two_windows
+        fns["single_launches"] = lambda: [
+            spgemm.csr_spgemm_dense(
+                ip, ix, av[i] if over == "a" else av, bip, bix,
+                bv[i] if over == "b" else bv, n, None, beta,
+                None if c0 is None else c0[i], b_sorted=True)
+            for i in range(size)]
+        for label, other in others.items():
+            fns[f"{label}: wrapper"] = (
+                lambda other=other: other.ops.spgemm.spgemm_dense_batched(
+                    *args, None, beta, c0, b_sorted=True))
+        unchecked = ()
+        probe = (tdt, itype, size, over) == (torch.float64, torch.int32, 4,
+                                             "a")
+        if probe:
+            for g in (2, 4):
+                fns[f"conflict_free_stand_in_{g}"] = (
+                    lambda g=g: k6_stand_in_at(stand_in, args, g))
+            unchecked = ("conflict_free_stand_in_2",
+                         "conflict_free_stand_in_4")
+        want = spgemm.csr_spgemm_dense_batched_plain(*args, None, beta, c0)
+        form = spgemm.dense_form(over == "a", over == "b")
+        with SmClocks() if probe else contextlib.nullcontext() as clocks:
+            times = timed_group_fns(fns, want, tdt, (
+                "spgemm_dense_kernel", "spgemm_dense_group_kernel"),
+                unchecked=unchecked)
+        result[f"a {tdt} {itype} x{size} {over}"] = {
+            "plan": list(plan), "form": form,
+            "wrapper_members": spgemm.dense_group(tdt, ix.element_size(),
+                                                  size, form),
+            "bound": chip_smoke.k6_batched_bound(args, size),
+            "times": times,
+            **({"sm_clock_mhz_and_max": clocks.samples} if probe else {})}
+        del av, bv, c0, want, fns
+        torch.cuda.empty_cache()
+    return {"shape": "demo X @ X.T, X 500x5000 CSR 21.2%", "cases": result}
+
+
+def k6_stand_in_at(module, args, group):
+    """The stand-in package's (``variant_package``) K6 group
+    launch of ``args`` as ``chip_smoke.k6_batched_at`` makes it, op(A)'s
+    values per member, op(B)'s shared."""
+    from sparse_dot_tpu_torch.ops import csr
+
+    ip, ix, av, bip, bix, bv, n = args
+    m, size = ip.numel() - 1, av.shape[0]
+    c = torch.empty((size, m, n), dtype=av.dtype, device=av.device)
+    module.ops.spgemm._k6_launcher(ip, ix, av, bip, n, None, None, False,
+                                   False)(
+        bix, size, (csr.member_stride("", av, 1), 0, 0, m * n),
+        av.data_ptr(), bv.data_ptr(), None, c.data_ptr(), False, group)
+    return c
+
+
+def k1_group_sweep(packages, inputs, rng, size=4):
+    """Batched K1 at config 3 (BSR 8192^2, bs 64, 5% of blocks, b (8192,
+    256) shared) over ``size`` block sets in f64 and f32: the launch at 1
+    (the per-member instance), 2 and 4 members a block
+    (``chip_smoke.k1_batched_at``), at 2 and 4 also on 32-row tiles (a
+    variant package, K1_ROWS_32), the wrapper's
+    call, the same members' single launches and each other package's
+    wrapper call, in the same turns, each against the batched plain
+    version."""
+    from sparse_dot_tpu_torch import formats
+    from sparse_dot_tpu_torch.ops import bsr
+
+    others = other_packages(packages)
+    rows_32 = variant_package(os.path.join("build", "k1_rows_32"),
+                              "sdt_rows_32", [K1_ROWS_32])
+    result = {}
+    for dt in (np.float64, np.float32):
+        a = inputs["bsrs"][(64, dt)]
+        A = formats.to_device(a)
+        bp, bx, _ = A.bsr_arrays()
+        plan = A.bsr_plan()
+        tdt = torch.from_numpy(np.zeros(0, dt)).dtype
+        blocks = cuda(values(rng, (size, *a.data.shape), dt,
+                             1.0 / np.sqrt(64 * 20)))
+        b = cuda(inputs["b3"][dt])
+        fns = {"wrapper": lambda: bsr.spmm_batched(bp, bx, blocks, b,
+                                                   plan=plan)}
+        for g in (1, 2, 4):
+            fns[f"members_{g}"] = lambda g=g: chip_smoke.k1_batched_at(
+                bp, bx, blocks, b, plan, g)
+        for g in (2, 4):
+            fns[f"members_{g}_rows_32"] = lambda g=g: k1_variant_at(
+                rows_32, bp, bx, blocks, b, plan, g)
+        fns["single_launches"] = lambda: [
+            bsr.bsr_spmm(bp, bx, blocks[i], b, plan=plan)
+            for i in range(size)]
+        for label, other in others.items():
+            oplan = other.formats.bsr_chunk_plan(bp, bx.numel())
+            fns[f"{label}: wrapper"] = (
+                lambda other=other, oplan=oplan: other.ops.bsr.spmm_batched(
+                    bp, bx, blocks, b, plan=oplan))
+        want = bsr.bsr_spmm_batched_plain(bp, bx, blocks, b)
+        result[f"config3 {tdt} x{size}"] = {
+            "wrapper_members": bsr.spmm_group(tdt, 64, size),
+            "bound": chip_smoke.bsr_batched_bound(bp, bx, blocks, b, size),
+            "times": timed_group_fns(fns, want, tdt, (
+                "bsr_spmm_tc_kernel", "bsr_spmm_group_kernel",
+                "bsr_reduce_kernel"))}
+        del A, blocks, want, fns
+        torch.cuda.empty_cache()
+    return {"shape": "config 3 BSR 8192x8192, bs 64, 5% of blocks, b "
+                     "(8192,256) shared", "cases": result}
+
+
+def _wavefronts(cols, width, lanes_per_phase, plane_offset=0, halves=1):
+    """Shared-memory wavefronts of one warp-wide access a lane a column of
+    ``cols`` (the active lanes' columns, lane order), each lane reading
+    ``width`` bytes at ``width * (plane_offset + column * halves)`` (and
+    ``halves`` - 1 more 16-byte pieces after it, one access each): per
+    phase of ``lanes_per_phase`` lanes, the most distinct words that
+    meet in one of the 128-byte line's slots."""
+    slots = 128 // width
+    total = 0
+    for h in range(halves):
+        words = plane_offset + cols * halves + h
+        for p in range(0, len(cols), lanes_per_phase):
+            phase = np.unique(words[p:p + lanes_per_phase])
+            total += int(np.bincount(phase % slots).max())
+    return total
+
+
+def k1_variant_at(module, ip, ix, data, b, plan, group):
+    """A variant package's (``variant_package``) batched K1 launch of
+    ``data``'s members, b shared, at ``group`` members a block, as
+    ``chip_smoke.k1_batched_at`` makes it."""
+    size, _, bs, _ = data.shape
+    m, n = (ip.numel() - 1) * bs, b.shape[-1]
+    c = torch.empty((size, m, n), dtype=b.dtype, device=b.device)
+    module.ops.bsr._launch_k1(ip, ix, plan, None, None, False, size,
+                              (data.stride(0), 0, 0, m * n), data.data_ptr(),
+                              b.data_ptr(), None, c.data_ptr(), data, b,
+                              group)
+    return c
+
+
+def k6_banks(x, positions=4, width=None):
+    """The shared-memory wavefronts of K6's sum updates at the product
+    op(A) @ op(B) of CSR ``x`` by its transpose (the demo X @ X.T), f64,
+    one window, counted from the data as the kernels issue them: a round
+    gives lane l the positions l + 32 u (u < ``positions``) of one row of
+    op(B), one warp-wide access a u, a load and a store a product.  Per
+    layout: the per-member kernel (8 bytes a sum), a group of 2 (16-byte
+    columns), a group of 4 in two 16-byte planes (this kernel's) and in
+    32-byte columns (the first design).  Each row of op(B) costs the same
+    wherever op(A) names it, so its cost is counted once and weighted by
+    op(A)'s entries naming it.  Returns wavefronts a member-product."""
+    xt = x.T.tocsr()
+    xt.sort_indices()
+    named = np.bincount(x.indices, minlength=x.shape[1])
+    width = width or x.shape[0]
+    layouts = {"members_1": (8, 16, 1, 1), "members_2": (16, 8, 1, 2),
+               "members_4_planes": (16, 8, 2, 4),
+               "members_4_32_byte_columns": (16, 8, 0, 4)}
+    cost = dict.fromkeys(layouts, 0)
+    products = 0
+    for k in range(xt.shape[0]):
+        if not named[k]:
+            continue
+        row = xt.indices[xt.indptr[k]:xt.indptr[k + 1]].astype(np.int64)
+        products += named[k] * len(row)
+        span = 32 * positions
+        for q0 in range(0, len(row), span):
+            part = row[q0:q0 + span]
+            for u in range(positions):
+                cols = part[32 * u:32 * u + 32]
+                if not len(cols):
+                    break
+                for name, (bytes_, lanes, planes, members) in layouts.items():
+                    if planes == 0:  # one 32-byte column: two halves
+                        w = _wavefronts(cols, bytes_, lanes, halves=2)
+                    else:
+                        w = sum(_wavefronts(cols, bytes_, lanes,
+                                            plane_offset=p * width)
+                                for p in range(planes))
+                    cost[name] += 2 * named[k] * w  # a load and a store
+    members = {name: spec[3] for name, spec in layouts.items()}
+    return {"products_a_member": int(products),
+            "wavefronts_a_member_product": {
+                name: cost[name] / (products * members[name])
+                for name in layouts},
+            "wavefronts_a_member_product_conflict_free": {
+                name: 2 * (spec[0] * 32 / 128) / (32 * spec[3])
+                * (2 if spec[2] == 0 else spec[2] or 1)
+                for name, spec in layouts.items()}}
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("mode", choices=("schedules", "members", "rows",
                                          "route", "groups", "sampled",
                                          "walls", "bsr", "bsr_gate",
-                                         "plain_cpu", "k2k5", "k5"))
+                                         "plain_cpu", "k2k5", "k5",
+                                         "k6k1", "k1", "k6", "k6_banks"))
     parser.add_argument("--root", help="rows: time the package of the "
                                        "checkout at ROOT instead; route, "
-                                       "sampled, walls, bsr, plain_cpu and "
-                                       "k2k5: time it beside this one")
+                                       "sampled, walls, bsr, plain_cpu, "
+                                       "k2k5 and k6k1: time it beside this "
+                                       "one")
     parser.add_argument("--out", help="also write the JSON line here")
     args = parser.parse_args()
+    if args.mode == "k6_banks":
+        emit_line({"mode": args.mode, "shape": "demo X @ X.T, f64, one "
+                   "window of 500 columns, 4 positions a lane a round",
+                   **k6_banks(chip_smoke.demo_x())}, args.out)
+        return
     if args.mode == "plain_cpu":
         packages = {"this checkout": "sparse_dot_tpu_torch"}
         if args.root:
@@ -1173,6 +1514,16 @@ def main():
         line.update(bsr_gate(rng))
     elif args.mode == "k5":
         line["k5"] = k5_group_sweep(packages, chip_smoke.spgemm_inputs(),
+                                    rng)
+    elif args.mode == "k1":
+        line["k1"] = k1_group_sweep(packages, chip_smoke.path_inputs(), rng)
+    elif args.mode == "k6":
+        line["k6"] = k6_group_sweep(packages, chip_smoke.spgemm_inputs(),
+                                    rng)
+    elif args.mode == "k6k1":
+        line["k1"] = k1_group_sweep(packages, chip_smoke.path_inputs(), rng)
+        emit_line(line, args.out)  # the K1 half, should K6's fail
+        line["k6"] = k6_group_sweep(packages, chip_smoke.spgemm_inputs(),
                                     rng)
     elif args.mode == "k2k5":
         inputs = chip_smoke.path_inputs()

@@ -510,9 +510,14 @@ def coo_to_csr(rows, cols, vals, nrows):
 def sort_csr_indices(rows, cols, vals, ncols):
     """Entries of expanded COO in (row, col) order: one stable sort of the
     key ``row * ncols + col``.  Returns (cols, vals) in that order.  Plain
-    torch: the counterpart of ``_xla.sort_csr_indices``."""
+    torch: the counterpart of ``_xla.sort_csr_indices``; its calls are
+    counted in ``sort_csr_indices.calls``."""
     order = torch.argsort(rows.long() * ncols + cols.long(), stable=True)
+    sort_csr_indices.calls += 1
     return cols[order], vals[order]
+
+
+sort_csr_indices.calls = 0
 
 
 def sorted_unique_columns(indptr, indices, vals, ncols):

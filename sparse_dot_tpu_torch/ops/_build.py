@@ -86,6 +86,13 @@ _PROTOTYPES = {
     "sdt_bsr_spmm_tc": (_INT, _INT, _P, _I64, _P, _I64, _P, _P, _P, _P, _P,
                         _P, _I64, _I64, _I64, _D, _D, _D, _D, _I64, _I64,
                         _I64, _I64, _I64, _P),
+    # dtype, itype, items, n_items, splits, n_splits, indices, data, b, c0,
+    # c, work, slots, bs, n, alpha_re, alpha_im, beta_re, beta_im, batch,
+    # s_data, s_c0, s_c, group, stream (b shared by the batch, ``group``
+    # members a block)
+    "sdt_bsr_spmm_tc_group": (_INT, _INT, _P, _I64, _P, _I64, _P, _P, _P,
+                              _P, _P, _P, _I64, _I64, _I64, _D, _D, _D, _D,
+                              _I64, _I64, _I64, _I64, _INT, _P),
     # itype, a_indptr, a_indices, b_indptr, b_indices, rows, offsets,
     # bins (host), nbins, n, triangular, counts, work, work_groups,
     # u_max (host, or None), m, lanes, tile_rows, ub, tile_bins, stream
@@ -120,6 +127,11 @@ _PROTOTYPES = {
                              _I64, _I64, _D, _D, _D, _D, _INT, _INT, _I64,
                              _I64, _P, _INT, _I64, _I64, _I64, _I64, _I64,
                              _P),
+    # the same, then group (``group`` members a block), stream
+    "sdt_csr_spgemm_dense_group": (_INT, _INT, _P, _P, _P, _P, _P, _P, _P,
+                                   _P, _I64, _I64, _D, _D, _D, _D, _INT,
+                                   _INT, _I64, _I64, _P, _INT, _I64, _I64,
+                                   _I64, _I64, _I64, _INT, _P),
     # dtype, itype, indptr, nbrows, indices, nblocks, g, b, out, bs, n,
     # alpha_re, alpha_im, batch, s_g, s_b, s_out, stream
     "sdt_bsr_sddmm_simt": (_INT, _INT, _P, _I64, _P, _I64, _P, _P, _P, _I64,

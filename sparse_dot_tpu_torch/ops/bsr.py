@@ -56,7 +56,10 @@ pattern (blocks, b, c0 or g each per member or shared) in one launch, the
 member on the grid's z dimension: what ``torch.func.vmap`` over the
 blocks and the transforms built on it reach (``ops.autograd``).  Each
 member of K1's tensor-core variant has its own workspace slots for split
-block rows; the chunk plan is shared.
+block rows; the chunk plan is shared.  Where the members share b and not
+their blocks (real values on the tensor cores), a thread block serves a
+group of ``spmm_group`` members (``csrc/bsr_spmm_group.cu``): one chunk
+of b staged and its fragments loaded once for the group.
 """
 
 import torch
@@ -138,6 +141,26 @@ def uses_tensor_cores(dtype, bs):
     return bs % 8 == 0
 
 
+# Members a block of K1's group instance, by value type: the fastest the
+# card timed at config 3 over 4 block sets (PERF.md: f64 at 2 members 6%
+# faster than one a block and than 4; f32 at 4 15% faster than one; on
+# 32-row tiles both slower).
+_K1_GROUP = {torch.float32: 4, torch.float64: 2}
+
+
+def spmm_group(dtype, bs, size, shared_b=True, per_member_blocks=True):
+    """Members a block of a batched K1 launch of ``size`` members: where b
+    is shared and the blocks are per member, on the tensor cores in f32
+    or f64, ``_K1_GROUP``'s (2 for a batch of 2), else 1, the per-member
+    instance.  Each member keeps its own accumulators; the group keeps
+    each member's MMAs in its single launch's order, so each member has
+    its single launch's bits."""
+    if (size < 2 or not shared_b or not per_member_blocks
+            or dtype not in _K1_GROUP or not uses_tensor_cores(dtype, bs)):
+        return 1
+    return min(_K1_GROUP[dtype], 2 if size == 2 else 4)
+
+
 def bsr_spmm(indptr, indices, data, b, alpha=None, beta=None, c0=None,
              plan=None):
     """``alpha * A @ b + beta * c0`` for BSR A (block ``indptr`` of
@@ -211,13 +234,15 @@ def _chunk_plan(plan, indptr, nblocks, device):
 
 
 def _launch_k1(indptr, indices, plan, alpha, beta, with_c0, members,
-               strides, data, b, c0, c, data_t, b_t):
+               strides, data, b, c0, c, data_t, b_t, group=1):
     """One launch of K1 for ``members`` members at ``strides`` (blocks, b,
     c0, c), given the addresses: on the tensor cores with ``plan``, the
     chunk plan (each member with its own workspace slots for the partial
     tiles of split block rows), on the CUDA cores when it is None.
-    Counted in ``bsr_spmm.launches`` and ``launches_tc`` or
-    ``launches_simt``."""
+    ``group``: members a block, ``sdt_bsr_spmm_tc_group`` (b shared)
+    where it is more than one.  Counted in ``bsr_spmm.launches`` and
+    ``launches_tc`` or ``launches_simt``, a group launch also in
+    ``launches_group``."""
     bs, n = data_t.shape[-1], b_t.shape[-1]
     dt, it = _build.type_codes(data_t, indptr)
     scalars = (*_build.scalar_parts(alpha),
@@ -227,13 +252,20 @@ def _launch_k1(indptr, indices, plan, alpha, beta, with_c0, members,
         # Untouched when no block row is split.
         work = (torch.empty((members, plan.slots, bs, n), dtype=b_t.dtype,
                             device=b_t.device) if n_splits else None)
-        _build.launch(
-            "sdt_bsr_spmm_tc", dt, it, plan.items.data_ptr(),
-            plan.items.shape[0], plan.splits.data_ptr(), n_splits,
-            indices.data_ptr(), data, b, c0, c,
-            None if work is None else work.data_ptr(), plan.slots, bs, n,
-            *scalars, members, *strides, _build.stream_of(b_t),
-        )
+        head = (dt, it, plan.items.data_ptr(), plan.items.shape[0],
+                plan.splits.data_ptr(), n_splits, indices.data_ptr(), data,
+                b, c0, c, None if work is None else work.data_ptr(),
+                plan.slots, bs, n, *scalars, members)
+        if group == 1:
+            _build.launch("sdt_bsr_spmm_tc", *head, *strides,
+                          _build.stream_of(b_t))
+        else:
+            if strides[1]:
+                raise ValueError("bsr_spmm: a group of members needs b "
+                                 "shared")
+            _build.launch("sdt_bsr_spmm_tc_group", *head, strides[0],
+                          *strides[2:], group, _build.stream_of(b_t))
+            bsr_spmm.launches_group += 1
         bsr_spmm.launches_tc += 1
         bsr_spmm.launches_tc_complex += b_t.is_complex()
     else:
@@ -260,7 +292,9 @@ def spmm_batched(indptr, indices, data, b, alpha=None, beta=None, c0=None,
     tiles in a second kernel of the same call, each member in its own
     workspace slots), counted as ``spmm``'s and in
     ``bsr_spmm.launches_batched`` (and ``launches_batched_tc`` or
-    ``launches_batched_simt``).  The plain version on the CPU."""
+    ``launches_batched_simt``).  Where b is shared and the blocks are
+    not, real values on the tensor cores, ``spmm_group`` members a block.
+    The plain version on the CPU."""
     refuse_views("bsr_spmm", indptr, indices, data, b, c0)
     operands = ((data, 3), (b, 2), (c0, 2))
     size = batch_size("bsr_spmm", operands)
@@ -289,7 +323,8 @@ def spmm_batched(indptr, indices, data, b, alpha=None, beta=None, c0=None,
         _launch_k1(indptr, indices, plan, alpha, beta, c0 is not None,
                    count, strides, *(member_ptr(t, st, first) for t, st in
                                      zip((data, b, c0, c), strides)),
-                   data, b)
+                   data, b, spmm_group(data.dtype, bs, count,
+                                       strides[1] == 0, strides[0] != 0))
         bsr_spmm.launches_batched += 1
         if tc:
             bsr_spmm.launches_batched_tc += 1
@@ -307,6 +342,7 @@ bsr_spmm.launches_batched = 0
 bsr_spmm.launches_batched_tc = 0
 bsr_spmm.launches_batched_tc_complex = 0
 bsr_spmm.launches_batched_simt = 0
+bsr_spmm.launches_group = 0
 
 
 # ---------------------------------------------------------------------------

@@ -69,7 +69,10 @@ shared, in one launch, the member on the grid's y dimension; each has a
 plain version vectorised over the members.  K5's batch runs a group of
 ``fill_groups`` members a block in each bin where that fits
 (``csrc/csr_spgemm_group.cu``): the row's structural work done once for
-the group, each member's values M times.
+the group, each member's values M times.  K6's batch runs a group of
+``dense_group`` members a block (``csrc/csr_spgemm_dense_group.cu``):
+a warp walks its chunk of op(A)'s row once for the group, each member's
+values and partial row M times.
 """
 
 import functools
@@ -116,6 +119,15 @@ DENSE_WARPS = 8
 DENSE_ROW_BYTES = 7 * 1024
 DENSE_WARPS_PER_SM = 32
 DENSE_MIN_CHUNK = 64
+# K6's member groups (csrc/csr_spgemm_dense_group.cu) run on the single
+# plan: a window's cap leaves room for 4 members' partial rows a warp
+# within the 227 KB of shared memory an H100 block may ask for.
+assert DENSE_WARPS * DENSE_ROW_BYTES * 4 <= 227 * 1024
+# What the members of a batched K6 launch share (``dense_form``): op(B)'s
+# values (op(A)'s per member), nothing but op(A)'s pattern and op(B)'s
+# (op(B)'s values per member), or both operands' values (only C0 and C
+# per member, one sum for the group).
+B_SHARED, B_PER_MEMBER, ONE_SUM = "b_shared", "b_per_member", "one_sum"
 
 
 def _round16(nbytes):
@@ -900,7 +912,8 @@ def dense_plan(m, n, itemsize, a_nnz, sms=132):
     whole row when it fits), the windows of a row of equal width; rows
     are split in 2, 4 or 8 chunks while the items leave the card short of
     DENSE_WARPS_PER_SM warps an SM and each chunk keeps DENSE_MIN_CHUNK
-    entries of op(A) on average."""
+    entries of op(A) on average.  A group of members a block runs on the
+    same plan, so each member has its single launch's bits."""
     cap = max(32, DENSE_ROW_BYTES // itemsize // 32 * 32)
     windows = max(1, -(-n // cap))
     width = max(1, min(n, -(-n // windows // 32) * 32 if windows > 1 else n))
@@ -912,6 +925,50 @@ def dense_plan(m, n, itemsize, a_nnz, sms=132):
            and mean_row >= DENSE_MIN_CHUNK * 2 * splits):
         splits *= 2
     return DensePlan(splits, width, windows)
+
+
+def dense_form(s_a, s_b):
+    """What the members of a batched K6 launch share, from op(A)'s and
+    op(B)'s member strides (0: shared): B_PER_MEMBER, B_SHARED or
+    ONE_SUM."""
+    return B_PER_MEMBER if s_b else B_SHARED if s_a else ONE_SUM
+
+
+def dense_group_bytes(plan, members, itemsize, form=B_SHARED):
+    """The shared memory a block of K6's launch asks for: DENSE_WARPS
+    partial rows of ``plan.width`` columns, each column ``members`` values
+    side by side (one in the ONE_SUM form, and for one member a block)."""
+    sums = 1 if form == ONE_SUM else members
+    return DENSE_WARPS * plan.width * sums * itemsize
+
+
+# Members a block of K6's group instance where the card timed fewer
+# faster than 4 at case a (PERF.md), by (value type, index bytes, form):
+# (members, from this batch size on).  op(B)'s values per member: 2
+# (f32 kept 4); c64 with 32-bit ids, op(B)'s values shared: 2 past 8
+# members (3% faster at 16 sets; 4 ahead or level at 4 and 8).
+_K6_FEWER_MEMBERS = {
+    **{(dtype, index_bytes, B_PER_MEMBER): (2, 2)
+       for dtype in (torch.float64, torch.complex64, torch.complex128)
+       for index_bytes in (4, 8)},
+    (torch.complex64, 4, B_SHARED): (2, 9),
+}
+
+
+def dense_group(dtype, index_bytes, size, form):
+    """Members a block of a batched K6 launch of ``size`` members: 4,
+    fewer where ``_K6_FEWER_MEMBERS`` says so for the value type, index
+    bytes, form and batch size, 2 for a batch of 2, 1 (the per-member
+    instance) for a batch of 1; in the ONE_SUM form 4 for any batch of 2
+    or more (a group keeps one sum, whatever its members)."""
+    if size < 2:
+        return 1
+    if form == ONE_SUM:
+        return 4
+    fewer, from_size = _K6_FEWER_MEMBERS.get((dtype, index_bytes, form),
+                                             (4, 0))
+    most = fewer if size >= from_size else 4
+    return min(most, 2 if size == 2 else 4)
 
 
 def window_starts_pay(plan, m, n, k, a_nnz, itemsize, index_size):
@@ -1011,8 +1068,9 @@ def spgemm_dense_batched(a_indptr, a_indices, a_data, b_indptr, b_indices,
     the batch (``b_sorted`` as in ``csr_spgemm_dense``), its members'
     values gathered as ``b_data[..., order]``.  One launch on the card
     (one per ``_build.MAX_MEMBERS`` members) on the shared plan and
-    window-start table; counted in ``csr_spgemm_dense.launches`` and
-    ``launches_batched``.  The batched plain version on the CPU."""
+    window-start table, ``dense_group`` members a block (``dense_form``
+    says what they share); counted in ``csr_spgemm_dense.launches`` and ``launches_batched``
+    (and ``launches_group``).  The batched plain version on the CPU."""
     refuse_views("csr_spgemm_dense", a_indptr, a_indices, a_data, b_indptr,
                  b_indices, b_data, c0)
     operands = ((a_data, 1), (b_data, 1), (c0, 2))
@@ -1040,6 +1098,8 @@ def spgemm_dense_batched(a_indptr, a_indices, a_data, b_indptr, b_indices,
             f"{a_indices.numel()} and {b_indices.numel()} entries and "
             f"{(m, n)}")
     c = torch.empty((size, m, n), dtype=a_data.dtype, device=a_data.device)
+    form = dense_form(member_stride("csr_spgemm_dense", a_data, 1),
+                      member_stride("csr_spgemm_dense", b_data, 1))
     launch = _k6_launcher(a_indptr, a_indices, a_data, b_indptr, n, alpha,
                           beta, c0 is not None, triangular)
     if not b_sorted:
@@ -1053,18 +1113,22 @@ def spgemm_dense_batched(a_indptr, a_indices, a_data, b_indptr, b_indices,
         launch(b_indices, count, strides,
                *(member_ptr(t, st, first)
                  for t, st in zip((a_data, b_data, c0, c), strides)),
-               i > 0)
+               i > 0, dense_group(a_data.dtype, a_indices.element_size(),
+                                  count, form))
         csr_spgemm_dense.launches_batched += 1
     return c
 
 
 def _sorted_members(b_indptr, b_indices, b_data, n):
     """op(B)'s rows sorted, each once for every member of ``b_data`` ((B,
-    nnz) or (nnz,)): (indices, b_data[..., order]); raises where a row
-    repeats a column (``formats.sorted_unique_columns``)."""
+    nnz) or (nnz,)): (indices, b_data[..., order]), values expanded along
+    the members staying so; raises where a row repeats a column
+    (``formats.sorted_unique_columns``)."""
     indices, order = sorted_unique_columns(
         b_indptr, b_indices,
         torch.arange(b_indices.numel(), device=b_indices.device), n)
+    if b_data.dim() == 2 and b_data.shape[0] and b_data.stride(0) == 0:
+        return indices, b_data[0, order].expand_as(b_data)
     return indices, b_data[..., order]
 
 
@@ -1072,11 +1136,14 @@ def _k6_launcher(a_indptr, a_indices, a_data, b_indptr, n, alpha, beta,
                  with_c0, triangular):
     """K6's launch for op(A) and op(B)'s patterns, planned here
     (``dense_plan``, and the window-start table's scratch where
-    ``window_starts_pay``): ``launch(b_indices, members, strides, a, b,
-    c0, c, starts_ready)`` launches for ``members`` members at
-    ``strides`` (op(A)'s, op(B)'s values, c0, C) given the addresses;
-    ``starts_ready``: an earlier launch of the call built the table.
-    Counted in ``csr_spgemm_dense.launches``."""
+    ``window_starts_pay``): ``launch(b_indices, members, strides, a,
+    b, c0, c, starts_ready, group=1)`` launches for ``members`` members at
+    ``strides`` (op(A)'s, op(B)'s values, c0, C) given the addresses,
+    ``group`` of them a block (1: ``sdt_csr_spgemm_dense``, one member a
+    block; 2 or 4: ``sdt_csr_spgemm_dense_group``); ``starts_ready``: an
+    earlier launch of the call built the table.  Counted in
+    ``csr_spgemm_dense.launches``, the group launches also in
+    ``launches_group``."""
     m, k = a_indptr.numel() - 1, b_indptr.numel() - 1
     a_nnz, itemsize = a_indices.numel(), a_data.element_size()
     plan = starts = None
@@ -1091,16 +1158,20 @@ def _k6_launcher(a_indptr, a_indices, a_data, b_indptr, n, alpha, beta,
     dt, it = _build.type_codes(a_data, a_indptr)
     stream = _build.stream_of(a_data)
 
-    def launch(b_indices, members, strides, a, b, c0, c, starts_ready):
-        _build.launch(
-            "sdt_csr_spgemm_dense", dt, it, a_indptr.data_ptr(),
-            a_indices.data_ptr(), a, b_indptr.data_ptr(),
-            b_indices.data_ptr(), b, c0, c, m, n,
-            *_build.scalar_parts(alpha),
-            *_build.scalar_parts(beta if with_c0 else 0.0),
-            int(triangular), plan.splits, plan.width, k,
-            None if starts is None else starts.data_ptr(), int(starts_ready),
-            members, *strides, stream)
+    def launch(b_indices, members, strides, a, b, c0, c, starts_ready,
+               group=1):
+        args = (dt, it, a_indptr.data_ptr(), a_indices.data_ptr(), a,
+                b_indptr.data_ptr(), b_indices.data_ptr(), b, c0, c, m, n,
+                *_build.scalar_parts(alpha),
+                *_build.scalar_parts(beta if with_c0 else 0.0),
+                int(triangular), plan.splits, plan.width, k,
+                None if starts is None else starts.data_ptr(),
+                int(starts_ready), members, *strides)
+        if group == 1:
+            _build.launch("sdt_csr_spgemm_dense", *args, stream)
+        else:
+            _build.launch("sdt_csr_spgemm_dense_group", *args, group, stream)
+            csr_spgemm_dense.launches_group += 1
         csr_spgemm_dense.launches += 1
         csr_spgemm_dense.last_plan = plan
         csr_spgemm_dense.last_table = starts is not None
@@ -1110,5 +1181,6 @@ def _k6_launcher(a_indptr, a_indices, a_data, b_indptr, n, alpha, beta,
 
 csr_spgemm_dense.launches = 0
 csr_spgemm_dense.launches_batched = 0
+csr_spgemm_dense.launches_group = 0
 csr_spgemm_dense.last_plan = None
 csr_spgemm_dense.last_table = False

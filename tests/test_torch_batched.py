@@ -202,6 +202,44 @@ def test_vmap_over_values_b_shared_groups(dtype, size, c0, calls):
     assert csr.member_groups(size, 4)[-1][1] == (3 if size == 3 else 1)
 
 
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("size", [2, 3, 4, 5])
+@pytest.mark.parametrize("over", ["blocks", "blocks_and_c0", "b",
+                                  "blocks_and_b"])
+def test_vmap_bsr_groups(dtype, size, over, calls):
+    """``vmap`` of ``ops.bsr_spmm`` at bs 8 over 2-5 members: over the
+    blocks with b shared (on the card a group of ``bsr.spmm_group``
+    members a block, 3 and 5 ending in a part-full group), over the
+    blocks and c0 with alpha and beta (also a group), over b (folded into
+    the columns of one single call) and over both (one member a block):
+    equals ``jax.vmap`` of ``_xla.bsr_spmm``; one K1 call."""
+    rng = np.random.default_rng(70 + size)
+    data, rows, cols, m, k = blocks(rng, 8, dtype)
+    ds = values(rng, (size, *data.shape), dtype)
+    bs_ = values(rng, (size, k, N), dtype)
+    c0 = values(rng, (size, m, N), dtype)
+    d_in = ds if over != "b" else data
+    b_in = bs_ if over in ("b", "blocks_and_b") else bs_[0]
+    alpha, beta = (1.5, -0.5) if over == "blocks_and_c0" else (None, None)
+    dims = (0 if d_in.ndim == 4 else None, 0 if b_in.ndim == 3 else None,
+            0 if over == "blocks_and_c0" else None)
+    (tr, jr), (tc, jc) = both(rows, cols)
+    out = torch.func.vmap(lambda d, bb, c: bsr_spmm(
+        d, tr, tc, bb, m, alpha, beta, c if alpha else None),
+        in_dims=dims)(torch.tensor(d_in), torch.tensor(b_in),
+                      torch.tensor(c0))
+    ref = jax.vmap(lambda d, bb, c: _xla.bsr_spmm(
+        d, jr, jc, bb, m, alpha=alpha, beta=beta,
+        c0=c if alpha else None), in_axes=dims, axis_size=size)(
+        jnp.asarray(d_in), jnp.asarray(b_in), jnp.asarray(c0))
+    assert out.shape == (size, m, N)
+    close(out, ref, dtype)
+    assert calls == {"bsr.spmm" if over == "b" else "bsr.spmm_batched": 1}
+    grouped = over in ("blocks", "blocks_and_c0")
+    assert (bsr.spmm_group(torch.from_numpy(data).dtype, 8, size,
+                           b_in.ndim == 2, d_in.ndim == 4) > 1) == grouped
+
+
 @pytest.mark.parametrize("dtype", [np.float64, np.complex128])
 @pytest.mark.parametrize("over", ["values", "values_and_x"])
 def test_vmap_spmv(dtype, over, calls):

@@ -229,6 +229,57 @@ def test_vmap_dense(dtype, batched, calls):
     assert calls == {"spgemm.spgemm_dense_batched": 2}
 
 
+@pytest.mark.parametrize("size", [2, 3, 4, 5])
+@pytest.mark.parametrize("form", ["a", "b", "both", "c0"])
+def test_vmap_dense_groups(size, form, calls):
+    """``vmap`` of ``csr_spgemm_dense`` over 2-5 members in each form that
+    a group of K6 serves on the card (``spgemm.dense_form``: op(A)'s
+    values per member with op(B)'s shared, op(B)'s with op(A)'s shared,
+    both, or only c0 with alpha and beta; ``spgemm.dense_group`` members
+    a block, 3 and 5 ending in a part-full group), float64, ``triangular``
+    at odd sizes: equals ``jax.vmap`` of ``spgemm_numeric_sorted`` (alpha
+    times it plus beta * c0 in the c0 form) and the dense oracle; one
+    batched K6 call."""
+    rng = np.random.default_rng(60 + size)
+    a, b = operands(61)
+    a_ip, a_ix = pattern(a)
+    b_ip, b_ix = pattern(b)
+    tri = bool(size % 2)
+    av = values(rng, (size, a.nnz) if form in ("a", "both") else a.nnz,
+                np.float64)
+    bv = values(rng, (size, b.nnz) if form in ("b", "both") else b.nnz,
+                np.float64)
+    c0 = values(rng, (size, M, N), np.float64)
+    alpha, beta = (-1.5, 2.0) if form == "c0" else (None, None)
+    dims = (0 if av.ndim == 2 else None, 0 if bv.ndim == 2 else None,
+            0 if form == "c0" else None)
+    out = torch.func.vmap(
+        lambda x, y, c: spgemm.csr_spgemm_dense(
+            a_ip, a_ix, x, b_ip, b_ix, y, N, alpha, beta,
+            c if form == "c0" else None, tri),
+        in_dims=dims)(torch.tensor(av), torch.tensor(bv), torch.tensor(c0))
+    assert out.shape == (size, M, N)
+    prods = np.stack([dense(a, av if av.ndim == 1 else av[i])
+                      @ dense(b, bv if bv.ndim == 1 else bv[i])
+                      for i in range(size)])
+    if tri:
+        prods = np.triu(prods)
+    jx = jax.vmap(lambda x, y: _xla.spgemm_numeric_sorted(
+        flat(a), x, flat(b), y, M, K, N, triangular=tri),
+        in_axes=dims[:2], axis_size=size)(jnp.asarray(av), jnp.asarray(bv))
+    if form == "c0":
+        prods = alpha * prods + beta * c0
+        jx = alpha * jx + beta * jnp.asarray(c0)
+    close(out, prods)
+    close(out, jx)
+    assert calls == {"spgemm.spgemm_dense_batched": 1}
+    strides = (a.nnz if av.ndim == 2 else 0, b.nnz if bv.ndim == 2 else 0)
+    shape = spgemm.dense_form(*strides)
+    assert shape == {"a": spgemm.B_SHARED, "b": spgemm.B_PER_MEMBER,
+                     "both": spgemm.B_PER_MEMBER, "c0": spgemm.ONE_SUM}[form]
+    assert spgemm.dense_group(torch.float64, 4, size, shape) > 1
+
+
 @pytest.mark.parametrize("triangular", [False, True])
 @pytest.mark.parametrize("epilogue", [False, True])
 @pytest.mark.parametrize("shuffle", [False, True])

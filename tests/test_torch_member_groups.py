@@ -1,11 +1,14 @@
-"""The member groups of batched K2 and K5, on the host: which batches a
-block serves a group of members (``csr.spmm_group``, ``csr.batched_plan``,
-``spgemm.fill_groups``), how a batch falls into groups
-(``csr.member_groups``, a part-full last group), how K5's launch table
-splits by group size (``spgemm._by_group``), the shared memory a group's
-table asks for (``spgemm.group_bytes``, the kernels' ``region_bytes``)
-and that the cached plans are keyed by everything that changes the
-group.  The kernels themselves run on the card only (``chip_smoke.py``'s
+"""The member groups of batched K1, K2, K5 and K6, on the host: which
+batches a block serves a group of members (``csr.spmm_group``,
+``csr.batched_plan``, ``spgemm.fill_groups``, ``spgemm.dense_group``,
+``bsr.spmm_group``), what the members of
+a batched K6 launch share (``spgemm.dense_form``), how a batch falls into
+groups (``csr.member_groups``, a part-full last group), how K5's launch
+table splits by group size (``spgemm._by_group``), K6's plan under a
+group (``spgemm.dense_plan``, the single one), the shared memory a group
+asks for (``spgemm.group_bytes`` and ``dense_group_bytes``, the kernels'
+regions) and that the cached plans are keyed by everything that changes
+the group.  The kernels themselves run on the card only (``chip_smoke.py``'s
 ``check_groups`` holds each group instance against its plain version and
 each member against its single launch, bit for bit); the ``vmap`` parity
 of the batches they serve is in ``test_torch_batched.py`` and
@@ -16,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from sparse_dot_tpu_torch.ops import csr, spgemm
+from sparse_dot_tpu_torch.ops import bsr, csr, spgemm
 
 TYPES = [torch.float32, torch.float64, torch.complex64, torch.complex128]
 
@@ -230,3 +233,125 @@ def test_fill_groups_cache_keyed_by_what_changes_the_group():
     skipped[5, 0] = spgemm.SKIP
     assert spgemm.fill_groups(skipped, torch.float64, torch.int32,
                               4)[5] == 1
+
+
+# The most shared memory a block of an H100 may ask for (227 KB).
+BLOCK_SMEM = 232_448
+FORMS = [spgemm.B_SHARED, spgemm.B_PER_MEMBER, spgemm.ONE_SUM]
+
+
+@pytest.mark.parametrize("s_a, s_b, form", [
+    (7, 0, spgemm.B_SHARED), (7, 9, spgemm.B_PER_MEMBER),
+    (0, 9, spgemm.B_PER_MEMBER), (0, 0, spgemm.ONE_SUM)])
+def test_dense_form_from_strides(s_a, s_b, form):
+    """What a batched K6 launch's members share follows op(B)'s member
+    stride, then op(A)'s (0: shared): op(B)'s values per member take the
+    form that loads them at their stride, op(A)'s alone the one that
+    loads op(B)'s once, neither the one sum."""
+    assert spgemm.dense_form(s_a, s_b) == form
+
+
+@pytest.mark.parametrize("dtype", TYPES)
+@pytest.mark.parametrize("index_bytes", [4, 8])
+@pytest.mark.parametrize("form", FORMS)
+def test_dense_group_by_type_form_and_size(dtype, index_bytes, form):
+    """K6's group: 4 members a block, the table's fewer for its (type,
+    index bytes, form), 2 for a batch of 2, 1 (the per-member instance)
+    for a batch of 1; in the ONE_SUM form 4 for any batch past 1 (one sum
+    a group, whatever its members)."""
+    fewer, from_size = spgemm._K6_FEWER_MEMBERS.get(
+        (dtype, index_bytes, form), (4, 0))
+    if form == spgemm.ONE_SUM:
+        fewer = 4
+    assert spgemm.dense_group(dtype, index_bytes, 1, form) == 1
+    assert spgemm.dense_group(dtype, index_bytes, 2, form) == (
+        4 if form == spgemm.ONE_SUM else 2)
+    for size in (3, 4, 5, 8, 9, 16, 70_000):
+        want = fewer if size >= from_size else 4
+        assert spgemm.dense_group(dtype, index_bytes, size, form) == want
+    assert fewer in (1, 2, 4)
+
+
+def test_dense_group_known_choices():
+    """The measured choices (PERF.md): f32 and f64 4 in every form but
+    f64's op(B) per member; c64 with 32-bit ids 4 up to 8 members of op(A)
+    and 2 past them; op(B)'s values per member 2 in f64 and the complex
+    types."""
+    f32, f64, c64 = torch.float32, torch.float64, torch.complex64
+    group = spgemm.dense_group
+    assert group(f32, 4, 16, spgemm.B_SHARED) == 4
+    assert group(f32, 8, 4, spgemm.B_PER_MEMBER) == 4
+    assert [group(f64, 4, s, spgemm.B_SHARED) for s in (4, 8, 9, 16)] == [
+        4, 4, 4, 4]
+    assert [group(c64, 4, s, spgemm.B_SHARED) for s in (4, 8, 9, 16)] == [
+        4, 4, 2, 2]
+    assert group(f64, 8, 16, spgemm.B_SHARED) == 4
+    assert group(f64, 4, 4, spgemm.B_PER_MEMBER) == 2
+    assert group(torch.complex128, 8, 5, spgemm.B_PER_MEMBER) == 2
+
+
+@pytest.mark.parametrize("dtype", TYPES)
+@pytest.mark.parametrize("members", [1, 2, 4])
+@pytest.mark.parametrize("m, n, a_nnz", [
+    (500, 500, 530_000), (500, 1, 5000), (40, 300, 24_000),
+    (60, 1000, 1200), (12, 1000, 60), (5000, 16_384, 50_000),
+    (3, 100_000, 3000)])
+def test_dense_plan_under_members(dtype, members, m, n, a_nnz):
+    """A group runs on ``dense_plan``'s single plan (so each member has its
+    single launch's bits): its windows cover the row with equal widths,
+    and a block of ``members`` members' partial rows stays within what an
+    H100 block may ask for, in every form."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    plan = spgemm.dense_plan(m, n, itemsize, a_nnz)
+    assert (plan.windows - 1) * plan.width < n <= plan.windows * plan.width
+    assert plan.width * itemsize <= max(spgemm.DENSE_ROW_BYTES,
+                                        32 * itemsize)
+    for form in FORMS:
+        assert spgemm.dense_group_bytes(plan, members, itemsize,
+                                        form) <= BLOCK_SMEM
+
+
+@pytest.mark.parametrize("dtype", TYPES)
+def test_dense_row_cap_fits_four_members(dtype):
+    """The window cap leaves room for 4 members' partial rows a warp: the
+    widest window of a type at 4 members a block fits a block's shared
+    memory, and the demo's 500 columns stay one window."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    wide = spgemm.dense_plan(1, 1_000_000, itemsize, 1)
+    assert wide.windows > 1
+    assert spgemm.dense_group_bytes(wide, 4, itemsize) <= BLOCK_SMEM
+    assert spgemm.DENSE_WARPS * spgemm.DENSE_ROW_BYTES * 4 <= BLOCK_SMEM
+    assert spgemm.dense_plan(500, 500, itemsize, 530_000).windows == (
+        1 if itemsize <= 8 else 2)
+
+
+def test_dense_group_bytes_is_the_kernels_region():
+    """``dense_group_bytes``: DENSE_WARPS partial rows of the plan's width,
+    each column the members' sums side by side (csrc/
+    csr_spgemm_dense_group.cu, kWarps * width * sizeof(Sums<T, R>)), one
+    sum in the ONE_SUM form; the demo's f64 row at 4 members is 128 KB."""
+    plan = spgemm.DensePlan(8, 500, 1)
+    assert spgemm.dense_group_bytes(plan, 4, 8) == 8 * 500 * 4 * 8 == 128_000
+    assert spgemm.dense_group_bytes(plan, 2, 16,
+                                    spgemm.B_PER_MEMBER) == 8 * 500 * 32
+    assert spgemm.dense_group_bytes(plan, 4, 8, spgemm.ONE_SUM) == 32_000
+    assert spgemm.dense_group_bytes(plan, 1, 4) == 16_000
+
+
+@pytest.mark.parametrize("dtype", TYPES)
+@pytest.mark.parametrize("bs", [3, 8, 16, 20, 64, 128])
+@pytest.mark.parametrize("size", [1, 2, 3, 5, 16])
+def test_k1_group_by_type_block_and_size(dtype, bs, size):
+    """K1's group: ``_K1_GROUP``'s members (f32 4, f64 2) where b is
+    shared and the blocks are per member, real values on the tensor cores
+    (bs a multiple of 8), 2 for a batch of 2; 1, the per-member instance,
+    for a batch of 1, complex values (their row was redesigned apart),
+    blocks on the CUDA cores, b per member or the blocks shared."""
+    got = bsr.spmm_group(dtype, bs, size)
+    if size == 1 or dtype.is_complex or bs % 8:
+        assert got == 1
+    else:
+        most = {torch.float32: 4, torch.float64: 2}[dtype]
+        assert got == min(most, 2 if size == 2 else 4)
+    assert bsr.spmm_group(dtype, bs, size, shared_b=False) == 1
+    assert bsr.spmm_group(dtype, bs, size, per_member_blocks=False) == 1
