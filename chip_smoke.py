@@ -39,9 +39,10 @@ Phases, each printing one JSON line:
    the work item's columns) (K4 + K5's second run with the plan built in
    K4's launch, equal to ``spgemm_plan``'s), in shapes that put rows in
    every accumulator bin (the register bins of 4, 8, 16 and 32 lanes,
-   hash tables of a warp and of a block, a dense row in shared memory,
-   and in the device workspace) and K6 on every kind of launch plan (a row
-   split across warps or a warp's own, whole or cut into column windows):
+   the sorted-product bins of a warp, hash tables of a block, a dense row
+   in shared memory, and in the device workspace) and K6 on every kind of
+   launch plan (a row split across warps or a warp's own, whole or cut
+   into column windows):
    narrow n, runs of one column, exactly cancelled sums, op(A) rows longer
    than a group over empty op(B) rows, rows of 2000 entries, 6000 short
    rows, and n on either side of 2^27, where the register bins' sort keys
@@ -114,9 +115,9 @@ Phases, each printing one JSON line:
    3x the chunk (split), each call's group launches counted
    (``csr_spmm.launches_group``) and each member against its single
    launch, bit for bit where the two take one lane mapping; K5 in the
-   same types and batches over the register bins, hash tables of a warp
-   and of a block, a dense row in shared memory and dense rows in the
-   device workspace (one member a block), with and without
+   same types and batches over the register bins, the sorted-product
+   bins, hash tables of a block, a dense row in shared memory and dense
+   rows in the device workspace (one member a block), with and without
    ``triangular``, op(A)'s, op(B)'s or both values per member, each
    member's values bit for bit its single fill's; K6 at 2 and 4 members
    a block (``check_k6_groups``) in every value type and both index
@@ -240,8 +241,8 @@ Phases, each printing one JSON line:
    ones also beside the CUDA-core variant's batched launch); K6 at the
    demo X @ X.T over 4 and 16 value sets, K9 there in both forms over 4
    G's, K11 at cases a and c in both forms over 4 G's (patterns given as
-   ``CsrSpgemmSparseSddmm`` gives them) and K5 at case c and at a
-   product of hash-bin rows (100,000^2, Poisson(10) a row, A @ A) over 4
+   ``CsrSpgemmSparseSddmm`` gives them) and K5 at case c and at case h
+   (100,000^2, Poisson(10) a row, A @ A: sorted-product rows) over 4
    value sets on one plan, a group of members a block in each bin,
    beside the per-member instance and 4 x ``torch.sparse.mm(A_csr,
    B_csr)`` (``k5_batched_row``; ``batched_spgemm_rows``, each with
@@ -2471,6 +2472,8 @@ def check_grouped_sampled(record):
 # 5 leave a last group part full; 5 at odd member strides), and value and
 # index types.
 GROUP_SIZES = (1, 3, 4, 5, 16)
+# K5's batches: (members, most members a block or None for the wrapper's).
+K5_GROUP_RUNS = tuple((size, None) for size in GROUP_SIZES) + ((5, 2),)
 GROUP_TYPES = ((torch.float32, np.int32), (torch.float32, np.int64),
                (torch.float64, np.int32), (torch.float64, np.int64),
                (torch.complex128, np.int32), (torch.complex128, np.int64))
@@ -2576,14 +2579,16 @@ def check_k2_groups(record):
 def check_k5_groups(record):
     """Batched K5 with a group of ``spgemm.fill_groups`` members a block
     in each bin: every type of GROUP_TYPES, SPGEMM_BATCH_CASES' first
-    three (hash tables of a warp and of a block with the dense rows in
-    the device workspace, a dense row in shared memory, the register
-    bins), with and without ``triangular``, batches of GROUP_SIZES with
-    op(A)'s, op(B)'s or both values per member (and odd member strides
-    at 5); each call twice for the same bits, against the batched plain
-    version, its indices equal to the product's, and each member's values
-    equal, bit for bit, to its single fill's.  Returns the (bin kind,
-    members a block) seen."""
+    three (the sorted-product bins and hash tables of a block with the
+    dense rows in the device workspace, a dense row in shared memory, the
+    register bins), with and without ``triangular``, batches of
+    K5_GROUP_RUNS (GROUP_SIZES at the wrapper's groups, and 5 members at
+    most 2 a block: groups of 2, 2 and a part-full 1) with op(A)'s,
+    op(B)'s or both values per member (and odd member strides at 5); each
+    call twice for the same bits, against the batched plain version, its
+    indices equal to the product's, and each member's values equal, bit
+    for bit, to its single fill's.  Returns the (bin kind, members a
+    block) seen."""
     from sparse_dot_tpu_torch.ops import spgemm
 
     rng = np.random.default_rng(SEED + 41)
@@ -2603,7 +2608,7 @@ def check_k5_groups(record):
                 c_ip, c_ix, _ = spgemm.product(a_ip, a_ix, a_dv, b_ip, b_ix,
                                                b_dv, n, tri)
                 nnz = c_ix.numel()
-                for j, size in enumerate(GROUP_SIZES):
+                for j, (size, most) in enumerate(K5_GROUP_RUNS):
                     combo = PAIR_COMBOS[j % 3]
                     av, bv = (cuda(values(rng, (size, *shape), npdt))
                               if batched else cuda(values(rng, shape, npdt))
@@ -2612,14 +2617,19 @@ def check_k5_groups(record):
                         av, bv = (odd_members(x) if x.dim() == 2 else x
                                   for x in (av, bv))
                     groups = spgemm.fill_groups(plan.bins, tdt, a_ip.dtype,
-                                                size)
+                                                size, most)
                     live = [(int(kind), int(g)) for kind, g, rows in zip(
                         plan.bins[:, 0], groups, sizes) if rows]
+                    launcher = spgemm._fill_launcher(
+                        a_ip, a_ix, av, b_ip, b_ix, bv, n, plan, c_ip, tri,
+                        size)
                     before = spgemm.csr_spgemm_fill.launches_group
                     idx, out = spgemm_batched_call(
                         spgemm.csr_spgemm_fill, int(nnz > 0), "K5",
-                        spgemm.fill_batched, a_ip, a_ix, av, b_ip, b_ix,
-                        bv, n, plan, c_ip, nnz, tri)
+                        (lambda: spgemm.fill_batched(
+                            a_ip, a_ix, av, b_ip, b_ix, bv, n, plan, c_ip,
+                            nnz, tri)) if most is None else
+                        (lambda: launcher(nnz, sizes, most)))
                     grouped = spgemm.csr_spgemm_fill.launches_group - before
                     want = 2 * (nnz > 0 and max(g for _, g in live) > 1)
                     if grouped != want:
@@ -2645,9 +2655,11 @@ def check_k5_groups(record):
                         bits += 1
                     seen.update(live)
     kinds = {kind for kind, g in seen if g > 1}
-    want = {spgemm.HASH_WARP, spgemm.HASH_BLOCK, spgemm.DENSE_SHARED}
+    want = {spgemm.SORTED_WARP, spgemm.HASH_BLOCK, spgemm.DENSE_SHARED}
     if (not want <= kinds or not kinds & set(spgemm.TINY_KINDS.values())
-            or (spgemm.DENSE_GLOBAL, 1) not in seen):
+            or (spgemm.DENSE_GLOBAL, 1) not in seen
+            or not {(spgemm.SORTED_WARP, 2), (spgemm.SORTED_WARP, 4)}
+            <= seen):
         raise AssertionError(f"K5 groups ran only {sorted(seen)}")
     return {"bins_and_members": sorted(map(list, seen)),
             "bit_checked_members": bits}
@@ -3061,32 +3073,46 @@ def check_gradcheck():
     return {name: count for name, count in launched.items() if count}
 
 
+# The names of K4's and K5's row kernels in a profiler trace.
+K45_KERNELS = ("spgemm_tiny_kernel", "spgemm_sorted_kernel",
+               "spgemm_rows_kernel")
 # K4/K5/K6 cases: (m rows of op(A), k, n, entries of the rows of op(A) in
-# turn, entries of the rows of op(B) in turn, small integer values).  In
-# the first four, rows of op(A) take 0, 1, 3, 10, 40, 150 and 600 entries,
-# so with 20 per row of op(B) their products are 0, 20, 60, 200, 800, 3000
-# and 12000: at n = 100,000 that puts rows in the register bin of 32
-# lanes, every hash bin and, past the largest table, the device
-# workspace; at n = 5000 in the register bin, the warp hash bin and the
-# dense row in shared memory; at n = 300 in the register bin and the
-# dense row.  The next three put rows of 1..32 products in every register
-# bin (ops/spgemm.py, spgemm_bins) at n = 1, 8 and 16: long runs of one
-# column, rows with more products than n, and (n = 1) values in
+# turn, entries of the rows of op(B) in turn, small integer values, the
+# lowest column of op(B)).  In the first four, rows of op(A) take 0, 1,
+# 3, 10, 40, 150 and 600 entries, so with 20 per row of op(B) their
+# products are 0, 20, 60, 200, 800, 3000 and 12000: at n = 100,000 that
+# puts rows in the register bin of 32 lanes, both sorted-product bins,
+# both hash bins of a block and, past the largest table, the device
+# workspace; at n = 5000 in the register bin, the sorted-product bin of
+# 128 and the dense row in shared memory; at n = 300 in the register bin
+# and the dense row.  The next three put rows of 1..32 products in every
+# register bin (ops/spgemm.py, spgemm_bins) at n = 1, 8 and 16: long runs
+# of one column, rows with more products than n, and (n = 1) values in
 # {-1, 0, 1, 2}, whose sums are exact and often cancel to a stored 0.  The
 # eighth has op(A) rows of up to 100 entries, longer than any group, over
-# mostly empty op(B) rows, so the groups walk them in chunks.  The last two
-# hold op(B)'s columns in the top 64 below n = 2^27 and 2^27 - 1 (the
-# seventh field: the lowest column of op(B)), with rows of 1..32 products:
-# the register bins sort 64-bit keys at the first n and 32-bit keys, whose
-# column bits are then full, at the second (csrc/csr_spgemm.cu,
-# kNarrowKeyColumns).  The last three give K6 (ops/spgemm.py, dense_plan)
-# rows split across warps (one row of 2000 entries; three of 1200-2000
-# over n = 5000, so in windows too) and 6000 short rows, a warp each.  K6
-# runs where its dense output holds at most K6_MAX_ENTRIES, over op(B)
-# with its rows sorted and shuffled (which the wrapper sorts first where
-# the plan searches them).
+# mostly empty op(B) rows, so the groups walk them in chunks.  The next
+# two hold op(B)'s columns in the top 64 below n = 2^27 and 2^27 - 1, with
+# rows of 1..32 products: the register bins sort 64-bit keys at the first
+# n and 32-bit keys, whose column bits are then full, at the second
+# (csrc/csr_spgemm.cuh, kNarrowKeyColumns).  The next nine give the
+# sorted-product bins rows of exactly 33, 128, 129 and 512 products (op(B)
+# rows of 1, 3 and 4 entries; 512 op(A) entries walked 32 at a time) at n
+# = 100,000 and with op(B)'s columns in the top 4096 below n = 2^23 and
+# 2^23 - 1, where their keys are of 64 bits and of 32 bits with the
+# column bits full (kSortedNarrowColumns); then rows of 40-600 products
+# over op(B) rows that share 16 columns, so that one column's run spans
+# several registers of 32 sorted keys (small integer values).  The last
+# three give K6 (ops/spgemm.py, dense_plan) rows split across warps (one
+# row of 2000 entries; three of 1200-2000 over n = 5000, so in windows
+# too) and 6000 short rows, a warp each.  K6 runs where its dense output
+# holds at most K6_MAX_ENTRIES, over op(B) with its rows sorted and
+# shuffled (which the wrapper sorts first where the plan searches them).
 SPGEMM_A_ROWS = (0, 1, 3, 10, 40, 150, 600)
 WIDE_KEY_N = 1 << 27
+SORTED_KEY_N = 1 << 23
+# The bins a case whose n is at a key width's edge keeps its rows in.
+KEY_EDGE_BINS = {WIDE_KEY_N: "register", WIDE_KEY_N - 1: "register",
+                 SORTED_KEY_N: "sorted", SORTED_KEY_N - 1: "sorted"}
 K6_MAX_ENTRIES = 1 << 24
 SPGEMM_CASES = (
     (42, 2000, 100_000, SPGEMM_A_ROWS, (20,), False, 0),
@@ -3103,6 +3129,12 @@ SPGEMM_CASES = (
      WIDE_KEY_N - 64),
     (48, 300, WIDE_KEY_N - 1, (1, 2, 3, 5, 8, 0), (0, 1, 2, 4), False,
      WIDE_KEY_N - 65),
+    *((8, 600, n, a_rows, b_rows, False, low)
+      for n, low in ((100_000, 0), (SORTED_KEY_N, SORTED_KEY_N - 4096),
+                     (SORTED_KEY_N - 1, SORTED_KEY_N - 4097))
+      for a_rows, b_rows in (((33, 128, 129, 512), (1,)),
+                             ((11, 43), (3,)), ((32, 128), (4,)))),
+    (8, 600, 100_000, (10, 40, 100, 120), (4, 3, 5), True, 100_000 - 16),
     (1, 3000, 300, (2000,), (20,), False, 0),
     (3, 3000, 5000, (1200, 2000, 1500), (20,), False, 0),
     (6000, 400, 48, (2, 3, 5, 0), (3, 6), False, 0),
@@ -3185,7 +3217,7 @@ def check_bins_seen(bins_seen):
     """Every kind of K4/K5 row bin held rows in some phase-2 case."""
     from sparse_dot_tpu_torch.ops import spgemm
 
-    wanted = {*spgemm.TINY_KINDS.values(), spgemm.HASH_WARP,
+    wanted = {*spgemm.TINY_KINDS.values(), spgemm.SORTED_WARP,
               spgemm.HASH_BLOCK, spgemm.DENSE_SHARED, spgemm.DENSE_GLOBAL}
     if bins_seen != wanted:
         raise AssertionError(f"K4/K5 bins exercised {bins_seen}, want "
@@ -3234,8 +3266,10 @@ def check_spgemm(rng, tdt, npdt, itype, record, bins_seen, k6_seen):
         sizes = p.offsets.diff().cpu().numpy()
         held = {int(kind) for kind, size in zip(p.bins[:, 0], sizes)
                 if size and kind != spgemm.SKIP}
-        if b_low and not held <= set(spgemm.TINY_KINDS.values()):
-            raise AssertionError(f"K4/K5 n={n}: rows past the register bins")
+        edge = KEY_EDGE_BINS.get(n)
+        if edge and not held <= ({spgemm.SORTED_WARP} if edge == "sorted"
+                                 else set(spgemm.TINY_KINDS.values())):
+            raise AssertionError(f"K4/K5 n={n}: rows past the {edge} bins")
         bins_seen.update(held)
         for tri in (False, True):
             args = (a_ip, a_ix, a_dv, b_ip, b_ix, b_dv, n, tri)
@@ -5291,26 +5325,66 @@ def product_steps(args, reps=REPS):
             "reps": reps}
 
 
+def poisson_square(side, mean_row, seed=SEED + 42):
+    """side x side CSR, f64, with Poisson(``mean_row``) entries a row at
+    random columns, repeats summed (``random_csr``'s recipe): its A @ A
+    holds about mean_row^2 products a row."""
+    indptr, indices, data = random_csr(np.random.default_rng(seed), side,
+                                       side, mean_row, np.float64)
+    a = sps.csr_matrix((data, indices, indptr), shape=(side, side))
+    a.sum_duplicates()
+    return a
+
+
+def spgemm_cases(inp):
+    """K4's and K5's phase-4 cases: {case: (shape, A, B, reps)}.  a: the
+    demo X @ X.T (dense rows); c: the 1M^2 A @ A (register bins); d:
+    config 3's BSR x BSR (dense rows); h: 100,000^2, Poisson(10) a row,
+    A @ A (about 100 products a row: the sorted-product bins); hb:
+    50,000^2, Poisson(30) a row, A @ A (about 900 a row: the hash
+    tables of a block)."""
+    x = inp["x"]
+    h = poisson_square(100_000, 10)
+    hb = poisson_square(50_000, 30, SEED + 43)
+    return {
+        "a": ("demo X @ X.T, X 500x5000 CSR 21.2% f64", x, x.T, REPS),
+        "c": ("1M x 1M CSR, 2M random nnz, A @ A, f64", inp["a1m"],
+              inp["a1m"], REPS),
+        "d": ("config3 BSR bs=64 8192^2 5% blocks f64, A @ B", inp["bsr_a"],
+              inp["bsr_b"], REPS_CONFIG3),
+        "h": ("100k x 100k CSR, Poisson(10) a row, A @ A, f64", h, h, REPS),
+        "hb": ("50k x 50k CSR, Poisson(30) a row, A @ A, f64", hb, hb,
+               REPS_CONFIG3),
+    }
+
+
+def bin_rows(plan, sizes):
+    """{"kind:slots": rows} of a K4/K5 plan's bins that hold rows."""
+    return {f"{int(kind)}:{int(slots)}": int(r)
+            for (kind, slots, _), r in zip(plan.bins, sizes) if r}
+
+
+def bin_groups(plan, sizes, groups):
+    """{"kind:slots": [rows, members a block]} of the bins that hold rows
+    in a batched K5 launch of ``groups`` (``spgemm.fill_groups``)."""
+    return {f"{int(kind)}:{int(slots)}": [int(r), int(g)]
+            for (kind, slots, _), r, g in zip(plan.bins, sizes, groups) if r}
+
+
 def spgemm_timings(inp):
     """K4 (count), K5 (fill) and K4 + K5 as one product (plan, count,
     running sum, the nnz read, fill) against their plain versions, at
-    cases a, c and d, products/s beside each; K6 as ``k6_timings`` times
-    it; then the wall time of ``dot_product(X, X.T)`` host in to host out,
-    next to scipy's."""
+    ``spgemm_cases``' cases a, c, d, h and hb, products/s and the rows
+    of each bin beside each; K6 as ``k6_timings`` times it; then the wall
+    time of ``dot_product(X, X.T)`` host in to host out, next to
+    scipy's."""
     import sparse_dot_tpu_torch as sdt
     from sparse_dot_tpu_torch import formats
     from sparse_dot_tpu_torch.ops import spgemm
 
     rows, steps = [], {}
     x = inp["x"]
-    shapes = {
-        "a": ("demo X @ X.T, X 500x5000 CSR 21.2% f64", x, x.T, REPS),
-        "c": ("1M x 1M CSR, 2M random nnz, A @ A, f64", inp["a1m"],
-              inp["a1m"], REPS),
-        "d": ("config3 BSR bs=64 8192^2 5% blocks f64, A @ B", inp["bsr_a"],
-              inp["bsr_b"], REPS_CONFIG3),
-    }
-    for case, (shape, a, b, reps) in shapes.items():
+    for case, (shape, a, b, reps) in spgemm_cases(inp).items():
         A, B = formats.to_device(a), formats.to_device(b)
         args = (*A.csr_arrays(), *B.csr_arrays(), b.shape[1])
         ip, ix, dv, bip, bix, bdv, n = args
@@ -5380,7 +5454,8 @@ def spgemm_timings(inp):
                        (None, "none: no single PyTorch call computes this"))
             row = timed_row(kernel, shape, kernel_fn, plain_fn,
                             bounds[kernel], library, reps, case=case,
-                            products=products, nnz=nnz)
+                            products=products, nnz=nnz,
+                            bins=bin_rows(plan, sizes))
             row.update(gproducts_per_s=products / row["ms"] / 1e6,
                        plain_gproducts_per_s=products / row["plain_ms"] / 1e6)
             rows.append(row)
@@ -6400,31 +6475,27 @@ def k5_batched_row(shape, a_np, b_np, a, b, c, rng, case, size=4):
         yardstick_note=f"beside's yardstick: {size} x torch.sparse.mm("
                        "A_csr, B_csr) (cuSPARSE SpGEMM, which counts the "
                        "pattern too), one a member",
-        device_match=("spgemm_tiny_kernel", "spgemm_rows_kernel"),
+        device_match=K45_KERNELS,
         members=size, case=case,
-        bins={str(int(kind)): [int(r), int(g)] for kind, r, g in zip(
-            plan.bins[:, 0], sizes, groups) if r})
+        bins=bin_groups(plan, sizes, groups))
     return row
 
 
-def k5_hash_row(rng, side=100_000, mean_row=10):
-    """``k5_batched_row`` at a product whose rows fill K5's hash tables
-    of a warp (``side``^2, Poisson(``mean_row``) entries a row, A @ A,
-    f64: about mean_row^2 products a row)."""
+def k5_case_h_row(rng, side=100_000, mean_row=10):
+    """``k5_batched_row`` at case h, whose rows fill K5's sorted-product
+    bins (``side``^2, Poisson(``mean_row``) entries a row, A @ A, f64:
+    about mean_row^2 products a row)."""
     from sparse_dot_tpu_torch import formats
     from sparse_dot_tpu_torch.ops import spgemm
 
-    indptr, indices, data = random_csr(np.random.default_rng(SEED + 42),
-                                       side, side, mean_row, np.float64)
-    a_np = sps.csr_matrix((data, indices, indptr), shape=(side, side))
-    a_np.sum_duplicates()
+    a_np = poisson_square(side, mean_row)
     A = formats.to_device(a_np)
     a = A.csr_arrays()
     c = spgemm.csr_spgemm(*a, *a, side)[:2]
     row = k5_batched_row(f"{side // 1000}k x {side // 1000}k CSR, "
                          f"Poisson({mean_row}) a row, A @ A, f64, sparse "
-                         "output (hash bins)", a_np, a_np, a, a, c, rng,
-                         "hash")
+                         "output (sorted-product bins)", a_np, a_np, a, a,
+                         c, rng, "h")
     del A, a, c
     torch.cuda.empty_cache()
     return row
@@ -6442,10 +6513,11 @@ def batched_spgemm_rows(inp, groups_only=False):
     (cuSPARSE SpGEMM, which also counts the pattern) as its yardstick.
     Each with its bound (``k6_batched_bound``, ``k9_batched_bound``,
     ``k11_batched_bound``; K5: the index arrays and C's structure once,
-    each member's values and output); K5 also at a product of hash-bin
-    rows (``k5_hash_row``).  K6 also over 4 value sets of op(B), op(A)
-    shared; K6 and K5 beside their per-member instances too.  With
-    ``groups_only`` the K6 and K5 rows alone (the member groups')."""
+    each member's values and output); K5 also at case h, whose rows
+    fill the sorted-product bins (``k5_case_h_row``).  K6 also over 4
+    value sets of op(B), op(A) shared; K6 and K5 beside their per-member
+    instances too.  With ``groups_only`` the K6 and K5 rows alone (the
+    member groups')."""
     from sparse_dot_tpu_torch import formats
     from sparse_dot_tpu_torch.ops import autograd, spgemm, spgemm_grad
 
@@ -6492,7 +6564,7 @@ def batched_spgemm_rows(inp, groups_only=False):
         rows.append(k5_batched_row(shape_c, inp["a1m"], inp["a1m"], a, a, c,
                                    rng, "c"))
         del A, a, c
-        return over_single_launches(rows + [k5_hash_row(rng)])
+        return over_single_launches(rows + [k5_case_h_row(rng)])
     g = cuda(values(rng, (4, n, n), np.float64))
     t, order = formats.CsrPattern(ip, ix, x.shape[1]).transpose()
     for transposed in (False, True):
@@ -6559,7 +6631,7 @@ def batched_spgemm_rows(inp, groups_only=False):
             rows.append(k5_batched_row(shape, a_np, b_np, a, b, c, rng, "c"))
         del A, B, a, b, c, g
         torch.cuda.empty_cache()
-    rows.append(k5_hash_row(rng))
+    rows.append(k5_case_h_row(rng))
     return over_single_launches(rows)
 
 

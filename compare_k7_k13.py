@@ -16,6 +16,8 @@ Run from the root of a checkout, on a machine with the card:
     python3 compare_k7_k13.py plain_cpu [--root DIR]   # no card needed
     python3 compare_k7_k13.py k2k5 [--root DIR]        # batched K2/K5 groups
     python3 compare_k7_k13.py k5 [--root DIR]          # K5's half alone
+    python3 compare_k7_k13.py k4k5 [--root DIR]        # K4, K5, K4 + K5
+    python3 compare_k7_k13.py sorted                   # sorted-bin variants
     python3 compare_k7_k13.py k6k1 [--root DIR]        # batched K6/K1 groups
     python3 compare_k7_k13.py k6_banks                 # no card needed
 
@@ -58,7 +60,17 @@ block beside the wrappers' choice and the single launches, K2 at config
 1 in each value type and index width and at the 1M^2 SpMV matrix, K5 at
 case c and at a product of hash-bin rows (``k2_group_sweep``,
 ``k5_group_sweep``; ``k5`` the K5 half alone), with ``--root DIR`` the
-package at DIR's wrappers too, in the same turns.  ``k6k1`` times
+package at DIR's wrappers too, in the same turns.  ``k4k5`` times K4,
+K4 with its plan, K5 and K4 + K5 as one product beside
+``torch.sparse.mm`` at phase 4's sparse-output cases (a, c, d, h, hb),
+and batched K5 over 4 value sets at cases c and h beside 4 x
+``torch.sparse.mm``, with ``--root DIR`` the package at DIR's wrappers
+too, in the same turns (``k4k5_turns``).  ``sorted`` times K4, K5 and
+batched K5 at case h and at a 100,000^2 Poisson(16) A @ A beside two
+variants of the sorted-product bins built from copies of the package
+under ``build/`` (keys sorted in shared memory; every row sorting its
+bin's U keys; the bin of 512 alone sorting its 512 keys) in the same
+turns (``sorted_variants``).  ``k6k1`` times
 batched K6 at case a (op(A)'s values per member in every value type and
 index width at 4, 8 and 16 sets, op(B)'s over 4, c0's over 4) and
 batched K1 at config 3 (f64 and f32, 4 block sets, b shared) at 1, 2
@@ -1066,26 +1078,22 @@ def k2_group_sweep(packages, inputs, rng):
 def k5_group_sweep(packages, inputs, rng, size=4):
     """Batched K5 over ``size`` value sets of op(A), op(B) shared, one
     plan: at case c (the 1M^2 A @ A: register bins) in f64, f32 and c128
-    and f64 with int64 indices, and at ``chip_smoke.k5_hash_row``'s
-    product (hash bins of a warp) in f64: each bin at up to 1 (the
-    per-member instance), 2 and 4 members a block (``_fill_launcher``'s
-    ``most``), the wrapper's call, the same members' single fills and
-    each other package's wrapper call, in the same turns, each against
-    the batched plain version."""
+    and f64 with int64 indices, and at ``chip_smoke.k5_case_h_row``'s
+    product (case h: the sorted-product bins) in f64: each bin at up to
+    1 (the per-member instance), 2 and 4 members a block
+    (``_fill_launcher``'s ``most``), the wrapper's call, the same
+    members' single fills and each other package's wrapper call, in the
+    same turns, each against the batched plain version."""
     from sparse_dot_tpu_torch import formats
     from sparse_dot_tpu_torch.ops import spgemm
 
     others = other_packages(packages)
     side = 100_000
-    indptr, indices, data = chip_smoke.random_csr(
-        np.random.default_rng(SEED + 42), side, side, 10, np.float64)
-    hash_np = chip_smoke.sps.csr_matrix((data, indices, indptr),
-                                        shape=(side, side))
-    hash_np.sum_duplicates()
     cases = [("c", inputs["a1m"], tdt, itype) for tdt, itype in (
         (torch.float64, torch.int32), (torch.float32, torch.int32),
         (torch.complex128, torch.int32), (torch.float64, torch.int64))]
-    cases += [("hash", hash_np, torch.float64, torch.int32)]
+    cases += [("h", chip_smoke.poisson_square(side, 10), torch.float64,
+               torch.int32)]
     result = {}
     for name, a_np, tdt, itype in cases:
         npdt = chip_smoke.NP_DTYPES[tdt]
@@ -1119,15 +1127,123 @@ def k5_group_sweep(packages, inputs, rng, size=4):
         want = spgemm.csr_spgemm_fill_batched_plain(*args)[1]
         groups = spgemm.fill_groups(plan.bins, tdt, ip.dtype, size)
         result[f"{name} {tdt} {itype} x{size}"] = {
-            "bins": {str(int(kind)): [int(r), int(g)] for kind, r, g in zip(
-                plan.bins[:, 0], sizes, groups) if r},
-            "times": timed_group_fns(fns, want, tdt, (
-                "spgemm_tiny_kernel", "spgemm_rows_kernel"))}
+            "bins": chip_smoke.bin_groups(plan, sizes, groups),
+            "times": timed_group_fns(fns, want, tdt,
+                                     chip_smoke.K45_KERNELS)}
         del A, av, want, fns, launcher
         torch.cuda.empty_cache()
     return {"shape": {"c": "1M x 1M CSR, 2M random nnz, A @ A",
-                      "hash": f"{side}^2 CSR, Poisson(10) a row, A @ A"},
+                      "h": f"{side}^2 CSR, Poisson(10) a row, A @ A"},
             "cases": result}
+
+
+def k4k5_turns(packages, inputs, rng, size=4):
+    """K4, K4 with its plan (``plan_and_count``), K5 (the bin sizes
+    given, as ``csr_spgemm`` launches it) and K4 + K5 as one product
+    (``csr_spgemm``) of each package of ``packages``, beside
+    ``torch.sparse.mm(A_csr, B_csr)`` (cuSPARSE SpGEMM), in the same
+    turns, at ``chip_smoke.spgemm_cases``' cases (a, c, d, h, hb; hb at
+    its fewer reps), each call's output first held against this
+    checkout's plain versions; and at cases c and h batched K5 over
+    ``size`` value sets of op(A) (``fill_batched``) beside ``size`` x
+    ``torch.sparse.mm``.  Rows a bin at each case."""
+    import importlib
+
+    from sparse_dot_tpu_torch import formats
+    from sparse_dot_tpu_torch.ops import spgemm
+
+    mods = {label: importlib.import_module(f"{name}.ops.spgemm")
+            for label, name in packages.items()}
+    result = {}
+    for case, (shape, a_np, b_np, reps) in chip_smoke.spgemm_cases(
+            inputs).items():
+        A, B = formats.to_device(a_np), formats.to_device(b_np)
+        ip, ix, dv = A.csr_arrays()
+        bip, bix, bdv = B.csr_arrays()
+        n = b_np.shape[1]
+        args = (ip, ix, dv, bip, bix, bdv, n)
+        ref = spgemm.spgemm_plain(*args)
+        counts = ref[0].long().diff()
+        nnz = ref[1].numel()
+        fns = {}
+        for label, mod in mods.items():
+            plan = mod.spgemm_plan(ip, ix, bip, n, dv.dtype, ip.dtype)
+            sizes = plan.offsets.diff().tolist()
+            got = mod.csr_spgemm_count(ip, ix, bip, bix, n, plan)
+            chip_smoke.compare(got, counts, got.dtype)
+            got = mod.plan_and_count(ip, ix, bip, bix, n, dv.dtype)[1]
+            chip_smoke.compare(got, counts, got.dtype)
+            got = mod.csr_spgemm_fill(*args, plan, ref[0], nnz,
+                                      bin_sizes=sizes)
+            chip_smoke.compare(got[0], ref[1], got[0].dtype)
+            chip_smoke.compare(got[1], ref[2], dv.dtype)
+            got = mod.csr_spgemm(*args)
+            chip_smoke.compare(got[1], ref[1], got[1].dtype)
+            chip_smoke.compare(got[2], ref[2], dv.dtype)
+            del got
+            fns[f"{label}: K4"] = (
+                lambda mod=mod, plan=plan: mod.csr_spgemm_count(
+                    ip, ix, bip, bix, n, plan))
+            fns[f"{label}: K4 with its plan"] = (
+                lambda mod=mod: mod.plan_and_count(ip, ix, bip, bix, n,
+                                                   dv.dtype))
+            fns[f"{label}: K5"] = (
+                lambda mod=mod, plan=plan, sizes=sizes: mod.csr_spgemm_fill(
+                    *args, plan, ref[0], nnz, bin_sizes=sizes))
+            fns[f"{label}: K4+K5 product"] = (
+                lambda mod=mod: mod.csr_spgemm(*args))
+            if label == "this checkout":
+                bins = chip_smoke.bin_rows(plan, sizes)
+        a_t = torch.sparse_csr_tensor(ip, ix, dv, size=a_np.shape)
+        b_t = torch.sparse_csr_tensor(bip, bix, bdv, size=b_np.shape)
+        fns["torch.sparse.mm"] = lambda: torch.sparse.mm(a_t, b_t)
+        fns["torch.sparse.mm"]()  # warm-up (cuSPARSE handles, buffers)
+        times = time_turns(fns, reps)
+        result[case] = {
+            "shape": shape, "reps": reps, "nnz": nnz, "bins": bins,
+            "products": int(spgemm.row_bounds(ip, ix, bip).sum()),
+            "times": {name: dict(zip(("ms", "p10", "p90"), spread(t)))
+                      for name, t in times.items()}}
+        if case in ("c", "h"):
+            result[case]["batched"] = k5_batched_turns(
+                mods, a_np, args, ref, rng, reps, size)
+        del A, B, args, ref, fns, a_t, b_t
+        torch.cuda.empty_cache()
+    return result
+
+
+def k5_batched_turns(mods, a_np, args, ref, rng, reps, size):
+    """Batched K5 over ``size`` value sets of op(A), op(B) shared, on one
+    plan (``fill_batched``, the wrapper's groups) of each module of
+    ``mods`` ({label: ops.spgemm}), beside ``size`` x
+    ``torch.sparse.mm(A_csr, B_csr)``, in the same turns, each held
+    against the batched plain version first."""
+    from sparse_dot_tpu_torch.ops import spgemm
+
+    ip, ix, dv, bip, bix, bdv, n = args
+    nnz = ref[1].numel()
+    av = dv[None] * (1 + 0.1 * cuda(values(rng, (size, ix.numel()),
+                                           np.float64)))
+    fill_args = (ip, ix, av, bip, bix, bdv, n)
+    want = spgemm.csr_spgemm_fill_batched_plain(*fill_args)[1]
+    fns = {}
+    for label, mod in mods.items():
+        plan = mod.spgemm_plan(ip, ix, bip, n, dv.dtype, ip.dtype)
+        sizes = plan.offsets.diff().tolist()
+        fn = (lambda mod=mod, plan=plan, sizes=sizes: mod.fill_batched(
+            *fill_args, plan, ref[0], nnz, bin_sizes=sizes)[1])
+        compare(fn(), want, dv.dtype)
+        fns[f"{label}: batched K5"] = fn
+    mats = [torch.sparse_csr_tensor(ip, ix, av[i], size=a_np.shape)
+            for i in range(size)]
+    b_t = torch.sparse_csr_tensor(bip, bix, bdv, size=(bip.numel() - 1, n))
+    fns[f"{size} x torch.sparse.mm"] = lambda: [torch.sparse.mm(m, b_t)
+                                                for m in mats]
+    fns[f"{size} x torch.sparse.mm"]()
+    times = time_turns(fns, reps)
+    return {"members": size,
+            "times": {name: dict(zip(("ms", "p10", "p90"), spread(t)))
+                      for name, t in times.items()}}
 
 
 # Edits of a variant package (``variant_package``): (source in csrc/,
@@ -1142,6 +1258,122 @@ K6_CONFLICT_FREE = ("csr_spgemm_dense_group.cu",
 K1_ROWS_32 = ("bsr_spmm_group.cu",
               "return launch_group_tiles<T, I, 64, M>(SDT_K1_GROUP_ARGS);",
               "return launch_group_tiles<T, I, 32, M>(SDT_K1_GROUP_ARGS);")
+
+
+# Variants of the sorted-product bins (``variant_package`` edits of
+# csr_spgemm.cuh), timed against this checkout's choices by ``sorted``.
+# SORT_IN_SHARED: the keys sorted in the warp's shared memory (each lane
+# loads, compares and stores 16 R / 32 pairs a stage, a __syncwarp each)
+# in place of registers and shuffles; the region grows by 8 bytes a
+# product (the keys after the sorted order) and K4 is given one too.
+# SORT_ALL_KEYS: every row sorts its bin's U keys, in place of the
+# pow2(ub) of its products (U / 2 or U).  ALL_KEYS_512: the bin of 512
+# alone sorts its 512 keys (one unrolled network in its kernel, not two).
+SHARED_SORT = """  {
+    K* sk = reinterpret_cast<K*>(order + U);
+#pragma unroll
+    for (int r = 0; r < R; ++r) sk[(r << 5) | lane] = key[r];
+    __syncwarp();
+    for (int size = 2; size <= 32 * R; size <<= 1) {
+      for (int stride = size >> 1; stride > 0; stride >>= 1) {
+#pragma unroll
+        for (int t = lane; t < 16 * R; t += 32) {
+          const int lo = 2 * t - (t & (stride - 1));
+          const int hi = lo + stride;
+          const bool up = (lo & size) == 0;
+          const K a = sk[lo], b = sk[hi];
+          if ((a > b) == up) {
+            sk[lo] = b;
+            sk[hi] = a;
+          }
+        }
+        __syncwarp();
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) key[r] = sk[(r << 5) | lane];
+    __syncwarp();
+  }"""
+SORT_IN_SHARED = (
+    ("csr_spgemm.cuh",
+     "  return (U * (2 * int64_t(sizeof(I)) + 2) + 15) / 16 * 16;",
+     "  return (U * (2 * int64_t(sizeof(I)) + 10) + 15) / 16 * 16;"),
+    ("csr_spgemm.cuh",
+     "      FILL ? static_cast<size_t>(sorted_region_bytes<I>(U)) * "
+     "(kThreads / 32)\n           : 0;",
+     "      static_cast<size_t>(sorted_region_bytes<I>(U)) * "
+     "(kThreads / 32);"),
+    ("csr_spgemm.cuh", "  sort_warp_keys<K, R>(key, lane);", SHARED_SORT),
+)
+SORT_ALL_KEYS = (("csr_spgemm.cuh", "    if (carry <= 16 * RM) {",
+                  "    if (false) {"),)
+ALL_KEYS_512 = (("csr_spgemm.cuh", "    if (carry <= 16 * RM) {",
+                 "    if (U == 128 && carry <= 16 * RM) {"),)
+
+
+def sorted_variants(rng, size=4):
+    """K4, K5 and batched K5 (``size`` value sets of op(A), op(B) shared,
+    the wrapper's groups) of this checkout and of three variants built
+    under ``build/`` (SORT_IN_SHARED, SORT_ALL_KEYS, ALL_KEYS_512), in
+    the same turns,
+    each held against the plain versions first: at case h (100,000^2,
+    Poisson(10) a row, A @ A, f64: 79,933 rows of 33-128 products, 19,059
+    of 129-512) and at 100,000^2, Poisson(16) (about 270 products a row:
+    most rows in the bin of 512)."""
+    from sparse_dot_tpu_torch import formats
+    from sparse_dot_tpu_torch.ops import spgemm
+
+    mods = {"this checkout": spgemm}
+    for label, name, edits in (("keys in shared memory", "sdt_sort_shared",
+                                SORT_IN_SHARED),
+                               ("all U keys sorted", "sdt_sort_all",
+                                SORT_ALL_KEYS),
+                               ("512 keys in the bin of 512",
+                                "sdt_all_512", ALL_KEYS_512)):
+        dest = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "build", name)
+        mods[label] = variant_package(dest, name, edits).ops.spgemm
+    result = {}
+    for case, mean_row in (("h", 10), ("h16", 16)):
+        a_np = chip_smoke.poisson_square(100_000, mean_row)
+        A = formats.to_device(a_np)
+        ip, ix, dv = A.csr_arrays()
+        n = a_np.shape[1]
+        args = (ip, ix, dv, ip, ix, dv, n)
+        ref = spgemm.spgemm_plain(*args)
+        counts = ref[0].long().diff()
+        nnz = ref[1].numel()
+        av = dv[None] * (1 + 0.1 * cuda(values(rng, (size, ix.numel()),
+                                               np.float64)))
+        fill_args = (ip, ix, av, ip, ix, dv, n)
+        want = spgemm.csr_spgemm_fill_batched_plain(*fill_args)[1]
+        fns = {}
+        for label, mod in mods.items():
+            plan = mod.spgemm_plan(ip, ix, ip, n, dv.dtype, ip.dtype)
+            sizes = plan.offsets.diff().tolist()
+            k4 = (lambda mod=mod, plan=plan: mod.csr_spgemm_count(
+                ip, ix, ip, ix, n, plan))
+            k5 = (lambda mod=mod, plan=plan, sizes=sizes: mod.csr_spgemm_fill(
+                *args, plan, ref[0], nnz, bin_sizes=sizes)[1])
+            group = (lambda mod=mod, plan=plan, sizes=sizes: mod.fill_batched(
+                *fill_args, plan, ref[0], nnz, bin_sizes=sizes)[1])
+            compare(k4(), counts, counts.dtype)
+            compare(k5(), ref[2], dv.dtype)
+            compare(group(), want, dv.dtype)
+            fns.update({f"{label}: K4": k4, f"{label}: K5": k5,
+                        f"{label}: batched K5": group})
+            if label == "this checkout":
+                bins = chip_smoke.bin_rows(plan, sizes)
+        times = time_turns(fns, REPS)
+        result[case] = {
+            "shape": f"100k x 100k CSR, Poisson({mean_row}) a row, A @ A, "
+                     f"f64; batched: {size} value sets of op(A)",
+            "bins": bins,
+            "times": {name: dict(zip(("ms", "p10", "p90"), spread(t)))
+                      for name, t in times.items()}}
+        del A, args, ref, av, want, fns
+        torch.cuda.empty_cache()
+    return result
 
 
 def variant_package(dest, name, edits):
@@ -1453,12 +1685,13 @@ def main():
                                          "route", "groups", "sampled",
                                          "walls", "bsr", "bsr_gate",
                                          "plain_cpu", "k2k5", "k5",
-                                         "k6k1", "k1", "k6", "k6_banks"))
+                                         "k4k5", "sorted", "k6k1", "k1",
+                                         "k6", "k6_banks"))
     parser.add_argument("--root", help="rows: time the package of the "
                                        "checkout at ROOT instead; route, "
                                        "sampled, walls, bsr, plain_cpu, "
-                                       "k2k5 and k6k1: time it beside this "
-                                       "one")
+                                       "k2k5, k4k5 and k6k1: time it beside "
+                                       "this one")
     parser.add_argument("--out", help="also write the JSON line here")
     args = parser.parse_args()
     if args.mode == "k6_banks":
@@ -1476,6 +1709,11 @@ def main():
     if not torch.cuda.is_available():
         print("compare_k7_k13: no CUDA device visible", file=sys.stderr)
         sys.exit(2)
+    if args.mode == "k4k5":
+        # cuSPARSE's SpGEMM asks for one 40 GiB buffer at case a; taken in
+        # turns with the kernels' small outputs it would find the cached
+        # block split.
+        torch.cuda.memory._set_allocator_settings("expandable_segments:True")
     packages = {"this checkout": "sparse_dot_tpu_torch"}
     if args.root and args.mode == "rows":
         # chip_smoke is this checkout's; the package is ROOT's.
@@ -1515,6 +1753,10 @@ def main():
     elif args.mode == "k5":
         line["k5"] = k5_group_sweep(packages, chip_smoke.spgemm_inputs(),
                                     rng)
+    elif args.mode == "k4k5":
+        line["k4k5"] = k4k5_turns(packages, chip_smoke.spgemm_inputs(), rng)
+    elif args.mode == "sorted":
+        line["sorted"] = sorted_variants(rng)
     elif args.mode == "k1":
         line["k1"] = k1_group_sweep(packages, chip_smoke.path_inputs(), rng)
     elif args.mode == "k6":

@@ -31,8 +31,20 @@
 //     1M x 1M A @ A, are bound by the chain of about five dependent loads
 //     (row id, op(A)'s indptr and entry, op(B)'s indptr and column), so
 //     this path keeps many rows in flight and does nothing else;
-//   - kHashWarp: one warp per row, 8 per block, a hash table of 256 or
-//     1024 slots in shared memory (load at most 1/2);
+//   - kSortedWarp (32 < ub <= U, U = 128 or 512): one warp a row, 8 a
+//     block, every lane on a product.  The warp takes the row's products
+//     32 at a time with the register path's scan and search (op(A)'s
+//     entries 32 at a time, the count carried across chunks), so no
+//     lane waits on an op(A) entry whose op(B) row is short.  Each
+//     product's key (column << 9) | product index stays in a register
+//     (32-bit keys when n < 2^23), and K5 stages its op(A) and op(B)
+//     entries in the warp's region of shared memory, sized to the bin's
+//     U products (nothing zeroed); the warp sorts pow2(ub) keys (U / 2
+//     or U) in registers by a bitonic network of shuffles and register
+//     exchanges, and the first key of each column's run counts it (K4)
+//     or folds the run in product order from zero, reading the values
+//     through the staged entries, and writes it (K5).  No atomics, no
+//     table to clear, no sort of a hash table's empty slots;
 //   - kHashBlock: one 256-thread block per row, a table of 4096 slots or
 //     the largest that 200 KB hold (8192 or 16384);
 //   - kDenseShared: one block per row, a dense row of width n (values and
@@ -48,14 +60,15 @@
 // sizes with it, marks the empty bins kSkip and bounds each grid by its
 // bin's rows.
 //
-// Determinism: a row's entries of op(A) are walked one after another;
-// the threads of the row split op(B)'s row k, whose columns are distinct,
-// so no two threads touch one accumulator slot within a step, and a sync
-// ends each step.  Only a hash table's key insertion needs atomicCAS.
-// The register path sorts on (column, product index), so a column's
-// products stay in op(A)'s stored order, and folds them with the same
+// Determinism: in the hash-block and dense bins a row's entries of
+// op(A) are walked one after another; the threads of the row split
+// op(B)'s row k, whose columns are distinct, so no two threads touch one
+// accumulator slot within a step, and a sync ends each step.  Only a
+// hash table's key insertion needs atomicCAS.  The register and
+// sorted-product paths sort on (column, product index), so a column's
+// products stay in op(A)'s stored order, and fold them with the same
 // fma from zero.  Every value is thus summed in op(A)'s stored order with
-// no float atomics: the same bits on every run, and on either path.
+// no float atomics: the same bits on every run, and on every path.
 //
 // A batch of K5 fills whose members share op(A)'s and op(B)'s patterns
 // (jax.vmap of esc_spgemm_block over the values; torch.func.vmap, jacfwd

@@ -13,11 +13,15 @@
 // ids, the bitonic sort and the head ballot are done once, and then each
 // member's a_data / b_data loads (at its stride; a shared operand reads
 // one address), the shuffles by the same source lanes, the fold in the
-// same product order and its value store; in the hash and dense-shared
-// bins one table of keys (or flags) serves M value slots a key.  Each
-// member's values are its single fill's bits.  A part-full last group's
-// missing members read the last member's values and store nothing.  The
-// dense rows in the device workspace keep one member a block (M = 1).
+// same product order and its value store; in the sorted-product bins
+// (spgemm_sorted_kernel) the keys, the staged product entries and the
+// sort serve the group and each member's fold reads its own values
+// through the entries; in
+// the hash-block and dense-shared bins one table of keys (or flags)
+// serves M value slots a key.  Each member's values are its single
+// fill's bits.  A part-full last group's missing members read the last
+// member's values and store nothing.  The dense rows in the device
+// workspace keep one member a block (M = 1).
 #pragma once
 
 #include <type_traits>
@@ -30,7 +34,7 @@ namespace {
 // Codes shared with ops/spgemm.py.
 enum BinKind : int64_t {
   kSkip = 0,
-  kHashWarp = 1,
+  kSortedWarp = 1,
   kHashBlock = 2,
   kDenseShared = 3,
   kDenseGlobal = 4,
@@ -115,18 +119,8 @@ __device__ __forceinline__ Group<M> group_of(const Members& mb) {
     if (work != nullptr) work += z * (stride);           \
   }
 
-template <int G>
-__device__ __forceinline__ void group_sync() {
-  if constexpr (G == 32) {
-    __syncwarp();
-  } else {
-    __syncthreads();
-  }
-}
-
-// Exclusive prefix sum of v over the G threads of a group (a warp, or the
-// whole 256-thread block); *total receives the group's sum.  Every thread
-// of the group must call it.
+// Exclusive prefix sum of v over the block's G threads; *total receives
+// the block's sum.  Every thread of the block must call it.
 template <int G>
 __device__ __forceinline__ int group_scan(int v, int* scratch, int* total) {
   const int wl = threadIdx.x & 31;
@@ -136,24 +130,19 @@ __device__ __forceinline__ int group_scan(int v, int* scratch, int* total) {
     const int y = __shfl_up_sync(kFullMask, x, d);
     if (wl >= d) x += y;
   }
-  if constexpr (G == 32) {
-    *total = __shfl_sync(kFullMask, x, 31);
-    return x - v;
-  } else {
-    const int w = threadIdx.x >> 5;
-    if (wl == 31) scratch[w] = x;
-    __syncthreads();
-    int base = 0, sum = 0;
+  const int w = threadIdx.x >> 5;
+  if (wl == 31) scratch[w] = x;
+  __syncthreads();
+  int base = 0, sum = 0;
 #pragma unroll
-    for (int t = 0; t < G / 32; ++t) {
-      const int s = scratch[t];
-      base += t < w ? s : 0;
-      sum += s;
-    }
-    __syncthreads();  // scratch is reused by the next call
-    *total = sum;
-    return base + x - v;
+  for (int t = 0; t < G / 32; ++t) {
+    const int s = scratch[t];
+    base += t < w ? s : 0;
+    sum += s;
   }
+  __syncthreads();  // scratch is reused by the next call
+  *total = sum;
+  return base + x - v;
 }
 
 __device__ __forceinline__ int32_t cas(int32_t* p, int32_t cmp, int32_t v) {
@@ -191,9 +180,9 @@ __device__ __forceinline__ int64_t hash_slot(I* keys, int64_t mask, I key,
 }
 
 // Sorts the S (a power of two) slots of a table by key, empty slots
-// (-1, largest as unsigned) last: a bitonic network over the group.
-// With M > 1, vals holds M members' values of S slots each, moved with
-// their keys.
+// (-1, largest as unsigned) last: a bitonic network over the block's G
+// threads.  With M > 1, vals holds M members' values of S slots each,
+// moved with their keys.
 template <typename T, typename I, int G, int M = 1>
 __device__ void sort_table(I* keys, T* vals, int64_t S, int lane) {
   using U = std::make_unsigned_t<I>;
@@ -215,7 +204,7 @@ __device__ void sort_table(I* keys, T* vals, int64_t S, int lane) {
           }
         }
       }
-      group_sync<G>();
+      __syncthreads();
     }
   }
 }
@@ -230,13 +219,13 @@ __host__ __device__ int64_t region_bytes(int64_t slots) {
   return (bytes + 15) / 16 * 16;
 }
 
-// One group of G threads builds one row of C at a time, walking the rows
-// of bin `bin`.  `slots` is the hash table's size, or n for a dense row;
-// `work` (kDenseGlobal) holds one region per group (per member's group
-// with BATCH, blockIdx.y the member), else the regions are in dynamic
-// shared memory.  With M > 1 (a batch, regions in shared memory),
-// blockIdx.y is a group of M members whose values share the row's keys
-// or flags.
+// A block (G = kThreads threads) builds one row of C at a time, walking
+// the rows of bin `bin`.  `slots` is the hash table's size, or n for a
+// dense row; `work` (kDenseGlobal) holds one region per group (per
+// member's group with BATCH, blockIdx.y the member), else the regions are
+// in dynamic shared memory.  With M > 1 (a batch, regions in shared
+// memory), blockIdx.y is a group of M members whose values share the
+// row's keys or flags.
 template <typename T, typename I, int MODE, int G, bool FILL, bool BATCH,
           int M = 1>
 __global__ void __launch_bounds__(kThreads)
@@ -244,6 +233,7 @@ spgemm_rows_kernel(Args<T, I> args, int bin, int64_t slots,
                    unsigned char* work, const Members mb) {
   static_assert(FILL || !BATCH, "a batch is K5's alone");
   static_assert(M == 1 || BATCH, "a group of members is a batch");
+  static_assert(G == kThreads, "a block a row: the syncs are the block's");
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int scratch[kThreads / 32];
   constexpr int kGroups = kThreads / G;
@@ -277,7 +267,7 @@ spgemm_rows_kernel(Args<T, I> args, int bin, int64_t slots,
         for (int w = 0; w < M; ++w) vals[w * S + s] = Arith<T>::zero();
       }
     }
-    group_sync<G>();
+    __syncthreads();
 
     int fresh = 0;
     const int64_t p_end = args.a_indptr[i + 1];
@@ -312,7 +302,7 @@ spgemm_rows_kernel(Args<T, I> args, int bin, int64_t slots,
           }
         }
       }
-      group_sync<G>();
+      __syncthreads();
     }
 
     if constexpr (!FILL) {
@@ -354,7 +344,7 @@ spgemm_rows_kernel(Args<T, I> args, int bin, int64_t slots,
         }
       }
     }
-    group_sync<G>();
+    __syncthreads();
   }
 }
 
@@ -606,6 +596,260 @@ spgemm_tiny_kernel(Args<T, I> args, int bin, const Members mb) {
   tiny_bin<T, I, K, 32, FILL, BATCH, M>(args, bin + 3, warp, nwarps, gr);
 }
 
+// The sorted-product bins (kSortedWarp): rows of more than 32 and at
+// most U products (U = 128 or 512, the bin's u_max), one warp a row.  A
+// key is (column << 9) | product index, of 32 bits when n < 2^23, else of
+// 64; an empty position (no product, or a column below the diagonal with
+// `triangular`) holds all ones, which sorts last and names no column.
+constexpr int kProductBits = 9;
+constexpr int kProductMask = (1 << kProductBits) - 1;
+constexpr int64_t kSortedNarrowColumns = int64_t(1) << (32 - kProductBits);
+// A sorted position's entry in K5's order: its product index, with
+// kRunHead set where a column's run starts, kNoProduct past the live
+// keys.
+constexpr uint16_t kRunHead = 0x8000;
+constexpr uint16_t kNoProduct = 0xFFFF;
+
+// Bytes of one warp's region in a sorted-product bin of U products (K5
+// only; K4 keeps its keys in registers and asks for none): each product's
+// op(A) and op(B) entries (I each), then the sorted order (16 bits a
+// position); rounded up to 16.  No member's values: a group of members
+// shares the region.
+template <typename I>
+__host__ __device__ constexpr int64_t sorted_region_bytes(int64_t U) {
+  return (U * (2 * int64_t(sizeof(I)) + 2) + 15) / 16 * 16;
+}
+
+// Bitonic sort, ascending, of a warp's 32 R keys, lane l's key r at
+// position 32 r + l: strides below 32 between lanes (shuffles), wider
+// ones between a lane's registers.  The array holds RM >= R keys.
+template <typename K, int R, int RM>
+__device__ __forceinline__ void sort_warp_keys(K (&key)[RM], int lane) {
+#pragma unroll
+  for (int size = 2; size <= 32 * R; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      if (stride >= 32) {
+        const int rs = stride >> 5;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          if ((r & rs) == 0) {
+            const bool up = ((r << 5) & size) == 0;
+            const K a = key[r], b = key[r | rs];
+            const K lo = a < b ? a : b, hi = a < b ? b : a;
+            key[r] = up ? lo : hi;
+            key[r | rs] = up ? hi : lo;
+          }
+        }
+      } else {
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const K other = __shfl_xor_sync(kFullMask, key[r], stride);
+          const int e = (r << 5) | lane;
+          const bool keep_min = ((e & stride) == 0) == ((e & size) == 0);
+          key[r] = keep_min ? (other < key[r] ? other : key[r])
+                            : (other > key[r] ? other : key[r]);
+        }
+      }
+    }
+  }
+}
+
+// Row i's end in a sorted-product bin, its keys in the first R of the RM
+// registers a lane (32 R at or above its products): the sort, the heads
+// (a live key whose column differs from the key before it), then K4
+// stores their number, or K5 writes the sorted order to `order`, and each
+// head folds its column's run (up to the next head or the first empty
+// position) from zero in product order, reading each product's values
+// through its staged entries (`ids`: op(A)'s at [pid], op(B)'s at
+// [U + pid]), and stores the column and the sum at c0 plus the heads
+// before it.
+template <typename T, typename I, typename K, int U, int R, int RM,
+          bool FILL, bool BATCH, int M>
+__device__ __forceinline__ void sorted_finish(const Args<T, I>& args,
+                                              int64_t i, int64_t c0,
+                                              K (&key)[RM], const I* ids,
+                                              uint16_t* order,
+                                              const Group<M>& gr, int lane) {
+  constexpr K kNoKey = ~K(0);
+  sort_warp_keys<K, R>(key, lane);
+  bool head[R];
+  unsigned heads[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const K up = __shfl_up_sync(kFullMask, key[r], 1);
+    const K wrap = __shfl_sync(kFullMask, key[r > 0 ? r - 1 : 0], 31);
+    const K prev = lane > 0 ? up : wrap;
+    head[r] = key[r] != kNoKey &&
+              ((r == 0 && lane == 0) ||
+               (prev >> kProductBits) != (key[r] >> kProductBits));
+    heads[r] = __ballot_sync(kFullMask, head[r]);
+  }
+  if constexpr (!FILL) {
+    if (lane == 0) {
+      int total = 0;
+#pragma unroll
+      for (int r = 0; r < R; ++r) total += __popc(heads[r]);
+      store_streaming(args.counts + i, static_cast<int64_t>(total));
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      order[(r << 5) | lane] =
+          key[r] == kNoKey
+              ? kNoProduct
+              : static_cast<uint16_t>((key[r] & kProductMask) |
+                                      (head[r] ? kRunHead : 0));
+    }
+    __syncwarp();
+    const unsigned below = (1u << lane) - 1u;
+    int64_t before = c0;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (head[r]) {
+        const int64_t pos = before + __popc(heads[r] & below);
+        T acc[M];
+#pragma unroll
+        for (int w = 0; w < M; ++w) acc[w] = Arith<T>::zero();
+        int pid = static_cast<int>(key[r] & kProductMask);
+        for (int e = (r << 5) | lane;;) {
+          const int64_t pa = ids[pid], q = ids[U + pid];
+#pragma unroll
+          for (int w = 0; w < M; ++w) {
+            acc[w] = Arith<T>::fma(args.a_data[pa + gr.a[w]],
+                                   args.b_data[q + gr.b[w]], acc[w]);
+          }
+          if (++e >= 32 * R) break;
+          const int next = order[e];
+          if (next & kRunHead) break;
+          pid = next;
+        }
+        if (!BATCH || args.c_indices != nullptr) {
+          store_streaming(args.c_indices + pos,
+                          static_cast<I>(key[r] >> kProductBits));
+        }
+#pragma unroll
+        for (int w = 0; w < M; ++w) {
+          if (M > 1 && w >= gr.count) break;
+          store_streaming(args.c_data + gr.c[w] + pos, acc[w]);
+        }
+      }
+      before += __popc(heads[r]);
+    }
+    __syncwarp();  // the warp's next row rewrites the region
+  }
+}
+
+// The rows of sorted-product bin `bin`, one a warp at a time.  The warp
+// takes the row's products 32 at a time (round r: products 32 r ..
+// 32 r + 31, product t on lane t % 32), in op(A)'s stored order and then
+// op(B)'s: op(A)'s entries are read 32 at a time, their op(B) row lengths
+// scanned, and each lane's entry found by a binary search of the scan
+// through shuffles, the count carried across chunks (tiny_bin's walk,
+// its G = 32, over up to U / 32 rounds).  A lane keeps each of its
+// products' column in a register and K5 stages its entries in the warp's
+// region; the keys are sorted in registers, pow2 of the row's products
+// (U / 2 or U) at once.  With BATCH, blockIdx.y is the member, or with
+// M > 1 the group of M members.
+template <typename T, typename I, typename K, int U, bool FILL, bool BATCH,
+          int M = 1>
+__global__ void __launch_bounds__(kThreads)
+spgemm_sorted_kernel(Args<T, I> args, int bin, const Members mb) {
+  static_assert(FILL || !BATCH, "a batch is K5's alone");
+  static_assert(M == 1 || BATCH, "a group of members is a batch");
+  static_assert(U % 64 == 0 && U <= (1 << kProductBits), "U products");
+  constexpr int RM = U / 32;
+  constexpr K kNoKey = ~K(0);
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* work = nullptr;  // the regions are in shared memory
+  SDT_K5_TO_MEMBER(0)
+  const Group<M> gr = group_of<M>(mb);
+  const int lane = threadIdx.x & 31;
+  I* ids = reinterpret_cast<I*>(smem + (threadIdx.x >> 5) *
+                                           sorted_region_bytes<I>(U));
+  uint16_t* order = reinterpret_cast<uint16_t*>(ids + 2 * U);
+  const int64_t nwarps = static_cast<int64_t>(gridDim.x) * (kThreads / 32);
+  const int64_t r_end = args.offsets[bin + 1];
+  int64_t r = args.offsets[bin] +
+              ((static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) >>
+               5);
+  // The next row id is loaded one row ahead.
+  int64_t i_next = r < r_end ? args.rows[r] : 0;
+  for (; r < r_end; r += nwarps) {
+    const int64_t i = i_next;
+    if (r + nwarps < r_end) i_next = args.rows[r + nwarps];
+    const int64_t p0 = args.a_indptr[i], p1 = args.a_indptr[i + 1];
+    int64_t c0 = 0;
+    if constexpr (FILL) c0 = args.c_indptr[i];
+    I col[RM];  // the column of the lane's product of each round
+#pragma unroll
+    for (int t = 0; t < RM; ++t) col[t] = I(-1);
+    int carry = 0;  // products of the entries before this chunk
+    for (int64_t c = p0; c < p1; c += 32) {
+      const int64_t p = c + lane;
+      I start = 0;
+      int len = 0;
+      if (p < p1) {
+        const int64_t k = args.a_indices[p];
+        start = args.b_indptr[k];
+        len = static_cast<int>(args.b_indptr[k + 1] - start);
+      }
+      int incl = len;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int y = __shfl_up_sync(kFullMask, incl, d);
+        if (lane >= d) incl += y;
+      }
+      const int excl = incl - len;
+      const int total = __shfl_sync(kFullMask, incl, 31);
+#pragma unroll
+      for (int t = 0; t < RM; ++t) {
+        // Round t's products that this chunk holds (the same on every
+        // lane): the last entry whose products start at or before the
+        // lane's holds it.
+        if (carry < 32 * (t + 1) && carry + total > 32 * t) {
+          const int u = 32 * t + lane - carry;
+          int s = 0;
+#pragma unroll
+          for (int step = 16; step > 0; step >>= 1) {
+            if (__shfl_sync(kFullMask, excl, s + step) <= u) s += step;
+          }
+          const int64_t q =
+              static_cast<int64_t>(__shfl_sync(kFullMask, start, s)) + u -
+              __shfl_sync(kFullMask, excl, s);
+          if (u >= 0 && u < total) {
+            col[t] = args.b_indices[q];
+            if constexpr (FILL) {
+              ids[32 * t + lane] = static_cast<I>(c + s);
+              ids[U + 32 * t + lane] = static_cast<I>(q);
+            }
+          }
+        }
+      }
+      carry += total;
+    }
+    K key[RM];
+#pragma unroll
+    for (int t = 0; t < RM; ++t) {
+      const bool live = col[t] >= 0 && (!args.triangular || col[t] >= i);
+      key[t] = live ? (static_cast<K>(col[t]) << kProductBits) |
+                          static_cast<K>(32 * t + lane)
+                    : kNoKey;
+    }
+    // pow2(ub) keys: U / 2 or U.  Sorting U keys in the bin of 512 alone
+    // (one network a kernel) ran faster where nearly every row held
+    // 129-512 products, and slower in K4, K5 and their batch at a
+    // 100,000^2 Poisson(10) A @ A (PERF.md).
+    if (carry <= 16 * RM) {
+      sorted_finish<T, I, K, U, RM / 2, RM, FILL, BATCH, M>(
+          args, i, c0, key, ids, order, gr, lane);
+    } else {
+      sorted_finish<T, I, K, U, RM, RM, FILL, BATCH, M>(
+          args, i, c0, key, ids, order, gr, lane);
+    }
+  }
+}
+
 // Resident blocks an SM of `device` holds of `kernel` with `shared` bytes
 // of dynamic shared memory, remembered per (kernel, device, size), so the
 // runtime is asked once.  The kernel's dynamic shared memory limit is
@@ -686,6 +930,47 @@ cudaError_t launch_tiny(const Args<T, I>& args, int bin, int64_t rows,
   return cudaGetLastError();
 }
 
+template <typename T, typename I, typename K, int U, bool FILL, bool BATCH,
+          int M>
+cudaError_t launch_sorted_as(const Args<T, I>& args, int bin, int64_t rows,
+                             int device, int sms, const Batch& batch,
+                             cudaStream_t stream) {
+  auto kernel = spgemm_sorted_kernel<T, I, K, U, FILL, BATCH, M>;
+  const size_t shared =
+      FILL ? static_cast<size_t>(sorted_region_bytes<I>(U)) * (kThreads / 32)
+           : 0;
+  int per_sm = 0;
+  const cudaError_t err = blocks_per_sm(kernel, shared, device, &per_sm);
+  if (err != cudaSuccess) return err;
+  const int64_t groups = groups_of<M>(batch);
+  const int64_t grid = grid_for(rows, kThreads / 32, per_sm, sms, groups);
+  kernel<<<dim3(static_cast<unsigned>(grid), static_cast<unsigned>(groups)),
+           kThreads, shared, stream>>>(args, bin, batch.mb);
+  return cudaGetLastError();
+}
+
+// A sorted-product bin of `products` (128 or 512) a row, its keys of 32
+// bits when n < 2^23.
+template <typename T, typename I, bool FILL, bool BATCH, int M>
+cudaError_t launch_sorted(const Args<T, I>& args, int bin, int64_t products,
+                          int64_t rows, int device, int sms,
+                          const Batch& batch, cudaStream_t stream) {
+  const bool narrow = args.n < kSortedNarrowColumns;
+  if (products == 128) {
+    return narrow ? launch_sorted_as<T, I, uint32_t, 128, FILL, BATCH, M>(
+                        args, bin, rows, device, sms, batch, stream)
+                  : launch_sorted_as<T, I, uint64_t, 128, FILL, BATCH, M>(
+                        args, bin, rows, device, sms, batch, stream);
+  }
+  if (products == 512) {
+    return narrow ? launch_sorted_as<T, I, uint32_t, 512, FILL, BATCH, M>(
+                        args, bin, rows, device, sms, batch, stream)
+                  : launch_sorted_as<T, I, uint64_t, 512, FILL, BATCH, M>(
+                        args, bin, rows, device, sms, batch, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
 template <typename T, typename I, int MODE, int G, bool FILL, bool BATCH,
           int M>
 cudaError_t launch_bin(const Args<T, I>& args, int bin, int64_t slots,
@@ -759,9 +1044,9 @@ cudaError_t launch_bins(const Args<T, I>& args, const int64_t* bins,
         }
         err = cudaSuccess;
         break;
-      case kHashWarp:
-        err = launch_bin<T, I, kHash, 32, FILL, BATCH, M>(
-            args, b, slots, rows, nullptr, 0, device, sms, batch, stream);
+      case kSortedWarp:
+        err = launch_sorted<T, I, FILL, BATCH, M>(args, b, slots, rows,
+                                                  device, sms, batch, stream);
         break;
       case kHashBlock:
         err = launch_bin<T, I, kHash, kThreads, FILL, BATCH, M>(

@@ -28,9 +28,11 @@ How a sparse-output product runs on the card:
    ``ub[i] = sum of nnz(op(B)[k, :]) over op(A)[i, k]``, and a bin for
    each row from the table ``spgemm_bins``, which picks the row's
    accumulator: for ub <= 32 the registers of a group of 4, 8, 16 or 32
-   lanes (one product a lane), past that by ``min(ub[i], n)`` a hash
-   table in shared memory for a warp or a block, a dense row of width n
-   in shared memory, or a dense row in a bounded device workspace;
+   lanes (one product a lane), past that by ``min(ub[i], n)`` a warp's
+   sorted products (up to 128 or 512 a row: keys in registers, each
+   product's entries in shared memory), a hash table in shared memory
+   for a block, a dense row of width n in shared memory, or a dense row
+   in a bounded device workspace;
 2. K4 writes each row's number of distinct columns;
 3. ``indptr`` is their running sum; reading ``nnz = indptr[-1]`` to size
    the output is the one host sync (the JAX package pays the same one);
@@ -91,21 +93,24 @@ from .csr import (_add_rows, _check, batch_size, check_members,
 from .dense import axpby
 
 # Kinds of row bins (the codes of csrc/csr_spgemm.cu's BinKind).
-(SKIP, HASH_WARP, HASH_BLOCK, DENSE_SHARED, DENSE_GLOBAL,
+(SKIP, SORTED_WARP, HASH_BLOCK, DENSE_SHARED, DENSE_GLOBAL,
  TINY4, TINY8, TINY16, TINY32) = range(9)
 # The register bins by group width G: rows of 1..G products, one a lane.
 TINY_KINDS = {4: TINY4, 8: TINY8, 16: TINY16, 32: TINY32}
 TINY_MAX = max(TINY_KINDS)
 # Shared memory one thread block of K4/K5 may ask for.
 SHARED_BUDGET = 200 * 1024
-# Hash table sizes (slots): 8 tables per block, one per warp, then one per
-# block up to the largest that SHARED_BUDGET holds.  No table of 64 slots
-# (rows of u <= 32): a row of more than 32 products with u <= 32 has
-# n <= 32, and there the dense row takes it.
-WARP_SLOTS = (256, 1024)
+# The sorted-product bins' products a row (slots = u_max): one warp a
+# row, 8 a block, each warp's region sized to its bin's products.  Each
+# stands where a hash table of twice its products would: in the table
+# only where n is past DENSE_RATIO times that.
+WARP_PRODUCTS = (128, 512)
+# Hash table sizes (slots): one table per block, from BLOCK_SLOTS up to
+# the largest that SHARED_BUDGET holds.
 BLOCK_SLOTS = 4096
-# A row of width n takes the dense accumulator once its hash table would
-# need n / DENSE_RATIO slots or more.
+# A row of width n takes the dense accumulator once its hash table (or
+# the one a sorted-product bin stands for) would need n / DENSE_RATIO
+# slots or more.
 DENSE_RATIO = 8
 # Bytes of device memory for the dense rows of the DENSE_GLOBAL bin.
 GLOBAL_WORKSPACE = 256 << 20
@@ -154,12 +159,13 @@ def spgemm_bins(dtype, index_dtype, n):
     of (kind, slots, u_max) rows, u_max ascending.  A row of ub products
     goes to the first bin with ub <= u_max: ub == 0 to SKIP, 1 <= ub <= 32
     to the register bin of the smallest width G >= ub (slots = G),
-    whatever n; a hash bin holds rows of up to slots / 2 products (so of
-    distinct columns: load at most one half); the last bin (dense, in
+    whatever n; a sorted-product bin (SORTED_WARP) rows of up to slots =
+    128 or 512 products; a hash bin rows of up to slots / 2 products (so
+    of distinct columns: load at most one half); the last bin (dense, in
     shared memory when a row of width n fits SHARED_BUDGET, else in the
     device workspace) takes the rest.  Past 32 products ub picks the same
-    bin as u = min(ub, n) would: a hash bin is in the table only where n
-    is above its u_max."""
+    bin as u = min(ub, n) would: a sorted-product or hash bin is in the
+    table only where n is above its u_max."""
     return _bins_table(dtype, index_dtype, n).copy()
 
 
@@ -167,13 +173,13 @@ def spgemm_bins(dtype, index_dtype, n):
 def _bins_table(dtype, index_dtype, n):
     bins = [(SKIP, 0, 0)] + [(kind, g, g) for g, kind in TINY_KINDS.items()]
     dense_fits = dense_row_bytes(n, dtype) <= SHARED_BUDGET
-    hash_slots = [(HASH_WARP, s) for s in WARP_SLOTS]
-    hash_slots += [(HASH_BLOCK, s) for s in
+    candidates = [(SORTED_WARP, u, u) for u in WARP_PRODUCTS]
+    candidates += [(HASH_BLOCK, s, s // 2) for s in
                    (BLOCK_SLOTS, max_hash_slots(dtype, index_dtype))]
-    for kind, slots in hash_slots:
-        if dense_fits and n <= DENSE_RATIO * slots:
+    for kind, slots, u_max in candidates:
+        if dense_fits and n <= DENSE_RATIO * 2 * u_max:
             break
-        bins.append((kind, slots, slots // 2))
+        bins.append((kind, slots, u_max))
     last = (DENSE_SHARED if dense_fits else DENSE_GLOBAL, n,
             np.iinfo(np.int64).max)
     return np.array(bins + [last], dtype=np.int64)
@@ -443,16 +449,23 @@ def _fill_members(table, per_group):
     return max(1, min(_build.MAX_MEMBERS, GLOBAL_WORKSPACE // per_group))
 
 
-# Groups of threads a block of each shared-memory bin holds (one table or
-# dense row each).
-_BIN_GROUPS = {HASH_WARP: 8, HASH_BLOCK: 1, DENSE_SHARED: 1}
+# Groups of threads a block of each shared-memory bin holds (one region
+# each).
+_BIN_GROUPS = {SORTED_WARP: 8, HASH_BLOCK: 1, DENSE_SHARED: 1}
 
 
 def group_bytes(kind, slots, dtype, index_dtype, members):
-    """Shared memory a block of K5's hash or dense-shared bin ``kind``
-    asks for with ``members`` members' values a slot: one region a group
-    of threads, the members' values then the keys (hash) or flag bytes
-    (dense), rounded up to 16 (``csrc/csr_spgemm.cuh``, region_bytes)."""
+    """Shared memory a block of K5's sorted-product, hash or
+    dense-shared bin ``kind`` asks for with ``members`` members a block:
+    one region a group of threads, rounded up to 16.  A sorted-product
+    region holds each of its ``slots`` products' op(A) and op(B) entries
+    and a 16-bit sorted order, whatever the members
+    (``csrc/csr_spgemm.cuh``, sorted_region_bytes); a hash or dense
+    region the members' values a slot then the keys (hash) or flag bytes
+    (dense) (region_bytes)."""
+    if kind == SORTED_WARP:
+        return _BIN_GROUPS[kind] * _round16(slots * (2 * index_dtype.itemsize
+                                                     + 2))
     tail = slots * index_dtype.itemsize if kind != DENSE_SHARED else slots
     return _BIN_GROUPS[kind] * _round16(members * slots * dtype.itemsize
                                         + tail)
@@ -461,14 +474,16 @@ def group_bytes(kind, slots, dtype, index_dtype, members):
 def fill_groups(bins, dtype, index_dtype, size, most=None):
     """Members a block of each bin of ``bins`` (a plan's or a launch
     table's kinds and slots) in a batched K5 launch of ``size`` members:
-    the register bins 4, a hash or dense-shared bin the most of 4 and 2
-    whose values fit one table within SHARED_BUDGET (``group_bytes``),
-    else 1 (the per-member instance), as are the dense rows in the device
+    the register bins 4, a sorted-product, hash or dense-shared bin the
+    most of 4 and 2 whose region fits SHARED_BUDGET (``group_bytes``; a
+    sorted-product region does not grow with the members, so 4), else 1
+    (the per-member instance), as are the dense rows in the device
     workspace; 2 at most for a batch of 2, and 1 for a batch of 1; at
     most ``most`` when given (1: the per-member instance in every bin).
     4 ran fastest at case c in f64 (either index width), f32 and c128
-    and at hash-bin rows in f64, 2 and 1 slower (PERF.md).  An
-    int64 numpy array, one entry a bin; cached by what it depends on."""
+    and at the sorted-product rows of a 100,000^2 Poisson(10) A @ A in
+    f64, 2 and 1 slower (PERF.md).  An int64 numpy array, one entry a
+    bin; cached by what it depends on."""
     top = 1 if size < 2 else 2 if size == 2 else 4
     if most is not None:
         top = min(top, most)

@@ -109,18 +109,23 @@ def _bins(dtype, itype, n):
 
 def _expected(kind, slots, dtype, itype, most):
     """The members a block the rule gives a bin, from the region sizes of
-    ``csrc/csr_spgemm.cuh`` (values of each member, then keys or flags,
-    rounded up to 16, one region a group of threads)."""
+    ``csrc/csr_spgemm.cuh`` (one region a group of threads, rounded up to
+    16: a sorted-product bin's products' op(A) and op(B) entries and
+    16-bit sorted order, whatever the members; a hash or dense bin's
+    values of each member, then keys or flags)."""
     if kind in spgemm.TINY_KINDS.values():
         return most
-    groups = {spgemm.HASH_WARP: 8, spgemm.HASH_BLOCK: 1,
+    groups = {spgemm.SORTED_WARP: 8, spgemm.HASH_BLOCK: 1,
               spgemm.DENSE_SHARED: 1}.get(kind)
     if groups is None:
         return 1
     for g in (4, 2):
-        tail = slots * itype.itemsize if kind != spgemm.DENSE_SHARED \
-            else slots
-        region = -(-(g * slots * dtype.itemsize + tail) // 16) * 16
+        if kind == spgemm.SORTED_WARP:
+            region = -(-(slots * (2 * itype.itemsize + 2)) // 16) * 16
+        else:
+            tail = slots * itype.itemsize if kind != spgemm.DENSE_SHARED \
+                else slots
+            region = -(-(g * slots * dtype.itemsize + tail) // 16) * 16
         if g <= most and groups * region <= spgemm.SHARED_BUDGET:
             return g
     return 1
@@ -152,17 +157,26 @@ def test_fill_groups_by_bin(dtype, itype, n, size):
 
 def test_fill_groups_known_bins():
     """The rule at the bins the card checks: f64 with int32 ids at n =
-    100,000 gives the register bins and the 256-slot warp tables 4, the
-    1024-slot warp tables 2 (four members' values would pass 200 KB for
-    8 tables), the 4096-slot block table 4, the largest block table and
-    the dense rows in the device workspace 1; c128 at n = 300 takes a
-    dense row in shared memory, 4 members a block."""
+    100,000 gives the register bins and both sorted-product bins 4 (their
+    regions do not grow with the members: 8 warps' 128 or 512 products,
+    10 bytes each, where the 1024-slot warp hash tables they replaced
+    took 2), the 4096-slot block table 4, the largest block table and the
+    dense rows in the device workspace 1; with int64 ids and c128 the
+    sorted-product bins still 4, 2 at most for a batch of 2; c128 at n =
+    300 takes a dense row in shared memory, 4 members a block."""
     bins = _bins(torch.float64, torch.int32, 100_000)
     got = dict(zip(map(tuple, bins[:, :2].tolist()),
                    spgemm.fill_groups(bins, torch.float64, torch.int32, 4)))
     assert got[(spgemm.TINY4, 4)] == got[(spgemm.TINY32, 32)] == 4
-    assert got[(spgemm.HASH_WARP, 256)] == 4
-    assert got[(spgemm.HASH_WARP, 1024)] == 2
+    assert got[(spgemm.SORTED_WARP, 128)] == 4
+    assert got[(spgemm.SORTED_WARP, 512)] == 4
+    wide = _bins(torch.complex128, torch.int64, 100_000)
+    for size, want in ((16, 4), (2, 2)):
+        groups = dict(zip(map(tuple, wide[:, :2].tolist()),
+                          spgemm.fill_groups(wide, torch.complex128,
+                                             torch.int64, size)))
+        assert groups[(spgemm.SORTED_WARP, 128)] == want
+        assert groups[(spgemm.SORTED_WARP, 512)] == want
     assert got[(spgemm.HASH_BLOCK, 4096)] == 4
     assert got[(spgemm.HASH_BLOCK, 16384)] == 1
     assert got[(spgemm.DENSE_GLOBAL, 100_000)] == 1
@@ -173,12 +187,17 @@ def test_fill_groups_known_bins():
 
 
 def test_group_bytes_is_the_kernels_region():
-    """``group_bytes``: one region a group of threads, the members' values
-    and then the keys (hash) or a flag byte a column (dense), rounded up
-    to 16."""
+    """``group_bytes``: one region a group of threads, rounded up to 16: a
+    sorted-product warp's op(A) and op(B) entry and 16-bit sorted order a
+    product, whatever the members and the value type; a hash or dense
+    region the members' values and then the keys (hash) or a flag byte a
+    column (dense)."""
     f64, i32 = torch.float64, torch.int32
-    assert spgemm.group_bytes(spgemm.HASH_WARP, 256, f64, i32, 4) == 8 * (
-        4 * 256 * 8 + 256 * 4)
+    for members in (1, 2, 4):
+        assert spgemm.group_bytes(spgemm.SORTED_WARP, 128, f64, i32,
+                                  members) == 8 * 128 * (2 * 4 + 2)
+        assert spgemm.group_bytes(spgemm.SORTED_WARP, 512, torch.complex128,
+                                  torch.int64, members) == 8 * 512 * 18
     assert spgemm.group_bytes(spgemm.HASH_BLOCK, 4096, f64, torch.int64,
                               2) == 2 * 4096 * 8 + 4096 * 8
     assert spgemm.group_bytes(spgemm.DENSE_SHARED, 300, torch.complex128,
@@ -228,7 +247,7 @@ def test_fill_groups_cache_keyed_by_what_changes_the_group():
     e = spgemm.fill_groups(bins, torch.float64, torch.int64, 4)
     assert spgemm._fill_groups.cache_info().currsize == 4
     assert not np.array_equal(a, c) and not np.array_equal(a, d)
-    assert e[6] == 2 and a[6] == 2  # the 1024-slot warp tables
+    assert e[6] == 4 and a[6] == 4  # the sorted-product bins of 512
     skipped = bins.copy()
     skipped[5, 0] = spgemm.SKIP
     assert spgemm.fill_groups(skipped, torch.float64, torch.int32,

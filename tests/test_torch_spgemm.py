@@ -361,17 +361,30 @@ def test_bins_table(dtype, itype, n):
     entry = dtype.itemsize + itype.itemsize
     hashed = bins[1 + tiny:-1]
     for kind, s, u in hashed:
-        assert kind in (spgemm.HASH_WARP, spgemm.HASH_BLOCK)
-        assert s & (s - 1) == 0 and u == s // 2 and u > spgemm.TINY_MAX
-        tables = 8 if kind == spgemm.HASH_WARP else 1
-        assert tables * s * entry <= spgemm.SHARED_BUDGET
-    assert 64 not in slots  # the warp table of 64 slots is gone
+        assert kind in (spgemm.SORTED_WARP, spgemm.HASH_BLOCK)
+        assert s & (s - 1) == 0 and u > spgemm.TINY_MAX
+        if kind == spgemm.SORTED_WARP:
+            # A warp's products a row, its region sized to them.
+            assert u == s and s in spgemm.WARP_PRODUCTS
+            assert spgemm.group_bytes(kind, s, dtype, itype, 4) == 8 * (
+                s * (2 * itype.itemsize + 2))
+        else:
+            assert u == s // 2 and s * entry <= spgemm.SHARED_BUDGET
+    # The sorted-product bins stand where the warp hash tables of 256 and
+    # 1024 slots stood; no bin of 64 (rows of u <= 32 past 32 products
+    # have n <= 32, where the dense row takes them).
+    warp = [tuple(r) for r in hashed[:, :2] if r[0] == spgemm.SORTED_WARP]
+    assert warp == [(spgemm.SORTED_WARP, u)
+                    for u in spgemm.WARP_PRODUCTS][:len(warp)]
+    assert 64 not in slots
     dense_fits = n * (dtype.itemsize + 1) <= spgemm.SHARED_BUDGET
     assert kinds[-1] == (spgemm.DENSE_SHARED if dense_fits
                          else spgemm.DENSE_GLOBAL)
     assert slots[-1] == n
     if dense_fits:
-        assert (n > spgemm.DENSE_RATIO * hashed[:, 1]).all()
+        # Past 32 products a bin stands only where its hash table (2 u
+        # slots) would hold fewer than n / DENSE_RATIO.
+        assert (n > spgemm.DENSE_RATIO * 2 * hashed[:, 2]).all()
     else:
         assert slots[-2] == spgemm.max_hash_slots(dtype, itype)
     # Routing on ub picks, past 32 products, the bin that u = min(ub, n)
@@ -406,7 +419,7 @@ def test_plan_groups_rows_by_bin(itype):
         if b_id:
             assert (key[rows] > u_max[b_id - 1]).all()
     assert set(plan.bins[plan.offsets.diff().numpy() > 0, 0]) >= {
-        spgemm.SKIP, spgemm.HASH_WARP, spgemm.HASH_BLOCK,
+        spgemm.SKIP, spgemm.SORTED_WARP, spgemm.HASH_BLOCK,
         spgemm.DENSE_GLOBAL}
 
 
@@ -440,7 +453,8 @@ def test_rows_route_by_products(n):
     """Rows of 1..32 products go to the register bin of the smallest width
     at or above their products, whatever n (also where n < ub); ub = 0 to
     SKIP; a row of 33 products past the register bins (the dense row at
-    n = 8 and 300, the warp hash table at WIDE_N); a row of 100 op(A)
+    n = 8 and 300, the sorted-product bin of a warp at WIDE_N); a row of
+    100 op(A)
     entries over mostly empty op(B) rows by its products alone."""
     b_len = [3, 0, 1, 4, 0, 0, 2, 5]  # op(B) rows k, read modulo 8
     ubs = [0, 1, 4, 5, 8, 9, 16, 17, 31, 32, 33, 40]
@@ -467,7 +481,7 @@ def test_rows_route_by_products(n):
             g = min(w for w in spgemm.TINY_KINDS if w >= products)
             want = spgemm.TINY_KINDS[g]
         elif n == WIDE_N:
-            want = spgemm.HASH_WARP
+            want = spgemm.SORTED_WARP
         else:
             want = spgemm.DENSE_SHARED
         assert kind[row] == want, (row, products)
@@ -640,6 +654,167 @@ EMULATED = {
 }
 
 
+PRODUCT_BITS = 9
+
+
+def sorted_row(a, b, i, u, triangular):
+    """K4/K5's sorted-product path (csrc/csr_spgemm.cuh, spgemm_sorted_kernel
+    and sorted_finish) for row i of a @ b in a bin of u products, as one
+    warp runs it: op(A)'s entries 32 at a time, their op(B) row lengths
+    scanned, and in each round t of 32 products (product 32 t + lane on
+    lane ``lane``) the lane's entry found by a binary search of the scan,
+    the count carried across chunks; keys (column << 9) | product index,
+    each product's (op(A) entry, op(B) entry) staged; the bitonic network
+    over the 32 R keys (R = u / 64 or u / 32 registers a lane, by the
+    row's products), lane strides by exchange between lanes, wider ones
+    between a lane's registers; the heads; each head's fold of its run in
+    product order through the staged entries, up to the next head or the
+    first empty position.  Returns (count, columns, values, the longest
+    run)."""
+    rm = u // 32
+    no_key = (1 << 64) - 1
+    p0, p1 = a.indptr[i], a.indptr[i + 1]
+    col = [[-1] * 32 for _ in range(rm)]
+    staged = {}
+    carry = 0
+    for c in range(p0, p1, 32):
+        p = [c + lane for lane in range(32)]
+        start = [b.indptr[a.indices[x]] if x < p1 else 0 for x in p]
+        length = [b.indptr[a.indices[x] + 1] - b.indptr[a.indices[x]]
+                  if x < p1 else 0 for x in p]
+        excl = np.cumsum(length) - length
+        total = int(np.sum(length))
+        for t in range(rm):
+            if not (carry < 32 * (t + 1) and carry + total > 32 * t):
+                continue
+            for lane in range(32):
+                v = 32 * t + lane - carry
+                s, step = 0, 16
+                while step:
+                    if excl[s + step] <= v:
+                        s += step
+                    step //= 2
+                if 0 <= v < total:
+                    q = start[s] + v - excl[s]
+                    col[t][lane] = int(b.indices[q])
+                    staged[32 * t + lane] = (c + s, q)
+        carry += total
+    assert carry <= u
+    r_rows = rm // 2 if carry <= 16 * rm else rm
+    # key[e] at position e = 32 r + lane
+    key = [no_key] * (32 * r_rows)
+    for t in range(r_rows):
+        for lane in range(32):
+            j = col[t][lane]
+            if j >= 0 and (not triangular or j >= i):
+                key[32 * t + lane] = j << PRODUCT_BITS | (32 * t + lane)
+    size = 2
+    while size <= 32 * r_rows:
+        stride = size // 2
+        while stride:
+            new = list(key)
+            for e in range(32 * r_rows):
+                if stride >= 32 and (e >> 5) & (stride >> 5):
+                    continue  # the upper register of a pair moves with it
+                partner = e ^ stride
+                lo, hi = min(key[e], key[partner]), max(key[e], key[partner])
+                if stride >= 32:
+                    up = (e & size) == 0
+                    new[e], new[partner] = (lo, hi) if up else (hi, lo)
+                else:
+                    keep_min = ((e & stride) == 0) == ((e & size) == 0)
+                    new[e] = lo if keep_min else hi
+            key = new
+            stride //= 2
+        size *= 2
+    assert key == sorted(key)
+    head = [k != no_key and (e == 0 or key[e - 1] >> PRODUCT_BITS
+                             != k >> PRODUCT_BITS)
+            for e, k in enumerate(key)]
+    order = [0xFFFF if k == no_key else (k & 511) | (0x8000 if h else 0)
+             for k, h in zip(key, head)]
+    cols, sums, longest = [], [], 0
+    for e, k in enumerate(key):
+        if not head[e]:
+            continue
+        pid, acc, run = k & 511, 0, 0
+        while True:
+            pa, q = staged[pid]
+            acc = acc + a.data[pa] * b.data[q]
+            run += 1
+            e += 1
+            if e >= len(key) or order[e] & 0x8000:
+                break
+            pid = order[e]
+        cols.append(k >> PRODUCT_BITS)
+        sums.append(acc)
+        longest = max(longest, run)
+    return sum(head), cols, sums, longest
+
+
+SORTED_WIDTH = 10_000  # past 8 x 1024: both sorted-product bins
+# (op(A) row lengths, op(B) row lengths in turn, the lowest column of
+# op(B)): rows of exactly 33, 128, 129 and 512 products (512 op(A)
+# entries walked in 16 chunks), then over op(B) rows that share 16
+# columns, so that a column's run is longer than a register of 32 keys.
+SORTED_CASES = (((33, 128, 129, 512), (1,), 0), ((11, 43), (3,), 0),
+                ((32, 128), (4,), 0),
+                ((10, 40, 100, 120), (4, 3, 5), SORTED_WIDTH - 16))
+
+
+def sorted_case(case):
+    """op(A) (8 rows, k = 600) and op(B) of SORTED_CASES[case], values
+    in {-1, 0, 1, 2}: sums exact, some cancelled to a stored 0."""
+    a_rows, b_rows, low = SORTED_CASES[case]
+    rng = np.random.default_rng(37 + case)
+    k = 600
+    a = rows_of([a_rows[i % len(a_rows)] for i in range(8)], k,
+                seed=38 + case)
+    b = rows_of([b_rows[i % len(b_rows)] for i in range(k)],
+                SORTED_WIDTH - low, seed=48 + case)
+    b = sps.csr_matrix((b.data, b.indices + low, b.indptr),
+                       shape=(k, SORTED_WIDTH))
+    a.data = rng.choice([-1.0, 0.0, 1.0, 2.0], a.nnz)
+    b.data = rng.choice([-1.0, 1.0, 2.0], b.nnz)
+    return a, b
+
+
+@pytest.mark.parametrize("triangular", [False, True])
+@pytest.mark.parametrize("case", range(len(SORTED_CASES)))
+def test_sorted_path_matches_plain(case, triangular):
+    """Every row that the plan sends to a sorted-product bin, run as its
+    warp runs it, gives the plain ESC's count, columns and values; the
+    rows of exact sizes reach the bins their products name, and the
+    shared columns make runs longer than a register of 32 keys."""
+    a, b = sorted_case(case)
+    args = csr_args(a, b)
+    indptr, indices, data = spgemm.spgemm_plain(*args, triangular=triangular)
+    kind, ub = routed(a, b, SORTED_WIDTH)
+    plan = spgemm.spgemm_plan(args[0], args[1], args[3], SORTED_WIDTH,
+                              torch.float64, torch.int32)
+    seen, longest = set(), 0
+    for b_id, (k, u, _) in enumerate(plan.bins):
+        if k != spgemm.SORTED_WARP:
+            continue
+        for i in plan.rows[plan.offsets[b_id]:plan.offsets[b_id + 1]]:
+            i = int(i)
+            assert kind[i] == spgemm.SORTED_WARP and u // 4 < ub[i] <= u
+            count, cols, sums, run = sorted_row(a, b, i, int(u), triangular)
+            lo, hi = int(indptr[i]), int(indptr[i + 1])
+            assert count == hi - lo
+            assert cols == indices[lo:hi].tolist()
+            npt.assert_array_equal(np.array(sums), data[lo:hi].numpy())
+            seen.add(int(u))
+            longest = max(longest, run)
+    a_rows, b_rows, low = SORTED_CASES[case]
+    if not low:
+        assert sorted(set(ub)) == sorted({r * b_rows[0] for r in a_rows})
+        assert seen == {128 if r * b_rows[0] <= 128 else 512
+                        for r in a_rows}
+    else:
+        assert seen == {128, 512} and longest > 32
+
+
 def test_long_row_goes_to_the_device_workspace():
     """The row whose products exceed the largest shared-memory table, at
     an n too wide for a dense row in shared memory, takes the workspace."""
@@ -742,6 +917,33 @@ def test_dot_product_array_classes_and_cast_match_jax():
     assert sdtt.dot_product(a, b, dense=True, out=out_p) is out_p
     assert sdt.dot_product(a, b, dense=True, out=out_j) is out_j
     assert_values(out_p, out_j)
+
+
+def poisson_csr(m, k, mean_row, seed):
+    """m x k CSR with Poisson(mean_row) entries a row at random columns,
+    repeats summed (the recipe of the 100,000^2 A @ A timed on the
+    card)."""
+    rng = np.random.default_rng(seed)
+    indptr = np.concatenate([[0], np.cumsum(rng.poisson(mean_row, m))])
+    a = sps.csr_matrix((rng.standard_normal(indptr[-1]),
+                        rng.integers(0, k, indptr[-1]), indptr),
+                       shape=(m, k))
+    a.sum_duplicates()
+    return a
+
+
+def test_poisson_product_in_the_warp_bins_matches_jax():
+    """A Poisson(10) product of about 100 products a row at n = 20,000,
+    whose plan puts rows in both sorted-product bins (128 and 512), through
+    both packages' ``dot_product``."""
+    n = 20_000
+    a, b = poisson_csr(2000, n, 10, 40), poisson_csr(n, n, 10, 41)
+    plan = spgemm.spgemm_plan(t(a.indptr), t(a.indices), t(b.indptr), n,
+                              torch.float64, torch.int32)
+    held = {(int(k), int(s)) for (k, s, _), rows in zip(
+        plan.bins, plan.offsets.diff().tolist()) if rows}
+    assert {(spgemm.SORTED_WARP, u) for u in spgemm.WARP_PRODUCTS} <= held
+    assert_same_result(sdtt.dot_product(a, b), sdt.dot_product(a, b))
 
 
 @pytest.mark.parametrize("transpose", [False, True], ids=["ata", "aat"])
