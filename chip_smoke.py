@@ -39,14 +39,16 @@ Phases, each printing one JSON line:
    the work item's columns) (K4 + K5's second run with the plan built in
    K4's launch, equal to ``spgemm_plan``'s), in shapes that put rows in
    every accumulator bin (the register bins of 4, 8, 16 and 32 lanes,
-   the sorted-product bins of a warp, hash tables of a block, a dense row
-   in shared memory, and in the device workspace) and K6 on every kind of
+   the sorted-product bins of a warp and of a block, a dense row in
+   shared memory, and in the device workspace) and K6 on every kind of
    launch plan (a row split across warps or a warp's own, whole or cut
    into column windows):
    narrow n, runs of one column, exactly cancelled sums, op(A) rows longer
    than a group over empty op(B) rows, rows of 2000 entries, 6000 short
-   rows, and n on either side of 2^27, where the register bins' sort keys
-   widen to 64 bits.  K7 CSR SDDMM (the value gradient) against its plain
+   rows, and n on either side of 2^27, 2^23, 2^21 and 2^19, where the
+   sort keys of the register bins, the warp's sorted bins and the block's
+   bins of 2048 and 8192 widen to 64 bits.  K7 CSR SDDMM (the value
+   gradient) against its plain
    version at n in {1, 2, 3, 4, 8, 17, 32, 64, 128, 130, 200, 300}, with
    and without alpha, on G and B views one row and one element into a
    buffer, with empty rows, nnz == 0, a row of 100,000 entries, rows of
@@ -116,7 +118,7 @@ Phases, each printing one JSON line:
    (``csr_spmm.launches_group``) and each member against its single
    launch, bit for bit where the two take one lane mapping; K5 in the
    same types and batches over the register bins, the sorted-product
-   bins, hash tables of a block, a dense row in shared memory and dense
+   bins of a warp and of a block, a dense row in shared memory and dense
    rows in the device workspace (one member a block), with and without
    ``triangular``, op(A)'s, op(B)'s or both values per member, each
    member's values bit for bit its single fill's; K6 at 2 and 4 members
@@ -241,8 +243,9 @@ Phases, each printing one JSON line:
    ones also beside the CUDA-core variant's batched launch); K6 at the
    demo X @ X.T over 4 and 16 value sets, K9 there in both forms over 4
    G's, K11 at cases a and c in both forms over 4 G's (patterns given as
-   ``CsrSpgemmSparseSddmm`` gives them) and K5 at case c and at case h
-   (100,000^2, Poisson(10) a row, A @ A: sorted-product rows) over 4
+   ``CsrSpgemmSparseSddmm`` gives them) and K5 at case c, at case h
+   (100,000^2, Poisson(10) a row, A @ A: sorted-product rows of a warp)
+   and at case hb (50,000^2, Poisson(30): block-sorted rows) over 4
    value sets on one plan, a group of members a block in each bin,
    beside the per-member instance and 4 x ``torch.sparse.mm(A_csr,
    B_csr)`` (``k5_batched_row``; ``batched_spgemm_rows``, each with
@@ -660,13 +663,13 @@ def check_kernels(spgemm_only=False):
     k6_repeats = check_k6_repeats()
     k6_plans = [dict(zip(K6_PLAN_KEYS, seen)) for seen in sorted(k6_seen)]
     if spgemm_only:
-        emit(2, kernels=results, spgemm_bins=sorted(bins_seen),
+        emit(2, kernels=results, spgemm_bins=sorted(map(list, bins_seen)),
              k6_plans=k6_plans, k6_repeated_column=k6_repeats)
         return results
     if {vec > 1 for vec, _ in schedules} != {True, False}:
         raise AssertionError(f"K2 ran only {schedules} (vec, lanes)")
     check_k7_schedules(k7_schedules, k7_seen)
-    emit(2, kernels=results, spgemm_bins=sorted(bins_seen),
+    emit(2, kernels=results, spgemm_bins=sorted(map(list, bins_seen)),
          k2_schedules=sorted(schedules), k6_plans=k6_plans,
          k6_repeated_column=k6_repeats,
          k7_schedules=sorted(k7_schedules), k7_edges=sorted(k7_seen),
@@ -2223,7 +2226,7 @@ def check_batched_spgemm(record, budgets=(None, 0)):
             bs_ix = cuda(sorted_rows(*b)[1])
             by_column = cuda(np.lexsort(
                 (b[1], np.repeat(np.arange(k), np.diff(b[0])))))
-            plan = spgemm.spgemm_plan(a_ip, a_ix, b_ip, n, tdt, a_ip.dtype)
+            plan = spgemm.spgemm_plan(a_ip, a_ix, b_ip, n, tdt)
             shapes = ((a[1].size,), (b[1].size,))
             for tri in (False, True):
                 c_ip, c_ix, _ = spgemm.product(a_ip, a_ix, a_dv, b_ip, b_ix,
@@ -2579,7 +2582,7 @@ def check_k2_groups(record):
 def check_k5_groups(record):
     """Batched K5 with a group of ``spgemm.fill_groups`` members a block
     in each bin: every type of GROUP_TYPES, SPGEMM_BATCH_CASES' first
-    three (the sorted-product bins and hash tables of a block with the
+    three (the sorted-product bins of a warp and of a block with the
     dense rows in the device workspace, a dense row in shared memory, the
     register bins), with and without ``triangular``, batches of
     K5_GROUP_RUNS (GROUP_SIZES at the wrapper's groups, and 5 members at
@@ -2601,7 +2604,7 @@ def check_k5_groups(record):
             b = distinct_rows(rng, np.resize(b_rows, k), n, npdt, itype)
             a_ip, a_ix, a_dv = map(cuda, a)
             b_ip, b_ix, b_dv = map(cuda, b)
-            plan = spgemm.spgemm_plan(a_ip, a_ix, b_ip, n, tdt, a_ip.dtype)
+            plan = spgemm.spgemm_plan(a_ip, a_ix, b_ip, n, tdt)
             sizes = plan.offsets.diff().tolist()
             shapes = ((a[1].size,), (b[1].size,))
             for tri in (False, True):
@@ -2655,11 +2658,12 @@ def check_k5_groups(record):
                         bits += 1
                     seen.update(live)
     kinds = {kind for kind, g in seen if g > 1}
-    want = {spgemm.SORTED_WARP, spgemm.HASH_BLOCK, spgemm.DENSE_SHARED}
+    want = {spgemm.SORTED_WARP, spgemm.SORTED_BLOCK, spgemm.DENSE_SHARED}
     if (not want <= kinds or not kinds & set(spgemm.TINY_KINDS.values())
             or (spgemm.DENSE_GLOBAL, 1) not in seen
-            or not {(spgemm.SORTED_WARP, 2), (spgemm.SORTED_WARP, 4)}
-            <= seen):
+            or not {(kind, g) for kind in (spgemm.SORTED_WARP,
+                                           spgemm.SORTED_BLOCK)
+                    for g in (1, 2, 4)} <= seen):
         raise AssertionError(f"K5 groups ran only {sorted(seen)}")
     return {"bins_and_members": sorted(map(list, seen)),
             "bit_checked_members": bits}
@@ -3075,15 +3079,15 @@ def check_gradcheck():
 
 # The names of K4's and K5's row kernels in a profiler trace.
 K45_KERNELS = ("spgemm_tiny_kernel", "spgemm_sorted_kernel",
-               "spgemm_rows_kernel")
+               "spgemm_block_kernel", "spgemm_rows_kernel")
 # K4/K5/K6 cases: (m rows of op(A), k, n, entries of the rows of op(A) in
 # turn, entries of the rows of op(B) in turn, small integer values, the
 # lowest column of op(B)).  In the first four, rows of op(A) take 0, 1,
 # 3, 10, 40, 150 and 600 entries, so with 20 per row of op(B) their
 # products are 0, 20, 60, 200, 800, 3000 and 12000: at n = 100,000 that
-# puts rows in the register bin of 32 lanes, both sorted-product bins,
-# both hash bins of a block and, past the largest table, the device
-# workspace; at n = 5000 in the register bin, the sorted-product bin of
+# puts rows in the register bin of 32 lanes, both sorted-product bins of
+# a warp, both of a block and, past the largest, the device workspace;
+# at n = 5000 in the register bin, the sorted-product bin of
 # 128 and the dense row in shared memory; at n = 300 in the register bin
 # and the dense row.  The next three put rows of 1..32 products in every
 # register bin (ops/spgemm.py, spgemm_bins) at n = 1, 8 and 16: long runs
@@ -3101,8 +3105,18 @@ K45_KERNELS = ("spgemm_tiny_kernel", "spgemm_sorted_kernel",
 # 2^23 - 1, where their keys are of 64 bits and of 32 bits with the
 # column bits full (kSortedNarrowColumns); then rows of 40-600 products
 # over op(B) rows that share 16 columns, so that one column's run spans
-# several registers of 32 sorted keys (small integer values).  The last
-# three give K6 (ops/spgemm.py, dense_plan) rows split across warps (one
+# several registers of 32 sorted keys (small integer values).  The next
+# seven do the same for the block-sorted bins (csrc/csr_spgemm.cuh,
+# spgemm_block_kernel): rows of exactly 513, 2048, 2049, 8192 and 8193
+# products (op(A) rows of up to 8193 entries walked 256 at a time over
+# op(B) rows of 1 entry, or 171, 683 and 2731 over rows of 3), at n =
+# 100,000 and with op(B)'s columns at the top below n = 2^21 and 2^21 - 1
+# (the bin of 2048's keys of 64 bits, then of 32 with the column bits
+# full; the bin of 8192's of 64 at both) and 2^19 and 2^19 - 1 (the
+# bin of 8192's of 64, then of 32 bits full); then rows of 800-6000
+# products over op(B) rows that share 16 columns, so that a column's run
+# spans registers and warps (small integer values).  The last three give
+# K6 (ops/spgemm.py, dense_plan) rows split across warps (one
 # row of 2000 entries; three of 1200-2000 over n = 5000, so in windows
 # too) and 6000 short rows, a warp each.  K6 runs where its dense output
 # holds at most K6_MAX_ENTRIES, over op(B) with its rows sorted and
@@ -3110,9 +3124,11 @@ K45_KERNELS = ("spgemm_tiny_kernel", "spgemm_sorted_kernel",
 SPGEMM_A_ROWS = (0, 1, 3, 10, 40, 150, 600)
 WIDE_KEY_N = 1 << 27
 SORTED_KEY_N = 1 << 23
+BLOCK_KEY_N = (1 << 21, 1 << 19)  # the block bins of 2048 and 8192
 # The bins a case whose n is at a key width's edge keeps its rows in.
 KEY_EDGE_BINS = {WIDE_KEY_N: "register", WIDE_KEY_N - 1: "register",
-                 SORTED_KEY_N: "sorted", SORTED_KEY_N - 1: "sorted"}
+                 SORTED_KEY_N: "sorted", SORTED_KEY_N - 1: "sorted",
+                 **{n - d: "block" for n in BLOCK_KEY_N for d in (0, 1)}}
 K6_MAX_ENTRIES = 1 << 24
 SPGEMM_CASES = (
     (42, 2000, 100_000, SPGEMM_A_ROWS, (20,), False, 0),
@@ -3135,6 +3151,16 @@ SPGEMM_CASES = (
       for a_rows, b_rows in (((33, 128, 129, 512), (1,)),
                              ((11, 43), (3,)), ((32, 128), (4,)))),
     (8, 600, 100_000, (10, 40, 100, 120), (4, 3, 5), True, 100_000 - 16),
+    *((10, 9000, n, a_rows, b_rows, True, low)
+      for n, low, a_rows in (
+          (100_000, 0, (513, 2048, 2049, 8192, 8193)),
+          (1 << 21, (1 << 21) - 9000, (513, 2048, 2049, 8192)),
+          ((1 << 21) - 1, (1 << 21) - 9001, (513, 2048, 2049, 8192)),
+          (1 << 19, (1 << 19) - 9000, (2049, 8192)),
+          ((1 << 19) - 1, (1 << 19) - 9001, (2049, 8192)))
+      for a_rows, b_rows in ((a_rows, (1,)), ((171, 683, 2731), (3,)))
+      if n == 100_000 or b_rows == (1,)),
+    (6, 9000, 100_000, (200, 600, 1500), (4, 3, 5), True, 100_000 - 16),
     (1, 3000, 300, (2000,), (20,), False, 0),
     (3, 3000, 5000, (1200, 2000, 1500), (20,), False, 0),
     (6000, 400, 48, (2, 3, 5, 0), (3, 6), False, 0),
@@ -3213,15 +3239,36 @@ def spgemm_call(plan_fn, *args, on_card=False):
     return plan, counts, indptr, indices, data
 
 
+def key_bits(kind, slots, n):
+    """The width of a K4/K5 bin's sort keys at n columns
+    (``csrc/csr_spgemm.cuh``): (column << log2 of the products a row held
+    at once) | product index, 32 bits while the column fits; 0 for the
+    dense rows, which sort nothing."""
+    from sparse_dot_tpu_torch.ops import spgemm
+
+    if kind in (spgemm.DENSE_SHARED, spgemm.DENSE_GLOBAL):
+        return 0
+    product_bits = {spgemm.SORTED_WARP: 9, spgemm.SORTED_BLOCK:
+                    int(slots).bit_length() - 1}.get(kind, 5)
+    return 32 if n < 1 << (32 - product_bits) else 64
+
+
 def check_bins_seen(bins_seen):
-    """Every kind of K4/K5 row bin held rows in some phase-2 case."""
+    """Every kind of K4/K5 row bin held rows in some phase-2 case
+    (``bins_seen``: (kind, slots, key bits)), every sorted-product bin
+    (of a warp, of a block) with keys of 32 and of 64 bits."""
     from sparse_dot_tpu_torch.ops import spgemm
 
     wanted = {*spgemm.TINY_KINDS.values(), spgemm.SORTED_WARP,
-              spgemm.HASH_BLOCK, spgemm.DENSE_SHARED, spgemm.DENSE_GLOBAL}
-    if bins_seen != wanted:
-        raise AssertionError(f"K4/K5 bins exercised {bins_seen}, want "
-                             f"{wanted}")
+              spgemm.SORTED_BLOCK, spgemm.DENSE_SHARED, spgemm.DENSE_GLOBAL}
+    kinds = {kind for kind, _, _ in bins_seen}
+    sorted_bins = {(kind, u, bits) for kind, products in (
+        (spgemm.SORTED_WARP, spgemm.WARP_PRODUCTS),
+        (spgemm.SORTED_BLOCK, spgemm.BLOCK_PRODUCTS))
+        for u in products for bits in (32, 64)}
+    if kinds != wanted or not sorted_bins <= bins_seen:
+        raise AssertionError(f"K4/K5 bins exercised {sorted(bins_seen)}, "
+                             f"want {wanted} and {sorted(sorted_bins)}")
 
 
 def check_k6_seen(k6_seen):
@@ -3247,8 +3294,10 @@ def check_spgemm(rng, tdt, npdt, itype, record, bins_seen, k6_seen):
     indices equal, values within tolerance, the same bits on a second
     run; K6 against its plain version, with and without the epilogue and
     ``triangular``, over op(B) sorted and shuffled, twice each.
-    ``bins_seen`` collects the bin kinds that held rows, ``k6_seen`` K6's
-    plans (``K6_PLAN_KEYS``)."""
+    ``bins_seen`` collects the (kind, slots, key bits) of the bins that
+    held rows (``key_bits``), ``k6_seen`` K6's plans (``K6_PLAN_KEYS``).
+    Where a case's values are small integers (``exact``), K5's sums are
+    exact and held against the plain version's bit for bit."""
     from sparse_dot_tpu_torch.ops import spgemm
 
     for m, k, n, a_rows, b_rows, exact, b_low in SPGEMM_CASES:
@@ -3260,15 +3309,18 @@ def check_spgemm(rng, tdt, npdt, itype, record, bins_seen, k6_seen):
         b_ip, b_ix, b_dv = map(cuda, b)
 
         def plan():
-            return spgemm.spgemm_plan(a_ip, a_ix, b_ip, n, tdt, a_ip.dtype)
+            return spgemm.spgemm_plan(a_ip, a_ix, b_ip, n, tdt)
 
         p = plan()
         sizes = p.offsets.diff().cpu().numpy()
-        held = {int(kind) for kind, size in zip(p.bins[:, 0], sizes)
+        held = {(int(kind), int(slots), key_bits(kind, slots, n))
+                for (kind, slots, _), size in zip(p.bins, sizes)
                 if size and kind != spgemm.SKIP}
         edge = KEY_EDGE_BINS.get(n)
-        if edge and not held <= ({spgemm.SORTED_WARP} if edge == "sorted"
-                                 else set(spgemm.TINY_KINDS.values())):
+        edge_kinds = {"sorted": {spgemm.SORTED_WARP},
+                      "block": {spgemm.SORTED_BLOCK, spgemm.DENSE_GLOBAL},
+                      "register": set(spgemm.TINY_KINDS.values())}
+        if edge and not {kind for kind, _, _ in held} <= edge_kinds[edge]:
             raise AssertionError(f"K4/K5 n={n}: rows past the {edge} bins")
         bins_seen.update(held)
         for tri in (False, True):
@@ -3281,6 +3333,9 @@ def check_spgemm(rng, tdt, npdt, itype, record, bins_seen, k6_seen):
                     and torch.equal(indices, ref[1])):
                 raise AssertionError(f"K4/K5 {tdt} n={n}: pattern differs")
             err = compare(data, ref[2], tdt)
+            if exact and not torch.equal(data, ref[2]):
+                raise AssertionError(f"K5 {tdt} n={n}: exact sums differ "
+                                     f"from the plain version's bits")
             record("K4_csr_spgemm_count", 0.0)
             record("K5_csr_spgemm_fill", err)
             again = spgemm_call(plan, *args, on_card=True)
@@ -5340,12 +5395,14 @@ def spgemm_cases(inp):
     """K4's and K5's phase-4 cases: {case: (shape, A, B, reps)}.  a: the
     demo X @ X.T (dense rows); c: the 1M^2 A @ A (register bins); d:
     config 3's BSR x BSR (dense rows); h: 100,000^2, Poisson(10) a row,
-    A @ A (about 100 products a row: the sorted-product bins); hb:
-    50,000^2, Poisson(30) a row, A @ A (about 900 a row: the hash
-    tables of a block)."""
+    A @ A (about 100 products a row: the sorted-product bins of a
+    warp); hb: 50,000^2, Poisson(30) a row, A @ A (about 900 a row: the
+    block-sorted bin of 2048); hc: 30,000^2, Poisson(50) a row, A @ A
+    (about 2,500 a row: the block-sorted bins of 8192 and 2048)."""
     x = inp["x"]
     h = poisson_square(100_000, 10)
     hb = poisson_square(50_000, 30, SEED + 43)
+    hc = poisson_square(30_000, 50, SEED + 44)
     return {
         "a": ("demo X @ X.T, X 500x5000 CSR 21.2% f64", x, x.T, REPS),
         "c": ("1M x 1M CSR, 2M random nnz, A @ A, f64", inp["a1m"],
@@ -5354,6 +5411,8 @@ def spgemm_cases(inp):
               inp["bsr_b"], REPS_CONFIG3),
         "h": ("100k x 100k CSR, Poisson(10) a row, A @ A, f64", h, h, REPS),
         "hb": ("50k x 50k CSR, Poisson(30) a row, A @ A, f64", hb, hb,
+               REPS_CONFIG3),
+        "hc": ("30k x 30k CSR, Poisson(50) a row, A @ A, f64", hc, hc,
                REPS_CONFIG3),
     }
 
@@ -5374,7 +5433,7 @@ def bin_groups(plan, sizes, groups):
 def spgemm_timings(inp):
     """K4 (count), K5 (fill) and K4 + K5 as one product (plan, count,
     running sum, the nnz read, fill) against their plain versions, at
-    ``spgemm_cases``' cases a, c, d, h and hb, products/s and the rows
+    ``spgemm_cases``' cases a, c, d, h, hb and hc, products/s and the rows
     of each bin beside each; K6 as ``k6_timings`` times it; then the wall
     time of ``dot_product(X, X.T)`` host in to host out, next to
     scipy's."""
@@ -5388,7 +5447,7 @@ def spgemm_timings(inp):
         A, B = formats.to_device(a), formats.to_device(b)
         args = (*A.csr_arrays(), *B.csr_arrays(), b.shape[1])
         ip, ix, dv, bip, bix, bdv, n = args
-        plan = spgemm.spgemm_plan(ip, ix, bip, n, dv.dtype, ip.dtype)
+        plan = spgemm.spgemm_plan(ip, ix, bip, n, dv.dtype)
         products = int(plan.ub.sum())
         whole = spgemm.csr_spgemm(*args)
         ref = spgemm.spgemm_plain(*args)
@@ -5438,7 +5497,7 @@ def spgemm_timings(inp):
             # beside it, the torch plan and K4's plain version.
             ("K4 with its plan",
              lambda: spgemm.plan_and_count(ip, ix, bip, bix, n, dv.dtype)[1],
-             lambda: (spgemm.spgemm_plan(ip, ix, bip, n, dv.dtype, ip.dtype),
+             lambda: (spgemm.spgemm_plan(ip, ix, bip, n, dv.dtype),
                       spgemm.csr_spgemm_count_plain(ip, ix, bip, bix, n))[1]),
             ("K5_csr_spgemm_fill",
              lambda: spgemm.csr_spgemm_fill(*args, plan, whole[0], nnz,
@@ -6426,7 +6485,8 @@ def sampled_group(single, g, shared_y, k11_transposed=None):
             "lines_a_member": plan.panel if plan.staged else None}
 
 
-def k5_batched_row(shape, a_np, b_np, a, b, c, rng, case, size=4):
+def k5_batched_row(shape, a_np, b_np, a, b, c, rng, case, size=4,
+                   reps=REPS):
     """Phase 4's row of batched K5 over ``size`` value sets of op(A),
     op(B) shared, on one plan (``fill_batched``: the wrapper's groups),
     beside the same members' single fills, the per-member instance (the
@@ -6439,7 +6499,7 @@ def k5_batched_row(shape, a_np, b_np, a, b, c, rng, case, size=4):
     ip, ix, dv = a
     bip, bix, bdv = b
     n = b_np.shape[1]
-    plan = spgemm.spgemm_plan(ip, ix, bip, n, dv.dtype, ip.dtype)
+    plan = spgemm.spgemm_plan(ip, ix, bip, n, dv.dtype)
     sizes = plan.offsets.diff().tolist()
     nnz = c[1].numel()
     av = dv[None] * (1 + 0.1 * cuda(values(rng, (size, ix.numel()),
@@ -6475,27 +6535,35 @@ def k5_batched_row(shape, a_np, b_np, a, b, c, rng, case, size=4):
         yardstick_note=f"beside's yardstick: {size} x torch.sparse.mm("
                        "A_csr, B_csr) (cuSPARSE SpGEMM, which counts the "
                        "pattern too), one a member",
-        device_match=K45_KERNELS,
+        device_match=K45_KERNELS, reps=reps,
         members=size, case=case,
         bins=bin_groups(plan, sizes, groups))
     return row
 
 
-def k5_case_h_row(rng, side=100_000, mean_row=10):
+# Batched K5's Poisson cases beyond c: {case: (side, mean_row, seed, the
+# bins its rows fill)} (``spgemm_cases``' h and hb).
+K5_POISSON_CASES = {"h": (100_000, 10, SEED + 42, "sorted-product bins"),
+                    "hb": (50_000, 30, SEED + 43, "block-sorted bins")}
+
+
+def k5_case_h_row(rng, case="h"):
     """``k5_batched_row`` at case h, whose rows fill K5's sorted-product
-    bins (``side``^2, Poisson(``mean_row``) entries a row, A @ A, f64:
-    about mean_row^2 products a row)."""
+    bins of a warp, or hb, the block-sorted bins (K5_POISSON_CASES:
+    side^2, Poisson(mean_row) entries a row, A @ A, f64, about
+    mean_row^2 products a row); hb at REPS_CONFIG3."""
     from sparse_dot_tpu_torch import formats
     from sparse_dot_tpu_torch.ops import spgemm
 
-    a_np = poisson_square(side, mean_row)
+    side, mean_row, seed, bins = K5_POISSON_CASES[case]
+    a_np = poisson_square(side, mean_row, seed)
     A = formats.to_device(a_np)
     a = A.csr_arrays()
     c = spgemm.csr_spgemm(*a, *a, side)[:2]
     row = k5_batched_row(f"{side // 1000}k x {side // 1000}k CSR, "
                          f"Poisson({mean_row}) a row, A @ A, f64, sparse "
-                         "output (sorted-product bins)", a_np, a_np, a, a,
-                         c, rng, "h")
+                         f"output ({bins})", a_np, a_np, a, a, c, rng, case,
+                         reps=REPS if case == "h" else REPS_CONFIG3)
     del A, a, c
     torch.cuda.empty_cache()
     return row
@@ -6514,7 +6582,8 @@ def batched_spgemm_rows(inp, groups_only=False):
     Each with its bound (``k6_batched_bound``, ``k9_batched_bound``,
     ``k11_batched_bound``; K5: the index arrays and C's structure once,
     each member's values and output); K5 also at case h, whose rows
-    fill the sorted-product bins (``k5_case_h_row``).  K6 also over 4
+    fill the sorted-product bins of a warp, and at hb, the block-sorted
+    bins (``k5_case_h_row``).  K6 also over 4
     value sets of op(B), op(A) shared; K6 and K5 beside their per-member
     instances too.  With ``groups_only`` the K6 and K5 rows alone (the
     member groups')."""
@@ -6564,7 +6633,8 @@ def batched_spgemm_rows(inp, groups_only=False):
         rows.append(k5_batched_row(shape_c, inp["a1m"], inp["a1m"], a, a, c,
                                    rng, "c"))
         del A, a, c
-        return over_single_launches(rows + [k5_case_h_row(rng)])
+        return over_single_launches(rows + [k5_case_h_row(rng),
+                                            k5_case_h_row(rng, "hb")])
     g = cuda(values(rng, (4, n, n), np.float64))
     t, order = formats.CsrPattern(ip, ix, x.shape[1]).transpose()
     for transposed in (False, True):
@@ -6632,6 +6702,7 @@ def batched_spgemm_rows(inp, groups_only=False):
         del A, B, a, b, c, g
         torch.cuda.empty_cache()
     rows.append(k5_case_h_row(rng))
+    rows.append(k5_case_h_row(rng, "hb"))
     return over_single_launches(rows)
 
 
@@ -8506,6 +8577,8 @@ def main():
     emit(1, card=card, torch=torch.__version__, cuda=torch.version.cuda,
          device=torch.cuda.get_device_name(0),
          nvcc_seconds=_build.build_seconds,
+         nvcc_seconds_by_source=dict(sorted(
+             _build.source_seconds.items(), key=lambda kv: -kv[1])),
          build_and_load_seconds=time.perf_counter() - t0,
          library_hash=_build.source_hash())
 

@@ -18,6 +18,7 @@ Run from the root of a checkout, on a machine with the card:
     python3 compare_k7_k13.py k5 [--root DIR]          # K5's half alone
     python3 compare_k7_k13.py k4k5 [--root DIR]        # K4, K5, K4 + K5
     python3 compare_k7_k13.py sorted                   # sorted-bin variants
+    python3 compare_k7_k13.py block                    # K4's block count
     python3 compare_k7_k13.py k6k1 [--root DIR]        # batched K6/K1 groups
     python3 compare_k7_k13.py k6_banks                 # no card needed
 
@@ -62,15 +63,18 @@ case c and at a product of hash-bin rows (``k2_group_sweep``,
 ``k5_group_sweep``; ``k5`` the K5 half alone), with ``--root DIR`` the
 package at DIR's wrappers too, in the same turns.  ``k4k5`` times K4,
 K4 with its plan, K5 and K4 + K5 as one product beside
-``torch.sparse.mm`` at phase 4's sparse-output cases (a, c, d, h, hb),
-and batched K5 over 4 value sets at cases c and h beside 4 x
+``torch.sparse.mm`` at phase 4's sparse-output cases (a, c, d, h, hb,
+hc), and batched K5 over 4 value sets at cases c, h and hb beside 4 x
 ``torch.sparse.mm``, with ``--root DIR`` the package at DIR's wrappers
-too, in the same turns (``k4k5_turns``).  ``sorted`` times K4, K5 and
+too, in the same turns, C checked bit for bit against DIR's
+(``k4k5_turns``).  ``sorted`` times K4, K5 and
 batched K5 at case h and at a 100,000^2 Poisson(16) A @ A beside two
 variants of the sorted-product bins built from copies of the package
 under ``build/`` (keys sorted in shared memory; every row sorting its
 bin's U keys; the bin of 512 alone sorting its 512 keys) in the same
-turns (``sorted_variants``).  ``k6k1`` times
+turns (``sorted_variants``).  ``block`` times K4 at cases hb and hc
+beside a copy of the package under ``build/`` whose block-sorted bins
+count the heads of the sort in place of a table (``block_variants``).  ``k6k1`` times
 batched K6 at case a (op(A)'s values per member in every value type and
 index width at 4, 8 and 16 sets, op(B)'s over 4, c0's over 4) and
 batched K1 at config 3 (f64 and f32, 4 block sets, b shared) at 1, 2
@@ -994,6 +998,17 @@ GROUP_SWEEP_TYPES = ((torch.float32, torch.int32), (torch.float32, torch.int64),
                      (torch.complex128, torch.int64))
 
 
+def plan_of(spgemm, a_indptr, a_indices, b_indptr, n, dtype):
+    """``spgemm_plan`` of any checkout's ``ops.spgemm`` module ``spgemm``:
+    an older checkout's took the index dtype too."""
+    import inspect
+
+    if len(inspect.signature(spgemm.spgemm_plan).parameters) == 6:
+        return spgemm.spgemm_plan(a_indptr, a_indices, b_indptr, n, dtype,
+                                  a_indptr.dtype)
+    return spgemm.spgemm_plan(a_indptr, a_indices, b_indptr, n, dtype)
+
+
 def other_packages(packages):
     """The modules of ``packages`` ({label: module name}) other than this
     checkout's."""
@@ -1103,7 +1118,7 @@ def k5_group_sweep(packages, inputs, rng, size=4):
         n = a_np.shape[1]
         c_ip, c_ix, _ = spgemm.csr_spgemm(ip, ix, dv, ip, ix, dv, n)
         nnz = c_ix.numel()
-        plan = spgemm.spgemm_plan(ip, ix, ip, n, tdt, ip.dtype)
+        plan = spgemm.spgemm_plan(ip, ix, ip, n, tdt)
         sizes = plan.offsets.diff().tolist()
         av = dv[None] * (1 + 0.1 * cuda(values(rng, (size, ix.numel()),
                                                npdt)))
@@ -1119,8 +1134,7 @@ def k5_group_sweep(packages, inputs, rng, size=4):
                                    nnz, bin_sizes=sizes)[1]
             for i in range(size)]
         for label, other in others.items():
-            oplan = other.ops.spgemm.spgemm_plan(ip, ix, ip, n, tdt,
-                                                 ip.dtype)
+            oplan = plan_of(other.ops.spgemm, ip, ix, ip, n, tdt)
             fns[f"{label}: wrapper"] = (
                 lambda other=other, oplan=oplan: other.ops.spgemm
                 .fill_batched(*args, oplan, c_ip, nnz, bin_sizes=sizes)[1])
@@ -1142,11 +1156,12 @@ def k4k5_turns(packages, inputs, rng, size=4):
     given, as ``csr_spgemm`` launches it) and K4 + K5 as one product
     (``csr_spgemm``) of each package of ``packages``, beside
     ``torch.sparse.mm(A_csr, B_csr)`` (cuSPARSE SpGEMM), in the same
-    turns, at ``chip_smoke.spgemm_cases``' cases (a, c, d, h, hb; hb at
-    its fewer reps), each call's output first held against this
-    checkout's plain versions; and at cases c and h batched K5 over
-    ``size`` value sets of op(A) (``fill_batched``) beside ``size`` x
-    ``torch.sparse.mm``.  Rows a bin at each case."""
+    turns, at ``chip_smoke.spgemm_cases``' cases (a, c, d, h, hb, hc; hb
+    and hc at their fewer reps), each call's output first held against
+    this checkout's plain versions, and each package's product against
+    the first's, bit for bit (``same_bits``); and at cases c, h and hb
+    batched K5 over ``size`` value sets of op(A) (``fill_batched``)
+    beside ``size`` x ``torch.sparse.mm``.  Rows a bin at each case."""
     import importlib
 
     from sparse_dot_tpu_torch import formats
@@ -1166,8 +1181,9 @@ def k4k5_turns(packages, inputs, rng, size=4):
         counts = ref[0].long().diff()
         nnz = ref[1].numel()
         fns = {}
+        first = None
         for label, mod in mods.items():
-            plan = mod.spgemm_plan(ip, ix, bip, n, dv.dtype, ip.dtype)
+            plan = plan_of(mod, ip, ix, bip, n, dv.dtype)
             sizes = plan.offsets.diff().tolist()
             got = mod.csr_spgemm_count(ip, ix, bip, bix, n, plan)
             chip_smoke.compare(got, counts, got.dtype)
@@ -1180,6 +1196,13 @@ def k4k5_turns(packages, inputs, rng, size=4):
             got = mod.csr_spgemm(*args)
             chip_smoke.compare(got[1], ref[1], got[1].dtype)
             chip_smoke.compare(got[2], ref[2], dv.dtype)
+            if first is None:
+                first = got
+            elif not (torch.equal(got[0], first[0])
+                      and torch.equal(got[1], first[1])
+                      and chip_smoke.same_bits(got[2], first[2])):
+                raise AssertionError(f"case {case}: {label}'s C differs "
+                                     f"from the first package's bits")
             del got
             fns[f"{label}: K4"] = (
                 lambda mod=mod, plan=plan: mod.csr_spgemm_count(
@@ -1202,9 +1225,11 @@ def k4k5_turns(packages, inputs, rng, size=4):
         result[case] = {
             "shape": shape, "reps": reps, "nnz": nnz, "bins": bins,
             "products": int(spgemm.row_bounds(ip, ix, bip).sum()),
+            "same_bits_across_packages": len(mods) > 1,
             "times": {name: dict(zip(("ms", "p10", "p90"), spread(t)))
                       for name, t in times.items()}}
-        if case in ("c", "h"):
+        del first
+        if case in ("c", "h", "hb"):
             result[case]["batched"] = k5_batched_turns(
                 mods, a_np, args, ref, rng, reps, size)
         del A, B, args, ref, fns, a_t, b_t
@@ -1228,7 +1253,7 @@ def k5_batched_turns(mods, a_np, args, ref, rng, reps, size):
     want = spgemm.csr_spgemm_fill_batched_plain(*fill_args)[1]
     fns = {}
     for label, mod in mods.items():
-        plan = mod.spgemm_plan(ip, ix, bip, n, dv.dtype, ip.dtype)
+        plan = plan_of(mod, ip, ix, bip, n, dv.dtype)
         sizes = plan.offsets.diff().tolist()
         fn = (lambda mod=mod, plan=plan, sizes=sizes: mod.fill_batched(
             *fill_args, plan, ref[0], nnz, bin_sizes=sizes)[1])
@@ -1311,6 +1336,121 @@ ALL_KEYS_512 = (("csr_spgemm.cuh", "    if (carry <= 16 * RM) {",
                  "    if (U == 128 && carry <= 16 * RM) {"),)
 
 
+# K4's count in the block-sorted bins by the heads of a sort of its keys,
+# as K5 sorts them, in place of a table of pow2(2 ub) slots
+# (csr_spgemm_block.cuh, block_count_by_table), timed against this
+# checkout by ``block``: the region holds the keys while they cross warps.
+COUNT_BY_SORT_FN = """template <typename I, typename K, int U, int RR, int RM>
+__device__ __forceinline__ void block_count_by_sort(
+    const Args<float, I>& args, int64_t i, const I (&col)[RM], K* xs,
+    uint64_t* last, int* heads_of) {
+  constexpr K kNoKey = ~K(0);
+  constexpr int P = log2_of(U);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  K key[RM];
+#pragma unroll
+  for (int t = 0; t < RM; ++t) {
+    const bool live =
+        t < RR && col[t] >= 0 && (!args.triangular || col[t] >= i);
+    key[t] = live ? (static_cast<K>(col[t]) << P) |
+                        static_cast<K>(kThreads * t + tid)
+                  : kNoKey;
+  }
+  sort_block_keys<K, RR>(key, xs, lane, warp);
+  if (lane == 31) last[warp] = key[RR - 1];
+  __syncthreads();
+  int count = 0;
+#pragma unroll
+  for (int r = 0; r < RR; ++r) {
+    const K up = __shfl_up_sync(kFullMask, key[r], 1);
+    const K wrap = __shfl_sync(kFullMask, key[r > 0 ? r - 1 : 0], 31);
+    K prev = lane > 0 ? up : wrap;
+    if (r == 0 && lane == 0) {
+      prev = warp > 0 ? static_cast<K>(last[warp - 1]) : kNoKey;
+    }
+    const bool head = key[r] != kNoKey && (prev == kNoKey ||
+                                           (prev >> P) != (key[r] >> P));
+    count += __popc(__ballot_sync(kFullMask, head));
+  }
+  if (lane == 0) heads_of[warp] = count;
+  __syncthreads();
+  if (tid == 0) {
+    int total = 0;
+#pragma unroll
+    for (int w = 0; w < kBlockWarps; ++w) total += heads_of[w];
+    store_streaming(args.counts + i, static_cast<int64_t>(total));
+  }
+}
+
+"""
+COUNT_BY_SORT = (
+    ("csr_spgemm_block.cuh",
+     "// K4's count of row i in a block bin: the columns of the row's ub\n",
+     COUNT_BY_SORT_FN
+     + "// K4's count of row i in a block bin: the columns of the row's ub\n"),
+    ("csr_spgemm_block.cuh",
+     "      block_count_by_table<I, R>(args, i, carry, col,\n"
+     "                                 reinterpret_cast<I*>(smem), s_heads);",
+     "      K* keys = reinterpret_cast<K*>(smem);\n"
+     "      if (carry <= U / 2) {\n"
+     "        block_count_by_sort<I, K, U, R / 2, R>(args, i, col, keys,\n"
+     "                                               s_last, s_heads);\n"
+     "      } else {\n"
+     "        block_count_by_sort<I, K, U, R, R>(args, i, col, keys, s_last,\n"
+     "                                           s_heads);\n"
+     "      }"),
+    ("csr_spgemm_block.cuh",
+     "FILL ? U * (2 * int64_t(sizeof(I)) + 8) : 2 * U * int64_t(sizeof(I));",
+     "FILL ? U * (2 * int64_t(sizeof(I)) + 8) : U * 8;"),
+    ("csr_spgemm_block.cuh",
+     "  if constexpr (FILL) {\n    if (args.n >= block_narrow_columns<U>()) {",
+     "  {\n    if (args.n >= block_narrow_columns<U>()) {"),
+)
+
+
+def block_variants():
+    """K4 (and K4 with its plan) of this checkout (a table a row in the
+    block-sorted bins) and of a copy built under ``build/`` that counts
+    the heads of the sort (COUNT_BY_SORT), in the same turns, each held
+    against the plain version first, at ``chip_smoke.spgemm_cases``'
+    hb and hc."""
+    from sparse_dot_tpu_torch import formats
+    from sparse_dot_tpu_torch.ops import spgemm
+
+    dest = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "sdt_count_by_sort")
+    mods = {"this checkout (table)": spgemm,
+            "heads of the sort": variant_package(
+                dest, "sdt_count_by_sort", COUNT_BY_SORT).ops.spgemm}
+    result = {}
+    cases = chip_smoke.spgemm_cases(chip_smoke.spgemm_inputs())
+    for case in ("hb", "hc"):
+        shape, a_np, _, reps = cases[case]
+        A = formats.to_device(a_np)
+        ip, ix, dv = A.csr_arrays()
+        n = a_np.shape[1]
+        counts = spgemm.csr_spgemm_count_plain(ip, ix, ip, ix, n)
+        fns = {}
+        for label, mod in mods.items():
+            plan = mod.spgemm_plan(ip, ix, ip, n, dv.dtype)
+            k4 = (lambda mod=mod, plan=plan: mod.csr_spgemm_count(
+                ip, ix, ip, ix, n, plan))
+            with_plan = (lambda mod=mod: mod.plan_and_count(
+                ip, ix, ip, ix, n, dv.dtype)[1])
+            compare(k4(), counts, counts.dtype)
+            compare(with_plan(), counts, counts.dtype)
+            fns.update({f"{label}: K4": k4,
+                        f"{label}: K4 with its plan": with_plan})
+        times = time_turns(fns, max(reps, 15))
+        result[case] = {
+            "shape": shape,
+            "times": {name: dict(zip(("ms", "p10", "p90"), spread(t)))
+                      for name, t in times.items()}}
+        del A, fns
+        torch.cuda.empty_cache()
+    return result
+
+
 def sorted_variants(rng, size=4):
     """K4, K5 and batched K5 (``size`` value sets of op(A), op(B) shared,
     the wrapper's groups) of this checkout and of three variants built
@@ -1349,7 +1489,7 @@ def sorted_variants(rng, size=4):
         want = spgemm.csr_spgemm_fill_batched_plain(*fill_args)[1]
         fns = {}
         for label, mod in mods.items():
-            plan = mod.spgemm_plan(ip, ix, ip, n, dv.dtype, ip.dtype)
+            plan = mod.spgemm_plan(ip, ix, ip, n, dv.dtype)
             sizes = plan.offsets.diff().tolist()
             k4 = (lambda mod=mod, plan=plan: mod.csr_spgemm_count(
                 ip, ix, ip, ix, n, plan))
@@ -1685,7 +1825,8 @@ def main():
                                          "route", "groups", "sampled",
                                          "walls", "bsr", "bsr_gate",
                                          "plain_cpu", "k2k5", "k5",
-                                         "k4k5", "sorted", "k6k1", "k1",
+                                         "k4k5", "sorted", "block",
+                                         "k6k1", "k1",
                                          "k6", "k6_banks"))
     parser.add_argument("--root", help="rows: time the package of the "
                                        "checkout at ROOT instead; route, "
@@ -1757,6 +1898,8 @@ def main():
         line["k4k5"] = k4k5_turns(packages, chip_smoke.spgemm_inputs(), rng)
     elif args.mode == "sorted":
         line["sorted"] = sorted_variants(rng)
+    elif args.mode == "block":
+        line["block"] = block_variants()
     elif args.mode == "k1":
         line["k1"] = k1_group_sweep(packages, chip_smoke.path_inputs(), rng)
     elif args.mode == "k6":

@@ -15,9 +15,9 @@
 // m x n or (number of products) is ever written to device memory.
 //
 // Bound: each product costs one read of op(B)'s (column, value) and one
-// accumulator update, and every entry of op(A) ends in a synchronisation
-// of the threads that share the row; rows are bound by that latency, not
-// by bytes.  The row bins of ops/spgemm.py (spgemm_bins) choose, per row,
+// accumulator update (a sorted key, or a dense row's slot), after a chain
+// of dependent loads (row id, op(A)'s indptr and entry, op(B)'s indptr
+// and column); rows are bound by that latency, not by bytes.  The row bins of ops/spgemm.py (spgemm_bins) choose, per row,
 // by ub, the row's number of products:
 //   - kTiny4, kTiny8, kTiny16, kTiny32 (1 <= ub <= G for the group width
 //     G): a group of G lanes of a warp, 32 / G rows a warp, each lane one
@@ -45,14 +45,28 @@
 //     or folds the run in product order from zero, reading the values
 //     through the staged entries, and writes it (K5).  No atomics, no
 //     table to clear, no sort of a hash table's empty slots;
-//   - kHashBlock: one 256-thread block per row, a table of 4096 slots or
-//     the largest that 200 KB hold (8192 or 16384);
+//   - kSortedBlock (U / 4 < ub <= U, U = 2048 or 8192): the same over a
+//     256-thread block, one row a block, every thread on a product.  The
+//     block takes op(A)'s entries 256 at a time, scans their op(B) row
+//     lengths across the block (the count carried across chunks) and
+//     finds each thread's product by a binary search of the scan in
+//     shared memory, 256 products a round; a thread keeps each of its
+//     products' key (column << log2 U) | product index in a register
+//     (32-bit keys when n < 2^(32 - log2 U)), and K5 stages its op(A) and
+//     op(B) entries in the block's region (nothing zeroed).  K5 sorts
+//     pow2(ub) keys (U / 2 or U): each warp its part in registers and
+//     shuffles, the strides that cross warps in shared memory, a block
+//     sync a stage; the heads fold their runs in product order as in
+//     kSortedWarp, a run crossing from one warp's part into the next.  K4
+//     needs no order: it inserts the columns into a table of pow2(2 ub)
+//     slots in shared memory (only those cleared) and counts the fresh
+//     inserts;
 //   - kDenseShared: one block per row, a dense row of width n (values and
 //     one flag byte per column) in shared memory, where it fits 200 KB;
 //   - kDenseGlobal: the same dense row in a device workspace of
 //     `work_groups` rows of round16(n * (sizeof(T) + 1)) bytes, at most
 //     256 MB in all (ops/spgemm.py GLOBAL_WORKSPACE; at least one row),
-//     for rows too long for a hash table when n is too wide for shared
+//     for rows past the largest block bin when n is too wide for shared
 //     memory.
 // Each bin is one launch of a persistent grid that walks the bin's rows
 // (read from the device), so K4 never waits for the bin sizes; K5 runs
@@ -60,15 +74,16 @@
 // sizes with it, marks the empty bins kSkip and bounds each grid by its
 // bin's rows.
 //
-// Determinism: in the hash-block and dense bins a row's entries of
-// op(A) are walked one after another; the threads of the row split
-// op(B)'s row k, whose columns are distinct, so no two threads touch one
-// accumulator slot within a step, and a sync ends each step.  Only a
-// hash table's key insertion needs atomicCAS.  The register and
-// sorted-product paths sort on (column, product index), so a column's
-// products stay in op(A)'s stored order, and fold them with the same
-// fma from zero.  Every value is thus summed in op(A)'s stored order with
-// no float atomics: the same bits on every run, and on every path.
+// Determinism: in the dense bins a row's entries of op(A) are walked one
+// after another; the threads of the row split op(B)'s row k, whose
+// columns are distinct, so no two threads touch one accumulator slot
+// within a step, and a sync ends each step.  The register and
+// sorted-product paths (of a warp or of a block) sort on (column,
+// product index), so a column's products stay in op(A)'s stored order,
+// and fold them with the same fma from zero.  Every value is thus summed
+// in op(A)'s stored order with no float atomics: the same bits on every
+// run, and on every path.  Only K4's block count inserts by atomicCAS,
+// and a count does not depend on the order of the inserts.
 //
 // A batch of K5 fills whose members share op(A)'s and op(B)'s patterns
 // (jax.vmap of esc_spgemm_block over the values; torch.func.vmap, jacfwd
@@ -78,14 +93,17 @@
 // (0 for an operand that all members share; C's values nnz(C) apart), and
 // a kDenseGlobal group's workspace row is its member's own.  Every member
 // builds each row from the same columns in the same order (the same
-// sorted keys and hash tables, the same flags), so C's column ids, which
+// sorted keys, the same flags), so C's column ids, which
 // member 0 alone writes, are every member's.  The persistent grids give
 // each member resident / batch blocks (at least one).  A single fill is
 // the instance with BATCH false, whose code has no member offsets.
 //
 // A batch whose members can share the patterns' work takes
 // csr_spgemm_group.cu's instances (M members a block); the code of the
-// row kernels lives in csr_spgemm.cuh.
+// row kernels lives in csr_spgemm.cuh, and that of the block-sorted bins
+// in csr_spgemm_block.cuh, whose instances csr_spgemm_block.cu,
+// csr_spgemm_block_batched.cu and csr_spgemm_block_group2.cu / _group4.cu
+// build beside these (kSortedBlock's launches go through them).
 #include "csr_spgemm.cuh"
 
 namespace sdt {

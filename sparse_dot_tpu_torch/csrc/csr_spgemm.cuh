@@ -1,9 +1,10 @@
 // K4's and K5's row kernels and their launches, shared by csr_spgemm.cu
 // (K4, the plan, and K5 for one product or a batch a member a block) and
-// csr_spgemm_group.cu (K5 for a batch, M members a block).  The notes at
-// the top of csr_spgemm.cu say what they compute and how; this header
-// holds the code, so that nvcc builds the two sources' instances side by
-// side.
+// csr_spgemm_group.cu (K5 for a batch, M members a block); the
+// block-sorted bins' kernels are in csr_spgemm_block.cuh.  The notes at
+// the top of csr_spgemm.cu say what they compute and how; the headers
+// hold the code, so that nvcc builds each source's instances beside the
+// others'.
 //
 // M, the members a group of threads serves, is 1 for a single fill, for
 // K4 and for the per-member batch.  With M > 1 blockIdx.y is a group of M
@@ -16,9 +17,9 @@
 // same product order and its value store; in the sorted-product bins
 // (spgemm_sorted_kernel) the keys, the staged product entries and the
 // sort serve the group and each member's fold reads its own values
-// through the entries; in
-// the hash-block and dense-shared bins one table of keys (or flags)
-// serves M value slots a key.  Each member's values are its single
+// through the entries, in a warp's rows (spgemm_sorted_kernel) as in a
+// block's (spgemm_block_kernel); in the dense-shared bin one row of flags
+// serves M value slots a column.  Each member's values are its single
 // fill's bits.  A part-full last group's missing members read the last
 // member's values and store nothing.  The dense rows in the device
 // workspace keep one member a block (M = 1).
@@ -29,13 +30,38 @@
 #include "common.cuh"
 
 namespace sdt {
+
+// A launch of a block-sorted bin (kSortedBlock), as launch_bins hands it
+// to the source that builds its instances: `args` and `batch` point at
+// the launch's Args<T, I> (T and I those of the type codes; float for
+// K4) and Batch.  The bins' kernels are in csr_spgemm_block.cuh, built
+// by csr_spgemm_block.cu (K4, a single fill: launch_block_count,
+// launch_block_fill), csr_spgemm_block_batched.cu (a batch a member a
+// block) and csr_spgemm_block_group2.cu / _group4.cu (a batch, 2 or 4
+// members a block), each a source of its own so that nvcc builds them
+// side by side.
+struct BlockLaunch {
+  int dtype, itype;
+  const void* args;
+  int bin;
+  int64_t products, rows;
+  int device, sms;
+  const void* batch;
+  cudaStream_t stream;
+};
+cudaError_t launch_block_count(const BlockLaunch& launch);
+cudaError_t launch_block_fill(const BlockLaunch& launch);
+cudaError_t launch_block_batched(const BlockLaunch& launch);
+cudaError_t launch_block_group2(const BlockLaunch& launch);
+cudaError_t launch_block_group4(const BlockLaunch& launch);
+
 namespace {
 
 // Codes shared with ops/spgemm.py.
 enum BinKind : int64_t {
   kSkip = 0,
   kSortedWarp = 1,
-  kHashBlock = 2,
+  kSortedBlock = 2,
   kDenseShared = 3,
   kDenseGlobal = 4,
   kTiny4 = 5,
@@ -43,7 +69,6 @@ enum BinKind : int64_t {
   kTiny16 = 7,
   kTiny32 = 8,
 };
-enum Mode : int { kHash = 0, kDense = 1 };
 constexpr int kThreads = 256;
 
 template <typename T, typename I>
@@ -145,89 +170,22 @@ __device__ __forceinline__ int group_scan(int v, int* scratch, int* total) {
   return base + x - v;
 }
 
-__device__ __forceinline__ int32_t cas(int32_t* p, int32_t cmp, int32_t v) {
-  return atomicCAS(reinterpret_cast<int*>(p), cmp, v);
-}
-__device__ __forceinline__ int64_t cas(int64_t* p, int64_t cmp, int64_t v) {
-  return static_cast<int64_t>(atomicCAS(
-      reinterpret_cast<unsigned long long*>(p),
-      static_cast<unsigned long long>(cmp),
-      static_cast<unsigned long long>(v)));
-}
-
-// Slot of `key` in a linear-probing table of mask + 1 slots (empty = -1),
-// inserting it if absent; *fresh says whether this call inserted it.
-template <typename I>
-__device__ __forceinline__ int64_t hash_slot(I* keys, int64_t mask, I key,
-                                             bool* fresh) {
-  uint64_t h = static_cast<uint64_t>(key) * 0x9E3779B97F4A7C15ull;
-  int64_t s = static_cast<int64_t>((h ^ (h >> 29)) & mask);
-  for (;;) {
-    const I cur = *reinterpret_cast<volatile I*>(keys + s);
-    if (cur == key) break;
-    if (cur == I(-1)) {
-      const I prev = cas(keys + s, I(-1), key);
-      if (prev == I(-1)) {
-        *fresh = true;
-        return s;
-      }
-      if (prev == key) break;
-    }
-    s = (s + 1) & mask;
-  }
-  *fresh = false;
-  return s;
-}
-
-// Sorts the S (a power of two) slots of a table by key, empty slots
-// (-1, largest as unsigned) last: a bitonic network over the block's G
-// threads.  With M > 1, vals holds M members' values of S slots each,
-// moved with their keys.
-template <typename T, typename I, int G, int M = 1>
-__device__ void sort_table(I* keys, T* vals, int64_t S, int lane) {
-  using U = std::make_unsigned_t<I>;
-  for (int64_t size = 2; size <= S; size <<= 1) {
-    for (int64_t stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int64_t t = lane; t < S / 2; t += G) {
-        const int64_t lo = 2 * t - (t & (stride - 1));
-        const int64_t hi = lo + stride;
-        const bool up = (lo & size) == 0;
-        const I ka = keys[lo], kb = keys[hi];
-        if ((static_cast<U>(ka) > static_cast<U>(kb)) == up) {
-          keys[lo] = kb;
-          keys[hi] = ka;
-#pragma unroll
-          for (int i = 0; i < M; ++i) {
-            const T va = vals[i * S + lo];
-            vals[i * S + lo] = vals[i * S + hi];
-            vals[i * S + hi] = va;
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
-}
-
-// Bytes of one group's accumulator: values (K5 only; M members' with
-// M > 1), then the hash keys or the dense row's flag bytes; rounded up to
-// 16.
-template <typename T, typename I, int MODE, bool FILL, int M = 1>
+// Bytes of one group's dense row: values (K5 only; M members' with
+// M > 1), then a flag byte a column; rounded up to 16.
+template <typename T, bool FILL, int M = 1>
 __host__ __device__ int64_t region_bytes(int64_t slots) {
-  const int64_t tail = MODE == kHash ? slots * int64_t(sizeof(I)) : slots;
-  const int64_t bytes = (FILL ? M * slots * int64_t(sizeof(T)) : 0) + tail;
+  const int64_t bytes = (FILL ? M * slots * int64_t(sizeof(T)) : 0) + slots;
   return (bytes + 15) / 16 * 16;
 }
 
-// A block (G = kThreads threads) builds one row of C at a time, walking
-// the rows of bin `bin`.  `slots` is the hash table's size, or n for a
-// dense row; `work` (kDenseGlobal) holds one region per group (per
-// member's group with BATCH, blockIdx.y the member), else the regions are
-// in dynamic shared memory.  With M > 1 (a batch, regions in shared
-// memory), blockIdx.y is a group of M members whose values share the
-// row's keys or flags.
-template <typename T, typename I, int MODE, int G, bool FILL, bool BATCH,
-          int M = 1>
+// The dense rows (kDenseShared, kDenseGlobal): a block (G = kThreads
+// threads) builds one row of C at a time in a dense row of width
+// `slots` = n, walking the rows of bin `bin`.  `work` (kDenseGlobal) holds
+// one region per group (per member's group with BATCH, blockIdx.y the
+// member), else the regions are in dynamic shared memory.  With M > 1 (a
+// batch, regions in shared memory), blockIdx.y is a group of M members
+// whose values share the row's flags.
+template <typename T, typename I, int G, bool FILL, bool BATCH, int M = 1>
 __global__ void __launch_bounds__(kThreads)
 spgemm_rows_kernel(Args<T, I> args, int bin, int64_t slots,
                    unsigned char* work, const Members mb) {
@@ -241,27 +199,21 @@ spgemm_rows_kernel(Args<T, I> args, int bin, int64_t slots,
   const int64_t gid =
       static_cast<int64_t>(blockIdx.x) * kGroups + threadIdx.x / G;
   const int64_t ngroups = static_cast<int64_t>(gridDim.x) * kGroups;
-  const int64_t region = region_bytes<T, I, MODE, FILL, M>(slots);
+  const int64_t region = region_bytes<T, FILL, M>(slots);
   SDT_K5_TO_MEMBER(ngroups * region)
   const Group<M> gr = group_of<M>(mb);
   unsigned char* base = work != nullptr
                             ? work + gid * region
                             : smem + (threadIdx.x / G) * region;
   T* vals = reinterpret_cast<T*>(base);
-  unsigned char* tail = base + (FILL ? M * slots * int64_t(sizeof(T)) : 0);
-  I* keys = reinterpret_cast<I*>(tail);
-  unsigned char* flags = tail;
+  unsigned char* flags = base + (FILL ? M * slots * int64_t(sizeof(T)) : 0);
   const int64_t S = slots;
 
   const int64_t r_end = args.offsets[bin + 1];
   for (int64_t r = args.offsets[bin] + gid; r < r_end; r += ngroups) {
     const int64_t i = args.rows[r];
     for (int64_t s = lane; s < S; s += G) {
-      if constexpr (MODE == kHash) {
-        keys[s] = I(-1);
-      } else {
-        flags[s] = 0;
-      }
+      flags[s] = 0;
       if constexpr (FILL) {
 #pragma unroll
         for (int w = 0; w < M; ++w) vals[w * S + s] = Arith<T>::zero();
@@ -282,23 +234,15 @@ spgemm_rows_kernel(Args<T, I> args, int bin, int64_t slots,
       for (int64_t q = args.b_indptr[k] + lane; q < q_end; q += G) {
         const I j = args.b_indices[q];
         if (args.triangular && j < i) continue;
-        int64_t slot;
-        if constexpr (MODE == kHash) {
-          bool is_new;
-          slot = hash_slot(keys, S - 1, j, &is_new);
-          fresh += is_new;
-        } else {
-          slot = j;
-          if (!flags[j]) {
-            flags[j] = 1;
-            ++fresh;
-          }
+        if (!flags[j]) {
+          flags[j] = 1;
+          ++fresh;
         }
         if constexpr (FILL) {
 #pragma unroll
           for (int w = 0; w < M; ++w) {
-            vals[w * S + slot] = Arith<T>::fma(
-                av[w], args.b_data[q + gr.b[w]], vals[w * S + slot]);
+            vals[w * S + j] = Arith<T>::fma(
+                av[w], args.b_data[q + gr.b[w]], vals[w * S + j]);
           }
         }
       }
@@ -309,7 +253,7 @@ spgemm_rows_kernel(Args<T, I> args, int bin, int64_t slots,
       int total;
       group_scan<G>(fresh, scratch, &total);
       if (lane == 0) args.counts[i] = total;
-    } else if constexpr (MODE == kDense) {
+    } else {
       // Compact the flagged columns in order, G columns at a time.
       int64_t out = args.c_indptr[i];
       for (int64_t j0 = 0; j0 < S; j0 += G) {
@@ -328,20 +272,6 @@ spgemm_rows_kernel(Args<T, I> args, int bin, int64_t slots,
           }
         }
         out += total;
-      }
-    } else {
-      sort_table<T, I, G, M>(keys, vals, S, lane);
-      const int64_t c0 = args.c_indptr[i];
-      const int64_t cnt = args.c_indptr[i + 1] - c0;
-      for (int64_t t = lane; t < cnt; t += G) {
-        if (!BATCH || args.c_indices != nullptr) {
-          args.c_indices[c0 + t] = keys[t];
-        }
-#pragma unroll
-        for (int w = 0; w < M; ++w) {
-          if (M > 1 && w >= gr.count) break;
-          args.c_data[gr.c[w] + c0 + t] = vals[w * S + t];
-        }
       }
     }
     __syncthreads();
@@ -971,20 +901,53 @@ cudaError_t launch_sorted(const Args<T, I>& args, int bin, int64_t products,
   return cudaErrorInvalidValue;
 }
 
-template <typename T, typename I, int MODE, int G, bool FILL, bool BATCH,
-          int M>
+// The type codes of the C interface (common.cuh) of T and I.
+template <typename T>
+constexpr int dtype_code() {
+  if constexpr (std::is_same_v<T, float>) return kF32;
+  if constexpr (std::is_same_v<T, double>) return kF64;
+  if constexpr (std::is_same_v<T, c64>) return kC64;
+  return kC128;
+}
+template <typename I>
+constexpr int itype_code() {
+  return sizeof(I) == 4 ? kI32 : kI64;
+}
+
+// A block bin of `products` (2048 or 8192) a row, launched by the source
+// that builds its form's instances.
+template <typename T, typename I, bool FILL, bool BATCH, int M>
+cudaError_t launch_block(const Args<T, I>& args, int bin, int64_t products,
+                         int64_t rows, int device, int sms,
+                         const Batch& batch, cudaStream_t stream) {
+  static_assert(M == 1 || M == 2 || M == 4, "1, 2 or 4 members a block");
+  const BlockLaunch launch{dtype_code<T>(), itype_code<I>(), &args, bin,
+                           products, rows, device, sms, &batch, stream};
+  if constexpr (!FILL) {
+    return launch_block_count(launch);
+  } else if constexpr (!BATCH) {
+    return launch_block_fill(launch);
+  } else if constexpr (M == 1) {
+    return launch_block_batched(launch);
+  } else if constexpr (M == 2) {
+    return launch_block_group2(launch);
+  } else {
+    return launch_block_group4(launch);
+  }
+}
+template <typename T, typename I, int G, bool FILL, bool BATCH, int M>
 cudaError_t launch_bin(const Args<T, I>& args, int bin, int64_t slots,
                        int64_t rows, unsigned char* work, int64_t work_groups,
                        int device, int sms, const Batch& batch,
                        cudaStream_t stream) {
-  auto kernel = spgemm_rows_kernel<T, I, MODE, G, FILL, BATCH, M>;
+  auto kernel = spgemm_rows_kernel<T, I, G, FILL, BATCH, M>;
   constexpr int kGroups = kThreads / G;
   const int64_t groups = groups_of<M>(batch);
   int64_t grid = work_groups < 1 ? 1 : work_groups;
   size_t shared = 0;
   if (work == nullptr) {
     shared =
-        static_cast<size_t>(region_bytes<T, I, MODE, FILL, M>(slots)) *
+        static_cast<size_t>(region_bytes<T, FILL, M>(slots)) *
         kGroups;
     int per_sm = 0;
     const cudaError_t err = blocks_per_sm(kernel, shared, device, &per_sm);
@@ -1048,12 +1011,12 @@ cudaError_t launch_bins(const Args<T, I>& args, const int64_t* bins,
         err = launch_sorted<T, I, FILL, BATCH, M>(args, b, slots, rows,
                                                   device, sms, batch, stream);
         break;
-      case kHashBlock:
-        err = launch_bin<T, I, kHash, kThreads, FILL, BATCH, M>(
-            args, b, slots, rows, nullptr, 0, device, sms, batch, stream);
+      case kSortedBlock:
+        err = launch_block<T, I, FILL, BATCH, M>(args, b, slots, rows,
+                                                 device, sms, batch, stream);
         break;
       case kDenseShared:
-        err = launch_bin<T, I, kDense, kThreads, FILL, BATCH, M>(
+        err = launch_bin<T, I, kThreads, FILL, BATCH, M>(
             args, b, slots, rows, nullptr, 0, device, sms, batch, stream);
         break;
       case kDenseGlobal:
@@ -1061,7 +1024,7 @@ cudaError_t launch_bins(const Args<T, I>& args, const int64_t* bins,
           return cudaErrorInvalidValue;
         } else {
           if (work == nullptr || work_groups < 1) return cudaErrorInvalidValue;
-          err = launch_bin<T, I, kDense, kThreads, FILL, BATCH, 1>(
+          err = launch_bin<T, I, kThreads, FILL, BATCH, 1>(
               args, b, slots, rows, work, work_groups, device, sms, batch,
               stream);
         }

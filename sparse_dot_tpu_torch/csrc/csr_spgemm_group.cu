@@ -9,11 +9,11 @@
 // dependent loads and shuffles that the per-member instance repeats for
 // each member.  Only each member's a_data / b_data loads, its shuffles,
 // its fold (in the same product order) and its stores are done M times.
-// The sorted-product bins stage each product's entries and sort its key
-// once for the group, and each member's fold reads its own values through
-// them (the region does not grow with M).  The hash-block and
-// dense-shared bins give the keys (or flags) one table and the values M
-// slots each, where the plan's shared memory holds that.
+// The sorted-product bins (of a warp and of a block) stage each
+// product's entries and sort its key once for the group, and each
+// member's fold reads its own values through them (the region does not
+// grow with M).  The dense-shared bin gives the flags one row and the
+// values M slots each, where the plan's shared memory holds that.
 // Each member's values equal its single fill's bits.  The wrapper
 // (ops/spgemm.py, fill_groups) chooses M for each bin before the launch,
 // by value type, index width and shared memory, and launches each M's

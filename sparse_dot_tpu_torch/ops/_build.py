@@ -20,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -181,6 +182,9 @@ _PROTOTYPES = {
 
 _lib = None
 build_seconds = None  # wall time of the nvcc run, None when none ran
+# {source name: seconds from the run's start to its nvcc's end}, the
+# sources all compiled at once; empty when none ran.
+source_seconds = {}
 
 
 def sources():
@@ -219,21 +223,32 @@ def _nvcc():
 
 
 def _run(procs):
-    """Wait for every (command, process); raise on the first failure."""
-    failed = None
-    for cmd, proc in procs:
+    """Wait for every (command, process), each in a thread of its own so
+    that none waits on another's pipes; raise on the first failure.
+    Returns the ``time.perf_counter()`` at which each ended."""
+    results = [None] * len(procs)
+
+    def wait(k, proc):
         out, err = proc.communicate()
-        if proc.returncode != 0 and failed is None:
-            failed = (cmd, proc.returncode, out, err)
-    if failed:
-        cmd, rc, out, err = failed
-        raise RuntimeError(
-            f"nvcc failed ({rc}): {' '.join(cmd)}\n{out}\n{err}"
-        )
+        results[k] = (time.perf_counter(), out, err)
+
+    threads = [threading.Thread(target=wait, args=(k, proc))
+               for k, (_, proc) in enumerate(procs)]
+    for thread in threads:
+        thread.start()
+    for thread in threads:
+        thread.join()
+    for (cmd, proc), (_, out, err) in zip(procs, results):
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}"
+                f"\n{err}"
+            )
+    return [end for end, _, _ in results]
 
 
 def _compile(target):
-    global build_seconds
+    global build_seconds, source_seconds
     target.parent.mkdir(parents=True, exist_ok=True)
     tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
     units = [p for p in sources() if p.suffix == ".cu"]
@@ -247,8 +262,10 @@ def _compile(target):
 
     t0 = time.perf_counter()
     try:
-        _run([start("-c", "-o", str(obj), str(src))
-              for src, obj in zip(units, objects)])
+        ends = _run([start("-c", "-o", str(obj), str(src))
+                     for src, obj in zip(units, objects)])
+        source_seconds = {src.name: end - t0
+                          for src, end in zip(units, ends)}
         _run([start("-shared", "-o", str(tmp), *map(str, objects))])
         build_seconds = time.perf_counter() - t0
         os.replace(tmp, target)  # atomic: a concurrent build cannot tear it

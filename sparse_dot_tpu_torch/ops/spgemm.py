@@ -30,9 +30,9 @@ How a sparse-output product runs on the card:
    accumulator: for ub <= 32 the registers of a group of 4, 8, 16 or 32
    lanes (one product a lane), past that by ``min(ub[i], n)`` a warp's
    sorted products (up to 128 or 512 a row: keys in registers, each
-   product's entries in shared memory), a hash table in shared memory
-   for a block, a dense row of width n in shared memory, or a dense row
-   in a bounded device workspace;
+   product's entries in shared memory), a block's sorted products (up to
+   2048 or 8192 a row, the same over a block), a dense row of width n in
+   shared memory, or a dense row in a bounded device workspace;
 2. K4 writes each row's number of distinct columns;
 3. ``indptr`` is their running sum; reading ``nnz = indptr[-1]`` to size
    the output is the one host sync (the JAX package pays the same one);
@@ -93,7 +93,7 @@ from .csr import (_add_rows, _check, batch_size, check_members,
 from .dense import axpby
 
 # Kinds of row bins (the codes of csrc/csr_spgemm.cu's BinKind).
-(SKIP, SORTED_WARP, HASH_BLOCK, DENSE_SHARED, DENSE_GLOBAL,
+(SKIP, SORTED_WARP, SORTED_BLOCK, DENSE_SHARED, DENSE_GLOBAL,
  TINY4, TINY8, TINY16, TINY32) = range(9)
 # The register bins by group width G: rows of 1..G products, one a lane.
 TINY_KINDS = {4: TINY4, 8: TINY8, 16: TINY16, 32: TINY32}
@@ -101,16 +101,16 @@ TINY_MAX = max(TINY_KINDS)
 # Shared memory one thread block of K4/K5 may ask for.
 SHARED_BUDGET = 200 * 1024
 # The sorted-product bins' products a row (slots = u_max): one warp a
-# row, 8 a block, each warp's region sized to its bin's products.  Each
+# row, 8 a block, each warp's region sized to its bin's products
+# (WARP_PRODUCTS); one block a row (BLOCK_PRODUCTS), its region sized to
+# its bin's products, within SHARED_BUDGET for either index width.  Each
 # stands where a hash table of twice its products would: in the table
 # only where n is past DENSE_RATIO times that.
 WARP_PRODUCTS = (128, 512)
-# Hash table sizes (slots): one table per block, from BLOCK_SLOTS up to
-# the largest that SHARED_BUDGET holds.
-BLOCK_SLOTS = 4096
-# A row of width n takes the dense accumulator once its hash table (or
-# the one a sorted-product bin stands for) would need n / DENSE_RATIO
-# slots or more.
+BLOCK_PRODUCTS = (2048, 8192)
+# A row of width n takes the dense accumulator once the hash table that
+# a sorted-product bin stands for would need n / DENSE_RATIO slots or
+# more.
 DENSE_RATIO = 8
 # Bytes of device memory for the dense rows of the DENSE_GLOBAL bin.
 GLOBAL_WORKSPACE = 256 << 20
@@ -144,38 +144,29 @@ def dense_row_bytes(n, dtype):
     return _round16(n * (dtype.itemsize + 1))
 
 
-def max_hash_slots(dtype, index_dtype):
-    """Largest power-of-two hash table (keys and values) of K5 that fits
-    SHARED_BUDGET."""
-    slots = BLOCK_SLOTS
-    while 2 * slots * (dtype.itemsize + index_dtype.itemsize) <= SHARED_BUDGET:
-        slots *= 2
-    return slots
-
-
-def spgemm_bins(dtype, index_dtype, n):
-    """Row bins of K4/K5 for values of ``dtype``, indices of
-    ``index_dtype`` and n output columns: an (nbins, 3) int64 numpy array
+def spgemm_bins(dtype, n):
+    """Row bins of K4/K5 for values of ``dtype`` and n output columns: an
+    (nbins, 3) int64 numpy array
     of (kind, slots, u_max) rows, u_max ascending.  A row of ub products
     goes to the first bin with ub <= u_max: ub == 0 to SKIP, 1 <= ub <= 32
     to the register bin of the smallest width G >= ub (slots = G),
-    whatever n; a sorted-product bin (SORTED_WARP) rows of up to slots =
-    128 or 512 products; a hash bin rows of up to slots / 2 products (so
-    of distinct columns: load at most one half); the last bin (dense, in
-    shared memory when a row of width n fits SHARED_BUDGET, else in the
-    device workspace) takes the rest.  Past 32 products ub picks the same
-    bin as u = min(ub, n) would: a sorted-product or hash bin is in the
-    table only where n is above its u_max."""
-    return _bins_table(dtype, index_dtype, n).copy()
+    whatever n; a sorted-product bin of a warp (SORTED_WARP) rows of up to
+    slots = 128 or 512 products, of a block (SORTED_BLOCK) rows of up to
+    slots = 2048 or 8192; the last bin (dense, in shared memory when a row
+    of width n fits SHARED_BUDGET, else in the device workspace) takes the
+    rest.  Past 32 products ub picks the same bin as u = min(ub, n) would:
+    a sorted-product bin is in the table only where n is above its
+    u_max.  Only the dense row depends on the value type, and nothing on
+    the index type (each bin's region fits either index width)."""
+    return _bins_table(dtype, n).copy()
 
 
 @functools.lru_cache(maxsize=256)
-def _bins_table(dtype, index_dtype, n):
+def _bins_table(dtype, n):
     bins = [(SKIP, 0, 0)] + [(kind, g, g) for g, kind in TINY_KINDS.items()]
     dense_fits = dense_row_bytes(n, dtype) <= SHARED_BUDGET
     candidates = [(SORTED_WARP, u, u) for u in WARP_PRODUCTS]
-    candidates += [(HASH_BLOCK, s, s // 2) for s in
-                   (BLOCK_SLOTS, max_hash_slots(dtype, index_dtype))]
+    candidates += [(SORTED_BLOCK, u, u) for u in BLOCK_PRODUCTS]
     for kind, slots, u_max in candidates:
         if dense_fits and n <= DENSE_RATIO * 2 * u_max:
             break
@@ -220,7 +211,7 @@ def _thresholds(bins, device):
     return u_max
 
 
-def spgemm_plan(a_indptr, a_indices, b_indptr, n, dtype, index_dtype):
+def spgemm_plan(a_indptr, a_indices, b_indptr, n, dtype):
     """The plan of K4/K5 (``SpgemmPlan``), built with device ops only:
     nothing waits for the device.  Each row's bin id comes from one
     ``bucketize`` of its ub against the bins' thresholds; a stable sort of
@@ -229,7 +220,7 @@ def spgemm_plan(a_indptr, a_indices, b_indptr, n, dtype, index_dtype):
     so on the card ``plan_and_count`` builds the same plan in K4's
     launch."""
     ub = row_bounds(a_indptr, a_indices, b_indptr)
-    bins = spgemm_bins(dtype, index_dtype, n)
+    bins = spgemm_bins(dtype, n)
     bin_of = torch.bucketize(ub, _thresholds(bins, ub.device),
                              out_int32=True)
     sorted_bins, rows = torch.sort(bin_of, stable=True)
@@ -451,31 +442,32 @@ def _fill_members(table, per_group):
 
 # Groups of threads a block of each shared-memory bin holds (one region
 # each).
-_BIN_GROUPS = {SORTED_WARP: 8, HASH_BLOCK: 1, DENSE_SHARED: 1}
+_BIN_GROUPS = {SORTED_WARP: 8, SORTED_BLOCK: 1, DENSE_SHARED: 1}
 
 
 def group_bytes(kind, slots, dtype, index_dtype, members):
-    """Shared memory a block of K5's sorted-product, hash or
-    dense-shared bin ``kind`` asks for with ``members`` members a block:
-    one region a group of threads, rounded up to 16.  A sorted-product
-    region holds each of its ``slots`` products' op(A) and op(B) entries
-    and a 16-bit sorted order, whatever the members
-    (``csrc/csr_spgemm.cuh``, sorted_region_bytes); a hash or dense
-    region the members' values a slot then the keys (hash) or flag bytes
-    (dense) (region_bytes)."""
+    """Shared memory a block of K5's sorted-product or dense-shared bin
+    ``kind`` asks for with ``members`` members a block: one region a
+    group of threads, rounded up to 16 (``csrc/csr_spgemm.cuh``).  A
+    sorted-product region holds each of its ``slots`` products' op(A)
+    and op(B) entries, whatever the members, then a warp's 16-bit sorted
+    order (sorted_region_bytes), or a block's 8 bytes a product that hold
+    the keys while they cross warps and then the order
+    (block_region_bytes); a dense region the members' values a column,
+    then a flag byte a column (region_bytes)."""
+    entries = 2 * index_dtype.itemsize
     if kind == SORTED_WARP:
-        return _BIN_GROUPS[kind] * _round16(slots * (2 * index_dtype.itemsize
-                                                     + 2))
-    tail = slots * index_dtype.itemsize if kind != DENSE_SHARED else slots
-    return _BIN_GROUPS[kind] * _round16(members * slots * dtype.itemsize
-                                        + tail)
+        return _BIN_GROUPS[kind] * _round16(slots * (entries + 2))
+    if kind == SORTED_BLOCK:
+        return _round16(slots * (entries + 8))
+    return _round16(members * slots * dtype.itemsize + slots)
 
 
 def fill_groups(bins, dtype, index_dtype, size, most=None):
     """Members a block of each bin of ``bins`` (a plan's or a launch
     table's kinds and slots) in a batched K5 launch of ``size`` members:
-    the register bins 4, a sorted-product, hash or dense-shared bin the
-    most of 4 and 2 whose region fits SHARED_BUDGET (``group_bytes``; a
+    the register bins 4, a sorted-product or dense-shared bin the most
+    of 4 and 2 whose region fits SHARED_BUDGET (``group_bytes``; a
     sorted-product region does not grow with the members, so 4), else 1
     (the per-member instance), as are the dense rows in the device
     workspace; 2 at most for a batch of 2, and 1 for a batch of 1; at
@@ -562,7 +554,7 @@ def csr_spgemm_count(a_indptr, a_indices, b_indptr, b_indices, n, plan,
 
 def plan_and_count(a_indptr, a_indices, b_indptr, b_indices, n, dtype,
                    triangular=False, out=None):
-    """(plan, counts): ``spgemm_plan(..., n, dtype, index dtype)`` and K4.
+    """(plan, counts): ``spgemm_plan(..., n, dtype)`` and K4.
     On the card K4 builds the plan itself, in the same launch (three
     kernels before the count: ub and the rows per bin of each tile of
     rows, one block's scan of those, a stable scatter of the row ids), to
@@ -571,11 +563,10 @@ def plan_and_count(a_indptr, a_indices, b_indptr, b_indices, n, dtype,
     torch plan and K4's plain version."""
     m = a_indptr.numel() - 1
     if a_indptr.device.type == "cpu":
-        plan = spgemm_plan(a_indptr, a_indices, b_indptr, n, dtype,
-                           a_indptr.dtype)
+        plan = spgemm_plan(a_indptr, a_indices, b_indptr, n, dtype)
         return plan, csr_spgemm_count(a_indptr, a_indices, b_indptr,
                                       b_indices, n, plan, triangular, out)
-    bins = spgemm_bins(dtype, a_indptr.dtype, n)
+    bins = spgemm_bins(dtype, n)
     nb = len(bins)
     if m == 0 or n == 0:  # no product: every row in SKIP, no launch
         plan = _empty_plan(m, bins, a_indptr.device)
@@ -685,8 +676,7 @@ def fill(a_indptr, a_indices, a_data, b_indptr, b_indices, b_data, n, plan,
         return csr_spgemm_fill_plain(a_indptr, a_indices, a_data, b_indptr,
                                      b_indices, b_data, n, triangular)
     if plan is None:
-        plan = spgemm_plan(a_indptr, a_indices, b_indptr, n, a_data.dtype,
-                           a_indptr.dtype)
+        plan = spgemm_plan(a_indptr, a_indices, b_indptr, n, a_data.dtype)
     return _fill_launcher(a_indptr, a_indices, a_data, b_indptr, b_indices,
                           b_data, n, plan, c_indptr,
                           triangular)(nnz, bin_sizes)
@@ -716,8 +706,7 @@ def fill_batched(a_indptr, a_indices, a_data, b_indptr, b_indices, b_data,
                                              b_indptr, b_indices, b_data, n,
                                              triangular)
     if plan is None:
-        plan = spgemm_plan(a_indptr, a_indices, b_indptr, n, a_data.dtype,
-                           a_indptr.dtype)
+        plan = spgemm_plan(a_indptr, a_indices, b_indptr, n, a_data.dtype)
     return _fill_launcher(a_indptr, a_indices, a_data, b_indptr, b_indices,
                           b_data, n, plan, c_indptr, triangular,
                           size)(nnz, bin_sizes)
@@ -735,8 +724,7 @@ def pair_plan(a, b, dtype):
     key = ("k5", b, dtype)
     if key not in a.plans:
         with structure_only():
-            plan = spgemm_plan(a.indptr, a.indices, b.indptr, b.ncols, dtype,
-                               a.indptr.dtype)
+            plan = spgemm_plan(a.indptr, a.indices, b.indptr, b.ncols, dtype)
             a.plans[key] = (plan, np.diff(plan.offsets.tolist()))
     return a.plans[key]
 

@@ -892,7 +892,7 @@ def test_fill_plan_cached_on_the_pattern_pair(monkeypatch):
     plan_fn = spgemm.spgemm_plan
 
     def counting(*args):
-        built.append(args[-2])
+        built.append(args[-1])
         return plan_fn(*args)
 
     monkeypatch.setattr(spgemm, "spgemm_plan", counting)
@@ -900,8 +900,7 @@ def test_fill_plan_cached_on_the_pattern_pair(monkeypatch):
         plan, sizes = spgemm.pair_plan(pa, pb, torch.float64)
     spgemm.pair_plan(pa, pb, torch.complex128)
     assert built == [torch.float64, torch.complex128]
-    ref = plan_fn(pa.indptr, pa.indices, pb.indptr, N, torch.float64,
-                  pa.indptr.dtype)
+    ref = plan_fn(pa.indptr, pa.indices, pb.indptr, N, torch.float64)
     for got, want in zip(plan[:3], ref[:3]):
         assert torch.equal(got, want)
     assert np.array_equal(sizes, np.diff(ref.offsets.numpy()))

@@ -103,29 +103,26 @@ def test_member_groups_end_part_full(size, group, want):
     assert [f for f, _ in got] == list(range(0, size, group))
 
 
-def _bins(dtype, itype, n):
-    return spgemm.spgemm_bins(dtype, itype, n)
-
-
 def _expected(kind, slots, dtype, itype, most):
     """The members a block the rule gives a bin, from the region sizes of
     ``csrc/csr_spgemm.cuh`` (one region a group of threads, rounded up to
-    16: a sorted-product bin's products' op(A) and op(B) entries and
-    16-bit sorted order, whatever the members; a hash or dense bin's
-    values of each member, then keys or flags)."""
+    16: a sorted-product bin's products' op(A) and op(B) entries and a
+    warp's 16-bit sorted order or a block's 8 bytes of key and order,
+    whatever the members; a dense bin's values of each member, then
+    flags)."""
     if kind in spgemm.TINY_KINDS.values():
         return most
-    groups = {spgemm.SORTED_WARP: 8, spgemm.HASH_BLOCK: 1,
+    groups = {spgemm.SORTED_WARP: 8, spgemm.SORTED_BLOCK: 1,
               spgemm.DENSE_SHARED: 1}.get(kind)
     if groups is None:
         return 1
     for g in (4, 2):
         if kind == spgemm.SORTED_WARP:
             region = -(-(slots * (2 * itype.itemsize + 2)) // 16) * 16
+        elif kind == spgemm.SORTED_BLOCK:
+            region = -(-(slots * (2 * itype.itemsize + 8)) // 16) * 16
         else:
-            tail = slots * itype.itemsize if kind != spgemm.DENSE_SHARED \
-                else slots
-            region = -(-(g * slots * dtype.itemsize + tail) // 16) * 16
+            region = -(-(g * slots * dtype.itemsize + slots) // 16) * 16
         if g <= most and groups * region <= spgemm.SHARED_BUDGET:
             return g
     return 1
@@ -137,10 +134,11 @@ def _expected(kind, slots, dtype, itype, most):
 @pytest.mark.parametrize("size", [1, 2, 3, 4, 16])
 def test_fill_groups_by_bin(dtype, itype, n, size):
     """K5's group a bin: the register bins 4 (2 for a batch of 2, 1 for
-    one member), a hash or
-    dense-shared bin the most whose members' values fit one table within
-    SHARED_BUDGET, the dense rows in the device workspace 1."""
-    bins = _bins(dtype, itype, n)
+    one member), the sorted-product bins 4 (their regions do not grow with
+    the members), a dense-shared bin the most whose members' values fit
+    one row within SHARED_BUDGET, the dense rows in the device workspace
+    1."""
+    bins = spgemm.spgemm_bins(dtype, n)
     got = spgemm.fill_groups(bins, dtype, itype, size)
     top = 1 if size < 2 else 2 if size == 2 else 4
     assert got.shape == (len(bins),)
@@ -157,30 +155,33 @@ def test_fill_groups_by_bin(dtype, itype, n, size):
 
 def test_fill_groups_known_bins():
     """The rule at the bins the card checks: f64 with int32 ids at n =
-    100,000 gives the register bins and both sorted-product bins 4 (their
-    regions do not grow with the members: 8 warps' 128 or 512 products,
-    10 bytes each, where the 1024-slot warp hash tables they replaced
-    took 2), the 4096-slot block table 4, the largest block table and the
-    dense rows in the device workspace 1; with int64 ids and c128 the
-    sorted-product bins still 4, 2 at most for a batch of 2; c128 at n =
-    300 takes a dense row in shared memory, 4 members a block."""
-    bins = _bins(torch.float64, torch.int32, 100_000)
+    100,000 gives the register bins and the four sorted-product bins 4
+    (their regions do not grow with the members: 8 warps' 128 or 512
+    products, 10 bytes each, where the 1024-slot warp hash tables they
+    replaced took 2; a block's 2048 or 8192 products, 16 bytes each,
+    where the 16384-slot block table took 1), the dense rows in the
+    device workspace 1; with int64 ids and c128 the sorted-product bins
+    still 4, 2 at most for a batch of 2; c128 at n = 300 takes a dense
+    row in shared memory, 4 members a block."""
+    bins = spgemm.spgemm_bins(torch.float64, 100_000)
     got = dict(zip(map(tuple, bins[:, :2].tolist()),
                    spgemm.fill_groups(bins, torch.float64, torch.int32, 4)))
     assert got[(spgemm.TINY4, 4)] == got[(spgemm.TINY32, 32)] == 4
     assert got[(spgemm.SORTED_WARP, 128)] == 4
     assert got[(spgemm.SORTED_WARP, 512)] == 4
-    wide = _bins(torch.complex128, torch.int64, 100_000)
+    wide = spgemm.spgemm_bins(torch.complex128, 100_000)
     for size, want in ((16, 4), (2, 2)):
         groups = dict(zip(map(tuple, wide[:, :2].tolist()),
                           spgemm.fill_groups(wide, torch.complex128,
                                              torch.int64, size)))
         assert groups[(spgemm.SORTED_WARP, 128)] == want
         assert groups[(spgemm.SORTED_WARP, 512)] == want
-    assert got[(spgemm.HASH_BLOCK, 4096)] == 4
-    assert got[(spgemm.HASH_BLOCK, 16384)] == 1
+        assert groups[(spgemm.SORTED_BLOCK, 2048)] == want
+        assert groups[(spgemm.SORTED_BLOCK, 8192)] == want
+    assert got[(spgemm.SORTED_BLOCK, 2048)] == 4
+    assert got[(spgemm.SORTED_BLOCK, 8192)] == 4
     assert got[(spgemm.DENSE_GLOBAL, 100_000)] == 1
-    bins = _bins(torch.complex128, torch.int64, 300)
+    bins = spgemm.spgemm_bins(torch.complex128, 300)
     assert bins[-1, 0] == spgemm.DENSE_SHARED
     assert spgemm.fill_groups(bins, torch.complex128, torch.int64,
                               5)[-1] == 4
@@ -189,17 +190,19 @@ def test_fill_groups_known_bins():
 def test_group_bytes_is_the_kernels_region():
     """``group_bytes``: one region a group of threads, rounded up to 16: a
     sorted-product warp's op(A) and op(B) entry and 16-bit sorted order a
-    product, whatever the members and the value type; a hash or dense
-    region the members' values and then the keys (hash) or a flag byte a
-    column (dense)."""
+    product, a block's op(A) and op(B) entry and 8 bytes of key and order
+    a product, whatever the members and the value type; a dense region
+    the members' values and then a flag byte a column."""
     f64, i32 = torch.float64, torch.int32
     for members in (1, 2, 4):
         assert spgemm.group_bytes(spgemm.SORTED_WARP, 128, f64, i32,
                                   members) == 8 * 128 * (2 * 4 + 2)
         assert spgemm.group_bytes(spgemm.SORTED_WARP, 512, torch.complex128,
                                   torch.int64, members) == 8 * 512 * 18
-    assert spgemm.group_bytes(spgemm.HASH_BLOCK, 4096, f64, torch.int64,
-                              2) == 2 * 4096 * 8 + 4096 * 8
+        assert spgemm.group_bytes(spgemm.SORTED_BLOCK, 8192, torch.complex128,
+                                  torch.int64, members) == 8192 * 24
+        assert spgemm.group_bytes(spgemm.SORTED_BLOCK, 2048, f64, i32,
+                                  members) == 2048 * 16
     assert spgemm.group_bytes(spgemm.DENSE_SHARED, 300, torch.complex128,
                               i32, 4) == -(-(4 * 300 * 16 + 300) // 16) * 16
     assert spgemm.group_bytes(spgemm.DENSE_SHARED, 7, torch.float32, i32,
@@ -210,7 +213,7 @@ def test_by_group_splits_the_launch_table():
     """K5's table split by group size: one part a size among the bins it
     launches, every other bin SKIP in it, the table itself where every
     launched bin takes one size; SKIP bins count for no size."""
-    bins = _bins(torch.float64, torch.int32, 100_000)
+    bins = spgemm.spgemm_bins(torch.float64, 100_000)
     table = bins.copy()
     table[:, 2] = 10
     groups = spgemm.fill_groups(bins, torch.float64, torch.int32, 4)
@@ -234,9 +237,10 @@ def test_by_group_splits_the_launch_table():
 def test_fill_groups_cache_keyed_by_what_changes_the_group():
     """``fill_groups`` is cached by the bins' kinds and slots, the value
     type, the index type and the group cap: each changes the result, and
-    a repeat call is a hit whose array cannot be written."""
+    a repeat call is a hit whose array cannot be written.  At n = 5000
+    (a dense row in shared memory, whose members' values set the group)."""
     spgemm._fill_groups.cache_clear()
-    bins = _bins(torch.float64, torch.int32, 100_000)
+    bins = spgemm.spgemm_bins(torch.float64, 5000)
     a = spgemm.fill_groups(bins, torch.float64, torch.int32, 4)
     b = spgemm.fill_groups(bins, torch.float64, torch.int32, 5)
     assert spgemm._fill_groups.cache_info().hits == 1 and a is b
@@ -247,7 +251,7 @@ def test_fill_groups_cache_keyed_by_what_changes_the_group():
     e = spgemm.fill_groups(bins, torch.float64, torch.int64, 4)
     assert spgemm._fill_groups.cache_info().currsize == 4
     assert not np.array_equal(a, c) and not np.array_equal(a, d)
-    assert e[6] == 4 and a[6] == 4  # the sorted-product bins of 512
+    assert e[5] == 4 and a[5] == 4  # the sorted-product bin of 128
     skipped = bins.copy()
     skipped[5, 0] = spgemm.SKIP
     assert spgemm.fill_groups(skipped, torch.float64, torch.int32,

@@ -348,7 +348,7 @@ def test_row_bounds_count_products(case):
 @pytest.mark.parametrize("itype", INDEX_TYPES)
 @pytest.mark.parametrize("n", [300, 5000, WIDE_N, 10**6])
 def test_bins_table(dtype, itype, n):
-    bins = spgemm.spgemm_bins(dtype, itype, n)
+    bins = spgemm.spgemm_bins(dtype, n)
     kinds, slots, u_max = bins.T
     assert kinds[0] == spgemm.SKIP and u_max[0] == 0
     assert (np.diff(u_max) > 0).all() and u_max[-1] == np.iinfo(np.int64).max
@@ -358,35 +358,39 @@ def test_bins_table(dtype, itype, n):
                                        spgemm.TINY16, spgemm.TINY32]
     assert list(slots[1:1 + tiny]) == list(u_max[1:1 + tiny]) == [4, 8, 16,
                                                                   32]
-    entry = dtype.itemsize + itype.itemsize
-    hashed = bins[1 + tiny:-1]
-    for kind, s, u in hashed:
-        assert kind in (spgemm.SORTED_WARP, spgemm.HASH_BLOCK)
+    middle = bins[1 + tiny:-1]
+    for kind, s, u in middle:
+        assert kind in (spgemm.SORTED_WARP, spgemm.SORTED_BLOCK)
         assert s & (s - 1) == 0 and u > spgemm.TINY_MAX
+        # A warp's or a block's products a row, its region sized to them,
+        # whatever the value type and the members.
+        assert u == s
         if kind == spgemm.SORTED_WARP:
-            # A warp's products a row, its region sized to them.
-            assert u == s and s in spgemm.WARP_PRODUCTS
+            assert s in spgemm.WARP_PRODUCTS
             assert spgemm.group_bytes(kind, s, dtype, itype, 4) == 8 * (
                 s * (2 * itype.itemsize + 2))
         else:
-            assert u == s // 2 and s * entry <= spgemm.SHARED_BUDGET
-    # The sorted-product bins stand where the warp hash tables of 256 and
-    # 1024 slots stood; no bin of 64 (rows of u <= 32 past 32 products
-    # have n <= 32, where the dense row takes them).
-    warp = [tuple(r) for r in hashed[:, :2] if r[0] == spgemm.SORTED_WARP]
-    assert warp == [(spgemm.SORTED_WARP, u)
-                    for u in spgemm.WARP_PRODUCTS][:len(warp)]
+            assert s in spgemm.BLOCK_PRODUCTS
+            assert spgemm.group_bytes(kind, s, dtype, itype, 4) == (
+                s * (2 * itype.itemsize + 8)) <= spgemm.SHARED_BUDGET
+    # The sorted-product bins stand where the hash tables of 256, 1024,
+    # 4096 and 16384 slots stood, in that order; no bin of 64 (rows of
+    # u <= 32 past 32 products have n <= 32, where the dense row takes
+    # them).
+    every = [(spgemm.SORTED_WARP, u) for u in spgemm.WARP_PRODUCTS] + [
+        (spgemm.SORTED_BLOCK, u) for u in spgemm.BLOCK_PRODUCTS]
+    assert [tuple(r) for r in middle[:, :2]] == every[:len(middle)]
     assert 64 not in slots
     dense_fits = n * (dtype.itemsize + 1) <= spgemm.SHARED_BUDGET
     assert kinds[-1] == (spgemm.DENSE_SHARED if dense_fits
                          else spgemm.DENSE_GLOBAL)
     assert slots[-1] == n
     if dense_fits:
-        # Past 32 products a bin stands only where its hash table (2 u
-        # slots) would hold fewer than n / DENSE_RATIO.
-        assert (n > spgemm.DENSE_RATIO * 2 * hashed[:, 2]).all()
+        # Past 32 products a bin stands only where the hash table it
+        # stands for (2 u slots) would hold fewer than n / DENSE_RATIO.
+        assert (n > spgemm.DENSE_RATIO * 2 * middle[:, 2]).all()
     else:
-        assert slots[-2] == spgemm.max_hash_slots(dtype, itype)
+        assert slots[-2] == max(spgemm.BLOCK_PRODUCTS)
     # Routing on ub picks, past 32 products, the bin that u = min(ub, n)
     # would: the accumulators are sized by a row's distinct columns.
     ubs = np.unique(np.concatenate([
@@ -406,7 +410,7 @@ def test_plan_groups_rows_by_bin(itype):
     np_itype = np.int32 if itype == torch.int32 else np.int64
     ip, ix = t(a.indptr.astype(np_itype)), t(a.indices.astype(np_itype))
     plan = spgemm.spgemm_plan(ip, ix, t(b.indptr.astype(np_itype)), WIDE_N,
-                              torch.float64, itype)
+                              torch.float64)
     assert plan.ub.dtype == torch.int64
     assert sorted(plan.rows.tolist()) == list(range(400))
     assert plan.offsets[0] == 0 and plan.offsets[-1] == 400
@@ -419,7 +423,7 @@ def test_plan_groups_rows_by_bin(itype):
         if b_id:
             assert (key[rows] > u_max[b_id - 1]).all()
     assert set(plan.bins[plan.offsets.diff().numpy() > 0, 0]) >= {
-        spgemm.SKIP, spgemm.SORTED_WARP, spgemm.HASH_BLOCK,
+        spgemm.SKIP, spgemm.SORTED_WARP, spgemm.SORTED_BLOCK,
         spgemm.DENSE_GLOBAL}
 
 
@@ -430,17 +434,25 @@ def test_empty_plan_equals_spgemm_plan(m, n):
     a = sps.csr_matrix((m, 5))
     b = sps.csr_matrix((5, n))
     plan = spgemm.spgemm_plan(t(a.indptr), t(a.indices), t(b.indptr), n,
-                              torch.float64, torch.int32)
+                              torch.float64)
     empty = spgemm._empty_plan(m, plan.bins, torch.device("cpu"))
     for got, want in zip(empty[:3], plan[:3]):
         assert got.dtype == want.dtype and torch.equal(got, want)
     npt.assert_array_equal(empty.bins, plan.bins)
 
 
+def plan_slots(a, b, n):
+    """{row: its bin's slots} of spgemm_plan for a @ b with n columns."""
+    plan = spgemm.spgemm_plan(t(a.indptr), t(a.indices), t(b.indptr), n,
+                              torch.float64)
+    return {int(r): int(s) for b_id, (_, s, _) in enumerate(plan.bins)
+            for r in plan.rows[plan.offsets[b_id]:plan.offsets[b_id + 1]]}
+
+
 def routed(a, b, n):
     """{row: bin kind} of spgemm_plan for a @ b with n columns."""
     plan = spgemm.spgemm_plan(t(a.indptr), t(a.indices), t(b.indptr), n,
-                              torch.float64, torch.int32)
+                              torch.float64)
     kind = {}
     for b_id, (k, _, _) in enumerate(plan.bins):
         for r in plan.rows[plan.offsets[b_id]:plan.offsets[b_id + 1]]:
@@ -453,12 +465,16 @@ def test_rows_route_by_products(n):
     """Rows of 1..32 products go to the register bin of the smallest width
     at or above their products, whatever n (also where n < ub); ub = 0 to
     SKIP; a row of 33 products past the register bins (the dense row at
-    n = 8 and 300, the sorted-product bin of a warp at WIDE_N); a row of
-    100 op(A)
-    entries over mostly empty op(B) rows by its products alone."""
+    n = 8 and 300, the sorted-product bin of a warp at WIDE_N); at WIDE_N
+    rows of 512 / 513 products to the bins of a warp's 512 / a block's
+    2048, 2048 / 2049 to a block's 2048 / 8192, 8192 / 8193 to a block's
+    8192 / the device workspace; a row of 100 op(A) entries over mostly
+    empty op(B) rows by its products alone."""
     b_len = [3, 0, 1, 4, 0, 0, 2, 5]  # op(B) rows k, read modulo 8
     ubs = [0, 1, 4, 5, 8, 9, 16, 17, 31, 32, 33, 40]
-    k = 800
+    if n == WIDE_N:
+        ubs += [512, 513, 2048, 2049, 8192, 8193]
+    k = 8 * 2731
     a_rows = []
     for ub in ubs:  # entries over op(B) rows 0 (3 each) and 2 (1) reach ub
         a_rows.append([8 * s for s in range(ub // 3)]
@@ -481,7 +497,13 @@ def test_rows_route_by_products(n):
             g = min(w for w in spgemm.TINY_KINDS if w >= products)
             want = spgemm.TINY_KINDS[g]
         elif n == WIDE_N:
-            want = spgemm.SORTED_WARP
+            want = (spgemm.SORTED_WARP if products <= 512 else
+                    spgemm.SORTED_BLOCK if products <= 8192 else
+                    spgemm.DENSE_GLOBAL)
+            held = {512: 512, 513: 2048, 2048: 2048, 2049: 8192,
+                    8192: 8192}.get(products)
+            if held:
+                assert plan_slots(a, b, n)[row] == held
         else:
             want = spgemm.DENSE_SHARED
         assert kind[row] == want, (row, products)
@@ -498,7 +520,7 @@ def test_launch_table_skips_empty_bins(sizes):
     four register bins (one launch) SKIP only when all four are empty."""
     a, b = wide()
     plan = spgemm.spgemm_plan(t(a.indptr), t(a.indices), t(b.indptr),
-                              WIDE_N, torch.float64, torch.int32)
+                              WIDE_N, torch.float64)
     assert len(plan.bins) == 10
     table = spgemm._launch_table(plan, 6, sizes)
     npt.assert_array_equal(table[:, 1], plan.bins[:, 1])
@@ -791,7 +813,7 @@ def test_sorted_path_matches_plain(case, triangular):
     indptr, indices, data = spgemm.spgemm_plain(*args, triangular=triangular)
     kind, ub = routed(a, b, SORTED_WIDTH)
     plan = spgemm.spgemm_plan(args[0], args[1], args[3], SORTED_WIDTH,
-                              torch.float64, torch.int32)
+                              torch.float64)
     seen, longest = set(), 0
     for b_id, (k, u, _) in enumerate(plan.bins):
         if k != spgemm.SORTED_WARP:
@@ -815,12 +837,245 @@ def test_sorted_path_matches_plain(case, triangular):
         assert seen == {128, 512} and longest > 32
 
 
+BLOCK_THREADS = 256
+BLOCK_WIDTH = 40_000  # past 8 x 2 x 2048 and a dense f64 row: every bin
+NO_KEY64 = np.uint64((1 << 64) - 1)
+
+
+def bitonic_in_warps(key, rr, size, strides):
+    """Stages ``strides`` of the network over ``key`` (warps x rr x 32:
+    position 32 rr w + 32 r + lane), each inside a warp: strides below 32
+    between lanes (each lane keeps the min or the max of its pair, as the
+    shuffles give it), wider ones between a lane's registers r and r | rs
+    (the lower keeps the min where its block of ``size`` ascends)."""
+    warps = key.shape[0]
+    e = (32 * rr * np.arange(warps)[:, None, None]
+         + 32 * np.arange(rr)[None, :, None] + np.arange(32)[None, None, :])
+    for stride in strides:
+        if stride >= 32:
+            rs = stride >> 5
+            for r in range(rr):
+                if r & rs:
+                    continue
+                up = ((e[:, r, 0] & size) == 0)[:, None]
+                a, b = key[:, r].copy(), key[:, r | rs].copy()
+                lo, hi = np.minimum(a, b), np.maximum(a, b)
+                key[:, r] = np.where(up, lo, hi)
+                key[:, r | rs] = np.where(up, hi, lo)
+        else:
+            other = key[:, :, np.arange(32) ^ stride]
+            keep_min = ((e & stride) == 0) == ((e & size) == 0)
+            key[:] = np.where(keep_min, np.minimum(key, other),
+                              np.maximum(key, other))
+    return key
+
+
+def block_sort(key, rr):
+    """csrc/csr_spgemm_block.cuh, sort_block_keys: for each size, the
+    strides that cross warps (sizes past 32 rr) on the flat array in
+    shared memory (pairs lo = 2 t - (t & (stride - 1)), hi = lo + stride,
+    t the pair index a thread takes), then the strides below the size, at
+    most 16 rr, in registers and shuffles."""
+    n = key.size
+    size = 2
+    while size <= n:
+        if size > 32 * rr:
+            xs = key.reshape(-1).copy()
+            stride = size >> 1
+            while stride >= 32 * rr:
+                t = np.arange(n // 2)
+                lo = 2 * t - (t & (stride - 1))
+                hi = lo + stride
+                up = (lo & size) == 0
+                a, b = xs[lo].copy(), xs[hi].copy()
+                swap = (a > b) == up
+                xs[lo] = np.where(swap, b, a)
+                xs[hi] = np.where(swap, a, b)
+                stride >>= 1
+            key = xs.reshape(key.shape)
+        key = bitonic_in_warps(key, rr, size,
+                               [s for s in _halvings(16 * rr) if s < size])
+        size *= 2
+    return key
+
+
+def _halvings(top):
+    out = []
+    while top:
+        out.append(top)
+        top >>= 1
+    return out
+
+
+def block_row(a, b, i, u, triangular):
+    """K4/K5's block-sorted path (csrc/csr_spgemm_block.cuh,
+    spgemm_block_kernel, block_finish and block_count_by_table) for row i
+    of a @ b in a block bin of u products, as a block of 256 threads runs
+    it: op(A)'s entries
+    256 at a time, their op(B) row lengths scanned across the block (the
+    count carried across chunks), product 256 t + tid on thread tid found
+    by the kernel's binary search of the scan; keys (column << log2 u) |
+    product index, each product's (op(A) entry, op(B) entry) staged; the
+    sort of 256 rr keys (rr = u / 512 or u / 256 a thread, by the row's
+    products: ``block_sort``); the heads, the one at a warp's first
+    position against the previous warp's last key; each head's fold of its
+    run in product order through the staged entries, up to the next head
+    or the first empty position, across warps.  Also K4's count: the
+    live columns inserted into a table of pow2(2 ub) slots by the
+    kernel's linear probing.  Returns (count, columns, values, the
+    longest run, K4's count)."""
+    g, r_max = BLOCK_THREADS, u // BLOCK_THREADS
+    bits = u.bit_length() - 1
+    p0, p1 = int(a.indptr[i]), int(a.indptr[i + 1])
+    col = np.full((r_max, g), -1, dtype=np.int64)
+    staged = {}
+    carry = 0
+    tid = np.arange(g)
+    for c in range(p0, p1, g):
+        p = c + tid
+        ks = a.indices[np.minimum(p, p1 - 1)]
+        start = np.where(p < p1, b.indptr[ks], 0)
+        length = np.where(p < p1, b.indptr[ks + 1] - b.indptr[ks], 0)
+        excl = np.cumsum(length) - length
+        total = int(length.sum())
+        for t in range(r_max):
+            v = g * t + tid - carry
+            s = np.zeros(g, dtype=np.int64)
+            step = g // 2
+            while step:
+                s = np.where(excl[s + step] <= v, s + step, s)
+                step //= 2
+            live = (v >= 0) & (v < total)
+            q = start[s] + v - excl[s]
+            col[t, live] = b.indices[q[live]]
+            for th in np.flatnonzero(live):
+                staged[g * t + th] = (c + int(s[th]), int(q[th]))
+        carry += total
+    assert carry <= u
+    rr = r_max // 2 if carry <= u // 2 else r_max
+    warps = g // 32
+    # key of thread (w, lane), round r at position 32 rr w + 32 r + lane
+    key = np.full((warps, rr, 32), NO_KEY64, dtype=np.uint64)
+    for r in range(rr):
+        for th in range(g):
+            j = int(col[r, th])
+            if j >= 0 and (not triangular or j >= i):
+                key[th // 32, r, th % 32] = np.uint64(j << bits
+                                                      | (g * r + th))
+    key = block_sort(key, rr)
+    flat = [int(k) for k in key.reshape(-1)]
+    assert flat == sorted(flat)
+    no_key = int(NO_KEY64)
+    head = [k != no_key and (e == 0 or flat[e - 1] >> bits != k >> bits)
+            for e, k in enumerate(flat)]
+    order = [0xFFFF if k == no_key else (k & (u - 1)) | (0x8000 if h else 0)
+             for k, h in zip(flat, head)]
+    cols, sums, longest = [], [], 0
+    for e, k in enumerate(flat):
+        if not head[e]:
+            continue
+        pid, acc, run = k & (u - 1), 0, 0
+        while True:
+            pa, q = staged[pid]
+            acc = acc + a.data[pa] * b.data[q]
+            run += 1
+            e += 1
+            if e >= len(flat) or order[e] & 0x8000:
+                break
+            pid = order[e]
+        cols.append(k >> bits)
+        sums.append(acc)
+        longest = max(longest, run)
+    slots = 2 if carry <= 1 else 1 << (2 * carry - 1).bit_length()
+    table = [-1] * slots
+    fresh = 0
+    for j in col.reshape(-1):
+        if j < 0 or (triangular and j < i):
+            continue
+        h = (int(j) * 0x9E3779B97F4A7C15) % (1 << 64)
+        s = (h ^ (h >> 29)) & (slots - 1)
+        while table[s] not in (-1, j):
+            s = (s + 1) & (slots - 1)
+        fresh += table[s] == -1
+        table[s] = j
+    return sum(head), cols, sums, longest, fresh
+
+
+# (op(A) row lengths, op(B) row lengths in turn, the lowest column of
+# op(B)): rows of exactly 513, 2048, 2049 and 8192 products and one of
+# 8193 (past the block bins: a dense row), op(A) rows longer than a
+# block's 256 entries walked in chunks; then rows of 800-6000 products
+# over op(B) rows that share 16 columns, so that a column's run is
+# longer than a warp's register of 32 keys and crosses warps.
+BLOCK_CASES = (((513, 2048, 2049, 8192, 8193), (1,), 0),
+               ((171, 683, 2731), (3,), 0),
+               ((200, 600, 1500), (4, 3, 5), BLOCK_WIDTH - 16))
+
+
+def block_case(case):
+    """op(A) (6 rows, k = 9000) and op(B) of BLOCK_CASES[case], values in
+    {-1, 0, 1, 2}: sums exact, some cancelled to a stored 0."""
+    a_rows, b_rows, low = BLOCK_CASES[case]
+    rng = np.random.default_rng(57 + case)
+    k = 9000
+    a = rows_of([a_rows[i % len(a_rows)] for i in range(6)], k,
+                seed=58 + case)
+    b = rows_of([b_rows[i % len(b_rows)] for i in range(k)],
+                BLOCK_WIDTH - low, seed=68 + case)
+    b = sps.csr_matrix((b.data, b.indices + low, b.indptr),
+                       shape=(k, BLOCK_WIDTH))
+    a.data = rng.choice([-1.0, 0.0, 1.0, 2.0], a.nnz)
+    b.data = rng.choice([-1.0, 1.0, 2.0], b.nnz)
+    return a, b
+
+
+@pytest.mark.parametrize("triangular", [False, True])
+@pytest.mark.parametrize("case", range(len(BLOCK_CASES)))
+def test_block_path_matches_plain(case, triangular):
+    """Every row that the plan sends to a block-sorted bin, run as its
+    block runs it, gives the plain ESC's count (K4's table and K5's
+    heads), columns and values, bit for bit; the rows of exact sizes reach
+    the bins their products name (8193 products: past them, the dense
+    row), and the shared columns make runs longer than a register of 32
+    keys."""
+    a, b = block_case(case)
+    args = csr_args(a, b)
+    indptr, indices, data = spgemm.spgemm_plain(*args, triangular=triangular)
+    kind, ub = routed(a, b, BLOCK_WIDTH)
+    plan = spgemm.spgemm_plan(args[0], args[1], args[3], BLOCK_WIDTH,
+                              torch.float64)
+    seen, longest = set(), 0
+    for b_id, (k, u, _) in enumerate(plan.bins):
+        if k != spgemm.SORTED_BLOCK:
+            continue
+        for i in plan.rows[plan.offsets[b_id]:plan.offsets[b_id + 1]]:
+            i = int(i)
+            assert kind[i] == spgemm.SORTED_BLOCK and u // 4 < ub[i] <= u
+            count, cols, sums, run, k4 = block_row(a, b, i, int(u),
+                                                   triangular)
+            lo, hi = int(indptr[i]), int(indptr[i + 1])
+            assert count == k4 == hi - lo
+            assert cols == indices[lo:hi].tolist()
+            npt.assert_array_equal(np.array(sums), data[lo:hi].numpy())
+            seen.add(int(u))
+            longest = max(longest, run)
+    assert seen == set(spgemm.BLOCK_PRODUCTS)
+    a_rows, b_rows, low = BLOCK_CASES[case]
+    if not low:
+        products = {r * b_rows[0] for r in a_rows}
+        assert sorted(set(ub)) == sorted(products)
+        past = [i for i in range(len(ub)) if ub[i] > 8192]
+        assert past and all(kind[i] == spgemm.DENSE_GLOBAL for i in past)
+    else:
+        assert longest > 32
+
+
 def test_long_row_goes_to_the_device_workspace():
     """The row whose products exceed the largest shared-memory table, at
     an n too wide for a dense row in shared memory, takes the workspace."""
     a, b = wide()
     plan = spgemm.spgemm_plan(t(a.indptr), t(a.indices), t(b.indptr),
-                              WIDE_N, torch.float64, torch.int32)
+                              WIDE_N, torch.float64)
     last = plan.rows[plan.offsets[-2]:plan.offsets[-1]].tolist()
     assert plan.bins[-1, 0] == spgemm.DENSE_GLOBAL
     assert last == [list(np.diff(a.indptr)).index(LONG_ROW)]
@@ -843,7 +1098,7 @@ def test_wrappers_on_cpu_take_the_plain_versions(triangular):
     args = csr_args(a, b)
     indptr, indices, data = spgemm.csr_spgemm(*args, triangular=triangular)
     plan = spgemm.spgemm_plan(args[0], args[1], args[3], args[6],
-                              args[2].dtype, args[0].dtype)
+                              args[2].dtype)
     counts = spgemm.csr_spgemm_count(args[0], args[1], args[3], args[4],
                                      args[6], plan, triangular)
     assert torch.equal(counts, indptr.long().diff())
@@ -939,10 +1194,24 @@ def test_poisson_product_in_the_warp_bins_matches_jax():
     n = 20_000
     a, b = poisson_csr(2000, n, 10, 40), poisson_csr(n, n, 10, 41)
     plan = spgemm.spgemm_plan(t(a.indptr), t(a.indices), t(b.indptr), n,
-                              torch.float64, torch.int32)
+                              torch.float64)
     held = {(int(k), int(s)) for (k, s, _), rows in zip(
         plan.bins, plan.offsets.diff().tolist()) if rows}
     assert {(spgemm.SORTED_WARP, u) for u in spgemm.WARP_PRODUCTS} <= held
+    assert_same_result(sdtt.dot_product(a, b), sdt.dot_product(a, b))
+
+
+def test_poisson_product_in_the_block_bins_matches_jax():
+    """A 400 x 30,000 Poisson(30) A times a 30,000^2 Poisson(30) B (about
+    900 products a row), whose plan puts rows in the block-sorted bin of
+    2048, through both packages' ``dot_product``."""
+    n = 30_000
+    a, b = poisson_csr(400, n, 30, 42), poisson_csr(n, n, 30, 43)
+    plan = spgemm.spgemm_plan(t(a.indptr), t(a.indices), t(b.indptr), n,
+                              torch.float64)
+    held = {(int(k), int(s)): rows for (k, s, _), rows in zip(
+        plan.bins, plan.offsets.diff().tolist()) if rows}
+    assert held.get((spgemm.SORTED_BLOCK, 2048), 0) > 300
     assert_same_result(sdtt.dot_product(a, b), sdt.dot_product(a, b))
 
 
